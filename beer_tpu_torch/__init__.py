@@ -7,9 +7,12 @@ JAX package ``beer_tpu`` is the reference this package is tested against;
 the natural-parameter layouts are the same, so weights carry across
 (:mod:`beer_tpu_torch.convert`).
 
-This slice covers the phone-loop acoustic-unit-discovery model with a
-diagonal NormalSet: VB-EM steps (:func:`vb_step`) and Viterbi decoding
-(``PhoneLoop.decode_units``).
+Ported so far: the phone-loop acoustic-unit-discovery model with a
+diagonal NormalSet (BASELINE config 4), and the Bayesian HMM over state
+graphs with diagonal NormalSet or MixtureSet emissions and optionally
+learned transitions (ergodic HMMs, config 2; the supervised recognizer
+on transcription graphs, config 3): VB-EM steps (:func:`vb_step`),
+posteriors and Viterbi decoding.
 
 Importing the package turns TF32 off for float32 matmuls and
 convolutions: the expected log-likelihood and the moment accumulation
@@ -22,7 +25,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from beer_tpu_torch import dists  # noqa: E402
-from beer_tpu_torch.convert import phone_loop_from_numpy  # noqa: E402
+from beer_tpu_torch.convert import (  # noqa: E402
+    hmm_from_numpy,
+    mixture_set_from_numpy,
+    normal_set_from_numpy,
+    phone_loop_from_numpy,
+)
 from beer_tpu_torch.models import *  # noqa: E402,F401,F403
 from beer_tpu_torch.vbi import (  # noqa: E402
     ELBO,
@@ -37,6 +45,9 @@ __version__ = "0.1.0"
 __all__ = [
     "dists",
     "phone_loop_from_numpy",
+    "hmm_from_numpy",
+    "mixture_set_from_numpy",
+    "normal_set_from_numpy",
     "Model",
     "DiscreteLatentModel",
     "ModelSet",
@@ -45,7 +56,15 @@ __all__ = [
     "Categorical",
     "SBCategorical",
     "CompiledGraph",
+    "Graph",
     "LOG_ZERO",
+    "bigram_lm",
+    "ergodic",
+    "left_to_right",
+    "phone_loop_graph",
+    "transcription_graphs",
+    "HMM",
+    "MixtureSet",
     "PhoneLoop",
     "ELBO",
     "VBConjugateOptimizer",

@@ -1,17 +1,26 @@
-"""Weights carried across: build the port's PhoneLoop from numpy arrays.
+"""Weights carried across: build the port's models from numpy arrays.
 
-The dict layout (numpy arrays and Python statics):
+The natural-parameter layouts are the JAX package's, so a model exported
+from either package loads into the other.  Each ``*_from_numpy`` is the
+inverse of the model's ``to_numpy()``.
 
-* ``modelset_prior`` / ``modelset_posterior`` (S, 4D) — NormalGamma
-  natural parameters of the diagonal NormalSet,
-* ``sticks_prior`` / ``sticks_posterior`` (U−1, 2) — Beta natural
-  parameters of the SBCategorical unit prior,
-* ``base_log_trans`` (S, S), ``log_exit`` (U,) or None,
-* ``n_units``, ``states_per_unit``, ``self_loop``, ``dim``, ``cov_type``.
-
-The natural-parameter layouts are the JAX package's, so a model
-exported from either package loads into the other.  The reverse is
-:meth:`beer_tpu_torch.models.phoneloop.PhoneLoop.to_numpy`.
+* PhoneLoop (:func:`phone_loop_from_numpy`): ``modelset_prior`` /
+  ``modelset_posterior`` (S, 4D) NormalGamma natural parameters of the
+  diagonal NormalSet, ``sticks_prior`` / ``sticks_posterior`` (U−1, 2)
+  Beta natural parameters of the SBCategorical unit prior,
+  ``base_log_trans`` (S, S), ``log_exit`` (U,) or None, ``n_units``,
+  ``states_per_unit``, ``self_loop``, ``dim``, ``cov_type``.
+* NormalSet (:func:`normal_set_from_numpy`): ``type`` "NormalSet",
+  ``prior`` / ``posterior`` (K, 4D), ``dim``, ``cov_type``.
+* MixtureSet (:func:`mixture_set_from_numpy`): ``type`` "MixtureSet",
+  ``weights_prior`` / ``weights_posterior`` (S, K) Dirichlet natural
+  parameters, ``nmix``, ``ncomp_per_mix`` and ``modelset``, a NormalSet
+  dict.
+* HMM (:func:`hmm_from_numpy`): the compiled graph (``log_init``,
+  ``log_final``, ``log_trans``, ``pdf_ids``, ``n_states``, ``n_pdfs``,
+  ``l2r_banded``), ``modelset`` (a NormalSet or MixtureSet dict) and the
+  transition Dirichlet ``trans_alpha_prior`` / ``trans_alpha_post``
+  (S, S), or None for fixed transitions.
 """
 
 from __future__ import annotations
@@ -23,27 +32,39 @@ import torch
 
 from beer_tpu_torch import dists
 from beer_tpu_torch.models.categorical import SBCategorical
+from beer_tpu_torch.models.graph import CompiledGraph
+from beer_tpu_torch.models.hmm import HMM
+from beer_tpu_torch.models.mixture import MixtureSet
 from beer_tpu_torch.models.normal import NormalSet
 from beer_tpu_torch.models.parameters import BayesianParameter
 from beer_tpu_torch.models.phoneloop import PhoneLoop
+
+
+def _tensor(x, dtype=None, device=None) -> torch.Tensor:
+    """Always a copy: the port updates its buffers in place."""
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _normal_set(prior, posterior, dim, cov_type, dtype, device) -> NormalSet:
+    prior = _tensor(prior, dtype, device)
+    k, p = prior.shape
+    if p != 4 * dim:
+        raise ValueError(f"modelset parameters have width {p}, expected 4·dim = {4 * dim}")
+    return NormalSet(
+        BayesianParameter(prior, _tensor(posterior, dtype, device), dists.NormalGamma(dim=dim)),
+        cov_type=cov_type, ncomp=k, dim=dim,
+    )
 
 
 def phone_loop_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> PhoneLoop:
     """A PhoneLoop on ``device`` (default CPU) in ``dtype`` (default: the
     arrays' own floating type)."""
 
-    def t(x):  # always a copy: the port updates its buffers in place
-        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    def t(x):
+        return _tensor(x, dtype, device)
 
-    prior = t(d["modelset_prior"])
-    s, p = prior.shape
-    dim = int(d["dim"])
-    if p != 4 * dim:
-        raise ValueError(f"modelset parameters have width {p}, expected 4·dim = {4 * dim}")
-    nset = NormalSet(
-        BayesianParameter(prior, t(d["modelset_posterior"]), dists.NormalGamma(dim=dim)),
-        cov_type=d["cov_type"], ncomp=s, dim=dim,
-    )
+    nset = _normal_set(d["modelset_prior"], d["modelset_posterior"], int(d["dim"]),
+                       d["cov_type"], dtype, device)
     n_units = int(d["n_units"])
     unit_prior = SBCategorical(
         BayesianParameter(t(d["sticks_prior"]), t(d["sticks_posterior"]), dists.Beta()),
@@ -52,3 +73,37 @@ def phone_loop_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> PhoneLo
     log_exit = None if d.get("log_exit") is None else t(d["log_exit"])
     return PhoneLoop(nset, unit_prior, t(d["base_log_trans"]), log_exit, n_units,
                      int(d["states_per_unit"]), float(d["self_loop"]))
+
+
+def normal_set_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> NormalSet:
+    return _normal_set(d["prior"], d["posterior"], int(d["dim"]), d["cov_type"], dtype, device)
+
+
+def mixture_set_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> MixtureSet:
+    nmix, ncomp = int(d["nmix"]), int(d["ncomp_per_mix"])
+    weights = BayesianParameter(_tensor(d["weights_prior"], dtype, device),
+                                _tensor(d["weights_posterior"], dtype, device),
+                                dists.Dirichlet(dim=ncomp))
+    return MixtureSet(weights, normal_set_from_numpy(d["modelset"], device, dtype), nmix, ncomp)
+
+
+def modelset_from_numpy(d: Dict[str, Any], device=None, dtype=None):
+    """A NormalSet or MixtureSet, by the dict's ``type``."""
+    builders = {"NormalSet": normal_set_from_numpy, "MixtureSet": mixture_set_from_numpy}
+    if d["type"] not in builders:
+        raise ValueError(f"unknown modelset type {d['type']!r}")
+    return builders[d["type"]](d, device, dtype)
+
+
+def hmm_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> HMM:
+    """An HMM on ``device`` (default CPU) in ``dtype`` (default: the
+    arrays' own floating type)."""
+
+    def t(x):
+        return None if x is None else _tensor(x, dtype, device)
+
+    graph = CompiledGraph(t(d["log_init"]), t(d["log_final"]), t(d["log_trans"]),
+                          _tensor(d["pdf_ids"], torch.int64, device), int(d["n_states"]),
+                          int(d["n_pdfs"]), bool(d.get("l2r_banded", False)))
+    return HMM(graph, modelset_from_numpy(d["modelset"], device, dtype),
+               t(d.get("trans_alpha_prior")), t(d.get("trans_alpha_post")))

@@ -26,107 +26,9 @@
 // Masks are prefix masks rebuilt from per-utterance lengths; an
 // utterance of length 0 contributes nothing to any sum.
 
-#include <cuda_runtime.h>
-
-#include <cfloat>
-#include <cstddef>
-#include <cstdint>
+#include "scan_common.cuh"
 
 namespace {
-
-constexpr float kNeg = -1e30f;      // LOG_ZERO of the JAX package
-constexpr float kXiFloor = 1e-30f;  // ξ-weight floor of the JAX package
-constexpr int kMaxWarps = 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block reduction of (max a, sum b): every thread gets both results.
-// The leading barrier keeps `scratch` from being overwritten while the
-// previous reduction is still being read, and orders shared-memory
-// writes made before the call ahead of any read after it.
-__device__ __forceinline__ void block_max_sum(float& a, float& b, float* scratch) {
-  a = warp_max(a);
-  b = warp_sum(b);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  __syncthreads();
-  if (lane == 0) {
-    scratch[warp] = a;
-    scratch[kMaxWarps + warp] = b;
-  }
-  __syncthreads();
-  a = scratch[0];
-  b = scratch[kMaxWarps];
-  for (int i = 1; i < nw; ++i) {
-    a = fmaxf(a, scratch[i]);
-    b += scratch[kMaxWarps + i];
-  }
-}
-
-// Block reduction of (sum a, sum b); same contract as block_max_sum.
-__device__ __forceinline__ void block_sum_sum(float& a, float& b, float* scratch) {
-  a = warp_sum(a);
-  b = warp_sum(b);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  __syncthreads();
-  if (lane == 0) {
-    scratch[warp] = a;
-    scratch[kMaxWarps + warp] = b;
-  }
-  __syncthreads();
-  a = scratch[0];
-  b = scratch[kMaxWarps];
-  for (int i = 1; i < nw; ++i) {
-    a += scratch[i];
-    b += scratch[kMaxWarps + i];
-  }
-}
-
-// Block arg-max: the largest value, ties to the smallest index.
-__device__ __forceinline__ void block_argmax(float& v, int& idx, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, idx, o);
-    if (ov > v || (ov == v && oi < idx)) {
-      v = ov;
-      idx = oi;
-    }
-  }
-  int* iscratch = reinterpret_cast<int*>(scratch + kMaxWarps);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  __syncthreads();
-  if (lane == 0) {
-    scratch[warp] = v;
-    iscratch[warp] = idx;
-  }
-  __syncthreads();
-  v = scratch[0];
-  idx = iscratch[0];
-  for (int i = 1; i < nw; ++i) {
-    const float ov = scratch[i];
-    const int oi = iscratch[i];
-    if (ov > v || (ov == v && oi < idx)) {
-      v = ov;
-      idx = oi;
-    }
-  }
-}
-
-// Shared-memory row strides: odd, so that threads walking a column of
-// W or of the accumulator (one state each) hit distinct banks.
-__host__ __device__ inline int odd_stride(int n) { return n | 1; }
-
-int threads_for(int s) {
-  int t = ((s + 31) / 32) * 32;
-  return t > 1024 ? 1024 : t;
-}
 
 size_t forward_smem_floats(int s, int p) {
   return static_cast<size_t>(s) * odd_stride(p) + 7 * static_cast<size_t>(s) + p + 2 * kMaxWarps;
@@ -382,15 +284,6 @@ __global__ void estep_acc_banded_kernel(
   }
 }
 
-// Column sums of a (B, N) row-major array in a fixed order (f64 accumulator).
-__global__ void sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out, int B, int N) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= N) return;
-  double acc = 0.0;
-  for (int b = 0; b < B; ++b) acc += part[static_cast<size_t>(b) * N + k];
-  out[k] = static_cast<float>(acc);
-}
-
 // ---------------------------------------------------------------------
 // K3 — banded (max,+) Viterbi forward.
 // Replaces beer_tpu/ops/pallas_scan.py _make_viterbi_banded_kernel
@@ -478,7 +371,9 @@ __global__ void viterbi_fwd_banded_kernel(
 // package computes beside the kernel is folded in.  One thread per
 // utterance: paths[T−1] = argmax(α_last + log_final) (first max), then
 // stay / state − 1 / exit index by the stored choice (clamped at state
-// 0).  Bound: the
+// 0).  ``log_final`` is one (S,) vector (final_stride 0) or one row per
+// utterance (final_stride S: the shared transcription graphs of the
+// recognizer end each utterance in its own state).  Bound: the
 // latency of T dependent loads per thread (a pointer chase); B threads
 // run in parallel.
 // ---------------------------------------------------------------------
@@ -486,17 +381,18 @@ __global__ void viterbi_backtrace_kernel(
     const int8_t* __restrict__ choices,     // (B, T, S)
     const int* __restrict__ exarg,          // (B, T)
     const float* __restrict__ alpha_last,   // (B, S)
-    const float* __restrict__ log_final,    // (S,)
+    const float* __restrict__ log_final,    // (S,) or (B, S)
     int* __restrict__ paths,                // (B, T)
     float* __restrict__ scores,             // (B,)
-    int B, int T, int S) {
+    int B, int T, int S, int final_stride) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const float* a = alpha_last + static_cast<size_t>(b) * S;
-  float best = a[0] + log_final[0];
+  const float* lf = log_final + static_cast<size_t>(b) * final_stride;
+  float best = a[0] + lf[0];
   int st = 0;
   for (int s = 1; s < S; ++s) {
-    const float v = a[s] + log_final[s];
+    const float v = a[s] + lf[s];
     if (v > best) {
       best = v;
       st = s;
@@ -514,13 +410,6 @@ __global__ void viterbi_backtrace_kernel(
     st = st < 0 ? 0 : st;  // an advance into state 0 needs an all-unreachable row
     p_b[t - 1] = st;
   }
-}
-
-// Dynamic shared memory above 48 KB must be opted into per kernel.
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
 }
 
 }  // namespace
@@ -542,7 +431,8 @@ int beer_forward_llh_banded(int device, const float* stats, const int* lens, con
   err = set_smem(forward_llh_banded_kernel, smem);
   if (err != cudaSuccess) return err;
   if (B == 0) return cudaSuccess;
-  forward_llh_banded_kernel<<<B, threads_for(S), smem, static_cast<cudaStream_t>(stream)>>>(
+  const int nt = block_threads(forward_llh_banded_kernel, S);
+  forward_llh_banded_kernel<<<B, nt, smem, static_cast<cudaStream_t>(stream)>>>(
       stats, lens, w, bias, bands, init, alpha, norms, last, logz, T, S, P);
   return cudaGetLastError();
 }
@@ -559,8 +449,9 @@ int beer_estep_acc_banded(int device, const float* stats, const int* lens, const
   const int n = S * (P + 1) + U * U;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0) {
-    estep_acc_banded_kernel<<<B, threads_for(S), smem, st>>>(stats, lens, w, bias, bands, final_, alpha, norms,
-                                                            ends, starts, part, gamma0, T, S, P, U);
+    const int nt = block_threads(estep_acc_banded_kernel, S);
+    estep_acc_banded_kernel<<<B, nt, smem, st>>>(stats, lens, w, bias, bands, final_, alpha, norms, ends, starts,
+                                                 part, gamma0, T, S, P, U);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -577,19 +468,20 @@ int beer_viterbi_fwd_banded(int device, const float* llh, const int* lens, const
   const size_t smem = (6 * static_cast<size_t>(S) + 2 * kMaxWarps) * sizeof(float);
   err = set_smem(viterbi_fwd_banded_kernel, smem);
   if (err != cudaSuccess) return err;
-  viterbi_fwd_banded_kernel<<<B, threads_for(S), smem, static_cast<cudaStream_t>(stream)>>>(
+  const int nt = block_threads(viterbi_fwd_banded_kernel, S);
+  viterbi_fwd_banded_kernel<<<B, nt, smem, static_cast<cudaStream_t>(stream)>>>(
       llh, lens, lbands, log_init, choices, exarg, alpha_last, T, S);
   return cudaGetLastError();
 }
 
 int beer_viterbi_backtrace_banded(int device, const int8_t* choices, const int* exarg, const float* alpha_last,
                                   const float* log_final, int* paths, float* scores, int B, int T, int S,
-                                  void* stream) {
+                                  int final_stride, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0) return cudaSuccess;
   viterbi_backtrace_kernel<<<(B + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      choices, exarg, alpha_last, log_final, paths, scores, B, T, S);
+      choices, exarg, alpha_last, log_final, paths, scores, B, T, S, final_stride);
   return cudaGetLastError();
 }
 

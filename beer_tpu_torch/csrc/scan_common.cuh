@@ -1,0 +1,140 @@
+// Helpers shared by the scan kernels of phone_loop_scan.cu and hmm_scan.cu:
+// block-wide reductions that broadcast their result to every thread, the
+// launch geometry (one block per utterance, threads over states), and the
+// fixed-order batch sum of per-utterance partials.  Each .cu file is its own
+// translation unit; everything here lives in an anonymous namespace.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cfloat>
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr float kNeg = -1e30f;      // LOG_ZERO of the JAX package
+constexpr float kXiFloor = 1e-30f;  // ξ-weight floor of the JAX package
+constexpr int kMaxWarps = 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block reduction of (max a, sum b): every thread gets both results.
+// The leading barrier keeps `scratch` from being overwritten while the
+// previous reduction is still being read, and orders shared-memory
+// writes made before the call ahead of any read after it.
+__device__ __forceinline__ void block_max_sum(float& a, float& b, float* scratch) {
+  a = warp_max(a);
+  b = warp_sum(b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  __syncthreads();
+  if (lane == 0) {
+    scratch[warp] = a;
+    scratch[kMaxWarps + warp] = b;
+  }
+  __syncthreads();
+  a = scratch[0];
+  b = scratch[kMaxWarps];
+  for (int i = 1; i < nw; ++i) {
+    a = fmaxf(a, scratch[i]);
+    b += scratch[kMaxWarps + i];
+  }
+}
+
+// Block reduction of (sum a, sum b); same contract as block_max_sum.
+__device__ __forceinline__ void block_sum_sum(float& a, float& b, float* scratch) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  __syncthreads();
+  if (lane == 0) {
+    scratch[warp] = a;
+    scratch[kMaxWarps + warp] = b;
+  }
+  __syncthreads();
+  a = scratch[0];
+  b = scratch[kMaxWarps];
+  for (int i = 1; i < nw; ++i) {
+    a += scratch[i];
+    b += scratch[kMaxWarps + i];
+  }
+}
+
+// Block arg-max: the largest value, ties to the smallest index.
+__device__ __forceinline__ void block_argmax(float& v, int& idx, float* scratch) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, idx, o);
+    if (ov > v || (ov == v && oi < idx)) {
+      v = ov;
+      idx = oi;
+    }
+  }
+  int* iscratch = reinterpret_cast<int*>(scratch + kMaxWarps);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  __syncthreads();
+  if (lane == 0) {
+    scratch[warp] = v;
+    iscratch[warp] = idx;
+  }
+  __syncthreads();
+  v = scratch[0];
+  idx = iscratch[0];
+  for (int i = 1; i < nw; ++i) {
+    const float ov = scratch[i];
+    const int oi = iscratch[i];
+    if (ov > v || (ov == v && oi < idx)) {
+      v = ov;
+      idx = oi;
+    }
+  }
+}
+
+// Shared-memory row strides: odd, so that threads walking a column of
+// a row-major array (one row each) hit distinct banks.
+__host__ __device__ inline int odd_stride(int n) { return n | 1; }
+
+inline int threads_for(int s) {
+  int t = ((s + 31) / 32) * 32;
+  return t > 1024 ? 1024 : t;
+}
+
+// Threads of a kernel that walks S states in strided loops: threads_for(S),
+// capped at what the kernel can launch with.  A kernel that holds many
+// registers per thread cannot launch 1024 threads (111 registers × 1024
+// exceeds the SM's 65,536), and such a launch is refused.
+template <typename Kernel>
+int block_threads(Kernel kernel, int s) {
+  cudaFuncAttributes attr;
+  int cap = 1024;
+  if (cudaFuncGetAttributes(&attr, kernel) == cudaSuccess) cap = attr.maxThreadsPerBlock / 32 * 32;
+  const int t = threads_for(s);
+  return t < cap ? t : cap;
+}
+
+// Column sums of a (B, N) row-major array in a fixed order (f64 accumulator).
+__global__ void sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out, int B, int N) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= N) return;
+  double acc = 0.0;
+  for (int b = 0; b < B; ++b) acc += part[static_cast<size_t>(b) * N + k];
+  out[k] = static_cast<float>(acc);
+}
+
+// Dynamic shared memory above 48 KB must be opted into per kernel.
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+}
+
+}  // namespace

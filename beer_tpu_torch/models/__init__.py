@@ -2,7 +2,18 @@
 
 from beer_tpu_torch.models.basemodel import DiscreteLatentModel, Model
 from beer_tpu_torch.models.categorical import Categorical, SBCategorical
-from beer_tpu_torch.models.graph import LOG_ZERO, CompiledGraph
+from beer_tpu_torch.models.graph import (
+    LOG_ZERO,
+    CompiledGraph,
+    Graph,
+    bigram_lm,
+    ergodic,
+    left_to_right,
+    phone_loop_graph,
+    transcription_graphs,
+)
+from beer_tpu_torch.models.hmm import HMM
+from beer_tpu_torch.models.mixture import MixtureSet
 from beer_tpu_torch.models.modelset import ModelSet
 from beer_tpu_torch.models.normal import NormalSet
 from beer_tpu_torch.models.parameters import BayesianParameter
@@ -17,6 +28,14 @@ __all__ = [
     "Categorical",
     "SBCategorical",
     "CompiledGraph",
+    "Graph",
     "LOG_ZERO",
+    "bigram_lm",
+    "ergodic",
+    "left_to_right",
+    "phone_loop_graph",
+    "transcription_graphs",
+    "HMM",
+    "MixtureSet",
     "PhoneLoop",
 ]

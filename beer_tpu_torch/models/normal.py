@@ -138,3 +138,11 @@ class NormalSet(ModelSet):
     def means(self) -> torch.Tensor:
         """Posterior expected means, (K, D)."""
         return self.means_precisions.family.to_std(self.means_precisions.posterior)[0]
+
+    def to_numpy(self) -> Dict[str, Any]:
+        """Natural parameters and statics; the inverse of
+        :func:`beer_tpu_torch.convert.normal_set_from_numpy`."""
+        mp = self.means_precisions
+        return {"type": "NormalSet", "prior": mp.prior.detach().cpu().numpy(),
+                "posterior": mp.posterior.detach().cpu().numpy(), "dim": self.dim,
+                "cov_type": self.cov_type}

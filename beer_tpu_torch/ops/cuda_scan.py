@@ -1,22 +1,24 @@
-"""Phone-loop scan kernels: wrappers, plain PyTorch versions, launch counts.
+"""Scan kernels: wrappers, plain PyTorch versions, launch counts.
 
-Counterpart of the four ``beer_tpu/ops/pallas_scan.py`` kernels on the
-phone-loop AUD main path.  Each wrapper below takes batch-major
-tensors and
+Counterpart of the ``beer_tpu/ops/pallas_scan.py`` kernels on the ported
+paths: the four of the phone-loop AUD main path (K1–K4, banded
+transitions, ``csrc/phone_loop_scan.cu``) and the three of the Bayesian
+HMM's E-step over a dense (S, S) transition matrix (K5–K7,
+``csrc/hmm_scan.cu``).  Each wrapper below takes batch-major tensors and
 
 * on a CPU tensor runs its plain PyTorch version (same outputs),
 * on a CUDA tensor checks device, dtype (float32), shape and
   contiguity, allocates its outputs with ``torch.empty``, launches the
-  hand-written CUDA kernel of ``beer_tpu_torch/csrc/phone_loop_scan.cu``
-  on the current stream, raises if the launch was refused, and counts
+  hand-written CUDA kernel on the current stream, raises if the launch
+  was refused (or the operands do not fit in shared memory), and counts
   the launch in :data:`KERNELS`.  It never falls back to the plain
   version.
 
-The kernels are compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at first use, into
-``beer_tpu_torch/_build/`` under a name keyed on a hash of the sources,
-and loaded with ``ctypes``.  Nothing is built or imported at module
-import.
+The kernels are compiled with ``nvcc`` for ``sm_90a`` (one process per
+source file, all started together, then one link) into a shared library
+with a plain C interface at first use, into ``beer_tpu_torch/_build/``
+under a name keyed on a hash of the sources, and loaded with ``ctypes``.
+Nothing is built or imported at module import.
 
 The plain versions loop over time in Python and are vectorised over the
 batch; tests and the on-card comparison call them directly.
@@ -25,7 +27,9 @@ Shapes (B utterances, T frames, S states, P reduced stats, U units):
 ``stats`` (B, T, P); ``lens`` (B,) int32 lengths of prefix masks;
 ``w`` (S, P) and ``bias`` (S,) with llh = stats @ wᵀ + bias;
 ``bands`` (4, S) = [a_self, a_adv, exit, w] such that the transition
-matrix is diag(a_self) + superdiag(a_adv) + exit ⊗ w.
+matrix is diag(a_self) + superdiag(a_adv) + exit ⊗ w; ``trans`` (S, S)
+a dense transition matrix, [i, j] = p(j | i); ``init``/``final`` (B, S)
+per-utterance vectors for the dense kernels.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
@@ -49,7 +54,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass
@@ -62,9 +67,11 @@ class Kernel:
 
 
 KERNELS = {
-    name: Kernel(name, "beer_tpu_torch/csrc/phone_loop_scan.cu")
-    for name in ("forward_llh_banded", "estep_acc_banded",
-                 "viterbi_fwd_banded", "viterbi_backtrace_banded")
+    **{name: Kernel(name, "beer_tpu_torch/csrc/phone_loop_scan.cu")
+       for name in ("forward_llh_banded", "estep_acc_banded",
+                    "viterbi_fwd_banded", "viterbi_backtrace_banded")},
+    **{name: Kernel(name, "beer_tpu_torch/csrc/hmm_scan.cu")
+       for name in ("forward_llh_dense", "estep_acc_dense", "estep_gamma_dense")},
 }
 
 
@@ -99,19 +106,29 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels unless a library for these exact sources exists.
 
-    The ``-Xptxas -v`` report (registers, shared memory, spills per
-    kernel) is kept beside the library as ``<name>.log``."""
+    One ``nvcc -c`` per source file, all started together, then one
+    link.  The ``-Xptxas -v`` reports (registers, shared memory, spills
+    per kernel) are kept beside the library as ``<name>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [f"{tmp}/{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [proc.communicate()[1] for proc in procs]
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError("nvcc failed:\n" + "".join(logs))
+        link = subprocess.run([nvcc, "-shared", "-o", f"{tmp}/lib.so", *objs],
+                              capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(f"{tmp}/lib.so", out)
     return out
 
 
@@ -123,7 +140,10 @@ def _library() -> ctypes.CDLL:
         "beer_forward_llh_banded": [i] + [p] * 10 + [i] * 4 + [p],
         "beer_estep_acc_banded": [i] + [p] * 13 + [i] * 5 + [p],
         "beer_viterbi_fwd_banded": [i] + [p] * 7 + [i] * 3 + [p],
-        "beer_viterbi_backtrace_banded": [i] + [p] * 6 + [i] * 3 + [p],
+        "beer_viterbi_backtrace_banded": [i] + [p] * 6 + [i] * 4 + [p],
+        "beer_forward_llh_dense": [i] + [p] * 10 + [i] * 4 + [p],
+        "beer_estep_acc_dense": [i] + [p] * 11 + [i] * 4 + [p],
+        "beer_estep_gamma_dense": [i] + [p] * 9 + [i] * 3 + [p],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -133,6 +153,9 @@ def _library() -> ctypes.CDLL:
     lib.beer_forward_smem_bytes.restype = z
     lib.beer_estep_smem_bytes.argtypes = [i, i, i]
     lib.beer_estep_smem_bytes.restype = z
+    for name in ("beer_dense_forward_smem_bytes", "beer_dense_estep_smem_bytes"):
+        getattr(lib, name).argtypes = [i, i]
+        getattr(lib, name).restype = z
     lib.beer_error_string.argtypes = [i]
     lib.beer_error_string.restype = ctypes.c_char_p
     return lib
@@ -173,6 +196,12 @@ def _max_len(lens: torch.Tensor) -> int:
     return int(lens.max()) if lens.numel() else 0
 
 
+def _fits(what: str, smem: int) -> None:
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what} needs {smem} B of shared memory (> {SMEM_LIMIT}); "
+                         "the kernel keeps these operands in shared memory")
+
+
 def _shift_down(x: torch.Tensor) -> torch.Tensor:
     """y[..., j] = x[..., j−1]; y[..., 0] = 0."""
     return torch.nn.functional.pad(x[..., :-1], (1, 0))
@@ -184,31 +213,25 @@ def _shift_up(x: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
-# K1: scaled banded forward with in-kernel ELLH
+# The plain recursions shared by the banded and the dense kernels
 # ----------------------------------------------------------------------
-def forward_llh_banded_plain(stats, lens, w, bias, bands, init):
-    """Plain version of :func:`forward_llh_banded` (any dtype and device)."""
-    b, t_len, _ = stats.shape
-    s = w.shape[0]
-    tiny = torch.finfo(stats.dtype).tiny
-    a_self, a_adv, exit_v, w_v = bands
-    lens = lens.to(stats.device)
-    llh = torch.matmul(stats, w.T) + bias
-    alpha = stats.new_zeros(b, t_len, s)
-    norms = stats.new_ones(b, t_len)
-    logz = stats.new_zeros(b)
+def _forward_plain(llh, lens, init, propagate):
+    """Scaled forward of K1 and K5: α̂_t = normalise(propagate(α̂_{t−1}) ⊙
+    exp(llh_t − max)), α̂_0 from ``init`` ((S,) or (B, S)).  Returns (α̂,
+    norms, last, logz_base) as the kernels do."""
+    b, t_len, s = llh.shape
+    tiny = torch.finfo(llh.dtype).tiny
+    lens = lens.to(llh.device)
+    alpha = llh.new_zeros(b, t_len, s)
+    norms = llh.new_ones(b, t_len)
+    logz = llh.new_zeros(b)
     p = init.expand(b, s).clone()
     for t in range(_max_len(lens)):
         valid = (t < lens)[:, None]
         llh_t = llh[:, t]
         mx = llh_t.max(-1, keepdim=True).values
-        e = torch.exp(llh_t - mx)
-        if t == 0:
-            base = p
-        else:
-            q = (p * exit_v).sum(-1, keepdim=True)
-            base = p * a_self + _shift_down(p * a_adv) + q * w_v
-        raw = base * e
+        base = p if t == 0 else propagate(p)
+        raw = base * torch.exp(llh_t - mx)
         norm = raw.sum(-1, keepdim=True).clamp_min(tiny)
         p_new = raw / norm
         p = torch.where(valid, p_new, p)
@@ -216,6 +239,69 @@ def forward_llh_banded_plain(stats, lens, w, bias, bands, init):
         norms[:, t] = torch.where(valid, norm, 1.0)[:, 0]
         logz = torch.where(valid[:, 0], logz + (torch.log(norm) + mx)[:, 0], logz)
     return alpha, norms, p, logz
+
+
+def _backward_plain(llh, lens, final, alpha, norms, propagate_t, stats=None, rows=None,
+                    cols=None):
+    """v-space backward of K2, K6 and K7 over the stored forward: u1 =
+    ``final`` at each row's last frame, else propagate_t(v̂_{t+1}) = A v̂.
+
+    Returns (γ (B, T, S), or with ``stats`` acc (S, P+1) = Σ γ ⊗ [stats,
+    1]), γ0 (B, S) and ξ_raw = Σ_t (α̂_t·wgt_{t+1}) ⊗ v̂_{t+1}, (S, S) or
+    restricted to ``[rows][:, cols]`` by an exact gather."""
+    b, t_len, s = llh.shape
+    tiny = torch.finfo(llh.dtype).tiny
+    lens = lens.to(llh.device)
+    if stats is None:
+        gamma = llh.new_zeros(b, t_len, s)
+    else:
+        acc = llh.new_zeros(s, stats.shape[-1] + 1)
+        ones = llh.new_ones(b, 1)
+    gamma0 = llh.new_zeros(b, s)
+    n_r, n_c = (s, s) if rows is None else (rows.shape[0], cols.shape[0])
+    xi = llh.new_zeros(n_r, n_c)
+    v_hat = llh.new_zeros(b, s)
+    wgt_next = llh.new_zeros(b, 1)
+    for t in range(_max_len(lens) - 1, -1, -1):
+        valid = (t < lens)[:, None]
+        is_last = (t == lens - 1)[:, None]
+        llh_t = llh[:, t]
+        e = torch.exp(llh_t - llh_t.max(-1, keepdim=True).values)
+        u1 = torch.where(is_last, final, propagate_t(v_hat))
+        v = e * u1
+        ab = alpha[:, t] * u1
+        sv = v.sum(-1, keepdim=True).clamp_min(tiny)
+        absum = ab.sum(-1, keepdim=True)
+        g = torch.where(valid, ab / absum.clamp_min(tiny), 0.0)
+        denom = norms[:, t, None] * absum / sv
+        wgt = torch.where(valid & (denom > XI_FLOOR), 1.0 / denom.clamp_min(XI_FLOOR), 0.0)
+        if stats is None:
+            gamma[:, t] = g
+        else:
+            acc += g.T @ torch.cat([stats[:, t], ones], dim=-1)
+        u, w = alpha[:, t], v_hat
+        if rows is not None:
+            u, w = u[:, rows], w[:, cols]
+        xi += torch.where(valid & ~is_last, u * wgt_next, 0.0).T @ w
+        v_hat = torch.where(valid, v / sv, v_hat)
+        wgt_next = wgt
+        if t == 0:
+            gamma0 = g
+    return (gamma if stats is None else acc), gamma0, xi
+
+
+# ----------------------------------------------------------------------
+# K1: scaled banded forward with in-kernel ELLH
+# ----------------------------------------------------------------------
+def forward_llh_banded_plain(stats, lens, w, bias, bands, init):
+    """Plain version of :func:`forward_llh_banded` (any dtype and device)."""
+    a_self, a_adv, exit_v, w_v = bands
+
+    def propagate(p):
+        q = (p * exit_v).sum(-1, keepdim=True)
+        return p * a_self + _shift_down(p * a_adv) + q * w_v
+
+    return _forward_plain(torch.matmul(stats, w.T) + bias, lens, init, propagate)
 
 
 def forward_llh_banded(stats, lens, w, bias, bands, init):
@@ -239,9 +325,7 @@ def forward_llh_banded(stats, lens, w, bias, bands, init):
                            ("bands", bands, (4, s)), ("init", init, (s,))):
         _shape(name, x, shape)
     lib = _library()
-    smem = lib.beer_forward_smem_bytes(s, p_dim)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"S={s}, P={p_dim} needs {smem} B of shared memory (> {SMEM_LIMIT})")
+    _fits(f"S={s}, P={p_dim}", lib.beer_forward_smem_bytes(s, p_dim))
     alpha = torch.empty(b, t_len, s, device=dev)
     norms = torch.empty(b, t_len, device=dev)
     last = torch.empty(b, s, device=dev)
@@ -258,43 +342,15 @@ def forward_llh_banded(stats, lens, w, bias, bands, init):
 # ----------------------------------------------------------------------
 def estep_acc_banded_plain(stats, lens, w, bias, bands, final, alpha, norms, ends, starts):
     """Plain version of :func:`estep_acc_banded` (any dtype and device)."""
-    b, t_len, p_dim = stats.shape
-    s = w.shape[0]
-    n_u = ends.shape[0]
-    dt = stats.dtype
-    tiny = torch.finfo(dt).tiny
+    p_dim = stats.shape[-1]
     a_self, a_adv, exit_v, w_v = bands
-    lens = lens.to(stats.device)
-    ends, starts = ends.long(), starts.long()
-    llh = torch.matmul(stats, w.T) + bias
-    acc = stats.new_zeros(s, p_dim + 1)
-    gamma0 = stats.new_zeros(b, s)
-    xi = stats.new_zeros(n_u, n_u)
-    v_hat = stats.new_zeros(b, s)
-    wgt_next = stats.new_zeros(b, 1)
-    ones = stats.new_ones(b, 1)
-    for t in range(_max_len(lens) - 1, -1, -1):
-        valid = (t < lens)[:, None]
-        is_last = (t == lens - 1)[:, None]
-        llh_t = llh[:, t]
-        e = torch.exp(llh_t - llh_t.max(-1, keepdim=True).values)
-        r = (v_hat * w_v).sum(-1, keepdim=True)
-        u1 = v_hat * a_self + _shift_up(v_hat) * a_adv + r * exit_v
-        u1 = torch.where(is_last, final, u1)
-        v = e * u1
-        ab = alpha[:, t] * u1
-        sv = v.sum(-1, keepdim=True).clamp_min(tiny)
-        absum = ab.sum(-1, keepdim=True)
-        gamma = torch.where(valid, ab / absum.clamp_min(tiny), 0.0)
-        denom = norms[:, t, None] * absum / sv
-        wgt = torch.where(valid & (denom > XI_FLOOR), 1.0 / denom.clamp_min(XI_FLOOR), 0.0)
-        acc += gamma.T @ torch.cat([stats[:, t], ones], dim=-1)
-        pair = valid & ~is_last
-        xi += (torch.where(pair, alpha[:, t, ends] * wgt_next, 0.0)).T @ v_hat[:, starts]
-        v_hat = torch.where(valid, v / sv, v_hat)
-        wgt_next = wgt
-        if t == 0:
-            gamma0 = gamma
+
+    def propagate_t(v):
+        r = (v * w_v).sum(-1, keepdim=True)
+        return v * a_self + _shift_up(v) * a_adv + r * exit_v
+
+    acc, gamma0, xi = _backward_plain(torch.matmul(stats, w.T) + bias, lens, final, alpha, norms,
+                                      propagate_t, stats, ends.long(), starts.long())
     return acc[:, :p_dim], acc[:, p_dim], gamma0, xi
 
 
@@ -325,10 +381,7 @@ def estep_acc_banded(stats, lens, w, bias, bands, final, alpha, norms, ends, sta
                            ("ends", ends, (n_u,)), ("starts", starts, (n_u,))):
         _shape(name, x, shape)
     lib = _library()
-    smem = lib.beer_estep_smem_bytes(s, p_dim, n_u)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"S={s}, P={p_dim}, U={n_u} needs {smem} B of shared memory "
-                         f"(> {SMEM_LIMIT})")
+    _fits(f"S={s}, P={p_dim}, U={n_u}", lib.beer_estep_smem_bytes(s, p_dim, n_u))
     width = s * (p_dim + 1) + n_u * n_u
     part = torch.empty(b, width, device=dev)
     out = torch.empty(width, device=dev)
@@ -420,9 +473,10 @@ def viterbi_backtrace_banded_plain(choices, exarg, alpha_last, log_final):
 def viterbi_backtrace_banded(choices, exarg, alpha_last, log_final):
     """Best paths from :func:`viterbi_fwd_banded`'s outputs.
 
-    Returns ``paths`` (B, T) int32 state ids (frames past an utterance's
-    end repeat its last state) and ``scores`` (B,) = max_s α_last +
-    log_final, whose arg-max (first on ties) ends the path.
+    ``log_final`` is (S,) or per utterance (B, S).  Returns ``paths``
+    (B, T) int32 state ids (frames past an utterance's end repeat its
+    last state) and ``scores`` (B,) = max_s α_last + log_final, whose
+    arg-max (first on ties) ends the path.
     """
     if choices.device.type == "cpu":
         return viterbi_backtrace_banded_plain(choices, exarg, alpha_last, log_final)
@@ -430,13 +484,145 @@ def viterbi_backtrace_banded(choices, exarg, alpha_last, log_final):
     dev = choices.device
     _check(dict(choices=choices, exarg=exarg, alpha_last=alpha_last, log_final=log_final), dev,
            dict(choices=torch.int8, exarg=torch.int32))
+    per_row = log_final.ndim == 2
     for name, x, shape in (("exarg", exarg, (b, t_len)), ("alpha_last", alpha_last, (b, s)),
-                           ("log_final", log_final, (s,))):
+                           ("log_final", log_final, (b, s) if per_row else (s,))):
         _shape(name, x, shape)
     paths = torch.empty(b, t_len, dtype=torch.int32, device=dev)
     scores = torch.empty(b, device=dev)
     _launch(_library().beer_viterbi_backtrace_banded, dev.index, *map(_ptr, (
         choices, exarg, alpha_last, log_final, paths, scores)),
-        b, t_len, s, _stream(dev))
+        b, t_len, s, s if per_row else 0, _stream(dev))
     KERNELS["viterbi_backtrace_banded"].launches += 1
     return paths, scores
+
+
+# ----------------------------------------------------------------------
+# K5: scaled dense forward (llh stream, or stats with in-kernel ELLH)
+# ----------------------------------------------------------------------
+def forward_llh_dense_plain(x, lens, trans, init, w=None, bias=None):
+    """Plain version of :func:`forward_llh_dense` (any dtype and device)."""
+    llh = x if w is None else torch.matmul(x, w.T) + bias
+    return _forward_plain(llh, lens, init, lambda p: p @ trans)
+
+
+def forward_llh_dense(x, lens, trans, init, w=None, bias=None):
+    """Scaled forward through a dense (S, S) transition matrix:
+    α̂_t = normalise(Aᵀ α̂_{t−1} ⊙ exp(llh_t − max)), α̂_0 from ``init``.
+
+    ``x`` is the llh stream (B, T, S), or with ``w`` (S, P) and ``bias``
+    (S,) the reduced statistics (B, T, P) with llh = x @ wᵀ + bias
+    computed in the kernel.  ``init`` (B, S).  Returns ``alpha`` (B, T,
+    S) (0 on frames t >= len), ``norms`` (B, T) per-step normalisers (1
+    there), ``last`` (B, S) = α̂ at the last frame (``init`` for empty
+    rows) and ``logz_base`` (B,); log Z = logz_base + log Σ last·final.
+    """
+    if x.device.type == "cpu":
+        return forward_llh_dense_plain(x, lens, trans, init, w, bias)
+    b, t_len, width = x.shape
+    s = trans.shape[0]
+    dev = x.device
+    stats_mode = w is not None
+    operands = dict(x=x, lens=lens, trans=trans, init=init)
+    shapes = [("lens", lens, (b,)), ("trans", trans, (s, s)), ("init", init, (b, s))]
+    if stats_mode:
+        operands.update(w=w, bias=bias)
+        shapes += [("w", w, (s, width)), ("bias", bias, (s,))]
+    else:
+        shapes.append(("x", x, (b, t_len, s)))
+    _check(operands, dev, dict(lens=torch.int32))
+    for name, t, shape in shapes:
+        _shape(name, t, shape)
+    p_dim = width if stats_mode else 0
+    lib = _library()
+    _fits(f"S={s}, P={p_dim}", lib.beer_dense_forward_smem_bytes(s, p_dim))
+    alpha = torch.empty(b, t_len, s, device=dev)
+    norms = torch.empty(b, t_len, device=dev)
+    last = torch.empty(b, s, device=dev)
+    logz = torch.empty(b, device=dev)
+    _launch(lib.beer_forward_llh_dense, dev.index, *map(_ptr, (x, lens)),
+            _ptr(w) if stats_mode else None, _ptr(bias) if stats_mode else None,
+            *map(_ptr, (trans, init, alpha, norms, last, logz)), b, t_len, s, p_dim, _stream(dev))
+    KERNELS["forward_llh_dense"].launches += 1
+    return alpha, norms, last, logz
+
+
+# ----------------------------------------------------------------------
+# K6 / K7: dense v-space backward (accumulating / γ-emitting), full ξ
+# ----------------------------------------------------------------------
+def estep_acc_dense_plain(stats, lens, w, bias, trans, final, alpha, norms):
+    """Plain version of :func:`estep_acc_dense` (any dtype and device)."""
+    p_dim = stats.shape[-1]
+    acc, gamma0, xi = _backward_plain(torch.matmul(stats, w.T) + bias, lens, final, alpha, norms,
+                                      lambda v: v @ trans.T, stats)
+    return acc[:, :p_dim], acc[:, p_dim], gamma0, xi
+
+
+def estep_acc_dense(stats, lens, w, bias, trans, final, alpha, norms):
+    """Backward smoothing pass over a dense (S, S) matrix that reduces γ
+    in the kernel, with llh = stats @ wᵀ + bias computed there.
+
+    Takes :func:`forward_llh_dense`'s ``alpha`` and ``norms`` and the
+    per-utterance ``final`` (B, S).  Returns ``acc2`` (S, P) = Σ_{b,t} γ
+    ⊗ stats, ``counts`` (S,) = Σ γ, ``gamma0`` (B, S) = γ at the first
+    frame and ``xi_raw`` (S, S) = Σ_t (α̂_t·wgt_{t+1}) ⊗ v̂_{t+1}; the
+    expected transition counts are ``xi_raw ⊙ trans``.  γ is never stored.
+    """
+    if stats.device.type == "cpu":
+        return estep_acc_dense_plain(stats, lens, w, bias, trans, final, alpha, norms)
+    b, t_len, p_dim = stats.shape
+    s = trans.shape[0]
+    dev = stats.device
+    _check(dict(stats=stats, lens=lens, w=w, bias=bias, trans=trans, final=final,
+                alpha=alpha, norms=norms), dev, dict(lens=torch.int32))
+    for name, x, shape in (("lens", lens, (b,)), ("w", w, (s, p_dim)), ("bias", bias, (s,)),
+                           ("trans", trans, (s, s)), ("final", final, (b, s)),
+                           ("alpha", alpha, (b, t_len, s)), ("norms", norms, (b, t_len))):
+        _shape(name, x, shape)
+    lib = _library()
+    _fits(f"S={s}, P={p_dim}", lib.beer_dense_estep_smem_bytes(s, p_dim))
+    width = s * (p_dim + 1) + s * s
+    part = torch.empty(b, width, device=dev)
+    out = torch.empty(width, device=dev)
+    gamma0 = torch.empty(b, s, device=dev)
+    _launch(lib.beer_estep_acc_dense, dev.index, *map(_ptr, (
+        stats, lens, w, bias, trans, final, alpha, norms, part, out, gamma0)),
+        b, t_len, s, p_dim, _stream(dev))
+    KERNELS["estep_acc_dense"].launches += 1
+    acc = out[: s * (p_dim + 1)].view(s, p_dim + 1)
+    return acc[:, :p_dim], acc[:, p_dim], gamma0, out[s * (p_dim + 1):].view(s, s)
+
+
+def estep_gamma_dense_plain(llh, lens, trans, final, alpha, norms):
+    """Plain version of :func:`estep_gamma_dense` (any dtype and device)."""
+    gamma, _, xi = _backward_plain(llh, lens, final, alpha, norms, lambda v: v @ trans.T)
+    return gamma, xi
+
+
+def estep_gamma_dense(llh, lens, trans, final, alpha, norms):
+    """Backward smoothing pass over a dense (S, S) matrix that emits the
+    state posteriors.
+
+    Takes the llh stream (B, T, S), :func:`forward_llh_dense`'s ``alpha``
+    and ``norms`` and the per-utterance ``final`` (B, S).  Returns ``gamma``
+    (B, T, S) (0 on frames t >= len) and ``xi_raw`` (S, S) as
+    :func:`estep_acc_dense` does.
+    """
+    if llh.device.type == "cpu":
+        return estep_gamma_dense_plain(llh, lens, trans, final, alpha, norms)
+    b, t_len, s = llh.shape
+    dev = llh.device
+    _check(dict(llh=llh, lens=lens, trans=trans, final=final, alpha=alpha, norms=norms), dev,
+           dict(lens=torch.int32))
+    for name, x, shape in (("lens", lens, (b,)), ("trans", trans, (s, s)), ("final", final, (b, s)),
+                           ("alpha", alpha, (b, t_len, s)), ("norms", norms, (b, t_len))):
+        _shape(name, x, shape)
+    lib = _library()
+    _fits(f"S={s}", lib.beer_dense_estep_smem_bytes(s, 0))
+    part = torch.empty(b, s * s, device=dev)
+    out = torch.empty(s * s, device=dev)
+    gamma = torch.empty(b, t_len, s, device=dev)
+    _launch(lib.beer_estep_gamma_dense, dev.index, *map(_ptr, (
+        llh, lens, trans, final, alpha, norms, part, out, gamma)), b, t_len, s, _stream(dev))
+    KERNELS["estep_gamma_dense"].launches += 1
+    return gamma, out.view(s, s)

@@ -1,22 +1,27 @@
-"""HMM recursions for the phone loop (PyTorch).
+"""HMM recursions (PyTorch).
 
 Counterpart of the parts of ``beer_tpu/ops/semiring_scan.py`` that the
-phone-loop slice needs:
+phone-loop and HMM slices need:
 
 * the general probability-space path — :func:`forward_backward_probs`
-  and :func:`expected_transition_counts_probs` over a dense (S, S)
-  transition matrix, plain torch loops over time.  It is the oracle the
-  fused route is held against and the body of ``PhoneLoop.smooth``;
+  and :func:`expected_transition_counts_probs` over a shared (S, S) or
+  per-utterance (B, S, S) transition matrix, and the dense (max,+)
+  :func:`viterbi`; plain torch loops over time.  It is the oracle the
+  fused routes are held against and the body of ``PhoneLoop.smooth``
+  and of the per-utterance-graph E-step and posteriors;
 * the fused phone-loop E-step ops :func:`phone_loop_forward` and
   :func:`phone_loop_estep_acc` and the banded decode
-  :func:`viterbi_banded`.  Each runs the hand-written CUDA kernel
+  :func:`viterbi_banded`, and the fused dense-transition HMM E-step ops
+  :func:`hmm_forward`, :func:`hmm_estep_acc` and :func:`hmm_estep_gamma`.
+  Each runs the hand-written CUDA kernel
   (:mod:`beer_tpu_torch.ops.cuda_scan`) on CUDA tensors and its plain
   PyTorch version on CPU tensors; ``plain=True`` asks for the plain
   version on any device (the on-card reference route).
 
 Conventions: ``llh`` (B, T, S) frame log-likelihoods; ``log_trans``
-(S, S) with [i, j] = log p(j | i); ``log_init`` / ``log_final`` (S,);
-``mask`` (B, T) prefix masks, 1.0 on real frames.
+(S, S) or (B, S, S) with [..., i, j] = log p(j | i); ``log_init`` /
+``log_final`` (S,) or (B, S); ``mask`` (B, T) prefix masks, 1.0 on real
+frames.
 """
 
 from __future__ import annotations
@@ -46,6 +51,14 @@ def _clamp(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=_NEG_INF)
 
 
+def _propagate(prob, trans):
+    """prob (B, S) @ trans: Σ_i prob_i A(i, j), for one shared (S, S) or
+    per-utterance (B, S, S) matrix."""
+    if trans.ndim == 3:
+        return torch.bmm(prob[:, None], trans)[:, 0]
+    return torch.matmul(prob, trans)
+
+
 def _scaled_forward(e_llh, trans, init_vec, mask):
     """Scaled forward recursion: normalized carries plus cumulative log-scale.
 
@@ -58,7 +71,7 @@ def _scaled_forward(e_llh, trans, init_vec, mask):
     probs, logcs = [prob], [logc]
     for t in range(1, e_llh.shape[1]):
         m_t = mask[:, t, None]
-        raw = torch.matmul(prob, trans) * e_llh[:, t]
+        raw = _propagate(prob, trans) * e_llh[:, t]
         norm = raw.sum(-1, keepdim=True).clamp_min(tiny)
         prob = m_t * (raw / norm) + (1 - m_t) * prob
         logc = m_t[:, 0] * (logc + torch.log(norm[:, 0])) + (1 - m_t[:, 0]) * logc
@@ -73,13 +86,14 @@ def _smoothing_scan(e_llh, trans, final_vec, mask, a_probs):
     b, t_len, _ = e_llh.shape
     tiny = torch.finfo(e_llh.dtype).tiny
     final = final_vec.expand(b, -1)
+    trans_t = trans.transpose(-1, -2)
     mask_next = torch.cat([mask[:, 1:], mask.new_zeros(b, 1)], dim=1)
     v_hat = final / final.sum(-1, keepdim=True).clamp_min(tiny)
     outs = []
     for t in range(t_len - 1, -1, -1):
         m_t, mn_t = mask[:, t, None], mask_next[:, t, None]
         is_last = m_t * (1.0 - mn_t)
-        u1 = torch.matmul(v_hat, trans.T)
+        u1 = _propagate(v_hat, trans_t)
         u1 = is_last * final + (1.0 - is_last) * u1
         nu = u1.sum(-1, keepdim=True).clamp_min(tiny)
         ab = a_probs[:, t] * (u1 / nu)
@@ -101,7 +115,8 @@ def forward_backward_probs(
     log_final: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
 ) -> FBProbs:
-    """Probability-space smoothing over a dense (S, S) transition matrix.
+    """Probability-space smoothing over a dense (S, S) or per-utterance
+    (B, S, S) transition matrix, with (S,) or (B, S) init/final vectors.
 
     γ_t = α̂_t·β̂_t / Σ_s α̂_t(s)·β̂_t(s) is exactly softmax(logα + logβ);
     ξ-counts come from :func:`expected_transition_counts_probs` on the
@@ -115,8 +130,8 @@ def forward_backward_probs(
     e_llh = torch.exp(llh - m_llh) * m_e + (1 - m_e) * 1.0
     shift_total = (m_llh[..., 0] * mask).sum(1)
     trans = torch.exp(log_trans)
-    init_vec = torch.exp(_clamp(log_init)).expand(b, s)
-    final_vec = torch.exp(_clamp(log_final)).expand(b, s)
+    init_vec = torch.exp(_clamp(log_init)).expand(b, s).to(llh.dtype)
+    final_vec = torch.exp(_clamp(log_final)).expand(b, s).to(llh.dtype)
     a_probs, a_logcs, (a_last, a_logc_last) = _scaled_forward(e_llh, trans, init_vec, mask)
     gamma, w, wsum, pnorm = _smoothing_scan(e_llh, trans, final_vec, mask, a_probs)
     log_z = a_logc_last + shift_total + torch.log(
@@ -132,7 +147,9 @@ def expected_transition_counts_probs(
     cols: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Σ_t ξ_t over the batch from :func:`forward_backward_probs`'s carries,
-    optionally restricted to the block ``[rows][:, cols]``.
+    optionally restricted to the block ``[rows][:, cols]`` (shared
+    (S, S) ``log_trans`` only; a per-utterance (B, S, S) one weighs each
+    utterance's outer products by its own matrix).
 
     The per-frame normalizer uᵀAw_{t+1} is recovered exactly from pass
     by-products: c_{t+1} · Σ α̂_{t+1}β̂_{t+1} / Σ e_{t+1}β̂_{t+1}."""
@@ -146,11 +163,43 @@ def expected_transition_counts_probs(
     m_tail = u.new_ones(b, t_len - 1) if mask is None else mask[:, 1:]
     weight = torch.where(denom > 1e-30, m_tail / denom.clamp_min(1e-30), 0.0)
     trans_prob = torch.exp(log_trans)
+    if trans_prob.ndim == 3:
+        return torch.einsum("bti,btj,bt,bij->ij", u, w, weight, trans_prob)
     if rows is not None:
         # an exact gather: no selection product, so no rounding of ξ
         u, w = u[..., rows], w[..., cols]
         trans_prob = trans_prob[rows][:, cols]
     return torch.einsum("bti,btj,bt->ij", u, w, weight) * trans_prob
+
+
+def viterbi(llh, log_trans, log_init, log_final, mask=None):
+    """Batched best-path decoding over a dense (S, S) or per-utterance
+    (B, S, S) transition matrix, (S,) or (B, S) init/final.
+
+    Returns ``(paths (B, T) int32, best log-prob (B,))``; paths are valid
+    where mask = 1 (padded frames repeat the last state).  Arg-maxes take
+    the first index on ties, as the JAX package's ``jnp.argmax`` does."""
+    b, t_len, s = llh.shape
+    if mask is None:
+        mask = llh.new_ones(b, t_len)
+    score = _clamp(log_init + llh[:, 0]).expand(b, s)
+    ids = torch.arange(s, device=llh.device).expand(b, s)
+    lt = log_trans if log_trans.ndim == 3 else log_trans[None]
+    bps = []
+    for t in range(1, t_len):
+        valid = mask[:, t, None] > 0
+        best, best_prev = (score[:, :, None] + lt).max(dim=1)   # over S_prev
+        score = torch.where(valid, _clamp(llh[:, t] + best), score)
+        bps.append(torch.where(valid, best_prev, ids))           # identity on pads
+    best_score, state = (score + log_final).max(dim=-1)
+    paths = torch.empty(b, t_len, dtype=torch.int32, device=llh.device)
+    if t_len == 0:
+        return paths, best_score
+    paths[:, -1] = state
+    for t in range(t_len - 1, 0, -1):
+        state = bps[t - 1].gather(1, state[:, None])[:, 0]
+        paths[:, t - 1] = state
+    return paths, best_score
 
 
 def bands_to_dense(bands) -> torch.Tensor:
@@ -178,6 +227,30 @@ def phone_loop_estep_acc(stats, lens, w, bias, bands, final, alpha, norms, ends,
     :func:`cuda_scan.estep_acc_banded`."""
     fn = cuda_scan.estep_acc_banded_plain if plain else cuda_scan.estep_acc_banded
     return fn(stats, lens, w, bias, bands, final, alpha, norms, ends, starts)
+
+
+def hmm_forward(x, lens, trans, init, w=None, bias=None, plain: bool = False):
+    """Scaled dense forward: (α̂ (B, T, S), norms (B, T), last (B, S),
+    logz_base (B,)) from the llh stream ``x`` (B, T, S), or from the
+    reduced stats ``x`` (B, T, P) with llh = x @ wᵀ + bias computed in
+    the kernel.  See :func:`cuda_scan.forward_llh_dense`."""
+    fn = cuda_scan.forward_llh_dense_plain if plain else cuda_scan.forward_llh_dense
+    return fn(x, lens, trans, init, w, bias)
+
+
+def hmm_estep_acc(stats, lens, w, bias, trans, final, alpha, norms, plain: bool = False):
+    """Accumulating dense smoothing pass over the stored forward: (acc2
+    (S, P), counts (S,), γ0 (B, S), xi_raw (S, S)).  See
+    :func:`cuda_scan.estep_acc_dense`."""
+    fn = cuda_scan.estep_acc_dense_plain if plain else cuda_scan.estep_acc_dense
+    return fn(stats, lens, w, bias, trans, final, alpha, norms)
+
+
+def hmm_estep_gamma(llh, lens, trans, final, alpha, norms, plain: bool = False):
+    """γ-emitting dense smoothing pass over the stored forward: (γ (B, T,
+    S), xi_raw (S, S)).  See :func:`cuda_scan.estep_gamma_dense`."""
+    fn = cuda_scan.estep_gamma_dense_plain if plain else cuda_scan.estep_gamma_dense
+    return fn(llh, lens, trans, final, alpha, norms)
 
 
 def log_bands(bands: torch.Tensor) -> torch.Tensor:

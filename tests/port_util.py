@@ -50,6 +50,40 @@ def scan_problem(seed: int, n_units: int, spu: int, p_dim: int, b: int, t_len: i
                 ends=ends, starts=starts)
 
 
+def dense_problem(seed: int, s: int, p_dim: int, b: int, t_len: int, lengths=None) -> dict:
+    """Seeded numpy inputs of one dense-transition HMM E-step: reduced
+    stats, ELLH matrix and bias, a sub-stochastic (S, S) matrix with
+    forbidden arcs, per-row init and per-row final vectors whose last
+    states are padding (final 0, as in shared transcription graphs),
+    lengths and the prefix mask (default lengths as in
+    :func:`scan_problem`)."""
+    rng = np.random.default_rng(seed)
+    trans = rng.dirichlet(np.ones(s), size=s) * 0.9
+    trans[rng.random((s, s)) < 0.3] = 0.0
+    init = rng.dirichlet(np.ones(s), size=b)
+    final = rng.uniform(0.05, 0.5, size=(b, s))
+    pad = rng.integers(0, max(s // 3, 1) + 1, size=b)
+    final[np.arange(s)[None, :] >= s - pad[:, None]] = 0.0
+    if lengths is None:
+        fixed = [t_len, t_len - 7, 5, 0][:b]
+        lengths = np.concatenate([fixed, rng.integers(1, t_len + 1, size=b - len(fixed))])
+    lengths = np.asarray(lengths)
+    mask = (np.arange(t_len)[None] < lengths[:, None]).astype(np.float64)
+    return dict(stats=rng.normal(size=(b, t_len, p_dim)), w=rng.normal(size=(s, p_dim)) * 0.7,
+                bias=rng.normal(size=s) - 3.0, trans=trans, init=init, final=final,
+                lengths=lengths, mask=mask)
+
+
+def dense_args(pb: dict, dtype, device=None) -> dict:
+    """:func:`dense_problem`'s arrays as the port's kernel operands, with
+    ``llh`` = stats @ wᵀ + bias."""
+    f = lambda k: t(pb[k], dtype).to(device)  # noqa: E731
+    out = dict(stats=f("stats"), lens=t(pb["lengths"], torch.int32).to(device), w=f("w"),
+               bias=f("bias"), trans=f("trans"), init=f("init"), final=f("final"))
+    out["llh"] = (out["stats"] @ out["w"].T + out["bias"]).contiguous()
+    return out
+
+
 def port_args(pb: dict, dtype, device=None) -> dict:
     """:func:`scan_problem`'s arrays as the port's kernel operands."""
     f = lambda k: t(pb[k], dtype).to(device)  # noqa: E731
@@ -76,6 +110,43 @@ def phone_loop_to_numpy(loop) -> dict:
         "dim": ms.dim,
         "cov_type": ms.cov_type,
     }
+
+
+def normal_set_to_numpy(ns) -> dict:
+    """A ``beer_tpu`` NormalSet in the dict layout of
+    :func:`beer_tpu_torch.convert.normal_set_from_numpy`."""
+    return {"type": "NormalSet", "prior": np.asarray(ns.means_precisions.prior),
+            "posterior": np.asarray(ns.means_precisions.posterior), "dim": ns.dim,
+            "cov_type": ns.cov_type}
+
+
+def modelset_to_numpy(ms) -> dict:
+    """A ``beer_tpu`` NormalSet or MixtureSet as a numpy dict."""
+    if hasattr(ms, "nmix"):
+        return {"type": "MixtureSet", "weights_prior": np.asarray(ms.weights.prior),
+                "weights_posterior": np.asarray(ms.weights.posterior), "nmix": ms.nmix,
+                "ncomp_per_mix": ms.ncomp_per_mix, "modelset": normal_set_to_numpy(ms.modelset)}
+    return normal_set_to_numpy(ms)
+
+
+def hmm_to_numpy(hmm) -> dict:
+    """A ``beer_tpu`` HMM's graph, emissions and transition Dirichlet in
+    the dict layout of :func:`beer_tpu_torch.convert.hmm_from_numpy`."""
+    g = hmm.graph
+    opt = lambda x: None if x is None else np.asarray(x)  # noqa: E731
+    return {"log_init": np.asarray(g.log_init), "log_final": np.asarray(g.log_final),
+            "log_trans": np.asarray(g.log_trans), "pdf_ids": np.asarray(g.pdf_ids),
+            "n_states": g.n_states, "n_pdfs": g.n_pdfs,
+            "l2r_banded": bool(getattr(g, "l2r_banded", False)),
+            "modelset": modelset_to_numpy(hmm.modelset),
+            "trans_alpha_prior": opt(hmm.trans_alpha_prior),
+            "trans_alpha_post": opt(hmm.trans_alpha_post)}
+
+
+def hmm_to_port(jax_hmm, dtype):
+    from beer_tpu_torch.convert import hmm_from_numpy
+
+    return hmm_from_numpy(hmm_to_numpy(jax_hmm), dtype=dtype)
 
 
 def jax_phone_loop(dtype, n_units=U, spu=SPU, dim=D, self_loop=0.5, seed=1):

@@ -8,7 +8,7 @@ conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances (float32; the kernels and the plain versions sum in
-different orders): log Z rel 1e-5, α̂ and γ0 abs 1e-5, the reduced
+different orders): log Z rel 1e-5, α̂, γ and γ0 abs 1e-5, the reduced
 statistics and ξ rel 1e-4 of their largest entry; the Viterbi kernels
 do the same float adds and maxima as their plain versions, so their
 outputs are equal.
@@ -20,7 +20,7 @@ import torch
 
 from beer_tpu_torch.ops import cuda_scan
 from beer_tpu_torch.ops import semiring_scan as tss
-from port_util import port_args, scan_problem
+from port_util import dense_args, dense_problem, port_args, scan_problem
 
 pytestmark = pytest.mark.cuda
 
@@ -75,7 +75,7 @@ def test_kernels_match_plain_versions(device, shape):
     paths, scores = cuda_scan.viterbi_backtrace_banded(ch, ex, al, lf)
     paths_r, scores_r = cuda_scan.viterbi_backtrace_banded_plain(ch, ex, al, lf)
     assert torch.equal(paths, paths_r) and torch.equal(scores, scores_r)
-    assert all(k.launches == 1 for k in cuda_scan.KERNELS.values())
+    assert all(k.launches == 1 for name, k in cuda_scan.KERNELS.items() if name.endswith("_banded"))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(device):
@@ -110,3 +110,96 @@ def test_zero_length_rows_and_empty_batch(device):
     out = cuda_scan.forward_llh_banded(empty["stats"], empty["lens"], empty["w"],
                                        empty["bias"], empty["bands"], empty["init"])
     assert out[0].shape == (0, 9, 6)
+
+
+# (S, P, B, T) of the dense kernels: tiny; config 3 (S=18) and config 2
+# (S=30, P=78); S not a multiple of 32; S=150 (K7 and a narrow K6 fit)
+DENSE_SHAPES = [(7, 4, 5, 17), (18, 78, 6, 40), (30, 78, 6, 60), (45, 6, 5, 21), (150, 6, 4, 12)]
+
+
+def _dense_run(a, plain: bool):
+    fwd = cuda_scan.forward_llh_dense_plain if plain else cuda_scan.forward_llh_dense
+    acc = cuda_scan.estep_acc_dense_plain if plain else cuda_scan.estep_acc_dense
+    gam = cuda_scan.estep_gamma_dense_plain if plain else cuda_scan.estep_gamma_dense
+    f_stats = fwd(a["stats"], a["lens"], a["trans"], a["init"], a["w"], a["bias"])
+    f_llh = fwd(a["llh"], a["lens"], a["trans"], a["init"])
+    return (f_stats, f_llh,
+            acc(a["stats"], a["lens"], a["w"], a["bias"], a["trans"], a["final"], *f_stats[:2]),
+            gam(a["llh"], a["lens"], a["trans"], a["final"], *f_llh[:2]))
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=lambda s: "S%d_P%d" % s[:2])
+def test_dense_kernels_match_plain_versions(device, shape):
+    s, p_dim, b, t_len = shape
+    a = dense_args(dense_problem(0, s, p_dim, b, t_len), torch.float32, device)
+    full = a["lens"] > 0
+    cuda_scan.reset_launch_counts()
+    got = _dense_run(a, plain=False)
+    torch.cuda.synchronize()
+    want = _dense_run(a, plain=True)
+    tiny = torch.finfo(torch.float32).tiny
+    for g, w in zip(got[:2], want[:2]):
+        log_z = [o[3] + torch.log((o[2] * a["final"]).sum(-1).clamp_min(tiny)) for o in (g, w)]
+        assert _rel(log_z[0][full], log_z[1][full]) <= 1e-5
+        assert float((g[0] - w[0]).abs().max()) <= 1e-5
+        assert float((g[1] - w[1]).abs().max() / w[1].abs().max()) <= 1e-5
+        assert torch.equal(g[2][~full], a["init"][~full]) and not g[3][~full].any()
+    for name, i in (("acc2", 0), ("counts", 1), ("xi", 3)):
+        assert _rel(got[2][i], want[2][i]) <= 1e-4, name
+    assert float((got[2][2] - want[2][2]).abs().max()) <= 1e-5
+    assert float((got[3][0] - want[3][0]).abs().max()) <= 1e-5
+    assert _rel(got[3][1], want[3][1]) <= 1e-4
+    launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if k.endswith("_dense")}
+    assert launches == {"forward_llh_dense": 2, "estep_acc_dense": 1, "estep_gamma_dense": 1}
+
+
+def test_dense_wrappers_reject_what_the_kernels_do_not_take(device):
+    a = dense_args(dense_problem(1, 6, 4, 4, 9), torch.float32, device)
+    fwd = [a["llh"], a["lens"], a["trans"], a["init"]]
+    with pytest.raises(TypeError):
+        cuda_scan.forward_llh_dense(fwd[0].double(), *fwd[1:])
+    with pytest.raises(TypeError):
+        cuda_scan.forward_llh_dense(fwd[0], fwd[1].long(), *fwd[2:])
+    with pytest.raises(ValueError):
+        cuda_scan.forward_llh_dense(*fwd[:3], fwd[3][0])             # init must be (B, S)
+    with pytest.raises(ValueError):
+        cuda_scan.forward_llh_dense(*fwd[:2], fwd[2][:-1], fwd[3])   # trans (S−1, S)
+    with pytest.raises(ValueError):
+        cuda_scan.forward_llh_dense(fwd[0][..., :-1].contiguous(), *fwd[1:])
+    alpha, norms, _, _ = cuda_scan.forward_llh_dense(*fwd)
+    with pytest.raises(ValueError):
+        cuda_scan.estep_gamma_dense(a["llh"], a["lens"], a["trans"], a["final"][0], alpha, norms)
+    with pytest.raises(TypeError):
+        cuda_scan.estep_acc_dense(a["stats"], a["lens"], a["w"], a["bias"], a["trans"].double(),
+                                  a["final"], alpha, norms)
+    with pytest.raises(ValueError):
+        cuda_scan.estep_acc_dense(a["stats"], a["lens"], a["w"], a["bias"], a["trans"],
+                                  a["final"], alpha, norms.cpu())
+    # (S, S) operands that do not fit in shared memory
+    big = dense_args(dense_problem(2, 150, 78, 2, 5), torch.float32, device)
+    f_big = cuda_scan.forward_llh_dense(big["stats"], big["lens"], big["trans"], big["init"],
+                                        big["w"], big["bias"])
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_scan.estep_acc_dense(big["stats"], big["lens"], big["w"], big["bias"], big["trans"],
+                                  big["final"], *f_big[:2])
+    huge = dense_args(dense_problem(3, 200, 2, 2, 5), torch.float32, device)
+    f_huge = cuda_scan.forward_llh_dense(huge["llh"], huge["lens"], huge["trans"], huge["init"])
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_scan.estep_gamma_dense(huge["llh"], huge["lens"], huge["trans"], huge["final"],
+                                    *f_huge[:2])
+
+
+def test_dense_zero_length_rows_and_empty_batch(device):
+    a = dense_args(dense_problem(4, 6, 4, 3, 9, lengths=[0, 0, 0]), torch.float32, device)
+    for plain in (False, True):
+        f_stats, f_llh, acc, gam = _dense_run(a, plain)
+        for alpha, norms, last, logz in (f_stats, f_llh):
+            assert not alpha.any() and (norms == 1).all() and not logz.any()
+            assert torch.equal(last, a["init"])
+        assert not any(x.any() for x in acc) and not any(x.any() for x in gam)
+    empty = dense_args(dense_problem(4, 6, 4, 0, 9, lengths=np.zeros(0, int)), torch.float32,
+                       device)
+    for plain in (False, True):
+        f_stats, f_llh, acc, gam = _dense_run(empty, plain)
+        assert f_stats[0].shape == (0, 9, 6) and gam[0].shape == (0, 9, 6)
+        assert acc[0].shape == (6, 4) and not acc[3].any() and not gam[1].any()

@@ -213,7 +213,7 @@ def test_plain_scan_flag_keeps_results():
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, beer_tpu_torch; "
+    code = ("import sys, beer_tpu_torch, beer_tpu_torch.models.hmm, beer_tpu_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'beer_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1,19 +1,27 @@
-"""The plain versions of the port's four phone-loop scan kernels against beer_tpu.
+"""The plain versions of the port's scan kernels against beer_tpu.
 
 Each kernel of ``beer_tpu_torch/ops/cuda_scan.py`` has a plain PyTorch
-version, which is what its wrapper runs on CPU tensors.  Held against:
+version, which is what its wrapper runs on CPU tensors: the four
+phone-loop kernels K1–K4 and the three dense-transition HMM kernels
+K5–K7.  Held against:
 
 * the Pallas TPU kernel it replaces, run with ``interpret=True``, in
   float32.  Interpret mode computes in float32 even under the suite's
   x64, so the tolerance is rtol 1e-5: the summation orders over S and
   P differ, and the Pallas kernel gathers the ξ rows/columns with a
   two-pass bf16 selection product (measured gap ~4e-6 relative here);
+* for K5–K7 also the batch-major twins the TPU routing picks when
+  ``use_lane_major`` says no (``forward_llh_ckpt_pass``,
+  ``phone_loop_estep_ckpt_pass``; ROADMAP B8), interpret mode, float32,
+  same tolerance;
 * the JAX general path (``forward_backward_probs``,
   ``expected_transition_counts_probs``, the XLA route of
   ``viterbi_banded``) in float64, to rtol 1e-9.
 
 Shapes: U=4 units × 3 states, D=3 (P=6 reduced stats), B=4 with one
-full, two ragged and one zero-length row, T=20.
+full, two ragged and one zero-length row, T=20; the dense kernels take
+S=7 states with forbidden arcs, per-row init and per-row final vectors
+whose last states are padding (final 0).
 """
 
 import jax
@@ -26,7 +34,8 @@ from beer_tpu.ops import pallas_scan
 from beer_tpu.ops import semiring_scan as jss
 from beer_tpu_torch.ops import cuda_scan
 from beer_tpu_torch.ops import semiring_scan as tss
-from port_util import B, D, SPU, T, U, close, port_args as _port_args, scan_problem, t
+from port_util import (B, D, SPU, T, U, close, dense_args, dense_problem,
+                       port_args as _port_args, scan_problem, t)
 
 S, P = U * SPU, 2 * D
 RTOL_F32, RTOL_F64 = 1e-5, 1e-9
@@ -94,6 +103,8 @@ def _pallas_decode(pb, llh):
 
 KERNEL_NAMES = ["forward_llh_banded", "estep_acc_banded", "viterbi_fwd_banded",
                 "viterbi_backtrace_banded"]
+DENSE_KERNELS = ["forward_llh_dense", "estep_acc_dense", "estep_gamma_dense"]
+S_DENSE = 7
 
 
 @pytest.mark.parametrize("kernel", KERNEL_NAMES)
@@ -194,7 +205,7 @@ def test_plain_version_matches_general_path_f64(kernel):
                                               np.asarray(paths_ref)[b, :lens[b]])
 
 
-@pytest.mark.parametrize("kernel", KERNEL_NAMES)
+@pytest.mark.parametrize("kernel", KERNEL_NAMES + DENSE_KERNELS)
 def test_wrapper_runs_plain_version_on_cpu(kernel):
     """On CPU tensors each wrapper is its plain version, and no launch is counted."""
     pb = _problem(seed=3)
@@ -204,6 +215,9 @@ def test_wrapper_runs_plain_version_on_cpu(kernel):
     llh = (a["stats"] @ a["w"].T + a["bias"]).contiguous()
     lb, li, lf = (tss.log_bands(a[k]) for k in ("bands", "init", "final"))
     choices, exarg, alpha_last = cuda_scan.viterbi_fwd_banded_plain(llh, a["lens"], lb, li)
+    d = dense_args(dense_problem(3, S_DENSE, P, B, T), torch.float32)
+    d_alpha, d_norms, _, _ = cuda_scan.forward_llh_dense_plain(d["llh"], d["lens"], d["trans"],
+                                                               d["init"])
     cases = {
         "forward_llh_banded": (cuda_scan.forward_llh_banded, cuda_scan.forward_llh_banded_plain,
                                (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])),
@@ -215,6 +229,13 @@ def test_wrapper_runs_plain_version_on_cpu(kernel):
         "viterbi_backtrace_banded": (cuda_scan.viterbi_backtrace_banded,
                                      cuda_scan.viterbi_backtrace_banded_plain,
                                      (choices, exarg, alpha_last, lf)),
+        "forward_llh_dense": (cuda_scan.forward_llh_dense, cuda_scan.forward_llh_dense_plain,
+                              (d["stats"], d["lens"], d["trans"], d["init"], d["w"], d["bias"])),
+        "estep_acc_dense": (cuda_scan.estep_acc_dense, cuda_scan.estep_acc_dense_plain,
+                            (d["stats"], d["lens"], d["w"], d["bias"], d["trans"], d["final"],
+                             d_alpha, d_norms)),
+        "estep_gamma_dense": (cuda_scan.estep_gamma_dense, cuda_scan.estep_gamma_dense_plain,
+                              (d["llh"], d["lens"], d["trans"], d["final"], d_alpha, d_norms)),
     }
     wrapper, plain, args = cases[kernel]
     for got, want in zip(wrapper(*args), plain(*args)):
@@ -245,6 +266,178 @@ def test_general_path_matches_jax_f64():
     xi = tss.expected_transition_counts_probs(fbp, t(ref["log_trans"]), mask,
                                               rows=t(pb["ends"]), cols=t(pb["starts"]))
     close(xi, ref["xi"], RTOL_F64, atol=1e-14)
+
+
+# ----------------------------------------------------------------------
+# K5–K7 (dense transitions, per-row init/final)
+# ----------------------------------------------------------------------
+def _dense_port(a):
+    """Plain K5 in both input modes, K6 and K7 on one problem."""
+    fwd_stats = cuda_scan.forward_llh_dense_plain(a["stats"], a["lens"], a["trans"], a["init"],
+                                                  a["w"], a["bias"])
+    fwd_llh = cuda_scan.forward_llh_dense_plain(a["llh"], a["lens"], a["trans"], a["init"])
+    alpha, norms = fwd_stats[0], fwd_stats[1]
+    acc = cuda_scan.estep_acc_dense_plain(a["stats"], a["lens"], a["w"], a["bias"], a["trans"],
+                                          a["final"], alpha, norms)
+    gam = cuda_scan.estep_gamma_dense_plain(a["llh"], a["lens"], a["trans"], a["final"],
+                                            fwd_llh[0], fwd_llh[1])
+    return fwd_stats, fwd_llh, acc, gam
+
+
+def _dense_pallas_lane_major(pb):
+    f32 = lambda x: jnp.asarray(x, jnp.float32)  # noqa: E731
+    stats_lm = jnp.transpose(f32(pb["stats"]), (1, 2, 0))
+    llh_lm = jnp.einsum("sp,tpb->tsb", f32(pb["w"]), stats_lm) + f32(pb["bias"])[None, :, None]
+    mask, trans = f32(pb["mask"]), f32(pb["trans"])
+    init_lm, final_lm = f32(pb["init"]).T, f32(pb["final"]).T
+    alphas, norms, last, logz = pallas_scan.forward_llh_ckpt_pass_lm(
+        stats_lm, None, init_lm, mask, interpret=True, trans=trans, w=f32(pb["w"]),
+        bias=f32(pb["bias"]), store_alpha=True)
+    ckpts, last_llh, logz_llh = pallas_scan.forward_llh_ckpt_pass_lm(
+        llh_lm, None, init_lm, mask, interpret=True, trans=trans)
+    acc2, counts, gamma0, xi_acc = pallas_scan.phone_loop_estep_ckpt_acc_lm(
+        None, None, None, final_lm, mask, None, None, stats_lm, interpret=True, trans=trans,
+        w=f32(pb["w"]), bias=f32(pb["bias"]), alphas=alphas, norms=norms)
+    gamma, xi_gamma = pallas_scan.phone_loop_estep_ckpt_pass_lm(
+        llh_lm, ckpts, None, final_lm, mask, None, None, interpret=True, trans=trans)
+    n = lambda x: np.asarray(x)  # noqa: E731
+    return dict(alpha=n(alphas).transpose(2, 0, 1), norms=n(norms)[:, 0].T, last=n(last).T,
+                logz=n(logz), last_llh=n(last_llh).T, logz_llh=n(logz_llh), acc2=n(acc2),
+                counts=n(counts), gamma0=n(gamma0).T, xi_acc=n(xi_acc),
+                gamma=n(gamma).transpose(2, 0, 1), xi_gamma=n(xi_gamma))
+
+
+def _dense_pallas_batch_major(pb):
+    f32 = lambda x: jnp.asarray(x, jnp.float32)  # noqa: E731
+    stats_tm = jnp.swapaxes(f32(pb["stats"]), 0, 1)
+    w_ps, bias = f32(pb["w"]).T, f32(pb["bias"])
+    llh_tm = stats_tm @ w_ps + bias
+    mask, trans, init, final = (f32(pb[k]) for k in ("mask", "trans", "init", "final"))
+    ckpts, last, logz = pallas_scan.forward_llh_ckpt_pass(stats_tm, trans, init, mask,
+                                                          interpret=True, w=w_ps, bias=bias)
+    ckpts_llh, last_llh, logz_llh = pallas_scan.forward_llh_ckpt_pass(llh_tm, trans, init, mask,
+                                                                      interpret=True)
+    xi_acc, acc2, counts, gamma0 = pallas_scan.phone_loop_estep_ckpt_pass(
+        stats_tm, ckpts, trans, final, mask, None, None, interpret=True, w=w_ps, bias=bias,
+        stats_tm=stats_tm)
+    gamma, xi_gamma = pallas_scan.phone_loop_estep_ckpt_pass(
+        llh_tm, ckpts_llh, trans, final, mask, None, None, interpret=True)
+    n = lambda x: np.asarray(x)  # noqa: E731
+    return dict(last=n(last), logz=n(logz), last_llh=n(last_llh), logz_llh=n(logz_llh),
+                acc2=n(acc2), counts=n(counts), gamma0=n(gamma0), xi_acc=n(xi_acc),
+                gamma=n(gamma).transpose(1, 0, 2), xi_gamma=n(xi_gamma))
+
+
+def _check_dense(kernel, port, ref, lens, rtol):
+    """One kernel's outputs against a reference's (rows with frames only
+    for the per-row forward outputs)."""
+    (alpha, norms, last, logz), (_, _, last_llh, logz_llh), acc, (gamma, xi_gamma) = port
+    full = lens > 0
+    if kernel == "forward_llh_dense":
+        if "alpha" in ref:
+            for b in np.flatnonzero(full):
+                ln = lens[b]
+                close(alpha[b, :ln], ref["alpha"][b, :ln], rtol, atol=1e-7)
+                close(norms[b, :ln], ref["norms"][b, :ln], rtol)
+        for got, want in ((last, ref["last"]), (last_llh, ref["last_llh"])):
+            close(got[full], want[full], rtol, atol=1e-7)
+        for got, want in ((logz, ref["logz"]), (logz_llh, ref["logz_llh"])):
+            close(got[full], want[full], rtol)
+    elif kernel == "estep_acc_dense":
+        close(acc[0], ref["acc2"], rtol, atol=1e-5)
+        close(acc[1], ref["counts"], rtol)
+        close(acc[2][full], ref["gamma0"][full], rtol, atol=1e-7)
+        close(acc[3], ref["xi_acc"], rtol, atol=1e-6)
+    else:
+        # the γ-emitting Pallas kernel recomputes α̂ from checkpoints with
+        # its bf16×3 propagate: its γ lies 1e-6–2e-6 from the float64
+        # value, the plain version's 1e-7–2e-7 (measured at this shape)
+        for b in np.flatnonzero(full):
+            close(gamma[b, :lens[b]], ref["gamma"][b, :lens[b]], rtol, atol=5e-6)
+        close(xi_gamma, ref["xi_gamma"], rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("kernel", DENSE_KERNELS)
+def test_dense_plain_version_matches_pallas_f32(kernel):
+    pb = dense_problem(13, S_DENSE, P, B, T)
+    port = _dense_port(dense_args(pb, torch.float32))
+    _check_dense(kernel, port, _dense_pallas_lane_major(pb), pb["lengths"], RTOL_F32)
+    gamma = port[3][0]
+    assert not gamma[3].any() and not gamma[1, T - 7:].any()  # frames past each end
+
+
+@pytest.mark.parametrize("kernel", DENSE_KERNELS)
+def test_dense_plain_version_matches_batch_major_pallas_f32(kernel):
+    """The batch-major twins (B8) compute what K5–K7 compute."""
+    pb = dense_problem(17, S_DENSE, P, B, T)
+    port = _dense_port(dense_args(pb, torch.float32))
+    _check_dense(kernel, port, _dense_pallas_batch_major(pb), pb["lengths"], RTOL_F32)
+
+
+def _dense_general(pb):
+    llh = pb["stats"] @ pb["w"].T + pb["bias"]
+    logv = lambda v: np.where(v > 0, np.log(np.maximum(v, 1e-300)), -1e30)  # noqa: E731
+    log_trans = jnp.asarray(logv(pb["trans"]))
+    mask = jnp.asarray(pb["mask"])
+    fbp = jss.forward_backward_probs(jnp.asarray(llh), log_trans, jnp.asarray(logv(pb["init"])),
+                                     jnp.asarray(logv(pb["final"])), mask)
+    xi = np.asarray(jss.expected_transition_counts_probs(fbp, log_trans, mask))
+    post = np.asarray(fbp.posteriors)
+    logcs = np.asarray(fbp.fwd_log_scales)
+    return dict(alpha=np.asarray(fbp.probs_fwd), norms=np.exp(np.diff(logcs, axis=1, prepend=0.0)),
+                log_z=np.asarray(fbp.log_z), acc2=np.einsum("bts,btp->sp", post, pb["stats"]),
+                counts=post.sum((0, 1)), gamma0=post[:, 0], gamma=post, xi=xi)
+
+
+@pytest.mark.parametrize("kernel", DENSE_KERNELS)
+def test_dense_plain_version_matches_general_path_f64(kernel):
+    pb = dense_problem(19, S_DENSE, P, B, T)
+    a = dense_args(pb, torch.float64)
+    (alpha, norms, last, logz), fwd_llh, acc, (gamma, xi_g) = _dense_port(a)
+    ref = _dense_general(pb)
+    lens = pb["lengths"]
+    full = lens > 0
+    trans = a["trans"]
+    if kernel == "forward_llh_dense":
+        for out in ((alpha, norms, last, logz), fwd_llh):
+            log_z = out[3] + torch.log((out[2] * a["final"]).sum(-1))
+            close(log_z[full], ref["log_z"][full], RTOL_F64)
+            for b in np.flatnonzero(full):
+                close(out[0][b, :lens[b]], ref["alpha"][b, :lens[b]], RTOL_F64, atol=1e-300)
+                close(out[1][b, :lens[b]], ref["norms"][b, :lens[b]], RTOL_F64)
+    elif kernel == "estep_acc_dense":
+        close(acc[0], ref["acc2"], RTOL_F64, atol=1e-12)
+        close(acc[1], ref["counts"], RTOL_F64)
+        close(acc[2], ref["gamma0"], RTOL_F64, atol=1e-14)
+        close(acc[3] * trans, ref["xi"], RTOL_F64, atol=1e-14)
+    else:
+        close(gamma, ref["gamma"], RTOL_F64, atol=1e-14)
+        close(xi_g * trans, ref["xi"], RTOL_F64, atol=1e-14)
+
+
+def test_general_path_per_utterance_matches_jax_f64():
+    """Per-utterance (B, S, S) matrices and (B, S) init/final through the
+    port's general path and dense Viterbi equal the JAX package's."""
+    rng = np.random.default_rng(23)
+    s = 5
+    pbs = [dense_problem(29 + b, s, P, B, T) for b in range(B)]
+    trans = np.stack([pb["trans"] for pb in pbs])
+    pb = pbs[0]
+    llh = pb["stats"] @ pb["w"].T + pb["bias"] + rng.normal(size=(B, T, s))
+    logv = lambda v: np.where(v > 0, np.log(np.maximum(v, 1e-300)), -1e30)  # noqa: E731
+    args = (llh, logv(trans), logv(pb["init"]), logv(pb["final"]))
+    mask = pb["mask"]
+    fbp = tss.forward_backward_probs(*map(t, args), t(mask))
+    jfbp = jss.forward_backward_probs(*map(jnp.asarray, args), jnp.asarray(mask))
+    full = pb["lengths"] > 0
+    close(fbp.log_z[full], np.asarray(jfbp.log_z)[full], RTOL_F64)
+    close(fbp.posteriors, jfbp.posteriors, RTOL_F64, atol=1e-14)
+    paths, scores = tss.viterbi(*map(t, args), t(mask))
+    jpaths, jscores = jss.viterbi(*map(jnp.asarray, args), jnp.asarray(mask))
+    for b in np.flatnonzero(full):
+        np.testing.assert_array_equal(paths[b, :pb["lengths"][b]].numpy(),
+                                      np.asarray(jpaths)[b, :pb["lengths"][b]])
+        close(scores[b], jscores[b], RTOL_F64)
 
 
 def test_library_path_is_keyed_on_sources(tmp_path, monkeypatch):
