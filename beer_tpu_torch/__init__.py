@@ -1,8 +1,9 @@
 """beer_tpu_torch — the PyTorch/CUDA port of beer_tpu.
 
 Bayesian speech models (variational-Bayes conjugate exponential-family
-models) in PyTorch, with the scan recursions of the phone-loop main path
-as hand-written CUDA kernels for Hopper (``beer_tpu_torch/csrc``).  The
+models) in PyTorch, with the scan recursions and the full-covariance
+statistics of the ported paths as hand-written CUDA kernels for Hopper
+(``beer_tpu_torch/csrc``).  The
 JAX package ``beer_tpu`` is the reference this package is tested against;
 the natural-parameter layouts are the same, so weights carry across
 (:mod:`beer_tpu_torch.convert`).
@@ -12,7 +13,15 @@ diagonal NormalSet (BASELINE config 4), and the Bayesian HMM over state
 graphs with diagonal NormalSet or MixtureSet emissions and optionally
 learned transitions (ergodic HMMs, config 2; the supervised recognizer
 on transcription graphs, config 3): VB-EM steps (:func:`vb_step`),
-posteriors and Viterbi decoding.
+posteriors and Viterbi decoding; the full-covariance Bayesian GMM
+(:class:`Mixture` over a full-covariance NormalSet, config 1) and
+full-covariance NormalSet and MixtureSet emissions of the HMM.
+
+Entry points that build a model or a graph (the ``*_from_numpy``
+converters, ``Graph.compile``, ``transcription_graphs``,
+``Categorical.create``, ``SBCategorical.create``) build on the CUDA card
+unless they are given ``device="cpu"``; with no card and no device they
+raise.  Models made from a NormalSet follow its device.
 
 Importing the package turns TF32 off for float32 matmuls and
 convolutions: the expected log-likelihood and the moment accumulation
@@ -27,6 +36,7 @@ torch.backends.cudnn.allow_tf32 = False
 from beer_tpu_torch import dists  # noqa: E402
 from beer_tpu_torch.convert import (  # noqa: E402
     hmm_from_numpy,
+    mixture_from_numpy,
     mixture_set_from_numpy,
     normal_set_from_numpy,
     phone_loop_from_numpy,
@@ -46,6 +56,7 @@ __all__ = [
     "dists",
     "phone_loop_from_numpy",
     "hmm_from_numpy",
+    "mixture_from_numpy",
     "mixture_set_from_numpy",
     "normal_set_from_numpy",
     "Model",
@@ -64,6 +75,7 @@ __all__ = [
     "phone_loop_graph",
     "transcription_graphs",
     "HMM",
+    "Mixture",
     "MixtureSet",
     "PhoneLoop",
     "ELBO",

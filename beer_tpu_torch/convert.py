@@ -11,16 +11,25 @@ inverse of the model's ``to_numpy()``.
   ``base_log_trans`` (S, S), ``log_exit`` (U,) or None, ``n_units``,
   ``states_per_unit``, ``self_loop``, ``dim``, ``cov_type``.
 * NormalSet (:func:`normal_set_from_numpy`): ``type`` "NormalSet",
-  ``prior`` / ``posterior`` (K, 4D), ``dim``, ``cov_type``.
+  ``prior`` / ``posterior`` (K, 4D) NormalGamma natural parameters for
+  ``cov_type`` "diagonal", (K, D²+D+2) NormalWishart ones for "full",
+  ``dim``, ``cov_type``.
 * MixtureSet (:func:`mixture_set_from_numpy`): ``type`` "MixtureSet",
   ``weights_prior`` / ``weights_posterior`` (S, K) Dirichlet natural
   parameters, ``nmix``, ``ncomp_per_mix`` and ``modelset``, a NormalSet
   dict.
+* Mixture (:func:`mixture_from_numpy`): ``type`` "Mixture", ``prior`` /
+  ``posterior`` (K,) Dirichlet natural parameters of the weight model
+  and ``modelset``, a NormalSet dict.
 * HMM (:func:`hmm_from_numpy`): the compiled graph (``log_init``,
   ``log_final``, ``log_trans``, ``pdf_ids``, ``n_states``, ``n_pdfs``,
   ``l2r_banded``), ``modelset`` (a NormalSet or MixtureSet dict) and the
   transition Dirichlet ``trans_alpha_prior`` / ``trans_alpha_post``
   (S, S), or None for fixed transitions.
+
+Every builder puts the model on the CUDA card unless ``device`` says
+otherwise (``device="cpu"``), and raises when there is no card and no
+device was given.
 """
 
 from __future__ import annotations
@@ -31,11 +40,12 @@ import numpy as np
 import torch
 
 from beer_tpu_torch import dists
-from beer_tpu_torch.models.categorical import SBCategorical
+from beer_tpu_torch.device import resolve_device
+from beer_tpu_torch.models.categorical import Categorical, SBCategorical
 from beer_tpu_torch.models.graph import CompiledGraph
 from beer_tpu_torch.models.hmm import HMM
-from beer_tpu_torch.models.mixture import MixtureSet
-from beer_tpu_torch.models.normal import NormalSet
+from beer_tpu_torch.models.mixture import Mixture, MixtureSet
+from beer_tpu_torch.models.normal import FAMILIES, NormalSet
 from beer_tpu_torch.models.parameters import BayesianParameter
 from beer_tpu_torch.models.phoneloop import PhoneLoop
 
@@ -46,19 +56,22 @@ def _tensor(x, dtype=None, device=None) -> torch.Tensor:
 
 
 def _normal_set(prior, posterior, dim, cov_type, dtype, device) -> NormalSet:
+    if cov_type not in FAMILIES:
+        raise NotImplementedError(f"cov_type={cov_type!r} is not ported (ROADMAP A.4)")
+    fam = FAMILIES[cov_type](dim=dim)
     prior = _tensor(prior, dtype, device)
     k, p = prior.shape
-    if p != 4 * dim:
-        raise ValueError(f"modelset parameters have width {p}, expected 4·dim = {4 * dim}")
-    return NormalSet(
-        BayesianParameter(prior, _tensor(posterior, dtype, device), dists.NormalGamma(dim=dim)),
-        cov_type=cov_type, ncomp=k, dim=dim,
-    )
+    if p != fam.nat_dim:
+        raise ValueError(f"modelset parameters have width {p}, expected {fam.nat_dim} for "
+                         f"cov_type={cov_type!r} at dim={dim}")
+    return NormalSet(BayesianParameter(prior, _tensor(posterior, dtype, device), fam),
+                     cov_type=cov_type, ncomp=k, dim=dim)
 
 
 def phone_loop_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> PhoneLoop:
-    """A PhoneLoop on ``device`` (default CPU) in ``dtype`` (default: the
-    arrays' own floating type)."""
+    """A PhoneLoop on ``device`` (default: the CUDA card) in ``dtype``
+    (default: the arrays' own floating type)."""
+    device = resolve_device(device)
 
     def t(x):
         return _tensor(x, dtype, device)
@@ -76,10 +89,15 @@ def phone_loop_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> PhoneLo
 
 
 def normal_set_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> NormalSet:
+    """A diagonal or full-covariance NormalSet on ``device`` (default: the
+    CUDA card)."""
+    device = resolve_device(device)
     return _normal_set(d["prior"], d["posterior"], int(d["dim"]), d["cov_type"], dtype, device)
 
 
 def mixture_set_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> MixtureSet:
+    """A MixtureSet on ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     nmix, ncomp = int(d["nmix"]), int(d["ncomp_per_mix"])
     weights = BayesianParameter(_tensor(d["weights_prior"], dtype, device),
                                 _tensor(d["weights_posterior"], dtype, device),
@@ -87,17 +105,30 @@ def mixture_set_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> Mixtur
     return MixtureSet(weights, normal_set_from_numpy(d["modelset"], device, dtype), nmix, ncomp)
 
 
+def mixture_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> Mixture:
+    """A Mixture with a Dirichlet weight model on ``device`` (default: the
+    CUDA card) in ``dtype`` (default: the arrays' own floating type)."""
+    device = resolve_device(device)
+    prior = _tensor(d["prior"], dtype, device)
+    weights = BayesianParameter(prior, _tensor(d["posterior"], dtype, device),
+                                dists.Dirichlet(dim=prior.shape[-1]))
+    return Mixture(Categorical(weights, prior.shape[-1]),
+                   modelset_from_numpy(d["modelset"], device, dtype))
+
+
 def modelset_from_numpy(d: Dict[str, Any], device=None, dtype=None):
-    """A NormalSet or MixtureSet, by the dict's ``type``."""
-    builders = {"NormalSet": normal_set_from_numpy, "MixtureSet": mixture_set_from_numpy}
+    """A NormalSet, MixtureSet or Mixture, by the dict's ``type``."""
+    builders = {"NormalSet": normal_set_from_numpy, "MixtureSet": mixture_set_from_numpy,
+                "Mixture": mixture_from_numpy}
     if d["type"] not in builders:
         raise ValueError(f"unknown modelset type {d['type']!r}")
     return builders[d["type"]](d, device, dtype)
 
 
 def hmm_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> HMM:
-    """An HMM on ``device`` (default CPU) in ``dtype`` (default: the
-    arrays' own floating type)."""
+    """An HMM on ``device`` (default: the CUDA card) in ``dtype`` (default:
+    the arrays' own floating type)."""
+    device = resolve_device(device)
 
     def t(x):
         return None if x is None else _tensor(x, dtype, device)

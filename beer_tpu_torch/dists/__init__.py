@@ -3,5 +3,7 @@
 from beer_tpu_torch.dists.basedist import ExpFamily
 from beer_tpu_torch.dists.dirichlet import Beta, Dirichlet
 from beer_tpu_torch.dists.normalgamma import IsotropicNormalGamma, NormalGamma
+from beer_tpu_torch.dists.normalwishart import NormalWishart
 
-__all__ = ["ExpFamily", "Beta", "Dirichlet", "NormalGamma", "IsotropicNormalGamma"]
+__all__ = ["ExpFamily", "Beta", "Dirichlet", "NormalGamma", "IsotropicNormalGamma",
+           "NormalWishart"]

@@ -50,3 +50,28 @@ class ExpFamily:
             - self.log_norm(nat_q)
             + self.log_norm(nat_p)
         )
+
+
+# ----------------------------------------------------------------------
+# Shared helpers for matrix-variate families.
+# ----------------------------------------------------------------------
+def sym(mat: torch.Tensor) -> torch.Tensor:
+    """Symmetrise (guards cholesky/logdet against asymmetric roundoff)."""
+    return 0.5 * (mat + mat.transpose(-1, -2))
+
+
+def logdet_pd(mat: torch.Tensor) -> torch.Tensor:
+    """log|M| for symmetric positive-definite M through a Cholesky factor
+    (batched); raises on a matrix that is not positive definite."""
+    chol = torch.linalg.cholesky(sym(mat))
+    return 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+
+
+def vec(mat: torch.Tensor) -> torch.Tensor:
+    """Flatten the trailing (D, D) matrix dims to D²."""
+    return mat.reshape(*mat.shape[:-2], -1)
+
+
+def unvec(flat: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inverse of :func:`vec`."""
+    return flat.reshape(*flat.shape[:-1], dim, dim)

@@ -13,7 +13,7 @@ from beer_tpu_torch.models.graph import (
     transcription_graphs,
 )
 from beer_tpu_torch.models.hmm import HMM
-from beer_tpu_torch.models.mixture import MixtureSet
+from beer_tpu_torch.models.mixture import Mixture, MixtureSet
 from beer_tpu_torch.models.modelset import ModelSet
 from beer_tpu_torch.models.normal import NormalSet
 from beer_tpu_torch.models.parameters import BayesianParameter
@@ -36,6 +36,7 @@ __all__ = [
     "phone_loop_graph",
     "transcription_graphs",
     "HMM",
+    "Mixture",
     "MixtureSet",
     "PhoneLoop",
 ]

@@ -18,6 +18,7 @@ import torch
 from torch.nn import functional as F
 
 from beer_tpu_torch import dists
+from beer_tpu_torch.device import resolve_device
 from beer_tpu_torch.models.basemodel import Model
 from beer_tpu_torch.models.parameters import BayesianParameter
 
@@ -33,8 +34,10 @@ class Categorical(Model):
     @classmethod
     def create(cls, ncat: int, prior_strength: float = 1.0,
                dtype=torch.float32, device=None) -> "Categorical":
+        """On the CUDA card unless ``device`` says otherwise."""
         fam = dists.Dirichlet(dim=ncat)
-        nat = fam.to_nat(torch.full((ncat,), prior_strength, dtype=dtype, device=device))
+        nat = fam.to_nat(torch.full((ncat,), prior_strength, dtype=dtype,
+                                    device=resolve_device(device)))
         return cls(BayesianParameter(nat, nat.clone(), fam), ncat)
 
     def expected_log_weights(self) -> torch.Tensor:
@@ -87,6 +90,8 @@ class SBCategorical(Model):
     @classmethod
     def create(cls, truncation: int, concentration: float = 1.0,
                dtype=torch.float32, device=None) -> "SBCategorical":
+        """On the CUDA card unless ``device`` says otherwise."""
+        device = resolve_device(device)
         fam = dists.Beta()
         alpha = torch.stack(
             [

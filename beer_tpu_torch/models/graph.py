@@ -19,6 +19,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from beer_tpu_torch.device import resolve_device
+
 LOG_ZERO = -1e30
 
 
@@ -103,6 +105,8 @@ class Graph:
                 self._init[s] /= z
 
     def compile(self, dtype=torch.float32, device=None) -> CompiledGraph:
+        """The dense graph on the CUDA card unless ``device`` says otherwise."""
+        device = resolve_device(device)
         n = self.n_states
         trans = np.full((n, n), LOG_ZERO, dtype=np.float64)
         init = np.full(n, LOG_ZERO, dtype=np.float64)
@@ -218,7 +222,9 @@ def transcription_graphs(transcriptions, n_phones: int, states_per_phone: int,
     utterance's padding states never feed back into its real states and
     carry zero final weight.  ``shared=False`` materialises per-utterance
     (B, S, S) matrices and (B, S) init (the general path and the oracle).
+    The graphs are built on the CUDA card unless ``device`` says otherwise.
     """
+    device = resolve_device(device)
     p = states_per_phone
     b = len(transcriptions)
     s_max = max(len(t) for t in transcriptions) * p

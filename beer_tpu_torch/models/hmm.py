@@ -11,14 +11,16 @@ Routes of :meth:`HMM.infer` / :meth:`HMM.accumulate`, chosen as the JAX
 package chooses them (``hmm.py:135-154``):
 
 * **stats** — one shared (S, S) matrix, a diagonal :class:`NormalSet`
-  and a 1-D pdf map, init and final (BASELINE config 2): the dense
+  (the reduced statistics' affine ELLH) and a 1-D pdf map, init and
+  final (BASELINE config 2): the dense
   forward computes llh = W·stats + bias in the kernel (the pdf map folds
   into W's rows) and the accumulating backward reduces γ to the emission
   moments and the full ξ (K5 + K6);
 * **llh** — one shared (S, S) matrix otherwise, e.g. per-utterance pdf
-  maps and final vectors of shared transcription graphs (config 3) or a
-  :class:`MixtureSet`: the forward reads the per-state llh stream and
-  the backward emits γ and the full ξ (K5 + K7);
+  maps and final vectors of shared transcription graphs (config 3), a
+  :class:`MixtureSet` or full-covariance emissions (whose component ELLH
+  and statistics run K9 and K10): the forward reads the per-state llh
+  stream and the backward emits γ and the full ξ (K5 + K7);
 * **general** — per-utterance (B, S, S) matrices: the plain-torch
   probability-space smoothing of :mod:`beer_tpu_torch.ops.semiring_scan`.
 
@@ -147,8 +149,9 @@ class HMM(DiscreteLatentModel):
         """"stats", "llh" or "general" (see the module docstring)."""
         if self.graph_log_trans.ndim == 3:
             return "general"
-        if (type(self.modelset) is NormalSet and self.graph_pdf_ids.ndim == 1
-                and self.graph_log_init.ndim == 1 and self.graph_log_final.ndim == 1):
+        if (type(self.modelset) is NormalSet and self.modelset.cov_type == "diagonal"
+                and self.graph_pdf_ids.ndim == 1 and self.graph_log_init.ndim == 1
+                and self.graph_log_final.ndim == 1):
             return "stats"
         return "llh"
 

@@ -1,24 +1,134 @@
-"""A set of Bayesian mixtures over a diagonal NormalSet (PyTorch).
+"""Bayesian mixtures (PyTorch): the GMM and the set of GMMs of an HMM.
 
-Counterpart of ``MixtureSet`` in ``beer_tpu/models/mixture.py``: S
-mixtures of K components each (one GMM per HMM state, the HMM-GMM
-emissions of the recognizer recipe).  The S·K components live in one
-NormalSet; the weights are a batched Dirichlet of shape (S, K).  Each
-state's expected log-likelihood is logsumexp over its K components of
-the component ELLH + E[log w].  ``Mixture`` and the full-covariance
-NormalSet come with the GMM slice (ROADMAP A.4, B5/B6).
+Counterpart of ``beer_tpu/models/mixture.py``.
+
+* :class:`Mixture` — one mixture of any ModelSet under a weight model
+  exposing ``expected_log_weights`` (a Dirichlet :class:`Categorical` by
+  default): the Bayesian GMM of BASELINE config 1.  Over a
+  full-covariance :class:`NormalSet` its E-step is one kernel
+  (:func:`~beer_tpu_torch.ops.stats_kernels.gmm_estep_full`, K8): the
+  per-frame log-marginal, the responsibilities and the accumulated
+  statistics, with the responsibilities never stored.  Other components
+  take the logsumexp route with the responsibilities in the cache.
+* :class:`MixtureSet` — S mixtures of K components each (one GMM per HMM
+  state, the HMM-GMM emissions of the recognizer recipe).  The S·K
+  components live in one NormalSet; the weights are a batched Dirichlet
+  of shape (S, K).  Each state's expected log-likelihood is logsumexp
+  over its K components of the component ELLH + E[log w].
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from beer_tpu_torch import dists
+from beer_tpu_torch.models.basemodel import DiscreteLatentModel
+from beer_tpu_torch.models.categorical import Categorical
 from beer_tpu_torch.models.modelset import ModelSet
 from beer_tpu_torch.models.normal import NormalSet
 from beer_tpu_torch.models.parameters import BayesianParameter
+from beer_tpu_torch.ops import stats_kernels
+
+
+class Mixture(DiscreteLatentModel):
+    """Mixture of any ModelSet with a Bayesian prior over the weights.
+
+    ``plain_scan`` runs the plain PyTorch version of the fused E-step
+    kernel even on CUDA tensors (the reference route on the card).
+    """
+
+    def __init__(self, categorical, modelset, plain_scan: bool = False):
+        super().__init__()
+        self.categorical = categorical
+        self.modelset = modelset
+        self.plain_scan = plain_scan
+
+    @classmethod
+    def create(cls, modelset, prior_strength: float = 1.0, weight_model=None) -> "Mixture":
+        """The default weight model is a Dirichlet :class:`Categorical`
+        on the modelset's device, in its dtype."""
+        if weight_model is None:
+            like = next(modelset.buffers())
+            weight_model = Categorical.create(len(modelset), prior_strength, like.dtype,
+                                              like.device)
+        return cls(weight_model, modelset)
+
+    # ------------------------------------------------------------------
+    def sufficient_statistics(self, data: torch.Tensor) -> torch.Tensor:
+        return self.modelset.sufficient_statistics(data)
+
+    def _fused(self) -> bool:
+        """The one-kernel E-step route: full-covariance NormalSet components."""
+        return isinstance(self.modelset, NormalSet) and self.modelset.cov_type == "full"
+
+    def _joint(self, stats: torch.Tensor) -> torch.Tensor:
+        """(..., K) component ELLH + E[log w]."""
+        return self.modelset.expected_log_likelihood(stats) + self.categorical.expected_log_weights()
+
+    def infer(self, stats: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        """Per-frame log-marginal (masked frames 0) and the cache
+        ``accumulate`` needs: ``{"gmm_acc", "gmm_counts"}`` on the fused
+        route, ``{"resps"}`` otherwise."""
+        if self._fused():
+            ms = self.modelset
+            fn = (stats_kernels.gmm_estep_full_plain if self.plain_scan
+                  else stats_kernels.gmm_estep_full)
+            llh, acc, counts = fn(
+                stats.reshape(-1, ms.dim).contiguous(),
+                ms.means_precisions.expected_sufficient_statistics(),
+                self.categorical.expected_log_weights(),
+                None if mask is None else mask.reshape(-1).to(stats.dtype).contiguous())
+            return llh.reshape(stats.shape[:-1]), {"gmm_acc": acc, "gmm_counts": counts}
+        joint = self._joint(stats)
+        llh = torch.logsumexp(joint, dim=-1)
+        resps = torch.exp(joint - llh[..., None])
+        if mask is not None:
+            llh = llh * mask
+            resps = resps * mask[..., None]
+        return llh, {"resps": resps}
+
+    def accumulate(self, stats: torch.Tensor, cache: Dict[str, Any]) -> Dict[str, Any]:
+        if "gmm_acc" in cache:
+            return {"categorical": self.categorical.accumulate_counts(cache["gmm_counts"]),
+                    "modelset": {"means_precisions": cache["gmm_acc"]}}
+        resps = cache["resps"]
+        counts = resps.reshape(-1, resps.shape[-1]).sum(0)
+        return {"categorical": self.categorical.accumulate_counts(counts),
+                "modelset": self.modelset.accumulate(stats, resps)}
+
+    def posteriors(self, data: torch.Tensor) -> torch.Tensor:
+        """(..., K) responsibilities, computed directly (the fused E-step
+        never stores them): the component ELLH (K9 for full covariance)
+        and a softmax."""
+        return torch.softmax(self._joint(self.sufficient_statistics(data)), dim=-1)
+
+    def kl_div_posterior_prior(self) -> torch.Tensor:
+        return self.categorical.kl_div_posterior_prior() + self.modelset.kl_div_posterior_prior()
+
+    def vb_update(self, acc: Dict[str, Any], lrate: float = 1.0) -> "Mixture":
+        """Conjugate step on the weights and the components, in place."""
+        self.categorical.vb_update(acc["categorical"], lrate)
+        self.modelset.vb_update(acc["modelset"], lrate)
+        return self
+
+    def mean_field_factorization(self):
+        """Two coordinate-ascent groups: weights, then components."""
+        return [["categorical"], ["modelset"]]
+
+    def weights(self) -> torch.Tensor:
+        """Posterior expected mixture weights, (K,)."""
+        return self.categorical.mean()
+
+    def to_numpy(self) -> Dict[str, Any]:
+        """The Dirichlet weight model and the components as numpy arrays
+        and Python values; the inverse of
+        :func:`beer_tpu_torch.convert.mixture_from_numpy`."""
+        w = self.categorical.weights
+        return {"type": "Mixture", "prior": w.prior.detach().cpu().numpy(),
+                "posterior": w.posterior.detach().cpu().numpy(),
+                "modelset": self.modelset.to_numpy()}
 
 
 class MixtureSet(ModelSet):
@@ -63,8 +173,8 @@ class MixtureSet(ModelSet):
         return self.expected_log_likelihood(stats), {}
 
     def accumulate(self, stats: torch.Tensor, resps: torch.Tensor) -> Dict[str, Any]:
-        """resps (N, S) state responsibilities with stats (N, P) →
-        per-component statistics."""
+        """resps (N, S) state responsibilities with stats (N, P), raw
+        frames (N, D) for full covariance → per-component statistics."""
         comp_resps = torch.softmax(self._joint(stats), dim=-1) * resps[..., None]
         return {
             "weights": comp_resps.reshape(-1, self.nmix, self.ncomp_per_mix).sum(0),

@@ -1,15 +1,26 @@
-"""Vectorized Bayesian NormalSet, diagonal covariance (PyTorch).
+"""Vectorized Bayesian NormalSet, diagonal and full covariance (PyTorch).
 
 Counterpart of ``NormalSet`` in ``beer_tpu/models/normal.py`` for
-``cov_type="diagonal"``: one ``BayesianParameter`` whose posterior has
-shape (K, 4D) over the NormalGamma basis.  Frames use the reduced
-statistics layout [−½x², x] (2D); the constant blocks of the canonical
-4D layout are recovered in closed form (a per-component bias in the
-ELLH, a pure-count term in the accumulation).
+``cov_type`` "diagonal" and "full": one ``BayesianParameter`` whose
+posterior has shape (K, P).
 
-The expected log-likelihood of all K components is one
-``stats @ E[T]ᵀ`` product and accumulation is ``respsᵀ @ stats``; both
-run in full f32 (the package turns TF32 off on import).
+* diagonal — NormalGamma basis, P = 4D.  Frames use the reduced
+  statistics layout [−½x², x] (2D); the constant blocks of the canonical
+  4D layout are recovered in closed form (a per-component bias in the
+  ELLH, a pure-count term in the accumulation).  The expected
+  log-likelihood of all K components is one ``stats @ E[T]ᵀ`` product
+  and accumulation is ``respsᵀ @ stats``; both run in full f32 (the
+  package turns TF32 off on import).
+* full — NormalWishart basis, P = D² + D + 2.  The statistics are the
+  raw frames on every device (the layout of the JAX package's fused
+  route): the expected log-likelihood and the accumulation go through
+  :func:`~beer_tpu_torch.ops.stats_kernels.ellh_full` (K9) and
+  :func:`~beer_tpu_torch.ops.stats_kernels.accumulate_full` (K10), which
+  build xxᵀ tile by tile, so the (T, D²+D+2) statistics never exist on
+  the main path.  ``plain_scan`` asks for their plain versions on any
+  device (the reference route on the card).
+
+The isotropic and shared covariance types are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,35 +33,47 @@ import torch
 from beer_tpu_torch import dists
 from beer_tpu_torch.models.modelset import ModelSet
 from beer_tpu_torch.models.parameters import BayesianParameter
+from beer_tpu_torch.ops import stats_kernels
 
 LOG_2PI = math.log(2.0 * math.pi)
+# the ported cov_types → the prior family of their components
+FAMILIES = {"diagonal": dists.NormalGamma, "full": dists.NormalWishart}
 
 
 def _check_cov_type(cov_type: str) -> None:
-    if cov_type != "diagonal":
+    if cov_type not in FAMILIES:
         raise NotImplementedError(
-            f"cov_type={cov_type!r}: only the diagonal NormalSet is ported "
+            f"cov_type={cov_type!r}: only the diagonal and full NormalSets are ported "
             "so far; the other covariance types are ROADMAP A.4"
         )
 
 
-def _diag_nat(fam: dists.NormalGamma, mean, cov, prior_strength: float):
+def _prior_nat(cov_type: str, mean, cov, prior_strength: float):
+    """The family and the natural parameters of components centred on
+    ``mean`` (..., D) with the global covariance ``cov``."""
+    dim = mean.shape[-1]
+    k = float(prior_strength)
+    fam = FAMILIES[cov_type](dim=dim)
+    if cov_type == "full":
+        dof = dim + k
+        return fam, fam.to_nat(mean, k, torch.linalg.inv(cov) / dof, dof)
     var = torch.diagonal(cov, dim1=-2, dim2=-1) if cov.ndim >= 2 else cov
-    k = torch.full_like(mean, float(prior_strength))
-    return fam.to_nat(mean, k, k, float(prior_strength) * var)
+    scale = torch.full_like(mean, k)
+    return fam, fam.to_nat(mean, scale, scale, k * var)
 
 
 class NormalSet(ModelSet):
-    """K Bayesian diagonal-covariance Normals evaluated jointly."""
+    """K Bayesian Normals (diagonal or full covariance) evaluated jointly."""
 
     def __init__(self, means_precisions: BayesianParameter, cov_type: str = "diagonal",
-                 ncomp: int = 1, dim: int = 1):
+                 ncomp: int = 1, dim: int = 1, plain_scan: bool = False):
         super().__init__()
         _check_cov_type(cov_type)
         self.means_precisions = means_precisions
         self.cov_type = cov_type
         self.ncomp = ncomp
         self.dim = dim
+        self.plain_scan = plain_scan
 
     @classmethod
     def create(
@@ -66,7 +89,8 @@ class NormalSet(ModelSet):
     ) -> "NormalSet":
         """K components centred on ``mean`` with jittered posterior means.
 
-        The prior is centred on the global (mean, cov); posterior means
+        The prior is centred on the global (mean, cov) — ``cov`` (D, D),
+        or its diagonal (D,) for ``cov_type="diagonal"``; posterior means
         get N(0, noise_std²) jitter drawn from ``generator`` (seeded with
         1 on ``mean``'s device when omitted) so VB-EM breaks symmetry.
         ``init_means`` (K, D) overrides the jittered means.  The device
@@ -84,25 +108,33 @@ class NormalSet(ModelSet):
             noise = torch.randn((size, dim), generator=generator, dtype=mean.dtype,
                                 device=mean.device)
             post_means = mean + noise_std * noise
-        fam = dists.NormalGamma(dim=dim)
-        prior = _diag_nat(fam, mean, cov, prior_strength).expand(size, 4 * dim).clone()
-        post = _diag_nat(fam, post_means, cov, prior_strength)
+        fam, prior = _prior_nat(cov_type, mean, cov, prior_strength)
+        _, post = _prior_nat(cov_type, post_means, cov, prior_strength)
+        prior = prior.expand(size, fam.nat_dim).clone()
         return cls(BayesianParameter(prior, post, fam), cov_type, size, dim)
 
     def __len__(self) -> int:
         return self.ncomp
 
     def sufficient_statistics(self, data: torch.Tensor) -> torch.Tensor:
-        """Reduced layout [−½x², x] (..., 2D)."""
+        """Reduced layout [−½x², x] (..., 2D) for diagonal covariance, the
+        raw frames (..., D) for full covariance."""
+        if self.cov_type == "full":
+            return data
         return torch.cat([-0.5 * data**2, data], dim=-1)
 
     def infer(self, stats: torch.Tensor):
         return self.expected_log_likelihood(stats), {}
 
+    def _diagonal_only(self, what: str) -> None:
+        if self.cov_type != "diagonal":
+            raise ValueError(f"{what} is only defined for the diagonal reduced-stats layout")
+
     def ellh_matrix(self):
         """(W (2D, K), bias (K,)) with ``expected_log_likelihood(stats)
         == stats @ W + bias`` — the affine form the fused scan kernels
-        consume."""
+        consume (diagonal covariance only)."""
+        self._diagonal_only("ellh_matrix")
         e_stats = self.means_precisions.expected_sufficient_statistics()
         d = self.dim
         bias = (
@@ -114,17 +146,30 @@ class NormalSet(ModelSet):
 
     def expected_log_likelihood(self, stats: torch.Tensor) -> torch.Tensor:
         """(..., K) expected log-likelihood of every component."""
+        if self.cov_type == "full":
+            e_stats = self.means_precisions.expected_sufficient_statistics()
+            fn = stats_kernels.ellh_full_plain if self.plain_scan else stats_kernels.ellh_full
+            llh = fn(stats.reshape(-1, self.dim).contiguous(), e_stats)
+            return llh.reshape(*stats.shape[:-1], self.ncomp)
         w_mat, bias = self.ellh_matrix()
         return torch.matmul(stats, w_mat) + bias
 
     def accumulate_from_moments(self, acc2: torch.Tensor, counts: torch.Tensor) -> Dict[str, Any]:
         """Natural-space statistics from ``acc2 (K, 2D) = Σ_t resps_t ⊗
-        stats_t`` and ``counts (K,) = Σ_t resps_t``."""
+        stats_t`` and ``counts (K,) = Σ_t resps_t`` (diagonal covariance
+        only)."""
+        self._diagonal_only("accumulate_from_moments")
         c = counts[..., None].expand(*counts.shape, self.dim)
         return {"means_precisions": torch.cat([acc2, -0.5 * c, 0.5 * c], dim=-1)}
 
     def accumulate(self, stats: torch.Tensor, resps: torch.Tensor) -> Dict[str, Any]:
-        """resps (..., T, K) with stats (..., T, 2D) → natural-space statistics."""
+        """resps (..., T, K) with stats (..., T, 2D), or (N, K) with raw
+        frames (N, D) for full covariance → natural-space statistics."""
+        if self.cov_type == "full":
+            fn = (stats_kernels.accumulate_full_plain if self.plain_scan
+                  else stats_kernels.accumulate_full)
+            return {"means_precisions": fn(stats.reshape(-1, self.dim).contiguous(),
+                                           resps.reshape(-1, self.ncomp).contiguous())}
         acc2 = torch.einsum("...tk,...tp->...kp", resps, stats)
         return self.accumulate_from_moments(acc2, resps.sum(-2))
 

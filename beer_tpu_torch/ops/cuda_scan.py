@@ -1,10 +1,13 @@
-"""Scan kernels: wrappers, plain PyTorch versions, launch counts.
+"""Scan kernels: wrappers, plain PyTorch versions, launch counts; the build.
 
 Counterpart of the ``beer_tpu/ops/pallas_scan.py`` kernels on the ported
 paths: the four of the phone-loop AUD main path (K1–K4, banded
 transitions, ``csrc/phone_loop_scan.cu``) and the three of the Bayesian
 HMM's E-step over a dense (S, S) transition matrix (K5–K7,
-``csrc/hmm_scan.cu``).  Each wrapper below takes batch-major tensors and
+``csrc/hmm_scan.cu``).  The build, the library and the launch counts in
+:data:`KERNELS` also serve the full-covariance statistics kernels K8–K10
+(``csrc/stats_full.cu``), wrapped in :mod:`beer_tpu_torch.ops.stats_kernels`.
+Each wrapper below takes batch-major tensors and
 
 * on a CPU tensor runs its plain PyTorch version (same outputs),
 * on a CUDA tensor checks device, dtype (float32), shape and
@@ -72,6 +75,9 @@ KERNELS = {
                     "viterbi_fwd_banded", "viterbi_backtrace_banded")},
     **{name: Kernel(name, "beer_tpu_torch/csrc/hmm_scan.cu")
        for name in ("forward_llh_dense", "estep_acc_dense", "estep_gamma_dense")},
+    # wrapped in ops/stats_kernels.py
+    **{name: Kernel(name, "beer_tpu_torch/csrc/stats_full.cu")
+       for name in ("gmm_estep_full", "ellh_full", "accumulate_full")},
 }
 
 
@@ -144,6 +150,9 @@ def _library() -> ctypes.CDLL:
         "beer_forward_llh_dense": [i] + [p] * 10 + [i] * 4 + [p],
         "beer_estep_acc_dense": [i] + [p] * 11 + [i] * 4 + [p],
         "beer_estep_gamma_dense": [i] + [p] * 9 + [i] * 3 + [p],
+        "beer_gmm_estep_full": [i] + [p] * 6 + [i] * 4 + [p],
+        "beer_ellh_full": [i] + [p] * 3 + [i] * 3 + [p],
+        "beer_accumulate_full": [i] + [p] * 4 + [i] * 4 + [p],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -156,6 +165,10 @@ def _library() -> ctypes.CDLL:
     for name in ("beer_dense_forward_smem_bytes", "beer_dense_estep_smem_bytes"):
         getattr(lib, name).argtypes = [i, i]
         getattr(lib, name).restype = z
+    lib.beer_stats_smem_bytes.argtypes = [i, i, i]
+    lib.beer_stats_smem_bytes.restype = z
+    lib.beer_stats_blocks.argtypes = [i, i, i, i, i]
+    lib.beer_stats_blocks.restype = i
     lib.beer_error_string.argtypes = [i]
     lib.beer_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,246 @@
+"""Full-covariance statistics kernels: wrappers, plain versions, packing.
+
+Counterpart of ``beer_tpu/ops/stats_kernels.py`` (B5, B6).  Three
+hand-written CUDA kernels (``csrc/stats_full.cu``) keep the per-frame
+full-covariance statistic out of device memory: each builds
+S(x) = [x_i·x_j (i ≤ j), x, 1] (L = D(D+1)/2 + D + 1 lanes, the upper
+triangle of xxᵀ) in shared memory a tile of frames at a time, as exact
+float32 products, and contracts it there:
+
+* :func:`gmm_estep_full` (K8) — the whole GMM E-step: the joint
+  log-density S·W, the per-frame log-marginal and the responsibilities
+  (which never leave the chip), and Σ_t r_t ⊗ S(x_t);
+* :func:`ellh_full` (K9) — the (T, K) expected log-likelihood S·W;
+* :func:`accumulate_full` (K10) — Σ_t r_t ⊗ S(x_t) for given
+  responsibilities.
+
+Host-side packing: the weight matrix W (L, K) holds −½E[Λ] on the upper
+triangle (off-diagonal terms doubled), then E[Λμ], then the constant (plus
+E[log w] for K8); the kernels' (K, L) sums are gathered back to the
+(K, D²+D+2) NormalWishart layout by the exact index
+:func:`ut_unpack_index`.  The JAX package's bf16 three-limb split and
+its 0/1 selector matmuls are a workaround for the TPU's lane broadcast
+and have no counterpart here.
+
+Each wrapper runs its plain PyTorch version (written like the JAX
+package's ``*_xla`` functions) on a CPU tensor, and on a CUDA tensor
+checks its operands, launches the kernel on the current stream, counts
+the launch in :data:`beer_tpu_torch.ops.cuda_scan.KERNELS`, or raises;
+it never falls back to the plain version.  The kernels take D <=
+:data:`MAX_DIM`; K8 and K10 hold a tile's K responsibilities in shared
+memory and take K <= :data:`MAX_COMP`.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from beer_tpu_torch.dists.normallik import suff_stats_full
+from beer_tpu_torch.ops import cuda_scan
+
+LOG_2PI = math.log(2.0 * math.pi)
+MAX_DIM = 128
+MAX_COMP = 256
+# the kernel selector of beer_stats_smem_bytes / beer_stats_blocks
+_KIND = {"gmm_estep_full": 0, "ellh_full": 1, "accumulate_full": 2}
+
+
+# ----------------------------------------------------------------------
+# Packing
+# ----------------------------------------------------------------------
+@functools.cache
+def ut_pairs(d: int) -> np.ndarray:
+    """(D(D+1)/2, 2) upper-triangular pairs (i, j), i <= j, row by row:
+    the lane order of the packed statistic."""
+    return np.array([(i, j) for i in range(d) for j in range(i, d)], np.int64).reshape(-1, 2)
+
+
+@functools.cache
+def ut_unpack_index(d: int) -> np.ndarray:
+    """(D²,) index into the packed lanes that rebuilds the full xxᵀ."""
+    pos = {}
+    for lane, (i, j) in enumerate(ut_pairs(d)):
+        pos[(i, j)] = pos[(j, i)] = lane
+    return np.array([pos[(i, j)] for i in range(d) for j in range(d)], np.int64)
+
+
+def packed_width(d: int) -> int:
+    """L = D(D+1)/2 + D + 1."""
+    return d * (d + 1) // 2 + d + 1
+
+
+@functools.cache
+def _indices(d: int, device: torch.device):
+    """The packing's index tensors on ``device``, made once per (D,
+    device) so that a wrapper call copies nothing from the host: the
+    pairs' rows ``i`` and columns ``j``, the flat index i·D + j into
+    vec(E[Λ]), the factor (1 on the diagonal, 2 off it) and
+    :func:`ut_unpack_index`."""
+    i, j = torch.as_tensor(ut_pairs(d), device=device).T
+    factor = torch.where(i == j, 1.0, 2.0)
+    return i, j, i * d + j, factor, torch.as_tensor(ut_unpack_index(d), device=device)
+
+
+def packed_stats(x: torch.Tensor) -> torch.Tensor:
+    """The packed statistic S(x) = [x_i·x_j (i <= j), x, 1], (T, L): what
+    the kernels build in shared memory, materialised (tests and the
+    on-card yardstick only)."""
+    i, j = _indices(x.shape[-1], x.device)[:2]
+    return torch.cat([x[:, i] * x[:, j], x, x.new_ones(x.shape[0], 1)], dim=1)
+
+
+def pack_weights(e_stats: torch.Tensor, dim: int, log_w=None) -> torch.Tensor:
+    """W (L, K) with S(x)·W = the expected log-likelihood of every
+    component (+ ``log_w``): −½E[Λ] on the upper triangle with the
+    off-diagonal terms doubled, E[Λμ], and the constant
+    −½E[μᵀΛμ] + ½E[log|Λ|] − (D/2) log 2π (+ E[log w])."""
+    d = dim
+    _, _, flat, factor, _ = _indices(d, e_stats.device)
+    quad = -0.5 * e_stats[:, flat] * factor.to(e_stats.dtype)
+    const = -0.5 * e_stats[:, -2] + 0.5 * e_stats[:, -1] - 0.5 * d * LOG_2PI
+    if log_w is not None:
+        const = const + log_w
+    return torch.cat([quad, e_stats[:, d * d : d * d + d], const[:, None]], dim=1).T.contiguous()
+
+
+def unpack_acc(acc_s: torch.Tensor, dim: int):
+    """(K, L) packed sums Σ r ⊗ S(x) → (acc (K, D²+D+2) in the
+    NormalWishart natural layout, counts (K,))."""
+    d = dim
+    n_ut = d * (d + 1) // 2
+    acc_xx = acc_s[:, _indices(d, acc_s.device)[4]]
+    counts = acc_s[:, n_ut + d]
+    c = counts[:, None]
+    return torch.cat([-0.5 * acc_xx, acc_s[:, n_ut : n_ut + d], -0.5 * c, 0.5 * c], dim=1), counts
+
+
+# ----------------------------------------------------------------------
+# Plain versions
+# ----------------------------------------------------------------------
+def ellh_full_plain(x: torch.Tensor, e_stats: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`ellh_full` (any dtype and device)."""
+    d = x.shape[-1]
+    elam = e_stats[:, : d * d].reshape(-1, d, d)
+    elin = e_stats[:, d * d : d * d + d]
+    const = -0.5 * e_stats[:, -2] + 0.5 * e_stats[:, -1] - 0.5 * d * LOG_2PI
+    quad = torch.einsum("td,kde,te->tk", x, elam, x)
+    return -0.5 * quad + x @ elin.T + const
+
+
+def accumulate_full_plain(x: torch.Tensor, resps: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`accumulate_full`: materialises the (T,
+    D²+D+2) statistics."""
+    return resps.T @ suff_stats_full(x)
+
+
+def gmm_estep_full_plain(x, e_stats, log_w, mask=None):
+    """Plain version of :func:`gmm_estep_full` (any dtype and device)."""
+    joint = ellh_full_plain(x, e_stats) + log_w
+    llh = torch.logsumexp(joint, dim=-1)
+    r = torch.exp(joint - llh[:, None])
+    if mask is not None:
+        m = mask.reshape(-1).to(llh.dtype)
+        llh = llh * m
+        r = r * m[:, None]
+    return llh, accumulate_full_plain(x, r), r.sum(0)
+
+
+# ----------------------------------------------------------------------
+# Wrappers
+# ----------------------------------------------------------------------
+def _prepare(name: str, x: torch.Tensor, k: int, operands: dict, shapes: list):
+    """Checks of every wrapper: device, float32, contiguity, shapes, the
+    kernel's D and K limits and its shared memory.  Returns the library."""
+    t_len, d = x.shape
+    cuda_scan._check(dict(x=x, **operands), x.device, {})
+    for arg, tensor, shape in shapes:
+        cuda_scan._shape(arg, tensor, shape)
+    if not 1 <= d <= MAX_DIM:
+        raise ValueError(f"{name}: D={d}; the kernel takes 1 <= D <= {MAX_DIM}")
+    if k < 1 or (name != "ellh_full" and k > MAX_COMP):
+        raise ValueError(f"{name}: K={k}; the kernel holds a tile's responsibilities in shared "
+                         f"memory and takes 1 <= K <= {MAX_COMP}")
+    lib = cuda_scan._library()
+    cuda_scan._fits(f"{name} at D={d}, K={k}", lib.beer_stats_smem_bytes(_KIND[name], d, k))
+    return lib
+
+
+def _blocks(lib, name: str, dev: torch.device, t_len: int, d: int, k: int) -> int:
+    n = lib.beer_stats_blocks(dev.index, _KIND[name], t_len, d, k)
+    if n < 0:
+        raise RuntimeError(f"{name}: occupancy query failed: {lib.beer_error_string(-n).decode()}")
+    return n
+
+
+def gmm_estep_full(x, e_stats, log_w, mask=None):
+    """One-kernel GMM E-step (K8): (T, D) frames → per-frame log-marginal
+    ``llh`` (T,), ``acc`` (K, D²+D+2) = Σ_t r_t ⊗ s(x_t) in the
+    NormalWishart natural layout and ``counts`` (K,) = Σ_t r_t, where r_t
+    = softmax_k(ellh_k(x_t) + log_w) · mask_t.  ``mask`` (T,) or None."""
+    if x.device.type == "cpu":
+        return gmm_estep_full_plain(x, e_stats, log_w, mask)
+    t_len, d = x.shape
+    k = e_stats.shape[0]
+    dev = x.device
+    operands = dict(e_stats=e_stats, log_w=log_w)
+    shapes = [("e_stats", e_stats, (k, d * d + d + 2)), ("log_w", log_w, (k,))]
+    if mask is not None:
+        mask = mask.reshape(-1)
+        operands["mask"] = mask
+        shapes.append(("mask", mask, (t_len,)))
+    lib = _prepare("gmm_estep_full", x, k, operands, shapes)
+    w = pack_weights(e_stats, d, log_w)
+    width = packed_width(d)
+    n_blk = _blocks(lib, "gmm_estep_full", dev, t_len, d, k)
+    part = torch.empty(n_blk, k * width, device=dev)
+    out = torch.empty(k * width, device=dev)
+    llh = torch.empty(t_len, device=dev)
+    cuda_scan._launch(lib.beer_gmm_estep_full, dev.index, cuda_scan._ptr(x),
+                      None if mask is None else cuda_scan._ptr(mask),
+                      *map(cuda_scan._ptr, (w, llh, part, out)), n_blk, t_len, d, k,
+                      cuda_scan._stream(dev))
+    cuda_scan.KERNELS["gmm_estep_full"].launches += 1
+    acc, counts = unpack_acc(out.view(k, width), d)
+    return llh, acc, counts
+
+
+def ellh_full(x, e_stats):
+    """Expected log-likelihood of K full-covariance components (K9): (T,
+    D) frames × (K, D²+D+2) E[T] → (T, K)."""
+    if x.device.type == "cpu":
+        return ellh_full_plain(x, e_stats)
+    t_len, d = x.shape
+    k = e_stats.shape[0]
+    dev = x.device
+    lib = _prepare("ellh_full", x, k, dict(e_stats=e_stats),
+                   [("e_stats", e_stats, (k, d * d + d + 2))])
+    w = pack_weights(e_stats, d)
+    out = torch.empty(t_len, k, device=dev)
+    cuda_scan._launch(lib.beer_ellh_full, dev.index, *map(cuda_scan._ptr, (x, w, out)),
+                      t_len, d, k, cuda_scan._stream(dev))
+    cuda_scan.KERNELS["ellh_full"].launches += 1
+    return out
+
+
+def accumulate_full(x, resps):
+    """Responsibility-weighted full-covariance statistics (K10): (T, D)
+    frames × (T, K) responsibilities → (K, D²+D+2) = Σ_t r_t ⊗ s(x_t)."""
+    if x.device.type == "cpu":
+        return accumulate_full_plain(x, resps)
+    t_len, d = x.shape
+    k = resps.shape[-1]
+    dev = x.device
+    lib = _prepare("accumulate_full", x, k, dict(resps=resps), [("resps", resps, (t_len, k))])
+    width = packed_width(d)
+    n_blk = _blocks(lib, "accumulate_full", dev, t_len, d, k)
+    part = torch.empty(n_blk, k * width, device=dev)
+    out = torch.empty(k * width, device=dev)
+    cuda_scan._launch(lib.beer_accumulate_full, dev.index,
+                      *map(cuda_scan._ptr, (x, resps, part, out)), n_blk, t_len, d, k,
+                      cuda_scan._stream(dev))
+    cuda_scan.KERNELS["accumulate_full"].launches += 1
+    return unpack_acc(out.view(k, width), d)[0]

@@ -9,8 +9,11 @@ prior) at the bench shape (B=512 utterances, T ≤ 500 frames, lengths
 uniform in [250, 500]), then the Bayesian HMM of configs 2 (ergodic
 30-state HMM with learned transitions, the same data shape) and 3
 (10-phone × 3-state recognizer on shared transcription graphs, B=128,
-T=300), with random data and weights from fixed seeds, in eight phases,
-each printing one line:
+T=300), then config 1 (the full-covariance Bayesian GMM, K=64 over all
+256,000 frames of the bench data) and the recognizer with
+full-covariance GMM emissions (2 components per state), with random
+data and weights from fixed seeds, in eleven phases, each printing one
+line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the hand-written CUDA kernels from the sources in
@@ -35,9 +38,26 @@ each printing one line:
    transitions; small problems are held against the float64 general
    path on the CPU;
 8. hmm times: one vb_step, one decode and one posteriors call per
-   config, kernel route beside plain route.
+   config, kernel route beside plain route;
+9. gmm kernels: K8–K10 (full covariance) against their plain versions
+   at the config-1 shape (a ragged last tile and a masked stretch of
+   frames) and K9/K10 at the recognizer's, with CUDA-event medians of
+   each kernel, its plain version and a yardstick matmul on
+   materialised statistics;
+10. gmm slice: config 1, 5 VB-EM steps and the posteriors through the
+   kernels with the launch counters read around them; a 10-step
+   trajectory on clustered data at production magnitudes (D=39, K=64)
+   against the plain route; the full-covariance recognizer (5 steps,
+   decode, posteriors, ξ counts); small problems of both against the
+   float64 path on the CPU;
+11. gmm times: one vb_step and one posteriors call for config 1, one
+   vb_step and one decode for the recognizer, kernel route beside plain
+   route, and config 1's E-step frames/s.
 
-Then one JSON line describing the kernels, and as the last line
+Then one JSON line describing the kernels (each with its least time on
+the card, ``bound_ms``: the larger of its bytes over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s, counting the valid frames of this
+run's inputs), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
 printing a result.
@@ -57,12 +77,17 @@ import torch
 import beer_tpu_torch as bt
 from beer_tpu_torch.ops import cuda_scan
 from beer_tpu_torch.ops import semiring_scan as tss
+from beer_tpu_torch.ops import stats_kernels as sk
 
 B, T, D = 512, 500, 39
 N_UNITS, STATES_PER_UNIT = 50, 3
 HMM_S = 30                                  # config 2 (bench.py:295)
 REC_B, REC_T, REC_PHONES, REC_SPP = 128, 300, 10, 3   # config 3 (bench.py:348-349)
+REC_NCOMP = 2                               # components per state (examples/recognizer_demo.py:16)
+GMM_K = 64                                  # config 1 (bench.py:222)
 SEED = 0
+HBM_BYTES_PER_S = 3.35e12                   # H100 SXM (NVIDIA data sheet)
+F32_FLOPS = 67e12                           # float32 outside the tensor cores
 N_STEPS = 5
 REPS = 5
 
@@ -75,6 +100,9 @@ REPLACES = {
     "forward_llh_dense": "beer_tpu/ops/pallas_scan.py:1640",
     "estep_acc_dense": "beer_tpu/ops/pallas_scan.py:2083",
     "estep_gamma_dense": "beer_tpu/ops/pallas_scan.py:1844",
+    "gmm_estep_full": "beer_tpu/ops/stats_kernels.py:295",
+    "ellh_full": "beer_tpu/ops/stats_kernels.py:62",
+    "accumulate_full": "beer_tpu/ops/stats_kernels.py:119",
 }
 
 
@@ -119,6 +147,22 @@ def rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def bound(n_bytes, flops):
+    """The least time the card could take: bytes over the memory rate or
+    float32 operations over the peak rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def plain_twin(model):
+    """A copy of ``model`` whose every kernel call takes the plain version."""
+    twin = copy.deepcopy(model)
+    for module in twin.modules():
+        if hasattr(module, "plain_scan"):
+            module.plain_scan = True
+    return twin
+
+
 def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
@@ -158,10 +202,15 @@ def phase_kernels(dev):
     e_logz = rel(logz[0][full], logz[1][full])
     check(e_logz <= 1e-5, f"forward log Z rel {e_logz}")
     check(not bool(k1[3][~full].any()), "forward: empty rows must give logz_base 0")
+    b, t_len, p_dim = stats.shape
+    s = ops["w"].shape[0]
+    n_u = ops["ends"].shape[0]
+    nv = float(ops["lens"].sum())             # valid frames: the work the kernels do
     out["forward_llh_banded"] = dict(
         max_abs_err=float((logz[0][full] - logz[1][full]).abs().max()),
         ms=cuda_ms(lambda: cuda_scan.forward_llh_banded(*fwd)),
-        plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded_plain(*fwd)))
+        plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded_plain(*fwd)),
+        **bound(4 * (nv * p_dim + b * t_len * (s + 1) + s * p_dim), nv * (2 * s * p_dim + 8 * s)))
 
     est = (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["final"], k1[0], k1[1],
            ops["ends"], ops["starts"])
@@ -175,7 +224,9 @@ def phase_kernels(dev):
     out["estep_acc_banded"] = dict(
         max_abs_err=float((k2[0] - p2[0]).abs().max()),
         ms=cuda_ms(lambda: cuda_scan.estep_acc_banded(*est)),
-        plain_ms=cuda_ms(lambda: cuda_scan.estep_acc_banded_plain(*est)))
+        plain_ms=cuda_ms(lambda: cuda_scan.estep_acc_banded_plain(*est)),
+        **bound(4 * (nv * (p_dim + s + 1) + 2 * s * p_dim + b * s + n_u * n_u),
+                nv * (4 * s * p_dim + 2 * n_u * n_u + 12 * s)))
 
     graph = ops["graph"]
     llh = loop.modelset.expected_log_likelihood(stats).contiguous()
@@ -191,7 +242,8 @@ def phase_kernels(dev):
     out["viterbi_fwd_banded"] = dict(
         max_abs_err=float((best[0] - best[1]).abs().max()),
         ms=cuda_ms(lambda: cuda_scan.viterbi_fwd_banded(*vit)),
-        plain_ms=cuda_ms(lambda: cuda_scan.viterbi_fwd_banded_plain(*vit)))
+        plain_ms=cuda_ms(lambda: cuda_scan.viterbi_fwd_banded_plain(*vit)),
+        **bound(4 * nv * s + b * t_len * (s + 4) + 4 * b * s, nv * 6 * s))
 
     back = (k3[0], k3[1], k3[2], graph.log_final.contiguous())
     k4 = cuda_scan.viterbi_backtrace_banded(*back)
@@ -203,7 +255,8 @@ def phase_kernels(dev):
     out["viterbi_backtrace_banded"] = dict(
         max_abs_err=float((k4[0] - p4[0])[valid].abs().max()),
         ms=cuda_ms(lambda: cuda_scan.viterbi_backtrace_banded(*back)),
-        plain_ms=cuda_ms(lambda: cuda_scan.viterbi_backtrace_banded_plain(*back)))
+        plain_ms=cuda_ms(lambda: cuda_scan.viterbi_backtrace_banded_plain(*back)),
+        **bound(5 * nv + 4 * b * t_len + 4 * b * s, 2 * nv))
     torch.cuda.synchronize()
     print("phase 3 kernels: " + "; ".join(
         f"{k} ok (max_abs_err {v['max_abs_err']:.3g})" for k, v in out.items())
@@ -245,8 +298,7 @@ def phase_slice(dev):
     x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
     frames = float(mask.sum())
     loop = config4(dev)
-    plain = copy.deepcopy(loop)
-    plain.plain_scan = True
+    plain = plain_twin(loop)
 
     cuda_scan.reset_launch_counts()
     elbos = run_steps(loop, x, m)
@@ -266,9 +318,7 @@ def phase_slice(dev):
     valid = m > 0
     check(bool(((units >= 0) & (units < N_UNITS))[valid].all()), "unit labels out of range")
     check(bool(torch.isfinite(scores).all()), "decode scores not finite")
-    twin = copy.deepcopy(loop)
-    twin.plain_scan = True
-    units_plain, _ = twin.decode_units(x, m)
+    units_plain, _ = plain_twin(loop).decode_units(x, m)
     agree = float((units == units_plain)[valid].float().mean())
     check(agree >= 0.999, f"decode agrees with the plain route on {agree} of frames")
     reference_check(dev)
@@ -281,8 +331,7 @@ def phase_slice(dev):
 
 def phase_times(loop, x, m):
     kern = copy.deepcopy(loop)
-    plain = copy.deepcopy(loop)
-    plain.plain_scan = True
+    plain = plain_twin(loop)
     times = {}
     for name, model in (("kernel", kern), ("plain", plain)):
         times[f"vb_step_{name}_ms"] = cuda_ms(lambda: bt.vb_step(model, x, mask=m))
@@ -358,10 +407,15 @@ def phase_hmm_kernels(dev):
     check(e5 <= 1e-5, f"dense forward log Z rel {e5}")
     check(float((k5[0] - p5[0]).abs().max()) <= 1e-5, "dense forward alpha")
     check(not bool(k5[3][~full].any()), "dense forward: empty rows must give logz_base 0")
+    b, t_len, p_dim = stats.shape
+    s = c["trans"].shape[0]
+    nv = float(c["lens"].sum())
     out["forward_llh_dense"] = dict(
         max_abs_err=float((logz[0][full] - logz[1][full]).abs().max()),
         ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd)),
-        plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd)))
+        plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd)),
+        **bound(4 * (nv * p_dim + b * t_len * (s + 1) + s * (s + p_dim) + 2 * b * s),
+                nv * (2 * s * p_dim + 2 * s * s + 4 * s)))
     est = (stats, c["lens"], c["w"], c["bias"], c["trans"], final, k5[0], k5[1])
     k6 = cuda_scan.estep_acc_dense(*est)
     p6 = cuda_scan.estep_acc_dense_plain(*est)
@@ -372,7 +426,9 @@ def phase_hmm_kernels(dev):
     out["estep_acc_dense"] = dict(
         max_abs_err=float((k6[0] - p6[0]).abs().max()),
         ms=cuda_ms(lambda: cuda_scan.estep_acc_dense(*est)),
-        plain_ms=cuda_ms(lambda: cuda_scan.estep_acc_dense_plain(*est)))
+        plain_ms=cuda_ms(lambda: cuda_scan.estep_acc_dense_plain(*est)),
+        **bound(4 * (nv * (p_dim + s + 1) + s * (2 * s + 2 * p_dim + 1) + 2 * b * s),
+                nv * (4 * s * p_dim + 4 * s * s + 10 * s)))
     # config 3 (llh route): K5 on the llh stream, K7; two extra utterances
     # with shorter transcriptions (padding states) and two zero-length rows
     data, mask, seqs = config3_data()
@@ -399,10 +455,14 @@ def phase_hmm_kernels(dev):
     e7 = float((k7[0] - p7[0]).abs().max())
     check(e7 <= 1e-5, f"dense gamma abs {e7}")
     check(rel(k7[1], p7[1]) <= 1e-4, "dense gamma xi")
+    b, t_len, s = c["llh"].shape
+    nv = float(c["lens"].sum())
     out["estep_gamma_dense"] = dict(
         max_abs_err=e7,
         ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense(*gam)),
-        plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense_plain(*gam)))
+        plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense_plain(*gam)),
+        **bound(4 * (nv * (2 * s + 1) + b * t_len * s + 2 * s * s + b * s),
+                nv * (4 * s * s + 10 * s)))
     llh_fwd = dict(ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd3)),
                    plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd3)))
     torch.cuda.synchronize()
@@ -415,15 +475,28 @@ def phase_hmm_kernels(dev):
     return out
 
 
-def hmm_reference_check(dev):
-    """Kernel routes (card, float32) against the general path (CPU, float64)."""
+SMALL_SEQS = [[0, 1], [2], [1, 2, 0], [0], [2, 2], [1]]
+
+
+def stat_leaves(tree):
+    """The tensors of a nested statistics dict, in key order."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in stat_leaves(tree[key])]
+    return [tree]
+
+
+def hmm_reference_check(dev, cases=None):
+    """Kernel routes (card, float32) against the general path (CPU,
+    float64); ``cases`` (name, float64 CPU model, route) default to small
+    problems of configs 2 and 3."""
     data, mask = make_data(6, 40, 4, seed=3)
     mask[-1] = 0.0
     x64, m64 = torch.from_numpy(data).double(), torch.from_numpy(mask).double()
-    seqs = [[0, 1], [2], [1, 2, 0], [0], [2, 2], [1]]
-    for name, ref in (("config 2", config2("cpu", s=6, dim=4, dtype=torch.float64)),
-                      ("config 3", config3("cpu", seqs, n_phones=3, spp=2, dim=4,
-                                           dtype=torch.float64))):
+    if cases is None:
+        cases = (("config 2", config2("cpu", s=6, dim=4, dtype=torch.float64), "stats"),
+                 ("config 3", config3("cpu", SMALL_SEQS, n_phones=3, spp=2, dim=4,
+                                      dtype=torch.float64), "llh"))
+    for name, ref, route in cases:
         stats64 = ref.sufficient_statistics(x64)
         log_trans = ref._effective_log_trans()
         fb = tss.forward_backward_probs(ref._state_llh(stats64), log_trans, ref.graph_log_init,
@@ -437,10 +510,11 @@ def hmm_reference_check(dev):
         stats = card.sufficient_statistics(x)
         lz, cache = card.infer(stats, m)
         acc = card.accumulate(stats, cache)
-        check(cache["route"] == ("stats" if name == "config 2" else "llh"), f"{name}: route")
+        check(cache["route"] == route, f"{name}: route")
         check(rel(lz.double().cpu(), lz_ref) <= 1e-5, f"small {name}: log Z vs float64")
-        e = rel(acc["modelset"]["means_precisions"].double().cpu(), acc_ref["means_precisions"])
-        check(e <= 1e-4, f"small {name}: statistics rel {e} vs float64")
+        for got, want in zip(stat_leaves(acc["modelset"]), stat_leaves(acc_ref)):
+            e = rel(got.double().cpu(), want)
+            check(e <= 1e-4, f"small {name}: statistics rel {e} vs float64")
         e = rel(card.expected_transition_counts(cache).double().cpu(), xi_ref)
         check(e <= 1e-4, f"small {name}: transition counts rel {e} vs float64")
 
@@ -451,8 +525,7 @@ def hmm_run(model, x, m, frames, label):
     around them), then the same on the plain route.  The posteriors sum
     to 1 on every valid frame, and the ξ counts to the number of
     frame-to-frame transitions, Σ_b (len_b − 1)."""
-    plain = copy.deepcopy(model)
-    plain.plain_scan = True
+    plain = plain_twin(model)
     cuda_scan.reset_launch_counts()
     elbos = run_steps(model, x, m)
     paths, scores = model.decode(x, m)
@@ -469,8 +542,7 @@ def hmm_run(model, x, m, frames, label):
     valid = m > 0
     check(paths.shape == x.shape[:2] and paths.dtype == torch.int32, f"{label}: decode shape")
     check(bool(torch.isfinite(scores).all()), f"{label}: decode scores not finite")
-    twin = copy.deepcopy(model)
-    twin.plain_scan = True
+    twin = plain_twin(model)
     paths_plain, _ = twin.decode(x, m)
     check(bool(torch.equal(paths[valid], paths_plain[valid])),
           f"{label}: decode paths differ from the plain route")
@@ -520,8 +592,7 @@ def phase_hmm_times(runs):
     times = {}
     for cfg, (model, x, m) in zip(("config2", "config3"), runs):
         kern = copy.deepcopy(model)
-        plain = copy.deepcopy(model)
-        plain.plain_scan = True
+        plain = plain_twin(model)
         for name, mdl in (("kernel", kern), ("plain", plain)):
             times[f"{cfg}_vb_step_{name}_ms"] = cuda_ms(lambda: bt.vb_step(mdl, x, mask=m))
             times[f"{cfg}_decode_{name}_ms"] = cuda_ms(lambda: mdl.decode(x, m))
@@ -530,6 +601,252 @@ def phase_hmm_times(runs):
         times[f"{cfg}_vb_step_kernel_frames_per_s"] = round(
             frames / times[f"{cfg}_vb_step_kernel_ms"] * 1e3)
     print("phase 8 hmm times: " + json.dumps(
+        {**{k: round(v, 3) if isinstance(v, float) else v for k, v in times.items()},
+         "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2)}))
+
+# ----------------------------------------------------------------------
+# The full-covariance GMM: config 1 and the full-covariance recognizer
+# ----------------------------------------------------------------------
+def config1(device, k=GMM_K, dim=D, dtype=torch.float32):
+    """Full-covariance Bayesian GMM (bench.py:225-237)."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    nset = bt.NormalSet.create(torch.zeros(dim, dtype=dtype, device=device),
+                               torch.eye(dim, dtype=dtype, device=device), size=k,
+                               cov_type="full", noise_std=0.5, generator=gen)
+    return bt.Mixture.create(nset)
+
+
+def config1_frames(dev):
+    """All 256,000 frames of the bench data (bench_gmm ignores the mask)."""
+    return torch.from_numpy(make_data(B, T, D)[0].reshape(-1, D)).to(dev)
+
+
+def config3_full(device, seqs, n_phones=REC_PHONES, spp=REC_SPP, ncomp=REC_NCOMP, dim=D,
+                 dtype=torch.float32):
+    """The recognizer with full-covariance GMM emissions: one MixtureSet of
+    ``ncomp`` components per state (examples/recognizer_demo.py:42-47)."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    graphs = bt.transcription_graphs(seqs, n_phones, spp, dtype=dtype, device=device)
+    nset = bt.NormalSet.create(torch.zeros(dim, dtype=dtype, device=device),
+                               torch.eye(dim, dtype=dtype, device=device),
+                               size=n_phones * spp * ncomp, cov_type="full", noise_std=0.5,
+                               generator=gen)
+    return bt.HMM.create(graphs, bt.MixtureSet.create(nset, nmix=n_phones * spp))
+
+
+def gmm_operands(model):
+    """E[T] and E[log w] of a Mixture, as the fused E-step takes them."""
+    return (model.modelset.means_precisions.expected_sufficient_statistics(),
+            model.categorical.expected_log_weights())
+
+
+def full_cov_costs(t_len, d, k):
+    """(bytes, FLOPs) of K9 and of K10 over t_len frames: one product of
+    the packed (t_len, L) statistic with a (L, K) matrix, 2·t_len·K·L."""
+    width = sk.packed_width(d)
+    flops = 2.0 * t_len * k * width
+    ellh = 4.0 * (t_len * d + width * k + t_len * k)
+    acc = 4.0 * (t_len * d + t_len * k + k * (d * d + d + 2))
+    return ellh, acc, flops
+
+
+def phase_gmm_kernels(dev):
+    """K8–K10 against their plain versions at the config-1 shape (ragged
+    last tile, masked stretch) and K9/K10 at the recognizer's; times on
+    the unmasked config-1 frames, beside a yardstick: torch.matmul (TF32
+    off) on the materialised packed statistics S (T, L)."""
+    x = config1_frames(dev)
+    n_frames = x.shape[0]
+    gmm = config1(dev)
+    e, log_w = gmm_operands(gmm)
+    # a ragged last tile (T not a multiple of 128) and a masked stretch
+    xr = x[: n_frames - 37]
+    mask = torch.ones(xr.shape[0], device=dev)
+    mask[10_000:30_000] = 0.0
+    mask[::17] = 0.0
+    k8 = sk.gmm_estep_full(xr, e, log_w, mask)
+    p8 = sk.gmm_estep_full_plain(xr, e, log_w, mask)
+    errs = dict(llh=rel(k8[0], p8[0]), acc=rel(k8[1], p8[1]), counts=rel(k8[2], p8[2]))
+    check(errs["llh"] <= 1e-5, f"gmm_estep_full llh rel {errs['llh']}")
+    check(errs["acc"] <= 1e-4 and errs["counts"] <= 1e-4, f"gmm_estep_full stats {errs}")
+    check(not bool(k8[0][mask == 0].any()), "gmm_estep_full: masked frames must give llh 0")
+    k9 = sk.ellh_full(xr, e)
+    p9 = sk.ellh_full_plain(xr, e)
+    errs["ellh"] = rel(k9, p9)
+    check(errs["ellh"] <= 1e-5, f"ellh_full rel {errs['ellh']}")
+    resps = torch.softmax(p9 + log_w, -1) * mask[:, None]
+    k10 = sk.accumulate_full(xr, resps)
+    p10 = sk.accumulate_full_plain(xr, resps)
+    errs["acc10"] = rel(k10, p10)
+    check(errs["acc10"] <= 1e-4, f"accumulate_full rel {errs['acc10']}")
+
+    # the recognizer's shape: (38,400, 39) frames, 60 components
+    data3, _, seqs = config3_data()
+    x3 = torch.from_numpy(data3.reshape(-1, D)).to(dev)
+    e3 = config3_full(dev, seqs).modelset.modelset.means_precisions.expected_sufficient_statistics()
+    r3 = torch.softmax(sk.ellh_full_plain(x3, e3), -1)
+    errs["ellh_rec"] = rel(sk.ellh_full(x3, e3), sk.ellh_full_plain(x3, e3))
+    errs["acc_rec"] = rel(sk.accumulate_full(x3, r3), sk.accumulate_full_plain(x3, r3))
+    check(errs["ellh_rec"] <= 1e-5 and errs["acc_rec"] <= 1e-4, f"recognizer shape: {errs}")
+    torch.cuda.synchronize()
+
+    # times at the config-1 shape
+    k = e.shape[0]
+    r = torch.softmax(sk.ellh_full_plain(x, e) + log_w, -1)
+    s_mat = sk.packed_stats(x)
+    w_mat, w_joint = sk.pack_weights(e, D), sk.pack_weights(e, D, log_w)
+    lib_joint = cuda_ms(lambda: torch.matmul(s_mat, w_joint))
+    lib_ellh = cuda_ms(lambda: torch.matmul(s_mat, w_mat))
+    lib_acc = cuda_ms(lambda: torch.matmul(r.T, s_mat))
+    del s_mat
+    ellh_b, acc_b, flops = full_cov_costs(n_frames, D, k)
+    out = {
+        "gmm_estep_full": dict(
+            max_abs_err=float((k8[1] - p8[1]).abs().max()),
+            ms=cuda_ms(lambda: sk.gmm_estep_full(x, e, log_w)),
+            plain_ms=cuda_ms(lambda: sk.gmm_estep_full_plain(x, e, log_w)),
+            library_ms=lib_joint + lib_acc,
+            **bound(4.0 * (n_frames * (D + 1) + sk.packed_width(D) * k + k * (D * D + D + 3)),
+                    2 * flops)),
+        "ellh_full": dict(
+            max_abs_err=float((k9 - p9).abs().max()),
+            ms=cuda_ms(lambda: sk.ellh_full(x, e)),
+            plain_ms=cuda_ms(lambda: sk.ellh_full_plain(x, e)),
+            library_ms=lib_ellh, **bound(ellh_b, flops)),
+        "accumulate_full": dict(
+            max_abs_err=float((k10 - p10).abs().max()),
+            ms=cuda_ms(lambda: sk.accumulate_full(x, r)),
+            plain_ms=cuda_ms(lambda: sk.accumulate_full_plain(x, r)),
+            library_ms=lib_acc, **bound(acc_b, flops)),
+    }
+    s3 = sk.packed_stats(x3)
+    w3 = sk.pack_weights(e3, D)
+    ellh_b3, acc_b3, flops3 = full_cov_costs(x3.shape[0], D, e3.shape[0])
+    rec = {
+        "ellh_full": dict(ms=cuda_ms(lambda: sk.ellh_full(x3, e3)),
+                          plain_ms=cuda_ms(lambda: sk.ellh_full_plain(x3, e3)),
+                          library_ms=cuda_ms(lambda: torch.matmul(s3, w3)),
+                          **bound(ellh_b3, flops3)),
+        "accumulate_full": dict(ms=cuda_ms(lambda: sk.accumulate_full(x3, r3)),
+                                plain_ms=cuda_ms(lambda: sk.accumulate_full_plain(x3, r3)),
+                                library_ms=cuda_ms(lambda: torch.matmul(r3.T, s3)),
+                                **bound(acc_b3, flops3)),
+    }
+    del s3
+    torch.cuda.synchronize()
+    fmt = lambda v: (f"{v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, matmul {v['library_ms']:.3f}, "  # noqa: E731
+                     f"bound {v['bound_ms']:.3f} by {v['bound_by']})")
+    print(f"phase 9 gmm kernels: config 1 T={n_frames} D={D} K={k}: "
+          + "; ".join(f"{name} {fmt(v)}" for name, v in out.items())
+          + f" | recognizer T={x3.shape[0]} K={e3.shape[0]}: "
+          + "; ".join(f"{name} {fmt(v)}" for name, v in rec.items())
+          + " | rel errors " + json.dumps({k_: float(f"{v:.3g}") for k_, v in errs.items()})
+          + " | tol: llh and ELLH rel 1e-5, statistics and counts rel 1e-4 of the largest"
+            " magnitude (float32 sums in another order)")
+    return out, rec
+
+
+def gmm_reference_check(dev):
+    """Small problems on the card (float32 kernels) against the float64
+    path on the CPU: a GMM's E-step through K8 and its posteriors through
+    K9 against the logsumexp route, and the full-covariance recognizer
+    through K9/K10 against the general path."""
+    x64 = torch.from_numpy(make_data(6, 40, 4, seed=3)[0].reshape(-1, 4)).double()
+    ref = config1("cpu", k=3, dim=4, dtype=torch.float64)
+    card = copy.deepcopy(ref).to(device=dev, dtype=torch.float32)
+    x = x64.float().to(dev)
+    joint = ref.modelset.expected_log_likelihood(x64) + ref.categorical.expected_log_weights()
+    llh_ref = torch.logsumexp(joint, -1)
+    resps = torch.exp(joint - llh_ref[:, None])
+    acc_ref = ref.modelset.accumulate(x64, resps)["means_precisions"]
+    llh, cache = card.infer(card.sufficient_statistics(x))
+    check(rel(llh.double().cpu(), llh_ref) <= 1e-5, "small GMM: llh vs float64")
+    e = rel(cache["gmm_acc"].double().cpu(), acc_ref)
+    check(e <= 1e-4, f"small GMM: statistics rel {e} vs float64")
+    e = float((card.posteriors(x).double().cpu() - resps).abs().max())
+    check(e <= 1e-5, f"small GMM: posteriors abs {e} vs float64")
+    hmm_reference_check(dev, [("full-covariance recognizer",
+                               config3_full("cpu", SMALL_SEQS, n_phones=3, spp=2, dim=4,
+                                            dtype=torch.float64), "llh")])
+
+
+def phase_gmm_slice(dev):
+    # config 1: 5 VB-EM steps and the posteriors through K8 and K9
+    x = config1_frames(dev)
+    frames = float(x.shape[0])
+    gmm = config1(dev)
+    plain = plain_twin(gmm)
+    cuda_scan.reset_launch_counts()
+    elbos = np.array([float(bt.vb_step(gmm, x)[0]) for _ in range(N_STEPS)])
+    post = gmm.posteriors(x)
+    torch.cuda.synchronize()
+    launches1 = {k: v.launches for k, v in cuda_scan.KERNELS.items() if v.launches}
+    check(all(launches1.get(k, 0) > 0 for k in ("gmm_estep_full", "ellh_full")),
+          f"config 1: a kernel was not launched: {launches1}")
+    check(bool(np.isfinite(elbos).all()), f"config 1: ELBO not finite: {elbos}")
+    drops = np.diff(elbos) / frames
+    check(bool((drops >= -1e-6).all()), f"config 1: ELBO decreased: per-frame steps {drops}")
+    elbos_plain = np.array([float(bt.vb_step(plain, x)[0]) for _ in range(N_STEPS)])
+    gap1 = float(np.abs(elbos - elbos_plain).max() / frames)
+    check(gap1 <= 1e-4, f"config 1: kernel vs plain route ELBO gap {gap1} per frame")
+    e_post = float((post.sum(-1) - 1).abs().max())
+    check(post.shape == (x.shape[0], GMM_K) and e_post <= 1e-5,
+          f"config 1: posteriors sum to 1 within {e_post}")
+
+    # the trajectory gate: clustered data at production magnitudes
+    rng = np.random.default_rng(7)
+    centres = rng.normal(size=(16, D)) * 3.0
+    xc = torch.from_numpy((centres[rng.integers(0, 16, size=64_000)]
+                           + rng.normal(size=(64_000, D))).astype(np.float32)).to(dev)
+    trajs = []
+    for model in (config1(dev), plain_twin(config1(dev))):
+        trajs.append(np.array([float(bt.vb_step(model, xc)[0]) / 64_000 for _ in range(10)]))
+    drift = float(np.abs(trajs[0] - trajs[1]).max())
+    check(drift <= 1e-4, f"trajectory gate: kernel vs plain route drift {drift} per frame")
+    check(bool((np.diff(trajs[0][2:]) >= -1e-5).all()),
+          f"trajectory gate: not monotone after burn-in: {trajs[0]}")
+
+    # the recognizer with full-covariance GMM emissions
+    data, mask, seqs = config3_data()
+    x3, m3 = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    frames3 = float(mask.sum())
+    rec = config3_full(dev, seqs)
+    check(rec.route() == "llh", "full-covariance recognizer: route")
+    elbos3, gap3, launches3, checks3 = hmm_run(rec, x3, m3, frames3, "full-covariance recognizer")
+    need3 = ("ellh_full", "accumulate_full", "forward_llh_dense", "estep_gamma_dense",
+             "viterbi_fwd_banded", "viterbi_backtrace_banded")
+    check(all(launches3.get(k, 0) > 0 for k in need3),
+          f"full-covariance recognizer: a kernel was not launched: {launches3}")
+    gmm_reference_check(dev)
+    launches = {k: launches1.get(k, 0) + launches3.get(k, 0) for k in cuda_scan.KERNELS}
+    print(f"phase 10 gmm slice: config 1 T={x.shape[0]} D={D} K={GMM_K} "
+          f"| ELBO/frame {', '.join(f'{v / frames:.6f}' for v in elbos)} "
+          f"| plain-route gap {gap1:.3g}/frame | posteriors sum-to-1 error {e_post:.3g} "
+          f"| launches {launches1} || trajectory gate (64,000 clustered frames, 10 steps) "
+          f"ELBO/frame {', '.join(f'{v:.6f}' for v in trajs[0])} | drift {drift:.3g}/frame "
+          f"|| full-covariance recognizer B={REC_B} T={REC_T} S={rec.n_states} "
+          f"components={REC_PHONES * REC_SPP * REC_NCOMP} "
+          f"| ELBO/frame {', '.join(f'{v / frames3:.6f}' for v in elbos3)} "
+          f"| plain-route gap {gap3:.3g}/frame | launches {launches3} | decode paths equal "
+          f"| posteriors sum-to-1 error {checks3[0]:.3g}, vs plain route {checks3[1]:.3g}"
+          f" | small problems agree with float64")
+    return launches, ((gmm, x), (rec, x3, m3))
+
+
+def phase_gmm_times(runs):
+    (gmm, x), (rec, x3, m3) = runs
+    times = {}
+    for name, model in (("kernel", copy.deepcopy(gmm)), ("plain", plain_twin(gmm))):
+        times[f"config1_vb_step_{name}_ms"] = cuda_ms(lambda: bt.vb_step(model, x))
+        times[f"config1_posteriors_{name}_ms"] = cuda_ms(lambda: model.posteriors(x))
+    for name, model in (("kernel", copy.deepcopy(rec)), ("plain", plain_twin(rec))):
+        times[f"recognizer_full_vb_step_{name}_ms"] = cuda_ms(lambda: bt.vb_step(model, x3, mask=m3))
+        times[f"recognizer_full_decode_{name}_ms"] = cuda_ms(lambda: model.decode(x3, m3))
+    times["config1_vb_step_kernel_frames_per_s"] = round(
+        x.shape[0] / times["config1_vb_step_kernel_ms"] * 1e3)
+    times["recognizer_full_vb_step_kernel_frames_per_s"] = round(
+        float(m3.sum()) / times["recognizer_full_vb_step_kernel_ms"] * 1e3)
+    print("phase 11 gmm times: " + json.dumps(
         {**{k: round(v, 3) if isinstance(v, float) else v for k, v in times.items()},
          "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2)}))
 
@@ -549,8 +866,14 @@ def main() -> int:
     hmm_launches, runs = phase_hmm_slice(dev)
     launches = {k: launches.get(k, 0) + n for k, n in hmm_launches.items()}
     phase_hmm_times(runs)
+    gmm_kernels, _ = phase_gmm_kernels(dev)
+    kernels.update(gmm_kernels)
+    gmm_launches, gmm_runs = phase_gmm_slice(dev)
+    launches = {k: launches.get(k, 0) + n for k, n in gmm_launches.items()}
+    phase_gmm_times(gmm_runs)
     rows = [dict(name=k, route="cuda", source=cuda_scan.KERNELS[k].source,
-                 replaces=REPLACES[k], launches=launches[k], **v) for k, v in kernels.items()]
+                 replaces=REPLACES[k], launches=launches[k], **{"library_ms": None, **v})
+            for k, v in kernels.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

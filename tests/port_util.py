@@ -74,6 +74,25 @@ def dense_problem(seed: int, s: int, p_dim: int, b: int, t_len: int, lengths=Non
                 lengths=lengths, mask=mask)
 
 
+def full_problem(seed: int, d: int, k: int, t_len: int) -> dict:
+    """Seeded numpy inputs of the full-covariance kernels: frames at
+    production magnitude (N(0, 9)), responsibilities, E[T] (K, D²+D+2)
+    of K random NormalWisharts (the port's family in float64), E[log w]
+    and a mask with a stretch and a scatter of frames off."""
+    from beer_tpu_torch.dists import NormalWishart
+
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(k, d, d))
+    w = (q @ q.transpose(0, 2, 1) + d * np.eye(d)) / (20.0 * d)
+    fam = NormalWishart(dim=d)
+    nat = fam.to_nat(t(rng.normal(size=(k, d))), 2.0, t(w), d + 2.0)
+    mask = (rng.uniform(size=t_len) > 0.1).astype(np.float64)
+    mask[t_len // 4: t_len // 2] = 0.0
+    return dict(x=3.0 * rng.normal(size=(t_len, d)), r=rng.dirichlet(np.ones(k), size=t_len),
+                e=fam.expected_sufficient_statistics(nat).numpy(),
+                log_w=np.log(rng.dirichlet(np.ones(k))), mask=mask)
+
+
 def dense_args(pb: dict, dtype, device=None) -> dict:
     """:func:`dense_problem`'s arrays as the port's kernel operands, with
     ``llh`` = stats @ wᵀ + bias."""
@@ -120,6 +139,21 @@ def normal_set_to_numpy(ns) -> dict:
             "cov_type": ns.cov_type}
 
 
+def mixture_to_numpy(mix) -> dict:
+    """A ``beer_tpu`` Mixture (Dirichlet weights over a NormalSet) in the
+    dict layout of :func:`beer_tpu_torch.convert.mixture_from_numpy`.  Its
+    ``fused`` flag (a NormalSet static field) changes no weight."""
+    w = mix.categorical.weights
+    return {"type": "Mixture", "prior": np.asarray(w.prior), "posterior": np.asarray(w.posterior),
+            "modelset": normal_set_to_numpy(mix.modelset)}
+
+
+def mixture_to_port(jax_mixture, dtype):
+    from beer_tpu_torch.convert import mixture_from_numpy
+
+    return mixture_from_numpy(mixture_to_numpy(jax_mixture), device="cpu", dtype=dtype)
+
+
 def modelset_to_numpy(ms) -> dict:
     """A ``beer_tpu`` NormalSet or MixtureSet as a numpy dict."""
     if hasattr(ms, "nmix"):
@@ -146,7 +180,7 @@ def hmm_to_numpy(hmm) -> dict:
 def hmm_to_port(jax_hmm, dtype):
     from beer_tpu_torch.convert import hmm_from_numpy
 
-    return hmm_from_numpy(hmm_to_numpy(jax_hmm), dtype=dtype)
+    return hmm_from_numpy(hmm_to_numpy(jax_hmm), device="cpu", dtype=dtype)
 
 
 def jax_phone_loop(dtype, n_units=U, spu=SPU, dim=D, self_loop=0.5, seed=1):
@@ -167,7 +201,7 @@ def jax_phone_loop(dtype, n_units=U, spu=SPU, dim=D, self_loop=0.5, seed=1):
 def to_port(jax_loop, dtype):
     from beer_tpu_torch.convert import phone_loop_from_numpy
 
-    return phone_loop_from_numpy(phone_loop_to_numpy(jax_loop), dtype=dtype)
+    return phone_loop_from_numpy(phone_loop_to_numpy(jax_loop), device="cpu", dtype=dtype)
 
 
 def t(x, dtype=None) -> torch.Tensor:

@@ -11,7 +11,9 @@ Tolerances (float32; the kernels and the plain versions sum in
 different orders): log Z rel 1e-5, α̂, γ and γ0 abs 1e-5, the reduced
 statistics and ξ rel 1e-4 of their largest entry; the Viterbi kernels
 do the same float adds and maxima as their plain versions, so their
-outputs are equal.
+outputs are equal.  The full-covariance kernels (K8–K10): the ELLH and
+the per-frame log-marginals rel 1e-5 of their largest magnitude, the
+statistics and counts rel 1e-4 (sum order, as above).
 """
 
 import numpy as np
@@ -20,7 +22,8 @@ import torch
 
 from beer_tpu_torch.ops import cuda_scan
 from beer_tpu_torch.ops import semiring_scan as tss
-from port_util import dense_args, dense_problem, port_args, scan_problem
+from beer_tpu_torch.ops import stats_kernels as sk
+from port_util import dense_args, dense_problem, full_problem, port_args, scan_problem, t
 
 pytestmark = pytest.mark.cuda
 
@@ -203,3 +206,75 @@ def test_dense_zero_length_rows_and_empty_batch(device):
         f_stats, f_llh, acc, gam = _dense_run(empty, plain)
         assert f_stats[0].shape == (0, 9, 6) and gam[0].shape == (0, 9, 6)
         assert acc[0].shape == (6, 4) and not acc[3].any() and not gam[1].any()
+
+
+# (D, K, T) of the full-covariance kernels: D ∈ {2, 5, 39}, K ∈ {1, 7, 64}
+# (and 200, several passes over K), T ∈ {1, 129, 1000} (ragged tiles of 128)
+FULL_SHAPES = [(2, 1, 1), (5, 7, 129), (39, 64, 1000), (39, 7, 1), (2, 64, 129), (5, 1, 1000),
+               (39, 200, 300)]
+
+
+def _full_args(shape, device):
+    d, k, t_len = shape
+    return {name: t(v, torch.float32).to(device)
+            for name, v in full_problem(sum(shape), d, k, t_len).items()}
+
+
+@pytest.mark.parametrize("shape", FULL_SHAPES, ids=lambda s: "D%d_K%d_T%d" % s)
+def test_full_cov_kernels_match_plain_versions(device, shape):
+    a = _full_args(shape, device)
+    cuda_scan.reset_launch_counts()
+    for mask in (None, a["mask"]):
+        got = sk.gmm_estep_full(a["x"], a["e"], a["log_w"], mask)
+        want = sk.gmm_estep_full_plain(a["x"], a["e"], a["log_w"], mask)
+        torch.cuda.synchronize()
+        assert _rel(got[0], want[0]) <= 1e-5
+        assert _rel(got[1], want[1]) <= 1e-4 and _rel(got[2], want[2]) <= 1e-4
+    again = sk.gmm_estep_full(a["x"], a["e"], a["log_w"], a["mask"])
+    assert all(torch.equal(g, h) for g, h in zip(got, again))   # no atomics: bitwise repeatable
+    assert _rel(sk.ellh_full(a["x"], a["e"]), sk.ellh_full_plain(a["x"], a["e"])) <= 1e-5
+    assert _rel(sk.accumulate_full(a["x"], a["r"]), sk.accumulate_full_plain(a["x"], a["r"])) <= 1e-4
+    launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if k.endswith("_full")}
+    assert launches == {"gmm_estep_full": 3, "ellh_full": 1, "accumulate_full": 1}
+
+
+def test_full_cov_wrappers_reject_what_the_kernels_do_not_take(device):
+    a = _full_args((5, 7, 129), device)
+    x, e, log_w, r = a["x"], a["e"], a["log_w"], a["r"]
+    with pytest.raises(TypeError):
+        sk.gmm_estep_full(x.double(), e, log_w)
+    with pytest.raises(ValueError):
+        sk.gmm_estep_full(x, e, log_w, a["mask"].cpu())
+    with pytest.raises(ValueError):
+        sk.gmm_estep_full(x, e, log_w, a["mask"][:-1])
+    with pytest.raises(ValueError):
+        sk.ellh_full(x.T.contiguous().T, e)
+    with pytest.raises(ValueError):
+        sk.ellh_full(x, e[:, :-1].contiguous())
+    with pytest.raises(ValueError):
+        sk.accumulate_full(x, r[:-1].contiguous())
+    # above the stated limits: D <= 128; K <= 256 for K8 and K10; shared memory
+    big_d = _full_args((129, 1, 4), device)
+    for fn, args in ((sk.gmm_estep_full, (big_d["x"], big_d["e"], big_d["log_w"])),
+                     (sk.ellh_full, (big_d["x"], big_d["e"])),
+                     (sk.accumulate_full, (big_d["x"], big_d["r"]))):
+        with pytest.raises(ValueError, match="D=129"):
+            fn(*args)
+    big_k = _full_args((2, 257, 4), device)
+    with pytest.raises(ValueError, match="K=257"):
+        sk.gmm_estep_full(big_k["x"], big_k["e"], big_k["log_w"])
+    with pytest.raises(ValueError, match="K=257"):
+        sk.accumulate_full(big_k["x"], big_k["r"])
+    sk.ellh_full(big_k["x"], big_k["e"])                        # K9 takes any K
+    wide = _full_args((128, 256, 4), device)
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.gmm_estep_full(wide["x"], wide["e"], wide["log_w"])
+
+
+def test_full_cov_kernels_empty_input(device):
+    a = _full_args((5, 7, 129), device)
+    x0, r0 = a["x"][:0], a["r"][:0]
+    llh, acc, counts = sk.gmm_estep_full(x0, a["e"], a["log_w"])
+    assert llh.shape == (0,) and not acc.any() and not counts.any()
+    assert sk.ellh_full(x0, a["e"]).shape == (0, 7)
+    assert not sk.accumulate_full(x0, r0).any()

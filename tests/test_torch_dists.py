@@ -3,7 +3,9 @@
 Same natural parameters (numpy, seeded) through both packages in
 float64: E[T] = ∇A(η), KL(q‖p), the NormalSet ELLH and accumulation and
 the stick-breaking unit prior agree to rtol 1e-10 (both are exact
-closed forms; only summation order differs).
+closed forms; only summation order differs).  The NormalWishart's
+log-partition goes through a matrix inverse and a Cholesky factor in
+both packages, with LAPACK's rounding; it is held to rtol 1e-9.
 """
 
 import jax.numpy as jnp
@@ -41,6 +43,18 @@ def _dirichlet_nat(rng, fam, n, dim):
     return rng.uniform(0.2, 3.0, size=(n, dim)) - 1.0
 
 
+def _normalwishart_std(rng, n, dim):
+    """(m, κ, W, ν): W positive definite, ν > D − 1."""
+    q = rng.normal(size=(n, dim, dim))
+    w = (q @ q.transpose(0, 2, 1) + dim * np.eye(dim)) / 10.0
+    return (rng.normal(size=(n, dim)), rng.uniform(0.5, 2.0, size=n), w,
+            dim + rng.uniform(0.5, 3.0, size=n))
+
+
+def _normalwishart_nat(rng, fam, n, dim):
+    return np.asarray(fam.to_nat(*(jnp.asarray(v) for v in _normalwishart_std(rng, n, dim))))
+
+
 FAMILIES = {
     "normalgamma": (lambda d: jd.NormalGamma(dim=d), lambda d: td.NormalGamma(dim=d),
                     _normalgamma_nat),
@@ -49,7 +63,10 @@ FAMILIES = {
     "dirichlet": (lambda d: jd.Dirichlet(dim=d), lambda d: td.Dirichlet(dim=d),
                   _dirichlet_nat),
     "beta": (lambda d: jd.Beta(), lambda d: td.Beta(), lambda r, f, n, d: _dirichlet_nat(r, f, n, 2)),
+    "normalwishart": (lambda d: jd.NormalWishart(dim=d), lambda d: td.NormalWishart(dim=d),
+                      _normalwishart_nat),
 }
+RTOLS = {"normalwishart": 1e-9}
 
 
 @pytest.mark.parametrize("name", sorted(FAMILIES))
@@ -58,20 +75,31 @@ def test_expected_stats_and_kl_match_jax(name, rng):
     fam_j, fam_t = make_j(3), make_t(3)
     nat_q = make_nat(rng, fam_j, 5, 3)
     nat_p = make_nat(rng, fam_j, 5, 3)
-    close(fam_t.log_norm(t(nat_q)), fam_j.log_norm(jnp.asarray(nat_q)), RTOL)
+    rtol = RTOLS.get(name, RTOL)
+    close(fam_t.log_norm(t(nat_q)), fam_j.log_norm(jnp.asarray(nat_q)), rtol)
     close(fam_t.expected_sufficient_statistics(t(nat_q)),
-          fam_j.expected_sufficient_statistics(jnp.asarray(nat_q)), RTOL)
+          fam_j.expected_sufficient_statistics(jnp.asarray(nat_q)), rtol)
     close(fam_t.kl_div(t(nat_q), t(nat_p)),
-          fam_j.kl_div(jnp.asarray(nat_q), jnp.asarray(nat_p)), RTOL, atol=1e-12)
+          fam_j.kl_div(jnp.asarray(nat_q), jnp.asarray(nat_p)), rtol, atol=1e-12)
 
 
-@pytest.mark.parametrize("name", ["normalgamma", "isotropic_normalgamma"])
+@pytest.mark.parametrize("name", ["normalgamma", "isotropic_normalgamma", "normalwishart"])
 def test_to_std_round_trips(name, rng):
     _, make_t, make_nat = FAMILIES[name]
     make_j = FAMILIES[name][0]
     nat = t(make_nat(rng, make_j(4), 3, 4))
     fam = make_t(4)
-    close(fam.to_nat(*fam.to_std(nat)), nat, RTOL)
+    close(fam.to_nat(*fam.to_std(nat)), nat, RTOLS.get(name, RTOL))
+
+
+def test_normal_wishart_to_nat_and_to_std_match_jax(rng):
+    std = _normalwishart_std(rng, 4, 3)
+    fam_j, fam_t = jd.NormalWishart(dim=3), td.NormalWishart(dim=3)
+    nat_j = fam_j.to_nat(*(jnp.asarray(v) for v in std))
+    close(fam_t.to_nat(*(t(v) for v in std)), nat_j, 1e-9)
+    for got, want in zip(fam_t.to_std(t(np.asarray(nat_j))), fam_j.to_std(nat_j)):
+        close(got, want, 1e-9)
+    assert fam_t.nat_dim == fam_j.nat_dim == 14
 
 
 def _normal_sets(rng, k=6, dim=3):
@@ -122,7 +150,7 @@ def test_normalset_ellh_and_accumulate_match_jax(rng):
     close(tset.means_precisions.posterior, new_j.means_precisions.posterior, RTOL)
 
 
-@pytest.mark.parametrize("cov_type", ["full", "isotropic", "shared_diagonal"])
+@pytest.mark.parametrize("cov_type", ["isotropic", "shared_diagonal", "shared_full"])
 def test_normalset_other_cov_types_not_ported(cov_type):
     with pytest.raises(NotImplementedError, match="A.4"):
         NormalSet.create(torch.zeros(2), torch.ones(2), size=3, cov_type=cov_type)
@@ -134,7 +162,7 @@ def test_sb_categorical_matches_jax(rng):
     jsb = JSB.create(5, concentration=2.0, dtype=jnp.float64)
     post = np.asarray(jsb.sticks.posterior) + rng.uniform(0.0, 4.0, size=(4, 2))
     jsb = jsb.replace(sticks=jsb.sticks.replace(posterior=jnp.asarray(post)))
-    tsb = SBCategorical.create(5, concentration=2.0, dtype=torch.float64)
+    tsb = SBCategorical.create(5, concentration=2.0, dtype=torch.float64, device="cpu")
     close(tsb.sticks.prior, jsb.sticks.prior, RTOL)
     tsb.sticks.posterior.copy_(t(post))
     close(tsb.expected_log_weights(), jsb.expected_log_weights(), RTOL)
@@ -153,7 +181,7 @@ def test_categorical_matches_jax(rng):
     from beer_tpu.models.categorical import Categorical as JCat
 
     jcat = JCat.create(4, prior_strength=1.5, dtype=jnp.float64)
-    tcat = Categorical.create(4, prior_strength=1.5, dtype=torch.float64)
+    tcat = Categorical.create(4, prior_strength=1.5, dtype=torch.float64, device="cpu")
     labels = rng.integers(0, 4, size=9)
     stats_j = jcat.sufficient_statistics(jnp.asarray(labels))
     stats_t = tcat.sufficient_statistics(torch.as_tensor(labels))

@@ -107,17 +107,17 @@ GRAPHS = {
     "ergodic": lambda g: g.ergodic(5, self_loop=0.6).compile,
     "phone_loop_bigram": lambda g: g.phone_loop_graph(
         3, 2, lm_trans=np.array(LM[0]), lm_init=np.array(LM[1])).compile,
-    "transcriptions_shared": lambda g: lambda dtype: g.transcription_graphs(
-        TRANSCRIPTIONS, N_PHONES, SPP, dtype=dtype, shared=True),
-    "transcriptions_per_utt": lambda g: lambda dtype: g.transcription_graphs(
-        TRANSCRIPTIONS, N_PHONES, SPP, dtype=dtype, shared=False),
+    "transcriptions_shared": lambda g: lambda dtype, **kw: g.transcription_graphs(
+        TRANSCRIPTIONS, N_PHONES, SPP, dtype=dtype, shared=True, **kw),
+    "transcriptions_per_utt": lambda g: lambda dtype, **kw: g.transcription_graphs(
+        TRANSCRIPTIONS, N_PHONES, SPP, dtype=dtype, shared=False, **kw),
 }
 
 
 @pytest.mark.parametrize("name", list(GRAPHS))
 def test_graph_builders_match_jax(name):
     want = GRAPHS[name](jgraph)(jnp.float64)
-    got = GRAPHS[name](bt)(torch.float64)
+    got = GRAPHS[name](bt)(torch.float64, device="cpu")
     for field in ("log_init", "log_final", "log_trans"):
         close(getattr(got, field), getattr(want, field), 0.0)
     np.testing.assert_array_equal(got.pdf_ids.numpy(), np.asarray(want.pdf_ids))
@@ -141,19 +141,20 @@ def test_bigram_lm_and_builder_api_match_jax():
         g.set_init(b_)
         g.set_final(c, 0.5)
         g.normalize()
-        graphs.append(g.compile(torch.float64 if mod is bt else jnp.float64))
+        graphs.append(g.compile(torch.float64, device="cpu") if mod is bt else g.compile(jnp.float64))
     for field in ("log_init", "log_final", "log_trans"):
         close(getattr(graphs[0], field), getattr(graphs[1], field), 0.0)
 
 
 def test_expand_llh_is_an_exact_gather():
-    graphs = bt.transcription_graphs(TRANSCRIPTIONS, N_PHONES, SPP, dtype=torch.float32)
+    graphs = bt.transcription_graphs(TRANSCRIPTIONS, N_PHONES, SPP, dtype=torch.float32,
+                                     device="cpu")
     per_pdf = torch.randn(B, T, N_PHONES * SPP, generator=torch.Generator().manual_seed(0))
     got = graphs.expand_llh(per_pdf)
     want = jgraph.transcription_graphs(TRANSCRIPTIONS, N_PHONES, SPP).expand_llh(
         jnp.asarray(per_pdf.numpy()))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    erg = bt.ergodic(4).compile()
+    erg = bt.ergodic(4).compile(device="cpu")
     assert torch.equal(erg.expand_llh(per_pdf[..., :4]), per_pdf[..., :4])
 
 
@@ -323,7 +324,7 @@ def test_posteriors_and_decode_take_the_kernel_routes(kind, monkeypatch):
 # ----------------------------------------------------------------------
 def test_mixture_set_matches_jax():
     jms = JaxMixtureSet.create(_nset(jnp.float64, 6, 8), nmix=3)
-    ms = bt.mixture_set_from_numpy(modelset_to_numpy(jms), dtype=torch.float64)
+    ms = bt.mixture_set_from_numpy(modelset_to_numpy(jms), device="cpu", dtype=torch.float64)
     x, _ = _data(np.float64, seed=9)
     flat = x.reshape(-1, D)
     jstats = jms.sufficient_statistics(jnp.asarray(flat))
@@ -389,7 +390,7 @@ def test_zero_length_row_contributes_nothing(kind):
 
 
 def test_learned_transitions_need_a_shared_graph():
-    graphs = bt.transcription_graphs(TRANSCRIPTIONS, N_PHONES, SPP, shared=False)
+    graphs = bt.transcription_graphs(TRANSCRIPTIONS, N_PHONES, SPP, shared=False, device="cpu")
     nset = bt.NormalSet.create(torch.zeros(D), torch.ones(D), size=N_PHONES * SPP)
     with pytest.raises(ValueError):
         bt.HMM.create(graphs, nset, learn_transitions=True)
