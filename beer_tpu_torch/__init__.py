@@ -15,7 +15,10 @@ learned transitions (ergodic HMMs, config 2; the supervised recognizer
 on transcription graphs, config 3): VB-EM steps (:func:`vb_step`),
 posteriors and Viterbi decoding; the full-covariance Bayesian GMM
 (:class:`Mixture` over a full-covariance NormalSet, config 1) and
-full-covariance NormalSet and MixtureSet emissions of the HMM.
+full-covariance NormalSet and MixtureSet emissions of the HMM; the
+structured VAE (:class:`VAE`, :class:`SequenceVAE` over a phone-loop or
+HMM prior, config 5) with its nnets (:mod:`beer_tpu_torch.nnet`) and
+the hybrid step (:func:`make_vae_train_step`, :class:`VBOptimizer`).
 
 Entry points that build a model or a graph (the ``*_from_numpy``
 converters, ``Graph.compile``, ``transcription_graphs``,
@@ -33,18 +36,21 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from beer_tpu_torch import dists  # noqa: E402
+from beer_tpu_torch import dists, nnet  # noqa: E402
 from beer_tpu_torch.convert import (  # noqa: E402
     hmm_from_numpy,
     mixture_from_numpy,
     mixture_set_from_numpy,
+    normal_from_numpy,
     normal_set_from_numpy,
     phone_loop_from_numpy,
+    vae_from_numpy,
 )
 from beer_tpu_torch.models import *  # noqa: E402,F401,F403
 from beer_tpu_torch.vbi import (  # noqa: E402
     ELBO,
     VBConjugateOptimizer,
+    VBOptimizer,
     elbo_and_stats,
     evidence_lower_bound,
     vb_step,
@@ -54,15 +60,19 @@ __version__ = "0.1.0"
 
 __all__ = [
     "dists",
+    "nnet",
     "phone_loop_from_numpy",
     "hmm_from_numpy",
     "mixture_from_numpy",
     "mixture_set_from_numpy",
     "normal_set_from_numpy",
+    "normal_from_numpy",
+    "vae_from_numpy",
     "Model",
     "DiscreteLatentModel",
     "ModelSet",
     "BayesianParameter",
+    "Normal",
     "NormalSet",
     "Categorical",
     "SBCategorical",
@@ -78,8 +88,12 @@ __all__ = [
     "Mixture",
     "MixtureSet",
     "PhoneLoop",
+    "VAE",
+    "SequenceVAE",
+    "make_vae_train_step",
     "ELBO",
     "VBConjugateOptimizer",
+    "VBOptimizer",
     "elbo_and_stats",
     "evidence_lower_bound",
     "vb_step",

@@ -26,6 +26,17 @@ inverse of the model's ``to_numpy()``.
   ``l2r_banded``), ``modelset`` (a NormalSet or MixtureSet dict) and the
   transition Dirichlet ``trans_alpha_prior`` / ``trans_alpha_post``
   (S, S), or None for fixed transitions.
+* Normal (:func:`normal_from_numpy`): a NormalSet dict of one component
+  with ``type`` "Normal".
+* VAE / SequenceVAE (:func:`vae_from_numpy`): ``type`` ("VAE" or
+  "SequenceVAE"), ``encoder`` / ``decoder`` / optional ``flow``, each the
+  JAX package's flax parameter tree ``{"params": {"MLP_0" or "ResMLP_0":
+  {"Dense_i": {"kernel" (in, out), "bias"}}, "NormalDiagLayer_0" (or
+  the decoder's head): {"Dense_0", "Dense_1"}}}`` (an ``nn.Linear``'s
+  weight is the kernelᵀ), ``latent_type`` (the latent model's class
+  name: PhoneLoop, HMM, Mixture or Normal) with
+  ``latent_model`` its dict, and ``nsamples``.  The widths, the trunk
+  kind, the output head and the flows are read off the trees.
 
 Every builder puts the model on the CUDA card unless ``device`` says
 otherwise (``device="cpu"``), and raises when there is no card and no
@@ -44,10 +55,13 @@ from beer_tpu_torch.device import resolve_device
 from beer_tpu_torch.models.categorical import Categorical, SBCategorical
 from beer_tpu_torch.models.graph import CompiledGraph
 from beer_tpu_torch.models.hmm import HMM
+from beer_tpu_torch import nnet
 from beer_tpu_torch.models.mixture import Mixture, MixtureSet
-from beer_tpu_torch.models.normal import FAMILIES, NormalSet
+from beer_tpu_torch.models.normal import FAMILIES, Normal, NormalSet
 from beer_tpu_torch.models.parameters import BayesianParameter
 from beer_tpu_torch.models.phoneloop import PhoneLoop
+from beer_tpu_torch.models.vae import Encoder, SequenceVAE, VAE
+from beer_tpu_torch.nnet import flows as nnet_flows
 
 
 def _tensor(x, dtype=None, device=None) -> torch.Tensor:
@@ -55,7 +69,7 @@ def _tensor(x, dtype=None, device=None) -> torch.Tensor:
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
-def _normal_set(prior, posterior, dim, cov_type, dtype, device) -> NormalSet:
+def _normal_set(prior, posterior, dim, cov_type, dtype, device, cls=NormalSet) -> NormalSet:
     if cov_type not in FAMILIES:
         raise NotImplementedError(f"cov_type={cov_type!r} is not ported (ROADMAP A.4)")
     fam = FAMILIES[cov_type](dim=dim)
@@ -64,8 +78,8 @@ def _normal_set(prior, posterior, dim, cov_type, dtype, device) -> NormalSet:
     if p != fam.nat_dim:
         raise ValueError(f"modelset parameters have width {p}, expected {fam.nat_dim} for "
                          f"cov_type={cov_type!r} at dim={dim}")
-    return NormalSet(BayesianParameter(prior, _tensor(posterior, dtype, device), fam),
-                     cov_type=cov_type, ncomp=k, dim=dim)
+    return cls(BayesianParameter(prior, _tensor(posterior, dtype, device), fam),
+               cov_type=cov_type, ncomp=k, dim=dim)
 
 
 def phone_loop_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> PhoneLoop:
@@ -93,6 +107,17 @@ def normal_set_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> NormalS
     CUDA card)."""
     device = resolve_device(device)
     return _normal_set(d["prior"], d["posterior"], int(d["dim"]), d["cov_type"], dtype, device)
+
+
+def normal_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> Normal:
+    """A single Bayesian Normal (one component) on ``device`` (default:
+    the CUDA card)."""
+    device = resolve_device(device)
+    out = _normal_set(d["prior"], d["posterior"], int(d["dim"]), d["cov_type"], dtype, device,
+                      Normal)
+    if out.ncomp != 1:
+        raise ValueError(f"a Normal has one component, got {out.ncomp}")
+    return out
 
 
 def mixture_set_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> MixtureSet:
@@ -138,3 +163,52 @@ def hmm_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> HMM:
                           int(d["n_pdfs"]), bool(d.get("l2r_banded", False)))
     return HMM(graph, modelset_from_numpy(d["modelset"], device, dtype),
                t(d.get("trans_alpha_prior")), t(d.get("trans_alpha_post")))
+
+
+# ----------------------------------------------------------------------
+# The VAE
+# ----------------------------------------------------------------------
+def _dense_sizes(tree: Dict[str, Any]):
+    """(n_in, [n_out of Dense_0, Dense_1, …]) of a flax trunk or head."""
+    kernels = [np.asarray(tree[f"Dense_{i}"]["kernel"]) for i in range(len(tree))]
+    return kernels[0].shape[0], [k.shape[1] for k in kernels]
+
+
+def _coder_from_tree(params: Dict[str, Any], dtype) -> Encoder:
+    """An encoder or decoder (trunk + head) shaped after its flax tree."""
+    (trunk_key,) = [k for k in params if k.startswith(("MLP_", "ResMLP_"))]
+    (head_key,) = [k for k in params if k != trunk_key]
+    n_in, sizes = _dense_sizes(params[trunk_key])
+    if trunk_key.startswith("ResMLP_"):
+        trunk = nnet.ResMLP(n_in, sizes[1:], torch.tanh, dtype=dtype)
+    else:
+        trunk = nnet.MLP(n_in, sizes, torch.tanh, dtype=dtype)
+    heads = {cls.flax_name: cls for cls in (nnet.NormalDiagLayer, nnet.NormalIsoLayer,
+                                            nnet.BernoulliLayer)}
+    dim = _dense_sizes(params[head_key])[1][0]
+    head = heads[head_key.rsplit("_", 1)[0]](trunk.out_features, dim, dtype=dtype)
+    return nnet.load_flax_tree(Encoder(trunk, head), params)
+
+
+def _flow_from_tree(params: Dict[str, Any], dim: int, dtype) -> nnet_flows.FlowStack:
+    n_planar = sum(k.startswith("PlanarFlow_") for k in params)
+    n_iaf = sum(k.startswith("AffineAutoregressiveFlow_") for k in params)
+    return nnet.load_flax_tree(nnet_flows.FlowStack(dim, n_planar, n_iaf, dtype=dtype), params)
+
+
+LATENT_TYPES = {"PhoneLoop": phone_loop_from_numpy, "HMM": hmm_from_numpy,
+                   "Mixture": mixture_from_numpy, "Normal": normal_from_numpy}
+
+
+def vae_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> VAE:
+    """A VAE or SequenceVAE on ``device`` (default: the CUDA card) in
+    ``dtype`` (default: the latent model's arrays' own floating type)."""
+    device = resolve_device(device)
+    latent = LATENT_TYPES[d["latent_type"]](d["latent_model"], device, dtype)
+    dtype = next(latent.buffers()).dtype
+    encoder = _coder_from_tree(d["encoder"]["params"], dtype)
+    decoder = _coder_from_tree(d["decoder"]["params"], dtype)
+    latent_dim = encoder.head.mean.out_features
+    flow = _flow_from_tree(d["flow"]["params"], latent_dim, dtype) if "flow" in d else None
+    cls = {"VAE": VAE, "SequenceVAE": SequenceVAE}[d.get("type", "VAE")]
+    return cls(encoder, decoder, latent, flow, latent_dim, int(d.get("nsamples", 1))).to(device)

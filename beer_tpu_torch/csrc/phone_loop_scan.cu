@@ -4,7 +4,9 @@
 // Four kernels carry the phone-loop AUD main path: the scaled banded
 // forward (VB-EM E-step, part 1), the accumulating v-space backward
 // (E-step, part 2), and the banded (max,+) Viterbi forward and its
-// backtrace (decode).  Each replaces one Pallas TPU kernel of
+// backtrace (decode).  A fifth, the γ-emitting twin of the backward,
+// carries the structured VAE's gradient (the Fisher identity ∂log Z /
+// ∂llh = γ).  Each replaces one Pallas TPU kernel of
 // beer_tpu/ops/pallas_scan.py; the note above each kernel names it.
 //
 // Common design.  Every kernel is a serial recursion over time with an
@@ -34,8 +36,9 @@ size_t forward_smem_floats(int s, int p) {
   return static_cast<size_t>(s) * odd_stride(p) + 7 * static_cast<size_t>(s) + p + 2 * kMaxWarps;
 }
 
-size_t estep_smem_floats(int s, int p, int u) {
-  return static_cast<size_t>(s) * odd_stride(p) + static_cast<size_t>(s) * odd_stride(p + 1) +
+// acc: K2 holds the (S, P+1) moments in shared memory; K11 does not.
+size_t estep_smem_floats(int s, int p, int u, bool acc) {
+  return static_cast<size_t>(s) * odd_stride(p) + (acc ? static_cast<size_t>(s) * odd_stride(p + 1) : 0) +
          static_cast<size_t>(u) * u + 11 * static_cast<size_t>(s) + p + 2 * static_cast<size_t>(u) +
          2 * kMaxWarps;
 }
@@ -138,9 +141,18 @@ __global__ void forward_llh_banded_kernel(
 }
 
 // ---------------------------------------------------------------------
-// K2 — accumulating v-space backward (smoothing + moments + loop ξ).
+// K2 (kAcc) — accumulating v-space backward (smoothing + moments + loop ξ).
 // Replaces beer_tpu/ops/pallas_scan.py _make_estep_ckpt_acc_kernel_lm
 // (wrapper phone_loop_estep_ckpt_acc_lm, stored-α̂ route).
+// K11 (!kAcc) — the same chain emitting γ (B, T, S) per frame (0 on
+// frames t >= len) instead of reducing it.  Replaces the banded mode of
+// beer_tpu/ops/pallas_scan.py _make_estep_ckpt_kernel_lm (wrapper
+// phone_loop_estep_ckpt_pass_lm with bands, w and bias: the backward of
+// the SVAE's log Z, semiring_scan._logz_stats_lm_bwd_impl); α̂ is read
+// from K1 instead of recomputed from block checkpoints, and the loop ξ
+// is an exact gather instead of a bf16 selection product.  Bound: the
+// serial chain (two block reductions per step) plus P FMAs per state
+// and step for the ELLH; α̂ streams in and γ streams out once, coalesced.
 // Walking t from len−1 down to 0, with llh recomputed from W·stats as
 // K1 does: u1 = final at the last frame, otherwise v̂·a_self +
 // shift_up(v̂)·a_adv + (v̂·w)·exit; v = e·u1; v̂ = v / max(Σv, tiny);
@@ -150,10 +162,11 @@ __global__ void forward_llh_banded_kernel(
 // ends/starts as int32 index vectors (an exact gather, not a selection
 // product).  Bound: the serial chain plus 2·P shared-memory FMAs per
 // state and step; α̂ is streamed once.  The per-utterance partials
-// (B, S·(P+1) + U·U) are summed over the batch by sum_rows_kernel in a
-// fixed order, so the result is deterministic.
+// (B, [S·(P+1)] + U·U) are summed over the batch by sum_rows_kernel in
+// a fixed order, so the result is deterministic.
 // ---------------------------------------------------------------------
-__global__ void estep_acc_banded_kernel(
+template <bool kAcc>
+__global__ void estep_banded_kernel(
     const float* __restrict__ stats,   // (B, T, P)
     const int* __restrict__ lens,      // (B,)
     const float* __restrict__ w,       // (S, P)
@@ -164,14 +177,15 @@ __global__ void estep_acc_banded_kernel(
     const float* __restrict__ norms,   // (B, T)
     const int* __restrict__ ends,      // (U,)
     const int* __restrict__ starts,    // (U,)
-    float* __restrict__ part,          // (B, S*(P+1) + U*U)
+    float* __restrict__ part,          // (B, [S*(P+1)] + U*U)
     float* __restrict__ gamma0,        // (B, S)
+    float* __restrict__ gamma,         // (B, T, S)  (!kAcc)
     int T, int S, int P, int U) {
   extern __shared__ float smem[];
   const int ldw = odd_stride(P), lda = odd_stride(P + 1);
   float* w_sh = smem;
-  float* acc_sh = w_sh + static_cast<size_t>(S) * ldw;
-  float* xi_sh = acc_sh + static_cast<size_t>(S) * lda;
+  float* acc_sh = w_sh + static_cast<size_t>(S) * ldw;  // kAcc only
+  float* xi_sh = acc_sh + (kAcc ? static_cast<size_t>(S) * lda : 0);
   float* bias_sh = xi_sh + static_cast<size_t>(U) * U;
   float* self_sh = bias_sh + S;
   float* adv_sh = self_sh + S;
@@ -194,7 +208,9 @@ __global__ void estep_acc_banded_kernel(
     const int s = i / P;
     w_sh[s * ldw + (i - s * P)] = w[i];
   }
-  for (int i = tid; i < S * lda; i += nt) acc_sh[i] = 0.f;
+  if (kAcc) {
+    for (int i = tid; i < S * lda; i += nt) acc_sh[i] = 0.f;
+  }
   for (int i = tid; i < U * U; i += nt) xi_sh[i] = 0.f;
   for (int s = tid; s < S; s += nt) {
     bias_sh[s] = bias[s];
@@ -212,6 +228,7 @@ __global__ void estep_acc_banded_kernel(
   const float* x_b = stats + static_cast<size_t>(b) * T * P;
   const float* a_b = alpha + static_cast<size_t>(b) * T * S;
   const float* n_b = norms + static_cast<size_t>(b) * T;
+  float* g_b = kAcc ? nullptr : gamma + static_cast<size_t>(b) * T * S;
   float wgt_next = 0.f;  // wgt_{t+1}
 
   for (int t = len - 1; t >= 0; --t) {
@@ -255,9 +272,13 @@ __global__ void estep_acc_banded_kernel(
     for (int s = tid; s < S; s += nt) {
       const float g = ab_sh[s] / gnorm;
       vh_cur[s] = v_sh[s] / sv;
-      float* ar = acc_sh + s * lda;
-      for (int p = 0; p < P; ++p) ar[p] = fmaf(g, x_sh[p], ar[p]);
-      ar[P] += g;
+      if (kAcc) {
+        float* ar = acc_sh + s * lda;
+        for (int p = 0; p < P; ++p) ar[p] = fmaf(g, x_sh[p], ar[p]);
+        ar[P] += g;
+      } else {
+        g_b[static_cast<size_t>(t) * S + s] = g;
+      }
       if (t == 0) gamma0[static_cast<size_t>(b) * S + s] = g;
     }
     if (!is_last) {
@@ -272,13 +293,17 @@ __global__ void estep_acc_banded_kernel(
     vh_cur = tmp;
   }
   __syncthreads();
-  const int row = S * (P + 1) + U * U;
-  float* out = part + static_cast<size_t>(b) * row;
-  for (int i = tid; i < S * (P + 1); i += nt) {
-    const int s = i / (P + 1);
-    out[i] = acc_sh[s * lda + (i - s * (P + 1))];
+  const int n_acc = kAcc ? S * (P + 1) : 0;
+  float* out = part + static_cast<size_t>(b) * (n_acc + U * U);
+  if (kAcc) {
+    for (int i = tid; i < n_acc; i += nt) {
+      const int s = i / (P + 1);
+      out[i] = acc_sh[s * lda + (i - s * (P + 1))];
+    }
+  } else {
+    for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) g_b[i] = 0.f;
   }
-  for (int k = tid; k < U * U; k += nt) out[S * (P + 1) + k] = xi_sh[k];
+  for (int k = tid; k < U * U; k += nt) out[n_acc + k] = xi_sh[k];
   if (len == 0) {
     for (int s = tid; s < S; s += nt) gamma0[static_cast<size_t>(b) * S + s] = 0.f;
   }
@@ -418,7 +443,11 @@ extern "C" {
 
 size_t beer_forward_smem_bytes(int s, int p) { return forward_smem_floats(s, p) * sizeof(float); }
 
-size_t beer_estep_smem_bytes(int s, int p, int u) { return estep_smem_floats(s, p, u) * sizeof(float); }
+size_t beer_estep_smem_bytes(int s, int p, int u) { return estep_smem_floats(s, p, u, true) * sizeof(float); }
+
+size_t beer_estep_gamma_smem_bytes(int s, int p, int u) {
+  return estep_smem_floats(s, p, u, false) * sizeof(float);
+}
 
 const char* beer_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
@@ -444,14 +473,36 @@ int beer_estep_acc_banded(int device, const float* stats, const int* lens, const
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const size_t smem = beer_estep_smem_bytes(S, P, U);
-  err = set_smem(estep_acc_banded_kernel, smem);
+  err = set_smem(estep_banded_kernel<true>, smem);
   if (err != cudaSuccess) return err;
   const int n = S * (P + 1) + U * U;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0) {
-    const int nt = block_threads(estep_acc_banded_kernel, S);
-    estep_acc_banded_kernel<<<B, nt, smem, st>>>(stats, lens, w, bias, bands, final_, alpha, norms, ends, starts,
-                                                 part, gamma0, T, S, P, U);
+    const int nt = block_threads(estep_banded_kernel<true>, S);
+    estep_banded_kernel<true><<<B, nt, smem, st>>>(stats, lens, w, bias, bands, final_, alpha, norms, ends, starts,
+                                                   part, gamma0, nullptr, T, S, P, U);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
+  return cudaGetLastError();
+}
+
+int beer_estep_gamma_banded(int device, const float* stats, const int* lens, const float* w, const float* bias,
+                            const float* bands, const float* final_, const float* alpha, const float* norms,
+                            const int* ends, const int* starts, float* part, float* out, float* gamma0,
+                            float* gamma, int B, int T, int S, int P, int U, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = beer_estep_gamma_smem_bytes(S, P, U);
+  err = set_smem(estep_banded_kernel<false>, smem);
+  if (err != cudaSuccess) return err;
+  const int n = U * U;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B > 0) {
+    const int nt = block_threads(estep_banded_kernel<false>, S);
+    estep_banded_kernel<false><<<B, nt, smem, st>>>(stats, lens, w, bias, bands, final_, alpha, norms, ends,
+                                                    starts, part, gamma0, gamma, T, S, P, U);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

@@ -15,15 +15,17 @@ from beer_tpu_torch.models.graph import (
 from beer_tpu_torch.models.hmm import HMM
 from beer_tpu_torch.models.mixture import Mixture, MixtureSet
 from beer_tpu_torch.models.modelset import ModelSet
-from beer_tpu_torch.models.normal import NormalSet
+from beer_tpu_torch.models.normal import Normal, NormalSet
 from beer_tpu_torch.models.parameters import BayesianParameter
 from beer_tpu_torch.models.phoneloop import PhoneLoop
+from beer_tpu_torch.models.vae import VAE, SequenceVAE, make_vae_train_step
 
 __all__ = [
     "Model",
     "DiscreteLatentModel",
     "ModelSet",
     "BayesianParameter",
+    "Normal",
     "NormalSet",
     "Categorical",
     "SBCategorical",
@@ -39,4 +41,7 @@ __all__ = [
     "Mixture",
     "MixtureSet",
     "PhoneLoop",
+    "VAE",
+    "SequenceVAE",
+    "make_vae_train_step",
 ]

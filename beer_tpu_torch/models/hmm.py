@@ -27,6 +27,13 @@ package chooses them (``hmm.py:135-154``):
 The fused routes run the CUDA kernels on CUDA tensors and their plain
 versions on CPU tensors, or with ``plain_scan`` set.  ``infer`` returns
 per-utterance log Z (0 for empty rows).
+
+When grad mode is on and the statistics require grad (the structured
+VAE's latent prior), the stats and llh routes both take
+:class:`~beer_tpu_torch.ops.semiring_scan.HMMLogZ` over the state llh
+(K5 + K7 in the forward, γ·ct in the backward) and ``accumulate``
+reduces the cached γ as the llh route does; the general route stays
+plain-torch autograd.
 """
 
 from __future__ import annotations
@@ -175,6 +182,11 @@ class HMM(DiscreteLatentModel):
         final = _probs(self.graph_log_final, b, s, dt)
         cache = {"route": route, "lens": lens, "trans": trans, "final": final,
                  "log_trans": log_trans}
+        if torch.is_grad_enabled() and stats.requires_grad:
+            llh = self._state_llh(stats).to(dt).contiguous()
+            log_z, gamma, xi_raw = semiring_scan.HMMLogZ.apply(llh, lens, trans, init, final,
+                                                               self.plain_scan)
+            return log_z, dict(cache, route="llh", gamma=gamma, xi_raw=xi_raw)
         if route == "stats":
             x = cache["stats"] = stats.contiguous()
             w_mat, bias = self.modelset.ellh_matrix()      # (P, n_pdfs), (n_pdfs,)
@@ -186,14 +198,15 @@ class HMM(DiscreteLatentModel):
             x = cache["llh"] = self._state_llh(stats).to(dt).contiguous()
             alpha, norms, last, logz_base = semiring_scan.hmm_forward(
                 x, lens, trans, init, plain=self.plain_scan)
-        tiny = torch.finfo(dt).tiny
-        log_z = logz_base + torch.log((last * final).sum(-1).clamp_min(tiny))
-        log_z = torch.where(lens > 0, log_z, 0.0)
+        log_z = semiring_scan.log_z_from_forward(logz_base, last, final, lens)
         return log_z, dict(cache, alpha=alpha, norms=norms)
 
     def _backward(self, cache: Dict[str, Any]):
         """The fused routes' backward pass: (acc2, counts, xi_raw) on the
-        stats route, (γ (B, T, S), xi_raw) on the llh route."""
+        stats route, (γ (B, T, S), xi_raw) on the llh route (from the
+        cache on the gradient route, which ran it in the forward)."""
+        if "gamma" in cache:
+            return cache["gamma"], cache["xi_raw"]
         if cache["route"] == "stats":
             acc2, counts, _, xi_raw = semiring_scan.hmm_estep_acc(
                 cache["stats"], cache["lens"], cache["w"], cache["bias"], cache["trans"],

@@ -9,7 +9,10 @@ Counterpart of ``beer_tpu/models/mixture.py``.
   (:func:`~beer_tpu_torch.ops.stats_kernels.gmm_estep_full`, K8): the
   per-frame log-marginal, the responsibilities and the accumulated
   statistics, with the responsibilities never stored.  Other components
-  take the logsumexp route with the responsibilities in the cache.
+  take the logsumexp route with the responsibilities in the cache, and
+  so do statistics that require grad (the structured VAE's prior): K8
+  has no gradient, the component ELLH (K9 through
+  :class:`~beer_tpu_torch.ops.stats_kernels.EllhFull`) does.
 * :class:`MixtureSet` — S mixtures of K components each (one GMM per HMM
   state, the HMM-GMM emissions of the recognizer recipe).  The S·K
   components live in one NormalSet; the weights are a batched Dirichlet
@@ -70,8 +73,9 @@ class Mixture(DiscreteLatentModel):
     def infer(self, stats: torch.Tensor, mask: Optional[torch.Tensor] = None):
         """Per-frame log-marginal (masked frames 0) and the cache
         ``accumulate`` needs: ``{"gmm_acc", "gmm_counts"}`` on the fused
-        route, ``{"resps"}`` otherwise."""
-        if self._fused():
+        route, ``{"resps"}`` otherwise (and for ``stats`` that require
+        grad while grad mode is on)."""
+        if self._fused() and not (torch.is_grad_enabled() and stats.requires_grad):
             ms = self.modelset
             fn = (stats_kernels.gmm_estep_full_plain if self.plain_scan
                   else stats_kernels.gmm_estep_full)

@@ -18,9 +18,12 @@ posterior has shape (K, P).
   :func:`~beer_tpu_torch.ops.stats_kernels.accumulate_full` (K10), which
   build xxᵀ tile by tile, so the (T, D²+D+2) statistics never exist on
   the main path.  ``plain_scan`` asks for their plain versions on any
-  device (the reference route on the card).
+  device (the reference route on the card).  The ELLH goes through
+  :class:`~beer_tpu_torch.ops.stats_kernels.EllhFull`, so it is
+  differentiable with respect to the frames.
 
-The isotropic and shared covariance types are not ported yet.
+:class:`Normal` is the K = 1 set with squeezed outputs (the plain VAE
+prior).  The isotropic and shared covariance types are not ported yet.
 """
 
 from __future__ import annotations
@@ -148,8 +151,8 @@ class NormalSet(ModelSet):
         """(..., K) expected log-likelihood of every component."""
         if self.cov_type == "full":
             e_stats = self.means_precisions.expected_sufficient_statistics()
-            fn = stats_kernels.ellh_full_plain if self.plain_scan else stats_kernels.ellh_full
-            llh = fn(stats.reshape(-1, self.dim).contiguous(), e_stats)
+            llh = stats_kernels.EllhFull.apply(stats.reshape(-1, self.dim).contiguous(), e_stats,
+                                               self.plain_scan)
             return llh.reshape(*stats.shape[:-1], self.ncomp)
         w_mat, bias = self.ellh_matrix()
         return torch.matmul(stats, w_mat) + bias
@@ -191,3 +194,29 @@ class NormalSet(ModelSet):
         return {"type": "NormalSet", "prior": mp.prior.detach().cpu().numpy(),
                 "posterior": mp.posterior.detach().cpu().numpy(), "dim": self.dim,
                 "cov_type": self.cov_type}
+
+
+class Normal(NormalSet):
+    """A single Bayesian Normal: a K = 1 NormalSet with squeezed outputs.
+
+    Counterpart of ``Normal`` in ``beer_tpu/models/normal.py``."""
+
+    @classmethod
+    def create(cls, mean: torch.Tensor, cov: torch.Tensor, prior_strength: float = 1.0,
+               cov_type: str = "full") -> "Normal":
+        """Prior and posterior centred on ``mean`` with covariance ``cov``
+        (no jitter); device and dtype are ``mean``'s."""
+        out = NormalSet.create(mean, cov, size=1, prior_strength=prior_strength, noise_std=0.0,
+                               cov_type=cov_type)
+        return cls(out.means_precisions, cov_type, 1, out.dim)
+
+    def infer(self, stats: torch.Tensor):
+        """Per-frame expected log-likelihood (...,) and an empty cache."""
+        return self.expected_log_likelihood(stats)[..., 0], {}
+
+    def accumulate(self, stats: torch.Tensor, cache=None) -> Dict[str, Any]:
+        return super().accumulate(stats, stats.new_ones(*stats.shape[:-1], 1))
+
+    def to_numpy(self) -> Dict[str, Any]:
+        """The inverse of :func:`beer_tpu_torch.convert.normal_from_numpy`."""
+        return dict(super().to_numpy(), type="Normal")

@@ -22,6 +22,14 @@ CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor, or
 the plain versions on any device when ``plain_scan`` is set.
 :meth:`PhoneLoop.smooth` is the general path with materialized
 posteriors (tests, consumers that need per-frame posteriors).
+
+Gradient route.  When grad mode is on and the statistics require grad
+(the structured VAE's latent prior), :meth:`PhoneLoop.infer` takes
+:class:`~beer_tpu_torch.ops.semiring_scan.PhoneLoopLogZ` instead: the
+same forward, then the γ-emitting backward (K11), whose γ is both the
+gradient of log Z (the Fisher identity) and, reduced by one matmul
+against the statistics in :meth:`PhoneLoop.accumulate`, the emission
+moments.
 """
 
 from __future__ import annotations
@@ -165,15 +173,21 @@ class PhoneLoop(DiscreteLatentModel):
         }
 
     def infer(self, stats: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        """Fused E-step forward: log Z (B,) and the cache ``accumulate`` needs."""
+        """Fused E-step forward: log Z (B,) and the cache ``accumulate`` needs.
+
+        Differentiable with respect to ``stats`` when they require grad
+        (the cache then holds the detached γ, γ0 and ``xi_raw``)."""
         stats = stats.contiguous()
         ops = self.scan_operands(stats, mask)
+        if torch.is_grad_enabled() and stats.requires_grad:
+            log_z, gamma, gamma0, xi_raw = semiring_scan.PhoneLoopLogZ.apply(
+                stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["init"],
+                ops["final"], ops["ends"], ops["starts"], self.plain_scan)
+            return log_z, dict(ops, gamma=gamma, gamma0=gamma0, xi_raw=xi_raw)
         alpha, norms, last, logz_base = semiring_scan.phone_loop_forward(
             stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["init"],
             plain=self.plain_scan)
-        tiny = torch.finfo(stats.dtype).tiny
-        log_z = logz_base + torch.log((last * ops["final"]).sum(-1).clamp_min(tiny))
-        log_z = torch.where(ops["lens"] > 0, log_z, 0.0)
+        log_z = semiring_scan.log_z_from_forward(logz_base, last, ops["final"], ops["lens"])
         return log_z, dict(ops, alpha=alpha, norms=norms)
 
     def smooth(self, stats: torch.Tensor, mask: Optional[torch.Tensor] = None):
@@ -199,10 +213,17 @@ class PhoneLoop(DiscreteLatentModel):
             acc = self.modelset.accumulate(stats.reshape(-1, stats.shape[-1]),
                                            post.reshape(-1, self.n_states))
         else:
-            acc2, counts, gamma0, xi_raw = semiring_scan.phone_loop_estep_acc(
-                stats.contiguous(), cache["lens"], cache["w"], cache["bias"], cache["bands"],
-                cache["final"], cache["alpha"], cache["norms"], cache["ends"], cache["starts"],
-                plain=self.plain_scan)
+            if "gamma" in cache:
+                # the gradient route: reduce K11's γ (the JAX package's
+                # BEER_FUSE_ACC=0 route)
+                gamma = cache["gamma"].flatten(0, 1)
+                acc2 = gamma.T @ stats.flatten(0, 1)
+                counts, gamma0, xi_raw = gamma.sum(0), cache["gamma0"], cache["xi_raw"]
+            else:
+                acc2, counts, gamma0, xi_raw = semiring_scan.phone_loop_estep_acc(
+                    stats.contiguous(), cache["lens"], cache["w"], cache["bias"],
+                    cache["bands"], cache["final"], cache["alpha"], cache["norms"],
+                    cache["ends"], cache["starts"], plain=self.plain_scan)
             trans_blk = torch.exp(graph.log_trans)[ends][:, starts]
             unit_counts = (xi_raw * trans_blk).sum(0) + gamma0[:, starts].sum(0)
             acc = self.modelset.accumulate_from_moments(acc2, counts)

@@ -2,13 +2,22 @@
 
 Counterpart of the ``beer_tpu/ops/pallas_scan.py`` kernels on the ported
 paths: the four of the phone-loop AUD main path (K1–K4, banded
-transitions, ``csrc/phone_loop_scan.cu``) and the three of the Bayesian
+transitions, ``csrc/phone_loop_scan.cu``) and their γ-emitting backward
+K11 (the structured VAE's gradient), and the three of the Bayesian
 HMM's E-step over a dense (S, S) transition matrix (K5–K7,
 ``csrc/hmm_scan.cu``).  The build, the library and the launch counts in
 :data:`KERNELS` also serve the full-covariance statistics kernels K8–K10
 (``csrc/stats_full.cu``), wrapped in :mod:`beer_tpu_torch.ops.stats_kernels`.
 Each wrapper below takes batch-major tensors and
 
+* refuses (``RuntimeError``) an input that requires grad while grad
+  mode is on, on every device: its outputs carry no gradient, so
+  autograd would silently drop that input's gradient.  The
+  differentiable routes reach the kernels only through the
+  ``torch.autograd.Function`` classes of :mod:`beer_tpu_torch.ops.semiring_scan`
+  (``PhoneLoopLogZ``, ``HMMLogZ``) and
+  :class:`beer_tpu_torch.ops.stats_kernels.EllhFull`, whose forward runs
+  with grad mode off;
 * on a CPU tensor runs its plain PyTorch version (same outputs),
 * on a CUDA tensor checks device, dtype (float32), shape and
   contiguity, allocates its outputs with ``torch.empty``, launches the
@@ -72,7 +81,7 @@ class Kernel:
 KERNELS = {
     **{name: Kernel(name, "beer_tpu_torch/csrc/phone_loop_scan.cu")
        for name in ("forward_llh_banded", "estep_acc_banded",
-                    "viterbi_fwd_banded", "viterbi_backtrace_banded")},
+                    "viterbi_fwd_banded", "viterbi_backtrace_banded", "estep_gamma_banded")},
     **{name: Kernel(name, "beer_tpu_torch/csrc/hmm_scan.cu")
        for name in ("forward_llh_dense", "estep_acc_dense", "estep_gamma_dense")},
     # wrapped in ops/stats_kernels.py
@@ -145,6 +154,7 @@ def _library() -> ctypes.CDLL:
     signatures = {
         "beer_forward_llh_banded": [i] + [p] * 10 + [i] * 4 + [p],
         "beer_estep_acc_banded": [i] + [p] * 13 + [i] * 5 + [p],
+        "beer_estep_gamma_banded": [i] + [p] * 14 + [i] * 5 + [p],
         "beer_viterbi_fwd_banded": [i] + [p] * 7 + [i] * 3 + [p],
         "beer_viterbi_backtrace_banded": [i] + [p] * 6 + [i] * 4 + [p],
         "beer_forward_llh_dense": [i] + [p] * 10 + [i] * 4 + [p],
@@ -160,8 +170,9 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.beer_forward_smem_bytes.argtypes = [i, i]
     lib.beer_forward_smem_bytes.restype = z
-    lib.beer_estep_smem_bytes.argtypes = [i, i, i]
-    lib.beer_estep_smem_bytes.restype = z
+    for name in ("beer_estep_smem_bytes", "beer_estep_gamma_smem_bytes"):
+        getattr(lib, name).argtypes = [i, i, i]
+        getattr(lib, name).restype = z
     for name in ("beer_dense_forward_smem_bytes", "beer_dense_estep_smem_bytes"):
         getattr(lib, name).argtypes = [i, i]
         getattr(lib, name).restype = z
@@ -172,6 +183,16 @@ def _library() -> ctypes.CDLL:
     lib.beer_error_string.argtypes = [i]
     lib.beer_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: the kernel's
+    outputs have no ``grad_fn``, so that input's gradient would be lost."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but this kernel has no backward; take the "
+            "autograd route (semiring_scan.PhoneLoopLogZ / HMMLogZ, stats_kernels.EllhFull) "
+            "or call it under torch.no_grad()")
 
 
 def _check(tensors: dict, device: torch.device, dtypes: dict) -> None:
@@ -327,6 +348,7 @@ def forward_llh_banded(stats, lens, w, bias, bands, init):
     ``logz_base`` (B,) = Σ_t log norm_t + max_s llh_t (0 for empty rows);
     log Z = logz_base + log Σ last·final.
     """
+    refuse_grad("forward_llh_banded", stats, w, bias, bands, init)
     if stats.device.type == "cpu":
         return forward_llh_banded_plain(stats, lens, w, bias, bands, init)
     b, t_len, p_dim = stats.shape
@@ -353,17 +375,42 @@ def forward_llh_banded(stats, lens, w, bias, bands, init):
 # ----------------------------------------------------------------------
 # K2: accumulating v-space backward (γ moments, γ0, loop-back ξ)
 # ----------------------------------------------------------------------
-def estep_acc_banded_plain(stats, lens, w, bias, bands, final, alpha, norms, ends, starts):
-    """Plain version of :func:`estep_acc_banded` (any dtype and device)."""
-    p_dim = stats.shape[-1]
+def _banded_backward_plain(stats, lens, w, bias, bands, final, alpha, norms, ends, starts,
+                           accumulate: bool):
+    """K2's (``accumulate``) or K11's plain version: the v-space backward
+    through band + rank-1 transitions, v ↦ v·a_self + shift_up(v)·a_adv +
+    (v·w)·exit."""
     a_self, a_adv, exit_v, w_v = bands
 
     def propagate_t(v):
         r = (v * w_v).sum(-1, keepdim=True)
         return v * a_self + _shift_up(v) * a_adv + r * exit_v
 
-    acc, gamma0, xi = _backward_plain(torch.matmul(stats, w.T) + bias, lens, final, alpha, norms,
-                                      propagate_t, stats, ends.long(), starts.long())
+    return _backward_plain(torch.matmul(stats, w.T) + bias, lens, final, alpha, norms,
+                           propagate_t, stats if accumulate else None, ends.long(), starts.long())
+
+
+def _check_banded_backward(stats, lens, w, bias, bands, final, alpha, norms, ends, starts):
+    """K2's and K11's operand checks; returns (B, T, P, S, U)."""
+    b, t_len, p_dim = stats.shape
+    s = w.shape[0]
+    n_u = ends.shape[0]
+    _check(dict(stats=stats, lens=lens, w=w, bias=bias, bands=bands, final=final,
+                alpha=alpha, norms=norms, ends=ends, starts=starts), stats.device,
+           dict(lens=torch.int32, ends=torch.int32, starts=torch.int32))
+    for name, x, shape in (("lens", lens, (b,)), ("w", w, (s, p_dim)), ("bias", bias, (s,)),
+                           ("bands", bands, (4, s)), ("final", final, (s,)),
+                           ("alpha", alpha, (b, t_len, s)), ("norms", norms, (b, t_len)),
+                           ("ends", ends, (n_u,)), ("starts", starts, (n_u,))):
+        _shape(name, x, shape)
+    return b, t_len, p_dim, s, n_u
+
+
+def estep_acc_banded_plain(stats, lens, w, bias, bands, final, alpha, norms, ends, starts):
+    """Plain version of :func:`estep_acc_banded` (any dtype and device)."""
+    p_dim = stats.shape[-1]
+    acc, gamma0, xi = _banded_backward_plain(stats, lens, w, bias, bands, final, alpha, norms,
+                                             ends, starts, accumulate=True)
     return acc[:, :p_dim], acc[:, p_dim], gamma0, xi
 
 
@@ -378,21 +425,13 @@ def estep_acc_banded(stats, lens, w, bias, bands, final, alpha, norms, ends, sta
     loop-arc counts are ``xi_raw`` times the loop-block transition
     probabilities.  γ itself is never stored.
     """
+    refuse_grad("estep_acc_banded", stats, w, bias, bands, final, alpha, norms)
     if stats.device.type == "cpu":
         return estep_acc_banded_plain(stats, lens, w, bias, bands, final, alpha, norms,
                                       ends, starts)
-    b, t_len, p_dim = stats.shape
-    s = w.shape[0]
-    n_u = ends.shape[0]
+    b, t_len, p_dim, s, n_u = _check_banded_backward(stats, lens, w, bias, bands, final, alpha,
+                                                     norms, ends, starts)
     dev = stats.device
-    _check(dict(stats=stats, lens=lens, w=w, bias=bias, bands=bands, final=final,
-                alpha=alpha, norms=norms, ends=ends, starts=starts), dev,
-           dict(lens=torch.int32, ends=torch.int32, starts=torch.int32))
-    for name, x, shape in (("lens", lens, (b,)), ("w", w, (s, p_dim)), ("bias", bias, (s,)),
-                           ("bands", bands, (4, s)), ("final", final, (s,)),
-                           ("alpha", alpha, (b, t_len, s)), ("norms", norms, (b, t_len)),
-                           ("ends", ends, (n_u,)), ("starts", starts, (n_u,))):
-        _shape(name, x, shape)
     lib = _library()
     _fits(f"S={s}, P={p_dim}, U={n_u}", lib.beer_estep_smem_bytes(s, p_dim, n_u))
     width = s * (p_dim + 1) + n_u * n_u
@@ -405,6 +444,44 @@ def estep_acc_banded(stats, lens, w, bias, bands, final, alpha, norms, ends, sta
     KERNELS["estep_acc_banded"].launches += 1
     acc = out[: s * (p_dim + 1)].view(s, p_dim + 1)
     return acc[:, :p_dim], acc[:, p_dim], gamma0, out[s * (p_dim + 1):].view(n_u, n_u)
+
+
+# ----------------------------------------------------------------------
+# K11: γ-emitting banded v-space backward (γ, γ0, loop-back ξ)
+# ----------------------------------------------------------------------
+def estep_gamma_banded_plain(stats, lens, w, bias, bands, final, alpha, norms, ends, starts):
+    """Plain version of :func:`estep_gamma_banded` (any dtype and device)."""
+    return _banded_backward_plain(stats, lens, w, bias, bands, final, alpha, norms, ends, starts,
+                                  accumulate=False)
+
+
+def estep_gamma_banded(stats, lens, w, bias, bands, final, alpha, norms, ends, starts):
+    """Backward smoothing pass through band + rank-1 transitions that emits
+    the state posteriors, with llh = stats @ wᵀ + bias computed in the
+    kernel: the backward of the phone loop's log Z (∂log Z/∂llh = γ).
+
+    Takes the operands of :func:`estep_acc_banded`.  Returns ``gamma``
+    (B, T, S) (0 on frames t >= len), ``gamma0`` (B, S) = γ at the first
+    frame and ``xi_raw`` (U, U) as :func:`estep_acc_banded` does.
+    """
+    refuse_grad("estep_gamma_banded", stats, w, bias, bands, final, alpha, norms)
+    if stats.device.type == "cpu":
+        return estep_gamma_banded_plain(stats, lens, w, bias, bands, final, alpha, norms,
+                                        ends, starts)
+    b, t_len, p_dim, s, n_u = _check_banded_backward(stats, lens, w, bias, bands, final, alpha,
+                                                     norms, ends, starts)
+    dev = stats.device
+    lib = _library()
+    _fits(f"S={s}, P={p_dim}, U={n_u}", lib.beer_estep_gamma_smem_bytes(s, p_dim, n_u))
+    part = torch.empty(b, n_u * n_u, device=dev)
+    out = torch.empty(n_u * n_u, device=dev)
+    gamma0 = torch.empty(b, s, device=dev)
+    gamma = torch.empty(b, t_len, s, device=dev)
+    _launch(lib.beer_estep_gamma_banded, dev.index, *map(_ptr, (
+        stats, lens, w, bias, bands, final, alpha, norms, ends, starts, part, out, gamma0, gamma)),
+        b, t_len, s, p_dim, n_u, _stream(dev))
+    KERNELS["estep_gamma_banded"].launches += 1
+    return gamma, gamma0, out.view(n_u, n_u)
 
 
 # ----------------------------------------------------------------------
@@ -445,6 +522,7 @@ def viterbi_fwd_banded(llh, lens, log_bands, log_init):
     (0 on frame 0 and on frames t >= len), ``exarg`` (B, T) int32 exit
     arg-max per step (smallest index on ties) and ``alpha_last`` (B, S).
     """
+    refuse_grad("viterbi_fwd_banded", llh, log_bands, log_init)
     if llh.device.type == "cpu":
         return viterbi_fwd_banded_plain(llh, lens, log_bands, log_init)
     b, t_len, s = llh.shape
@@ -491,6 +569,7 @@ def viterbi_backtrace_banded(choices, exarg, alpha_last, log_final):
     last state) and ``scores`` (B,) = max_s α_last + log_final, whose
     arg-max (first on ties) ends the path.
     """
+    refuse_grad("viterbi_backtrace_banded", alpha_last, log_final)
     if choices.device.type == "cpu":
         return viterbi_backtrace_banded_plain(choices, exarg, alpha_last, log_final)
     b, t_len, s = choices.shape
@@ -530,6 +609,7 @@ def forward_llh_dense(x, lens, trans, init, w=None, bias=None):
     there), ``last`` (B, S) = α̂ at the last frame (``init`` for empty
     rows) and ``logz_base`` (B,); log Z = logz_base + log Σ last·final.
     """
+    refuse_grad("forward_llh_dense", x, trans, init, w, bias)
     if x.device.type == "cpu":
         return forward_llh_dense_plain(x, lens, trans, init, w, bias)
     b, t_len, width = x.shape
@@ -581,6 +661,7 @@ def estep_acc_dense(stats, lens, w, bias, trans, final, alpha, norms):
     frame and ``xi_raw`` (S, S) = Σ_t (α̂_t·wgt_{t+1}) ⊗ v̂_{t+1}; the
     expected transition counts are ``xi_raw ⊙ trans``.  γ is never stored.
     """
+    refuse_grad("estep_acc_dense", stats, w, bias, trans, final, alpha, norms)
     if stats.device.type == "cpu":
         return estep_acc_dense_plain(stats, lens, w, bias, trans, final, alpha, norms)
     b, t_len, p_dim = stats.shape
@@ -621,6 +702,7 @@ def estep_gamma_dense(llh, lens, trans, final, alpha, norms):
     (B, T, S) (0 on frames t >= len) and ``xi_raw`` (S, S) as
     :func:`estep_acc_dense` does.
     """
+    refuse_grad("estep_gamma_dense", llh, trans, final, alpha, norms)
     if llh.device.type == "cpu":
         return estep_gamma_dense_plain(llh, lens, trans, final, alpha, norms)
     b, t_len, s = llh.shape

@@ -16,7 +16,11 @@ phone-loop and HMM slices need:
   Each runs the hand-written CUDA kernel
   (:mod:`beer_tpu_torch.ops.cuda_scan`) on CUDA tensors and its plain
   PyTorch version on CPU tensors; ``plain=True`` asks for the plain
-  version on any device (the on-card reference route).
+  version on any device (the on-card reference route);
+* the differentiable log Z of both fused routes, :class:`PhoneLoopLogZ`
+  (K1 + K11) and :class:`HMMLogZ` (K5 + K7): ``torch.autograd.Function`` classes
+  whose backward is the Fisher identity ∂log Z/∂llh = γ, the
+  structured VAE's gradient through its latent sequence model.
 
 Conventions: ``llh`` (B, T, S) frame log-likelihoods; ``log_trans``
 (S, S) or (B, S, S) with [..., i, j] = log p(j | i); ``log_init`` /
@@ -277,3 +281,88 @@ def viterbi_banded(llh, bands, log_init, log_final, mask=None, plain: bool = Fal
     choices, exarg, alpha_last = fwd(llh.contiguous(), lens, log_bands(bands).contiguous(),
                                      _clamp(log_init).contiguous())
     return back(choices, exarg, alpha_last, log_final.contiguous())
+
+
+# ----------------------------------------------------------------------
+# Differentiable log Z (the Fisher identity)
+# ----------------------------------------------------------------------
+def log_z_from_forward(logz_base, last, final, lens):
+    """log Z = logz_base + log Σ last·final from a scaled forward's
+    outputs, 0 for empty rows."""
+    tiny = torch.finfo(last.dtype).tiny
+    log_z = logz_base + torch.log((last * final).sum(-1).clamp_min(tiny))
+    return torch.where(lens > 0, log_z, 0.0)
+
+
+class PhoneLoopLogZ(torch.autograd.Function):
+    """Differentiable log Z of the phone loop through its fused kernels.
+
+    Counterpart of the JAX package's ``phone_loop_logz_stats_lm`` /
+    ``phone_loop_logz_stats_alpha_lm`` custom VJPs.  The forward runs K1
+    (scaled banded forward, llh = stats @ wᵀ + bias in the kernel), then
+    K11 over K1's stored α̂ and norms: the state posteriors γ (B, T, S),
+    γ0 (B, S) and the loop-back ``xi_raw`` (U, U) of
+    :func:`cuda_scan.estep_gamma_banded`.  They come out detached (the
+    accumulation reduces them) and γ is kept for the backward.  K11 runs
+    in the forward, not in the backward as on the TPU, so that one pass
+    serves both the statistics and the gradient.
+
+    The backward is the Fisher identity ∂log Z_b/∂llh_b = γ_b: d_stats =
+    (γ·ct) @ w, and d_w = (γ·ct)ᵀ stats, d_bias = Σ γ·ct when those need
+    a gradient.  Transitions, init and final get none: they are trained
+    by the conjugate update (as in the JAX package).  Frames t >= len and
+    empty rows get zero gradient; their log Z is 0.
+
+    ``PhoneLoopLogZ.apply(stats (B, T, P), lens (B,) int32, w (S, P), bias
+    (S,), bands (4, S), init (S,), final (S,), ends (U,), starts (U,),
+    plain) -> (log_z (B,), gamma, gamma0, xi_raw)``.
+    """
+
+    @staticmethod
+    def forward(ctx, stats, lens, w, bias, bands, init, final, ends, starts, plain=False):
+        alpha, norms, last, logz_base = phone_loop_forward(stats, lens, w, bias, bands, init,
+                                                           plain=plain)
+        fn = cuda_scan.estep_gamma_banded_plain if plain else cuda_scan.estep_gamma_banded
+        gamma, gamma0, xi_raw = fn(stats, lens, w, bias, bands, final, alpha, norms, ends, starts)
+        ctx.save_for_backward(gamma, stats, w)
+        ctx.mark_non_differentiable(gamma, gamma0, xi_raw)
+        return log_z_from_forward(logz_base, last, final, lens), gamma, gamma0, xi_raw
+
+    @staticmethod
+    def backward(ctx, ct, *_):
+        gamma, stats, w = ctx.saved_tensors
+        g = gamma * ct[:, None, None]
+        need = ctx.needs_input_grad
+        d_stats = torch.matmul(g, w) if need[0] else None
+        d_w = g.flatten(0, 1).T @ stats.flatten(0, 1) if need[2] else None
+        d_bias = g.sum((0, 1)) if need[3] else None
+        return d_stats, None, d_w, d_bias, None, None, None, None, None, None
+
+
+class HMMLogZ(torch.autograd.Function):
+    """Differentiable log Z of an HMM over one shared (S, S) matrix.
+
+    Counterpart of the JAX package's ``forward_llh_ckpt_lm`` and
+    ``hmm_logz_stats_lm`` custom VJPs, over the llh stream: the forward
+    runs K5 (llh mode), then K7, which gives γ (B, T, S) and the full
+    ``xi_raw`` (S, S), both detached; γ is kept for the backward,
+    d_llh = γ·ct (the Fisher identity).  Autograd carries it on through
+    the pdf map and the emissions' ELLH.  The transition matrix, init and
+    final get no gradient (conjugate-trained).
+
+    ``HMMLogZ.apply(llh (B, T, S), lens (B,) int32, trans (S, S), init
+    (B, S), final (B, S), plain) -> (log_z (B,), gamma, xi_raw)``.
+    """
+
+    @staticmethod
+    def forward(ctx, llh, lens, trans, init, final, plain=False):
+        alpha, norms, last, logz_base = hmm_forward(llh, lens, trans, init, plain=plain)
+        gamma, xi_raw = hmm_estep_gamma(llh, lens, trans, final, alpha, norms, plain=plain)
+        ctx.save_for_backward(gamma)
+        ctx.mark_non_differentiable(gamma, xi_raw)
+        return log_z_from_forward(logz_base, last, final, lens), gamma, xi_raw
+
+    @staticmethod
+    def backward(ctx, ct, *_):
+        (gamma,) = ctx.saved_tensors
+        return gamma * ct[:, None, None], None, None, None, None, None

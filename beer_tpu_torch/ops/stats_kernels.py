@@ -22,11 +22,15 @@ E[log w] for K8); the kernels' (K, L) sums are gathered back to the
 its 0/1 selector matmuls are a workaround for the TPU's lane broadcast
 and have no counterpart here.
 
-Each wrapper runs its plain PyTorch version (written like the JAX
-package's ``*_xla`` functions) on a CPU tensor, and on a CUDA tensor
-checks its operands, launches the kernel on the current stream, counts
-the launch in :data:`beer_tpu_torch.ops.cuda_scan.KERNELS`, or raises;
-it never falls back to the plain version.  The kernels take D <=
+Each wrapper refuses an input that requires grad while grad mode is on
+(its outputs carry no gradient; see :func:`cuda_scan.refuse_grad`), runs
+its plain PyTorch version (written like the JAX package's ``*_xla``
+functions) on a CPU tensor, and on a CUDA tensor checks its operands,
+launches the kernel on the current stream, counts the launch in
+:data:`beer_tpu_torch.ops.cuda_scan.KERNELS`, or raises; it never falls
+back to the plain version.  :class:`EllhFull` is K9 with a gradient with
+respect to the frames: the route the structured VAE's full-covariance
+priors take.  The kernels take D <=
 :data:`MAX_DIM`; K8 and K10 hold a tile's K responsibilities in shared
 memory and take K <= :data:`MAX_COMP`.
 """
@@ -181,6 +185,7 @@ def gmm_estep_full(x, e_stats, log_w, mask=None):
     ``llh`` (T,), ``acc`` (K, D²+D+2) = Σ_t r_t ⊗ s(x_t) in the
     NormalWishart natural layout and ``counts`` (K,) = Σ_t r_t, where r_t
     = softmax_k(ellh_k(x_t) + log_w) · mask_t.  ``mask`` (T,) or None."""
+    cuda_scan.refuse_grad("gmm_estep_full", x, e_stats, log_w)
     if x.device.type == "cpu":
         return gmm_estep_full_plain(x, e_stats, log_w, mask)
     t_len, d = x.shape
@@ -211,6 +216,7 @@ def gmm_estep_full(x, e_stats, log_w, mask=None):
 def ellh_full(x, e_stats):
     """Expected log-likelihood of K full-covariance components (K9): (T,
     D) frames × (K, D²+D+2) E[T] → (T, K)."""
+    cuda_scan.refuse_grad("ellh_full", x, e_stats)
     if x.device.type == "cpu":
         return ellh_full_plain(x, e_stats)
     t_len, d = x.shape
@@ -229,6 +235,7 @@ def ellh_full(x, e_stats):
 def accumulate_full(x, resps):
     """Responsibility-weighted full-covariance statistics (K10): (T, D)
     frames × (T, K) responsibilities → (K, D²+D+2) = Σ_t r_t ⊗ s(x_t)."""
+    cuda_scan.refuse_grad("accumulate_full", x, resps)
     if x.device.type == "cpu":
         return accumulate_full_plain(x, resps)
     t_len, d = x.shape
@@ -244,3 +251,34 @@ def accumulate_full(x, resps):
                       cuda_scan._stream(dev))
     cuda_scan.KERNELS["accumulate_full"].launches += 1
     return unpack_acc(out.view(k, width), d)[0]
+
+
+# ----------------------------------------------------------------------
+# The differentiable ELLH
+# ----------------------------------------------------------------------
+class EllhFull(torch.autograd.Function):
+    """K9 (or its plain version, ``plain=True``) with the closed-form
+    gradient with respect to the frames: ellh_k(x) = −½xᵀE[Λ_k]x +
+    xᵀE[Λ_k μ_k] + c_k, so ∂/∂x = Σ_k ct_k (E[Λ_k μ_k] − ½(E[Λ_k] +
+    E[Λ_k]ᵀ) x), in plain torch products.  ``e_stats`` gets no gradient
+    (the latent model is trained by its conjugate update) and is refused
+    when it requires one.
+
+    ``EllhFull.apply(x (T, D), e_stats (K, D²+D+2), plain) -> (T, K)``.
+    """
+
+    @staticmethod
+    def forward(ctx, x, e_stats, plain=False):
+        if e_stats.requires_grad:
+            raise RuntimeError("EllhFull: e_stats gets no gradient (conjugate-trained)")
+        ctx.save_for_backward(x, e_stats)
+        return (ellh_full_plain if plain else ellh_full)(x, e_stats)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, e_stats = ctx.saved_tensors
+        d = x.shape[-1]
+        elam = e_stats[:, : d * d].reshape(-1, d, d)
+        elin = e_stats[:, d * d : d * d + d]
+        quad = torch.einsum("tk,kde,te->td", ct, elam + elam.transpose(-1, -2), x)
+        return ct @ elin - 0.5 * quad, None, None

@@ -11,6 +11,8 @@ Counterpart of ``beer_tpu/vbi.py``:
 and the reference-API veneer: :func:`evidence_lower_bound` returns an
 :class:`ELBO` whose ``.backward()`` is a no-op (statistics are already
 computed), and :class:`VBConjugateOptimizer` applies the steps.
+:class:`VBOptimizer` is the hybrid of the VAE: a ``torch.optim``
+optimizer for the nnet parameters plus the conjugate step.
 
 The ELBO is summed in float64 whatever the model's dtype: it is a
 scalar over ~10⁵ frames, where float32 rounding alone would exceed the
@@ -112,4 +114,34 @@ class VBConjugateOptimizer:
     @torch.no_grad()
     def step(self, elbo: ELBO):
         self.model = self.model.vb_update(elbo.acc, self.lrate)
+        return self.model
+
+
+class VBOptimizer:
+    """Hybrid optimizer: a ``torch.optim`` step on the nnet parameters
+    plus the conjugate natural step on the model (the reference's
+    ``VBOptimizer``)::
+
+        optim = VBOptimizer(vae, torch.optim.Adam(vae.parameters(), lr=1e-3))
+        optim.zero_grad()
+        elbo, acc = vae.elbo_and_stats(x, generator)
+        (-elbo).backward()
+        optim.step(acc)
+
+    ``step`` must follow ``backward()``: the conjugate update writes the
+    model's buffers in place.
+    """
+
+    def __init__(self, model, optimizer: torch.optim.Optimizer, lrate: float = 1.0):
+        self.model = model
+        self.optimizer = optimizer
+        self.lrate = lrate
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def step(self, acc):
+        self.optimizer.step()
+        with torch.no_grad():
+            self.model = self.model.vb_update(acc, self.lrate)
         return self.model

@@ -10,10 +10,12 @@ uniform in [250, 500]), then the Bayesian HMM of configs 2 (ergodic
 30-state HMM with learned transitions, the same data shape) and 3
 (10-phone × 3-state recognizer on shared transcription graphs, B=128,
 T=300), then config 1 (the full-covariance Bayesian GMM, K=64 over all
-256,000 frames of the bench data) and the recognizer with
-full-covariance GMM emissions (2 components per state), with random
-data and weights from fixed seeds, in eleven phases, each printing one
-line:
+256,000 frames of the bench data), the recognizer with
+full-covariance GMM emissions (2 components per state), then config 5
+(the structured VAE: a SequenceVAE with tanh MLPs of 2 × 128 over a
+phone-loop latent prior of 10 units × 3 states, dz = 16, on the first
+256 × 250 frames of the bench data), with random data and weights from
+fixed seeds, in fourteen phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the hand-written CUDA kernels from the sources in
@@ -52,7 +54,25 @@ line:
    float64 path on the CPU;
 11. gmm times: one vb_step and one posteriors call for config 1, one
    vb_step and one decode for the recognizer, kernel route beside plain
-   route, and config 1's E-step frames/s.
+   route, and config 1's E-step frames/s;
+12. svae kernels: K11 (the γ-emitting banded backward) against its
+   plain version at the config-5 shape plus two zero-length rows, with
+   CUDA-event medians;
+13. svae slice: 5 hybrid steps of config 5 (Adam on the nnets, the
+   conjugate update of the phone loop) through K1 and K11 with the
+   launch counters read around them (K1 5, K11 5, K2 0), then the
+   latent decode (K3 + K4); the same steps on the plain route with the
+   same noise: ELBO within 1e-4 per frame, every nnet gradient of the
+   first step within rel 1e-4 (each step's gap is printed); the share of
+   frames whose γ underflows (Σγ < 0.5) before and after the steps; an
+   HMM-prior SequenceVAE (ergodic, 30 states, K5 + K7) and the
+   frame-level VAE over a full-covariance GMM prior (K9, K10) the same
+   way; small problems of each against the float64 plain route on the
+   CPU;
+14. svae times: one hybrid step of each of the three, kernel route beside
+   plain route, config 5's frames/s, and a ``torch.profiler`` trace of
+   one config-5 step: device time by kernel, the launch count and the
+   device's busy share of the step's wall time (under the profiler).
 
 Then one JSON line describing the kernels (each with its least time on
 the card, ``bound_ms``: the larger of its bytes over 3.35 TB/s and its
@@ -85,6 +105,9 @@ HMM_S = 30                                  # config 2 (bench.py:295)
 REC_B, REC_T, REC_PHONES, REC_SPP = 128, 300, 10, 3   # config 3 (bench.py:348-349)
 REC_NCOMP = 2                               # components per state (examples/recognizer_demo.py:16)
 GMM_K = 64                                  # config 1 (bench.py:222)
+SVAE_B, SVAE_T, SVAE_DZ, SVAE_H = 256, 250, 16, 128   # config 5 (bench.py:416-418)
+SVAE_UNITS, SVAE_SPU = 10, 3
+GVAE_N, GVAE_D, GVAE_DZ, GVAE_K, GVAE_H = 512, 16, 2, 4, 64   # examples/svae_demo.py
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM (NVIDIA data sheet)
 F32_FLOPS = 67e12                           # float32 outside the tensor cores
@@ -103,6 +126,7 @@ REPLACES = {
     "gmm_estep_full": "beer_tpu/ops/stats_kernels.py:295",
     "ellh_full": "beer_tpu/ops/stats_kernels.py:62",
     "accumulate_full": "beer_tpu/ops/stats_kernels.py:119",
+    "estep_gamma_banded": "beer_tpu/ops/pallas_scan.py:1844",
 }
 
 
@@ -304,7 +328,8 @@ def phase_slice(dev):
     elbos = run_steps(loop, x, m)
     units, scores = loop.decode_units(x, m)
     torch.cuda.synchronize()
-    launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if k.endswith("_banded")}
+    launches = {k: cuda_scan.KERNELS[k].launches for k in (
+        "forward_llh_banded", "estep_acc_banded", "viterbi_fwd_banded", "viterbi_backtrace_banded")}
     check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
 
     check(bool(np.isfinite(elbos).all()), f"ELBO not finite: {elbos}")
@@ -851,6 +876,282 @@ def phase_gmm_times(runs):
          "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2)}))
 
 
+# ----------------------------------------------------------------------
+# The structured VAE: config 5 and its two smaller paths
+# ----------------------------------------------------------------------
+def config5(device, kind="phone_loop", dtype=torch.float32, obs=D, dz=SVAE_DZ,
+            hidden=(SVAE_H, SVAE_H), units=SVAE_UNITS, spu=SVAE_SPU):
+    """A SequenceVAE over a phone-loop prior (bench.py:430-438), or over an
+    ergodic HMM of ``units·spu`` states with learned transitions."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    nset = bt.NormalSet.create(torch.zeros(dz, dtype=dtype, device=device),
+                               torch.ones(dz, dtype=dtype, device=device), size=units * spu,
+                               noise_std=0.5, generator=gen)
+    if kind == "phone_loop":
+        prior = bt.PhoneLoop.create(units, spu, nset)
+    else:
+        prior = bt.HMM.create(bt.ergodic(units * spu), nset, learn_transitions=True)
+    return bt.SequenceVAE.create(obs, dz, prior, hidden=hidden, nsamples=1,
+                                 generator=torch.Generator().manual_seed(8))
+
+
+def config5_data(dev):
+    """``make_data()``'s frames cut to the first 256 utterances × 250
+    frames (bench.py:446-447): every frame is valid."""
+    data, mask = make_data(B, T, D)
+    return (torch.from_numpy(np.ascontiguousarray(data[:SVAE_B, :SVAE_T])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(mask[:SVAE_B, :SVAE_T])).to(dev))
+
+
+def gmm_vae(device, dtype=torch.float32, hidden=(GVAE_H, GVAE_H)):
+    """The frame-level VAE over a full-covariance GMM (examples/svae_demo.py)."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    nset = bt.NormalSet.create(torch.zeros(GVAE_DZ, dtype=dtype, device=device),
+                               4.0 * torch.eye(GVAE_DZ, dtype=dtype, device=device), size=GVAE_K,
+                               cov_type="full", noise_std=1.0, generator=gen)
+    return bt.VAE.create(GVAE_D, GVAE_DZ, bt.Mixture.create(nset), hidden=hidden,
+                         generator=torch.Generator().manual_seed(0))
+
+
+def gmm_vae_data(dev, n=GVAE_N):
+    rng = np.random.default_rng(0)
+    z = np.concatenate([rng.normal(size=(n // 2, 2)) + [-3, 0], rng.normal(size=(n // 2, 2)) + [3, 0]])
+    w = rng.normal(size=(2, GVAE_D))
+    return torch.from_numpy((z @ w + 0.1 * rng.normal(size=(n, GVAE_D))).astype(np.float32)).to(dev)
+
+
+def noise(shape, n, device, seed=99):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((1, *shape), generator=gen, device=device) for _ in range(n)]
+
+
+def svae_operands(vae, x, m):
+    """The phone-loop prior's kernel operands on the posterior means of ``x``."""
+    with torch.no_grad():
+        z = vae.posteriors(x)["mean"]
+        stats = vae.latent_model.sufficient_statistics(z).contiguous()
+        return stats, vae.latent_model.scan_operands(stats, m)
+
+
+def phase_svae_kernels(dev):
+    """K11 against its plain version at the config-5 shape + two empty rows."""
+    x, m = config5_data(dev)
+    x = torch.cat([x, torch.zeros(2, *x.shape[1:], device=dev)])
+    m = torch.cat([m, torch.zeros(2, m.shape[1], device=dev)])
+    vae = config5(dev)
+    stats, ops = svae_operands(vae, x, m)
+    alpha, norms, _, _ = cuda_scan.forward_llh_banded(stats, ops["lens"], ops["w"], ops["bias"],
+                                                      ops["bands"], ops["init"])
+    est = (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["final"], alpha, norms,
+           ops["ends"], ops["starts"])
+    k11 = cuda_scan.estep_gamma_banded(*est)
+    p11 = cuda_scan.estep_gamma_banded_plain(*est)
+    e_gamma = float((k11[0] - p11[0]).abs().max())
+    e_gamma0 = float((k11[1] - p11[1]).abs().max())
+    e_xi = rel(k11[2], p11[2])
+    check(e_gamma <= 1e-5 and e_gamma0 <= 1e-5, f"estep_gamma_banded gamma abs {e_gamma}, "
+                                                f"gamma0 abs {e_gamma0}")
+    check(e_xi <= 1e-4, f"estep_gamma_banded xi rel {e_xi}")
+    empty = ops["lens"] == 0
+    check(not bool(k11[0][empty].any()) and not bool(k11[1][empty].any()),
+          "estep_gamma_banded: empty rows must give gamma 0")
+    b, t_len, p_dim = stats.shape
+    s, n_u = ops["w"].shape[0], ops["ends"].shape[0]
+    nv = float(ops["lens"].sum())
+    out = {"estep_gamma_banded": dict(
+        max_abs_err=e_gamma,
+        ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded(*est)),
+        plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded_plain(*est)),
+        **bound(4 * (nv * (p_dim + s + 1) + b * t_len * s + s * (p_dim + 6) + b * s + n_u * n_u),
+                nv * (2 * s * p_dim + 12 * s + 2 * n_u * n_u)))}
+    v = out["estep_gamma_banded"]
+    torch.cuda.synchronize()
+    print(f"phase 12 svae kernels: config 5 B={b} (2 empty) T={t_len} S={s} P={p_dim} U={n_u}: "
+          f"estep_gamma_banded ok ({v['ms']:.3f} ms vs plain {v['plain_ms']:.3f} ms, bound "
+          f"{v['bound_ms']:.4f} ms by {v['bound_by']}; gamma abs {e_gamma:.3g}, gamma0 abs "
+          f"{e_gamma0:.3g}, xi rel {e_xi:.3g}) | tol: gamma, gamma0 abs 1e-5; xi rel 1e-4")
+    return out
+
+
+def grad_gap(model, twin):
+    """The largest rel difference between two models' gradients of one
+    nnet parameter."""
+    return max(rel(p.grad, q.grad) for p, q in zip(model.parameters(), twin.parameters()))
+
+
+def svae_run(model, x, m, frames, label, eps):
+    """5 hybrid steps through the kernels with the launch counters read
+    around them, each followed by the same step on the plain route (same
+    noise; the plain versions launch nothing).  Checks the ELBO gap per
+    frame (1e-4) and the gradients of the first step, taken at identical
+    parameters (rel 1e-4); returns the ELBOs, the ELBO gap, the gradient
+    gap of each step and the launches."""
+    twin = plain_twin(model)
+    steps = [bt.make_vae_train_step(torch.optim.Adam(v.parameters(), lr=1e-3))
+             for v in (model, twin)]
+    elbos, g_gaps = [], []
+    cuda_scan.reset_launch_counts()
+    for e in eps:
+        elbo = float(steps[0](model, x, None, m, eps=e))
+        elbos.append((elbo, float(steps[1](twin, x, None, m, eps=e))))
+        g_gaps.append(grad_gap(model, twin))
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if v.launches}
+    elbos = np.array(elbos)
+    check(bool(np.isfinite(elbos).all()), f"{label}: ELBO not finite: {elbos}")
+    gap = float(np.abs(elbos[:, 0] - elbos[:, 1]).max() / frames)
+    check(gap <= 1e-4, f"{label}: kernel vs plain route ELBO gap {gap} per frame")
+    check(g_gaps[0] <= 1e-4, f"{label}: kernel vs plain route gradient rel {g_gaps[0]}")
+    return elbos[:, 0], gap, g_gaps, launches
+
+
+def underflow_share(vae, x, m):
+    """The share of valid frames whose γ sums below 0.5 (f32 α̂·v̂
+    underflow) on the posterior means of ``x``, through the latent
+    model's gradient route (K1 + K11, or K5 + K7)."""
+    with torch.no_grad():
+        z = vae.posteriors(x)["mean"]
+    stats = vae.latent_model.sufficient_statistics(z.requires_grad_())
+    _, cache = vae.latent_model.infer(stats, mask=m)
+    return float(((cache["gamma"].sum(-1) < 0.5) & (m > 0)).sum() / m.sum())
+
+
+def svae_reference_check(dev):
+    """Small problems of the three VAE paths on the card (float32
+    kernels) against the float64 plain route on the CPU, with the same
+    noise: ELBO rel 1e-5, every nnet gradient and the latent statistics
+    rel 1e-4."""
+    data, mask = make_data(4, 20, 4, seed=3)
+    mask[-1] = 0.0
+    x64, m64 = torch.from_numpy(data).double(), torch.from_numpy(mask).double()
+    cases = (("phone loop", config5("cpu", dtype=torch.float64, obs=4, dz=2, hidden=(8,),
+                                    units=3, spu=2), x64, m64),
+             ("hmm prior", config5("cpu", "hmm", dtype=torch.float64, obs=4, dz=2, hidden=(8,),
+                                   units=4, spu=1), x64, m64),
+             ("gmm prior", gmm_vae("cpu", dtype=torch.float64, hidden=(8,)),
+              gmm_vae_data("cpu", 64).double(), None))
+    for name, ref, x_ref, m_ref in cases:
+        card = copy.deepcopy(ref).to(device=dev, dtype=torch.float32)
+        eps = torch.randn(1, *x_ref.shape[:-1], ref.latent_dim, dtype=torch.float64,
+                          generator=torch.Generator().manual_seed(1))
+        outs = []
+        for model, xx, mm, ee in ((ref, x_ref, m_ref, eps),
+                                  (card, x_ref.float().to(dev),
+                                   None if m_ref is None else m_ref.float().to(dev),
+                                   eps.float().to(dev))):
+            elbo, acc = model.elbo_and_stats(xx, None, None, mm, eps=ee)
+            (-elbo).backward()
+            outs.append((elbo.detach().cpu(), acc))
+        check(rel(outs[1][0], outs[0][0]) <= 1e-5, f"small {name}: ELBO vs float64")
+        for p, q in zip(card.parameters(), ref.parameters()):
+            check(rel(p.grad.double().cpu(), q.grad) <= 1e-4, f"small {name}: gradient vs float64")
+        for got, want in zip(stat_leaves(outs[1][1]), stat_leaves(outs[0][1])):
+            e = rel(got.double().cpu(), want)
+            check(e <= 1e-4, f"small {name}: statistics rel {e} vs float64")
+
+
+def phase_svae_slice(dev):
+    # config 5: the phone-loop prior through K1 + K11, then the latent decode
+    x, m = config5_data(dev)
+    frames = float(m.sum())
+    vae = config5(dev)
+    under5 = [underflow_share(vae, x, m)]
+    elbos5, gap5, g_gap5, launches5 = svae_run(vae, x, m, frames, "config 5",
+                                               noise((SVAE_B, SVAE_T, SVAE_DZ), N_STEPS, dev))
+    want = {"forward_llh_banded": N_STEPS, "estep_gamma_banded": N_STEPS}
+    check({k: launches5.get(k, 0) for k in want} == want and "estep_acc_banded" not in launches5,
+          f"config 5: launches {launches5}, expected K1 {N_STEPS}, K11 {N_STEPS}, K2 0")
+    cuda_scan.reset_launch_counts()
+    units, scores = vae.latent_decode(x, m)
+    torch.cuda.synchronize()
+    decode_launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if v.launches}
+    check(decode_launches == {"viterbi_fwd_banded": 1, "viterbi_backtrace_banded": 1},
+          f"config 5 decode: launches {decode_launches}")
+    check(units.shape == (SVAE_B, SVAE_T) and bool(((units >= 0) & (units < SVAE_UNITS)).all())
+          and bool(torch.isfinite(scores).all()), "config 5: latent decode")
+    units_plain, _ = plain_twin(vae).latent_decode(x, m)
+    agree = float((units == units_plain).float().mean())
+    check(agree >= 0.999, f"config 5: decode agrees with the plain route on {agree} of frames")
+    under5.append(underflow_share(vae, x, m))
+
+    # the HMM prior (K5 + K7) and the frame-level GMM prior (K9, K10)
+    hmm = config5(dev, "hmm")
+    under_h = [underflow_share(hmm, x, m)]
+    elbos_h, gap_h, g_gap_h, launches_h = svae_run(hmm, x, m, frames, "hmm prior",
+                                                   noise((SVAE_B, SVAE_T, SVAE_DZ), N_STEPS, dev, 98))
+    under_h.append(underflow_share(hmm, x, m))
+    check(all(launches_h.get(k, 0) == N_STEPS for k in ("forward_llh_dense", "estep_gamma_dense"))
+          and "estep_acc_dense" not in launches_h, f"hmm prior: launches {launches_h}")
+    xg = gmm_vae_data(dev)
+    gvae = gmm_vae(dev)
+    elbos_g, gap_g, g_gap_g, launches_g = svae_run(gvae, xg, None, float(GVAE_N), "gmm prior",
+                                                   noise((GVAE_N, GVAE_DZ), N_STEPS, dev, 97))
+    check(launches_g.get("ellh_full", 0) >= N_STEPS and launches_g.get("accumulate_full", 0) >= N_STEPS
+          and "gmm_estep_full" not in launches_g, f"gmm prior: launches {launches_g}")
+    svae_reference_check(dev)
+    launches = {k: launches5.get(k, 0) + launches_h.get(k, 0) + launches_g.get(k, 0)
+                + decode_launches.get(k, 0) for k in cuda_scan.KERNELS}
+    def gaps(values):
+        return "[" + ", ".join(f"{v:.3g}" for v in values) + "]"
+
+    print(f"phase 13 svae slice: config 5 B={SVAE_B} T={SVAE_T} D={D} dz={SVAE_DZ} H={SVAE_H} "
+          f"S={SVAE_UNITS * SVAE_SPU} frames={frames:.0f} | ELBO/frame "
+          f"{', '.join(f'{e / frames:.6f}' for e in elbos5)} | plain-route gap {gap5:.3g}/frame, "
+          f"gradient rel by step {gaps(g_gap5)} | launches {launches5} | decode launches "
+          f"{decode_launches}, agree {agree:.6f} | frames with sum(gamma) < 0.5 before/after "
+          f"{gaps(under5)} || hmm prior S={SVAE_UNITS * SVAE_SPU} | ELBO/frame "
+          f"{', '.join(f'{e / frames:.6f}' for e in elbos_h)} | gap {gap_h:.3g}/frame, gradient rel "
+          f"by step {gaps(g_gap_h)} | launches {launches_h} | frames with sum(gamma) < 0.5 "
+          f"before/after {gaps(under_h)} || gmm prior N={GVAE_N} D={GVAE_D} dz={GVAE_DZ} "
+          f"K={GVAE_K} | ELBO/frame {', '.join(f'{e / GVAE_N:.4f}' for e in elbos_g)} | gap "
+          f"{gap_g:.3g}/frame, gradient rel by step {gaps(g_gap_g)} | launches {launches_g} "
+          f"| small problems agree with float64")
+    return launches, (("config5", vae, x, m), ("hmm_prior", hmm, x, m), ("gmm_prior", gvae, xg, None))
+
+
+def profile_step(fn):
+    """One call of ``fn`` under ``torch.profiler``: wall ms (host clock to
+    a synchronise), device ms summed over kernels (annotated ranges such
+    as the optimizer's are not kernels), their count, the busy share of
+    that wall time and the six kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+               and e.self_device_time_total > 0 and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_ms=round(wall, 3), device_ms=round(busy, 3),
+                kernel_launches=sum(e.count for e in kernels), busy_share=round(busy / wall, 3),
+                top_ms={e.key[:60]: round(e.self_device_time_total / 1e3, 3) for e in top})
+
+
+def phase_svae_times(runs):
+    times = {}
+    for name, model, x, m in runs:
+        for route, mdl in (("kernel", copy.deepcopy(model)), ("plain", plain_twin(model))):
+            step = bt.make_vae_train_step(torch.optim.Adam(mdl.parameters(), lr=1e-3))
+            gen = torch.Generator(device=x.device).manual_seed(5)
+            times[f"{name}_step_{route}_ms"] = cuda_ms(lambda: step(mdl, x, gen, m))
+            if name == "config5":
+                times[f"config5_latent_decode_{route}_ms"] = cuda_ms(lambda: mdl.latent_decode(x, m))
+                if route == "kernel":
+                    prof = profile_step(lambda: step(mdl, x, gen, m))
+    frames = float(runs[0][3].sum())
+    times["config5_step_kernel_frames_per_s"] = round(frames / times["config5_step_kernel_ms"] * 1e3)
+    prof["busy_share_of_step"] = round(prof["device_ms"] / times["config5_step_kernel_ms"], 3)
+    print("phase 14 svae times: " + json.dumps(
+        {**{k: round(v, 3) if isinstance(v, float) else v for k, v in times.items()},
+         "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
+         "config5_step_profile": prof}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -871,6 +1172,10 @@ def main() -> int:
     gmm_launches, gmm_runs = phase_gmm_slice(dev)
     launches = {k: launches.get(k, 0) + n for k, n in gmm_launches.items()}
     phase_gmm_times(gmm_runs)
+    kernels.update(phase_svae_kernels(dev))
+    svae_launches, svae_runs = phase_svae_slice(dev)
+    launches = {k: launches.get(k, 0) + n for k, n in svae_launches.items()}
+    phase_svae_times(svae_runs)
     rows = [dict(name=k, route="cuda", source=cuda_scan.KERNELS[k].source,
                  replaces=REPLACES[k], launches=launches[k], **{"library_ms": None, **v})
             for k, v in kernels.items()]

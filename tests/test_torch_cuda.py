@@ -13,7 +13,10 @@ statistics and ξ rel 1e-4 of their largest entry; the Viterbi kernels
 do the same float adds and maxima as their plain versions, so their
 outputs are equal.  The full-covariance kernels (K8–K10): the ELLH and
 the per-frame log-marginals rel 1e-5 of their largest magnitude, the
-statistics and counts rel 1e-4 (sum order, as above).
+statistics and counts rel 1e-4 (sum order, as above).  K11 (the
+γ-emitting banded backward): γ and γ0 abs 1e-5, ξ rel 1e-4; the
+differentiable routes (``PhoneLoopLogZ``, ``HMMLogZ``, ``EllhFull``):
+log Z rel 1e-5 and gradients rel 1e-4 of the plain route's.
 """
 
 import numpy as np
@@ -69,6 +72,10 @@ def test_kernels_match_plain_versions(device, shape):
                           (want[0], want[1], want[3])):
         assert _rel(x, y) <= 1e-4, name
     assert float((got[2] - want[2]).abs().max()) <= 1e-5
+    gamma = cuda_scan.estep_gamma_banded(*est)
+    want = cuda_scan.estep_gamma_banded_plain(*est)
+    assert float((gamma[0] - want[0]).abs().max()) <= 1e-5
+    assert float((gamma[1] - want[1]).abs().max()) <= 1e-5 and _rel(gamma[2], want[2]) <= 1e-4
 
     llh = (a["stats"] @ a["w"].T + a["bias"]).contiguous()
     lb, li, lf = (tss.log_bands(a[k]).contiguous() for k in ("bands", "init", "final"))
@@ -278,3 +285,83 @@ def test_full_cov_kernels_empty_input(device):
     assert llh.shape == (0,) and not acc.any() and not counts.any()
     assert sk.ellh_full(x0, a["e"]).shape == (0, 7)
     assert not sk.accumulate_full(x0, r0).any()
+
+
+# (units, states per unit, P, B, T) of K11: config 5 (S=30, P=2·16) and the
+# phone loop of config 4 (S=150, P=78); rows 2 and 4 are empty
+GAMMA_SHAPES = [(10, 3, 32, 6, 40), (50, 3, 78, 5, 30)]
+
+
+@pytest.mark.parametrize("shape", GAMMA_SHAPES, ids=lambda s: "S%d_P%d" % (s[0] * s[1], s[2]))
+def test_gamma_banded_kernel_matches_plain_version(device, shape):
+    u, spu, p_dim, b, t_len = shape
+    lengths = [t_len, t_len - 7, 0, 5, 0, 1][:b]
+    a = port_args(scan_problem(5, u, spu, p_dim, b, t_len, lengths=lengths), torch.float32, device)
+    alpha, norms, _, _ = cuda_scan.forward_llh_banded(a["stats"], a["lens"], a["w"], a["bias"],
+                                                      a["bands"], a["init"])
+    est = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms,
+           a["ends"], a["starts"])
+    cuda_scan.reset_launch_counts()
+    gamma, gamma0, xi = cuda_scan.estep_gamma_banded(*est)
+    torch.cuda.synchronize()
+    want = cuda_scan.estep_gamma_banded_plain(*est)
+    assert float((gamma - want[0]).abs().max()) <= 1e-5
+    assert float((gamma0 - want[1]).abs().max()) <= 1e-5
+    assert _rel(xi, want[2]) <= 1e-4
+    empty = a["lens"] == 0
+    assert not gamma[empty].any() and not gamma0[empty].any() and not gamma[1, t_len - 7:].any()
+    assert _launched() == {"estep_gamma_banded": 1}
+    # reduced, γ gives K2's moments and ξ
+    acc2, counts, k2_gamma0, k2_xi = cuda_scan.estep_acc_banded(*est)
+    assert _rel(gamma.flatten(0, 1).T @ a["stats"].flatten(0, 1), acc2) <= 1e-4
+    assert _rel(gamma.sum((0, 1)), counts) <= 1e-4 and _rel(xi, k2_xi) <= 1e-4
+    assert float((gamma0 - k2_gamma0).abs().max()) <= 1e-5
+
+
+def _launched():
+    return {k: v.launches for k, v in cuda_scan.KERNELS.items() if v.launches}
+
+
+def test_gamma_banded_rejects_what_the_kernel_does_not_take(device):
+    a = port_args(scan_problem(6, 3, 2, 4, 3, 9), torch.float32, device)
+    alpha, norms, _, _ = cuda_scan.forward_llh_banded(a["stats"], a["lens"], a["w"], a["bias"],
+                                                      a["bands"], a["init"])
+    est = [a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms,
+           a["ends"], a["starts"]]
+    with pytest.raises(TypeError):
+        cuda_scan.estep_gamma_banded(*est[:8], est[8].long(), est[9])
+    with pytest.raises(ValueError):
+        cuda_scan.estep_gamma_banded(*est[:6], alpha[:, :-1].contiguous(), *est[7:])
+    with pytest.raises(RuntimeError, match="requires grad"):
+        cuda_scan.estep_gamma_banded(est[0].clone().requires_grad_(), *est[1:])
+
+
+def test_autograd_routes_match_plain_route(device):
+    """PhoneLoopLogZ (K1 + K11), HMMLogZ (K5 + K7) and EllhFull (K9) on the
+    card against their plain routes: log Z and the input gradients."""
+    a = port_args(scan_problem(7, 10, 3, 32, 6, 40, lengths=[40, 33, 0, 5, 20, 1]),
+                  torch.float32, device)
+    d = dense_args(dense_problem(8, 30, 4, 6, 40), torch.float32, device)
+    f = _full_args((2, 4, 512), device)
+    cases = {
+        "PhoneLoopLogZ": (lambda x, plain: tss.PhoneLoopLogZ.apply(
+            x, a["lens"], a["w"], a["bias"], a["bands"], a["init"], a["final"], a["ends"],
+            a["starts"], plain)[0], a["stats"]),
+        "HMMLogZ": (lambda x, plain: tss.HMMLogZ.apply(x, d["lens"], d["trans"], d["init"],
+                                                        d["final"], plain)[0], d["llh"]),
+        "EllhFull": (lambda x, plain: sk.EllhFull.apply(x, f["e"], plain), f["x"]),
+    }
+    cuda_scan.reset_launch_counts()
+    for name, (fn, x) in cases.items():
+        outs = []
+        for plain in (False, True):
+            leaf = x.clone().requires_grad_()
+            out = fn(leaf, plain)
+            weights = torch.linspace(0.5, 1.5, out.numel(), device=device).reshape(out.shape)
+            (weights * out).sum().backward()
+            outs.append((out.detach(), leaf.grad))
+        assert _rel(outs[0][0], outs[1][0]) <= 1e-5, name
+        assert _rel(outs[0][1], outs[1][1]) <= 1e-4, name
+    assert all(_launched().get(k) == 1 for k in (
+        "forward_llh_banded", "estep_gamma_banded", "forward_llh_dense", "estep_gamma_dense",
+        "ellh_full"))

@@ -2,14 +2,17 @@
 
 Each kernel of ``beer_tpu_torch/ops/cuda_scan.py`` has a plain PyTorch
 version, which is what its wrapper runs on CPU tensors: the four
-phone-loop kernels K1–K4 and the three dense-transition HMM kernels
-K5–K7.  Held against:
+phone-loop kernels K1–K4, their γ-emitting backward K11 and the three
+dense-transition HMM kernels K5–K7.  Held against:
 
 * the Pallas TPU kernel it replaces, run with ``interpret=True``, in
   float32.  Interpret mode computes in float32 even under the suite's
   x64, so the tolerance is rtol 1e-5: the summation orders over S and
   P differ, and the Pallas kernel gathers the ξ rows/columns with a
   two-pass bf16 selection product (measured gap ~4e-6 relative here);
+  K11 is held against the banded mode of the γ-emitting Pallas kernel
+  (``phone_loop_estep_ckpt_pass_lm`` with bands and in-kernel ELLH),
+  which recomputes α̂ from block checkpoints;
 * for K5–K7 also the batch-major twins the TPU routing picks when
   ``use_lane_major`` says no (``forward_llh_ckpt_pass``,
   ``phone_loop_estep_ckpt_pass``; ROADMAP B8), interpret mode, float32,
@@ -56,6 +59,12 @@ def _port_estep(a, alpha, norms):
                                             a["ends"], a["starts"])
 
 
+def _port_gamma(a, alpha, norms):
+    return cuda_scan.estep_gamma_banded_plain(a["stats"], a["lens"], a["w"], a["bias"],
+                                              a["bands"], a["final"], alpha, norms,
+                                              a["ends"], a["starts"])
+
+
 def _port_decode(a, llh):
     choices, exarg, alpha_last = cuda_scan.viterbi_fwd_banded_plain(
         llh, a["lens"], tss.log_bands(a["bands"]), tss.log_bands(a["init"]))
@@ -82,9 +91,15 @@ def _pallas(pb):
     acc2, counts, gamma0, xi = pallas_scan.phone_loop_estep_ckpt_acc_lm(
         None, None, bands, final_lm, mask, sel_r, sel_c, stats_lm, interpret=True,
         w=f32(pb["w"]), bias=f32(pb["bias"]), alphas=alphas, norms=norms)
+    ckpts, _, _ = pallas_scan.forward_llh_ckpt_pass_lm(
+        stats_lm, bands, init_lm, mask, interpret=True, w=f32(pb["w"]), bias=f32(pb["bias"]))
+    gamma, xi_gamma = pallas_scan.phone_loop_estep_ckpt_pass_lm(
+        stats_lm, ckpts, bands, final_lm, mask, sel_r, sel_c, interpret=True, w=f32(pb["w"]),
+        bias=f32(pb["bias"]))
     return dict(alphas=np.asarray(alphas), norms=np.asarray(norms)[:, 0],
                 last=np.asarray(last), logz=np.asarray(logz), acc2=np.asarray(acc2),
-                counts=np.asarray(counts), gamma0=np.asarray(gamma0), xi=np.asarray(xi))
+                counts=np.asarray(counts), gamma0=np.asarray(gamma0), xi=np.asarray(xi),
+                gamma=np.asarray(gamma).transpose(2, 0, 1), xi_gamma=np.asarray(xi_gamma))
 
 
 def _pallas_decode(pb, llh):
@@ -102,7 +117,8 @@ def _pallas_decode(pb, llh):
 
 
 KERNEL_NAMES = ["forward_llh_banded", "estep_acc_banded", "viterbi_fwd_banded",
-                "viterbi_backtrace_banded"]
+                "viterbi_backtrace_banded", "estep_gamma_banded"]
+SCAN_KERNELS = ("forward_llh_banded", "estep_acc_banded", "estep_gamma_banded")
 DENSE_KERNELS = ["forward_llh_dense", "estep_acc_dense", "estep_gamma_dense"]
 S_DENSE = 7
 
@@ -113,7 +129,7 @@ def test_plain_version_matches_pallas_f32(kernel):
     a = _port_args(pb, torch.float32)
     lens = pb["lengths"]
     full = lens > 0
-    if kernel in ("forward_llh_banded", "estep_acc_banded"):
+    if kernel in SCAN_KERNELS:
         ref = _pallas(pb)
         alpha, norms, last, logz = _port_forward(a)
         if kernel == "forward_llh_banded":
@@ -125,6 +141,16 @@ def test_plain_version_matches_pallas_f32(kernel):
             close(last, ref["last"].T, RTOL_F32, atol=1e-7)
             close(logz[full], ref["logz"][full], RTOL_F32)
             assert (logz[~full] == 0).all()
+        elif kernel == "estep_gamma_banded":
+            # the Pallas kernel's α̂ comes from block checkpoints: its γ
+            # lies ~1e-6 from the float64 value, as in the dense case
+            gamma, gamma0, xi = _port_gamma(a, alpha, norms)
+            for b in range(B):
+                close(gamma[b, :lens[b]], ref["gamma"][b, :lens[b]], RTOL_F32, atol=5e-6)
+                assert not gamma[b, lens[b]:].any()
+            close(gamma0[full], ref["gamma"][full, 0], RTOL_F32, atol=5e-6)
+            assert not gamma0[~full].any()
+            close(xi, ref["xi_gamma"], RTOL_F32, atol=1e-6)
         else:
             acc2, counts, gamma0, xi = _port_estep(a, alpha, norms)
             close(acc2, ref["acc2"], RTOL_F32, atol=1e-5)
@@ -163,7 +189,7 @@ def _general(pb):
     return dict(llh=llh, log_trans=log_trans, log_init=log_init, log_final=log_final,
                 log_z=np.asarray(fbp.log_z), alpha=np.asarray(fbp.probs_fwd), norms=norms,
                 acc2=np.einsum("bts,btp->sp", post, pb["stats"]), counts=post.sum((0, 1)),
-                gamma0=post[:, 0], xi=np.asarray(xi))
+                gamma0=post[:, 0], gamma=post, xi=np.asarray(xi))
 
 
 @pytest.mark.parametrize("kernel", KERNEL_NAMES)
@@ -173,7 +199,7 @@ def test_plain_version_matches_general_path_f64(kernel):
     ref = _general(pb)
     lens = pb["lengths"]
     full = lens > 0
-    if kernel in ("forward_llh_banded", "estep_acc_banded"):
+    if kernel in SCAN_KERNELS:
         alpha, norms, last, logz_base = _port_forward(a)
         log_z = logz_base + torch.log((last * a["final"]).sum(-1))
         if kernel == "forward_llh_banded":
@@ -182,6 +208,13 @@ def test_plain_version_matches_general_path_f64(kernel):
                 ln = lens[b]
                 close(alpha[b, :ln], ref["alpha"][b, :ln], RTOL_F64, atol=1e-300)
                 close(norms[b, :ln], ref["norms"][b, :ln], RTOL_F64)
+        elif kernel == "estep_gamma_banded":
+            gamma, gamma0, xi_raw = _port_gamma(a, alpha, norms)
+            dense = torch.exp(t(ref["log_trans"]))
+            close(gamma, ref["gamma"], RTOL_F64, atol=1e-14)
+            close(gamma0, ref["gamma0"], RTOL_F64, atol=1e-14)
+            close(xi_raw * dense[a["ends"].long()][:, a["starts"].long()], ref["xi"], RTOL_F64,
+                  atol=1e-14)
         else:
             acc2, counts, gamma0, xi_raw = _port_estep(a, alpha, norms)
             dense = torch.exp(t(ref["log_trans"]))
@@ -224,6 +257,9 @@ def test_wrapper_runs_plain_version_on_cpu(kernel):
         "estep_acc_banded": (cuda_scan.estep_acc_banded, cuda_scan.estep_acc_banded_plain,
                              (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"],
                               alpha, norms, a["ends"], a["starts"])),
+        "estep_gamma_banded": (cuda_scan.estep_gamma_banded, cuda_scan.estep_gamma_banded_plain,
+                               (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"],
+                                alpha, norms, a["ends"], a["starts"])),
         "viterbi_fwd_banded": (cuda_scan.viterbi_fwd_banded, cuda_scan.viterbi_fwd_banded_plain,
                                (llh, a["lens"], lb, li)),
         "viterbi_backtrace_banded": (cuda_scan.viterbi_backtrace_banded,
