@@ -18,11 +18,17 @@ posteriors and Viterbi decoding; the full-covariance Bayesian GMM
 full-covariance NormalSet and MixtureSet emissions of the HMM; the
 structured VAE (:class:`VAE`, :class:`SequenceVAE` over a phone-loop or
 HMM prior, config 5) with its nnets (:mod:`beer_tpu_torch.nnet`) and
-the hybrid step (:func:`make_vae_train_step`, :class:`VBOptimizer`).
+the hybrid step (:func:`make_vae_train_step`, :class:`VBOptimizer`); the
+subspace-HMM (:class:`GSM`, :class:`HierarchicalGSM`): the phone-loop
+E-step with materialised posteriors through the general-path kernels
+(``PhoneLoop.smooth``), :func:`accumulate_unit_stats`, the ELBO gradient
+step (:func:`make_gsm_train_step`) and the moment-matched write-back
+(:func:`apply_to_phoneloop`).
 
 Entry points that build a model or a graph (the ``*_from_numpy``
 converters, ``Graph.compile``, ``transcription_graphs``,
-``Categorical.create``, ``SBCategorical.create``) build on the CUDA card
+``Categorical.create``, ``SBCategorical.create``, ``GSM.create``,
+``HierarchicalGSM.create``) build on the CUDA card
 unless they are given ``device="cpu"``; with no card and no device they
 raise.  Models made from a NormalSet follow its device.
 
@@ -38,6 +44,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 from beer_tpu_torch import dists, nnet  # noqa: E402
 from beer_tpu_torch.convert import (  # noqa: E402
+    gsm_from_numpy,
     hmm_from_numpy,
     mixture_from_numpy,
     mixture_set_from_numpy,
@@ -91,6 +98,15 @@ __all__ = [
     "VAE",
     "SequenceVAE",
     "make_vae_train_step",
+    "GSM",
+    "HierarchicalGSM",
+    "accumulate_unit_stats",
+    "apply_to_phoneloop",
+    "induced_posterior_moments",
+    "make_gsm_train_step",
+    "slice_gsm",
+    "train_gsm",
+    "gsm_from_numpy",
     "ELBO",
     "VBConjugateOptimizer",
     "VBOptimizer",

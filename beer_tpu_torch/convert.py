@@ -38,6 +38,14 @@ inverse of the model's ``to_numpy()``.
   ``latent_model`` its dict, and ``nsamples``.  The widths, the trunk
   kind, the output head and the flows are read off the trees.
 
+* GSM / HierarchicalGSM (:func:`gsm_from_numpy`): ``type``, the
+  variational parameters ``e_mean`` / ``e_logvar`` (U, E), ``w_mean`` /
+  ``w_logvar`` (H+1, out) (and ``lang_mean`` / ``lang_logvar`` (L,
+  lang_dim) with ``unit_lang``), the statics ``n_units``, ``embed_dim``,
+  ``obs_dim``, ``states_per_unit``, ``n_comp``, ``learn_transitions``,
+  and for a trunk its config string ``trunk_spec`` with ``trunk_params``,
+  the flax tree ``{"params": {"Dense_i": {"kernel", "bias"}}}``.
+
 Every builder puts the model on the CUDA card unless ``device`` says
 otherwise (``device="cpu"``), and raises when there is no card and no
 device was given.
@@ -54,6 +62,7 @@ from beer_tpu_torch import dists
 from beer_tpu_torch.device import resolve_device
 from beer_tpu_torch.models.categorical import Categorical, SBCategorical
 from beer_tpu_torch.models.graph import CompiledGraph
+from beer_tpu_torch.models.gsm import GSM, HierarchicalGSM
 from beer_tpu_torch.models.hmm import HMM
 from beer_tpu_torch import nnet
 from beer_tpu_torch.models.mixture import Mixture, MixtureSet
@@ -84,14 +93,19 @@ def _normal_set(prior, posterior, dim, cov_type, dtype, device, cls=NormalSet) -
 
 def phone_loop_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> PhoneLoop:
     """A PhoneLoop on ``device`` (default: the CUDA card) in ``dtype``
-    (default: the arrays' own floating type)."""
+    (default: the arrays' own floating type).  Per-state GMM emissions
+    come as ``modelset``, a MixtureSet dict, in place of the
+    ``modelset_prior`` / ``modelset_posterior`` pair."""
     device = resolve_device(device)
 
     def t(x):
         return _tensor(x, dtype, device)
 
-    nset = _normal_set(d["modelset_prior"], d["modelset_posterior"], int(d["dim"]),
-                       d["cov_type"], dtype, device)
+    if "modelset" in d:
+        nset = modelset_from_numpy(d["modelset"], device, dtype)
+    else:
+        nset = _normal_set(d["modelset_prior"], d["modelset_posterior"], int(d["dim"]),
+                           d["cov_type"], dtype, device)
     n_units = int(d["n_units"])
     unit_prior = SBCategorical(
         BayesianParameter(t(d["sticks_prior"]), t(d["sticks_posterior"]), dists.Beta()),
@@ -163,6 +177,34 @@ def hmm_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> HMM:
                           int(d["n_pdfs"]), bool(d.get("l2r_banded", False)))
     return HMM(graph, modelset_from_numpy(d["modelset"], device, dtype),
                t(d.get("trans_alpha_prior")), t(d.get("trans_alpha_post")))
+
+
+def gsm_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> GSM:
+    """A GSM or HierarchicalGSM on ``device`` (default: the CUDA card) in
+    ``dtype`` (default: the arrays' own floating type)."""
+    device = resolve_device(device)
+
+    def t(key):
+        return _tensor(d[key], dtype)
+
+    e_mean = t("e_mean")
+    statics = {k: int(d[k]) for k in ("n_units", "embed_dim", "obs_dim", "states_per_unit",
+                                      "n_comp")}
+    statics["learn_transitions"] = bool(d["learn_transitions"])
+    hierarchical = d.get("type", "GSM") == "HierarchicalGSM"
+    trunk = None
+    if d.get("trunk_spec") is not None:
+        n_in = statics["embed_dim"] + (np.asarray(d["lang_mean"]).shape[1] if hierarchical else 0)
+        trunk = nnet.build_trunk(d["trunk_spec"], n_in, dtype=e_mean.dtype)
+        nnet.load_flax_tree(trunk, d["trunk_params"]["params"])
+    args = (e_mean, t("e_logvar"), t("w_mean"), t("w_logvar"))
+    if hierarchical:
+        model = HierarchicalGSM(*args, t("lang_mean"), t("lang_logvar"), d["unit_lang"], trunk,
+                                **statics)
+    else:
+        model = GSM(*args, trunk, **statics)
+    model.trunk_spec = d.get("trunk_spec")
+    return model.to(device)
 
 
 # ----------------------------------------------------------------------

@@ -12,6 +12,15 @@
 //   K7 estep_gamma_dense   the same backward chain, emitting γ per frame
 //                          and the full (S, S) ξ.
 //
+// Two more are template instances of K5 and K7, so that the modes cannot
+// drift apart:
+//
+//   K14 forward_llh_shifts_dense      K5 on the llh stream, also writing the
+//                                     masked per-frame row max, with the carry
+//                                     copied through frames t >= len;
+//   K15 estep_gamma_dense_restricted  K7 with ξ gathered to the block
+//                                     [rows][:, cols] in the kernel.
+//
 // Each replaces the dense mode of one Pallas TPU kernel of
 // beer_tpu/ops/pallas_scan.py; the note above each kernel names it.
 //
@@ -38,9 +47,10 @@ size_t dense_forward_smem_floats(int s, int p) {
   return n;
 }
 
-size_t dense_backward_smem_floats(int s, int p) {
-  size_t n = static_cast<size_t>(s) * odd_stride(s) + static_cast<size_t>(s) * s + 6 * static_cast<size_t>(s) +
-             2 * kMaxWarps;
+// n_xi: floats of the ξ accumulator (S·S, or n_r·n_c + the two index
+// vectors when ξ is restricted).
+size_t dense_backward_smem_floats(int s, int p, size_t n_xi) {
+  size_t n = static_cast<size_t>(s) * odd_stride(s) + n_xi + 6 * static_cast<size_t>(s) + 2 * kMaxWarps;
   if (p > 0) n += static_cast<size_t>(s) * odd_stride(p) + static_cast<size_t>(s) * odd_stride(p + 1) + s + p;
   return n;
 }
@@ -58,8 +68,14 @@ size_t dense_backward_smem_floats(int s, int p) {
 // serial chain (two block reductions per step) plus S (and P) shared-
 // memory FMAs per state and step.  Frames t >= len get α̂ = 0, norm = 1;
 // an empty row keeps last = init and logz_base = 0.
+//
+// K14 (kShifts, llh stream only) replaces _make_fwd_llh_kernel (wrapper
+// forward_llh_pass): it also writes shifts (B, T) = the row max on frames
+// t < len and 0 after, frame 0 fires on every row (an empty row sees e = 1
+// there, so it carries normalise(init) with norm_0 = Σ init), and frames
+// t >= max(len, 1) copy the carry into α̂ (norm = 1, shift = 0).
 // ---------------------------------------------------------------------
-template <bool kStats>
+template <bool kStats, bool kShifts>
 __global__ void forward_llh_dense_kernel(
     const float* __restrict__ x,      // (B, T, P) stats or (B, T, S) llh
     const int* __restrict__ lens,     // (B,)
@@ -71,6 +87,7 @@ __global__ void forward_llh_dense_kernel(
     float* __restrict__ norms,        // (B, T)
     float* __restrict__ last,         // (B, S)
     float* __restrict__ logz,         // (B,)
+    float* __restrict__ shifts,       // (B, T)  (kShifts)
     int T, int S, int P) {
   extern __shared__ float smem[];
   const int ldt = odd_stride(S), ldw = odd_stride(P);
@@ -101,13 +118,15 @@ __global__ void forward_llh_dense_kernel(
   float* al_b = alpha + static_cast<size_t>(b) * T * S;
   float* n_b = norms + static_cast<size_t>(b) * T;
   float logz_acc = 0.f;
+  const int n_fire = kShifts ? min(max(len, 1), T) : len;
 
-  for (int t = 0; t < len; ++t) {
+  for (int t = 0; t < n_fire; ++t) {
     const float* x_t = x_b + static_cast<size_t>(t) * row;
     if (kStats) {
       for (int p = tid; p < P; p += nt) x_sh[p] = x_t[p];
       __syncthreads();
     }
+    const bool pad = kShifts && t >= len;  // frame 0 of an empty row: e = 1, shift 0
     float mx = -FLT_MAX, unused = 0.f;
     for (int s = tid; s < S; s += nt) {
       float l;
@@ -117,12 +136,13 @@ __global__ void forward_llh_dense_kernel(
         for (int p = 0; p < P; ++p) l = fmaf(wr[p], x_sh[p], l);
         l += bias_sh[s];
       } else {
-        l = x_t[s];
+        l = pad ? 0.f : x_t[s];
       }
       v_sh[s] = l;
       mx = fmaxf(mx, l);
     }
     block_max_sum(mx, unused, red);
+    if (kShifts && tid == 0) shifts[static_cast<size_t>(b) * T + t] = mx;
     float sum = 0.f;
     for (int j = tid; j < S; j += nt) {
       float base;
@@ -146,10 +166,15 @@ __global__ void forward_llh_dense_kernel(
     if (tid == 0) n_b[t] = norm;
     logz_acc += logf(norm) + mx;
   }
+  __syncthreads();
   for (int s = tid; s < S; s += nt) last[static_cast<size_t>(b) * S + s] = p_sh[s];
   if (tid == 0) logz[b] = logz_acc;
-  for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) al_b[i] = 0.f;
-  for (int t = len + tid; t < T; t += nt) n_b[t] = 1.f;
+  for (size_t i = static_cast<size_t>(n_fire) * S + tid; i < static_cast<size_t>(T) * S; i += nt)
+    al_b[i] = kShifts ? p_sh[i % S] : 0.f;
+  for (int t = n_fire + tid; t < T; t += nt) {
+    n_b[t] = 1.f;
+    if (kShifts) shifts[static_cast<size_t>(b) * T + t] = 0.f;
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -172,8 +197,14 @@ __global__ void forward_llh_dense_kernel(
 // counts are ξ_raw ⊙ A, applied by the caller.  Bound: the serial chain
 // plus S FMAs (propagate) + S FMAs (ξ) + 2·P FMAs (K6: ELLH and moments)
 // per state and step, all in shared memory; α̂ streams in once.
+//
+// K15 (!kAcc, kRestrict) replaces _make_estep_kernel (wrapper
+// phone_loop_estep_pass): ξ_raw is accumulated only on the block
+// [rows][:, cols], (n_r, n_c), by an exact gather of α̂_t[rows] and
+// v̂_{t+1}[cols] (no one-hot product), so the per-utterance partial is
+// n_r·n_c floats instead of S².
 // ---------------------------------------------------------------------
-template <bool kAcc>
+template <bool kAcc, bool kRestrict>
 __global__ void estep_dense_kernel(
     const float* __restrict__ x,       // kAcc: (B, T, P) stats; else (B, T, S) llh
     const int* __restrict__ lens,      // (B,)
@@ -183,15 +214,20 @@ __global__ void estep_dense_kernel(
     const float* __restrict__ final_,  // (B, S)
     const float* __restrict__ alpha,   // (B, T, S)
     const float* __restrict__ norms,   // (B, T)
-    float* __restrict__ part,          // (B, [S*(P+1)] + S*S)
+    const int* __restrict__ rows,      // (n_r,)  (kRestrict)
+    const int* __restrict__ cols,      // (n_c,)  (kRestrict)
+    float* __restrict__ part,          // (B, [S*(P+1)] + n_r*n_c)
     float* __restrict__ gamma0,        // (B, S)     (kAcc)
     float* __restrict__ gamma,         // (B, T, S)  (!kAcc)
-    int T, int S, int P) {
+    int T, int S, int P, int n_r, int n_c) {  // n_r = n_c = S unless kRestrict
   extern __shared__ float smem[];
   const int ldt = odd_stride(S), ldw = odd_stride(P), lda = odd_stride(P + 1);
+  const int n_xi = n_r * n_c;
   float* a_sh = smem;                                   // A, (S, ldt)
-  float* xi_sh = a_sh + static_cast<size_t>(S) * ldt;   // (S, S)
-  float* fin_sh = xi_sh + static_cast<size_t>(S) * S;
+  float* xi_sh = a_sh + static_cast<size_t>(S) * ldt;   // (n_r, n_c)
+  int* rows_sh = reinterpret_cast<int*>(xi_sh + n_xi);  // kRestrict: n_r + n_c indices
+  int* cols_sh = rows_sh + n_r;
+  float* fin_sh = xi_sh + n_xi + (kRestrict ? n_r + n_c : 0);
   float* vh_prev = fin_sh + S;  // v̂_{t+1}
   float* vh_cur = vh_prev + S;  // v̂_t
   float* al_sh = vh_cur + S;    // α̂_t
@@ -208,7 +244,11 @@ __global__ void estep_dense_kernel(
   for (int i = tid; i < S * S; i += nt) {
     const int r = i / S;
     a_sh[r * ldt + (i - r * S)] = trans[i];
-    xi_sh[i] = 0.f;
+  }
+  for (int i = tid; i < n_xi; i += nt) xi_sh[i] = 0.f;
+  if (kRestrict) {
+    for (int i = tid; i < n_r; i += nt) rows_sh[i] = rows[i];
+    for (int i = tid; i < n_c; i += nt) cols_sh[i] = cols[i];
   }
   if (kAcc) {
     for (int i = tid; i < S * P; i += nt) {
@@ -288,9 +328,12 @@ __global__ void estep_dense_kernel(
       }
     }
     if (!is_last) {
-      for (int j = tid; j < S; j += nt) {
-        const float vj = vh_prev[j];
-        for (int i = 0; i < S; ++i) xi_sh[i * S + j] = fmaf(al_sh[i] * wgt_next, vj, xi_sh[i * S + j]);
+      for (int j = tid; j < n_c; j += nt) {
+        const float vj = vh_prev[kRestrict ? cols_sh[j] : j];
+        for (int i = 0; i < n_r; ++i) {
+          const float ai = al_sh[kRestrict ? rows_sh[i] : i];
+          xi_sh[i * n_c + j] = fmaf(ai * wgt_next, vj, xi_sh[i * n_c + j]);
+        }
       }
     }
     wgt_next = wgt;
@@ -300,7 +343,7 @@ __global__ void estep_dense_kernel(
   }
   __syncthreads();
   const int n_acc = kAcc ? S * (P + 1) : 0;
-  float* out = part + static_cast<size_t>(b) * (n_acc + S * S);
+  float* out = part + static_cast<size_t>(b) * (n_acc + n_xi);
   if (kAcc) {
     for (int i = tid; i < n_acc; i += nt) {
       const int s = i / (P + 1);
@@ -312,7 +355,7 @@ __global__ void estep_dense_kernel(
   } else {
     for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) g_b[i] = 0.f;
   }
-  for (int k = tid; k < S * S; k += nt) out[n_acc + k] = xi_sh[k];
+  for (int k = tid; k < n_xi; k += nt) out[n_acc + k] = xi_sh[k];
 }
 
 }  // namespace
@@ -321,7 +364,13 @@ extern "C" {
 
 size_t beer_dense_forward_smem_bytes(int s, int p) { return dense_forward_smem_floats(s, p) * sizeof(float); }
 
-size_t beer_dense_estep_smem_bytes(int s, int p) { return dense_backward_smem_floats(s, p) * sizeof(float); }
+size_t beer_dense_estep_smem_bytes(int s, int p) {
+  return dense_backward_smem_floats(s, p, static_cast<size_t>(s) * s) * sizeof(float);
+}
+
+size_t beer_dense_estep_restricted_smem_bytes(int s, int n_r, int n_c) {
+  return dense_backward_smem_floats(s, 0, static_cast<size_t>(n_r) * n_c + n_r + n_c) * sizeof(float);
+}
 
 // P > 0: x is the stats stream and w/bias give llh; P == 0: x is llh.
 int beer_forward_llh_dense(int device, const float* x, const int* lens, const float* w, const float* bias,
@@ -330,19 +379,37 @@ int beer_forward_llh_dense(int device, const float* x, const int* lens, const fl
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const size_t smem = beer_dense_forward_smem_bytes(S, P);
-  err = P > 0 ? set_smem(forward_llh_dense_kernel<true>, smem) : set_smem(forward_llh_dense_kernel<false>, smem);
+  err = P > 0 ? set_smem(forward_llh_dense_kernel<true, false>, smem)
+              : set_smem(forward_llh_dense_kernel<false, false>, smem);
   if (err != cudaSuccess) return err;
   if (B == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P > 0) {
-    const int nt = block_threads(forward_llh_dense_kernel<true>, S);
-    forward_llh_dense_kernel<true><<<B, nt, smem, st>>>(x, lens, w, bias, trans, init, alpha, norms, last, logz,
-                                                        T, S, P);
+    const int nt = block_threads(forward_llh_dense_kernel<true, false>, S);
+    forward_llh_dense_kernel<true, false><<<B, nt, smem, st>>>(x, lens, w, bias, trans, init, alpha, norms, last,
+                                                               logz, nullptr, T, S, P);
   } else {
-    const int nt = block_threads(forward_llh_dense_kernel<false>, S);
-    forward_llh_dense_kernel<false><<<B, nt, smem, st>>>(x, lens, w, bias, trans, init, alpha, norms, last, logz,
-                                                         T, S, 0);
+    const int nt = block_threads(forward_llh_dense_kernel<false, false>, S);
+    forward_llh_dense_kernel<false, false><<<B, nt, smem, st>>>(x, lens, w, bias, trans, init, alpha, norms, last,
+                                                                logz, nullptr, T, S, 0);
   }
+  return cudaGetLastError();
+}
+
+// K14: the llh stream, with the row-max shifts written out and the carry
+// copied through frames t >= len.
+int beer_forward_llh_shifts_dense(int device, const float* llh, const int* lens, const float* trans,
+                                  const float* init, float* alpha, float* norms, float* last, float* logz,
+                                  float* shifts, int B, int T, int S, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = beer_dense_forward_smem_bytes(S, 0);
+  err = set_smem(forward_llh_dense_kernel<false, true>, smem);
+  if (err != cudaSuccess) return err;
+  if (B == 0) return cudaSuccess;
+  const int nt = block_threads(forward_llh_dense_kernel<false, true>, S);
+  forward_llh_dense_kernel<false, true><<<B, nt, smem, static_cast<cudaStream_t>(stream)>>>(
+      llh, lens, nullptr, nullptr, trans, init, alpha, norms, last, logz, shifts, T, S, 0);
   return cudaGetLastError();
 }
 
@@ -352,14 +419,14 @@ int beer_estep_acc_dense(int device, const float* stats, const int* lens, const 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const size_t smem = beer_dense_estep_smem_bytes(S, P);
-  err = set_smem(estep_dense_kernel<true>, smem);
+  err = set_smem(estep_dense_kernel<true, false>, smem);
   if (err != cudaSuccess) return err;
   const int n = S * (P + 1) + S * S;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0) {
-    const int nt = block_threads(estep_dense_kernel<true>, S);
-    estep_dense_kernel<true><<<B, nt, smem, st>>>(stats, lens, w, bias, trans, final_, alpha, norms, part, gamma0,
-                                                  nullptr, T, S, P);
+    const int nt = block_threads(estep_dense_kernel<true, false>, S);
+    estep_dense_kernel<true, false><<<B, nt, smem, st>>>(stats, lens, w, bias, trans, final_, alpha, norms, nullptr,
+                                                         nullptr, part, gamma0, nullptr, T, S, P, S, S);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -373,18 +440,41 @@ int beer_estep_gamma_dense(int device, const float* llh, const int* lens, const 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const size_t smem = beer_dense_estep_smem_bytes(S, 0);
-  err = set_smem(estep_dense_kernel<false>, smem);
+  err = set_smem(estep_dense_kernel<false, false>, smem);
   if (err != cudaSuccess) return err;
   const int n = S * S;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0) {
-    const int nt = block_threads(estep_dense_kernel<false>, S);
-    estep_dense_kernel<false><<<B, nt, smem, st>>>(llh, lens, nullptr, nullptr, trans, final_, alpha, norms, part,
-                                                   nullptr, gamma, T, S, 0);
+    const int nt = block_threads(estep_dense_kernel<false, false>, S);
+    estep_dense_kernel<false, false><<<B, nt, smem, st>>>(llh, lens, nullptr, nullptr, trans, final_, alpha, norms,
+                                                          nullptr, nullptr, part, nullptr, gamma, T, S, 0, S, S);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
+  return cudaGetLastError();
+}
+
+// K15: ξ_raw restricted to [rows][:, cols]; part is (B, n_r·n_c), out (n_r, n_c).
+int beer_estep_gamma_dense_restricted(int device, const float* llh, const int* lens, const float* trans,
+                                      const float* final_, const float* alpha, const float* norms, const int* rows,
+                                      const int* cols, float* part, float* out, float* gamma, int B, int T, int S,
+                                      int n_r, int n_c, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = beer_dense_estep_restricted_smem_bytes(S, n_r, n_c);
+  err = set_smem(estep_dense_kernel<false, true>, smem);
+  if (err != cudaSuccess) return err;
+  const int n = n_r * n_c;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B > 0) {
+    const int nt = block_threads(estep_dense_kernel<false, true>, S);
+    estep_dense_kernel<false, true><<<B, nt, smem, st>>>(llh, lens, nullptr, nullptr, trans, final_, alpha, norms,
+                                                         rows, cols, part, nullptr, gamma, T, S, 0, n_r, n_c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (n > 0) sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
   return cudaGetLastError();
 }
 

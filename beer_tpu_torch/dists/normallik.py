@@ -8,11 +8,19 @@ responsibilities.  The diagonal NormalSet uses its reduced layout
 (``models/normal.py``); the full-covariance one keeps raw frames on its
 main path and builds xxᵀ inside the kernels (``ops/stats_kernels.py``),
 so :func:`suff_stats_full` serves the plain versions and the tests.
+:func:`suff_stats_diag` is the full diagonal layout, which the subspace
+model's per-unit statistics are accumulated in.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def suff_stats_diag(x: torch.Tensor) -> torch.Tensor:
+    """Diagonal-covariance stats s(x) = [−½x², x, −½·1, ½·1]; (..., 4D)."""
+    halves = torch.full_like(x, 0.5)
+    return torch.cat([-0.5 * x**2, x, -halves, halves], dim=-1)
 
 
 def suff_stats_full(x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,16 @@ from beer_tpu_torch.models.graph import (
     phone_loop_graph,
     transcription_graphs,
 )
+from beer_tpu_torch.models.gsm import (
+    GSM,
+    HierarchicalGSM,
+    accumulate_unit_stats,
+    apply_to_phoneloop,
+    induced_posterior_moments,
+    make_gsm_train_step,
+    slice_gsm,
+    train_gsm,
+)
 from beer_tpu_torch.models.hmm import HMM
 from beer_tpu_torch.models.mixture import Mixture, MixtureSet
 from beer_tpu_torch.models.modelset import ModelSet
@@ -44,4 +54,12 @@ __all__ = [
     "VAE",
     "SequenceVAE",
     "make_vae_train_step",
+    "GSM",
+    "HierarchicalGSM",
+    "accumulate_unit_stats",
+    "apply_to_phoneloop",
+    "induced_posterior_moments",
+    "make_gsm_train_step",
+    "slice_gsm",
+    "train_gsm",
 ]

@@ -21,7 +21,10 @@ moments, the first-frame posteriors and the loop-back ξ — through the
 CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor, or
 the plain versions on any device when ``plain_scan`` is set.
 :meth:`PhoneLoop.smooth` is the general path with materialized
-posteriors (tests, consumers that need per-frame posteriors).
+posteriors (the subspace-HMM statistics bridge
+:func:`beer_tpu_torch.models.gsm.accumulate_unit_stats`, tests): the
+scaled passes and the smoothing backward over one shared matrix, as
+kernels on CUDA tensors.
 
 Gradient route.  When grad mode is on and the statistics require grad
 (the structured VAE's latent prior), :meth:`PhoneLoop.infer` takes
@@ -42,6 +45,7 @@ import torch
 from beer_tpu_torch.models.basemodel import DiscreteLatentModel
 from beer_tpu_torch.models.categorical import SBCategorical
 from beer_tpu_torch.models.graph import LOG_ZERO, CompiledGraph
+from beer_tpu_torch.models.mixture import MixtureSet
 from beer_tpu_torch.ops import semiring_scan
 
 
@@ -76,7 +80,7 @@ class PhoneLoop(DiscreteLatentModel):
     def create(cls, n_units: int, states_per_unit: int, modelset, unit_prior=None,
                concentration: float = 1.0, self_loop: float = 0.5) -> "PhoneLoop":
         """Device and dtype follow ``modelset``'s parameters."""
-        post = modelset.means_precisions.posterior
+        post = next(modelset.buffers())
         dtype, device = post.dtype, post.device
         if unit_prior is None:
             unit_prior = SBCategorical.create(n_units, concentration, dtype, device)
@@ -176,7 +180,11 @@ class PhoneLoop(DiscreteLatentModel):
         """Fused E-step forward: log Z (B,) and the cache ``accumulate`` needs.
 
         Differentiable with respect to ``stats`` when they require grad
-        (the cache then holds the detached γ, γ0 and ``xi_raw``)."""
+        (the cache then holds the detached γ, γ0 and ``xi_raw``).
+        Emissions other than a diagonal NormalSet (per-state GMMs) have no
+        ELLH matrix for the fused kernels and take :meth:`smooth`."""
+        if isinstance(self.modelset, MixtureSet):
+            return self.smooth(stats, mask)
         stats = stats.contiguous()
         ops = self.scan_operands(stats, mask)
         if torch.is_grad_enabled() and stats.requires_grad:
@@ -191,11 +199,19 @@ class PhoneLoop(DiscreteLatentModel):
         return log_z, dict(ops, alpha=alpha, norms=norms)
 
     def smooth(self, stats: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        """General E-step with materialized posteriors in the cache."""
+        """General E-step with materialized posteriors in the cache: the
+        scaled forward and the smoothing backward of the general path (K12
+        + K13 on CUDA tensors, always through their band + rank-1
+        instances: on an NVIDIA H100 (700 W) the banded pair is level with
+        the dense one at S = 30, 2.7x faster at S = 150 and the only one
+        that fits at S = 450 (``chip_smoke.py``, phases 15 and 17; the
+        plain loops over time with ``plain_scan``)."""
         graph = self._effective_graph()
         llh = self.modelset.expected_log_likelihood(stats)
+        bands = self._structured_trans(llh.dtype)
         fb = semiring_scan.forward_backward_probs(
-            llh, graph.log_trans, graph.log_init, graph.log_final, mask)
+            llh, graph.log_trans, graph.log_init, graph.log_final, mask,
+            structured_trans=bands, plain=self.plain_scan)
         log_z = fb.log_z
         if mask is not None:
             log_z = log_z * (mask.sum(-1) > 0)  # fully padded rows contribute 0
@@ -258,15 +274,20 @@ class PhoneLoop(DiscreteLatentModel):
     def to_numpy(self) -> Dict[str, Any]:
         """Weights and statics as numpy arrays and Python values; the
         inverse of :func:`beer_tpu_torch.convert.phone_loop_from_numpy`."""
-        mp = self.modelset.means_precisions
         sticks = self.unit_prior.sticks
 
         def np_(x):
             return x.detach().cpu().numpy()
 
+        if isinstance(self.modelset, MixtureSet):
+            emissions = {"modelset": self.modelset.to_numpy()}
+            nset = self.modelset.modelset
+        else:
+            nset = self.modelset
+            mp = nset.means_precisions
+            emissions = {"modelset_prior": np_(mp.prior), "modelset_posterior": np_(mp.posterior)}
         return {
-            "modelset_prior": np_(mp.prior),
-            "modelset_posterior": np_(mp.posterior),
+            **emissions,
             "sticks_prior": np_(sticks.prior),
             "sticks_posterior": np_(sticks.posterior),
             "base_log_trans": np_(self.base_log_trans),
@@ -274,6 +295,6 @@ class PhoneLoop(DiscreteLatentModel):
             "n_units": self.n_units,
             "states_per_unit": self.states_per_unit,
             "self_loop": self.self_loop,
-            "dim": self.modelset.dim,
-            "cov_type": self.modelset.cov_type,
+            "dim": nset.dim,
+            "cov_type": nset.cov_type,
         }

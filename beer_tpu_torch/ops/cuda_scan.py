@@ -3,9 +3,12 @@
 Counterpart of the ``beer_tpu/ops/pallas_scan.py`` kernels on the ported
 paths: the four of the phone-loop AUD main path (K1–K4, banded
 transitions, ``csrc/phone_loop_scan.cu``) and their γ-emitting backward
-K11 (the structured VAE's gradient), and the three of the Bayesian
+K11 (the structured VAE's gradient), the three of the Bayesian
 HMM's E-step over a dense (S, S) transition matrix (K5–K7,
-``csrc/hmm_scan.cu``).  The build, the library and the launch counts in
+``csrc/hmm_scan.cu``) with their two further modes (K14: K5 writing the
+row-max shifts; K15: K7 with ξ restricted to a block), and the two of
+the general probability-space path behind ``PhoneLoop.smooth`` (K12
+``scaled_pass``, K13 ``smoothing_pass``, ``csrc/general_scan.cu``).  The build, the library and the launch counts in
 :data:`KERNELS` also serve the full-covariance statistics kernels K8–K10
 (``csrc/stats_full.cu``), wrapped in :mod:`beer_tpu_torch.ops.stats_kernels`.
 Each wrapper below takes batch-major tensors and
@@ -83,7 +86,10 @@ KERNELS = {
        for name in ("forward_llh_banded", "estep_acc_banded",
                     "viterbi_fwd_banded", "viterbi_backtrace_banded", "estep_gamma_banded")},
     **{name: Kernel(name, "beer_tpu_torch/csrc/hmm_scan.cu")
-       for name in ("forward_llh_dense", "estep_acc_dense", "estep_gamma_dense")},
+       for name in ("forward_llh_dense", "estep_acc_dense", "estep_gamma_dense",
+                    "forward_llh_shifts_dense", "estep_gamma_dense_restricted")},
+    **{name: Kernel(name, "beer_tpu_torch/csrc/general_scan.cu")
+       for name in ("scaled_pass", "smoothing_pass")},
     # wrapped in ops/stats_kernels.py
     **{name: Kernel(name, "beer_tpu_torch/csrc/stats_full.cu")
        for name in ("gmm_estep_full", "ellh_full", "accumulate_full")},
@@ -160,6 +166,10 @@ def _library() -> ctypes.CDLL:
         "beer_forward_llh_dense": [i] + [p] * 10 + [i] * 4 + [p],
         "beer_estep_acc_dense": [i] + [p] * 11 + [i] * 4 + [p],
         "beer_estep_gamma_dense": [i] + [p] * 9 + [i] * 3 + [p],
+        "beer_forward_llh_shifts_dense": [i] + [p] * 9 + [i] * 3 + [p],
+        "beer_estep_gamma_dense_restricted": [i] + [p] * 11 + [i] * 5 + [p],
+        "beer_scaled_pass": [i, i] + [p] * 6 + [i] * 3 + [p],
+        "beer_smoothing_pass": [i, i] + [p] * 9 + [i] * 3 + [p],
         "beer_gmm_estep_full": [i] + [p] * 6 + [i] * 4 + [p],
         "beer_ellh_full": [i] + [p] * 3 + [i] * 3 + [p],
         "beer_accumulate_full": [i] + [p] * 4 + [i] * 4 + [p],
@@ -173,9 +183,12 @@ def _library() -> ctypes.CDLL:
     for name in ("beer_estep_smem_bytes", "beer_estep_gamma_smem_bytes"):
         getattr(lib, name).argtypes = [i, i, i]
         getattr(lib, name).restype = z
-    for name in ("beer_dense_forward_smem_bytes", "beer_dense_estep_smem_bytes"):
+    for name in ("beer_dense_forward_smem_bytes", "beer_dense_estep_smem_bytes",
+                 "beer_scaled_pass_smem_bytes", "beer_smoothing_smem_bytes"):
         getattr(lib, name).argtypes = [i, i]
         getattr(lib, name).restype = z
+    lib.beer_dense_estep_restricted_smem_bytes.argtypes = [i, i, i]
+    lib.beer_dense_estep_restricted_smem_bytes.restype = z
     lib.beer_stats_smem_bytes.argtypes = [i, i, i]
     lib.beer_stats_smem_bytes.restype = z
     lib.beer_stats_blocks.argtypes = [i, i, i, i, i]
@@ -191,8 +204,8 @@ def refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but this kernel has no backward; take the "
-            "autograd route (semiring_scan.PhoneLoopLogZ / HMMLogZ, stats_kernels.EllhFull) "
-            "or call it under torch.no_grad()")
+            "autograd route (semiring_scan.PhoneLoopLogZ / HMMLogZ / forward_backward_probs, "
+            "stats_kernels.EllhFull) or call it under torch.no_grad()")
 
 
 def _check(tensors: dict, device: torch.device, dtypes: dict) -> None:
@@ -246,33 +259,70 @@ def _shift_up(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(x[..., 1:], (0, 1))
 
 
+def _band_propagators(bands):
+    """(forward p ↦ pA, backward v ↦ Av) through A = diag(a_self) +
+    superdiag(a_adv) + exit ⊗ w, for ``bands`` (4, S) = [a_self, a_adv,
+    exit, w]: lane 0 takes no advance, the last lane gives none."""
+    a_self, a_adv, exit_v, w_v = bands
+
+    def forward(p):
+        q = (p * exit_v).sum(-1, keepdim=True)
+        return p * a_self + _shift_down(p * a_adv) + q * w_v
+
+    def backward(v):
+        r = (v * w_v).sum(-1, keepdim=True)
+        return v * a_self + _shift_up(v) * a_adv + r * exit_v
+
+    return forward, backward
+
+
+def _prefix_mask(lens: torch.Tensor, t_len: int, like: torch.Tensor) -> torch.Tensor:
+    """(B, T) prefix mask of ``lens`` in ``like``'s dtype, on its device."""
+    steps = torch.arange(t_len, device=like.device)
+    return (steps[None, :] < lens.to(like.device)[:, None]).to(like.dtype)
+
+
 # ----------------------------------------------------------------------
 # The plain recursions shared by the banded and the dense kernels
 # ----------------------------------------------------------------------
-def _forward_plain(llh, lens, init, propagate):
+def _forward_plain(llh, lens, init, propagate, shifts: bool = False):
     """Scaled forward of K1 and K5: α̂_t = normalise(propagate(α̂_{t−1}) ⊙
     exp(llh_t − max)), α̂_0 from ``init`` ((S,) or (B, S)).  Returns (α̂,
-    norms, last, logz_base) as the kernels do."""
+    norms, last, logz_base) as the kernels do.
+
+    ``shifts`` is K14's contract: frame 0 fires on every row (an empty
+    row sees e = 1 there), frames t >= max(len, 1) copy the carry into α̂,
+    and the masked row maxima (B, T) are returned as a fifth output."""
     b, t_len, s = llh.shape
     tiny = torch.finfo(llh.dtype).tiny
     lens = lens.to(llh.device)
     alpha = llh.new_zeros(b, t_len, s)
     norms = llh.new_ones(b, t_len)
+    shift = llh.new_zeros(b, t_len) if shifts else None
     logz = llh.new_zeros(b)
     p = init.expand(b, s).clone()
-    for t in range(_max_len(lens)):
-        valid = (t < lens)[:, None]
-        llh_t = llh[:, t]
+    n_steps = _max_len(lens)
+    if shifts:
+        n_steps = min(max(n_steps, 1), t_len)
+    for t in range(n_steps):
+        real = (t < lens)[:, None]
+        valid = real | (t == 0) if shifts else real
+        llh_t = torch.where(real, llh[:, t], 0.0) if shifts else llh[:, t]
         mx = llh_t.max(-1, keepdim=True).values
         base = p if t == 0 else propagate(p)
         raw = base * torch.exp(llh_t - mx)
         norm = raw.sum(-1, keepdim=True).clamp_min(tiny)
         p_new = raw / norm
         p = torch.where(valid, p_new, p)
-        alpha[:, t] = torch.where(valid, p_new, 0.0)
+        alpha[:, t] = p if shifts else torch.where(valid, p_new, 0.0)
         norms[:, t] = torch.where(valid, norm, 1.0)[:, 0]
+        if shifts:
+            shift[:, t] = torch.where(real, mx, 0.0)[:, 0]
         logz = torch.where(valid[:, 0], logz + (torch.log(norm) + mx)[:, 0], logz)
-    return alpha, norms, p, logz
+    if not shifts:
+        return alpha, norms, p, logz
+    alpha[:, n_steps:] = p[:, None]
+    return alpha, norms, p, logz, shift
 
 
 def _backward_plain(llh, lens, final, alpha, norms, propagate_t, stats=None, rows=None,
@@ -329,13 +379,8 @@ def _backward_plain(llh, lens, final, alpha, norms, propagate_t, stats=None, row
 # ----------------------------------------------------------------------
 def forward_llh_banded_plain(stats, lens, w, bias, bands, init):
     """Plain version of :func:`forward_llh_banded` (any dtype and device)."""
-    a_self, a_adv, exit_v, w_v = bands
-
-    def propagate(p):
-        q = (p * exit_v).sum(-1, keepdim=True)
-        return p * a_self + _shift_down(p * a_adv) + q * w_v
-
-    return _forward_plain(torch.matmul(stats, w.T) + bias, lens, init, propagate)
+    return _forward_plain(torch.matmul(stats, w.T) + bias, lens, init,
+                          _band_propagators(bands)[0])
 
 
 def forward_llh_banded(stats, lens, w, bias, bands, init):
@@ -380,14 +425,9 @@ def _banded_backward_plain(stats, lens, w, bias, bands, final, alpha, norms, end
     """K2's (``accumulate``) or K11's plain version: the v-space backward
     through band + rank-1 transitions, v ↦ v·a_self + shift_up(v)·a_adv +
     (v·w)·exit."""
-    a_self, a_adv, exit_v, w_v = bands
-
-    def propagate_t(v):
-        r = (v * w_v).sum(-1, keepdim=True)
-        return v * a_self + _shift_up(v) * a_adv + r * exit_v
-
     return _backward_plain(torch.matmul(stats, w.T) + bias, lens, final, alpha, norms,
-                           propagate_t, stats if accumulate else None, ends.long(), starts.long())
+                           _band_propagators(bands)[1], stats if accumulate else None,
+                           ends.long(), starts.long())
 
 
 def _check_banded_backward(stats, lens, w, bias, bands, final, alpha, norms, ends, starts):
@@ -592,13 +632,13 @@ def viterbi_backtrace_banded(choices, exarg, alpha_last, log_final):
 # ----------------------------------------------------------------------
 # K5: scaled dense forward (llh stream, or stats with in-kernel ELLH)
 # ----------------------------------------------------------------------
-def forward_llh_dense_plain(x, lens, trans, init, w=None, bias=None):
+def forward_llh_dense_plain(x, lens, trans, init, w=None, bias=None, return_shifts=False):
     """Plain version of :func:`forward_llh_dense` (any dtype and device)."""
     llh = x if w is None else torch.matmul(x, w.T) + bias
-    return _forward_plain(llh, lens, init, lambda p: p @ trans)
+    return _forward_plain(llh, lens, init, lambda p: p @ trans, shifts=return_shifts)
 
 
-def forward_llh_dense(x, lens, trans, init, w=None, bias=None):
+def forward_llh_dense(x, lens, trans, init, w=None, bias=None, return_shifts=False):
     """Scaled forward through a dense (S, S) transition matrix:
     α̂_t = normalise(Aᵀ α̂_{t−1} ⊙ exp(llh_t − max)), α̂_0 from ``init``.
 
@@ -608,10 +648,21 @@ def forward_llh_dense(x, lens, trans, init, w=None, bias=None):
     S) (0 on frames t >= len), ``norms`` (B, T) per-step normalisers (1
     there), ``last`` (B, S) = α̂ at the last frame (``init`` for empty
     rows) and ``logz_base`` (B,); log Z = logz_base + log Σ last·final.
+
+    ``return_shifts`` (llh stream only) is K14, ``forward_llh_shifts_dense``:
+    a fifth output ``shifts`` (B, T) holds the row max of each frame t <
+    len (0 after), so that ``logz_base`` = Σ_t log norm_t + Σ_t shift_t.
+    Its contract on masked frames is the general path's, not K5's: frame
+    0 fires on every row (an empty row carries normalise(init), with
+    norm_0 = Σ init), and α̂ on frames t >= max(len, 1) repeats the last
+    valid α̂ instead of 0.
     """
-    refuse_grad("forward_llh_dense", x, trans, init, w, bias)
+    refuse_grad("forward_llh_shifts_dense" if return_shifts else "forward_llh_dense",
+                x, trans, init, w, bias)
+    if return_shifts and w is not None:
+        raise ValueError("return_shifts reads the llh stream: pass no w/bias")
     if x.device.type == "cpu":
-        return forward_llh_dense_plain(x, lens, trans, init, w, bias)
+        return forward_llh_dense_plain(x, lens, trans, init, w, bias, return_shifts)
     b, t_len, width = x.shape
     s = trans.shape[0]
     dev = x.device
@@ -633,6 +684,12 @@ def forward_llh_dense(x, lens, trans, init, w=None, bias=None):
     norms = torch.empty(b, t_len, device=dev)
     last = torch.empty(b, s, device=dev)
     logz = torch.empty(b, device=dev)
+    if return_shifts:
+        shifts = torch.empty(b, t_len, device=dev)
+        _launch(lib.beer_forward_llh_shifts_dense, dev.index, *map(_ptr, (
+            x, lens, trans, init, alpha, norms, last, logz, shifts)), b, t_len, s, _stream(dev))
+        KERNELS["forward_llh_shifts_dense"].launches += 1
+        return alpha, norms, last, logz, shifts
     _launch(lib.beer_forward_llh_dense, dev.index, *map(_ptr, (x, lens)),
             _ptr(w) if stats_mode else None, _ptr(bias) if stats_mode else None,
             *map(_ptr, (trans, init, alpha, norms, last, logz)), b, t_len, s, p_dim, _stream(dev))
@@ -687,13 +744,16 @@ def estep_acc_dense(stats, lens, w, bias, trans, final, alpha, norms):
     return acc[:, :p_dim], acc[:, p_dim], gamma0, out[s * (p_dim + 1):].view(s, s)
 
 
-def estep_gamma_dense_plain(llh, lens, trans, final, alpha, norms):
+def estep_gamma_dense_plain(llh, lens, trans, final, alpha, norms, rows=None, cols=None):
     """Plain version of :func:`estep_gamma_dense` (any dtype and device)."""
-    gamma, _, xi = _backward_plain(llh, lens, final, alpha, norms, lambda v: v @ trans.T)
+    if rows is not None:
+        rows, cols = rows.long(), cols.long()
+    gamma, _, xi = _backward_plain(llh, lens, final, alpha, norms, lambda v: v @ trans.T,
+                                   rows=rows, cols=cols)
     return gamma, xi
 
 
-def estep_gamma_dense(llh, lens, trans, final, alpha, norms):
+def estep_gamma_dense(llh, lens, trans, final, alpha, norms, rows=None, cols=None):
     """Backward smoothing pass over a dense (S, S) matrix that emits the
     state posteriors.
 
@@ -701,23 +761,210 @@ def estep_gamma_dense(llh, lens, trans, final, alpha, norms):
     and ``norms`` and the per-utterance ``final`` (B, S).  Returns ``gamma``
     (B, T, S) (0 on frames t >= len) and ``xi_raw`` (S, S) as
     :func:`estep_acc_dense` does.
+
+    With ``rows`` (n_r,) and ``cols`` (n_c,) int32 state indices it is K15,
+    ``estep_gamma_dense_restricted``: ``xi_raw`` is the block
+    ``[rows][:, cols]``, (n_r, n_c), gathered in the kernel (exactly; no
+    one-hot product), so only n_r·n_c floats per utterance are reduced.
     """
-    refuse_grad("estep_gamma_dense", llh, trans, final, alpha, norms)
+    refuse_grad("estep_gamma_dense" if rows is None else "estep_gamma_dense_restricted",
+                llh, trans, final, alpha, norms)
+    if (rows is None) != (cols is None):
+        raise ValueError("rows and cols restrict ξ together: pass both or neither")
     if llh.device.type == "cpu":
-        return estep_gamma_dense_plain(llh, lens, trans, final, alpha, norms)
+        return estep_gamma_dense_plain(llh, lens, trans, final, alpha, norms, rows, cols)
     b, t_len, s = llh.shape
     dev = llh.device
-    _check(dict(llh=llh, lens=lens, trans=trans, final=final, alpha=alpha, norms=norms), dev,
-           dict(lens=torch.int32))
-    for name, x, shape in (("lens", lens, (b,)), ("trans", trans, (s, s)), ("final", final, (b, s)),
-                           ("alpha", alpha, (b, t_len, s)), ("norms", norms, (b, t_len))):
+    operands = dict(llh=llh, lens=lens, trans=trans, final=final, alpha=alpha, norms=norms)
+    shapes = [("lens", lens, (b,)), ("trans", trans, (s, s)), ("final", final, (b, s)),
+              ("alpha", alpha, (b, t_len, s)), ("norms", norms, (b, t_len))]
+    restricted = rows is not None
+    if restricted:
+        operands.update(rows=rows, cols=cols)
+        shapes += [("rows", rows, (rows.numel(),)), ("cols", cols, (cols.numel(),))]
+    _check(operands, dev, dict(lens=torch.int32, rows=torch.int32, cols=torch.int32))
+    for name, x, shape in shapes:
         _shape(name, x, shape)
     lib = _library()
+    gamma = torch.empty(b, t_len, s, device=dev)
+    if restricted:
+        n_r, n_c = rows.numel(), cols.numel()
+        for name, idx in (("rows", rows), ("cols", cols)):
+            if idx.numel() and not bool(((idx >= 0) & (idx < s)).all()):
+                raise ValueError(f"{name} holds a state index outside [0, {s})")
+        _fits(f"S={s}, n_r={n_r}, n_c={n_c}",
+              lib.beer_dense_estep_restricted_smem_bytes(s, n_r, n_c))
+        part = torch.empty(b, n_r * n_c, device=dev)
+        out = torch.zeros(n_r * n_c, device=dev)
+        _launch(lib.beer_estep_gamma_dense_restricted, dev.index, *map(_ptr, (
+            llh, lens, trans, final, alpha, norms, rows, cols, part, out, gamma)),
+            b, t_len, s, n_r, n_c, _stream(dev))
+        KERNELS["estep_gamma_dense_restricted"].launches += 1
+        return gamma, out.view(n_r, n_c)
     _fits(f"S={s}", lib.beer_dense_estep_smem_bytes(s, 0))
     part = torch.empty(b, s * s, device=dev)
     out = torch.empty(s * s, device=dev)
-    gamma = torch.empty(b, t_len, s, device=dev)
     _launch(lib.beer_estep_gamma_dense, dev.index, *map(_ptr, (
         llh, lens, trans, final, alpha, norms, part, out, gamma)), b, t_len, s, _stream(dev))
     KERNELS["estep_gamma_dense"].launches += 1
     return gamma, out.view(s, s)
+
+
+# ----------------------------------------------------------------------
+# K12 / K13: the general path's scaled passes and smoothing over e_llh
+# ----------------------------------------------------------------------
+def scaled_loop(e_llh, mask, vec, step, reverse: bool = False):
+    """The scaled recursion of the general path, differentiable.
+
+    Forward: p_0 = normalise(vec ⊙ e_0), p_t = normalise(step(p_{t−1}) ⊙
+    e_t).  Reverse (the β̂ pass): the carry starts at normalise(vec), and
+    frame t stores normalise(step(p_{t+1} ⊙ e_{t+1})), consuming e and the
+    mask at t + 1.  Masked steps copy the carry into the outputs.
+    ``step`` maps (B, S) to (B, S): p ↦ pA forward, v ↦ Av in reverse.
+    Returns (probs (B, T, S), cumulative log-scales (B, T))."""
+    tiny = torch.finfo(e_llh.dtype).tiny
+    t_len = e_llh.shape[1]
+    prob = vec if reverse else vec * e_llh[:, 0]
+    norm = prob.sum(-1, keepdim=True).clamp_min(tiny)
+    prob, logc = prob / norm, torch.log(norm[:, 0])
+    probs, logcs = [prob], [logc]
+    for t in (range(t_len - 1, 0, -1) if reverse else range(1, t_len)):
+        m_t = mask[:, t, None]
+        raw = step(prob * e_llh[:, t]) if reverse else step(prob) * e_llh[:, t]
+        norm = raw.sum(-1, keepdim=True).clamp_min(tiny)
+        prob = m_t * (raw / norm) + (1 - m_t) * prob
+        logc = m_t[:, 0] * (logc + torch.log(norm[:, 0])) + (1 - m_t[:, 0]) * logc
+        probs.append(prob)
+        logcs.append(logc)
+    if reverse:
+        probs.reverse()
+        logcs.reverse()
+    return torch.stack(probs, 1), torch.stack(logcs, 1)
+
+
+def smoothing_loop(e_llh, mask, final, a_probs, step_t):
+    """The v-space backward recursion with the smoothing outputs in-step,
+    differentiable: (γ, ŵ, Σ e·β̂ (w_sums), Σ α̂·β̂ (post_norm)), each per
+    frame.  ``step_t`` maps the carry v̂ (B, S) to A v̂."""
+    b, t_len, _ = e_llh.shape
+    tiny = torch.finfo(e_llh.dtype).tiny
+    final = final.expand(b, -1)
+    mask_next = torch.cat([mask[:, 1:], mask.new_zeros(b, 1)], dim=1)
+    v_hat = final / final.sum(-1, keepdim=True).clamp_min(tiny)
+    outs = []
+    for t in range(t_len - 1, -1, -1):
+        m_t, mn_t = mask[:, t, None], mask_next[:, t, None]
+        is_last = m_t * (1.0 - mn_t)
+        u1 = is_last * final + (1.0 - is_last) * step_t(v_hat)
+        nu = u1.sum(-1, keepdim=True).clamp_min(tiny)
+        ab = a_probs[:, t] * (u1 / nu)
+        pn = ab.sum(-1, keepdim=True)
+        gamma = (ab / pn.clamp_min(tiny)) * m_t
+        v = e_llh[:, t] * u1
+        sv = v.sum(-1, keepdim=True).clamp_min(tiny)
+        w = v / sv
+        v_hat = m_t * w + (1.0 - m_t) * v_hat
+        outs.append((gamma, w, (sv / nu)[:, 0], pn[:, 0]))
+    gamma, w, wsum, pnorm = (torch.stack(x[::-1], 1) for x in zip(*outs))
+    return gamma, w, wsum, pnorm
+
+
+def _general_steps(trans, banded: bool):
+    """(p ↦ pA, v ↦ Av) for a dense (S, S) matrix or ``bands`` (4, S)."""
+    if banded:
+        return _band_propagators(trans)
+    return (lambda p: p @ trans), (lambda v: v @ trans.T)
+
+
+def _check_general(name, banded, e_llh, lens, trans, vec, a_probs=None):
+    """K12's and K13's operand checks; returns (B, T, S)."""
+    b, t_len, s = e_llh.shape
+    operands = dict(e_llh=e_llh, lens=lens, trans=trans, vec=vec)
+    shapes = [("lens", lens, (b,)), ("trans", trans, (4, s) if banded else (s, s)),
+              ("vec", vec, (b, s))]
+    if a_probs is not None:
+        operands["a_probs"] = a_probs
+        shapes.append(("a_probs", a_probs, (b, t_len, s)))
+    _check(operands, e_llh.device, dict(lens=torch.int32))
+    for label, x, shape in shapes:
+        _shape(f"{name}: {label}", x, shape)
+    return b, t_len, s
+
+
+def scaled_pass_plain(e_llh, lens, trans, vec, banded=False, reverse=False):
+    """Plain version of :func:`scaled_pass` (any dtype and device)."""
+    forward, backward = _general_steps(trans, banded)
+    return scaled_loop(e_llh, _prefix_mask(lens, e_llh.shape[1], e_llh), vec,
+                       backward if reverse else forward, reverse)
+
+
+def scaled_pass(e_llh, lens, trans, vec, banded=False, reverse=False):
+    """Scaled recursion of the general path over precomputed likelihoods.
+
+    ``e_llh`` (B, T, S) = exp(llh − rowmax), 1 on frames t >= len;
+    ``trans`` a dense (S, S) matrix, or with ``banded`` the ``bands``
+    (4, S); ``vec`` (B, S) the initial (forward) or final (``reverse``)
+    vector.  Returns ``probs`` (B, T, S) normalised carries and ``logcs``
+    (B, T) cumulative log-scales; log Z = logcs[:, −1] + Σ shifts +
+    log Σ probs[:, −1]·final for the forward.
+
+    Forward: frame 0 fires on every row (an empty row carries
+    normalise(vec)) and frames t >= max(len, 1) repeat the last valid
+    (probs, logcs).  Reverse: β̂, whose carry starts at vec / Σvec with
+    log-scale log Σvec and is stored on frames t >= len − 1.  The three
+    instances of K12 are dense forward, banded forward and dense reverse;
+    a banded reverse raises.
+    """
+    refuse_grad("scaled_pass", e_llh, trans, vec)
+    if banded and reverse:
+        raise NotImplementedError("scaled_pass has no banded reverse instance")
+    if e_llh.device.type == "cpu":
+        return scaled_pass_plain(e_llh, lens, trans, vec, banded, reverse)
+    b, t_len, s = _check_general("scaled_pass", banded, e_llh, lens, trans, vec)
+    dev = e_llh.device
+    mode = 2 if reverse else int(banded)
+    lib = _library()
+    _fits(f"S={s}", lib.beer_scaled_pass_smem_bytes(mode, s))
+    probs = torch.empty(b, t_len, s, device=dev)
+    logcs = torch.empty(b, t_len, device=dev)
+    _launch(lib.beer_scaled_pass, dev.index, mode, *map(_ptr, (
+        e_llh, lens, trans, vec, probs, logcs)), b, t_len, s, _stream(dev))
+    KERNELS["scaled_pass"].launches += 1
+    return probs, logcs
+
+
+def smoothing_pass_plain(e_llh, a_probs, lens, trans, final, banded=False):
+    """Plain version of :func:`smoothing_pass` (any dtype and device)."""
+    return smoothing_loop(e_llh, _prefix_mask(lens, e_llh.shape[1], e_llh), final, a_probs,
+                          _general_steps(trans, banded)[1])
+
+
+def smoothing_pass(e_llh, a_probs, lens, trans, final, banded=False):
+    """v-space backward of the general path with the smoothing outputs
+    in-step, over ``e_llh`` and the forward's ``a_probs`` (both (B, T, S)).
+
+    ``trans`` is a dense (S, S) matrix, or with ``banded`` the ``bands``
+    (4, S); ``final`` (B, S).  Returns the posteriors ``gamma`` (B, T, S),
+    ``w_probs`` (B, T, S) = normalise(e·β̂), ``w_sums`` (B, T) = Σ e·β̂ and
+    ``post_norm`` (B, T) = Σ α̂·β̂, the by-products the ξ counts are rebuilt
+    from.  ``gamma`` is 0 on frames t >= len.  The other three are
+    compared and read on valid frames only: there the kernel writes
+    w_probs = 0 and w_sums = post_norm = 1, the plain version what the
+    recursion drifts to.
+    """
+    refuse_grad("smoothing_pass", e_llh, a_probs, trans, final)
+    if e_llh.device.type == "cpu":
+        return smoothing_pass_plain(e_llh, a_probs, lens, trans, final, banded)
+    b, t_len, s = _check_general("smoothing_pass", banded, e_llh, lens, trans, final, a_probs)
+    dev = e_llh.device
+    lib = _library()
+    _fits(f"S={s}", lib.beer_smoothing_smem_bytes(int(banded), s))
+    gamma = torch.empty(b, t_len, s, device=dev)
+    w_probs = torch.empty(b, t_len, s, device=dev)
+    w_sums = torch.empty(b, t_len, device=dev)
+    post_norm = torch.empty(b, t_len, device=dev)
+    _launch(lib.beer_smoothing_pass, dev.index, int(banded), *map(_ptr, (
+        e_llh, a_probs, lens, trans, final, gamma, w_probs, w_sums, post_norm)),
+        b, t_len, s, _stream(dev))
+    KERNELS["smoothing_pass"].launches += 1
+    return gamma, w_probs, w_sums, post_norm

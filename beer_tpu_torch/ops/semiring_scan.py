@@ -3,12 +3,22 @@
 Counterpart of the parts of ``beer_tpu/ops/semiring_scan.py`` that the
 phone-loop and HMM slices need:
 
-* the general probability-space path — :func:`forward_backward_probs`
-  and :func:`expected_transition_counts_probs` over a shared (S, S) or
+* the general path — :func:`forward_backward_probs` (probability space)
+  and :func:`forward_backward` (log domain) with their ξ counts
+  :func:`expected_transition_counts_probs` /
+  :func:`expected_transition_counts`, over a shared (S, S) or
   per-utterance (B, S, S) transition matrix, and the dense (max,+)
-  :func:`viterbi`; plain torch loops over time.  It is the oracle the
-  fused routes are held against and the body of ``PhoneLoop.smooth``
-  and of the per-utterance-graph E-step and posteriors;
+  :func:`viterbi`.  On one shared matrix the recursions are the kernels
+  K12 (``scaled_pass``: dense forward, banded forward, dense reverse) and
+  K13 (``smoothing_pass``: dense, banded) on CUDA tensors, with a
+  gradient through :class:`ScaledPass` / :class:`SmoothingPass`;
+  per-utterance matrices take plain torch loops over time.  It is the
+  oracle the fused routes are held against, the body of
+  ``PhoneLoop.smooth`` (the materialised posteriors of the subspace-HMM
+  statistics bridge) and of the per-utterance-graph E-step and posteriors;
+* :func:`forward_llh` (K14) and :func:`phone_loop_estep` (K15): the
+  llh-stream scaled forward with the row-max shifts written out, and the
+  γ-emitting dense backward with ξ restricted to a block;
 * the fused phone-loop E-step ops :func:`phone_loop_forward` and
   :func:`phone_loop_estep_acc` and the banded decode
   :func:`viterbi_banded`, and the fused dense-transition HMM E-step ops
@@ -51,65 +61,157 @@ class FBProbs(NamedTuple):
     log_z: torch.Tensor           # (B,)
 
 
+class FBResult(NamedTuple):
+    """Log-domain smoothing result (see the JAX package's FBResult)."""
+
+    log_alpha: torch.Tensor   # (B, T, S)
+    log_beta: torch.Tensor    # (B, T, S)
+    log_z: torch.Tensor       # (B,)
+    posteriors: torch.Tensor  # (B, T, S) γ, zero on padded frames
+
+
 def _clamp(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=_NEG_INF)
 
 
-def _propagate(prob, trans):
-    """prob (B, S) @ trans: Σ_i prob_i A(i, j), for one shared (S, S) or
-    per-utterance (B, S, S) matrix."""
-    if trans.ndim == 3:
-        return torch.bmm(prob[:, None], trans)[:, 0]
-    return torch.matmul(prob, trans)
+def _scaled_likelihoods(llh, mask):
+    """e_llh = exp(llh − rowmax), 1 on masked frames, and the masked row
+    maxima (B, T) that go back into the log-scales."""
+    m_e = mask[..., None]
+    m_llh = llh.max(-1, keepdim=True).values
+    return torch.exp(llh - m_llh) * m_e + (1 - m_e), m_llh[..., 0] * mask
 
 
-def _scaled_forward(e_llh, trans, init_vec, mask):
-    """Scaled forward recursion: normalized carries plus cumulative log-scale.
-
-    Returns (probs (B, T, S), logcs (B, T), (last prob, last logc));
-    masked steps copy the carry."""
-    tiny = torch.finfo(e_llh.dtype).tiny
-    prob = init_vec * e_llh[:, 0]
-    norm = prob.sum(-1, keepdim=True).clamp_min(tiny)
-    prob, logc = prob / norm, torch.log(norm[:, 0])
-    probs, logcs = [prob], [logc]
-    for t in range(1, e_llh.shape[1]):
-        m_t = mask[:, t, None]
-        raw = _propagate(prob, trans) * e_llh[:, t]
-        norm = raw.sum(-1, keepdim=True).clamp_min(tiny)
-        prob = m_t * (raw / norm) + (1 - m_t) * prob
-        logc = m_t[:, 0] * (logc + torch.log(norm[:, 0])) + (1 - m_t[:, 0]) * logc
-        probs.append(prob)
-        logcs.append(logc)
-    return torch.stack(probs, 1), torch.stack(logcs, 1), (prob, logc)
+def _recompute_vjp(fn, tensors, needs, cts):
+    """Gradients of ``fn(*tensors)`` (a plain, differentiable recursion)
+    recomputed from the saved inputs: one per tensor, None where
+    ``needs`` says no gradient is asked for."""
+    with torch.enable_grad():
+        inputs = [x.detach().requires_grad_(need) for x, need in zip(tensors, needs)]
+        pairs = [(out, ct) for out, ct in zip(fn(*inputs), cts) if out.requires_grad]
+        grads = torch.autograd.grad([out for out, _ in pairs],
+                                    [x for x in inputs if x.requires_grad],
+                                    [ct for _, ct in pairs], allow_unused=True)
+    it = iter(grads)
+    return tuple(next(it) if need else None for need in needs)
 
 
-def _smoothing_scan(e_llh, trans, final_vec, mask, a_probs):
-    """v-space backward recursion with the smoothing outputs in-step:
-    (γ, ŵ, Σ e·β̂ (w_sums), Σ α̂·β̂ (post_norm)), each per frame."""
-    b, t_len, _ = e_llh.shape
-    tiny = torch.finfo(e_llh.dtype).tiny
-    final = final_vec.expand(b, -1)
-    trans_t = trans.transpose(-1, -2)
-    mask_next = torch.cat([mask[:, 1:], mask.new_zeros(b, 1)], dim=1)
-    v_hat = final / final.sum(-1, keepdim=True).clamp_min(tiny)
-    outs = []
-    for t in range(t_len - 1, -1, -1):
-        m_t, mn_t = mask[:, t, None], mask_next[:, t, None]
-        is_last = m_t * (1.0 - mn_t)
-        u1 = _propagate(v_hat, trans_t)
-        u1 = is_last * final + (1.0 - is_last) * u1
-        nu = u1.sum(-1, keepdim=True).clamp_min(tiny)
-        ab = a_probs[:, t] * (u1 / nu)
-        pn = ab.sum(-1, keepdim=True)
-        gamma = (ab / pn.clamp_min(tiny)) * m_t
-        v = e_llh[:, t] * u1
-        sv = v.sum(-1, keepdim=True).clamp_min(tiny)
-        w = v / sv
-        v_hat = m_t * w + (1.0 - m_t) * v_hat
-        outs.append((gamma, w, (sv / nu)[:, 0], pn[:, 0]))
-    gamma, w, wsum, pnorm = (torch.stack(x[::-1], 1) for x in zip(*outs))
-    return gamma, w, wsum, pnorm
+class ScaledPass(torch.autograd.Function):
+    """K12 with a gradient: the kernel in the forward, and in the backward
+    the plain recursion recomputed from the saved inputs and differentiated
+    (the counterpart of the JAX package's ``_make_pallas_diffable``).
+
+    ``ScaledPass.apply(e_llh, trans, vec, lens, banded, reverse) ->
+    (probs, logcs)``; see :func:`cuda_scan.scaled_pass`."""
+
+    @staticmethod
+    def forward(ctx, e_llh, trans, vec, lens, banded, reverse):
+        ctx.save_for_backward(e_llh, trans, vec, lens)
+        ctx.flags = (banded, reverse)
+        return cuda_scan.scaled_pass(e_llh, lens, trans, vec, banded, reverse)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        *tensors, lens = ctx.saved_tensors
+        banded, reverse = ctx.flags
+        grads = _recompute_vjp(
+            lambda e, a, v: cuda_scan.scaled_pass_plain(e, lens, a, v, banded, reverse),
+            tensors, ctx.needs_input_grad[:3], cts)
+        return (*grads, None, None, None)
+
+
+class SmoothingPass(torch.autograd.Function):
+    """K13 with a gradient, as :class:`ScaledPass` (the JAX package's
+    ``_make_smoothing_diffable``).
+
+    ``SmoothingPass.apply(e_llh, a_probs, trans, final, lens, banded) ->
+    (gamma, w_probs, w_sums, post_norm)``; see
+    :func:`cuda_scan.smoothing_pass`."""
+
+    @staticmethod
+    def forward(ctx, e_llh, a_probs, trans, final, lens, banded):
+        ctx.save_for_backward(e_llh, a_probs, trans, final, lens)
+        ctx.banded = banded
+        return cuda_scan.smoothing_pass(e_llh, a_probs, lens, trans, final, banded)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        *tensors, lens = ctx.saved_tensors
+        banded = ctx.banded
+        grads = _recompute_vjp(
+            lambda e, a, m, f: cuda_scan.smoothing_pass_plain(e, a, lens, m, f, banded),
+            tensors, ctx.needs_input_grad[:4], cts)
+        return (*grads, None, None)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
+def _general_passes(e_llh, mask, log_trans, structured_trans, plain):
+    """The scaled pass and the smoothing pass of the general path on these
+    operands, as ``(run_scaled(vec, reverse), run_smoothing(a_probs,
+    final))``.
+
+    One shared (S, S) matrix goes through K12/K13 (the kernels on CUDA
+    tensors, their plain versions on CPU tensors; banded when
+    ``structured_trans`` is given, except for the reverse pass, which has
+    no banded instance), by way of :class:`ScaledPass` /
+    :class:`SmoothingPass` when an input requires grad.  Per-utterance
+    (B, S, S) matrices, and ``plain``, take the plain torch loops on any
+    device."""
+    trans = torch.exp(log_trans)
+    if trans.ndim == 3 or plain:
+        if trans.ndim == 3:
+            steps = (lambda p: torch.bmm(p[:, None], trans)[:, 0],
+                     lambda v: torch.bmm(trans, v[..., None])[..., 0])
+            dense_steps = steps
+        else:
+            dense_steps = cuda_scan._general_steps(trans, False)
+            steps = dense_steps if structured_trans is None else \
+                cuda_scan._general_steps(structured_trans, True)
+
+        def run_scaled(vec, reverse=False):
+            step = dense_steps[1] if reverse else steps[0]
+            return cuda_scan.scaled_loop(e_llh, mask, vec, step, reverse)
+
+        def run_smoothing(a_probs, final):
+            return cuda_scan.smoothing_loop(e_llh, mask, final, a_probs, steps[1])
+
+        return run_scaled, run_smoothing
+
+    lens = mask.sum(-1).to(torch.int32)
+    if not bool((mask == cuda_scan._prefix_mask(lens, mask.shape[1], mask)).all()):
+        raise ValueError("the general-path kernels take the lengths of prefix masks: this mask "
+                         "has a gap; pass plain=True for a mask that is honoured frame by frame")
+    banded = structured_trans is not None
+    mat = structured_trans.to(e_llh.dtype).contiguous() if banded else trans.contiguous()
+    dense = trans.contiguous()
+
+    def run_scaled(vec, reverse=False):
+        use_bands = banded and not reverse
+        args = (e_llh, mat if use_bands else dense, vec.contiguous())
+        if _needs_grad(*args):
+            return ScaledPass.apply(*args, lens, use_bands, reverse)
+        return cuda_scan.scaled_pass(args[0], lens, args[1], args[2], use_bands, reverse)
+
+    def run_smoothing(a_probs, final):
+        args = (e_llh, a_probs, mat, final.contiguous())
+        if _needs_grad(*args):
+            return SmoothingPass.apply(*args, lens, banded)
+        return cuda_scan.smoothing_pass(args[0], args[1], lens, args[2], args[3], banded)
+
+    return run_scaled, run_smoothing
+
+
+def _fb_operands(llh, log_init, log_final, mask):
+    b, t_len, s = llh.shape
+    if mask is None:
+        mask = llh.new_ones(b, t_len)
+    e_llh, shifts = _scaled_likelihoods(llh, mask)
+    init_vec = torch.exp(_clamp(log_init)).expand(b, s).to(llh.dtype)
+    final_vec = torch.exp(_clamp(log_final)).expand(b, s).to(llh.dtype)
+    return mask, e_llh.contiguous(), shifts, init_vec, final_vec
 
 
 def forward_backward_probs(
@@ -118,29 +220,79 @@ def forward_backward_probs(
     log_init: torch.Tensor,
     log_final: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    structured_trans: Optional[torch.Tensor] = None,
+    plain: bool = False,
 ) -> FBProbs:
     """Probability-space smoothing over a dense (S, S) or per-utterance
     (B, S, S) transition matrix, with (S,) or (B, S) init/final vectors.
 
     γ_t = α̂_t·β̂_t / Σ_s α̂_t(s)·β̂_t(s) is exactly softmax(logα + logβ);
     ξ-counts come from :func:`expected_transition_counts_probs` on the
-    same by-products."""
-    b, t_len, s = llh.shape
-    if mask is None:
-        mask = llh.new_ones(b, t_len)
+    same by-products.
+
+    One shared matrix runs the scaled forward (K12) and the smoothing
+    backward (K13) as kernels on CUDA tensors — through the band + rank-1
+    instances when ``structured_trans`` (4, S) = [a_self, a_adv, exit, w]
+    is given (it must densify to exp(log_trans); a phone loop guarantees
+    it) — and differentiably (see :class:`ScaledPass`).  The kernels take
+    the lengths of prefix masks: a ``mask`` with a gap raises.  Per-utterance
+    matrices, and ``plain=True`` on any device, take the plain torch loops
+    over time.  On frames t >= len only ``posteriors`` (0),
+    ``probs_fwd`` and ``fwd_log_scales`` (the last valid values) are
+    defined; the other by-products differ between the routes there."""
+    mask, e_llh, shifts, init_vec, final_vec = _fb_operands(llh, log_init, log_final, mask)
     tiny = torch.finfo(llh.dtype).tiny
-    m_e = mask[..., None]
-    m_llh = llh.max(-1, keepdim=True).values
-    e_llh = torch.exp(llh - m_llh) * m_e + (1 - m_e) * 1.0
-    shift_total = (m_llh[..., 0] * mask).sum(1)
-    trans = torch.exp(log_trans)
-    init_vec = torch.exp(_clamp(log_init)).expand(b, s).to(llh.dtype)
-    final_vec = torch.exp(_clamp(log_final)).expand(b, s).to(llh.dtype)
-    a_probs, a_logcs, (a_last, a_logc_last) = _scaled_forward(e_llh, trans, init_vec, mask)
-    gamma, w, wsum, pnorm = _smoothing_scan(e_llh, trans, final_vec, mask, a_probs)
-    log_z = a_logc_last + shift_total + torch.log(
-        (a_last * final_vec).sum(-1).clamp_min(tiny))
+    run_scaled, run_smoothing = _general_passes(e_llh, mask, log_trans, structured_trans, plain)
+    a_probs, a_logcs = run_scaled(init_vec)
+    gamma, w, wsum, pnorm = run_smoothing(a_probs, final_vec)
+    log_z = a_logcs[:, -1] + shifts.sum(1) + torch.log(
+        (a_probs[:, -1] * final_vec).sum(-1).clamp_min(tiny))
     return FBProbs(a_probs, gamma, w, wsum, pnorm, a_logcs, log_z)
+
+
+def forward_backward(
+    llh: torch.Tensor,
+    log_trans: torch.Tensor,
+    log_init: torch.Tensor,
+    log_final: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    plain: bool = False,
+) -> FBResult:
+    """Full smoothing pass in the log domain: log α, log β, log Z and the
+    per-frame state posteriors softmax(log α + log β).
+
+    Runs the scaled forward and the scaled β̂ pass (K12, dense forward and
+    dense reverse, on a shared (S, S) matrix on CUDA tensors; the plain
+    loops otherwise, as :func:`forward_backward_probs`) and recovers the
+    log-domain arrays with one vectorised log over the stored outputs."""
+    mask, e_llh, shifts, init_vec, final_vec = _fb_operands(llh, log_init, log_final, mask)
+    tiny = torch.finfo(llh.dtype).tiny
+    shift_fwd = torch.cumsum(shifts, dim=1)
+    run_scaled, _ = _general_passes(e_llh, mask, log_trans, None, plain)
+    a_probs, a_logcs = run_scaled(init_vec)
+    log_alpha = torch.log(a_probs.clamp_min(tiny)) + (a_logcs + shift_fwd)[..., None]
+    b_probs, b_logcs = run_scaled(final_vec, reverse=True)
+    # the shift of β_t: the row maxima of the valid frames t+1 … T−1
+    shift_bwd = shift_fwd[:, -1:] - shift_fwd
+    log_beta = torch.log(b_probs.clamp_min(tiny)) + (b_logcs + shift_bwd)[..., None]
+    log_z = a_logcs[:, -1] + shift_fwd[:, -1] + torch.log(
+        (a_probs[:, -1] * final_vec).sum(-1).clamp_min(tiny))
+    posteriors = torch.softmax(log_alpha + log_beta, dim=-1) * mask[..., None]
+    return FBResult(log_alpha, log_beta, log_z, posteriors)
+
+
+def _xi_outer(u, w, weight, trans_prob, rows, cols):
+    """Σ_t weight_t · outer(u_t, w_t) ⊙ A over the batch, optionally
+    restricted to ``[rows][:, cols]`` (shared (S, S) matrix only; a
+    per-utterance (B, S, S) one weighs each utterance's outer products by
+    its own matrix)."""
+    if trans_prob.ndim == 3:
+        return torch.einsum("bti,btj,bt,bij->ij", u, w, weight, trans_prob)
+    if rows is not None:
+        # an exact gather: no selection product, so no rounding of ξ
+        u, w = u[..., rows], w[..., cols]
+        trans_prob = trans_prob[rows][:, cols]
+    return torch.einsum("bti,btj,bt->ij", u, w, weight) * trans_prob
 
 
 def expected_transition_counts_probs(
@@ -151,12 +303,13 @@ def expected_transition_counts_probs(
     cols: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Σ_t ξ_t over the batch from :func:`forward_backward_probs`'s carries,
-    optionally restricted to the block ``[rows][:, cols]`` (shared
-    (S, S) ``log_trans`` only; a per-utterance (B, S, S) one weighs each
-    utterance's outer products by its own matrix).
+    optionally restricted to the block ``[rows][:, cols]``.
 
     The per-frame normalizer uᵀAw_{t+1} is recovered exactly from pass
-    by-products: c_{t+1} · Σ α̂_{t+1}β̂_{t+1} / Σ e_{t+1}β̂_{t+1}."""
+    by-products: c_{t+1} · Σ α̂_{t+1}β̂_{t+1} / Σ e_{t+1}β̂_{t+1}, with the
+    per-step scale c_{t+1} = exp(logc_{t+1} − logc_t) taken from the
+    cumulative log-scales (in float32 that difference loses digits as logc
+    grows: ξ agrees with a float64 run to about 1e-4, relative)."""
     tiny = torch.finfo(fbp.probs_fwd.dtype).tiny
     logcs = fbp.fwd_log_scales
     b, t_len = fbp.w_sums.shape
@@ -166,14 +319,32 @@ def expected_transition_counts_probs(
     denom = step_norm * fbp.post_norm[:, 1:] / fbp.w_sums[:, 1:].clamp_min(tiny)
     m_tail = u.new_ones(b, t_len - 1) if mask is None else mask[:, 1:]
     weight = torch.where(denom > 1e-30, m_tail / denom.clamp_min(1e-30), 0.0)
+    return _xi_outer(u, w, weight, torch.exp(log_trans), rows, cols)
+
+
+def expected_transition_counts(
+    log_alpha: torch.Tensor,
+    log_beta: torch.Tensor,
+    llh: torch.Tensor,
+    log_trans: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    rows: Optional[torch.Tensor] = None,
+    cols: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Σ_t ξ_t over the batch from :func:`forward_backward`'s log-domain
+    arrays: ξ_t = outer(u_t, w_{t+1}) ⊙ A / (u_tᵀ A w_{t+1}) with u =
+    softmax(log α_t) and w = softmax(llh_{t+1} + log β_{t+1}), so the
+    result depends on no absolute scale of the recursions."""
+    b, t_len, _ = llh.shape
+    if mask is None:
+        mask = llh.new_ones(b, t_len)
+    u = torch.softmax(log_alpha[:, :-1], dim=-1)
+    w = torch.softmax(_clamp(llh[:, 1:] + log_beta[:, 1:]), dim=-1)
     trans_prob = torch.exp(log_trans)
-    if trans_prob.ndim == 3:
-        return torch.einsum("bti,btj,bt,bij->ij", u, w, weight, trans_prob)
-    if rows is not None:
-        # an exact gather: no selection product, so no rounding of ξ
-        u, w = u[..., rows], w[..., cols]
-        trans_prob = trans_prob[rows][:, cols]
-    return torch.einsum("bti,btj,bt->ij", u, w, weight) * trans_prob
+    spec = "bti,bij,btj->bt" if trans_prob.ndim == 3 else "bti,ij,btj->bt"
+    denom = torch.einsum(spec, u, trans_prob, w)
+    weight = torch.where(denom > 1e-30, mask[:, 1:] / denom.clamp_min(1e-30), 0.0)
+    return _xi_outer(u, w, weight, trans_prob, rows, cols)
 
 
 def viterbi(llh, log_trans, log_init, log_final, mask=None):
@@ -255,6 +426,41 @@ def hmm_estep_gamma(llh, lens, trans, final, alpha, norms, plain: bool = False):
     S), xi_raw (S, S)).  See :func:`cuda_scan.estep_gamma_dense`."""
     fn = cuda_scan.estep_gamma_dense_plain if plain else cuda_scan.estep_gamma_dense
     return fn(llh, lens, trans, final, alpha, norms)
+
+
+def forward_llh(llh, trans, init, lens, plain: bool = False):
+    """Scaled dense forward from the raw llh stream (B, T, S): (α̂ (B, T, S),
+    per-step norms (B, T), masked row-max shifts (B, T)), with
+    log Z = Σ_t log norm_t + Σ_t shift_t + log Σ α̂[:, −1]·final.  Masked
+    frames repeat the last valid α̂ with norm 1 and shift 0, and frame 0
+    fires on every row.  Batch-major and over lengths, like the port's
+    other fused ops (the JAX function is time-major over a mask).  Not
+    differentiable: :class:`HMMLogZ` is the gradient route over an llh
+    stream.  See :func:`cuda_scan.forward_llh_dense` (``return_shifts``)."""
+    fn = cuda_scan.forward_llh_dense_plain if plain else cuda_scan.forward_llh_dense
+    alpha, norms, _, _, shifts = fn(llh, lens, trans, init, return_shifts=True)
+    return alpha, norms, shifts
+
+
+def phone_loop_estep(llh, alpha, norms, trans, final, lens, rows, cols, plain: bool = False):
+    """γ-emitting dense smoothing pass with ξ restricted in the kernel:
+    (γ (B, T, S), xi_raw (n_r, n_c)) from the llh stream and
+    :func:`forward_llh`'s α̂ and norms; multiply ``xi_raw`` by
+    ``trans[rows][:, cols]`` for the expected counts.  ``rows``/``cols``
+    are int32 state indices.  See :func:`cuda_scan.estep_gamma_dense`."""
+    fn = cuda_scan.estep_gamma_dense_plain if plain else cuda_scan.estep_gamma_dense
+    return fn(llh, lens, trans, final, alpha, norms, rows, cols)
+
+
+def phone_loop_estep_reference(llh, log_trans, log_init, log_final, mask, rows, cols):
+    """The general-path composition equal to :func:`forward_llh` +
+    :func:`phone_loop_estep`: (γ (B, T, S), raw ξ outer (n_r, n_c))."""
+    fbp = forward_backward_probs(llh, log_trans, log_init, log_final, mask, plain=True)
+    xi = expected_transition_counts_probs(fbp, log_trans, mask, rows=rows, cols=cols)
+    trans_blk = torch.exp(log_trans)[rows][:, cols]
+    xi_raw = torch.where(trans_blk > 0,
+                         xi / trans_blk.clamp_min(torch.finfo(llh.dtype).tiny), 0.0)
+    return fbp.posteriors, xi_raw
 
 
 def log_bands(bands: torch.Tensor) -> torch.Tensor:

@@ -14,8 +14,13 @@ T=300), then config 1 (the full-covariance Bayesian GMM, K=64 over all
 full-covariance GMM emissions (2 components per state), then config 5
 (the structured VAE: a SequenceVAE with tanh MLPs of 2 × 128 over a
 phone-loop latent prior of 10 units × 3 states, dz = 16, on the first
-256 × 250 frames of the bench data), with random data and weights from
-fixed seeds, in fourteen phases, each printing one line:
+256 × 250 frames of the bench data), then the subspace-HMM (one outer
+iteration on config 4's loop and data: phone-loop E-step with
+materialised posteriors, per-unit statistics, 200 gradient steps of a
+GSM with an 8-dim embedding and learned transitions, moment-matched
+write-back; and the H-SHMM gradient step at bench config 6's shape, 3
+languages × 50 units), with random data and weights from fixed seeds, in
+seventeen phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the hand-written CUDA kernels from the sources in
@@ -74,6 +79,32 @@ fixed seeds, in fourteen phases, each printing one line:
    one config-5 step: device time by kernel, the launch count and the
    device's busy share of the step's wall time (under the profiler).
 
+15. general kernels: K12 ``scaled_pass`` (dense forward, banded
+   forward, dense reverse) and K13 ``smoothing_pass`` (dense, banded)
+   against their plain versions at config 4's shape plus two zero-length
+   rows, the banded instances also at S = 450 (150 units × 3) and against
+   the dense ones, both also at S = 30 (why ``PhoneLoop.smooth`` always
+   takes the banded pair); K14 (K5 writing the row-max shifts) and K15 (K7 with ξ
+   restricted to a block) at config 2's and config 4's shapes; CUDA-event
+   medians of every instance and its plain version;
+16. gsm slice: one subspace-HMM outer iteration at config 4's full shape:
+   2 VB steps, ``accumulate_unit_stats`` with transitions through K12 +
+   K13 (launch counters read around it: K12 1, K13 1, K1 and K2 0)
+   against the plain route, 200 Adam steps of the GSM ELBO (it must
+   rise), the moment-matched write-back (the loop's E[T] must equal the
+   Monte-Carlo moments), one more VB step and a decode, and the launch
+   counts are read there; after that, off the path, the log-domain
+   ``forward_backward`` (K12 forward + reverse) against
+   ``forward_backward_probs``; K14 + K15 through ``forward_llh`` /
+   ``phone_loop_estep`` against the general path; small problems against
+   the float64 general path on the CPU; a few H-SHMM gradient steps at
+   bench config 6's shape (finite and rising);
+17. gsm times: ``PhoneLoop.smooth`` (banded instances), the same work
+   through the dense ones and on the plain route, ``accumulate_unit_stats``, the GSM
+   and the H-SHMM gradient step (ms/step, steps/s), the write-back, the
+   whole outer iteration, and ``torch.profiler`` traces of the statistics
+   bridge and of one GSM step (device time, launches, busy share).
+
 Then one JSON line describing the kernels (each with its least time on
 the card, ``bound_ms``: the larger of its bytes over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, counting the valid frames of this
@@ -108,6 +139,9 @@ GMM_K = 64                                  # config 1 (bench.py:222)
 SVAE_B, SVAE_T, SVAE_DZ, SVAE_H = 256, 250, 16, 128   # config 5 (bench.py:416-418)
 SVAE_UNITS, SVAE_SPU = 10, 3
 GVAE_N, GVAE_D, GVAE_DZ, GVAE_K, GVAE_H = 512, 16, 2, 4, 64   # examples/svae_demo.py
+GSM_EMBED, GSM_LANG_DIM, GSM_LANGS, GSM_NSAMPLES = 8, 2, 3, 4   # config 6 (bench.py:679-680)
+GSM_STEPS, GSM_LR, GSM_WRITEBACK_SAMPLES = 200, 5e-2, 64      # bench.py:724
+BIG_UNITS = 150                             # a large phone loop: S = 450, banded instances only
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM (NVIDIA data sheet)
 F32_FLOPS = 67e12                           # float32 outside the tensor cores
@@ -127,6 +161,10 @@ REPLACES = {
     "ellh_full": "beer_tpu/ops/stats_kernels.py:62",
     "accumulate_full": "beer_tpu/ops/stats_kernels.py:119",
     "estep_gamma_banded": "beer_tpu/ops/pallas_scan.py:1844",
+    "scaled_pass": "beer_tpu/ops/pallas_scan.py:195",
+    "smoothing_pass": "beer_tpu/ops/pallas_scan.py:523",
+    "forward_llh_shifts_dense": "beer_tpu/ops/pallas_scan.py:845",
+    "estep_gamma_dense_restricted": "beer_tpu/ops/pallas_scan.py:2407",
 }
 
 
@@ -1152,6 +1190,451 @@ def phase_svae_times(runs):
          "config5_step_profile": prof}))
 
 
+# ----------------------------------------------------------------------
+# The subspace-HMM: the general path (K12–K15), GSM and H-SHMM
+# ----------------------------------------------------------------------
+def general_operands(loop, x, m):
+    """The general path's kernel operands of a phone loop on ``x``/``m``:
+    llh, e_llh, lens, the dense matrix, the bands, per-row init/final."""
+    stats = loop.sufficient_statistics(x)
+    llh = loop.modelset.expected_log_likelihood(stats).contiguous()
+    graph = loop._effective_graph()
+    e_llh, _ = tss._scaled_likelihoods(llh, m)
+    b, _, s = llh.shape
+    vec = lambda lv: torch.exp(torch.clamp(lv, min=-1e30)).expand(b, s).contiguous()  # noqa: E731
+    return dict(llh=llh, e_llh=e_llh.contiguous(), lens=m.sum(-1).to(torch.int32), mask=m,
+                trans=torch.exp(graph.log_trans).contiguous(),
+                bands=loop._structured_trans(llh.dtype).contiguous(), init=vec(graph.log_init),
+                final=vec(graph.log_final), graph=graph, ends=loop._ends().to(torch.int32),
+                starts=loop._starts().to(torch.int32))
+
+
+def valid_err(got, want, mask, relative=False):
+    """Largest difference over the valid frames, abs or relative to the
+    largest valid magnitude."""
+    m = mask[..., None] if got.ndim == 3 else mask
+    err = float(((got - want) * m).abs().max())
+    return err / float((want * m).abs().max().clamp_min(1e-30)) if relative else err
+
+
+def general_instance(o, banded):
+    """K12 forward + K13 of one instance against the plain versions;
+    returns the kernel outputs, the errors and the two timing rows."""
+    mat = o["bands"] if banded else o["trans"]
+    fwd = (o["e_llh"], o["lens"], mat, o["init"])
+    probs, logcs = cuda_scan.scaled_pass(*fwd, banded=banded)
+    probs_p, logcs_p = cuda_scan.scaled_pass_plain(*fwd, banded=banded)
+    errs = dict(alpha=float((probs - probs_p).abs().max()), logcs=rel(logcs, logcs_p))
+    smo = (o["e_llh"], probs, o["lens"], mat, o["final"])
+    got = cuda_scan.smoothing_pass(*smo, banded=banded)
+    want = cuda_scan.smoothing_pass_plain(*smo, banded=banded)
+    check(not bool(got[0][o["mask"] == 0].any()), "smoothing_pass: gamma must be 0 on t >= len")
+    errs.update(gamma=valid_err(got[0], want[0], o["mask"]),
+                w_probs=valid_err(got[1], want[1], o["mask"]),
+                w_sums=valid_err(got[2], want[2], o["mask"], relative=True),
+                post_norm=valid_err(got[3], want[3], o["mask"], relative=True))
+    fbs = [tss.FBProbs(p, g[0], g[1], g[2], g[3], c, None)
+           for p, c, g in ((probs, logcs, got), (probs_p, logcs_p, want))]
+    xi = [tss.expected_transition_counts_probs(f, o["graph"].log_trans, o["mask"]) for f in fbs]
+    errs["xi"] = rel(xi[0], xi[1])
+    del want, fbs, probs_p, logcs_p
+    b, t_len, s = o["e_llh"].shape
+    nv = float(o["lens"].sum())
+    n_mat = 4 * s if banded else s * s
+    rows = {
+        "scaled_pass": dict(
+            max_abs_err=errs["alpha"],
+            ms=cuda_ms(lambda: cuda_scan.scaled_pass(*fwd, banded=banded)),
+            plain_ms=cuda_ms(lambda: cuda_scan.scaled_pass_plain(*fwd, banded=banded)),
+            **bound(4 * (nv * s + b * t_len * (s + 1) + n_mat + b * s),
+                    nv * (10 * s if banded else 2 * s * s + 4 * s))),
+        "smoothing_pass": dict(
+            max_abs_err=errs["gamma"],
+            ms=cuda_ms(lambda: cuda_scan.smoothing_pass(*smo, banded=banded)),
+            plain_ms=cuda_ms(lambda: cuda_scan.smoothing_pass_plain(*smo, banded=banded)),
+            **bound(4 * (2 * nv * s + 2 * b * t_len * (s + 1) + n_mat + b * s),
+                    nv * (16 * s if banded else 2 * s * s + 10 * s))),
+    }
+    return (probs, logcs, got), errs, rows
+
+
+def check_general(errs, label):
+    for key in ("alpha", "gamma", "w_probs"):
+        check(errs[key] <= 1e-5, f"{label}: {key} abs {errs[key]}")
+    for key in ("logcs", "w_sums", "post_norm"):
+        check(errs[key] <= 1e-5, f"{label}: {key} rel {errs[key]}")
+    check(errs["xi"] <= 1e-4, f"{label}: xi rel {errs['xi']}")
+
+
+def llh_pair(llh, lens, trans, init, final, rows, cols):
+    """K14 and K15 on these operands against their plain versions;
+    returns the errors and the two timing rows."""
+    fwd = (llh, lens, trans, init)
+    got = cuda_scan.forward_llh_dense(*fwd, return_shifts=True)
+    want = cuda_scan.forward_llh_dense_plain(*fwd, return_shifts=True)
+    errs = dict(alpha=float((got[0] - want[0]).abs().max()), norms=rel(got[1], want[1]),
+                logz_base=rel(got[3], want[3]), shifts=float((got[4] - want[4]).abs().max()))
+    est = (llh, lens, trans, final, got[0], got[1])
+    gamma, xi = cuda_scan.estep_gamma_dense(*est, rows=rows, cols=cols)
+    gamma_p, xi_p = cuda_scan.estep_gamma_dense_plain(*est, rows=rows, cols=cols)
+    errs.update(gamma=float((gamma - gamma_p).abs().max()), xi=rel(xi, xi_p))
+    del want, gamma_p
+    check(errs["alpha"] <= 1e-5 and errs["gamma"] <= 1e-5 and errs["shifts"] == 0.0
+          and errs["norms"] <= 1e-5 and errs["logz_base"] <= 1e-5 and errs["xi"] <= 1e-4,
+          f"forward_llh_shifts_dense / estep_gamma_dense_restricted: {errs}")
+    b, t_len, s = llh.shape
+    nv, n_xi = float(lens.sum()), rows.numel() * cols.numel()
+    rows_out = {
+        "forward_llh_shifts_dense": dict(
+            max_abs_err=errs["alpha"],
+            ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd, return_shifts=True)),
+            plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd, return_shifts=True)),
+            **bound(4 * (nv * s + b * t_len * (s + 2) + s * s + 3 * b * s + b),
+                    nv * (2 * s * s + 4 * s))),
+        "estep_gamma_dense_restricted": dict(
+            max_abs_err=errs["gamma"],
+            ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense(*est, rows=rows, cols=cols)),
+            plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense_plain(*est, rows=rows,
+                                                                        cols=cols)),
+            **bound(4 * (nv * (2 * s + 1) + b * t_len * s + s * s + b * s + n_xi),
+                    nv * (2 * s * s + 2 * n_xi + 10 * s))),
+    }
+    return errs, rows_out
+
+
+def phase_general_kernels(dev):
+    """K12–K15 against their plain versions at the main path's shapes."""
+    data, mask = make_data(B, T, D)
+    data = np.concatenate([data, np.zeros((2, T, D), np.float32)])  # two zero-length rows
+    mask = np.concatenate([mask, np.zeros((2, T), np.float32)])
+    x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    o = general_operands(config4(dev), x, m)
+    instances, errors = {}, {}
+    dense_out, errors["dense"], instances["dense"] = general_instance(o, banded=False)
+    check_general(errors["dense"], "dense S=150")
+    band_out, errors["banded"], instances["banded"] = general_instance(o, banded=True)
+    check_general(errors["banded"], "banded S=150")
+    # the bands_to_dense route equals the banded one
+    e_bd = dict(alpha=float((band_out[0] - dense_out[0]).abs().max()),
+                logcs=rel(band_out[1], dense_out[1]),
+                gamma=valid_err(band_out[2][0], dense_out[2][0], o["mask"]))
+    check(max(e_bd.values()) <= 1e-5, f"banded vs dense instances: {e_bd}")
+    check(float((tss.bands_to_dense(o["bands"]) - o["trans"]).abs().max()) <= 1e-7,
+          "bands_to_dense != exp(log_trans)")
+    del dense_out, band_out
+    # the β̂ pass
+    rev = (o["e_llh"], o["lens"], o["trans"], o["final"])
+    beta, blog = cuda_scan.scaled_pass(*rev, reverse=True)
+    beta_p, blog_p = cuda_scan.scaled_pass_plain(*rev, reverse=True)
+    errors["reverse"] = dict(beta=float((beta - beta_p).abs().max()), logcs=rel(blog, blog_p))
+    check(errors["reverse"]["beta"] <= 1e-5 and errors["reverse"]["logcs"] <= 1e-5,
+          f"scaled_pass reverse: {errors['reverse']}")
+    del beta_p
+    b, t_len, s = o["e_llh"].shape
+    nv = float(o["lens"].sum())
+    instances["reverse"] = {"scaled_pass": dict(
+        max_abs_err=errors["reverse"]["beta"],
+        ms=cuda_ms(lambda: cuda_scan.scaled_pass(*rev, reverse=True)),
+        plain_ms=cuda_ms(lambda: cuda_scan.scaled_pass_plain(*rev, reverse=True)),
+        **bound(4 * (nv * s + b * t_len * (s + 1) + s * s + b * s), nv * (2 * s * s + 5 * s)))}
+    # K14 / K15 at config 4's shape (the dense matrix, ξ on unit ends × starts)
+    errors["llh_pair_config4"], pair4 = llh_pair(o["llh"], o["lens"], o["trans"], o["init"],
+                                                 o["final"], o["ends"], o["starts"])
+    del o, beta, blog
+    # ... and at config 2's (ergodic, S = 30; ξ on every third row, every second column)
+    hmm = config2(dev)
+    _, c = hmm_operands(hmm, x, m)
+    llh2 = hmm._state_llh(hmm.sufficient_statistics(x)).contiguous()
+    init2 = torch.exp(hmm.graph_log_init).expand_as(c["final"]).contiguous()
+    ids = torch.arange(HMM_S, device=dev, dtype=torch.int32)
+    errors["llh_pair_config2"], pair2 = llh_pair(llh2, c["lens"], c["trans"], init2, c["final"],
+                                                 ids[::3].contiguous(), ids[::2].contiguous())
+    del llh2, c
+    # the banded instances at S = 450, where no dense matrix fits a block
+    big = general_operands(config4(dev, n_units=BIG_UNITS), x, m)
+    _, errors["banded_450"], instances["banded_450"] = general_instance(big, banded=True)
+    check_general(errors["banded_450"], f"banded S={BIG_UNITS * STATES_PER_UNIT}")
+    try:
+        cuda_scan.scaled_pass(big["e_llh"], big["lens"], big["trans"], big["init"])
+        check(False, "the dense instance must refuse S = 450")
+    except ValueError as err:
+        check("shared memory" in str(err), f"dense S=450 refusal: {err}")
+    del big
+    # both instances at config 5's loop (10 units, S = 30), banded against dense
+    small = general_operands(config4(dev, n_units=SVAE_UNITS), x, m)
+    for name, banded in (("dense_30", False), ("banded_30", True)):
+        _, errors[name], instances[name] = general_instance(small, banded=banded)
+        check_general(errors[name], f"{name} S={SVAE_UNITS * STATES_PER_UNIT}")
+    del small
+    torch.cuda.synchronize()
+
+    def fmt(v):
+        return (f"{v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.3f} by "
+                f"{v['bound_by']})")
+
+    print(f"phase 15 general kernels: B={B}+2 empty T<={T}: "
+          + "; ".join(f"{name} {inst}: {fmt(v)}" for inst, rows in instances.items()
+                      for name, v in rows.items())
+          + " | config 4 S=150: " + "; ".join(f"{k} {fmt(v)}" for k, v in pair4.items())
+          + f" | config 2 S={HMM_S}: " + "; ".join(f"{k} {fmt(v)}" for k, v in pair2.items())
+          + " | errors " + json.dumps({k: {n: float(f"{e:.3g}") for n, e in v.items()}
+                                       for k, v in errors.items()})
+          + f" | banded vs dense {json.dumps({k: float(f'{v:.3g}') for k, v in e_bd.items()})}"
+          + " | dense S=450 refused (shared memory)"
+          + " | tol: alpha, gamma, w_probs abs 1e-5; logcs, w_sums, post_norm, norms rel 1e-5;"
+            " xi rel 1e-4; shifts equal")
+    return instances, dict(config4=pair4, config2=pair2)
+
+
+def gsm_config(device, hierarchical=False, dtype=torch.float32, n_units=N_UNITS, spu=STATES_PER_UNIT,
+               dim=D, embed=GSM_EMBED):
+    """The subspace of the slice: a GSM over config 4's loop, or bench
+    config 6's HierarchicalGSM over 3 languages of ``n_units`` units
+    (bench.py:704-709), both with learned transitions."""
+    gen = torch.Generator().manual_seed(3)
+    if not hierarchical:
+        return bt.GSM.create(n_units, embed, dim, states_per_unit=spu, learn_transitions=True,
+                             generator=gen, dtype=dtype, device=device)
+    unit_lang = [lang for lang in range(GSM_LANGS) for _ in range(n_units)]
+    return bt.HierarchicalGSM.create(n_units * GSM_LANGS, embed, dim, lang_dim=GSM_LANG_DIM,
+                                     n_langs=GSM_LANGS, unit_lang=unit_lang, states_per_unit=spu,
+                                     learn_transitions=True, generator=gen, dtype=dtype,
+                                     device=device)
+
+
+def synthetic_unit_stats(u, p, d, device, seed=5):
+    """Per-unit-state statistics in ``accumulate_unit_stats``' dict layout,
+    as the bench makes them (bench.py:682-695, 712-717)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(500.0, 2000.0, size=(u, p, 1)).astype(np.float32)
+    mu = rng.normal(size=(u, p, 1, d)).astype(np.float32)
+    var = rng.uniform(0.5, 2.0, size=(u, p, 1, d)).astype(np.float32)
+    cc = c[..., None]
+    shape = mu.shape
+    emission = np.concatenate([-0.5 * cc * (var + mu**2), cc * mu, np.broadcast_to(-0.5 * cc, shape),
+                               np.broadcast_to(0.5 * cc, shape)], axis=-1)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return {"emission": to(emission), "comp_counts": to(c), "self": to(0.9 * c[..., 0]),
+            "adv": to(0.1 * c[..., 0])}
+
+
+def gsm_reference_check(dev):
+    """Small problems on the card (float32, kernels) against the float64
+    general path on the CPU: the per-unit statistics with transitions
+    (rel 1e-4), and the GSM ELBO and its gradients on the same noise."""
+    data, mask = make_data(6, 40, 4, seed=3)
+    mask[-1] = 0.0
+    ref = config4("cpu", n_units=5, spu=3, dim=4, dtype=torch.float64)
+    ref.plain_scan = True
+    card = copy.deepcopy(ref).to(device=dev, dtype=torch.float32)
+    card.plain_scan = False
+    x64, m64 = torch.from_numpy(data).double(), torch.from_numpy(mask).double()
+    want, want_counts = bt.accumulate_unit_stats(ref, x64, m64, transitions=True)
+    got, got_counts = bt.accumulate_unit_stats(card, x64.float().to(dev), m64.float().to(dev),
+                                               transitions=True)
+    for key in want:
+        e = rel(got[key].double().cpu(), want[key])
+        check(e <= 1e-4, f"small problem: unit statistics {key} rel {e} vs float64")
+    check(rel(got_counts.double().cpu(), want_counts) <= 1e-4, "small problem: unit counts")
+    gsm64 = gsm_config("cpu", dtype=torch.float64, n_units=5, dim=4, embed=3)
+    gsm32 = copy.deepcopy(gsm64).to(device=dev, dtype=torch.float32)
+    eps = gsm64.sample_eps(torch.Generator().manual_seed(1), GSM_NSAMPLES)
+    gsm64.elbo(want, eps=eps).backward()
+    gsm32.elbo({k: v.float().to(dev) for k, v in want.items()},
+               eps={k: v.float().to(dev) for k, v in eps.items()}).backward()
+    for p, q in zip(gsm32.parameters(), gsm64.parameters()):
+        check(rel(p.grad.double().cpu(), q.grad) <= 1e-4, "small problem: GSM gradient vs float64")
+
+
+def rising(elbos, n):
+    """Means of the first and the last ``n`` values; the latter must be larger."""
+    first, last = float(elbos[:n].mean()), float(elbos[-n:].mean())
+    return first, last
+
+
+def phase_gsm_slice(dev):
+    data, mask = make_data(B, T, D)
+    x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    frames = float(mask.sum())
+    loop = config4(dev)
+    cuda_scan.reset_launch_counts()
+    elbos = [float(bt.vb_step(loop, x, mask=m)[0]) for _ in range(2)]
+    before = {k: v.launches for k, v in cuda_scan.KERNELS.items()}
+
+    # the statistics bridge: PhoneLoop.smooth through K12 + K13
+    stats, counts = bt.accumulate_unit_stats(loop, x, m, transitions=True)
+    torch.cuda.synchronize()
+    bridge = {k: v.launches - before[k] for k, v in cuda_scan.KERNELS.items()
+              if v.launches != before[k]}
+    check(bridge == {"scaled_pass": 1, "smoothing_pass": 1},
+          f"accumulate_unit_stats: launches {bridge}, expected K12 1, K13 1 and no other")
+    stats_plain, counts_plain = bt.accumulate_unit_stats(plain_twin(loop), x, m, transitions=True)
+    e_stats = {k: rel(stats[k], stats_plain[k]) for k in stats}
+    check(max(e_stats.values()) <= 1e-4, f"unit statistics vs the plain route: {e_stats}")
+    e_counts = abs(float(counts.sum(dtype=torch.float64)) - frames) / frames
+    check(e_counts <= 1e-5, f"unit counts sum to {float(counts.sum())} of {frames} frames")
+    n_trans = float((m.sum(-1) - 1).clamp_min(0).sum()) + float((m.sum(-1) > 0).sum())
+    e_trans = abs(float((stats["self"] + stats["adv"]).sum(dtype=torch.float64)) - n_trans) / n_trans
+    check(e_trans <= 1e-4, f"self + adv counts sum to a share {1 + e_trans} of the transitions")
+
+    # the subspace: 200 Adam steps on the GSM ELBO
+    gsm = gsm_config(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    gsm_elbos = bt.train_gsm(gsm, torch.optim.Adam(gsm.parameters(), lr=GSM_LR), stats,
+                             generator=gen, nsteps=GSM_STEPS, nsamples=GSM_NSAMPLES)
+    check(bool(torch.isfinite(gsm_elbos).all()), "GSM ELBO not finite")
+    first, last = rising(gsm_elbos, 20)
+    check(last > first, f"GSM ELBO did not rise: first 20 {first}, last 20 {last}")
+
+    # the write-back: E[T] of the emissions equals the moments it was matched to
+    eps = gsm.sample_eps(gen, GSM_WRITEBACK_SAMPLES)
+    mom = bt.induced_posterior_moments(gsm, eps=eps)
+    bt.apply_to_phoneloop(gsm, loop, eps=eps)
+    e_t = loop.modelset.means_precisions.expected_sufficient_statistics()
+    e_mom = {name: rel(e_t[:, i * D:(i + 1) * D], mom[name].reshape(-1, D))
+             for i, name in enumerate(("e_lam", "e_lam_mu", "e_lam_mu2", "e_log_lam"))}
+    check(max(e_mom.values()) <= 1e-3, f"written-back E[T] vs the matched moments: {e_mom}")
+    check(loop.log_exit is not None and bool(torch.isfinite(loop.log_exit).all()),
+          "write-back: log_exit")
+    elbos.append(float(bt.vb_step(loop, x, mask=m)[0]))
+    check(bool(np.isfinite(elbos).all()), f"phone-loop ELBO not finite: {elbos}")
+    units, scores = loop.decode_units(x, m)
+    check(units.shape == (B, T) and bool(torch.isfinite(scores).all()), "decode after write-back")
+
+    # the main path ends here: its launches are read before any comparison
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in cuda_scan.KERNELS.items()}
+    need = ("scaled_pass", "smoothing_pass", "forward_llh_banded", "estep_acc_banded")
+    check(all(launches[k] > 0 for k in need), f"a kernel was not launched: {launches}")
+
+    # the log-domain route: K12 forward + reverse
+    o = general_operands(loop, x, m)
+    g = o["graph"]
+    fb = tss.forward_backward(o["llh"], g.log_trans, g.log_init, g.log_final, m)
+    check(cuda_scan.KERNELS["scaled_pass"].launches - launches["scaled_pass"] == 2,
+          "forward_backward: expected K12 twice (forward, reverse)")
+    fbp = tss.forward_backward_probs(o["llh"], g.log_trans, g.log_init, g.log_final, m)
+    e_logz = rel(fb.log_z, fbp.log_z)
+    e_gamma = float((fb.posteriors - fbp.posteriors).abs().max())
+    sel = fbp.posteriors > 1e-3
+    e_gamma_rel = float(((fb.posteriors - fbp.posteriors).abs()[sel] / fbp.posteriors[sel]).max())
+    # float32 log α + log β carry a rounding of about 1e-3 each at |1e4|,
+    # which the softmax turns into a relative error of γ of that order
+    check(e_logz <= 1e-5 and e_gamma <= 2e-3 and e_gamma_rel <= 1e-2,
+          f"forward_backward vs probs: log Z rel {e_logz}, gamma abs {e_gamma}, "
+          f"rel {e_gamma_rel} where gamma > 1e-3")
+    del fb, sel
+    # K14 + K15 through their entry points, against the general path
+    alpha, norms, shifts = tss.forward_llh(o["llh"], o["trans"], o["init"], o["lens"])
+    gamma, xi_raw = tss.phone_loop_estep(o["llh"], alpha, norms, o["trans"], o["final"], o["lens"],
+                                         o["ends"], o["starts"])
+    tiny = torch.finfo(torch.float32).tiny
+    log_z = torch.log(norms).sum(1) + shifts.sum(1) + torch.log(
+        (alpha[:, -1] * o["final"]).sum(-1).clamp_min(tiny))
+    xi = tss.expected_transition_counts_probs(fbp, g.log_trans, m, rows=o["ends"].long(),
+                                              cols=o["starts"].long())
+    e_pair = dict(log_z=rel(log_z, fbp.log_z), gamma=float((gamma - fbp.posteriors).abs().max()),
+                  xi=rel(xi_raw * o["trans"][o["ends"].long()][:, o["starts"].long()], xi))
+    check(e_pair["log_z"] <= 1e-5 and e_pair["gamma"] <= 1e-4 and e_pair["xi"] <= 1e-3,
+          f"forward_llh + phone_loop_estep vs the general path: {e_pair}")
+    del alpha, gamma, fbp, o
+    gsm_reference_check(dev)
+
+    # the H-SHMM gradient step at bench config 6's shape
+    hgsm = gsm_config(dev, hierarchical=True)
+    hstats = synthetic_unit_stats(N_UNITS * GSM_LANGS, STATES_PER_UNIT, D, dev)
+    h_elbos = bt.train_gsm(hgsm, torch.optim.Adam(hgsm.parameters(), lr=GSM_LR), hstats,
+                           generator=gen, nsteps=50, nsamples=GSM_NSAMPLES)
+    h_first, h_last = rising(h_elbos, 10)
+    check(bool(torch.isfinite(h_elbos).all()) and h_last > h_first,
+          f"H-SHMM ELBO: first 10 {h_first}, last 10 {h_last}")
+    sub = bt.slice_gsm(hgsm, 1, N_UNITS)
+    check(sub.e_mean.shape == (N_UNITS, GSM_EMBED + GSM_LANG_DIM), "slice_gsm shape")
+    bt.apply_to_phoneloop(sub, config4(dev), generator=gen, nsamples=GSM_WRITEBACK_SAMPLES)
+    fmt = lambda d_: json.dumps({k: float(f"{v:.3g}") for k, v in d_.items()})  # noqa: E731
+    print(f"phase 16 gsm slice: B={B} T<={T} D={D} S={N_UNITS * STATES_PER_UNIT} frames={frames:.0f} "
+          f"| loop ELBO/frame (2 VB steps, then after the write-back) "
+          f"{', '.join(f'{e / frames:.6f}' for e in elbos)} | accumulate_unit_stats launches "
+          f"{bridge}, vs plain route rel {fmt(e_stats)}, counts-sum rel error {e_counts:.3g}, "
+          f"self+adv rel error {e_trans:.3g} | GSM U={N_UNITS} E={GSM_EMBED} {GSM_STEPS} Adam steps "
+          f"lr {GSM_LR} x{GSM_NSAMPLES} samples: ELBO first 20 {first:.6g} -> last 20 {last:.6g} "
+          f"| write-back ({GSM_WRITEBACK_SAMPLES} samples) E[T] vs moments rel {fmt(e_mom)} "
+          f"| forward_backward vs probs: log Z rel {e_logz:.3g}, gamma abs {e_gamma:.3g}, rel "
+          f"{e_gamma_rel:.3g} where gamma > 1e-3 "
+          f"| forward_llh + phone_loop_estep vs general path {fmt(e_pair)} "
+          f"| H-SHMM {GSM_LANGS}x{N_UNITS} units, 50 steps: ELBO first 10 {h_first:.6g} -> last 10 "
+          f"{h_last:.6g} | launches of the outer iteration {({k: v for k, v in launches.items() if v})} "
+          f"| small problems agree with float64")
+    return launches, (x, m, stats, hstats)
+
+
+def outer_iteration(loop, gsm, optimizer, gen, x, m):
+    """One subspace-HMM outer iteration; returns the loop's last ELBO."""
+    for _ in range(2):
+        bt.vb_step(loop, x, mask=m)
+    stats, _ = bt.accumulate_unit_stats(loop, x, m, transitions=True)
+    bt.train_gsm(gsm, optimizer, stats, generator=gen, nsteps=GSM_STEPS, nsamples=GSM_NSAMPLES)
+    bt.apply_to_phoneloop(gsm, loop, generator=gen, nsamples=GSM_WRITEBACK_SAMPLES)
+    return bt.vb_step(loop, x, mask=m)[0]
+
+
+def phase_gsm_times(dev, runs, kernel_rows):
+    x, m, stats, hstats = runs
+    frames = float(m.sum())
+    times = {}
+    loop = config4(dev)
+    bt.vb_step(loop, x, mask=m)
+    suff = loop.sufficient_statistics(x)
+    graph = loop._effective_graph()
+    # smooth takes the banded instances; the same work through the dense ones
+    times["smooth_dense_ms"] = cuda_ms(lambda: tss.forward_backward_probs(
+        loop.modelset.expected_log_likelihood(suff), graph.log_trans, graph.log_init,
+        graph.log_final, m))
+    times["smooth_banded_ms"] = cuda_ms(lambda: loop.smooth(suff, m))
+    plain = plain_twin(loop)
+    times["smooth_plain_ms"] = cuda_ms(lambda: plain.smooth(suff, m), reps=3)
+    big = config4(dev, n_units=BIG_UNITS)
+    big_suff = big.sufficient_statistics(x)
+    times["smooth_banded_s450_ms"] = cuda_ms(lambda: big.smooth(big_suff, m), reps=3)
+    del big, big_suff
+    times["accumulate_unit_stats_kernel_ms"] = cuda_ms(
+        lambda: bt.accumulate_unit_stats(loop, x, m, transitions=True))
+    times["accumulate_unit_stats_plain_ms"] = cuda_ms(
+        lambda: bt.accumulate_unit_stats(plain, x, m, transitions=True), reps=3)
+    times["accumulate_unit_stats_frames_per_s"] = round(
+        frames / times["accumulate_unit_stats_kernel_ms"] * 1e3)
+    profiles = {"accumulate_unit_stats": profile_step(
+        lambda: bt.accumulate_unit_stats(loop, x, m, transitions=True))}
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n = 50
+    for name, model, st in (("gsm", gsm_config(dev), stats),
+                            ("hshmm", gsm_config(dev, hierarchical=True), hstats)):
+        opt = torch.optim.Adam(model.parameters(), lr=GSM_LR)
+        ms = cuda_ms(lambda: bt.train_gsm(model, opt, st, generator=gen, nsteps=n,
+                                          nsamples=GSM_NSAMPLES)) / n
+        times[f"{name}_step_ms"] = ms
+        times[f"{name}_steps_per_s"] = round(1e3 / ms)
+        if name == "gsm":
+            profiles["gsm_step"] = profile_step(lambda: bt.train_gsm(
+                model, opt, st, generator=gen, nsteps=1, nsamples=GSM_NSAMPLES))
+            times["writeback_ms"] = cuda_ms(lambda: bt.apply_to_phoneloop(
+                model, loop, generator=gen, nsamples=GSM_WRITEBACK_SAMPLES))
+    gsm = gsm_config(dev)
+    opt = torch.optim.Adam(gsm.parameters(), lr=GSM_LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    elbo = float(outer_iteration(config4(dev), gsm, opt, gen, x, m))
+    torch.cuda.synchronize()
+    times["outer_iteration_s"] = time.perf_counter() - t0
+    check(np.isfinite(elbo), "outer iteration: ELBO not finite")
+    print("phase 17 gsm times: " + json.dumps(
+        {**{k: round(v, 3) if isinstance(v, float) else v for k, v in times.items()},
+         "kernels_ms": {f"{name}_{inst}": round(v["ms"], 3) for inst, rows in kernel_rows.items()
+                        for name, v in rows.items()},
+         "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
+         "profiles": profiles}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1176,6 +1659,18 @@ def main() -> int:
     svae_launches, svae_runs = phase_svae_slice(dev)
     launches = {k: launches.get(k, 0) + n for k, n in svae_launches.items()}
     phase_svae_times(svae_runs)
+    instances, pairs = phase_general_kernels(dev)
+    gsm_launches, gsm_runs = phase_gsm_slice(dev)
+    launches = {k: launches.get(k, 0) + n for k, n in gsm_launches.items()}
+    phase_gsm_times(dev, gsm_runs, instances)
+    # K12/K13's rows: the banded instance, which PhoneLoop.smooth takes, with
+    # every instance's numbers beside it; K14/K15's: config 4's shape
+    main_instance = "banded"
+    for name in ("scaled_pass", "smoothing_pass"):
+        kernels[name] = dict(instances[main_instance][name], instance=main_instance, instances={
+            inst: rows[name] for inst, rows in instances.items() if name in rows})
+    for name, row in pairs["config4"].items():
+        kernels[name] = dict(row, config2=pairs["config2"][name])
     rows = [dict(name=k, route="cuda", source=cuda_scan.KERNELS[k].source,
                  replaces=REPLACES[k], launches=launches[k], **{"library_ms": None, **v})
             for k, v in kernels.items()]

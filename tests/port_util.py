@@ -116,9 +116,14 @@ def phone_loop_to_numpy(loop) -> dict:
     """A ``beer_tpu`` PhoneLoop's weights and statics in the dict layout of
     :func:`beer_tpu_torch.convert.phone_loop_from_numpy`."""
     ms = loop.modelset
+    if hasattr(ms, "nmix"):   # per-state GMM emissions
+        emissions = {"modelset": modelset_to_numpy(ms)}
+        ms = ms.modelset
+    else:
+        emissions = {"modelset_prior": np.asarray(ms.means_precisions.prior),
+                     "modelset_posterior": np.asarray(ms.means_precisions.posterior)}
     return {
-        "modelset_prior": np.asarray(ms.means_precisions.prior),
-        "modelset_posterior": np.asarray(ms.means_precisions.posterior),
+        **emissions,
         "sticks_prior": np.asarray(loop.unit_prior.sticks.prior),
         "sticks_posterior": np.asarray(loop.unit_prior.sticks.posterior),
         "base_log_trans": np.asarray(loop.base_log_trans),
@@ -181,6 +186,32 @@ def hmm_to_port(jax_hmm, dtype):
     from beer_tpu_torch.convert import hmm_from_numpy
 
     return hmm_from_numpy(hmm_to_numpy(jax_hmm), device="cpu", dtype=dtype)
+
+
+def gsm_to_numpy(gsm) -> dict:
+    """A ``beer_tpu`` GSM or HierarchicalGSM in the dict layout of
+    :func:`beer_tpu_torch.convert.gsm_from_numpy`; the trunk's config
+    string is rebuilt from its flax module."""
+    out = {k: np.asarray(getattr(gsm, k)) for k in ("e_mean", "e_logvar", "w_mean", "w_logvar")}
+    out.update(type=type(gsm).__name__, n_units=gsm.n_units, embed_dim=gsm.embed_dim,
+               obs_dim=gsm.obs_dim, states_per_unit=gsm.states_per_unit, n_comp=gsm.n_comp,
+               learn_transitions=gsm.learn_transitions, trunk_spec=None)
+    if gsm.trunk_def is not None:
+        trunk = gsm.trunk_def
+        out["trunk_spec"] = "%s:%s:%s" % (type(trunk).__name__.lower(),
+                                          ",".join(str(h) for h in trunk.hidden),
+                                          trunk.activation.__name__)
+        out["trunk_params"] = gsm.trunk_params
+    if hasattr(gsm, "lang_mean"):
+        out.update(lang_mean=np.asarray(gsm.lang_mean), lang_logvar=np.asarray(gsm.lang_logvar),
+                   unit_lang=gsm.unit_lang)
+    return out
+
+
+def gsm_to_port(jax_gsm, dtype=None):
+    from beer_tpu_torch.convert import gsm_from_numpy
+
+    return gsm_from_numpy(gsm_to_numpy(jax_gsm), device="cpu", dtype=dtype)
 
 
 def jax_phone_loop(dtype, n_units=U, spu=SPU, dim=D, self_loop=0.5, seed=1):

@@ -159,7 +159,7 @@ def test_dense_kernels_match_plain_versions(device, shape):
     assert float((got[2][2] - want[2][2]).abs().max()) <= 1e-5
     assert float((got[3][0] - want[3][0]).abs().max()) <= 1e-5
     assert _rel(got[3][1], want[3][1]) <= 1e-4
-    launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if k.endswith("_dense")}
+    launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if v.launches}
     assert launches == {"forward_llh_dense": 2, "estep_acc_dense": 1, "estep_gamma_dense": 1}
 
 
@@ -365,3 +365,203 @@ def test_autograd_routes_match_plain_route(device):
     assert all(_launched().get(k) == 1 for k in (
         "forward_llh_banded", "estep_gamma_banded", "forward_llh_dense", "estep_gamma_dense",
         "ellh_full"))
+
+
+# ----------------------------------------------------------------------
+# The general path: K12 scaled_pass, K13 smoothing_pass; K14, K15
+# ----------------------------------------------------------------------
+def _e_llh(llh, lens):
+    mask = (torch.arange(llh.shape[1], device=llh.device)[None] < lens[:, None]).float()
+    e, _ = tss._scaled_likelihoods(llh, mask)
+    return e.contiguous(), mask
+
+
+def _valid_close(got, want, mask, tol, what):
+    """Largest abs difference over the valid frames."""
+    m = mask[..., None] if got.ndim == 3 else mask
+    err = float(((got - want) * m).abs().max())
+    assert err <= tol, f"{what}: {err}"
+
+
+def _general_compare(e, lens, mask, trans, init, final, banded):
+    """K12 forward and K13 on these operands against their plain versions."""
+    probs, logcs = cuda_scan.scaled_pass(e, lens, trans, init, banded=banded)
+    probs_r, logcs_r = cuda_scan.scaled_pass_plain(e, lens, trans, init, banded=banded)
+    torch.cuda.synchronize()
+    # masked frames repeat the carry, so the whole arrays compare
+    assert float((probs - probs_r).abs().max()) <= 1e-5
+    assert float((logcs - logcs_r).abs().max() / logcs_r.abs().max().clamp_min(1.0)) <= 1e-5
+    got = cuda_scan.smoothing_pass(e, probs, lens, trans, final, banded=banded)
+    want = cuda_scan.smoothing_pass_plain(e, probs, lens, trans, final, banded=banded)
+    torch.cuda.synchronize()
+    assert not got[0][mask == 0].any(), "gamma must be 0 on frames t >= len"
+    _valid_close(got[0], want[0], mask, 1e-5, "gamma")
+    _valid_close(got[1], want[1], mask, 1e-5, "w_probs")
+    for name, x, y in (("w_sums", got[2], want[2]), ("post_norm", got[3], want[3])):
+        _valid_close(x, y, mask, 1e-5 * float((y * mask).max().clamp_min(1.0)), name)
+    return probs, logcs, got
+
+
+# (S, B, T): S = 1, S not a multiple of 32, config 2's S, T = 1
+GENERAL_DENSE_SHAPES = [(1, 3, 9), (7, 5, 17), (45, 5, 21), (30, 6, 60), (150, 4, 12), (12, 4, 1)]
+
+
+@pytest.mark.parametrize("shape", GENERAL_DENSE_SHAPES, ids=lambda s: "S%d_T%d" % (s[0], s[2]))
+def test_general_dense_kernels_match_plain_versions(device, shape):
+    s, b, t_len = shape
+    lengths = None if t_len > 8 else np.array([t_len, t_len, 0, t_len][:b])
+    a = dense_args(dense_problem(3, s, 4, b, t_len, lengths), torch.float32, device)
+    e, mask = _e_llh(a["llh"], a["lens"])
+    cuda_scan.reset_launch_counts()
+    _general_compare(e, a["lens"], mask, a["trans"], a["init"], a["final"], banded=False)
+    beta, logcs = cuda_scan.scaled_pass(e, a["lens"], a["trans"], a["final"], reverse=True)
+    beta_r, logcs_r = cuda_scan.scaled_pass_plain(e, a["lens"], a["trans"], a["final"],
+                                                  reverse=True)
+    torch.cuda.synchronize()
+    assert float((beta - beta_r).abs().max()) <= 1e-5
+    assert float((logcs - logcs_r).abs().max() / logcs_r.abs().max().clamp_min(1.0)) <= 1e-5
+    assert cuda_scan.KERNELS["scaled_pass"].launches == 2
+    assert cuda_scan.KERNELS["smoothing_pass"].launches == 1
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1, 1, 4, 3, 9), (150, 3, 4, 3, 11)],
+                         ids=lambda s: "S%d" % (s[0] * s[1]))
+def test_general_banded_kernels_match_plain_and_dense(device, shape):
+    u, spu, p_dim, b, t_len = shape
+    a = port_args(scan_problem(4, u, spu, p_dim, b, t_len), torch.float32, device)
+    llh = (a["stats"] @ a["w"].T + a["bias"]).contiguous()
+    e, mask = _e_llh(llh, a["lens"])
+    init, final = (a[k].expand(b, -1).contiguous() for k in ("init", "final"))
+    probs, logcs, smooth = _general_compare(e, a["lens"], mask, a["bands"], init, final,
+                                            banded=True)
+    s = u * spu
+    if cuda_scan._library().beer_smoothing_smem_bytes(0, s) <= cuda_scan.SMEM_LIMIT:
+        dense = tss.bands_to_dense(a["bands"]).contiguous()
+        probs_d, logcs_d = cuda_scan.scaled_pass(e, a["lens"], dense, init)
+        assert float((probs - probs_d).abs().max()) <= 1e-5
+        assert float((logcs - logcs_d).abs().max() / logcs_d.abs().max().clamp_min(1.0)) <= 1e-5
+        gamma_d = cuda_scan.smoothing_pass(e, probs_d, a["lens"], dense, final)[0]
+        assert float((smooth[0] - gamma_d).abs().max()) <= 1e-5
+
+
+def test_general_dense_kernels_shared_memory_limit(device):
+    """The dense instances keep the (S, S) matrix in shared memory: the
+    largest S that fits runs, the next one is refused by the wrapper; the
+    banded instances take any S."""
+    lib = cuda_scan._library()
+    fits = [s for s in range(200, 260)
+            if lib.beer_smoothing_smem_bytes(0, s) <= cuda_scan.SMEM_LIMIT]
+    s_max = max(fits)
+    assert 230 <= s_max < 245
+    a = dense_args(dense_problem(5, s_max, 2, 2, 6, np.array([6, 3])), torch.float32, device)
+    e, mask = _e_llh(a["llh"], a["lens"])
+    _general_compare(e, a["lens"], mask, a["trans"], a["init"], a["final"], banded=False)
+    big = dense_args(dense_problem(5, s_max + 1, 2, 2, 6, np.array([6, 3])), torch.float32, device)
+    e, _ = _e_llh(big["llh"], big["lens"])
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_scan.smoothing_pass(e, e, big["lens"], big["trans"], big["final"])
+    huge = torch.eye(260, device=device)
+    e = torch.ones(1, 3, 260, device=device)
+    lens = torch.tensor([3], dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_scan.scaled_pass(e, lens, huge, e[:, 0].contiguous())
+
+
+def test_general_kernels_all_rows_empty(device):
+    a = dense_args(dense_problem(6, 6, 3, 3, 7, np.zeros(3, int)), torch.float32, device)
+    e, mask = _e_llh(a["llh"], a["lens"])
+    probs, logcs = cuda_scan.scaled_pass(e, a["lens"], a["trans"], a["init"])
+    want = a["init"] / a["init"].sum(-1, keepdim=True)
+    assert float((probs - want[:, None]).abs().max()) <= 1e-6   # normalise(init), carried
+    assert float((logcs - torch.log(a["init"].sum(-1))[:, None]).abs().max()) <= 1e-6
+    gamma, w, wsum, pnorm = cuda_scan.smoothing_pass(e, probs, a["lens"], a["trans"], a["final"])
+    assert not gamma.any() and bool(torch.isfinite(wsum).all() and torch.isfinite(pnorm).all())
+    beta, blog = cuda_scan.scaled_pass(e, a["lens"], a["trans"], a["final"], reverse=True)
+    want = a["final"] / a["final"].sum(-1, keepdim=True)
+    assert float((beta - want[:, None]).abs().max()) <= 1e-6
+
+
+def test_general_route_kernels_vs_plain_loops_and_gradient(device):
+    """forward_backward_probs / forward_backward / ξ through the kernels
+    against ``plain=True`` on the card, and the autograd route's gradient
+    against autograd through the plain loops."""
+    a = port_args(scan_problem(7, 4, 3, 5, 5, 19), torch.float32, device)
+    llh = (a["stats"] @ a["w"].T + a["bias"]).contiguous()
+    _, mask = _e_llh(llh, a["lens"])
+    log_trans = torch.log(tss.bands_to_dense(a["bands"]).clamp_min(1e-37))
+    log_init, log_final = (torch.log(a[k].clamp_min(1e-37)) for k in ("init", "final"))
+    full = a["lens"] > 0
+    for bands in (None, a["bands"]):
+        cuda_scan.reset_launch_counts()
+        got = tss.forward_backward_probs(llh, log_trans, log_init, log_final, mask,
+                                         structured_trans=bands)
+        assert cuda_scan.KERNELS["scaled_pass"].launches == 1
+        assert cuda_scan.KERNELS["smoothing_pass"].launches == 1
+        want = tss.forward_backward_probs(llh, log_trans, log_init, log_final, mask,
+                                          structured_trans=bands, plain=True)
+        assert cuda_scan.KERNELS["scaled_pass"].launches == 1   # plain launches nothing
+        assert _rel(got.log_z[full], want.log_z[full]) <= 1e-5
+        assert float((got.posteriors - want.posteriors).abs().max()) <= 1e-5
+        xi, xi_r = (tss.expected_transition_counts_probs(f, log_trans, mask) for f in (got, want))
+        assert _rel(xi, xi_r) <= 1e-4
+    # (a row too short to reach an end state has log Z near log FLT_MIN,
+    # where the dense matrix's floored zeros show: compare dense with dense)
+    got = tss.forward_backward_probs(llh, log_trans, log_init, log_final, mask)
+    cuda_scan.reset_launch_counts()
+    fb = tss.forward_backward(llh, log_trans, log_init, log_final, mask)
+    assert cuda_scan.KERNELS["scaled_pass"].launches == 2       # forward + reverse
+    assert _rel(fb.log_z[full], got.log_z[full]) <= 1e-5
+    assert float((fb.posteriors - got.posteriors).abs().max()) <= 1e-4
+    grads = []
+    for plain in (False, True):
+        x = llh.clone().requires_grad_()
+        out = tss.forward_backward_probs(x, log_trans, log_init, log_final, mask, plain=plain)
+        weights = torch.linspace(0.5, 1.5, out.posteriors.shape[-1], device=device)
+        (out.log_z[full].sum() + (out.posteriors * weights).sum()).backward()
+        grads.append(x.grad)
+    assert _rel(grads[0], grads[1]) <= 1e-4
+    with pytest.raises(RuntimeError, match="requires grad"):
+        e, _ = _e_llh(llh, a["lens"])
+        cuda_scan.scaled_pass(e.requires_grad_(), a["lens"], torch.exp(log_trans).contiguous(),
+                              a["init"].expand(5, -1).contiguous())
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 9), (7, 5, 17), (30, 6, 60), (150, 4, 12), (12, 4, 1)],
+                         ids=lambda s: "S%d_T%d" % (s[0], s[2]))
+def test_forward_llh_shifts_and_restricted_estep_match_plain(device, shape):
+    """K14 and K15 against their plain versions, and K15's block against
+    the gather of K7's full ξ."""
+    s, b, t_len = shape
+    lengths = None if t_len > 8 else np.array([t_len, t_len, 0, t_len][:b])
+    a = dense_args(dense_problem(8, s, 4, b, t_len, lengths), torch.float32, device)
+    cuda_scan.reset_launch_counts()
+    got = cuda_scan.forward_llh_dense(a["llh"], a["lens"], a["trans"], a["init"],
+                                      return_shifts=True)
+    want = cuda_scan.forward_llh_dense_plain(a["llh"], a["lens"], a["trans"], a["init"],
+                                             return_shifts=True)
+    torch.cuda.synchronize()
+    assert cuda_scan.KERNELS["forward_llh_shifts_dense"].launches == 1
+    assert cuda_scan.KERNELS["forward_llh_dense"].launches == 0
+    for name, x, y, tol in (("alpha", got[0], want[0], 1e-5), ("last", got[2], want[2], 1e-5),
+                            ("shifts", got[4], want[4], 0.0)):
+        assert float((x - y).abs().max()) <= tol, name
+    assert _rel(got[1], want[1]) <= 1e-5 and _rel(got[3], want[3]) <= 1e-5
+    rng = np.random.default_rng(0)
+    rows = t(np.sort(rng.choice(s, size=max(s // 3, 1), replace=False)), torch.int32).to(device)
+    cols = t(rng.permutation(s)[: max(s // 2, 1)], torch.int32).to(device)
+    # K15 reads only valid frames of α̂, so it takes K14's or K5's
+    est = (a["llh"], a["lens"], a["trans"], a["final"], got[0], got[1])
+    gamma, xi = cuda_scan.estep_gamma_dense(*est, rows=rows, cols=cols)
+    gamma_r, xi_r = cuda_scan.estep_gamma_dense_plain(*est, rows=rows, cols=cols)
+    gamma_f, xi_f = cuda_scan.estep_gamma_dense(*est)
+    torch.cuda.synchronize()
+    assert cuda_scan.KERNELS["estep_gamma_dense_restricted"].launches == 1
+    assert float((gamma - gamma_r).abs().max()) <= 1e-5 and torch.equal(gamma, gamma_f)
+    assert xi.shape == (rows.numel(), cols.numel())
+    scale = xi_f.abs().max().clamp_min(1e-30)
+    assert float((xi - xi_r).abs().max() / scale) <= 1e-4
+    assert float((xi - xi_f[rows.long()][:, cols.long()]).abs().max() / scale) <= 1e-6
+    with pytest.raises(ValueError):
+        cuda_scan.estep_gamma_dense(*est, rows=rows)
+    with pytest.raises(ValueError):
+        cuda_scan.estep_gamma_dense(*est, rows=rows + s, cols=cols)

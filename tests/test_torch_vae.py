@@ -355,6 +355,8 @@ def _wrapper_calls():
     est = (a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms, a["ends"],
            a["starts"])
     ch, ex, al = cuda_scan.viterbi_fwd_banded_plain(llh, a["lens"], lb, li)
+    e_llh = torch.exp(d["llh"] - d["llh"].max(-1, keepdim=True).values)
+    ids = torch.arange(2, dtype=torch.int32)
     return {
         "forward_llh_banded": (cuda_scan.forward_llh_banded, a["stats"],
                                (a["lens"], a["w"], a["bias"], a["bands"], a["init"])),
@@ -370,6 +372,15 @@ def _wrapper_calls():
                              d_norms)),
         "estep_gamma_dense": (cuda_scan.estep_gamma_dense, d["llh"],
                               (d["lens"], d["trans"], d["final"], d_alpha, d_norms)),
+        "forward_llh_shifts_dense": (
+            lambda *args: cuda_scan.forward_llh_dense(*args, return_shifts=True), d["llh"],
+            (d["lens"], d["trans"], d["init"])),
+        "estep_gamma_dense_restricted": (
+            lambda *args: cuda_scan.estep_gamma_dense(*args, rows=ids, cols=ids), d["llh"],
+            (d["lens"], d["trans"], d["final"], d_alpha, d_norms)),
+        "scaled_pass": (cuda_scan.scaled_pass, e_llh, (d["lens"], d["trans"], d["init"])),
+        "smoothing_pass": (cuda_scan.smoothing_pass, e_llh,
+                           (d_alpha, d["lens"], d["trans"], d["final"])),
         "gmm_estep_full": (sk.gmm_estep_full, f["x"], (f["e"], f["log_w"])),
         "ellh_full": (sk.ellh_full, f["x"], (f["e"],)),
         "accumulate_full": (sk.accumulate_full, f["x"], (f["r"],)),
