@@ -26,6 +26,13 @@
 // and, for the dense instances, S shared-memory FMAs per state and step;
 // the (B, T, S) streams are read and written once, coalesced.
 //
+// The dense instances have a second placement (template flag kGlobal), as
+// K5–K7 have (hmm_scan.cu): above S = 239 (K12) or 237 (K13) the (S, S)
+// matrix is read from device memory, where it stays in L2, as A for the
+// forward (threads walk its columns) and as Aᵀ for the reverse and the
+// smoothing (threads walk rows of A), so that each warp reads contiguous
+// addresses; the wrapper picks it (cuda_scan.dense_placement).
+//
 // The contract differs from K1/K5's: these passes copy the carry through
 // frames t >= len into the outputs (callers read the last stored frame as
 // the last valid one), and frame 0 always fires, so a row of length 0
@@ -37,14 +44,19 @@ namespace {
 
 enum PassMode { kDenseForward = 0, kBandedForward = 1, kDenseReverse = 2 };
 
-size_t scaled_pass_smem_floats(int mode, int s) {
-  const size_t mat = mode == kBandedForward ? 4 * static_cast<size_t>(s) : static_cast<size_t>(s) * odd_stride(s);
-  return mat + 2 * static_cast<size_t>(s) + 2 * kMaxWarps;
+// Floats of the transition operand in shared memory: the four band
+// vectors, the dense matrix with an odd row stride, or none (global).
+__host__ __device__ inline size_t operand_smem_floats(bool banded, bool global, int s) {
+  if (banded) return 4 * static_cast<size_t>(s);
+  return global ? 0 : static_cast<size_t>(s) * odd_stride(s);
 }
 
-size_t smoothing_smem_floats(bool banded, int s) {
-  const size_t mat = banded ? 4 * static_cast<size_t>(s) : static_cast<size_t>(s) * odd_stride(s);
-  return mat + 5 * static_cast<size_t>(s) + 2 * kMaxWarps;
+size_t scaled_pass_smem_floats(int mode, bool global, int s) {
+  return operand_smem_floats(mode == kBandedForward, global, s) + 2 * static_cast<size_t>(s) + 2 * kMaxWarps;
+}
+
+size_t smoothing_smem_floats(bool banded, bool global, int s) {
+  return operand_smem_floats(banded, global, s) + 5 * static_cast<size_t>(s) + 2 * kMaxWarps;
 }
 
 // Copies the transition operand into shared memory: the four band vectors
@@ -79,22 +91,22 @@ __device__ __forceinline__ void load_transitions(float* mat_sh, const float* __r
 
 // The carry and the per-step scratch of one utterance's scaled pass.
 struct PassState {
-  const float* mat_sh;  // the transition operand in shared memory
+  const float* mat;     // the transition operand: bands or A(i, j) = mat[i·a_rs + j·a_cs]
   float* p_sh;          // the carry
   float* v_sh;          // raw_t (forward); p ⊙ e_{t+1}, then raw_t (reverse)
   float* red;
   const float* e_b;     // this utterance's (T, S) likelihoods
   float* p_b;           // its (T, S) output carries
   float* c_b;           // its (T,) output log-scales
-  int len, T, S, ldt;
+  int len, T, S, a_rs, a_cs;
 };
 
 template <bool kBanded>
 __device__ void forward_chain(const PassState& st, const float* __restrict__ vec_b) {
-  const int tid = threadIdx.x, nt = blockDim.x, S = st.S, ldt = st.ldt;
+  const int tid = threadIdx.x, nt = blockDim.x, S = st.S, a_rs = st.a_rs;
   float* p_sh = st.p_sh;
   float* v_sh = st.v_sh;
-  const float* mat_sh = st.mat_sh;
+  const float* mat_sh = st.mat;
   float c = 0.f, unused = 0.f;
   for (int s = tid; s < S; s += nt) p_sh[s] = vec_b[s];
   const int n_fire = min(max(st.len, 1), st.T);
@@ -116,7 +128,8 @@ __device__ void forward_chain(const PassState& st, const float* __restrict__ vec
         base = p_sh[j] * mat_sh[j] + shifted + q * mat_sh[3 * S + j];
       } else {
         base = 0.f;
-        for (int i = 0; i < S; ++i) base = fmaf(p_sh[i], mat_sh[i * ldt + j], base);
+#pragma unroll 32
+        for (int i = 0; i < S; ++i) base = fmaf(p_sh[i], mat_sh[i * a_rs + j], base);  // a_cs = 1
       }
       const float raw = base * e_t[j];
       v_sh[j] = raw;
@@ -139,7 +152,7 @@ __device__ void forward_chain(const PassState& st, const float* __restrict__ vec
 }
 
 __device__ void reverse_chain(const PassState& st, const float* __restrict__ vec_b) {
-  const int tid = threadIdx.x, nt = blockDim.x, S = st.S, ldt = st.ldt;
+  const int tid = threadIdx.x, nt = blockDim.x, S = st.S, a_rs = st.a_rs, a_cs = st.a_cs;
   float* p_sh = st.p_sh;
   float* v_sh = st.v_sh;
   float sum = 0.f, unused = 0.f;
@@ -164,9 +177,10 @@ __device__ void reverse_chain(const PassState& st, const float* __restrict__ vec
     __syncthreads();
     sum = 0.f;
     for (int i = tid; i < S; i += nt) {
-      const float* ar = st.mat_sh + i * ldt;
+      const float* ar = st.mat + i * a_rs;
       float raw = 0.f;
-      for (int j = 0; j < S; ++j) raw = fmaf(ar[j], v_sh[j], raw);
+#pragma unroll 32
+      for (int j = 0; j < S; ++j) raw = fmaf(ar[j * a_cs], v_sh[j], raw);
       p_sh[i] = raw;  // only its own thread reads p_sh[i] before the next barrier
       sum += raw;
     }
@@ -182,11 +196,11 @@ __device__ void reverse_chain(const PassState& st, const float* __restrict__ vec
   }
 }
 
-template <int kMode>
+template <int kMode, bool kGlobal>
 __global__ void scaled_pass_kernel(
     const float* __restrict__ e,     // (B, T, S), 1 on frames t >= len
     const int* __restrict__ lens,    // (B,)
-    const float* __restrict__ mat,   // (S, S) or (4, S)
+    const float* __restrict__ mat,   // (S, S) (kGlobal reverse: Aᵀ) or (4, S)
     const float* __restrict__ vec,   // (B, S) init (forward) or final (reverse)
     float* __restrict__ probs,       // (B, T, S)
     float* __restrict__ logcs,       // (B, T)
@@ -194,9 +208,12 @@ __global__ void scaled_pass_kernel(
   extern __shared__ float smem[];
   constexpr bool kBanded = kMode == kBandedForward;
   const int ldt = odd_stride(S), b = blockIdx.x;
-  float* p_sh = smem + (kBanded ? 4 * static_cast<size_t>(S) : static_cast<size_t>(S) * ldt);
-  load_transitions<kBanded>(smem, mat, S, ldt);
-  const PassState st{smem,
+  float* p_sh = smem + operand_smem_floats(kBanded, kGlobal, S);
+  if (!kGlobal) load_transitions<kBanded>(smem, mat, S, ldt);
+  // the dense matrix: shared (ldt, 1); global A (S, 1) forward, Aᵀ (1, S) reverse
+  const int a_rs = !kGlobal ? ldt : kMode == kDenseReverse ? 1 : S;
+  const int a_cs = kGlobal && kMode == kDenseReverse ? S : 1;
+  const PassState st{kGlobal ? mat : smem,
                      p_sh,
                      p_sh + S,
                      p_sh + 2 * S,
@@ -206,7 +223,8 @@ __global__ void scaled_pass_kernel(
                      min(lens[b], T),
                      T,
                      S,
-                     ldt};
+                     a_rs,
+                     a_cs};
   const float* vec_b = vec + static_cast<size_t>(b) * S;
   if (kMode == kDenseReverse) {
     reverse_chain(st, vec_b);
@@ -230,12 +248,12 @@ __global__ void scaled_pass_kernel(
 // writes γ = 0, ŵ = 0 and w_sums = post_norm = 1: no consumer reads them
 // (their ξ weight is 0), the TPU kernel writes the drifting recursion there.
 // ---------------------------------------------------------------------
-template <bool kBanded>
+template <bool kBanded, bool kGlobal>
 __global__ void smoothing_pass_kernel(
     const float* __restrict__ e,       // (B, T, S)
     const float* __restrict__ alpha,   // (B, T, S), K12's forward α̂
     const int* __restrict__ lens,      // (B,)
-    const float* __restrict__ mat,     // (S, S) or (4, S)
+    const float* __restrict__ mat,     // (S, S) (kGlobal: Aᵀ) or (4, S)
     const float* __restrict__ final_,  // (B, S)
     float* __restrict__ gamma,         // (B, T, S)
     float* __restrict__ w_out,         // (B, T, S)
@@ -245,7 +263,10 @@ __global__ void smoothing_pass_kernel(
   extern __shared__ float smem[];
   const int ldt = odd_stride(S);
   float* mat_sh = smem;
-  float* fin_sh = mat_sh + (kBanded ? 4 * static_cast<size_t>(S) : static_cast<size_t>(S) * ldt);
+  float* fin_sh = mat_sh + operand_smem_floats(kBanded, kGlobal, S);
+  // A(i, j) = a_m[i·a_rs + j·a_cs]: shared (ldt, 1), global Aᵀ (1, S)
+  const float* a_m = kGlobal ? mat : mat_sh;
+  const int a_rs = kGlobal ? 1 : ldt, a_cs = kGlobal ? S : 1;
   float* vh_sh = fin_sh + S;  // v̂_{t+1}
   float* u_sh = vh_sh + S;    // u1_t
   float* v_sh = u_sh + S;     // v_t
@@ -254,7 +275,7 @@ __global__ void smoothing_pass_kernel(
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int len = min(lens[b], T);
-  load_transitions<kBanded>(mat_sh, mat, S, ldt);
+  if (!kGlobal) load_transitions<kBanded>(mat_sh, mat, S, ldt);
   for (int s = tid; s < S; s += nt) {
     fin_sh[s] = final_[static_cast<size_t>(b) * S + s];
     vh_sh[s] = 0.f;
@@ -293,9 +314,10 @@ __global__ void smoothing_pass_kernel(
         const float next = i + 1 < S ? vh_sh[i + 1] : 0.f;
         u1 = vh_sh[i] * mat_sh[i] + next * mat_sh[S + i] + r * mat_sh[2 * S + i];
       } else {
-        const float* ar = mat_sh + i * ldt;
+        const float* ar = a_m + i * a_rs;
         u1 = 0.f;
-        for (int j = 0; j < S; ++j) u1 = fmaf(ar[j], vh_sh[j], u1);
+#pragma unroll 32
+        for (int j = 0; j < S; ++j) u1 = fmaf(ar[j * a_cs], vh_sh[j], u1);
       }
       const float v = e_t[i] * u1;
       u_sh[i] = u1;
@@ -327,26 +349,27 @@ __global__ void smoothing_pass_kernel(
   }
 }
 
-template <int kMode>
+template <int kMode, bool kGlobal>
 cudaError_t launch_scaled_pass(const float* e, const int* lens, const float* mat, const float* vec, float* probs,
                                float* logcs, int B, int T, int S, cudaStream_t st) {
-  const size_t smem = scaled_pass_smem_floats(kMode, S) * sizeof(float);
-  cudaError_t err = set_smem(scaled_pass_kernel<kMode>, smem);
+  const size_t smem = scaled_pass_smem_floats(kMode, kGlobal, S) * sizeof(float);
+  cudaError_t err = set_smem(scaled_pass_kernel<kMode, kGlobal>, smem);
   if (err != cudaSuccess) return err;
-  const int nt = block_threads(scaled_pass_kernel<kMode>, S);
-  scaled_pass_kernel<kMode><<<B, nt, smem, st>>>(e, lens, mat, vec, probs, logcs, T, S);
+  const int nt = block_threads(scaled_pass_kernel<kMode, kGlobal>, S);
+  scaled_pass_kernel<kMode, kGlobal><<<B, nt, smem, st>>>(e, lens, mat, vec, probs, logcs, T, S);
   return cudaGetLastError();
 }
 
-template <bool kBanded>
+template <bool kBanded, bool kGlobal>
 cudaError_t launch_smoothing(const float* e, const float* alpha, const int* lens, const float* mat,
                              const float* final_, float* gamma, float* w_out, float* wsum, float* pnorm, int B, int T,
                              int S, cudaStream_t st) {
-  const size_t smem = smoothing_smem_floats(kBanded, S) * sizeof(float);
-  cudaError_t err = set_smem(smoothing_pass_kernel<kBanded>, smem);
+  const size_t smem = smoothing_smem_floats(kBanded, kGlobal, S) * sizeof(float);
+  cudaError_t err = set_smem(smoothing_pass_kernel<kBanded, kGlobal>, smem);
   if (err != cudaSuccess) return err;
-  const int nt = block_threads(smoothing_pass_kernel<kBanded>, S);
-  smoothing_pass_kernel<kBanded><<<B, nt, smem, st>>>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, T, S);
+  const int nt = block_threads(smoothing_pass_kernel<kBanded, kGlobal>, S);
+  smoothing_pass_kernel<kBanded, kGlobal><<<B, nt, smem, st>>>(e, alpha, lens, mat, final_, gamma, w_out, wsum,
+                                                                pnorm, T, S);
   return cudaGetLastError();
 }
 
@@ -354,38 +377,52 @@ cudaError_t launch_smoothing(const float* e, const float* alpha, const int* lens
 
 extern "C" {
 
-// mode: 0 dense forward, 1 banded forward, 2 dense reverse.
-size_t beer_scaled_pass_smem_bytes(int mode, int s) { return scaled_pass_smem_floats(mode, s) * sizeof(float); }
+// mode: 0 dense forward, 1 banded forward, 2 dense reverse; global != 0:
+// the dense matrix in device memory (the banded instances have no global
+// placement).
+size_t beer_scaled_pass_smem_bytes(int mode, int s, int global) {
+  return scaled_pass_smem_floats(mode, global != 0, s) * sizeof(float);
+}
 
-size_t beer_smoothing_smem_bytes(int banded, int s) { return smoothing_smem_floats(banded != 0, s) * sizeof(float); }
+size_t beer_smoothing_smem_bytes(int banded, int s, int global) {
+  return smoothing_smem_floats(banded != 0, global != 0, s) * sizeof(float);
+}
 
-int beer_scaled_pass(int device, int mode, const float* e, const int* lens, const float* mat, const float* vec,
-                     float* probs, float* logcs, int B, int T, int S, void* stream) {
+// With global, mat is A for the forward and Aᵀ for the reverse.
+int beer_scaled_pass(int device, int mode, int global, const float* e, const int* lens, const float* mat,
+                     const float* vec, float* probs, float* logcs, int B, int T, int S, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || T == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (global && mode != kBandedForward) {
+    return mode == kDenseForward
+               ? launch_scaled_pass<kDenseForward, true>(e, lens, mat, vec, probs, logcs, B, T, S, st)
+               : launch_scaled_pass<kDenseReverse, true>(e, lens, mat, vec, probs, logcs, B, T, S, st);
+  }
   switch (mode) {
     case kDenseForward:
-      return launch_scaled_pass<kDenseForward>(e, lens, mat, vec, probs, logcs, B, T, S, st);
+      return launch_scaled_pass<kDenseForward, false>(e, lens, mat, vec, probs, logcs, B, T, S, st);
     case kBandedForward:
-      return launch_scaled_pass<kBandedForward>(e, lens, mat, vec, probs, logcs, B, T, S, st);
+      return launch_scaled_pass<kBandedForward, false>(e, lens, mat, vec, probs, logcs, B, T, S, st);
     case kDenseReverse:
-      return launch_scaled_pass<kDenseReverse>(e, lens, mat, vec, probs, logcs, B, T, S, st);
+      return launch_scaled_pass<kDenseReverse, false>(e, lens, mat, vec, probs, logcs, B, T, S, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-int beer_smoothing_pass(int device, int banded, const float* e, const float* alpha, const int* lens,
+// With global (dense only), mat is Aᵀ.
+int beer_smoothing_pass(int device, int banded, int global, const float* e, const float* alpha, const int* lens,
                         const float* mat, const float* final_, float* gamma, float* w_out, float* wsum, float* pnorm,
                         int B, int T, int S, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || T == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return banded ? launch_smoothing<true>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, B, T, S, st)
-                : launch_smoothing<false>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, B, T, S, st);
+  if (banded) return launch_smoothing<true, false>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, B, T, S, st);
+  return global ? launch_smoothing<false, true>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, B, T, S, st)
+                : launch_smoothing<false, false>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, B, T, S, st);
 }
 
 }  // extern "C"

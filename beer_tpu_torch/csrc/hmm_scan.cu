@@ -36,22 +36,41 @@
 // partials are written to a (B, ·) array and summed over the batch by
 // sum_rows_kernel in a fixed order: deterministic, no atomics.  The JAX
 // package's bf16×3 propagate is a TPU artifact; everything here is f32.
+//
+// Two placements of the operands, one template flag (kGlobal) on each
+// kernel.  "shared": A (and the ELLH matrix W, and K6's moment
+// accumulator) in shared memory, as above; it fits up to S = 239 (K5 on
+// the llh stream), 168 (K7) or ~133 (K6 at P = 78).  "global", for every
+// larger S: A and W are read from device memory (an (S, S) matrix of a
+// few hundred KB stays in the 50 MB L2), laid out so that each warp reads
+// contiguous addresses: the forward walks columns of A as given, the
+// backward rows of A, so it takes Aᵀ, and W comes as Wᵀ (P, S).  The ξ
+// and moment accumulators become the utterance's own row of the partial
+// array in device memory, each element read and written by one thread
+// only, and are summed over the batch as before.  The sums run in the
+// same order in both placements, so their outputs agree bitwise.  The
+// wrapper picks the placement from the shared-memory size
+// (cuda_scan.dense_placement).  Both placements write K6's moments as
+// (P + 1, S), state-minor.
 
 #include "scan_common.cuh"
 
 namespace {
 
-size_t dense_forward_smem_floats(int s, int p) {
-  size_t n = static_cast<size_t>(s) * odd_stride(s) + 2 * static_cast<size_t>(s) + 2 * kMaxWarps;
-  if (p > 0) n += static_cast<size_t>(s) * odd_stride(p) + s + p;
+size_t dense_forward_smem_floats(int s, int p, bool global) {
+  size_t n = 2 * static_cast<size_t>(s) + 2 * kMaxWarps;
+  if (!global) n += static_cast<size_t>(s) * odd_stride(s);
+  if (p > 0) n += s + p + (global ? 0 : static_cast<size_t>(s) * odd_stride(p));
   return n;
 }
 
-// n_xi: floats of the ξ accumulator (S·S, or n_r·n_c + the two index
-// vectors when ξ is restricted).
-size_t dense_backward_smem_floats(int s, int p, size_t n_xi) {
-  size_t n = static_cast<size_t>(s) * odd_stride(s) + n_xi + 6 * static_cast<size_t>(s) + 2 * kMaxWarps;
-  if (p > 0) n += static_cast<size_t>(s) * odd_stride(p) + static_cast<size_t>(s) * odd_stride(p + 1) + s + p;
+// n_xi: floats of the ξ accumulator (S·S, or n_r·n_c when ξ is
+// restricted); n_idx: the restricted block's two index vectors.
+size_t dense_backward_smem_floats(int s, int p, size_t n_xi, int n_idx, bool global) {
+  size_t n = 6 * static_cast<size_t>(s) + 2 * kMaxWarps + n_idx;
+  if (!global) n += static_cast<size_t>(s) * odd_stride(s) + n_xi;
+  if (p > 0)
+    n += s + p + (global ? 0 : static_cast<size_t>(s) * odd_stride(p) + static_cast<size_t>(s) * odd_stride(p + 1));
   return n;
 }
 
@@ -75,11 +94,11 @@ size_t dense_backward_smem_floats(int s, int p, size_t n_xi) {
 // there, so it carries normalise(init) with norm_0 = Σ init), and frames
 // t >= max(len, 1) copy the carry into α̂ (norm = 1, shift = 0).
 // ---------------------------------------------------------------------
-template <bool kStats, bool kShifts>
+template <bool kStats, bool kShifts, bool kGlobal>
 __global__ void forward_llh_dense_kernel(
     const float* __restrict__ x,      // (B, T, P) stats or (B, T, S) llh
     const int* __restrict__ lens,     // (B,)
-    const float* __restrict__ w,      // (S, P)  (kStats)
+    const float* __restrict__ w,      // (S, P), kGlobal: Wᵀ (P, S)  (kStats)
     const float* __restrict__ bias,   // (S,)    (kStats)
     const float* __restrict__ trans,  // (S, S), [i, j] = p(j | i)
     const float* __restrict__ init,   // (B, S)
@@ -91,24 +110,32 @@ __global__ void forward_llh_dense_kernel(
     int T, int S, int P) {
   extern __shared__ float smem[];
   const int ldt = odd_stride(S), ldw = odd_stride(P);
-  float* a_sh = smem;                                  // A, (S, ldt)
-  float* p_sh = a_sh + static_cast<size_t>(S) * ldt;   // α̂_{t−1}
-  float* v_sh = p_sh + S;                              // llh_t, then raw_t
+  float* a_sh = smem;                                                   // A, (S, ldt)
+  float* p_sh = a_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldt);   // α̂_{t−1}
+  float* v_sh = p_sh + S;                                               // llh_t, then raw_t
   float* red = v_sh + S;
-  float* w_sh = red + 2 * kMaxWarps;                   // kStats: W, (S, ldw)
-  float* bias_sh = w_sh + static_cast<size_t>(S) * ldw;
-  float* x_sh = bias_sh + S;                           // kStats: stats_t
+  float* w_sh = red + 2 * kMaxWarps;                                    // kStats: W, (S, ldw)
+  float* bias_sh = w_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldw);
+  float* x_sh = bias_sh + S;                                            // kStats: stats_t
+  // A(i, j) = a_m[i·ldt_a + j]; W(s, p) = w_m[s·w_rs + p·w_cs]
+  const float* a_m = kGlobal ? trans : a_sh;
+  const float* w_m = kGlobal ? w : w_sh;
+  const int ldt_a = kGlobal ? S : ldt, w_rs = kGlobal ? 1 : ldw, w_cs = kGlobal ? S : 1;
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int len = lens[b];
-  for (int i = tid; i < S * S; i += nt) {
-    const int r = i / S;
-    a_sh[r * ldt + (i - r * S)] = trans[i];
+  if (!kGlobal) {
+    for (int i = tid; i < S * S; i += nt) {
+      const int r = i / S;
+      a_sh[r * ldt + (i - r * S)] = trans[i];
+    }
   }
   if (kStats) {
-    for (int i = tid; i < S * P; i += nt) {
-      const int s = i / P;
-      w_sh[s * ldw + (i - s * P)] = w[i];
+    if (!kGlobal) {
+      for (int i = tid; i < S * P; i += nt) {
+        const int s = i / P;
+        w_sh[s * ldw + (i - s * P)] = w[i];
+      }
     }
     for (int s = tid; s < S; s += nt) bias_sh[s] = bias[s];
   }
@@ -131,9 +158,10 @@ __global__ void forward_llh_dense_kernel(
     for (int s = tid; s < S; s += nt) {
       float l;
       if (kStats) {
-        const float* wr = w_sh + s * ldw;
+        const float* wr = w_m + s * w_rs;
         l = 0.f;
-        for (int p = 0; p < P; ++p) l = fmaf(wr[p], x_sh[p], l);
+#pragma unroll 16
+        for (int p = 0; p < P; ++p) l = fmaf(wr[p * w_cs], x_sh[p], l);
         l += bias_sh[s];
       } else {
         l = pad ? 0.f : x_t[s];
@@ -150,7 +178,8 @@ __global__ void forward_llh_dense_kernel(
         base = p_sh[j];
       } else {
         base = 0.f;
-        for (int i = 0; i < S; ++i) base = fmaf(p_sh[i], a_sh[i * ldt + j], base);
+#pragma unroll 32
+        for (int i = 0; i < S; ++i) base = fmaf(p_sh[i], a_m[i * ldt_a + j], base);
       }
       const float raw = base * expf(v_sh[j] - mx);
       v_sh[j] = raw;
@@ -191,8 +220,8 @@ __global__ void forward_llh_dense_kernel(
 // otherwise u1_i = Σ_j A(i, j) v̂_{t+1}(j); v = e·u1; v̂ = v / max(Σv,
 // FLT_MIN); γ = α̂·u1 / max(Σ α̂·u1, FLT_MIN); wgt = 1 / (norm·Σ(α̂u1)/Σv)
 // (0 below the ξ floor); ξ_raw(i, j) += α̂_t(i)·wgt_{t+1}·v̂_{t+1}(j).
-// K6 computes llh from W·stats as K5 does and reduces γ in shared
-// memory to acc (S, P+1) = Σ γ ⊗ [stats, 1] plus γ₀; K7 reads the llh
+// K6 computes llh from W·stats as K5 does and reduces γ to acc (S, P+1)
+// = Σ γ ⊗ [stats, 1] (written as its transpose) plus γ₀; K7 reads the llh
 // stream and writes γ (0 on frames t >= len).  The expected transition
 // counts are ξ_raw ⊙ A, applied by the caller.  Bound: the serial chain
 // plus S FMAs (propagate) + S FMAs (ξ) + 2·P FMAs (K6: ELLH and moments)
@@ -204,58 +233,76 @@ __global__ void forward_llh_dense_kernel(
 // v̂_{t+1}[cols] (no one-hot product), so the per-utterance partial is
 // n_r·n_c floats instead of S².
 // ---------------------------------------------------------------------
-template <bool kAcc, bool kRestrict>
+template <bool kAcc, bool kRestrict, bool kGlobal>
 __global__ void estep_dense_kernel(
     const float* __restrict__ x,       // kAcc: (B, T, P) stats; else (B, T, S) llh
     const int* __restrict__ lens,      // (B,)
-    const float* __restrict__ w,       // (S, P)  (kAcc)
+    const float* __restrict__ w,       // (S, P), kGlobal: Wᵀ (P, S)  (kAcc)
     const float* __restrict__ bias,    // (S,)    (kAcc)
-    const float* __restrict__ trans,   // (S, S)
+    const float* __restrict__ trans,   // (S, S), kGlobal: Aᵀ
     const float* __restrict__ final_,  // (B, S)
     const float* __restrict__ alpha,   // (B, T, S)
     const float* __restrict__ norms,   // (B, T)
     const int* __restrict__ rows,      // (n_r,)  (kRestrict)
     const int* __restrict__ cols,      // (n_c,)  (kRestrict)
-    float* __restrict__ part,          // (B, [S*(P+1)] + n_r*n_c)
+    float* __restrict__ part,          // (B, [(P+1)*S] + n_r*n_c)
     float* __restrict__ gamma0,        // (B, S)     (kAcc)
     float* __restrict__ gamma,         // (B, T, S)  (!kAcc)
     int T, int S, int P, int n_r, int n_c) {  // n_r = n_c = S unless kRestrict
   extern __shared__ float smem[];
   const int ldt = odd_stride(S), ldw = odd_stride(P), lda = odd_stride(P + 1);
   const int n_xi = n_r * n_c;
-  float* a_sh = smem;                                   // A, (S, ldt)
-  float* xi_sh = a_sh + static_cast<size_t>(S) * ldt;   // (n_r, n_c)
-  int* rows_sh = reinterpret_cast<int*>(xi_sh + n_xi);  // kRestrict: n_r + n_c indices
+  const int n_acc = kAcc ? S * (P + 1) : 0;
+  float* out = part + static_cast<size_t>(blockIdx.x) * (n_acc + n_xi);  // this utterance's partial
+  float* a_sh = smem;                                                      // A, (S, ldt)
+  float* xi_sh = a_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldt);     // (n_r, n_c)
+  int* rows_sh = reinterpret_cast<int*>(xi_sh + (kGlobal ? 0 : n_xi));     // kRestrict: n_r + n_c indices
   int* cols_sh = rows_sh + n_r;
-  float* fin_sh = xi_sh + n_xi + (kRestrict ? n_r + n_c : 0);
+  float* fin_sh = reinterpret_cast<float*>(rows_sh) + (kRestrict ? n_r + n_c : 0);
   float* vh_prev = fin_sh + S;  // v̂_{t+1}
   float* vh_cur = vh_prev + S;  // v̂_t
   float* al_sh = vh_cur + S;    // α̂_t
   float* v_sh = al_sh + S;      // llh_t, then v_t
   float* ab_sh = v_sh + S;      // α̂_t·u1_t
   float* red = ab_sh + S;
-  float* w_sh = red + 2 * kMaxWarps;                    // kAcc: W, (S, ldw)
-  float* acc_sh = w_sh + static_cast<size_t>(S) * ldw;  // kAcc: (S, lda)
-  float* bias_sh = acc_sh + static_cast<size_t>(S) * lda;
-  float* x_sh = bias_sh + S;                            // kAcc: stats_t
+  float* w_sh = red + 2 * kMaxWarps;                                       // kAcc: W, (S, ldw)
+  float* acc_sh = w_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldw);     // kAcc: (S, lda)
+  float* bias_sh = acc_sh + (kGlobal ? 0 : static_cast<size_t>(S) * lda);
+  float* x_sh = bias_sh + S;                                               // kAcc: stats_t
+  // A(i, j) = a_m[i·a_rs + j·a_cs], W(s, p) = w_m[s·w_rs + p·w_cs], the
+  // moments acc(s, p) = acc_m[s·acc_rs + p·acc_cs], ξ(i, j) = xi_m[i·n_c + j]
+  const float* a_m = kGlobal ? trans : a_sh;
+  const float* w_m = kGlobal ? w : w_sh;
+  float* acc_m = kGlobal ? out : acc_sh;
+  float* xi_m = kGlobal ? out + n_acc : xi_sh;
+  const int a_rs = kGlobal ? 1 : ldt, a_cs = kGlobal ? S : 1;
+  const int w_rs = kGlobal ? 1 : ldw, w_cs = kGlobal ? S : 1;
+  const int acc_rs = kGlobal ? 1 : lda, acc_cs = kGlobal ? S : 1;
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int len = lens[b];
-  for (int i = tid; i < S * S; i += nt) {
-    const int r = i / S;
-    a_sh[r * ldt + (i - r * S)] = trans[i];
+  if (!kGlobal) {
+    for (int i = tid; i < S * S; i += nt) {
+      const int r = i / S;
+      a_sh[r * ldt + (i - r * S)] = trans[i];
+    }
   }
-  for (int i = tid; i < n_xi; i += nt) xi_sh[i] = 0.f;
+  // each ξ column and each state's moments belong to one thread, here and below
+  for (int j = tid; j < n_c; j += nt)
+    for (int i = 0; i < n_r; ++i) xi_m[i * n_c + j] = 0.f;
   if (kRestrict) {
     for (int i = tid; i < n_r; i += nt) rows_sh[i] = rows[i];
     for (int i = tid; i < n_c; i += nt) cols_sh[i] = cols[i];
   }
   if (kAcc) {
-    for (int i = tid; i < S * P; i += nt) {
-      const int s = i / P;
-      w_sh[s * ldw + (i - s * P)] = w[i];
+    if (!kGlobal) {
+      for (int i = tid; i < S * P; i += nt) {
+        const int s = i / P;
+        w_sh[s * ldw + (i - s * P)] = w[i];
+      }
     }
-    for (int i = tid; i < S * lda; i += nt) acc_sh[i] = 0.f;
+    for (int s = tid; s < S; s += nt)
+      for (int p = 0; p <= P; ++p) acc_m[s * acc_rs + p * acc_cs] = 0.f;
     for (int s = tid; s < S; s += nt) bias_sh[s] = bias[s];
   }
   for (int s = tid; s < S; s += nt) {
@@ -281,9 +328,10 @@ __global__ void estep_dense_kernel(
     for (int s = tid; s < S; s += nt) {
       float l;
       if (kAcc) {
-        const float* wr = w_sh + s * ldw;
+        const float* wr = w_m + s * w_rs;
         l = 0.f;
-        for (int p = 0; p < P; ++p) l = fmaf(wr[p], x_sh[p], l);
+#pragma unroll 16
+        for (int p = 0; p < P; ++p) l = fmaf(wr[p * w_cs], x_sh[p], l);
         l += bias_sh[s];
       } else {
         l = x_t[s];
@@ -299,9 +347,10 @@ __global__ void estep_dense_kernel(
       if (is_last) {
         u1 = fin_sh[i];
       } else {
-        const float* ar = a_sh + i * ldt;
+        const float* ar = a_m + i * a_rs;
         u1 = 0.f;
-        for (int j = 0; j < S; ++j) u1 = fmaf(ar[j], vh_prev[j], u1);
+#pragma unroll 32
+        for (int j = 0; j < S; ++j) u1 = fmaf(ar[j * a_cs], vh_prev[j], u1);
       }
       const float v = expf(v_sh[i] - mx) * u1;
       const float ab = al_sh[i] * u1;
@@ -319,9 +368,18 @@ __global__ void estep_dense_kernel(
       const float g = ab_sh[s] / gnorm;
       vh_cur[s] = v_sh[s] / sv;
       if (kAcc) {
-        float* ar = acc_sh + s * lda;
-        for (int p = 0; p < P; ++p) ar[p] = fmaf(g, x_sh[p], ar[p]);
-        ar[P] += g;
+        // sixteen reads in flight before their writes (the accumulator may
+        // live in device memory); entry p gets fmaf(g, x_p, ·), entry P + g
+        float* ar = acc_m + s * acc_rs;
+        for (int p0 = 0; p0 <= P; p0 += 16) {
+          float v[16];
+#pragma unroll
+          for (int u = 0; u < 16; ++u)
+            if (p0 + u <= P) v[u] = ar[(p0 + u) * acc_cs];
+#pragma unroll
+          for (int u = 0; u < 16; ++u)
+            if (p0 + u <= P) ar[(p0 + u) * acc_cs] = p0 + u < P ? fmaf(g, x_sh[p0 + u], v[u]) : v[u] + g;
+        }
         if (t == 0) gamma0[static_cast<size_t>(b) * S + s] = g;
       } else {
         g_b[static_cast<size_t>(t) * S + s] = g;
@@ -330,9 +388,17 @@ __global__ void estep_dense_kernel(
     if (!is_last) {
       for (int j = tid; j < n_c; j += nt) {
         const float vj = vh_prev[kRestrict ? cols_sh[j] : j];
-        for (int i = 0; i < n_r; ++i) {
-          const float ai = al_sh[kRestrict ? rows_sh[i] : i];
-          xi_sh[i * n_c + j] = fmaf(ai * wgt_next, vj, xi_sh[i * n_c + j]);
+        for (int i0 = 0; i0 < n_r; i0 += 16) {  // sixteen reads in flight, as above
+          float v[16];
+#pragma unroll
+          for (int u = 0; u < 16; ++u)
+            if (i0 + u < n_r) v[u] = xi_m[(i0 + u) * n_c + j];
+#pragma unroll
+          for (int u = 0; u < 16; ++u) {
+            if (i0 + u >= n_r) continue;
+            const float ai = al_sh[kRestrict ? rows_sh[i0 + u] : i0 + u];
+            xi_m[(i0 + u) * n_c + j] = fmaf(ai * wgt_next, vj, v[u]);
+          }
         }
       }
     }
@@ -342,12 +408,12 @@ __global__ void estep_dense_kernel(
     vh_cur = tmp;
   }
   __syncthreads();
-  const int n_acc = kAcc ? S * (P + 1) : 0;
-  float* out = part + static_cast<size_t>(b) * (n_acc + n_xi);
   if (kAcc) {
-    for (int i = tid; i < n_acc; i += nt) {
-      const int s = i / (P + 1);
-      out[i] = acc_sh[s * lda + (i - s * (P + 1))];
+    if (!kGlobal) {
+      for (int i = tid; i < n_acc; i += nt) {
+        const int p = i / S, s = i - p * S;
+        out[i] = acc_sh[s * lda + p];
+      }
     }
     if (len == 0) {
       for (int s = tid; s < S; s += nt) gamma0[static_cast<size_t>(b) * S + s] = 0.f;
@@ -355,125 +421,128 @@ __global__ void estep_dense_kernel(
   } else {
     for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) g_b[i] = 0.f;
   }
-  for (int k = tid; k < n_xi; k += nt) out[n_acc + k] = xi_sh[k];
+  if (!kGlobal) {
+    for (int k = tid; k < n_xi; k += nt) out[n_acc + k] = xi_sh[k];
+  }
+}
+
+// The kernels of one entry point, shared and global placement.
+template <typename Kernel, typename... Args>
+cudaError_t launch_placed(bool global, Kernel shared_kernel, Kernel global_kernel, size_t smem, int B, int S,
+                          cudaStream_t st, Args... args) {
+  const Kernel kernel = global ? global_kernel : shared_kernel;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, block_threads(kernel, S), smem, st>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t beer_dense_forward_smem_bytes(int s, int p) { return dense_forward_smem_floats(s, p) * sizeof(float); }
-
-size_t beer_dense_estep_smem_bytes(int s, int p) {
-  return dense_backward_smem_floats(s, p, static_cast<size_t>(s) * s) * sizeof(float);
+// global != 0: the global placement (see the note at the top).
+size_t beer_dense_forward_smem_bytes(int s, int p, int global) {
+  return dense_forward_smem_floats(s, p, global != 0) * sizeof(float);
 }
 
-size_t beer_dense_estep_restricted_smem_bytes(int s, int n_r, int n_c) {
-  return dense_backward_smem_floats(s, 0, static_cast<size_t>(n_r) * n_c + n_r + n_c) * sizeof(float);
+size_t beer_dense_estep_smem_bytes(int s, int p, int global) {
+  return dense_backward_smem_floats(s, p, static_cast<size_t>(s) * s, 0, global != 0) * sizeof(float);
 }
 
-// P > 0: x is the stats stream and w/bias give llh; P == 0: x is llh.
-int beer_forward_llh_dense(int device, const float* x, const int* lens, const float* w, const float* bias,
-                           const float* trans, const float* init, float* alpha, float* norms, float* last,
-                           float* logz, int B, int T, int S, int P, void* stream) {
+size_t beer_dense_estep_restricted_smem_bytes(int s, int n_r, int n_c, int global) {
+  return dense_backward_smem_floats(s, 0, static_cast<size_t>(n_r) * n_c, n_r + n_c, global != 0) * sizeof(float);
+}
+
+// P > 0: x is the stats stream and w/bias give llh (w is Wᵀ (P, S) when
+// global); P == 0: x is llh.
+int beer_forward_llh_dense(int device, int global, const float* x, const int* lens, const float* w,
+                           const float* bias, const float* trans, const float* init, float* alpha, float* norms,
+                           float* last, float* logz, int B, int T, int S, int P, void* stream) {
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const size_t smem = beer_dense_forward_smem_bytes(S, P);
-  err = P > 0 ? set_smem(forward_llh_dense_kernel<true, false>, smem)
-              : set_smem(forward_llh_dense_kernel<false, false>, smem);
-  if (err != cudaSuccess) return err;
-  if (B == 0) return cudaSuccess;
+  if (err != cudaSuccess || B == 0) return err;
+  const size_t smem = beer_dense_forward_smem_bytes(S, P, global);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (P > 0) {
-    const int nt = block_threads(forward_llh_dense_kernel<true, false>, S);
-    forward_llh_dense_kernel<true, false><<<B, nt, smem, st>>>(x, lens, w, bias, trans, init, alpha, norms, last,
-                                                               logz, nullptr, T, S, P);
-  } else {
-    const int nt = block_threads(forward_llh_dense_kernel<false, false>, S);
-    forward_llh_dense_kernel<false, false><<<B, nt, smem, st>>>(x, lens, w, bias, trans, init, alpha, norms, last,
-                                                                logz, nullptr, T, S, 0);
-  }
-  return cudaGetLastError();
+  if (P > 0)
+    return launch_placed(global, forward_llh_dense_kernel<true, false, false>,
+                         forward_llh_dense_kernel<true, false, true>, smem, B, S, st, x, lens, w, bias, trans,
+                         init, alpha, norms, last, logz, static_cast<float*>(nullptr), T, S, P);
+  return launch_placed(global, forward_llh_dense_kernel<false, false, false>,
+                       forward_llh_dense_kernel<false, false, true>, smem, B, S, st, x, lens, w, bias, trans, init,
+                       alpha, norms, last, logz, static_cast<float*>(nullptr), T, S, 0);
 }
 
 // K14: the llh stream, with the row-max shifts written out and the carry
 // copied through frames t >= len.
-int beer_forward_llh_shifts_dense(int device, const float* llh, const int* lens, const float* trans,
+int beer_forward_llh_shifts_dense(int device, int global, const float* llh, const int* lens, const float* trans,
                                   const float* init, float* alpha, float* norms, float* last, float* logz,
                                   float* shifts, int B, int T, int S, void* stream) {
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const size_t smem = beer_dense_forward_smem_bytes(S, 0);
-  err = set_smem(forward_llh_dense_kernel<false, true>, smem);
-  if (err != cudaSuccess) return err;
-  if (B == 0) return cudaSuccess;
-  const int nt = block_threads(forward_llh_dense_kernel<false, true>, S);
-  forward_llh_dense_kernel<false, true><<<B, nt, smem, static_cast<cudaStream_t>(stream)>>>(
-      llh, lens, nullptr, nullptr, trans, init, alpha, norms, last, logz, shifts, T, S, 0);
-  return cudaGetLastError();
+  if (err != cudaSuccess || B == 0) return err;
+  return launch_placed(global, forward_llh_dense_kernel<false, true, false>,
+                       forward_llh_dense_kernel<false, true, true>, beer_dense_forward_smem_bytes(S, 0, global), B,
+                       S, static_cast<cudaStream_t>(stream), llh, lens, static_cast<const float*>(nullptr),
+                       static_cast<const float*>(nullptr), trans, init, alpha, norms, last, logz, shifts, T, S, 0);
 }
 
-int beer_estep_acc_dense(int device, const float* stats, const int* lens, const float* w, const float* bias,
-                         const float* trans, const float* final_, const float* alpha, const float* norms,
-                         float* part, float* out, float* gamma0, int B, int T, int S, int P, void* stream) {
+// trans is Aᵀ and w is Wᵀ (P, S) when global; part (B, (P+1)·S + S·S),
+// out = Σ_b part[b]: the moments (P + 1, S), then ξ_raw (S, S).
+int beer_estep_acc_dense(int device, int global, const float* stats, const int* lens, const float* w,
+                         const float* bias, const float* trans, const float* final_, const float* alpha,
+                         const float* norms, float* part, float* out, float* gamma0, int B, int T, int S, int P,
+                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = beer_dense_estep_smem_bytes(S, P);
-  err = set_smem(estep_dense_kernel<true, false>, smem);
-  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B > 0) {
+    err = launch_placed(global, estep_dense_kernel<true, false, false>, estep_dense_kernel<true, false, true>,
+                        beer_dense_estep_smem_bytes(S, P, global), B, S, st, stats, lens, w, bias, trans, final_,
+                        alpha, norms, static_cast<const int*>(nullptr), static_cast<const int*>(nullptr), part,
+                        gamma0, static_cast<float*>(nullptr), T, S, P, S, S);
+    if (err != cudaSuccess) return err;
+  }
   const int n = S * (P + 1) + S * S;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0) {
-    const int nt = block_threads(estep_dense_kernel<true, false>, S);
-    estep_dense_kernel<true, false><<<B, nt, smem, st>>>(stats, lens, w, bias, trans, final_, alpha, norms, nullptr,
-                                                         nullptr, part, gamma0, nullptr, T, S, P, S, S);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
   sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
   return cudaGetLastError();
 }
 
-int beer_estep_gamma_dense(int device, const float* llh, const int* lens, const float* trans, const float* final_,
-                           const float* alpha, const float* norms, float* part, float* out, float* gamma, int B,
-                           int T, int S, void* stream) {
+// trans is Aᵀ when global.
+int beer_estep_gamma_dense(int device, int global, const float* llh, const int* lens, const float* trans,
+                           const float* final_, const float* alpha, const float* norms, float* part, float* out,
+                           float* gamma, int B, int T, int S, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = beer_dense_estep_smem_bytes(S, 0);
-  err = set_smem(estep_dense_kernel<false, false>, smem);
-  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B > 0) {
+    err = launch_placed(global, estep_dense_kernel<false, false, false>, estep_dense_kernel<false, false, true>,
+                        beer_dense_estep_smem_bytes(S, 0, global), B, S, st, llh, lens,
+                        static_cast<const float*>(nullptr), static_cast<const float*>(nullptr), trans, final_,
+                        alpha, norms, static_cast<const int*>(nullptr), static_cast<const int*>(nullptr), part,
+                        static_cast<float*>(nullptr), gamma, T, S, 0, S, S);
+    if (err != cudaSuccess) return err;
+  }
   const int n = S * S;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0) {
-    const int nt = block_threads(estep_dense_kernel<false, false>, S);
-    estep_dense_kernel<false, false><<<B, nt, smem, st>>>(llh, lens, nullptr, nullptr, trans, final_, alpha, norms,
-                                                          nullptr, nullptr, part, nullptr, gamma, T, S, 0, S, S);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
   sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
   return cudaGetLastError();
 }
 
-// K15: ξ_raw restricted to [rows][:, cols]; part is (B, n_r·n_c), out (n_r, n_c).
-int beer_estep_gamma_dense_restricted(int device, const float* llh, const int* lens, const float* trans,
-                                      const float* final_, const float* alpha, const float* norms, const int* rows,
-                                      const int* cols, float* part, float* out, float* gamma, int B, int T, int S,
-                                      int n_r, int n_c, void* stream) {
+// K15: ξ_raw restricted to [rows][:, cols]; part is (B, n_r·n_c), out
+// (n_r, n_c); trans is Aᵀ when global.
+int beer_estep_gamma_dense_restricted(int device, int global, const float* llh, const int* lens,
+                                      const float* trans, const float* final_, const float* alpha,
+                                      const float* norms, const int* rows, const int* cols, float* part, float* out,
+                                      float* gamma, int B, int T, int S, int n_r, int n_c, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = beer_dense_estep_restricted_smem_bytes(S, n_r, n_c);
-  err = set_smem(estep_dense_kernel<false, true>, smem);
-  if (err != cudaSuccess) return err;
-  const int n = n_r * n_c;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0) {
-    const int nt = block_threads(estep_dense_kernel<false, true>, S);
-    estep_dense_kernel<false, true><<<B, nt, smem, st>>>(llh, lens, nullptr, nullptr, trans, final_, alpha, norms,
-                                                         rows, cols, part, nullptr, gamma, T, S, 0, n_r, n_c);
-    err = cudaGetLastError();
+    err = launch_placed(global, estep_dense_kernel<false, true, false>, estep_dense_kernel<false, true, true>,
+                        beer_dense_estep_restricted_smem_bytes(S, n_r, n_c, global), B, S, st, llh, lens,
+                        static_cast<const float*>(nullptr), static_cast<const float*>(nullptr), trans, final_,
+                        alpha, norms, rows, cols, part, static_cast<float*>(nullptr), gamma, T, S, 0, n_r, n_c);
     if (err != cudaSuccess) return err;
   }
+  const int n = n_r * n_c;
   if (n > 0) sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
   return cudaGetLastError();
 }

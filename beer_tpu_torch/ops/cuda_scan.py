@@ -163,16 +163,17 @@ def _library() -> ctypes.CDLL:
         "beer_estep_gamma_banded": [i] + [p] * 14 + [i] * 5 + [p],
         "beer_viterbi_fwd_banded": [i] + [p] * 7 + [i] * 3 + [p],
         "beer_viterbi_backtrace_banded": [i] + [p] * 6 + [i] * 4 + [p],
-        "beer_forward_llh_dense": [i] + [p] * 10 + [i] * 4 + [p],
-        "beer_estep_acc_dense": [i] + [p] * 11 + [i] * 4 + [p],
-        "beer_estep_gamma_dense": [i] + [p] * 9 + [i] * 3 + [p],
-        "beer_forward_llh_shifts_dense": [i] + [p] * 9 + [i] * 3 + [p],
-        "beer_estep_gamma_dense_restricted": [i] + [p] * 11 + [i] * 5 + [p],
-        "beer_scaled_pass": [i, i] + [p] * 6 + [i] * 3 + [p],
-        "beer_smoothing_pass": [i, i] + [p] * 9 + [i] * 3 + [p],
+        "beer_forward_llh_dense": [i, i] + [p] * 10 + [i] * 4 + [p],
+        "beer_estep_acc_dense": [i, i] + [p] * 11 + [i] * 4 + [p],
+        "beer_estep_gamma_dense": [i, i] + [p] * 9 + [i] * 3 + [p],
+        "beer_forward_llh_shifts_dense": [i, i] + [p] * 9 + [i] * 3 + [p],
+        "beer_estep_gamma_dense_restricted": [i, i] + [p] * 11 + [i] * 5 + [p],
+        "beer_scaled_pass": [i, i, i] + [p] * 6 + [i] * 3 + [p],
+        "beer_smoothing_pass": [i, i, i] + [p] * 9 + [i] * 3 + [p],
         "beer_gmm_estep_full": [i] + [p] * 6 + [i] * 4 + [p],
-        "beer_ellh_full": [i] + [p] * 3 + [i] * 3 + [p],
-        "beer_accumulate_full": [i] + [p] * 4 + [i] * 4 + [p],
+        "beer_ellh_full": [i] + [p] * 3 + [i] * 6 + [p],
+        "beer_accumulate_full": [i] + [p] * 4 + [i] * 6 + [p],
+        "beer_stats_prepare": [i],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)
@@ -185,13 +186,13 @@ def _library() -> ctypes.CDLL:
         getattr(lib, name).restype = z
     for name in ("beer_dense_forward_smem_bytes", "beer_dense_estep_smem_bytes",
                  "beer_scaled_pass_smem_bytes", "beer_smoothing_smem_bytes"):
-        getattr(lib, name).argtypes = [i, i]
+        getattr(lib, name).argtypes = [i, i, i]
         getattr(lib, name).restype = z
-    lib.beer_dense_estep_restricted_smem_bytes.argtypes = [i, i, i]
+    lib.beer_dense_estep_restricted_smem_bytes.argtypes = [i, i, i, i]
     lib.beer_dense_estep_restricted_smem_bytes.restype = z
-    lib.beer_stats_smem_bytes.argtypes = [i, i, i]
+    lib.beer_stats_smem_bytes.argtypes = [i] * 5
     lib.beer_stats_smem_bytes.restype = z
-    lib.beer_stats_blocks.argtypes = [i, i, i, i, i]
+    lib.beer_stats_blocks.argtypes = [i] * 5
     lib.beer_stats_blocks.restype = i
     lib.beer_error_string.argtypes = [i]
     lib.beer_error_string.restype = ctypes.c_char_p
@@ -247,6 +248,66 @@ def _fits(what: str, smem: int) -> None:
     if smem > SMEM_LIMIT:
         raise ValueError(f"{what} needs {smem} B of shared memory (> {SMEM_LIMIT}); "
                          "the kernel keeps these operands in shared memory")
+
+
+# ----------------------------------------------------------------------
+# Where the dense kernels keep their (S, S) operands
+# ----------------------------------------------------------------------
+_MAX_WARPS = 32   # scan_common.cuh kMaxWarps: the block reductions' scratch
+_FORWARD = ("forward_llh_dense", "forward_llh_shifts_dense")
+_BACKWARD = ("estep_acc_dense", "estep_gamma_dense")
+_DENSE = _FORWARD + _BACKWARD + ("estep_gamma_dense_restricted", "scaled_pass", "smoothing_pass")
+
+
+def _odd(n: int) -> int:
+    return n | 1
+
+
+def dense_smem_bytes(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0,
+                     placement: str = "shared") -> int:
+    """Shared memory of one block of a dense kernel (the formulas of
+    ``csrc/hmm_scan.cu`` and ``csrc/general_scan.cu``): ``kernel`` one of
+    K5 ``forward_llh_dense`` (``p`` > 0 on the stats stream), K14
+    ``forward_llh_shifts_dense``, K6 ``estep_acc_dense`` (``p``), K7
+    ``estep_gamma_dense``, K15 ``estep_gamma_dense_restricted`` (``n_r`` ×
+    ``n_c``), K12 ``scaled_pass`` (the dense forward and reverse) and K13
+    ``smoothing_pass`` (dense); ``placement`` "shared" keeps A (and W,
+    K6's moments, the ξ accumulator) in shared memory, "global" reads them
+    from device memory."""
+    if kernel not in _DENSE:
+        raise ValueError(f"{kernel} is not a dense kernel")
+    shared = placement == "shared"
+    mat = s * _odd(s) if shared else 0
+    if kernel in _FORWARD:
+        floats = 2 * s + 2 * _MAX_WARPS + mat
+        if p > 0:
+            floats += s + p + (s * _odd(p) if shared else 0)
+    elif kernel in _BACKWARD:
+        floats = 6 * s + 2 * _MAX_WARPS + (mat + s * s if shared else 0)
+        if p > 0:
+            floats += s + p + (s * _odd(p) + s * _odd(p + 1) if shared else 0)
+    elif kernel == "estep_gamma_dense_restricted":
+        floats = 6 * s + 2 * _MAX_WARPS + n_r + n_c + (mat + n_r * n_c if shared else 0)
+    elif kernel == "scaled_pass":
+        floats = 2 * s + 2 * _MAX_WARPS + mat
+    else:
+        floats = 5 * s + 2 * _MAX_WARPS + mat
+    return 4 * floats
+
+
+def dense_placement(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0) -> str:
+    """"shared" while a dense kernel's operands fit one block's shared
+    memory (:data:`SMEM_LIMIT`), "global" above: every S the reference
+    takes runs through the kernel."""
+    fits = dense_smem_bytes(kernel, s, p, n_r, n_c, "shared") <= SMEM_LIMIT
+    return "shared" if fits else "global"
+
+
+def _placed(kernel: str, what: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0) -> bool:
+    """The placement of one call (True: global), checked against the limit."""
+    placement = dense_placement(kernel, s, p, n_r, n_c)
+    _fits(what, dense_smem_bytes(kernel, s, p, n_r, n_c, placement))
+    return placement == "global"
 
 
 def _shift_down(x: torch.Tensor) -> torch.Tensor:
@@ -679,18 +740,21 @@ def forward_llh_dense(x, lens, trans, init, w=None, bias=None, return_shifts=Fal
         _shape(name, t, shape)
     p_dim = width if stats_mode else 0
     lib = _library()
-    _fits(f"S={s}, P={p_dim}", lib.beer_dense_forward_smem_bytes(s, p_dim))
+    name = "forward_llh_shifts_dense" if return_shifts else "forward_llh_dense"
+    glob = _placed(name, f"S={s}, P={p_dim}", s, p_dim)
+    if glob and stats_mode:
+        w = w.T.contiguous()
     alpha = torch.empty(b, t_len, s, device=dev)
     norms = torch.empty(b, t_len, device=dev)
     last = torch.empty(b, s, device=dev)
     logz = torch.empty(b, device=dev)
     if return_shifts:
         shifts = torch.empty(b, t_len, device=dev)
-        _launch(lib.beer_forward_llh_shifts_dense, dev.index, *map(_ptr, (
+        _launch(lib.beer_forward_llh_shifts_dense, dev.index, int(glob), *map(_ptr, (
             x, lens, trans, init, alpha, norms, last, logz, shifts)), b, t_len, s, _stream(dev))
         KERNELS["forward_llh_shifts_dense"].launches += 1
         return alpha, norms, last, logz, shifts
-    _launch(lib.beer_forward_llh_dense, dev.index, *map(_ptr, (x, lens)),
+    _launch(lib.beer_forward_llh_dense, dev.index, int(glob), *map(_ptr, (x, lens)),
             _ptr(w) if stats_mode else None, _ptr(bias) if stats_mode else None,
             *map(_ptr, (trans, init, alpha, norms, last, logz)), b, t_len, s, p_dim, _stream(dev))
     KERNELS["forward_llh_dense"].launches += 1
@@ -731,16 +795,18 @@ def estep_acc_dense(stats, lens, w, bias, trans, final, alpha, norms):
                            ("alpha", alpha, (b, t_len, s)), ("norms", norms, (b, t_len))):
         _shape(name, x, shape)
     lib = _library()
-    _fits(f"S={s}, P={p_dim}", lib.beer_dense_estep_smem_bytes(s, p_dim))
+    glob = _placed("estep_acc_dense", f"S={s}, P={p_dim}", s, p_dim)
+    if glob:
+        w, trans = w.T.contiguous(), trans.T.contiguous()
     width = s * (p_dim + 1) + s * s
     part = torch.empty(b, width, device=dev)
     out = torch.empty(width, device=dev)
     gamma0 = torch.empty(b, s, device=dev)
-    _launch(lib.beer_estep_acc_dense, dev.index, *map(_ptr, (
+    _launch(lib.beer_estep_acc_dense, dev.index, int(glob), *map(_ptr, (
         stats, lens, w, bias, trans, final, alpha, norms, part, out, gamma0)),
         b, t_len, s, p_dim, _stream(dev))
     KERNELS["estep_acc_dense"].launches += 1
-    acc = out[: s * (p_dim + 1)].view(s, p_dim + 1)
+    acc = out[: s * (p_dim + 1)].view(p_dim + 1, s).T       # written state-minor
     return acc[:, :p_dim], acc[:, p_dim], gamma0, out[s * (p_dim + 1):].view(s, s)
 
 
@@ -792,20 +858,22 @@ def estep_gamma_dense(llh, lens, trans, final, alpha, norms, rows=None, cols=Non
         for name, idx in (("rows", rows), ("cols", cols)):
             if idx.numel() and not bool(((idx >= 0) & (idx < s)).all()):
                 raise ValueError(f"{name} holds a state index outside [0, {s})")
-        _fits(f"S={s}, n_r={n_r}, n_c={n_c}",
-              lib.beer_dense_estep_restricted_smem_bytes(s, n_r, n_c))
+        glob = _placed("estep_gamma_dense_restricted", f"S={s}, n_r={n_r}, n_c={n_c}", s,
+                       n_r=n_r, n_c=n_c)
         part = torch.empty(b, n_r * n_c, device=dev)
         out = torch.zeros(n_r * n_c, device=dev)
-        _launch(lib.beer_estep_gamma_dense_restricted, dev.index, *map(_ptr, (
-            llh, lens, trans, final, alpha, norms, rows, cols, part, out, gamma)),
+        _launch(lib.beer_estep_gamma_dense_restricted, dev.index, int(glob), *map(_ptr, (
+            llh, lens, trans.T.contiguous() if glob else trans, final, alpha, norms, rows, cols,
+            part, out, gamma)),
             b, t_len, s, n_r, n_c, _stream(dev))
         KERNELS["estep_gamma_dense_restricted"].launches += 1
         return gamma, out.view(n_r, n_c)
-    _fits(f"S={s}", lib.beer_dense_estep_smem_bytes(s, 0))
+    glob = _placed("estep_gamma_dense", f"S={s}", s)
     part = torch.empty(b, s * s, device=dev)
     out = torch.empty(s * s, device=dev)
-    _launch(lib.beer_estep_gamma_dense, dev.index, *map(_ptr, (
-        llh, lens, trans, final, alpha, norms, part, out, gamma)), b, t_len, s, _stream(dev))
+    _launch(lib.beer_estep_gamma_dense, dev.index, int(glob), *map(_ptr, (
+        llh, lens, trans.T.contiguous() if glob else trans, final, alpha, norms, part, out,
+        gamma)), b, t_len, s, _stream(dev))
     KERNELS["estep_gamma_dense"].launches += 1
     return gamma, out.view(s, s)
 
@@ -924,10 +992,16 @@ def scaled_pass(e_llh, lens, trans, vec, banded=False, reverse=False):
     dev = e_llh.device
     mode = 2 if reverse else int(banded)
     lib = _library()
-    _fits(f"S={s}", lib.beer_scaled_pass_smem_bytes(mode, s))
+    if banded:
+        glob = False
+        _fits(f"S={s}", lib.beer_scaled_pass_smem_bytes(mode, s, 0))
+    else:
+        glob = _placed("scaled_pass", f"S={s}", s)
+        if glob and reverse:
+            trans = trans.T.contiguous()
     probs = torch.empty(b, t_len, s, device=dev)
     logcs = torch.empty(b, t_len, device=dev)
-    _launch(lib.beer_scaled_pass, dev.index, mode, *map(_ptr, (
+    _launch(lib.beer_scaled_pass, dev.index, mode, int(glob), *map(_ptr, (
         e_llh, lens, trans, vec, probs, logcs)), b, t_len, s, _stream(dev))
     KERNELS["scaled_pass"].launches += 1
     return probs, logcs
@@ -958,12 +1032,18 @@ def smoothing_pass(e_llh, a_probs, lens, trans, final, banded=False):
     b, t_len, s = _check_general("smoothing_pass", banded, e_llh, lens, trans, final, a_probs)
     dev = e_llh.device
     lib = _library()
-    _fits(f"S={s}", lib.beer_smoothing_smem_bytes(int(banded), s))
+    if banded:
+        glob = False
+        _fits(f"S={s}", lib.beer_smoothing_smem_bytes(1, s, 0))
+    else:
+        glob = _placed("smoothing_pass", f"S={s}", s)
+        if glob:
+            trans = trans.T.contiguous()
     gamma = torch.empty(b, t_len, s, device=dev)
     w_probs = torch.empty(b, t_len, s, device=dev)
     w_sums = torch.empty(b, t_len, device=dev)
     post_norm = torch.empty(b, t_len, device=dev)
-    _launch(lib.beer_smoothing_pass, dev.index, int(banded), *map(_ptr, (
+    _launch(lib.beer_smoothing_pass, dev.index, int(banded), int(glob), *map(_ptr, (
         e_llh, a_probs, lens, trans, final, gamma, w_probs, w_sums, post_norm)),
         b, t_len, s, _stream(dev))
     KERNELS["smoothing_pass"].launches += 1

@@ -156,7 +156,65 @@ def gmm_estep_full_plain(x, e_stats, log_w, mask=None):
 # ----------------------------------------------------------------------
 # Wrappers
 # ----------------------------------------------------------------------
-def _prepare(name: str, x: torch.Tensor, k: int, operands: dict, shapes: list):
+# ----------------------------------------------------------------------
+# Launch geometry
+# ----------------------------------------------------------------------
+ELLH_LANE_CHUNK = 16        # K9: lanes a chunk of its ring
+ELLH_FULL_GRID = 4 * 132    # K9 takes 128-frame tiles from this many blocks up
+ACC_LANES = 128             # K10: lanes a block
+ACC_FRAMES = 32             # K10: frames a tile
+
+
+def ellh_tiles(t_len: int, k: int):
+    """K9's (frame tile, component tile): the component tile is the
+    smallest of 16, 32, 64 that holds K, else 128; the frame tile is 128
+    when that gives at least :data:`ELLH_FULL_GRID` blocks (four waves of
+    the H100's 132 SMs), else 64, so that a short input still fills the
+    card."""
+    tile_k = next((c for c in (16, 32, 64) if k <= c), 128)
+    n_k = -(-k // tile_k)
+    tile_t = 128 if -(-t_len // 128) * n_k >= ELLH_FULL_GRID else 64
+    return tile_t, tile_k
+
+
+def accumulate_tile_k(k: int) -> int:
+    """K10's component tile: 32 for K <= 32, else 64."""
+    return 32 if k <= 32 else 64
+
+
+def accumulate_tiles(t_len: int, d: int, k: int, resident: int):
+    """K10's (component tile, frame slices, frames a slice): as many
+    slices as fill the card's ``resident`` blocks beside the (component
+    tile × 128-lane) output tiles, each a whole number of 32-frame tiles,
+    none empty."""
+    tile_k = accumulate_tile_k(k)
+    n_out = -(-packed_width(d) // ACC_LANES) * -(-k // tile_k)
+    n_tiles = -(-t_len // ACC_FRAMES)
+    if n_tiles == 0:
+        return tile_k, 0, ACC_FRAMES
+    per = -(-n_tiles // min(n_tiles, max(1, round(resident / n_out))))
+    return tile_k, -(-n_tiles // per), per * ACC_FRAMES
+
+
+@functools.cache
+def _ready(device: int) -> None:
+    """Once per device: the kernels may take the shared memory they need."""
+    cuda_scan._launch(cuda_scan._library().beer_stats_prepare, device)
+
+
+@functools.cache
+def _resident(device: int, name: str, d: int, k: int, tile_k: int) -> int:
+    """Resident blocks of K8 (at D, K) or of K10's instance on the card
+    (blocks per SM × SMs), queried once per (device, kernel, D, K)."""
+    _ready(device)
+    n = cuda_scan._library().beer_stats_blocks(device, _KIND[name], d, k, tile_k)
+    if n < 0:
+        raise RuntimeError(f"{name}: occupancy query failed: "
+                           f"{cuda_scan._library().beer_error_string(-n).decode()}")
+    return n
+
+
+def _prepare(name: str, x: torch.Tensor, k: int, operands: dict, shapes: list, tile_t=0, tile_k=0):
     """Checks of every wrapper: device, float32, contiguity, shapes, the
     kernel's D and K limits and its shared memory.  Returns the library."""
     t_len, d = x.shape
@@ -169,25 +227,25 @@ def _prepare(name: str, x: torch.Tensor, k: int, operands: dict, shapes: list):
         raise ValueError(f"{name}: K={k}; the kernel holds a tile's responsibilities in shared "
                          f"memory and takes 1 <= K <= {MAX_COMP}")
     lib = cuda_scan._library()
-    cuda_scan._fits(f"{name} at D={d}, K={k}", lib.beer_stats_smem_bytes(_KIND[name], d, k))
+    cuda_scan._fits(f"{name} at D={d}, K={k}",
+                    lib.beer_stats_smem_bytes(_KIND[name], d, k, tile_t, tile_k))
+    _ready(x.device.index)
     return lib
 
 
-def _blocks(lib, name: str, dev: torch.device, t_len: int, d: int, k: int) -> int:
-    n = lib.beer_stats_blocks(dev.index, _KIND[name], t_len, d, k)
-    if n < 0:
-        raise RuntimeError(f"{name}: occupancy query failed: {lib.beer_error_string(-n).decode()}")
-    return n
+def _run(name: str, launch) -> None:
+    """Launch a prepared kernel call; raise if the launch was refused."""
+    code = launch()
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel launch failed: "
+                           f"{cuda_scan._library().beer_error_string(code).decode()}")
+    cuda_scan.KERNELS[name].launches += 1
 
 
-def gmm_estep_full(x, e_stats, log_w, mask=None):
-    """One-kernel GMM E-step (K8): (T, D) frames → per-frame log-marginal
-    ``llh`` (T,), ``acc`` (K, D²+D+2) = Σ_t r_t ⊗ s(x_t) in the
-    NormalWishart natural layout and ``counts`` (K,) = Σ_t r_t, where r_t
-    = softmax_k(ellh_k(x_t) + log_w) · mask_t.  ``mask`` (T,) or None."""
-    cuda_scan.refuse_grad("gmm_estep_full", x, e_stats, log_w)
-    if x.device.type == "cpu":
-        return gmm_estep_full_plain(x, e_stats, log_w, mask)
+def prepare_gmm_estep_full(x, e_stats, log_w, mask=None):
+    """K8's checks, packing and launch geometry: returns (llh, out, launch),
+    where ``launch()`` is the bare foreign call filling ``llh`` (T,) and
+    ``out`` (K·L) and returning its CUDA error code."""
     t_len, d = x.shape
     k = e_stats.shape[0]
     dev = x.device
@@ -200,17 +258,54 @@ def gmm_estep_full(x, e_stats, log_w, mask=None):
     lib = _prepare("gmm_estep_full", x, k, operands, shapes)
     w = pack_weights(e_stats, d, log_w)
     width = packed_width(d)
-    n_blk = _blocks(lib, "gmm_estep_full", dev, t_len, d, k)
+    n_blk = min(_resident(dev.index, "gmm_estep_full", d, k, 0), -(-t_len // 128))
     part = torch.empty(n_blk, k * width, device=dev)
     out = torch.empty(k * width, device=dev)
     llh = torch.empty(t_len, device=dev)
-    cuda_scan._launch(lib.beer_gmm_estep_full, dev.index, cuda_scan._ptr(x),
-                      None if mask is None else cuda_scan._ptr(mask),
-                      *map(cuda_scan._ptr, (w, llh, part, out)), n_blk, t_len, d, k,
-                      cuda_scan._stream(dev))
-    cuda_scan.KERNELS["gmm_estep_full"].launches += 1
-    acc, counts = unpack_acc(out.view(k, width), d)
+    ptr = cuda_scan._ptr
+    launch = functools.partial(lib.beer_gmm_estep_full, dev.index, ptr(x),
+                               None if mask is None else ptr(mask), ptr(w), ptr(llh), ptr(part),
+                               ptr(out), n_blk, t_len, d, k, cuda_scan._stream(dev))
+    launch.keep = (x, mask, w, llh, part, out)   # every operand outlives the call
+    return llh, out, launch
+
+
+def gmm_estep_full(x, e_stats, log_w, mask=None):
+    """One-kernel GMM E-step (K8): (T, D) frames → per-frame log-marginal
+    ``llh`` (T,), ``acc`` (K, D²+D+2) = Σ_t r_t ⊗ s(x_t) in the
+    NormalWishart natural layout and ``counts`` (K,) = Σ_t r_t, where r_t
+    = softmax_k(ellh_k(x_t) + log_w) · mask_t.  ``mask`` (T,) or None."""
+    cuda_scan.refuse_grad("gmm_estep_full", x, e_stats, log_w)
+    if x.device.type == "cpu":
+        return gmm_estep_full_plain(x, e_stats, log_w, mask)
+    llh, out, launch = prepare_gmm_estep_full(x, e_stats, log_w, mask)
+    _run("gmm_estep_full", launch)
+    d = x.shape[1]
+    acc, counts = unpack_acc(out.view(e_stats.shape[0], packed_width(d)), d)
     return llh, acc, counts
+
+
+def prepare_ellh_full(x, e_stats):
+    """K9's checks, packing and launch geometry: returns (out, launch).
+    W (L, K) is zero-padded to whole lane chunks (and one more) and whole
+    component tiles."""
+    t_len, d = x.shape
+    k = e_stats.shape[0]
+    dev = x.device
+    tile_t, tile_k = ellh_tiles(t_len, k)
+    lib = _prepare("ellh_full", x, k, dict(e_stats=e_stats),
+                   [("e_stats", e_stats, (k, d * d + d + 2))], tile_t, tile_k)
+    width = packed_width(d)
+    k_pad = -(-k // tile_k) * tile_k
+    chunks = -(-width // ELLH_LANE_CHUNK) + 1      # and one chunk of zeros past the last
+    w = torch.nn.functional.pad(pack_weights(e_stats, d),
+                                (0, k_pad - k, 0, chunks * ELLH_LANE_CHUNK - width))
+    out = torch.empty(t_len, k, device=dev)
+    ptr = cuda_scan._ptr
+    launch = functools.partial(lib.beer_ellh_full, dev.index, ptr(x), ptr(w), ptr(out), t_len, d,
+                               k, k_pad, tile_t, tile_k, cuda_scan._stream(dev))
+    launch.keep = (x, w, out)
+    return out, launch
 
 
 def ellh_full(x, e_stats):
@@ -219,17 +314,33 @@ def ellh_full(x, e_stats):
     cuda_scan.refuse_grad("ellh_full", x, e_stats)
     if x.device.type == "cpu":
         return ellh_full_plain(x, e_stats)
-    t_len, d = x.shape
-    k = e_stats.shape[0]
-    dev = x.device
-    lib = _prepare("ellh_full", x, k, dict(e_stats=e_stats),
-                   [("e_stats", e_stats, (k, d * d + d + 2))])
-    w = pack_weights(e_stats, d)
-    out = torch.empty(t_len, k, device=dev)
-    cuda_scan._launch(lib.beer_ellh_full, dev.index, *map(cuda_scan._ptr, (x, w, out)),
-                      t_len, d, k, cuda_scan._stream(dev))
-    cuda_scan.KERNELS["ellh_full"].launches += 1
+    out, launch = prepare_ellh_full(x, e_stats)
+    _run("ellh_full", launch)
     return out
+
+
+def prepare_accumulate_full(x, resps):
+    """K10's checks and launch geometry: returns (out (K, L), launch)."""
+    t_len, d = x.shape
+    k = resps.shape[-1]
+    dev = x.device
+    tile_k = accumulate_tile_k(k)
+    lib = _prepare("accumulate_full", x, k, dict(resps=resps), [("resps", resps, (t_len, k))],
+                   tile_k=tile_k)
+    # the kernel copies frames and responsibilities 16 bytes at a time
+    x, resps = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, resps))
+    resident = _resident(dev.index, "accumulate_full", d, k, tile_k)
+    _, n_slices, slice_len = accumulate_tiles(t_len, d, k, resident)
+    width = packed_width(d)
+    lanes = -(-width // ACC_LANES) * ACC_LANES
+    part = torch.empty(n_slices, k * lanes, device=dev)
+    out = torch.empty(k * lanes, device=dev)
+    ptr = cuda_scan._ptr
+    launch = functools.partial(lib.beer_accumulate_full, dev.index, ptr(x), ptr(resps), ptr(part),
+                               ptr(out), n_slices, slice_len, t_len, d, k, tile_k,
+                               cuda_scan._stream(dev))
+    launch.keep = (x, resps, part, out)
+    return out.view(k, lanes)[:, :width], launch
 
 
 def accumulate_full(x, resps):
@@ -238,19 +349,9 @@ def accumulate_full(x, resps):
     cuda_scan.refuse_grad("accumulate_full", x, resps)
     if x.device.type == "cpu":
         return accumulate_full_plain(x, resps)
-    t_len, d = x.shape
-    k = resps.shape[-1]
-    dev = x.device
-    lib = _prepare("accumulate_full", x, k, dict(resps=resps), [("resps", resps, (t_len, k))])
-    width = packed_width(d)
-    n_blk = _blocks(lib, "accumulate_full", dev, t_len, d, k)
-    part = torch.empty(n_blk, k * width, device=dev)
-    out = torch.empty(k * width, device=dev)
-    cuda_scan._launch(lib.beer_accumulate_full, dev.index,
-                      *map(cuda_scan._ptr, (x, resps, part, out)), n_blk, t_len, d, k,
-                      cuda_scan._stream(dev))
-    cuda_scan.KERNELS["accumulate_full"].launches += 1
-    return unpack_acc(out.view(k, width), d)[0]
+    out, launch = prepare_accumulate_full(x, resps)
+    _run("accumulate_full", launch)
+    return unpack_acc(out, x.shape[1])[0]
 
 
 # ----------------------------------------------------------------------

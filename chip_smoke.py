@@ -19,8 +19,9 @@ iteration on config 4's loop and data: phone-loop E-step with
 materialised posteriors, per-unit statistics, 200 gradient steps of a
 GSM with an 8-dim embedding and learned transitions, moment-matched
 write-back; and the H-SHMM gradient step at bench config 6's shape, 3
-languages × 50 units), with random data and weights from fixed seeds, in
-seventeen phases, each printing one line:
+languages × 50 units), then (phase 18) the dense kernels at sizes whose
+operands no block's shared memory holds, with random data and weights
+from fixed seeds, in eighteen phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the hand-written CUDA kernels from the sources in
@@ -82,9 +83,9 @@ seventeen phases, each printing one line:
 15. general kernels: K12 ``scaled_pass`` (dense forward, banded
    forward, dense reverse) and K13 ``smoothing_pass`` (dense, banded)
    against their plain versions at config 4's shape plus two zero-length
-   rows, the banded instances also at S = 450 (150 units × 3) and against
-   the dense ones, both also at S = 30 (why ``PhoneLoop.smooth`` always
-   takes the banded pair); K14 (K5 writing the row-max shifts) and K15 (K7 with ξ
+   rows, both also at S = 450 (150 units × 3; the dense ones there read
+   their matrix from device memory) and against each other, and at S =
+   30 (why ``PhoneLoop.smooth`` always takes the banded pair); K14 (K5 writing the row-max shifts) and K15 (K7 with ξ
    restricted to a block) at config 2's and config 4's shapes; CUDA-event
    medians of every instance and its plain version;
 16. gsm slice: one subspace-HMM outer iteration at config 4's full shape:
@@ -103,7 +104,19 @@ seventeen phases, each printing one line:
    through the dense ones and on the plain route, ``accumulate_unit_stats``, the GSM
    and the H-SHMM gradient step (ms/step, steps/s), the write-back, the
    whole outer iteration, and ``torch.profiler`` traces of the statistics
-   bridge and of one GSM step (device time, launches, busy share).
+   bridge and of one GSM step (device time, launches, busy share);
+18. large dense: every dense kernel (K5 on statistics and on llh, K6,
+   K7, K14, K15, K12 dense forward and reverse, K13 dense) against its
+   plain version on an ergodic HMM at S = 150 and S = 300 (B = 64, T =
+   200), each timed and named by the placement its wrapper took (at 300
+   all read their operands from device memory); then a VB step, the
+   posteriors and the ξ counts of that HMM at S = 300 and of a shared
+   60-phone × 3-state transcription chain (S = 180) through the kernels,
+   with the launch counters read around them, against the plain route.
+
+K8–K10 are timed twice in phase 9: ``ms`` is the kernel alone (the bare
+foreign call on operands packed and a launch geometry computed in
+advance), ``wrapper_ms`` the whole wrapper call.
 
 Then one JSON line describing the kernels (each with its least time on
 the card, ``bound_ms``: the larger of its bytes over 3.35 TB/s and its
@@ -121,6 +134,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -147,6 +161,7 @@ HBM_BYTES_PER_S = 3.35e12                   # H100 SXM (NVIDIA data sheet)
 F32_FLOPS = 67e12                           # float32 outside the tensor cores
 N_STEPS = 5
 REPS = 5
+KERNEL_REPS = 20                            # CUDA-event runs of a kernel timed alone
 
 # kernel → the Pallas TPU kernel body it replaces
 REPLACES = {
@@ -753,32 +768,35 @@ def phase_gmm_kernels(dev):
     check(errs["ellh_rec"] <= 1e-5 and errs["acc_rec"] <= 1e-4, f"recognizer shape: {errs}")
     torch.cuda.synchronize()
 
-    # times at the config-1 shape
+    # times at the config-1 shape: the kernel alone (the bare foreign call on
+    # operands packed and a geometry computed in advance) and the wrapper
     k = e.shape[0]
     r = torch.softmax(sk.ellh_full_plain(x, e) + log_w, -1)
     s_mat = sk.packed_stats(x)
     w_mat, w_joint = sk.pack_weights(e, D), sk.pack_weights(e, D, log_w)
-    lib_joint = cuda_ms(lambda: torch.matmul(s_mat, w_joint))
-    lib_ellh = cuda_ms(lambda: torch.matmul(s_mat, w_mat))
-    lib_acc = cuda_ms(lambda: torch.matmul(r.T, s_mat))
+    lib_joint = cuda_ms(lambda: torch.matmul(s_mat, w_joint), reps=KERNEL_REPS)
+    lib_ellh = cuda_ms(lambda: torch.matmul(s_mat, w_mat), reps=KERNEL_REPS)
+    lib_acc = cuda_ms(lambda: torch.matmul(r.T, s_mat), reps=KERNEL_REPS)
     del s_mat
     ellh_b, acc_b, flops = full_cov_costs(n_frames, D, k)
     out = {
         "gmm_estep_full": dict(
             max_abs_err=float((k8[1] - p8[1]).abs().max()),
-            ms=cuda_ms(lambda: sk.gmm_estep_full(x, e, log_w)),
+            **stats_times(lambda: sk.prepare_gmm_estep_full(x, e, log_w)[-1],
+                          lambda: sk.gmm_estep_full(x, e, log_w)),
             plain_ms=cuda_ms(lambda: sk.gmm_estep_full_plain(x, e, log_w)),
             library_ms=lib_joint + lib_acc,
             **bound(4.0 * (n_frames * (D + 1) + sk.packed_width(D) * k + k * (D * D + D + 3)),
                     2 * flops)),
         "ellh_full": dict(
             max_abs_err=float((k9 - p9).abs().max()),
-            ms=cuda_ms(lambda: sk.ellh_full(x, e)),
+            **stats_times(lambda: sk.prepare_ellh_full(x, e)[-1], lambda: sk.ellh_full(x, e)),
             plain_ms=cuda_ms(lambda: sk.ellh_full_plain(x, e)),
             library_ms=lib_ellh, **bound(ellh_b, flops)),
         "accumulate_full": dict(
             max_abs_err=float((k10 - p10).abs().max()),
-            ms=cuda_ms(lambda: sk.accumulate_full(x, r)),
+            **stats_times(lambda: sk.prepare_accumulate_full(x, r)[-1],
+                          lambda: sk.accumulate_full(x, r)),
             plain_ms=cuda_ms(lambda: sk.accumulate_full_plain(x, r)),
             library_ms=lib_acc, **bound(acc_b, flops)),
     }
@@ -786,19 +804,22 @@ def phase_gmm_kernels(dev):
     w3 = sk.pack_weights(e3, D)
     ellh_b3, acc_b3, flops3 = full_cov_costs(x3.shape[0], D, e3.shape[0])
     rec = {
-        "ellh_full": dict(ms=cuda_ms(lambda: sk.ellh_full(x3, e3)),
+        "ellh_full": dict(**stats_times(lambda: sk.prepare_ellh_full(x3, e3)[-1],
+                                        lambda: sk.ellh_full(x3, e3)),
                           plain_ms=cuda_ms(lambda: sk.ellh_full_plain(x3, e3)),
-                          library_ms=cuda_ms(lambda: torch.matmul(s3, w3)),
+                          library_ms=cuda_ms(lambda: torch.matmul(s3, w3), reps=KERNEL_REPS),
                           **bound(ellh_b3, flops3)),
-        "accumulate_full": dict(ms=cuda_ms(lambda: sk.accumulate_full(x3, r3)),
+        "accumulate_full": dict(**stats_times(lambda: sk.prepare_accumulate_full(x3, r3)[-1],
+                                              lambda: sk.accumulate_full(x3, r3)),
                                 plain_ms=cuda_ms(lambda: sk.accumulate_full_plain(x3, r3)),
-                                library_ms=cuda_ms(lambda: torch.matmul(r3.T, s3)),
+                                library_ms=cuda_ms(lambda: torch.matmul(r3.T, s3), reps=KERNEL_REPS),
                                 **bound(acc_b3, flops3)),
     }
     del s3
     torch.cuda.synchronize()
-    fmt = lambda v: (f"{v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, matmul {v['library_ms']:.3f}, "  # noqa: E731
-                     f"bound {v['bound_ms']:.3f} by {v['bound_by']})")
+    fmt = lambda v: (f"{v['ms']:.3f} ms alone, {v['wrapper_ms']:.3f} ms wrapped (plain "  # noqa: E731
+                     f"{v['plain_ms']:.3f}, matmul {v['library_ms']:.3f}, bound {v['bound_ms']:.3f} "
+                     f"by {v['bound_by']}, {v['bound_ms'] / v['ms']:.0%} of it)")
     print(f"phase 9 gmm kernels: config 1 T={n_frames} D={D} K={k}: "
           + "; ".join(f"{name} {fmt(v)}" for name, v in out.items())
           + f" | recognizer T={x3.shape[0]} K={e3.shape[0]}: "
@@ -807,6 +828,15 @@ def phase_gmm_kernels(dev):
           + " | tol: llh and ELLH rel 1e-5, statistics and counts rel 1e-4 of the largest"
             " magnitude (float32 sums in another order)")
     return out, rec
+
+
+def stats_times(prepared, wrapped):
+    """``ms``: CUDA-event median of the kernel alone, the bare foreign call
+    of a prepared K8–K10 launch (its checks, packing and geometry done
+    once beforehand); ``wrapper_ms``: the whole wrapper call."""
+    launch = prepared()
+    return dict(ms=cuda_ms(lambda: check(launch() == 0, "launch refused"), reps=KERNEL_REPS),
+                wrapper_ms=cuda_ms(wrapped, reps=KERNEL_REPS))
 
 
 def gmm_reference_check(dev):
@@ -1352,14 +1382,16 @@ def phase_general_kernels(dev):
     del llh2, c
     # the banded instances at S = 450, where no dense matrix fits a block
     big = general_operands(config4(dev, n_units=BIG_UNITS), x, m)
-    _, errors["banded_450"], instances["banded_450"] = general_instance(big, banded=True)
+    band_out, errors["banded_450"], instances["banded_450"] = general_instance(big, banded=True)
     check_general(errors["banded_450"], f"banded S={BIG_UNITS * STATES_PER_UNIT}")
-    try:
-        cuda_scan.scaled_pass(big["e_llh"], big["lens"], big["trans"], big["init"])
-        check(False, "the dense instance must refuse S = 450")
-    except ValueError as err:
-        check("shared memory" in str(err), f"dense S=450 refusal: {err}")
-    del big
+    # ... and the dense ones, whose matrix no block holds there: the global placement
+    check(cuda_scan.dense_placement("scaled_pass", BIG_UNITS * STATES_PER_UNIT) == "global",
+          "S = 450 takes the global placement")
+    dense_out, errors["dense_450"], instances["dense_450"] = general_instance(big, banded=False)
+    check_general(errors["dense_450"], f"dense (global) S={BIG_UNITS * STATES_PER_UNIT}")
+    e_bd["gamma_450"] = valid_err(band_out[2][0], dense_out[2][0], big["mask"])
+    check(e_bd["gamma_450"] <= 1e-5, f"banded vs dense instances at S=450: {e_bd}")
+    del big, band_out, dense_out
     # both instances at config 5's loop (10 units, S = 30), banded against dense
     small = general_operands(config4(dev, n_units=SVAE_UNITS), x, m)
     for name, banded in (("dense_30", False), ("banded_30", True)):
@@ -1380,7 +1412,7 @@ def phase_general_kernels(dev):
           + " | errors " + json.dumps({k: {n: float(f"{e:.3g}") for n, e in v.items()}
                                        for k, v in errors.items()})
           + f" | banded vs dense {json.dumps({k: float(f'{v:.3g}') for k, v in e_bd.items()})}"
-          + " | dense S=450 refused (shared memory)"
+          + " | dense S=450 through the global placement"
           + " | tol: alpha, gamma, w_probs abs 1e-5; logcs, w_sums, post_norm, norms rel 1e-5;"
             " xi rel 1e-4; shifts equal")
     return instances, dict(config4=pair4, config2=pair2)
@@ -1635,6 +1667,163 @@ def phase_gsm_times(dev, runs, kernel_rows):
          "profiles": profiles}))
 
 
+# ----------------------------------------------------------------------
+# Every S the reference takes: the dense kernels' global placement
+# ----------------------------------------------------------------------
+LARGE_S, LARGE_B, LARGE_T = 300, 64, 200   # an ergodic HMM above every dense kernel's limit
+SHARED_S = 150                             # the same at a size whose operands mostly fit a block
+CHAIN_PHONES, CHAIN_T = 60, 240            # a shared chain of 60 phones × 3 states (S = 180)
+
+
+def dense_rows(hmm, x, m):
+    """Every dense kernel on an ergodic HMM's operands against its plain
+    version: K5 on the statistics and on the llh stream, K6, K7, K14, K15,
+    K12 (dense forward and reverse) and K13 (dense).  Returns the timing
+    rows, each with the placement its wrapper took, and the errors."""
+    stats, c = hmm_operands(hmm, x, m)
+    lens, trans, final = c["lens"], c["trans"], c["final"]
+    init = torch.exp(hmm.graph_log_init).expand_as(final).contiguous()
+    tiny = torch.finfo(torch.float32).tiny
+    full = lens > 0
+    b, t_len, p_dim = stats.shape
+    s = trans.shape[0]
+    nv = float(lens.sum())
+    rows, errs = {}, {}
+    fwd = (stats, lens, trans, init, c["w"], c["bias"])
+    k5, p5 = cuda_scan.forward_llh_dense(*fwd), cuda_scan.forward_llh_dense_plain(*fwd)
+    logz = [o[3] + torch.log((o[2] * final).sum(-1).clamp_min(tiny)) for o in (k5, p5)]
+    errs["forward_llh_dense"] = dict(log_z=rel(logz[0][full], logz[1][full]),
+                                     alpha=float((k5[0] - p5[0]).abs().max()))
+    rows["forward_llh_dense"] = dict(
+        max_abs_err=float((logz[0][full] - logz[1][full]).abs().max()),
+        ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd)),
+        plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd), reps=3),
+        **bound(4 * (nv * p_dim + b * t_len * (s + 1) + s * (s + p_dim) + 2 * b * s),
+                nv * (2 * s * p_dim + 2 * s * s + 4 * s)))
+    est = (stats, lens, c["w"], c["bias"], trans, final, k5[0], k5[1])
+    k6, p6 = cuda_scan.estep_acc_dense(*est), cuda_scan.estep_acc_dense_plain(*est)
+    errs["estep_acc_dense"] = dict(acc2=rel(k6[0], p6[0]), counts=rel(k6[1], p6[1]),
+                                   xi=rel(k6[3], p6[3]), gamma0=float((k6[2] - p6[2]).abs().max()))
+    rows["estep_acc_dense"] = dict(
+        max_abs_err=float((k6[0] - p6[0]).abs().max()),
+        ms=cuda_ms(lambda: cuda_scan.estep_acc_dense(*est)),
+        plain_ms=cuda_ms(lambda: cuda_scan.estep_acc_dense_plain(*est), reps=3),
+        **bound(4 * (nv * (p_dim + s + 1) + s * (2 * s + 2 * p_dim + 1) + 2 * b * s),
+                nv * (4 * s * p_dim + 4 * s * s + 10 * s)))
+    del k5, p5, k6, p6
+    llh = hmm._state_llh(stats).contiguous()
+    f7 = cuda_scan.forward_llh_dense(llh, lens, trans, init)
+    gam = (llh, lens, trans, final, f7[0], f7[1])
+    k7, p7 = cuda_scan.estep_gamma_dense(*gam), cuda_scan.estep_gamma_dense_plain(*gam)
+    errs["estep_gamma_dense"] = dict(gamma=float((k7[0] - p7[0]).abs().max()), xi=rel(k7[1], p7[1]))
+    rows["estep_gamma_dense"] = dict(
+        max_abs_err=errs["estep_gamma_dense"]["gamma"],
+        ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense(*gam)),
+        plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense_plain(*gam), reps=3),
+        **bound(4 * (nv * (2 * s + 1) + b * t_len * s + 2 * s * s + b * s), nv * (4 * s * s + 10 * s)))
+    del f7, k7, p7
+    for name in ("forward_llh_dense", "estep_acc_dense", "estep_gamma_dense"):
+        e = errs[name]
+        check(all(v <= (1e-4 if k in ("acc2", "counts", "xi") else 1e-5) for k, v in e.items()),
+              f"{name} at S={s}: {e}")
+    ids = torch.arange(s, device=x.device, dtype=torch.int32)
+    errs["llh_pair"], pair = llh_pair(llh, lens, trans, init, final, ids[::3].contiguous(),
+                                      ids[::2].contiguous())
+    rows.update(pair)
+    # the general path's dense instances, on one shared matrix
+    log_trans = hmm._effective_log_trans()
+    e_llh, _ = tss._scaled_likelihoods(llh, m)
+    o = dict(e_llh=e_llh.contiguous(), lens=lens, trans=trans, init=init, final=final, mask=m,
+             graph=types.SimpleNamespace(log_trans=log_trans))
+    _, errs["general"], general = general_instance(o, banded=False)
+    check_general(errs["general"], f"dense general path S={s}")
+    rows.update(general)
+    rev = (o["e_llh"], lens, trans, final)
+    beta, blog = cuda_scan.scaled_pass(*rev, reverse=True)
+    beta_p, blog_p = cuda_scan.scaled_pass_plain(*rev, reverse=True)
+    errs["reverse"] = dict(beta=float((beta - beta_p).abs().max()), logcs=rel(blog, blog_p))
+    check(errs["reverse"]["beta"] <= 1e-5 and errs["reverse"]["logcs"] <= 1e-5,
+          f"scaled_pass reverse at S={s}: {errs['reverse']}")
+    rows["scaled_pass_reverse"] = dict(
+        max_abs_err=errs["reverse"]["beta"],
+        ms=cuda_ms(lambda: cuda_scan.scaled_pass(*rev, reverse=True)),
+        plain_ms=cuda_ms(lambda: cuda_scan.scaled_pass_plain(*rev, reverse=True), reps=3),
+        **bound(4 * (nv * s + b * t_len * (s + 1) + s * s + b * s), nv * (2 * s * s + 5 * s)))
+    for name, row in rows.items():
+        p = p_dim if name in ("forward_llh_dense", "estep_acc_dense") else 0
+        n_rc = (ids[::3].numel(), ids[::2].numel()) if name == "estep_gamma_dense_restricted" else (0, 0)
+        kernel = "scaled_pass" if name == "scaled_pass_reverse" else name
+        row["placement"] = cuda_scan.dense_placement(kernel, s, p, *n_rc)
+    return rows, errs
+
+
+def large_estep(model, x, m):
+    """log Z, posteriors and ξ counts of one E-step, then the ELBO of one
+    VB step (the model is updated)."""
+    stats = model.sufficient_statistics(x)
+    log_z, cache = model.infer(stats, m)
+    xi = model.expected_transition_counts(cache)
+    post = model.posteriors(x, m)
+    return log_z, post, xi, float(bt.vb_step(model, x, mask=m)[0])
+
+
+def phase_large_dense(dev):
+    """The dense kernels at sizes whose operands no block's shared memory
+    holds (ROADMAP C.1): every dense kernel against its plain version on
+    an ergodic HMM at S = 300 (global placement) and at S = 150 (shared,
+    but K6's at P = 78), then the paths: a VB step, the posteriors and the
+    ξ counts of the ergodic HMM at S = 300 and of a 60-phone × 3-state
+    shared transcription chain (S = 180, llh route), with the launch
+    counters read around them, against the plain route."""
+    data, mask = make_data(LARGE_B, LARGE_T, D, seed=8)
+    x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    rows, errs = {}, {}
+    for s in (SHARED_S, LARGE_S):
+        rows[s], errs[s] = dense_rows(config2(dev, s=s), x, m)
+    check(all(r["placement"] == "global" for r in rows[LARGE_S].values()),
+          f"S={LARGE_S}: every dense kernel takes the global placement")
+    rng = np.random.default_rng(9)
+    seqs = [list(rng.integers(REC_PHONES, size=CHAIN_PHONES - (i % 3) * 5)) for i in range(LARGE_B)]
+    xc = torch.from_numpy(rng.normal(size=(LARGE_B, CHAIN_T, D)).astype(np.float32)).to(dev)
+    mc = torch.from_numpy((np.arange(CHAIN_T)[None] < rng.integers(200, CHAIN_T + 1, size=(LARGE_B, 1)))
+                          .astype(np.float32)).to(dev)
+    paths = {"ergodic": (config2(dev, s=LARGE_S), x, m), "chain": (config3(dev, seqs), xc, mc)}
+    check(paths["chain"][0].n_states == CHAIN_PHONES * REC_SPP and paths["chain"][0].route() == "llh",
+          "the chain: S = 180 on the llh route")
+    twins = {name: plain_twin(model) for name, (model, _, _) in paths.items()}
+    cuda_scan.reset_launch_counts()
+    got = {name: large_estep(model, xx, mm) for name, (model, xx, mm) in paths.items()}
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in cuda_scan.KERNELS.items()}
+    need = ("forward_llh_dense", "estep_acc_dense", "estep_gamma_dense")
+    check(all(launches[k] > 0 for k in need), f"a kernel was not launched: {launches}")
+    gaps = {}
+    for name, (_, xx, mm) in paths.items():
+        want = large_estep(twins[name], xx, mm)
+        full = mm.sum(-1) > 0
+        gaps[name] = dict(log_z=rel(got[name][0][full], want[0][full]),
+                          gamma=float((got[name][1] - want[1]).abs().max()),
+                          xi=rel(got[name][2], want[2]), elbo=abs(got[name][3] - want[3]) / abs(want[3]))
+        g = gaps[name]
+        check(g["log_z"] <= 1e-5 and g["gamma"] <= 1e-5 and g["xi"] <= 1e-4 and g["elbo"] <= 1e-5,
+              f"{name}: kernel vs plain route {g}")
+    torch.cuda.synchronize()
+
+    def fmt(v):
+        return (f"{v['ms']:.3f} ms {v['placement']} (plain {v['plain_ms']:.3f}, bound "
+                f"{v['bound_ms']:.4f} by {v['bound_by']})")
+
+    print(f"phase 18 large dense: ergodic B={LARGE_B} T={LARGE_T} D={D} "
+          + " || ".join(f"S={s}: " + "; ".join(f"{k} {fmt(v)}" for k, v in r.items())
+                        for s, r in rows.items())
+          + f" | paths (ergodic S={LARGE_S}, chain S={CHAIN_PHONES * REC_SPP} T<={CHAIN_T}) launches "
+          + json.dumps({k: v for k, v in launches.items() if v})
+          + " vs plain route " + json.dumps({k: {n: float(f"{e:.3g}") for n, e in v.items()}
+                                             for k, v in gaps.items()})
+          + " | tol: log Z, ELBO rel 1e-5; alpha, gamma, gamma0 abs 1e-5; statistics, xi rel 1e-4")
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1663,6 +1852,8 @@ def main() -> int:
     gsm_launches, gsm_runs = phase_gsm_slice(dev)
     launches = {k: launches.get(k, 0) + n for k, n in gsm_launches.items()}
     phase_gsm_times(dev, gsm_runs, instances)
+    large, large_launches = phase_large_dense(dev)
+    launches = {k: launches.get(k, 0) + n for k, n in large_launches.items()}
     # K12/K13's rows: the banded instance, which PhoneLoop.smooth takes, with
     # every instance's numbers beside it; K14/K15's: config 4's shape
     main_instance = "banded"
@@ -1671,6 +1862,14 @@ def main() -> int:
             inst: rows[name] for inst, rows in instances.items() if name in rows})
     for name, row in pairs["config4"].items():
         kernels[name] = dict(row, config2=pairs["config2"][name])
+    # the dense kernels at S = 150 and 300 (phase 18), each instance named
+    # by its placement
+    for s, rows in large.items():
+        for name, row in rows.items():
+            kernel = "scaled_pass" if name == "scaled_pass_reverse" else name
+            inst = ("dense_reverse_" if name == "scaled_pass_reverse"
+                    else "dense_" if kernel in ("scaled_pass", "smoothing_pass") else "")
+            kernels[kernel].setdefault("instances", {})[f"{inst}{row['placement']}_s{s}"] = row
     rows = [dict(name=k, route="cuda", source=cuda_scan.KERNELS[k].source,
                  replaces=REPLACES[k], launches=launches[k], **{"library_ms": None, **v})
             for k, v in kernels.items()]

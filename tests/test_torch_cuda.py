@@ -16,13 +16,18 @@ the per-frame log-marginals rel 1e-5 of their largest magnitude, the
 statistics and counts rel 1e-4 (sum order, as above).  K11 (the
 γ-emitting banded backward): γ and γ0 abs 1e-5, ξ rel 1e-4; the
 differentiable routes (``PhoneLoopLogZ``, ``HMMLogZ``, ``EllhFull``):
-log Z rel 1e-5 and gradients rel 1e-4 of the plain route's.
+log Z rel 1e-5 and gradients rel 1e-4 of the plain route's.  The dense
+kernels are held on both sides of their shared-memory limit (the
+global placement above it), at the same gates.
 """
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
+import beer_tpu_torch as bt
 from beer_tpu_torch.ops import cuda_scan
 from beer_tpu_torch.ops import semiring_scan as tss
 from beer_tpu_torch.ops import stats_kernels as sk
@@ -185,18 +190,22 @@ def test_dense_wrappers_reject_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError):
         cuda_scan.estep_acc_dense(a["stats"], a["lens"], a["w"], a["bias"], a["trans"],
                                   a["final"], alpha, norms.cpu())
-    # (S, S) operands that do not fit in shared memory
+    # (S, S) operands that do not fit in shared memory take the global
+    # placement instead of being refused: K6 at S = 150, P = 78 and K7 at
+    # S = 200 against their plain versions
     big = dense_args(dense_problem(2, 150, 78, 2, 5), torch.float32, device)
+    assert cuda_scan.dense_placement("estep_acc_dense", 150, 78) == "global"
     f_big = cuda_scan.forward_llh_dense(big["stats"], big["lens"], big["trans"], big["init"],
                                         big["w"], big["bias"])
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_scan.estep_acc_dense(big["stats"], big["lens"], big["w"], big["bias"], big["trans"],
-                                  big["final"], *f_big[:2])
+    est = (big["stats"], big["lens"], big["w"], big["bias"], big["trans"], big["final"], *f_big[:2])
+    got, want = cuda_scan.estep_acc_dense(*est), cuda_scan.estep_acc_dense_plain(*est)
+    assert all(_rel(got[i], want[i]) <= 1e-4 for i in (0, 1, 3))
     huge = dense_args(dense_problem(3, 200, 2, 2, 5), torch.float32, device)
+    assert cuda_scan.dense_placement("estep_gamma_dense", 200) == "global"
     f_huge = cuda_scan.forward_llh_dense(huge["llh"], huge["lens"], huge["trans"], huge["init"])
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_scan.estep_gamma_dense(huge["llh"], huge["lens"], huge["trans"], huge["final"],
-                                    *f_huge[:2])
+    est = (huge["llh"], huge["lens"], huge["trans"], huge["final"], *f_huge[:2])
+    got, want = cuda_scan.estep_gamma_dense(*est), cuda_scan.estep_gamma_dense_plain(*est)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5 and _rel(got[1], want[1]) <= 1e-4
 
 
 def test_dense_zero_length_rows_and_empty_batch(device):
@@ -243,6 +252,30 @@ def test_full_cov_kernels_match_plain_versions(device, shape):
     assert _rel(sk.accumulate_full(a["x"], a["r"]), sk.accumulate_full_plain(a["x"], a["r"])) <= 1e-4
     launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if k.endswith("_full")}
     assert launches == {"gmm_estep_full": 3, "ellh_full": 1, "accumulate_full": 1}
+
+
+@pytest.mark.parametrize("d", [1, 39, 128])
+@pytest.mark.parametrize("k", [1, 4, 60, 64, 65, 256])
+def test_ellh_and_accumulate_match_plain_versions(device, d, k):
+    """K9 and K10 at every (component tile, frame tile) they choose: T = 0,
+    1, 129 (a ragged last tile) and 38,400 (the recognizer's frames), the
+    responsibilities off on a masked stretch; two K10 runs agree bitwise."""
+    for t_len in (0, 1, 129, 38_400):
+        a = _full_args((d, k, t_len), device)
+        resps = (a["r"] * a["mask"][:, None]).contiguous()
+        cuda_scan.reset_launch_counts()
+        ellh = sk.ellh_full(a["x"], a["e"])
+        acc = sk.accumulate_full(a["x"], resps)
+        again = sk.accumulate_full(a["x"], resps)
+        torch.cuda.synchronize()
+        assert _launched() == {"ellh_full": 1, "accumulate_full": 2}
+        assert ellh.shape == (t_len, k) and acc.shape == (k, d * d + d + 2)
+        assert torch.equal(acc, again)
+        if t_len == 0:
+            assert not acc.any()
+            continue
+        assert _rel(ellh, sk.ellh_full_plain(a["x"], a["e"])) <= 1e-5, t_len
+        assert _rel(acc, sk.accumulate_full_plain(a["x"], resps)) <= 1e-4, t_len
 
 
 def test_full_cov_wrappers_reject_what_the_kernels_do_not_take(device):
@@ -434,37 +467,30 @@ def test_general_banded_kernels_match_plain_and_dense(device, shape):
     init, final = (a[k].expand(b, -1).contiguous() for k in ("init", "final"))
     probs, logcs, smooth = _general_compare(e, a["lens"], mask, a["bands"], init, final,
                                             banded=True)
-    s = u * spu
-    if cuda_scan._library().beer_smoothing_smem_bytes(0, s) <= cuda_scan.SMEM_LIMIT:
-        dense = tss.bands_to_dense(a["bands"]).contiguous()
-        probs_d, logcs_d = cuda_scan.scaled_pass(e, a["lens"], dense, init)
-        assert float((probs - probs_d).abs().max()) <= 1e-5
-        assert float((logcs - logcs_d).abs().max() / logcs_d.abs().max().clamp_min(1.0)) <= 1e-5
-        gamma_d = cuda_scan.smoothing_pass(e, probs_d, a["lens"], dense, final)[0]
-        assert float((smooth[0] - gamma_d).abs().max()) <= 1e-5
+    # the dense instances (in device memory above S = 237) give the same
+    dense = tss.bands_to_dense(a["bands"]).contiguous()
+    probs_d, logcs_d = cuda_scan.scaled_pass(e, a["lens"], dense, init)
+    assert float((probs - probs_d).abs().max()) <= 1e-5
+    assert float((logcs - logcs_d).abs().max() / logcs_d.abs().max().clamp_min(1.0)) <= 1e-5
+    gamma_d = cuda_scan.smoothing_pass(e, probs_d, a["lens"], dense, final)[0]
+    assert float((smooth[0] - gamma_d).abs().max()) <= 1e-5
 
 
 def test_general_dense_kernels_shared_memory_limit(device):
-    """The dense instances keep the (S, S) matrix in shared memory: the
-    largest S that fits runs, the next one is refused by the wrapper; the
-    banded instances take any S."""
-    lib = cuda_scan._library()
-    fits = [s for s in range(200, 260)
-            if lib.beer_smoothing_smem_bytes(0, s) <= cuda_scan.SMEM_LIMIT]
-    s_max = max(fits)
-    assert 230 <= s_max < 245
-    a = dense_args(dense_problem(5, s_max, 2, 2, 6, np.array([6, 3])), torch.float32, device)
-    e, mask = _e_llh(a["llh"], a["lens"])
-    _general_compare(e, a["lens"], mask, a["trans"], a["init"], a["final"], banded=False)
-    big = dense_args(dense_problem(5, s_max + 1, 2, 2, 6, np.array([6, 3])), torch.float32, device)
-    e, _ = _e_llh(big["llh"], big["lens"])
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_scan.smoothing_pass(e, e, big["lens"], big["trans"], big["final"])
-    huge = torch.eye(260, device=device)
-    e = torch.ones(1, 3, 260, device=device)
-    lens = torch.tensor([3], dtype=torch.int32, device=device)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_scan.scaled_pass(e, lens, huge, e[:, 0].contiguous())
+    """The dense instances keep the (S, S) matrix in shared memory up to
+    the largest S that fits and read it from device memory above: both
+    sides of the limit match the plain versions (the reverse too)."""
+    s_max = max(s for s in range(200, 260) if cuda_scan.dense_placement("smoothing_pass", s) == "shared")
+    assert s_max == 237
+    for s in (s_max, s_max + 1, 260):
+        a = dense_args(dense_problem(5, s, 2, 2, 6, np.array([6, 3])), torch.float32, device)
+        e, mask = _e_llh(a["llh"], a["lens"])
+        _general_compare(e, a["lens"], mask, a["trans"], a["init"], a["final"], banded=False)
+        beta, logcs = cuda_scan.scaled_pass(e, a["lens"], a["trans"], a["final"], reverse=True)
+        beta_r, logcs_r = cuda_scan.scaled_pass_plain(e, a["lens"], a["trans"], a["final"],
+                                                      reverse=True)
+        assert float((beta - beta_r).abs().max()) <= 1e-5
+        assert float((logcs - logcs_r).abs().max() / logcs_r.abs().max().clamp_min(1.0)) <= 1e-5
 
 
 def test_general_kernels_all_rows_empty(device):
@@ -565,3 +591,129 @@ def test_forward_llh_shifts_and_restricted_estep_match_plain(device, shape):
         cuda_scan.estep_gamma_dense(*est, rows=rows)
     with pytest.raises(ValueError):
         cuda_scan.estep_gamma_dense(*est, rows=rows + s, cols=cols)
+
+
+# ----------------------------------------------------------------------
+# Every S the reference takes: the dense kernels' global placement
+# ----------------------------------------------------------------------
+def _hmm_estep(model, x, m):
+    """log Z, the accumulated statistics (leaves in key order), the ξ
+    counts, the ELBO and the posteriors of one E-step of ``model``."""
+    stats = model.sufficient_statistics(x)
+    log_z, cache = model.infer(stats, m)
+    acc = model.accumulate(stats, cache)
+    leaves = []
+    for key in sorted(acc["modelset"]):
+        leaves.append(acc["modelset"][key])
+    elbo = bt.evidence_lower_bound(copy.deepcopy(model), x, mask=m).value
+    return dict(log_z=log_z, leaves=leaves, xi=model.expected_transition_counts(cache),
+                elbo=elbo, post=model.posteriors(x, m))
+
+
+def _routes_agree(model, x, m, need):
+    """The kernel route of ``model`` against its plain route on the card:
+    log Z and ELBO rel 1e-5, γ abs 1e-5, statistics and ξ rel 1e-4, and
+    every kernel of ``need`` launched."""
+    plain = copy.deepcopy(model)
+    plain.plain_scan = True
+    cuda_scan.reset_launch_counts()
+    got = _hmm_estep(model, x, m)
+    torch.cuda.synchronize()
+    launched = _launched()
+    want = _hmm_estep(plain, x, m)
+    assert _launched() == launched                      # the plain route launches nothing
+    assert all(launched.get(k, 0) > 0 for k in need), launched
+    full = m.sum(-1) > 0
+    assert _rel(got["log_z"][full], want["log_z"][full]) <= 1e-5
+    assert _rel(got["elbo"], want["elbo"]) <= 1e-5
+    assert float((got["post"] - want["post"]).abs().max()) <= 1e-5
+    for g, w in zip(got["leaves"], want["leaves"]):
+        assert _rel(g, w) <= 1e-4
+    assert _rel(got["xi"], want["xi"]) <= 1e-4
+
+
+@pytest.mark.parametrize("s", [180, 300])
+def test_large_ergodic_hmm_runs_through_the_kernels(device, s):
+    """An ergodic HMM with learned transitions above the shared-memory
+    limit of K6/K7 (and at 300 of K5): stats route (K5 + K6) and
+    posteriors (K5 + K7) through the global placement."""
+    gen = torch.Generator(device=device).manual_seed(s)
+    nset = bt.NormalSet.create(torch.zeros(6, device=device), torch.ones(6, device=device),
+                               size=s, noise_std=0.5, generator=gen)
+    hmm = bt.HMM.create(bt.ergodic(s).compile(device=device), nset, learn_transitions=True)
+    assert hmm.route() == "stats"
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(rng.normal(size=(4, 40, 6)).astype(np.float32)).to(device)
+    m = (torch.arange(40, device=device)[None] < torch.tensor([[40], [33], [0], [7]],
+                                                              device=device)).float()
+    _routes_agree(hmm, x, m, ("forward_llh_dense", "estep_acc_dense", "estep_gamma_dense"))
+
+
+def test_long_transcription_chain_runs_through_the_kernels(device):
+    """A shared left-to-right graph of 60 phones × 3 states (S = 180), as
+    a forced alignment of long transcriptions builds it: llh route (K5 +
+    K7)."""
+    rng = np.random.default_rng(6)
+    seqs = [list(rng.integers(10, size=n)) for n in (60, 58, 45, 60)]
+    graphs = bt.transcription_graphs(seqs, 10, 3, device=device)
+    assert graphs.n_states == 180
+    gen = torch.Generator(device=device).manual_seed(6)
+    nset = bt.NormalSet.create(torch.zeros(6, device=device), torch.ones(6, device=device),
+                               size=30, noise_std=0.5, generator=gen)
+    hmm = bt.HMM.create(graphs, nset)
+    assert hmm.route() == "llh"
+    x = torch.from_numpy(rng.normal(size=(4, 240, 6)).astype(np.float32)).to(device)
+    m = (torch.arange(240, device=device)[None] < torch.tensor([[240], [220], [200], [240]],
+                                                               device=device)).float()
+    _routes_agree(hmm, x, m, ("forward_llh_dense", "estep_gamma_dense"))
+
+
+def test_large_dense_forward_backward_probs_runs_through_the_kernels(device):
+    """``forward_backward_probs`` on one shared (S, S) matrix at S = 300
+    without bands: K12 dense forward + K13 dense against the plain loops."""
+    a = dense_args(dense_problem(9, 300, 4, 4, 30), torch.float32, device)
+    _, mask = _e_llh(a["llh"], a["lens"])
+    log_trans = torch.log(a["trans"].clamp_min(1e-37))
+    log_init = torch.log(a["init"][0].clamp_min(1e-37))
+    log_final = torch.log(a["final"][0].clamp_min(1e-37))
+    full = a["lens"] > 0
+    cuda_scan.reset_launch_counts()
+    got = tss.forward_backward_probs(a["llh"], log_trans, log_init, log_final, mask)
+    torch.cuda.synchronize()
+    assert _launched() == {"scaled_pass": 1, "smoothing_pass": 1}
+    want = tss.forward_backward_probs(a["llh"], log_trans, log_init, log_final, mask, plain=True)
+    assert _rel(got.log_z[full], want.log_z[full]) <= 1e-5
+    assert float((got.posteriors - want.posteriors).abs().max()) <= 1e-5
+    xi, xi_r = (tss.expected_transition_counts_probs(f, log_trans, mask) for f in (got, want))
+    assert _rel(xi, xi_r) <= 1e-4
+
+
+@pytest.mark.parametrize("placement", ["shared", "global"])
+def test_dense_smem_formulas_match_the_library(device, placement):
+    """``cuda_scan.dense_smem_bytes`` (which picks the placement) counts what
+    the kernels' own launchers reserve."""
+    lib = cuda_scan._library()
+    glob = int(placement == "global")
+    for s in (1, 7, 30, 150, 168, 169, 237, 300, 1100):
+        for p in (0, 4, 78):
+            assert cuda_scan.dense_smem_bytes("forward_llh_dense", s, p, placement=placement) == \
+                lib.beer_dense_forward_smem_bytes(s, p, glob)
+            assert cuda_scan.dense_smem_bytes("estep_acc_dense" if p else "estep_gamma_dense", s, p,
+                                              placement=placement) == \
+                lib.beer_dense_estep_smem_bytes(s, p, glob)
+        assert cuda_scan.dense_smem_bytes("estep_gamma_dense_restricted", s, n_r=s // 3 + 1,
+                                          n_c=s // 2 + 1, placement=placement) == \
+            lib.beer_dense_estep_restricted_smem_bytes(s, s // 3 + 1, s // 2 + 1, glob)
+        for mode in (0, 2):
+            assert cuda_scan.dense_smem_bytes("scaled_pass", s, placement=placement) == \
+                lib.beer_scaled_pass_smem_bytes(mode, s, glob)
+        assert cuda_scan.dense_smem_bytes("smoothing_pass", s, placement=placement) == \
+            lib.beer_smoothing_smem_bytes(0, s, glob)
+
+
+def test_accumulate_full_takes_an_unaligned_view(device):
+    """K10 copies 16 bytes at a time; a view starting mid-row still works."""
+    a = _full_args((5, 8, 300), device)
+    x, r = a["x"][3:], a["r"][3:]
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    assert _rel(sk.accumulate_full(x, r), sk.accumulate_full_plain(x, r)) <= 1e-4

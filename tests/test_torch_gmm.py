@@ -408,3 +408,37 @@ def test_entry_points_default_to_the_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ENTRY_POINTS[name]()
+
+
+# ----------------------------------------------------------------------
+# K9's and K10's launch geometry (pure functions of the shapes)
+# ----------------------------------------------------------------------
+ELLH_TILE_K = {1: 16, 4: 16, 60: 64, 64: 64, 65: 128, 200: 128}
+# 128-frame tiles once ⌈T/128⌉ · ⌈K/tile_k⌉ reaches 4 waves of 132 SMs
+ELLH_TILE_T = {(0, 1): 64, (1, 1): 64, (127, 1): 64, (38_400, 1): 64, (256_000, 1): 128,
+               (0, 2): 64, (1, 2): 64, (127, 2): 64, (38_400, 2): 128, (256_000, 2): 128}
+
+
+@pytest.mark.parametrize("t_len", [0, 1, 127, 38_400, 256_000])
+@pytest.mark.parametrize("k", list(ELLH_TILE_K))
+def test_ellh_tiles(t_len, k):
+    tile_t, tile_k = sk.ellh_tiles(t_len, k)
+    assert tile_k == ELLH_TILE_K[k]
+    assert tile_t == ELLH_TILE_T[(t_len, -(-k // tile_k))]
+
+
+@pytest.mark.parametrize("case", [
+    # (T, D, K, resident blocks) -> (component tile, slices, frames a slice)
+    ((256_000, 39, 64, 528), (64, 75, 3424)),     # config 1: 7 lane chunks
+    ((38_400, 39, 60, 528), (64, 75, 512)),       # the recognizer
+    ((512, 16, 4, 660), (32, 16, 32)),            # the GMM prior of config 5: one tile a slice
+    ((1, 2, 1, 528), (32, 1, 32)),
+    ((0, 39, 64, 528), (64, 0, 32)),
+    ((1000, 39, 200, 8), (64, 1, 1024)),          # fewer resident blocks than output tiles
+], ids=["config1", "recognizer", "gmm_prior", "one_frame", "empty", "few_blocks"])
+def test_accumulate_tiles(case):
+    (t_len, d, k, resident), want = case
+    tile_k, n_slices, slice_len = sk.accumulate_tiles(t_len, d, k, resident)
+    assert (tile_k, n_slices, slice_len) == want
+    assert slice_len % sk.ACC_FRAMES == 0 and n_slices * slice_len >= t_len
+    assert t_len == 0 or (n_slices - 1) * slice_len < t_len   # no slice is empty

@@ -487,3 +487,47 @@ def test_library_path_is_keyed_on_sources(tmp_path, monkeypatch):
     second = cuda_scan.library_path()
     assert first != second and first.parent == cuda_scan.BUILD_DIR
     assert not second.exists()
+
+
+# ----------------------------------------------------------------------
+# Where the dense kernels keep their (S, S) operands
+# ----------------------------------------------------------------------
+# (kernel, S, P, n_r, n_c, placement): the S of the large-HMM card tests
+# (180, 300) and both sides of each kernel's shared-memory limit
+PLACEMENTS = [
+    ("forward_llh_dense", 180, 0, 0, 0, "shared"), ("forward_llh_dense", 239, 0, 0, 0, "shared"),
+    ("forward_llh_dense", 240, 0, 0, 0, "global"), ("forward_llh_dense", 300, 0, 0, 0, "global"),
+    ("forward_llh_dense", 203, 78, 0, 0, "shared"), ("forward_llh_dense", 204, 78, 0, 0, "global"),
+    ("forward_llh_shifts_dense", 239, 0, 0, 0, "shared"),
+    ("forward_llh_shifts_dense", 240, 0, 0, 0, "global"),
+    ("estep_acc_dense", 30, 78, 0, 0, "shared"), ("estep_acc_dense", 133, 78, 0, 0, "shared"),
+    ("estep_acc_dense", 134, 78, 0, 0, "global"), ("estep_acc_dense", 180, 12, 0, 0, "global"),
+    ("estep_acc_dense", 300, 78, 0, 0, "global"),
+    ("estep_gamma_dense", 150, 0, 0, 0, "shared"), ("estep_gamma_dense", 168, 0, 0, 0, "shared"),
+    ("estep_gamma_dense", 169, 0, 0, 0, "global"), ("estep_gamma_dense", 180, 0, 0, 0, "global"),
+    ("estep_gamma_dense", 300, 0, 0, 0, "global"),
+    ("estep_gamma_dense_restricted", 150, 0, 50, 50, "shared"),
+    ("estep_gamma_dense_restricted", 232, 0, 50, 50, "shared"),
+    ("estep_gamma_dense_restricted", 233, 0, 50, 50, "global"),
+    ("scaled_pass", 239, 0, 0, 0, "shared"), ("scaled_pass", 240, 0, 0, 0, "global"),
+    ("scaled_pass", 300, 0, 0, 0, "global"),
+    ("smoothing_pass", 237, 0, 0, 0, "shared"), ("smoothing_pass", 238, 0, 0, 0, "global"),
+    ("smoothing_pass", 300, 0, 0, 0, "global"),
+]
+
+
+@pytest.mark.parametrize("case", PLACEMENTS, ids=lambda c: "%s_S%d_P%d" % c[:3])
+def test_dense_placement(case):
+    """Shared memory while the operands fit a block (232,448 B), device
+    memory above; the global placement itself fits at any S taken here."""
+    kernel, s, p_dim, n_r, n_c, want = case
+    assert cuda_scan.dense_placement(kernel, s, p_dim, n_r, n_c) == want
+    shared = cuda_scan.dense_smem_bytes(kernel, s, p_dim, n_r, n_c, "shared")
+    assert (shared <= cuda_scan.SMEM_LIMIT) == (want == "shared")
+    glob = cuda_scan.dense_smem_bytes(kernel, s, p_dim, n_r, n_c, "global")
+    assert glob < shared and glob <= 4 * (7 * s + 64 + p_dim + n_r + n_c)
+
+
+def test_dense_placement_names_only_dense_kernels():
+    with pytest.raises(ValueError, match="not a dense kernel"):
+        cuda_scan.dense_placement("estep_acc_banded", 30)
