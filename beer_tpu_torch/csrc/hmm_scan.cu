@@ -57,13 +57,6 @@
 
 namespace {
 
-size_t dense_forward_smem_floats(int s, int p, bool global) {
-  size_t n = 2 * static_cast<size_t>(s) + 2 * kMaxWarps;
-  if (!global) n += static_cast<size_t>(s) * odd_stride(s);
-  if (p > 0) n += s + p + (global ? 0 : static_cast<size_t>(s) * odd_stride(p));
-  return n;
-}
-
 // n_xi: floats of the ξ accumulator (S·S, or n_r·n_c when ξ is
 // restricted); n_idx: the restricted block's two index vectors.
 size_t dense_backward_smem_floats(int s, int p, size_t n_xi, int n_idx, bool global) {
@@ -83,19 +76,86 @@ size_t dense_backward_smem_floats(int s, int p, size_t n_xi, int n_idx, bool glo
 // route of HMM.infer), otherwise the llh stream is read (the llh route).
 // Per step: row max, e = exp(llh − max), raw_j = e_j · Σ_i α̂_{t−1}(i)
 // A(i, j) (the first frame uses the row's init), norm = max(Σ raw,
-// FLT_MIN), α̂ = raw / norm, logz_base += log norm + max.  Bound: the
-// serial chain (two block reductions per step) plus S (and P) shared-
-// memory FMAs per state and step.  Frames t >= len get α̂ = 0, norm = 1;
-// an empty row keeps last = init and logz_base = 0.
+// FLT_MIN), α̂ = raw / norm, logz_base += log norm + max.  Frames t >= len
+// get α̂ = 0, norm = 1; an empty row keeps last = init and logz_base = 0.
 //
 // K14 (kShifts, llh stream only) replaces _make_fwd_llh_kernel (wrapper
 // forward_llh_pass): it also writes shifts (B, T) = the row max on frames
 // t < len and 0 after, frame 0 fires on every row (an empty row sees e = 1
 // there, so it carries normalise(init) with norm_0 = Σ init), and frames
 // t >= max(len, 1) copy the carry into α̂ (norm = 1, shift = 0).
+//
+// What bounds it: not bytes nor FMAs (the bound is tens of µs at config
+// 2) but the serial chain of T steps per utterance, each a propagate, a
+// sum over the states and a division.  So everything that does not depend
+// on the carry leaves the chain.  Frames go in chunks: chunk c +
+// 1's statistics (or llh) arrive by cp.async into a two-stage ring while
+// chunk c recurses; at the start of a chunk llh, the row max and e =
+// exp(llh − max) of all its frames are computed in parallel into shared
+// memory; the serial loop only propagates, normalises and stores α̂; the
+// norms, log Z's terms (log norm + max) and K14's shifts are written per
+// chunk.  Two instances, chosen by fit in one place, the wrapper's
+// cuda_scan.forward_instance:
+//   "warp" (S <= 32 while its ring fits a block; chunks of kChunk): one
+//       warp an utterance, kWarps utterances a block sharing W; lane j
+//       holds column A(:, j) in registers, α̂_{t−1}(i) comes by
+//       __shfl_sync and the step's sum by a shuffle tree: no barrier and
+//       no shared memory in the chain;
+//   "block" (any S, both placements; chunks of C frames, the most of 16,
+//       8, 4, 2 or 1 whose block fits the placement: the ring moves the
+//       shared placement's limit by one S at most, and the global
+//       placement takes S to ~14,500 on the llh stream, above K7's
+//       ~9,700; e computed in the ring's stage on the llh stream): one
+//       block an utterance, threads over states; a step takes one block
+//       reduction and one barrier (three barriers, against five with the ELLH and
+//       the frame's load in the chain).  The carry stays normalised: an
+//       unnormalised carry loses its digits to subnormal products when a
+//       step's norm is tiny.
 // ---------------------------------------------------------------------
-template <bool kStats, bool kShifts, bool kGlobal>
-__global__ void forward_llh_dense_kernel(
+constexpr int kChunk = 32;      // frames a chunk of the warp instance
+constexpr int kChunkBlock = 16;  // frames a chunk of the block instance, at most
+constexpr int kWarps = 4;       // utterances a block of the warp instance
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// all but the newest group (more) or every group (!more) have landed
+__device__ __forceinline__ void cp_async_wait(bool more) {
+  if (more)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__host__ __device__ inline size_t round4(size_t n) { return (n + 3) / 4 * 4; }
+
+// Floats of one instance's shared memory (instance: 0 block in the shared
+// placement, 1 block in the global placement, 2 warp; chunk: the block
+// instance's frames a chunk); p = 0: llh stream.
+size_t dense_forward_smem_floats(int s, int p, int instance, int chunk) {
+  const size_t S = s, P = p, C = instance == 2 ? kChunk : chunk;
+  if (instance == 2) {
+    const size_t ldr = p > 0 ? round4(P) : S;
+    return (p > 0 ? round4(S * (round4(P) + 1)) : 0) + kWarps * (round4(2 * C * ldr) + C * 33 + C);
+  }
+  const bool global = instance == 1;
+  size_t n = (global ? 0 : round4(S * odd_stride(s))) + 2 * S + 2 * kMaxWarps + round4(2 * C * (p > 0 ? P : S)) +
+             2 * C;
+  if (p > 0) n += C * S + S + (global ? 0 : S * odd_stride(p));  // e apart from the ring, the bias, W
+  return n;
+}
+
+// The block instance: one block an utterance.
+// 1024 threads at most, one block an SM: the bound lets ptxas hold the
+// propagate's 32 reads of A in flight (uncapped it kept 32 registers and
+// ran 1.7× slower at S = 300, stats_variants.py k5_blk_no_lb).
+// kFull: chunks of kChunkBlock frames, a constant (a runtime chunk length
+// cost the global instance 9 % at S = 300 on the llh stream,
+// stats_variants.py k5_runtime_chunk); otherwise `chunk` frames.
+template <bool kStats, bool kShifts, bool kGlobal, bool kFull>
+__global__ void __launch_bounds__(1024, 1) forward_llh_dense_kernel(
     const float* __restrict__ x,      // (B, T, P) stats or (B, T, S) llh
     const int* __restrict__ lens,     // (B,)
     const float* __restrict__ w,      // (S, P), kGlobal: Wᵀ (P, S)  (kStats)
@@ -107,23 +167,41 @@ __global__ void forward_llh_dense_kernel(
     float* __restrict__ last,         // (B, S)
     float* __restrict__ logz,         // (B,)
     float* __restrict__ shifts,       // (B, T)  (kShifts)
-    int T, int S, int P) {
-  extern __shared__ float smem[];
-  const int ldt = odd_stride(S), ldw = odd_stride(P);
-  float* a_sh = smem;                                                   // A, (S, ldt)
-  float* p_sh = a_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldt);   // α̂_{t−1}
-  float* v_sh = p_sh + S;                                               // llh_t, then raw_t
-  float* red = v_sh + S;
-  float* w_sh = red + 2 * kMaxWarps;                                    // kStats: W, (S, ldw)
-  float* bias_sh = w_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldw);
-  float* x_sh = bias_sh + S;                                            // kStats: stats_t
+    int T, int S, int P, int chunk) {
+  const int C = kFull ? kChunkBlock : chunk;  // frames a chunk, 1..kChunkBlock
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ldt = odd_stride(S), ldw = odd_stride(P), row = kStats ? P : S;
+  float* a_sh = smem;                                                           // A, (S, ldt)
+  float* ring = a_sh + (kGlobal ? 0 : round4(static_cast<size_t>(S) * ldt));   // 2 × (C, row)
+  float* e_st = ring + round4(2 * static_cast<size_t>(C) * row);               // kStats: (C, S)
+  float* vbuf = e_st + (kStats ? static_cast<size_t>(C) * S : 0);               // α̂_{t−1}, then raw_t
+  float* red = vbuf + 2 * S;
+  float* mxs = red + 2 * kMaxWarps;                                             // (C,) row maxima
+  float* nrm = mxs + C;                                                         // (C,) norms
+  float* bias_sh = nrm + C;                                                     // kStats: (S,)
+  float* w_sh = bias_sh + S;                                                    // kStats: W, (S, ldw)
   // A(i, j) = a_m[i·ldt_a + j]; W(s, p) = w_m[s·w_rs + p·w_cs]
   const float* a_m = kGlobal ? trans : a_sh;
   const float* w_m = kGlobal ? w : w_sh;
   const int ldt_a = kGlobal ? S : ldt, w_rs = kGlobal ? 1 : ldw, w_cs = kGlobal ? S : 1;
 
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31;
   const int len = lens[b];
+  const int n_fire = kShifts ? min(max(len, 1), T) : len;
+  const float* x_b = x + static_cast<size_t>(b) * T * row;
+  float* al_b = alpha + static_cast<size_t>(b) * T * S;
+  float* n_b = norms + static_cast<size_t>(b) * T;
+  // chunk c → ring stage c & 1, zero-filled past the last frame
+  auto fetch = [&](int c) {
+    float* dst = ring + (c & 1) * C * row;
+    const int f0 = c * C, n = min(C, T - f0) * row;
+    const float* src = x_b + static_cast<size_t>(f0) * row;
+    for (int e = tid; e < C * row; e += nt) cp_async4(dst + e, e < n ? src + e : x_b, e < n);
+    cp_async_commit();
+  };
+  const int n_chunks = (n_fire + C - 1) / C;
+  if (n_chunks > 0) fetch(0);
   if (!kGlobal) {
     for (int i = tid; i < S * S; i += nt) {
       const int r = i / S;
@@ -139,68 +217,243 @@ __global__ void forward_llh_dense_kernel(
     }
     for (int s = tid; s < S; s += nt) bias_sh[s] = bias[s];
   }
-  for (int s = tid; s < S; s += nt) p_sh[s] = init[static_cast<size_t>(b) * S + s];
-  const size_t row = kStats ? P : S;
+  float* abuf = vbuf + S;                                                        // raw_t, then α̂_t
+  for (int s = tid; s < S; s += nt) vbuf[s] = init[static_cast<size_t>(b) * S + s];
+  float pn = 1.f;
+  float logz_acc = 0.f;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int f0 = c * C, nf = min(C, n_fire - f0);
+    const bool more = c + 1 < n_chunks;
+    __syncthreads();  // every reader of stage (c + 1) & 1, e_sh, mxs and nrm is done
+    if (more) fetch(c + 1);
+    cp_async_wait(more);
+    __syncthreads();  // chunk c has landed (and, at c = 0, A, W, bias and init)
+    float* xc = ring + (c & 1) * C * row;
+    float* e_sh = kStats ? e_st : xc;  // (C, S): llh, then e; on the llh stream the stage itself
+    for (int s = tid; s < S; s += nt) {
+      if (kStats && kFull) {
+        float l[kChunkBlock];
+#pragma unroll
+        for (int f = 0; f < kChunkBlock; ++f) l[f] = 0.f;
+        const float* wr = w_m + s * w_rs;
+        for (int p = 0; p < P; ++p) {
+          const float wv = wr[p * w_cs];
+#pragma unroll
+          for (int f = 0; f < kChunkBlock; ++f) l[f] = fmaf(wv, xc[f * P + p], l[f]);
+        }
+        const float bs = bias_sh[s];
+#pragma unroll
+        for (int f = 0; f < kChunkBlock; ++f)
+          if (f < nf) e_sh[f * S + s] = l[f] + bs;
+      } else if (kStats) {  // a shorter chunk (large S or P): a frame at a time, in the same order
+        const float* wr = w_m + s * w_rs;
+        for (int f = 0; f < nf; ++f) {
+          float l = 0.f;
+          for (int p = 0; p < P; ++p) l = fmaf(wr[p * w_cs], xc[f * P + p], l);
+          e_sh[f * S + s] = l + bias_sh[s];
+        }
+      } else if (kShifts && f0 < 1 && len == 0) {
+        e_sh[s] = 0.f;  // frame 0 of an empty row fires with e = 1
+      }
+    }
+    __syncthreads();
+    for (int f = warp; f < nf; f += nt >> 5) {
+      float m = -FLT_MAX;
+      for (int s = lane; s < S; s += 32) m = fmaxf(m, e_sh[f * S + s]);
+      m = warp_max(m);
+      if (lane == 0) {
+        mxs[f] = m;
+        if (kShifts) shifts[static_cast<size_t>(b) * T + f0 + f] = m;  // 0 on an empty row's frame 0
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < nf * S; e += nt) e_sh[e] = expf(e_sh[e] - mxs[e / S]);
+    __syncthreads();
+    for (int f = 0; f < nf; ++f) {
+      const int t = f0 + f;
+      // α̂_{t−1} in prev (init at t = 0); each thread's raw_t in cur[j]
+      const float* prev = (t & 1) ? abuf : vbuf;
+      float* cur = (t & 1) ? vbuf : abuf;
+      float sum = 0.f, unused = 0.f;
+      for (int j = tid; j < S; j += nt) {
+        float base;
+        if (t == 0) {
+          base = prev[j];
+        } else if (!kGlobal) {
+          base = 0.f;
+#pragma unroll 32
+          for (int i = 0; i < S; ++i) base = fmaf(prev[i], a_m[i * ldt_a + j], base);
+        } else {
+          // 32 reads of A from L2 in flight, then their FMAs in order (the
+          // plain loop above, fine for shared memory, left each L2 read's
+          // latency in the chain here: stats_variants.py k5_blk_plain_loop)
+          base = 0.f;
+          for (int i0 = 0; i0 < S; i0 += 32) {
+            float av[32];
+#pragma unroll
+            for (int u = 0; u < 32; ++u) av[u] = i0 + u < S ? a_m[(i0 + u) * ldt_a + j] : 0.f;
+#pragma unroll
+            for (int u = 0; u < 32; ++u)
+              if (i0 + u < S) base = fmaf(prev[i0 + u], av[u], base);
+          }
+        }
+        const float raw = base * e_sh[f * S + j];
+        cur[j] = raw;
+        sum += raw;
+      }
+      block_sum_sum(sum, unused, red);  // also: every reader of prev is done
+      pn = fmaxf(sum, FLT_MIN);
+      const float inv = 1.f / pn;
+      for (int j = tid; j < S; j += nt) {
+        const float a = cur[j] * inv;
+        cur[j] = a;
+        al_b[static_cast<size_t>(t) * S + j] = a;
+      }
+      if (tid == 0) nrm[f] = pn;
+      __syncthreads();  // α̂_t is complete before the next propagate reads it
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const float v = lane < nf ? logf(nrm[lane]) + mxs[lane] : 0.f;
+      if (lane < nf) n_b[f0 + lane] = nrm[lane];
+      logz_acc += warp_sum(v);
+    }
+  }
+  __syncthreads();
+  const float* fin = (n_fire & 1) ? abuf : vbuf;  // α̂ of frame n_fire − 1 (init if none)
+  for (int s = tid; s < S; s += nt) last[static_cast<size_t>(b) * S + s] = fin[s];
+  if (tid == 0) logz[b] = logz_acc;
+  for (size_t i = static_cast<size_t>(n_fire) * S + tid; i < static_cast<size_t>(T) * S; i += nt)
+    al_b[i] = kShifts ? fin[i % S] : 0.f;
+  for (int t = n_fire + tid; t < T; t += nt) {
+    n_b[t] = 1.f;
+    if (kShifts) shifts[static_cast<size_t>(b) * T + t] = 0.f;
+  }
+}
+
+// The warp instance (S <= 32): kWarps utterances a block, one warp each.
+template <bool kStats, bool kShifts>
+__global__ void __launch_bounds__(kWarps * 32) forward_llh_warp_kernel(
+    const float* __restrict__ x, const int* __restrict__ lens, const float* __restrict__ w,
+    const float* __restrict__ bias, const float* __restrict__ trans, const float* __restrict__ init,
+    float* __restrict__ alpha, float* __restrict__ norms, float* __restrict__ last, float* __restrict__ logz,
+    float* __restrict__ shifts, int B, int T, int S, int P) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ldr = kStats ? static_cast<int>(round4(P)) : S, ldw = kStats ? static_cast<int>(round4(P)) + 1 : 0;
+  const int row = kStats ? P : S;
+  const int tid = threadIdx.x, warp = tid >> 5, j = tid & 31;
+  float* w_sh = smem;                                                  // kStats: W, (S, ldw), zero past P
+  float* mine = smem + (kStats ? round4(static_cast<size_t>(S) * ldw) : 0) +
+                warp * (round4(2 * static_cast<size_t>(kChunk) * ldr) + kChunk * 33 + kChunk);
+  float* ring = mine;                                                  // 2 × (kChunk, ldr), zero past P
+  float* e_sh = ring + round4(2 * static_cast<size_t>(kChunk) * ldr);  // (kChunk, 33)
+  float* mxs = e_sh + kChunk * 33;                                     // (kChunk,)
+  if (kStats) {
+    for (int i = tid; i < S * ldw; i += blockDim.x) {
+      const int s = i / ldw, p = i - s * ldw;
+      w_sh[i] = p < P ? w[s * P + p] : 0.f;
+    }
+  }
+  const int b = blockIdx.x * kWarps + warp;
+  if (b < B) {
+    for (int i = j; i < 2 * kChunk * ldr; i += 32) ring[i] = 0.f;  // the columns past P stay 0
+  }
+  __syncthreads();
+  if (b >= B) return;
+  const unsigned full = 0xffffffffu;
+  const bool on = j < S;
+  const int len = lens[b];
+  const int n_fire = kShifts ? min(max(len, 1), T) : len;
   const float* x_b = x + static_cast<size_t>(b) * T * row;
   float* al_b = alpha + static_cast<size_t>(b) * T * S;
   float* n_b = norms + static_cast<size_t>(b) * T;
+  float a_col[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) a_col[i] = on && i < S ? trans[i * S + j] : 0.f;
+  const float bs = kStats && on ? bias[j] : 0.f;
+  float carry = on ? init[static_cast<size_t>(b) * S + j] : 0.f;
+  auto fetch = [&](int c) {
+    float* dst = ring + (c & 1) * kChunk * ldr;
+    const int f0 = c * kChunk, n = min(kChunk, T - f0);
+    const float* src = x_b + static_cast<size_t>(f0) * row;
+    for (int e = j; e < kChunk * row; e += 32) {
+      const int f = e / row, q = e - f * row;
+      cp_async4(dst + f * ldr + q, f < n ? src + e : x_b, f < n);
+    }
+    cp_async_commit();
+  };
+  const int n_chunks = (n_fire + kChunk - 1) / kChunk;
+  if (n_chunks > 0) fetch(0);
   float logz_acc = 0.f;
-  const int n_fire = kShifts ? min(max(len, 1), T) : len;
-
-  for (int t = 0; t < n_fire; ++t) {
-    const float* x_t = x_b + static_cast<size_t>(t) * row;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int f0 = c * kChunk, nf = min(kChunk, n_fire - f0);
+    const bool more = c + 1 < n_chunks;
+    __syncwarp();  // every lane's reads of stage (c + 1) & 1, e_sh and mxs are done
+    if (more) fetch(c + 1);
+    cp_async_wait(more);
+    __syncwarp();
+    const float* xc = ring + (c & 1) * kChunk * ldr;
     if (kStats) {
-      for (int p = tid; p < P; p += nt) x_sh[p] = x_t[p];
-      __syncthreads();
-    }
-    const bool pad = kShifts && t >= len;  // frame 0 of an empty row: e = 1, shift 0
-    float mx = -FLT_MAX, unused = 0.f;
-    for (int s = tid; s < S; s += nt) {
-      float l;
-      if (kStats) {
-        const float* wr = w_m + s * w_rs;
-        l = 0.f;
-#pragma unroll 16
-        for (int p = 0; p < P; ++p) l = fmaf(wr[p * w_cs], x_sh[p], l);
-        l += bias_sh[s];
-      } else {
-        l = pad ? 0.f : x_t[s];
+      float l[kChunk];
+#pragma unroll
+      for (int f = 0; f < kChunk; ++f) l[f] = 0.f;
+      const float* wr = w_sh + (on ? j : 0) * ldw;
+      for (int p = 0; p < ldr; p += 4) {  // the block instance's order: p ascending, then the bias
+        const float w0 = wr[p], w1 = wr[p + 1], w2 = wr[p + 2], w3 = wr[p + 3];
+#pragma unroll
+        for (int f = 0; f < kChunk; ++f) {
+          const float4 xv = *reinterpret_cast<const float4*>(xc + f * ldr + p);
+          l[f] = fmaf(w3, xv.w, fmaf(w2, xv.z, fmaf(w1, xv.y, fmaf(w0, xv.x, l[f]))));
+        }
       }
-      v_sh[s] = l;
-      mx = fmaxf(mx, l);
+#pragma unroll
+      for (int f = 0; f < kChunk; ++f)
+        if (on && f < nf) e_sh[f * 33 + j] = l[f] + bs;
+    } else {
+      for (int f = 0; f < nf; ++f)
+        if (on) e_sh[f * 33 + j] = kShifts && f0 + f >= len ? 0.f : xc[f * ldr + j];
     }
-    block_max_sum(mx, unused, red);
-    if (kShifts && tid == 0) shifts[static_cast<size_t>(b) * T + t] = mx;
-    float sum = 0.f;
-    for (int j = tid; j < S; j += nt) {
+    __syncwarp();
+    if (j < nf) {  // lane j: the row max of frame j of the chunk
+      float m = -FLT_MAX;
+      for (int s = 0; s < S; ++s) m = fmaxf(m, e_sh[j * 33 + s]);
+      mxs[j] = m;
+      if (kShifts) shifts[static_cast<size_t>(b) * T + f0 + j] = m;
+    }
+    __syncwarp();
+    if (on)
+      for (int f = 0; f < nf; ++f) e_sh[f * 33 + j] = expf(e_sh[f * 33 + j] - mxs[f]);
+    __syncwarp();
+    float my_norm = 1.f;
+    for (int f = 0; f < nf; ++f) {
+      const int t = f0 + f;
       float base;
       if (t == 0) {
-        base = p_sh[j];
+        base = carry;
       } else {
-        base = 0.f;
-#pragma unroll 32
-        for (int i = 0; i < S; ++i) base = fmaf(p_sh[i], a_m[i * ldt_a + j], base);
+        // all 32 lanes (carry and A are 0 past S): no branch between the
+        // shuffles, which a test of i < S serialised
+        float q[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) q[i & 3] = fmaf(__shfl_sync(full, carry, i), a_col[i], q[i & 3]);
+        base = (q[0] + q[1]) + (q[2] + q[3]);
       }
-      const float raw = base * expf(v_sh[j] - mx);
-      v_sh[j] = raw;
-      sum += raw;
+      const float raw = on ? base * e_sh[f * 33 + j] : 0.f;
+      const float norm = fmaxf(warp_sum(raw), FLT_MIN);
+      carry = raw * (1.f / norm);  // a reciprocal: no division's slow path in the chain
+      if (on) al_b[static_cast<size_t>(t) * S + j] = carry;
+      if (j == f) my_norm = norm;
     }
-    block_sum_sum(sum, unused, red);
-    const float norm = fmaxf(sum, FLT_MIN);
-    for (int s = tid; s < S; s += nt) {
-      const float a = v_sh[s] / norm;
-      p_sh[s] = a;
-      al_b[static_cast<size_t>(t) * S + s] = a;
-    }
-    if (tid == 0) n_b[t] = norm;
-    logz_acc += logf(norm) + mx;
+    if (j < nf) n_b[f0 + j] = my_norm;
+    logz_acc += warp_sum(j < nf ? logf(my_norm) + mxs[j] : 0.f);
   }
-  __syncthreads();
-  for (int s = tid; s < S; s += nt) last[static_cast<size_t>(b) * S + s] = p_sh[s];
-  if (tid == 0) logz[b] = logz_acc;
-  for (size_t i = static_cast<size_t>(n_fire) * S + tid; i < static_cast<size_t>(T) * S; i += nt)
-    al_b[i] = kShifts ? p_sh[i % S] : 0.f;
-  for (int t = n_fire + tid; t < T; t += nt) {
+  if (on) last[static_cast<size_t>(b) * S + j] = carry;
+  if (j == 0) logz[b] = logz_acc;
+  for (int t = n_fire; t < T; ++t)
+    if (on) al_b[static_cast<size_t>(t) * S + j] = kShifts ? carry : 0.f;
+  for (int t = n_fire + j; t < T; t += 32) {
     n_b[t] = 1.f;
     if (kShifts) shifts[static_cast<size_t>(b) * T + t] = 0.f;
   }
@@ -441,9 +694,10 @@ cudaError_t launch_placed(bool global, Kernel shared_kernel, Kernel global_kerne
 
 extern "C" {
 
-// global != 0: the global placement (see the note at the top).
-size_t beer_dense_forward_smem_bytes(int s, int p, int global) {
-  return dense_forward_smem_floats(s, p, global != 0) * sizeof(float);
+// global != 0: the global placement (see the note at the top).  The
+// forward's instance: 0 block (shared placement), 1 block (global), 2 warp.
+size_t beer_dense_forward_smem_bytes(int s, int p, int instance, int chunk) {
+  return dense_forward_smem_floats(s, p, instance, chunk) * sizeof(float);
 }
 
 size_t beer_dense_estep_smem_bytes(int s, int p, int global) {
@@ -454,35 +708,65 @@ size_t beer_dense_estep_restricted_smem_bytes(int s, int n_r, int n_c, int globa
   return dense_backward_smem_floats(s, 0, static_cast<size_t>(n_r) * n_c, n_r + n_c, global != 0) * sizeof(float);
 }
 
-// P > 0: x is the stats stream and w/bias give llh (w is Wᵀ (P, S) when
-// global); P == 0: x is llh.
-int beer_forward_llh_dense(int device, int global, const float* x, const int* lens, const float* w,
+}  // extern "C"
+
+namespace {
+
+// K5 / K14 in the given instance (chunk: the block instance's frames a
+// chunk); P > 0: the stats stream (K5 only).
+template <bool kStats, bool kShifts>
+cudaError_t launch_forward(int instance, int chunk, const float* x, const int* lens, const float* w,
+                           const float* bias, const float* trans, const float* init, float* alpha, float* norms,
+                           float* last, float* logz, float* shifts, int B, int T, int S, int P, cudaStream_t st) {
+  if (instance < 0 || instance > 2 || (instance == 2 && S > 32) || (instance < 2 && (chunk < 1 || chunk > kChunkBlock)))
+    return cudaErrorInvalidValue;
+  const size_t smem = dense_forward_smem_floats(S, P, instance, chunk) * sizeof(float);
+  if (instance == 2) {
+    auto kernel = forward_llh_warp_kernel<kStats, kShifts>;
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, smem, st>>>(x, lens, w, bias, trans, init, alpha, norms, last,
+                                                                 logz, shifts, B, T, S, P);
+    return cudaGetLastError();
+  }
+  const bool full = chunk == kChunkBlock;
+  return launch_placed(instance == 1,
+                       full ? forward_llh_dense_kernel<kStats, kShifts, false, true>
+                            : forward_llh_dense_kernel<kStats, kShifts, false, false>,
+                       full ? forward_llh_dense_kernel<kStats, kShifts, true, true>
+                            : forward_llh_dense_kernel<kStats, kShifts, true, false>,
+                       smem, B, S, st, x, lens, w, bias, trans, init, alpha, norms, last, logz, shifts, T, S, P, chunk);
+}
+
+}  // namespace
+
+extern "C" {
+
+// P > 0: x is the stats stream and w/bias give llh (w is Wᵀ (P, S) in the
+// global placement); P == 0: x is llh.  instance and chunk as for the
+// smem size.
+int beer_forward_llh_dense(int device, int instance, int chunk, const float* x, const int* lens, const float* w,
                            const float* bias, const float* trans, const float* init, float* alpha, float* norms,
                            float* last, float* logz, int B, int T, int S, int P, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess || B == 0) return err;
-  const size_t smem = beer_dense_forward_smem_bytes(S, P, global);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P > 0)
-    return launch_placed(global, forward_llh_dense_kernel<true, false, false>,
-                         forward_llh_dense_kernel<true, false, true>, smem, B, S, st, x, lens, w, bias, trans,
-                         init, alpha, norms, last, logz, static_cast<float*>(nullptr), T, S, P);
-  return launch_placed(global, forward_llh_dense_kernel<false, false, false>,
-                       forward_llh_dense_kernel<false, false, true>, smem, B, S, st, x, lens, w, bias, trans, init,
-                       alpha, norms, last, logz, static_cast<float*>(nullptr), T, S, 0);
+    return launch_forward<true, false>(instance, chunk, x, lens, w, bias, trans, init, alpha, norms, last, logz,
+                                       nullptr, B, T, S, P, st);
+  return launch_forward<false, false>(instance, chunk, x, lens, w, bias, trans, init, alpha, norms, last, logz,
+                                      nullptr, B, T, S, 0, st);
 }
 
 // K14: the llh stream, with the row-max shifts written out and the carry
 // copied through frames t >= len.
-int beer_forward_llh_shifts_dense(int device, int global, const float* llh, const int* lens, const float* trans,
-                                  const float* init, float* alpha, float* norms, float* last, float* logz,
-                                  float* shifts, int B, int T, int S, void* stream) {
+int beer_forward_llh_shifts_dense(int device, int instance, int chunk, const float* llh, const int* lens,
+                                  const float* trans, const float* init, float* alpha, float* norms, float* last,
+                                  float* logz, float* shifts, int B, int T, int S, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess || B == 0) return err;
-  return launch_placed(global, forward_llh_dense_kernel<false, true, false>,
-                       forward_llh_dense_kernel<false, true, true>, beer_dense_forward_smem_bytes(S, 0, global), B,
-                       S, static_cast<cudaStream_t>(stream), llh, lens, static_cast<const float*>(nullptr),
-                       static_cast<const float*>(nullptr), trans, init, alpha, norms, last, logz, shifts, T, S, 0);
+  return launch_forward<false, true>(instance, chunk, llh, lens, nullptr, nullptr, trans, init, alpha, norms, last,
+                                     logz, shifts, B, T, S, 0, static_cast<cudaStream_t>(stream));
 }
 
 // trans is Aᵀ and w is Wᵀ (P, S) when global; part (B, (P+1)·S + S·S),

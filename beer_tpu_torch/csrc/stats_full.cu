@@ -26,7 +26,7 @@
 // TB/s): operations.  At config 1 (T = 256,000, D = 39, K = 64) K8 does
 // 4·T·K·L = 53.7 GFLOP (0.80 ms) against 40 MB of frames (12 µs); K9 and
 // K10 half of that each.  So each is a float32 SIMT GEMM whose S operand is
-// generated instead of loaded; K9 and K10 are built as such:
+// generated instead of loaded:
 //
 //   K9  output-stationary over (frames × components), 8 × 4 outputs a
 //       thread (8 × 8 for the component tile of 128), a component tile
@@ -41,13 +41,27 @@
 //       registers, 8 × 8 a thread, for its whole slice of frames, brings
 //       frames and responsibilities in by cp.async 32 frames at a time and
 //       builds only its own 128 lanes of S; it writes its partial once,
-//       and sum_rows_kernel adds the slices' partials in a fixed order.
+//       and sum_rows_kernel adds the slices' partials in a fixed order;
+//   K8  both, joined by the softmax in shared memory: a persistent block
+//       takes supertiles of frames (stats_kernels.estep_tiles: 128 at
+//       config 1, two blocks an SM), runs K9's ring and micro-kernel over
+//       them into a (frames × K) joint in shared memory, turns it into
+//       responsibilities one warp a frame, and runs K10's micro-kernel in
+//       two groups of 128 threads over the (component tile × 128-lane)
+//       tiles of Σ r ⊗ S, adding each to the block's partial once a
+//       supertile.  What it costs beyond the bound: S is built twice (once
+//       a product, from the lane table, for each of the two GEMMs; K9
+//       measured the build at 23 % of its time), the two GEMMs run at
+//       K9's and K10's rates (60 % and 48 % of the bound without the
+//       build), the accumulation computes 896 lanes for 820 at config 1,
+//       and the partial moves through L2 once per 128 frames.
 //
-// K8 keeps the first design (a persistent grid of 128-frame tiles, 8 × 4
-// and 4 × 4 thread tiles, a (K, L) partial per block in device memory);
-// its rebuild from K9's and K10's tiles is the next step.  No atomics
+// The arithmetic stays float32 FFMA: a 3×TF32 tensor-core form was probed
+// at config 1 before K8 was rebuilt (stats_variants.py probe) and drifted
+// 5.2e-4 ELBO/frame from this kernel over 15 VB steps, five times the
+// trajectory gate, with statistics 53× further from float64.  No atomics
 // anywhere: two runs agree bitwise.  Limits: 1 <= D <= 128; K8 and K10
-// take 1 <= K <= 256 (K8 holds a tile's responsibilities in shared
+// take 1 <= K <= 256 (K8 holds a supertile's responsibilities in shared
 // memory); K9 takes any K.  The wrappers raise above them.
 
 #include <initializer_list>
@@ -64,29 +78,6 @@ enum Kind { kEstep = 0, kEllh = 1, kAcc = 2 };
 __host__ __device__ inline size_t round4(size_t n) { return (n + 3) / 4 * 4; }
 
 __host__ __device__ inline int n_lanes(int D) { return D * (D + 1) / 2 + D + 1; }
-
-// pairs[l] = i << 8 | j for the l-th upper-triangular pair (i <= j).
-__device__ void build_pairs(unsigned short* pairs, int D, int n_ut) {
-  for (int l = threadIdx.x; l < n_ut; l += blockDim.x) {
-    int i = 0, off = 0;
-    while (l >= off + D - i) {
-      off += D - i;
-      ++i;
-    }
-    pairs[l] = static_cast<unsigned short>((i << 8) | (i + l - off));
-  }
-}
-
-// Lane l of S for one frame row of an x tile (0 past the last lane).
-__device__ __forceinline__ float s_entry(const float* xr, int l, int n_ut, int D,
-                                         const unsigned short* pairs) {
-  if (l < n_ut) {
-    const int p = pairs[l];
-    return xr[p >> 8] * xr[p & 255];
-  }
-  if (l < n_ut + D) return xr[l - n_ut];
-  return l == n_ut + D ? 1.f : 0.f;
-}
 
 // K9's and K10's lane table: S(x)_l = x̃_i · x̃_j over the extended frame
 // x̃ = [x, 1, 0], with lanes[l] = i << 8 | j: the pairs (i <= j), then (i,
@@ -131,126 +122,180 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // ---------------------------------------------------------------------
-// K8's tiles: 128 frames, 256 threads, 64 components a pass.
+// K8's tiles.  256 threads a block.  The joint runs K9's micro-kernel:
+// a BM × BN tile, 8 × 4 outputs a thread, BM·BN = 8192 (BN = 32, 64 or
+// 128 components, so BM = 256, 128 or 64 frames), the lanes in chunks of
+// kLc8 through a two-stage ring.  The accumulation runs K10's: two groups
+// of 128 threads, each holding a BK × 128 tile (BK = 32 or 64
+// components, 8 × 8 or 4 × 8 outputs a thread) over a supertile's frames,
+// 32 frames of S at a time.
 // ---------------------------------------------------------------------
-constexpr int kTile = 128;       // frames per tile
-constexpr int kThreads = 256;    // threads per block
-constexpr int kKc = 64;          // components per pass
-constexpr int kLcJ = 32;         // lanes per chunk of the joint product
-constexpr int kLcA = 64;         // lanes per chunk of the accumulation
-constexpr int kLdT = kTile + 4;  // row stride of the c-major S chunk
-constexpr int kLdA = kLcA + 4;   // row stride of the frame-major S chunk
+constexpr int kThr8 = 256;
+constexpr int kLc8 = 16;        // lanes a chunk of the joint's ring
+constexpr int kAccL = 128;      // lanes a tile of the accumulation
+constexpr int kAccT = 32;       // frames of S built at a time
+constexpr int kLdS8 = kAccL + 4;
 
-// K8's shared-memory layout (float offsets, each a multiple of 4 floats so
-// that float4 accesses stay 16-byte aligned).
-struct Layout {
-  int n_ut, ldx, ldr;
-  size_t xs, ms, rs, work, total;
-  __host__ __device__ Layout(int D, int K) {
-    n_ut = D * (D + 1) / 2;
-    ldx = D | 1;                                  // odd: conflict-free column walks
-    ldr = (K + kKc - 1) / kKc * kKc + 4;
-    const size_t pairs = round4((static_cast<size_t>(n_ut) + 1) / 2);  // ushort pairs
-    xs = pairs;
-    ms = xs + round4(static_cast<size_t>(kTile) * ldx);
-    rs = ms + kTile;
-    const size_t joint = static_cast<size_t>(kLcJ) * kLdT + static_cast<size_t>(kLcJ) * kKc;
-    const size_t acc = static_cast<size_t>(kTile) * kLdA;
-    work = rs + static_cast<size_t>(kTile) * ldr;
-    total = work + (joint > acc ? joint : acc);
+// K8's shared memory (float offsets, multiples of 4) at (D, K), joint
+// component tile bn and F frames a supertile.
+struct EstepLayout {
+  int ldx, ldr, kp, n_table;
+  size_t ms, lanes, rs, work, total;
+  __host__ __device__ EstepLayout(int D, int K, int bn, int F) {
+    const int L = n_lanes(D), bk = K <= 32 ? 32 : 64;
+    const int step = bn > bk ? bn : bk;
+    ldx = (D + 2) | 1;                                  // x̃ = [x, 1, 0], odd stride
+    kp = (K + step - 1) / step * step;
+    ldr = kp + 4;
+    const int joint_lanes = ((L + kLc8 - 1) / kLc8 + 1) * kLc8;   // one chunk past the last
+    const int acc_lanes = (L + kAccL - 1) / kAccL * kAccL;
+    n_table = joint_lanes > acc_lanes ? joint_lanes : acc_lanes;
+    ms = round4(static_cast<size_t>(F) * ldx);
+    lanes = ms + round4(F);
+    rs = lanes + round4((static_cast<size_t>(n_table) + 1) / 2);
+    work = rs + static_cast<size_t>(F) * ldr;
+    const size_t ring = 2 * (static_cast<size_t>(kLc8) * (8192 / bn + 4) + static_cast<size_t>(kLc8) * bn);
+    const size_t acc = 2 * static_cast<size_t>(kAccT) * kLdS8;
+    total = work + (ring > acc ? ring : acc);
   }
 };
 
-// Frames t0 .. t0+rows−1 into xs (rows past the end zero-filled).
-__device__ void load_x(float* xs, int ldx, const float* __restrict__ x, int t0, int rows, int D) {
-  for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
-    const int t = e / D, d = e - t * D;
-    xs[t * ldx + d] = t < rows ? x[static_cast<size_t>(t0 + t) * D + d] : 0.f;
-  }
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(group + 1) : "memory");
 }
 
-// acc[i][j] = Σ_l S[ty·8+i, l] · W[l, k0+tx·4+j] for the tile in xs; W (L, K)
-// in device memory.  Starts with a barrier, so writes to xs made before the
-// call are visible.
-__device__ __forceinline__ void joint_pass(const float* __restrict__ w, int L, int K, int k0, int n_ut, int D,
-                           const unsigned short* pairs, const float* xs, int ldx, float* work,
-                           float acc[8][4]) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float* st = work;                 // (kLcJ, kLdT): st[c][t] = S[t, l0+c]
-  float* ws = work + kLcJ * kLdT;   // (kLcJ, kKc):  ws[c][k] = W[l0+c, k0+k]
+// rs[t0.., k0..] = S(x̃ rows t0 .. t0+BM−1)·W[:, k0 .. k0+BN−1]: K9's ring
+// and micro-kernel over the supertile's frames in shared memory.  Begins
+// and ends with a barrier.
+template <int BN>
+__device__ __forceinline__ void estep_joint_tile(const float* __restrict__ w, int Kp, int n_chunks, int k0,
+                                                 const float* xs, int ldx, const unsigned short* lanes,
+                                                 float* rs, int ldr, float* ring) {
+  constexpr int BM = 8192 / BN, kCols = BN / 4, kLdS = BM + 4, kStage = kLc8 * kLdS + kLc8 * BN;
+  static_assert(kLc8 * BM % kThr8 == 0, "whole build rounds");
+  const int tid = threadIdx.x;
+  auto fetch_w = [&](int c, int b) {
+    float* ws = ring + b * kStage + kLc8 * kLdS;
+    const float* src = w + static_cast<size_t>(c) * kLc8 * Kp + k0;
+    for (int q = tid; q < kLc8 * BN / 4; q += kThr8) {
+      const int r = q / (BN / 4), k4 = (q % (BN / 4)) * 4;
+      cp_async16(ws + r * BN + k4, src + static_cast<size_t>(r) * Kp + k4);
+    }
+    cp_async_commit();
+  };
+  auto build_s = [&](int c, int b) {
+    float* st = ring + b * kStage;
+    const unsigned short* lc = lanes + c * kLc8;
+#pragma unroll
+    for (int n = 0; n < kLc8 * BM / kThr8; ++n) {
+      const int e = tid + n * kThr8, r = e / BM, t = e % BM, p = lc[r];
+      const float* xr = xs + t * ldx;
+      st[r * kLdS + t] = xr[p >> 8] * xr[p & 255];
+    }
+  };
+  __syncthreads();  // every reader of the ring (and writer of xs) is done
+  fetch_w(0, 0);
+  build_s(0, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  const int tx = tid % kCols, ty = tid / kCols;
+  float acc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int l0 = 0; l0 < L; l0 += kLcJ) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int e = tid; e < kLcJ * kTile; e += kThreads) {
-      const int c = e / kTile, t = e - c * kTile;
-      st[c * kLdT + t] = s_entry(xs + t * ldx, l0 + c, n_ut, D, pairs);
-    }
-    for (int e = tid; e < kLcJ * kKc; e += kThreads) {
-      const int c = e / kKc, k = k0 + (e - c * kKc), l = l0 + c;
-      ws[e] = (l < L && k < K) ? w[static_cast<size_t>(l) * K + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kLcJ; ++c) {
-      const float4 a0 = *reinterpret_cast<const float4*>(st + c * kLdT + ty * 8);
-      const float4 a1 = *reinterpret_cast<const float4*>(st + c * kLdT + ty * 8 + 4);
-      const float4 b = *reinterpret_cast<const float4*>(ws + c * kKc + tx * 4);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int cur = c & 1;
+    fetch_w(c + 1, cur ^ 1);
+    build_s(c + 1, cur ^ 1);
+    const float* st = ring + cur * kStage;
+    const float* ws = st + kLc8 * kLdS;
+#pragma unroll
+    for (int r = 0; r < kLc8; ++r) {
+      const float4 a0 = *reinterpret_cast<const float4*>(st + r * kLdS + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(st + r * kLdS + BM / 2 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(ws + r * BN + tx * 4);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+      const float bv[4] = {b0.x, b0.y, b0.z, b0.w};
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
     }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = (i < 4 ? 0 : BM / 2) + ty * 4 + (i & 3);
+    *reinterpret_cast<float4*>(rs + static_cast<size_t>(t) * ldr + k0 + tx * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
 }
 
-// part (K, L) = (first ? 0 : part) + Σ_t rs[t, k] · S[t, l] over the tile in
-// xs, with rs (kTile, ldr) the tile's responsibilities (0 on padding rows and
-// columns).  Starts with a barrier, so writes to xs and rs made before the
-// call are visible.
-__device__ __forceinline__ void acc_pass(float* __restrict__ part, bool first, int L, int K, int n_ut, int D,
-                         const unsigned short* pairs, const float* xs, int ldx, const float* rs,
-                         int ldr, float* ss) {
-  const int tid = threadIdx.x, tc = tid & 15, tk = tid >> 4;
-  for (int l0 = 0; l0 < L; l0 += kLcA) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int e = tid; e < kTile * kLcA; e += kThreads) {
-      const int t = e / kLcA, c = e - t * kLcA;
-      ss[t * kLdA + c] = s_entry(xs + t * ldx, l0 + c, n_ut, D, pairs);
-    }
-    __syncthreads();
-    for (int k0 = 0; k0 < K; k0 += kKc) {
-      float acc[4][4];
+// The accumulation of one supertile: group g (128 threads) takes the
+// (component tile, 128-lane chunk) items g, g + 2, ...; each keeps its BK
+// × 128 tile in registers over the supertile's `rows` frames (r = 0 on the
+// padding rows) and then adds it to the block's partial (K, Lpa) in device
+// memory, or writes it there on the block's first supertile.
+template <int BK>
+__device__ __forceinline__ void estep_acc(float* __restrict__ part, bool first, int K, int lpa, int rows,
+                                          const float* xs, int ldx, const unsigned short* lanes,
+                                          const float* rs, int ldr, float* work) {
+  constexpr int TK = BK / 8;
+  const int g = threadIdx.x >> 7, gt = threadIdx.x & 127, tl = gt & 15, tk = gt >> 4;
+  float* ss = work + g * kAccT * kLdS8;
+  const int n_lc = lpa / kAccL, n_items = (K + BK - 1) / BK * n_lc;
+  const int n_t = (rows + kAccT - 1) / kAccT * kAccT;
+  for (int item = g; item < n_items; item += 2) {
+    const int l0 = (item % n_lc) * kAccL, k0 = (item / n_lc) * BK;
+    const int p = lanes[l0 + gt], ia = p >> 8, ib = p & 255;
+    float acc[TK][8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TK; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int t = 0; t < kTile; ++t) {
-        const float4 a = *reinterpret_cast<const float4*>(rs + t * ldr + k0 + tk * 4);
-        const float4 b = *reinterpret_cast<const float4*>(ss + t * kLdA + tc * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int t0 = 0; t0 < n_t; t0 += kAccT) {
+      group_sync(g);  // the previous readers of ss are done
+#pragma unroll 8
+      for (int t = 0; t < kAccT; ++t) {
+        const float* xr = xs + (t0 + t) * ldx;
+        ss[t * kLdS8 + gt] = xr[ia] * xr[ib];
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = k0 + tk * 4 + i;
-        if (k >= K) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int l = l0 + tc * 4 + j;
-          if (l >= L) continue;
-          float* p = part + static_cast<size_t>(k) * L + l;
-          *p = first ? acc[i][j] : *p + acc[i][j];
+      group_sync(g);
+      const float* rt = rs + static_cast<size_t>(t0) * ldr + k0;
+#pragma unroll 4
+      for (int t = 0; t < kAccT; ++t) {
+        float a[TK];
+        const float4 a0 = *reinterpret_cast<const float4*>(rt + t * ldr + tk * 4);
+        a[0] = a0.x, a[1] = a0.y, a[2] = a0.z, a[3] = a0.w;
+        if constexpr (TK == 8) {
+          const float4 a1 = *reinterpret_cast<const float4*>(rt + t * ldr + BK / 2 + tk * 4);
+          a[4] = a1.x, a[5] = a1.y, a[6] = a1.z, a[7] = a1.w;
         }
+        const float4 b0 = *reinterpret_cast<const float4*>(ss + t * kLdS8 + tl * 4);
+        const float4 b1 = *reinterpret_cast<const float4*>(ss + t * kLdS8 + kAccL / 2 + tl * 4);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < TK; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TK; ++i) {
+      const int k = k0 + (i < 4 ? 0 : BK / 2) + tk * 4 + (i & 3);
+      if (k >= K) continue;
+      float* row = part + static_cast<size_t>(k) * lpa + l0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float4* q = reinterpret_cast<float4*>(row + h * (kAccL / 2) + tl * 4);
+        float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        if (!first) {
+          const float4 o = *q;
+          v.x += o.x, v.y += o.y, v.z += o.z, v.w += o.w;
+        }
+        *q = v;
       }
     }
   }
@@ -259,61 +304,82 @@ __device__ __forceinline__ void acc_pass(float* __restrict__ part, bool first, i
 // ---------------------------------------------------------------------
 // K8 — fused GMM E-step.
 // Replaces beer_tpu/ops/stats_kernels.py _gmm_estep_kernel (wrapper
-// fused_gmm_estep, pallas_call at :352).  Per tile: joint (128, K) = S·W
-// (W's constant row carries E[log w]) into shared memory, one warp per frame
-// for m = max_k joint, s = Σ exp(joint − m), llh = (m + log s)·mask and r =
-// exp(joint − m)/s·mask written over the joint, then the block's partial
-// (K, L) += rᵀ·S.  The TPU carried the (K, L) sum across its sequential grid
-// in VMEM scratch; here the block's own partial in device memory does, and
-// the partials are summed in a fixed order.  Bound: 4·T·K·L FLOPs.
+// fused_gmm_estep, pallas_call at :352).  The TPU carried the (K, L) sum
+// across its sequential grid in VMEM scratch.  Here a persistent block
+// takes supertiles of F frames (blockIdx.x, + gridDim.x, ...), each:
+//   1. the frames as x̃ = [x, 1, 0] and the mask into shared memory;
+//   2. joint (F, Kp) = S·W into shared memory, one BM × BN tile at a time
+//      through K9's ring (W's constant row carries E[log w]; W is
+//      zero-padded on the host to whole chunks, one chunk past the last,
+//      and Kp columns);
+//   3. one warp per frame: m = max_k joint, s = Σ exp(joint − m), llh =
+//      (m + log s)·mask (the only per-frame write) and r = exp(joint −
+//      m)/s·mask over the joint, 0 on padding rows and columns;
+//   4. Σ_t r_t ⊗ S(x_t) over the supertile by K10's micro-kernel, added to
+//      the block's partial once per supertile.
+// sum_rows_kernel adds the blocks' partials in a fixed order.
 // ---------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads) gmm_estep_full_kernel(
+template <int BN>
+__global__ void __launch_bounds__(kThr8, 2) gmm_estep_full_kernel(
     const float* __restrict__ x,     // (T, D)
     const float* __restrict__ mask,  // (T,) or null (all frames count)
-    const float* __restrict__ w,     // (L, K)
+    const float* __restrict__ w,     // (Lp, Kp), zero-padded: Lp = (⌈L/kLc8⌉ + 1)·kLc8
     float* __restrict__ llh,         // (T,)
-    float* __restrict__ part,        // (gridDim.x, K, L)
-    int T, int D, int K) {
+    float* __restrict__ part,        // (gridDim.x, K, Lpa), Lpa = ⌈L/128⌉·128
+    int T, int D, int K, int F) {
+  constexpr int BM = 8192 / BN;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Layout lay(D, K);
-  const int L = lay.n_ut + D + 1;
-  unsigned short* pairs = reinterpret_cast<unsigned short*>(smem);
-  float* xs = smem + lay.xs;
+  const EstepLayout lay(D, K, BN, F);
+  const int L = n_lanes(D), n_chunks = (L + kLc8 - 1) / kLc8, lpa = (L + kAccL - 1) / kAccL * kAccL;
+  const int ldx = lay.ldx, ldr = lay.ldr;
+  float* xs = smem;
   float* ms = smem + lay.ms;
+  unsigned short* lanes = reinterpret_cast<unsigned short*>(smem + lay.lanes);
   float* rs = smem + lay.rs;
   float* work = smem + lay.work;
-  build_pairs(pairs, D, lay.n_ut);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, warp = tid >> 5, lane = tid & 31;
-  const int n_tiles = (T + kTile - 1) / kTile;
-  float* my_part = part + static_cast<size_t>(blockIdx.x) * K * L;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int l = tid; l < lay.n_table; l += kThr8) {
+    int i, j;
+    lane_pair(l, D, i, j);
+    lanes[l] = static_cast<unsigned short>((i << 8) | j);
+  }
+  float* my_part = part + static_cast<size_t>(blockIdx.x) * K * lpa;
+  const int n_super = (T + F - 1) / F;
   bool first = true;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int t0 = tile * kTile, rows = min(kTile, T - t0);
-    __syncthreads();  // the previous tile's readers of xs, ms and rs are done
-    load_x(xs, lay.ldx, x, t0, rows, D);
-    for (int t = tid; t < kTile; t += kThreads) ms[t] = t < rows ? (mask ? mask[t0 + t] : 1.f) : 0.f;
-    for (int k0 = 0; k0 < K; k0 += kKc) {
-      float acc[8][4];
-      joint_pass(w, L, K, k0, lay.n_ut, D, pairs, xs, lay.ldx, work, acc);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        *reinterpret_cast<float4*>(rs + (ty * 8 + i) * lay.ldr + k0 + tx * 4) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int su = blockIdx.x; su < n_super; su += gridDim.x) {
+    const int f0 = su * F, rows = min(F, T - f0);
+    __syncthreads();  // the previous supertile's readers of xs, ms and rs are done
+    for (int e = tid; e < F * (D + 2); e += kThr8) {
+      const int t = e / (D + 2), d = e - t * (D + 2);
+      xs[t * ldx + d] = d < D ? (t < rows ? x[static_cast<size_t>(f0 + t) * D + d] : 0.f) : d == D ? 1.f : 0.f;
     }
+    for (int t = tid; t < F; t += kThr8) ms[t] = t < rows ? (mask ? mask[f0 + t] : 1.f) : 0.f;
+    for (int t0 = 0; t0 < rows; t0 += BM)
+      for (int k0 = 0; k0 < K; k0 += BN)
+        estep_joint_tile<BN>(w, lay.kp, n_chunks, k0, xs + t0 * ldx, ldx, lanes, rs + static_cast<size_t>(t0) * ldr,
+                             ldr, work);
     __syncthreads();
-    for (int t = warp; t < kTile; t += kThreads / 32) {
-      float* row = rs + t * lay.ldr;
+    for (int t = warp; t < F; t += kThr8 / 32) {
+      float* row = rs + static_cast<size_t>(t) * ldr;
+      const float msk = ms[t];
+      if (t >= rows) {
+        for (int k = lane; k < lay.kp; k += 32) row[k] = 0.f;
+        continue;
+      }
       float m = -FLT_MAX, s = 0.f;
       for (int k = lane; k < K; k += 32) m = fmaxf(m, row[k]);
       m = warp_max(m);
       for (int k = lane; k < K; k += 32) s += expf(row[k] - m);
       s = warp_sum(s);
-      const float msk = ms[t];
-      for (int k = lane; k < lay.ldr - 4; k += 32) row[k] = k < K ? expf(row[k] - m) / s * msk : 0.f;
-      if (lane == 0 && t < rows) llh[t0 + t] = (m + logf(s)) * msk;
+      for (int k = lane; k < lay.kp; k += 32) row[k] = k < K ? expf(row[k] - m) / s * msk : 0.f;
+      if (lane == 0) llh[f0 + t] = (m + logf(s)) * msk;
     }
-    acc_pass(my_part, first, L, K, lay.n_ut, D, pairs, xs, lay.ldx, rs, lay.ldr, work);
+    __syncthreads();
+    if (K <= 32)
+      estep_acc<32>(my_part, first, K, lpa, rows, xs, ldx, lanes, rs, ldr, work);
+    else
+      estep_acc<64>(my_part, first, K, lpa, rows, xs, ldx, lanes, rs, ldr, work);
     first = false;
   }
 }
@@ -636,6 +702,17 @@ bool with_ellh_instance(int bm, int bn, F&& f) {
   }
 }
 
+// Calls f with K8's instance for its joint component tile bn.
+template <typename F>
+bool with_estep_instance(int bn, F&& f) {
+  switch (bn) {
+    case 32: f(gmm_estep_full_kernel<32>); return true;
+    case 64: f(gmm_estep_full_kernel<64>); return true;
+    case 128: f(gmm_estep_full_kernel<128>); return true;
+    default: return false;
+  }
+}
+
 template <typename F>
 bool with_acc_instance(int bk, F&& f) {
   switch (bk) {
@@ -649,12 +726,14 @@ bool with_acc_instance(int bk, F&& f) {
 
 extern "C" {
 
-// Shared memory of one block: K8 (kind 0) at (D, K); K9 (kind 1) at its
-// frame and component tiles (tile_t, tile_k); K10 (kind 2) at its
-// component tile.  0 for a tile with no instance.
+// Shared memory of one block: K8 (kind 0) at (D, K) with tile_t frames a
+// supertile and joint component tile tile_k; K9 (kind 1) at its frame
+// and component tiles (tile_t, tile_k); K10 (kind 2) at its component
+// tile.  0 for a tile with no instance.
 size_t beer_stats_smem_bytes(int kind, int D, int K, int tile_t, int tile_k) {
   size_t floats = 0;
-  if (kind == kEstep) floats = Layout(D, K).total;
+  if (kind == kEstep && with_estep_instance(tile_k, [](auto) {}) && tile_t > 0 && tile_t % (8192 / tile_k) == 0)
+    floats = EstepLayout(D, K, tile_k, tile_t).total;
   if (kind == kEllh) with_ellh_instance(tile_t, tile_k, [&](auto, auto tile) { floats = tile.smem_floats(D); });
   if (kind == kAcc) with_acc_instance(tile_k, [&](auto, auto tile) { floats = tile.smem_floats(D); });
   return floats * sizeof(float);
@@ -665,7 +744,10 @@ size_t beer_stats_smem_bytes(int kind, int D, int K, int tile_t, int tile_k) {
 int beer_stats_prepare(int device) {
   cudaError_t err = cudaSetDevice(device);
   const size_t most = 232448;
-  if (err == cudaSuccess) err = set_smem(gmm_estep_full_kernel, most);
+  for (int bn : {32, 64, 128})
+    with_estep_instance(bn, [&](auto kernel) {
+      if (err == cudaSuccess) err = set_smem(kernel, most);
+    });
   for (int bm : {64, 128})
     for (int bn : {16, 32, 64, 128})
       with_ellh_instance(bm, bn, [&](auto kernel, auto) {
@@ -678,27 +760,36 @@ int beer_stats_prepare(int device) {
   return err;
 }
 
-// Resident blocks on the card of K8 (kind 0, at (D, K)) or K10 (kind 2, at
-// its component tile tile_k); −(CUDA error) on failure.
-int beer_stats_blocks(int device, int kind, int D, int K, int tile_k) {
-  const size_t smem = beer_stats_smem_bytes(kind, D, K, 0, tile_k);
-  if (kind == kEstep) return resident_blocks(gmm_estep_full_kernel, device, kThreads, smem);
+// Resident blocks on the card of K8 (kind 0, at (D, K), tile_t frames a
+// supertile and joint component tile tile_k) or K10 (kind 2, at its
+// component tile tile_k); −(CUDA error) on failure.
+int beer_stats_blocks(int device, int kind, int D, int K, int tile_t, int tile_k) {
+  const size_t smem = beer_stats_smem_bytes(kind, D, K, tile_t, tile_k);
   int n = -static_cast<int>(cudaErrorInvalidValue);
-  with_acc_instance(tile_k, [&](auto kernel, auto) { n = resident_blocks(kernel, device, kThr10, smem); });
+  if (kind == kEstep && smem > 0)
+    with_estep_instance(tile_k, [&](auto kernel) { n = resident_blocks(kernel, device, kThr8, smem); });
+  if (kind == kAcc)
+    with_acc_instance(tile_k, [&](auto kernel, auto) { n = resident_blocks(kernel, device, kThr10, smem); });
   return n;
 }
 
-// llh (T,); out (K·L) = Σ over the n_blk partials part (n_blk, K·L).
+// llh (T,); out (K·Lpa) = Σ over the n_blk partials part (n_blk, K·Lpa),
+// Lpa = ⌈L/128⌉·128; w (Lp, Kp) zero-padded as the kernel's note says;
+// frames a supertile and the joint component tile tile_k name the
+// geometry.
 int beer_gmm_estep_full(int device, const float* x, const float* mask, const float* w, float* llh, float* part,
-                        float* out, int n_blk, int T, int D, int K, void* stream) {
-  if (D < 1 || D > kMaxDim || K < 1 || K > kMaxComp) return cudaErrorInvalidValue;
+                        float* out, int n_blk, int T, int D, int K, int frames, int tile_k, void* stream) {
+  const size_t smem = beer_stats_smem_bytes(kEstep, D, K, frames, tile_k);
+  if (D < 1 || D > kMaxDim || K < 1 || K > kMaxComp || smem == 0 || EstepLayout(D, K, tile_k, frames).kp % tile_k)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int n = K * n_lanes(D);
+  const int n = K * ((n_lanes(D) + kAccL - 1) / kAccL * kAccL);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_blk > 0) {
-    gmm_estep_full_kernel<<<n_blk, kThreads, Layout(D, K).total * sizeof(float), st>>>(x, mask, w, llh, part, T,
-                                                                                       D, K);
+    with_estep_instance(tile_k, [&](auto kernel) {
+      kernel<<<n_blk, kThr8, smem, st>>>(x, mask, w, llh, part, T, D, K, frames);
+    });
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

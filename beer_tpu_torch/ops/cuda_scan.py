@@ -163,14 +163,14 @@ def _library() -> ctypes.CDLL:
         "beer_estep_gamma_banded": [i] + [p] * 14 + [i] * 5 + [p],
         "beer_viterbi_fwd_banded": [i] + [p] * 7 + [i] * 3 + [p],
         "beer_viterbi_backtrace_banded": [i] + [p] * 6 + [i] * 4 + [p],
-        "beer_forward_llh_dense": [i, i] + [p] * 10 + [i] * 4 + [p],
+        "beer_forward_llh_dense": [i, i, i] + [p] * 10 + [i] * 4 + [p],
         "beer_estep_acc_dense": [i, i] + [p] * 11 + [i] * 4 + [p],
         "beer_estep_gamma_dense": [i, i] + [p] * 9 + [i] * 3 + [p],
-        "beer_forward_llh_shifts_dense": [i, i] + [p] * 9 + [i] * 3 + [p],
+        "beer_forward_llh_shifts_dense": [i, i, i] + [p] * 9 + [i] * 3 + [p],
         "beer_estep_gamma_dense_restricted": [i, i] + [p] * 11 + [i] * 5 + [p],
         "beer_scaled_pass": [i, i, i] + [p] * 6 + [i] * 3 + [p],
         "beer_smoothing_pass": [i, i, i] + [p] * 9 + [i] * 3 + [p],
-        "beer_gmm_estep_full": [i] + [p] * 6 + [i] * 4 + [p],
+        "beer_gmm_estep_full": [i] + [p] * 6 + [i] * 6 + [p],
         "beer_ellh_full": [i] + [p] * 3 + [i] * 6 + [p],
         "beer_accumulate_full": [i] + [p] * 4 + [i] * 6 + [p],
         "beer_stats_prepare": [i],
@@ -184,15 +184,16 @@ def _library() -> ctypes.CDLL:
     for name in ("beer_estep_smem_bytes", "beer_estep_gamma_smem_bytes"):
         getattr(lib, name).argtypes = [i, i, i]
         getattr(lib, name).restype = z
-    for name in ("beer_dense_forward_smem_bytes", "beer_dense_estep_smem_bytes",
-                 "beer_scaled_pass_smem_bytes", "beer_smoothing_smem_bytes"):
+    for name in ("beer_dense_estep_smem_bytes", "beer_scaled_pass_smem_bytes",
+                 "beer_smoothing_smem_bytes"):
         getattr(lib, name).argtypes = [i, i, i]
         getattr(lib, name).restype = z
-    lib.beer_dense_estep_restricted_smem_bytes.argtypes = [i, i, i, i]
-    lib.beer_dense_estep_restricted_smem_bytes.restype = z
+    for name in ("beer_dense_forward_smem_bytes", "beer_dense_estep_restricted_smem_bytes"):
+        getattr(lib, name).argtypes = [i, i, i, i]
+        getattr(lib, name).restype = z
     lib.beer_stats_smem_bytes.argtypes = [i] * 5
     lib.beer_stats_smem_bytes.restype = z
-    lib.beer_stats_blocks.argtypes = [i] * 5
+    lib.beer_stats_blocks.argtypes = [i] * 6
     lib.beer_stats_blocks.restype = i
     lib.beer_error_string.argtypes = [i]
     lib.beer_error_string.restype = ctypes.c_char_p
@@ -273,15 +274,15 @@ def dense_smem_bytes(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0
     ``n_c``), K12 ``scaled_pass`` (the dense forward and reverse) and K13
     ``smoothing_pass`` (dense); ``placement`` "shared" keeps A (and W,
     K6's moments, the ξ accumulator) in shared memory, "global" reads them
-    from device memory."""
+    from device memory.  K5/K14: their block instance in ``placement`` at
+    :func:`forward_chunk`'s chunk (the warp instance's size is
+    :func:`forward_smem_bytes`)."""
     if kernel not in _DENSE:
         raise ValueError(f"{kernel} is not a dense kernel")
     shared = placement == "shared"
     mat = s * _odd(s) if shared else 0
     if kernel in _FORWARD:
-        floats = 2 * s + 2 * _MAX_WARPS + mat
-        if p > 0:
-            floats += s + p + (s * _odd(p) if shared else 0)
+        return forward_smem_bytes(s, p, placement, forward_chunk(s, p, placement))
     elif kernel in _BACKWARD:
         floats = 6 * s + 2 * _MAX_WARPS + (mat + s * s if shared else 0)
         if p > 0:
@@ -295,16 +296,69 @@ def dense_smem_bytes(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0
     return 4 * floats
 
 
+FORWARD_CHUNK = 32         # K5/K14's warp instance: frames a chunk (hmm_scan.cu kChunk)
+FORWARD_CHUNKS = (16, 8, 4, 2, 1)   # the block instance's chunk lengths, the most first (kChunkBlock = 16)
+FORWARD_WARPS = 4          # K5/K14's warp instance: utterances a block (kWarps)
+_INSTANCES = ("shared", "global", "warp")   # the launchers' instance codes 0, 1, 2
+
+
+def forward_smem_bytes(s: int, p: int, instance: str, chunk: int = FORWARD_CHUNK) -> int:
+    """Shared memory of one K5/K14 block (``hmm_scan.cu``
+    ``dense_forward_smem_floats``); ``p`` = 0 on the llh stream, ``chunk``
+    the block instance's frames a chunk (the warp instance's is
+    ``FORWARD_CHUNK``).  Both instances hold a two-stage ring of a chunk's
+    frames and the chunk's e = exp(llh − max) (the block instance on the
+    llh stream in the ring stage itself); the block instance also A
+    (shared) and W (shared, stats), the warp instance W once for its
+    ``FORWARD_WARPS`` utterances."""
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    if instance == "warp":
+        c = FORWARD_CHUNK
+        ldr = r4(p) if p > 0 else s
+        w = r4(s * (r4(p) + 1)) if p > 0 else 0
+        return 4 * (w + FORWARD_WARPS * (r4(2 * c * ldr) + c * 33 + c))
+    shared = instance == "shared"
+    floats = ((r4(s * _odd(s)) if shared else 0) + 2 * s + 2 * _MAX_WARPS
+              + r4(2 * chunk * (p if p > 0 else s)) + 2 * chunk)
+    if p > 0:   # e apart from the ring (on the llh stream e replaces the stage), the bias, W
+        floats += chunk * s + s + (s * _odd(p) if shared else 0)
+    return 4 * floats
+
+
+def forward_chunk(s: int, p: int, placement: str) -> int:
+    """Frames a chunk of K5/K14's block instance in ``placement``: the most
+    of :data:`FORWARD_CHUNKS` whose block fits :data:`SMEM_LIMIT` (1 when
+    none does; the launch then refuses it)."""
+    return next((c for c in FORWARD_CHUNKS if forward_smem_bytes(s, p, placement, c) <= SMEM_LIMIT), 1)
+
+
+def forward_instance(s: int, p: int) -> tuple[str, int]:
+    """K5/K14's launch, (instance, frames a chunk), decided by fit here and
+    nowhere else: ("warp", :data:`FORWARD_CHUNK`) — one warp an utterance,
+    the carry passed by shuffles — for S <= 32 while its ring fits a
+    block; otherwise the block instance, "shared" while A (and W) fit
+    beside a one-frame ring, "global" above, with :func:`forward_chunk`'s
+    chunk.  ``p`` = 0 on the llh stream."""
+    if s <= 32 and forward_smem_bytes(s, p, "warp") <= SMEM_LIMIT:
+        return "warp", FORWARD_CHUNK
+    placement = "shared" if forward_smem_bytes(s, p, "shared", 1) <= SMEM_LIMIT else "global"
+    return placement, forward_chunk(s, p, placement)
+
+
 def dense_placement(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0) -> str:
     """"shared" while a dense kernel's operands fit one block's shared
     memory (:data:`SMEM_LIMIT`), "global" above: every S the reference
-    takes runs through the kernel."""
+    takes runs through the kernel.  K5/K14's comes from
+    :func:`forward_instance` (the warp instance keeps A on chip too)."""
+    if kernel in _FORWARD:
+        return "global" if forward_instance(s, p)[0] == "global" else "shared"
     fits = dense_smem_bytes(kernel, s, p, n_r, n_c, "shared") <= SMEM_LIMIT
     return "shared" if fits else "global"
 
 
 def _placed(kernel: str, what: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0) -> bool:
-    """The placement of one call (True: global), checked against the limit."""
+    """The placement of one backward or general-path call (True: global),
+    checked against the limit."""
     placement = dense_placement(kernel, s, p, n_r, n_c)
     _fits(what, dense_smem_bytes(kernel, s, p, n_r, n_c, placement))
     return placement == "global"
@@ -740,21 +794,22 @@ def forward_llh_dense(x, lens, trans, init, w=None, bias=None, return_shifts=Fal
         _shape(name, t, shape)
     p_dim = width if stats_mode else 0
     lib = _library()
-    name = "forward_llh_shifts_dense" if return_shifts else "forward_llh_dense"
-    glob = _placed(name, f"S={s}, P={p_dim}", s, p_dim)
-    if glob and stats_mode:
+    instance, chunk = forward_instance(s, p_dim)
+    _fits(f"S={s}, P={p_dim}", forward_smem_bytes(s, p_dim, instance, chunk))
+    if instance == "global" and stats_mode:
         w = w.T.contiguous()
+    code = _INSTANCES.index(instance)
     alpha = torch.empty(b, t_len, s, device=dev)
     norms = torch.empty(b, t_len, device=dev)
     last = torch.empty(b, s, device=dev)
     logz = torch.empty(b, device=dev)
     if return_shifts:
         shifts = torch.empty(b, t_len, device=dev)
-        _launch(lib.beer_forward_llh_shifts_dense, dev.index, int(glob), *map(_ptr, (
+        _launch(lib.beer_forward_llh_shifts_dense, dev.index, code, chunk, *map(_ptr, (
             x, lens, trans, init, alpha, norms, last, logz, shifts)), b, t_len, s, _stream(dev))
         KERNELS["forward_llh_shifts_dense"].launches += 1
         return alpha, norms, last, logz, shifts
-    _launch(lib.beer_forward_llh_dense, dev.index, int(glob), *map(_ptr, (x, lens)),
+    _launch(lib.beer_forward_llh_dense, dev.index, code, chunk, *map(_ptr, (x, lens)),
             _ptr(w) if stats_mode else None, _ptr(bias) if stats_mode else None,
             *map(_ptr, (trans, init, alpha, norms, last, logz)), b, t_len, s, p_dim, _stream(dev))
     KERNELS["forward_llh_dense"].launches += 1

@@ -196,6 +196,48 @@ def accumulate_tiles(t_len: int, d: int, k: int, resident: int):
     return tile_k, -(-n_tiles // per), per * ACC_FRAMES
 
 
+ESTEP_LANE_CHUNK = 16       # K8: lanes a chunk of its joint's ring
+ESTEP_TILE_OUTPUTS = 8192   # K8: a joint tile's frames × components (256 threads × 8 × 4)
+ESTEP_TWO_BLOCKS = 116224   # shared memory that lets two K8 blocks share an SM
+
+
+def estep_k_pad(k: int, tile_k: int) -> int:
+    """K8's padded component count: a whole number of joint tiles and of
+    accumulation tiles (32 components for K <= 32, else 64)."""
+    step = max(tile_k, accumulate_tile_k(k))
+    return -(-k // step) * step
+
+
+def estep_smem_bytes(d: int, k: int, tile_k: int, frames: int) -> int:
+    """Shared memory of one K8 block (``csrc/stats_full.cu`` EstepLayout):
+    the supertile's frames as x̃ = [x, 1, 0], its mask, the lane table,
+    its joint and responsibilities (frames, K_pad + 4), and the larger of
+    the joint's ring and the accumulation's two S tiles."""
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    width = packed_width(d)
+    table = max((-(-width // ESTEP_LANE_CHUNK) + 1) * ESTEP_LANE_CHUNK,
+                -(-width // ACC_LANES) * ACC_LANES)
+    ring = 2 * (ESTEP_LANE_CHUNK * (ESTEP_TILE_OUTPUTS // tile_k + 4) + ESTEP_LANE_CHUNK * tile_k)
+    acc = 2 * ACC_FRAMES * (ACC_LANES + 4)
+    floats = (r4(frames * ((d + 2) | 1)) + r4(frames) + r4((table + 1) // 2)
+              + frames * (estep_k_pad(k, tile_k) + 4) + max(ring, acc))
+    return 4 * floats
+
+
+def estep_tiles(d: int, k: int):
+    """K8's (joint component tile, frames a supertile): the component
+    tile is the smallest of 32, 64 that holds K, else 128, and a joint
+    tile covers 8192 / tile_k frames; a supertile is the largest whole
+    number of joint tiles up to 256 frames whose block leaves room for a
+    second on the SM, else one joint tile."""
+    tile_k = next((c for c in (32, 64) if k <= c), 128)
+    tile_t = ESTEP_TILE_OUTPUTS // tile_k
+    for frames in range(256, tile_t - 1, -tile_t):
+        if estep_smem_bytes(d, k, tile_k, frames) <= ESTEP_TWO_BLOCKS:
+            return tile_k, frames
+    return tile_k, tile_t
+
+
 @functools.cache
 def _ready(device: int) -> None:
     """Once per device: the kernels may take the shared memory they need."""
@@ -203,11 +245,12 @@ def _ready(device: int) -> None:
 
 
 @functools.cache
-def _resident(device: int, name: str, d: int, k: int, tile_k: int) -> int:
-    """Resident blocks of K8 (at D, K) or of K10's instance on the card
-    (blocks per SM × SMs), queried once per (device, kernel, D, K)."""
+def _resident(device: int, name: str, d: int, k: int, tile_t: int, tile_k: int) -> int:
+    """Resident blocks of K8 (at D, K and its tiles) or of K10's instance
+    on the card (blocks per SM × SMs), queried once per (device, kernel,
+    D, K, tiles)."""
     _ready(device)
-    n = cuda_scan._library().beer_stats_blocks(device, _KIND[name], d, k, tile_k)
+    n = cuda_scan._library().beer_stats_blocks(device, _KIND[name], d, k, tile_t, tile_k)
     if n < 0:
         raise RuntimeError(f"{name}: occupancy query failed: "
                            f"{cuda_scan._library().beer_error_string(-n).decode()}")
@@ -245,29 +288,35 @@ def _run(name: str, launch) -> None:
 def prepare_gmm_estep_full(x, e_stats, log_w, mask=None):
     """K8's checks, packing and launch geometry: returns (llh, out, launch),
     where ``launch()`` is the bare foreign call filling ``llh`` (T,) and
-    ``out`` (K·L) and returning its CUDA error code."""
+    ``out`` (K, L) and returning its CUDA error code."""
     t_len, d = x.shape
     k = e_stats.shape[0]
     dev = x.device
+    tile_k, frames = estep_tiles(d, k)
     operands = dict(e_stats=e_stats, log_w=log_w)
     shapes = [("e_stats", e_stats, (k, d * d + d + 2)), ("log_w", log_w, (k,))]
     if mask is not None:
         mask = mask.reshape(-1)
         operands["mask"] = mask
         shapes.append(("mask", mask, (t_len,)))
-    lib = _prepare("gmm_estep_full", x, k, operands, shapes)
-    w = pack_weights(e_stats, d, log_w)
+    lib = _prepare("gmm_estep_full", x, k, operands, shapes, frames, tile_k)
     width = packed_width(d)
-    n_blk = min(_resident(dev.index, "gmm_estep_full", d, k, 0), -(-t_len // 128))
-    part = torch.empty(n_blk, k * width, device=dev)
-    out = torch.empty(k * width, device=dev)
+    k_pad = estep_k_pad(k, tile_k)
+    chunks = -(-width // ESTEP_LANE_CHUNK) + 1     # and one chunk of zeros past the last
+    w = torch.nn.functional.pad(pack_weights(e_stats, d, log_w),
+                                (0, k_pad - k, 0, chunks * ESTEP_LANE_CHUNK - width))
+    lanes = -(-width // ACC_LANES) * ACC_LANES
+    resident = _resident(dev.index, "gmm_estep_full", d, k, frames, tile_k)
+    n_blk = min(resident, -(-t_len // frames))
+    part = torch.empty(n_blk, k * lanes, device=dev)
+    out = torch.empty(k * lanes, device=dev)
     llh = torch.empty(t_len, device=dev)
     ptr = cuda_scan._ptr
     launch = functools.partial(lib.beer_gmm_estep_full, dev.index, ptr(x),
                                None if mask is None else ptr(mask), ptr(w), ptr(llh), ptr(part),
-                               ptr(out), n_blk, t_len, d, k, cuda_scan._stream(dev))
+                               ptr(out), n_blk, t_len, d, k, frames, tile_k, cuda_scan._stream(dev))
     launch.keep = (x, mask, w, llh, part, out)   # every operand outlives the call
-    return llh, out, launch
+    return llh, out.view(k, lanes)[:, :width], launch
 
 
 def gmm_estep_full(x, e_stats, log_w, mask=None):
@@ -280,8 +329,7 @@ def gmm_estep_full(x, e_stats, log_w, mask=None):
         return gmm_estep_full_plain(x, e_stats, log_w, mask)
     llh, out, launch = prepare_gmm_estep_full(x, e_stats, log_w, mask)
     _run("gmm_estep_full", launch)
-    d = x.shape[1]
-    acc, counts = unpack_acc(out.view(e_stats.shape[0], packed_width(d)), d)
+    acc, counts = unpack_acc(out, x.shape[1])
     return llh, acc, counts
 
 
@@ -329,7 +377,7 @@ def prepare_accumulate_full(x, resps):
                    tile_k=tile_k)
     # the kernel copies frames and responsibilities 16 bytes at a time
     x, resps = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, resps))
-    resident = _resident(dev.index, "accumulate_full", d, k, tile_k)
+    resident = _resident(dev.index, "accumulate_full", d, k, 0, tile_k)
     _, n_slices, slice_len = accumulate_tiles(t_len, d, k, resident)
     width = packed_width(d)
     lanes = -(-width // ACC_LANES) * ACC_LANES

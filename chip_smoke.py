@@ -220,15 +220,36 @@ def cuda_ms(fn, reps=REPS):
     return float(np.median(times))
 
 
+def device_ms(fn, name, reps=REPS):
+    """Mean device time of one launch of the kernel whose name contains
+    ``name``, which ``fn`` launches once (``torch.profiler`` over ``reps``
+    calls after one warm-up, divided by the launches it recorded): a
+    kernel's time without its wrapper's host work."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if name in e.key]
+    count = sum(e.count for e in seen)
+    check(count > 0, f"the profiler saw no kernel named {name}")
+    return sum(e.self_device_time_total for e in seen) / count / 1e3
+
+
 def rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
 def bound(n_bytes, flops):
     """The least time the card could take: bytes over the memory rate or
-    float32 operations over the peak rate, whichever is larger."""
+    float32 operations over the peak rate, whichever is larger.  Every
+    kernel here computes in float32 FFMA, K8 included (its 3×TF32 form
+    failed the probe of ``stats_variants.py probe``), so the float32 peak
+    is the one its work runs at."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_peak="float32 FFMA 67 TFLOP/s; 3.35 TB/s")
 
 
 def plain_twin(model):
@@ -490,7 +511,9 @@ def phase_hmm_kernels(dev):
     nv = float(c["lens"].sum())
     out["forward_llh_dense"] = dict(
         max_abs_err=float((logz[0][full] - logz[1][full]).abs().max()),
-        ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd)),
+        instance=cuda_scan.forward_instance(HMM_S, stats.shape[-1])[0],
+        ms=device_ms(lambda: cuda_scan.forward_llh_dense(*fwd), "forward_llh"),
+        wrapper_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd)),
         plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd)),
         **bound(4 * (nv * p_dim + b * t_len * (s + 1) + s * (s + p_dim) + 2 * b * s),
                 nv * (2 * s * p_dim + 2 * s * s + 4 * s)))
@@ -541,14 +564,18 @@ def phase_hmm_kernels(dev):
         plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense_plain(*gam)),
         **bound(4 * (nv * (2 * s + 1) + b * t_len * s + 2 * s * s + b * s),
                 nv * (4 * s * s + 10 * s)))
-    llh_fwd = dict(ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd3)),
+    llh_fwd = dict(ms=device_ms(lambda: cuda_scan.forward_llh_dense(*fwd3), "forward_llh"),
+                   wrapper_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd3)),
                    plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd3)))
+    out["forward_llh_dense"]["config3"] = llh_fwd
     torch.cuda.synchronize()
     print("phase 6 hmm kernels: " + "; ".join(
         f"{k} ok (max_abs_err {v['max_abs_err']:.3g}, {v['ms']:.3f} ms vs plain "
         f"{v['plain_ms']:.3f} ms)" for k, v in out.items())
-        + f" | forward_llh_dense on the config-3 llh stream {llh_fwd['ms']:.3f} ms vs plain "
-          f"{llh_fwd['plain_ms']:.3f} ms, log Z rel {e5b:.3g}"
+        + f" | forward_llh_dense ({out['forward_llh_dense']['instance']} instance) alone "
+          f"{out['forward_llh_dense']['ms']:.3f} ms, wrapped {out['forward_llh_dense']['wrapper_ms']:.3f} ms"
+        + f" | on the config-3 llh stream {llh_fwd['ms']:.3f} ms alone, "
+          f"{llh_fwd['wrapper_ms']:.3f} ms wrapped vs plain {llh_fwd['plain_ms']:.3f} ms, log Z rel {e5b:.3g}"
         + " | tol: log Z rel 1e-5; alpha, gamma, gamma0 abs 1e-5; acc2/counts/xi rel 1e-4")
     return out
 

@@ -2,6 +2,17 @@
 """Time variants of the full-covariance kernels K9 and K10 alone on one GPU.
 
     python3 stats_variants.py [variant ...]
+    python3 stats_variants.py probe
+
+``probe`` is the 3×TF32 probe that decided K8's arithmetic (see
+:func:`probe`); it builds no variant.  ``times`` times K8 alone at config
+1 and K5 alone at configs 2 and 3 through the package's own entry
+points, so that the same file, copied into a checkout of another
+revision, times that revision's kernels.  The ``k8_*`` variants (of
+``stats_full.cu``) time K8 alone at config 1, the ``k5_*`` variants (of
+``hmm_scan.cu``) K5 alone at configs 2 and 3, at S = 300 and near the
+shared placement's limit, in each instance and chunk length the launch
+can be given.
 
 Each variant is ``beer_tpu_torch/csrc/stats_full.cu`` with a few text
 substitutions (a design knob changed or one stage removed), built with
@@ -19,9 +30,12 @@ where the kernels' time goes; the shipped kernels are the "base" variant.
 from __future__ import annotations
 
 import ctypes
+import json
+import os
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -52,25 +66,94 @@ VARIANTS = {
     "long_chunks": ([("constexpr int kLc9 = 16;", "constexpr int kLc9 = 32;"),
                      ("constexpr int kTt10 = 32;", "constexpr int kTt10 = 64;")], True, 64),
 }
+# K8: name -> (substitutions, computes the same function, (component tile, frames) or None)
+K8_ACC = ("    if (K <= 32)\n      estep_acc<32>", "    else\n      estep_acc<64>")
+K8_VARIANTS = {
+    "k8_base": ([], True, None),
+    # supertiles of 256 frames: one block an SM, half the partial traffic
+    "k8_f256": ([], True, (64, 256)),
+    # S built neither for the joint nor for the accumulation
+    "k8_no_s_build": ([("    build_s(c + 1, cur ^ 1);\n    const float* st = ring + cur * kStage;",
+                        "    const float* st = ring + cur * kStage;"),
+                       ("        ss[t * kLdS8 + gt] = xr[ia] * xr[ib];", "")], False, None),
+    # no register cap (one block an SM where the registers say so)
+    "k8_uncapped": ([("__launch_bounds__(kThr8, 2) gmm_estep_full_kernel", "__launch_bounds__(kThr8) gmm_estep_full_kernel")],
+                    True, None),
+    "k8_no_softmax": ([("    for (int t = warp; t < F; t += kThr8 / 32) {",
+                        "    for (int t = warp; t < 0; t += kThr8 / 32) {")], False, None),
+    "k8_joint_only": ([(K8_ACC[0], "    if (false)\n      estep_acc<32>"),
+                       (K8_ACC[1], "    else if (false)\n      estep_acc<64>")], False, None),
+    "k8_acc_only": ([("    for (int t0 = 0; t0 < rows; t0 += BM)", "    for (int t0 = 0; t0 < 0; t0 += BM)")],
+                    False, None),
+}
+# K5: name -> (substitutions, computes the same function)
+K5_NO_ELLH = [("      for (int p = 0; p < ldr; p += 4) {", "      for (int p = 0; p < 0; p += 4) {"),
+              ("        for (int p = 0; p < P; ++p) {", "        for (int p = 0; p < 0; ++p) {"),
+              ("          for (int p = 0; p < P; ++p) l = fmaf(", "          for (int p = 0; p < 0; ++p) l = fmaf(")]
+K5_NO_STORES = [("      if (on) al_b[static_cast<size_t>(t) * S + j] = carry;\n", ""),
+                ("        al_b[static_cast<size_t>(t) * S + j] = a;\n", "")]
+K5_VARIANTS = {
+    "k5_base": ([], True),
+    "k5_no_ellh": (K5_NO_ELLH, False),
+    # every chunk waits for its own copy: no overlap with the recursion
+    "k5_no_prefetch": ([("cp_async_wait(more);", "cp_async_wait(false);")], True),
+    # the chain floor: the bare recursion, no ELLH and no α̂ stores
+    "k5_chain_floor": (K5_NO_ELLH + K5_NO_STORES, False),
+    # the warp instance with the branch on S between its shuffles, as first written
+    "k5_lane_branch": ([("        for (int i = 0; i < 32; ++i) q[i & 3] = fmaf(",
+                         "        for (int i = 0; i < 32; ++i) if (i < S) q[i & 3] = fmaf(")], True),
+    # the global block instance with A read in a plain loop, as the shared one reads it
+    "k5_blk_plain_loop": ([("              if (i0 + u < S) base = fmaf(prev[i0 + u], av[u], base);",
+                            "              if (i0 + u < S) base = fmaf(prev[i0 + u], a_m[(i0 + u) * ldt_a + j], base);")],
+                          True),
+    # the block instance without its propagate (α̂ from e alone)
+    "k5_blk_no_prop": ([("          for (int i = 0; i < S; ++i) base = fmaf(prev[i], a_m[i * ldt_a + j], base);",
+                         "          for (int i = 0; i < 0; ++i) base = fmaf(prev[i], a_m[i * ldt_a + j], base);"),
+                        ("          for (int i0 = 0; i0 < S; i0 += 32) {", "          for (int i0 = 0; i0 < 0; i0 += 32) {")],
+                       False),
+    # the shared block instance reading A in batches of 32, as the global one does
+    "k5_blk_batched_shared": ([("        } else if (!kGlobal) {\n", "        } else if (false) {\n")], True),
+    # the division a step, as first written, in both instances
+    "k5_div": ([("      carry = raw * (1.f / norm);", "      carry = raw / norm;"),
+                ("        const float a = cur[j] * inv;", "        const float a = cur[j] / pn;")], True),
+    # the block instance without its launch bound (ptxas then keeps it at 32 registers)
+    "k5_blk_no_lb": ([("__global__ void __launch_bounds__(1024, 1) forward_llh_dense_kernel(",
+                       "__global__ void forward_llh_dense_kernel(")], True),
+    # the block instance's chunk length a runtime value at 16 frames too
+    "k5_runtime_chunk": ([("  const bool full = chunk == kChunkBlock;", "  const bool full = false;")], True),
+    # the warp instance without its recursion: the chunks' loads, ELLH and stores only
+    "k5_no_chain": ([("    for (int f = 0; f < nf; ++f) {\n      const int t = f0 + f;\n      float base;",
+                      "    for (int f = 0; f < 0; ++f) {\n      const int t = f0 + f;\n      float base;")], False),
+}
+SOURCES = {**{n: "stats_full.cu" for n in (*VARIANTS, *K8_VARIANTS)},
+           **{n: "hmm_scan.cu" for n in K5_VARIANTS}}
 REPS = 20
+CARD = ""   # the card's name and power limit (nvidia-smi), printed beside every number
 # registers reported for the instances the two shapes take
 REPORTED = {"ellh_full_kernelILi128ELi64": "k9_128x64", "ellh_full_kernelILi64ELi64": "k9_64x64",
-            "accumulate_full_kernelILi64": "k10_64"}
+            "accumulate_full_kernelILi64": "k10_64", "gmm_estep_full_kernelILi64": "k8_64",
+            "forward_llh_warp_kernelILb1": "k5_warp_stats", "forward_llh_warp_kernelILb0": "k5_warp_llh",
+            "forward_llh_dense_kernelILb0ELb0ELb1ELb1": "k5_block_llh_global",
+            "forward_llh_dense_kernelILb1ELb0ELb1ELb1": "k5_block_stats_global",
+            "forward_llh_dense_kernelILb0ELb0ELb1ELb0": "k5_block_llh_global_short",
+            "forward_llh_dense_kernelILb1ELb0ELb1ELb0": "k5_block_stats_global_short"}
 
 
 def build(names):
     """Compile the variants in parallel; returns {name: (library path, registers)}."""
-    src = (cuda_scan.CSRC / "stats_full.cu").read_text()
     tmp = Path(tempfile.mkdtemp(dir=cuda_scan.BUILD_DIR))
     (tmp / "scan_common.cuh").write_text((cuda_scan.CSRC / "scan_common.cuh").read_text())
     procs = {}
     for name in names:
-        text = src
-        for old, new in VARIANTS[name][0]:
+        text = (cuda_scan.CSRC / SOURCES[name]).read_text()
+        subs = {**VARIANTS, **K8_VARIANTS, **K5_VARIANTS}[name][0]
+        for old, new in subs:
             if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} is not in stats_full.cu")
+                raise RuntimeError(f"variant {name}: {old!r} is not in {SOURCES[name]}")
             text = text.replace(old, new)
         (tmp / f"{name}.cu").write_text(text)
+        while sum(proc.poll() is None for proc in procs.values()) >= (os.cpu_count() or 4):
+            time.sleep(0.5)
         procs[name] = subprocess.Popen(
             [cuda_scan._nvcc(), *cuda_scan.NVCC_FLAGS, "-shared", "-o", str(tmp / f"{name}.so"),
              str(tmp / f"{name}.cu")], stderr=subprocess.PIPE, text=True)
@@ -103,13 +186,127 @@ def median_ms(fn):
     return float(np.median(times))
 
 
-def main(names) -> int:
-    if not torch.cuda.is_available():
-        print("stats_variants: no CUDA device", file=sys.stderr)
-        return 2
-    c.phase_device()
-    dev = torch.device("cuda", 0)
-    built = build(names)
+PROBE_STEPS = 15
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) of a float32 tensor: hi = x rounded to TF32 (10 mantissa
+    bits, to nearest, ties away from zero: PTX ``cvt.rna.tf32.f32``), lo
+    = (x − hi) rounded the same way.  Both are exact TF32 values, and
+    hi + lo equals x to about 2⁻²¹ of |x|."""
+
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b as three TF32 products in one float32 sum, hi·hi + hi·lo +
+    lo·hi (lo·lo dropped): one matmul over operands concatenated along
+    the contraction, so that on the card it runs as one tensor-core
+    accumulator.  Its TF32 tensor cores are enabled for the call only."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    lhs = torch.cat([a_hi, a_hi, a_lo], dim=-1)
+    rhs = torch.cat([b_hi, b_lo, b_hi], dim=0)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return lhs @ rhs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def gmm_estep_3xtf32(x, e_stats, log_w, mask=None):
+    """:func:`gmm_estep_full_plain` with both of its products, S·W and
+    rᵀ·S, taken by :func:`matmul_3xtf32` (float32 only): the arithmetic
+    of a 3×TF32 tensor-core K8, materialised."""
+    d = x.shape[-1]
+    s_mat = sk.packed_stats(x)
+    joint = matmul_3xtf32(s_mat, sk.pack_weights(e_stats, d, log_w))
+    llh = torch.logsumexp(joint, dim=-1)
+    r = torch.exp(joint - llh[:, None])
+    if mask is not None:
+        m = mask.reshape(-1).to(llh.dtype)
+        llh = llh * m
+        r = r * m[:, None]
+    acc, counts = sk.unpack_acc(matmul_3xtf32(r.T.contiguous(), s_mat), d)
+    return llh, acc, counts
+
+
+def clustered_frames(dev, n=64_000):
+    """Phase 10's trajectory data: 16 centres at 3σ, unit noise, D = 39."""
+    rng = np.random.default_rng(7)
+    centres = rng.normal(size=(16, c.D)) * 3.0
+    return torch.from_numpy((centres[rng.integers(0, 16, size=n)]
+                             + rng.normal(size=(n, c.D))).astype(np.float32)).to(dev)
+
+
+def trajectory(dev, x, estep, dtype=torch.float32):
+    """ELBO/frame of PROBE_STEPS VB steps of config 1's GMM on ``x`` with
+    the fused E-step taken by ``estep``; the model after them."""
+    model = c.config1(dev)
+    if dtype != torch.float32:
+        model = model.to(dtype=dtype)
+        x = x.to(dtype)
+    saved = sk.gmm_estep_full
+    sk.gmm_estep_full = estep
+    try:
+        traj = np.array([float(c.bt.vb_step(model, x)[0]) / x.shape[0] for _ in range(PROBE_STEPS)])
+    finally:
+        sk.gmm_estep_full = saved
+    return traj, model
+
+
+def probe(dev) -> None:
+    """The 3×TF32 probe: config 1's E-step with both products (S·W and
+    rᵀ·S) taken as three TF32 tensor-core products in one float32 sum
+    (``stats_kernels.gmm_estep_3xtf32``, emulated with cuBLAS on operands
+    split in advance), against the float32 FFMA kernel K8.
+
+    * 15 VB steps on phase 10's clustered data from the same initial
+      model: the worst |ΔELBO|/frame against the float32 kernel route and
+      whether each trajectory rises (every step ≥ 0, and phase 10's rule:
+      no step below −1e-5/frame after two steps of burn-in);
+    * the relative error of ``acc`` and ``counts`` (and llh) against
+      float64 on the card, for the FFMA kernel, the 3×TF32 emulation and
+      the float32 plain version, at the initial model on the clustered
+      and on config 1's frames and at the trained model (the float32
+      route's after its 15 steps) on the clustered frames.
+
+    The gate that let 3×TF32 ship: |ΔELBO|/frame ≤ 1e-4, monotone, and
+    statistics within 8× of the FFMA kernel's float64 error."""
+    xc = clustered_frames(dev)
+    routes = {"ffma_kernel": sk.gmm_estep_full, "3xtf32": gmm_estep_3xtf32,
+              "plain_f32": sk.gmm_estep_full_plain}
+    trajs = {name: trajectory(dev, xc, fn) for name, fn in routes.items()}
+    trajs["plain_f64"] = trajectory(dev, xc, sk.gmm_estep_full_plain, torch.float64)
+    base = trajs["ffma_kernel"][0]
+    for name, (traj, _) in trajs.items():
+        steps = np.diff(traj)
+        print(f"{CARD} | probe trajectory {name}: ELBO/frame {', '.join(f'{v:.7f}' for v in traj)} "
+              f"| worst |dELBO|/frame vs ffma_kernel {float(np.abs(traj - base).max()):.3g} "
+              f"| smallest step {float(steps.min()):.3g} | rises every step {bool((steps >= 0).all())} "
+              f"| phase-10 rule {bool((steps[2:] >= -1e-5).all())}", flush=True)
+    trained = trajs["ffma_kernel"][1]
+    cases = {"clustered_initial": (xc, c.config1(dev)),
+             "config1_initial": (c.config1_frames(dev), c.config1(dev)),
+             "clustered_trained": (xc, trained)}
+    for tag, (x, model) in cases.items():
+        e, log_w = c.gmm_operands(model)
+        want = sk.gmm_estep_full_plain(x.double(), e.double(), log_w.double())
+        errs = {}
+        for name, fn in routes.items():
+            got = fn(x, e, log_w)
+            errs[name] = {out: float(f"{c.rel(g.double(), w):.3g}")
+                          for out, g, w in zip(("llh", "acc", "counts"), got, want)}
+        print(f"{CARD} | probe vs float64 {tag} (T={x.shape[0]}): " + json.dumps(errs), flush=True)
+
+
+def run_stats(dev, built, names):
+    """K9 and K10 alone at config 1 and the recognizer, one line a variant."""
     x1 = c.config1_frames(dev)
     e1, log_w = c.gmm_operands(c.config1(dev))
     data3, _, seqs = c.config3_data()
@@ -129,7 +326,7 @@ def main(names) -> int:
         lib = ctypes.CDLL(str(path))
         lib.beer_ellh_full.argtypes = [i, p, p, p] + [i] * 6 + [p]
         lib.beer_accumulate_full.argtypes = [i, p, p, p, p] + [i] * 6 + [p]
-        lib.beer_stats_blocks.argtypes = [i] * 5
+        lib.beer_stats_blocks.argtypes = [i] * 6
         lib.beer_stats_prepare.argtypes = [i]
         c.check(lib.beer_stats_prepare(0) == 0, f"{name}: prepare")
         chunk = 32 if name == "long_chunks" else sk.ELLH_LANE_CHUNK
@@ -146,7 +343,7 @@ def main(names) -> int:
             c.check(ellh() == 0, f"{name}: K9 launch")
             row[f"k9_{tag}_ms"] = median_ms(ellh)
             acc_k = sk.accumulate_tile_k(k)
-            resident = lib.beer_stats_blocks(0, 2, d, k, acc_k)
+            resident = lib.beer_stats_blocks(0, 2, d, k, 0, acc_k)
             n_tiles = -(-t_len // frames)
             per = -(-n_tiles // min(n_tiles, max(1, round(resident / (-(-width // 128) * -(-k // acc_k))))))
             n_slices, slice_len = -(-n_tiles // per), per * frames
@@ -161,11 +358,202 @@ def main(names) -> int:
                 got = sk.unpack_acc(total.view(k, lanes)[:, :width], d)[0]
                 c.check(c.rel(out, want[tag][0]) <= 1e-5 and c.rel(got, want[tag][1]) <= 1e-4,
                         f"{name}: {tag} differs from the plain versions")
-        print(f"variant {name}: " + ", ".join(f"{k_} {v:.3f}" for k_, v in row.items())
+        print(f"variant {name}: {CARD} | " + ", ".join(f"{k_} {v:.3f}" for k_, v in row.items())
               + f" | registers {regs} | {'same function' if same else 'not the same function'}",
               flush=True)
+
+
+def k8_operands(dev):
+    x = c.config1_frames(dev)
+    e, log_w = c.gmm_operands(c.config1(dev))
+    return x, e, log_w
+
+
+def run_k8(dev, built, names):
+    """K8 alone at config 1 (the bare foreign call of each variant's
+    library, K8's own packing and geometry), one line a variant."""
+    x, e, log_w = k8_operands(dev)
+    want = sk.gmm_estep_full_plain(x, e, log_w)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    d, k, t_len = c.D, e.shape[0], x.shape[0]
+    width = sk.packed_width(d)
+    lanes = -(-width // sk.ACC_LANES) * sk.ACC_LANES
+    for name in names:
+        path, regs = built[name]
+        _, same, tiles = K8_VARIANTS[name]
+        tile_k, frames = tiles or sk.estep_tiles(d, k)
+        lib = ctypes.CDLL(str(path))
+        lib.beer_gmm_estep_full.argtypes = [i] + [p] * 6 + [i] * 6 + [p]
+        lib.beer_stats_blocks.argtypes = [i] * 6
+        lib.beer_stats_prepare.argtypes = [i]
+        c.check(lib.beer_stats_prepare(0) == 0, f"{name}: prepare")
+        k_pad = sk.estep_k_pad(k, tile_k)
+        chunks = -(-width // sk.ESTEP_LANE_CHUNK) + 1
+        w = torch.nn.functional.pad(sk.pack_weights(e, d, log_w),
+                                    (0, k_pad - k, 0, chunks * sk.ESTEP_LANE_CHUNK - width))
+        n_blk = min(lib.beer_stats_blocks(0, 0, d, k, frames, tile_k), -(-t_len // frames))
+        c.check(n_blk > 0, f"{name}: occupancy")
+        part = torch.empty(n_blk, k * lanes, device=dev)
+        out = torch.empty(k * lanes, device=dev)
+        llh = torch.empty(t_len, device=dev)
+        run = lambda: lib.beer_gmm_estep_full(0, ptr(x), None, ptr(w), ptr(llh), ptr(part), ptr(out),  # noqa: E731
+                                              n_blk, t_len, d, k, frames, tile_k, stream)
+        c.check(run() == 0, f"{name}: K8 launch")
+        ms = median_ms(run)
+        if same:
+            acc, counts = sk.unpack_acc(out.view(k, lanes)[:, :width], d)
+            c.check(c.rel(llh, want[0]) <= 1e-5 and c.rel(acc, want[1]) <= 1e-4,
+                    f"{name}: differs from the plain version")
+        print(f"variant {name}: {CARD} | k8_config1_ms {ms:.3f} (tiles {tile_k} x {frames}, {n_blk} blocks) "
+              f"| registers {regs} | {'same function' if same else 'not the same function'}", flush=True)
+
+
+def k5_cases(dev):
+    """K5's operands: config 2 (stats, S = 30), config 3 (llh, S = 18),
+    config 4's dense matrix on its llh stream (S = 150, B = 512), random
+    llh streams (N(0, 9), a dense random A, B = 64, T = 200) at S = 300
+    and 230, and phase 18's ergodic HMM (B = 64, T <= 200) at S = 300 on
+    both streams and at S = 200 on the statistics; the S = 300 ones take
+    the global placement, S = 230 (llh) and 200 (P = 78) the shared one
+    in chunks of 8 and 4 frames, near its limit."""
+    data, mask = c.make_data(c.B, c.T, c.D)
+    x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    hmm = c.config2(dev)
+    stats, c2 = c.hmm_operands(hmm, x, m)
+    init2 = torch.exp(hmm.graph_log_init).expand(c.B, -1).contiguous()
+    data3, mask3, seqs = c.config3_data()
+    rec = c.config3(dev, seqs)
+    _, c3 = c.hmm_operands(rec, torch.from_numpy(data3).to(dev), torch.from_numpy(mask3).to(dev))
+    init3 = torch.exp(torch.clamp(rec.graph_log_init, min=-1e30)).expand_as(c3["final"]).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def random_llh(s, b=64, t_len=200):
+        trans = torch.softmax(torch.randn(s, s, device=dev, generator=gen), -1)
+        llh = torch.randn(b, t_len, s, device=dev, generator=gen) * 3.0
+        lens = torch.full((b,), t_len, dtype=torch.int32, device=dev)
+        return llh, lens, trans, torch.full((b, s), 1.0 / s, device=dev)
+
+    data, mask = c.make_data(c.LARGE_B, c.LARGE_T, c.D, seed=8)     # phase 18's ergodic HMM
+    xb, mb = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+
+    def ergodic(s):
+        big = c.config2(dev, s=s)
+        stats_b, cb = c.hmm_operands(big, xb, mb)
+        init_b = torch.exp(big.graph_log_init).expand_as(cb["final"]).contiguous()
+        return big, stats_b, cb, init_b
+
+    big, stats_b, cb, init_b = ergodic(c.LARGE_S)
+    _, stats_m, cm, init_m = ergodic(200)
+    o = c.general_operands(c.config4(dev), x, m)                        # config 4's dense matrix
+    return {"config2": (stats, c2["lens"], c2["trans"], init2, c2["w"], c2["bias"]),
+            "config4": (o["llh"], o["lens"], o["trans"], o["init"]),
+            "config3": (c3["llh"], c3["lens"], c3["trans"], init3),
+            "s300": random_llh(300),
+            "ergodic300_stats": (stats_b, cb["lens"], cb["trans"], init_b, cb["w"], cb["bias"]),
+            "ergodic300_llh": (big._state_llh(stats_b).contiguous(), cb["lens"], cb["trans"], init_b),
+            "s230": random_llh(230),
+            "ergodic200_stats": (stats_m, cm["lens"], cm["trans"], init_m, cm["w"], cm["bias"])}
+
+
+def run_k5(dev, built, names):
+    """K5 alone (ten bare foreign calls between two events, the median of
+    20 such runs divided by ten) in each instance a shape can take: the
+    warp and the block instance at configs 2 and 3, the global block
+    instance at S = 300, and near the shared placement's limit (S = 230
+    on llh, 200 at P = 78) the shared block instance in the chunks that
+    fit against the global one in chunks of 16."""
+    cases = k5_cases(dev)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr()) if t is not None else None  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    # (case, instance, frames a chunk of the block instance)
+    runs = [("config2", "warp", 32), ("config2", "shared", 16), ("config3", "warp", 32),
+            ("config3", "shared", 16), ("config4", "shared", 16), ("config4", "shared", 8),
+            ("config4", "shared", 4), ("s300", "global", 16),
+            ("ergodic300_stats", "global", 16), ("ergodic300_llh", "global", 16),
+            ("s230", "shared", 8), ("s230", "shared", 4), ("s230", "global", 16),
+            ("ergodic200_stats", "shared", 4), ("ergodic200_stats", "shared", 2),
+            ("ergodic200_stats", "global", 16)]
+    for name in names:
+        path, regs = built[name]
+        same = K5_VARIANTS[name][1]
+        lib = ctypes.CDLL(str(path))
+        lib.beer_forward_llh_dense.argtypes = [i, i, i] + [p] * 10 + [i] * 4 + [p]
+        row = {}
+        for tag, instance, chunk in runs:
+            args = cases[tag]
+            x, lens, trans, init = args[:4]
+            w, bias = args[4:] if len(args) > 4 else (None, None)
+            b, t_len, s = x.shape[0], x.shape[1], trans.shape[0]
+            p_dim = x.shape[2] if w is not None else 0
+            if instance == "global" and w is not None:
+                w = w.T.contiguous()
+            outs = (torch.empty(b, t_len, s, device=dev), torch.empty(b, t_len, device=dev),
+                    torch.empty(b, s, device=dev), torch.empty(b, device=dev))
+            code = cuda_scan._INSTANCES.index(instance)
+            call = lambda: lib.beer_forward_llh_dense(  # noqa: E731
+                0, code, chunk, ptr(x), ptr(lens), ptr(w), ptr(bias), ptr(trans), ptr(init),
+                *map(ptr, outs), b, t_len, s, p_dim, stream)
+            key = f"{tag}_{instance}" + (f"_c{chunk}" if instance != "warp" else "")
+            c.check(call() == 0, f"{name}: K5 launch ({key})")
+            row[f"{key}_ms"] = median_ms(lambda: [call() for _ in range(10)]) / 10
+            if same:
+                want = cuda_scan.forward_llh_dense_plain(*args)
+                err = float((outs[0] - want[0]).abs().max())
+                if err > 1e-5 or c.rel(outs[3], want[3]) > 1e-5:
+                    row[f"{key}_DIFFERS_alpha_abs"] = err
+        print(f"variant {name}: {CARD} | " + ", ".join(f"{k_} {v:.4f}" for k_, v in row.items())
+              + f" | registers {regs} | {'same function' if same else 'not the same function'}", flush=True)
+
+
+def times(dev):
+    """K8 alone at config 1 beside one matmul pair on the materialised
+    statistics, and K5 alone at every shape of :func:`k5_cases` and K14
+    at config 4's and S = 230's (profiler device time of the wrapper's
+    kernel), through this checkout's package."""
+    x, e, log_w = k8_operands(dev)
+    launch = sk.prepare_gmm_estep_full(x, e, log_w)[-1]
+    k8 = median_ms(lambda: c.check(launch() == 0, "K8 launch"))
+    r = torch.softmax(sk.ellh_full_plain(x, e) + log_w, -1)
+    s_mat = sk.packed_stats(x)
+    w_joint = sk.pack_weights(e, c.D, log_w)
+    lib = median_ms(lambda: torch.matmul(s_mat, w_joint)) + median_ms(lambda: torch.matmul(r.T, s_mat))
+    del s_mat
+    cases = k5_cases(dev)
+    k5 = {tag: c.device_ms(lambda: cuda_scan.forward_llh_dense(*args), "forward_llh", reps=20)
+          for tag, args in cases.items()}
+    for tag in ("config4", "s230"):
+        k5[f"k14_{tag}"] = c.device_ms(lambda: cuda_scan.forward_llh_dense(*cases[tag], return_shifts=True),
+                                       "forward_llh", reps=20)
+    print(f"times: {CARD} | " + json.dumps({"k8_config1_ms": round(k8, 4), "k8_library_ms": round(lib, 4),
+                                  **{f"k5_{tag}_ms": round(v, 4) for tag, v in k5.items()}}), flush=True)
+
+
+def main(names) -> int:
+    if not torch.cuda.is_available():
+        print("stats_variants: no CUDA device", file=sys.stderr)
+        return 2
+    global CARD
+    c.phase_device()
+    CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    if "probe" in names:
+        probe(dev)
+    if "times" in names:
+        times(dev)
+    names = [n for n in names if n not in ("probe", "times")]
+    if not names:
+        return 0
+    built = build(names)
+    for group, run in ((VARIANTS, run_stats), (K8_VARIANTS, run_k8), (K5_VARIANTS, run_k5)):
+        mine = [n for n in names if n in group]
+        if mine:
+            run(dev, built, mine)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or list(VARIANTS)))
+    sys.exit(main(sys.argv[1:] or [*VARIANTS, *K8_VARIANTS, *K5_VARIANTS]))

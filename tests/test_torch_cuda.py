@@ -278,6 +278,41 @@ def test_ellh_and_accumulate_match_plain_versions(device, d, k):
         assert _rel(acc, sk.accumulate_full_plain(a["x"], resps)) <= 1e-4, t_len
 
 
+@pytest.mark.parametrize("d", [1, 39, 128])
+@pytest.mark.parametrize("k", [1, 65, 256])
+def test_gmm_estep_full_at_every_tile(device, d, k):
+    """K8 at every joint component tile (32, 64 at FULL_SHAPES, 128) and
+    the supertiles it chooses: T = 0, 1, 129 (ragged) and 1000 (several
+    supertiles a block), frames off on a masked stretch (llh 0 there); two
+    runs agree bitwise.  llh rel 1e-5 of the plain version; the statistics
+    against float64 (see below)."""
+    for t_len in (0, 1, 129, 1000):
+        a = _full_args((d, k, t_len), device)
+        cuda_scan.reset_launch_counts()
+        got = sk.gmm_estep_full(a["x"], a["e"], a["log_w"], a["mask"])
+        again = sk.gmm_estep_full(a["x"], a["e"], a["log_w"], a["mask"])
+        torch.cuda.synchronize()
+        assert _launched() == {"gmm_estep_full": 2}
+        assert all(torch.equal(g, h) for g, h in zip(got, again))
+        assert got[0].shape == (t_len,) and got[1].shape == (k, d * d + d + 2)
+        if t_len == 0:
+            assert not got[1].any() and not got[2].any()
+            continue
+        want = sk.gmm_estep_full_plain(a["x"], a["e"], a["log_w"], a["mask"])
+        assert _rel(got[0], want[0]) <= 1e-5, t_len
+        # the statistics against float64: at D = 128 and production magnitudes
+        # the joint is ~1e3, a sum of 8,385 products, and float32's rounding
+        # of it moves the responsibilities of near-tied components, so the
+        # float32 plain version itself misses 1e-4 there (1.6e-4 at K = 256);
+        # the kernel sums each joint in one FMA chain, and may not be further
+        # from float64 than 8× the plain version (the bound the 3×TF32 probe
+        # was held to), nor than 1e-4 where float32 gets that close
+        exact = sk.gmm_estep_full_plain(*(a[n].double() for n in ("x", "e", "log_w", "mask")))
+        for i in (1, 2):
+            assert _rel(got[i].double(), exact[i]) <= max(1e-4, 8 * _rel(want[i].double(), exact[i])), t_len
+        assert not got[0][a["mask"] == 0].any()
+
+
 def test_full_cov_wrappers_reject_what_the_kernels_do_not_take(device):
     a = _full_args((5, 7, 129), device)
     x, e, log_w, r = a["x"], a["e"], a["log_w"], a["r"]
@@ -306,9 +341,11 @@ def test_full_cov_wrappers_reject_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="K=257"):
         sk.accumulate_full(big_k["x"], big_k["r"])
     sk.ellh_full(big_k["x"], big_k["e"])                        # K9 takes any K
+    # the largest D and K of K8's limits fit one block (its supertile shrinks)
     wide = _full_args((128, 256, 4), device)
-    with pytest.raises(ValueError, match="shared memory"):
-        sk.gmm_estep_full(wide["x"], wide["e"], wide["log_w"])
+    got = sk.gmm_estep_full(wide["x"], wide["e"], wide["log_w"])
+    want = sk.gmm_estep_full_plain(wide["x"], wide["e"], wide["log_w"])
+    assert _rel(got[0], want[0]) <= 1e-5 and _rel(got[1], want[1]) <= 1e-4
 
 
 def test_full_cov_kernels_empty_input(device):
@@ -593,6 +630,68 @@ def test_forward_llh_shifts_and_restricted_estep_match_plain(device, shape):
         cuda_scan.estep_gamma_dense(*est, rows=rows + s, cols=cols)
 
 
+def _forward_matches_plain(a, stats_stream=True):
+    """K5 (on the statistics stream when asked, and on the llh stream) and
+    K14 against their plain versions on :func:`dense_args` operands."""
+    full = a["lens"] > 0
+    tiny = torch.finfo(torch.float32).tiny
+    cuda_scan.reset_launch_counts()
+    streams = [(a["llh"], a["lens"], a["trans"], a["init"])]
+    if stats_stream:
+        streams.insert(0, (a["stats"], a["lens"], a["trans"], a["init"], a["w"], a["bias"]))
+    for args in streams:
+        got = cuda_scan.forward_llh_dense(*args)
+        want = cuda_scan.forward_llh_dense_plain(*args)
+        torch.cuda.synchronize()
+        log_z = [o[3] + torch.log((o[2] * a["final"]).sum(-1).clamp_min(tiny)) for o in (got, want)]
+        assert _rel(log_z[0][full], log_z[1][full]) <= 1e-5
+        assert float((got[0] - want[0]).abs().max()) <= 1e-5
+        assert _rel(got[1], want[1]) <= 1e-5
+        assert torch.equal(got[2][~full], a["init"][~full]) and not got[3][~full].any()
+    got = cuda_scan.forward_llh_dense(a["llh"], a["lens"], a["trans"], a["init"], return_shifts=True)
+    want = cuda_scan.forward_llh_dense_plain(a["llh"], a["lens"], a["trans"], a["init"],
+                                             return_shifts=True)
+    torch.cuda.synchronize()
+    for name, x, y, tol in (("alpha", got[0], want[0], 1e-5), ("last", got[2], want[2], 1e-5),
+                            ("shifts", got[4], want[4], 0.0)):
+        assert float((x - y).abs().max()) <= tol, name
+    assert _rel(got[1], want[1]) <= 1e-5 and _rel(got[3], want[3]) <= 1e-5
+    assert _launched() == {"forward_llh_dense": len(streams), "forward_llh_shifts_dense": 1}
+
+
+@pytest.mark.parametrize("s", [1, 18, 30, 32, 33, 150, 300])
+def test_forward_instances_match_plain_versions(device, s):
+    """K5 (statistics and llh stream) and K14 in the instance each S takes
+    (one warp an utterance up to 32, a block above; at 300 the global
+    placement) against their plain versions: T = 70 (two whole chunks and
+    a ragged one), rows of length T, T − 7, 5 and 0; then an empty batch."""
+    _forward_matches_plain(dense_args(dense_problem(9 + s, s, 78, 6, 70), torch.float32, device))
+    empty = dense_args(dense_problem(1, s, 78, 0, 9, lengths=np.zeros(0, int)), torch.float32, device)
+    for shifts in (False, True):
+        out = cuda_scan.forward_llh_dense(empty["llh"], empty["lens"], empty["trans"], empty["init"],
+                                          return_shifts=shifts)
+        assert out[0].shape == (0, 9, s) and out[1].shape == (0, 9)
+
+
+@pytest.mark.parametrize("case", [
+    # (S, P; P = 0: the llh stream alone) -> K5's (instance, frames a chunk) on that stream
+    ((30, 200), ("shared", 16)), ((30, 2000), ("global", 8)), ((200, 78), ("shared", 4)),
+    ((230, 0), ("shared", 8)), ((238, 0), ("shared", 1)), ((2000, 0), ("global", 8)),
+], ids=lambda c: "S%d_P%d" % c[0] if isinstance(c[0], tuple) else str(c))
+def test_forward_large_p_and_short_chunks_match_plain_versions(device, case):
+    """K5 and K14 where the warp instance's ring does not fit (S <= 32 at
+    large P: the block instance), and where the block instance shortens
+    its chunks near a placement's limit, against their plain versions:
+    T = 37 (ragged in every chunk length), rows of length T, T − 7, 5 and
+    0.  W is scaled by sqrt(78 / P) so that llh keeps the magnitudes of
+    the P = 78 cases, whose tolerances these share."""
+    (s, p_dim), want = case
+    assert cuda_scan.forward_instance(s, p_dim) == want
+    pb = dense_problem(40 + s, s, p_dim or 8, 4, 37)
+    pb["w"] = pb["w"] * min(1.0, (78 / (p_dim or 8)) ** 0.5)
+    _forward_matches_plain(dense_args(pb, torch.float32, device), stats_stream=p_dim > 0)
+
+
 # ----------------------------------------------------------------------
 # Every S the reference takes: the dense kernels' global placement
 # ----------------------------------------------------------------------
@@ -695,9 +794,16 @@ def test_dense_smem_formulas_match_the_library(device, placement):
     lib = cuda_scan._library()
     glob = int(placement == "global")
     for s in (1, 7, 30, 150, 168, 169, 237, 300, 1100):
-        for p in (0, 4, 78):
+        for p in (0, 4, 78, 186, 512):
+            code = cuda_scan._INSTANCES.index(placement)
+            for chunk in cuda_scan.FORWARD_CHUNKS:
+                assert cuda_scan.forward_smem_bytes(s, p, placement, chunk) == \
+                    lib.beer_dense_forward_smem_bytes(s, p, code, chunk)
             assert cuda_scan.dense_smem_bytes("forward_llh_dense", s, p, placement=placement) == \
-                lib.beer_dense_forward_smem_bytes(s, p, glob)
+                lib.beer_dense_forward_smem_bytes(s, p, code, cuda_scan.forward_chunk(s, p, placement))
+            if s <= 32:
+                assert cuda_scan.forward_smem_bytes(s, p, "warp") == \
+                    lib.beer_dense_forward_smem_bytes(s, p, 2, cuda_scan.FORWARD_CHUNK)
             assert cuda_scan.dense_smem_bytes("estep_acc_dense" if p else "estep_gamma_dense", s, p,
                                               placement=placement) == \
                 lib.beer_dense_estep_smem_bytes(s, p, glob)

@@ -40,6 +40,7 @@ from beer_tpu.models.hmm import HMM as JaxHMM
 from beer_tpu.ops import stats_kernels as jsk
 from beer_tpu.vbi import elbo_and_stats as jax_elbo_and_stats
 from beer_tpu.vbi import vb_step as jax_vb_step
+from beer_tpu_torch.ops import cuda_scan
 from beer_tpu_torch.ops import stats_kernels as sk
 from port_util import (close, hmm_to_numpy, hmm_to_port, lengths_and_mask, mixture_to_numpy,
                        mixture_to_port, modelset_to_numpy, normal_set_to_numpy, t)
@@ -425,6 +426,30 @@ def test_ellh_tiles(t_len, k):
     tile_t, tile_k = sk.ellh_tiles(t_len, k)
     assert tile_k == ELLH_TILE_K[k]
     assert tile_t == ELLH_TILE_T[(t_len, -(-k // tile_k))]
+
+
+# K8's geometry: (D, K) -> (joint component tile, frames a supertile)
+ESTEP_TILES = {(1, 1): (32, 256), (1, 64): (64, 256), (1, 65): (128, 128), (1, 256): (128, 64),
+               (39, 1): (32, 256), (39, 64): (64, 128), (39, 65): (128, 64), (39, 256): (128, 64),
+               (128, 1): (32, 256), (128, 64): (64, 128), (128, 65): (128, 64), (128, 256): (128, 64)}
+
+
+@pytest.mark.parametrize("d", [1, 39, 128])
+@pytest.mark.parametrize("k", [1, 64, 65, 256])
+def test_estep_tiles(d, k):
+    """K8 joins K9's 8192-output joint tile to K10's accumulation: the
+    component tile holds K (up to 128), a supertile is a whole number of
+    joint tiles, two blocks share an SM where they fit (config 1: 128
+    frames), and every (D, K) the kernel takes fits one block."""
+    tile_k, frames = sk.estep_tiles(d, k)
+    assert (tile_k, frames) == ESTEP_TILES[(d, k)]
+    tile_t = sk.ESTEP_TILE_OUTPUTS // tile_k
+    assert frames % tile_t == 0 and frames % sk.ACC_FRAMES == 0
+    pad = sk.estep_k_pad(k, tile_k)
+    assert pad >= k and pad % tile_k == 0 and pad % sk.accumulate_tile_k(k) == 0
+    smem = sk.estep_smem_bytes(d, k, tile_k, frames)
+    assert smem <= cuda_scan.SMEM_LIMIT
+    assert smem <= sk.ESTEP_TWO_BLOCKS or frames == tile_t
 
 
 @pytest.mark.parametrize("case", [

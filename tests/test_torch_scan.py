@@ -494,12 +494,19 @@ def test_library_path_is_keyed_on_sources(tmp_path, monkeypatch):
 # ----------------------------------------------------------------------
 # (kernel, S, P, n_r, n_c, placement): the S of the large-HMM card tests
 # (180, 300) and both sides of each kernel's shared-memory limit
+# (the forward's two-stage ring of chunks moved its limit by one S, from
+# 239 to 238 on the llh stream and from 203 to 202 at P = 78; its chunks
+# shorten toward the limit, down to one frame)
 PLACEMENTS = [
-    ("forward_llh_dense", 180, 0, 0, 0, "shared"), ("forward_llh_dense", 239, 0, 0, 0, "shared"),
+    ("forward_llh_dense", 180, 0, 0, 0, "shared"), ("forward_llh_dense", 239, 0, 0, 0, "global"),
     ("forward_llh_dense", 240, 0, 0, 0, "global"), ("forward_llh_dense", 300, 0, 0, 0, "global"),
-    ("forward_llh_dense", 203, 78, 0, 0, "shared"), ("forward_llh_dense", 204, 78, 0, 0, "global"),
-    ("forward_llh_shifts_dense", 239, 0, 0, 0, "shared"),
+    ("forward_llh_dense", 203, 78, 0, 0, "global"), ("forward_llh_dense", 204, 78, 0, 0, "global"),
+    ("forward_llh_shifts_dense", 239, 0, 0, 0, "global"),
     ("forward_llh_shifts_dense", 240, 0, 0, 0, "global"),
+    ("forward_llh_dense", 225, 0, 0, 0, "shared"), ("forward_llh_dense", 238, 0, 0, 0, "shared"),
+    ("forward_llh_dense", 192, 78, 0, 0, "shared"), ("forward_llh_dense", 202, 78, 0, 0, "shared"),
+    ("forward_llh_shifts_dense", 225, 0, 0, 0, "shared"),
+    ("forward_llh_shifts_dense", 238, 0, 0, 0, "shared"),
     ("estep_acc_dense", 30, 78, 0, 0, "shared"), ("estep_acc_dense", 133, 78, 0, 0, "shared"),
     ("estep_acc_dense", 134, 78, 0, 0, "global"), ("estep_acc_dense", 180, 12, 0, 0, "global"),
     ("estep_acc_dense", 300, 78, 0, 0, "global"),
@@ -525,7 +532,65 @@ def test_dense_placement(case):
     shared = cuda_scan.dense_smem_bytes(kernel, s, p_dim, n_r, n_c, "shared")
     assert (shared <= cuda_scan.SMEM_LIMIT) == (want == "shared")
     glob = cuda_scan.dense_smem_bytes(kernel, s, p_dim, n_r, n_c, "global")
-    assert glob < shared and glob <= 4 * (7 * s + 64 + p_dim + n_r + n_c)
+    # the forward also stages its chunks: a two-stage ring and e = exp(llh − max)
+    chunk = cuda_scan.forward_chunk(s, p_dim, "global")
+    ring = 4 * chunk * (2 * (p_dim or s) + s + 2) if kernel.startswith("forward") else 0
+    assert glob < shared and glob <= 4 * (7 * s + 64 + p_dim + n_r + n_c) + ring
+
+
+# S -> {P: (instance, frames a chunk)} of K5/K14 (P = 0: the llh stream)
+FORWARD_INSTANCES = {
+    1: {0: ("warp", 32), 78: ("warp", 32), 184: ("warp", 32), 186: ("warp", 32),
+        512: ("shared", 16)},
+    30: {0: ("warp", 32), 78: ("warp", 32), 184: ("warp", 32), 186: ("shared", 16),
+         512: ("shared", 16)},
+    32: {0: ("warp", 32), 78: ("warp", 32), 184: ("warp", 32), 186: ("shared", 16),
+         512: ("shared", 16)},
+    33: {0: ("shared", 16), 78: ("shared", 16), 184: ("shared", 16), 186: ("shared", 16),
+         512: ("shared", 16)},
+    150: {0: ("shared", 16), 78: ("shared", 16), 184: ("shared", 8), 186: ("shared", 8),
+          512: ("global", 16)},
+    300: {0: ("global", 16), 78: ("global", 16), 184: ("global", 16), 186: ("global", 16),
+          512: ("global", 16)},
+}
+
+
+@pytest.mark.parametrize("s", [1, 30, 32, 33, 150, 300])
+def test_forward_instance(s):
+    """K5/K14 take the one-warp instance for S <= 32 while its ring (four
+    utterances' chunks of 32 frames) fits a block, and the block instance
+    otherwise, in the shared placement while A (and W) fit: the instance
+    is chosen by fit in one place, every choice fits, and
+    ``dense_placement`` and ``dense_smem_bytes`` follow it."""
+    for p_dim, want in FORWARD_INSTANCES[s].items():
+        instance, chunk = cuda_scan.forward_instance(s, p_dim)
+        assert (instance, chunk) == want
+        assert cuda_scan.forward_smem_bytes(s, p_dim, instance, chunk) <= cuda_scan.SMEM_LIMIT
+        warp_fits = cuda_scan.forward_smem_bytes(s, p_dim, "warp") <= cuda_scan.SMEM_LIMIT
+        assert (instance == "warp") == (s <= 32 and warp_fits)
+        placement = cuda_scan.dense_placement("forward_llh_dense", s, p_dim)
+        assert placement == ("global" if instance == "global" else "shared")
+        if instance != "warp":
+            assert chunk == cuda_scan.forward_chunk(s, p_dim, instance)
+            assert cuda_scan.dense_smem_bytes("forward_llh_dense", s, p_dim, placement=placement) == \
+                cuda_scan.forward_smem_bytes(s, p_dim, instance, chunk)
+            longer = [c for c in cuda_scan.FORWARD_CHUNKS if c > chunk]
+            assert all(cuda_scan.forward_smem_bytes(s, p_dim, instance, c) > cuda_scan.SMEM_LIMIT
+                       for c in longer)
+
+
+@pytest.mark.parametrize("case", [
+    # (S, P) -> (instance, frames a chunk): chunks shorten toward each limit
+    ((225, 0), ("shared", 8)), ((235, 0), ("shared", 4)), ((238, 0), ("shared", 1)),
+    ((239, 0), ("global", 16)), ((200, 78), ("shared", 4)), ((2000, 0), ("global", 8)),
+    ((30, 2000), ("global", 8)), ((14511, 0), ("global", 1)),
+])
+def test_forward_chunks_shorten_near_the_limits(case):
+    """Short chunks keep K5/K14 in the shared placement up to one S short
+    of the unchunked kernel's limit, and take the global placement to
+    S = 14,511 on the llh stream (K7's global limit is 9,674)."""
+    (s, p_dim), want = case
+    assert cuda_scan.forward_instance(s, p_dim) == want
 
 
 def test_dense_placement_names_only_dense_kernels():
