@@ -36,6 +36,9 @@
 // partials are written to a (B, ·) array and summed over the batch by
 // sum_rows_kernel in a fixed order: deterministic, no atomics.  The JAX
 // package's bf16×3 propagate is a TPU artifact; everything here is f32.
+// K5 (with K14) and K6 have since been rebuilt around chunks of frames,
+// with a one-warp instance for S <= 32 (their notes below); K7 and K15
+// keep the per-frame chain.
 //
 // Two placements of the operands, one template flag (kGlobal) on each
 // kernel.  "shared": A (and the ELLH matrix W, and K6's moment
@@ -53,17 +56,16 @@
 // (cuda_scan.dense_placement).  Both placements write K6's moments as
 // (P + 1, S), state-minor.
 
+#include "acc_chunks.cuh"
 #include "scan_common.cuh"
 
 namespace {
 
-// n_xi: floats of the ξ accumulator (S·S, or n_r·n_c when ξ is
+// K7 / K15: n_xi floats of the ξ accumulator (S·S, or n_r·n_c when ξ is
 // restricted); n_idx: the restricted block's two index vectors.
-size_t dense_backward_smem_floats(int s, int p, size_t n_xi, int n_idx, bool global) {
+size_t dense_backward_smem_floats(int s, size_t n_xi, int n_idx, bool global) {
   size_t n = 6 * static_cast<size_t>(s) + 2 * kMaxWarps + n_idx;
   if (!global) n += static_cast<size_t>(s) * odd_stride(s) + n_xi;
-  if (p > 0)
-    n += s + p + (global ? 0 : static_cast<size_t>(s) * odd_stride(p) + static_cast<size_t>(s) * odd_stride(p + 1));
   return n;
 }
 
@@ -115,21 +117,6 @@ size_t dense_backward_smem_floats(int s, int p, size_t n_xi, int n_idx, bool glo
 constexpr int kChunk = 32;      // frames a chunk of the warp instance
 constexpr int kChunkBlock = 16;  // frames a chunk of the block instance, at most
 constexpr int kWarps = 4;       // utterances a block of the warp instance
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// all but the newest group (more) or every group (!more) have landed
-__device__ __forceinline__ void cp_async_wait(bool more) {
-  if (more)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__host__ __device__ inline size_t round4(size_t n) { return (n + 3) / 4 * 4; }
 
 // Floats of one instance's shared memory (instance: 0 block in the shared
 // placement, 1 block in the global placement, 2 warp; chunk: the block
@@ -460,53 +447,44 @@ __global__ void __launch_bounds__(kWarps * 32) forward_llh_warp_kernel(
 }
 
 // ---------------------------------------------------------------------
-// K6 (kAcc) — accumulating dense v-space backward.
-// Replaces beer_tpu/ops/pallas_scan.py _make_estep_ckpt_acc_kernel_lm
-// (wrapper phone_loop_estep_ckpt_acc_lm with bands=None, trans=(S, S),
-// full ξ, fused ELLH, stored α̂).
-// K7 (!kAcc) — γ-emitting dense v-space backward.
+// K7 — γ-emitting dense v-space backward.
 // Replaces beer_tpu/ops/pallas_scan.py _make_estep_ckpt_kernel_lm
 // (wrapper phone_loop_estep_ckpt_pass_lm with bands=None, trans=(S, S),
 // full ξ; α̂ is read from K5 instead of recomputed from checkpoints).
 //
 // Walking t from len−1 down to 0: u1 = final_b at the last frame,
 // otherwise u1_i = Σ_j A(i, j) v̂_{t+1}(j); v = e·u1; v̂ = v / max(Σv,
-// FLT_MIN); γ = α̂·u1 / max(Σ α̂·u1, FLT_MIN); wgt = 1 / (norm·Σ(α̂u1)/Σv)
-// (0 below the ξ floor); ξ_raw(i, j) += α̂_t(i)·wgt_{t+1}·v̂_{t+1}(j).
-// K6 computes llh from W·stats as K5 does and reduces γ to acc (S, P+1)
-// = Σ γ ⊗ [stats, 1] (written as its transpose) plus γ₀; K7 reads the llh
-// stream and writes γ (0 on frames t >= len).  The expected transition
+// FLT_MIN); γ = α̂·u1 / max(Σ α̂·u1, FLT_MIN), written per frame (0 on
+// frames t >= len); wgt = 1 / (norm·Σ(α̂u1)/Σv) (0 below the ξ floor);
+// ξ_raw(i, j) += α̂_t(i)·wgt_{t+1}·v̂_{t+1}(j).  The expected transition
 // counts are ξ_raw ⊙ A, applied by the caller.  Bound: the serial chain
-// plus S FMAs (propagate) + S FMAs (ξ) + 2·P FMAs (K6: ELLH and moments)
-// per state and step, all in shared memory; α̂ streams in once.
+// plus S FMAs (propagate) + S FMAs (ξ) per state and step; α̂ streams in
+// once.  K6 runs in chunks of frames (below); this per-frame chain is
+// the next to take that design (ROADMAP P3).
 //
-// K15 (!kAcc, kRestrict) replaces _make_estep_kernel (wrapper
+// K15 (kRestrict) replaces _make_estep_kernel (wrapper
 // phone_loop_estep_pass): ξ_raw is accumulated only on the block
 // [rows][:, cols], (n_r, n_c), by an exact gather of α̂_t[rows] and
 // v̂_{t+1}[cols] (no one-hot product), so the per-utterance partial is
 // n_r·n_c floats instead of S².
 // ---------------------------------------------------------------------
-template <bool kAcc, bool kRestrict, bool kGlobal>
-__global__ void estep_dense_kernel(
-    const float* __restrict__ x,       // kAcc: (B, T, P) stats; else (B, T, S) llh
+template <bool kRestrict, bool kGlobal>
+__global__ void estep_gamma_dense_kernel(
+    const float* __restrict__ x,       // (B, T, S) llh
     const int* __restrict__ lens,      // (B,)
-    const float* __restrict__ w,       // (S, P), kGlobal: Wᵀ (P, S)  (kAcc)
-    const float* __restrict__ bias,    // (S,)    (kAcc)
     const float* __restrict__ trans,   // (S, S), kGlobal: Aᵀ
     const float* __restrict__ final_,  // (B, S)
     const float* __restrict__ alpha,   // (B, T, S)
     const float* __restrict__ norms,   // (B, T)
     const int* __restrict__ rows,      // (n_r,)  (kRestrict)
     const int* __restrict__ cols,      // (n_c,)  (kRestrict)
-    float* __restrict__ part,          // (B, [(P+1)*S] + n_r*n_c)
-    float* __restrict__ gamma0,        // (B, S)     (kAcc)
-    float* __restrict__ gamma,         // (B, T, S)  (!kAcc)
-    int T, int S, int P, int n_r, int n_c) {  // n_r = n_c = S unless kRestrict
+    float* __restrict__ part,          // (B, n_r*n_c)
+    float* __restrict__ gamma,         // (B, T, S)
+    int T, int S, int n_r, int n_c) {  // n_r = n_c = S unless kRestrict
   extern __shared__ float smem[];
-  const int ldt = odd_stride(S), ldw = odd_stride(P), lda = odd_stride(P + 1);
+  const int ldt = odd_stride(S);
   const int n_xi = n_r * n_c;
-  const int n_acc = kAcc ? S * (P + 1) : 0;
-  float* out = part + static_cast<size_t>(blockIdx.x) * (n_acc + n_xi);  // this utterance's partial
+  float* out = part + static_cast<size_t>(blockIdx.x) * n_xi;             // this utterance's partial
   float* a_sh = smem;                                                      // A, (S, ldt)
   float* xi_sh = a_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldt);     // (n_r, n_c)
   int* rows_sh = reinterpret_cast<int*>(xi_sh + (kGlobal ? 0 : n_xi));     // kRestrict: n_r + n_c indices
@@ -518,19 +496,10 @@ __global__ void estep_dense_kernel(
   float* v_sh = al_sh + S;      // llh_t, then v_t
   float* ab_sh = v_sh + S;      // α̂_t·u1_t
   float* red = ab_sh + S;
-  float* w_sh = red + 2 * kMaxWarps;                                       // kAcc: W, (S, ldw)
-  float* acc_sh = w_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldw);     // kAcc: (S, lda)
-  float* bias_sh = acc_sh + (kGlobal ? 0 : static_cast<size_t>(S) * lda);
-  float* x_sh = bias_sh + S;                                               // kAcc: stats_t
-  // A(i, j) = a_m[i·a_rs + j·a_cs], W(s, p) = w_m[s·w_rs + p·w_cs], the
-  // moments acc(s, p) = acc_m[s·acc_rs + p·acc_cs], ξ(i, j) = xi_m[i·n_c + j]
+  // A(i, j) = a_m[i·a_rs + j·a_cs], ξ(i, j) = xi_m[i·n_c + j]
   const float* a_m = kGlobal ? trans : a_sh;
-  const float* w_m = kGlobal ? w : w_sh;
-  float* acc_m = kGlobal ? out : acc_sh;
-  float* xi_m = kGlobal ? out + n_acc : xi_sh;
+  float* xi_m = kGlobal ? out : xi_sh;
   const int a_rs = kGlobal ? 1 : ldt, a_cs = kGlobal ? S : 1;
-  const int w_rs = kGlobal ? 1 : ldw, w_cs = kGlobal ? S : 1;
-  const int acc_rs = kGlobal ? 1 : lda, acc_cs = kGlobal ? S : 1;
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int len = lens[b];
@@ -540,55 +509,31 @@ __global__ void estep_dense_kernel(
       a_sh[r * ldt + (i - r * S)] = trans[i];
     }
   }
-  // each ξ column and each state's moments belong to one thread, here and below
+  // each ξ column belongs to one thread, here and below
   for (int j = tid; j < n_c; j += nt)
     for (int i = 0; i < n_r; ++i) xi_m[i * n_c + j] = 0.f;
   if (kRestrict) {
     for (int i = tid; i < n_r; i += nt) rows_sh[i] = rows[i];
     for (int i = tid; i < n_c; i += nt) cols_sh[i] = cols[i];
   }
-  if (kAcc) {
-    if (!kGlobal) {
-      for (int i = tid; i < S * P; i += nt) {
-        const int s = i / P;
-        w_sh[s * ldw + (i - s * P)] = w[i];
-      }
-    }
-    for (int s = tid; s < S; s += nt)
-      for (int p = 0; p <= P; ++p) acc_m[s * acc_rs + p * acc_cs] = 0.f;
-    for (int s = tid; s < S; s += nt) bias_sh[s] = bias[s];
-  }
   for (int s = tid; s < S; s += nt) {
     fin_sh[s] = final_[static_cast<size_t>(b) * S + s];
     vh_prev[s] = 0.f;
   }
-  const size_t row = kAcc ? P : S;
-  const float* x_b = x + static_cast<size_t>(b) * T * row;
+  const float* x_b = x + static_cast<size_t>(b) * T * S;
   const float* al_b = alpha + static_cast<size_t>(b) * T * S;
   const float* n_b = norms + static_cast<size_t>(b) * T;
-  float* g_b = kAcc ? nullptr : gamma + static_cast<size_t>(b) * T * S;
+  float* g_b = gamma + static_cast<size_t>(b) * T * S;
   float wgt_next = 0.f;  // wgt_{t+1}
 
   for (int t = len - 1; t >= 0; --t) {
-    __syncthreads();  // the previous step's readers of x_sh / al_sh / vh_prev are done
-    const float* x_t = x_b + static_cast<size_t>(t) * row;
-    if (kAcc) {
-      for (int p = tid; p < P; p += nt) x_sh[p] = x_t[p];
-    }
+    __syncthreads();  // the previous step's readers of al_sh / vh_prev are done
+    const float* x_t = x_b + static_cast<size_t>(t) * S;
     for (int s = tid; s < S; s += nt) al_sh[s] = al_b[static_cast<size_t>(t) * S + s];
     __syncthreads();
     float mx = -FLT_MAX, unused = 0.f;
     for (int s = tid; s < S; s += nt) {
-      float l;
-      if (kAcc) {
-        const float* wr = w_m + s * w_rs;
-        l = 0.f;
-#pragma unroll 16
-        for (int p = 0; p < P; ++p) l = fmaf(wr[p * w_cs], x_sh[p], l);
-        l += bias_sh[s];
-      } else {
-        l = x_t[s];
-      }
+      const float l = x_t[s];
       v_sh[s] = l;
       mx = fmaxf(mx, l);
     }
@@ -599,11 +544,23 @@ __global__ void estep_dense_kernel(
       float u1;
       if (is_last) {
         u1 = fin_sh[i];
-      } else {
+      } else if (!kGlobal) {
         const float* ar = a_m + i * a_rs;
         u1 = 0.f;
 #pragma unroll 32
         for (int j = 0; j < S; ++j) u1 = fmaf(ar[j * a_cs], vh_prev[j], u1);
+      } else {
+        // 32 reads of Aᵀ from L2 in flight, then their FMAs in order (K5's
+        // lever: a plain loop left each read's latency in the chain)
+        u1 = 0.f;
+        for (int j0 = 0; j0 < S; j0 += 32) {
+          float av[32];
+#pragma unroll
+          for (int q = 0; q < 32; ++q) av[q] = j0 + q < S ? a_m[i * a_rs + (j0 + q) * a_cs] : 0.f;
+#pragma unroll
+          for (int q = 0; q < 32; ++q)
+            if (j0 + q < S) u1 = fmaf(av[q], vh_prev[j0 + q], u1);
+        }
       }
       const float v = expf(v_sh[i] - mx) * u1;
       const float ab = al_sh[i] * u1;
@@ -618,30 +575,13 @@ __global__ void estep_dense_kernel(
     const float denom = n_b[t] * absum / sv;
     const float wgt = denom > kXiFloor ? 1.f / fmaxf(denom, kXiFloor) : 0.f;
     for (int s = tid; s < S; s += nt) {
-      const float g = ab_sh[s] / gnorm;
       vh_cur[s] = v_sh[s] / sv;
-      if (kAcc) {
-        // sixteen reads in flight before their writes (the accumulator may
-        // live in device memory); entry p gets fmaf(g, x_p, ·), entry P + g
-        float* ar = acc_m + s * acc_rs;
-        for (int p0 = 0; p0 <= P; p0 += 16) {
-          float v[16];
-#pragma unroll
-          for (int u = 0; u < 16; ++u)
-            if (p0 + u <= P) v[u] = ar[(p0 + u) * acc_cs];
-#pragma unroll
-          for (int u = 0; u < 16; ++u)
-            if (p0 + u <= P) ar[(p0 + u) * acc_cs] = p0 + u < P ? fmaf(g, x_sh[p0 + u], v[u]) : v[u] + g;
-        }
-        if (t == 0) gamma0[static_cast<size_t>(b) * S + s] = g;
-      } else {
-        g_b[static_cast<size_t>(t) * S + s] = g;
-      }
+      g_b[static_cast<size_t>(t) * S + s] = ab_sh[s] / gnorm;
     }
     if (!is_last) {
       for (int j = tid; j < n_c; j += nt) {
         const float vj = vh_prev[kRestrict ? cols_sh[j] : j];
-        for (int i0 = 0; i0 < n_r; i0 += 16) {  // sixteen reads in flight, as above
+        for (int i0 = 0; i0 < n_r; i0 += 16) {  // sixteen reads in flight (ξ may live in device memory)
           float v[16];
 #pragma unroll
           for (int u = 0; u < 16; ++u)
@@ -661,21 +601,232 @@ __global__ void estep_dense_kernel(
     vh_cur = tmp;
   }
   __syncthreads();
-  if (kAcc) {
-    if (!kGlobal) {
-      for (int i = tid; i < n_acc; i += nt) {
-        const int p = i / S, s = i - p * S;
-        out[i] = acc_sh[s * lda + p];
+  for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) g_b[i] = 0.f;
+  if (!kGlobal) {
+    for (int k = tid; k < n_xi; k += nt) out[k] = xi_sh[k];
+  }
+}
+
+// ---------------------------------------------------------------------
+// K6 — accumulating dense v-space backward.
+// Replaces beer_tpu/ops/pallas_scan.py _make_estep_ckpt_acc_kernel_lm
+// (wrapper phone_loop_estep_ckpt_acc_lm with bands=None, trans=(S, S),
+// full ξ, fused ELLH, stored α̂).
+// K7's recursion (above) with llh = W·stats + bias computed in the kernel,
+// γ reduced to acc (S, P+1) = Σ γ ⊗ [stats, 1] (written state-minor, as
+// (P + 1, S)) plus γ₀, and the full ξ_raw (S, S).
+//
+// What bounds it on the H100 is the serial chain, so, as in K5 and K2,
+// the chain keeps only what depends on the carry.  Frames go in chunks
+// from each utterance's end, chunk c + 1's statistics and α̂ arriving by
+// cp.async into a two-stage ring while chunk c is worked on; the ELLH, the
+// row max and e = exp(llh − max) of a chunk are computed before its chain;
+// the moments (Γᵀ·[X, 1]) and ξ (Σ_f α̂_t·wgt_{t+1} ⊗ v̂_{t+1}) are
+// register-tiled products over the chunk's frames after it, each
+// accumulator element read and written once a chunk.  The carry v is kept
+// unnormalised, with 1/Σv beside it, so that a step normalises nothing.
+// Two instances, chosen by fit in one place (cuda_scan.backward_instance):
+//   "warp" (S <= 32 while its block fits): the dense mode of
+//       acc_chunks.cuh, K2's kernel — n_utt utterances a block, each chain
+//       on one warp, lane i holding row i of A in registers, v_{t+1}(j)
+//       coming by __shfl_sync, Σv and Σα̂u1 in one shuffle tree (no barrier
+//       in the chain), and all the block's warps on the ELLH and the
+//       products;
+//   "block" (every larger S, both placements; chunks of the most of 16, 8,
+//       4, 2, 1 frames that fit): one block an utterance, threads over
+//       states, one block reduction (Σv and Σα̂u1) a step; its fetch, row
+//       max, per-frame factors, products and carry are acc_chunks.cuh's
+//       helpers, so only its ELLH and chain are its own.  "shared" keeps
+//       A, W, the moments and ξ in shared memory, "global" reads Aᵀ and Wᵀ
+//       from device memory (32 reads of A in flight, as K5) and keeps the
+//       moments and ξ in the utterance's row of `part`.
+// The rows are summed over the batch by sum_rows_kernel in a fixed order,
+// so two calls agree bitwise.
+// ---------------------------------------------------------------------
+constexpr int kAccChunkBlock = 16;  // the block instance: frames a chunk, at most
+
+// Floats of one block of K6's block instance in a placement, at `chunk`
+// frames a chunk.
+size_t acc_block_smem_floats(int s, int p, bool global, int chunk) {
+  const size_t S = s, C = chunk, ldg = round4(S), ldx = round4(p);
+  size_t n = 2 * ldg + 2 * C * (ldx + ldg) + (C + 1) * ldg + C * ldg + round4(5 * C + 2) + 2 * kMaxWarps;
+  if (!global) n += round4(S * odd_stride(s)) + round4(S * odd_stride(p)) + S * round4(p + 1) + S * ldg;
+  return n;
+}
+
+// The block instance: one block an utterance.  kFull: chunks of
+// kAccChunkBlock frames, a constant; otherwise `chunk` frames.
+template <bool kGlobal, bool kFull>
+__global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
+    const float* __restrict__ stats,   // (B, T, P)
+    const int* __restrict__ lens,      // (B,)
+    const float* __restrict__ w,       // (S, P), kGlobal: Wᵀ (P, S)
+    const float* __restrict__ bias,    // (S,)
+    const float* __restrict__ trans,   // (S, S), kGlobal: Aᵀ
+    const float* __restrict__ final_,  // (B, S)
+    const float* __restrict__ alpha,   // (B, T, S)
+    const float* __restrict__ norms,   // (B, T)
+    float* __restrict__ part,          // (B, (P+1)*S + S*S)
+    float* __restrict__ gamma0,        // (B, S)
+    int T, int S, int P, int chunk) {
+  const int C = kFull ? kAccChunkBlock : chunk;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ldg = static_cast<int>(round4(S)), ldx = static_cast<int>(round4(P)), lda = static_cast<int>(round4(P + 1));
+  const int ldt = odd_stride(S), ldw = odd_stride(P);
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int n_acc = S * (P + 1);
+  float* out = part + static_cast<size_t>(b) * (n_acc + S * S);
+  float* bias_sh = smem;                                         // (ldg,)
+  float* fin_sh = bias_sh + ldg;                                 // (ldg,)
+  float* ring = fin_sh + ldg;                                    // 2 × (stats (C, ldx), α̂ (C, ldg))
+  float* e_sh = ring + 2 * static_cast<size_t>(C) * (ldx + ldg);  // (C + 1, ldg): e, then v; row C: v after the chunk
+  float* g_sh = e_sh + static_cast<size_t>(C + 1) * ldg;          // (C, ldg): α̂u1
+  float* sc = g_sh + static_cast<size_t>(C) * ldg;                // 5C + 2 scalars (acc_chunks.cuh)
+  float* red = sc + round4(5 * static_cast<size_t>(C) + 2);
+  float* a_sh = red + 2 * kMaxWarps;                              // shared: A (S, ldt)
+  float* w_sh = a_sh + round4(static_cast<size_t>(S) * ldt);      // shared: W (S, ldw)
+  float* acc_sh = w_sh + round4(static_cast<size_t>(S) * ldw);    // shared: moments (S, lda)
+  float* xi_sh = acc_sh + static_cast<size_t>(S) * lda;           // shared: ξ (S, ldg)
+  // A(i, j) = a_m[i·a_rs + j·a_cs], W(s, p) = w_m[s·w_rs + p·w_cs], the moments
+  // acc(s, p) = acc_m[s·acc_rs + p·acc_cs], ξ(i, j) = xi_m[i·xi_rs + j]
+  const float* a_m = kGlobal ? trans : a_sh;
+  const float* w_m = kGlobal ? w : w_sh;
+  float* acc_m = kGlobal ? out : acc_sh;
+  float* xi_m = kGlobal ? out + n_acc : xi_sh;
+  const int a_rs = kGlobal ? 1 : ldt, a_cs = kGlobal ? S : 1;
+  const int w_rs = kGlobal ? 1 : ldw, w_cs = kGlobal ? S : 1;
+  const int acc_rs = kGlobal ? 1 : lda, acc_cs = kGlobal ? S : 1, xi_rs = kGlobal ? S : ldg;
+  const int len = lens[b];
+  auto span = [&](int c, int& lo) {
+    const int hi = len - 1 - c * C;
+    lo = max(hi - C + 1, 0);
+    return hi - lo + 1;
+  };
+  auto fetch = [&](int c) {
+    int lo;
+    const int nf = span(c, lo);
+    float* xs = ring + (c & 1) * static_cast<size_t>(C) * (ldx + ldg);
+    acc_fetch(xs, xs + static_cast<size_t>(C) * ldx, stats, alpha, static_cast<size_t>(b) * T + lo, nf, C, ldx, ldg, P,
+              S, tid, nt);
+    cp_async_commit();
+  };
+  const int n_chunks = (len + C - 1) / C;
+  if (n_chunks > 0) fetch(0);
+  if (!kGlobal) {
+    for (int i = tid; i < S * S; i += nt) {
+      const int r = i / S;
+      a_sh[r * ldt + (i - r * S)] = trans[i];
+    }
+    for (int i = tid; i < S * P; i += nt) {
+      const int s = i / P;
+      w_sh[s * ldw + (i - s * P)] = w[i];
+    }
+  }
+  // every accumulator element belongs to one 4 × 4 tile, so to one thread
+  for (int i = tid; i < (kGlobal ? n_acc + S * S : S * (lda + ldg)); i += nt) (kGlobal ? out : acc_sh)[i] = 0.f;
+  for (int s = tid; s < ldg; s += nt) {
+    bias_sh[s] = s < S ? bias[s] : 0.f;
+    fin_sh[s] = s < S ? final_[static_cast<size_t>(b) * S + s] : 0.f;
+  }
+  for (size_t i = tid; i < static_cast<size_t>(2 * C + 1) * ldg + 5 * C + 2; i += nt) e_sh[i] = 0.f;
+  float ip = 0.f;  // 1/Σv of the frame after the current one
+
+  for (int c = 0; c < n_chunks; ++c) {
+    int lo;
+    const int nf = span(c, lo);
+    const bool more = c + 1 < n_chunks;
+    __syncthreads();  // chunk c − 1 is done with stage (c + 1) & 1, e, γ and the scalars
+    if (more) fetch(c + 1);
+    cp_async_wait(more);
+    __syncthreads();  // chunk c has landed
+    const float* xc = ring + (c & 1) * static_cast<size_t>(C) * (ldx + ldg);
+    float* ac = const_cast<float*>(xc) + static_cast<size_t>(C) * ldx;
+    // 1. llh = W·stats + bias of the chunk's frames, a state a thread (K5's order)
+    for (int s = tid; s < S; s += nt) {
+      const float* wr = w_m + s * w_rs;
+      if (kFull) {
+        float l[kAccChunkBlock];
+#pragma unroll
+        for (int f = 0; f < kAccChunkBlock; ++f) l[f] = 0.f;
+        for (int p = 0; p < P; ++p) {
+          const float wv = wr[p * w_cs];
+#pragma unroll
+          for (int f = 0; f < kAccChunkBlock; ++f) l[f] = fmaf(wv, xc[f * ldx + p], l[f]);
+        }
+#pragma unroll
+        for (int f = 0; f < kAccChunkBlock; ++f)
+          if (f < nf) e_sh[f * ldg + s] = l[f] + bias_sh[s];
+      } else {
+        for (int f = 0; f < nf; ++f) {
+          float l = 0.f;
+          for (int p = 0; p < P; ++p) l = fmaf(wr[p * w_cs], xc[f * ldx + p], l);
+          e_sh[f * ldg + s] = l + bias_sh[s];
+        }
       }
     }
-    if (len == 0) {
-      for (int s = tid; s < S; s += nt) gamma0[static_cast<size_t>(b) * S + s] = 0.f;
+    __syncthreads();
+    for (int f = warp; f < nf; f += nt >> 5) acc_exp_row(e_sh + static_cast<size_t>(f) * ldg, S, lane);
+    __syncthreads();
+    // 2. the chain: one block reduction a step
+    for (int f = nf - 1; f >= 0; --f) {
+      const bool last = lo + f == len - 1;
+      const float* vn = e_sh + static_cast<size_t>(f == nf - 1 ? C : f + 1) * ldg;  // v_{t+1}
+      float sv = 0.f, sa = 0.f;
+      for (int i = tid; i < S; i += nt) {
+        float u1;
+        if (last) {
+          u1 = fin_sh[i];
+        } else if (!kGlobal) {
+          const float* ar = a_m + i * a_rs;
+          u1 = 0.f;
+#pragma unroll 32
+          for (int k = 0; k < S; ++k) u1 = fmaf(ar[k], vn[k], u1);
+          u1 *= ip;
+        } else {
+          u1 = 0.f;  // 32 reads of A from L2 in flight, then their FMAs in order (K5)
+          for (int k0 = 0; k0 < S; k0 += 32) {
+            float av[32];
+#pragma unroll
+            for (int q = 0; q < 32; ++q) av[q] = k0 + q < S ? a_m[i * a_rs + (k0 + q) * a_cs] : 0.f;
+#pragma unroll
+            for (int q = 0; q < 32; ++q)
+              if (k0 + q < S) u1 = fmaf(av[q], vn[k0 + q], u1);
+          }
+          u1 *= ip;
+        }
+        const float v = e_sh[f * ldg + i] * u1, a = ac[f * ldg + i] * u1;
+        e_sh[f * ldg + i] = v;
+        g_sh[f * ldg + i] = a;
+        sv += v;
+        sa += a;
+      }
+      block_sum_sum(sv, sa, red);  // also: every reader of v_{t+1} is done
+      ip = 1.f / fmaxf(sv, FLT_MIN);
+      if (tid == 0) {
+        sc[f] = sv;
+        sc[C + f] = sa;
+      }
     }
-  } else {
-    for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) g_b[i] = 0.f;
+    __syncthreads();
+    // 3. 1/Σα̂u1, wgt_{t+1} and 1/Σv_{t+1} a frame
+    for (int f = tid; f < nf; f += nt)
+      acc_frame_factors(sc, C, f, nf, lo + f == len - 1, norms + static_cast<size_t>(b) * T + lo + f + 1);
+    __syncthreads();
+    // 4. moments += Γᵀ·[X, 1] and ξ += Σ_f (α̂·wgt_{t+1}) ⊗ (v_{t+1}/Σv_{t+1}); v_{t+1} is row f + 1 of e,
+    //    row C (the carry) for the chunk's last frame
+    const AccChunkView view{g_sh, xc, sc + 2 * C, ac, e_sh + ldg, e_sh + static_cast<size_t>(C) * ldg, sc + 3 * C,
+                            sc + 4 * C, ldg, ldg, nf};
+    acc_products(acc_m, acc_rs, acc_cs, xi_m, xi_rs, S, P, S, ldg, ldx, 1, [&](int) { return view; }, tid, nt);
+    __syncthreads();  // ξ's readers of row C are done
+    // 5. γ₀, and the carry into the next chunk
+    acc_next_chunk(e_sh, sc, g_sh, gamma0 + static_cast<size_t>(b) * S, lo, C, ldg, S,
+                   norms + static_cast<size_t>(b) * T + lo, tid, nt);
   }
-  if (!kGlobal) {
-    for (int k = tid; k < n_xi; k += nt) out[n_acc + k] = xi_sh[k];
+  __syncthreads();
+  if (!kGlobal) acc_write_row(out, acc_sh, lda, xi_sh, ldg, S, P, S, true, tid, nt);
+  if (len == 0) {
+    for (int s = tid; s < S; s += nt) gamma0[static_cast<size_t>(b) * S + s] = 0.f;
   }
 }
 
@@ -700,12 +851,21 @@ size_t beer_dense_forward_smem_bytes(int s, int p, int instance, int chunk) {
   return dense_forward_smem_floats(s, p, instance, chunk) * sizeof(float);
 }
 
-size_t beer_dense_estep_smem_bytes(int s, int p, int global) {
-  return dense_backward_smem_floats(s, p, static_cast<size_t>(s) * s, 0, global != 0) * sizeof(float);
+// K7 (global != 0: Aᵀ from device memory, ξ in the partial row).
+size_t beer_dense_estep_smem_bytes(int s, int global) {
+  return dense_backward_smem_floats(s, static_cast<size_t>(s) * s, 0, global != 0) * sizeof(float);
+}
+
+// K6 in an instance (0 block, shared placement; 1 block, global; 2 warp)
+// at `chunk` frames a chunk, n_utt utterances a block (the warp instance).
+size_t beer_acc_dense_smem_bytes(int s, int p, int instance, int chunk, int n_utt) {
+  return (instance == 2 ? acc_layout(s, p, s, n_utt, chunk, false).total
+                        : acc_block_smem_floats(s, p, instance == 1, chunk)) *
+         sizeof(float);
 }
 
 size_t beer_dense_estep_restricted_smem_bytes(int s, int n_r, int n_c, int global) {
-  return dense_backward_smem_floats(s, 0, static_cast<size_t>(n_r) * n_c, n_r + n_c, global != 0) * sizeof(float);
+  return dense_backward_smem_floats(s, static_cast<size_t>(n_r) * n_c, n_r + n_c, global != 0) * sizeof(float);
 }
 
 }  // extern "C"
@@ -769,20 +929,33 @@ int beer_forward_llh_shifts_dense(int device, int instance, int chunk, const flo
                                      logz, shifts, B, T, S, 0, static_cast<cudaStream_t>(stream));
 }
 
-// trans is Aᵀ and w is Wᵀ (P, S) when global; part (B, (P+1)·S + S·S),
-// out = Σ_b part[b]: the moments (P + 1, S), then ξ_raw (S, S).
-int beer_estep_acc_dense(int device, int global, const float* stats, const int* lens, const float* w,
-                         const float* bias, const float* trans, const float* final_, const float* alpha,
-                         const float* norms, float* part, float* out, float* gamma0, int B, int T, int S, int P,
-                         void* stream) {
+// K6 in an instance (0 block shared, 1 block global, 2 warp) at `chunk`
+// frames a chunk; the warp instance runs n_utt utterances a block.  trans is
+// Aᵀ and w is Wᵀ (P, S) in the global placement; part has one row an
+// utterance (block) or a block of n_utt utterances (warp), (P+1)·S + S·S
+// wide; out = Σ of its rows: the moments (P + 1, S), then ξ_raw (S, S).
+int beer_estep_acc_dense(int device, int instance, int chunk, int n_utt, const float* stats, const int* lens,
+                         const float* w, const float* bias, const float* trans, const float* final_,
+                         const float* alpha, const float* norms, float* part, float* out, float* gamma0, int B,
+                         int T, int S, int P, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (instance == 2)
+    return launch_acc_chunked<true>(0, n_utt, chunk, stats, lens, w, bias, nullptr, trans, final_, alpha, norms,
+                                    nullptr, nullptr, part, out, gamma0, B, T, S, P, S, st);
+  if (instance < 0 || instance > 1 || chunk < 1 || chunk > kAccChunkBlock) return cudaErrorInvalidValue;
+  const size_t smem = beer_acc_dense_smem_bytes(S, P, instance, chunk, 1);
+  const bool full = chunk == kAccChunkBlock;
+  auto kernel = instance == 1 ? (full ? estep_acc_dense_block_kernel<true, true> : estep_acc_dense_block_kernel<true, false>)
+                              : (full ? estep_acc_dense_block_kernel<false, true> : estep_acc_dense_block_kernel<false, false>);
+  err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // threads over the states, and at least 256 for the chunk's products
   if (B > 0) {
-    err = launch_placed(global, estep_dense_kernel<true, false, false>, estep_dense_kernel<true, false, true>,
-                        beer_dense_estep_smem_bytes(S, P, global), B, S, st, stats, lens, w, bias, trans, final_,
-                        alpha, norms, static_cast<const int*>(nullptr), static_cast<const int*>(nullptr), part,
-                        gamma0, static_cast<float*>(nullptr), T, S, P, S, S);
+    kernel<<<B, block_threads(kernel, S > 256 ? S : 256), smem, st>>>(stats, lens, w, bias, trans, final_, alpha,
+                                                                       norms, part, gamma0, T, S, P, chunk);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const int n = S * (P + 1) + S * S;
@@ -798,11 +971,9 @@ int beer_estep_gamma_dense(int device, int global, const float* llh, const int* 
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0) {
-    err = launch_placed(global, estep_dense_kernel<false, false, false>, estep_dense_kernel<false, false, true>,
-                        beer_dense_estep_smem_bytes(S, 0, global), B, S, st, llh, lens,
-                        static_cast<const float*>(nullptr), static_cast<const float*>(nullptr), trans, final_,
-                        alpha, norms, static_cast<const int*>(nullptr), static_cast<const int*>(nullptr), part,
-                        static_cast<float*>(nullptr), gamma, T, S, 0, S, S);
+    err = launch_placed(global, estep_gamma_dense_kernel<false, false>, estep_gamma_dense_kernel<false, true>,
+                        beer_dense_estep_smem_bytes(S, global), B, S, st, llh, lens, trans, final_, alpha, norms,
+                        static_cast<const int*>(nullptr), static_cast<const int*>(nullptr), part, gamma, T, S, S, S);
     if (err != cudaSuccess) return err;
   }
   const int n = S * S;
@@ -820,10 +991,9 @@ int beer_estep_gamma_dense_restricted(int device, int global, const float* llh, 
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0) {
-    err = launch_placed(global, estep_dense_kernel<false, true, false>, estep_dense_kernel<false, true, true>,
-                        beer_dense_estep_restricted_smem_bytes(S, n_r, n_c, global), B, S, st, llh, lens,
-                        static_cast<const float*>(nullptr), static_cast<const float*>(nullptr), trans, final_,
-                        alpha, norms, rows, cols, part, static_cast<float*>(nullptr), gamma, T, S, 0, n_r, n_c);
+    err = launch_placed(global, estep_gamma_dense_kernel<true, false>, estep_gamma_dense_kernel<true, true>,
+                        beer_dense_estep_restricted_smem_bytes(S, n_r, n_c, global), B, S, st, llh, lens, trans,
+                        final_, alpha, norms, rows, cols, part, gamma, T, S, n_r, n_c);
     if (err != cudaSuccess) return err;
   }
   const int n = n_r * n_c;

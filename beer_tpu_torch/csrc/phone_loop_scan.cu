@@ -6,41 +6,46 @@
 // (E-step, part 2), and the banded (max,+) Viterbi forward and its
 // backtrace (decode).  A fifth, the γ-emitting twin of the backward,
 // carries the structured VAE's gradient (the Fisher identity ∂log Z /
-// ∂llh = γ).  Each replaces one Pallas TPU kernel of
+// ∂llh = γ); it runs the backward frame by frame, K2 in chunks.  Each replaces one Pallas TPU kernel of
 // beer_tpu/ops/pallas_scan.py; the note above each kernel names it.
 //
 // Common design.  Every kernel is a serial recursion over time with an
 // O(S) step: the transition matrix of a phone loop is band + rank-1
 // (self loop, advance, exit ⊗ entry), so a step is a few elementwise
-// passes plus block-wide reductions over the S states.  What bounds
-// these recursions on an H100 is the latency of the serial chain (each
-// step needs two block reductions, i.e. a few __syncthreads), not
-// bytes or FLOPs.  The design therefore spreads the batch: one thread
-// block per utterance (B = 512 blocks over 132 SMs), threads over
-// states in a strided loop (any S), and a loop over t < len_b inside
-// the block, so the chains of several utterances overlap on each SM.
-// Loop-invariant operands (the ELLH matrix W, bias, bands) live in
-// shared memory for the whole recursion; per-step vectors are in
-// shared memory, reductions use warp shuffles plus one shared pass.
+// passes plus reductions over the S states.  What bounds these
+// recursions on an H100 is the latency of the serial chain, not bytes
+// or FLOPs.  K1, K3, K4 and K11 spread the batch: one thread block per
+// utterance (B = 512 blocks over 132 SMs), threads over states in a
+// strided loop (any S), and a loop over t < len_b inside the block, so
+// the chains of several utterances overlap on each SM; a step needs two
+// block reductions.  K2 goes further: frames in chunks, the chain on one
+// warp an utterance with no barrier, everything that does not depend on
+// the carry out of the chain (its note below).  Loop-invariant operands
+// (the ELLH matrix W, bias, bands) live in shared memory while they fit
+// a block; above that K1, K2 and K11 read Wᵀ from device memory (it stays
+// in L2) and keep their accumulators in device memory, one thread an
+// element (cuda_scan.banded_placement), so every phone loop runs.
 // Every reduction is computed in a fixed order and broadcast to all
 // threads, so the kernels are deterministic run to run.
 //
 // Masks are prefix masks rebuilt from per-utterance lengths; an
 // utterance of length 0 contributes nothing to any sum.
 
+#include "acc_chunks.cuh"
 #include "scan_common.cuh"
 
 namespace {
 
-size_t forward_smem_floats(int s, int p) {
-  return static_cast<size_t>(s) * odd_stride(p) + 7 * static_cast<size_t>(s) + p + 2 * kMaxWarps;
+// K1: W (S, P) in shared memory unless global (then Wᵀ (P, S) is read
+// from device memory).
+size_t forward_smem_floats(int s, int p, bool global) {
+  return (global ? 0 : static_cast<size_t>(s) * odd_stride(p)) + 7 * static_cast<size_t>(s) + p + 2 * kMaxWarps;
 }
 
-// acc: K2 holds the (S, P+1) moments in shared memory; K11 does not.
-size_t estep_smem_floats(int s, int p, int u, bool acc) {
-  return static_cast<size_t>(s) * odd_stride(p) + (acc ? static_cast<size_t>(s) * odd_stride(p + 1) : 0) +
-         static_cast<size_t>(u) * u + 11 * static_cast<size_t>(s) + p + 2 * static_cast<size_t>(u) +
-         2 * kMaxWarps;
+// K11: W and the (U, U) ξ accumulator in shared memory unless global.
+size_t gamma_smem_floats(int s, int p, int u, bool global) {
+  return (global ? 0 : static_cast<size_t>(s) * odd_stride(p) + static_cast<size_t>(u) * u) +
+         11 * static_cast<size_t>(s) + p + 2 * static_cast<size_t>(u) + 2 * kMaxWarps;
 }
 
 // ---------------------------------------------------------------------
@@ -54,11 +59,15 @@ size_t estep_smem_floats(int s, int p, int u, bool acc) {
 // (two block reductions per step) and the P-long ELLH dot per state;
 // α̂ (B, T, S) is the only large write and streams out coalesced.
 // Frames t >= len get α̂ = 0 and norm = 1.
+// Two placements (kGlobal): W in shared memory while it fits a block,
+// else Wᵀ (P, S) read from device memory (a warp reads contiguous
+// states; W stays in L2), picked by cuda_scan.banded_placement.
 // ---------------------------------------------------------------------
+template <bool kGlobal>
 __global__ void forward_llh_banded_kernel(
     const float* __restrict__ stats,  // (B, T, P)
     const int* __restrict__ lens,     // (B,)
-    const float* __restrict__ w,      // (S, P)
+    const float* __restrict__ w,      // (S, P), kGlobal: Wᵀ (P, S)
     const float* __restrict__ bias,   // (S,)
     const float* __restrict__ bands,  // (4, S): a_self, a_adv, exit, w
     const float* __restrict__ init,   // (S,)
@@ -70,7 +79,7 @@ __global__ void forward_llh_banded_kernel(
   extern __shared__ float smem[];
   const int ldw = odd_stride(P);
   float* w_sh = smem;
-  float* bias_sh = w_sh + static_cast<size_t>(S) * ldw;
+  float* bias_sh = w_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldw);
   float* self_sh = bias_sh + S;
   float* adv_sh = self_sh + S;
   float* exit_sh = adv_sh + S;
@@ -80,11 +89,16 @@ __global__ void forward_llh_banded_kernel(
   float* x_sh = v_sh + S;    // stats_t
   float* red = x_sh + P;
 
+  // W(s, p) = w_m[s·w_rs + p·w_cs]
+  const float* w_m = kGlobal ? w : w_sh;
+  const int w_rs = kGlobal ? 1 : ldw, w_cs = kGlobal ? S : 1;
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int len = lens[b];
-  for (int i = tid; i < S * P; i += nt) {
-    const int s = i / P;
-    w_sh[s * ldw + (i - s * P)] = w[i];
+  if (!kGlobal) {
+    for (int i = tid; i < S * P; i += nt) {
+      const int s = i / P;
+      w_sh[s * ldw + (i - s * P)] = w[i];
+    }
   }
   for (int s = tid; s < S; s += nt) {
     bias_sh[s] = bias[s];
@@ -104,9 +118,10 @@ __global__ void forward_llh_banded_kernel(
     __syncthreads();
     float mx = -FLT_MAX, q = 0.f;
     for (int s = tid; s < S; s += nt) {
-      const float* wr = w_sh + s * ldw;
+      const float* wr = w_m + s * w_rs;
       float acc = 0.f;
-      for (int p = 0; p < P; ++p) acc = fmaf(wr[p], x_sh[p], acc);
+#pragma unroll 8
+      for (int p = 0; p < P; ++p) acc = fmaf(wr[p * w_cs], x_sh[p], acc);
       acc += bias_sh[s];
       v_sh[s] = acc;
       mx = fmaxf(mx, acc);
@@ -141,35 +156,35 @@ __global__ void forward_llh_banded_kernel(
 }
 
 // ---------------------------------------------------------------------
-// K2 (kAcc) — accumulating v-space backward (smoothing + moments + loop ξ).
-// Replaces beer_tpu/ops/pallas_scan.py _make_estep_ckpt_acc_kernel_lm
-// (wrapper phone_loop_estep_ckpt_acc_lm, stored-α̂ route).
-// K11 (!kAcc) — the same chain emitting γ (B, T, S) per frame (0 on
-// frames t >= len) instead of reducing it.  Replaces the banded mode of
-// beer_tpu/ops/pallas_scan.py _make_estep_ckpt_kernel_lm (wrapper
-// phone_loop_estep_ckpt_pass_lm with bands, w and bias: the backward of
-// the SVAE's log Z, semiring_scan._logz_stats_lm_bwd_impl); α̂ is read
-// from K1 instead of recomputed from block checkpoints, and the loop ξ
-// is an exact gather instead of a bf16 selection product.  Bound: the
-// serial chain (two block reductions per step) plus P FMAs per state
-// and step for the ELLH; α̂ streams in and γ streams out once, coalesced.
-// Walking t from len−1 down to 0, with llh recomputed from W·stats as
-// K1 does: u1 = final at the last frame, otherwise v̂·a_self +
+// K11 — γ-emitting banded v-space backward (γ, γ₀, loop ξ).
+// Replaces the banded mode of beer_tpu/ops/pallas_scan.py
+// _make_estep_ckpt_kernel_lm (wrapper phone_loop_estep_ckpt_pass_lm with
+// bands, w and bias: the backward of the SVAE's log Z,
+// semiring_scan._logz_stats_lm_bwd_impl); α̂ is read from K1 instead of
+// recomputed from block checkpoints, and the loop ξ is an exact gather
+// instead of a bf16 selection product.  K2 runs the same recursion in
+// chunks of frames (acc_chunks.cuh); this per-frame chain is the next to
+// take that design (ROADMAP P3).
+// Walking t from len−1 down to 0, with llh recomputed from W·stats as K1
+// does: u1 = final at the last frame, otherwise v̂·a_self +
 // shift_up(v̂)·a_adv + (v̂·w)·exit; v = e·u1; v̂ = v / max(Σv, tiny);
-// γ = normalize(α̂·u1); ŵ = v̂; wgt = 1 / (norm·Σ(α̂u1)/Σv).  Reduced in
-// shared memory per utterance: acc (S, P+1) = Σ γ ⊗ [stats, 1] and the
-// loop-back ξ (U, U) += (α̂_t[ends]·wgt_{t+1}) ⊗ ŵ_{t+1}[starts], with
-// ends/starts as int32 index vectors (an exact gather, not a selection
-// product).  Bound: the serial chain plus 2·P shared-memory FMAs per
-// state and step; α̂ is streamed once.  The per-utterance partials
-// (B, [S·(P+1)] + U·U) are summed over the batch by sum_rows_kernel in
-// a fixed order, so the result is deterministic.
+// γ = normalize(α̂·u1), written per frame (0 on frames t >= len); wgt =
+// 1 / (norm·Σ(α̂u1)/Σv); the loop-back ξ (U, U) += (α̂_t[ends]·wgt_{t+1})
+// ⊗ v̂_{t+1}[starts], with ends/starts as int32 index vectors (an exact
+// gather, not a selection product).  Bound: the serial chain (two block
+// reductions per step) plus P FMAs per state and step for the ELLH; α̂
+// streams in and γ streams out once, coalesced.  The per-utterance ξ
+// partials (B, U·U) are summed over the batch by sum_rows_kernel in a
+// fixed order, so the result is deterministic.  Two placements
+// (kGlobal): W and ξ in shared memory, or Wᵀ (P, S) from device memory
+// and ξ in the utterance's row of `part` (each element read and written
+// by one thread), picked by cuda_scan.banded_placement.
 // ---------------------------------------------------------------------
-template <bool kAcc>
-__global__ void estep_banded_kernel(
+template <bool kGlobal>
+__global__ void estep_gamma_banded_kernel(
     const float* __restrict__ stats,   // (B, T, P)
     const int* __restrict__ lens,      // (B,)
-    const float* __restrict__ w,       // (S, P)
+    const float* __restrict__ w,       // (S, P), kGlobal: Wᵀ (P, S)
     const float* __restrict__ bias,    // (S,)
     const float* __restrict__ bands,   // (4, S)
     const float* __restrict__ final_,  // (S,)
@@ -177,16 +192,15 @@ __global__ void estep_banded_kernel(
     const float* __restrict__ norms,   // (B, T)
     const int* __restrict__ ends,      // (U,)
     const int* __restrict__ starts,    // (U,)
-    float* __restrict__ part,          // (B, [S*(P+1)] + U*U)
+    float* __restrict__ part,          // (B, U*U)
     float* __restrict__ gamma0,        // (B, S)
-    float* __restrict__ gamma,         // (B, T, S)  (!kAcc)
+    float* __restrict__ gamma,         // (B, T, S)
     int T, int S, int P, int U) {
   extern __shared__ float smem[];
-  const int ldw = odd_stride(P), lda = odd_stride(P + 1);
+  const int ldw = odd_stride(P);
   float* w_sh = smem;
-  float* acc_sh = w_sh + static_cast<size_t>(S) * ldw;  // kAcc only
-  float* xi_sh = acc_sh + (kAcc ? static_cast<size_t>(S) * lda : 0);
-  float* bias_sh = xi_sh + static_cast<size_t>(U) * U;
+  float* xi_sh = w_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldw);
+  float* bias_sh = xi_sh + (kGlobal ? 0 : static_cast<size_t>(U) * U);
   float* self_sh = bias_sh + S;
   float* adv_sh = self_sh + S;
   float* exit_sh = adv_sh + S;
@@ -204,14 +218,18 @@ __global__ void estep_banded_kernel(
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int len = lens[b];
-  for (int i = tid; i < S * P; i += nt) {
-    const int s = i / P;
-    w_sh[s * ldw + (i - s * P)] = w[i];
+  // W(s, p) = w_m[s·w_rs + p·w_cs]; ξ in shared memory or in this row of part
+  const float* w_m = kGlobal ? w : w_sh;
+  const int w_rs = kGlobal ? 1 : ldw, w_cs = kGlobal ? S : 1;
+  float* out = part + static_cast<size_t>(b) * U * U;
+  float* xi_m = kGlobal ? out : xi_sh;
+  if (!kGlobal) {
+    for (int i = tid; i < S * P; i += nt) {
+      const int s = i / P;
+      w_sh[s * ldw + (i - s * P)] = w[i];
+    }
   }
-  if (kAcc) {
-    for (int i = tid; i < S * lda; i += nt) acc_sh[i] = 0.f;
-  }
-  for (int i = tid; i < U * U; i += nt) xi_sh[i] = 0.f;
+  for (int i = tid; i < U * U; i += nt) xi_m[i] = 0.f;  // element i belongs to thread i mod nt throughout
   for (int s = tid; s < S; s += nt) {
     bias_sh[s] = bias[s];
     self_sh[s] = bands[s];
@@ -228,7 +246,7 @@ __global__ void estep_banded_kernel(
   const float* x_b = stats + static_cast<size_t>(b) * T * P;
   const float* a_b = alpha + static_cast<size_t>(b) * T * S;
   const float* n_b = norms + static_cast<size_t>(b) * T;
-  float* g_b = kAcc ? nullptr : gamma + static_cast<size_t>(b) * T * S;
+  float* g_b = gamma + static_cast<size_t>(b) * T * S;
   float wgt_next = 0.f;  // wgt_{t+1}
 
   for (int t = len - 1; t >= 0; --t) {
@@ -238,9 +256,10 @@ __global__ void estep_banded_kernel(
     __syncthreads();
     float mx = -FLT_MAX, r = 0.f;
     for (int s = tid; s < S; s += nt) {
-      const float* wr = w_sh + s * ldw;
+      const float* wr = w_m + s * w_rs;
       float acc = 0.f;
-      for (int p = 0; p < P; ++p) acc = fmaf(wr[p], x_sh[p], acc);
+#pragma unroll 8
+      for (int p = 0; p < P; ++p) acc = fmaf(wr[p * w_cs], x_sh[p], acc);
       acc += bias_sh[s];
       v_sh[s] = acc;
       mx = fmaxf(mx, acc);
@@ -272,19 +291,13 @@ __global__ void estep_banded_kernel(
     for (int s = tid; s < S; s += nt) {
       const float g = ab_sh[s] / gnorm;
       vh_cur[s] = v_sh[s] / sv;
-      if (kAcc) {
-        float* ar = acc_sh + s * lda;
-        for (int p = 0; p < P; ++p) ar[p] = fmaf(g, x_sh[p], ar[p]);
-        ar[P] += g;
-      } else {
-        g_b[static_cast<size_t>(t) * S + s] = g;
-      }
+      g_b[static_cast<size_t>(t) * S + s] = g;
       if (t == 0) gamma0[static_cast<size_t>(b) * S + s] = g;
     }
     if (!is_last) {
       for (int k = tid; k < U * U; k += nt) {
         const int i = k / U, j = k - i * U;
-        xi_sh[k] = fmaf(a_sh[ends_sh[i]] * wgt_next, vh_prev[starts_sh[j]], xi_sh[k]);
+        xi_m[k] = fmaf(a_sh[ends_sh[i]] * wgt_next, vh_prev[starts_sh[j]], xi_m[k]);
       }
     }
     wgt_next = wgt;
@@ -293,21 +306,22 @@ __global__ void estep_banded_kernel(
     vh_cur = tmp;
   }
   __syncthreads();
-  const int n_acc = kAcc ? S * (P + 1) : 0;
-  float* out = part + static_cast<size_t>(b) * (n_acc + U * U);
-  if (kAcc) {
-    for (int i = tid; i < n_acc; i += nt) {
-      const int s = i / (P + 1);
-      out[i] = acc_sh[s * lda + (i - s * (P + 1))];
-    }
-  } else {
-    for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) g_b[i] = 0.f;
+  for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) g_b[i] = 0.f;
+  if (!kGlobal) {
+    for (int k = tid; k < U * U; k += nt) out[k] = xi_sh[k];
   }
-  for (int k = tid; k < U * U; k += nt) out[n_acc + k] = xi_sh[k];
   if (len == 0) {
     for (int s = tid; s < S; s += nt) gamma0[static_cast<size_t>(b) * S + s] = 0.f;
   }
 }
+
+// ---------------------------------------------------------------------
+// K2 — accumulating banded v-space backward (smoothing + moments + loop ξ):
+// the banded mode of acc_chunks.cuh (frames in chunks, the chain on one
+// warp an utterance, the ELLH and the moment and ξ products around it).
+// Replaces beer_tpu/ops/pallas_scan.py _make_estep_ckpt_acc_kernel_lm
+// (wrapper phone_loop_estep_ckpt_acc_lm, stored-α̂ route).
+// ---------------------------------------------------------------------
 
 // ---------------------------------------------------------------------
 // K3 — banded (max,+) Viterbi forward.
@@ -441,68 +455,66 @@ __global__ void viterbi_backtrace_kernel(
 
 extern "C" {
 
-size_t beer_forward_smem_bytes(int s, int p) { return forward_smem_floats(s, p) * sizeof(float); }
+// global != 0: W read as Wᵀ (P, S) from device memory, and K11's ξ (and
+// K2's moments) in the partial row.
+size_t beer_forward_smem_bytes(int s, int p, int global) {
+  return forward_smem_floats(s, p, global != 0) * sizeof(float);
+}
 
-size_t beer_estep_smem_bytes(int s, int p, int u) { return estep_smem_floats(s, p, u, true) * sizeof(float); }
+size_t beer_estep_smem_bytes(int s, int p, int u, int global, int n_utt, int chunk) {
+  return acc_layout(s, p, u, n_utt, chunk, global != 0).total * sizeof(float);
+}
 
-size_t beer_estep_gamma_smem_bytes(int s, int p, int u) {
-  return estep_smem_floats(s, p, u, false) * sizeof(float);
+size_t beer_estep_gamma_smem_bytes(int s, int p, int u, int global) {
+  return gamma_smem_floats(s, p, u, global != 0) * sizeof(float);
 }
 
 const char* beer_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
-int beer_forward_llh_banded(int device, const float* stats, const int* lens, const float* w, const float* bias,
-                            const float* bands, const float* init, float* alpha, float* norms, float* last,
-                            float* logz, int B, int T, int S, int P, void* stream) {
+int beer_forward_llh_banded(int device, int global, const float* stats, const int* lens, const float* w,
+                            const float* bias, const float* bands, const float* init, float* alpha, float* norms,
+                            float* last, float* logz, int B, int T, int S, int P, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = beer_forward_smem_bytes(S, P);
-  err = set_smem(forward_llh_banded_kernel, smem);
+  const size_t smem = beer_forward_smem_bytes(S, P, global);
+  auto kernel = global ? forward_llh_banded_kernel<true> : forward_llh_banded_kernel<false>;
+  err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   if (B == 0) return cudaSuccess;
-  const int nt = block_threads(forward_llh_banded_kernel, S);
-  forward_llh_banded_kernel<<<B, nt, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, block_threads(kernel, S), smem, static_cast<cudaStream_t>(stream)>>>(
       stats, lens, w, bias, bands, init, alpha, norms, last, logz, T, S, P);
   return cudaGetLastError();
 }
 
-int beer_estep_acc_banded(int device, const float* stats, const int* lens, const float* w, const float* bias,
-                          const float* bands, const float* final_, const float* alpha, const float* norms,
-                          const int* ends, const int* starts, float* part, float* out, float* gamma0, int B,
-                          int T, int S, int P, int U, void* stream) {
+// K2: n_utt utterances a block, chunks of `chunk` frames; part is
+// (ceil(B / n_utt), S·(P+1) + U·U), out = Σ over its rows: acc (S, P+1),
+// then ξ_raw (U, U).  w is Wᵀ with zero rows to (round4(P), S) when global.
+int beer_estep_acc_banded(int device, int global, int n_utt, int chunk, const float* stats, const int* lens,
+                          const float* w, const float* bias, const float* bands, const float* final_,
+                          const float* alpha, const float* norms, const int* ends, const int* starts, float* part,
+                          float* out, float* gamma0, int B, int T, int S, int P, int U, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = beer_estep_smem_bytes(S, P, U);
-  err = set_smem(estep_banded_kernel<true>, smem);
-  if (err != cudaSuccess) return err;
-  const int n = S * (P + 1) + U * U;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0) {
-    const int nt = block_threads(estep_banded_kernel<true>, S);
-    estep_banded_kernel<true><<<B, nt, smem, st>>>(stats, lens, w, bias, bands, final_, alpha, norms, ends, starts,
-                                                   part, gamma0, nullptr, T, S, P, U);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
-  return cudaGetLastError();
+  return launch_acc_chunked<false>(global, n_utt, chunk, stats, lens, w, bias, bands, nullptr, final_, alpha, norms,
+                                   ends, starts, part, out, gamma0, B, T, S, P, U, static_cast<cudaStream_t>(stream));
 }
 
-int beer_estep_gamma_banded(int device, const float* stats, const int* lens, const float* w, const float* bias,
-                            const float* bands, const float* final_, const float* alpha, const float* norms,
-                            const int* ends, const int* starts, float* part, float* out, float* gamma0,
-                            float* gamma, int B, int T, int S, int P, int U, void* stream) {
+// K11: w is Wᵀ (P, S) when global; part is (B, U·U).
+int beer_estep_gamma_banded(int device, int global, const float* stats, const int* lens, const float* w,
+                            const float* bias, const float* bands, const float* final_, const float* alpha,
+                            const float* norms, const int* ends, const int* starts, float* part, float* out,
+                            float* gamma0, float* gamma, int B, int T, int S, int P, int U, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = beer_estep_gamma_smem_bytes(S, P, U);
-  err = set_smem(estep_banded_kernel<false>, smem);
+  const size_t smem = beer_estep_gamma_smem_bytes(S, P, U, global);
+  auto kernel = global ? estep_gamma_banded_kernel<true> : estep_gamma_banded_kernel<false>;
+  err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int n = U * U;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B > 0) {
-    const int nt = block_threads(estep_banded_kernel<false>, S);
-    estep_banded_kernel<false><<<B, nt, smem, st>>>(stats, lens, w, bias, bands, final_, alpha, norms, ends,
-                                                    starts, part, gamma0, gamma, T, S, P, U);
+    kernel<<<B, block_threads(kernel, S), smem, st>>>(stats, lens, w, bias, bands, final_, alpha, norms, ends, starts,
+                                                      part, gamma0, gamma, T, S, P, U);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

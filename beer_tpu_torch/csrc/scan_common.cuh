@@ -99,6 +99,24 @@ __device__ __forceinline__ void block_argmax(float& v, int& idx, float* scratch)
   }
 }
 
+// cp.async of 4 bytes, zero-filled when !valid (src is then not read):
+// a chunk of frames arrives in shared memory while the previous one is
+// worked on.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// all but the newest group (more) or every group (!more) have landed
+__device__ __forceinline__ void cp_async_wait(bool more) {
+  if (more)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__host__ __device__ inline size_t round4(size_t n) { return (n + 3) / 4 * 4; }
+
 // Shared-memory row strides: odd, so that threads walking a column of
 // a row-major array (one row each) hit distinct banks.
 __host__ __device__ inline int odd_stride(int n) { return n | 1; }

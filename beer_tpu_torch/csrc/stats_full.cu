@@ -75,8 +75,6 @@ constexpr int kMaxComp = 256;
 
 enum Kind { kEstep = 0, kEllh = 1, kAcc = 2 };
 
-__host__ __device__ inline size_t round4(size_t n) { return (n + 3) / 4 * 4; }
-
 __host__ __device__ inline int n_lanes(int D) { return D * (D + 1) / 2 + D + 1; }
 
 // K9's and K10's lane table: S(x)_l = x̃_i · x̃_j over the extended frame
@@ -110,14 +108,6 @@ __device__ __forceinline__ void cp_async16z(float* dst, const float* src, int by
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
 }
-
-// 4 bytes, zero-filled when !valid (src is then not read).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 

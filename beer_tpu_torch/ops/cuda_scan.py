@@ -2,10 +2,12 @@
 
 Counterpart of the ``beer_tpu/ops/pallas_scan.py`` kernels on the ported
 paths: the four of the phone-loop AUD main path (K1–K4, banded
-transitions, ``csrc/phone_loop_scan.cu``) and their γ-emitting backward
+transitions, ``csrc/phone_loop_scan.cu``; K2 is the banded mode of the
+chunked backward in ``csrc/acc_chunks.cuh``) and their γ-emitting backward
 K11 (the structured VAE's gradient), the three of the Bayesian
 HMM's E-step over a dense (S, S) transition matrix (K5–K7,
-``csrc/hmm_scan.cu``) with their two further modes (K14: K5 writing the
+``csrc/hmm_scan.cu``; K6's warp instance is the dense mode of
+``acc_chunks.cuh``) with their two further modes (K14: K5 writing the
 row-max shifts; K15: K7 with ξ restricted to a block), and the two of
 the general probability-space path behind ``PhoneLoop.smooth`` (K12
 ``scaled_pass``, K13 ``smoothing_pass``, ``csrc/general_scan.cu``).  The build, the library and the launch counts in
@@ -158,13 +160,13 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     signatures = {
-        "beer_forward_llh_banded": [i] + [p] * 10 + [i] * 4 + [p],
-        "beer_estep_acc_banded": [i] + [p] * 13 + [i] * 5 + [p],
-        "beer_estep_gamma_banded": [i] + [p] * 14 + [i] * 5 + [p],
+        "beer_forward_llh_banded": [i, i] + [p] * 10 + [i] * 4 + [p],
+        "beer_estep_acc_banded": [i, i, i, i] + [p] * 13 + [i] * 5 + [p],
+        "beer_estep_gamma_banded": [i, i] + [p] * 14 + [i] * 5 + [p],
         "beer_viterbi_fwd_banded": [i] + [p] * 7 + [i] * 3 + [p],
         "beer_viterbi_backtrace_banded": [i] + [p] * 6 + [i] * 4 + [p],
         "beer_forward_llh_dense": [i, i, i] + [p] * 10 + [i] * 4 + [p],
-        "beer_estep_acc_dense": [i, i] + [p] * 11 + [i] * 4 + [p],
+        "beer_estep_acc_dense": [i, i, i, i] + [p] * 11 + [i] * 4 + [p],
         "beer_estep_gamma_dense": [i, i] + [p] * 9 + [i] * 3 + [p],
         "beer_forward_llh_shifts_dense": [i, i, i] + [p] * 9 + [i] * 3 + [p],
         "beer_estep_gamma_dense_restricted": [i, i] + [p] * 11 + [i] * 5 + [p],
@@ -179,17 +181,12 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.beer_forward_smem_bytes.argtypes = [i, i]
-    lib.beer_forward_smem_bytes.restype = z
-    for name in ("beer_estep_smem_bytes", "beer_estep_gamma_smem_bytes"):
-        getattr(lib, name).argtypes = [i, i, i]
-        getattr(lib, name).restype = z
-    for name in ("beer_dense_estep_smem_bytes", "beer_scaled_pass_smem_bytes",
-                 "beer_smoothing_smem_bytes"):
-        getattr(lib, name).argtypes = [i, i, i]
-        getattr(lib, name).restype = z
-    for name in ("beer_dense_forward_smem_bytes", "beer_dense_estep_restricted_smem_bytes"):
-        getattr(lib, name).argtypes = [i, i, i, i]
+    smem = {"beer_forward_smem_bytes": 3, "beer_estep_smem_bytes": 6, "beer_estep_gamma_smem_bytes": 4,
+            "beer_dense_estep_smem_bytes": 2, "beer_scaled_pass_smem_bytes": 3,
+            "beer_smoothing_smem_bytes": 3, "beer_dense_forward_smem_bytes": 4,
+            "beer_dense_estep_restricted_smem_bytes": 4, "beer_acc_dense_smem_bytes": 5}
+    for name, n_args in smem.items():
+        getattr(lib, name).argtypes = [i] * n_args
         getattr(lib, name).restype = z
     lib.beer_stats_smem_bytes.argtypes = [i] * 5
     lib.beer_stats_smem_bytes.restype = z
@@ -269,8 +266,8 @@ def dense_smem_bytes(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0
     """Shared memory of one block of a dense kernel (the formulas of
     ``csrc/hmm_scan.cu`` and ``csrc/general_scan.cu``): ``kernel`` one of
     K5 ``forward_llh_dense`` (``p`` > 0 on the stats stream), K14
-    ``forward_llh_shifts_dense``, K6 ``estep_acc_dense`` (``p``), K7
-    ``estep_gamma_dense``, K15 ``estep_gamma_dense_restricted`` (``n_r`` ×
+    ``forward_llh_shifts_dense``, K6 ``estep_acc_dense`` (``p``; its block
+    instance at :func:`backward_chunk`'s chunk), K7 ``estep_gamma_dense``, K15 ``estep_gamma_dense_restricted`` (``n_r`` ×
     ``n_c``), K12 ``scaled_pass`` (the dense forward and reverse) and K13
     ``smoothing_pass`` (dense); ``placement`` "shared" keeps A (and W,
     K6's moments, the ξ accumulator) in shared memory, "global" reads them
@@ -283,10 +280,10 @@ def dense_smem_bytes(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0
     mat = s * _odd(s) if shared else 0
     if kernel in _FORWARD:
         return forward_smem_bytes(s, p, placement, forward_chunk(s, p, placement))
-    elif kernel in _BACKWARD:
+    elif kernel == "estep_acc_dense":
+        return backward_smem_bytes(s, p, placement, backward_chunk(s, p, placement))
+    elif kernel == "estep_gamma_dense":
         floats = 6 * s + 2 * _MAX_WARPS + (mat + s * s if shared else 0)
-        if p > 0:
-            floats += s + p + (s * _odd(p) + s * _odd(p + 1) if shared else 0)
     elif kernel == "estep_gamma_dense_restricted":
         floats = 6 * s + 2 * _MAX_WARPS + n_r + n_c + (mat + n_r * n_c if shared else 0)
     elif kernel == "scaled_pass":
@@ -345,13 +342,68 @@ def forward_instance(s: int, p: int) -> tuple[str, int]:
     return placement, forward_chunk(s, p, placement)
 
 
+BACKWARD_CHUNK = 16        # K6's warp instance: frames a chunk (acc_chunks.cuh kAccChunk)
+BACKWARD_CHUNKS = (16, 8, 4, 2, 1)   # its block instance's chunk lengths (hmm_scan.cu kAccChunkBlock = 16)
+
+
+def backward_utterances(s: int, p: int) -> int:
+    """Utterances a block of K6's warp instance (K2's kernel in its dense
+    mode, ξ over all S states): the most of :data:`ACC_UTTERANCES` whose
+    block fits (1 when none does)."""
+    return next((n for n in ACC_UTTERANCES
+                 if acc_banded_smem_bytes(s, p, s, "shared", n, BACKWARD_CHUNK) <= SMEM_LIMIT), 1)
+
+
+def backward_smem_bytes(s: int, p: int, instance: str, chunk: int = BACKWARD_CHUNK) -> int:
+    """Shared memory of one K6 block.  The warp instance is K2's block in
+    the shared placement with U = S (``acc_chunks.cuh`` ``acc_layout``) at
+    :func:`backward_utterances`' utterances; the block instance
+    (``hmm_scan.cu`` ``acc_block_smem_floats``) holds a two-stage ring of a
+    chunk's statistics and α̂, the chunk's e (with a carry row), α̂u1 and the
+    per-frame scalars at ``chunk`` frames, and in the shared placement A, W,
+    the moments and ξ."""
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    if instance == "warp":
+        return acc_banded_smem_bytes(s, p, s, "shared", backward_utterances(s, p), BACKWARD_CHUNK)
+    c, ldg, ldx = chunk, r4(s), r4(p)
+    floats = 2 * ldg + 2 * c * (ldx + ldg) + (2 * c + 1) * ldg + r4(5 * c + 2) + 2 * _MAX_WARPS
+    if instance == "shared":
+        floats += r4(s * _odd(s)) + r4(s * _odd(p)) + s * r4(p + 1) + s * ldg
+    return 4 * floats
+
+
+def backward_chunk(s: int, p: int, placement: str) -> int:
+    """Frames a chunk of K6's block instance in ``placement``: the most of
+    :data:`BACKWARD_CHUNKS` whose block fits (1 when none does; the launch
+    then refuses it)."""
+    return next((c for c in BACKWARD_CHUNKS if backward_smem_bytes(s, p, placement, c) <= SMEM_LIMIT), 1)
+
+
+def backward_instance(s: int, p: int) -> tuple[str, int]:
+    """K6's launch, (instance, frames a chunk), decided by fit here and
+    nowhere else: ("warp", :data:`BACKWARD_CHUNK`) — K2's kernel in its
+    dense mode: one warp an utterance's chain, A's row in a lane's
+    registers, the carry by shuffles, :func:`backward_utterances` of them
+    a block — for S <= 32 while its block fits; otherwise the block
+    instance, "shared" while A,
+    W, the moments and ξ fit beside a one-frame chunk, "global" above, with
+    :func:`backward_chunk`'s chunk."""
+    if s <= 32 and backward_smem_bytes(s, p, "warp") <= SMEM_LIMIT:
+        return "warp", BACKWARD_CHUNK
+    placement = "shared" if backward_smem_bytes(s, p, "shared", 1) <= SMEM_LIMIT else "global"
+    return placement, backward_chunk(s, p, placement)
+
+
 def dense_placement(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0) -> str:
     """"shared" while a dense kernel's operands fit one block's shared
     memory (:data:`SMEM_LIMIT`), "global" above: every S the reference
     takes runs through the kernel.  K5/K14's comes from
-    :func:`forward_instance` (the warp instance keeps A on chip too)."""
+    :func:`forward_instance`, K6's from :func:`backward_instance` (their
+    warp instances keep A on chip too)."""
     if kernel in _FORWARD:
         return "global" if forward_instance(s, p)[0] == "global" else "shared"
+    if kernel == "estep_acc_dense":
+        return "global" if backward_instance(s, p)[0] == "global" else "shared"
     fits = dense_smem_bytes(kernel, s, p, n_r, n_c, "shared") <= SMEM_LIMIT
     return "shared" if fits else "global"
 
@@ -362,6 +414,77 @@ def _placed(kernel: str, what: str, s: int, p: int = 0, n_r: int = 0, n_c: int =
     placement = dense_placement(kernel, s, p, n_r, n_c)
     _fits(what, dense_smem_bytes(kernel, s, p, n_r, n_c, placement))
     return placement == "global"
+
+
+# ----------------------------------------------------------------------
+# Where the banded kernels keep W and their accumulators
+# ----------------------------------------------------------------------
+ACC_CHUNKS = (16, 8, 4, 2, 1)   # K2's chunk lengths, the most first (phone_loop_scan.cu kAccChunk = 16)
+ACC_UTTERANCES = (4, 2, 1)      # K2's utterances a block, the most first
+# A block that leaves an SM's shared memory (228 KB, 1 KB reserved a block)
+# room for a second one: K2 is launched two blocks an SM where it fits so.
+SMEM_HALF_SM = 233472 // 2 - 1024
+
+
+def acc_banded_smem_bytes(s: int, p: int, u: int, placement: str, n_utt: int = 1,
+                          chunk: int = ACC_CHUNKS[0]) -> int:
+    """Shared memory of one K2 block (``phone_loop_scan.cu`` ``acc_layout``):
+    W, the moments and ξ in the shared placement; the bands; and per
+    utterance a two-stage ring of a chunk's statistics and α̂, the chunk's
+    e (with a carry row), its ξ factors and per-frame sums."""
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    ldx, ldg, ldu = r4(p), r4(s), r4(u)
+    floats = 6 * ldg + r4(2 * u)
+    if placement == "shared":
+        floats += r4(s * (ldx + 1)) + s * r4(p + 1) + u * ldu
+    per = 2 * chunk * (ldx + ldg) + (chunk + 1) * ldg + 2 * chunk * ldu + r4(5 * chunk + 2)
+    return 4 * (floats + n_utt * per)
+
+
+def acc_banded_geometry(s: int, p: int, u: int) -> tuple[str, int, int]:
+    """K2's launch, (placement, utterances a block, frames a chunk), decided
+    by fit here and nowhere else: the longest chunk of :data:`ACC_CHUNKS`
+    that fits; then a block that leaves its SM room for a second one
+    (:data:`SMEM_HALF_SM`) if one fits; then the most utterances a block of
+    :data:`ACC_UTTERANCES` (their chains run side by side), in the
+    "shared" placement (W, the moments and ξ in shared memory) if it fits
+    there, else "global" (("global", 1, 1) when none does; the launch then
+    refuses it).  The chunk comes first, since a short chunk puts a
+    barrier-bound pass over the accumulators on every few frames; two
+    blocks an SM next, since one block's phases then run while the other
+    waits at a barrier (at config 4 two blocks of two utterances beat one
+    of four by 12 %, and one of four beat one of two in the shared
+    placement by 15 %: ``stats_variants.py geometry``, ``k2n_*``)."""
+    for chunk in ACC_CHUNKS:
+        for limit in (SMEM_HALF_SM, SMEM_LIMIT):
+            for n_utt in ACC_UTTERANCES:
+                for placement in ("shared", "global"):
+                    if acc_banded_smem_bytes(s, p, u, placement, n_utt, chunk) <= limit:
+                        return placement, n_utt, chunk
+    return "global", 1, 1
+
+
+def banded_smem_bytes(kernel: str, s: int, p: int, u: int = 0, placement: str = "shared") -> int:
+    """Shared memory of one block of K1 ``forward_llh_banded`` or K11
+    ``estep_gamma_banded`` (the formulas of ``csrc/phone_loop_scan.cu``):
+    "shared" keeps W (and K11's ξ) in shared memory, "global" reads Wᵀ
+    from device memory.  K2's is :func:`acc_banded_smem_bytes`."""
+    if kernel not in ("forward_llh_banded", "estep_gamma_banded"):
+        raise ValueError(f"{kernel} is not a banded scan kernel with one placement flag")
+    shared = placement == "shared"
+    if kernel == "forward_llh_banded":
+        return 4 * ((s * _odd(p) if shared else 0) + 7 * s + p + 2 * _MAX_WARPS)
+    return 4 * ((s * _odd(p) + u * u if shared else 0) + 11 * s + p + 2 * u + 2 * _MAX_WARPS)
+
+
+def banded_placement(kernel: str, s: int, p: int, u: int = 0) -> str:
+    """"shared" while a banded kernel's W (and K2's moments and ξ, K11's ξ)
+    fit one block's shared memory, "global" above: every phone loop the
+    reference takes runs through K1, K2 and K11.  K2's comes from
+    :func:`acc_banded_geometry`."""
+    if kernel == "estep_acc_banded":
+        return acc_banded_geometry(s, p, u)[0]
+    return "shared" if banded_smem_bytes(kernel, s, p, u, "shared") <= SMEM_LIMIT else "global"
 
 
 def _shift_down(x: torch.Tensor) -> torch.Tensor:
@@ -520,12 +643,15 @@ def forward_llh_banded(stats, lens, w, bias, bands, init):
                            ("bands", bands, (4, s)), ("init", init, (s,))):
         _shape(name, x, shape)
     lib = _library()
-    _fits(f"S={s}, P={p_dim}", lib.beer_forward_smem_bytes(s, p_dim))
+    glob = banded_placement("forward_llh_banded", s, p_dim) == "global"
+    _fits(f"S={s}, P={p_dim}", lib.beer_forward_smem_bytes(s, p_dim, int(glob)))
+    if glob:
+        w = w.T.contiguous()
     alpha = torch.empty(b, t_len, s, device=dev)
     norms = torch.empty(b, t_len, device=dev)
     last = torch.empty(b, s, device=dev)
     logz = torch.empty(b, device=dev)
-    _launch(lib.beer_forward_llh_banded, dev.index, *map(_ptr, (
+    _launch(lib.beer_forward_llh_banded, dev.index, int(glob), *map(_ptr, (
         stats, lens, w, bias, bands, init, alpha, norms, last, logz)),
         b, t_len, s, p_dim, _stream(dev))
     KERNELS["forward_llh_banded"].launches += 1
@@ -588,12 +714,16 @@ def estep_acc_banded(stats, lens, w, bias, bands, final, alpha, norms, ends, sta
                                                      norms, ends, starts)
     dev = stats.device
     lib = _library()
-    _fits(f"S={s}, P={p_dim}, U={n_u}", lib.beer_estep_smem_bytes(s, p_dim, n_u))
+    placement, n_utt, chunk = acc_banded_geometry(s, p_dim, n_u)
+    glob = placement == "global"
+    _fits(f"S={s}, P={p_dim}, U={n_u}", lib.beer_estep_smem_bytes(s, p_dim, n_u, int(glob), n_utt, chunk))
+    if glob:   # Wᵀ with zero rows to a multiple of four
+        w = torch.nn.functional.pad(w, (0, -p_dim % 4)).T.contiguous()
     width = s * (p_dim + 1) + n_u * n_u
-    part = torch.empty(b, width, device=dev)
+    part = torch.empty(-(-b // n_utt), width, device=dev)     # a row a block of n_utt utterances
     out = torch.empty(width, device=dev)
     gamma0 = torch.empty(b, s, device=dev)
-    _launch(lib.beer_estep_acc_banded, dev.index, *map(_ptr, (
+    _launch(lib.beer_estep_acc_banded, dev.index, int(glob), n_utt, chunk, *map(_ptr, (
         stats, lens, w, bias, bands, final, alpha, norms, ends, starts, part, out, gamma0)),
         b, t_len, s, p_dim, n_u, _stream(dev))
     KERNELS["estep_acc_banded"].launches += 1
@@ -627,12 +757,15 @@ def estep_gamma_banded(stats, lens, w, bias, bands, final, alpha, norms, ends, s
                                                      norms, ends, starts)
     dev = stats.device
     lib = _library()
-    _fits(f"S={s}, P={p_dim}, U={n_u}", lib.beer_estep_gamma_smem_bytes(s, p_dim, n_u))
+    glob = banded_placement("estep_gamma_banded", s, p_dim, n_u) == "global"
+    _fits(f"S={s}, P={p_dim}, U={n_u}", lib.beer_estep_gamma_smem_bytes(s, p_dim, n_u, int(glob)))
+    if glob:
+        w = w.T.contiguous()
     part = torch.empty(b, n_u * n_u, device=dev)
     out = torch.empty(n_u * n_u, device=dev)
     gamma0 = torch.empty(b, s, device=dev)
     gamma = torch.empty(b, t_len, s, device=dev)
-    _launch(lib.beer_estep_gamma_banded, dev.index, *map(_ptr, (
+    _launch(lib.beer_estep_gamma_banded, dev.index, int(glob), *map(_ptr, (
         stats, lens, w, bias, bands, final, alpha, norms, ends, starts, part, out, gamma0, gamma)),
         b, t_len, s, p_dim, n_u, _stream(dev))
     KERNELS["estep_gamma_banded"].launches += 1
@@ -850,14 +983,16 @@ def estep_acc_dense(stats, lens, w, bias, trans, final, alpha, norms):
                            ("alpha", alpha, (b, t_len, s)), ("norms", norms, (b, t_len))):
         _shape(name, x, shape)
     lib = _library()
-    glob = _placed("estep_acc_dense", f"S={s}, P={p_dim}", s, p_dim)
-    if glob:
+    instance, chunk = backward_instance(s, p_dim)
+    _fits(f"S={s}, P={p_dim}", backward_smem_bytes(s, p_dim, instance, chunk))
+    if instance == "global":
         w, trans = w.T.contiguous(), trans.T.contiguous()
     width = s * (p_dim + 1) + s * s
-    part = torch.empty(b, width, device=dev)
+    n_utt = backward_utterances(s, p_dim) if instance == "warp" else 1
+    part = torch.empty(-(-b // n_utt), width, device=dev)    # a row a block
     out = torch.empty(width, device=dev)
     gamma0 = torch.empty(b, s, device=dev)
-    _launch(lib.beer_estep_acc_dense, dev.index, int(glob), *map(_ptr, (
+    _launch(lib.beer_estep_acc_dense, dev.index, _INSTANCES.index(instance), chunk, n_utt, *map(_ptr, (
         stats, lens, w, bias, trans, final, alpha, norms, part, out, gamma0)),
         b, t_len, s, p_dim, _stream(dev))
     KERNELS["estep_acc_dense"].launches += 1

@@ -27,7 +27,10 @@ from fixed seeds, in eighteen phases, each printing one line:
 2. build: compiles the hand-written CUDA kernels from the sources in
    ``beer_tpu_torch/csrc`` and loads them;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it (plus two zero-length rows);
+   at the shapes the main path gives it (plus two zero-length rows); K2
+   alone (profiler device time of its kernel and batch sum) and wrapped,
+   beside the unfused route (K11 + γᵀ·stats, TF32 off), held to the same
+   tolerances;
 4. slice: 5 VB-EM steps and a unit decode through the kernels, with the
    launch counters read around that run; the ELBO must be finite and
    non-decreasing and match the plain route's; a small problem is held
@@ -36,7 +39,8 @@ from fixed seeds, in eighteen phases, each printing one line:
    kernel route beside plain route;
 6. hmm kernels: K5–K7 (dense transitions) against their plain versions
    at the config-2 and config-3 shapes (plus two zero-length rows, and
-   per-row final vectors with padding states), with CUDA-event medians;
+   per-row final vectors with padding states), with CUDA-event medians,
+   K5 and K6 also alone (profiler device time);
 7. hmm slice: per config, 5 VB-EM steps, a decode, the posteriors and
    the ξ counts through the kernels with the launch counters read
    around that run, the same on the plain route; the ELBO must be
@@ -112,7 +116,13 @@ from fixed seeds, in eighteen phases, each printing one line:
    all read their operands from device memory); then a VB step, the
    posteriors and the ξ counts of that HMM at S = 300 and of a shared
    60-phone × 3-state transcription chain (S = 180) through the kernels,
-   with the launch counters read around them, against the plain route.
+   with the launch counters read around them, against the plain route;
+   then K1, K2 and K11 against their plain versions on phone loops of
+   100 units (S = 300, above the 95 that K2 first took) and 250 units (S
+   = 750: K1 and K11 in their global placement too), and two VB steps of
+   the 100-unit loop through K1 + K2 against the plain route (ELBOs
+   within 1e-4/frame; the second reads the update K2's statistics
+   made), their launches read around them.
 
 K8–K10 are timed twice in phase 9: ``ms`` is the kernel alone (the bare
 foreign call on operands packed and a launch geometry computed in
@@ -237,6 +247,30 @@ def device_ms(fn, name, reps=REPS):
     return sum(e.self_device_time_total for e in seen) / count / 1e3
 
 
+def entry_ms(fn, names, reps=KERNEL_REPS):
+    """Device ms a call of ``fn`` spends in the kernels whose names contain
+    one of ``names`` (``torch.profiler`` over ``reps`` calls after one
+    warm-up): a C entry point's kernels (a scan kernel and its batch sum)
+    without the wrapper's host work and tensor preparation."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if any(n in e.key for n in names)]
+    check(len(seen) > 0, f"the profiler saw no kernel named {names}")
+    return sum(e.self_device_time_total for e in seen) / reps / 1e3
+
+
+def unfused_estep(est):
+    """K2's outputs through the unfused route, K11's γ reduced by one
+    product, as ``PhoneLoop.accumulate``'s gradient route takes it."""
+    gamma, gamma0, xi = cuda_scan.estep_gamma_banded(*est)
+    g = gamma.flatten(0, 1)
+    return g.T @ est[0].flatten(0, 1), g.sum(0), gamma0, xi
+
+
 def rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
@@ -250,6 +284,17 @@ def bound(n_bytes, flops):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_peak="float32 FFMA 67 TFLOP/s; 3.35 TB/s")
+
+
+def forward_dense_bound(lens, t_len, s, p_dim=0):
+    """K5's least time on these inputs (:func:`bound`): each valid frame's
+    statistics (``p_dim`` > 0) or llh read once, α̂ and the norms written
+    for every frame, A (and W) and init/last once; FMAs of the ELLH (2·S·P
+    a frame), the propagate (2·S²) and the rest (4·S)."""
+    b, nv = lens.shape[0], float(lens.sum())
+    width = p_dim or s
+    return bound(4 * (nv * width + b * t_len * (s + 1) + s * (s + p_dim) + 2 * b * s),
+                 nv * (2 * s * p_dim + 2 * s * s + 4 * s))
 
 
 def plain_twin(model):
@@ -275,25 +320,46 @@ def phase_build():
     path = cuda_scan.build()
     cuda_scan._library()
     print(f"phase 2 build: {time.time() - t0:.1f} s -> {path.name}")
+    entry = ""
     for line in path.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            print("  ptxas", line.strip())
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif "Used" in line or "spill" in line:
+            print(f"  ptxas {entry}: {line.strip().removeprefix('ptxas info    : ')}")
 
 
-def phase_kernels(dev):
-    """Each kernel against its plain version at the main path's shapes."""
-    data, mask = make_data(B, T, D)
-    data = np.concatenate([data, np.zeros((2, T, D), np.float32)])  # two zero-length rows
-    mask = np.concatenate([mask, np.zeros((2, T), np.float32)])
+def with_empty_rows(data, mask):
+    """The bench's data with two zero-length rows appended."""
+    t = data.shape[1]
+    return (np.concatenate([data, np.zeros((2, t, data.shape[2]), np.float32)]),
+            np.concatenate([mask, np.zeros((2, t), np.float32)]))
+
+
+def banded_operands(dev):
+    """Config 4's kernel operands (plus two zero-length rows): the loop,
+    its statistics and scan operands, K1's arguments and the mask."""
+    data, mask = with_empty_rows(*make_data(B, T, D))
     x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
     loop = config4(dev)
     stats = loop.sufficient_statistics(x).contiguous()
     ops = loop.scan_operands(stats, m)
+    fwd = (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["init"])
+    return loop, stats, ops, fwd, m
+
+
+def banded_estep_args(stats, ops, alpha, norms):
+    """K2's (and K11's) arguments after K1's ``alpha`` and ``norms``."""
+    return (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["final"], alpha, norms,
+            ops["ends"], ops["starts"])
+
+
+def phase_kernels(dev):
+    """Each kernel against its plain version at the main path's shapes."""
+    loop, stats, ops, fwd, m = banded_operands(dev)
     full = ops["lens"] > 0
     tiny = torch.finfo(torch.float32).tiny
     out = {}
 
-    fwd = (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["init"])
     k1 = cuda_scan.forward_llh_banded(*fwd)
     p1 = cuda_scan.forward_llh_banded_plain(*fwd)
     logz = [o[3] + torch.log((o[2] * ops["final"]).sum(-1).clamp_min(tiny)) for o in (k1, p1)]
@@ -310,8 +376,7 @@ def phase_kernels(dev):
         plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded_plain(*fwd)),
         **bound(4 * (nv * p_dim + b * t_len * (s + 1) + s * p_dim), nv * (2 * s * p_dim + 8 * s)))
 
-    est = (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["final"], k1[0], k1[1],
-           ops["ends"], ops["starts"])
+    est = banded_estep_args(stats, ops, k1[0], k1[1])
     k2 = cuda_scan.estep_acc_banded(*est)
     p2 = cuda_scan.estep_acc_banded_plain(*est)
     for name, i in (("acc2", 0), ("counts", 1), ("xi", 3)):
@@ -319,9 +384,16 @@ def phase_kernels(dev):
         check(e <= 1e-4, f"estep {name} rel {e}")
     e_g0 = float((k2[2] - p2[2]).abs().max())
     check(e_g0 <= 1e-5, f"estep gamma0 abs {e_g0}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the unfused route's product")
+    u2 = unfused_estep(est)
+    e_unfused = max(rel(u2[i], p2[i]) for i in (0, 1, 3))
+    check(e_unfused <= 1e-4, f"unfused route rel {e_unfused}")
     out["estep_acc_banded"] = dict(
         max_abs_err=float((k2[0] - p2[0]).abs().max()),
-        ms=cuda_ms(lambda: cuda_scan.estep_acc_banded(*est)),
+        geometry=list(cuda_scan.acc_banded_geometry(s, p_dim, n_u)),
+        ms=entry_ms(lambda: cuda_scan.estep_acc_banded(*est), ("estep_acc", "sum_rows")),
+        wrapper_ms=cuda_ms(lambda: cuda_scan.estep_acc_banded(*est)),
+        unfused_ms=cuda_ms(lambda: unfused_estep(est)),
         plain_ms=cuda_ms(lambda: cuda_scan.estep_acc_banded_plain(*est)),
         **bound(4 * (nv * (p_dim + s + 1) + 2 * s * p_dim + b * s + n_u * n_u),
                 nv * (4 * s * p_dim + 2 * n_u * n_u + 12 * s)))
@@ -356,8 +428,12 @@ def phase_kernels(dev):
         plain_ms=cuda_ms(lambda: cuda_scan.viterbi_backtrace_banded_plain(*back)),
         **bound(5 * nv + 4 * b * t_len + 4 * b * s, 2 * nv))
     torch.cuda.synchronize()
+    k2r = out["estep_acc_banded"]
     print("phase 3 kernels: " + "; ".join(
         f"{k} ok (max_abs_err {v['max_abs_err']:.3g})" for k, v in out.items())
+        + f" | estep_acc_banded {tuple(k2r['geometry'])} alone {k2r['ms']:.3f} ms, wrapped "
+          f"{k2r['wrapper_ms']:.3f} ms; unfused route (estep_gamma_banded + one product) "
+          f"{k2r['unfused_ms']:.3f} ms, rel {e_unfused:.3g}"
         + " | tol: log Z rel 1e-5; acc2/counts/xi rel 1e-4; gamma0 abs 1e-5; "
           "paths >= 99.9% of valid frames; scores rel 1e-6")
     return out
@@ -483,22 +559,27 @@ def hmm_operands(hmm, x, m):
     return stats.contiguous(), cache
 
 
+def dense_operands(dev):
+    """Config 2's kernel operands (plus two zero-length rows, and per-row
+    final vectors with padding states): the statistics, the HMM's cache,
+    ``final`` and K5's arguments."""
+    data, mask = with_empty_rows(*make_data(B, T, D))
+    x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    hmm = config2(dev)
+    stats, c = hmm_operands(hmm, x, m)
+    final = c["final"].clone()
+    final[: B // 4, -5:] = 0.0
+    init = torch.exp(hmm.graph_log_init).expand_as(final).contiguous()
+    return stats, c, final, (stats, c["lens"], c["trans"], init, c["w"], c["bias"])
+
+
 def phase_hmm_kernels(dev):
     """K5–K7 against their plain versions at the config-2/3 shapes."""
     out = {}
     tiny = torch.finfo(torch.float32).tiny
     # config 2 (stats route): K5 with in-kernel ELLH, K6
-    data, mask = make_data(B, T, D)
-    data = np.concatenate([data, np.zeros((2, T, D), np.float32)])  # two zero-length rows
-    mask = np.concatenate([mask, np.zeros((2, T), np.float32)])
-    x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
-    hmm = config2(dev)
-    stats, c = hmm_operands(hmm, x, m)
+    stats, c, final, fwd = dense_operands(dev)
     full = c["lens"] > 0
-    final = c["final"].clone()
-    final[: B // 4, -5:] = 0.0                # per-row final vectors with padding states
-    init = torch.exp(hmm.graph_log_init).expand_as(final).contiguous()
-    fwd = (stats, c["lens"], c["trans"], init, c["w"], c["bias"])
     k5 = cuda_scan.forward_llh_dense(*fwd)
     p5 = cuda_scan.forward_llh_dense_plain(*fwd)
     logz = [o[3] + torch.log((o[2] * final).sum(-1).clamp_min(tiny)) for o in (k5, p5)]
@@ -515,8 +596,7 @@ def phase_hmm_kernels(dev):
         ms=device_ms(lambda: cuda_scan.forward_llh_dense(*fwd), "forward_llh"),
         wrapper_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd)),
         plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd)),
-        **bound(4 * (nv * p_dim + b * t_len * (s + 1) + s * (s + p_dim) + 2 * b * s),
-                nv * (2 * s * p_dim + 2 * s * s + 4 * s)))
+        **forward_dense_bound(c["lens"], t_len, s, p_dim))
     est = (stats, c["lens"], c["w"], c["bias"], c["trans"], final, k5[0], k5[1])
     k6 = cuda_scan.estep_acc_dense(*est)
     p6 = cuda_scan.estep_acc_dense_plain(*est)
@@ -526,7 +606,9 @@ def phase_hmm_kernels(dev):
     check(float((k6[2] - p6[2]).abs().max()) <= 1e-5, "dense estep gamma0")
     out["estep_acc_dense"] = dict(
         max_abs_err=float((k6[0] - p6[0]).abs().max()),
-        ms=cuda_ms(lambda: cuda_scan.estep_acc_dense(*est)),
+        instance=list(cuda_scan.backward_instance(HMM_S, p_dim)),
+        ms=entry_ms(lambda: cuda_scan.estep_acc_dense(*est), ("estep_acc", "sum_rows")),
+        wrapper_ms=cuda_ms(lambda: cuda_scan.estep_acc_dense(*est)),
         plain_ms=cuda_ms(lambda: cuda_scan.estep_acc_dense_plain(*est)),
         **bound(4 * (nv * (p_dim + s + 1) + s * (2 * s + 2 * p_dim + 1) + 2 * b * s),
                 nv * (4 * s * p_dim + 4 * s * s + 10 * s)))
@@ -566,7 +648,8 @@ def phase_hmm_kernels(dev):
                 nv * (4 * s * s + 10 * s)))
     llh_fwd = dict(ms=device_ms(lambda: cuda_scan.forward_llh_dense(*fwd3), "forward_llh"),
                    wrapper_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd3)),
-                   plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd3)))
+                   plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd3)),
+                   **forward_dense_bound(c["lens"], t_len, s))
     out["forward_llh_dense"]["config3"] = llh_fwd
     torch.cuda.synchronize()
     print("phase 6 hmm kernels: " + "; ".join(
@@ -574,6 +657,8 @@ def phase_hmm_kernels(dev):
         f"{v['plain_ms']:.3f} ms)" for k, v in out.items())
         + f" | forward_llh_dense ({out['forward_llh_dense']['instance']} instance) alone "
           f"{out['forward_llh_dense']['ms']:.3f} ms, wrapped {out['forward_llh_dense']['wrapper_ms']:.3f} ms"
+        + f" | estep_acc_dense ({out['estep_acc_dense']['instance'][0]} instance) alone "
+          f"{out['estep_acc_dense']['ms']:.3f} ms, wrapped {out['estep_acc_dense']['wrapper_ms']:.3f} ms"
         + f" | on the config-3 llh stream {llh_fwd['ms']:.3f} ms alone, "
           f"{llh_fwd['wrapper_ms']:.3f} ms wrapped vs plain {llh_fwd['plain_ms']:.3f} ms, log Z rel {e5b:.3g}"
         + " | tol: log Z rel 1e-5; alpha, gamma, gamma0 abs 1e-5; acc2/counts/xi rel 1e-4")
@@ -1700,6 +1785,8 @@ def phase_gsm_times(dev, runs, kernel_rows):
 LARGE_S, LARGE_B, LARGE_T = 300, 64, 200   # an ergodic HMM above every dense kernel's limit
 SHARED_S = 150                             # the same at a size whose operands mostly fit a block
 CHAIN_PHONES, CHAIN_T = 60, 240            # a shared chain of 60 phones × 3 states (S = 180)
+LOOP_UNITS = 100                           # a phone loop above K2's first limit (95 units): S = 300
+BIG_LOOP_UNITS = 250                       # S = 750: K1 and K11 in their global placement too
 
 
 def dense_rows(hmm, x, m):
@@ -1725,8 +1812,7 @@ def dense_rows(hmm, x, m):
         max_abs_err=float((logz[0][full] - logz[1][full]).abs().max()),
         ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd)),
         plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd), reps=3),
-        **bound(4 * (nv * p_dim + b * t_len * (s + 1) + s * (s + p_dim) + 2 * b * s),
-                nv * (2 * s * p_dim + 2 * s * s + 4 * s)))
+        **forward_dense_bound(lens, t_len, s, p_dim))
     est = (stats, lens, c["w"], c["bias"], trans, final, k5[0], k5[1])
     k6, p6 = cuda_scan.estep_acc_dense(*est), cuda_scan.estep_acc_dense_plain(*est)
     errs["estep_acc_dense"] = dict(acc2=rel(k6[0], p6[0]), counts=rel(k6[1], p6[1]),
@@ -1784,6 +1870,56 @@ def dense_rows(hmm, x, m):
     return rows, errs
 
 
+def banded_rows(loop, x, m):
+    """K1, K2 and K11 on a phone loop's operands against their plain
+    versions, each row with the placement (K2: the geometry) its wrapper
+    took; returns the rows and the errors."""
+    stats = loop.sufficient_statistics(x).contiguous()
+    ops = loop.scan_operands(stats, m)
+    fwd = (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["init"])
+    full = ops["lens"] > 0
+    tiny = torch.finfo(torch.float32).tiny
+    b, t_len, p_dim = stats.shape
+    s, n_u = ops["w"].shape[0], ops["ends"].shape[0]
+    nv = float(ops["lens"].sum())
+    k1, p1 = cuda_scan.forward_llh_banded(*fwd), cuda_scan.forward_llh_banded_plain(*fwd)
+    logz = [o[3] + torch.log((o[2] * ops["final"]).sum(-1).clamp_min(tiny)) for o in (k1, p1)]
+    errs = {"forward_llh_banded": dict(log_z=rel(logz[0][full], logz[1][full]),
+                                       alpha=float((k1[0] - p1[0]).abs().max()))}
+    est = banded_estep_args(stats, ops, k1[0], k1[1])
+    k2, p2 = cuda_scan.estep_acc_banded(*est), cuda_scan.estep_acc_banded_plain(*est)
+    errs["estep_acc_banded"] = dict(acc2=rel(k2[0], p2[0]), counts=rel(k2[1], p2[1]), xi=rel(k2[3], p2[3]),
+                                    gamma0=float((k2[2] - p2[2]).abs().max()))
+    k11, p11 = cuda_scan.estep_gamma_banded(*est), cuda_scan.estep_gamma_banded_plain(*est)
+    errs["estep_gamma_banded"] = dict(gamma=float((k11[0] - p11[0]).abs().max()),
+                                      gamma0=float((k11[1] - p11[1]).abs().max()), xi=rel(k11[2], p11[2]))
+    for name, e in errs.items():
+        check(all(v <= (1e-4 if k in ("acc2", "counts", "xi") else 1e-5) for k, v in e.items()),
+              f"{name} at {n_u} units (S={s}): {e}")
+    rows = {
+        "forward_llh_banded": dict(
+            max_abs_err=float((logz[0][full] - logz[1][full]).abs().max()),
+            ms=cuda_ms(lambda: cuda_scan.forward_llh_banded(*fwd)),
+            plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded_plain(*fwd), reps=3),
+            **bound(4 * (nv * p_dim + b * t_len * (s + 1) + s * p_dim), nv * (2 * s * p_dim + 8 * s))),
+        "estep_acc_banded": dict(
+            max_abs_err=float((k2[0] - p2[0]).abs().max()),
+            ms=cuda_ms(lambda: cuda_scan.estep_acc_banded(*est)),
+            plain_ms=cuda_ms(lambda: cuda_scan.estep_acc_banded_plain(*est), reps=3),
+            **bound(4 * (nv * (p_dim + s + 1) + 2 * s * p_dim + b * s + n_u * n_u),
+                    nv * (4 * s * p_dim + 2 * n_u * n_u + 12 * s))),
+        "estep_gamma_banded": dict(
+            max_abs_err=errs["estep_gamma_banded"]["gamma"],
+            ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded(*est)),
+            plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded_plain(*est), reps=3),
+            **bound(4 * (nv * (p_dim + s + 1) + b * t_len * s + s * (p_dim + 6) + b * s + n_u * n_u),
+                    nv * (2 * s * p_dim + 12 * s + 2 * n_u * n_u)))}
+    for name, row in rows.items():
+        row["placement"] = (cuda_scan.banded_placement(name, s, p_dim, n_u) if name != "estep_acc_banded"
+                            else "_".join(map(str, cuda_scan.acc_banded_geometry(s, p_dim, n_u))))
+    return rows, errs
+
+
 def large_estep(model, x, m):
     """log Z, posteriors and ξ counts of one E-step, then the ELBO of one
     VB step (the model is updated)."""
@@ -1801,7 +1937,12 @@ def phase_large_dense(dev):
     but K6's at P = 78), then the paths: a VB step, the posteriors and the
     ξ counts of the ergodic HMM at S = 300 and of a 60-phone × 3-state
     shared transcription chain (S = 180, llh route), with the launch
-    counters read around them, against the plain route."""
+    counters read around them, against the plain route; last, phone loops
+    above the banded kernels' shared limits: K1, K2 and K11 against their
+    plain versions at 100 units (S = 300: K2 global) and 250 (S = 750: all
+    three global), then two VB steps of the 100-unit loop through K1 + K2
+    against the plain route (the second step's ELBO reads the statistics
+    K2 gave the first update), its launches read around them."""
     data, mask = make_data(LARGE_B, LARGE_T, D, seed=8)
     x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
     rows, errs = {}, {}
@@ -1834,6 +1975,35 @@ def phase_large_dense(dev):
         g = gaps[name]
         check(g["log_z"] <= 1e-5 and g["gamma"] <= 1e-5 and g["xi"] <= 1e-4 and g["elbo"] <= 1e-5,
               f"{name}: kernel vs plain route {g}")
+    # phone loops above the banded kernels' shared limits (P = 78): each kernel
+    # against its plain version, then two VB steps through K1 + K2
+    loop_rows = {}
+    for units in (LOOP_UNITS, BIG_LOOP_UNITS):
+        loop_rows[units], errs[f"loop{units}"] = banded_rows(config4(dev, n_units=units), x, m)
+    check(all(loop_rows[BIG_LOOP_UNITS][k]["placement"] == "global"
+              for k in ("forward_llh_banded", "estep_gamma_banded")),
+          f"{BIG_LOOP_UNITS} units: K1 and K11 take the global placement")
+    loop = config4(dev, n_units=LOOP_UNITS)
+    twin = plain_twin(loop)
+    geometry = cuda_scan.acc_banded_geometry(3 * LOOP_UNITS, 2 * D, LOOP_UNITS)
+    cuda_scan.reset_launch_counts()
+    elbos = []
+    for _ in range(2):
+        elbo, loop = bt.vb_step(loop, x, mask=m)
+        elbos.append(float(elbo))
+    torch.cuda.synchronize()
+    loop_launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if v.launches}
+    check(loop_launches == {"forward_llh_banded": 2, "estep_acc_banded": 2},
+          f"the 100-unit loop's VB steps: launches {loop_launches}")
+    for k, n in loop_launches.items():
+        launches[k] += n
+    frames = float(m.sum())
+    want = []
+    for _ in range(2):
+        elbo, twin = bt.vb_step(twin, x, mask=m)
+        want.append(float(elbo))
+    gaps["loop100"] = dict(elbo_per_frame=max(abs(a - b) for a, b in zip(elbos, want)) / frames)
+    check(gaps["loop100"]["elbo_per_frame"] <= 1e-4, f"the 100-unit loop: kernel vs plain route {gaps['loop100']}")
     torch.cuda.synchronize()
 
     def fmt(v):
@@ -1845,10 +2015,18 @@ def phase_large_dense(dev):
                         for s, r in rows.items())
           + f" | paths (ergodic S={LARGE_S}, chain S={CHAIN_PHONES * REC_SPP} T<={CHAIN_T}) launches "
           + json.dumps({k: v for k, v in launches.items() if v})
+          + " || phone loops: " + " || ".join(
+              f"{u} units (S={3 * u}): " + "; ".join(f"{k} {fmt(v)}" for k, v in r.items())
+              + " errors " + json.dumps({k: {n: float(f"{e:.3g}") for n, e in v.items()}
+                                         for k, v in errs[f"loop{u}"].items()})
+              for u, r in loop_rows.items())
+          + f" | {LOOP_UNITS}-unit phone loop (S={3 * LOOP_UNITS}, K2 {geometry}) 2 VB steps launches "
+          + json.dumps(loop_launches)
           + " vs plain route " + json.dumps({k: {n: float(f"{e:.3g}") for n, e in v.items()}
                                              for k, v in gaps.items()})
-          + " | tol: log Z, ELBO rel 1e-5; alpha, gamma, gamma0 abs 1e-5; statistics, xi rel 1e-4")
-    return rows, launches
+          + " | tol: log Z, ELBO rel 1e-5; alpha, gamma, gamma0 abs 1e-5; statistics, xi rel 1e-4; "
+            "the loop's ELBOs 1e-4/frame")
+    return rows, launches, loop_rows
 
 
 def main() -> int:
@@ -1879,7 +2057,7 @@ def main() -> int:
     gsm_launches, gsm_runs = phase_gsm_slice(dev)
     launches = {k: launches.get(k, 0) + n for k, n in gsm_launches.items()}
     phase_gsm_times(dev, gsm_runs, instances)
-    large, large_launches = phase_large_dense(dev)
+    large, large_launches, loop_rows = phase_large_dense(dev)
     launches = {k: launches.get(k, 0) + n for k, n in large_launches.items()}
     # K12/K13's rows: the banded instance, which PhoneLoop.smooth takes, with
     # every instance's numbers beside it; K14/K15's: config 4's shape
@@ -1897,6 +2075,10 @@ def main() -> int:
             inst = ("dense_reverse_" if name == "scaled_pass_reverse"
                     else "dense_" if kernel in ("scaled_pass", "smoothing_pass") else "")
             kernels[kernel].setdefault("instances", {})[f"{inst}{row['placement']}_s{s}"] = row
+    # the banded kernels on the large phone loops (phase 18), named by placement
+    for units, rows in loop_rows.items():
+        for name, row in rows.items():
+            kernels[name].setdefault("instances", {})[f"{row['placement']}_u{units}"] = row
     rows = [dict(name=k, route="cuda", source=cuda_scan.KERNELS[k].source,
                  replaces=REPLACES[k], launches=launches[k], **{"library_ms": None, **v})
             for k, v in kernels.items()]

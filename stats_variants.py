@@ -2,7 +2,8 @@
 """Time variants of the full-covariance kernels K9 and K10 alone on one GPU.
 
     python3 stats_variants.py [variant ...]
-    python3 stats_variants.py probe
+    python3 stats_variants.py probe | times | b2 | geometry | vb
+    python3 stats_variants.py --sources DIR k2_* | k6_*
 
 ``probe`` is the 3×TF32 probe that decided K8's arithmetic (see
 :func:`probe`); it builds no variant.  ``times`` times K8 alone at config
@@ -13,6 +14,22 @@ revision, times that revision's kernels.  The ``k8_*`` variants (of
 ``hmm_scan.cu``) K5 alone at configs 2 and 3, at S = 300 and near the
 shared placement's limit, in each instance and chunk length the launch
 can be given.
+
+B2, the accumulating backward (K2 banded at config 4, K6 dense at config
+2): ``b2`` times K2, K6 (also at phase 18's S = 150 and 300), K11, K7,
+K15 and K1 (configs 4 and 5) through this checkout's wrappers, split by
+kernel in profiler device time (so that the batch sum,
+``sum_rows_kernel``, shows apart), and the unfused route at config 4
+(K11 + γᵀ·stats); like ``times`` it runs on any revision, and so does
+``vb``, one ``vb_step`` of configs 4 and 2.  ``geometry`` times the
+redesigned K2 in each launch geometry and K6 in each instance.  The
+``k2n_*`` / ``k6n_*`` variants take stages out of the redesigned kernels
+(their anatomy) or change a knob.  The ``k2_*`` / ``k6_*`` variants take
+the same stages out of K2 and K6 as they stood before their redesign
+(``PERF.md``'s anatomy of the parent): they edit that revision's
+sources, so they take ``--sources DIR``, DIR holding its
+``beer_tpu_torch/csrc`` (``git archive 53a1783 beer_tpu_torch/csrc``),
+and stop with that hint on any other.
 
 Each variant is ``beer_tpu_torch/csrc/stats_full.cu`` with a few text
 substitutions (a design knob changed or one stage removed), built with
@@ -125,10 +142,106 @@ K5_VARIANTS = {
     "k5_no_chain": ([("    for (int f = 0; f < nf; ++f) {\n      const int t = f0 + f;\n      float base;",
                       "    for (int f = 0; f < 0; ++f) {\n      const int t = f0 + f;\n      float base;")], False),
 }
+# K2 and K6 (B2, the accumulating backward) as they stood before their
+# redesign (53a1783): substitutions in that revision's sources, which
+# build() reads from --sources DIR; name -> (substitutions, computes the
+# same function)
+K2_NO_ACC = [("        for (int p = 0; p < P; ++p) ar[p] = fmaf(g, x_sh[p], ar[p]);\n        ar[P] += g;\n",
+              "        (void)ar;\n")]
+K2_NO_XI = [("    if (!is_last) {\n      for (int k = tid; k < U * U; k += nt) {",
+             "    if (false) {\n      for (int k = tid; k < U * U; k += nt) {")]
+K2_NO_ELLH = [("      for (int p = 0; p < P; ++p) acc = fmaf(wr[p], x_sh[p], acc);\n      acc += bias_sh[s];\n"
+               "      v_sh[s] = acc;\n      mx = fmaxf(mx, acc);\n      r +=",
+               "      acc = bias_sh[s] + 0.f * wr[0];\n      v_sh[s] = acc;\n      mx = fmaxf(mx, acc);\n      r +=")]
+K2_VARIANTS = {
+    "k2_base": ([], True),
+    "k2_no_acc": (K2_NO_ACC, False),
+    "k2_no_xi": (K2_NO_XI, False),
+    "k2_no_ellh": (K2_NO_ELLH, False),
+    "k2_chain_floor": (K2_NO_ACC + K2_NO_XI + K2_NO_ELLH, False),
+    # the one-line lever: K6's sixteen reads of the moments in flight before their writes
+    "k2_reads_in_flight": ([(K2_NO_ACC[0][0],
+                             "        for (int p0 = 0; p0 <= P; p0 += 16) {\n          float v[16];\n"
+                             "#pragma unroll\n          for (int u = 0; u < 16; ++u)\n"
+                             "            if (p0 + u <= P) v[u] = ar[p0 + u];\n#pragma unroll\n"
+                             "          for (int u = 0; u < 16; ++u)\n            if (p0 + u <= P) ar[p0 + u] = "
+                             "p0 + u < P ? fmaf(g, x_sh[p0 + u], v[u]) : v[u] + g;\n        }\n")], True),
+}
+K6_NO_ACC = [("        float* ar = acc_m + s * acc_rs;\n        for (int p0 = 0; p0 <= P; p0 += 16) {",
+              "        float* ar = acc_m + s * acc_rs;\n        for (int p0 = 0; p0 < 0; p0 += 16) {")]
+K6_NO_XI = [("    if (!is_last) {\n      for (int j = tid; j < n_c; j += nt) {",
+             "    if (false) {\n      for (int j = tid; j < n_c; j += nt) {")]
+K6_NO_ELLH = [("#pragma unroll 16\n        for (int p = 0; p < P; ++p) l = fmaf(wr[p * w_cs], x_sh[p], l);",
+               "        for (int p = 0; p < 0; ++p) l = fmaf(wr[p * w_cs], x_sh[p], l);")]
+K6_VARIANTS = {
+    "k6_base": ([], True),
+    "k6_no_acc": (K6_NO_ACC, False),
+    "k6_no_xi": (K6_NO_XI, False),
+    "k6_no_ellh": (K6_NO_ELLH, False),
+    "k6_chain_floor": (K6_NO_ACC + K6_NO_XI + K6_NO_ELLH, False),
+}
+# the redesigned K2 and K6: name -> (substitutions, computes the same function)
+K2N_NO_CHAIN = [("    if (warp < n_utt) {\n      const int u = warp, len = len_of(u);",
+                 "    if (false) {\n      const int u = warp, len = len_of(u);")]
+K2N_NO_ELLH = [("    for (int it = tid; it < n_utt * groups * S; it += nt) {",
+                "    for (int it = tid; it < 0 * groups * S; it += nt) {")]
+K2N_NO_PRODUCTS = [("  const int np4 = (P + 1 + 3) / 4, ns4 = (S + 3) / 4, nu4 = (U + 3) / 4;",
+                    "  const int np4 = 0, ns4 = 0, nu4 = 0;")]
+K2N_NO_FACTORS = [("    for (int i = tid; i < n_utt * C; i += nt) {\n      const int u = i / C, f = i - u * C;",
+                   "    for (int i = tid; i < 0 * C; i += nt) {\n      const int u = i / C, f = i - u * C;"),
+                  ("      for (int i = tid; i < nf * U; i += nt) {", "      for (int i = tid; i < 0 * U; i += nt) {")]
+K6N_NO_CHAIN = K2N_NO_CHAIN + [
+    ("    for (int f = nf - 1; f >= 0; --f) {\n      const bool last = lo + f == len - 1;\n      const float* vn = e_sh",
+     "    for (int f = nf - 1; f >= nf; --f) {\n      const bool last = lo + f == len - 1;\n      const float* vn = e_sh")]
+K6N_NO_ELLH = K2N_NO_ELLH + [
+    ("l[f] = 0.f;\n        for (int p = 0; p < P; ++p) {\n          const float wv = wr[p * w_cs];\n#pragma unroll\n"
+     "          for (int f = 0; f < kAccChunkBlock;",
+     "l[f] = 0.f;\n        for (int p = 0; p < 0; ++p) {\n          const float wv = wr[p * w_cs];\n#pragma unroll\n"
+     "          for (int f = 0; f < kAccChunkBlock;")]
+K6N_NO_PRODUCTS = K2N_NO_PRODUCTS  # acc_products, shared by both K6 instances
+K2N_VARIANTS = {
+    "k2n_base": ([], True),
+    # one block an SM (no register cap), and blocks of 256 threads
+    "k2n_lb1": ([("__launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked_kernel",
+                  "__launch_bounds__(kAccThreads) estep_acc_chunked_kernel")], True),
+    "k2n_t256": ([("constexpr int kAccThreads = 512;", "constexpr int kAccThreads = 256;")], True),
+    # the ELLH with 16 frames a thread item (each W value read half as often)
+    "k2n_group16": ([("constexpr int kAccGroup = 8;", "constexpr int kAccGroup = 16;")], True),
+    "k2n_no_chain": (K2N_NO_CHAIN, False),
+    "k2n_no_ellh": (K2N_NO_ELLH, False),
+    "k2n_no_products": (K2N_NO_PRODUCTS, False),
+    "k2n_no_factors": (K2N_NO_FACTORS, False),
+    "k2n_chain_only": (K2N_NO_ELLH + K2N_NO_PRODUCTS + K2N_NO_FACTORS, False),
+    # what else the chain-only variant spends: its chunk loads, the row max / e
+    # pass, the division a step, the chain's work on the states
+    "k2n_chain_only_no_fetch": (K2N_NO_ELLH + K2N_NO_PRODUCTS + K2N_NO_FACTORS + [
+        ("  for (int e = tid; e < C * ldx; e += nt) {", "  for (int e = tid; e < 0 * ldx; e += nt) {"),
+        ("  for (int e = tid; e < C * ldg; e += nt) {", "  for (int e = tid; e < 0 * ldg; e += nt) {")], False),
+    "k2n_chain_only_no_rowmax": (K2N_NO_ELLH + K2N_NO_PRODUCTS + K2N_NO_FACTORS + [
+        ("    for (int uf = warp; uf < n_utt * C; uf += n_warps) {", "    for (int uf = warp; uf < 0 * C; uf += n_warps) {")], False),
+    "k2n_chain_only_rcp": (K2N_NO_ELLH + K2N_NO_PRODUCTS + K2N_NO_FACTORS + [
+        ("        ip = 1.f / fmaxf(sv, FLT_MIN);\n        r = sw * ip;", "        ip = __frcp_rn(fmaxf(sv, FLT_MIN));\n        r = sw * ip;")], False),
+    "k2n_chain_only_no_states": (K2N_NO_ELLH + K2N_NO_PRODUCTS + K2N_NO_FACTORS + [
+        ("        for (int s = lane; s < S; s += 32) {\n          const float up = s + 1 < S ? vn[s + 1] : 0.f;",
+         "        for (int s = lane; s < 0; s += 32) {\n          const float up = s + 1 < S ? vn[s + 1] : 0.f;")], False),
+}
+K6N_VARIANTS = {
+    "k6n_base": ([], True),
+    "k6n_no_chain": (K6N_NO_CHAIN, False),
+    "k6n_no_ellh": (K6N_NO_ELLH, False),
+    "k6n_no_products": (K6N_NO_PRODUCTS, False),
+    "k6n_chain_only": (K6N_NO_ELLH + K6N_NO_PRODUCTS, False),
+}
+# the source each variant compiles (its substitutions may fall in a header)
 SOURCES = {**{n: "stats_full.cu" for n in (*VARIANTS, *K8_VARIANTS)},
-           **{n: "hmm_scan.cu" for n in K5_VARIANTS}}
+           **{n: "hmm_scan.cu" for n in K6N_VARIANTS},
+           **{n: "phone_loop_scan.cu" for n in K2N_VARIANTS},
+           **{n: "hmm_scan.cu" for n in (*K5_VARIANTS, *K6_VARIANTS)},
+           **{n: "phone_loop_scan.cu" for n in K2_VARIANTS}}
+PARENT_VARIANTS = {**K2_VARIANTS, **K6_VARIANTS}
 REPS = 20
 CARD = ""   # the card's name and power limit (nvidia-smi), printed beside every number
+SOURCES_DIR = cuda_scan.CSRC   # the sources the variants edit (--sources DIR)
 # registers reported for the instances the two shapes take
 REPORTED = {"ellh_full_kernelILi128ELi64": "k9_128x64", "ellh_full_kernelILi64ELi64": "k9_64x64",
             "accumulate_full_kernelILi64": "k10_64", "gmm_estep_full_kernelILi64": "k8_64",
@@ -136,27 +249,37 @@ REPORTED = {"ellh_full_kernelILi128ELi64": "k9_128x64", "ellh_full_kernelILi64EL
             "forward_llh_dense_kernelILb0ELb0ELb1ELb1": "k5_block_llh_global",
             "forward_llh_dense_kernelILb1ELb0ELb1ELb1": "k5_block_stats_global",
             "forward_llh_dense_kernelILb0ELb0ELb1ELb0": "k5_block_llh_global_short",
-            "forward_llh_dense_kernelILb1ELb0ELb1ELb0": "k5_block_stats_global_short"}
+            "forward_llh_dense_kernelILb1ELb0ELb1ELb0": "k5_block_stats_global_short",
+            "estep_acc_chunked_kernelILb0ELb0ELb1": "k2_shared", "estep_acc_chunked_kernelILb0ELb1ELb1": "k2_global",
+            "estep_acc_chunked_kernelILb1ELb0ELb1": "k6_warp", "estep_acc_dense_block_kernelILb1ELb1": "k6_block_global",
+            "estep_acc_dense_block_kernelILb0ELb1": "k6_block_shared"}
 
 
 def build(names):
     """Compile the variants in parallel; returns {name: (library path, registers)}."""
     tmp = Path(tempfile.mkdtemp(dir=cuda_scan.BUILD_DIR))
-    (tmp / "scan_common.cuh").write_text((cuda_scan.CSRC / "scan_common.cuh").read_text())
     procs = {}
     for name in names:
-        text = (cuda_scan.CSRC / SOURCES[name]).read_text()
-        subs = {**VARIANTS, **K8_VARIANTS, **K5_VARIANTS}[name][0]
+        # the compiled source and every header; a substitution is made in
+        # the compiled source if it holds the text, else in the one header that does
+        texts = {f.name: f.read_text() for f in [SOURCES_DIR / SOURCES[name], *SOURCES_DIR.glob("*.cuh")]}
+        subs = {**VARIANTS, **K8_VARIANTS, **K5_VARIANTS, **PARENT_VARIANTS, **K2N_VARIANTS, **K6N_VARIANTS}[name][0]
         for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} is not in {SOURCES[name]}")
-            text = text.replace(old, new)
-        (tmp / f"{name}.cu").write_text(text)
+            holders = [f for f, text in texts.items() if old in text]
+            holders = [SOURCES[name]] if SOURCES[name] in holders else holders
+            if len(holders) != 1:
+                hint = (" (it edits the sources of 53a1783: pass that revision's beer_tpu_torch/csrc as --sources DIR)"
+                        if name in PARENT_VARIANTS else "")
+                raise RuntimeError(f"variant {name}: {old!r} is in {holders or 'no file'} of {SOURCES[name]}{hint}")
+            texts[holders[0]] = texts[holders[0]].replace(old, new)
+        (tmp / name).mkdir()
+        for f, text in texts.items():
+            (tmp / name / f).write_text(text)
         while sum(proc.poll() is None for proc in procs.values()) >= (os.cpu_count() or 4):
             time.sleep(0.5)
         procs[name] = subprocess.Popen(
             [cuda_scan._nvcc(), *cuda_scan.NVCC_FLAGS, "-shared", "-o", str(tmp / f"{name}.so"),
-             str(tmp / f"{name}.cu")], stderr=subprocess.PIPE, text=True)
+             str(tmp / name / SOURCES[name])], stderr=subprocess.PIPE, text=True)
     out = {}
     for name, proc in procs.items():
         log = proc.communicate()[1]
@@ -508,6 +631,314 @@ def run_k5(dev, built, names):
               + f" | registers {regs} | {'same function' if same else 'not the same function'}", flush=True)
 
 
+def k2k6_cases(dev):
+    """K2's operands at config 4 and K6's at config 2, as ``chip_smoke.py``
+    phases 3 and 6 build them (two zero-length rows each)."""
+    _, stats, ops, fwd, _ = c.banded_operands(dev)
+    alpha, norms, _, _ = cuda_scan.forward_llh_banded(*fwd)
+    k2 = c.banded_estep_args(stats, ops, alpha, norms)
+    stats6, c6, final, fwd6 = c.dense_operands(dev)
+    alpha6, norms6, _, _ = cuda_scan.forward_llh_dense(*fwd6)
+    k6 = (stats6, c6["lens"], c6["w"], c6["bias"], c6["trans"], final, alpha6, norms6)
+    return k2, k6
+
+
+def run_k2k6(dev, built, names):
+    """K2 at config 4 and K6 at config 2 alone, one line a variant: ten
+    bare foreign calls of the parent's entry points (the scan kernel and
+    the batch sum) between two events, the median of 20 such runs
+    divided by ten."""
+    k2, k6 = k2k6_cases(dev)
+    want2 = cuda_scan.estep_acc_banded_plain(*k2)
+    want6 = cuda_scan.estep_acc_dense_plain(*k6)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for name in names:
+        path, regs = built[name]
+        lib = ctypes.CDLL(str(path))
+        if name in K2_VARIANTS:
+            same = K2_VARIANTS[name][1]
+            lib.beer_estep_acc_banded.argtypes = [i] + [p] * 13 + [i] * 5 + [p]
+            stats, w = k2[0], k2[2]
+            b, t_len, p_dim = stats.shape
+            s, n_u = w.shape[0], k2[8].shape[0]
+            width = s * (p_dim + 1) + n_u * n_u
+            part, out = torch.empty(b, width, device=dev), torch.empty(width, device=dev)
+            gamma0 = torch.empty(b, s, device=dev)
+            call = lambda: lib.beer_estep_acc_banded(  # noqa: E731
+                0, *map(ptr, (*k2, part, out, gamma0)), b, t_len, s, p_dim, n_u, stream)
+            key, want = "k2_config4", want2
+            got = lambda: (out[: s * (p_dim + 1)].view(s, p_dim + 1)[:, :p_dim],  # noqa: E731
+                           out[s * (p_dim + 1):].view(n_u, n_u))
+        else:
+            same = K6_VARIANTS[name][1]
+            lib.beer_estep_acc_dense.argtypes = [i, i] + [p] * 11 + [i] * 4 + [p]
+            stats = k6[0]
+            b, t_len, p_dim = stats.shape
+            s = k6[4].shape[0]
+            width = s * (p_dim + 1) + s * s
+            part, out = torch.empty(b, width, device=dev), torch.empty(width, device=dev)
+            gamma0 = torch.empty(b, s, device=dev)
+            call = lambda: lib.beer_estep_acc_dense(  # noqa: E731
+                0, 0, *map(ptr, (*k6, part, out, gamma0)), b, t_len, s, p_dim, stream)
+            key, want = "k6_config2", want6
+            got = lambda: (out[: s * (p_dim + 1)].view(p_dim + 1, s).T[:, :p_dim],  # noqa: E731
+                           out[s * (p_dim + 1):].view(s, s))
+        c.check(call() == 0, f"{name}: launch")
+        ms = median_ms(lambda: [call() for _ in range(10)]) / 10
+        note = ""
+        if same:
+            acc, xi = got()
+            e_acc, e_xi = c.rel(acc, want[0]), c.rel(xi, want[3])
+            note = f" | acc2 rel {e_acc:.3g}, xi rel {e_xi:.3g}"
+            c.check(e_acc <= 1e-4 and e_xi <= 1e-4, f"{name}: differs from the plain version{note}")
+        print(f"variant {name}: {CARD} | {key}_ms {ms:.4f}{note} | registers {regs} "
+              f"| {'same function' if same else 'not the same function'}", flush=True)
+
+
+def kernel_split(fn, reps=20):
+    """Device ms a call of ``fn`` by kernel (``torch.profiler`` over
+    ``reps`` calls after a warm-up): {kernel name: ms}."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / reps / 1e3
+    return out
+
+
+def ours(split):
+    """The device ms of the repository's own kernels in a ``kernel_split``."""
+    return sum(v for k, v in split.items() if "at::" not in k and "_kernel" in k)
+
+
+def b2_times(dev):
+    """K2 at config 4, K6 at config 2 and at phase 18's S = 150 (shared)
+    and 300 (global), the γ-emitting K11 (config 4 and config 5), K7
+    (config 3, S = 300) and K15 (config 4) through this checkout's
+    wrappers: each kernel's device ms, split by kernel, so that the batch
+    sum (``sum_rows_kernel``) shows apart; and the unfused route at config
+    4, K11 + γᵀ·stats (TF32 off), as ``PhoneLoop.accumulate``'s gradient
+    route takes it; and K1, whose body the banded kernels' global
+    placement touched, at config 4 and config 5 (the shared placement)."""
+    k2, k6 = k2k6_cases(dev)
+    fwd4 = c.banded_operands(dev)[3]
+    row = {}
+
+    def put(tag, fn):
+        split = kernel_split(fn)
+        row[f"{tag}_ms"] = round(ours(split), 4)
+        row[f"{tag}_split"] = {k: round(v, 4) for k, v in split.items()}
+
+    put("k1_config4", lambda: cuda_scan.forward_llh_banded(*fwd4))
+    put("k2_config4", lambda: cuda_scan.estep_acc_banded(*k2))
+    put("k6_config2", lambda: cuda_scan.estep_acc_dense(*k6))
+    put("k11_config4", lambda: cuda_scan.estep_gamma_banded(*k2))
+    assert not torch.backends.cuda.matmul.allow_tf32
+    stats = k2[0]
+    gamma = cuda_scan.estep_gamma_banded(*k2)[0].flatten(0, 1)
+    row["unfused_product_ms"] = round(median_ms(lambda: gamma.T @ stats.flatten(0, 1)), 4)
+    row["unfused_route_ms"] = round(median_ms(lambda: c.unfused_estep(k2)), 4)
+    row["k2_config4_wrapper_ms"] = round(median_ms(lambda: cuda_scan.estep_acc_banded(*k2)), 4)
+    row["k6_config2_wrapper_ms"] = round(median_ms(lambda: cuda_scan.estep_acc_dense(*k6)), 4)
+    del gamma
+    x5, m5 = c.config5_data(dev)
+    x5 = torch.cat([x5, torch.zeros(2, *x5.shape[1:], device=dev)])
+    m5 = torch.cat([m5, torch.zeros(2, m5.shape[1], device=dev)])
+    stats5, ops5 = c.svae_operands(c.config5(dev), x5, m5)
+    fwd5 = (stats5, ops5["lens"], ops5["w"], ops5["bias"], ops5["bands"], ops5["init"])
+    alpha5, norms5, _, _ = cuda_scan.forward_llh_banded(*fwd5)
+    k11 = c.banded_estep_args(stats5, ops5, alpha5, norms5)
+    put("k1_config5", lambda: cuda_scan.forward_llh_banded(*fwd5))
+    put("k11_config5", lambda: cuda_scan.estep_gamma_banded(*k11))
+    data, mask = c.make_data(c.LARGE_B, c.LARGE_T, c.D, seed=8)
+    xb, mb = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    for s in (c.SHARED_S, c.LARGE_S):
+        hmm = c.config2(dev, s=s)
+        st, cb = c.hmm_operands(hmm, xb, mb)
+        init = torch.exp(hmm.graph_log_init).expand_as(cb["final"]).contiguous()
+        f5 = cuda_scan.forward_llh_dense(st, cb["lens"], cb["trans"], init, cb["w"], cb["bias"])
+        est = (st, cb["lens"], cb["w"], cb["bias"], cb["trans"], cb["final"], f5[0], f5[1])
+        put(f"k6_s{s}", lambda: cuda_scan.estep_acc_dense(*est))
+        if s == c.LARGE_S:
+            llh = hmm._state_llh(st).contiguous()
+            f7 = cuda_scan.forward_llh_dense(llh, cb["lens"], cb["trans"], init)
+            gam = (llh, cb["lens"], cb["trans"], cb["final"], f7[0], f7[1])
+            put(f"k7_s{s}", lambda: cuda_scan.estep_gamma_dense(*gam))
+    data3, mask3, seqs = c.config3_data()
+    rec = c.config3(dev, seqs)
+    _, c3 = c.hmm_operands(rec, torch.from_numpy(data3).to(dev), torch.from_numpy(mask3).to(dev))
+    init3 = torch.exp(torch.clamp(rec.graph_log_init, min=-1e30)).expand_as(c3["final"]).contiguous()
+    f3 = cuda_scan.forward_llh_dense(c3["llh"], c3["lens"], c3["trans"], init3)
+    gam3 = (c3["llh"], c3["lens"], c3["trans"], c3["final"], f3[0], f3[1])
+    put("k7_config3", lambda: cuda_scan.estep_gamma_dense(*gam3))
+    data, mask = c.with_empty_rows(*c.make_data(c.B, c.T, c.D))
+    o = c.general_operands(c.config4(dev), torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev))
+    fwd = (o["llh"], o["lens"], o["trans"], o["init"])
+    shifted = cuda_scan.forward_llh_dense(*fwd, return_shifts=True)
+    pair = (o["llh"], o["lens"], o["trans"], o["final"], shifted[0], shifted[1])
+    put("k15_config4", lambda: cuda_scan.estep_gamma_dense(*pair, rows=o["ends"], cols=o["starts"]))
+    print(f"b2 times: {CARD} | " + json.dumps(row), flush=True)
+
+
+K2_GEOMETRIES = [("shared", 2, 16), ("shared", 1, 16), ("global", 4, 16), ("global", 2, 16), ("global", 1, 16),
+                 ("shared", 2, 8), ("shared", 4, 4)]
+
+
+def set_new_argtypes(lib):
+    """The redesigned K2's and K6's entry points on a variant's library."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, args in (("beer_estep_acc_banded", [i, i, i, i] + [p] * 13 + [i] * 5 + [p]),
+                       ("beer_estep_acc_dense", [i, i, i, i] + [p] * 11 + [i] * 4 + [p])):
+        if hasattr(lib, name):  # a variant's library holds one source
+            getattr(lib, name).argtypes = args
+    return lib
+
+
+def time_k2(lib, dev, k2, want, geometries):
+    """The redesigned K2 (bare foreign call, ten between two events, median
+    of 20, divided by ten) in each launch geometry that fits; held against
+    the plain version ``want`` (acc2, ξ rel 1e-4, γ₀ abs 1e-5) unless None."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    stats, w = k2[0], k2[2]
+    b, t_len, p_dim = stats.shape
+    s, n_u = w.shape[0], k2[8].shape[0]
+    width = s * (p_dim + 1) + n_u * n_u
+    row = {}
+    for placement, n_utt, chunk in geometries:
+        glob = placement == "global"
+        if cuda_scan.acc_banded_smem_bytes(s, p_dim, n_u, placement, n_utt, chunk) > cuda_scan.SMEM_LIMIT:
+            continue
+        args = list(k2)
+        if glob:
+            args[2] = torch.nn.functional.pad(w, (0, -p_dim % 4)).T.contiguous()
+        part, out = torch.empty(-(-b // n_utt), width, device=dev), torch.empty(width, device=dev)
+        gamma0 = torch.empty(b, s, device=dev)
+        call = lambda: lib.beer_estep_acc_banded(  # noqa: E731
+            0, int(glob), n_utt, chunk, *map(ptr, (*args, part, out, gamma0)), b, t_len, s, p_dim, n_u, stream)
+        key = f"k2_{placement}_u{n_utt}_c{chunk}"
+        c.check(call() == 0, f"{key}: launch")
+        if want is not None:
+            acc = out[: s * (p_dim + 1)].view(s, p_dim + 1)[:, :p_dim]
+            xi = out[s * (p_dim + 1):].view(n_u, n_u)
+            errs = (c.rel(acc, want[0]), c.rel(xi, want[3]), float((gamma0 - want[2]).abs().max()))
+            c.check(errs[0] <= 1e-4 and errs[1] <= 1e-4 and errs[2] <= 1e-5, f"{key}: differs from plain {errs}")
+        row[key] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+    return row
+
+
+def k6_cases(dev):
+    """K6's operands at config 2 and on phase 18's ergodic HMMs at S = 150 and 300."""
+    cases = {"config2": k2k6_cases(dev)[1]}
+    data, mask = c.make_data(c.LARGE_B, c.LARGE_T, c.D, seed=8)
+    xb, mb = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    for n in (c.SHARED_S, c.LARGE_S):
+        hmm = c.config2(dev, s=n)
+        st, cb = c.hmm_operands(hmm, xb, mb)
+        init = torch.exp(hmm.graph_log_init).expand_as(cb["final"]).contiguous()
+        f5 = cuda_scan.forward_llh_dense(st, cb["lens"], cb["trans"], init, cb["w"], cb["bias"])
+        cases[f"s{n}"] = (st, cb["lens"], cb["w"], cb["bias"], cb["trans"], cb["final"], f5[0], f5[1])
+    return cases
+
+
+def time_k6(lib, dev, cases, check=True, instances=("warp", "shared", "global")):
+    """The redesigned K6 (bare foreign call, as :func:`time_k2`) in each
+    instance that fits each case, held against its plain version."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    row = {}
+    for tag, args in cases.items():
+        stats, lens, w, bias, trans, final, alpha, norms = args
+        b, t_len, p_dim = stats.shape
+        s = trans.shape[0]
+        want = cuda_scan.estep_acc_dense_plain(*args) if check else None
+        width = s * (p_dim + 1) + s * s
+        for instance in instances:
+            chunk = cuda_scan.BACKWARD_CHUNK if instance == "warp" else cuda_scan.backward_chunk(s, p_dim, instance)
+            if (instance == "warp" and s > 32) or \
+                    cuda_scan.backward_smem_bytes(s, p_dim, instance, chunk) > cuda_scan.SMEM_LIMIT:
+                continue
+            wk, tk = (w.T.contiguous(), trans.T.contiguous()) if instance == "global" else (w, trans)
+            for n_utt in ((4, 2) if instance == "warp" else (1,)):
+                part, out = torch.empty(-(-b // n_utt), width, device=dev), torch.empty(width, device=dev)
+                gamma0 = torch.empty(b, s, device=dev)
+                call = lambda: lib.beer_estep_acc_dense(  # noqa: E731
+                    0, cuda_scan._INSTANCES.index(instance), chunk, n_utt,
+                    *map(ptr, (stats, lens, wk, bias, tk, final, alpha, norms, part, out, gamma0)),
+                    b, t_len, s, p_dim, stream)
+                key = f"k6_{tag}_{instance}_c{chunk}" + (f"_u{n_utt}" if instance == "warp" else "")
+                c.check(call() == 0, f"{key}: launch")
+                if want is not None:
+                    acc = out[: s * (p_dim + 1)].view(p_dim + 1, s).T[:, :p_dim]
+                    xi = out[s * (p_dim + 1):].view(s, s)
+                    errs = (c.rel(acc, want[0]), c.rel(xi, want[3]), float((gamma0 - want[2]).abs().max()))
+                    c.check(errs[0] <= 1e-4 and errs[1] <= 1e-4 and errs[2] <= 1e-5,
+                            f"{key}: differs from plain {errs}")
+                row[key] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+    return row
+
+
+def geometry(dev):
+    """The redesigned K2 at config 4 in each launch geometry of
+    :data:`K2_GEOMETRIES` (placement, utterances a block, frames a chunk)
+    and K6 in each instance (config 2: warp, shared and global block;
+    phase 18's S = 150 and 300), each held against its plain version."""
+    k2, _ = k2k6_cases(dev)
+    lib = cuda_scan._library()
+    row = time_k2(lib, dev, k2, cuda_scan.estep_acc_banded_plain(*k2), K2_GEOMETRIES)
+    row.update(time_k6(lib, dev, k6_cases(dev)))
+    print(f"geometry: {CARD} | " + json.dumps(row), flush=True)
+
+
+def run_new(dev, built, names):
+    """The ``k2n_*`` / ``k6n_*`` variants of the redesigned kernels: K2 at
+    config 4 in four geometries (global with 4, 2 and 1 utterances a block,
+    shared with 2), K6 at config 2 (warp) and S = 300 (global), one line a
+    variant."""
+    k2, _ = k2k6_cases(dev)
+    cases = k6_cases(dev)
+    del cases["s150"]
+    want2 = cuda_scan.estep_acc_banded_plain(*k2)
+    s, p_dim, n_u = k2[2].shape[0], k2[0].shape[2], k2[8].shape[0]
+    geoms = [("global", 4, 16), ("global", 2, 16), ("global", 1, 16), ("shared", 2, 16)]
+    for name in names:
+        path, regs = built[name]
+        lib = set_new_argtypes(ctypes.CDLL(str(path)))
+        if name in K2N_VARIANTS:
+            same = K2N_VARIANTS[name][1]
+            row = time_k2(lib, dev, k2, want2 if same else None, geoms)
+        else:
+            same = K6N_VARIANTS[name][1]
+            row = time_k6(lib, dev, cases, check=same, instances=("warp", "global"))
+        print(f"variant {name}: {CARD} | " + json.dumps(row) + f" | registers {regs} "
+              f"| {'same function' if same else 'not the same function'}", flush=True)
+
+
+def vb_times(dev):
+    """One ``vb_step`` of config 4 (K1 + K2) and of config 2 (K5 + K6) on
+    the bench's data through this checkout's package, as ``chip_smoke.py``
+    phases 5 and 8 time it (CUDA-event median of 5 after a warm-up; the
+    model is updated by every step), and the kernels' share of a step
+    (``torch.profiler`` device time of the repository's kernels over one
+    step, against its wall time)."""
+    data, mask = c.make_data(c.B, c.T, c.D)
+    x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    row = {}
+    for tag, model in (("config4", c.config4(dev)), ("config2", c.config2(dev))):
+        c.bt.vb_step(model, x, mask=m)
+        row[f"{tag}_vb_step_ms"] = round(c.cuda_ms(lambda: c.bt.vb_step(model, x, mask=m)), 3)
+        row[f"{tag}_vb_step_kernels_ms"] = round(ours(kernel_split(lambda: c.bt.vb_step(model, x, mask=m), reps=5)), 3)
+    print(f"vb times: {CARD} | " + json.dumps(row), flush=True)
+
+
 def times(dev):
     """K8 alone at config 1 beside one matmul pair on the materialised
     statistics, and K5 alone at every shape of :func:`k5_cases` and K14
@@ -527,8 +958,13 @@ def times(dev):
     for tag in ("config4", "s230"):
         k5[f"k14_{tag}"] = c.device_ms(lambda: cuda_scan.forward_llh_dense(*cases[tag], return_shifts=True),
                                        "forward_llh", reps=20)
+    bounds = {}
+    for tag, args in cases.items():   # K5's least time on each case's inputs
+        x, lens, trans = args[:3]
+        p_dim = x.shape[2] if len(args) > 4 else 0
+        bounds[f"k5_{tag}_bound_ms"] = round(c.forward_dense_bound(lens, x.shape[1], trans.shape[0], p_dim)["bound_ms"], 5)
     print(f"times: {CARD} | " + json.dumps({"k8_config1_ms": round(k8, 4), "k8_library_ms": round(lib, 4),
-                                  **{f"k5_{tag}_ms": round(v, 4) for tag, v in k5.items()}}), flush=True)
+                                  **{f"k5_{tag}_ms": round(v, 4) for tag, v in k5.items()}, **bounds}), flush=True)
 
 
 def main(names) -> int:
@@ -544,11 +980,18 @@ def main(names) -> int:
         probe(dev)
     if "times" in names:
         times(dev)
-    names = [n for n in names if n not in ("probe", "times")]
+    if "b2" in names:
+        b2_times(dev)
+    if "geometry" in names:
+        geometry(dev)
+    if "vb" in names:
+        vb_times(dev)
+    names = [n for n in names if n not in ("probe", "times", "b2", "geometry", "vb")]
     if not names:
         return 0
     built = build(names)
-    for group, run in ((VARIANTS, run_stats), (K8_VARIANTS, run_k8), (K5_VARIANTS, run_k5)):
+    for group, run in ((VARIANTS, run_stats), (K8_VARIANTS, run_k8), (K5_VARIANTS, run_k5),
+                       (PARENT_VARIANTS, run_k2k6), ({**K2N_VARIANTS, **K6N_VARIANTS}, run_new)):
         mine = [n for n in names if n in group]
         if mine:
             run(dev, built, mine)
@@ -556,4 +999,9 @@ def main(names) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or [*VARIANTS, *K8_VARIANTS, *K5_VARIANTS]))
+    args = sys.argv[1:]
+    if "--sources" in args:
+        i = args.index("--sources")
+        SOURCES_DIR = Path(args[i + 1]).resolve()
+        del args[i:i + 2]
+    sys.exit(main(args or [*VARIANTS, *K8_VARIANTS, *K5_VARIANTS, *K2N_VARIANTS, *K6N_VARIANTS]))

@@ -804,9 +804,18 @@ def test_dense_smem_formulas_match_the_library(device, placement):
             if s <= 32:
                 assert cuda_scan.forward_smem_bytes(s, p, "warp") == \
                     lib.beer_dense_forward_smem_bytes(s, p, 2, cuda_scan.FORWARD_CHUNK)
-            assert cuda_scan.dense_smem_bytes("estep_acc_dense" if p else "estep_gamma_dense", s, p,
-                                              placement=placement) == \
-                lib.beer_dense_estep_smem_bytes(s, p, glob)
+            if p == 0:
+                assert cuda_scan.dense_smem_bytes("estep_gamma_dense", s, placement=placement) == \
+                    lib.beer_dense_estep_smem_bytes(s, glob)
+                continue
+            for chunk in cuda_scan.BACKWARD_CHUNKS:
+                assert cuda_scan.backward_smem_bytes(s, p, placement, chunk) == \
+                    lib.beer_acc_dense_smem_bytes(s, p, code, chunk, 1)
+            assert cuda_scan.dense_smem_bytes("estep_acc_dense", s, p, placement=placement) == \
+                lib.beer_acc_dense_smem_bytes(s, p, code, cuda_scan.backward_chunk(s, p, placement), 1)
+            if s <= 32:
+                assert cuda_scan.backward_smem_bytes(s, p, "warp") == lib.beer_acc_dense_smem_bytes(
+                    s, p, 2, cuda_scan.BACKWARD_CHUNK, cuda_scan.backward_utterances(s, p))
         assert cuda_scan.dense_smem_bytes("estep_gamma_dense_restricted", s, n_r=s // 3 + 1,
                                           n_c=s // 2 + 1, placement=placement) == \
             lib.beer_dense_estep_restricted_smem_bytes(s, s // 3 + 1, s // 2 + 1, glob)
@@ -823,3 +832,196 @@ def test_accumulate_full_takes_an_unaligned_view(device):
     x, r = a["x"][3:], a["r"][3:]
     assert x.data_ptr() % 16 and x.is_contiguous()
     assert _rel(sk.accumulate_full(x, r), sk.accumulate_full_plain(x, r)) <= 1e-4
+
+
+# ----------------------------------------------------------------------
+# K2 and K6 (B2) in chunks, and every phone loop through K1, K2 and K11
+# ----------------------------------------------------------------------
+# lengths around a chunk of C frames: 0, 1, C − 1, C, C + 1, several chunks
+# and a ragged end
+def _chunk_lengths(c, t_len):
+    return [t_len, 0, 1, c - 1, c, c + 1, 2 * c + 3, t_len - 7]
+
+
+def _banded_close(got, want):
+    for name, i in (("acc2", 0), ("counts", 1), ("xi", 3)):
+        assert _rel(got[i], want[i]) <= 1e-4, name
+    assert float((got[2] - want[2]).abs().max()) <= 1e-5, "gamma0"
+
+
+# (units, states per unit, P, forced (placement, utterances a block, frames a chunk))
+ACC_BANDED_CASES = [(50, 3, 78, g) for g in (("shared", 2, 16), ("shared", 1, 16), ("global", 4, 16),
+                                              ("global", 2, 8), ("global", 1, 1), ("shared", 4, 4))] + \
+                   [(10, 3, 32, ("shared", 4, 16)), (1, 1, 5, ("shared", 4, 2)), (100, 3, 78, ("global", 2, 16))]
+
+
+@pytest.mark.parametrize("case", ACC_BANDED_CASES, ids=lambda c: "U%d_P%d_%s_u%d_c%d" % (c[0], c[2], *c[3]))
+def test_acc_banded_geometries_match_plain_version(device, monkeypatch, case):
+    """K2 in each launch geometry (forced), against its plain version:
+    lengths 0, 1, C − 1, C, C + 1 and across chunks, a block of utterances
+    that the batch does not fill."""
+    units, spu, p_dim, geometry = case
+    chunk = geometry[2]
+    lengths = _chunk_lengths(chunk, 3 * chunk + 5)[: 7 if geometry[1] == 4 else 8]
+    a = port_args(scan_problem(units + chunk, units, spu, p_dim, len(lengths), max(lengths),
+                               lengths=lengths), torch.float32, device)
+    fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
+    alpha, norms, _, _ = cuda_scan.forward_llh_banded_plain(*fwd)
+    est = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms,
+           a["ends"], a["starts"])
+    monkeypatch.setattr(cuda_scan, "acc_banded_geometry", lambda s, p, u: geometry)
+    got = cuda_scan.estep_acc_banded(*est)
+    torch.cuda.synchronize()
+    _banded_close(got, cuda_scan.estep_acc_banded_plain(*est))
+    assert not got[2][a["lens"] == 0].any()
+
+
+# (S, P, forced (instance, frames a chunk) or None for the wrapper's own)
+ACC_DENSE_CASES = [(1, 78, None), (18, 78, None), (30, 78, None), (32, 78, None), (30, 400, None),
+                   (33, 78, None), (100, 12, ("shared", 8)), (100, 12, ("shared", 1)), (133, 78, None),
+                   (150, 78, None), (150, 12, ("global", 4)), (300, 78, None)]
+
+
+@pytest.mark.parametrize("case", ACC_DENSE_CASES, ids=lambda c: "S%d_P%d_%s" % (c[0], c[1], c[2] and c[2][0]))
+def test_acc_dense_instances_match_plain_version(device, monkeypatch, case):
+    """K6 in the instance each S takes (one warp an utterance up to 32, a
+    block above, global at 150 and 300 at P = 78) or a forced one, against
+    its plain version: lengths 0, 1, C − 1, C, C + 1 and across chunks."""
+    s, p_dim, forced = case
+    if forced is not None:
+        monkeypatch.setattr(cuda_scan, "backward_instance", lambda s_, p_: forced)
+    chunk = (forced or cuda_scan.backward_instance(s, p_dim))[1]
+    lengths = _chunk_lengths(chunk, 3 * chunk + 5)
+    pb = dense_problem(s + p_dim, s, p_dim, len(lengths), max(lengths), lengths=lengths)
+    pb["w"] = pb["w"] * min(1.0, (78 / p_dim) ** 0.5)
+    a = dense_args(pb, torch.float32, device)
+    f = cuda_scan.forward_llh_dense_plain(a["stats"], a["lens"], a["trans"], a["init"], a["w"], a["bias"])
+    est = (a["stats"], a["lens"], a["w"], a["bias"], a["trans"], a["final"], f[0], f[1])
+    got = cuda_scan.estep_acc_dense(*est)
+    torch.cuda.synchronize()
+    _banded_close(got, cuda_scan.estep_acc_dense_plain(*est))
+
+
+@pytest.mark.parametrize("units", [100, 250])
+def test_large_phone_loops_run_through_the_banded_kernels(device, units):
+    """K1, K2 and K11 at 100 units (S = 300: K2 global; the parent's K2
+    refused it) and 250 units (S = 750: all three global), P = 78, against
+    their plain versions."""
+    a = port_args(scan_problem(units, units, 3, 78, 5, 40), torch.float32, device)
+    assert cuda_scan.banded_placement("forward_llh_banded", 3 * units, 78) == \
+        ("shared" if units == 100 else "global")
+    fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
+    cuda_scan.reset_launch_counts()
+    alpha, norms, last, logz = cuda_scan.forward_llh_banded(*fwd)
+    ref = cuda_scan.forward_llh_banded_plain(*fwd)
+    torch.cuda.synchronize()
+    assert float((alpha - ref[0]).abs().max()) <= 1e-5 and _rel(logz, ref[3]) <= 1e-5
+    est = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms,
+           a["ends"], a["starts"])
+    _banded_close(cuda_scan.estep_acc_banded(*est), cuda_scan.estep_acc_banded_plain(*est))
+    gamma = cuda_scan.estep_gamma_banded(*est)
+    want = cuda_scan.estep_gamma_banded_plain(*est)
+    assert float((gamma[0] - want[0]).abs().max()) <= 1e-5 and _rel(gamma[2], want[2]) <= 1e-4
+    assert _launched() == {"forward_llh_banded": 1, "estep_acc_banded": 1, "estep_gamma_banded": 1}
+
+
+def test_hundred_unit_vb_step_runs_through_the_kernels(device):
+    """Two VB steps of a 100-unit phone loop (S = 300, D = 39) through K1 +
+    K2 on the card, within 1e-4 per frame of the plain route; K1 and K2 on
+    the loop's own operands (K2's geometry: global, an utterance a block,
+    16 frames a chunk; lengths 0, 1, 16, 17 among them) against their
+    plain versions.  The second step's ELBO reads the update made from
+    K2's statistics."""
+    gen = torch.Generator(device=device).manual_seed(100)
+    nset = bt.NormalSet.create(torch.zeros(39, device=device), torch.ones(39, device=device),
+                               size=300, noise_std=0.5, generator=gen)
+    loop = bt.PhoneLoop.create(100, 3, nset)
+    plain = copy.deepcopy(loop)
+    plain.plain_scan = True
+    rng = np.random.default_rng(100)
+    x = torch.from_numpy(rng.normal(size=(8, 120, 39)).astype(np.float32)).to(device)
+    m = (torch.arange(120, device=device)[None] < torch.tensor([[120], [97], [0], [64], [120], [1], [17], [16]],
+                                                               device=device)).float()
+    with torch.no_grad():
+        stats = loop.sufficient_statistics(x).contiguous()
+        ops = loop.scan_operands(stats, m)
+        fwd = (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["init"])
+        alpha, norms, _, logz = cuda_scan.forward_llh_banded(*fwd)
+        ref = cuda_scan.forward_llh_banded_plain(*fwd)
+        assert float((alpha - ref[0]).abs().max()) <= 1e-5 and _rel(logz, ref[3]) <= 1e-5
+        est = (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["final"], alpha, norms,
+               ops["ends"], ops["starts"])
+        _banded_close(cuda_scan.estep_acc_banded(*est), cuda_scan.estep_acc_banded_plain(*est))
+    cuda_scan.reset_launch_counts()
+    elbos = []
+    for _ in range(2):
+        elbo, loop = bt.vb_step(loop, x, mask=m)
+        elbos.append(float(elbo))
+    torch.cuda.synchronize()
+    assert _launched() == {"forward_llh_banded": 2, "estep_acc_banded": 2}
+    for got in elbos:
+        elbo, plain = bt.vb_step(plain, x, mask=m)
+        assert abs(got - float(elbo)) / float(m.sum()) <= 1e-4
+
+
+def test_redesigned_kernels_are_deterministic(device):
+    """Two calls of K2 and of K6 agree bitwise: every sum runs in a fixed order."""
+    a = port_args(scan_problem(5, 50, 3, 78, 9, 70), torch.float32, device)
+    alpha, norms, _, _ = cuda_scan.forward_llh_banded(a["stats"], a["lens"], a["w"], a["bias"], a["bands"],
+                                                      a["init"])
+    est = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms, a["ends"], a["starts"])
+    for x, y in zip(cuda_scan.estep_acc_banded(*est), cuda_scan.estep_acc_banded(*est)):
+        assert torch.equal(x, y)
+    for s in (30, 150):
+        d = dense_args(dense_problem(s, s, 78, 9, 70), torch.float32, device)
+        f = cuda_scan.forward_llh_dense(d["stats"], d["lens"], d["trans"], d["init"], d["w"], d["bias"])
+        est = (d["stats"], d["lens"], d["w"], d["bias"], d["trans"], d["final"], f[0], f[1])
+        for x, y in zip(cuda_scan.estep_acc_dense(*est), cuda_scan.estep_acc_dense(*est)):
+            assert torch.equal(x, y)
+
+
+def test_banded_smem_formulas_match_the_library(device):
+    """``cuda_scan.banded_smem_bytes`` and ``acc_banded_smem_bytes`` count
+    what the banded launchers reserve."""
+    lib = cuda_scan._library()
+    for s, p, u in ((30, 32, 10), (150, 78, 50), (300, 78, 100), (675, 78, 225), (30, 2000, 10), (4, 5, 1)):
+        for placement in ("shared", "global"):
+            glob = int(placement == "global")
+            assert cuda_scan.banded_smem_bytes("forward_llh_banded", s, p, u, placement) == \
+                lib.beer_forward_smem_bytes(s, p, glob)
+            assert cuda_scan.banded_smem_bytes("estep_gamma_banded", s, p, u, placement) == \
+                lib.beer_estep_gamma_smem_bytes(s, p, u, glob)
+            for n_utt in cuda_scan.ACC_UTTERANCES:
+                for chunk in cuda_scan.ACC_CHUNKS:
+                    assert cuda_scan.acc_banded_smem_bytes(s, p, u, placement, n_utt, chunk) == \
+                        lib.beer_estep_smem_bytes(s, p, u, glob, n_utt, chunk)
+
+
+def test_large_p_runs_through_the_backward_kernels(device):
+    """P = 2000 (W in device memory, shorter chunks): K1, K2 and K11 on a
+    10-unit loop and K6 at S = 30 against their plain versions; W is
+    scaled by sqrt(78 / P) so that llh keeps the magnitudes of the P = 78
+    cases, whose tolerances these share."""
+    pb = scan_problem(2000, 10, 3, 2000, 5, 37)
+    pb["w"] = pb["w"] * (78 / 2000) ** 0.5
+    a = port_args(pb, torch.float32, device)
+    assert cuda_scan.acc_banded_geometry(30, 2000, 10) == ("global", 1, 8)
+    assert cuda_scan.banded_placement("forward_llh_banded", 30, 2000) == "global"
+    fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
+    alpha, norms, _, logz = cuda_scan.forward_llh_banded(*fwd)
+    ref = cuda_scan.forward_llh_banded_plain(*fwd)
+    torch.cuda.synchronize()
+    assert float((alpha - ref[0]).abs().max()) <= 1e-5 and _rel(logz, ref[3]) <= 1e-5
+    est = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms,
+           a["ends"], a["starts"])
+    _banded_close(cuda_scan.estep_acc_banded(*est), cuda_scan.estep_acc_banded_plain(*est))
+    gamma = cuda_scan.estep_gamma_banded(*est)
+    want = cuda_scan.estep_gamma_banded_plain(*est)
+    assert float((gamma[0] - want[0]).abs().max()) <= 1e-5 and _rel(gamma[2], want[2]) <= 1e-4
+    d = dense_problem(2001, 30, 2000, 5, 37)
+    d["w"] = d["w"] * (78 / 2000) ** 0.5
+    d = dense_args(d, torch.float32, device)
+    assert cuda_scan.backward_instance(30, 2000) == ("global", 8)
+    f = cuda_scan.forward_llh_dense_plain(d["stats"], d["lens"], d["trans"], d["init"], d["w"], d["bias"])
+    est = (d["stats"], d["lens"], d["w"], d["bias"], d["trans"], d["final"], f[0], f[1])
+    _banded_close(cuda_scan.estep_acc_dense(*est), cuda_scan.estep_acc_dense_plain(*est))

@@ -220,3 +220,34 @@ def test_import_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_hundred_unit_loop_matches_jax_general_path_f64():
+    """A 100-unit phone loop (S = 300, D = 39, P = 78), above the 95 units
+    whose W and moments the first K2 held in one block: the port's fused
+    route (the plain versions of K1 and K2 on the CPU, the arithmetic of
+    the kernels' global placement) against ``beer_tpu``'s float64 general
+    path, log Z and statistics at rtol 1e-9, then one VB step."""
+    jloop = jax_phone_loop(jnp.float64, n_units=100, dim=39)
+    loop = to_port(jloop, torch.float64)
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 20, 39))
+    mask = (np.arange(20)[None] < np.array([[20], [13]])).astype(np.float64)
+
+    @jax.jit
+    def reference(m, xx, mm):
+        stats = m.sufficient_statistics(xx)
+        lz, cache = m.infer(stats, mm)
+        return lz, m.accumulate(stats, cache), jax_vb_step(m, xx, mask=mm)[0]
+
+    jlz, jacc, jelbo = reference(jloop, jnp.asarray(x), jnp.asarray(mask))
+    stats = loop.sufficient_statistics(t(x))
+    lz, cache = loop.infer(stats, t(mask))
+    assert "alpha" in cache  # the fused route
+    acc = loop.accumulate(stats, cache)
+    close(lz, jlz, RTOL_F64)
+    close(acc["modelset"]["means_precisions"], jacc["modelset"]["means_precisions"],
+          RTOL_F64, atol=1e-12)
+    close(acc["unit_prior"]["sticks"], jacc["unit_prior"]["sticks"], RTOL_F64, atol=1e-12)
+    elbo, _ = bt.vb_step(loop, t(x), mask=t(mask))
+    close(float(elbo), float(jelbo), RTOL_F64)

@@ -532,9 +532,15 @@ def test_dense_placement(case):
     shared = cuda_scan.dense_smem_bytes(kernel, s, p_dim, n_r, n_c, "shared")
     assert (shared <= cuda_scan.SMEM_LIMIT) == (want == "shared")
     glob = cuda_scan.dense_smem_bytes(kernel, s, p_dim, n_r, n_c, "global")
-    # the forward also stages its chunks: a two-stage ring and e = exp(llh − max)
-    chunk = cuda_scan.forward_chunk(s, p_dim, "global")
-    ring = 4 * chunk * (2 * (p_dim or s) + s + 2) if kernel.startswith("forward") else 0
+    # the forward and K6 also stage their chunks: a two-stage ring and e =
+    # exp(llh − max) (K6: and γ, a carry row and per-frame sums)
+    ring = 0
+    if kernel.startswith("forward"):
+        chunk = cuda_scan.forward_chunk(s, p_dim, "global")
+        ring = 4 * chunk * (2 * (p_dim or s) + s + 2)
+    elif kernel == "estep_acc_dense":
+        chunk = cuda_scan.backward_chunk(s, p_dim, "global")
+        ring = 4 * (chunk * (2 * p_dim + 4 * s + 30) + 3 * s + 20)
     assert glob < shared and glob <= 4 * (7 * s + 64 + p_dim + n_r + n_c) + ring
 
 
@@ -596,3 +602,108 @@ def test_forward_chunks_shorten_near_the_limits(case):
 def test_dense_placement_names_only_dense_kernels():
     with pytest.raises(ValueError, match="not a dense kernel"):
         cuda_scan.dense_placement("estep_acc_banded", 30)
+
+
+# K6: S -> {P: (instance, frames a chunk)}: the warp instance (K2's kernel in
+# its dense mode) for S <= 32 while its block fits (to P = 560 at S = 32),
+# then the block instance, shared while A, W, the moments and ξ fit beside a
+# one-frame chunk (to S = 133 at P = 78, as before the chunks), global above
+BACKWARD_INSTANCES = {
+    1: {78: ("warp", 16), 172: ("warp", 16)},
+    30: {12: ("warp", 16), 78: ("warp", 16)},
+    32: {78: ("warp", 16), 172: ("warp", 16), 560: ("warp", 16), 561: ("shared", 8), 2000: ("global", 8)},
+    33: {78: ("shared", 16)},
+    133: {78: ("shared", 1)},
+    134: {78: ("global", 16)},
+    150: {12: ("shared", 8), 78: ("global", 16)},
+    300: {78: ("global", 16)},
+}
+
+
+@pytest.mark.parametrize("s", sorted(BACKWARD_INSTANCES))
+def test_backward_instance(s):
+    """K6's instance and chunk are chosen by fit in one place; every choice
+    fits, the chunk is the longest that does, and ``dense_placement`` and
+    ``dense_smem_bytes`` follow it."""
+    for p_dim, want in BACKWARD_INSTANCES[s].items():
+        instance, chunk = cuda_scan.backward_instance(s, p_dim)
+        assert (instance, chunk) == want
+        assert cuda_scan.backward_smem_bytes(s, p_dim, instance, chunk) <= cuda_scan.SMEM_LIMIT
+        warp_fits = cuda_scan.acc_banded_smem_bytes(s, p_dim, s, "shared", 1, 16) <= cuda_scan.SMEM_LIMIT
+        assert (instance == "warp") == (s <= 32 and warp_fits)
+        if instance == "warp":
+            n_utt = cuda_scan.backward_utterances(s, p_dim)
+            assert cuda_scan.backward_smem_bytes(s, p_dim, "warp") == \
+                cuda_scan.acc_banded_smem_bytes(s, p_dim, s, "shared", n_utt, 16) <= cuda_scan.SMEM_LIMIT
+        placement = cuda_scan.dense_placement("estep_acc_dense", s, p_dim)
+        assert placement == ("global" if instance == "global" else "shared")
+        if instance != "warp":
+            assert chunk == cuda_scan.backward_chunk(s, p_dim, instance)
+            assert cuda_scan.dense_smem_bytes("estep_acc_dense", s, p_dim, placement=placement) == \
+                cuda_scan.backward_smem_bytes(s, p_dim, instance, chunk)
+            assert all(cuda_scan.backward_smem_bytes(s, p_dim, instance, c) > cuda_scan.SMEM_LIMIT
+                       for c in cuda_scan.BACKWARD_CHUNKS if c > chunk)
+
+
+# (units, P) -> K2's (placement, utterances a block, frames a chunk): config 4
+# (50 units), config 5 (10 units, P = 32), both sides of each change of the
+# rule (a block that leaves its SM room for a second one while one fits), the
+# parent's limit (95 units ran, 96 raised), 100 and 250 units, 1000 units and
+# a large P (shorter chunks)
+ACC_GEOMETRIES = [
+    ((50, 78), ("global", 2, 16)), ((10, 32), ("shared", 4, 16)), ((14, 78), ("shared", 4, 16)),
+    ((15, 78), ("global", 4, 16)), ((25, 78), ("shared", 2, 16)), ((61, 78), ("global", 2, 16)),
+    ((62, 78), ("global", 1, 16)), ((95, 78), ("global", 1, 16)), ((96, 78), ("global", 1, 16)),
+    ((100, 78), ("global", 1, 16)), ((133, 78), ("global", 2, 16)), ((139, 78), ("global", 1, 16)),
+    ((250, 78), ("global", 1, 16)), ((1000, 78), ("global", 1, 2)), ((10, 2000), ("global", 1, 8)),
+]
+
+
+@pytest.mark.parametrize("case", ACC_GEOMETRIES, ids=lambda c: "U%d_P%d" % c[0])
+def test_acc_banded_geometry(case):
+    """K2's geometry is chosen by fit in one place: the longest chunk that
+    fits anywhere; a block that leaves its SM room for a second one if any
+    does; then the most utterances a block, in the shared placement when
+    it fits there.  Every choice fits, so every phone loop of these sizes
+    runs through the kernel (the parent's K2 refused 96 units)."""
+    (units, p_dim), want = case
+    s = 3 * units
+    placement, n_utt, chunk = cuda_scan.acc_banded_geometry(s, p_dim, units)
+    assert (placement, n_utt, chunk) == want
+    size = lambda pl, n, c: cuda_scan.acc_banded_smem_bytes(s, p_dim, units, pl, n, c)  # noqa: E731
+    assert size(placement, n_utt, chunk) <= cuda_scan.SMEM_LIMIT
+    assert all(size("global", 1, c) > cuda_scan.SMEM_LIMIT for c in cuda_scan.ACC_CHUNKS if c > chunk)
+    tier = cuda_scan.SMEM_HALF_SM if size("global", 1, chunk) <= cuda_scan.SMEM_HALF_SM else cuda_scan.SMEM_LIMIT
+    assert size(placement, n_utt, chunk) <= tier
+    assert all(size("global", n, chunk) > tier for n in cuda_scan.ACC_UTTERANCES if n > n_utt)
+    assert (placement == "shared") == (size("shared", n_utt, chunk) <= tier)
+    assert cuda_scan.banded_placement("estep_acc_banded", s, p_dim, units) == placement
+    assert size("global", n_utt, chunk) < size("shared", n_utt, chunk)
+
+
+# (kernel, S, P, U, placement): K1 to S = 674 at P = 78 and K11 to 140 units in
+# shared memory (their limits before the global placement), both at a large P
+BANDED_PLACEMENTS = [
+    ("forward_llh_banded", 150, 78, 50, "shared"), ("forward_llh_banded", 674, 78, 224, "shared"),
+    ("forward_llh_banded", 675, 78, 225, "global"), ("forward_llh_banded", 30, 2000, 10, "global"),
+    ("estep_gamma_banded", 30, 32, 10, "shared"), ("estep_gamma_banded", 420, 78, 140, "shared"),
+    ("estep_gamma_banded", 423, 78, 141, "global"), ("estep_gamma_banded", 30, 2000, 10, "global"),
+]
+
+
+@pytest.mark.parametrize("case", BANDED_PLACEMENTS, ids=lambda c: "%s_S%d_P%d" % c[:3])
+def test_banded_placement(case):
+    """W (and K11's ξ) in shared memory while they fit a block, else Wᵀ from
+    device memory and ξ in the partial row; the global placement fits."""
+    kernel, s, p_dim, units, want = case
+    assert cuda_scan.banded_placement(kernel, s, p_dim, units) == want
+    shared = cuda_scan.banded_smem_bytes(kernel, s, p_dim, units, "shared")
+    assert (shared <= cuda_scan.SMEM_LIMIT) == (want == "shared")
+    glob = cuda_scan.banded_smem_bytes(kernel, s, p_dim, units, "global")
+    assert glob < shared and glob <= 4 * (11 * s + p_dim + 2 * units + 64)
+
+
+def test_banded_placement_names_only_banded_kernels():
+    for kernel in ("estep_acc_dense", "estep_acc_banded"):   # K2's is acc_banded_smem_bytes
+        with pytest.raises(ValueError, match="not a banded scan kernel"):
+            cuda_scan.banded_smem_bytes(kernel, 30, 78)
