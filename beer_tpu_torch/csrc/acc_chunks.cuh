@@ -1,50 +1,63 @@
-// The chunked accumulating v-space backward of beer_tpu/ops/pallas_scan.py
+// The chunked v-space backward of beer_tpu/ops/pallas_scan.py
 // _make_estep_ckpt_acc_kernel_lm (B2: wrapper phone_loop_estep_ckpt_acc_lm,
-// stored-α̂ route), shared by two kernels of the port:
+// stored-α̂ route) and of _make_estep_ckpt_kernel_lm / _make_estep_kernel
+// (B7 / B11: the γ-emitting backward), shared by the kernels of the port:
 //   K2 estep_acc_banded (phone_loop_scan.cu): band + rank-1 transitions,
 //      the loop-back ξ (U, U) gathered at the units' ends and starts;
 //   K6 estep_acc_dense, its "warp" instance (hmm_scan.cu): a dense (S, S)
 //      matrix with S <= 32, the full ξ (S, S), per-utterance final vectors,
-//      the moments written state-minor.
+//      the moments written state-minor;
+//   K7 estep_gamma_dense / K15 estep_gamma_dense_restricted, their "warp"
+//      instance (hmm_scan.cu): the dense mode in the γ-emitting mode (kGamma)
+//      — the llh stream in place of the statistics, γ written per frame in
+//      place of the moments, ξ over all states or the block [rows][:, cols].
 // The recursion: walking t from len − 1 down to 0, u1 = final at the last
 // frame, else A·v̂_{t+1} (banded: v̂·a_self + shift_up(v̂)·a_adv +
-// (v̂·w)·exit); v = e·u1 with e = exp(llh − max) and llh = W·stats + bias;
-// γ = α̂·u1 / Σ α̂·u1; wgt = 1 / (norm·Σ(α̂u1)/Σv) (0 below the ξ floor).
-// It reduces γ to acc (S, P+1) = Σ γ ⊗ [stats, 1], γ₀, and ξ += (α̂_t[ends]
-// ·wgt_{t+1}) ⊗ v̂_{t+1}[starts] (int32 gathers; the identity when dense).
+// (v̂·w)·exit); v = e·u1 with e = exp(llh − max) and llh = W·stats + bias
+// (kGamma: llh read); γ = α̂·u1 / Σ α̂·u1; wgt = 1 / (norm·Σ(α̂u1)/Σv) (0
+// below the ξ floor).  It reduces γ to acc (S, P+1) = Σ γ ⊗ [stats, 1] and
+// γ₀ (kGamma: writes γ (B, T, S), 0 on frames t >= len), and ξ += (α̂_t[rows]
+// ·wgt_{t+1}) ⊗ v̂_{t+1}[cols] (int32 gathers; rows and cols the units' ends
+// and starts, the identity when dense, K15's block when restricted).
 //
 // What bounds it on the H100 is the serial chain, so the chain keeps only
 // what depends on the carry.  Frames go in chunks of C, from each
-// utterance's end: chunk c + 1's statistics and α̂ arrive by cp.async into
-// a two-stage ring while chunk c is worked on.  A chunk is five phases
-// between barriers:
-//   1. the ELLH of all its frames (register tiles of 8 frames a state),
-//      then, a warp a frame, the row max, e = exp(llh − max) and the
-//      gather α̂_t[ends];
+// utterance's end: chunk c + 1's statistics (kGamma: llh) and α̂ arrive by
+// cp.async into a two-stage ring while chunk c is worked on.  A chunk is
+// five phases between barriers:
+//   1. the ELLH of all its frames (register tiles of 8 frames a state,
+//      acc_ellh_tile, which K1 calls too; none under kGamma), then, a warp
+//      a frame, the row max, e = exp(llh − max) and the gather α̂_t[rows];
 //   2. the chain, on one warp an utterance: banded, states strided over
 //      the lanes, Σv, Σα̂u1 and Σv·w in one shuffle tree; dense, lane i
 //      holding row i of A in registers and v_{t+1}(j) coming by
-//      __shfl_sync.  The carry stays unnormalised (v, with ip = 1/Σv
-//      beside it), so a step has no barrier and normalises nothing;
+//      __shfl_sync.  K2's and K6's carry stays unnormalised (v, with ip =
+//      1/Σv beside it), so a step has no barrier and normalises nothing;
+//      kGamma's dense chain shuffles v̂ = v·ip instead (one multiply a
+//      lane): on config 3's long forced alignments under an untrained
+//      model Σv falls to ~1e-40, and A·v then runs on subnormals (γ 1.2e-3
+//      from the plain version's, which propagates v̂);
 //   3. per frame 1/Σα̂u1, wgt_{t+1} and 1/Σv_{t+1}, and the gather
-//      v_{t+1}[starts];
+//      v_{t+1}[cols];
 //   4. the moments and ξ as register-tiled FFMA products over the chunk's
 //      frames, Γᵀ·[X, 1] and Lᵀ·R in 4 × 4 tiles (γ = α̂u1 / Σα̂u1, L =
-//      α̂_t[ends]·wgt_{t+1} and R = v̂_{t+1}[starts] scaled as a tile reads
+//      α̂_t[rows]·wgt_{t+1} and R = v̂_{t+1}[cols] scaled as a tile reads
 //      them), each accumulator element read and written once a chunk;
-//   5. γ₀, and the carry into the next chunk.
+//      kGamma: γ of the chunk's frames written out by the whole block
+//      (acc_write_gamma) and ξ alone (the moment product compiles out);
+//   5. γ₀ (not under kGamma), and the carry into the next chunk.
 // Phases 1b, 3, 4 and 5, the chunk fetch and the write-out are __device__
-// helpers (acc_fetch .. acc_write_row below), which K6's block instance
-// (hmm_scan.cu, one block an utterance, a block chain) calls too; only the
-// ELLH and the chain differ between the two kernels.
+// helpers (acc_fetch .. acc_write_gamma below), which K6's and K7's block
+// instance (hmm_scan.cu, one block an utterance, a block chain) calls too;
+// only the ELLH and the chain differ between the two kernels.
 // A block runs n_utt utterances (their chains on warps 0 .. n_utt − 1 at
 // once) and sums their moments and ξ into one partial row; the rows are
 // summed over the blocks by sum_rows_kernel in a fixed order, so two calls
 // agree bitwise.  Two placements (kGlobal): W, the moments and ξ in shared
 // memory, or Wᵀ (P, S) from device memory and the moments and ξ in the
 // block's row of `part` (every S); the wrappers pick the placement, n_utt
-// and C by fit (cuda_scan.acc_banded_geometry, backward_instance).  kFull:
-// C = kAccChunk, a constant.
+// and C by fit (cuda_scan.acc_banded_geometry, backward_instance,
+// gamma_instance).  kFull: C = kAccChunk, a constant.
 
 #pragma once
 
@@ -56,32 +69,36 @@ constexpr int kAccThreads = 512;  // K2's block
 constexpr int kAccChunk = 16;     // frames a chunk, at most
 constexpr int kAccGroup = 8;      // the ELLH's frames a thread item
 
-struct AccLayout {  // float offsets into one K2 block's shared memory
+struct AccLayout {  // float offsets into one block's shared memory
   size_t w, acc, xi, bands, idx, utt, per_utt, total;
-  int ldx, ldg, ldu, lda;
+  int ldx, ldg, ldr, ldc, lda;
 };
 
-__host__ __device__ inline AccLayout acc_layout(int S, int P, int U, int n_utt, int C, bool global) {
+// ξ is (n_r, n_c) (K2, K6: U = n_r = n_c).  P = 0: the llh stream (kGamma):
+// the ring holds llh (C, ldg) and there is no W and no moment accumulator.
+__host__ __device__ inline AccLayout acc_layout(int S, int P, int n_r, int n_c, int n_utt, int C, bool global) {
   AccLayout l;
-  l.ldx = static_cast<int>(round4(P));
   l.ldg = static_cast<int>(round4(S));
-  l.ldu = static_cast<int>(round4(U));
+  l.ldx = P > 0 ? static_cast<int>(round4(P)) : l.ldg;
+  l.ldr = static_cast<int>(round4(n_r));
+  l.ldc = static_cast<int>(round4(n_c));
   l.lda = static_cast<int>(round4(P + 1));
+  const bool moments = !global && P > 0;
   size_t o = 0;
   l.w = o;  // W (S, ldx + 1), zero past P
-  if (!global) o += round4(static_cast<size_t>(S) * (l.ldx + 1));
+  if (moments) o += round4(static_cast<size_t>(S) * (l.ldx + 1));
   l.acc = o;
-  if (!global) o += static_cast<size_t>(S) * l.lda;
+  if (moments) o += static_cast<size_t>(S) * l.lda;
   l.xi = o;
-  if (!global) o += static_cast<size_t>(U) * l.ldu;
+  if (!global) o += static_cast<size_t>(n_r) * l.ldc;
   l.bands = o;  // (a_self, a_adv, exit, w) a float4 a state, then bias and final: (6, ldg)
   o += 6 * static_cast<size_t>(l.ldg);
-  l.idx = o;  // ends, starts (int32)
-  o += round4(2 * static_cast<size_t>(U));
+  l.idx = o;  // rows, cols (int32)
+  o += round4(static_cast<size_t>(n_r) + n_c);
   l.utt = o;
-  l.per_utt = 2 * static_cast<size_t>(C) * (l.ldx + l.ldg)  // ring: 2 × (stats (C, ldx), α̂ (C, ldg))
+  l.per_utt = 2 * static_cast<size_t>(C) * (l.ldx + l.ldg)  // ring: 2 × (stats or llh (C, ldx), α̂ (C, ldg))
               + static_cast<size_t>(C + 1) * l.ldg         // e, then v; row C: v after the chunk
-              + 2 * static_cast<size_t>(C) * l.ldu         // ξ factors L, R (C, ldu)
+              + static_cast<size_t>(C) * (l.ldr + l.ldc)   // ξ factors L (C, ldr), R (C, ldc)
               + round4(5 * static_cast<size_t>(C) + 2);     // per frame: Σv, Σα̂u1, 1/Σα̂u1, wgt_{t+1},
                                                                 // 1/Σv_{t+1}; carried 1/Σv, wgt
   o += static_cast<size_t>(n_utt) * l.per_utt;
@@ -108,30 +125,61 @@ __device__ __forceinline__ int row_of(int e, float inv_ld) {
 // 1/Σα̂u1 (sc[2C + f]), wgt_{t+1} (sc[3C + f]) and 1/Σv_{t+1} (sc[4C + f]);
 // carried from the chunk after, 1/Σv (sc[5C]) and wgt (sc[5C + 1]).
 // ---------------------------------------------------------------------
-// Issue the cp.async of one utterance's chunk, nf frames from flat frame
-// `row` (b·T + lo), into xs (C, ldx) and as (C, ldg), zeros past nf, P and
-// S; the caller commits.
-__device__ __forceinline__ void acc_fetch(float* xs, float* as, const float* stats, const float* alpha, size_t row,
-                                          int nf, int C, int ldx, int ldg, int P, int S, int tid, int nt) {
-  const float inv_ldx = 1.f / ldx, inv_ldg = 1.f / ldg;
-  for (int e = tid; e < C * ldx; e += nt) {
-    const int f = row_of(e, inv_ldx), q = e - f * ldx;
-    const bool ok = f < nf && q < P;
-    cp_async4(xs + e, ok ? stats + (row + f) * P + q : stats, ok);
-  }
-  for (int e = tid; e < C * ldg; e += nt) {
-    const int f = row_of(e, inv_ldg), q = e - f * ldg;
-    const bool ok = f < nf && q < S;
-    cp_async4(as + e, ok ? alpha + (row + f) * S + q : alpha, ok);
+// Issue the cp.async of nf rows of `width` floats from flat row `row` of
+// src into dst (C, ld), zeros past nf and width; the caller commits.
+__device__ __forceinline__ void acc_fetch_rows(float* dst, const float* src, size_t row, int nf, int C, int ld,
+                                               int width, int tid, int nt) {
+  const float inv_ld = 1.f / ld;
+  for (int e = tid; e < C * ld; e += nt) {
+    const int f = row_of(e, inv_ld), q = e - f * ld;
+    const bool ok = f < nf && q < width;
+    cp_async4(dst + e, ok ? src + (row + f) * width + q : src, ok);
   }
 }
 
-// One warp on one frame's row of llh (S entries): e = exp(llh − max) in place.
-__device__ __forceinline__ void acc_exp_row(float* e, int S, int lane) {
+// One utterance's chunk, nf frames from flat frame `row` (b·T + lo): the
+// statistics (width P; kGamma: llh, width S) into xs (C, ldx) and α̂ into as
+// (C, ldg).
+__device__ __forceinline__ void acc_fetch(float* xs, float* as, const float* stats, const float* alpha, size_t row,
+                                          int nf, int C, int ldx, int ldg, int P, int S, int tid, int nt) {
+  acc_fetch_rows(xs, stats, row, nf, C, ldx, P, tid, nt);
+  acc_fetch_rows(as, alpha, row, nf, C, ldg, S, tid, nt);
+}
+
+// llh = W·x + bias of up to kGroup frames for one state, into e[f·ldg]
+// for f < nf: x (·, ldx) the frames' statistics, `room` of its rows
+// readable; W's row through wr (W(s, p) = wr[p·w_cs]).  W and x are zero
+// past P, so the dot runs to ldx in steps of four.  K2's and K1's phase 1.
+template <int kGroup = kAccGroup>
+__device__ __forceinline__ void acc_ellh_tile(float* e, const float* x, const float* wr, int w_cs, float bias, int ldx,
+                                              int ldg, int nf, int room) {
+  float l[kGroup];
+#pragma unroll
+  for (int f = 0; f < kGroup; ++f) l[f] = 0.f;
+#pragma unroll 2
+  for (int p = 0; p < ldx; p += 4) {
+    const float w0 = wr[p * w_cs], w1 = wr[(p + 1) * w_cs], w2 = wr[(p + 2) * w_cs], w3 = wr[(p + 3) * w_cs];
+#pragma unroll
+    for (int f = 0; f < kGroup; ++f) {
+      if (f < room) {
+        const float4 xv = *reinterpret_cast<const float4*>(x + f * ldx + p);
+        l[f] = fmaf(w3, xv.w, fmaf(w2, xv.z, fmaf(w1, xv.y, fmaf(w0, xv.x, l[f]))));
+      }
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < kGroup; ++f)
+    if (f < nf) e[f * ldg] = l[f] + bias;
+}
+
+// One warp on one frame's row of llh (S entries): e = exp(llh − max) from
+// src into dst (in place when they are one); returns the max.
+__device__ __forceinline__ float acc_exp_row(float* dst, const float* src, int S, int lane) {
   float m = -FLT_MAX;
-  for (int s = lane; s < S; s += 32) m = fmaxf(m, e[s]);
+  for (int s = lane; s < S; s += 32) m = fmaxf(m, src[s]);
   m = warp_max(m);
-  for (int s = lane; s < S; s += 32) e[s] = expf(e[s] - m);
+  for (int s = lane; s < S; s += 32) dst[s] = expf(src[s] - m);
+  return m;
 }
 
 // Frame f's factors (f < nf, after the chain): 1/Σα̂u1, wgt_{t+1} and
@@ -157,23 +205,24 @@ __device__ __forceinline__ void acc_frame_factors(float* sc, int C, int f, int n
 
 // One utterance's chunk as the products read it: nf frames; g (·, ldg)
 // α̂u1 with ig[f] = 1/Σα̂u1 (γ = α̂u1·ig), x (·, ldx) the statistics (zero
-// past P); l (·, ldl) α̂_t at the ξ rows with wn[f] = wgt_{t+1}; r (·, ldr)
-// v_{t+1} at the ξ columns with ipn[f] = 1/Σv_{t+1}, row f at r + f·ldr but
-// row nf − 1 at r_last.
+// past P; not read without the moments); l (·, ldl) α̂_t at the ξ rows with
+// wn[f] = wgt_{t+1}; r (·, ldr) v_{t+1} at the ξ columns with ipn[f] =
+// 1/Σv_{t+1}, row f at r + f·ldr but row nf − 1 at r_last.
 struct AccChunkView {
   const float *g, *x, *ig, *l, *r, *r_last, *wn, *ipn;
   int ldl, ldr, nf;
 };
 
-// moments += Γᵀ·[X, 1] and ξ += Lᵀ·R over the chunks of n_view utterances
-// (view(u) → AccChunkView), in 4 × 4 tiles; each accumulator element is
-// read and written by one thread, once.  acc(s, p) = acc_m[s·acc_rs +
-// p·acc_cs], ξ(i, j) = xi_m[i·xi_rs + j].
-template <class View>
+// moments += Γᵀ·[X, 1] (kMoments) and ξ (n_r, n_c) += Lᵀ·R over the chunks
+// of n_view utterances (view(u) → AccChunkView), in 4 × 4 tiles; each
+// accumulator element is read and written by one thread, once.  acc(s, p)
+// = acc_m[s·acc_rs + p·acc_cs], ξ(i, j) = xi_m[i·xi_rs + j].
+template <bool kMoments, class View>
 __device__ __forceinline__ void acc_products(float* acc_m, int acc_rs, int acc_cs, float* xi_m, int xi_rs, int S,
-                                             int P, int U, int ldg, int ldx, int n_view, View view, int tid, int nt) {
-  const int np4 = (P + 1 + 3) / 4, ns4 = (S + 3) / 4, nu4 = (U + 3) / 4;
-  for (int it = tid; it < ns4 * np4; it += nt) {
+                                             int P, int n_r, int n_c, int ldg, int ldx, int n_view, View view,
+                                             int tid, int nt) {
+  const int np4 = (P + 1 + 3) / 4, ns4 = (S + 3) / 4, nr4 = (n_r + 3) / 4, nc4 = (n_c + 3) / 4;
+  for (int it = tid; it < (kMoments ? ns4 * np4 : 0); it += nt) {
     const int s0 = (it / np4) * 4, p0 = (it % np4) * 4, one = P - p0;
     float acc[4][4];
 #pragma unroll
@@ -206,19 +255,19 @@ __device__ __forceinline__ void acc_products(float* acc_m, int acc_rs, int acc_c
       for (int k = 0; k < 4; ++k)
         if (s0 + a < S && p0 + k <= P) acc_m[(s0 + a) * acc_rs + (p0 + k) * acc_cs] = acc[a][k];
   }
-  for (int it = tid; it < nu4 * nu4; it += nt) {
-    const int i0 = (it / nu4) * 4, j0 = (it % nu4) * 4;
+  for (int it = tid; it < nr4 * nc4; it += nt) {
+    const int i0 = (it / nc4) * 4, j0 = (it % nc4) * 4;
     float xi[4][4];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) xi[a][k] = i0 + a < U && j0 + k < U ? xi_m[(i0 + a) * xi_rs + j0 + k] : 0.f;
+      for (int k = 0; k < 4; ++k) xi[a][k] = i0 + a < n_r && j0 + k < n_c ? xi_m[(i0 + a) * xi_rs + j0 + k] : 0.f;
     for (int u = 0; u < n_view; ++u) {
       const AccChunkView v = view(u);
       for (int f = 0; f < v.nf; ++f) {
-        const float4 lv = *reinterpret_cast<const float4*>(v.l + f * v.ldl + i0);  // α̂_t[ends]
+        const float4 lv = *reinterpret_cast<const float4*>(v.l + f * v.ldl + i0);  // α̂_t[rows]
         const float* rr = f == v.nf - 1 ? v.r_last : v.r + f * v.ldr;
-        const float4 rv = *reinterpret_cast<const float4*>(rr + j0);  // v_{t+1}[starts]
+        const float4 rv = *reinterpret_cast<const float4*>(rr + j0);  // v_{t+1}[cols]
         const float wn = v.wn[f], ipn = v.ipn[f];
         const float la[4] = {lv.x * wn, lv.y * wn, lv.z * wn, lv.w * wn};
         const float rk[4] = {rv.x * ipn, rv.y * ipn, rv.z * ipn, rv.w * ipn};
@@ -232,18 +281,19 @@ __device__ __forceinline__ void acc_products(float* acc_m, int acc_rs, int acc_c
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (i0 + a < U && j0 + k < U) xi_m[(i0 + a) * xi_rs + j0 + k] = xi[a][k];
+        if (i0 + a < n_r && j0 + k < n_c) xi_m[(i0 + a) * xi_rs + j0 + k] = xi[a][k];
   }
 }
 
 // After a chunk of frames lo .. (nf > 0): γ₀ = α̂u1·(1/Σα̂u1) of frame 0
-// when the chunk holds it (g: its α̂u1 row), and the carry into the next
-// chunk: frame lo's v to row C of e, its 1/Σv and wgt (norm_lo: the
-// forward's norm of frame lo) to sc[5C], sc[5C + 1].
+// when the chunk holds it (g: its α̂u1 row; kGamma0 false: none), and the
+// carry into the next chunk: frame lo's v to row C of e, its 1/Σv and wgt
+// (norm_lo: the forward's norm of frame lo) to sc[5C], sc[5C + 1].
+template <bool kGamma0>
 __device__ __forceinline__ void acc_next_chunk(float* e, float* sc, const float* g, float* gamma0_row, int lo, int C,
                                                int ldg, int S, const float* norm_lo, int tid, int nt) {
   for (int s = tid; s < S; s += nt) {
-    if (lo == 0) gamma0_row[s] = g[s] * sc[2 * C];
+    if (kGamma0 && lo == 0) gamma0_row[s] = g[s] * sc[2 * C];
     e[static_cast<size_t>(C) * ldg + s] = e[s];
   }
   if (tid == 0) {
@@ -255,11 +305,12 @@ __device__ __forceinline__ void acc_next_chunk(float* e, float* sc, const float*
 }
 
 // The shared placement's accumulators to the block's partial row: the
-// moments (S, P + 1) row-major, or state-minor (P + 1, S) when `dense`,
-// then ξ (U, U).
+// moments (S, P + 1) row-major, or state-minor (P + 1, S) when `dense`
+// (none unless `moments`), then ξ (n_r, n_c).
 __device__ __forceinline__ void acc_write_row(float* out, const float* acc_m, int acc_rs, const float* xi_m,
-                                              int xi_rs, int S, int P, int U, bool dense, int tid, int nt) {
-  const int n_acc = S * (P + 1);
+                                              int xi_rs, int S, int P, int n_r, int n_c, bool dense, bool moments,
+                                              int tid, int nt) {
+  const int n_acc = moments ? S * (P + 1) : 0;
   for (int i = tid; i < n_acc; i += nt) {
     if (dense) {
       const int p = i / S;
@@ -269,43 +320,63 @@ __device__ __forceinline__ void acc_write_row(float* out, const float* acc_m, in
       out[i] = acc_m[s * acc_rs + (i - s * (P + 1))];
     }
   }
-  for (int k = tid; k < U * U; k += nt) {
-    const int i = k / U;
-    out[n_acc + k] = xi_m[i * xi_rs + (k - i * U)];
+  for (int k = tid; k < n_r * n_c; k += nt) {
+    const int i = k / n_c;
+    out[n_acc + k] = xi_m[i * xi_rs + (k - i * n_c)];
   }
 }
 
-template <bool kDense, bool kGlobal, bool kFull>
+// kGamma's phase 4: γ = α̂u1·(1/Σα̂u1) of a chunk's nf frames, g (·, ldg)
+// α̂u1 and ig[f] = 1/Σα̂u1, into out (nf, S) in device memory (the chunk's
+// first frame of γ), coalesced by the whole block.
+__device__ __forceinline__ void acc_write_gamma(float* out, const float* g, const float* ig, int nf, int S, int ldg,
+                                                int tid, int nt) {
+  const float inv_s = 1.f / S;
+  for (int e = tid; e < nf * S; e += nt) {
+    const int f = row_of(e, inv_s), s = e - f * S;
+    out[e] = g[f * ldg + s] * ig[f];
+  }
+}
+
+// γ = 0 on one utterance's frames len .. T − 1 (out: its (T, S) rows).
+__device__ __forceinline__ void acc_zero_tail(float* out, int len, int T, int S, int tid, int nt) {
+  for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) out[i] = 0.f;
+}
+
+template <bool kDense, bool kGlobal, bool kFull, bool kGamma>
 __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked_kernel(
-    const float* __restrict__ stats,   // (B, T, P)
+    const float* __restrict__ stats,   // (B, T, P); kGamma: llh (B, T, S)
     const int* __restrict__ lens,      // (B,)
-    const float* __restrict__ w,       // (S, P), kGlobal: Wᵀ padded with zero rows to (round4(P), S)
-    const float* __restrict__ bias,    // (S,)
+    const float* __restrict__ w,       // (S, P), kGlobal: Wᵀ padded with zero rows to (round4(P), S) (not kGamma)
+    const float* __restrict__ bias,    // (S,) (not kGamma)
     const float* __restrict__ bands,   // (4, S) (banded)
     const float* __restrict__ trans,   // (S, S) (dense)
     const float* __restrict__ final_,  // (S,), dense: (B, S)
     const float* __restrict__ alpha,   // (B, T, S)
     const float* __restrict__ norms,   // (B, T)
-    const int* __restrict__ ends,      // (U,) (banded; dense: the identity, U = S)
-    const int* __restrict__ starts,    // (U,) (banded)
-    float* __restrict__ part,          // (n_blocks, S*(P+1) + U*U)
-    float* __restrict__ gamma0,        // (B, S)
-    int B, int T, int S, int P, int U, int n_utt, int chunk) {
+    const int* __restrict__ rows,      // (n_r,) ξ rows (banded: the units' ends); null: the identity
+    const int* __restrict__ cols,      // (n_c,) ξ columns (banded: the units' starts); null: the identity
+    float* __restrict__ part,          // (n_blocks, S*(P+1) + n_r*n_c); kGamma: (n_blocks, n_r*n_c)
+    float* __restrict__ gamma0,        // (B, S) (not kGamma)
+    float* __restrict__ gamma,         // (B, T, S) (kGamma)
+    int B, int T, int S, int P, int n_r, int n_c, int n_utt, int chunk) {
   const int C = kFull ? kAccChunk : chunk;
+  if (!kGamma) n_c = n_r;  // K2 and K6: ξ (U, U), one value (fewer live registers)
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const AccLayout L = acc_layout(S, P, U, n_utt, C, kGlobal);
-  const int ldx = L.ldx, ldg = L.ldg, ldu = L.ldu, ldw = ldx + 1;
+  const AccLayout L = acc_layout(S, kGamma ? 0 : P, n_r, n_c, n_utt, C, kGlobal);
+  const int ldx = L.ldx, ldg = L.ldg, ldr = L.ldr, ldc = L.ldc, ldw = ldx + 1;
+  const int width = kGamma ? S : P;  // of a frame's row in the ring's first array
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31, n_warps = nt >> 5;
   const int b0 = blockIdx.x * n_utt;
-  const int n_acc = S * (P + 1);
-  float* out = part + static_cast<size_t>(blockIdx.x) * (n_acc + U * U);
+  const int n_acc = kGamma ? 0 : S * (P + 1);
+  float* out = part + static_cast<size_t>(blockIdx.x) * (n_acc + n_r * n_c);
   float* w_sh = smem + L.w;
   float4* band_sh = reinterpret_cast<float4*>(smem + L.bands);  // one 16-byte read a state in the chain
   float* bias_sh = smem + L.bands + 4 * static_cast<size_t>(ldg);
   float* fin_sh = bias_sh + ldg;
-  int* ends_sh = reinterpret_cast<int*>(smem + L.idx);
-  int* starts_sh = ends_sh + U;
+  int* rows_sh = reinterpret_cast<int*>(smem + L.idx);
+  int* cols_sh = rows_sh + n_r;
   // W(s, p) = w_m[s·w_rs + p·w_cs]; acc(s, p) = acc_m[s·acc_rs + p·acc_cs]; ξ(i, j) = xi_m[i·xi_rs + j]
   const float* w_m = kGlobal ? w : w_sh;
   const int w_rs = kGlobal ? 1 : ldw, w_cs = kGlobal ? S : 1;
@@ -313,14 +384,14 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
   float* xi_m = kGlobal ? out + n_acc : smem + L.xi;
   // the partial row: the moments row-major (banded) or state-minor (dense), then ξ
   const int acc_rs = kGlobal ? (kDense ? 1 : P + 1) : L.lda, acc_cs = kGlobal && kDense ? S : 1;
-  const int xi_rs = kGlobal ? U : ldu;
-  // utterance u's pieces: ring stage st (stats, then α̂), e/v rows, L, R, scalars
+  const int xi_rs = kGlobal ? n_c : ldc;
+  // utterance u's pieces: ring stage st (stats or llh, then α̂), e/v rows, L, R, scalars
   auto ring_x = [&](int u, int st) { return smem + L.utt + u * L.per_utt + static_cast<size_t>(st) * C * (ldx + ldg); };
   auto ring_a = [&](int u, int st) { return ring_x(u, st) + static_cast<size_t>(C) * ldx; };
   auto ebuf = [&](int u) { return smem + L.utt + u * L.per_utt + 2 * static_cast<size_t>(C) * (ldx + ldg); };
   auto lbuf = [&](int u) { return ebuf(u) + static_cast<size_t>(C + 1) * ldg; };
-  auto rbuf = [&](int u) { return lbuf(u) + static_cast<size_t>(C) * ldu; };
-  auto scal = [&](int u) { return rbuf(u) + static_cast<size_t>(C) * ldu; };
+  auto rbuf = [&](int u) { return lbuf(u) + static_cast<size_t>(C) * ldr; };
+  auto scal = [&](int u) { return rbuf(u) + static_cast<size_t>(C) * ldc; };
   auto len_of = [&](int u) { return b0 + u < B ? lens[b0 + u] : 0; };
   // chunk c of utterance u: frames lo .. lo + nf − 1, counted from its end
   auto span = [&](int u, int c, int& lo) {
@@ -336,36 +407,34 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
       int lo;
       const int nf = span(u, c, lo);
       acc_fetch(ring_x(u, c & 1), ring_a(u, c & 1), stats, alpha, static_cast<size_t>(b0 + u) * T + lo, nf, C, ldx,
-                ldg, P, S, tid, nt);
+                ldg, width, S, tid, nt);
     }
     cp_async_commit();
   };
   if (n_chunks > 0) fetch(0);
 
-  if (!kGlobal) {
+  if (!kGlobal && !kGamma) {
     for (int i = tid; i < S * ldw; i += nt) {
       const int s = i / ldw, p = i - s * ldw;
       w_sh[i] = p < P ? w[s * P + p] : 0.f;
     }
   }
   // the moments and ξ start at 0; each element is owned by one tile, so one thread
-  for (int i = tid; i < (kGlobal ? n_acc : S * L.lda); i += nt) acc_m[i] = 0.f;
-  for (int i = tid; i < U * xi_rs; i += nt) xi_m[i] = 0.f;
+  for (int i = tid; i < (kGamma ? 0 : kGlobal ? n_acc : S * L.lda); i += nt) acc_m[i] = 0.f;
+  for (int i = tid; i < n_r * xi_rs; i += nt) xi_m[i] = 0.f;
   for (int s = tid; s < ldg; s += nt) {
     const bool on = s < S;
     const bool band = on && !kDense;
     band_sh[s] = band ? make_float4(bands[s], bands[S + s], bands[2 * S + s], bands[3 * S + s])
                       : make_float4(0.f, 0.f, 0.f, 0.f);
-    bias_sh[s] = on ? bias[s] : 0.f;
+    bias_sh[s] = on && !kGamma ? bias[s] : 0.f;
     fin_sh[s] = band ? final_[s] : 0.f;
   }
-  for (int i = tid; i < U; i += nt) {
-    ends_sh[i] = kDense ? i : ends[i];
-    starts_sh[i] = kDense ? i : starts[i];
-  }
+  for (int i = tid; i < n_r; i += nt) rows_sh[i] = rows != nullptr ? rows[i] : i;
+  for (int i = tid; i < n_c; i += nt) cols_sh[i] = cols != nullptr ? cols[i] : i;
   for (int u = 0; u < n_utt; ++u) {  // e/v (padding columns stay 0), L, R, the carried scalars
     float* e = ebuf(u);
-    for (size_t i = tid; i < static_cast<size_t>(C + 1) * ldg + 2 * static_cast<size_t>(C) * ldu + 5 * C + 2;
+    for (size_t i = tid; i < static_cast<size_t>(C + 1) * ldg + static_cast<size_t>(C) * (ldr + ldc) + 5 * C + 2;
          i += nt)
       e[i] = 0.f;
   }
@@ -382,43 +451,26 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
     cp_async_wait(more);
     __syncthreads();  // chunk c has landed
 
-    // 1a. llh (nf, S) = X·Wᵀ + bias: an item is a state and up to kAccGroup frames
+    // 1a. llh (nf, S) = X·Wᵀ + bias: an item is a state and up to kAccGroup frames (kGamma: llh was read)
     const int groups = (C + kAccGroup - 1) / kAccGroup;
-    for (int it = tid; it < n_utt * groups * S; it += nt) {
+    for (int it = tid; it < (kGamma ? 0 : n_utt * groups * S); it += nt) {
       const int s = it % S, ug = it / S, u = ug / groups, f0 = (ug - u * groups) * kAccGroup;
       int lo;
       const int nf = span(u, c, lo);
       if (f0 >= nf) continue;
-      const float* xs = ring_x(u, c & 1) + static_cast<size_t>(f0) * ldx;
-      const float* wr = w_m + s * w_rs;
-      float l[kAccGroup];
-#pragma unroll
-      for (int f = 0; f < kAccGroup; ++f) l[f] = 0.f;
-#pragma unroll 2
-      for (int p = 0; p < ldx; p += 4) {  // W and the statistics are zero past P
-        const float w0 = wr[p * w_cs], w1 = wr[(p + 1) * w_cs], w2 = wr[(p + 2) * w_cs], w3 = wr[(p + 3) * w_cs];
-#pragma unroll
-        for (int f = 0; f < kAccGroup; ++f) {
-          if (f0 + f < C) {
-            const float4 xv = *reinterpret_cast<const float4*>(xs + f * ldx + p);
-            l[f] = fmaf(w3, xv.w, fmaf(w2, xv.z, fmaf(w1, xv.y, fmaf(w0, xv.x, l[f]))));
-          }
-        }
-      }
-      float* e = ebuf(u) + static_cast<size_t>(f0) * ldg + s;
-#pragma unroll
-      for (int f = 0; f < kAccGroup; ++f)
-        if (f0 + f < nf) e[f * ldg] = l[f] + bias_sh[s];
+      acc_ellh_tile(ebuf(u) + static_cast<size_t>(f0) * ldg + s, ring_x(u, c & 1) + static_cast<size_t>(f0) * ldx,
+                    w_m + s * w_rs, w_cs, bias_sh[s], ldx, ldg, nf - f0, C - f0);
     }
-    __syncthreads();
-    // 1b. a warp a frame: the row max, e = exp(llh − max), the gather α̂_t[ends]
+    if (!kGamma) __syncthreads();
+    // 1b. a warp a frame: the row max, e = exp(llh − max), the gather α̂_t[rows]
     for (int uf = warp; uf < n_utt * C; uf += n_warps) {
       const int u = uf / C, f = uf - u * C;
       int lo;
       if (f >= span(u, c, lo)) continue;
-      acc_exp_row(ebuf(u) + static_cast<size_t>(f) * ldg, S, lane);
+      float* e = ebuf(u) + static_cast<size_t>(f) * ldg;
+      acc_exp_row(e, kGamma ? ring_x(u, c & 1) + static_cast<size_t>(f) * ldx : e, S, lane);
       const float* a = ring_a(u, c & 1) + static_cast<size_t>(f) * ldg;
-      for (int i = lane; i < U; i += 32) lbuf(u)[f * ldu + i] = a[ends_sh[i]];
+      for (int i = lane; i < n_r; i += 32) lbuf(u)[f * ldr + i] = a[rows_sh[i]];
     }
     __syncthreads();
 
@@ -441,7 +493,7 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
           float q[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
           for (int k = 0; k < 32; ++k) q[k & 3] = fmaf(__shfl_sync(0xffffffffu, vprev, k), a_row[k], q[k & 3]);
-          u1 = ((q[0] + q[1]) + (q[2] + q[3])) * ip;
+          u1 = ((q[0] + q[1]) + (q[2] + q[3])) * (kGamma ? 1.f : ip);  // kGamma: vprev is v̂
         }
         float* er = e + static_cast<size_t>(f) * ldg;
         float* ar = ab + static_cast<size_t>(f) * ldg;
@@ -456,7 +508,7 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
           sa += __shfl_xor_sync(0xffffffffu, sa, o);
         }
         ip = 1.f / fmaxf(sv, FLT_MIN);
-        vprev = v;
+        vprev = kGamma ? v * ip : v;
         if (lane == 0) {
           sc[f] = sv;
           sc[C + f] = sa;
@@ -496,7 +548,7 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
     __syncthreads();
 
     // 3. per frame 1/Σα̂u1 (γ = α̂u1 / Σα̂u1), wgt_{t+1} and 1/Σv_{t+1}; the
-    //    gather R = v_{t+1}[starts] (v̂_{t+1} = R / Σv_{t+1})
+    //    gather R = v_{t+1}[cols] (v̂_{t+1} = R / Σv_{t+1})
     for (int i = tid; i < n_utt * C; i += nt) {
       const int u = i / C, f = i - u * C;
       int lo;
@@ -509,64 +561,73 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
       int lo;
       const int nf = span(u, c, lo);
       const float* e = ebuf(u);
-      for (int i = tid; i < nf * U; i += nt) {
-        const int f = i / U, k = i - f * U;
-        rbuf(u)[f * ldu + k] = e[static_cast<size_t>(f == nf - 1 ? C : f + 1) * ldg + starts_sh[k]];
+      for (int i = tid; i < nf * n_c; i += nt) {
+        const int f = i / n_c, k = i - f * n_c;
+        rbuf(u)[f * ldc + k] = e[static_cast<size_t>(f == nf - 1 ? C : f + 1) * ldg + cols_sh[k]];
       }
     }
     __syncthreads();
 
-    // 4. moments += Γᵀ·[X, 1] and ξ += Lᵀ·R over the chunk's frames
-    acc_products(acc_m, acc_rs, acc_cs, xi_m, xi_rs, S, P, U, ldg, ldx, n_utt, [&](int u) {
+    // 4. kGamma: γ of the chunk's frames; moments += Γᵀ·[X, 1] (not kGamma) and ξ += Lᵀ·R
+    for (int u = 0; u < n_utt && kGamma; ++u) {
+      int lo;
+      const int nf = span(u, c, lo);
+      acc_write_gamma(gamma + (static_cast<size_t>(b0 + u) * T + lo) * S, ring_a(u, c & 1), scal(u) + 2 * C, nf, S,
+                      ldg, tid, nt);
+    }
+    acc_products<!kGamma>(acc_m, acc_rs, acc_cs, xi_m, xi_rs, S, P, n_r, n_c, ldg, ldx, n_utt, [&](int u) {
       int lo;
       const int nf = span(u, c, lo);
       const float* sc = scal(u);
       return AccChunkView{ring_a(u, c & 1), ring_x(u, c & 1), sc + 2 * C, lbuf(u), rbuf(u),
-                          rbuf(u) + static_cast<size_t>(max(nf - 1, 0)) * ldu, sc + 3 * C, sc + 4 * C, ldu, ldu, nf};
+                          rbuf(u) + static_cast<size_t>(max(nf - 1, 0)) * ldc, sc + 3 * C, sc + 4 * C, ldr, ldc, nf};
     }, tid, nt);
     // 5. γ₀, and the carry into the next chunk (phase 4 reads R, not row C of e)
     for (int u = 0; u < n_utt; ++u) {
       int lo;
       if (span(u, c, lo) > 0)
-        acc_next_chunk(ebuf(u), scal(u), ring_a(u, c & 1), gamma0 + static_cast<size_t>(b0 + u) * S, lo, C, ldg, S,
-                       norms + static_cast<size_t>(b0 + u) * T + lo, tid, nt);
+        acc_next_chunk<!kGamma>(ebuf(u), scal(u), ring_a(u, c & 1), gamma0 + static_cast<size_t>(b0 + u) * S, lo, C,
+                                ldg, S, norms + static_cast<size_t>(b0 + u) * T + lo, tid, nt);
     }
   }
   __syncthreads();
-  if (!kGlobal) acc_write_row(out, acc_m, acc_rs, xi_m, xi_rs, S, P, U, kDense, tid, nt);
+  if (!kGlobal) acc_write_row(out, acc_m, acc_rs, xi_m, xi_rs, S, P, n_r, n_c, kDense, !kGamma, tid, nt);
   for (int u = 0; u < n_utt; ++u) {
-    if (b0 + u < B && len_of(u) == 0) {
+    if (b0 + u >= B) continue;
+    if (kGamma)
+      acc_zero_tail(gamma + static_cast<size_t>(b0 + u) * T * S, len_of(u), T, S, tid, nt);
+    else if (len_of(u) == 0)
       for (int s = tid; s < S; s += nt) gamma0[static_cast<size_t>(b0 + u) * S + s] = 0.f;
-    }
   }
 }
 
 
-// The kernel and its batch sum: part (ceil(B / n_utt), S·(P+1) + U·U), out
-// = Σ of its rows.
-template <bool kDense>
+// The kernel and its batch sum: part (ceil(B / n_utt), width), width =
+// S·(P+1) + n_r·n_c (kGamma: n_r·n_c), out = Σ of its rows.
+template <bool kDense, bool kGamma>
 cudaError_t launch_acc_chunked(int global, int n_utt, int chunk, const float* stats, const int* lens, const float* w,
                                const float* bias, const float* bands, const float* trans, const float* final_,
-                               const float* alpha, const float* norms, const int* ends, const int* starts,
-                               float* part, float* out, float* gamma0, int B, int T, int S, int P, int U,
-                               cudaStream_t st) {
+                               const float* alpha, const float* norms, const int* rows, const int* cols,
+                               float* part, float* out, float* gamma0, float* gamma, int B, int T, int S, int P,
+                               int n_r, int n_c, cudaStream_t st) {
   if (n_utt < 1 || n_utt > kAccThreads / 32 || chunk < 1 || chunk > kAccChunk || (kDense && S > 32))
     return cudaErrorInvalidValue;
-  const size_t smem = acc_layout(S, P, U, n_utt, chunk, global != 0).total * sizeof(float);
+  const size_t smem = acc_layout(S, kGamma ? 0 : P, n_r, n_c, n_utt, chunk, global != 0).total * sizeof(float);
   const bool full = chunk == kAccChunk;
-  auto kernel = global ? (full ? estep_acc_chunked_kernel<kDense, true, true> : estep_acc_chunked_kernel<kDense, true, false>)
-                       : (full ? estep_acc_chunked_kernel<kDense, false, true>
-                               : estep_acc_chunked_kernel<kDense, false, false>);
+  auto kernel = global ? (full ? estep_acc_chunked_kernel<kDense, true, true, kGamma>
+                               : estep_acc_chunked_kernel<kDense, true, false, kGamma>)
+                       : (full ? estep_acc_chunked_kernel<kDense, false, true, kGamma>
+                               : estep_acc_chunked_kernel<kDense, false, false, kGamma>);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int n = S * (P + 1) + U * U, n_blocks = (B + n_utt - 1) / n_utt;
+  const int n = (kGamma ? 0 : S * (P + 1)) + n_r * n_c, n_blocks = (B + n_utt - 1) / n_utt;
   if (B > 0) {
-    kernel<<<n_blocks, kAccThreads, smem, st>>>(stats, lens, w, bias, bands, trans, final_, alpha, norms, ends,
-                                               starts, part, gamma0, B, T, S, P, U, n_utt, chunk);
+    kernel<<<n_blocks, kAccThreads, smem, st>>>(stats, lens, w, bias, bands, trans, final_, alpha, norms, rows, cols,
+                                               part, gamma0, gamma, B, T, S, P, n_r, n_c, n_utt, chunk);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, n_blocks, n);
+  if (n > 0) sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, n_blocks, n);
   return cudaGetLastError();
 }
 

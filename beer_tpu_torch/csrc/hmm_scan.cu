@@ -10,7 +10,8 @@
 //   K6 estep_acc_dense     v-space backward that reduces γ to the emission
 //                          moments, γ₀ and the full (S, S) ξ;
 //   K7 estep_gamma_dense   the same backward chain, emitting γ per frame
-//                          and the full (S, S) ξ.
+//                          and the full (S, S) ξ: K6's kernels in their
+//                          γ-emitting mode (kGamma).
 //
 // Two more are template instances of K5 and K7, so that the modes cannot
 // drift apart:
@@ -19,7 +20,8 @@
 //                                     masked per-frame row max, with the carry
 //                                     copied through frames t >= len;
 //   K15 estep_gamma_dense_restricted  K7 with ξ gathered to the block
-//                                     [rows][:, cols] in the kernel.
+//                                     [rows][:, cols] in the kernel (the
+//                                     rows and columns in K7's index slots).
 //
 // Each replaces the dense mode of one Pallas TPU kernel of
 // beer_tpu/ops/pallas_scan.py; the note above each kernel names it.
@@ -36,13 +38,13 @@
 // partials are written to a (B, ·) array and summed over the batch by
 // sum_rows_kernel in a fixed order: deterministic, no atomics.  The JAX
 // package's bf16×3 propagate is a TPU artifact; everything here is f32.
-// K5 (with K14) and K6 have since been rebuilt around chunks of frames,
-// with a one-warp instance for S <= 32 (their notes below); K7 and K15
-// keep the per-frame chain.
+// K5 (with K14), K6 and K7 (with K15) have since been rebuilt around
+// chunks of frames, with a one-warp instance for S <= 32 (their notes
+// below).
 //
 // Two placements of the operands, one template flag (kGlobal) on each
 // kernel.  "shared": A (and the ELLH matrix W, and K6's moment
-// accumulator) in shared memory, as above; it fits up to S = 239 (K5 on
+// accumulator) in shared memory, as above; it fits up to S = 238 (K5 on
 // the llh stream), 168 (K7) or ~133 (K6 at P = 78).  "global", for every
 // larger S: A and W are read from device memory (an (S, S) matrix of a
 // few hundred KB stays in the 50 MB L2), laid out so that each warp reads
@@ -53,21 +55,14 @@
 // only, and are summed over the batch as before.  The sums run in the
 // same order in both placements, so their outputs agree bitwise.  The
 // wrapper picks the placement from the shared-memory size
-// (cuda_scan.dense_placement).  Both placements write K6's moments as
-// (P + 1, S), state-minor.
+// (cuda_scan.dense_placement, which asks forward_instance,
+// backward_instance and gamma_instance).  Both placements write K6's
+// moments as (P + 1, S), state-minor.
 
 #include "acc_chunks.cuh"
 #include "scan_common.cuh"
 
 namespace {
-
-// K7 / K15: n_xi floats of the ξ accumulator (S·S, or n_r·n_c when ξ is
-// restricted); n_idx: the restricted block's two index vectors.
-size_t dense_backward_smem_floats(int s, size_t n_xi, int n_idx, bool global) {
-  size_t n = 6 * static_cast<size_t>(s) + 2 * kMaxWarps + n_idx;
-  if (!global) n += static_cast<size_t>(s) * odd_stride(s) + n_xi;
-  return n;
-}
 
 // ---------------------------------------------------------------------
 // K5 — scaled dense forward.
@@ -447,174 +442,25 @@ __global__ void __launch_bounds__(kWarps * 32) forward_llh_warp_kernel(
 }
 
 // ---------------------------------------------------------------------
-// K7 — γ-emitting dense v-space backward.
-// Replaces beer_tpu/ops/pallas_scan.py _make_estep_ckpt_kernel_lm
+// K6 — accumulating dense v-space backward, and K7 — the γ-emitting one.
+// K6 replaces beer_tpu/ops/pallas_scan.py _make_estep_ckpt_acc_kernel_lm
+// (wrapper phone_loop_estep_ckpt_acc_lm with bands=None, trans=(S, S),
+// full ξ, fused ELLH, stored α̂); K7 replaces _make_estep_ckpt_kernel_lm
 // (wrapper phone_loop_estep_ckpt_pass_lm with bands=None, trans=(S, S),
 // full ξ; α̂ is read from K5 instead of recomputed from checkpoints).
 //
 // Walking t from len−1 down to 0: u1 = final_b at the last frame,
 // otherwise u1_i = Σ_j A(i, j) v̂_{t+1}(j); v = e·u1; v̂ = v / max(Σv,
-// FLT_MIN); γ = α̂·u1 / max(Σ α̂·u1, FLT_MIN), written per frame (0 on
-// frames t >= len); wgt = 1 / (norm·Σ(α̂u1)/Σv) (0 below the ξ floor);
-// ξ_raw(i, j) += α̂_t(i)·wgt_{t+1}·v̂_{t+1}(j).  The expected transition
-// counts are ξ_raw ⊙ A, applied by the caller.  Bound: the serial chain
-// plus S FMAs (propagate) + S FMAs (ξ) per state and step; α̂ streams in
-// once.  K6 runs in chunks of frames (below); this per-frame chain is
-// the next to take that design (ROADMAP P3).
-//
-// K15 (kRestrict) replaces _make_estep_kernel (wrapper
-// phone_loop_estep_pass): ξ_raw is accumulated only on the block
+// FLT_MIN); γ = α̂·u1 / max(Σ α̂·u1, FLT_MIN); wgt = 1 / (norm·Σ(α̂u1)/Σv)
+// (0 below the ξ floor); ξ_raw(i, j) += α̂_t(i)·wgt_{t+1}·v̂_{t+1}(j).  The
+// expected transition counts are ξ_raw ⊙ A, applied by the caller.  K6
+// computes llh = W·stats + bias in the kernel and reduces γ to acc (S, P+1)
+// = Σ γ ⊗ [stats, 1] (written state-minor, as (P + 1, S)) plus γ₀; K7
+// (kGamma) reads the llh stream and writes γ per frame (0 on frames t >=
+// len).  K15 (K7 with rows and columns, replacing _make_estep_kernel,
+// wrapper phone_loop_estep_pass) accumulates ξ_raw only on the block
 // [rows][:, cols], (n_r, n_c), by an exact gather of α̂_t[rows] and
-// v̂_{t+1}[cols] (no one-hot product), so the per-utterance partial is
-// n_r·n_c floats instead of S².
-// ---------------------------------------------------------------------
-template <bool kRestrict, bool kGlobal>
-__global__ void estep_gamma_dense_kernel(
-    const float* __restrict__ x,       // (B, T, S) llh
-    const int* __restrict__ lens,      // (B,)
-    const float* __restrict__ trans,   // (S, S), kGlobal: Aᵀ
-    const float* __restrict__ final_,  // (B, S)
-    const float* __restrict__ alpha,   // (B, T, S)
-    const float* __restrict__ norms,   // (B, T)
-    const int* __restrict__ rows,      // (n_r,)  (kRestrict)
-    const int* __restrict__ cols,      // (n_c,)  (kRestrict)
-    float* __restrict__ part,          // (B, n_r*n_c)
-    float* __restrict__ gamma,         // (B, T, S)
-    int T, int S, int n_r, int n_c) {  // n_r = n_c = S unless kRestrict
-  extern __shared__ float smem[];
-  const int ldt = odd_stride(S);
-  const int n_xi = n_r * n_c;
-  float* out = part + static_cast<size_t>(blockIdx.x) * n_xi;             // this utterance's partial
-  float* a_sh = smem;                                                      // A, (S, ldt)
-  float* xi_sh = a_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldt);     // (n_r, n_c)
-  int* rows_sh = reinterpret_cast<int*>(xi_sh + (kGlobal ? 0 : n_xi));     // kRestrict: n_r + n_c indices
-  int* cols_sh = rows_sh + n_r;
-  float* fin_sh = reinterpret_cast<float*>(rows_sh) + (kRestrict ? n_r + n_c : 0);
-  float* vh_prev = fin_sh + S;  // v̂_{t+1}
-  float* vh_cur = vh_prev + S;  // v̂_t
-  float* al_sh = vh_cur + S;    // α̂_t
-  float* v_sh = al_sh + S;      // llh_t, then v_t
-  float* ab_sh = v_sh + S;      // α̂_t·u1_t
-  float* red = ab_sh + S;
-  // A(i, j) = a_m[i·a_rs + j·a_cs], ξ(i, j) = xi_m[i·n_c + j]
-  const float* a_m = kGlobal ? trans : a_sh;
-  float* xi_m = kGlobal ? out : xi_sh;
-  const int a_rs = kGlobal ? 1 : ldt, a_cs = kGlobal ? S : 1;
-
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int len = lens[b];
-  if (!kGlobal) {
-    for (int i = tid; i < S * S; i += nt) {
-      const int r = i / S;
-      a_sh[r * ldt + (i - r * S)] = trans[i];
-    }
-  }
-  // each ξ column belongs to one thread, here and below
-  for (int j = tid; j < n_c; j += nt)
-    for (int i = 0; i < n_r; ++i) xi_m[i * n_c + j] = 0.f;
-  if (kRestrict) {
-    for (int i = tid; i < n_r; i += nt) rows_sh[i] = rows[i];
-    for (int i = tid; i < n_c; i += nt) cols_sh[i] = cols[i];
-  }
-  for (int s = tid; s < S; s += nt) {
-    fin_sh[s] = final_[static_cast<size_t>(b) * S + s];
-    vh_prev[s] = 0.f;
-  }
-  const float* x_b = x + static_cast<size_t>(b) * T * S;
-  const float* al_b = alpha + static_cast<size_t>(b) * T * S;
-  const float* n_b = norms + static_cast<size_t>(b) * T;
-  float* g_b = gamma + static_cast<size_t>(b) * T * S;
-  float wgt_next = 0.f;  // wgt_{t+1}
-
-  for (int t = len - 1; t >= 0; --t) {
-    __syncthreads();  // the previous step's readers of al_sh / vh_prev are done
-    const float* x_t = x_b + static_cast<size_t>(t) * S;
-    for (int s = tid; s < S; s += nt) al_sh[s] = al_b[static_cast<size_t>(t) * S + s];
-    __syncthreads();
-    float mx = -FLT_MAX, unused = 0.f;
-    for (int s = tid; s < S; s += nt) {
-      const float l = x_t[s];
-      v_sh[s] = l;
-      mx = fmaxf(mx, l);
-    }
-    block_max_sum(mx, unused, red);
-    const bool is_last = t == len - 1;
-    float sv = 0.f, absum = 0.f;
-    for (int i = tid; i < S; i += nt) {
-      float u1;
-      if (is_last) {
-        u1 = fin_sh[i];
-      } else if (!kGlobal) {
-        const float* ar = a_m + i * a_rs;
-        u1 = 0.f;
-#pragma unroll 32
-        for (int j = 0; j < S; ++j) u1 = fmaf(ar[j * a_cs], vh_prev[j], u1);
-      } else {
-        // 32 reads of Aᵀ from L2 in flight, then their FMAs in order (K5's
-        // lever: a plain loop left each read's latency in the chain)
-        u1 = 0.f;
-        for (int j0 = 0; j0 < S; j0 += 32) {
-          float av[32];
-#pragma unroll
-          for (int q = 0; q < 32; ++q) av[q] = j0 + q < S ? a_m[i * a_rs + (j0 + q) * a_cs] : 0.f;
-#pragma unroll
-          for (int q = 0; q < 32; ++q)
-            if (j0 + q < S) u1 = fmaf(av[q], vh_prev[j0 + q], u1);
-        }
-      }
-      const float v = expf(v_sh[i] - mx) * u1;
-      const float ab = al_sh[i] * u1;
-      v_sh[i] = v;
-      ab_sh[i] = ab;
-      sv += v;
-      absum += ab;
-    }
-    block_sum_sum(sv, absum, red);
-    sv = fmaxf(sv, FLT_MIN);
-    const float gnorm = fmaxf(absum, FLT_MIN);
-    const float denom = n_b[t] * absum / sv;
-    const float wgt = denom > kXiFloor ? 1.f / fmaxf(denom, kXiFloor) : 0.f;
-    for (int s = tid; s < S; s += nt) {
-      vh_cur[s] = v_sh[s] / sv;
-      g_b[static_cast<size_t>(t) * S + s] = ab_sh[s] / gnorm;
-    }
-    if (!is_last) {
-      for (int j = tid; j < n_c; j += nt) {
-        const float vj = vh_prev[kRestrict ? cols_sh[j] : j];
-        for (int i0 = 0; i0 < n_r; i0 += 16) {  // sixteen reads in flight (ξ may live in device memory)
-          float v[16];
-#pragma unroll
-          for (int u = 0; u < 16; ++u)
-            if (i0 + u < n_r) v[u] = xi_m[(i0 + u) * n_c + j];
-#pragma unroll
-          for (int u = 0; u < 16; ++u) {
-            if (i0 + u >= n_r) continue;
-            const float ai = al_sh[kRestrict ? rows_sh[i0 + u] : i0 + u];
-            xi_m[(i0 + u) * n_c + j] = fmaf(ai * wgt_next, vj, v[u]);
-          }
-        }
-      }
-    }
-    wgt_next = wgt;
-    float* tmp = vh_prev;
-    vh_prev = vh_cur;
-    vh_cur = tmp;
-  }
-  __syncthreads();
-  for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) g_b[i] = 0.f;
-  if (!kGlobal) {
-    for (int k = tid; k < n_xi; k += nt) out[k] = xi_sh[k];
-  }
-}
-
-// ---------------------------------------------------------------------
-// K6 — accumulating dense v-space backward.
-// Replaces beer_tpu/ops/pallas_scan.py _make_estep_ckpt_acc_kernel_lm
-// (wrapper phone_loop_estep_ckpt_acc_lm with bands=None, trans=(S, S),
-// full ξ, fused ELLH, stored α̂).
-// K7's recursion (above) with llh = W·stats + bias computed in the kernel,
-// γ reduced to acc (S, P+1) = Σ γ ⊗ [stats, 1] (written state-minor, as
-// (P + 1, S)) plus γ₀, and the full ξ_raw (S, S).
+// v̂_{t+1}[cols] (no one-hot product): K7 gathers with the identity.
 //
 // What bounds it on the H100 is the serial chain, so, as in K5 and K2,
 // the chain keeps only what depends on the carry.  Frames go in chunks
@@ -635,59 +481,82 @@ __global__ void estep_gamma_dense_kernel(
 //   "block" (every larger S, both placements; chunks of the most of 16, 8,
 //       4, 2, 1 frames that fit): one block an utterance, threads over
 //       states, one block reduction (Σv and Σα̂u1) a step; its fetch, row
-//       max, per-frame factors, products and carry are acc_chunks.cuh's
-//       helpers, so only its ELLH and chain are its own.  "shared" keeps
-//       A, W, the moments and ξ in shared memory, "global" reads Aᵀ and Wᵀ
-//       from device memory (32 reads of A in flight, as K5) and keeps the
-//       moments and ξ in the utterance's row of `part`.
+//       max, per-frame factors, products, γ write and carry are
+//       acc_chunks.cuh's helpers, so only its ELLH and chain are its own.
+//       "shared" keeps A, W, the moments and ξ in shared memory, "global"
+//       reads Aᵀ and Wᵀ from device memory (32 reads of A in flight, as
+//       K5) and keeps the moments and ξ in the utterance's row of `part`.
+// K6's instance comes from cuda_scan.backward_instance, K7's and K15's
+// from cuda_scan.gamma_instance.
 // The rows are summed over the batch by sum_rows_kernel in a fixed order,
 // so two calls agree bitwise.
 // ---------------------------------------------------------------------
 constexpr int kAccChunkBlock = 16;  // the block instance: frames a chunk, at most
 
-// Floats of one block of K6's block instance in a placement, at `chunk`
-// frames a chunk.
-size_t acc_block_smem_floats(int s, int p, bool global, int chunk) {
-  const size_t S = s, C = chunk, ldg = round4(S), ldx = round4(p);
-  size_t n = 2 * ldg + 2 * C * (ldx + ldg) + (C + 1) * ldg + C * ldg + round4(5 * C + 2) + 2 * kMaxWarps;
-  if (!global) n += round4(S * odd_stride(s)) + round4(S * odd_stride(p)) + S * round4(p + 1) + S * ldg;
+// Floats of one block of the block instance in a placement, at `chunk`
+// frames a chunk: K6 (p > 0, ξ (S, S): n_r = n_c = S) or K7 / K15 (p = 0,
+// the llh stream; ξ (n_r, n_c), from gathered rows and columns when
+// `gather`, K15).
+size_t acc_block_smem_floats(int s, int p, int n_r, int n_c, bool gather, bool global, int chunk) {
+  const size_t S = s, C = chunk, ldg = round4(S), ldx = p > 0 ? round4(p) : ldg;
+  size_t n = (p > 0 ? 2 * ldg : 0) + 2 * C * (ldx + ldg) + (C + 1) * ldg + (p > 0 ? C * ldg : 0) + round4(5 * C + 2) +
+             2 * kMaxWarps;
+  if (gather) n += C * (round4(n_r) + round4(n_c)) + round4(static_cast<size_t>(n_r) + n_c);
+  if (!global) {
+    n += round4(S * odd_stride(s)) + static_cast<size_t>(n_r) * round4(n_c);
+    if (p > 0) n += round4(S * odd_stride(p)) + S * round4(p + 1);
+  }
   return n;
 }
 
 // The block instance: one block an utterance.  kFull: chunks of
-// kAccChunkBlock frames, a constant; otherwise `chunk` frames.
-template <bool kGlobal, bool kFull>
+// kAccChunkBlock frames, a constant; otherwise `chunk` frames.  kGamma: K7
+// and K15.
+template <bool kGlobal, bool kFull, bool kGamma>
 __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
-    const float* __restrict__ stats,   // (B, T, P)
+    const float* __restrict__ stats,   // (B, T, P); kGamma: llh (B, T, S)
     const int* __restrict__ lens,      // (B,)
-    const float* __restrict__ w,       // (S, P), kGlobal: Wᵀ (P, S)
-    const float* __restrict__ bias,    // (S,)
+    const float* __restrict__ w,       // (S, P), kGlobal: Wᵀ (P, S) (not kGamma)
+    const float* __restrict__ bias,    // (S,) (not kGamma)
     const float* __restrict__ trans,   // (S, S), kGlobal: Aᵀ
     const float* __restrict__ final_,  // (B, S)
     const float* __restrict__ alpha,   // (B, T, S)
     const float* __restrict__ norms,   // (B, T)
-    float* __restrict__ part,          // (B, (P+1)*S + S*S)
-    float* __restrict__ gamma0,        // (B, S)
-    int T, int S, int P, int chunk) {
+    const int* __restrict__ rows,      // kGamma: (n_r,) ξ rows (K15); null: every state (K7)
+    const int* __restrict__ cols,      // kGamma: (n_c,) ξ columns (K15); null: every state (K7)
+    float* __restrict__ part,          // (B, (P+1)*S + S*S); kGamma: (B, n_r*n_c)
+    float* __restrict__ gamma0,        // (B, S) (not kGamma)
+    float* __restrict__ gamma,         // (B, T, S) (kGamma)
+    int T, int S, int P, int n_r, int n_c, int chunk) {
   const int C = kFull ? kAccChunkBlock : chunk;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int ldg = static_cast<int>(round4(S)), ldx = static_cast<int>(round4(P)), lda = static_cast<int>(round4(P + 1));
+  const int ldg = static_cast<int>(round4(S)), ldx = kGamma ? ldg : static_cast<int>(round4(P));
+  const int lda = static_cast<int>(round4(P + 1));
   const int ldt = odd_stride(S), ldw = odd_stride(P);
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31;
-  const int n_acc = S * (P + 1);
-  float* out = part + static_cast<size_t>(b) * (n_acc + S * S);
-  float* bias_sh = smem;                                         // (ldg,)
-  float* fin_sh = bias_sh + ldg;                                 // (ldg,)
-  float* ring = fin_sh + ldg;                                    // 2 × (stats (C, ldx), α̂ (C, ldg))
+  // K6's ξ is (S, S); the layout below is K6's, K7's buffers are placed apart
+  const int nr = kGamma ? n_r : S, nc = kGamma ? n_c : S;
+  const int ldr = static_cast<int>(round4(nr)), ldc = kGamma ? static_cast<int>(round4(nc)) : ldg;
+  const int n_acc = kGamma ? 0 : S * (P + 1);
+  const bool gather = kGamma && rows != nullptr;  // K15: ξ's rows and columns gathered
+  float* out = part + static_cast<size_t>(b) * (n_acc + nr * nc);
+  float* bias_sh = smem;                                         // K6: (ldg,)
+  float* fin_sh = bias_sh + ldg;                                 // K6: (ldg,)
+  float* ring = kGamma ? smem : fin_sh + ldg;                    // 2 × (stats or llh (C, ldx), α̂ (C, ldg))
   float* e_sh = ring + 2 * static_cast<size_t>(C) * (ldx + ldg);  // (C + 1, ldg): e, then v; row C: v after the chunk
-  float* g_sh = e_sh + static_cast<size_t>(C + 1) * ldg;          // (C, ldg): α̂u1
-  float* sc = g_sh + static_cast<size_t>(C) * ldg;                // 5C + 2 scalars (acc_chunks.cuh)
+  float* g_buf = e_sh + static_cast<size_t>(C + 1) * ldg;         // K6: (C, ldg): α̂u1 (K7: in the chunk's llh stage)
+  float* sc = kGamma ? g_buf : g_buf + static_cast<size_t>(C) * ldg;  // 5C + 2 scalars (acc_chunks.cuh)
   float* red = sc + round4(5 * static_cast<size_t>(C) + 2);
   float* a_sh = red + 2 * kMaxWarps;                              // shared: A (S, ldt)
+  float* l_sh = a_sh;                                             // gather: L = α̂_t[rows] (C, ldr)
+  float* r_sh = l_sh + static_cast<size_t>(C) * ldr;              // gather: R = v_{t+1}[cols] (C, ldc)
+  int* rows_sh = reinterpret_cast<int*>(r_sh + static_cast<size_t>(C) * ldc);  // gather
+  int* cols_sh = rows_sh + nr;
+  if (gather) a_sh = reinterpret_cast<float*>(rows_sh) + round4(static_cast<size_t>(nr) + nc);
   float* w_sh = a_sh + round4(static_cast<size_t>(S) * ldt);      // shared: W (S, ldw)
-  float* acc_sh = w_sh + round4(static_cast<size_t>(S) * ldw);    // shared: moments (S, lda)
-  float* xi_sh = acc_sh + static_cast<size_t>(S) * lda;           // shared: ξ (S, ldg)
+  float* acc_sh = w_sh + (kGamma ? 0 : round4(static_cast<size_t>(S) * ldw));  // shared: moments (S, lda)
+  float* xi_sh = acc_sh + (kGamma ? 0 : static_cast<size_t>(S) * lda);         // shared: ξ (nr, ldc)
   // A(i, j) = a_m[i·a_rs + j·a_cs], W(s, p) = w_m[s·w_rs + p·w_cs], the moments
   // acc(s, p) = acc_m[s·acc_rs + p·acc_cs], ξ(i, j) = xi_m[i·xi_rs + j]
   const float* a_m = kGlobal ? trans : a_sh;
@@ -696,7 +565,7 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
   float* xi_m = kGlobal ? out + n_acc : xi_sh;
   const int a_rs = kGlobal ? 1 : ldt, a_cs = kGlobal ? S : 1;
   const int w_rs = kGlobal ? 1 : ldw, w_cs = kGlobal ? S : 1;
-  const int acc_rs = kGlobal ? 1 : lda, acc_cs = kGlobal ? S : 1, xi_rs = kGlobal ? S : ldg;
+  const int acc_rs = kGlobal ? 1 : lda, acc_cs = kGlobal ? S : 1, xi_rs = kGlobal ? nc : ldc;
   const int len = lens[b];
   auto span = [&](int c, int& lo) {
     const int hi = len - 1 - c * C;
@@ -707,8 +576,8 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
     int lo;
     const int nf = span(c, lo);
     float* xs = ring + (c & 1) * static_cast<size_t>(C) * (ldx + ldg);
-    acc_fetch(xs, xs + static_cast<size_t>(C) * ldx, stats, alpha, static_cast<size_t>(b) * T + lo, nf, C, ldx, ldg, P,
-              S, tid, nt);
+    acc_fetch(xs, xs + static_cast<size_t>(C) * ldx, stats, alpha, static_cast<size_t>(b) * T + lo, nf, C, ldx, ldg,
+              kGamma ? S : P, S, tid, nt);
     cp_async_commit();
   };
   const int n_chunks = (len + C - 1) / C;
@@ -718,18 +587,24 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
       const int r = i / S;
       a_sh[r * ldt + (i - r * S)] = trans[i];
     }
-    for (int i = tid; i < S * P; i += nt) {
+    for (int i = tid; i < (kGamma ? 0 : S * P); i += nt) {
       const int s = i / P;
       w_sh[s * ldw + (i - s * P)] = w[i];
     }
   }
   // every accumulator element belongs to one 4 × 4 tile, so to one thread
-  for (int i = tid; i < (kGlobal ? n_acc + S * S : S * (lda + ldg)); i += nt) (kGlobal ? out : acc_sh)[i] = 0.f;
-  for (int s = tid; s < ldg; s += nt) {
+  for (int i = tid; i < (kGlobal ? n_acc + nr * nc : (kGamma ? 0 : S * lda) + nr * ldc); i += nt)
+    (kGlobal ? out : acc_sh)[i] = 0.f;
+  for (int s = tid; s < (kGamma ? 0 : ldg); s += nt) {
     bias_sh[s] = s < S ? bias[s] : 0.f;
     fin_sh[s] = s < S ? final_[static_cast<size_t>(b) * S + s] : 0.f;
   }
-  for (size_t i = tid; i < static_cast<size_t>(2 * C + 1) * ldg + 5 * C + 2; i += nt) e_sh[i] = 0.f;
+  for (size_t i = tid; i < static_cast<size_t>(kGamma ? C + 1 : 2 * C + 1) * ldg + 5 * C + 2; i += nt) e_sh[i] = 0.f;
+  if (gather) {  // L and R (padding columns stay 0), the ξ rows and columns
+    for (size_t i = tid; i < static_cast<size_t>(C) * (ldr + ldc); i += nt) l_sh[i] = 0.f;
+    for (int i = tid; i < nr; i += nt) rows_sh[i] = rows[i];
+    for (int i = tid; i < nc; i += nt) cols_sh[i] = cols[i];
+  }
   float ip = 0.f;  // 1/Σv of the frame after the current one
 
   for (int c = 0; c < n_chunks; ++c) {
@@ -742,8 +617,10 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
     __syncthreads();  // chunk c has landed
     const float* xc = ring + (c & 1) * static_cast<size_t>(C) * (ldx + ldg);
     float* ac = const_cast<float*>(xc) + static_cast<size_t>(C) * ldx;
-    // 1. llh = W·stats + bias of the chunk's frames, a state a thread (K5's order)
-    for (int s = tid; s < S; s += nt) {
+    // α̂u1: K7 writes it over the chunk's llh, which e has replaced by then
+    float* g_sh = kGamma ? const_cast<float*>(xc) : g_buf;
+    // 1. llh = W·stats + bias of the chunk's frames, a state a thread (K5's order; kGamma: llh was read)
+    for (int s = tid; s < (kGamma ? 0 : S); s += nt) {
       const float* wr = w_m + s * w_rs;
       if (kFull) {
         float l[kAccChunkBlock];
@@ -765,10 +642,12 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
         }
       }
     }
+    if (!kGamma) __syncthreads();
+    for (int f = warp; f < nf; f += nt >> 5)
+      acc_exp_row(e_sh + static_cast<size_t>(f) * ldg, (kGamma ? xc : e_sh) + static_cast<size_t>(f) * ldg, S, lane);
     __syncthreads();
-    for (int f = warp; f < nf; f += nt >> 5) acc_exp_row(e_sh + static_cast<size_t>(f) * ldg, S, lane);
-    __syncthreads();
-    // 2. the chain: one block reduction a step
+    // 2. the chain: one block reduction a step; K7 scales v_{t+1} by ip as it
+    //    reads it (a normalised carry, as the warp instance's)
     for (int f = nf - 1; f >= 0; --f) {
       const bool last = lo + f == len - 1;
       const float* vn = e_sh + static_cast<size_t>(f == nf - 1 ? C : f + 1) * ldg;  // v_{t+1}
@@ -776,13 +655,13 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
       for (int i = tid; i < S; i += nt) {
         float u1;
         if (last) {
-          u1 = fin_sh[i];
+          u1 = kGamma ? final_[static_cast<size_t>(b) * S + i] : fin_sh[i];
         } else if (!kGlobal) {
           const float* ar = a_m + i * a_rs;
           u1 = 0.f;
 #pragma unroll 32
-          for (int k = 0; k < S; ++k) u1 = fmaf(ar[k], vn[k], u1);
-          u1 *= ip;
+          for (int k = 0; k < S; ++k) u1 = fmaf(ar[k], kGamma ? vn[k] * ip : vn[k], u1);
+          u1 *= kGamma ? 1.f : ip;
         } else {
           u1 = 0.f;  // 32 reads of A from L2 in flight, then their FMAs in order (K5)
           for (int k0 = 0; k0 < S; k0 += 32) {
@@ -791,9 +670,9 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
             for (int q = 0; q < 32; ++q) av[q] = k0 + q < S ? a_m[i * a_rs + (k0 + q) * a_cs] : 0.f;
 #pragma unroll
             for (int q = 0; q < 32; ++q)
-              if (k0 + q < S) u1 = fmaf(av[q], vn[k0 + q], u1);
+              if (k0 + q < S) u1 = fmaf(av[q], kGamma ? vn[k0 + q] * ip : vn[k0 + q], u1);
           }
-          u1 *= ip;
+          u1 *= kGamma ? 1.f : ip;
         }
         const float v = e_sh[f * ldg + i] * u1, a = ac[f * ldg + i] * u1;
         e_sh[f * ldg + i] = v;
@@ -809,23 +688,40 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
       }
     }
     __syncthreads();
-    // 3. 1/Σα̂u1, wgt_{t+1} and 1/Σv_{t+1} a frame
+    // 3. 1/Σα̂u1, wgt_{t+1} and 1/Σv_{t+1} a frame; K15: the gathers L =
+    //    α̂_t[rows] and R = v_{t+1}[cols] (row f + 1 of e, row C for the last frame)
     for (int f = tid; f < nf; f += nt)
       acc_frame_factors(sc, C, f, nf, lo + f == len - 1, norms + static_cast<size_t>(b) * T + lo + f + 1);
+    for (int i = tid; i < (gather ? nf * nr : 0); i += nt) {
+      const int f = i / nr, k = i - f * nr;
+      l_sh[f * ldr + k] = ac[f * ldg + rows_sh[k]];
+    }
+    for (int i = tid; i < (gather ? nf * nc : 0); i += nt) {
+      const int f = i / nc, k = i - f * nc;
+      r_sh[f * ldc + k] = e_sh[static_cast<size_t>(f == nf - 1 ? C : f + 1) * ldg + cols_sh[k]];
+    }
     __syncthreads();
-    // 4. moments += Γᵀ·[X, 1] and ξ += Σ_f (α̂·wgt_{t+1}) ⊗ (v_{t+1}/Σv_{t+1}); v_{t+1} is row f + 1 of e,
-    //    row C (the carry) for the chunk's last frame
-    const AccChunkView view{g_sh, xc, sc + 2 * C, ac, e_sh + ldg, e_sh + static_cast<size_t>(C) * ldg, sc + 3 * C,
-                            sc + 4 * C, ldg, ldg, nf};
-    acc_products(acc_m, acc_rs, acc_cs, xi_m, xi_rs, S, P, S, ldg, ldx, 1, [&](int) { return view; }, tid, nt);
+    // 4. moments += Γᵀ·[X, 1] (kGamma: γ written out instead) and ξ += Σ_f (α̂·wgt_{t+1}) ⊗
+    //    (v_{t+1}/Σv_{t+1}); v_{t+1} is row f + 1 of e, row C (the carry) for the chunk's last frame
+    if (kGamma) acc_write_gamma(gamma + (static_cast<size_t>(b) * T + lo) * S, g_sh, sc + 2 * C, nf, S, ldg, tid, nt);
+    const AccChunkView view = gather ? AccChunkView{g_sh, xc, sc + 2 * C, l_sh, r_sh,
+                                                    r_sh + static_cast<size_t>(nf - 1) * ldc, sc + 3 * C, sc + 4 * C,
+                                                    ldr, ldc, nf}
+                                     : AccChunkView{g_sh, xc, sc + 2 * C, ac, e_sh + ldg,
+                                                    e_sh + static_cast<size_t>(C) * ldg, sc + 3 * C, sc + 4 * C, ldg,
+                                                    ldg, nf};
+    acc_products<!kGamma>(acc_m, acc_rs, acc_cs, xi_m, xi_rs, S, P, nr, nc, ldg, ldx, 1,
+                          [&](int) { return view; }, tid, nt);
     __syncthreads();  // ξ's readers of row C are done
-    // 5. γ₀, and the carry into the next chunk
-    acc_next_chunk(e_sh, sc, g_sh, gamma0 + static_cast<size_t>(b) * S, lo, C, ldg, S,
-                   norms + static_cast<size_t>(b) * T + lo, tid, nt);
+    // 5. γ₀ (not kGamma), and the carry into the next chunk
+    acc_next_chunk<!kGamma>(e_sh, sc, g_sh, gamma0 + static_cast<size_t>(b) * S, lo, C, ldg, S,
+                            norms + static_cast<size_t>(b) * T + lo, tid, nt);
   }
   __syncthreads();
-  if (!kGlobal) acc_write_row(out, acc_sh, lda, xi_sh, ldg, S, P, S, true, tid, nt);
-  if (len == 0) {
+  if (!kGlobal) acc_write_row(out, acc_sh, lda, xi_sh, ldc, S, P, nr, nc, true, !kGamma, tid, nt);
+  if (kGamma) {
+    acc_zero_tail(gamma + static_cast<size_t>(b) * T * S, len, T, S, tid, nt);
+  } else if (len == 0) {
     for (int s = tid; s < S; s += nt) gamma0[static_cast<size_t>(b) * S + s] = 0.f;
   }
 }
@@ -851,21 +747,20 @@ size_t beer_dense_forward_smem_bytes(int s, int p, int instance, int chunk) {
   return dense_forward_smem_floats(s, p, instance, chunk) * sizeof(float);
 }
 
-// K7 (global != 0: Aᵀ from device memory, ξ in the partial row).
-size_t beer_dense_estep_smem_bytes(int s, int global) {
-  return dense_backward_smem_floats(s, static_cast<size_t>(s) * s, 0, global != 0) * sizeof(float);
-}
-
 // K6 in an instance (0 block, shared placement; 1 block, global; 2 warp)
 // at `chunk` frames a chunk, n_utt utterances a block (the warp instance).
 size_t beer_acc_dense_smem_bytes(int s, int p, int instance, int chunk, int n_utt) {
-  return (instance == 2 ? acc_layout(s, p, s, n_utt, chunk, false).total
-                        : acc_block_smem_floats(s, p, instance == 1, chunk)) *
+  return (instance == 2 ? acc_layout(s, p, s, s, n_utt, chunk, false).total
+                        : acc_block_smem_floats(s, p, s, s, false, instance == 1, chunk)) *
          sizeof(float);
 }
 
-size_t beer_dense_estep_restricted_smem_bytes(int s, int n_r, int n_c, int global) {
-  return dense_backward_smem_floats(s, static_cast<size_t>(n_r) * n_c, n_r + n_c, global != 0) * sizeof(float);
+// K7 (restricted = 0, n_r = n_c = S) and K15 (ξ (n_r, n_c) at gathered rows
+// and columns) in an instance, as K6's.
+size_t beer_gamma_dense_smem_bytes(int s, int n_r, int n_c, int restricted, int instance, int chunk, int n_utt) {
+  return (instance == 2 ? acc_layout(s, 0, n_r, n_c, n_utt, chunk, false).total
+                        : acc_block_smem_floats(s, 0, n_r, n_c, restricted != 0, instance == 1, chunk)) *
+         sizeof(float);
 }
 
 }  // extern "C"
@@ -929,6 +824,49 @@ int beer_forward_llh_shifts_dense(int device, int instance, int chunk, const flo
                                      logz, shifts, B, T, S, 0, static_cast<cudaStream_t>(stream));
 }
 
+}  // extern "C"
+
+namespace {
+
+// K6 (kGamma false) or K7 / K15 (kGamma) in an instance (0 block shared,
+// 1 block global, 2 warp) at `chunk` frames a chunk, n_utt utterances a
+// block (warp); part has a row a block, out = Σ of its rows.
+template <bool kGamma>
+cudaError_t launch_backward(int instance, int chunk, int n_utt, const float* x, const int* lens, const float* w,
+                            const float* bias, const float* trans, const float* final_, const float* alpha,
+                            const float* norms, const int* rows, const int* cols, float* part, float* out,
+                            float* gamma0, float* gamma, int B, int T, int S, int P, int n_r, int n_c,
+                            cudaStream_t st) {
+  if (instance == 2)
+    return launch_acc_chunked<true, kGamma>(0, n_utt, chunk, x, lens, w, bias, nullptr, trans, final_, alpha, norms,
+                                            rows, cols, part, out, gamma0, gamma, B, T, S, P, n_r, n_c, st);
+  if (instance < 0 || instance > 1 || chunk < 1 || chunk > kAccChunkBlock) return cudaErrorInvalidValue;
+  const size_t smem =
+      acc_block_smem_floats(S, kGamma ? 0 : P, n_r, n_c, rows != nullptr, instance == 1, chunk) * sizeof(float);
+  const bool full = chunk == kAccChunkBlock;
+  auto kernel = instance == 1 ? (full ? estep_acc_dense_block_kernel<true, true, kGamma>
+                                      : estep_acc_dense_block_kernel<true, false, kGamma>)
+                              : (full ? estep_acc_dense_block_kernel<false, true, kGamma>
+                                      : estep_acc_dense_block_kernel<false, false, kGamma>);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // threads over the states, and at least 256 for the chunk's products
+  if (B > 0) {
+    kernel<<<B, block_threads(kernel, S > 256 ? S : 256), smem, st>>>(x, lens, w, bias, trans, final_, alpha, norms,
+                                                                       rows, cols, part, gamma0, gamma, T, S, P, n_r,
+                                                                       n_c, chunk);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int n = (kGamma ? 0 : S * (P + 1)) + n_r * n_c;
+  if (n > 0) sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
 // K6 in an instance (0 block shared, 1 block global, 2 warp) at `chunk`
 // frames a chunk; the warp instance runs n_utt utterances a block.  trans is
 // Aᵀ and w is Wᵀ (P, S) in the global placement; part has one row an
@@ -940,65 +878,25 @@ int beer_estep_acc_dense(int device, int instance, int chunk, int n_utt, const f
                          int T, int S, int P, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (instance == 2)
-    return launch_acc_chunked<true>(0, n_utt, chunk, stats, lens, w, bias, nullptr, trans, final_, alpha, norms,
-                                    nullptr, nullptr, part, out, gamma0, B, T, S, P, S, st);
-  if (instance < 0 || instance > 1 || chunk < 1 || chunk > kAccChunkBlock) return cudaErrorInvalidValue;
-  const size_t smem = beer_acc_dense_smem_bytes(S, P, instance, chunk, 1);
-  const bool full = chunk == kAccChunkBlock;
-  auto kernel = instance == 1 ? (full ? estep_acc_dense_block_kernel<true, true> : estep_acc_dense_block_kernel<true, false>)
-                              : (full ? estep_acc_dense_block_kernel<false, true> : estep_acc_dense_block_kernel<false, false>);
-  err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  // threads over the states, and at least 256 for the chunk's products
-  if (B > 0) {
-    kernel<<<B, block_threads(kernel, S > 256 ? S : 256), smem, st>>>(stats, lens, w, bias, trans, final_, alpha,
-                                                                       norms, part, gamma0, T, S, P, chunk);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  const int n = S * (P + 1) + S * S;
-  sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
-  return cudaGetLastError();
+  return launch_backward<false>(instance, chunk, n_utt, stats, lens, w, bias, trans, final_, alpha, norms, nullptr,
+                                nullptr, part, out, gamma0, nullptr, B, T, S, P, S, S,
+                                static_cast<cudaStream_t>(stream));
 }
 
-// trans is Aᵀ when global.
-int beer_estep_gamma_dense(int device, int global, const float* llh, const int* lens, const float* trans,
-                           const float* final_, const float* alpha, const float* norms, float* part, float* out,
-                           float* gamma, int B, int T, int S, void* stream) {
+// K7 (rows = cols = null: ξ over all S states, n_r = n_c = S) and K15 (ξ
+// restricted to [rows][:, cols], (n_r, n_c)) in an instance, as K6; trans is
+// Aᵀ in the global placement; part has n_r·n_c floats a row (an utterance,
+// or a block of n_utt utterances); out (n_r, n_c) = Σ of its rows; gamma
+// (B, T, S).
+int beer_estep_gamma_dense(int device, int instance, int chunk, int n_utt, const float* llh, const int* lens,
+                           const float* trans, const float* final_, const float* alpha, const float* norms,
+                           const int* rows, const int* cols, float* part, float* out, float* gamma, int B, int T,
+                           int S, int n_r, int n_c, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0) {
-    err = launch_placed(global, estep_gamma_dense_kernel<false, false>, estep_gamma_dense_kernel<false, true>,
-                        beer_dense_estep_smem_bytes(S, global), B, S, st, llh, lens, trans, final_, alpha, norms,
-                        static_cast<const int*>(nullptr), static_cast<const int*>(nullptr), part, gamma, T, S, S, S);
-    if (err != cudaSuccess) return err;
-  }
-  const int n = S * S;
-  sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
-  return cudaGetLastError();
-}
-
-// K15: ξ_raw restricted to [rows][:, cols]; part is (B, n_r·n_c), out
-// (n_r, n_c); trans is Aᵀ when global.
-int beer_estep_gamma_dense_restricted(int device, int global, const float* llh, const int* lens,
-                                      const float* trans, const float* final_, const float* alpha,
-                                      const float* norms, const int* rows, const int* cols, float* part, float* out,
-                                      float* gamma, int B, int T, int S, int n_r, int n_c, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0) {
-    err = launch_placed(global, estep_gamma_dense_kernel<true, false>, estep_gamma_dense_kernel<true, true>,
-                        beer_dense_estep_restricted_smem_bytes(S, n_r, n_c, global), B, S, st, llh, lens, trans,
-                        final_, alpha, norms, rows, cols, part, gamma, T, S, n_r, n_c);
-    if (err != cudaSuccess) return err;
-  }
-  const int n = n_r * n_c;
-  if (n > 0) sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
-  return cudaGetLastError();
+  return launch_backward<true>(instance, chunk, n_utt, llh, lens, nullptr, nullptr, trans, final_, alpha, norms,
+                               rows, cols, part, out, nullptr, gamma, B, T, S, 0, n_r, n_c,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

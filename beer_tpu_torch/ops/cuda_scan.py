@@ -3,11 +3,12 @@
 Counterpart of the ``beer_tpu/ops/pallas_scan.py`` kernels on the ported
 paths: the four of the phone-loop AUD main path (K1–K4, banded
 transitions, ``csrc/phone_loop_scan.cu``; K2 is the banded mode of the
-chunked backward in ``csrc/acc_chunks.cuh``) and their γ-emitting backward
+chunked backward in ``csrc/acc_chunks.cuh``, K1 its forward twin on that
+file's helpers) and their γ-emitting backward
 K11 (the structured VAE's gradient), the three of the Bayesian
 HMM's E-step over a dense (S, S) transition matrix (K5–K7,
-``csrc/hmm_scan.cu``; K6's warp instance is the dense mode of
-``acc_chunks.cuh``) with their two further modes (K14: K5 writing the
+``csrc/hmm_scan.cu``; K6's and K7's warp instance is the dense mode of
+``acc_chunks.cuh``, K7's its γ-emitting mode) with their two further modes (K14: K5 writing the
 row-max shifts; K15: K7 with ξ restricted to a block), and the two of
 the general probability-space path behind ``PhoneLoop.smooth`` (K12
 ``scaled_pass``, K13 ``smoothing_pass``, ``csrc/general_scan.cu``).  The build, the library and the launch counts in
@@ -160,16 +161,15 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     signatures = {
-        "beer_forward_llh_banded": [i, i] + [p] * 10 + [i] * 4 + [p],
+        "beer_forward_llh_banded": [i, i, i, i] + [p] * 10 + [i] * 4 + [p],
         "beer_estep_acc_banded": [i, i, i, i] + [p] * 13 + [i] * 5 + [p],
         "beer_estep_gamma_banded": [i, i] + [p] * 14 + [i] * 5 + [p],
         "beer_viterbi_fwd_banded": [i] + [p] * 7 + [i] * 3 + [p],
         "beer_viterbi_backtrace_banded": [i] + [p] * 6 + [i] * 4 + [p],
         "beer_forward_llh_dense": [i, i, i] + [p] * 10 + [i] * 4 + [p],
         "beer_estep_acc_dense": [i, i, i, i] + [p] * 11 + [i] * 4 + [p],
-        "beer_estep_gamma_dense": [i, i] + [p] * 9 + [i] * 3 + [p],
+        "beer_estep_gamma_dense": [i, i, i, i] + [p] * 11 + [i] * 5 + [p],
         "beer_forward_llh_shifts_dense": [i, i, i] + [p] * 9 + [i] * 3 + [p],
-        "beer_estep_gamma_dense_restricted": [i, i] + [p] * 11 + [i] * 5 + [p],
         "beer_scaled_pass": [i, i, i] + [p] * 6 + [i] * 3 + [p],
         "beer_smoothing_pass": [i, i, i] + [p] * 9 + [i] * 3 + [p],
         "beer_gmm_estep_full": [i] + [p] * 6 + [i] * 6 + [p],
@@ -181,10 +181,10 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    smem = {"beer_forward_smem_bytes": 3, "beer_estep_smem_bytes": 6, "beer_estep_gamma_smem_bytes": 4,
-            "beer_dense_estep_smem_bytes": 2, "beer_scaled_pass_smem_bytes": 3,
-            "beer_smoothing_smem_bytes": 3, "beer_dense_forward_smem_bytes": 4,
-            "beer_dense_estep_restricted_smem_bytes": 4, "beer_acc_dense_smem_bytes": 5}
+    smem = {"beer_forward_smem_bytes": 5, "beer_estep_smem_bytes": 6, "beer_estep_gamma_smem_bytes": 4,
+            "beer_scaled_pass_smem_bytes": 3, "beer_smoothing_smem_bytes": 3,
+            "beer_dense_forward_smem_bytes": 4, "beer_gamma_dense_smem_bytes": 7,
+            "beer_acc_dense_smem_bytes": 5}
     for name, n_args in smem.items():
         getattr(lib, name).argtypes = [i] * n_args
         getattr(lib, name).restype = z
@@ -242,6 +242,35 @@ def _max_len(lens: torch.Tensor) -> int:
     return int(lens.max()) if lens.numel() else 0
 
 
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the ``n_sm`` the
+    wrappers give the geometry functions."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _utterance_cap(b: int, per_sm: int, n_sm: int) -> int:
+    """The most utterances a block that a chunked kernel (K1, K2, and the
+    warp instances of K6 and K7) takes at batch size ``b``, one rule for
+    all four: the fewest of :data:`ACC_UTTERANCES` whose ceil(b / n)
+    blocks run in one wave at ``per_sm`` blocks an SM on ``n_sm`` SMs, the
+    most when none does.  Their chains are latency-bound, so fewer
+    utterances a block spread a batch over more SMs (kernel alone,
+    ``stats_variants.py geometry``: K7 at config 3, B = 128, one a block
+    0.20 ms, four 0.33; K1 at config 5, B = 258, one 0.15, four 0.20; K2
+    on config 5's loop one 0.22, four 0.35; K6 at B = 128 one 0.39, four
+    0.69)."""
+    return next((n for n in sorted(ACC_UTTERANCES) if -(-b // n) <= per_sm * n_sm), max(ACC_UTTERANCES))
+
+
+def _warp_utterances(b: int, n_sm: int, fits) -> int:
+    """Utterances a block of a dense warp instance (K6, K7; one block an
+    SM, its registers take the SM's file): the most up to
+    :func:`_utterance_cap` for which ``fits(n)`` (1 when none does)."""
+    cap = _utterance_cap(b, 1, n_sm)
+    return next((n for n in ACC_UTTERANCES if n <= cap and fits(n)), 1)
+
+
 def _fits(what: str, smem: int) -> None:
     if smem > SMEM_LIMIT:
         raise ValueError(f"{what} needs {smem} B of shared memory (> {SMEM_LIMIT}); "
@@ -253,12 +282,16 @@ def _fits(what: str, smem: int) -> None:
 # ----------------------------------------------------------------------
 _MAX_WARPS = 32   # scan_common.cuh kMaxWarps: the block reductions' scratch
 _FORWARD = ("forward_llh_dense", "forward_llh_shifts_dense")
-_BACKWARD = ("estep_acc_dense", "estep_gamma_dense")
-_DENSE = _FORWARD + _BACKWARD + ("estep_gamma_dense_restricted", "scaled_pass", "smoothing_pass")
+_GAMMA = ("estep_gamma_dense", "estep_gamma_dense_restricted")
+_DENSE = _FORWARD + ("estep_acc_dense",) + _GAMMA + ("scaled_pass", "smoothing_pass")
 
 
 def _odd(n: int) -> int:
     return n | 1
+
+
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
 
 
 def dense_smem_bytes(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0,
@@ -267,11 +300,13 @@ def dense_smem_bytes(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0
     ``csrc/hmm_scan.cu`` and ``csrc/general_scan.cu``): ``kernel`` one of
     K5 ``forward_llh_dense`` (``p`` > 0 on the stats stream), K14
     ``forward_llh_shifts_dense``, K6 ``estep_acc_dense`` (``p``; its block
-    instance at :func:`backward_chunk`'s chunk), K7 ``estep_gamma_dense``, K15 ``estep_gamma_dense_restricted`` (``n_r`` ×
-    ``n_c``), K12 ``scaled_pass`` (the dense forward and reverse) and K13
-    ``smoothing_pass`` (dense); ``placement`` "shared" keeps A (and W,
-    K6's moments, the ξ accumulator) in shared memory, "global" reads them
-    from device memory.  K5/K14: their block instance in ``placement`` at
+    instance at :func:`backward_chunk`'s chunk), K7 ``estep_gamma_dense``
+    and K15 ``estep_gamma_dense_restricted`` (``n_r`` × ``n_c``; their
+    block instance at :func:`gamma_chunk`'s chunk), K12 ``scaled_pass``
+    (the dense forward and reverse) and K13 ``smoothing_pass`` (dense);
+    ``placement`` "shared" keeps A (and W, K6's moments, the ξ
+    accumulator) in shared memory, "global" reads them from device memory.
+    K5/K14: their block instance in ``placement`` at
     :func:`forward_chunk`'s chunk (the warp instance's size is
     :func:`forward_smem_bytes`)."""
     if kernel not in _DENSE:
@@ -282,10 +317,9 @@ def dense_smem_bytes(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0
         return forward_smem_bytes(s, p, placement, forward_chunk(s, p, placement))
     elif kernel == "estep_acc_dense":
         return backward_smem_bytes(s, p, placement, backward_chunk(s, p, placement))
-    elif kernel == "estep_gamma_dense":
-        floats = 6 * s + 2 * _MAX_WARPS + (mat + s * s if shared else 0)
-    elif kernel == "estep_gamma_dense_restricted":
-        floats = 6 * s + 2 * _MAX_WARPS + n_r + n_c + (mat + n_r * n_c if shared else 0)
+    elif kernel in _GAMMA:
+        rc = () if kernel == "estep_gamma_dense" else (n_r, n_c)
+        return gamma_smem_bytes(s, placement, gamma_chunk(s, placement, *rc), 1, *rc)
     elif kernel == "scaled_pass":
         floats = 2 * s + 2 * _MAX_WARPS + mat
     else:
@@ -308,15 +342,14 @@ def forward_smem_bytes(s: int, p: int, instance: str, chunk: int = FORWARD_CHUNK
     llh stream in the ring stage itself); the block instance also A
     (shared) and W (shared, stats), the warp instance W once for its
     ``FORWARD_WARPS`` utterances."""
-    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
     if instance == "warp":
         c = FORWARD_CHUNK
-        ldr = r4(p) if p > 0 else s
-        w = r4(s * (r4(p) + 1)) if p > 0 else 0
-        return 4 * (w + FORWARD_WARPS * (r4(2 * c * ldr) + c * 33 + c))
+        ldr = _r4(p) if p > 0 else s
+        w = _r4(s * (_r4(p) + 1)) if p > 0 else 0
+        return 4 * (w + FORWARD_WARPS * (_r4(2 * c * ldr) + c * 33 + c))
     shared = instance == "shared"
-    floats = ((r4(s * _odd(s)) if shared else 0) + 2 * s + 2 * _MAX_WARPS
-              + r4(2 * chunk * (p if p > 0 else s)) + 2 * chunk)
+    floats = ((_r4(s * _odd(s)) if shared else 0) + 2 * s + 2 * _MAX_WARPS
+              + _r4(2 * chunk * (p if p > 0 else s)) + 2 * chunk)
     if p > 0:   # e apart from the ring (on the llh stream e replaces the stage), the bias, W
         floats += chunk * s + s + (s * _odd(p) if shared else 0)
     return 4 * floats
@@ -346,30 +379,57 @@ BACKWARD_CHUNK = 16        # K6's warp instance: frames a chunk (acc_chunks.cuh 
 BACKWARD_CHUNKS = (16, 8, 4, 2, 1)   # its block instance's chunk lengths (hmm_scan.cu kAccChunkBlock = 16)
 
 
-def backward_utterances(s: int, p: int) -> int:
+def _acc_layout_bytes(s: int, p: int, n_r: int, n_c: int, placement: str, n_utt: int, chunk: int) -> int:
+    """Shared memory of one block of the chunked backward (``acc_chunks.cuh``
+    ``acc_layout``): ξ (n_r, n_c); ``p`` = 0 is the llh stream of the
+    γ-emitting mode (the ring holds llh, and there is no W and no moments)."""
+    ldg = _r4(s)
+    ldx = _r4(p) if p > 0 else ldg
+    floats = 6 * ldg + _r4(n_r + n_c)
+    if placement == "shared":
+        floats += n_r * _r4(n_c) + (_r4(s * (ldx + 1)) + s * _r4(p + 1) if p > 0 else 0)
+    per = 2 * chunk * (ldx + ldg) + (chunk + 1) * ldg + chunk * (_r4(n_r) + _r4(n_c)) + _r4(5 * chunk + 2)
+    return 4 * (floats + n_utt * per)
+
+
+def _acc_block_bytes(s: int, p: int, n_r: int, n_c: int, placement: str, chunk: int,
+                     gather: bool = False) -> int:
+    """Shared memory of one block of K6's and K7's block instance
+    (``hmm_scan.cu`` ``acc_block_smem_floats``): a two-stage ring of a
+    chunk's statistics (``p`` = 0: llh) and α̂, the chunk's e (with a carry
+    row), α̂u1 (on the llh stream in the chunk's llh stage) and the per-frame
+    scalars at ``chunk`` frames; with statistics the bias and final
+    vectors; when ``gather`` (K15) ξ's
+    gathered factors and indices; in the shared placement A, ξ (n_r, n_c)
+    and, with statistics, W and the moments."""
+    c, ldg = chunk, _r4(s)
+    ldx = _r4(p) if p > 0 else ldg
+    floats = ((2 * c + 3) * ldg if p > 0 else (c + 1) * ldg) + 2 * c * (ldx + ldg) + _r4(5 * c + 2) + 2 * _MAX_WARPS
+    if gather:
+        floats += c * (_r4(n_r) + _r4(n_c)) + _r4(n_r + n_c)
+    if placement == "shared":
+        floats += _r4(s * _odd(s)) + n_r * _r4(n_c) + (_r4(s * _odd(p)) + s * _r4(p + 1) if p > 0 else 0)
+    return 4 * floats
+
+
+def backward_utterances(s: int, p: int, b: int, n_sm: int) -> int:
     """Utterances a block of K6's warp instance (K2's kernel in its dense
-    mode, ξ over all S states): the most of :data:`ACC_UTTERANCES` whose
-    block fits (1 when none does)."""
-    return next((n for n in ACC_UTTERANCES
-                 if acc_banded_smem_bytes(s, p, s, "shared", n, BACKWARD_CHUNK) <= SMEM_LIMIT), 1)
+    mode, ξ over all S states) at batch size ``b`` on ``n_sm`` SMs
+    (:func:`_warp_utterances`)."""
+    return _warp_utterances(b, n_sm, lambda n: backward_smem_bytes(s, p, "warp", BACKWARD_CHUNK, n) <= SMEM_LIMIT)
 
 
-def backward_smem_bytes(s: int, p: int, instance: str, chunk: int = BACKWARD_CHUNK) -> int:
+def backward_smem_bytes(s: int, p: int, instance: str, chunk: int = BACKWARD_CHUNK, n_utt: int = 1) -> int:
     """Shared memory of one K6 block.  The warp instance is K2's block in
     the shared placement with U = S (``acc_chunks.cuh`` ``acc_layout``) at
-    :func:`backward_utterances`' utterances; the block instance
+    ``n_utt`` utterances; the block instance
     (``hmm_scan.cu`` ``acc_block_smem_floats``) holds a two-stage ring of a
     chunk's statistics and α̂, the chunk's e (with a carry row), α̂u1 and the
     per-frame scalars at ``chunk`` frames, and in the shared placement A, W,
     the moments and ξ."""
-    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
     if instance == "warp":
-        return acc_banded_smem_bytes(s, p, s, "shared", backward_utterances(s, p), BACKWARD_CHUNK)
-    c, ldg, ldx = chunk, r4(s), r4(p)
-    floats = 2 * ldg + 2 * c * (ldx + ldg) + (2 * c + 1) * ldg + r4(5 * c + 2) + 2 * _MAX_WARPS
-    if instance == "shared":
-        floats += r4(s * _odd(s)) + r4(s * _odd(p)) + s * r4(p + 1) + s * ldg
-    return 4 * floats
+        return acc_banded_smem_bytes(s, p, s, "shared", n_utt, chunk)
+    return _acc_block_bytes(s, p, s, s, instance, chunk)
 
 
 def backward_chunk(s: int, p: int, placement: str) -> int:
@@ -384,26 +444,76 @@ def backward_instance(s: int, p: int) -> tuple[str, int]:
     nowhere else: ("warp", :data:`BACKWARD_CHUNK`) — K2's kernel in its
     dense mode: one warp an utterance's chain, A's row in a lane's
     registers, the carry by shuffles, :func:`backward_utterances` of them
-    a block — for S <= 32 while its block fits; otherwise the block
-    instance, "shared" while A,
-    W, the moments and ξ fit beside a one-frame chunk, "global" above, with
-    :func:`backward_chunk`'s chunk."""
+    a block — for S <= 32 while its block fits one utterance; otherwise
+    the block instance, "shared" while A, W, the moments and ξ fit beside
+    a one-frame chunk, "global" above, with :func:`backward_chunk`'s
+    chunk."""
     if s <= 32 and backward_smem_bytes(s, p, "warp") <= SMEM_LIMIT:
         return "warp", BACKWARD_CHUNK
     placement = "shared" if backward_smem_bytes(s, p, "shared", 1) <= SMEM_LIMIT else "global"
     return placement, backward_chunk(s, p, placement)
 
 
+def gamma_smem_bytes(s: int, instance: str, chunk: int = BACKWARD_CHUNK, n_utt: int = 1,
+                     n_r: int | None = None, n_c: int | None = None) -> int:
+    """Shared memory of one K7 (``n_r``, ``n_c`` None: ξ over all S
+    states) or K15 (ξ (n_r, n_c) at gathered rows and columns) block
+    (``hmm_scan.cu`` ``beer_gamma_dense_smem_bytes``): the warp instance is
+    the chunked backward's block on the llh stream at ``n_utt``
+    utterances, the block instance K6's on the llh stream, both at
+    ``chunk`` frames a chunk."""
+    restricted = n_r is not None
+    n_r, n_c = (n_r, n_c) if restricted else (s, s)
+    if instance == "warp":
+        return _acc_layout_bytes(s, 0, n_r, n_c, "shared", n_utt, chunk)
+    return _acc_block_bytes(s, 0, n_r, n_c, instance, chunk, gather=restricted)
+
+
+def gamma_chunk(s: int, placement: str, n_r: int | None = None, n_c: int | None = None) -> int:
+    """Frames a chunk of K7/K15's block instance in ``placement``: the most
+    of :data:`BACKWARD_CHUNKS` whose block fits (1 when none does; the
+    launch then refuses it)."""
+    return next((c for c in BACKWARD_CHUNKS
+                 if gamma_smem_bytes(s, placement, c, 1, n_r, n_c) <= SMEM_LIMIT), 1)
+
+
+def gamma_instance(s: int, n_r: int | None = None, n_c: int | None = None) -> tuple[str, int]:
+    """K7's (``n_r``, ``n_c`` None) and K15's launch, (instance, frames a
+    chunk), decided by fit here and nowhere else: K6's kernels in their
+    γ-emitting mode, by K6's rule (:func:`backward_instance`): the warp
+    instance — the chunked backward's dense mode, one warp an utterance's
+    chain, A's row in a lane's registers, :func:`gamma_utterances` of them
+    a block — for S <= 32 while its block fits one utterance; otherwise the
+    block instance, "shared" while A and ξ fit beside a one-frame chunk,
+    "global" above, with :func:`gamma_chunk`'s chunk."""
+    if s <= 32 and gamma_smem_bytes(s, "warp", BACKWARD_CHUNK, 1, n_r, n_c) <= SMEM_LIMIT:
+        return "warp", BACKWARD_CHUNK
+    placement = "shared" if gamma_smem_bytes(s, "shared", 1, 1, n_r, n_c) <= SMEM_LIMIT else "global"
+    return placement, gamma_chunk(s, placement, n_r, n_c)
+
+
+def gamma_utterances(s: int, b: int, n_sm: int, n_r: int | None = None, n_c: int | None = None) -> int:
+    """Utterances a block of K7's / K15's warp instance at batch size ``b``
+    on ``n_sm`` SMs (:func:`_warp_utterances`; at config 2's B = 514 four
+    a block 0.54 ms, one 1.10)."""
+    return _warp_utterances(
+        b, n_sm, lambda n: gamma_smem_bytes(s, "warp", BACKWARD_CHUNK, n, n_r, n_c) <= SMEM_LIMIT)
+
+
 def dense_placement(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0) -> str:
     """"shared" while a dense kernel's operands fit one block's shared
     memory (:data:`SMEM_LIMIT`), "global" above: every S the reference
     takes runs through the kernel.  K5/K14's comes from
-    :func:`forward_instance`, K6's from :func:`backward_instance` (their
-    warp instances keep A on chip too)."""
+    :func:`forward_instance`, K6's from :func:`backward_instance`, K7's
+    and K15's from :func:`gamma_instance` (their warp instances keep A on
+    chip too)."""
     if kernel in _FORWARD:
         return "global" if forward_instance(s, p)[0] == "global" else "shared"
     if kernel == "estep_acc_dense":
         return "global" if backward_instance(s, p)[0] == "global" else "shared"
+    if kernel in _GAMMA:
+        rc = () if kernel == "estep_gamma_dense" else (n_r, n_c)
+        return "global" if gamma_instance(s, *rc)[0] == "global" else "shared"
     fits = dense_smem_bytes(kernel, s, p, n_r, n_c, "shared") <= SMEM_LIMIT
     return "shared" if fits else "global"
 
@@ -432,58 +542,90 @@ def acc_banded_smem_bytes(s: int, p: int, u: int, placement: str, n_utt: int = 1
     W, the moments and ξ in the shared placement; the bands; and per
     utterance a two-stage ring of a chunk's statistics and α̂, the chunk's
     e (with a carry row), its ξ factors and per-frame sums."""
-    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
-    ldx, ldg, ldu = r4(p), r4(s), r4(u)
-    floats = 6 * ldg + r4(2 * u)
-    if placement == "shared":
-        floats += r4(s * (ldx + 1)) + s * r4(p + 1) + u * ldu
-    per = 2 * chunk * (ldx + ldg) + (chunk + 1) * ldg + 2 * chunk * ldu + r4(5 * chunk + 2)
-    return 4 * (floats + n_utt * per)
+    return _acc_layout_bytes(s, p, u, u, placement, n_utt, chunk)
 
 
-def acc_banded_geometry(s: int, p: int, u: int) -> tuple[str, int, int]:
-    """K2's launch, (placement, utterances a block, frames a chunk), decided
-    by fit here and nowhere else: the longest chunk of :data:`ACC_CHUNKS`
-    that fits; then a block that leaves its SM room for a second one
-    (:data:`SMEM_HALF_SM`) if one fits; then the most utterances a block of
-    :data:`ACC_UTTERANCES` (their chains run side by side), in the
-    "shared" placement (W, the moments and ξ in shared memory) if it fits
-    there, else "global" (("global", 1, 1) when none does; the launch then
-    refuses it).  The chunk comes first, since a short chunk puts a
-    barrier-bound pass over the accumulators on every few frames; two
-    blocks an SM next, since one block's phases then run while the other
-    waits at a barrier (at config 4 two blocks of two utterances beat one
-    of four by 12 %, and one of four beat one of two in the shared
-    placement by 15 %: ``stats_variants.py geometry``, ``k2n_*``)."""
+def _chunked_geometry(size, b: int, n_sm: int) -> tuple[str, int, int]:
+    """The launch of a chunked banded kernel (K1, K2) at batch size ``b`` on
+    ``n_sm`` SMs, (placement, utterances a block, frames a chunk), by fit:
+    the longest chunk of :data:`ACC_CHUNKS` that fits; then a block that
+    leaves its SM room for a second one (:data:`SMEM_HALF_SM`) if one fits
+    — a block whose ceil(b / n) blocks are no more than the SMs needs no
+    such room; then the most utterances a block up to
+    :func:`_utterance_cap` at two blocks an SM, in the "shared" placement if
+    it fits there, else "global" (("global", 1, 1) when none does; the
+    launch then refuses it).  ``size(placement, n_utt, chunk)``: the
+    block's shared memory."""
+    cap = _utterance_cap(b, 2, n_sm)
     for chunk in ACC_CHUNKS:
         for limit in (SMEM_HALF_SM, SMEM_LIMIT):
-            for n_utt in ACC_UTTERANCES:
+            for n_utt in (n for n in ACC_UTTERANCES if n <= cap):
+                room = SMEM_LIMIT if -(-b // n_utt) <= n_sm else limit
                 for placement in ("shared", "global"):
-                    if acc_banded_smem_bytes(s, p, u, placement, n_utt, chunk) <= limit:
+                    if size(placement, n_utt, chunk) <= room:
                         return placement, n_utt, chunk
     return "global", 1, 1
 
 
+def acc_banded_geometry(s: int, p: int, u: int, b: int, n_sm: int) -> tuple[str, int, int]:
+    """K2's launch at batch size ``b`` on ``n_sm`` SMs, (placement,
+    utterances a block, frames a chunk), decided by fit here and nowhere
+    else (:func:`_chunked_geometry`; shared: W, the moments and ξ in shared
+    memory).  The chunk comes first, since a short
+    chunk puts a barrier-bound pass over the accumulators on every few
+    frames; two blocks an SM next, since one block's phases then run while
+    the other waits at a barrier (at config 4 two blocks of two utterances
+    beat one of four by 12 %, and one of four beat one of two in the shared
+    placement by 15 %: ``stats_variants.py geometry``, ``k2n_*``)."""
+    return _chunked_geometry(lambda pl, n, c: acc_banded_smem_bytes(s, p, u, pl, n, c), b, n_sm)
+
+
+def forward_banded_smem_bytes(s: int, p: int, placement: str, n_utt: int = 1,
+                              chunk: int = ACC_CHUNKS[0]) -> int:
+    """Shared memory of one K1 block (``phone_loop_scan.cu`` ``fwd_layout``):
+    W in the shared placement; the bands; and per utterance a two-stage
+    ring of a chunk's statistics, the chunk's llh / e / raw rows (with a
+    carry row) and its per-frame scalars."""
+    ldx, ldg = _r4(p), _r4(s)
+    floats = 4 * ldg + (_r4(s * (ldx + 1)) if placement == "shared" else 0)
+    per = 2 * chunk * ldx + (chunk + 1) * ldg + _r4(3 * chunk)
+    return 4 * (floats + n_utt * per)
+
+
+def forward_banded_geometry(s: int, p: int, b: int, n_sm: int) -> tuple[str, int, int]:
+    """K1's launch at batch size ``b`` on ``n_sm`` SMs, (placement,
+    utterances a block, frames a chunk), decided by fit here and nowhere
+    else, by K2's rule (:func:`_chunked_geometry`; shared: W in shared
+    memory, global: Wᵀ read from device memory).  Measured
+    (``stats_variants.py geometry``, kernel alone): config 4 (B = 514) two
+    utterances a block with W shared 0.78 ms, four global 0.95; config 5
+    (B = 258) one 0.15, four 0.20; 100 units (B = 64) one shared 0.29, two
+    global 0.39."""
+    return _chunked_geometry(lambda pl, n, c: forward_banded_smem_bytes(s, p, pl, n, c), b, n_sm)
+
+
 def banded_smem_bytes(kernel: str, s: int, p: int, u: int = 0, placement: str = "shared") -> int:
-    """Shared memory of one block of K1 ``forward_llh_banded`` or K11
-    ``estep_gamma_banded`` (the formulas of ``csrc/phone_loop_scan.cu``):
-    "shared" keeps W (and K11's ξ) in shared memory, "global" reads Wᵀ
-    from device memory.  K2's is :func:`acc_banded_smem_bytes`."""
-    if kernel not in ("forward_llh_banded", "estep_gamma_banded"):
+    """Shared memory of one block of K11 ``estep_gamma_banded`` (the
+    formula of ``csrc/phone_loop_scan.cu``): "shared" keeps W and ξ in
+    shared memory, "global" reads Wᵀ from device memory.  K1's is
+    :func:`forward_banded_smem_bytes`, K2's :func:`acc_banded_smem_bytes`."""
+    if kernel != "estep_gamma_banded":
         raise ValueError(f"{kernel} is not a banded scan kernel with one placement flag")
     shared = placement == "shared"
-    if kernel == "forward_llh_banded":
-        return 4 * ((s * _odd(p) if shared else 0) + 7 * s + p + 2 * _MAX_WARPS)
     return 4 * ((s * _odd(p) + u * u if shared else 0) + 11 * s + p + 2 * u + 2 * _MAX_WARPS)
 
 
-def banded_placement(kernel: str, s: int, p: int, u: int = 0) -> str:
+def banded_placement(kernel: str, s: int, p: int, u: int, b: int, n_sm: int) -> str:
     """"shared" while a banded kernel's W (and K2's moments and ξ, K11's ξ)
     fit one block's shared memory, "global" above: every phone loop the
-    reference takes runs through K1, K2 and K11.  K2's comes from
-    :func:`acc_banded_geometry`."""
+    reference takes runs through K1, K2 and K11.  K1's and K2's depend on
+    the batch size ``b`` and the ``n_sm`` SMs and come from their launch,
+    :func:`forward_banded_geometry` and :func:`acc_banded_geometry`; K11's
+    is by fit alone."""
+    if kernel == "forward_llh_banded":
+        return forward_banded_geometry(s, p, b, n_sm)[0]
     if kernel == "estep_acc_banded":
-        return acc_banded_geometry(s, p, u)[0]
+        return acc_banded_geometry(s, p, u, b, n_sm)[0]
     return "shared" if banded_smem_bytes(kernel, s, p, u, "shared") <= SMEM_LIMIT else "global"
 
 
@@ -643,15 +785,16 @@ def forward_llh_banded(stats, lens, w, bias, bands, init):
                            ("bands", bands, (4, s)), ("init", init, (s,))):
         _shape(name, x, shape)
     lib = _library()
-    glob = banded_placement("forward_llh_banded", s, p_dim) == "global"
-    _fits(f"S={s}, P={p_dim}", lib.beer_forward_smem_bytes(s, p_dim, int(glob)))
-    if glob:
-        w = w.T.contiguous()
+    placement, n_utt, chunk = forward_banded_geometry(s, p_dim, b, sm_count(dev.index))
+    glob = placement == "global"
+    _fits(f"S={s}, P={p_dim}", lib.beer_forward_smem_bytes(s, p_dim, int(glob), n_utt, chunk))
+    if glob:   # Wᵀ with zero rows to a multiple of four
+        w = torch.nn.functional.pad(w, (0, -p_dim % 4)).T.contiguous()
     alpha = torch.empty(b, t_len, s, device=dev)
     norms = torch.empty(b, t_len, device=dev)
     last = torch.empty(b, s, device=dev)
     logz = torch.empty(b, device=dev)
-    _launch(lib.beer_forward_llh_banded, dev.index, int(glob), *map(_ptr, (
+    _launch(lib.beer_forward_llh_banded, dev.index, int(glob), n_utt, chunk, *map(_ptr, (
         stats, lens, w, bias, bands, init, alpha, norms, last, logz)),
         b, t_len, s, p_dim, _stream(dev))
     KERNELS["forward_llh_banded"].launches += 1
@@ -714,7 +857,7 @@ def estep_acc_banded(stats, lens, w, bias, bands, final, alpha, norms, ends, sta
                                                      norms, ends, starts)
     dev = stats.device
     lib = _library()
-    placement, n_utt, chunk = acc_banded_geometry(s, p_dim, n_u)
+    placement, n_utt, chunk = acc_banded_geometry(s, p_dim, n_u, b, sm_count(dev.index))
     glob = placement == "global"
     _fits(f"S={s}, P={p_dim}, U={n_u}", lib.beer_estep_smem_bytes(s, p_dim, n_u, int(glob), n_utt, chunk))
     if glob:   # Wᵀ with zero rows to a multiple of four
@@ -757,7 +900,7 @@ def estep_gamma_banded(stats, lens, w, bias, bands, final, alpha, norms, ends, s
                                                      norms, ends, starts)
     dev = stats.device
     lib = _library()
-    glob = banded_placement("estep_gamma_banded", s, p_dim, n_u) == "global"
+    glob = banded_placement("estep_gamma_banded", s, p_dim, n_u, b, sm_count(dev.index)) == "global"
     _fits(f"S={s}, P={p_dim}, U={n_u}", lib.beer_estep_gamma_smem_bytes(s, p_dim, n_u, int(glob)))
     if glob:
         w = w.T.contiguous()
@@ -984,11 +1127,11 @@ def estep_acc_dense(stats, lens, w, bias, trans, final, alpha, norms):
         _shape(name, x, shape)
     lib = _library()
     instance, chunk = backward_instance(s, p_dim)
-    _fits(f"S={s}, P={p_dim}", backward_smem_bytes(s, p_dim, instance, chunk))
+    n_utt = backward_utterances(s, p_dim, b, sm_count(dev.index)) if instance == "warp" else 1
+    _fits(f"S={s}, P={p_dim}", backward_smem_bytes(s, p_dim, instance, chunk, n_utt))
     if instance == "global":
         w, trans = w.T.contiguous(), trans.T.contiguous()
     width = s * (p_dim + 1) + s * s
-    n_utt = backward_utterances(s, p_dim) if instance == "warp" else 1
     part = torch.empty(-(-b // n_utt), width, device=dev)    # a row a block
     out = torch.empty(width, device=dev)
     gamma0 = torch.empty(b, s, device=dev)
@@ -1042,30 +1185,28 @@ def estep_gamma_dense(llh, lens, trans, final, alpha, norms, rows=None, cols=Non
     for name, x, shape in shapes:
         _shape(name, x, shape)
     lib = _library()
-    gamma = torch.empty(b, t_len, s, device=dev)
+    rc = (rows.numel(), cols.numel()) if restricted else ()
+    n_r, n_c = rc or (s, s)
     if restricted:
-        n_r, n_c = rows.numel(), cols.numel()
         for name, idx in (("rows", rows), ("cols", cols)):
             if idx.numel() and not bool(((idx >= 0) & (idx < s)).all()):
                 raise ValueError(f"{name} holds a state index outside [0, {s})")
-        glob = _placed("estep_gamma_dense_restricted", f"S={s}, n_r={n_r}, n_c={n_c}", s,
-                       n_r=n_r, n_c=n_c)
-        part = torch.empty(b, n_r * n_c, device=dev)
-        out = torch.zeros(n_r * n_c, device=dev)
-        _launch(lib.beer_estep_gamma_dense_restricted, dev.index, int(glob), *map(_ptr, (
-            llh, lens, trans.T.contiguous() if glob else trans, final, alpha, norms, rows, cols,
-            part, out, gamma)),
-            b, t_len, s, n_r, n_c, _stream(dev))
-        KERNELS["estep_gamma_dense_restricted"].launches += 1
-        return gamma, out.view(n_r, n_c)
-    glob = _placed("estep_gamma_dense", f"S={s}", s)
-    part = torch.empty(b, s * s, device=dev)
-    out = torch.empty(s * s, device=dev)
-    _launch(lib.beer_estep_gamma_dense, dev.index, int(glob), *map(_ptr, (
-        llh, lens, trans.T.contiguous() if glob else trans, final, alpha, norms, part, out,
-        gamma)), b, t_len, s, _stream(dev))
-    KERNELS["estep_gamma_dense"].launches += 1
-    return gamma, out.view(s, s)
+    instance, chunk = gamma_instance(s, *rc)
+    n_utt = gamma_utterances(s, b, sm_count(dev.index), *rc) if instance == "warp" else 1
+    code = _INSTANCES.index(instance)
+    _fits(f"S={s}, n_r={n_r}, n_c={n_c}",
+          lib.beer_gamma_dense_smem_bytes(s, n_r, n_c, int(restricted), code, chunk, n_utt))
+    if instance == "global":   # Aᵀ, held until the launch
+        trans = trans.T.contiguous()
+    gamma = torch.empty(b, t_len, s, device=dev)
+    part = torch.empty(-(-b // n_utt), n_r * n_c, device=dev)     # a row a block
+    out = torch.zeros(n_r * n_c, device=dev)
+    _launch(lib.beer_estep_gamma_dense, dev.index, code, chunk, n_utt, *map(_ptr, (
+        llh, lens, trans, final, alpha, norms)),
+        _ptr(rows) if restricted else None, _ptr(cols) if restricted else None,
+        *map(_ptr, (part, out, gamma)), b, t_len, s, n_r, n_c, _stream(dev))
+    KERNELS["estep_gamma_dense_restricted" if restricted else "estep_gamma_dense"].launches += 1
+    return gamma, out.view(n_r, n_c)
 
 
 # ----------------------------------------------------------------------

@@ -27,10 +27,10 @@ from fixed seeds, in eighteen phases, each printing one line:
 2. build: compiles the hand-written CUDA kernels from the sources in
    ``beer_tpu_torch/csrc`` and loads them;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it (plus two zero-length rows); K2
-   alone (profiler device time of its kernel and batch sum) and wrapped,
-   beside the unfused route (K11 + γᵀ·stats, TF32 off), held to the same
-   tolerances;
+   at the shapes the main path gives it (plus two zero-length rows); K1
+   and K2 alone (profiler device time of the kernel, K2's with its batch
+   sum) and wrapped, K2 beside the unfused route (K11 + γᵀ·stats, TF32
+   off), held to the same tolerances; K1 called twice must agree bitwise;
 4. slice: 5 VB-EM steps and a unit decode through the kernels, with the
    launch counters read around that run; the ELBO must be finite and
    non-decreasing and match the plain route's; a small problem is held
@@ -40,7 +40,8 @@ from fixed seeds, in eighteen phases, each printing one line:
 6. hmm kernels: K5–K7 (dense transitions) against their plain versions
    at the config-2 and config-3 shapes (plus two zero-length rows, and
    per-row final vectors with padding states), with CUDA-event medians,
-   K5 and K6 also alone (profiler device time);
+   K5, K6 and K7 also alone (profiler device time); K7 called twice must
+   agree bitwise;
 7. hmm slice: per config, 5 VB-EM steps, a decode, the posteriors and
    the ξ counts through the kernels with the launch counters read
    around that run, the same on the plain route; the ELBO must be
@@ -65,9 +66,9 @@ from fixed seeds, in eighteen phases, each printing one line:
 11. gmm times: one vb_step and one posteriors call for config 1, one
    vb_step and one decode for the recognizer, kernel route beside plain
    route, and config 1's E-step frames/s;
-12. svae kernels: K11 (the γ-emitting banded backward) against its
-   plain version at the config-5 shape plus two zero-length rows, with
-   CUDA-event medians;
+12. svae kernels: K1 and K11 (the γ-emitting banded backward) against
+   their plain versions at the config-5 shape plus two zero-length rows,
+   with CUDA-event medians, K1 also alone;
 13. svae slice: 5 hybrid steps of config 5 (Adam on the nnets, the
    conjugate update of the phone loop) through K1 and K11 with the
    launch counters read around them (K1 5, K11 5, K2 0), then the
@@ -91,7 +92,7 @@ from fixed seeds, in eighteen phases, each printing one line:
    their matrix from device memory) and against each other, and at S =
    30 (why ``PhoneLoop.smooth`` always takes the banded pair); K14 (K5 writing the row-max shifts) and K15 (K7 with ξ
    restricted to a block) at config 2's and config 4's shapes; CUDA-event
-   medians of every instance and its plain version;
+   medians of every instance and its plain version, K15 also alone;
 16. gsm slice: one subspace-HMM outer iteration at config 4's full shape:
    2 VB steps, ``accumulate_unit_stats`` with transitions through K12 +
    K13 (launch counters read around it: K12 1, K13 1, K1 and K2 0)
@@ -113,13 +114,14 @@ from fixed seeds, in eighteen phases, each printing one line:
    K7, K14, K15, K12 dense forward and reverse, K13 dense) against its
    plain version on an ergodic HMM at S = 150 and S = 300 (B = 64, T =
    200), each timed and named by the placement its wrapper took (at 300
-   all read their operands from device memory); then a VB step, the
+   all read their operands from device memory; K7 and K15 also alone);
+   then a VB step, the
    posteriors and the ξ counts of that HMM at S = 300 and of a shared
    60-phone × 3-state transcription chain (S = 180) through the kernels,
    with the launch counters read around them, against the plain route;
    then K1, K2 and K11 against their plain versions on phone loops of
    100 units (S = 300, above the 95 that K2 first took) and 250 units (S
-   = 750: K1 and K11 in their global placement too), and two VB steps of
+   = 750: K1 and K11 in their global placement too; K1 also alone), and two VB steps of
    the 100-unit loop through K1 + K2 against the plain route (ELBOs
    within 1e-4/frame; the second reads the update K2's statistics
    made), their launches read around them.
@@ -297,6 +299,24 @@ def forward_dense_bound(lens, t_len, s, p_dim=0):
                  nv * (2 * s * p_dim + 2 * s * s + 4 * s))
 
 
+def k1_bound(lens, t_len, s, p_dim):
+    """K1's least time on these inputs (:func:`bound`): each valid frame's
+    statistics read once, α̂ and the norms written for every frame, W once;
+    FMAs of the ELLH (2·S·P a frame) and the propagate and sums (8·S)."""
+    nv = float(lens.sum())
+    return bound(4 * (nv * p_dim + lens.shape[0] * t_len * (s + 1) + s * p_dim), nv * (2 * s * p_dim + 8 * s))
+
+
+def k7_bound(lens, t_len, s, n_xi=None):
+    """K7's (K15's with ``n_xi`` = n_r·n_c) least time on these inputs
+    (:func:`bound`): each valid frame's llh and α̂ and its norm read once, γ
+    written for every frame, A (and ξ) once; FMAs of the propagate (2·S²),
+    of ξ (2·S², K15 2·n_r·n_c) and the rest (10·S) a valid frame."""
+    b, nv = lens.shape[0], float(lens.sum())
+    xi = s * s if n_xi is None else n_xi
+    return bound(4 * (nv * (2 * s + 1) + b * t_len * s + s * s + xi + b * s), nv * (2 * s * s + 2 * xi + 10 * s))
+
+
 def plain_twin(model):
     """A copy of ``model`` whose every kernel call takes the plain version."""
     twin = copy.deepcopy(model)
@@ -326,6 +346,23 @@ def phase_build():
             entry = line.split("'")[1] if "'" in line else line.strip()
         elif "Used" in line or "spill" in line:
             print(f"  ptxas {entry}: {line.strip().removeprefix('ptxas info    : ')}")
+
+
+def launch_geometry(kernel, dev, s, p, b, u=0, rc=()):
+    """The launch the wrapper of a chunked kernel takes on ``dev`` at these
+    sizes, as it picks it, with the card's own SM count: K1 and K2
+    (placement, utterances a block, frames a chunk), K6, K7 and K15
+    (instance, frames a chunk, utterances a block)."""
+    n_sm = cuda_scan.sm_count(dev.index)
+    if kernel == "forward_llh_banded":
+        return list(cuda_scan.forward_banded_geometry(s, p, b, n_sm))
+    if kernel == "estep_acc_banded":
+        return list(cuda_scan.acc_banded_geometry(s, p, u, b, n_sm))
+    if kernel == "estep_acc_dense":
+        instance, chunk = cuda_scan.backward_instance(s, p)
+        return [instance, chunk, cuda_scan.backward_utterances(s, p, b, n_sm) if instance == "warp" else 1]
+    instance, chunk = cuda_scan.gamma_instance(s, *rc)
+    return [instance, chunk, cuda_scan.gamma_utterances(s, b, n_sm, *rc) if instance == "warp" else 1]
 
 
 def with_empty_rows(data, mask):
@@ -366,15 +403,21 @@ def phase_kernels(dev):
     e_logz = rel(logz[0][full], logz[1][full])
     check(e_logz <= 1e-5, f"forward log Z rel {e_logz}")
     check(not bool(k1[3][~full].any()), "forward: empty rows must give logz_base 0")
+    e_alpha = max(float((k1[i] - p1[i]).abs().max()) for i in (0, 2))
+    check(e_alpha <= 1e-5 and rel(k1[1], p1[1]) <= 1e-5, f"forward alpha / last abs {e_alpha}, norms")
+    check(all(torch.equal(x, y) for x, y in zip(k1, cuda_scan.forward_llh_banded(*fwd))),
+          "forward: two calls must agree bitwise")
     b, t_len, p_dim = stats.shape
     s = ops["w"].shape[0]
     n_u = ops["ends"].shape[0]
     nv = float(ops["lens"].sum())             # valid frames: the work the kernels do
     out["forward_llh_banded"] = dict(
         max_abs_err=float((logz[0][full] - logz[1][full]).abs().max()),
-        ms=cuda_ms(lambda: cuda_scan.forward_llh_banded(*fwd)),
+        geometry=launch_geometry("forward_llh_banded", dev, s, p_dim, b),
+        ms=entry_ms(lambda: cuda_scan.forward_llh_banded(*fwd), ("forward_llh_chunked",)),
+        wrapper_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded(*fwd)),
         plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded_plain(*fwd)),
-        **bound(4 * (nv * p_dim + b * t_len * (s + 1) + s * p_dim), nv * (2 * s * p_dim + 8 * s)))
+        **k1_bound(ops["lens"], t_len, s, p_dim))
 
     est = banded_estep_args(stats, ops, k1[0], k1[1])
     k2 = cuda_scan.estep_acc_banded(*est)
@@ -390,7 +433,7 @@ def phase_kernels(dev):
     check(e_unfused <= 1e-4, f"unfused route rel {e_unfused}")
     out["estep_acc_banded"] = dict(
         max_abs_err=float((k2[0] - p2[0]).abs().max()),
-        geometry=list(cuda_scan.acc_banded_geometry(s, p_dim, n_u)),
+        geometry=launch_geometry("estep_acc_banded", dev, s, p_dim, b, n_u),
         ms=entry_ms(lambda: cuda_scan.estep_acc_banded(*est), ("estep_acc", "sum_rows")),
         wrapper_ms=cuda_ms(lambda: cuda_scan.estep_acc_banded(*est)),
         unfused_ms=cuda_ms(lambda: unfused_estep(est)),
@@ -428,14 +471,16 @@ def phase_kernels(dev):
         plain_ms=cuda_ms(lambda: cuda_scan.viterbi_backtrace_banded_plain(*back)),
         **bound(5 * nv + 4 * b * t_len + 4 * b * s, 2 * nv))
     torch.cuda.synchronize()
-    k2r = out["estep_acc_banded"]
+    k1r, k2r = out["forward_llh_banded"], out["estep_acc_banded"]
     print("phase 3 kernels: " + "; ".join(
         f"{k} ok (max_abs_err {v['max_abs_err']:.3g})" for k, v in out.items())
+        + f" | forward_llh_banded {tuple(k1r['geometry'])} alone {k1r['ms']:.3f} ms, wrapped "
+          f"{k1r['wrapper_ms']:.3f} ms (bound {k1r['bound_ms']:.4f} by {k1r['bound_by']})"
         + f" | estep_acc_banded {tuple(k2r['geometry'])} alone {k2r['ms']:.3f} ms, wrapped "
           f"{k2r['wrapper_ms']:.3f} ms; unfused route (estep_gamma_banded + one product) "
           f"{k2r['unfused_ms']:.3f} ms, rel {e_unfused:.3g}"
-        + " | tol: log Z rel 1e-5; acc2/counts/xi rel 1e-4; gamma0 abs 1e-5; "
-          "paths >= 99.9% of valid frames; scores rel 1e-6")
+        + " | tol: log Z, norms rel 1e-5; alpha, last abs 1e-5; acc2/counts/xi rel 1e-4; gamma0 abs 1e-5; "
+          "paths >= 99.9% of valid frames; scores rel 1e-6; K1 bitwise")
     return out
 
 
@@ -606,7 +651,7 @@ def phase_hmm_kernels(dev):
     check(float((k6[2] - p6[2]).abs().max()) <= 1e-5, "dense estep gamma0")
     out["estep_acc_dense"] = dict(
         max_abs_err=float((k6[0] - p6[0]).abs().max()),
-        instance=list(cuda_scan.backward_instance(HMM_S, p_dim)),
+        instance=launch_geometry("estep_acc_dense", dev, HMM_S, p_dim, est[0].shape[0]),
         ms=entry_ms(lambda: cuda_scan.estep_acc_dense(*est), ("estep_acc", "sum_rows")),
         wrapper_ms=cuda_ms(lambda: cuda_scan.estep_acc_dense(*est)),
         plain_ms=cuda_ms(lambda: cuda_scan.estep_acc_dense_plain(*est)),
@@ -638,14 +683,17 @@ def phase_hmm_kernels(dev):
     e7 = float((k7[0] - p7[0]).abs().max())
     check(e7 <= 1e-5, f"dense gamma abs {e7}")
     check(rel(k7[1], p7[1]) <= 1e-4, "dense gamma xi")
+    check(not bool(k7[0][~full].any()), "dense gamma: empty rows must give gamma 0")
+    check(all(torch.equal(x, y) for x, y in zip(k7, cuda_scan.estep_gamma_dense(*gam))),
+          "dense gamma: two calls must agree bitwise")
     b, t_len, s = c["llh"].shape
-    nv = float(c["lens"].sum())
     out["estep_gamma_dense"] = dict(
         max_abs_err=e7,
-        ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense(*gam)),
+        instance=launch_geometry("estep_gamma_dense", dev, s, 0, b),
+        ms=entry_ms(lambda: cuda_scan.estep_gamma_dense(*gam), ("estep_acc", "sum_rows")),
+        wrapper_ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense(*gam)),
         plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense_plain(*gam)),
-        **bound(4 * (nv * (2 * s + 1) + b * t_len * s + 2 * s * s + b * s),
-                nv * (4 * s * s + 10 * s)))
+        **k7_bound(c["lens"], t_len, s))
     llh_fwd = dict(ms=device_ms(lambda: cuda_scan.forward_llh_dense(*fwd3), "forward_llh"),
                    wrapper_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense(*fwd3)),
                    plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_dense_plain(*fwd3)),
@@ -659,9 +707,11 @@ def phase_hmm_kernels(dev):
           f"{out['forward_llh_dense']['ms']:.3f} ms, wrapped {out['forward_llh_dense']['wrapper_ms']:.3f} ms"
         + f" | estep_acc_dense ({out['estep_acc_dense']['instance'][0]} instance) alone "
           f"{out['estep_acc_dense']['ms']:.3f} ms, wrapped {out['estep_acc_dense']['wrapper_ms']:.3f} ms"
+        + f" | estep_gamma_dense (config 3, {tuple(out['estep_gamma_dense']['instance'])}) alone "
+          f"{out['estep_gamma_dense']['ms']:.3f} ms, wrapped {out['estep_gamma_dense']['wrapper_ms']:.3f} ms"
         + f" | on the config-3 llh stream {llh_fwd['ms']:.3f} ms alone, "
           f"{llh_fwd['wrapper_ms']:.3f} ms wrapped vs plain {llh_fwd['plain_ms']:.3f} ms, log Z rel {e5b:.3g}"
-        + " | tol: log Z rel 1e-5; alpha, gamma, gamma0 abs 1e-5; acc2/counts/xi rel 1e-4")
+        + " | tol: log Z rel 1e-5; alpha, gamma, gamma0 abs 1e-5; acc2/counts/xi rel 1e-4; K7 bitwise")
     return out
 
 
@@ -1120,8 +1170,17 @@ def phase_svae_kernels(dev):
     m = torch.cat([m, torch.zeros(2, m.shape[1], device=dev)])
     vae = config5(dev)
     stats, ops = svae_operands(vae, x, m)
-    alpha, norms, _, _ = cuda_scan.forward_llh_banded(stats, ops["lens"], ops["w"], ops["bias"],
-                                                      ops["bands"], ops["init"])
+    fwd = (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["init"])
+    k1, p1 = cuda_scan.forward_llh_banded(*fwd), cuda_scan.forward_llh_banded_plain(*fwd)
+    full = ops["lens"] > 0
+    tiny = torch.finfo(torch.float32).tiny
+    logz = [o[3] + torch.log((o[2] * ops["final"]).sum(-1).clamp_min(tiny)) for o in (k1, p1)]
+    e_k1 = dict(log_z=rel(logz[0][full], logz[1][full]), alpha=float((k1[0] - p1[0]).abs().max()),
+                norms=rel(k1[1], p1[1]))
+    check(e_k1["log_z"] <= 1e-5 and e_k1["alpha"] <= 1e-5 and e_k1["norms"] <= 1e-5,
+          f"forward_llh_banded at config 5: {e_k1}")
+    alpha, norms = k1[0], k1[1]
+    del p1
     est = (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["final"], alpha, norms,
            ops["ends"], ops["starts"])
     k11 = cuda_scan.estep_gamma_banded(*est)
@@ -1144,12 +1203,22 @@ def phase_svae_kernels(dev):
         plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded_plain(*est)),
         **bound(4 * (nv * (p_dim + s + 1) + b * t_len * s + s * (p_dim + 6) + b * s + n_u * n_u),
                 nv * (2 * s * p_dim + 12 * s + 2 * n_u * n_u)))}
-    v = out["estep_gamma_banded"]
+    out["forward_llh_banded"] = dict(
+        max_abs_err=float((logz[0][full] - logz[1][full]).abs().max()),
+        geometry=launch_geometry("forward_llh_banded", dev, s, p_dim, b),
+        ms=entry_ms(lambda: cuda_scan.forward_llh_banded(*fwd), ("forward_llh_chunked",)),
+        wrapper_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded(*fwd)),
+        plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded_plain(*fwd)),
+        **k1_bound(ops["lens"], t_len, s, p_dim))
+    v, v1 = out["estep_gamma_banded"], out["forward_llh_banded"]
     torch.cuda.synchronize()
     print(f"phase 12 svae kernels: config 5 B={b} (2 empty) T={t_len} S={s} P={p_dim} U={n_u}: "
           f"estep_gamma_banded ok ({v['ms']:.3f} ms vs plain {v['plain_ms']:.3f} ms, bound "
           f"{v['bound_ms']:.4f} ms by {v['bound_by']}; gamma abs {e_gamma:.3g}, gamma0 abs "
-          f"{e_gamma0:.3g}, xi rel {e_xi:.3g}) | tol: gamma, gamma0 abs 1e-5; xi rel 1e-4")
+          f"{e_gamma0:.3g}, xi rel {e_xi:.3g}); forward_llh_banded {tuple(v1['geometry'])} ok (alone "
+          f"{v1['ms']:.3f} ms, wrapped {v1['wrapper_ms']:.3f} ms vs plain {v1['plain_ms']:.3f} ms, bound "
+          f"{v1['bound_ms']:.4f} ms by {v1['bound_by']}; {json.dumps({k: float(f'{e:.3g}') for k, e in e_k1.items()})})"
+          " | tol: gamma, gamma0, alpha abs 1e-5; log Z, norms rel 1e-5; xi rel 1e-4")
     return out
 
 
@@ -1435,11 +1504,13 @@ def llh_pair(llh, lens, trans, init, final, rows, cols):
                     nv * (2 * s * s + 4 * s))),
         "estep_gamma_dense_restricted": dict(
             max_abs_err=errs["gamma"],
-            ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense(*est, rows=rows, cols=cols)),
+            instance=launch_geometry("estep_gamma_dense_restricted", llh.device, s, 0, b,
+                                     rc=(rows.numel(), cols.numel())),
+            ms=entry_ms(lambda: cuda_scan.estep_gamma_dense(*est, rows=rows, cols=cols), ("estep_acc", "sum_rows")),
+            wrapper_ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense(*est, rows=rows, cols=cols)),
             plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense_plain(*est, rows=rows,
                                                                         cols=cols)),
-            **bound(4 * (nv * (2 * s + 1) + b * t_len * s + s * s + b * s + n_xi),
-                    nv * (2 * s * s + 2 * n_xi + 10 * s))),
+            **k7_bound(lens, t_len, s, n_xi)),
     }
     return errs, rows_out
 
@@ -1513,7 +1584,8 @@ def phase_general_kernels(dev):
     torch.cuda.synchronize()
 
     def fmt(v):
-        return (f"{v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.3f} by "
+        wrapped = f", wrapped {v['wrapper_ms']:.3f}" if "wrapper_ms" in v else ""
+        return (f"{v['ms']:.3f} ms{wrapped} (plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.3f} by "
                 f"{v['bound_by']})")
 
     print(f"phase 15 general kernels: B={B}+2 empty T<={T}: "
@@ -1831,9 +1903,10 @@ def dense_rows(hmm, x, m):
     errs["estep_gamma_dense"] = dict(gamma=float((k7[0] - p7[0]).abs().max()), xi=rel(k7[1], p7[1]))
     rows["estep_gamma_dense"] = dict(
         max_abs_err=errs["estep_gamma_dense"]["gamma"],
-        ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense(*gam)),
+        ms=entry_ms(lambda: cuda_scan.estep_gamma_dense(*gam), ("estep_acc", "sum_rows")),
+        wrapper_ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense(*gam)),
         plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_dense_plain(*gam), reps=3),
-        **bound(4 * (nv * (2 * s + 1) + b * t_len * s + 2 * s * s + b * s), nv * (4 * s * s + 10 * s)))
+        **k7_bound(lens, t_len, s))
     del f7, k7, p7
     for name in ("forward_llh_dense", "estep_acc_dense", "estep_gamma_dense"):
         e = errs[name]
@@ -1872,7 +1945,7 @@ def dense_rows(hmm, x, m):
 
 def banded_rows(loop, x, m):
     """K1, K2 and K11 on a phone loop's operands against their plain
-    versions, each row with the placement (K2: the geometry) its wrapper
+    versions, each row with the placement (K1, K2: the geometry) its wrapper
     took; returns the rows and the errors."""
     stats = loop.sufficient_statistics(x).contiguous()
     ops = loop.scan_operands(stats, m)
@@ -1899,9 +1972,10 @@ def banded_rows(loop, x, m):
     rows = {
         "forward_llh_banded": dict(
             max_abs_err=float((logz[0][full] - logz[1][full]).abs().max()),
-            ms=cuda_ms(lambda: cuda_scan.forward_llh_banded(*fwd)),
+            ms=entry_ms(lambda: cuda_scan.forward_llh_banded(*fwd), ("forward_llh_chunked",)),
+            wrapper_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded(*fwd)),
             plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded_plain(*fwd), reps=3),
-            **bound(4 * (nv * p_dim + b * t_len * (s + 1) + s * p_dim), nv * (2 * s * p_dim + 8 * s))),
+            **k1_bound(ops["lens"], t_len, s, p_dim)),
         "estep_acc_banded": dict(
             max_abs_err=float((k2[0] - p2[0]).abs().max()),
             ms=cuda_ms(lambda: cuda_scan.estep_acc_banded(*est)),
@@ -1914,9 +1988,11 @@ def banded_rows(loop, x, m):
             plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded_plain(*est), reps=3),
             **bound(4 * (nv * (p_dim + s + 1) + b * t_len * s + s * (p_dim + 6) + b * s + n_u * n_u),
                     nv * (2 * s * p_dim + 12 * s + 2 * n_u * n_u)))}
+    dev = stats.device
     for name, row in rows.items():
-        row["placement"] = (cuda_scan.banded_placement(name, s, p_dim, n_u) if name != "estep_acc_banded"
-                            else "_".join(map(str, cuda_scan.acc_banded_geometry(s, p_dim, n_u))))
+        row["placement"] = ("_".join(map(str, launch_geometry(name, dev, s, p_dim, b, n_u)))
+                            if name != "estep_gamma_banded"
+                            else cuda_scan.banded_placement(name, s, p_dim, n_u, b, cuda_scan.sm_count(dev.index)))
     return rows, errs
 
 
@@ -1980,12 +2056,12 @@ def phase_large_dense(dev):
     loop_rows = {}
     for units in (LOOP_UNITS, BIG_LOOP_UNITS):
         loop_rows[units], errs[f"loop{units}"] = banded_rows(config4(dev, n_units=units), x, m)
-    check(all(loop_rows[BIG_LOOP_UNITS][k]["placement"] == "global"
-              for k in ("forward_llh_banded", "estep_gamma_banded")),
+    check(launch_geometry("forward_llh_banded", dev, 3 * BIG_LOOP_UNITS, 2 * D, x.shape[0])[0] == "global"
+          and loop_rows[BIG_LOOP_UNITS]["estep_gamma_banded"]["placement"] == "global",
           f"{BIG_LOOP_UNITS} units: K1 and K11 take the global placement")
     loop = config4(dev, n_units=LOOP_UNITS)
     twin = plain_twin(loop)
-    geometry = cuda_scan.acc_banded_geometry(3 * LOOP_UNITS, 2 * D, LOOP_UNITS)
+    geometry = launch_geometry("estep_acc_banded", dev, 3 * LOOP_UNITS, 2 * D, x.shape[0], LOOP_UNITS)
     cuda_scan.reset_launch_counts()
     elbos = []
     for _ in range(2):
@@ -2007,7 +2083,8 @@ def phase_large_dense(dev):
     torch.cuda.synchronize()
 
     def fmt(v):
-        return (f"{v['ms']:.3f} ms {v['placement']} (plain {v['plain_ms']:.3f}, bound "
+        wrapped = f", wrapped {v['wrapper_ms']:.3f}" if "wrapper_ms" in v else ""
+        return (f"{v['ms']:.3f} ms{wrapped} {v['placement']} (plain {v['plain_ms']:.3f}, bound "
                 f"{v['bound_ms']:.4f} by {v['bound_by']})")
 
     print(f"phase 18 large dense: ergodic B={LARGE_B} T={LARGE_T} D={D} "
@@ -2049,7 +2126,9 @@ def main() -> int:
     gmm_launches, gmm_runs = phase_gmm_slice(dev)
     launches = {k: launches.get(k, 0) + n for k, n in gmm_launches.items()}
     phase_gmm_times(gmm_runs)
-    kernels.update(phase_svae_kernels(dev))
+    svae_rows = phase_svae_kernels(dev)
+    kernels["forward_llh_banded"]["config5"] = svae_rows.pop("forward_llh_banded")
+    kernels.update(svae_rows)
     svae_launches, svae_runs = phase_svae_slice(dev)
     launches = {k: launches.get(k, 0) + n for k, n in svae_launches.items()}
     phase_svae_times(svae_runs)

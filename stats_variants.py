@@ -2,8 +2,8 @@
 """Time variants of the full-covariance kernels K9 and K10 alone on one GPU.
 
     python3 stats_variants.py [variant ...]
-    python3 stats_variants.py probe | times | b2 | geometry | vb
-    python3 stats_variants.py --sources DIR k2_* | k6_*
+    python3 stats_variants.py probe | times | b2 | b7 | geometry | vb
+    python3 stats_variants.py --sources DIR k2_* | k6_* | k1_* | k7_*
 
 ``probe`` is the 3×TF32 probe that decided K8's arithmetic (see
 :func:`probe`); it builds no variant.  ``times`` times K8 alone at config
@@ -30,6 +30,18 @@ the same stages out of K2 and K6 as they stood before their redesign
 sources, so they take ``--sources DIR``, DIR holding its
 ``beer_tpu_torch/csrc`` (``git archive 53a1783 beer_tpu_torch/csrc``),
 and stop with that hint on any other.
+
+B1 and B7, the forward and the γ-emitting backward: ``b7`` times K1 at
+configs 4 and 5 and on phone loops of 100 and 250 units, K7 at config 3
+and at phase 18's S = 150 and 300, K15 at config 4, and beside them K2,
+K6 (config 2, S = 150 and 300), K11 (configs 4 and 5) and K5 (configs 2
+and 3), each split by kernel in profiler device time, through this
+checkout's wrappers (any revision, as ``b2``).  ``geometry`` also times
+K1 in each launch geometry, K7 / K15 in each instance, and K2 and K6's
+warp instance at small batches with 4, 2 and 1 utterances a block.  The ``k1n_*`` /
+``k7n_*`` variants take stages out of the chunked K1 and K7; the ``k1_*``
+/ ``k7_*`` variants take them out of the per-frame K1 and K7 as they
+stood before (6a3a03f; ``--sources DIR``, as ``k2_*``).
 
 Each variant is ``beer_tpu_torch/csrc/stats_full.cu`` with a few text
 substitutions (a design knob changed or one stage removed), built with
@@ -180,16 +192,63 @@ K6_VARIANTS = {
     "k6_no_ellh": (K6_NO_ELLH, False),
     "k6_chain_floor": (K6_NO_ACC + K6_NO_XI + K6_NO_ELLH, False),
 }
+# K1 and K7 (B1, B7) as they stood before their redesign (6a3a03f): the
+# per-frame block chains; substitutions in that revision's sources
+# (--sources DIR); name -> (substitutions, computes the same function)
+K1_NO_ELLH = [("    float mx = -FLT_MAX, q = 0.f;\n    for (int s = tid; s < S; s += nt) {\n"
+               "      const float* wr = w_m + s * w_rs;\n      float acc = 0.f;\n#pragma unroll 8\n"
+               "      for (int p = 0; p < P; ++p) acc", "    float mx = -FLT_MAX, q = 0.f;\n"
+               "    for (int s = tid; s < S; s += nt) {\n      const float* wr = w_m + s * w_rs;\n"
+               "      float acc = 0.f;\n#pragma unroll 8\n      for (int p = 0; p < 0; ++p) acc")]
+K1_NO_STORES = [("      a_b[static_cast<size_t>(t) * S + s] = a;\n", ""),
+                ("  for (int t = 0; t < len; ++t) {\n    for (int p = tid; p < P; p += nt) x_sh[p]",
+                 "  for (int t = 0; t < len; ++t) {\n    for (int p = tid; p < 0; p += nt) x_sh[p]")]
+K7_NO_XI = [("    if (!is_last) {\n      for (int j = tid; j < n_c; j += nt) {",
+             "    if (false) {\n      for (int j = tid; j < n_c; j += nt) {")]
+K7_NO_GAMMA = [("      g_b[static_cast<size_t>(t) * S + s] = ab_sh[s] / gnorm;\n", "")]
+K1_VARIANTS = {
+    "k1_base": ([], True),
+    "k1_no_ellh": (K1_NO_ELLH, False),
+    # the chain floor: no ELLH, no α̂ stores and no statistics loads
+    "k1_chain_floor": (K1_NO_ELLH + K1_NO_STORES, False),
+}
+K7_VARIANTS = {
+    "k7_base": ([], True),
+    "k7_no_xi": (K7_NO_XI, False),
+    "k7_no_gamma": (K7_NO_GAMMA, False),
+    "k7_chain_floor": (K7_NO_XI + K7_NO_GAMMA, False),
+}
+# the chunked K1 and K7: name -> (substitutions, computes the same function)
+K1N_NO_ELLH = [("    for (int it = tid; it < n_utt * groups * S; it += nt) {",
+                "    for (int it = tid; it < 0 * groups * S; it += nt) {")]
+K1N_NO_CHAIN = [("    if (warp < n_utt) {\n      const int u = warp;\n", "    if (false) {\n      const int u = warp;\n")]
+NO_WRITE = [("  for (int e = tid; e < nf * S; e += nt) {\n    const int f = row_of(e, inv_s), s = e - f * S;",
+             "  for (int e = tid; e < 0 * S; e += nt) {\n    const int f = row_of(e, inv_s), s = e - f * S;")]
+K1N_VARIANTS = {
+    "k1n_base": ([], True),
+    "k1n_no_ellh": (K1N_NO_ELLH, False),
+    "k1n_no_chain": (K1N_NO_CHAIN, False),
+    "k1n_no_store": (NO_WRITE, False),
+    "k1n_chain_only": (K1N_NO_ELLH + NO_WRITE, False),
+    # one block an SM, no register cap
+    "k1n_lb1": ([("__launch_bounds__(kAccThreads, 2) forward_llh_chunked_kernel",
+                  "__launch_bounds__(kAccThreads) forward_llh_chunked_kernel")], True),
+    # the ELLH with 16 frames a tile item (each W value read half as often)
+    "k1n_group16": ([("constexpr int kFwdGroup = kAccGroup;", "constexpr int kFwdGroup = 16;")], True),
+    # ... and 4 (twice the items, half the registers)
+    "k1n_group4": ([("constexpr int kFwdGroup = kAccGroup;", "constexpr int kFwdGroup = 4;")], True),
+}
+
 # the redesigned K2 and K6: name -> (substitutions, computes the same function)
 K2N_NO_CHAIN = [("    if (warp < n_utt) {\n      const int u = warp, len = len_of(u);",
                  "    if (false) {\n      const int u = warp, len = len_of(u);")]
-K2N_NO_ELLH = [("    for (int it = tid; it < n_utt * groups * S; it += nt) {",
+K2N_NO_ELLH = [("    for (int it = tid; it < (kGamma ? 0 : n_utt * groups * S); it += nt) {",
                 "    for (int it = tid; it < 0 * groups * S; it += nt) {")]
-K2N_NO_PRODUCTS = [("  const int np4 = (P + 1 + 3) / 4, ns4 = (S + 3) / 4, nu4 = (U + 3) / 4;",
-                    "  const int np4 = 0, ns4 = 0, nu4 = 0;")]
+K2N_NO_PRODUCTS = [("  const int np4 = (P + 1 + 3) / 4, ns4 = (S + 3) / 4, nr4 = (n_r + 3) / 4, nc4 = (n_c + 3) / 4;",
+                    "  const int np4 = 0, ns4 = 0, nr4 = 0, nc4 = 0;")]
 K2N_NO_FACTORS = [("    for (int i = tid; i < n_utt * C; i += nt) {\n      const int u = i / C, f = i - u * C;",
                    "    for (int i = tid; i < 0 * C; i += nt) {\n      const int u = i / C, f = i - u * C;"),
-                  ("      for (int i = tid; i < nf * U; i += nt) {", "      for (int i = tid; i < 0 * U; i += nt) {")]
+                  ("      for (int i = tid; i < nf * n_c; i += nt) {", "      for (int i = tid; i < 0 * n_c; i += nt) {")]
 K6N_NO_CHAIN = K2N_NO_CHAIN + [
     ("    for (int f = nf - 1; f >= 0; --f) {\n      const bool last = lo + f == len - 1;\n      const float* vn = e_sh",
      "    for (int f = nf - 1; f >= nf; --f) {\n      const bool last = lo + f == len - 1;\n      const float* vn = e_sh")]
@@ -215,8 +274,7 @@ K2N_VARIANTS = {
     # what else the chain-only variant spends: its chunk loads, the row max / e
     # pass, the division a step, the chain's work on the states
     "k2n_chain_only_no_fetch": (K2N_NO_ELLH + K2N_NO_PRODUCTS + K2N_NO_FACTORS + [
-        ("  for (int e = tid; e < C * ldx; e += nt) {", "  for (int e = tid; e < 0 * ldx; e += nt) {"),
-        ("  for (int e = tid; e < C * ldg; e += nt) {", "  for (int e = tid; e < 0 * ldg; e += nt) {")], False),
+        ("  for (int e = tid; e < C * ld; e += nt) {", "  for (int e = tid; e < 0 * ld; e += nt) {")], False),
     "k2n_chain_only_no_rowmax": (K2N_NO_ELLH + K2N_NO_PRODUCTS + K2N_NO_FACTORS + [
         ("    for (int uf = warp; uf < n_utt * C; uf += n_warps) {", "    for (int uf = warp; uf < 0 * C; uf += n_warps) {")], False),
     "k2n_chain_only_rcp": (K2N_NO_ELLH + K2N_NO_PRODUCTS + K2N_NO_FACTORS + [
@@ -231,14 +289,57 @@ K6N_VARIANTS = {
     "k6n_no_ellh": (K6N_NO_ELLH, False),
     "k6n_no_products": (K6N_NO_PRODUCTS, False),
     "k6n_chain_only": (K6N_NO_ELLH + K6N_NO_PRODUCTS, False),
+    # what the γ mode's edits to the shared helpers cost K6's block instance
+    # (each takes one back; K7 is not timed): γ₀'s null test, the exp's
+    # separate source, ξ's second dimension; and a 512-thread launch bound
+    # the fetch's two reciprocals up front, as before acc_fetch_rows
+    "k6n_v_fetch": ([("  acc_fetch_rows(xs, stats, row, nf, C, ldx, P, tid, nt);\n  acc_fetch_rows(as, alpha, row, nf, C, ldg, S, tid, nt);",
+                      "  const float inv_ldx = 1.f / ldx, inv_ldg = 1.f / ldg;\n"
+                      "  for (int e = tid; e < C * ldx; e += nt) {\n    const int f = row_of(e, inv_ldx), q = e - f * ldx;\n"
+                      "    const bool ok = f < nf && q < P;\n    cp_async4(xs + e, ok ? stats + (row + f) * P + q : stats, ok);\n  }\n"
+                      "  for (int e = tid; e < C * ldg; e += nt) {\n    const int f = row_of(e, inv_ldg), q = e - f * ldg;\n"
+                      "    const bool ok = f < nf && q < S;\n    cp_async4(as + e, ok ? alpha + (row + f) * S + q : alpha, ok);\n  }")],
+                    True),
+    # the block kernel's parameters in the parent's order, the γ mode's after them
+    "k6n_v_params": ([("    const int* __restrict__ rows,      // kGamma: (n_r,) ξ rows (K15); null: every state (K7)\n"
+                       "    const int* __restrict__ cols,      // kGamma: (n_c,) ξ columns (K15); null: every state (K7)\n"
+                       "    float* __restrict__ part,          // (B, (P+1)*S + S*S); kGamma: (B, n_r*n_c)\n"
+                       "    float* __restrict__ gamma0,        // (B, S) (not kGamma)\n"
+                       "    float* __restrict__ gamma,         // (B, T, S) (kGamma)\n"
+                       "    int T, int S, int P, int n_r, int n_c, int chunk) {",
+                       "    float* __restrict__ part, float* __restrict__ gamma0, int T, int S, int P, int chunk,\n"
+                       "    const int* __restrict__ rows, const int* __restrict__ cols, float* __restrict__ gamma, int n_r, int n_c) {"),
+                      ("                                                                       rows, cols, part, gamma0, gamma, T, S, P, n_r,\n"
+                       "                                                                       n_c, chunk);",
+                       "                                                                       part, gamma0, T, S, P, chunk, rows, cols, gamma,\n"
+                       "                                                                       n_r, n_c);")], True),
+    # the block instance's launch bound at 512 and 768 threads (128 and 80 registers)
+    "k6n_v_lb512": ([("__global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(",
+                      "__global__ void __launch_bounds__(512, 1) estep_acc_dense_block_kernel(")], True),
+    "k6n_v_lb768": ([("__global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(",
+                      "__global__ void __launch_bounds__(768, 1) estep_acc_dense_block_kernel(")], True),
+}
+# K7 and K15 share K6's kernels (the γ-emitting mode): their chain, ξ
+# product and γ write out
+K7N_VARIANTS = {
+    "k7n_base": ([], True),
+    "k7n_no_chain": (K6N_NO_CHAIN, False),
+    "k7n_no_xi": (K6N_NO_PRODUCTS, False),
+    "k7n_no_gamma": (NO_WRITE, False),
+    "k7n_chain_only": (K6N_NO_PRODUCTS + NO_WRITE, False),
+    # the block instance's launch bound at 512 threads (128 registers)
+    "k7n_lb512": ([("__global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(",
+                    "__global__ void __launch_bounds__(512, 1) estep_acc_dense_block_kernel(")], True),
 }
 # the source each variant compiles (its substitutions may fall in a header)
 SOURCES = {**{n: "stats_full.cu" for n in (*VARIANTS, *K8_VARIANTS)},
-           **{n: "hmm_scan.cu" for n in K6N_VARIANTS},
-           **{n: "phone_loop_scan.cu" for n in K2N_VARIANTS},
-           **{n: "hmm_scan.cu" for n in (*K5_VARIANTS, *K6_VARIANTS)},
-           **{n: "phone_loop_scan.cu" for n in K2_VARIANTS}}
+           **{n: "hmm_scan.cu" for n in (*K6N_VARIANTS, *K7N_VARIANTS)},
+           **{n: "phone_loop_scan.cu" for n in (*K2N_VARIANTS, *K1N_VARIANTS)},
+           **{n: "hmm_scan.cu" for n in (*K5_VARIANTS, *K6_VARIANTS, *K7_VARIANTS)},
+           **{n: "phone_loop_scan.cu" for n in (*K2_VARIANTS, *K1_VARIANTS)}}
 PARENT_VARIANTS = {**K2_VARIANTS, **K6_VARIANTS}
+PARENT_B7_VARIANTS = {**K1_VARIANTS, **K7_VARIANTS}   # of 6a3a03f's sources
+NEW_B7_VARIANTS = {**K1N_VARIANTS, **K7N_VARIANTS}
 REPS = 20
 CARD = ""   # the card's name and power limit (nvidia-smi), printed beside every number
 SOURCES_DIR = cuda_scan.CSRC   # the sources the variants edit (--sources DIR)
@@ -251,8 +352,15 @@ REPORTED = {"ellh_full_kernelILi128ELi64": "k9_128x64", "ellh_full_kernelILi64EL
             "forward_llh_dense_kernelILb0ELb0ELb1ELb0": "k5_block_llh_global_short",
             "forward_llh_dense_kernelILb1ELb0ELb1ELb0": "k5_block_stats_global_short",
             "estep_acc_chunked_kernelILb0ELb0ELb1": "k2_shared", "estep_acc_chunked_kernelILb0ELb1ELb1": "k2_global",
-            "estep_acc_chunked_kernelILb1ELb0ELb1": "k6_warp", "estep_acc_dense_block_kernelILb1ELb1": "k6_block_global",
-            "estep_acc_dense_block_kernelILb0ELb1": "k6_block_shared"}
+            "estep_acc_chunked_kernelILb0ELb0ELb1ELb0": "k2_shared", "estep_acc_chunked_kernelILb0ELb1ELb1ELb0": "k2_global",
+            "estep_acc_chunked_kernelILb1ELb0ELb1ELb0": "k6_warp", "estep_acc_chunked_kernelILb1ELb0ELb1ELb1": "k7_warp",
+            "estep_acc_dense_block_kernelILb1ELb1ELb0": "k6_block_global",
+            "estep_acc_dense_block_kernelILb0ELb1ELb0": "k6_block_shared",
+            "estep_acc_dense_block_kernelILb1ELb1ELb1": "k7_block_global",
+            "estep_acc_dense_block_kernelILb0ELb1ELb1": "k7_block_shared",
+            "forward_llh_chunked_kernelILb0ELb1": "k1_shared", "forward_llh_chunked_kernelILb1ELb1": "k1_global",
+            "forward_llh_banded_kernelILb0": "k1_parent_shared", "forward_llh_banded_kernelILb1": "k1_parent_global",
+            "estep_gamma_dense_kernelILb0ELb0": "k7_parent_shared", "estep_gamma_dense_kernelILb0ELb1": "k7_parent_global"}
 
 
 def build(names):
@@ -263,13 +371,15 @@ def build(names):
         # the compiled source and every header; a substitution is made in
         # the compiled source if it holds the text, else in the one header that does
         texts = {f.name: f.read_text() for f in [SOURCES_DIR / SOURCES[name], *SOURCES_DIR.glob("*.cuh")]}
-        subs = {**VARIANTS, **K8_VARIANTS, **K5_VARIANTS, **PARENT_VARIANTS, **K2N_VARIANTS, **K6N_VARIANTS}[name][0]
+        subs = {**VARIANTS, **K8_VARIANTS, **K5_VARIANTS, **PARENT_VARIANTS, **K2N_VARIANTS, **K6N_VARIANTS,
+                **PARENT_B7_VARIANTS, **NEW_B7_VARIANTS}[name][0]
         for old, new in subs:
             holders = [f for f, text in texts.items() if old in text]
             holders = [SOURCES[name]] if SOURCES[name] in holders else holders
             if len(holders) != 1:
-                hint = (" (it edits the sources of 53a1783: pass that revision's beer_tpu_torch/csrc as --sources DIR)"
-                        if name in PARENT_VARIANTS else "")
+                rev = "53a1783" if name in PARENT_VARIANTS else "6a3a03f" if name in PARENT_B7_VARIANTS else ""
+                hint = (f" (it edits the sources of {rev}: pass that revision's beer_tpu_torch/csrc as --sources DIR)"
+                        if rev else "")
                 raise RuntimeError(f"variant {name}: {old!r} is in {holders or 'no file'} of {SOURCES[name]}{hint}")
             texts[holders[0]] = texts[holders[0]].replace(old, new)
         (tmp / name).mkdir()
@@ -867,7 +977,7 @@ def time_k6(lib, dev, cases, check=True, instances=("warp", "shared", "global"))
                     cuda_scan.backward_smem_bytes(s, p_dim, instance, chunk) > cuda_scan.SMEM_LIMIT:
                 continue
             wk, tk = (w.T.contiguous(), trans.T.contiguous()) if instance == "global" else (w, trans)
-            for n_utt in ((4, 2) if instance == "warp" else (1,)):
+            for n_utt in ((4, 2, 1) if instance == "warp" else (1,)):
                 part, out = torch.empty(-(-b // n_utt), width, device=dev), torch.empty(width, device=dev)
                 gamma0 = torch.empty(b, s, device=dev)
                 call = lambda: lib.beer_estep_acc_dense(  # noqa: E731
@@ -896,16 +1006,47 @@ def geometry(dev):
     row = time_k2(lib, dev, k2, cuda_scan.estep_acc_banded_plain(*k2), K2_GEOMETRIES)
     row.update(time_k6(lib, dev, k6_cases(dev)))
     print(f"geometry: {CARD} | " + json.dumps(row), flush=True)
+    cases = b7_cases(dev)
+    for tag, geometries in K1_GEOMETRIES.items():
+        print(f"geometry: {CARD} | " + json.dumps(time_k1(lib, dev, tag, cases[tag], geometries)), flush=True)
+    for tag, instances in K7_INSTANCES.items():
+        print(f"geometry: {CARD} | " + json.dumps(time_k7(lib, dev, tag, cases[tag], instances)), flush=True)
+    del cases
+    print(f"geometry: {CARD} | " + json.dumps(small_batches(lib, dev)), flush=True)
+
+
+def small_batches(lib, dev):
+    """K2 and K6's warp instance at batches that fill the card with fewer
+    utterances a block than fit (``cuda_scan._utterance_cap``): K2 on
+    config 5's loop (B = 258) and on config 4's first 128 rows, K6 on
+    config 2's first 128 rows, each in the geometry the batch-size rule
+    picks and in the ones the rule by fit alone picked, held against the
+    plain versions."""
+    x5, m5 = c.config5_data(dev)
+    x5 = torch.cat([x5, torch.zeros(2, *x5.shape[1:], device=dev)])
+    m5 = torch.cat([m5, torch.zeros(2, m5.shape[1], device=dev)])
+    stats5, ops5 = c.svae_operands(c.config5(dev), x5, m5)
+    fwd5 = (stats5, ops5["lens"], ops5["w"], ops5["bias"], ops5["bands"], ops5["init"])
+    k2_5 = c.banded_estep_args(stats5, ops5, *cuda_scan.forward_llh_banded_plain(*fwd5)[:2])
+    row = {f"config5_{k}": v for k, v in time_k2(lib, dev, k2_5, cuda_scan.estep_acc_banded_plain(*k2_5), [
+        ("shared", 4, 16), ("shared", 2, 16), ("shared", 1, 16)]).items()}
+    k2, k6 = k2k6_cases(dev)
+    n = 128
+    k2 = tuple(x[:n] if i in (0, 1, 6, 7) else x for i, x in enumerate(k2))   # stats, lens, alpha, norms
+    row.update({f"config4_b{n}_{k}": v for k, v in time_k2(lib, dev, k2, cuda_scan.estep_acc_banded_plain(*k2), [
+        ("global", 2, 16), ("shared", 1, 16), ("global", 1, 16)]).items()})
+    k6 = tuple(x[:n] if i in (0, 1, 5, 6, 7) else x for i, x in enumerate(k6))   # stats, lens, final, alpha, norms
+    row.update(time_k6(lib, dev, {f"config2_b{n}": k6}, instances=("warp",)))
+    return row
 
 
 def run_new(dev, built, names):
     """The ``k2n_*`` / ``k6n_*`` variants of the redesigned kernels: K2 at
     config 4 in four geometries (global with 4, 2 and 1 utterances a block,
-    shared with 2), K6 at config 2 (warp) and S = 300 (global), one line a
-    variant."""
+    shared with 2), K6 at config 2 (warp) and S = 150 and 300 (global), one
+    line a variant."""
     k2, _ = k2k6_cases(dev)
     cases = k6_cases(dev)
-    del cases["s150"]
     want2 = cuda_scan.estep_acc_banded_plain(*k2)
     s, p_dim, n_u = k2[2].shape[0], k2[0].shape[2], k2[8].shape[0]
     geoms = [("global", 4, 16), ("global", 2, 16), ("global", 1, 16), ("shared", 2, 16)]
@@ -918,6 +1059,267 @@ def run_new(dev, built, names):
         else:
             same = K6N_VARIANTS[name][1]
             row = time_k6(lib, dev, cases, check=same, instances=("warp", "global"))
+        print(f"variant {name}: {CARD} | " + json.dumps(row) + f" | registers {regs} "
+              f"| {'same function' if same else 'not the same function'}", flush=True)
+
+
+def b7_cases(dev):
+    """The operands of K1 (configs 4 and 5, phone loops of 100 and 250
+    units on phase 18's data), K7 (config 3, the config-2 llh stream,
+    phase 18's ergodic HMMs at S = 150 and 300) and K15 (config 4's
+    dense matrix, ξ on the units' ends × starts), as ``chip_smoke.py``
+    builds them (configs 4 and 5 with two zero-length rows)."""
+    cases = {"k1_config4": c.banded_operands(dev)[3]}
+    x5, m5 = c.config5_data(dev)
+    x5 = torch.cat([x5, torch.zeros(2, *x5.shape[1:], device=dev)])
+    m5 = torch.cat([m5, torch.zeros(2, m5.shape[1], device=dev)])
+    stats5, ops5 = c.svae_operands(c.config5(dev), x5, m5)
+    cases["k1_config5"] = (stats5, ops5["lens"], ops5["w"], ops5["bias"], ops5["bands"], ops5["init"])
+    data, mask = c.make_data(c.LARGE_B, c.LARGE_T, c.D, seed=8)
+    xb, mb = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    for units in (c.LOOP_UNITS, c.BIG_LOOP_UNITS):
+        loop = c.config4(dev, n_units=units)
+        st = loop.sufficient_statistics(xb).contiguous()
+        ops = loop.scan_operands(st, mb)
+        cases[f"k1_u{units}"] = (st, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["init"])
+    data3, mask3, seqs = c.config3_data()
+    rec = c.config3(dev, seqs)
+    _, c3 = c.hmm_operands(rec, torch.from_numpy(data3).to(dev), torch.from_numpy(mask3).to(dev))
+    init3 = torch.exp(torch.clamp(rec.graph_log_init, min=-1e30)).expand_as(c3["final"]).contiguous()
+    f3 = cuda_scan.forward_llh_dense_plain(c3["llh"], c3["lens"], c3["trans"], init3)
+    cases["k7_config3"] = (c3["llh"], c3["lens"], c3["trans"], c3["final"], f3[0], f3[1])
+    data, mask = c.make_data(c.B, c.T, c.D)
+    x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    hmm = c.config2(dev)
+    st2, c2 = c.hmm_operands(hmm, x, m)
+    llh2 = hmm._state_llh(st2).contiguous()
+    init2 = torch.exp(hmm.graph_log_init).expand_as(c2["final"]).contiguous()
+    f2 = cuda_scan.forward_llh_dense_plain(llh2, c2["lens"], c2["trans"], init2)
+    cases["k7_config2"] = (llh2, c2["lens"], c2["trans"], c2["final"], f2[0], f2[1])
+    for s in (c.SHARED_S, c.LARGE_S):
+        big = c.config2(dev, s=s)
+        sb, cb = c.hmm_operands(big, xb, mb)
+        llh = big._state_llh(sb).contiguous()
+        init = torch.exp(big.graph_log_init).expand_as(cb["final"]).contiguous()
+        f = cuda_scan.forward_llh_dense_plain(llh, cb["lens"], cb["trans"], init)
+        cases[f"k7_s{s}"] = (llh, cb["lens"], cb["trans"], cb["final"], f[0], f[1])
+    data, mask = c.with_empty_rows(*c.make_data(c.B, c.T, c.D))
+    o = c.general_operands(c.config4(dev), torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev))
+    f = cuda_scan.forward_llh_dense_plain(o["llh"], o["lens"], o["trans"], o["init"], return_shifts=True)
+    cases["k15_config4"] = (o["llh"], o["lens"], o["trans"], o["final"], f[0], f[1], o["ends"], o["starts"])
+    return cases
+
+
+def b7_times(dev):
+    """K1 (configs 4 and 5, 100 and 250 units), K7 (config 3, S = 150 and
+    300), K15 (config 4), and beside them K2 (config 4), K6 (config 2, S =
+    150 and 300), K11 (configs 4 and 5) and K5 (configs 2 and 3), through
+    this checkout's wrappers: each call's device ms split by kernel
+    (``kernel_split``), so that the batch sum shows apart.  The operands
+    are made once, with the plain versions, so that every revision times
+    the same inputs."""
+    cases = b7_cases(dev)
+    row = {}
+
+    def put(tag, fn):
+        split = kernel_split(fn)
+        row[f"{tag}_ms"] = round(ours(split), 4)
+        row[f"{tag}_split"] = {k: round(v, 4) for k, v in split.items()}
+
+    for tag in ("k1_config4", "k1_config5", f"k1_u{c.LOOP_UNITS}", f"k1_u{c.BIG_LOOP_UNITS}"):
+        put(tag, lambda: cuda_scan.forward_llh_banded(*cases[tag]))
+    for tag in ("k7_config3", "k7_config2", f"k7_s{c.SHARED_S}", f"k7_s{c.LARGE_S}"):
+        put(tag, lambda: cuda_scan.estep_gamma_dense(*cases[tag]))
+    k15 = cases["k15_config4"]
+    put("k15_config4", lambda: cuda_scan.estep_gamma_dense(*k15[:6], rows=k15[6], cols=k15[7]))
+    del cases
+    k2, k6 = k2k6_cases(dev)
+    put("k2_config4", lambda: cuda_scan.estep_acc_banded(*k2))
+    put("k11_config4", lambda: cuda_scan.estep_gamma_banded(*k2))
+    put("k6_config2", lambda: cuda_scan.estep_acc_dense(*k6))
+    for tag, args in k6_cases(dev).items():
+        if tag != "config2":
+            put(f"k6_{tag}", lambda: cuda_scan.estep_acc_dense(*args))
+    x5, m5 = c.config5_data(dev)
+    x5 = torch.cat([x5, torch.zeros(2, *x5.shape[1:], device=dev)])
+    m5 = torch.cat([m5, torch.zeros(2, m5.shape[1], device=dev)])
+    stats5, ops5 = c.svae_operands(c.config5(dev), x5, m5)
+    fwd5 = (stats5, ops5["lens"], ops5["w"], ops5["bias"], ops5["bands"], ops5["init"])
+    alpha5, norms5, _, _ = cuda_scan.forward_llh_banded_plain(*fwd5)
+    k11 = c.banded_estep_args(stats5, ops5, alpha5, norms5)
+    put("k11_config5", lambda: cuda_scan.estep_gamma_banded(*k11))
+    k5 = k5_cases(dev)
+    for tag in ("config2", "config3"):
+        put(f"k5_{tag}", lambda: cuda_scan.forward_llh_dense(*k5[tag]))
+    print(f"b7 times: {CARD} | " + json.dumps(row), flush=True)
+
+
+# K1: case -> launch geometries (placement, utterances a block, frames a chunk)
+K1_GEOMETRIES = {
+    "k1_config4": [("global", 4, 16), ("global", 2, 16), ("shared", 2, 16), ("shared", 1, 16), ("global", 1, 16),
+                   ("shared", 4, 16), ("global", 4, 8)],
+    "k1_config5": [("shared", 4, 16), ("shared", 2, 16), ("shared", 1, 16), ("global", 4, 16)],
+    f"k1_u{c.LOOP_UNITS}": [("global", 2, 16), ("global", 1, 16), ("shared", 1, 16), ("global", 4, 16)],
+    f"k1_u{c.BIG_LOOP_UNITS}": [("global", 1, 16), ("global", 2, 16), ("global", 1, 8)],
+}
+# K7 / K15: case -> instances (instance, frames a chunk, utterances a block)
+K7_INSTANCES = {
+    "k7_config3": [("warp", 16, 4), ("warp", 16, 2), ("warp", 16, 1), ("shared", 16, 1)],
+    "k7_config2": [("warp", 16, 4), ("warp", 16, 2), ("warp", 16, 1)],
+    f"k7_s{c.SHARED_S}": [("shared", 16, 1), ("shared", 8, 1), ("global", 16, 1)],
+    f"k7_s{c.LARGE_S}": [("global", 16, 1), ("global", 8, 1)],
+    "k15_config4": [("shared", 16, 1), ("shared", 8, 1), ("shared", 2, 1), ("global", 16, 1), ("global", 8, 1)],
+}
+
+
+def time_k1(lib, dev, tag, fwd, geometries, check=True):
+    """The chunked K1 (bare foreign call, ten between two events, median of
+    20, divided by ten) in each launch geometry that fits; held against
+    the plain version (log Z rel 1e-5, α̂ abs 1e-5) when ``check``."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.beer_forward_llh_banded.argtypes = [i, i, i, i] + [p] * 10 + [i] * 4 + [p]
+    stats, lens, w, bias, bands, init = fwd
+    b, t_len, p_dim = stats.shape
+    s = w.shape[0]
+    want = cuda_scan.forward_llh_banded_plain(*fwd) if check else None
+    full = lens > 0
+    row = {}
+    for placement, n_utt, chunk in geometries:
+        glob = placement == "global"
+        if cuda_scan.forward_banded_smem_bytes(s, p_dim, placement, n_utt, chunk) > cuda_scan.SMEM_LIMIT:
+            continue
+        wk = torch.nn.functional.pad(w, (0, -p_dim % 4)).T.contiguous() if glob else w
+        outs = (torch.empty(b, t_len, s, device=dev), torch.empty(b, t_len, device=dev),
+                torch.empty(b, s, device=dev), torch.empty(b, device=dev))
+        call = lambda: lib.beer_forward_llh_banded(  # noqa: E731
+            0, int(glob), n_utt, chunk, *map(ptr, (stats, lens, wk, bias, bands, init, *outs)), b, t_len, s, p_dim,
+            stream)
+        key = f"{tag}_{placement}_u{n_utt}_c{chunk}"
+        c.check(call() == 0, f"{key}: launch")
+        if want is not None:
+            errs = (c.rel(outs[3][full], want[3][full]), float((outs[0] - want[0]).abs().max()))
+            c.check(errs[0] <= 1e-5 and errs[1] <= 1e-5, f"{key}: differs from plain {errs}")
+        row[key] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+    return row
+
+
+def time_k7(lib, dev, tag, gam, instances, check=True):
+    """The chunked K7 (K15 when ``gam`` carries rows and columns) in each
+    instance that fits, as :func:`time_k1`; held against the plain version
+    (γ abs 1e-5, ξ rel 1e-4) when ``check``."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr()) if t is not None else None  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.beer_estep_gamma_dense.argtypes = [i, i, i, i] + [p] * 11 + [i] * 5 + [p]
+    llh, lens, trans, final, alpha, norms = gam[:6]
+    rows, cols = gam[6:] if len(gam) > 6 else (None, None)
+    b, t_len, s = llh.shape
+    rc = (rows.numel(), cols.numel()) if rows is not None else ()
+    n_r, n_c = rc or (s, s)
+    kw = dict(rows=rows, cols=cols) if rc else {}
+    want = cuda_scan.estep_gamma_dense_plain(*gam[:6], **kw) if check else None
+    row = {}
+    for instance, chunk, n_utt in instances:
+        if (instance == "warp" and s > 32) or \
+                cuda_scan.gamma_smem_bytes(s, instance, chunk, n_utt, *rc) > cuda_scan.SMEM_LIMIT:
+            continue
+        tk = trans.T.contiguous() if instance == "global" else trans
+        part = torch.empty(-(-b // n_utt), n_r * n_c, device=dev)
+        out, gamma = torch.empty(n_r * n_c, device=dev), torch.empty(b, t_len, s, device=dev)
+        call = lambda: lib.beer_estep_gamma_dense(  # noqa: E731
+            0, cuda_scan._INSTANCES.index(instance), chunk, n_utt,
+            *map(ptr, (llh, lens, tk, final, alpha, norms, rows, cols, part, out, gamma)), b, t_len, s, n_r, n_c,
+            stream)
+        key = f"{tag}_{instance}_c{chunk}_u{n_utt}"
+        c.check(call() == 0, f"{key}: launch")
+        if want is not None:
+            errs = (float((gamma - want[0]).abs().max()), c.rel(out.view(n_r, n_c), want[1]))
+            c.check(errs[0] <= 1e-5 and errs[1] <= 1e-4, f"{key}: differs from plain {errs}")
+        row[key] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+    return row
+
+
+def run_b7_parent(dev, built, names):
+    """The ``k1_*`` / ``k7_*`` variants of the per-frame K1 and K7 (6a3a03f's
+    entry points, ten bare foreign calls between two events, median of 20,
+    divided by ten): K1 at config 4 and on the 100- and 250-unit loops, K7
+    at config 3 and at S = 150 and 300 (its shared and global placements
+    as that revision picked them), one line a variant."""
+    cases = b7_cases(dev)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name in names:
+        path, regs = built[name]
+        lib = ctypes.CDLL(str(path))
+        same = PARENT_B7_VARIANTS[name][1]
+        row = {}
+        if name in K1_VARIANTS:
+            lib.beer_forward_llh_banded.argtypes = [i, i] + [p] * 10 + [i] * 4 + [p]
+            for tag in ("k1_config4", f"k1_u{c.LOOP_UNITS}", f"k1_u{c.BIG_LOOP_UNITS}"):
+                stats, lens, w, bias, bands, init = cases[tag]
+                b, t_len, p_dim = stats.shape
+                s = w.shape[0]
+                glob = 4 * (s * (p_dim | 1) + 7 * s + p_dim + 64) > cuda_scan.SMEM_LIMIT   # that revision's rule
+                wk = w.T.contiguous() if glob else w
+                outs = (torch.empty(b, t_len, s, device=dev), torch.empty(b, t_len, device=dev),
+                        torch.empty(b, s, device=dev), torch.empty(b, device=dev))
+                call = lambda: lib.beer_forward_llh_banded(  # noqa: E731
+                    0, int(glob), *map(ptr, (stats, lens, wk, bias, bands, init, *outs)), b, t_len, s, p_dim, stream)
+                c.check(call() == 0, f"{name}: launch ({tag})")
+                if same:
+                    want = cuda_scan.forward_llh_banded_plain(*cases[tag])
+                    c.check(float((outs[0] - want[0]).abs().max()) <= 1e-5, f"{name}: differs from plain ({tag})")
+                row[f"{tag}_ms"] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+        else:
+            lib.beer_estep_gamma_dense.argtypes = [i, i] + [p] * 9 + [i] * 3 + [p]
+            for tag in ("k7_config3", f"k7_s{c.SHARED_S}", f"k7_s{c.LARGE_S}"):
+                llh, lens, trans, final, alpha, norms = cases[tag]
+                b, t_len, s = llh.shape
+                glob = 4 * (6 * s + 64 + s * (s | 1) + s * s) > cuda_scan.SMEM_LIMIT   # that revision's rule
+                tk = trans.T.contiguous() if glob else trans
+                part, out = torch.empty(b, s * s, device=dev), torch.empty(s * s, device=dev)
+                gamma = torch.empty(b, t_len, s, device=dev)
+                call = lambda: lib.beer_estep_gamma_dense(  # noqa: E731
+                    0, int(glob), *map(ptr, (llh, lens, tk, final, alpha, norms, part, out, gamma)), b, t_len, s,
+                    stream)
+                c.check(call() == 0, f"{name}: launch ({tag})")
+                if same:
+                    want = cuda_scan.estep_gamma_dense_plain(*cases[tag])
+                    c.check(float((gamma - want[0]).abs().max()) <= 1e-5 and c.rel(out.view(s, s), want[1]) <= 1e-4,
+                            f"{name}: differs from plain ({tag})")
+                row[f"{tag}_ms"] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+        print(f"variant {name}: {CARD} | " + json.dumps(row) + f" | registers {regs} "
+              f"| {'same function' if same else 'not the same function'}", flush=True)
+
+
+def run_b7_new(dev, built, names):
+    """The ``k1n_*`` / ``k7n_*`` variants of the chunked K1 and K7 / K15 in
+    the geometry each shape takes (:func:`time_k1`, :func:`time_k7`): K1 at
+    configs 4 and 5 and 250 units, K7 at config 3 and S = 150 and 300,
+    K15 at config 4, one line a variant."""
+    cases = b7_cases(dev)
+    n_sm = cuda_scan.sm_count(dev.index)
+    for name in names:
+        path, regs = built[name]
+        lib = ctypes.CDLL(str(path))
+        same = NEW_B7_VARIANTS[name][1]
+        row = {}
+        if name in K1N_VARIANTS:
+            for tag in ("k1_config4", "k1_config5", f"k1_u{c.BIG_LOOP_UNITS}"):
+                st, w = cases[tag][0], cases[tag][2]
+                geom = cuda_scan.forward_banded_geometry(w.shape[0], st.shape[2], st.shape[0], n_sm)
+                row.update(time_k1(lib, dev, tag, cases[tag], [geom], check=same))
+        else:
+            for tag in ("k7_config3", f"k7_s{c.SHARED_S}", f"k7_s{c.LARGE_S}", "k15_config4"):
+                gam = cases[tag]
+                rc = (gam[6].numel(), gam[7].numel()) if len(gam) > 6 else ()
+                s, b = gam[0].shape[2], gam[0].shape[0]
+                instance, chunk = cuda_scan.gamma_instance(s, *rc)
+                n_utt = cuda_scan.gamma_utterances(s, b, n_sm, *rc) if instance == "warp" else 1
+                row.update(time_k7(lib, dev, tag, gam, [(instance, chunk, n_utt)], check=same))
         print(f"variant {name}: {CARD} | " + json.dumps(row) + f" | registers {regs} "
               f"| {'same function' if same else 'not the same function'}", flush=True)
 
@@ -986,12 +1388,15 @@ def main(names) -> int:
         geometry(dev)
     if "vb" in names:
         vb_times(dev)
-    names = [n for n in names if n not in ("probe", "times", "b2", "geometry", "vb")]
+    if "b7" in names:
+        b7_times(dev)
+    names = [n for n in names if n not in ("probe", "times", "b2", "b7", "geometry", "vb")]
     if not names:
         return 0
     built = build(names)
     for group, run in ((VARIANTS, run_stats), (K8_VARIANTS, run_k8), (K5_VARIANTS, run_k5),
-                       (PARENT_VARIANTS, run_k2k6), ({**K2N_VARIANTS, **K6N_VARIANTS}, run_new)):
+                       (PARENT_VARIANTS, run_k2k6), ({**K2N_VARIANTS, **K6N_VARIANTS}, run_new),
+                       (PARENT_B7_VARIANTS, run_b7_parent), (NEW_B7_VARIANTS, run_b7_new)):
         mine = [n for n in names if n in group]
         if mine:
             run(dev, built, mine)
@@ -1004,4 +1409,4 @@ if __name__ == "__main__":
         i = args.index("--sources")
         SOURCES_DIR = Path(args[i + 1]).resolve()
         del args[i:i + 2]
-    sys.exit(main(args or [*VARIANTS, *K8_VARIANTS, *K5_VARIANTS, *K2N_VARIANTS, *K6N_VARIANTS]))
+    sys.exit(main(args or [*VARIANTS, *K8_VARIANTS, *K5_VARIANTS, *K2N_VARIANTS, *K6N_VARIANTS, *NEW_B7_VARIANTS]))

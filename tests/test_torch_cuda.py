@@ -805,8 +805,17 @@ def test_dense_smem_formulas_match_the_library(device, placement):
                 assert cuda_scan.forward_smem_bytes(s, p, "warp") == \
                     lib.beer_dense_forward_smem_bytes(s, p, 2, cuda_scan.FORWARD_CHUNK)
             if p == 0:
+                for chunk in cuda_scan.BACKWARD_CHUNKS:
+                    assert cuda_scan.gamma_smem_bytes(s, placement, chunk) == \
+                        lib.beer_gamma_dense_smem_bytes(s, s, s, 0, code, chunk, 1)
                 assert cuda_scan.dense_smem_bytes("estep_gamma_dense", s, placement=placement) == \
-                    lib.beer_dense_estep_smem_bytes(s, glob)
+                    lib.beer_gamma_dense_smem_bytes(s, s, s, 0, code, cuda_scan.gamma_chunk(s, placement), 1)
+                if s <= 32:
+                    for n_utt in cuda_scan.ACC_UTTERANCES:
+                        assert cuda_scan.gamma_smem_bytes(s, "warp", 16, n_utt) == \
+                            lib.beer_gamma_dense_smem_bytes(s, s, s, 0, 2, 16, n_utt)
+                        assert cuda_scan.gamma_smem_bytes(s, "warp", 16, n_utt, s // 3 + 1, s // 2 + 1) == \
+                            lib.beer_gamma_dense_smem_bytes(s, s // 3 + 1, s // 2 + 1, 1, 2, 16, n_utt)
                 continue
             for chunk in cuda_scan.BACKWARD_CHUNKS:
                 assert cuda_scan.backward_smem_bytes(s, p, placement, chunk) == \
@@ -814,11 +823,13 @@ def test_dense_smem_formulas_match_the_library(device, placement):
             assert cuda_scan.dense_smem_bytes("estep_acc_dense", s, p, placement=placement) == \
                 lib.beer_acc_dense_smem_bytes(s, p, code, cuda_scan.backward_chunk(s, p, placement), 1)
             if s <= 32:
-                assert cuda_scan.backward_smem_bytes(s, p, "warp") == lib.beer_acc_dense_smem_bytes(
-                    s, p, 2, cuda_scan.BACKWARD_CHUNK, cuda_scan.backward_utterances(s, p))
-        assert cuda_scan.dense_smem_bytes("estep_gamma_dense_restricted", s, n_r=s // 3 + 1,
-                                          n_c=s // 2 + 1, placement=placement) == \
-            lib.beer_dense_estep_restricted_smem_bytes(s, s // 3 + 1, s // 2 + 1, glob)
+                for n_utt in cuda_scan.ACC_UTTERANCES:
+                    assert cuda_scan.backward_smem_bytes(s, p, "warp", cuda_scan.BACKWARD_CHUNK, n_utt) == \
+                        lib.beer_acc_dense_smem_bytes(s, p, 2, cuda_scan.BACKWARD_CHUNK, n_utt)
+        n_r, n_c = s // 3 + 1, s // 2 + 1
+        assert cuda_scan.dense_smem_bytes("estep_gamma_dense_restricted", s, n_r=n_r, n_c=n_c,
+                                          placement=placement) == \
+            lib.beer_gamma_dense_smem_bytes(s, n_r, n_c, 1, glob, cuda_scan.gamma_chunk(s, placement, n_r, n_c), 1)
         for mode in (0, 2):
             assert cuda_scan.dense_smem_bytes("scaled_pass", s, placement=placement) == \
                 lib.beer_scaled_pass_smem_bytes(mode, s, glob)
@@ -869,27 +880,35 @@ def test_acc_banded_geometries_match_plain_version(device, monkeypatch, case):
     alpha, norms, _, _ = cuda_scan.forward_llh_banded_plain(*fwd)
     est = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms,
            a["ends"], a["starts"])
-    monkeypatch.setattr(cuda_scan, "acc_banded_geometry", lambda s, p, u: geometry)
+    monkeypatch.setattr(cuda_scan, "acc_banded_geometry", lambda *args: geometry)
     got = cuda_scan.estep_acc_banded(*est)
     torch.cuda.synchronize()
     _banded_close(got, cuda_scan.estep_acc_banded_plain(*est))
     assert not got[2][a["lens"] == 0].any()
 
 
-# (S, P, forced (instance, frames a chunk) or None for the wrapper's own)
+# (S, P, forced (instance, frames a chunk) or None for the wrapper's own[,
+# forced utterances a block]): at these eight rows the warp instance takes
+# one utterance a block; four and two are forced
 ACC_DENSE_CASES = [(1, 78, None), (18, 78, None), (30, 78, None), (32, 78, None), (30, 400, None),
                    (33, 78, None), (100, 12, ("shared", 8)), (100, 12, ("shared", 1)), (133, 78, None),
-                   (150, 78, None), (150, 12, ("global", 4)), (300, 78, None)]
+                   (150, 78, None), (150, 12, ("global", 4)), (300, 78, None),
+                   (30, 78, None, 4), (18, 78, None, 2)]
 
 
-@pytest.mark.parametrize("case", ACC_DENSE_CASES, ids=lambda c: "S%d_P%d_%s" % (c[0], c[1], c[2] and c[2][0]))
+@pytest.mark.parametrize("case", ACC_DENSE_CASES, ids=lambda c: "S%d_P%d_%s" % (c[0], c[1], c[2] and c[2][0])
+                         + ("_u%d" % c[3] if len(c) > 3 else ""))
 def test_acc_dense_instances_match_plain_version(device, monkeypatch, case):
     """K6 in the instance each S takes (one warp an utterance up to 32, a
-    block above, global at 150 and 300 at P = 78) or a forced one, against
-    its plain version: lengths 0, 1, C − 1, C, C + 1 and across chunks."""
-    s, p_dim, forced = case
+    block above, global at 150 and 300 at P = 78) or a forced one, and the
+    warp instance with four and two utterances a block (a block the batch
+    does not fill), against its plain version: lengths 0, 1, C − 1, C,
+    C + 1 and across chunks."""
+    s, p_dim, forced = case[:3]
     if forced is not None:
         monkeypatch.setattr(cuda_scan, "backward_instance", lambda s_, p_: forced)
+    if len(case) > 3:
+        monkeypatch.setattr(cuda_scan, "backward_utterances", lambda *args: case[3])
     chunk = (forced or cuda_scan.backward_instance(s, p_dim))[1]
     lengths = _chunk_lengths(chunk, 3 * chunk + 5)
     pb = dense_problem(s + p_dim, s, p_dim, len(lengths), max(lengths), lengths=lengths)
@@ -904,12 +923,14 @@ def test_acc_dense_instances_match_plain_version(device, monkeypatch, case):
 
 @pytest.mark.parametrize("units", [100, 250])
 def test_large_phone_loops_run_through_the_banded_kernels(device, units):
-    """K1, K2 and K11 at 100 units (S = 300: K2 global; the parent's K2
-    refused it) and 250 units (S = 750: all three global), P = 78, against
-    their plain versions."""
+    """K1, K2 and K11 at 100 units (S = 300 at B = 5: K1 shared, K2 global;
+    K2 was refused there before PR 8's global placement) and 250 units (S =
+    750: all three global), P = 78, against their plain versions."""
     a = port_args(scan_problem(units, units, 3, 78, 5, 40), torch.float32, device)
-    assert cuda_scan.banded_placement("forward_llh_banded", 3 * units, 78) == \
-        ("shared" if units == 100 else "global")
+    n_sm = cuda_scan.sm_count(a["stats"].device.index)
+    assert cuda_scan.forward_banded_geometry(3 * units, 78, 5, n_sm) == \
+        (("shared", 1, 16) if units == 100 else ("global", 1, 16))
+    assert cuda_scan.acc_banded_geometry(3 * units, 78, units, 5, n_sm) == ("global", 1, 16)
     fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
     cuda_scan.reset_launch_counts()
     alpha, norms, last, logz = cuda_scan.forward_llh_banded(*fwd)
@@ -965,10 +986,13 @@ def test_hundred_unit_vb_step_runs_through_the_kernels(device):
 
 
 def test_redesigned_kernels_are_deterministic(device):
-    """Two calls of K2 and of K6 agree bitwise: every sum runs in a fixed order."""
+    """Two calls of K1, K2, K6, K7 and K15 agree bitwise: every sum runs in a
+    fixed order."""
     a = port_args(scan_problem(5, 50, 3, 78, 9, 70), torch.float32, device)
-    alpha, norms, _, _ = cuda_scan.forward_llh_banded(a["stats"], a["lens"], a["w"], a["bias"], a["bands"],
-                                                      a["init"])
+    fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
+    for x, y in zip(cuda_scan.forward_llh_banded(*fwd), cuda_scan.forward_llh_banded(*fwd)):
+        assert torch.equal(x, y)
+    alpha, norms, _, _ = cuda_scan.forward_llh_banded(*fwd)
     est = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms, a["ends"], a["starts"])
     for x, y in zip(cuda_scan.estep_acc_banded(*est), cuda_scan.estep_acc_banded(*est)):
         assert torch.equal(x, y)
@@ -978,17 +1002,24 @@ def test_redesigned_kernels_are_deterministic(device):
         est = (d["stats"], d["lens"], d["w"], d["bias"], d["trans"], d["final"], f[0], f[1])
         for x, y in zip(cuda_scan.estep_acc_dense(*est), cuda_scan.estep_acc_dense(*est)):
             assert torch.equal(x, y)
+        gam = (d["llh"], d["lens"], d["trans"], d["final"], f[0], f[1])
+        ids = torch.arange(s, device=device, dtype=torch.int32)
+        for kw in ({}, dict(rows=ids[::3].contiguous(), cols=ids[::2].contiguous())):
+            for x, y in zip(cuda_scan.estep_gamma_dense(*gam, **kw), cuda_scan.estep_gamma_dense(*gam, **kw)):
+                assert torch.equal(x, y)
 
 
 def test_banded_smem_formulas_match_the_library(device):
-    """``cuda_scan.banded_smem_bytes`` and ``acc_banded_smem_bytes`` count
-    what the banded launchers reserve."""
+    """``cuda_scan.forward_banded_smem_bytes``, ``banded_smem_bytes`` and
+    ``acc_banded_smem_bytes`` count what the banded launchers reserve."""
     lib = cuda_scan._library()
     for s, p, u in ((30, 32, 10), (150, 78, 50), (300, 78, 100), (675, 78, 225), (30, 2000, 10), (4, 5, 1)):
         for placement in ("shared", "global"):
             glob = int(placement == "global")
-            assert cuda_scan.banded_smem_bytes("forward_llh_banded", s, p, u, placement) == \
-                lib.beer_forward_smem_bytes(s, p, glob)
+            for n_utt in cuda_scan.ACC_UTTERANCES:
+                for chunk in cuda_scan.ACC_CHUNKS:
+                    assert cuda_scan.forward_banded_smem_bytes(s, p, placement, n_utt, chunk) == \
+                        lib.beer_forward_smem_bytes(s, p, glob, n_utt, chunk)
             assert cuda_scan.banded_smem_bytes("estep_gamma_banded", s, p, u, placement) == \
                 lib.beer_estep_gamma_smem_bytes(s, p, u, glob)
             for n_utt in cuda_scan.ACC_UTTERANCES:
@@ -1005,8 +1036,9 @@ def test_large_p_runs_through_the_backward_kernels(device):
     pb = scan_problem(2000, 10, 3, 2000, 5, 37)
     pb["w"] = pb["w"] * (78 / 2000) ** 0.5
     a = port_args(pb, torch.float32, device)
-    assert cuda_scan.acc_banded_geometry(30, 2000, 10) == ("global", 1, 8)
-    assert cuda_scan.banded_placement("forward_llh_banded", 30, 2000) == "global"
+    n_sm = cuda_scan.sm_count(a["stats"].device.index)
+    assert cuda_scan.acc_banded_geometry(30, 2000, 10, 5, n_sm) == ("global", 1, 8)
+    assert cuda_scan.banded_placement("forward_llh_banded", 30, 2000, 10, 5, n_sm) == "global"
     fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
     alpha, norms, _, logz = cuda_scan.forward_llh_banded(*fwd)
     ref = cuda_scan.forward_llh_banded_plain(*fwd)
@@ -1025,3 +1057,92 @@ def test_large_p_runs_through_the_backward_kernels(device):
     f = cuda_scan.forward_llh_dense_plain(d["stats"], d["lens"], d["trans"], d["init"], d["w"], d["bias"])
     est = (d["stats"], d["lens"], d["w"], d["bias"], d["trans"], d["final"], f[0], f[1])
     _banded_close(cuda_scan.estep_acc_dense(*est), cuda_scan.estep_acc_dense_plain(*est))
+
+
+# ----------------------------------------------------------------------
+# K7 / K15 (B7, B11) and K1 (B1) in chunks
+# ----------------------------------------------------------------------
+# (S, forced (instance, frames a chunk, utterances a block) or None for the
+# wrapper's own): the warp instance at configs 3 and 2 (S = 18, 30) with
+# four, two and one utterances a block, the block instance shared (S = 33,
+# 150) and global (S = 150 forced, 300), short chunks
+GAMMA_CASES = [(18, None), (18, ("warp", 16, 4)), (18, ("warp", 16, 2)), (30, None), (30, ("warp", 16, 1)),
+               (32, ("warp", 8, 3)), (33, None), (150, None), (150, ("global", 16, 1)), (150, ("shared", 4, 1)), (300, None),
+               (300, ("global", 1, 1))]
+
+
+@pytest.mark.parametrize("case", GAMMA_CASES, ids=lambda c: "S%d_%s" % (c[0], "_".join(map(str, c[1] or ("own",)))))
+def test_gamma_dense_instances_match_plain_version(device, monkeypatch, case):
+    """K7, and K15 with square and non-square rows × cols, in the instance
+    each S takes or a forced one, against their plain versions (γ abs 1e-5,
+    ξ rel 1e-4): lengths 0, 1, C − 1, C, C + 1, across chunks and ragged;
+    γ = 0 past each end; two calls agree bitwise."""
+    s, forced = case
+    if forced is not None:
+        monkeypatch.setattr(cuda_scan, "gamma_instance", lambda *args: forced[:2])
+        monkeypatch.setattr(cuda_scan, "gamma_utterances", lambda *args: forced[2])
+    chunk = (forced or cuda_scan.gamma_instance(s))[1]
+    lengths = _chunk_lengths(chunk, 3 * chunk + 5)
+    a = dense_args(dense_problem(70 + s, s, 4, len(lengths), max(lengths), lengths=np.array(lengths)),
+                   torch.float32, device)
+    f = cuda_scan.forward_llh_dense_plain(a["llh"], a["lens"], a["trans"], a["init"])
+    est = (a["llh"], a["lens"], a["trans"], a["final"], f[0], f[1])
+    rng = np.random.default_rng(s)
+    ids = torch.arange(s, device=device, dtype=torch.int32)
+    blocks = [{}, dict(rows=ids[::3].contiguous(), cols=ids[::3].contiguous()),
+              dict(rows=t(np.sort(rng.choice(s, size=max(s // 3, 1), replace=False)), torch.int32).to(device),
+                   cols=t(rng.permutation(s)[: max(s // 2, 1)], torch.int32).to(device))]
+    cuda_scan.reset_launch_counts()
+    for kw in blocks:
+        got = cuda_scan.estep_gamma_dense(*est, **kw)
+        want = cuda_scan.estep_gamma_dense_plain(*est, **kw)
+        torch.cuda.synchronize()
+        assert float((got[0] - want[0]).abs().max()) <= 1e-5
+        assert got[1].shape == want[1].shape and _rel(got[1], want[1]) <= 1e-4
+        for b, ln in enumerate(lengths):
+            assert not got[0][b, ln:].any()
+        for x, y in zip(got, cuda_scan.estep_gamma_dense(*est, **kw)):
+            assert torch.equal(x, y)
+    assert _launched() == {"estep_gamma_dense": 2, "estep_gamma_dense_restricted": 4}
+
+
+# (units, states per unit, P, forced (placement, utterances a block, frames a
+# chunk)): the geometries forward_banded_geometry picks at config 4 (50
+# units, B = 514: shared, 2), config 5 (10 units, P = 32, B = 258: shared,
+# 1), 100 and 250 units (B = 64: shared, 1 and global, 1), the ones the
+# rule by fit alone picked there, and others
+FORWARD_BANDED_CASES = [(50, 3, 78, ("shared", 2, 16)), (10, 3, 32, ("shared", 1, 16)),
+                        (100, 3, 78, ("shared", 1, 16)), (250, 3, 78, ("global", 1, 16)),
+                        (50, 3, 78, ("global", 4, 16)), (10, 3, 32, ("shared", 4, 16)),
+                        (100, 3, 78, ("global", 2, 16)), (50, 3, 78, ("shared", 1, 8)), (50, 3, 78, ("global", 3, 1)),
+                        (1, 1, 5, ("shared", 4, 2)), (11, 3, 6, ("global", 2, 4))]
+
+
+@pytest.mark.parametrize("case", FORWARD_BANDED_CASES, ids=lambda c: "U%d_P%d_%s_u%d_c%d" % (c[0], c[2], *c[3]))
+def test_forward_banded_geometries_match_plain_version(device, monkeypatch, case):
+    """K1 in each launch geometry (forced), against its plain version (log Z
+    rel 1e-5, α̂ and last abs 1e-5, norms rel 1e-5): lengths 0, 1, C − 1, C,
+    C + 1, across chunks and ragged, a block of utterances the batch does
+    not fill; α̂ = 0 and norm = 1 past each end, last = init and log Z = 0
+    on an empty row; two calls agree bitwise."""
+    units, spu, p_dim, geometry = case
+    chunk = geometry[2]
+    lengths = _chunk_lengths(chunk, 3 * chunk + 5)[: 7 if geometry[1] == 4 else 8]
+    a = port_args(scan_problem(units + chunk, units, spu, p_dim, len(lengths), max(lengths), lengths=lengths),
+                  torch.float32, device)
+    fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
+    monkeypatch.setattr(cuda_scan, "forward_banded_geometry", lambda *args: geometry)
+    cuda_scan.reset_launch_counts()
+    got = cuda_scan.forward_llh_banded(*fwd)
+    want = cuda_scan.forward_llh_banded_plain(*fwd)
+    torch.cuda.synchronize()
+    full = a["lens"] > 0
+    assert _rel(got[3][full], want[3][full]) <= 1e-5 and not got[3][~full].any()
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5 and float((got[2] - want[2]).abs().max()) <= 1e-5
+    assert _rel(got[1], want[1]) <= 1e-5
+    assert torch.equal(got[2][~full], a["init"].expand(int((~full).sum()), -1))
+    for b, ln in enumerate(lengths):
+        assert not got[0][b, ln:].any() and (got[1][b, ln:] == 1).all()
+    for x, y in zip(got, cuda_scan.forward_llh_banded(*fwd)):
+        assert torch.equal(x, y)
+    assert _launched() == {"forward_llh_banded": 2}

@@ -81,8 +81,9 @@ def _pallas(pb):
     bands = tuple(f32(v) for v in pb["bands"])
     stats_lm = jnp.transpose(f32(pb["stats"]), (1, 2, 0))
     mask = f32(pb["mask"])
-    init_lm = jnp.broadcast_to(f32(pb["init"])[:, None], (S, B))
-    final_lm = jnp.broadcast_to(f32(pb["final"])[:, None], (S, B))
+    b = mask.shape[0]
+    init_lm = jnp.broadcast_to(f32(pb["init"])[:, None], (S, b))
+    final_lm = jnp.broadcast_to(f32(pb["final"])[:, None], (S, b))
     alphas, norms, last, logz = pallas_scan.forward_llh_ckpt_pass_lm(
         stats_lm, bands, init_lm, mask, interpret=True, w=f32(pb["w"]),
         bias=f32(pb["bias"]), store_alpha=True)
@@ -121,11 +122,21 @@ KERNEL_NAMES = ["forward_llh_banded", "estep_acc_banded", "viterbi_fwd_banded",
 SCAN_KERNELS = ("forward_llh_banded", "estep_acc_banded", "estep_gamma_banded")
 DENSE_KERNELS = ["forward_llh_dense", "estep_acc_dense", "estep_gamma_dense"]
 S_DENSE = 7
+# lengths across the chunked kernels' 16-frame chunk edge (K1 from frame 0,
+# K7 from each utterance's end), and an empty row
+CHUNK_EDGE_LENGTHS = [15, 16, 17, 33, 0]
+CHUNK_EDGE_CASES = ["forward_llh_banded_chunk_edges"]
 
 
-@pytest.mark.parametrize("kernel", KERNEL_NAMES)
+@pytest.mark.parametrize("kernel", KERNEL_NAMES + CHUNK_EDGE_CASES)
 def test_plain_version_matches_pallas_f32(kernel):
-    pb = _problem()
+    """The plain versions against the Pallas kernels in interpret mode;
+    ``forward_llh_banded_chunk_edges`` holds K1's plain version (which the
+    card holds the chunked kernel to) at lengths across a chunk edge."""
+    edges = kernel in CHUNK_EDGE_CASES
+    lengths = CHUNK_EDGE_LENGTHS if edges else None
+    pb = scan_problem(7, U, SPU, P, len(lengths), max(lengths), lengths=lengths) if edges else _problem()
+    kernel = kernel.removesuffix("_chunk_edges")
     a = _port_args(pb, torch.float32)
     lens = pb["lengths"]
     full = lens > 0
@@ -133,7 +144,7 @@ def test_plain_version_matches_pallas_f32(kernel):
         ref = _pallas(pb)
         alpha, norms, last, logz = _port_forward(a)
         if kernel == "forward_llh_banded":
-            for b in range(B):
+            for b in range(len(lens)):
                 ln = lens[b]
                 close(alpha[b, :ln], ref["alphas"][:ln, :, b], RTOL_F32, atol=1e-7)
                 close(norms[b, :ln], ref["norms"][:ln, b], RTOL_F32)
@@ -393,8 +404,19 @@ def _check_dense(kernel, port, ref, lens, rtol):
         close(xi_gamma, ref["xi_gamma"], rtol, atol=1e-6)
 
 
-@pytest.mark.parametrize("kernel", DENSE_KERNELS)
+@pytest.mark.parametrize("kernel", DENSE_KERNELS + ["estep_gamma_dense_chunk_edges"])
 def test_dense_plain_version_matches_pallas_f32(kernel):
+    """``estep_gamma_dense_chunk_edges``: K7's plain version (which the card
+    holds the chunked kernel to) at lengths across a chunk edge."""
+    if kernel.endswith("_chunk_edges"):
+        lengths = np.array(CHUNK_EDGE_LENGTHS)
+        pb = dense_problem(13, S_DENSE, P, len(lengths), max(lengths), lengths=lengths)
+        port = _dense_port(dense_args(pb, torch.float32))
+        _check_dense("estep_gamma_dense", port, _dense_pallas_lane_major(pb), pb["lengths"], RTOL_F32)
+        gamma = port[3][0]
+        for b, ln in enumerate(lengths):
+            assert not gamma[b, ln:].any()
+        return
     pb = dense_problem(13, S_DENSE, P, B, T)
     port = _dense_port(dense_args(pb, torch.float32))
     _check_dense(kernel, port, _dense_pallas_lane_major(pb), pb["lengths"], RTOL_F32)
@@ -496,7 +518,9 @@ def test_library_path_is_keyed_on_sources(tmp_path, monkeypatch):
 # (180, 300) and both sides of each kernel's shared-memory limit
 # (the forward's two-stage ring of chunks moved its limit by one S, from
 # 239 to 238 on the llh stream and from 203 to 202 at P = 78; its chunks
-# shorten toward the limit, down to one frame)
+# shorten toward the limit, down to one frame; K7's chunked instances keep
+# its limit at 168, K15's ring of gathered factors moved its limit at 50 ×
+# 50 from 232 to 231)
 PLACEMENTS = [
     ("forward_llh_dense", 180, 0, 0, 0, "shared"), ("forward_llh_dense", 239, 0, 0, 0, "global"),
     ("forward_llh_dense", 240, 0, 0, 0, "global"), ("forward_llh_dense", 300, 0, 0, 0, "global"),
@@ -514,7 +538,7 @@ PLACEMENTS = [
     ("estep_gamma_dense", 169, 0, 0, 0, "global"), ("estep_gamma_dense", 180, 0, 0, 0, "global"),
     ("estep_gamma_dense", 300, 0, 0, 0, "global"),
     ("estep_gamma_dense_restricted", 150, 0, 50, 50, "shared"),
-    ("estep_gamma_dense_restricted", 232, 0, 50, 50, "shared"),
+    ("estep_gamma_dense_restricted", 232, 0, 50, 50, "global"),
     ("estep_gamma_dense_restricted", 233, 0, 50, 50, "global"),
     ("scaled_pass", 239, 0, 0, 0, "shared"), ("scaled_pass", 240, 0, 0, 0, "global"),
     ("scaled_pass", 300, 0, 0, 0, "global"),
@@ -532,8 +556,9 @@ def test_dense_placement(case):
     shared = cuda_scan.dense_smem_bytes(kernel, s, p_dim, n_r, n_c, "shared")
     assert (shared <= cuda_scan.SMEM_LIMIT) == (want == "shared")
     glob = cuda_scan.dense_smem_bytes(kernel, s, p_dim, n_r, n_c, "global")
-    # the forward and K6 also stage their chunks: a two-stage ring and e =
-    # exp(llh − max) (K6: and γ, a carry row and per-frame sums)
+    # the forward, K6, K7 and K15 also stage their chunks: a two-stage ring
+    # and e = exp(llh − max) (K6: and γ; the backward kernels a carry row
+    # and per-frame sums; K15 its gathered ξ factors)
     ring = 0
     if kernel.startswith("forward"):
         chunk = cuda_scan.forward_chunk(s, p_dim, "global")
@@ -541,6 +566,10 @@ def test_dense_placement(case):
     elif kernel == "estep_acc_dense":
         chunk = cuda_scan.backward_chunk(s, p_dim, "global")
         ring = 4 * (chunk * (2 * p_dim + 4 * s + 30) + 3 * s + 20)
+    elif kernel.startswith("estep_gamma"):
+        rc = (n_r, n_c) if kernel.endswith("restricted") else ()
+        chunk = cuda_scan.gamma_chunk(s, "global", *rc)
+        ring = 4 * (chunk * (5 * s + n_r + n_c + 30) + 3 * s + 20)
     assert glob < shared and glob <= 4 * (7 * s + 64 + p_dim + n_r + n_c) + ring
 
 
@@ -594,7 +623,7 @@ def test_forward_instance(s):
 def test_forward_chunks_shorten_near_the_limits(case):
     """Short chunks keep K5/K14 in the shared placement up to one S short
     of the unchunked kernel's limit, and take the global placement to
-    S = 14,511 on the llh stream (K7's global limit is 9,674)."""
+    S = 14,511 on the llh stream (K7's global limit is 9,672)."""
     (s, p_dim), want = case
     assert cuda_scan.forward_instance(s, p_dim) == want
 
@@ -631,10 +660,12 @@ def test_backward_instance(s):
         assert cuda_scan.backward_smem_bytes(s, p_dim, instance, chunk) <= cuda_scan.SMEM_LIMIT
         warp_fits = cuda_scan.acc_banded_smem_bytes(s, p_dim, s, "shared", 1, 16) <= cuda_scan.SMEM_LIMIT
         assert (instance == "warp") == (s <= 32 and warp_fits)
-        if instance == "warp":
-            n_utt = cuda_scan.backward_utterances(s, p_dim)
-            assert cuda_scan.backward_smem_bytes(s, p_dim, "warp") == \
+        if instance == "warp":   # a batch of many waves: the most utterances a block that fit
+            n_utt = cuda_scan.backward_utterances(s, p_dim, MANY_WAVES, N_SM)
+            assert cuda_scan.backward_smem_bytes(s, p_dim, "warp", 16, n_utt) == \
                 cuda_scan.acc_banded_smem_bytes(s, p_dim, s, "shared", n_utt, 16) <= cuda_scan.SMEM_LIMIT
+            assert all(cuda_scan.backward_smem_bytes(s, p_dim, "warp", 16, n) > cuda_scan.SMEM_LIMIT
+                       for n in cuda_scan.ACC_UTTERANCES if n > n_utt)
         placement = cuda_scan.dense_placement("estep_acc_dense", s, p_dim)
         assert placement == ("global" if instance == "global" else "shared")
         if instance != "warp":
@@ -645,58 +676,95 @@ def test_backward_instance(s):
                        for c in cuda_scan.BACKWARD_CHUNKS if c > chunk)
 
 
-# (units, P) -> K2's (placement, utterances a block, frames a chunk): config 4
-# (50 units), config 5 (10 units, P = 32), both sides of each change of the
-# rule (a block that leaves its SM room for a second one while one fits), the
-# parent's limit (95 units ran, 96 raised), 100 and 250 units, 1000 units and
-# a large P (shorter chunks)
-ACC_GEOMETRIES = [
-    ((50, 78), ("global", 2, 16)), ((10, 32), ("shared", 4, 16)), ((14, 78), ("shared", 4, 16)),
-    ((15, 78), ("global", 4, 16)), ((25, 78), ("shared", 2, 16)), ((61, 78), ("global", 2, 16)),
-    ((62, 78), ("global", 1, 16)), ((95, 78), ("global", 1, 16)), ((96, 78), ("global", 1, 16)),
-    ((100, 78), ("global", 1, 16)), ((133, 78), ("global", 2, 16)), ((139, 78), ("global", 1, 16)),
-    ((250, 78), ("global", 1, 16)), ((1000, 78), ("global", 1, 2)), ((10, 2000), ("global", 1, 8)),
-]
+N_SM = 132            # an H100 SXM's SMs: the card the geometry cases are sized for
+MANY_WAVES = 10_000   # a batch whose blocks outnumber two an SM at any utterances a block
 
 
-@pytest.mark.parametrize("case", ACC_GEOMETRIES, ids=lambda c: "U%d_P%d" % c[0])
-def test_acc_banded_geometry(case):
-    """K2's geometry is chosen by fit in one place: the longest chunk that
-    fits anywhere; a block that leaves its SM room for a second one if any
-    does; then the most utterances a block, in the shared placement when
-    it fits there.  Every choice fits, so every phone loop of these sizes
-    runs through the kernel (the parent's K2 refused 96 units)."""
-    (units, p_dim), want = case
-    s = 3 * units
-    placement, n_utt, chunk = cuda_scan.acc_banded_geometry(s, p_dim, units)
-    assert (placement, n_utt, chunk) == want
-    size = lambda pl, n, c: cuda_scan.acc_banded_smem_bytes(s, p_dim, units, pl, n, c)  # noqa: E731
-    assert size(placement, n_utt, chunk) <= cuda_scan.SMEM_LIMIT
-    assert all(size("global", 1, c) > cuda_scan.SMEM_LIMIT for c in cuda_scan.ACC_CHUNKS if c > chunk)
-    tier = cuda_scan.SMEM_HALF_SM if size("global", 1, chunk) <= cuda_scan.SMEM_HALF_SM else cuda_scan.SMEM_LIMIT
-    assert size(placement, n_utt, chunk) <= tier
-    assert all(size("global", n, chunk) > tier for n in cuda_scan.ACC_UTTERANCES if n > n_utt)
-    assert (placement == "shared") == (size("shared", n_utt, chunk) <= tier)
-    assert cuda_scan.banded_placement("estep_acc_banded", s, p_dim, units) == placement
+def _check_chunked_geometry(size, b, geometry):
+    """What the launch rule of K1 and K2 promises, checked on its answer
+    (``size(placement, utterances a block, chunk)``: the block's shared
+    memory): the block fits; no longer chunk fits anywhere; no more
+    utterances a block than the fewest whose blocks run in one wave at two
+    blocks an SM; a block that leaves its SM room for a second one when its
+    blocks outnumber the SMs and such a block fits, else one that fits the
+    SM alone; within that room the most utterances a block, and W in
+    shared memory when it fits there."""
+    placement, n_utt, chunk = geometry
+    limit = cuda_scan.SMEM_LIMIT
+    assert size(placement, n_utt, chunk) <= limit
+    assert all(size("global", 1, c) > limit for c in cuda_scan.ACC_CHUNKS if c > chunk)
+    cap = next((n for n in sorted(cuda_scan.ACC_UTTERANCES) if -(-b // n) <= 2 * N_SM), 4)
+    takes = [n for n in cuda_scan.ACC_UTTERANCES if n <= cap]
+    assert n_utt in takes
+
+    def two_an_sm(n):
+        return limit if -(-b // n) <= N_SM else cuda_scan.SMEM_HALF_SM
+
+    room = two_an_sm if any(size("global", n, chunk) <= two_an_sm(n) for n in takes) else (lambda n: limit)
+    assert size(placement, n_utt, chunk) <= room(n_utt)
+    assert all(size("global", n, chunk) > room(n) for n in takes if n > n_utt)
+    assert (placement == "shared") == (size("shared", n_utt, chunk) <= room(n_utt))
     assert size("global", n_utt, chunk) < size("shared", n_utt, chunk)
 
 
-# (kernel, S, P, U, placement): K1 to S = 674 at P = 78 and K11 to 140 units in
-# shared memory (their limits before the global placement), both at a large P
+# (units, P, B) -> K2's (placement, utterances a block, frames a chunk): config
+# 4 (50 units, B = 514), config 5's loop (10 units, P = 32, B = 258), 100
+# and 250 units at phase 18's B = 64; at a batch of many waves, where the
+# batch size caps nothing, both sides of each change of the rule (a block
+# that leaves its SM room for a second one while one fits), the parent's
+# limit (95 units ran, 96 raised), 1000 units and a large P (shorter chunks)
+ACC_GEOMETRIES = [
+    ((50, 78, 514), ("global", 2, 16)), ((10, 32, 258), ("shared", 1, 16)),
+    ((14, 78, MANY_WAVES), ("shared", 4, 16)), ((15, 78, MANY_WAVES), ("global", 4, 16)),
+    ((25, 78, MANY_WAVES), ("shared", 2, 16)), ((61, 78, MANY_WAVES), ("global", 2, 16)),
+    ((62, 78, MANY_WAVES), ("global", 1, 16)), ((95, 78, MANY_WAVES), ("global", 1, 16)),
+    ((96, 78, MANY_WAVES), ("global", 1, 16)), ((100, 78, 64), ("global", 1, 16)),
+    ((133, 78, MANY_WAVES), ("global", 2, 16)), ((139, 78, MANY_WAVES), ("global", 1, 16)),
+    ((250, 78, 64), ("global", 1, 16)), ((1000, 78, MANY_WAVES), ("global", 1, 2)),
+    ((10, 2000, MANY_WAVES), ("global", 1, 8)),
+]
+
+
+@pytest.mark.parametrize("case", ACC_GEOMETRIES, ids=lambda c: "U%d_P%d" % c[0][:2])
+def test_acc_banded_geometry(case):
+    """K2's geometry is chosen by fit and the batch size in one place
+    (:func:`_check_chunked_geometry`).  Every choice fits, so every phone
+    loop of these sizes runs through the kernel (the parent's K2 refused
+    96 units)."""
+    (units, p_dim, b), want = case
+    s = 3 * units
+    geometry = cuda_scan.acc_banded_geometry(s, p_dim, units, b, N_SM)
+    assert geometry == want
+    _check_chunked_geometry(lambda pl, n, c: cuda_scan.acc_banded_smem_bytes(s, p_dim, units, pl, n, c), b, geometry)
+    assert cuda_scan.banded_placement("estep_acc_banded", s, p_dim, units, b, N_SM) == geometry[0]
+
+
+# (kernel, S, P, U, B, placement): K1 at config 4 (B = 514), at S = 674 and
+# 675 (the per-frame kernel's shared limit; the chunked kernel's block, W
+# beside its ring of chunks, leaves shared memory above S = 544 at B = 64)
+# and at a large P; K11 to 140 units in shared memory, both at a large P
 BANDED_PLACEMENTS = [
-    ("forward_llh_banded", 150, 78, 50, "shared"), ("forward_llh_banded", 674, 78, 224, "shared"),
-    ("forward_llh_banded", 675, 78, 225, "global"), ("forward_llh_banded", 30, 2000, 10, "global"),
-    ("estep_gamma_banded", 30, 32, 10, "shared"), ("estep_gamma_banded", 420, 78, 140, "shared"),
-    ("estep_gamma_banded", 423, 78, 141, "global"), ("estep_gamma_banded", 30, 2000, 10, "global"),
+    ("forward_llh_banded", 150, 78, 50, 514, "shared"), ("forward_llh_banded", 674, 78, 224, 64, "global"),
+    ("forward_llh_banded", 675, 78, 225, 64, "global"), ("forward_llh_banded", 30, 2000, 10, 64, "global"),
+    ("estep_gamma_banded", 30, 32, 10, 258, "shared"), ("estep_gamma_banded", 420, 78, 140, 64, "shared"),
+    ("estep_gamma_banded", 423, 78, 141, 64, "global"), ("estep_gamma_banded", 30, 2000, 10, 64, "global"),
 ]
 
 
 @pytest.mark.parametrize("case", BANDED_PLACEMENTS, ids=lambda c: "%s_S%d_P%d" % c[:3])
 def test_banded_placement(case):
     """W (and K11's ξ) in shared memory while they fit a block, else Wᵀ from
-    device memory and ξ in the partial row; the global placement fits."""
-    kernel, s, p_dim, units, want = case
-    assert cuda_scan.banded_placement(kernel, s, p_dim, units) == want
+    device memory and ξ in the partial row; the global placement fits.
+    K1's placement is that of the geometry its wrapper launches at the
+    batch size (:func:`test_forward_banded_geometry`)."""
+    kernel, s, p_dim, units, b, want = case
+    assert cuda_scan.banded_placement(kernel, s, p_dim, units, b, N_SM) == want
+    if kernel == "forward_llh_banded":
+        placement, n_utt, chunk = cuda_scan.forward_banded_geometry(s, p_dim, b, N_SM)
+        size = lambda pl: cuda_scan.forward_banded_smem_bytes(s, p_dim, pl, n_utt, chunk)  # noqa: E731
+        assert placement == want and size(want) <= cuda_scan.SMEM_LIMIT
+        assert size("global") < size("shared")
+        return
     shared = cuda_scan.banded_smem_bytes(kernel, s, p_dim, units, "shared")
     assert (shared <= cuda_scan.SMEM_LIMIT) == (want == "shared")
     glob = cuda_scan.banded_smem_bytes(kernel, s, p_dim, units, "global")
@@ -704,6 +772,156 @@ def test_banded_placement(case):
 
 
 def test_banded_placement_names_only_banded_kernels():
-    for kernel in ("estep_acc_dense", "estep_acc_banded"):   # K2's is acc_banded_smem_bytes
+    # K1's is forward_banded_smem_bytes, K2's acc_banded_smem_bytes
+    for kernel in ("estep_acc_dense", "estep_acc_banded", "forward_llh_banded"):
         with pytest.raises(ValueError, match="not a banded scan kernel"):
             cuda_scan.banded_smem_bytes(kernel, 30, 78)
+
+
+# (S, (n_r, n_c) or () for K7's ξ over all states) -> K7's / K15's (instance,
+# frames a chunk): the warp instance at configs 3 (S = 18) and 2 (30) and at
+# S = 32, a non-square K15 block at S = 30; the block instance above (S =
+# 33, phase 18's S = 150 shared with 16-frame chunks, both sides of the
+# shared limit at S = 168 / 169, 300 and 750 global), K15 at config 4's
+# shape (50 × 50 at S = 150) and both sides of its limit at 50 × 50
+GAMMA_INSTANCES = [
+    ((18, ()), ("warp", 16)), ((30, ()), ("warp", 16)), ((32, ()), ("warp", 16)),
+    ((30, (10, 15)), ("warp", 16)), ((33, ()), ("shared", 16)), ((150, ()), ("shared", 16)),
+    ((168, ()), ("shared", 1)), ((169, ()), ("global", 16)), ((300, ()), ("global", 16)),
+    ((750, ()), ("global", 8)), ((150, (50, 50)), ("shared", 16)), ((231, (50, 50)), ("shared", 1)),
+    ((232, (50, 50)), ("global", 16)), ((300, (100, 150)), ("global", 16)),
+]
+
+
+@pytest.mark.parametrize("case", GAMMA_INSTANCES, ids=lambda c: "S%d_%s" % (c[0][0], "x".join(map(str, c[0][1])) or "full"))
+def test_gamma_instance(case):
+    """K7's and K15's launch is chosen by fit in one place: the warp
+    instance for S <= 32 while its block fits one utterance (at a batch of
+    many waves, the most utterances a block that fit); above, the block
+    instance, shared while A and ξ fit beside a one-frame chunk, with the
+    longest chunk that fits; every choice fits, and ``dense_placement`` and
+    ``dense_smem_bytes`` follow it."""
+    (s, rc), want = case
+    instance, chunk = cuda_scan.gamma_instance(s, *rc)
+    assert (instance, chunk) == want
+    size = lambda inst, c, n=1: cuda_scan.gamma_smem_bytes(s, inst, c, n, *rc)  # noqa: E731
+    assert size(instance, chunk) <= cuda_scan.SMEM_LIMIT
+    assert (instance == "warp") == (s <= 32 and size("warp", 16, 1) <= cuda_scan.SMEM_LIMIT)
+    kernel = "estep_gamma_dense_restricted" if rc else "estep_gamma_dense"
+    placement = cuda_scan.dense_placement(kernel, s, 0, *rc)
+    assert placement == ("global" if instance == "global" else "shared")
+    if instance == "warp":
+        n_utt = cuda_scan.gamma_utterances(s, MANY_WAVES, N_SM, *rc)
+        assert size("warp", 16, n_utt) <= cuda_scan.SMEM_LIMIT
+        assert all(size("warp", 16, n) > cuda_scan.SMEM_LIMIT for n in cuda_scan.ACC_UTTERANCES if n > n_utt)
+        return
+    assert (instance == "shared") == (size("shared", 1) <= cuda_scan.SMEM_LIMIT)
+    assert chunk == cuda_scan.gamma_chunk(s, instance, *rc)
+    assert all(size(instance, c) > cuda_scan.SMEM_LIMIT for c in cuda_scan.BACKWARD_CHUNKS if c > chunk)
+    assert cuda_scan.dense_smem_bytes(kernel, s, 0, *(rc or (0, 0)), placement=placement) == size(instance, chunk)
+    assert size("global", chunk) < size("shared", chunk)
+
+
+# (S, B) -> utterances a block of K7's and K6's (P = 78) warp instances: the
+# fewest whose blocks fill the card's 132 SMs in one wave at one block an SM
+# (config 3's 128 and 130 rows: one; config 2's 514: four), the most that
+# fit at a batch of many waves
+GAMMA_WAVES = [((18, 128), 1), ((18, 132), 1), ((18, 133), 2), ((30, 200), 2), ((30, 264), 2),
+               ((30, 265), 4), ((30, 514), 4), ((30, 2000), 4), ((32, 133), 2)]
+
+
+@pytest.mark.parametrize("case", GAMMA_WAVES, ids=lambda c: "S%d_B%s" % c[0])
+def test_gamma_instance_fills_the_card(case):
+    """Given the batch size, K7's and K6's warp instances take the fewest
+    utterances a block that still run in one wave (their chains are
+    latency-bound, so fewer a block spread them over more SMs); the
+    instance itself does not depend on it."""
+    (s, b), want = case
+    assert cuda_scan.gamma_instance(s) == ("warp", 16)
+    n_utt = cuda_scan.gamma_utterances(s, b, N_SM)
+    assert n_utt == want
+    if -(-b // 4) <= N_SM:
+        assert -(-b // n_utt) <= N_SM and (n_utt == 1 or -(-b // (n_utt // 2)) > N_SM)
+    assert cuda_scan.backward_instance(s, 78)[0] == "warp"
+    assert cuda_scan.backward_utterances(s, 78, b, N_SM) == want
+
+
+def test_gamma_instance_gathers_only_a_restricted_block():
+    """K15's block instance stages its gathered ξ factors and indices, K7's
+    reads α̂ and v in place: at n_r = n_c = S the restricted block is the
+    larger by those buffers alone."""
+    s, c = 300, 16
+    full = cuda_scan.gamma_smem_bytes(s, "global", c)
+    restricted = cuda_scan.gamma_smem_bytes(s, "global", c, 1, s, s)
+    assert restricted - full == 4 * (c * 2 * 300 + 600)
+
+
+# (S, P, B) -> K1's (placement, utterances a block, frames a chunk): config 4
+# (50 units, P = 78, B = 514), config 5 (10 units, P = 32, B = 258), 100 and
+# 250 units at phase 18's B = 64; at a batch of many waves, the per-frame
+# kernel's shared limit (S = 674 / 675), both sides of each change of the
+# rule at P = 78 (W leaves shared memory above 40 units, four utterances a
+# block give way to two above 85), 750 units (K2's limit is ~1,750), a
+# large P, a 2,760-unit loop (S = 8,280, which the per-frame kernel took in
+# its global placement) and the new limit at P = 78 (S = 9,650)
+FORWARD_GEOMETRIES = [
+    ((150, 78, 514), ("shared", 2, 16)), ((30, 32, 258), ("shared", 1, 16)), ((300, 78, 64), ("shared", 1, 16)),
+    ((750, 78, 64), ("global", 1, 16)), ((674, 78, MANY_WAVES), ("global", 1, 16)),
+    ((675, 78, MANY_WAVES), ("global", 1, 16)), ((120, 78, MANY_WAVES), ("shared", 4, 16)),
+    ((123, 78, MANY_WAVES), ("global", 4, 16)), ((255, 78, MANY_WAVES), ("global", 4, 16)),
+    ((258, 78, MANY_WAVES), ("global", 2, 16)), ((2250, 78, MANY_WAVES), ("global", 1, 16)),
+    ((30, 2000, MANY_WAVES), ("global", 1, 8)), ((8280, 78, MANY_WAVES), ("global", 1, 1)),
+    ((9650, 78, MANY_WAVES), ("global", 1, 1)),
+]
+
+
+@pytest.mark.parametrize("case", FORWARD_GEOMETRIES, ids=lambda c: "S%d_P%d" % c[0][:2])
+def test_forward_banded_geometry(case):
+    """K1's geometry is chosen by fit and the batch size in one place, by
+    K2's rule (:func:`_check_chunked_geometry`).  Every choice fits, so
+    every phone loop the per-frame kernel took (to S = 8,281 at P = 78)
+    runs."""
+    (s, p_dim, b), want = case
+    geometry = cuda_scan.forward_banded_geometry(s, p_dim, b, N_SM)
+    assert geometry == want
+    _check_chunked_geometry(lambda pl, n, c: cuda_scan.forward_banded_smem_bytes(s, p_dim, pl, n, c), b, geometry)
+    assert cuda_scan.banded_placement("forward_llh_banded", s, p_dim, s // 3, b, N_SM) == geometry[0]
+
+
+# (S, P, B) -> K1's geometry as the batch size changes (132 SMs): config 4's
+# loop at B = 514 (two utterances a block, W shared beside a second block
+# an SM), at a batch too large for one wave (W from device memory, four a
+# block) and at a tiny one; config 5's (B = 258: one); 100 units at B = 64
+# (one a block, as many blocks as SMs or fewer: W shared while it fits at
+# all) and 200 (one, W from device memory); 250 units and a large P
+FORWARD_WAVES = [
+    ((150, 78, 514), ("shared", 2, 16)), ((30, 32, 258), ("shared", 1, 16)), ((300, 78, 64), ("shared", 1, 16)),
+    ((750, 78, 64), ("global", 1, 16)), ((150, 78, 2000), ("global", 4, 16)), ((150, 78, 4), ("shared", 1, 16)),
+    ((300, 78, 200), ("global", 1, 16)), ((30, 2000, 64), ("global", 1, 8)),
+]
+
+
+@pytest.mark.parametrize("case", FORWARD_WAVES, ids=lambda c: "S%d_P%d_B%d" % c[0])
+def test_forward_banded_geometry_fills_the_card(case):
+    """Given the batch size, K1 takes the longest chunk that fits, no more
+    utterances a block than the fewest whose blocks run in one wave at two
+    blocks an SM, and W in shared memory while that block still lets the
+    wave run at once; every choice fits."""
+    (s, p_dim, b), want = case
+    placement, n_utt, chunk = cuda_scan.forward_banded_geometry(s, p_dim, b, N_SM)
+    assert (placement, n_utt, chunk) == want
+    size = lambda pl, n: cuda_scan.forward_banded_smem_bytes(s, p_dim, pl, n, chunk)  # noqa: E731
+    assert size(placement, n_utt) <= cuda_scan.SMEM_LIMIT
+    blocks = -(-b // n_utt)
+    if -(-b // 4) <= 2 * N_SM:
+        assert blocks <= 2 * N_SM and (n_utt == 1 or -(-b // (n_utt // 2)) > 2 * N_SM)
+    tier = cuda_scan.SMEM_LIMIT if blocks <= N_SM else cuda_scan.SMEM_HALF_SM
+    assert (placement == "shared") == (size("shared", n_utt) <= tier) or size("global", n_utt) > tier
+
+
+def test_forward_banded_geometry_has_a_limit():
+    """Above S = 9,655 at P = 78 no K1 block fits; the geometry then names
+    the smallest one, which the launch refuses."""
+    assert cuda_scan.forward_banded_geometry(9660, 78, 64, N_SM) == ("global", 1, 1)
+    assert cuda_scan.forward_banded_smem_bytes(9660, 78, "global", 1, 1) > cuda_scan.SMEM_LIMIT
+    assert cuda_scan.forward_banded_smem_bytes(9655, 78, "global", 1, 1) <= cuda_scan.SMEM_LIMIT
