@@ -4,39 +4,45 @@
 // (B7 / B11: the γ-emitting backward), shared by the kernels of the port:
 //   K2 estep_acc_banded (phone_loop_scan.cu): band + rank-1 transitions,
 //      the loop-back ξ (U, U) gathered at the units' ends and starts;
+//   K11 estep_gamma_banded (phone_loop_scan.cu): K2's banded mode emitting γ
+//      (kGamma) — γ written per chunk in place of the moments, γ₀ and the
+//      loop-back ξ as K2's, llh still W·stats + bias in the kernel;
 //   K6 estep_acc_dense, its "warp" instance (hmm_scan.cu): a dense (S, S)
 //      matrix with S <= 32, the full ξ (S, S), per-utterance final vectors,
 //      the moments written state-minor;
 //   K7 estep_gamma_dense / K15 estep_gamma_dense_restricted, their "warp"
-//      instance (hmm_scan.cu): the dense mode in the γ-emitting mode (kGamma)
-//      — the llh stream in place of the statistics, γ written per frame in
-//      place of the moments, ξ over all states or the block [rows][:, cols].
+//      instance (hmm_scan.cu): the dense mode emitting γ (kGamma), which
+//      reads the llh stream in place of the statistics (kStream = kDense &&
+//      kGamma), no γ₀, ξ over all states or the block [rows][:, cols].
 // The recursion: walking t from len − 1 down to 0, u1 = final at the last
 // frame, else A·v̂_{t+1} (banded: v̂·a_self + shift_up(v̂)·a_adv +
 // (v̂·w)·exit); v = e·u1 with e = exp(llh − max) and llh = W·stats + bias
-// (kGamma: llh read); γ = α̂·u1 / Σ α̂·u1; wgt = 1 / (norm·Σ(α̂u1)/Σv) (0
-// below the ξ floor).  It reduces γ to acc (S, P+1) = Σ γ ⊗ [stats, 1] and
-// γ₀ (kGamma: writes γ (B, T, S), 0 on frames t >= len), and ξ += (α̂_t[rows]
-// ·wgt_{t+1}) ⊗ v̂_{t+1}[cols] (int32 gathers; rows and cols the units' ends
-// and starts, the identity when dense, K15's block when restricted).
+// (kStream: llh read); γ = α̂·u1 / Σ α̂·u1; wgt = 1 / (norm·Σ(α̂u1)/Σv) (0
+// below the ξ floor).  It reduces γ to acc (S, P+1) = Σ γ ⊗ [stats, 1]
+// (kGamma: writes γ (B, T, S) instead, 0 on frames t >= len), γ₀ (not under
+// kStream), and ξ += (α̂_t[rows]·wgt_{t+1}) ⊗ v̂_{t+1}[cols] (int32 gathers;
+// rows and cols the units' ends and starts, the identity when dense, K15's
+// block when restricted).
 //
 // What bounds it on the H100 is the serial chain, so the chain keeps only
 // what depends on the carry.  Frames go in chunks of C, from each
-// utterance's end: chunk c + 1's statistics (kGamma: llh) and α̂ arrive by
+// utterance's end: chunk c + 1's statistics (kStream: llh) and α̂ arrive by
 // cp.async into a two-stage ring while chunk c is worked on.  A chunk is
 // five phases between barriers:
 //   1. the ELLH of all its frames (register tiles of 8 frames a state,
-//      acc_ellh_tile, which K1 calls too; none under kGamma), then, a warp
+//      acc_ellh_tile, which K1 calls too; none under kStream), then, a warp
 //      a frame, the row max, e = exp(llh − max) and the gather α̂_t[rows];
 //   2. the chain, on one warp an utterance: banded, states strided over
 //      the lanes, Σv, Σα̂u1 and Σv·w in one shuffle tree; dense, lane i
 //      holding row i of A in registers and v_{t+1}(j) coming by
 //      __shfl_sync.  K2's and K6's carry stays unnormalised (v, with ip =
 //      1/Σv beside it), so a step has no barrier and normalises nothing;
-//      kGamma's dense chain shuffles v̂ = v·ip instead (one multiply a
-//      lane): on config 3's long forced alignments under an untrained
-//      model Σv falls to ~1e-40, and A·v then runs on subnormals (γ 1.2e-3
-//      from the plain version's, which propagates v̂);
+//      a γ-emitting chain (kGamma) propagates v̂ = v·ip instead (one
+//      multiply a read: the dense chain shuffles v̂, the banded one scales
+//      v_{t+1} as it reads it, as K1 scales its raw row): on config 3's long
+//      forced alignments under an untrained model Σv falls to ~1e-40, and
+//      A·v then runs on subnormals (γ 1.2e-3 from the plain version's,
+//      which propagates v̂);
 //   3. per frame 1/Σα̂u1, wgt_{t+1} and 1/Σv_{t+1}, and the gather
 //      v_{t+1}[cols];
 //   4. the moments and ξ as register-tiled FFMA products over the chunk's
@@ -45,7 +51,7 @@
 //      them), each accumulator element read and written once a chunk;
 //      kGamma: γ of the chunk's frames written out by the whole block
 //      (acc_write_gamma) and ξ alone (the moment product compiles out);
-//   5. γ₀ (not under kGamma), and the carry into the next chunk.
+//   5. γ₀ (not under kStream), and the carry into the next chunk.
 // Phases 1b, 3, 4 and 5, the chunk fetch and the write-out are __device__
 // helpers (acc_fetch .. acc_write_gamma below), which K6's and K7's block
 // instance (hmm_scan.cu, one block an utterance, a block chain) calls too;
@@ -56,8 +62,8 @@
 // agree bitwise.  Two placements (kGlobal): W, the moments and ξ in shared
 // memory, or Wᵀ (P, S) from device memory and the moments and ξ in the
 // block's row of `part` (every S); the wrappers pick the placement, n_utt
-// and C by fit (cuda_scan.acc_banded_geometry, backward_instance,
-// gamma_instance).  kFull: C = kAccChunk, a constant.
+// and C by fit (cuda_scan.acc_banded_geometry, gamma_banded_geometry,
+// backward_instance, gamma_instance).  kFull: C = kAccChunk, a constant.
 
 #pragma once
 
@@ -74,19 +80,21 @@ struct AccLayout {  // float offsets into one block's shared memory
   int ldx, ldg, ldr, ldc, lda;
 };
 
-// ξ is (n_r, n_c) (K2, K6: U = n_r = n_c).  P = 0: the llh stream (kGamma):
-// the ring holds llh (C, ldg) and there is no W and no moment accumulator.
-__host__ __device__ inline AccLayout acc_layout(int S, int P, int n_r, int n_c, int n_utt, int C, bool global) {
+// ξ is (n_r, n_c) (K2, K6, K11: U = n_r = n_c).  P = 0: the llh stream
+// (kStream): the ring holds llh (C, ldg) and there is no W.  `gamma` (K7,
+// K11): no moment accumulator.
+__host__ __device__ inline AccLayout acc_layout(int S, int P, int n_r, int n_c, int n_utt, int C, bool global,
+                                                bool gamma = false) {
   AccLayout l;
   l.ldg = static_cast<int>(round4(S));
   l.ldx = P > 0 ? static_cast<int>(round4(P)) : l.ldg;
   l.ldr = static_cast<int>(round4(n_r));
   l.ldc = static_cast<int>(round4(n_c));
   l.lda = static_cast<int>(round4(P + 1));
-  const bool moments = !global && P > 0;
+  const bool w_sh = !global && P > 0, moments = w_sh && !gamma;
   size_t o = 0;
   l.w = o;  // W (S, ldx + 1), zero past P
-  if (moments) o += round4(static_cast<size_t>(S) * (l.ldx + 1));
+  if (w_sh) o += round4(static_cast<size_t>(S) * (l.ldx + 1));
   l.acc = o;
   if (moments) o += static_cast<size_t>(S) * l.lda;
   l.xi = o;
@@ -138,7 +146,7 @@ __device__ __forceinline__ void acc_fetch_rows(float* dst, const float* src, siz
 }
 
 // One utterance's chunk, nf frames from flat frame `row` (b·T + lo): the
-// statistics (width P; kGamma: llh, width S) into xs (C, ldx) and α̂ into as
+// statistics (width P; kStream: llh, width S) into xs (C, ldx) and α̂ into as
 // (C, ldg).
 __device__ __forceinline__ void acc_fetch(float* xs, float* as, const float* stats, const float* alpha, size_t row,
                                           int nf, int C, int ldx, int ldg, int P, int S, int tid, int nt) {
@@ -345,10 +353,10 @@ __device__ __forceinline__ void acc_zero_tail(float* out, int len, int T, int S,
 
 template <bool kDense, bool kGlobal, bool kFull, bool kGamma>
 __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked_kernel(
-    const float* __restrict__ stats,   // (B, T, P); kGamma: llh (B, T, S)
+    const float* __restrict__ stats,   // (B, T, P); kStream: llh (B, T, S)
     const int* __restrict__ lens,      // (B,)
-    const float* __restrict__ w,       // (S, P), kGlobal: Wᵀ padded with zero rows to (round4(P), S) (not kGamma)
-    const float* __restrict__ bias,    // (S,) (not kGamma)
+    const float* __restrict__ w,       // (S, P), kGlobal: Wᵀ padded with zero rows to (round4(P), S) (not kStream)
+    const float* __restrict__ bias,    // (S,) (not kStream)
     const float* __restrict__ bands,   // (4, S) (banded)
     const float* __restrict__ trans,   // (S, S) (dense)
     const float* __restrict__ final_,  // (S,), dense: (B, S)
@@ -357,16 +365,17 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
     const int* __restrict__ rows,      // (n_r,) ξ rows (banded: the units' ends); null: the identity
     const int* __restrict__ cols,      // (n_c,) ξ columns (banded: the units' starts); null: the identity
     float* __restrict__ part,          // (n_blocks, S*(P+1) + n_r*n_c); kGamma: (n_blocks, n_r*n_c)
-    float* __restrict__ gamma0,        // (B, S) (not kGamma)
+    float* __restrict__ gamma0,        // (B, S) (not kStream)
     float* __restrict__ gamma,         // (B, T, S) (kGamma)
     int B, int T, int S, int P, int n_r, int n_c, int n_utt, int chunk) {
+  constexpr bool kStream = kDense && kGamma;  // K7/K15 read llh; K11 computes it as K2 does
   const int C = kFull ? kAccChunk : chunk;
-  if (!kGamma) n_c = n_r;  // K2 and K6: ξ (U, U), one value (fewer live registers)
+  if (!kStream) n_c = n_r;  // K2, K6 and K11: ξ (U, U), one value (fewer live registers)
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const AccLayout L = acc_layout(S, kGamma ? 0 : P, n_r, n_c, n_utt, C, kGlobal);
+  const AccLayout L = acc_layout(S, kStream ? 0 : P, n_r, n_c, n_utt, C, kGlobal, kGamma);
   const int ldx = L.ldx, ldg = L.ldg, ldr = L.ldr, ldc = L.ldc, ldw = ldx + 1;
-  const int width = kGamma ? S : P;  // of a frame's row in the ring's first array
+  const int width = kStream ? S : P;  // of a frame's row in the ring's first array
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31, n_warps = nt >> 5;
   const int b0 = blockIdx.x * n_utt;
   const int n_acc = kGamma ? 0 : S * (P + 1);
@@ -413,7 +422,7 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
   };
   if (n_chunks > 0) fetch(0);
 
-  if (!kGlobal && !kGamma) {
+  if (!kGlobal && !kStream) {
     for (int i = tid; i < S * ldw; i += nt) {
       const int s = i / ldw, p = i - s * ldw;
       w_sh[i] = p < P ? w[s * P + p] : 0.f;
@@ -427,7 +436,7 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
     const bool band = on && !kDense;
     band_sh[s] = band ? make_float4(bands[s], bands[S + s], bands[2 * S + s], bands[3 * S + s])
                       : make_float4(0.f, 0.f, 0.f, 0.f);
-    bias_sh[s] = on && !kGamma ? bias[s] : 0.f;
+    bias_sh[s] = on && !kStream ? bias[s] : 0.f;
     fin_sh[s] = band ? final_[s] : 0.f;
   }
   for (int i = tid; i < n_r; i += nt) rows_sh[i] = rows != nullptr ? rows[i] : i;
@@ -451,9 +460,9 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
     cp_async_wait(more);
     __syncthreads();  // chunk c has landed
 
-    // 1a. llh (nf, S) = X·Wᵀ + bias: an item is a state and up to kAccGroup frames (kGamma: llh was read)
+    // 1a. llh (nf, S) = X·Wᵀ + bias: an item is a state and up to kAccGroup frames (kStream: llh was read)
     const int groups = (C + kAccGroup - 1) / kAccGroup;
-    for (int it = tid; it < (kGamma ? 0 : n_utt * groups * S); it += nt) {
+    for (int it = tid; it < (kStream ? 0 : n_utt * groups * S); it += nt) {
       const int s = it % S, ug = it / S, u = ug / groups, f0 = (ug - u * groups) * kAccGroup;
       int lo;
       const int nf = span(u, c, lo);
@@ -461,14 +470,14 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
       acc_ellh_tile(ebuf(u) + static_cast<size_t>(f0) * ldg + s, ring_x(u, c & 1) + static_cast<size_t>(f0) * ldx,
                     w_m + s * w_rs, w_cs, bias_sh[s], ldx, ldg, nf - f0, C - f0);
     }
-    if (!kGamma) __syncthreads();
+    if (!kStream) __syncthreads();
     // 1b. a warp a frame: the row max, e = exp(llh − max), the gather α̂_t[rows]
     for (int uf = warp; uf < n_utt * C; uf += n_warps) {
       const int u = uf / C, f = uf - u * C;
       int lo;
       if (f >= span(u, c, lo)) continue;
       float* e = ebuf(u) + static_cast<size_t>(f) * ldg;
-      acc_exp_row(e, kGamma ? ring_x(u, c & 1) + static_cast<size_t>(f) * ldx : e, S, lane);
+      acc_exp_row(e, kStream ? ring_x(u, c & 1) + static_cast<size_t>(f) * ldx : e, S, lane);
       const float* a = ring_a(u, c & 1) + static_cast<size_t>(f) * ldg;
       for (int i = lane; i < n_r; i += 32) lbuf(u)[f * ldr + i] = a[rows_sh[i]];
     }
@@ -521,9 +530,15 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
         float* ar = ab + static_cast<size_t>(f) * ldg;
         float sv = 0.f, sa = 0.f, sw = 0.f;
         for (int s = lane; s < S; s += 32) {
-          const float up = s + 1 < S ? vn[s + 1] : 0.f;
           const float4 bd = band_sh[s];  // a_self, a_adv, exit, w
-          const float u1 = last ? fin_sh[s] : fmaf(r, bd.z, fmaf(vn[s], bd.x, up * bd.y) * ip);
+          float u1;
+          if (kGamma) {  // K11: v̂_{t+1} = v_{t+1}·ip as it is read (a normalised carry)
+            const float up = s + 1 < S ? vn[s + 1] * ip : 0.f;
+            u1 = last ? fin_sh[s] : fmaf(r, bd.z, fmaf(vn[s] * ip, bd.x, up * bd.y));
+          } else {
+            const float up = s + 1 < S ? vn[s + 1] : 0.f;
+            u1 = last ? fin_sh[s] : fmaf(r, bd.z, fmaf(vn[s], bd.x, up * bd.y) * ip);
+          }
           const float v = er[s] * u1, a = ar[s] * u1;
           er[s] = v;
           ar[s] = a;
@@ -586,7 +601,7 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
     for (int u = 0; u < n_utt; ++u) {
       int lo;
       if (span(u, c, lo) > 0)
-        acc_next_chunk<!kGamma>(ebuf(u), scal(u), ring_a(u, c & 1), gamma0 + static_cast<size_t>(b0 + u) * S, lo, C,
+        acc_next_chunk<!kStream>(ebuf(u), scal(u), ring_a(u, c & 1), gamma0 + static_cast<size_t>(b0 + u) * S, lo, C,
                                 ldg, S, norms + static_cast<size_t>(b0 + u) * T + lo, tid, nt);
     }
   }
@@ -594,9 +609,8 @@ __global__ void __launch_bounds__(kAccThreads, kDense ? 1 : 2) estep_acc_chunked
   if (!kGlobal) acc_write_row(out, acc_m, acc_rs, xi_m, xi_rs, S, P, n_r, n_c, kDense, !kGamma, tid, nt);
   for (int u = 0; u < n_utt; ++u) {
     if (b0 + u >= B) continue;
-    if (kGamma)
-      acc_zero_tail(gamma + static_cast<size_t>(b0 + u) * T * S, len_of(u), T, S, tid, nt);
-    else if (len_of(u) == 0)
+    if (kGamma) acc_zero_tail(gamma + static_cast<size_t>(b0 + u) * T * S, len_of(u), T, S, tid, nt);
+    if (!kStream && len_of(u) == 0)
       for (int s = tid; s < S; s += nt) gamma0[static_cast<size_t>(b0 + u) * S + s] = 0.f;
   }
 }
@@ -612,7 +626,9 @@ cudaError_t launch_acc_chunked(int global, int n_utt, int chunk, const float* st
                                int n_r, int n_c, cudaStream_t st) {
   if (n_utt < 1 || n_utt > kAccThreads / 32 || chunk < 1 || chunk > kAccChunk || (kDense && S > 32))
     return cudaErrorInvalidValue;
-  const size_t smem = acc_layout(S, kGamma ? 0 : P, n_r, n_c, n_utt, chunk, global != 0).total * sizeof(float);
+  constexpr bool kStream = kDense && kGamma;
+  const size_t smem =
+      acc_layout(S, kStream ? 0 : P, n_r, n_c, n_utt, chunk, global != 0, kGamma).total * sizeof(float);
   const bool full = chunk == kAccChunk;
   auto kernel = global ? (full ? estep_acc_chunked_kernel<kDense, true, true, kGamma>
                                : estep_acc_chunked_kernel<kDense, true, false, kGamma>)

@@ -493,14 +493,21 @@ __global__ void __launch_bounds__(kWarps * 32) forward_llh_warp_kernel(
 // ---------------------------------------------------------------------
 constexpr int kAccChunkBlock = 16;  // the block instance: frames a chunk, at most
 
+// The ring's stages at `chunk` frames a chunk: two, so that the next chunk
+// arrives while this one is worked on, but one in the global placement at
+// a one-frame chunk, which only the largest S take (there the next frame
+// is fetched after the products; the freed stage lets K7's global block
+// run to S = 14,508, where two stages stopped it at 9,672).
+__host__ __device__ inline int acc_block_stages(bool global, int chunk) { return global && chunk == 1 ? 1 : 2; }
+
 // Floats of one block of the block instance in a placement, at `chunk`
 // frames a chunk: K6 (p > 0, ξ (S, S): n_r = n_c = S) or K7 / K15 (p = 0,
 // the llh stream; ξ (n_r, n_c), from gathered rows and columns when
 // `gather`, K15).
 size_t acc_block_smem_floats(int s, int p, int n_r, int n_c, bool gather, bool global, int chunk) {
   const size_t S = s, C = chunk, ldg = round4(S), ldx = p > 0 ? round4(p) : ldg;
-  size_t n = (p > 0 ? 2 * ldg : 0) + 2 * C * (ldx + ldg) + (C + 1) * ldg + (p > 0 ? C * ldg : 0) + round4(5 * C + 2) +
-             2 * kMaxWarps;
+  size_t n = (p > 0 ? 2 * ldg : 0) + acc_block_stages(global, chunk) * C * (ldx + ldg) + (C + 1) * ldg +
+             (p > 0 ? C * ldg : 0) + round4(5 * C + 2) + 2 * kMaxWarps;
   if (gather) n += C * (round4(n_r) + round4(n_c)) + round4(static_cast<size_t>(n_r) + n_c);
   if (!global) {
     n += round4(S * odd_stride(s)) + static_cast<size_t>(n_r) * round4(n_c);
@@ -511,8 +518,9 @@ size_t acc_block_smem_floats(int s, int p, int n_r, int n_c, bool gather, bool g
 
 // The block instance: one block an utterance.  kFull: chunks of
 // kAccChunkBlock frames, a constant; otherwise `chunk` frames.  kGamma: K7
-// and K15.
-template <bool kGlobal, bool kFull, bool kGamma>
+// and K15.  kOneStage: the ring's one stage (acc_block_stages), an
+// instance of its own so that the others compile as they did without it.
+template <bool kGlobal, bool kFull, bool kGamma, bool kOneStage = false>
 __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
     const float* __restrict__ stats,   // (B, T, P); kGamma: llh (B, T, S)
     const int* __restrict__ lens,      // (B,)
@@ -543,8 +551,9 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
   float* out = part + static_cast<size_t>(b) * (n_acc + nr * nc);
   float* bias_sh = smem;                                         // K6: (ldg,)
   float* fin_sh = bias_sh + ldg;                                 // K6: (ldg,)
-  float* ring = kGamma ? smem : fin_sh + ldg;                    // 2 × (stats or llh (C, ldx), α̂ (C, ldg))
-  float* e_sh = ring + 2 * static_cast<size_t>(C) * (ldx + ldg);  // (C + 1, ldg): e, then v; row C: v after the chunk
+  float* ring = kGamma ? smem : fin_sh + ldg;  // 2 (kOneStage: 1) × (stats or llh (C, ldx), α̂ (C, ldg))
+  // (C + 1, ldg): e, then v; row C: v after the chunk
+  float* e_sh = ring + (kOneStage ? 1 : 2) * static_cast<size_t>(C) * (ldx + ldg);
   float* g_buf = e_sh + static_cast<size_t>(C + 1) * ldg;         // K6: (C, ldg): α̂u1 (K7: in the chunk's llh stage)
   float* sc = kGamma ? g_buf : g_buf + static_cast<size_t>(C) * ldg;  // 5C + 2 scalars (acc_chunks.cuh)
   float* red = sc + round4(5 * static_cast<size_t>(C) + 2);
@@ -575,7 +584,7 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
   auto fetch = [&](int c) {
     int lo;
     const int nf = span(c, lo);
-    float* xs = ring + (c & 1) * static_cast<size_t>(C) * (ldx + ldg);
+    float* xs = ring + (kOneStage ? 0 : c & 1) * static_cast<size_t>(C) * (ldx + ldg);
     acc_fetch(xs, xs + static_cast<size_t>(C) * ldx, stats, alpha, static_cast<size_t>(b) * T + lo, nf, C, ldx, ldg,
               kGamma ? S : P, S, tid, nt);
     cp_async_commit();
@@ -612,10 +621,10 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
     const int nf = span(c, lo);
     const bool more = c + 1 < n_chunks;
     __syncthreads();  // chunk c − 1 is done with stage (c + 1) & 1, e, γ and the scalars
-    if (more) fetch(c + 1);
-    cp_async_wait(more);
+    if (more && !kOneStage) fetch(c + 1);
+    cp_async_wait(more && !kOneStage);
     __syncthreads();  // chunk c has landed
-    const float* xc = ring + (c & 1) * static_cast<size_t>(C) * (ldx + ldg);
+    const float* xc = ring + (kOneStage ? 0 : c & 1) * static_cast<size_t>(C) * (ldx + ldg);
     float* ac = const_cast<float*>(xc) + static_cast<size_t>(C) * ldx;
     // α̂u1: K7 writes it over the chunk's llh, which e has replaced by then
     float* g_sh = kGamma ? const_cast<float*>(xc) : g_buf;
@@ -712,7 +721,8 @@ __global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(
                                                     ldg, nf};
     acc_products<!kGamma>(acc_m, acc_rs, acc_cs, xi_m, xi_rs, S, P, nr, nc, ldg, ldx, 1,
                           [&](int) { return view; }, tid, nt);
-    __syncthreads();  // ξ's readers of row C are done
+    __syncthreads();  // ξ's readers of row C (kOneStage: every reader of the stage) are done
+    if (more && kOneStage) fetch(c + 1);
     // 5. γ₀ (not kGamma), and the carry into the next chunk
     acc_next_chunk<!kGamma>(e_sh, sc, g_sh, gamma0 + static_cast<size_t>(b) * S, lo, C, ldg, S,
                             norms + static_cast<size_t>(b) * T + lo, tid, nt);
@@ -844,8 +854,9 @@ cudaError_t launch_backward(int instance, int chunk, int n_utt, const float* x, 
   const size_t smem =
       acc_block_smem_floats(S, kGamma ? 0 : P, n_r, n_c, rows != nullptr, instance == 1, chunk) * sizeof(float);
   const bool full = chunk == kAccChunkBlock;
-  auto kernel = instance == 1 ? (full ? estep_acc_dense_block_kernel<true, true, kGamma>
-                                      : estep_acc_dense_block_kernel<true, false, kGamma>)
+  auto kernel = instance == 1 ? (full            ? estep_acc_dense_block_kernel<true, true, kGamma>
+                                 : chunk == 1 ? estep_acc_dense_block_kernel<true, false, kGamma, true>
+                                              : estep_acc_dense_block_kernel<true, false, kGamma>)
                               : (full ? estep_acc_dense_block_kernel<false, true, kGamma>
                                       : estep_acc_dense_block_kernel<false, false, kGamma>);
   cudaError_t err = set_smem(kernel, smem);

@@ -6,26 +6,24 @@
 // (E-step, part 2), and the banded (max,+) Viterbi forward and its
 // backtrace (decode).  A fifth, the γ-emitting twin of the backward,
 // carries the structured VAE's gradient (the Fisher identity ∂log Z /
-// ∂llh = γ); it runs the backward frame by frame, K1 and K2 in chunks.
-// Each replaces one Pallas TPU kernel of beer_tpu/ops/pallas_scan.py; the
-// note above each kernel names it.
+// ∂llh = γ).  Each replaces one Pallas TPU kernel of
+// beer_tpu/ops/pallas_scan.py; the note above each kernel names it.
 //
 // Common design.  Every kernel is a serial recursion over time with an
 // O(S) step: the transition matrix of a phone loop is band + rank-1
 // (self loop, advance, exit ⊗ entry), so a step is a few elementwise
 // passes plus reductions over the S states.  What bounds these
 // recursions on an H100 is the latency of the serial chain, not bytes
-// or FLOPs.  K3, K4 and K11 spread the batch: one thread block per
-// utterance (B = 512 blocks over 132 SMs), threads over states in a
-// strided loop (any S), and a loop over t < len_b inside the block, so
-// the chains of several utterances overlap on each SM; a step needs two
-// block reductions.  K1 and K2 go further: frames in chunks, the chain on
-// one warp an utterance with no barrier, everything that does not depend
-// on the carry out of the chain (their notes below).  Loop-invariant operands
-// (the ELLH matrix W, bias, bands) live in shared memory while they fit
-// a block; above that K1, K2 and K11 read Wᵀ from device memory (it stays
-// in L2) and keep their accumulators in device memory, one thread an
-// element (cuda_scan.banded_placement), so every phone loop runs.
+// or FLOPs.  So K1, K2, K3 and K11 run frames in chunks, the chain on
+// one warp an utterance with no barrier, and everything that does not
+// depend on the carry out of the chain (their notes below; K2 and K11 are
+// the banded mode of acc_chunks.cuh, K1 and K3 its forward twins on that
+// file's helpers).  K4, a pointer chase, takes one thread an utterance.
+// Loop-invariant operands (the ELLH matrix W, bias, bands) live in shared
+// memory while they fit a block; above that K1, K2 and K11 read Wᵀ from
+// device memory (it stays in L2) and keep their accumulators in device
+// memory, one thread an element, and K3 reads its bands there
+// (cuda_scan.banded_placement), so every phone loop runs.
 // Every reduction is computed in a fixed order and broadcast to all
 // threads, so the kernels are deterministic run to run.
 //
@@ -36,12 +34,6 @@
 #include "scan_common.cuh"
 
 namespace {
-
-// K11: W and the (U, U) ξ accumulator in shared memory unless global.
-size_t gamma_smem_floats(int s, int p, int u, bool global) {
-  return (global ? 0 : static_cast<size_t>(s) * odd_stride(p) + static_cast<size_t>(u) * u) +
-         11 * static_cast<size_t>(s) + p + 2 * static_cast<size_t>(u) + 2 * kMaxWarps;
-}
 
 // ---------------------------------------------------------------------
 // K1 — scaled banded forward with in-kernel ELLH.
@@ -277,171 +269,21 @@ __global__ void __launch_bounds__(kAccThreads, 2) forward_llh_chunked_kernel(
 }
 
 // ---------------------------------------------------------------------
-// K11 — γ-emitting banded v-space backward (γ, γ₀, loop ξ).
-// Replaces the banded mode of beer_tpu/ops/pallas_scan.py
-// _make_estep_ckpt_kernel_lm (wrapper phone_loop_estep_ckpt_pass_lm with
-// bands, w and bias: the backward of the SVAE's log Z,
-// semiring_scan._logz_stats_lm_bwd_impl); α̂ is read from K1 instead of
-// recomputed from block checkpoints, and the loop ξ is an exact gather
-// instead of a bf16 selection product.  K2 runs the same recursion in
-// chunks of frames (acc_chunks.cuh); this per-frame chain is the next to
-// take that design (ROADMAP P3).
-// Walking t from len−1 down to 0, with llh recomputed from W·stats as K1
-// does: u1 = final at the last frame, otherwise v̂·a_self +
-// shift_up(v̂)·a_adv + (v̂·w)·exit; v = e·u1; v̂ = v / max(Σv, tiny);
-// γ = normalize(α̂·u1), written per frame (0 on frames t >= len); wgt =
-// 1 / (norm·Σ(α̂u1)/Σv); the loop-back ξ (U, U) += (α̂_t[ends]·wgt_{t+1})
-// ⊗ v̂_{t+1}[starts], with ends/starts as int32 index vectors (an exact
-// gather, not a selection product).  Bound: the serial chain (two block
-// reductions per step) plus P FMAs per state and step for the ELLH; α̂
-// streams in and γ streams out once, coalesced.  The per-utterance ξ
-// partials (B, U·U) are summed over the batch by sum_rows_kernel in a
-// fixed order, so the result is deterministic.  Two placements
-// (kGlobal): W and ξ in shared memory, or Wᵀ (P, S) from device memory
-// and ξ in the utterance's row of `part` (each element read and written
-// by one thread), picked by cuda_scan.banded_placement.
-// ---------------------------------------------------------------------
-template <bool kGlobal>
-__global__ void estep_gamma_banded_kernel(
-    const float* __restrict__ stats,   // (B, T, P)
-    const int* __restrict__ lens,      // (B,)
-    const float* __restrict__ w,       // (S, P), kGlobal: Wᵀ (P, S)
-    const float* __restrict__ bias,    // (S,)
-    const float* __restrict__ bands,   // (4, S)
-    const float* __restrict__ final_,  // (S,)
-    const float* __restrict__ alpha,   // (B, T, S)
-    const float* __restrict__ norms,   // (B, T)
-    const int* __restrict__ ends,      // (U,)
-    const int* __restrict__ starts,    // (U,)
-    float* __restrict__ part,          // (B, U*U)
-    float* __restrict__ gamma0,        // (B, S)
-    float* __restrict__ gamma,         // (B, T, S)
-    int T, int S, int P, int U) {
-  extern __shared__ float smem[];
-  const int ldw = odd_stride(P);
-  float* w_sh = smem;
-  float* xi_sh = w_sh + (kGlobal ? 0 : static_cast<size_t>(S) * ldw);
-  float* bias_sh = xi_sh + (kGlobal ? 0 : static_cast<size_t>(U) * U);
-  float* self_sh = bias_sh + S;
-  float* adv_sh = self_sh + S;
-  float* exit_sh = adv_sh + S;
-  float* wv_sh = exit_sh + S;
-  float* fin_sh = wv_sh + S;
-  float* vh_prev = fin_sh + S;  // v̂_{t+1}
-  float* vh_cur = vh_prev + S;  // v̂_t
-  float* a_sh = vh_cur + S;     // α̂_t
-  float* v_sh = a_sh + S;       // llh_t, then v_t
-  float* ab_sh = v_sh + S;      // α̂_t·u1_t
-  float* x_sh = ab_sh + S;      // stats_t
-  int* ends_sh = reinterpret_cast<int*>(x_sh + P);
-  int* starts_sh = ends_sh + U;
-  float* red = reinterpret_cast<float*>(starts_sh + U);
-
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int len = lens[b];
-  // W(s, p) = w_m[s·w_rs + p·w_cs]; ξ in shared memory or in this row of part
-  const float* w_m = kGlobal ? w : w_sh;
-  const int w_rs = kGlobal ? 1 : ldw, w_cs = kGlobal ? S : 1;
-  float* out = part + static_cast<size_t>(b) * U * U;
-  float* xi_m = kGlobal ? out : xi_sh;
-  if (!kGlobal) {
-    for (int i = tid; i < S * P; i += nt) {
-      const int s = i / P;
-      w_sh[s * ldw + (i - s * P)] = w[i];
-    }
-  }
-  for (int i = tid; i < U * U; i += nt) xi_m[i] = 0.f;  // element i belongs to thread i mod nt throughout
-  for (int s = tid; s < S; s += nt) {
-    bias_sh[s] = bias[s];
-    self_sh[s] = bands[s];
-    adv_sh[s] = bands[S + s];
-    exit_sh[s] = bands[2 * S + s];
-    wv_sh[s] = bands[3 * S + s];
-    fin_sh[s] = final_[s];
-    vh_prev[s] = 0.f;
-  }
-  for (int u = tid; u < U; u += nt) {
-    ends_sh[u] = ends[u];
-    starts_sh[u] = starts[u];
-  }
-  const float* x_b = stats + static_cast<size_t>(b) * T * P;
-  const float* a_b = alpha + static_cast<size_t>(b) * T * S;
-  const float* n_b = norms + static_cast<size_t>(b) * T;
-  float* g_b = gamma + static_cast<size_t>(b) * T * S;
-  float wgt_next = 0.f;  // wgt_{t+1}
-
-  for (int t = len - 1; t >= 0; --t) {
-    __syncthreads();  // the previous step's readers of x_sh / a_sh are done
-    for (int p = tid; p < P; p += nt) x_sh[p] = x_b[static_cast<size_t>(t) * P + p];
-    for (int s = tid; s < S; s += nt) a_sh[s] = a_b[static_cast<size_t>(t) * S + s];
-    __syncthreads();
-    float mx = -FLT_MAX, r = 0.f;
-    for (int s = tid; s < S; s += nt) {
-      const float* wr = w_m + s * w_rs;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int p = 0; p < P; ++p) acc = fmaf(wr[p * w_cs], x_sh[p], acc);
-      acc += bias_sh[s];
-      v_sh[s] = acc;
-      mx = fmaxf(mx, acc);
-      r += vh_prev[s] * wv_sh[s];
-    }
-    block_max_sum(mx, r, red);
-    const bool is_last = t == len - 1;
-    float sv = 0.f, absum = 0.f;
-    for (int s = tid; s < S; s += nt) {
-      float u1;
-      if (is_last) {
-        u1 = fin_sh[s];
-      } else {
-        const float up = s + 1 < S ? vh_prev[s + 1] : 0.f;
-        u1 = vh_prev[s] * self_sh[s] + up * adv_sh[s] + r * exit_sh[s];
-      }
-      const float v = expf(v_sh[s] - mx) * u1;
-      const float ab = a_sh[s] * u1;
-      v_sh[s] = v;
-      ab_sh[s] = ab;
-      sv += v;
-      absum += ab;
-    }
-    block_sum_sum(sv, absum, red);
-    sv = fmaxf(sv, FLT_MIN);
-    const float gnorm = fmaxf(absum, FLT_MIN);
-    const float denom = n_b[t] * absum / sv;
-    const float wgt = denom > kXiFloor ? 1.f / fmaxf(denom, kXiFloor) : 0.f;
-    for (int s = tid; s < S; s += nt) {
-      const float g = ab_sh[s] / gnorm;
-      vh_cur[s] = v_sh[s] / sv;
-      g_b[static_cast<size_t>(t) * S + s] = g;
-      if (t == 0) gamma0[static_cast<size_t>(b) * S + s] = g;
-    }
-    if (!is_last) {
-      for (int k = tid; k < U * U; k += nt) {
-        const int i = k / U, j = k - i * U;
-        xi_m[k] = fmaf(a_sh[ends_sh[i]] * wgt_next, vh_prev[starts_sh[j]], xi_m[k]);
-      }
-    }
-    wgt_next = wgt;
-    float* tmp = vh_prev;
-    vh_prev = vh_cur;
-    vh_cur = tmp;
-  }
-  __syncthreads();
-  for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) g_b[i] = 0.f;
-  if (!kGlobal) {
-    for (int k = tid; k < U * U; k += nt) out[k] = xi_sh[k];
-  }
-  if (len == 0) {
-    for (int s = tid; s < S; s += nt) gamma0[static_cast<size_t>(b) * S + s] = 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------
 // K2 — accumulating banded v-space backward (smoothing + moments + loop ξ):
 // the banded mode of acc_chunks.cuh (frames in chunks, the chain on one
 // warp an utterance, the ELLH and the moment and ξ products around it).
 // Replaces beer_tpu/ops/pallas_scan.py _make_estep_ckpt_acc_kernel_lm
 // (wrapper phone_loop_estep_ckpt_acc_lm, stored-α̂ route).
+//
+// K11 — γ-emitting banded v-space backward (γ, γ₀, loop ξ): the same
+// kernel emitting γ (acc_chunks.cuh kGamma: γ written per chunk in place
+// of the moments, a normalised carry), llh = W·stats + bias computed in
+// the kernel as K2 does.  Replaces the banded mode of
+// beer_tpu/ops/pallas_scan.py _make_estep_ckpt_kernel_lm (wrapper
+// phone_loop_estep_ckpt_pass_lm with bands, w and bias: the backward of
+// the SVAE's log Z, semiring_scan._logz_stats_lm_bwd_impl); α̂ is read
+// from K1 instead of recomputed from block checkpoints, and the loop ξ is
+// an exact gather instead of a bf16 selection product.
 // ---------------------------------------------------------------------
 
 // ---------------------------------------------------------------------
@@ -454,10 +296,78 @@ __global__ void estep_gamma_banded_kernel(
 // max(log_init + llh_0, −1e30) for every row (as in the JAX package);
 // frames t >= max(len, 1) store choice 0, exit index 0 and keep α.
 // Choices are int8, exit indices int32 (a float index would round
-// states above 2^8 in bf16).  Bound: the serial chain (one block
-// arg-max per step); the choice stream is S bytes per step.
+// states above 2^8 in bf16).
+//
+// K1's skeleton in the (max, +) semiring, frames in chunks of C from frame
+// 0 (chunk c + 1's llh arriving by cp.async into a two-stage ring while
+// chunk c is worked on), in one of two forms chosen by S:
+//   up to S = 32·kVitRegs (kRegs > 0) one warp walks an utterance's chain
+//   with no barrier, a lane keeping the α of its states s = lane + 32k in
+//   registers and reading α(s − 1) from lane s − 1 by one shuffle (lane 0
+//   from lane 31's previous register), so that a step's only
+//   shared-memory reads, the llh row and the bands, do not wait for the
+//   carry; a step's max of α + le is one redux.sync on order-preserving
+//   integer keys (vkey), where a shuffle tree took five dependent rounds,
+//   and the smallest index holding it, which only the output needs, a
+//   second one issued a step later, off the chain;
+//   above it (kRegs = 0) a warp's lanes would walk too many states a step
+//   (at S = 750 a warp's chain took twice a block's, PERF.md PR 10), so
+//   all but kVitCopyWarps warps of a block of kVitBlockThreads walk one
+//   utterance,
+//   states strided over their threads, α written over the llh row in place
+//   (state s reads row f − 1, s − 1 across threads), one named barrier a
+//   step among them for the arg-max across their warps (two scratch
+//   stages).
+// Either way the choices go to a staging row (int8), the exit indices
+// beside them, the chunk's last α to the carry row, and the block's other
+// warps fetch chunk c + 1 (acc_fetch_rows) and write out chunk c − 1's
+// staged choices and exit indices (two staging stages) while the chain
+// walks chunk c: one block barrier a chunk, and the chain never waits for
+// the copies.  (max, +) rounds once, in the add, as the plain version
+// does: the kernel equals it.  Two placements
+// (kGlobal): the bands in shared memory (a float4 a state), or read from
+// device memory in the chain (the largest S); the wrapper picks the
+// placement, n_utt and C by fit (cuda_scan.viterbi_banded_geometry, K1's
+// rule; one utterance a block for the block chain), the launcher the form
+// from S.  kFull: C = kAccChunk, a constant.
 // ---------------------------------------------------------------------
-__global__ void viterbi_fwd_banded_kernel(
+constexpr int kVitRegs = 6;              // the warp chain keeps α in registers up to S = 32·kVitRegs
+constexpr int kVitBlockThreads = 1024;   // the block chain's block
+constexpr int kVitCopyWarps = 8;         // ... of which warps copy, the rest walk the chain
+
+struct VitLayout {  // float offsets into one K3 block's shared memory
+  size_t bands, red, utt, per_utt, total;
+  int ldg;
+};
+
+__host__ __device__ inline VitLayout vit_layout(int S, int n_utt, int C, bool global) {
+  VitLayout l;
+  l.ldg = static_cast<int>(round4(S));
+  size_t o = 0;
+  l.bands = o;  // (ls, la of the state before, le, lw) a float4 a state
+  if (!global) o += 4 * static_cast<size_t>(l.ldg);
+  l.red = o;  // the block chain: 2 stages × (each warp's max key, its smallest index holding it)
+  o += 4 * kMaxWarps;
+  l.utt = o;
+  l.per_utt = 2 * static_cast<size_t>(C) * l.ldg            // ring: 2 × llh (C, ldg) (kRegs = 0: α written over it)
+              + l.ldg                                       // the carry: α of the frame before the chunk
+              + 2 * (static_cast<size_t>(C) * l.ldg / 4     // 2 × choices (C, ldg) int8
+                     + round4(static_cast<size_t>(C)));     //     and exit indices (C,) int32
+  o += static_cast<size_t>(n_utt) * l.per_utt;
+  l.total = o;
+  return l;
+}
+
+// An int whose order is the float's (for the values here, none NaN); its
+// own inverse.
+__device__ __forceinline__ int vkey(float v) {
+  const int k = __float_as_int(v);
+  return k >= 0 ? k : k ^ 0x7fffffff;
+}
+
+template <bool kGlobal, bool kFull, int kRegs>
+__global__ void __launch_bounds__(kRegs > 0 ? kAccThreads : kVitBlockThreads, kRegs > 0 ? 2 : 1)
+    viterbi_fwd_chunked_kernel(
     const float* __restrict__ llh,       // (B, T, S)
     const int* __restrict__ lens,        // (B,)
     const float* __restrict__ lbands,    // (4, S): log a_self, a_adv, exit, w
@@ -465,63 +375,210 @@ __global__ void viterbi_fwd_banded_kernel(
     int8_t* __restrict__ choices,        // (B, T, S)
     int* __restrict__ exarg,             // (B, T)
     float* __restrict__ alpha_last,      // (B, S)
-    int T, int S) {
-  extern __shared__ float smem[];
-  float* ls = smem;
-  float* la = ls + S;
-  float* le = la + S;
-  float* lw = le + S;
-  float* a_prev = lw + S;
-  float* a_next = a_prev + S;
-  float* red = a_next + S;
+    int B, int T, int S, int n_utt, int chunk) {
+  constexpr bool kBlock = kRegs == 0;  // the block chain, one utterance a block
+  const int C = kFull ? kAccChunk : chunk;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const VitLayout L = vit_layout(S, n_utt, C, kGlobal);
+  const int ldg = L.ldg;
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int b0 = blockIdx.x * n_utt;
+  // the chain's threads: warp u for utterance u, or all but kVitCopyWarps warps; the rest copy
+  const int n_chain = kBlock ? nt - 32 * kVitCopyWarps : 32 * n_utt;
+  const int ptid = tid - n_chain, pnt = nt - n_chain;
+  float4* band_sh = reinterpret_cast<float4*>(smem + L.bands);
+  int* red = reinterpret_cast<int*>(smem + L.red);
+  // utterance u's pieces: ring stage st (llh, then α), the carry row, staging stage st's choices and exit indices
+  auto ring = [&](int u, int st) { return smem + L.utt + u * L.per_utt + static_cast<size_t>(st) * C * ldg; };
+  auto carry = [&](int u) { return smem + L.utt + u * L.per_utt + 2 * static_cast<size_t>(C) * ldg; };
+  auto chs = [&](int u, int st) {
+    return reinterpret_cast<int8_t*>(carry(u) + ldg + st * (static_cast<size_t>(C) * ldg / 4 + round4(C)));
+  };
+  auto exs = [&](int u, int st) { return reinterpret_cast<int*>(chs(u, st) + static_cast<size_t>(C) * ldg); };
+  // the frames a row runs: max(len, 1), frame 0 firing on every row; none when T = 0
+  auto steps_of = [&](int u) { return b0 + u < B && T > 0 ? max(lens[b0 + u], 1) : 0; };
+  // chunk c of utterance u: frames lo = c·C .. lo + nf − 1
+  auto span = [&](int u, int c, int& lo) {
+    lo = c * C;
+    return max(min(C, steps_of(u) - lo), 0);
+  };
+  // ls, la of state s − 1, le, lw
+  auto band = [&](int s) {
+    return kGlobal ? make_float4(lbands[s], s > 0 ? lbands[S + s - 1] : 0.f, lbands[2 * S + s], lbands[3 * S + s])
+                   : band_sh[s];
+  };
 
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int steps = lens[b] > 1 ? lens[b] : 1;
-  const float* l_b = llh + static_cast<size_t>(b) * T * S;
-  int8_t* c_b = choices + static_cast<size_t>(b) * T * S;
-  int* e_b = exarg + static_cast<size_t>(b) * T;
-  for (int s = tid; s < S; s += nt) {
-    ls[s] = lbands[s];
-    la[s] = lbands[S + s];
-    le[s] = lbands[2 * S + s];
-    lw[s] = lbands[3 * S + s];
-    if (T > 0) {
-      a_prev[s] = fmaxf(log_init[s] + l_b[s], kNeg);
-      c_b[s] = 0;
-    } else {
-      a_prev[s] = log_init[s];
+  int n_chunks = 0;
+  for (int u = 0; u < n_utt; ++u) n_chunks = max(n_chunks, (steps_of(u) + C - 1) / C);
+  auto fetch = [&](int c) {
+    for (int u = 0; u < n_utt; ++u) {
+      int lo;
+      const int nf = span(u, c, lo);
+      acc_fetch_rows(ring(u, c & 1), llh, static_cast<size_t>(b0 + u) * T + lo, nf, C, ldg, S, ptid, pnt);
     }
+    cp_async_commit();
+  };
+  auto write_out = [&](int c) {  // chunk c's staged choices and exit indices
+    for (int u = 0; u < n_utt; ++u) {
+      int lo;
+      const int nf = span(u, c, lo);
+      const size_t row0 = static_cast<size_t>(b0 + u) * T + lo;
+      const int8_t* ch = chs(u, c & 1);
+      int8_t* dst = choices + row0 * S;
+      const float inv_s = 1.f / S;
+      for (int e = ptid; e < nf * S; e += pnt) {
+        const int f = row_of(e, inv_s), s = e - f * S;
+        dst[e] = ch[static_cast<size_t>(f) * ldg + s];
+      }
+      for (int f = ptid; f < nf; f += pnt) exarg[row0 + f] = exs(u, c & 1)[f];
+    }
+  };
+  if (ptid >= 0 && n_chunks > 0) fetch(0);
+  for (int s = tid; s < (kGlobal ? 0 : ldg); s += nt) {
+    const bool on = s < S;
+    band_sh[s] = on ? make_float4(lbands[s], s > 0 ? lbands[S + s - 1] : 0.f, lbands[2 * S + s], lbands[3 * S + s])
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  if (tid == 0 && T > 0) e_b[0] = 0;
-  __syncthreads();
-  for (int t = 1; t < steps; ++t) {
-    float exb = -FLT_MAX;
-    int exi = S;
-    for (int s = tid; s < S; s += nt) {
-      const float ex = a_prev[s] + le[s];
-      if (ex > exb) {  // strided loop visits s in increasing order
-        exb = ex;
-        exi = s;
+  float exb = 0.f;  // the chain's max of α + le over the frame before the current one
+  int cand = S;     // ... the lane's smallest state holding it (S: none; the block chain: the block's)
+  float a[kRegs > 0 ? kRegs : 1];  // the warp chain: the lane's α of states lane + 32k at that frame
+#pragma unroll
+  for (int k = 0; k < (kRegs > 0 ? kRegs : 1); ++k) a[k] = kNeg;
+
+  // utterance u's frames of chunk c: a warp's lanes over the states (α in registers), or the block's threads
+  auto walk = [&](int u, int c) {
+    const int s0 = kBlock ? tid : lane, ds = kBlock ? n_chain : 32;
+    int lo;
+    const int nf = span(u, c, lo);
+    float* ra = ring(u, c & 1);
+    int8_t* ch = chs(u, c & 1);
+    int* ex = exs(u, c & 1);
+    for (int f = 0; f < nf; ++f) {
+      const bool first = lo + f == 0;
+      // the arg-max of the frame before, off the chain: stored at the step's end
+      const int exi = kBlock ? cand : static_cast<int>(__reduce_min_sync(0xffffffffu, static_cast<unsigned>(cand)));
+      float* row = ra + static_cast<size_t>(f) * ldg;  // llh (kRegs = 0: α written over it)
+      int8_t* cr = ch + static_cast<size_t>(f) * ldg;
+      float mb = -FLT_MAX;
+      int mi = S;
+      if constexpr (kRegs > 0) {
+        float l[kRegs], pm[kRegs];
+        float4 bd[kRegs];
+#pragma unroll
+        for (int k = 0; k < kRegs; ++k) {  // what does not wait for the carry first
+          const int s = lane + 32 * k;
+          l[k] = s < S ? row[s] : 0.f;
+          bd[k] = s < S ? band(s) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int k = 0; k < kRegs; ++k) {  // α(s − 1): lane − 1's register k, or lane 31's k − 1
+          const float up = __shfl_up_sync(0xffffffffu, a[k], 1);
+          const float wrap = __shfl_sync(0xffffffffu, a[k > 0 ? k - 1 : 0], 31);
+          pm[k] = lane > 0 ? up : (k > 0 ? wrap : kNeg);
+        }
+#pragma unroll
+        for (int k = 0; k < kRegs; ++k) {
+          const int s = lane + 32 * k;
+          if (s >= S) continue;
+          float v;
+          int8_t choice = 0;
+          if (first) {
+            v = fmaxf(log_init[s] + l[k], kNeg);
+          } else {
+            const float c_self = a[k] + bd[k].x;
+            const float c_adv = s > 0 ? pm[k] + bd[k].y : kNeg;
+            const float c_loop = exb + bd[k].w;
+            const float best = fmaxf(c_self, fmaxf(c_adv, c_loop));
+            choice = static_cast<int8_t>(c_self >= best ? 0 : (c_adv >= best ? 1 : 2));
+            v = fmaxf(l[k] + best, kNeg);
+          }
+          a[k] = v;
+          cr[s] = choice;
+          const float ev = v + bd[k].z;
+          if (ev > mb) {  // k visits the lane's states in increasing order
+            mb = ev;
+            mi = s;
+          }
+        }
+      } else {
+        const float* prev = f == 0 ? carry(u) : row - ldg;  // α of frame t − 1
+        for (int s = s0; s < S; s += ds) {
+          const float4 bd = band(s);
+          float v;
+          int8_t choice = 0;
+          if (first) {
+            v = fmaxf(log_init[s] + row[s], kNeg);
+          } else {
+            const float c_self = prev[s] + bd.x;
+            const float c_adv = s > 0 ? prev[s - 1] + bd.y : kNeg;
+            const float c_loop = exb + bd.w;
+            const float best = fmaxf(c_self, fmaxf(c_adv, c_loop));
+            choice = static_cast<int8_t>(c_self >= best ? 0 : (c_adv >= best ? 1 : 2));
+            v = fmaxf(row[s] + best, kNeg);
+          }
+          row[s] = v;
+          cr[s] = choice;
+          const float ev = v + bd.z;
+          if (ev > mb) {  // the strided loop visits s in increasing order
+            mb = ev;
+            mi = s;
+          }
+        }
+      }
+      const int top = __reduce_max_sync(0xffffffffu, vkey(mb));
+      if constexpr (kBlock) {  // the warps' maxima and indices, then the block's
+        const int mine = static_cast<int>(__reduce_min_sync(0xffffffffu, static_cast<unsigned>(vkey(mb) == top ? mi : S)));
+        int* stage = red + ((lo + f) & 1) * 2 * kMaxWarps;
+        if (lane == 0) {
+          stage[warp] = top;
+          stage[kMaxWarps + warp] = mine;
+        }
+        asm volatile("bar.sync 1, %0;" ::"r"(n_chain) : "memory");  // also: row f, the next step's α, is complete
+        const int n_w = n_chain >> 5;
+        const int wk = lane < n_w ? stage[lane] : vkey(-FLT_MAX);
+        const int all = __reduce_max_sync(0xffffffffu, wk);
+        exb = __int_as_float(vkey(__int_as_float(all)));
+        cand = static_cast<int>(__reduce_min_sync(
+            0xffffffffu, static_cast<unsigned>(lane < n_w && wk == all ? stage[kMaxWarps + lane] : S)));
+        if (tid == 0) ex[f] = first ? 0 : exi;
+      } else {
+        exb = __int_as_float(vkey(__int_as_float(top)));
+        cand = mb == exb ? mi : S;
+        if (lane == 0) ex[f] = first ? 0 : exi;
       }
     }
-    block_argmax(exb, exi, red);
-    for (int s = tid; s < S; s += nt) {
-      const float c_self = a_prev[s] + ls[s];
-      const float c_adv = s > 0 ? a_prev[s - 1] + la[s - 1] : kNeg;
-      const float c_loop = exb + lw[s];
-      const float best = fmaxf(c_self, fmaxf(c_adv, c_loop));
-      const int8_t ch = static_cast<int8_t>(c_self >= best ? 0 : (c_adv >= best ? 1 : 2));
-      a_next[s] = fmaxf(l_b[static_cast<size_t>(t) * S + s] + best, kNeg);
-      c_b[static_cast<size_t>(t) * S + s] = ch;
+    // the carry: α of the chunk's last frame
+    if constexpr (kRegs > 0) {
+#pragma unroll
+      for (int k = 0; k < kRegs; ++k)
+        if (nf > 0 && lane + 32 * k < S) carry(u)[lane + 32 * k] = a[k];
+    } else {
+      for (int s = s0; s < (nf > 0 ? S : 0); s += ds) carry(u)[s] = ra[static_cast<size_t>(nf - 1) * ldg + s];
     }
-    if (tid == 0) e_b[t] = exi;
-    float* tmp = a_prev;
-    a_prev = a_next;
-    a_next = tmp;
+  };
+
+  for (int c = 0; c <= n_chunks; ++c) {
+    if (ptid >= 0) cp_async_wait(false);
+    // chunk c has landed; chain c − 1 is done (its staging full, the carry
+    // written) and so is the write-out of chunk c − 2
+    __syncthreads();
+    if (ptid >= 0) {
+      if (c + 1 < n_chunks) fetch(c + 1);  // into the stage chunk c − 1 has finished with
+      if (c > 0) write_out(c - 1);
+      continue;
+    }
+    if (c < n_chunks) walk(kBlock ? 0 : warp, c);
   }
-  for (size_t i = static_cast<size_t>(steps) * S + tid; i < static_cast<size_t>(T) * S; i += nt) c_b[i] = 0;
-  for (int t = steps + tid; t < T; t += nt) e_b[t] = 0;
-  for (int s = tid; s < S; s += nt) alpha_last[static_cast<size_t>(b) * S + s] = a_prev[s];
+  __syncthreads();
+  for (int u = 0; u < n_utt; ++u) {
+    if (b0 + u >= B) continue;
+    const int steps = steps_of(u);
+    int8_t* c_b = choices + static_cast<size_t>(b0 + u) * T * S;
+    for (size_t i = static_cast<size_t>(steps) * S + tid; i < static_cast<size_t>(T) * S; i += nt) c_b[i] = 0;
+    for (int t = steps + tid; t < T; t += nt) exarg[static_cast<size_t>(b0 + u) * T + t] = 0;
+    for (int s = tid; s < S; s += nt) alpha_last[static_cast<size_t>(b0 + u) * S + s] = T > 0 ? carry(u)[s] : log_init[s];
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -576,9 +633,9 @@ __global__ void viterbi_backtrace_kernel(
 
 extern "C" {
 
-// global != 0: W read as Wᵀ (P, S) from device memory, and K11's ξ (and
-// K2's moments) in the partial row.  K1 and K2 at n_utt utterances a
-// block and `chunk` frames a chunk.
+// global != 0: W read as Wᵀ (P, S) from device memory, and K2's moments
+// and K11's ξ in the partial row (K3: the bands read from device memory).
+// K1, K2, K3 and K11 at n_utt utterances a block and `chunk` frames a chunk.
 size_t beer_forward_smem_bytes(int s, int p, int global, int n_utt, int chunk) {
   return fwd_layout(s, p, n_utt, chunk, global != 0).total * sizeof(float);
 }
@@ -587,8 +644,12 @@ size_t beer_estep_smem_bytes(int s, int p, int u, int global, int n_utt, int chu
   return acc_layout(s, p, u, u, n_utt, chunk, global != 0).total * sizeof(float);
 }
 
-size_t beer_estep_gamma_smem_bytes(int s, int p, int u, int global) {
-  return gamma_smem_floats(s, p, u, global != 0) * sizeof(float);
+size_t beer_estep_gamma_smem_bytes(int s, int p, int u, int global, int n_utt, int chunk) {
+  return acc_layout(s, p, u, u, n_utt, chunk, global != 0, true).total * sizeof(float);
+}
+
+size_t beer_viterbi_smem_bytes(int s, int global, int n_utt, int chunk) {
+  return vit_layout(s, n_utt, chunk, global != 0).total * sizeof(float);
 }
 
 const char* beer_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
@@ -613,9 +674,11 @@ int beer_forward_llh_banded(int device, int global, int n_utt, int chunk, const 
   return cudaGetLastError();
 }
 
-// K2: n_utt utterances a block, chunks of `chunk` frames; part is
-// (ceil(B / n_utt), S·(P+1) + U·U), out = Σ over its rows: acc (S, P+1),
-// then ξ_raw (U, U).  w is Wᵀ with zero rows to (round4(P), S) when global.
+// K2 and, below, K11: n_utt utterances a block, chunks of `chunk` frames;
+// part is (ceil(B / n_utt), width), out = Σ over its rows: K2's acc (S,
+// P+1), then ξ_raw (U, U) (width S·(P+1) + U·U); K11's ξ_raw alone (width
+// U·U), γ and γ₀ written.  w is Wᵀ with zero rows to (round4(P), S) when
+// global.
 int beer_estep_acc_banded(int device, int global, int n_utt, int chunk, const float* stats, const int* lens,
                           const float* w, const float* bias, const float* bands, const float* final_,
                           const float* alpha, const float* norms, const int* ends, const int* starts, float* part,
@@ -627,41 +690,44 @@ int beer_estep_acc_banded(int device, int global, int n_utt, int chunk, const fl
                                           static_cast<cudaStream_t>(stream));
 }
 
-// K11: w is Wᵀ (P, S) when global; part is (B, U·U).
-int beer_estep_gamma_banded(int device, int global, const float* stats, const int* lens, const float* w,
-                            const float* bias, const float* bands, const float* final_, const float* alpha,
-                            const float* norms, const int* ends, const int* starts, float* part, float* out,
-                            float* gamma0, float* gamma, int B, int T, int S, int P, int U, void* stream) {
+int beer_estep_gamma_banded(int device, int global, int n_utt, int chunk, const float* stats, const int* lens,
+                            const float* w, const float* bias, const float* bands, const float* final_,
+                            const float* alpha, const float* norms, const int* ends, const int* starts, float* part,
+                            float* out, float* gamma0, float* gamma, int B, int T, int S, int P, int U, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = beer_estep_gamma_smem_bytes(S, P, U, global);
-  auto kernel = global ? estep_gamma_banded_kernel<true> : estep_gamma_banded_kernel<false>;
-  err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int n = U * U;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > 0) {
-    kernel<<<B, block_threads(kernel, S), smem, st>>>(stats, lens, w, bias, bands, final_, alpha, norms, ends, starts,
-                                                      part, gamma0, gamma, T, S, P, U);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  sum_rows_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, B, n);
-  return cudaGetLastError();
+  return launch_acc_chunked<false, true>(global, n_utt, chunk, stats, lens, w, bias, bands, nullptr, final_, alpha,
+                                         norms, ends, starts, part, out, gamma0, gamma, B, T, S, P, U, U,
+                                         static_cast<cudaStream_t>(stream));
 }
 
-int beer_viterbi_fwd_banded(int device, const float* llh, const int* lens, const float* lbands,
-                            const float* log_init, int8_t* choices, int* exarg, float* alpha_last, int B, int T,
-                            int S, void* stream) {
+// K3: n_utt utterances a block, chunks of `chunk` frames; the bands read
+// from device memory when global.
+int beer_viterbi_fwd_banded(int device, int global, int n_utt, int chunk, const float* llh, const int* lens,
+                            const float* lbands, const float* log_init, int8_t* choices, int* exarg,
+                            float* alpha_last, int B, int T, int S, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B == 0) return cudaSuccess;
-  const size_t smem = (6 * static_cast<size_t>(S) + 2 * kMaxWarps) * sizeof(float);
-  err = set_smem(viterbi_fwd_banded_kernel, smem);
+  if (n_utt < 1 || n_utt > kAccThreads / 32 || chunk < 1 || chunk > kAccChunk) return cudaErrorInvalidValue;
+  const size_t smem = beer_viterbi_smem_bytes(S, global, n_utt, chunk);
+  const bool full = chunk == kAccChunk;
+  // the warp chain up to S = 32·kVitRegs, an instance a register count; the block chain above
+  using Kernel = decltype(&viterbi_fwd_chunked_kernel<false, true, 0>);
+#define BEER_VIT(R) {viterbi_fwd_chunked_kernel<false, false, R>, viterbi_fwd_chunked_kernel<false, true, R>, \
+                     viterbi_fwd_chunked_kernel<true, false, R>, viterbi_fwd_chunked_kernel<true, true, R>}
+  static_assert(kVitRegs == 6, "one instance a register count");
+  const Kernel kernels[kVitRegs + 1][4] = {BEER_VIT(0), BEER_VIT(1), BEER_VIT(2), BEER_VIT(3),
+                                           BEER_VIT(4), BEER_VIT(5), BEER_VIT(6)};
+#undef BEER_VIT
+  const int regs = (S + 31) / 32 <= kVitRegs ? (S + 31) / 32 : 0;
+  if (regs == 0 ? n_utt != 1 : n_utt >= kAccThreads / 32) return cudaErrorInvalidValue;
+  const Kernel kernel = kernels[regs][2 * (global != 0) + full];
+  err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int nt = block_threads(viterbi_fwd_banded_kernel, S);
-  viterbi_fwd_banded_kernel<<<B, nt, smem, static_cast<cudaStream_t>(stream)>>>(
-      llh, lens, lbands, log_init, choices, exarg, alpha_last, T, S);
+  if (B == 0) return cudaSuccess;
+  kernel<<<(B + n_utt - 1) / n_utt, regs > 0 ? kAccThreads : kVitBlockThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(llh, lens, lbands, log_init, choices, exarg, alpha_last, B, T, S, n_utt,
+                                                chunk);
   return cudaGetLastError();
 }
 

@@ -28,29 +28,10 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Block reduction of (max a, sum b): every thread gets both results.
+// Block reduction of (sum a, sum b): every thread gets both results.
 // The leading barrier keeps `scratch` from being overwritten while the
 // previous reduction is still being read, and orders shared-memory
 // writes made before the call ahead of any read after it.
-__device__ __forceinline__ void block_max_sum(float& a, float& b, float* scratch) {
-  a = warp_max(a);
-  b = warp_sum(b);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  __syncthreads();
-  if (lane == 0) {
-    scratch[warp] = a;
-    scratch[kMaxWarps + warp] = b;
-  }
-  __syncthreads();
-  a = scratch[0];
-  b = scratch[kMaxWarps];
-  for (int i = 1; i < nw; ++i) {
-    a = fmaxf(a, scratch[i]);
-    b += scratch[kMaxWarps + i];
-  }
-}
-
-// Block reduction of (sum a, sum b); same contract as block_max_sum.
 __device__ __forceinline__ void block_sum_sum(float& a, float& b, float* scratch) {
   a = warp_sum(a);
   b = warp_sum(b);
@@ -66,36 +47,6 @@ __device__ __forceinline__ void block_sum_sum(float& a, float& b, float* scratch
   for (int i = 1; i < nw; ++i) {
     a += scratch[i];
     b += scratch[kMaxWarps + i];
-  }
-}
-
-// Block arg-max: the largest value, ties to the smallest index.
-__device__ __forceinline__ void block_argmax(float& v, int& idx, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, idx, o);
-    if (ov > v || (ov == v && oi < idx)) {
-      v = ov;
-      idx = oi;
-    }
-  }
-  int* iscratch = reinterpret_cast<int*>(scratch + kMaxWarps);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  __syncthreads();
-  if (lane == 0) {
-    scratch[warp] = v;
-    iscratch[warp] = idx;
-  }
-  __syncthreads();
-  v = scratch[0];
-  idx = iscratch[0];
-  for (int i = 1; i < nw; ++i) {
-    const float ov = scratch[i];
-    const int oi = iscratch[i];
-    if (ov > v || (ov == v && oi < idx)) {
-      v = ov;
-      idx = oi;
-    }
   }
 }
 

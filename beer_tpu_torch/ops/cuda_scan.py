@@ -3,9 +3,9 @@
 Counterpart of the ``beer_tpu/ops/pallas_scan.py`` kernels on the ported
 paths: the four of the phone-loop AUD main path (K1–K4, banded
 transitions, ``csrc/phone_loop_scan.cu``; K2 is the banded mode of the
-chunked backward in ``csrc/acc_chunks.cuh``, K1 its forward twin on that
-file's helpers) and their γ-emitting backward
-K11 (the structured VAE's gradient), the three of the Bayesian
+chunked backward in ``csrc/acc_chunks.cuh``, K1 and K3 its forward twins
+on that file's helpers) and their γ-emitting backward K11 (the
+structured VAE's gradient; that kernel's γ-emitting mode), the three of the Bayesian
 HMM's E-step over a dense (S, S) transition matrix (K5–K7,
 ``csrc/hmm_scan.cu``; K6's and K7's warp instance is the dense mode of
 ``acc_chunks.cuh``, K7's its γ-emitting mode) with their two further modes (K14: K5 writing the
@@ -163,8 +163,8 @@ def _library() -> ctypes.CDLL:
     signatures = {
         "beer_forward_llh_banded": [i, i, i, i] + [p] * 10 + [i] * 4 + [p],
         "beer_estep_acc_banded": [i, i, i, i] + [p] * 13 + [i] * 5 + [p],
-        "beer_estep_gamma_banded": [i, i] + [p] * 14 + [i] * 5 + [p],
-        "beer_viterbi_fwd_banded": [i] + [p] * 7 + [i] * 3 + [p],
+        "beer_estep_gamma_banded": [i, i, i, i] + [p] * 14 + [i] * 5 + [p],
+        "beer_viterbi_fwd_banded": [i, i, i, i] + [p] * 7 + [i] * 3 + [p],
         "beer_viterbi_backtrace_banded": [i] + [p] * 6 + [i] * 4 + [p],
         "beer_forward_llh_dense": [i, i, i] + [p] * 10 + [i] * 4 + [p],
         "beer_estep_acc_dense": [i, i, i, i] + [p] * 11 + [i] * 4 + [p],
@@ -181,7 +181,8 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    smem = {"beer_forward_smem_bytes": 5, "beer_estep_smem_bytes": 6, "beer_estep_gamma_smem_bytes": 4,
+    smem = {"beer_forward_smem_bytes": 5, "beer_estep_smem_bytes": 6, "beer_estep_gamma_smem_bytes": 6,
+            "beer_viterbi_smem_bytes": 4,
             "beer_scaled_pass_smem_bytes": 3, "beer_smoothing_smem_bytes": 3,
             "beer_dense_forward_smem_bytes": 4, "beer_gamma_dense_smem_bytes": 7,
             "beer_acc_dense_smem_bytes": 5}
@@ -379,15 +380,17 @@ BACKWARD_CHUNK = 16        # K6's warp instance: frames a chunk (acc_chunks.cuh 
 BACKWARD_CHUNKS = (16, 8, 4, 2, 1)   # its block instance's chunk lengths (hmm_scan.cu kAccChunkBlock = 16)
 
 
-def _acc_layout_bytes(s: int, p: int, n_r: int, n_c: int, placement: str, n_utt: int, chunk: int) -> int:
+def _acc_layout_bytes(s: int, p: int, n_r: int, n_c: int, placement: str, n_utt: int, chunk: int,
+                      gamma: bool = False) -> int:
     """Shared memory of one block of the chunked backward (``acc_chunks.cuh``
-    ``acc_layout``): ξ (n_r, n_c); ``p`` = 0 is the llh stream of the
-    γ-emitting mode (the ring holds llh, and there is no W and no moments)."""
+    ``acc_layout``): ξ (n_r, n_c); ``p`` = 0 is the llh stream (the ring
+    holds llh, and there is no W); ``gamma``, the γ-emitting mode, keeps no
+    moments."""
     ldg = _r4(s)
     ldx = _r4(p) if p > 0 else ldg
     floats = 6 * ldg + _r4(n_r + n_c)
     if placement == "shared":
-        floats += n_r * _r4(n_c) + (_r4(s * (ldx + 1)) + s * _r4(p + 1) if p > 0 else 0)
+        floats += n_r * _r4(n_c) + (_r4(s * (ldx + 1)) + (0 if gamma else s * _r4(p + 1)) if p > 0 else 0)
     per = 2 * chunk * (ldx + ldg) + (chunk + 1) * ldg + chunk * (_r4(n_r) + _r4(n_c)) + _r4(5 * chunk + 2)
     return 4 * (floats + n_utt * per)
 
@@ -396,7 +399,8 @@ def _acc_block_bytes(s: int, p: int, n_r: int, n_c: int, placement: str, chunk: 
                      gather: bool = False) -> int:
     """Shared memory of one block of K6's and K7's block instance
     (``hmm_scan.cu`` ``acc_block_smem_floats``): a two-stage ring of a
-    chunk's statistics (``p`` = 0: llh) and α̂, the chunk's e (with a carry
+    chunk's statistics (``p`` = 0: llh) and α̂ (one stage in the global
+    placement at a one-frame chunk), the chunk's e (with a carry
     row), α̂u1 (on the llh stream in the chunk's llh stage) and the per-frame
     scalars at ``chunk`` frames; with statistics the bias and final
     vectors; when ``gather`` (K15) ξ's
@@ -404,7 +408,9 @@ def _acc_block_bytes(s: int, p: int, n_r: int, n_c: int, placement: str, chunk: 
     and, with statistics, W and the moments."""
     c, ldg = chunk, _r4(s)
     ldx = _r4(p) if p > 0 else ldg
-    floats = ((2 * c + 3) * ldg if p > 0 else (c + 1) * ldg) + 2 * c * (ldx + ldg) + _r4(5 * c + 2) + 2 * _MAX_WARPS
+    stages = 1 if placement == "global" and c == 1 else 2
+    floats = (((2 * c + 3) * ldg if p > 0 else (c + 1) * ldg) + stages * c * (ldx + ldg) + _r4(5 * c + 2)
+              + 2 * _MAX_WARPS)
     if gather:
         floats += c * (_r4(n_r) + _r4(n_c)) + _r4(n_r + n_c)
     if placement == "shared":
@@ -604,29 +610,71 @@ def forward_banded_geometry(s: int, p: int, b: int, n_sm: int) -> tuple[str, int
     return _chunked_geometry(lambda pl, n, c: forward_banded_smem_bytes(s, p, pl, n, c), b, n_sm)
 
 
-def banded_smem_bytes(kernel: str, s: int, p: int, u: int = 0, placement: str = "shared") -> int:
-    """Shared memory of one block of K11 ``estep_gamma_banded`` (the
-    formula of ``csrc/phone_loop_scan.cu``): "shared" keeps W and ξ in
-    shared memory, "global" reads Wᵀ from device memory.  K1's is
-    :func:`forward_banded_smem_bytes`, K2's :func:`acc_banded_smem_bytes`."""
-    if kernel != "estep_gamma_banded":
-        raise ValueError(f"{kernel} is not a banded scan kernel with one placement flag")
-    shared = placement == "shared"
-    return 4 * ((s * _odd(p) + u * u if shared else 0) + 11 * s + p + 2 * u + 2 * _MAX_WARPS)
+def gamma_banded_smem_bytes(s: int, p: int, u: int, placement: str, n_utt: int = 1,
+                            chunk: int = ACC_CHUNKS[0]) -> int:
+    """Shared memory of one K11 block: K2's (:func:`acc_banded_smem_bytes`)
+    without the moments (``acc_layout`` in the γ-emitting mode)."""
+    return _acc_layout_bytes(s, p, u, u, placement, n_utt, chunk, gamma=True)
+
+
+def gamma_banded_geometry(s: int, p: int, u: int, b: int, n_sm: int) -> tuple[str, int, int]:
+    """K11's launch at batch size ``b`` on ``n_sm`` SMs, (placement,
+    utterances a block, frames a chunk), decided by fit here and nowhere
+    else, by K2's rule (:func:`_chunked_geometry`; shared: W and ξ in shared
+    memory, global: Wᵀ from device memory and ξ in the block's partial
+    row)."""
+    return _chunked_geometry(lambda pl, n, c: gamma_banded_smem_bytes(s, p, u, pl, n, c), b, n_sm)
+
+
+VIT_WARP_STATES = 192    # K3: one warp an utterance's chain up to this S (32·kVitRegs), a block's above
+
+
+def viterbi_banded_smem_bytes(s: int, placement: str, n_utt: int = 1, chunk: int = ACC_CHUNKS[0]) -> int:
+    """Shared memory of one K3 block (``phone_loop_scan.cu`` ``vit_layout``):
+    the bands in the shared placement, the block chain's arg-max scratch;
+    and per utterance a two-stage ring of a chunk's llh (α written over
+    it), a carry row and two stages of a chunk's staged choices (int8) and
+    exit indices."""
+    ldg = _r4(s)
+    floats = (4 * ldg if placement == "shared" else 0) + 4 * _MAX_WARPS
+    per = 2 * chunk * ldg + ldg + 2 * (chunk * ldg // 4 + _r4(chunk))
+    return 4 * (floats + n_utt * per)
+
+
+def viterbi_banded_geometry(s: int, b: int, n_sm: int) -> tuple[str, int, int]:
+    """K3's launch at batch size ``b`` on ``n_sm`` SMs, (placement,
+    utterances a block, frames a chunk), decided by fit here and nowhere
+    else, by K1's rule (:func:`_chunked_geometry`; shared: the bands in
+    shared memory, global: read from device memory in the chain); above
+    :data:`VIT_WARP_STATES` the whole block walks one utterance's chain, so
+    one utterance a block (:func:`viterbi_launch_bytes`)."""
+    return _chunked_geometry(lambda pl, n, c: viterbi_launch_bytes(s, pl, n, c), b, n_sm)
+
+
+def viterbi_launch_bytes(s: int, placement: str, n_utt: int, chunk: int) -> int:
+    """:func:`viterbi_banded_smem_bytes` where K3 can take ``n_utt``
+    utterances a block (any up to :data:`VIT_WARP_STATES`, one above), more
+    than any block has elsewhere."""
+    if n_utt > 1 and s > VIT_WARP_STATES:
+        return SMEM_LIMIT + 1
+    return viterbi_banded_smem_bytes(s, placement, n_utt, chunk)
 
 
 def banded_placement(kernel: str, s: int, p: int, u: int, b: int, n_sm: int) -> str:
-    """"shared" while a banded kernel's W (and K2's moments and ξ, K11's ξ)
-    fit one block's shared memory, "global" above: every phone loop the
-    reference takes runs through K1, K2 and K11.  K1's and K2's depend on
-    the batch size ``b`` and the ``n_sm`` SMs and come from their launch,
-    :func:`forward_banded_geometry` and :func:`acc_banded_geometry`; K11's
-    is by fit alone."""
-    if kernel == "forward_llh_banded":
-        return forward_banded_geometry(s, p, b, n_sm)[0]
-    if kernel == "estep_acc_banded":
-        return acc_banded_geometry(s, p, u, b, n_sm)[0]
-    return "shared" if banded_smem_bytes(kernel, s, p, u, "shared") <= SMEM_LIMIT else "global"
+    """"shared" while a banded kernel's W (and K2's moments and ξ, K11's ξ;
+    K3's bands) fit one block's shared memory beside its chunks, "global"
+    above: every phone loop the reference takes runs through K1, K2, K3 and
+    K11.  It depends on the batch size ``b`` and the ``n_sm`` SMs and comes
+    from the kernel's launch: :func:`forward_banded_geometry`,
+    :func:`acc_banded_geometry`, :func:`gamma_banded_geometry` or
+    :func:`viterbi_banded_geometry` (which reads neither ``p`` nor ``u``)."""
+    geometries = {"forward_llh_banded": lambda: forward_banded_geometry(s, p, b, n_sm),
+                  "estep_acc_banded": lambda: acc_banded_geometry(s, p, u, b, n_sm),
+                  "estep_gamma_banded": lambda: gamma_banded_geometry(s, p, u, b, n_sm),
+                  "viterbi_fwd_banded": lambda: viterbi_banded_geometry(s, b, n_sm)}
+    if kernel not in geometries:
+        raise ValueError(f"{kernel} is not a banded scan kernel")
+    return geometries[kernel]()[0]
 
 
 def _shift_down(x: torch.Tensor) -> torch.Tensor:
@@ -900,15 +948,16 @@ def estep_gamma_banded(stats, lens, w, bias, bands, final, alpha, norms, ends, s
                                                      norms, ends, starts)
     dev = stats.device
     lib = _library()
-    glob = banded_placement("estep_gamma_banded", s, p_dim, n_u, b, sm_count(dev.index)) == "global"
-    _fits(f"S={s}, P={p_dim}, U={n_u}", lib.beer_estep_gamma_smem_bytes(s, p_dim, n_u, int(glob)))
-    if glob:
-        w = w.T.contiguous()
-    part = torch.empty(b, n_u * n_u, device=dev)
+    placement, n_utt, chunk = gamma_banded_geometry(s, p_dim, n_u, b, sm_count(dev.index))
+    glob = placement == "global"
+    _fits(f"S={s}, P={p_dim}, U={n_u}", lib.beer_estep_gamma_smem_bytes(s, p_dim, n_u, int(glob), n_utt, chunk))
+    if glob:   # Wᵀ with zero rows to a multiple of four
+        w = torch.nn.functional.pad(w, (0, -p_dim % 4)).T.contiguous()
+    part = torch.empty(-(-b // n_utt), n_u * n_u, device=dev)     # a row a block of n_utt utterances
     out = torch.empty(n_u * n_u, device=dev)
     gamma0 = torch.empty(b, s, device=dev)
     gamma = torch.empty(b, t_len, s, device=dev)
-    _launch(lib.beer_estep_gamma_banded, dev.index, int(glob), *map(_ptr, (
+    _launch(lib.beer_estep_gamma_banded, dev.index, int(glob), n_utt, chunk, *map(_ptr, (
         stats, lens, w, bias, bands, final, alpha, norms, ends, starts, part, out, gamma0, gamma)),
         b, t_len, s, p_dim, n_u, _stream(dev))
     KERNELS["estep_gamma_banded"].launches += 1
@@ -963,10 +1012,14 @@ def viterbi_fwd_banded(llh, lens, log_bands, log_init):
     for name, x, shape in (("lens", lens, (b,)), ("log_bands", log_bands, (4, s)),
                            ("log_init", log_init, (s,))):
         _shape(name, x, shape)
+    lib = _library()
+    placement, n_utt, chunk = viterbi_banded_geometry(s, b, sm_count(dev.index))
+    glob = placement == "global"
+    _fits(f"S={s}", lib.beer_viterbi_smem_bytes(s, int(glob), n_utt, chunk))
     choices = torch.empty(b, t_len, s, dtype=torch.int8, device=dev)
     exarg = torch.empty(b, t_len, dtype=torch.int32, device=dev)
     alpha_last = torch.empty(b, s, device=dev)
-    _launch(_library().beer_viterbi_fwd_banded, dev.index, *map(_ptr, (
+    _launch(lib.beer_viterbi_fwd_banded, dev.index, int(glob), n_utt, chunk, *map(_ptr, (
         llh, lens, log_bands, log_init, choices, exarg, alpha_last)),
         b, t_len, s, _stream(dev))
     KERNELS["viterbi_fwd_banded"].launches += 1

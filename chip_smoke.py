@@ -27,10 +27,13 @@ from fixed seeds, in eighteen phases, each printing one line:
 2. build: compiles the hand-written CUDA kernels from the sources in
    ``beer_tpu_torch/csrc`` and loads them;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it (plus two zero-length rows); K1
-   and K2 alone (profiler device time of the kernel, K2's with its batch
-   sum) and wrapped, K2 beside the unfused route (K11 + γᵀ·stats, TF32
-   off), held to the same tolerances; K1 called twice must agree bitwise;
+   at the shapes the main path gives it (plus two zero-length rows); K1,
+   K2, K11 and K3 alone (profiler device time of the kernel, K2's and
+   K11's with their batch sum) and wrapped, with their launch geometry,
+   K2 beside the unfused route (K11 + γᵀ·stats, TF32 off), held to the
+   same tolerances; K3's mismatches against its plain version (choices,
+   exit indices, α_last) are counted; K1, K3 and K11 called twice must
+   agree bitwise;
 4. slice: 5 VB-EM steps and a unit decode through the kernels, with the
    launch counters read around that run; the ELBO must be finite and
    non-decreasing and match the plain route's; a small problem is held
@@ -68,7 +71,8 @@ from fixed seeds, in eighteen phases, each printing one line:
    route, and config 1's E-step frames/s;
 12. svae kernels: K1 and K11 (the γ-emitting banded backward) against
    their plain versions at the config-5 shape plus two zero-length rows,
-   with CUDA-event medians, K1 also alone;
+   and K3 on the latent decode's operands, each alone and wrapped with
+   its launch geometry;
 13. svae slice: 5 hybrid steps of config 5 (Adam on the nnets, the
    conjugate update of the phone loop) through K1 and K11 with the
    launch counters read around them (K1 5, K11 5, K2 0), then the
@@ -121,10 +125,14 @@ from fixed seeds, in eighteen phases, each printing one line:
    with the launch counters read around them, against the plain route;
    then K1, K2 and K11 against their plain versions on phone loops of
    100 units (S = 300, above the 95 that K2 first took) and 250 units (S
-   = 750: K1 and K11 in their global placement too; K1 also alone), and two VB steps of
+   = 750: K1 and K11 in their global placement too; K1 and K11 also
+   alone), and two VB steps of
    the 100-unit loop through K1 + K2 against the plain route (ELBOs
    within 1e-4/frame; the second reads the update K2's statistics
-   made), their launches read around them.
+   made), their launches read around them; last, K3 on config 3's
+   recognizer decode (S = 18) and on a 3,200-unit loop's decode (S =
+   9,600, near the largest S its per-frame kernel took), alone and
+   wrapped, its mismatches counted.
 
 K8–K10 are timed twice in phase 9: ``ms`` is the kernel alone (the bare
 foreign call on operands packed and a launch geometry computed in
@@ -251,18 +259,25 @@ def device_ms(fn, name, reps=REPS):
 
 def entry_ms(fn, names, reps=KERNEL_REPS):
     """Device ms a call of ``fn`` spends in the kernels whose names contain
-    one of ``names`` (``torch.profiler`` over ``reps`` calls after one
-    warm-up): a C entry point's kernels (a scan kernel and its batch sum)
-    without the wrapper's host work and tensor preparation."""
+    one of ``names``, each launched once a call (``torch.profiler`` over
+    ``reps`` calls after one warm-up; each kernel's mean over the launches
+    the trace recorded): a C entry point's kernels (a scan kernel and its
+    batch sum) without the wrapper's host work and tensor preparation.
+    A trace can miss launches (one run's phase 12 recorded only K11's
+    batch sum), so the mean is taken over the recorded ones, and a trace
+    without the first of ``names`` (the scan kernel) is taken again, up
+    to three times."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages() if any(n in e.key for n in names)]
-    check(len(seen) > 0, f"the profiler saw no kernel named {names}")
-    return sum(e.self_device_time_total for e in seen) / reps / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages() if any(n in e.key for n in names) and e.count > 0]
+        if any(names[0] in e.key and e.self_device_time_total > 0 for e in seen):
+            return sum(e.self_device_time_total / e.count for e in seen) / 1e3
+    raise AssertionError(f"the profiler saw no device time of {names[0]} in three traces")
 
 
 def unfused_estep(est):
@@ -350,7 +365,7 @@ def phase_build():
 
 def launch_geometry(kernel, dev, s, p, b, u=0, rc=()):
     """The launch the wrapper of a chunked kernel takes on ``dev`` at these
-    sizes, as it picks it, with the card's own SM count: K1 and K2
+    sizes, as it picks it, with the card's own SM count: K1, K2, K3 and K11
     (placement, utterances a block, frames a chunk), K6, K7 and K15
     (instance, frames a chunk, utterances a block)."""
     n_sm = cuda_scan.sm_count(dev.index)
@@ -358,6 +373,10 @@ def launch_geometry(kernel, dev, s, p, b, u=0, rc=()):
         return list(cuda_scan.forward_banded_geometry(s, p, b, n_sm))
     if kernel == "estep_acc_banded":
         return list(cuda_scan.acc_banded_geometry(s, p, u, b, n_sm))
+    if kernel == "estep_gamma_banded":
+        return list(cuda_scan.gamma_banded_geometry(s, p, u, b, n_sm))
+    if kernel == "viterbi_fwd_banded":
+        return list(cuda_scan.viterbi_banded_geometry(s, b, n_sm))
     if kernel == "estep_acc_dense":
         instance, chunk = cuda_scan.backward_instance(s, p)
         return [instance, chunk, cuda_scan.backward_utterances(s, p, b, n_sm) if instance == "warp" else 1]
@@ -388,6 +407,88 @@ def banded_estep_args(stats, ops, alpha, norms):
     """K2's (and K11's) arguments after K1's ``alpha`` and ``norms``."""
     return (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["final"], alpha, norms,
             ops["ends"], ops["starts"])
+
+
+def k11_row(est, reps=REPS):
+    """K11 against its plain version on ``est`` (γ and γ₀ abs 1e-5, ξ rel
+    1e-4, γ and γ₀ 0 on empty rows, two calls bitwise), alone (profiler
+    device time of its entry point's kernels) and wrapped, with its launch
+    geometry and bound; returns (row, errors)."""
+    stats, lens = est[0], est[1]
+    b, t_len, p_dim = stats.shape
+    s, n_u = est[2].shape[0], est[8].shape[0]
+    got, want = cuda_scan.estep_gamma_banded(*est), cuda_scan.estep_gamma_banded_plain(*est)
+    errs = dict(gamma=float((got[0] - want[0]).abs().max()), gamma0=float((got[1] - want[1]).abs().max()),
+                xi=rel(got[2], want[2]))
+    check(errs["gamma"] <= 1e-5 and errs["gamma0"] <= 1e-5 and errs["xi"] <= 1e-4,
+          f"estep_gamma_banded at S={s}, U={n_u}: {errs}")
+    empty = lens == 0
+    check(not bool(got[0][empty].any()) and not bool(got[1][empty].any()),
+          "estep_gamma_banded: empty rows must give gamma 0")
+    check(all(torch.equal(x, y) for x, y in zip(got, cuda_scan.estep_gamma_banded(*est))),
+          "estep_gamma_banded: two calls must agree bitwise")
+    del got, want
+    nv = float(lens.sum())
+    row = dict(max_abs_err=errs["gamma"],
+               geometry=launch_geometry("estep_gamma_banded", stats.device, s, p_dim, b, n_u),
+               ms=entry_ms(lambda: cuda_scan.estep_gamma_banded(*est), ("estep_acc", "sum_rows")),
+               wrapper_ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded(*est)),
+               plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded_plain(*est), reps=reps),
+               **bound(4 * (nv * (p_dim + s + 1) + b * t_len * s + s * (p_dim + 6) + b * s + n_u * n_u),
+                       nv * (2 * s * p_dim + 12 * s + 2 * n_u * n_u)))
+    return row, errs
+
+
+def viterbi_args(decode):
+    """The arguments that ``decode()`` (a model's decode on the card) gives
+    K3's wrapper: the main path's own operands."""
+    seen, wrapper = [], cuda_scan.viterbi_fwd_banded
+
+    def spy(*args):
+        seen.append(args)
+        return wrapper(*args)
+
+    cuda_scan.viterbi_fwd_banded = spy
+    try:
+        decode()
+    finally:
+        cuda_scan.viterbi_fwd_banded = wrapper
+    check(len(seen) == 1, f"the decode called viterbi_fwd_banded {len(seen)} times")
+    return seen[0]
+
+
+def k3_row(vit, log_final, reps=REPS):
+    """K3 against its plain version on ``vit``: the mismatches of its
+    choices, exit indices and α_last (0 expected: (max, +) rounds once, in
+    the add, as the plain version does), the best scores (rel 1e-6) and
+    the backtrace's paths on both outputs (>= 99.9 % of valid frames), two
+    calls bitwise; alone (profiler device time) and wrapped, with its
+    launch geometry and bound; returns (row, mismatches)."""
+    llh, lens = vit[0], vit[1]
+    b, t_len, s = llh.shape
+    got, want = cuda_scan.viterbi_fwd_banded(*vit), cuda_scan.viterbi_fwd_banded_plain(*vit)
+    full = lens > 0
+    best = [(o[2] + log_final).max(-1).values[full] for o in (got, want)]
+    e3 = rel(best[0], best[1])
+    check(e3 <= 1e-6, f"viterbi best scores rel {e3} at S={s}")
+    paths = [cuda_scan.viterbi_backtrace_banded_plain(*o, log_final)[0] for o in (got, want)]
+    valid = torch.arange(t_len, device=llh.device)[None] < lens[:, None]
+    agree = float((paths[0] == paths[1])[valid].float().mean()) if bool(valid.any()) else 1.0
+    check(agree >= 0.999, f"viterbi paths agree on {agree} of valid frames at S={s}")
+    check(all(torch.equal(x, y) for x, y in zip(got, cuda_scan.viterbi_fwd_banded(*vit))),
+          "viterbi_fwd_banded: two calls must agree bitwise")
+    mismatch = dict(choices=int((got[0] != want[0]).sum()), exarg=int((got[1] != want[1]).sum()),
+                    alpha_last=int((got[2] != want[2]).sum()))
+    del got, want, paths
+    nv = float(lens.sum())
+    row = dict(max_abs_err=float((best[0] - best[1]).abs().max()) if bool(full.any()) else 0.0,
+               mismatches=mismatch, path_agree=agree, states=s,
+               geometry=launch_geometry("viterbi_fwd_banded", llh.device, s, 0, b),
+               ms=entry_ms(lambda: cuda_scan.viterbi_fwd_banded(*vit), ("viterbi_fwd",)),
+               wrapper_ms=cuda_ms(lambda: cuda_scan.viterbi_fwd_banded(*vit)),
+               plain_ms=cuda_ms(lambda: cuda_scan.viterbi_fwd_banded_plain(*vit), reps=reps),
+               **bound(4 * nv * s + b * t_len * (s + 4) + 4 * b * s, nv * 6 * s))
+    return row, mismatch
 
 
 def phase_kernels(dev):
@@ -440,23 +541,15 @@ def phase_kernels(dev):
         plain_ms=cuda_ms(lambda: cuda_scan.estep_acc_banded_plain(*est)),
         **bound(4 * (nv * (p_dim + s + 1) + 2 * s * p_dim + b * s + n_u * n_u),
                 nv * (4 * s * p_dim + 2 * n_u * n_u + 12 * s)))
+    del k2, p2, u2
+    k11_config4, e11 = k11_row(est)
 
     graph = ops["graph"]
     llh = loop.modelset.expected_log_likelihood(stats).contiguous()
     vit = (llh, ops["lens"], tss.log_bands(ops["bands"]).contiguous(),
            torch.clamp(graph.log_init, min=-1e30).contiguous())
+    out["viterbi_fwd_banded"], m3 = k3_row(vit, graph.log_final)
     k3 = cuda_scan.viterbi_fwd_banded(*vit)
-    p3 = cuda_scan.viterbi_fwd_banded_plain(*vit)
-    best = [(o[2] + graph.log_final).max(-1).values[full] for o in (k3, p3)]
-    e3 = rel(best[0], best[1])
-    check(e3 <= 1e-6, f"viterbi best scores rel {e3}")
-    agree = float((k3[0] == p3[0]).float().mean())
-    check(agree >= 0.999, f"viterbi choices agree on {agree}")
-    out["viterbi_fwd_banded"] = dict(
-        max_abs_err=float((best[0] - best[1]).abs().max()),
-        ms=cuda_ms(lambda: cuda_scan.viterbi_fwd_banded(*vit)),
-        plain_ms=cuda_ms(lambda: cuda_scan.viterbi_fwd_banded_plain(*vit)),
-        **bound(4 * nv * s + b * t_len * (s + 4) + 4 * b * s, nv * 6 * s))
 
     back = (k3[0], k3[1], k3[2], graph.log_final.contiguous())
     k4 = cuda_scan.viterbi_backtrace_banded(*back)
@@ -471,7 +564,7 @@ def phase_kernels(dev):
         plain_ms=cuda_ms(lambda: cuda_scan.viterbi_backtrace_banded_plain(*back)),
         **bound(5 * nv + 4 * b * t_len + 4 * b * s, 2 * nv))
     torch.cuda.synchronize()
-    k1r, k2r = out["forward_llh_banded"], out["estep_acc_banded"]
+    k1r, k2r, k3r = out["forward_llh_banded"], out["estep_acc_banded"], out["viterbi_fwd_banded"]
     print("phase 3 kernels: " + "; ".join(
         f"{k} ok (max_abs_err {v['max_abs_err']:.3g})" for k, v in out.items())
         + f" | forward_llh_banded {tuple(k1r['geometry'])} alone {k1r['ms']:.3f} ms, wrapped "
@@ -479,9 +572,14 @@ def phase_kernels(dev):
         + f" | estep_acc_banded {tuple(k2r['geometry'])} alone {k2r['ms']:.3f} ms, wrapped "
           f"{k2r['wrapper_ms']:.3f} ms; unfused route (estep_gamma_banded + one product) "
           f"{k2r['unfused_ms']:.3f} ms, rel {e_unfused:.3g}"
-        + " | tol: log Z, norms rel 1e-5; alpha, last abs 1e-5; acc2/counts/xi rel 1e-4; gamma0 abs 1e-5; "
-          "paths >= 99.9% of valid frames; scores rel 1e-6; K1 bitwise")
-    return out
+        + f" | estep_gamma_banded {tuple(k11_config4['geometry'])} alone {k11_config4['ms']:.3f} ms, wrapped "
+          f"{k11_config4['wrapper_ms']:.3f} ms (bound {k11_config4['bound_ms']:.4f}); "
+          + json.dumps({k: float(f"{e:.3g}") for k, e in e11.items()})
+        + f" | viterbi_fwd_banded {tuple(k3r['geometry'])} alone {k3r['ms']:.3f} ms, wrapped "
+          f"{k3r['wrapper_ms']:.3f} ms (bound {k3r['bound_ms']:.4f}); mismatches {json.dumps(m3)}"
+        + " | tol: log Z, norms rel 1e-5; alpha, last abs 1e-5; acc2/counts/xi rel 1e-4; gamma, gamma0 abs "
+          "1e-5; paths >= 99.9% of valid frames; scores rel 1e-6; K1, K3, K11 bitwise")
+    return out, k11_config4
 
 
 def run_steps(loop, x, m):
@@ -1183,26 +1281,12 @@ def phase_svae_kernels(dev):
     del p1
     est = (stats, ops["lens"], ops["w"], ops["bias"], ops["bands"], ops["final"], alpha, norms,
            ops["ends"], ops["starts"])
-    k11 = cuda_scan.estep_gamma_banded(*est)
-    p11 = cuda_scan.estep_gamma_banded_plain(*est)
-    e_gamma = float((k11[0] - p11[0]).abs().max())
-    e_gamma0 = float((k11[1] - p11[1]).abs().max())
-    e_xi = rel(k11[2], p11[2])
-    check(e_gamma <= 1e-5 and e_gamma0 <= 1e-5, f"estep_gamma_banded gamma abs {e_gamma}, "
-                                                f"gamma0 abs {e_gamma0}")
-    check(e_xi <= 1e-4, f"estep_gamma_banded xi rel {e_xi}")
-    empty = ops["lens"] == 0
-    check(not bool(k11[0][empty].any()) and not bool(k11[1][empty].any()),
-          "estep_gamma_banded: empty rows must give gamma 0")
     b, t_len, p_dim = stats.shape
     s, n_u = ops["w"].shape[0], ops["ends"].shape[0]
-    nv = float(ops["lens"].sum())
-    out = {"estep_gamma_banded": dict(
-        max_abs_err=e_gamma,
-        ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded(*est)),
-        plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded_plain(*est)),
-        **bound(4 * (nv * (p_dim + s + 1) + b * t_len * s + s * (p_dim + 6) + b * s + n_u * n_u),
-                nv * (2 * s * p_dim + 12 * s + 2 * n_u * n_u)))}
+    out = {}
+    out["estep_gamma_banded"], e11 = k11_row(est)
+    log_final = vae.latent_model._effective_graph().log_final
+    out["viterbi_fwd_banded"], m3 = k3_row(viterbi_args(lambda: vae.latent_decode(x, m)), log_final)
     out["forward_llh_banded"] = dict(
         max_abs_err=float((logz[0][full] - logz[1][full]).abs().max()),
         geometry=launch_geometry("forward_llh_banded", dev, s, p_dim, b),
@@ -1210,15 +1294,19 @@ def phase_svae_kernels(dev):
         wrapper_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded(*fwd)),
         plain_ms=cuda_ms(lambda: cuda_scan.forward_llh_banded_plain(*fwd)),
         **k1_bound(ops["lens"], t_len, s, p_dim))
-    v, v1 = out["estep_gamma_banded"], out["forward_llh_banded"]
+    v, v1, v3 = out["estep_gamma_banded"], out["forward_llh_banded"], out["viterbi_fwd_banded"]
     torch.cuda.synchronize()
     print(f"phase 12 svae kernels: config 5 B={b} (2 empty) T={t_len} S={s} P={p_dim} U={n_u}: "
-          f"estep_gamma_banded ok ({v['ms']:.3f} ms vs plain {v['plain_ms']:.3f} ms, bound "
-          f"{v['bound_ms']:.4f} ms by {v['bound_by']}; gamma abs {e_gamma:.3g}, gamma0 abs "
-          f"{e_gamma0:.3g}, xi rel {e_xi:.3g}); forward_llh_banded {tuple(v1['geometry'])} ok (alone "
+          f"estep_gamma_banded {tuple(v['geometry'])} ok (alone {v['ms']:.3f} ms, wrapped {v['wrapper_ms']:.3f} "
+          f"ms vs plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms by {v['bound_by']}; gamma abs "
+          f"{e11['gamma']:.3g}, gamma0 abs {e11['gamma0']:.3g}, xi rel {e11['xi']:.3g}); viterbi_fwd_banded "
+          f"(latent decode) {tuple(v3['geometry'])} ok (alone {v3['ms']:.3f} ms, wrapped {v3['wrapper_ms']:.3f} "
+          f"ms vs plain {v3['plain_ms']:.3f} ms, bound {v3['bound_ms']:.4f} ms; mismatches {json.dumps(m3)}); "
+          f"forward_llh_banded {tuple(v1['geometry'])} ok (alone "
           f"{v1['ms']:.3f} ms, wrapped {v1['wrapper_ms']:.3f} ms vs plain {v1['plain_ms']:.3f} ms, bound "
           f"{v1['bound_ms']:.4f} ms by {v1['bound_by']}; {json.dumps({k: float(f'{e:.3g}') for k, e in e_k1.items()})})"
-          " | tol: gamma, gamma0, alpha abs 1e-5; log Z, norms rel 1e-5; xi rel 1e-4")
+          " | tol: gamma, gamma0, alpha abs 1e-5; log Z, norms rel 1e-5; xi rel 1e-4; decode scores rel 1e-6, "
+          "paths >= 99.9% of valid frames; K3, K11 bitwise")
     return out
 
 
@@ -1859,6 +1947,7 @@ SHARED_S = 150                             # the same at a size whose operands m
 CHAIN_PHONES, CHAIN_T = 60, 240            # a shared chain of 60 phones × 3 states (S = 180)
 LOOP_UNITS = 100                           # a phone loop above K2's first limit (95 units): S = 300
 BIG_LOOP_UNITS = 250                       # S = 750: K1 and K11 in their global placement too
+VIT_UNITS, VIT_B = 3200, 8                 # K3 near the per-frame kernel's limit (S = 9,674): S = 9,600
 
 
 def dense_rows(hmm, x, m):
@@ -1963,9 +2052,7 @@ def banded_rows(loop, x, m):
     k2, p2 = cuda_scan.estep_acc_banded(*est), cuda_scan.estep_acc_banded_plain(*est)
     errs["estep_acc_banded"] = dict(acc2=rel(k2[0], p2[0]), counts=rel(k2[1], p2[1]), xi=rel(k2[3], p2[3]),
                                     gamma0=float((k2[2] - p2[2]).abs().max()))
-    k11, p11 = cuda_scan.estep_gamma_banded(*est), cuda_scan.estep_gamma_banded_plain(*est)
-    errs["estep_gamma_banded"] = dict(gamma=float((k11[0] - p11[0]).abs().max()),
-                                      gamma0=float((k11[1] - p11[1]).abs().max()), xi=rel(k11[2], p11[2]))
+    k11, errs["estep_gamma_banded"] = k11_row(est, reps=3)
     for name, e in errs.items():
         check(all(v <= (1e-4 if k in ("acc2", "counts", "xi") else 1e-5) for k, v in e.items()),
               f"{name} at {n_u} units (S={s}): {e}")
@@ -1982,18 +2069,31 @@ def banded_rows(loop, x, m):
             plain_ms=cuda_ms(lambda: cuda_scan.estep_acc_banded_plain(*est), reps=3),
             **bound(4 * (nv * (p_dim + s + 1) + 2 * s * p_dim + b * s + n_u * n_u),
                     nv * (4 * s * p_dim + 2 * n_u * n_u + 12 * s))),
-        "estep_gamma_banded": dict(
-            max_abs_err=errs["estep_gamma_banded"]["gamma"],
-            ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded(*est)),
-            plain_ms=cuda_ms(lambda: cuda_scan.estep_gamma_banded_plain(*est), reps=3),
-            **bound(4 * (nv * (p_dim + s + 1) + b * t_len * s + s * (p_dim + 6) + b * s + n_u * n_u),
-                    nv * (2 * s * p_dim + 12 * s + 2 * n_u * n_u)))}
+        "estep_gamma_banded": k11}
     dev = stats.device
     for name, row in rows.items():
-        row["placement"] = ("_".join(map(str, launch_geometry(name, dev, s, p_dim, b, n_u)))
-                            if name != "estep_gamma_banded"
-                            else cuda_scan.banded_placement(name, s, p_dim, n_u, b, cuda_scan.sm_count(dev.index)))
+        row["placement"] = "_".join(map(str, launch_geometry(name, dev, s, p_dim, b, n_u)))
     return rows, errs
+
+
+def viterbi_rows(dev, x, m):
+    """K3 at config 3 (the recognizer's decode, S = 18, B = 128) and on a
+    phone loop of VIT_UNITS units (S = 9,600, near the largest S the
+    per-frame kernel took) over VIT_B rows of ``x``, each on the operands
+    its model's decode gives the kernel; returns the rows and the
+    mismatches."""
+    data, mask, seqs = config3_data()
+    x3, m3 = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    rec = config3(dev, seqs)
+    rows, mismatches = {}, {}
+    rows["config3"], mismatches["config3"] = k3_row(viterbi_args(lambda: rec.decode(x3, m3)), rec.graph_log_final)
+    big = config4(dev, n_units=VIT_UNITS)
+    xb, mb = x[:VIT_B], m[:VIT_B]
+    rows[f"u{VIT_UNITS}"], mismatches[f"u{VIT_UNITS}"] = k3_row(
+        viterbi_args(lambda: big.decode_units(xb, mb)), big._effective_graph().log_final, reps=3)
+    for row in rows.values():
+        row["placement"] = "_".join(map(str, row["geometry"]))
+    return rows, mismatches
 
 
 def large_estep(model, x, m):
@@ -2057,7 +2157,7 @@ def phase_large_dense(dev):
     for units in (LOOP_UNITS, BIG_LOOP_UNITS):
         loop_rows[units], errs[f"loop{units}"] = banded_rows(config4(dev, n_units=units), x, m)
     check(launch_geometry("forward_llh_banded", dev, 3 * BIG_LOOP_UNITS, 2 * D, x.shape[0])[0] == "global"
-          and loop_rows[BIG_LOOP_UNITS]["estep_gamma_banded"]["placement"] == "global",
+          and loop_rows[BIG_LOOP_UNITS]["estep_gamma_banded"]["placement"].startswith("global"),
           f"{BIG_LOOP_UNITS} units: K1 and K11 take the global placement")
     loop = config4(dev, n_units=LOOP_UNITS)
     twin = plain_twin(loop)
@@ -2080,6 +2180,7 @@ def phase_large_dense(dev):
         want.append(float(elbo))
     gaps["loop100"] = dict(elbo_per_frame=max(abs(a - b) for a, b in zip(elbos, want)) / frames)
     check(gaps["loop100"]["elbo_per_frame"] <= 1e-4, f"the 100-unit loop: kernel vs plain route {gaps['loop100']}")
+    vit_rows, vit_mismatches = viterbi_rows(dev, x, m)
     torch.cuda.synchronize()
 
     def fmt(v):
@@ -2101,9 +2202,11 @@ def phase_large_dense(dev):
           + json.dumps(loop_launches)
           + " vs plain route " + json.dumps({k: {n: float(f"{e:.3g}") for n, e in v.items()}
                                              for k, v in gaps.items()})
+          + " || viterbi_fwd_banded: " + "; ".join(
+              f"{k} (S={v['states']}) {fmt(v)} mismatches {json.dumps(vit_mismatches[k])}" for k, v in vit_rows.items())
           + " | tol: log Z, ELBO rel 1e-5; alpha, gamma, gamma0 abs 1e-5; statistics, xi rel 1e-4; "
-            "the loop's ELBOs 1e-4/frame")
-    return rows, launches, loop_rows
+            "the loop's ELBOs 1e-4/frame; decode scores rel 1e-6, paths >= 99.9% of valid frames")
+    return rows, launches, loop_rows, vit_rows
 
 
 def main() -> int:
@@ -2114,7 +2217,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_device()
     phase_build()
-    kernels = phase_kernels(dev)
+    kernels, k11_config4 = phase_kernels(dev)
     launches, loop, x, m = phase_slice(dev)
     phase_times(loop, x, m)
     kernels.update(phase_hmm_kernels(dev))
@@ -2128,7 +2231,9 @@ def main() -> int:
     phase_gmm_times(gmm_runs)
     svae_rows = phase_svae_kernels(dev)
     kernels["forward_llh_banded"]["config5"] = svae_rows.pop("forward_llh_banded")
+    kernels["viterbi_fwd_banded"]["config5"] = svae_rows.pop("viterbi_fwd_banded")
     kernels.update(svae_rows)
+    kernels["estep_gamma_banded"]["config4"] = k11_config4
     svae_launches, svae_runs = phase_svae_slice(dev)
     launches = {k: launches.get(k, 0) + n for k, n in svae_launches.items()}
     phase_svae_times(svae_runs)
@@ -2136,7 +2241,7 @@ def main() -> int:
     gsm_launches, gsm_runs = phase_gsm_slice(dev)
     launches = {k: launches.get(k, 0) + n for k, n in gsm_launches.items()}
     phase_gsm_times(dev, gsm_runs, instances)
-    large, large_launches, loop_rows = phase_large_dense(dev)
+    large, large_launches, loop_rows, vit_rows = phase_large_dense(dev)
     launches = {k: launches.get(k, 0) + n for k, n in large_launches.items()}
     # K12/K13's rows: the banded instance, which PhoneLoop.smooth takes, with
     # every instance's numbers beside it; K14/K15's: config 4's shape
@@ -2158,6 +2263,8 @@ def main() -> int:
     for units, rows in loop_rows.items():
         for name, row in rows.items():
             kernels[name].setdefault("instances", {})[f"{row['placement']}_u{units}"] = row
+    for tag, row in vit_rows.items():
+        kernels["viterbi_fwd_banded"].setdefault("instances", {})[f"{row['placement']}_{tag}"] = row
     rows = [dict(name=k, route="cuda", source=cuda_scan.KERNELS[k].source,
                  replaces=REPLACES[k], launches=launches[k], **{"library_ms": None, **v})
             for k, v in kernels.items()]

@@ -2,8 +2,8 @@
 """Time variants of the full-covariance kernels K9 and K10 alone on one GPU.
 
     python3 stats_variants.py [variant ...]
-    python3 stats_variants.py probe | times | b2 | b7 | geometry | vb
-    python3 stats_variants.py --sources DIR k2_* | k6_* | k1_* | k7_*
+    python3 stats_variants.py probe | times | b2 | b7 | b11 | geometry | b11_geometry | vb
+    python3 stats_variants.py --sources DIR k2_* | k6_* | k1_* | k7_* | k11_* | k3_*
 
 ``probe`` is the 3×TF32 probe that decided K8's arithmetic (see
 :func:`probe`); it builds no variant.  ``times`` times K8 alone at config
@@ -42,6 +42,14 @@ warp instance at small batches with 4, 2 and 1 utterances a block.  The ``k1n_*`
 ``k7n_*`` variants take stages out of the chunked K1 and K7; the ``k1_*``
 / ``k7_*`` variants take them out of the per-frame K1 and K7 as they
 stood before (6a3a03f; ``--sources DIR``, as ``k2_*``).
+
+B7's banded mode and B3: ``b11`` times K11 (configs 4 and 5, 100 and 250
+units) and K3 (configs 3, 4 and 5) with K1, K2, K6, K7, K15 and K5 beside
+them, split by kernel, through this checkout's wrappers (any revision, as
+``b7``); ``b11_geometry`` times the chunked K11 and K3 in each launch
+geometry.  The ``k11n_*`` / ``k3n_*`` variants take stages out of the
+chunked K11 and K3; the ``k11_*`` / ``k3_*`` variants out of the
+per-frame ones as they stood before (0849d1a; ``--sources DIR``).
 
 Each variant is ``beer_tpu_torch/csrc/stats_full.cu`` with a few text
 substitutions (a design knob changed or one stage removed), built with
@@ -242,7 +250,7 @@ K1N_VARIANTS = {
 # the redesigned K2 and K6: name -> (substitutions, computes the same function)
 K2N_NO_CHAIN = [("    if (warp < n_utt) {\n      const int u = warp, len = len_of(u);",
                  "    if (false) {\n      const int u = warp, len = len_of(u);")]
-K2N_NO_ELLH = [("    for (int it = tid; it < (kGamma ? 0 : n_utt * groups * S); it += nt) {",
+K2N_NO_ELLH = [("    for (int it = tid; it < (kStream ? 0 : n_utt * groups * S); it += nt) {",
                 "    for (int it = tid; it < 0 * groups * S; it += nt) {")]
 K2N_NO_PRODUCTS = [("  const int np4 = (P + 1 + 3) / 4, ns4 = (S + 3) / 4, nr4 = (n_r + 3) / 4, nc4 = (n_c + 3) / 4;",
                     "  const int np4 = 0, ns4 = 0, nr4 = 0, nc4 = 0;")]
@@ -280,8 +288,9 @@ K2N_VARIANTS = {
     "k2n_chain_only_rcp": (K2N_NO_ELLH + K2N_NO_PRODUCTS + K2N_NO_FACTORS + [
         ("        ip = 1.f / fmaxf(sv, FLT_MIN);\n        r = sw * ip;", "        ip = __frcp_rn(fmaxf(sv, FLT_MIN));\n        r = sw * ip;")], False),
     "k2n_chain_only_no_states": (K2N_NO_ELLH + K2N_NO_PRODUCTS + K2N_NO_FACTORS + [
-        ("        for (int s = lane; s < S; s += 32) {\n          const float up = s + 1 < S ? vn[s + 1] : 0.f;",
-         "        for (int s = lane; s < 0; s += 32) {\n          const float up = s + 1 < S ? vn[s + 1] : 0.f;")], False),
+        ("        for (int s = lane; s < S; s += 32) {\n          const float4 bd = band_sh[s];  // a_self, a_adv, exit, w",
+         "        for (int s = lane; s < 0; s += 32) {\n          const float4 bd = band_sh[s];  // a_self, a_adv, exit, w")],
+        False),
 }
 K6N_VARIANTS = {
     "k6n_base": ([], True),
@@ -331,15 +340,83 @@ K7N_VARIANTS = {
     "k7n_lb512": ([("__global__ void __launch_bounds__(1024, 1) estep_acc_dense_block_kernel(",
                     "__global__ void __launch_bounds__(512, 1) estep_acc_dense_block_kernel(")], True),
 }
+# K11 and K3 (B7's banded mode, B3) as they stood before their redesign
+# (0849d1a): per-frame block chains; substitutions in that revision's
+# sources (--sources DIR); name -> (substitutions, computes the same function)
+K11_NO_XI = [("    if (!is_last) {\n      for (int k = tid; k < U * U; k += nt) {",
+              "    if (false) {\n      for (int k = tid; k < U * U; k += nt) {")]
+K11_NO_GAMMA = [("      g_b[static_cast<size_t>(t) * S + s] = g;\n", "")]
+K11_NO_ELLH = [("      for (int p = 0; p < P; ++p) acc = fmaf(wr[p * w_cs], x_sh[p], acc);",
+                "      for (int p = 0; p < 0; ++p) acc = fmaf(wr[p * w_cs], x_sh[p], acc);")]
+K3_NO_LLH = [("      a_next[s] = fmaxf(l_b[static_cast<size_t>(t) * S + s] + best, kNeg);",
+              "      a_next[s] = fmaxf(best, kNeg);")]
+K3_NO_CHOICES = [("      c_b[static_cast<size_t>(t) * S + s] = ch;\n", "")]
+K11_VARIANTS = {
+    "k11_base": ([], True),
+    "k11_no_xi": (K11_NO_XI, False),
+    "k11_no_gamma": (K11_NO_GAMMA, False),
+    "k11_no_ellh": (K11_NO_ELLH, False),
+    # the chain floor: no ξ, no γ write, no ELLH in the chain
+    "k11_chain_floor": (K11_NO_XI + K11_NO_GAMMA + K11_NO_ELLH, False),
+}
+K3_VARIANTS = {
+    "k3_base": ([], True),
+    "k3_no_llh": (K3_NO_LLH, False),
+    "k3_no_choices": (K3_NO_CHOICES, False),
+    # the chain floor: no in-chain llh load, no choice write
+    "k3_chain_floor": (K3_NO_LLH + K3_NO_CHOICES, False),
+}
+# the chunked K11 (K2's kernel emitting γ) and K3 (K1's skeleton)
+K3N_NO_CHAIN = [("    if (c < n_chunks) walk(kBlock ? 0 : warp, c);\n", "")]
+K3N_NO_STORE = [("      for (int e = ptid; e < nf * S; e += pnt) {", "      for (int e = ptid; e < 0 * S; e += pnt) {")]
+K3N_NO_FETCH = [("      acc_fetch_rows(ring(u, c & 1), llh, static_cast<size_t>(b0 + u) * T + lo, nf, C, ldg, S, ptid, pnt);\n",
+                 "")]
+K3N_MAX = "        exb = __int_as_float(vkey(__int_as_float(top)));\n        cand = mb == exb ? mi : S;\n"
+# the warp chain's exit max and index by the five-round shuffle tree (value
+# and index a round), as first written, in place of the redux.sync
+K3N_TREE = [(K3N_MAX,
+             "        for (int o = 16; o > 0; o >>= 1) {\n"
+             "          const float ov = __shfl_xor_sync(0xffffffffu, mb, o);\n"
+             "          const int oi = __shfl_xor_sync(0xffffffffu, mi, o);\n"
+             "          if (ov > mb || (ov == mb && oi < mi)) {\n            mb = ov;\n            mi = oi;\n          }\n"
+             "        }\n        exb = mb;\n        cand = mi;\n")]
+K11N_VARIANTS = {
+    "k11n_base": ([], True),
+    "k11n_no_chain": (K2N_NO_CHAIN, False),
+    "k11n_no_ellh": (K2N_NO_ELLH, False),
+    "k11n_no_xi": (K2N_NO_PRODUCTS, False),
+    "k11n_no_gamma": (NO_WRITE, False),
+    "k11n_chain_only": (K2N_NO_ELLH + K2N_NO_PRODUCTS + NO_WRITE + K2N_NO_FACTORS, False),
+}
+K3N_VARIANTS = {
+    "k3n_base": ([], True),
+    "k3n_no_chain": (K3N_NO_CHAIN, False),
+    "k3n_no_store": (K3N_NO_STORE, False),
+    # the chain alone: no chunk loads, no write-out
+    "k3n_chain_only": (K3N_NO_STORE + K3N_NO_FETCH, False),
+    # the chain without its exit max (each lane's own max carried)
+    "k3n_no_argmax": ([(K3N_MAX, "        exb = mb;\n        cand = mi;\n")], False),
+    # one block an SM (the warp chain's instances), no register cap below 128
+    "k3n_lb1": ([(", kRegs > 0 ? 2 : 1)\n    viterbi_fwd_chunked_kernel(", ", 1)\n    viterbi_fwd_chunked_kernel(")], True),
+    "k3n_tree": (K3N_TREE, True),
+    # the block chain on 512 threads in place of 1,024, and with 2, 4 or 16 copying warps in place of 8
+    "k3n_block512": ([("constexpr int kVitBlockThreads = 1024;", "constexpr int kVitBlockThreads = 512;")], True),
+    "k3n_copy2": ([("constexpr int kVitCopyWarps = 8;", "constexpr int kVitCopyWarps = 2;")], True),
+    "k3n_copy4": ([("constexpr int kVitCopyWarps = 8;", "constexpr int kVitCopyWarps = 4;")], True),
+    "k3n_copy16": ([("constexpr int kVitCopyWarps = 8;", "constexpr int kVitCopyWarps = 16;")], True),
+}
 # the source each variant compiles (its substitutions may fall in a header)
 SOURCES = {**{n: "stats_full.cu" for n in (*VARIANTS, *K8_VARIANTS)},
            **{n: "hmm_scan.cu" for n in (*K6N_VARIANTS, *K7N_VARIANTS)},
            **{n: "phone_loop_scan.cu" for n in (*K2N_VARIANTS, *K1N_VARIANTS)},
            **{n: "hmm_scan.cu" for n in (*K5_VARIANTS, *K6_VARIANTS, *K7_VARIANTS)},
-           **{n: "phone_loop_scan.cu" for n in (*K2_VARIANTS, *K1_VARIANTS)}}
+           **{n: "phone_loop_scan.cu" for n in (*K2_VARIANTS, *K1_VARIANTS)},
+           **{n: "phone_loop_scan.cu" for n in (*K11_VARIANTS, *K3_VARIANTS, *K11N_VARIANTS, *K3N_VARIANTS)}}
 PARENT_VARIANTS = {**K2_VARIANTS, **K6_VARIANTS}
 PARENT_B7_VARIANTS = {**K1_VARIANTS, **K7_VARIANTS}   # of 6a3a03f's sources
 NEW_B7_VARIANTS = {**K1N_VARIANTS, **K7N_VARIANTS}
+PARENT_B11_VARIANTS = {**K11_VARIANTS, **K3_VARIANTS}   # of 0849d1a's sources
+NEW_B11_VARIANTS = {**K11N_VARIANTS, **K3N_VARIANTS}
 REPS = 20
 CARD = ""   # the card's name and power limit (nvidia-smi), printed beside every number
 SOURCES_DIR = cuda_scan.CSRC   # the sources the variants edit (--sources DIR)
@@ -351,9 +428,13 @@ REPORTED = {"ellh_full_kernelILi128ELi64": "k9_128x64", "ellh_full_kernelILi64EL
             "forward_llh_dense_kernelILb1ELb0ELb1ELb1": "k5_block_stats_global",
             "forward_llh_dense_kernelILb0ELb0ELb1ELb0": "k5_block_llh_global_short",
             "forward_llh_dense_kernelILb1ELb0ELb1ELb0": "k5_block_stats_global_short",
-            "estep_acc_chunked_kernelILb0ELb0ELb1": "k2_shared", "estep_acc_chunked_kernelILb0ELb1ELb1": "k2_global",
             "estep_acc_chunked_kernelILb0ELb0ELb1ELb0": "k2_shared", "estep_acc_chunked_kernelILb0ELb1ELb1ELb0": "k2_global",
+            "estep_acc_chunked_kernelILb0ELb0ELb1ELb1": "k11_shared", "estep_acc_chunked_kernelILb0ELb1ELb1ELb1": "k11_global",
             "estep_acc_chunked_kernelILb1ELb0ELb1ELb0": "k6_warp", "estep_acc_chunked_kernelILb1ELb0ELb1ELb1": "k7_warp",
+            "viterbi_fwd_chunked_kernelILb0ELb1ELi0": "k3_shared", "viterbi_fwd_chunked_kernelILb1ELb1ELi0": "k3_global",
+            **{f"viterbi_fwd_chunked_kernelILb0ELb1ELi{k}": f"k3_regs{k}" for k in range(1, 7)},
+            "estep_gamma_banded_kernelILb0": "k11_parent_shared", "estep_gamma_banded_kernelILb1": "k11_parent_global",
+            "viterbi_fwd_banded_kernel": "k3_parent",
             "estep_acc_dense_block_kernelILb1ELb1ELb0": "k6_block_global",
             "estep_acc_dense_block_kernelILb0ELb1ELb0": "k6_block_shared",
             "estep_acc_dense_block_kernelILb1ELb1ELb1": "k7_block_global",
@@ -372,12 +453,13 @@ def build(names):
         # the compiled source if it holds the text, else in the one header that does
         texts = {f.name: f.read_text() for f in [SOURCES_DIR / SOURCES[name], *SOURCES_DIR.glob("*.cuh")]}
         subs = {**VARIANTS, **K8_VARIANTS, **K5_VARIANTS, **PARENT_VARIANTS, **K2N_VARIANTS, **K6N_VARIANTS,
-                **PARENT_B7_VARIANTS, **NEW_B7_VARIANTS}[name][0]
+                **PARENT_B7_VARIANTS, **NEW_B7_VARIANTS, **PARENT_B11_VARIANTS, **NEW_B11_VARIANTS}[name][0]
         for old, new in subs:
             holders = [f for f, text in texts.items() if old in text]
             holders = [SOURCES[name]] if SOURCES[name] in holders else holders
             if len(holders) != 1:
-                rev = "53a1783" if name in PARENT_VARIANTS else "6a3a03f" if name in PARENT_B7_VARIANTS else ""
+                rev = ("53a1783" if name in PARENT_VARIANTS else "6a3a03f" if name in PARENT_B7_VARIANTS
+                       else "0849d1a" if name in PARENT_B11_VARIANTS else "")
                 hint = (f" (it edits the sources of {rev}: pass that revision's beer_tpu_torch/csrc as --sources DIR)"
                         if rev else "")
                 raise RuntimeError(f"variant {name}: {old!r} is in {holders or 'no file'} of {SOURCES[name]}{hint}")
@@ -1324,6 +1406,259 @@ def run_b7_new(dev, built, names):
               f"| {'same function' if same else 'not the same function'}", flush=True)
 
 
+def b11_cases(dev):
+    """The operands of K11 (configs 4 and 5, with two zero-length rows, and
+    phone loops of 100 and 250 units on phase 18's data; α̂ and the norms
+    from K1's plain version) and K3 (config 3's recognizer decode, config
+    4's unit decode, config 5's latent decode, each as the model's decode
+    gives them, and the unit decodes of loops of 100, 250 and 700 units on
+    phase 18's data and of a 3,200-unit loop on 8 of its rows), as
+    ``chip_smoke.py`` builds them."""
+    cases = {}
+    _, stats, ops, fwd, m4 = c.banded_operands(dev)
+    alpha, norms, _, _ = cuda_scan.forward_llh_banded_plain(*fwd)
+    cases["k11_config4"] = c.banded_estep_args(stats, ops, alpha, norms)
+    x5, m5 = c.config5_data(dev)
+    x5 = torch.cat([x5, torch.zeros(2, *x5.shape[1:], device=dev)])
+    m5 = torch.cat([m5, torch.zeros(2, m5.shape[1], device=dev)])
+    vae = c.config5(dev)
+    stats5, ops5 = c.svae_operands(vae, x5, m5)
+    fwd5 = (stats5, ops5["lens"], ops5["w"], ops5["bias"], ops5["bands"], ops5["init"])
+    cases["k11_config5"] = c.banded_estep_args(stats5, ops5, *cuda_scan.forward_llh_banded_plain(*fwd5)[:2])
+    data, mask = c.make_data(c.LARGE_B, c.LARGE_T, c.D, seed=8)
+    xb, mb = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    for units in (c.LOOP_UNITS, c.BIG_LOOP_UNITS):
+        loop = c.config4(dev, n_units=units)
+        st = loop.sufficient_statistics(xb).contiguous()
+        o = loop.scan_operands(st, mb)
+        f = (st, o["lens"], o["w"], o["bias"], o["bands"], o["init"])
+        cases[f"k11_u{units}"] = c.banded_estep_args(st, o, *cuda_scan.forward_llh_banded_plain(*f)[:2])
+    data3, mask3, seqs = c.config3_data()
+    rec = c.config3(dev, seqs)
+    x3, m3 = torch.from_numpy(data3).to(dev), torch.from_numpy(mask3).to(dev)
+    cases["k3_config3"] = c.viterbi_args(lambda: rec.decode(x3, m3))
+    data, mask = c.with_empty_rows(*c.make_data(c.B, c.T, c.D))
+    x4, m4 = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    cases["k3_config4"] = c.viterbi_args(lambda: c.config4(dev).decode_units(x4, m4))
+    cases["k3_config5"] = c.viterbi_args(lambda: vae.latent_decode(x5, m5))
+    for units, rows in ((c.LOOP_UNITS, None), (c.BIG_LOOP_UNITS, None), (700, None), (3200, 8)):
+        loop = c.config4(dev, n_units=units)   # 3,200 units: S = 9,600, near the per-frame kernel's limit
+        cases[f"k3_u{units}"] = c.viterbi_args(lambda: loop.decode_units(xb[:rows], mb[:rows]))
+    return cases
+
+
+K3_TAGS = ("k3_config3", "k3_config4", "k3_config5", f"k3_u{c.LOOP_UNITS}", f"k3_u{c.BIG_LOOP_UNITS}", "k3_u700",
+           "k3_u3200")
+
+
+def b11_times(dev):
+    """K11 (configs 4 and 5, 100 and 250 units) and K3 (configs 3, 4 and 5,
+    loops of 100, 250, 700 and 3,200 units), and beside them K1 (configs 4 and
+    5), K2 (config 4), K6 (config 2's warp instance, S = 150 and 300 in the
+    block instance), K7 (config 3's warp instance, S = 150 shared and 300
+    global block), K15 (config 4) and K5 (configs 2 and 3), through this
+    checkout's wrappers: each call's device ms split by kernel
+    (``kernel_split``), so that the batch sum shows apart.  K11's and K1's
+    operands come from the plain versions, so that every revision times
+    the same inputs."""
+    row = {}
+
+    def put(tag, fn):
+        split = kernel_split(fn)
+        row[f"{tag}_ms"] = round(ours(split), 4)
+        row[f"{tag}_split"] = {k: round(v, 4) for k, v in split.items()}
+
+    cases = b11_cases(dev)
+    for tag in ("k11_config4", "k11_config5", f"k11_u{c.LOOP_UNITS}", f"k11_u{c.BIG_LOOP_UNITS}"):
+        put(tag, lambda: cuda_scan.estep_gamma_banded(*cases[tag]))
+    for tag in K3_TAGS:
+        put(tag, lambda: cuda_scan.viterbi_fwd_banded(*cases[tag]))
+    del cases
+    cases = b7_cases(dev)
+    for tag in ("k1_config4", "k1_config5"):
+        put(tag, lambda: cuda_scan.forward_llh_banded(*cases[tag]))
+    for tag in ("k7_config3", f"k7_s{c.SHARED_S}", f"k7_s{c.LARGE_S}"):
+        put(tag, lambda: cuda_scan.estep_gamma_dense(*cases[tag]))
+    k15 = cases["k15_config4"]
+    put("k15_config4", lambda: cuda_scan.estep_gamma_dense(*k15[:6], rows=k15[6], cols=k15[7]))
+    del cases
+    k2, _ = k2k6_cases(dev)
+    put("k2_config4", lambda: cuda_scan.estep_acc_banded(*k2))
+    for tag, args in k6_cases(dev).items():
+        put(f"k6_{tag}", lambda: cuda_scan.estep_acc_dense(*args))
+    k5 = k5_cases(dev)
+    for tag in ("config2", "config3"):
+        put(f"k5_{tag}", lambda: cuda_scan.forward_llh_dense(*k5[tag]))
+    print(f"b11 times: {CARD} | " + json.dumps(row), flush=True)
+
+
+def run_b11_parent(dev, built, names):
+    """The ``k11_*`` / ``k3_*`` variants of the per-frame K11 and K3
+    (0849d1a's entry points, ten bare foreign calls between two events,
+    median of 20, divided by ten): K11 at configs 4 and 5 and on the 100-
+    and 250-unit loops (its shared and global placements as that revision
+    picked them), K3 at configs 3, 4 and 5, one line a variant."""
+    cases = b11_cases(dev)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name in names:
+        path, regs = built[name]
+        lib = ctypes.CDLL(str(path))
+        same = PARENT_B11_VARIANTS[name][1]
+        row = {}
+        if name in K11_VARIANTS:
+            lib.beer_estep_gamma_banded.argtypes = [i, i] + [p] * 14 + [i] * 5 + [p]
+            for tag in ("k11_config4", "k11_config5", f"k11_u{c.LOOP_UNITS}", f"k11_u{c.BIG_LOOP_UNITS}"):
+                est = cases[tag]
+                stats, w, ends = est[0], est[2], est[8]
+                b, t_len, p_dim = stats.shape
+                s, n_u = w.shape[0], ends.shape[0]
+                glob = 4 * (s * (p_dim | 1) + n_u * n_u + 11 * s + p_dim + 2 * n_u + 64) > cuda_scan.SMEM_LIMIT
+                args = list(est)
+                if glob:   # that revision's rule and its Wᵀ
+                    args[2] = w.T.contiguous()
+                part, out = torch.empty(b, n_u * n_u, device=dev), torch.empty(n_u * n_u, device=dev)
+                gamma0, gamma = torch.empty(b, s, device=dev), torch.empty(b, t_len, s, device=dev)
+                call = lambda: lib.beer_estep_gamma_banded(  # noqa: E731
+                    0, int(glob), *map(ptr, (*args, part, out, gamma0, gamma)), b, t_len, s, p_dim, n_u, stream)
+                c.check(call() == 0, f"{name}: launch ({tag})")
+                if same:
+                    want = cuda_scan.estep_gamma_banded_plain(*est)
+                    c.check(float((gamma - want[0]).abs().max()) <= 1e-5 and c.rel(out.view(n_u, n_u), want[2]) <= 1e-4,
+                            f"{name}: differs from plain ({tag})")
+                row[f"{tag}_ms"] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+        else:
+            lib.beer_viterbi_fwd_banded.argtypes = [i] + [p] * 7 + [i] * 3 + [p]
+            for tag in K3_TAGS:
+                vit = cases[tag]
+                b, t_len, s = vit[0].shape
+                outs = (torch.empty(b, t_len, s, dtype=torch.int8, device=dev),
+                        torch.empty(b, t_len, dtype=torch.int32, device=dev), torch.empty(b, s, device=dev))
+                call = lambda: lib.beer_viterbi_fwd_banded(  # noqa: E731
+                    0, *map(ptr, (*vit, *outs)), b, t_len, s, stream)
+                c.check(call() == 0, f"{name}: launch ({tag})")
+                if same:
+                    want = cuda_scan.viterbi_fwd_banded_plain(*vit)
+                    c.check(all(torch.equal(x, y) for x, y in zip(outs, want)), f"{name}: differs from plain ({tag})")
+                row[f"{tag}_ms"] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+        print(f"variant {name}: {CARD} | " + json.dumps(row) + f" | registers {regs} "
+              f"| {'same function' if same else 'not the same function'}", flush=True)
+
+
+def time_k11(lib, dev, tag, est, geometries, check=True):
+    """The chunked K11 (bare foreign call, ten between two events, median
+    of 20, divided by ten) in each launch geometry that fits; held against
+    the plain version (γ abs 1e-5, ξ rel 1e-4) when ``check``."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.beer_estep_gamma_banded.argtypes = [i, i, i, i] + [p] * 14 + [i] * 5 + [p]
+    stats, w, ends = est[0], est[2], est[8]
+    b, t_len, p_dim = stats.shape
+    s, n_u = w.shape[0], ends.shape[0]
+    want = cuda_scan.estep_gamma_banded_plain(*est) if check else None
+    row = {}
+    for placement, n_utt, chunk in geometries:
+        glob = placement == "global"
+        if cuda_scan.gamma_banded_smem_bytes(s, p_dim, n_u, placement, n_utt, chunk) > cuda_scan.SMEM_LIMIT:
+            continue
+        args = list(est)
+        if glob:
+            args[2] = torch.nn.functional.pad(w, (0, -p_dim % 4)).T.contiguous()
+        part, out = torch.empty(-(-b // n_utt), n_u * n_u, device=dev), torch.empty(n_u * n_u, device=dev)
+        gamma0, gamma = torch.empty(b, s, device=dev), torch.empty(b, t_len, s, device=dev)
+        call = lambda: lib.beer_estep_gamma_banded(  # noqa: E731
+            0, int(glob), n_utt, chunk, *map(ptr, (*args, part, out, gamma0, gamma)), b, t_len, s, p_dim, n_u, stream)
+        key = f"{tag}_{placement}_u{n_utt}_c{chunk}"
+        c.check(call() == 0, f"{key}: launch")
+        if want is not None:
+            errs = (float((gamma - want[0]).abs().max()), float((gamma0 - want[1]).abs().max()),
+                    c.rel(out.view(n_u, n_u), want[2]))
+            c.check(errs[0] <= 1e-5 and errs[1] <= 1e-5 and errs[2] <= 1e-4, f"{key}: differs from plain {errs}")
+        row[key] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+    return row
+
+
+def time_k3(lib, dev, tag, vit, geometries, check=True):
+    """The chunked K3 in each launch geometry that fits, as
+    :func:`time_k11`; equal to the plain version when ``check``."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.beer_viterbi_fwd_banded.argtypes = [i, i, i, i] + [p] * 7 + [i] * 3 + [p]
+    b, t_len, s = vit[0].shape
+    want = cuda_scan.viterbi_fwd_banded_plain(*vit) if check else None
+    row = {}
+    for placement, n_utt, chunk in geometries:
+        glob = placement == "global"
+        if cuda_scan.viterbi_banded_smem_bytes(s, placement, n_utt, chunk) > cuda_scan.SMEM_LIMIT:
+            continue
+        outs = (torch.empty(b, t_len, s, dtype=torch.int8, device=dev),
+                torch.empty(b, t_len, dtype=torch.int32, device=dev), torch.empty(b, s, device=dev))
+        call = lambda: lib.beer_viterbi_fwd_banded(  # noqa: E731
+            0, int(glob), n_utt, chunk, *map(ptr, (*vit, *outs)), b, t_len, s, stream)
+        key = f"{tag}_{placement}_u{n_utt}_c{chunk}"
+        c.check(call() == 0, f"{key}: launch")
+        if want is not None:
+            c.check(all(torch.equal(x, y) for x, y in zip(outs, want)), f"{key}: differs from plain")
+        row[key] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+    return row
+
+
+# K11 / K3: case -> launch geometries (placement, utterances a block, frames a chunk)
+K11_GEOMETRIES = {
+    "k11_config4": [("global", 2, 16), ("global", 4, 16), ("global", 1, 16), ("shared", 1, 16), ("shared", 2, 8)],
+    "k11_config5": [("shared", 1, 16), ("shared", 2, 16), ("shared", 4, 16), ("global", 1, 16)],
+    f"k11_u{c.LOOP_UNITS}": [("shared", 1, 16), ("global", 1, 16), ("global", 2, 16)],
+    f"k11_u{c.BIG_LOOP_UNITS}": [("global", 1, 16), ("global", 1, 8)],
+}
+K3_GEOMETRIES = {
+    "k3_config3": [("shared", 1, 16), ("shared", 2, 16), ("shared", 4, 16), ("global", 1, 16)],
+    "k3_config4": [("shared", 2, 16), ("shared", 4, 16), ("shared", 1, 16), ("global", 2, 16), ("shared", 2, 8)],
+    "k3_config5": [("shared", 1, 16), ("shared", 2, 16), ("shared", 4, 16)],
+}
+
+
+def b11_geometry(dev):
+    """The chunked K11 and K3 in each launch geometry of
+    :data:`K11_GEOMETRIES` and :data:`K3_GEOMETRIES`, each held against its
+    plain version."""
+    lib = cuda_scan._library()
+    cases = b11_cases(dev)
+    for tag, geometries in K11_GEOMETRIES.items():
+        print(f"b11 geometry: {CARD} | " + json.dumps(time_k11(lib, dev, tag, cases[tag], geometries)), flush=True)
+    for tag, geometries in K3_GEOMETRIES.items():
+        print(f"b11 geometry: {CARD} | " + json.dumps(time_k3(lib, dev, tag, cases[tag], geometries)), flush=True)
+
+
+def run_b11_new(dev, built, names):
+    """The ``k11n_*`` / ``k3n_*`` variants of the chunked K11 and K3 in the
+    geometry each shape takes (:func:`time_k11`, :func:`time_k3`): K11 at
+    configs 4 and 5 and 250 units, K3 at configs 3, 4 and 5, one line a
+    variant."""
+    cases = b11_cases(dev)
+    n_sm = cuda_scan.sm_count(dev.index)
+    for name in names:
+        path, regs = built[name]
+        lib = ctypes.CDLL(str(path))
+        same = NEW_B11_VARIANTS[name][1]
+        row = {}
+        if name in K11N_VARIANTS:
+            for tag in ("k11_config4", "k11_config5", f"k11_u{c.BIG_LOOP_UNITS}"):
+                est = cases[tag]
+                geom = cuda_scan.gamma_banded_geometry(est[2].shape[0], est[0].shape[2], est[8].shape[0],
+                                                       est[0].shape[0], n_sm)
+                row.update(time_k11(lib, dev, tag, est, [geom], check=same))
+        else:
+            for tag in K3_TAGS:
+                vit = cases[tag]
+                geom = cuda_scan.viterbi_banded_geometry(vit[0].shape[2], vit[0].shape[0], n_sm)
+                row.update(time_k3(lib, dev, tag, vit, [geom], check=same))
+        print(f"variant {name}: {CARD} | " + json.dumps(row) + f" | registers {regs} "
+              f"| {'same function' if same else 'not the same function'}", flush=True)
+
+
 def vb_times(dev):
     """One ``vb_step`` of config 4 (K1 + K2) and of config 2 (K5 + K6) on
     the bench's data through this checkout's package, as ``chip_smoke.py``
@@ -1390,13 +1725,18 @@ def main(names) -> int:
         vb_times(dev)
     if "b7" in names:
         b7_times(dev)
-    names = [n for n in names if n not in ("probe", "times", "b2", "b7", "geometry", "vb")]
+    if "b11" in names:
+        b11_times(dev)
+    if "b11_geometry" in names:
+        b11_geometry(dev)
+    names = [n for n in names if n not in ("probe", "times", "b2", "b7", "b11", "b11_geometry", "geometry", "vb")]
     if not names:
         return 0
     built = build(names)
     for group, run in ((VARIANTS, run_stats), (K8_VARIANTS, run_k8), (K5_VARIANTS, run_k5),
                        (PARENT_VARIANTS, run_k2k6), ({**K2N_VARIANTS, **K6N_VARIANTS}, run_new),
-                       (PARENT_B7_VARIANTS, run_b7_parent), (NEW_B7_VARIANTS, run_b7_new)):
+                       (PARENT_B7_VARIANTS, run_b7_parent), (NEW_B7_VARIANTS, run_b7_new),
+                       (PARENT_B11_VARIANTS, run_b11_parent), (NEW_B11_VARIANTS, run_b11_new)):
         mine = [n for n in names if n in group]
         if mine:
             run(dev, built, mine)
@@ -1409,4 +1749,5 @@ if __name__ == "__main__":
         i = args.index("--sources")
         SOURCES_DIR = Path(args[i + 1]).resolve()
         del args[i:i + 2]
-    sys.exit(main(args or [*VARIANTS, *K8_VARIANTS, *K5_VARIANTS, *K2N_VARIANTS, *K6N_VARIANTS, *NEW_B7_VARIANTS]))
+    sys.exit(main(args or [*VARIANTS, *K8_VARIANTS, *K5_VARIANTS, *K2N_VARIANTS, *K6N_VARIANTS, *NEW_B7_VARIANTS,
+                           *NEW_B11_VARIANTS]))

@@ -986,8 +986,8 @@ def test_hundred_unit_vb_step_runs_through_the_kernels(device):
 
 
 def test_redesigned_kernels_are_deterministic(device):
-    """Two calls of K1, K2, K6, K7 and K15 agree bitwise: every sum runs in a
-    fixed order."""
+    """Two calls of K1, K2, K3, K6, K7, K11 and K15 agree bitwise: every sum
+    runs in a fixed order."""
     a = port_args(scan_problem(5, 50, 3, 78, 9, 70), torch.float32, device)
     fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
     for x, y in zip(cuda_scan.forward_llh_banded(*fwd), cuda_scan.forward_llh_banded(*fwd)):
@@ -995,6 +995,12 @@ def test_redesigned_kernels_are_deterministic(device):
     alpha, norms, _, _ = cuda_scan.forward_llh_banded(*fwd)
     est = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms, a["ends"], a["starts"])
     for x, y in zip(cuda_scan.estep_acc_banded(*est), cuda_scan.estep_acc_banded(*est)):
+        assert torch.equal(x, y)
+    for x, y in zip(cuda_scan.estep_gamma_banded(*est), cuda_scan.estep_gamma_banded(*est)):
+        assert torch.equal(x, y)
+    vit = ((a["stats"] @ a["w"].T + a["bias"]).contiguous(), a["lens"], tss.log_bands(a["bands"]).contiguous(),
+           tss.log_bands(a["init"]).contiguous())
+    for x, y in zip(cuda_scan.viterbi_fwd_banded(*vit), cuda_scan.viterbi_fwd_banded(*vit)):
         assert torch.equal(x, y)
     for s in (30, 150):
         d = dense_args(dense_problem(s, s, 78, 9, 70), torch.float32, device)
@@ -1010,8 +1016,9 @@ def test_redesigned_kernels_are_deterministic(device):
 
 
 def test_banded_smem_formulas_match_the_library(device):
-    """``cuda_scan.forward_banded_smem_bytes``, ``banded_smem_bytes`` and
-    ``acc_banded_smem_bytes`` count what the banded launchers reserve."""
+    """``cuda_scan.forward_banded_smem_bytes``, ``acc_banded_smem_bytes``,
+    ``gamma_banded_smem_bytes`` and ``viterbi_banded_smem_bytes`` count what
+    the banded launchers reserve."""
     lib = cuda_scan._library()
     for s, p, u in ((30, 32, 10), (150, 78, 50), (300, 78, 100), (675, 78, 225), (30, 2000, 10), (4, 5, 1)):
         for placement in ("shared", "global"):
@@ -1020,12 +1027,14 @@ def test_banded_smem_formulas_match_the_library(device):
                 for chunk in cuda_scan.ACC_CHUNKS:
                     assert cuda_scan.forward_banded_smem_bytes(s, p, placement, n_utt, chunk) == \
                         lib.beer_forward_smem_bytes(s, p, glob, n_utt, chunk)
-            assert cuda_scan.banded_smem_bytes("estep_gamma_banded", s, p, u, placement) == \
-                lib.beer_estep_gamma_smem_bytes(s, p, u, glob)
             for n_utt in cuda_scan.ACC_UTTERANCES:
                 for chunk in cuda_scan.ACC_CHUNKS:
                     assert cuda_scan.acc_banded_smem_bytes(s, p, u, placement, n_utt, chunk) == \
                         lib.beer_estep_smem_bytes(s, p, u, glob, n_utt, chunk)
+                    assert cuda_scan.gamma_banded_smem_bytes(s, p, u, placement, n_utt, chunk) == \
+                        lib.beer_estep_gamma_smem_bytes(s, p, u, glob, n_utt, chunk)
+                    assert cuda_scan.viterbi_banded_smem_bytes(s, placement, n_utt, chunk) == \
+                        lib.beer_viterbi_smem_bytes(s, glob, n_utt, chunk)
 
 
 def test_large_p_runs_through_the_backward_kernels(device):
@@ -1146,3 +1155,169 @@ def test_forward_banded_geometries_match_plain_version(device, monkeypatch, case
     for x, y in zip(got, cuda_scan.forward_llh_banded(*fwd)):
         assert torch.equal(x, y)
     assert _launched() == {"forward_llh_banded": 2}
+
+
+# ----------------------------------------------------------------------
+# K11 (B7's banded mode) on the chunked backward, K3 (B3) on K1's skeleton
+# ----------------------------------------------------------------------
+# (units, states per unit, P, forced (placement, utterances a block, frames
+# a chunk)): the geometries gamma_banded_geometry picks at config 4 (50
+# units, B = 514: global, 2), config 5 (10 units, P = 32, B = 258: shared,
+# 1), 100 units (B = 64: shared, 1) and 250 units (global, 1), and others
+GAMMA_BANDED_CASES = [(50, 3, 78, ("global", 2, 16)), (10, 3, 32, ("shared", 1, 16)),
+                      (100, 3, 78, ("shared", 1, 16)), (250, 3, 78, ("global", 1, 16)),
+                      (50, 3, 78, ("shared", 1, 16)), (10, 3, 32, ("shared", 4, 16)),
+                      (50, 3, 78, ("global", 3, 1)), (50, 3, 78, ("shared", 2, 8)), (1, 1, 5, ("shared", 4, 2)),
+                      (11, 3, 6, ("global", 2, 4))]
+
+
+@pytest.mark.parametrize("case", GAMMA_BANDED_CASES, ids=lambda c: "U%d_P%d_%s_u%d_c%d" % (c[0], c[2], *c[3]))
+def test_gamma_banded_geometries_match_plain_version(device, monkeypatch, case):
+    """K11 in each launch geometry (forced), against its plain version (γ
+    and γ₀ abs 1e-5, ξ rel 1e-4): lengths 0, 1, C − 1, C, C + 1, across
+    chunks and ragged, a block of utterances the batch does not fill; γ = 0
+    past each end and γ₀ = 0 on an empty row; two calls agree bitwise."""
+    units, spu, p_dim, geometry = case
+    chunk = geometry[2]
+    lengths = _chunk_lengths(chunk, 3 * chunk + 5)[: 7 if geometry[1] == 4 else 8]
+    a = port_args(scan_problem(units + chunk, units, spu, p_dim, len(lengths), max(lengths), lengths=lengths),
+                  torch.float32, device)
+    fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
+    alpha, norms, _, _ = cuda_scan.forward_llh_banded_plain(*fwd)
+    est = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms, a["ends"], a["starts"])
+    monkeypatch.setattr(cuda_scan, "gamma_banded_geometry", lambda *args: geometry)
+    cuda_scan.reset_launch_counts()
+    got = cuda_scan.estep_gamma_banded(*est)
+    want = cuda_scan.estep_gamma_banded_plain(*est)
+    torch.cuda.synchronize()
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5 and float((got[1] - want[1]).abs().max()) <= 1e-5
+    assert _rel(got[2], want[2]) <= 1e-4
+    for b, ln in enumerate(lengths):
+        assert not got[0][b, ln:].any()
+    assert not got[1][a["lens"] == 0].any()
+    for x, y in zip(got, cuda_scan.estep_gamma_banded(*est)):
+        assert torch.equal(x, y)
+    assert _launched() == {"estep_gamma_banded": 2}
+
+
+def test_gamma_banded_takes_a_peaked_llh(device):
+    """K11 on long utterances whose llh spreads four times wider than the
+    other cases' (W scaled by 4), so that Σv of a frame falls far below 1:
+    the normalised carry holds its plain version at the usual tolerances."""
+    pb = scan_problem(31, 10, 3, 32, 4, 250, lengths=[250, 249, 17, 0])
+    pb["w"] = pb["w"] * 4.0
+    a = port_args(pb, torch.float32, device)
+    fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
+    alpha, norms, _, _ = cuda_scan.forward_llh_banded_plain(*fwd)
+    est = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["final"], alpha, norms, a["ends"], a["starts"])
+    got = cuda_scan.estep_gamma_banded(*est)
+    want = cuda_scan.estep_gamma_banded_plain(*est)
+    torch.cuda.synchronize()
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5 and float((got[1] - want[1]).abs().max()) <= 1e-5
+    assert _rel(got[2], want[2]) <= 1e-4
+
+
+def _viterbi_close(got, want, lf, lens):
+    """K3 equals its plain version (choices, exit indices, α_last); the
+    backtrace on its outputs gives the plain route's paths and scores."""
+    for name, x, y in zip(("choices", "exarg", "alpha_last"), got, want):
+        assert torch.equal(x, y), name
+    paths, scores = cuda_scan.viterbi_backtrace_banded_plain(*got, lf)
+    paths_r, scores_r = cuda_scan.viterbi_backtrace_banded_plain(*want, lf)
+    full = lens > 0
+    assert _rel(scores[full], scores_r[full]) <= 1e-6
+    valid = torch.arange(paths.shape[1], device=paths.device)[None] < lens[:, None]
+    if bool(valid.any()):
+        assert float((paths == paths_r)[valid].float().mean()) >= 0.999
+
+
+# (units, states per unit, forced (placement, utterances a block, frames a
+# chunk)): the geometries viterbi_banded_geometry picks at config 4 (50 × 3,
+# B = 514: shared, 2), config 5 (10 × 3, B = 256: shared, 1), config 3's S
+# = 18 and near the limit of the per-frame kernel (S = 9,600: global, one
+# frame a chunk, the block chain), and others: the warp chain at S = 192
+# (its last register), the block chain at S = 1,100 and 2,100
+VITERBI_CASES = [(50, 3, ("shared", 2, 16)), (10, 3, ("shared", 1, 16)), (6, 3, ("shared", 1, 16)),
+                 (3200, 3, ("global", 1, 1)), (50, 3, ("global", 4, 16)), (50, 3, ("shared", 3, 1)),
+                 (10, 3, ("shared", 4, 8)), (1, 1, ("shared", 4, 2)), (100, 11, ("global", 1, 4)),
+                 (64, 3, ("shared", 2, 16)), (700, 3, ("shared", 1, 4)), (700, 3, ("global", 1, 4))]
+
+
+@pytest.mark.parametrize("case", VITERBI_CASES, ids=lambda c: "U%d_S%d_%s_u%d_c%d" % (c[0], c[0] * c[1], *c[2]))
+def test_viterbi_banded_geometries_match_plain_version(device, monkeypatch, case):
+    """K3 in each launch geometry (forced), against its plain version:
+    choices, exit indices and α_last equal, lengths 0, 1, C − 1, C, C + 1,
+    across chunks and ragged, a block the batch does not fill; choice 0 and
+    exit 0 past each end; two calls agree bitwise."""
+    units, spu, geometry = case
+    chunk = geometry[2]
+    lengths = _chunk_lengths(chunk, 3 * chunk + 5)[: 7 if geometry[1] == 4 else 8]
+    a = port_args(scan_problem(units + 3 * chunk, units, spu, 6, len(lengths), max(lengths), lengths=lengths),
+                  torch.float32, device)
+    llh = (a["stats"] @ a["w"].T + a["bias"]).contiguous()
+    vit = (llh, a["lens"], tss.log_bands(a["bands"]).contiguous(), tss.log_bands(a["init"]).contiguous())
+    monkeypatch.setattr(cuda_scan, "viterbi_banded_geometry", lambda *args: geometry)
+    cuda_scan.reset_launch_counts()
+    got = cuda_scan.viterbi_fwd_banded(*vit)
+    want = cuda_scan.viterbi_fwd_banded_plain(*vit)
+    torch.cuda.synchronize()
+    _viterbi_close(got, want, tss.log_bands(a["final"]).contiguous(), a["lens"])
+    for b, ln in enumerate(lengths):
+        assert not got[0][b, max(ln, 1):].any() and not got[1][b, max(ln, 1):].any()
+    for x, y in zip(got, cuda_scan.viterbi_fwd_banded(*vit)):
+        assert torch.equal(x, y)
+    assert _launched() == {"viterbi_fwd_banded": 2}
+
+
+def test_viterbi_banded_short_batches_and_the_loop(device):
+    """K3 at T = 0 (α_last = log_init), T = 1 (frame 0 alone, every row),
+    and on a loop of one-state units whose best path must take the loop at
+    frame 1 (choice 2, the exit index of frame 0's best end)."""
+    for t_len in (0, 1):
+        a = port_args(scan_problem(3, 4, 3, 6, 3, max(t_len, 1), lengths=[t_len, 0, t_len]), torch.float32, device)
+        llh = (a["stats"] @ a["w"].T + a["bias"])[:, :t_len].contiguous()
+        vit = (llh, a["lens"], tss.log_bands(a["bands"]).contiguous(), tss.log_bands(a["init"]).contiguous())
+        got = cuda_scan.viterbi_fwd_banded(*vit)
+        want = cuda_scan.viterbi_fwd_banded_plain(*vit)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    a = port_args(scan_problem(4, 5, 1, 6, 2, 2, lengths=[2, 2]), torch.float32, device)
+    llh = torch.full((2, 2, 5), -50.0, device=device)
+    llh[:, 0, 0] = 0.0
+    llh[:, 1, 3] = 0.0
+    lb = tss.log_bands(a["bands"]).contiguous()
+    vit = (llh, a["lens"], lb, tss.log_bands(a["init"]).contiguous())
+    got = cuda_scan.viterbi_fwd_banded(*vit)
+    want = cuda_scan.viterbi_fwd_banded_plain(*vit)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert int(got[0][0, 1, 3]) == 2 and int(got[1][0, 1]) == 0
+    paths, _ = cuda_scan.viterbi_backtrace_banded(*got, tss.log_bands(a["final"]).contiguous())
+    assert paths[0].tolist() == [0, 3]
+
+
+def test_gamma_dense_at_the_parents_global_limit(device):
+    """K7 at S = 9,674, the largest S its per-frame kernel took (the global
+    block at a one-frame chunk keeps one ring stage to fit), on a short
+    batch against its plain version (γ abs 1e-5, ξ rel 1e-4)."""
+    s = 9674
+    assert cuda_scan.gamma_instance(s) == ("global", 1)
+    rng = np.random.default_rng(9674)
+    lengths = [4, 1, 0]
+    b, t_len = len(lengths), max(lengths)
+    trans = torch.rand(s, s, generator=torch.Generator(device=device).manual_seed(0), device=device)
+    trans = trans * (trans > 0.3) * (0.9 / s)
+    init = torch.from_numpy(rng.dirichlet(np.ones(s), size=b)).float().to(device)
+    final = torch.from_numpy(rng.uniform(0.05, 0.5, size=(b, s))).float().to(device)
+    llh = torch.from_numpy(rng.normal(size=(b, t_len, s))).float().to(device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    f = cuda_scan.forward_llh_dense_plain(llh, lens, trans, init)
+    est = (llh, lens, trans, final, f[0], f[1])
+    cuda_scan.reset_launch_counts()
+    got = cuda_scan.estep_gamma_dense(*est)
+    want = cuda_scan.estep_gamma_dense_plain(*est)
+    torch.cuda.synchronize()
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5 and _rel(got[1], want[1]) <= 1e-4
+    assert _launched() == {"estep_gamma_dense": 1}

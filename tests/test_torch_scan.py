@@ -122,19 +122,25 @@ KERNEL_NAMES = ["forward_llh_banded", "estep_acc_banded", "viterbi_fwd_banded",
 SCAN_KERNELS = ("forward_llh_banded", "estep_acc_banded", "estep_gamma_banded")
 DENSE_KERNELS = ["forward_llh_dense", "estep_acc_dense", "estep_gamma_dense"]
 S_DENSE = 7
-# lengths across the chunked kernels' 16-frame chunk edge (K1 from frame 0,
-# K7 from each utterance's end), and an empty row
+# lengths across the chunked kernels' 16-frame chunk edge (K1 and K3 from
+# frame 0, K7 and K11 from each utterance's end), and an empty row; K11 and
+# K3 also take a one-frame row
 CHUNK_EDGE_LENGTHS = [15, 16, 17, 33, 0]
-CHUNK_EDGE_CASES = ["forward_llh_banded_chunk_edges"]
+CHUNK_EDGE_LENGTHS_ONE = [15, 16, 17, 33, 1, 0]
+CHUNK_EDGE_CASES = ["forward_llh_banded_chunk_edges", "estep_gamma_banded_chunk_edges",
+                    "viterbi_fwd_banded_chunk_edges"]
 
 
 @pytest.mark.parametrize("kernel", KERNEL_NAMES + CHUNK_EDGE_CASES)
 def test_plain_version_matches_pallas_f32(kernel):
     """The plain versions against the Pallas kernels in interpret mode;
-    ``forward_llh_banded_chunk_edges`` holds K1's plain version (which the
-    card holds the chunked kernel to) at lengths across a chunk edge."""
+    the ``_chunk_edges`` cases hold K1's, K11's and K3's plain versions
+    (which the card holds the chunked kernels to) at lengths across a chunk
+    edge."""
     edges = kernel in CHUNK_EDGE_CASES
-    lengths = CHUNK_EDGE_LENGTHS if edges else None
+    lengths = None
+    if edges:
+        lengths = CHUNK_EDGE_LENGTHS if kernel == "forward_llh_banded_chunk_edges" else CHUNK_EDGE_LENGTHS_ONE
     pb = scan_problem(7, U, SPU, P, len(lengths), max(lengths), lengths=lengths) if edges else _problem()
     kernel = kernel.removesuffix("_chunk_edges")
     a = _port_args(pb, torch.float32)
@@ -156,7 +162,7 @@ def test_plain_version_matches_pallas_f32(kernel):
             # the Pallas kernel's α̂ comes from block checkpoints: its γ
             # lies ~1e-6 from the float64 value, as in the dense case
             gamma, gamma0, xi = _port_gamma(a, alpha, norms)
-            for b in range(B):
+            for b in range(len(lens)):
                 close(gamma[b, :lens[b]], ref["gamma"][b, :lens[b]], RTOL_F32, atol=5e-6)
                 assert not gamma[b, lens[b]:].any()
             close(gamma0[full], ref["gamma"][full, 0], RTOL_F32, atol=5e-6)
@@ -742,40 +748,42 @@ def test_acc_banded_geometry(case):
 # (kernel, S, P, U, B, placement): K1 at config 4 (B = 514), at S = 674 and
 # 675 (the per-frame kernel's shared limit; the chunked kernel's block, W
 # beside its ring of chunks, leaves shared memory above S = 544 at B = 64)
-# and at a large P; K11 to 140 units in shared memory, both at a large P
+# and at a large P; K11 at config 5 (shared), at 140 and 141 units (the
+# per-frame kernel's shared limit; the chunked kernel's block, W and ξ
+# beside its ring of chunks, leaves shared memory above 113 units at B =
+# 64) and at a large P
 BANDED_PLACEMENTS = [
     ("forward_llh_banded", 150, 78, 50, 514, "shared"), ("forward_llh_banded", 674, 78, 224, 64, "global"),
     ("forward_llh_banded", 675, 78, 225, 64, "global"), ("forward_llh_banded", 30, 2000, 10, 64, "global"),
-    ("estep_gamma_banded", 30, 32, 10, 258, "shared"), ("estep_gamma_banded", 420, 78, 140, 64, "shared"),
+    ("estep_gamma_banded", 30, 32, 10, 258, "shared"), ("estep_gamma_banded", 420, 78, 140, 64, "global"),
     ("estep_gamma_banded", 423, 78, 141, 64, "global"), ("estep_gamma_banded", 30, 2000, 10, 64, "global"),
 ]
 
 
 @pytest.mark.parametrize("case", BANDED_PLACEMENTS, ids=lambda c: "%s_S%d_P%d" % c[:3])
 def test_banded_placement(case):
-    """W (and K11's ξ) in shared memory while they fit a block, else Wᵀ from
-    device memory and ξ in the partial row; the global placement fits.
-    K1's placement is that of the geometry its wrapper launches at the
-    batch size (:func:`test_forward_banded_geometry`)."""
+    """W (and K11's ξ) in shared memory while they fit a block beside its
+    chunks, else Wᵀ from device memory and ξ in the partial row; the global
+    placement fits.  The placement is that of the geometry the wrapper
+    launches at the batch size (:func:`test_forward_banded_geometry`,
+    :func:`test_gamma_banded_geometry`)."""
     kernel, s, p_dim, units, b, want = case
     assert cuda_scan.banded_placement(kernel, s, p_dim, units, b, N_SM) == want
     if kernel == "forward_llh_banded":
         placement, n_utt, chunk = cuda_scan.forward_banded_geometry(s, p_dim, b, N_SM)
         size = lambda pl: cuda_scan.forward_banded_smem_bytes(s, p_dim, pl, n_utt, chunk)  # noqa: E731
-        assert placement == want and size(want) <= cuda_scan.SMEM_LIMIT
-        assert size("global") < size("shared")
-        return
-    shared = cuda_scan.banded_smem_bytes(kernel, s, p_dim, units, "shared")
-    assert (shared <= cuda_scan.SMEM_LIMIT) == (want == "shared")
-    glob = cuda_scan.banded_smem_bytes(kernel, s, p_dim, units, "global")
-    assert glob < shared and glob <= 4 * (11 * s + p_dim + 2 * units + 64)
+    else:
+        placement, n_utt, chunk = cuda_scan.gamma_banded_geometry(s, p_dim, units, b, N_SM)
+        size = lambda pl: cuda_scan.gamma_banded_smem_bytes(s, p_dim, units, pl, n_utt, chunk)  # noqa: E731
+    assert placement == want and size(want) <= cuda_scan.SMEM_LIMIT
+    assert size("global") < size("shared")
 
 
 def test_banded_placement_names_only_banded_kernels():
-    # K1's is forward_banded_smem_bytes, K2's acc_banded_smem_bytes
-    for kernel in ("estep_acc_dense", "estep_acc_banded", "forward_llh_banded"):
+    # K1, K2, K3 and K11 have a banded placement; the dense kernels have dense_placement
+    for kernel in ("estep_acc_dense", "estep_gamma_dense", "scaled_pass"):
         with pytest.raises(ValueError, match="not a banded scan kernel"):
-            cuda_scan.banded_smem_bytes(kernel, 30, 78)
+            cuda_scan.banded_placement(kernel, 30, 78, 10, 64, N_SM)
 
 
 # (S, (n_r, n_c) or () for K7's ξ over all states) -> K7's / K15's (instance,
@@ -783,13 +791,16 @@ def test_banded_placement_names_only_banded_kernels():
 # S = 32, a non-square K15 block at S = 30; the block instance above (S =
 # 33, phase 18's S = 150 shared with 16-frame chunks, both sides of the
 # shared limit at S = 168 / 169, 300 and 750 global), K15 at config 4's
-# shape (50 × 50 at S = 150) and both sides of its limit at 50 × 50
+# shape (50 × 50 at S = 150) and both sides of its limit at 50 × 50; K7 at
+# S = 9,674, the largest the per-frame kernel took (its one-frame global
+# block keeps one ring stage), and at its limit, S = 14,508
 GAMMA_INSTANCES = [
     ((18, ()), ("warp", 16)), ((30, ()), ("warp", 16)), ((32, ()), ("warp", 16)),
     ((30, (10, 15)), ("warp", 16)), ((33, ()), ("shared", 16)), ((150, ()), ("shared", 16)),
     ((168, ()), ("shared", 1)), ((169, ()), ("global", 16)), ((300, ()), ("global", 16)),
     ((750, ()), ("global", 8)), ((150, (50, 50)), ("shared", 16)), ((231, (50, 50)), ("shared", 1)),
     ((232, (50, 50)), ("global", 16)), ((300, (100, 150)), ("global", 16)),
+    ((9674, ()), ("global", 1)), ((14508, ()), ("global", 1)),
 ]
 
 
@@ -925,3 +936,101 @@ def test_forward_banded_geometry_has_a_limit():
     assert cuda_scan.forward_banded_geometry(9660, 78, 64, N_SM) == ("global", 1, 1)
     assert cuda_scan.forward_banded_smem_bytes(9660, 78, "global", 1, 1) > cuda_scan.SMEM_LIMIT
     assert cuda_scan.forward_banded_smem_bytes(9655, 78, "global", 1, 1) <= cuda_scan.SMEM_LIMIT
+
+
+# (U, P, B) -> K11's (placement, utterances a block, frames a chunk): config
+# 4's loop (B = 514) and config 5's (B = 258), 100 and 250 units at phase
+# 18's B = 64; at a batch of many waves both sides of each change of the
+# rule (W and ξ leave shared memory above 14 units at four utterances a
+# block, above 30 at two; one a block above 61), the per-frame kernel's
+# shared limit (140 / 141 units), 1,000 units, a large P, and the largest
+# loop the per-frame kernel took (1,656 units at P = 78, one-frame chunks)
+GAMMA_BANDED_GEOMETRIES = [
+    ((50, 78, 514), ("global", 2, 16)), ((10, 32, 258), ("shared", 1, 16)), ((100, 78, 64), ("shared", 1, 16)),
+    ((250, 78, 64), ("global", 1, 16)), ((14, 78, MANY_WAVES), ("shared", 4, 16)),
+    ((15, 78, MANY_WAVES), ("shared", 4, 16)), ((20, 78, MANY_WAVES), ("global", 4, 16)),
+    ((30, 78, MANY_WAVES), ("shared", 2, 16)), ((40, 78, MANY_WAVES), ("global", 2, 16)),
+    ((61, 78, MANY_WAVES), ("global", 2, 16)), ((62, 78, MANY_WAVES), ("global", 1, 16)),
+    ((140, 78, MANY_WAVES), ("global", 1, 16)), ((141, 78, MANY_WAVES), ("global", 1, 16)),
+    ((1000, 78, MANY_WAVES), ("global", 1, 2)), ((10, 2000, MANY_WAVES), ("global", 1, 8)),
+    ((1656, 78, MANY_WAVES), ("global", 1, 1)),
+]
+
+
+@pytest.mark.parametrize("case", GAMMA_BANDED_GEOMETRIES, ids=lambda c: "U%d_P%d_B%d" % c[0])
+def test_gamma_banded_geometry(case):
+    """K11's geometry is chosen by fit and the batch size in one place, by
+    K2's rule (:func:`_check_chunked_geometry`); its block is K2's without
+    the moments.  Every choice fits, so every phone loop of these sizes
+    runs through the kernel."""
+    (units, p_dim, b), want = case
+    s = 3 * units
+    geometry = cuda_scan.gamma_banded_geometry(s, p_dim, units, b, N_SM)
+    assert geometry == want
+    size = lambda pl, n, c: cuda_scan.gamma_banded_smem_bytes(s, p_dim, units, pl, n, c)  # noqa: E731
+    _check_chunked_geometry(size, b, geometry)
+    assert cuda_scan.banded_placement("estep_gamma_banded", s, p_dim, units, b, N_SM) == geometry[0]
+    placement, n_utt, chunk = geometry
+    moments = 4 * 3 * units * (-(-(p_dim + 1) // 4) * 4)
+    assert size("shared", n_utt, chunk) == \
+        cuda_scan.acc_banded_smem_bytes(s, p_dim, units, "shared", n_utt, chunk) - moments
+    assert size("global", n_utt, chunk) == cuda_scan.acc_banded_smem_bytes(s, p_dim, units, "global", n_utt, chunk)
+
+
+def test_gamma_banded_geometry_has_a_limit():
+    """Every loop of three-state units the per-frame K11 took (11·S + P +
+    2U + 64 floats, to 1,656 units at P = 78) runs; above 1,704 units no
+    block fits, and the geometry names the smallest one, which the launch
+    refuses."""
+    per_frame = lambda u, p: 4 * (11 * 3 * u + p + 2 * u + 64)  # noqa: E731
+    largest = max(u for u in range(1, 3000) if per_frame(u, 78) <= cuda_scan.SMEM_LIMIT)
+    assert largest == 1656
+    assert cuda_scan.gamma_banded_smem_bytes(3 * largest, 78, largest, "global", 1, 1) <= cuda_scan.SMEM_LIMIT
+    assert cuda_scan.gamma_banded_smem_bytes(3 * 1704, 78, 1704, "global", 1, 1) <= cuda_scan.SMEM_LIMIT
+    assert cuda_scan.gamma_banded_geometry(3 * 1705, 78, 1705, 64, N_SM) == ("global", 1, 1)
+    assert cuda_scan.gamma_banded_smem_bytes(3 * 1705, 78, 1705, "global", 1, 1) > cuda_scan.SMEM_LIMIT
+
+
+# (S, B) -> K3's (placement, utterances a block, frames a chunk): config 4's
+# loop (B = 514), config 5's (B = 256), the recognizer's S = 18 (B = 128),
+# phase 18's loops at B = 64; at a batch of many waves the changes of the
+# rule (four utterances a block to S = 150, two to the warp chain's 192, one above,
+# where a block walks one chain; the bands leave shared memory where only
+# the global block leaves its SM room for a second one), shorter chunks
+# toward the largest S, and the per-frame kernel's limit (9,674) and the
+# new one (16,564)
+VITERBI_GEOMETRIES = [
+    ((150, 514), ("shared", 2, 16)), ((30, 256), ("shared", 1, 16)), ((18, 128), ("shared", 1, 16)),
+    ((300, 64), ("shared", 1, 16)), ((750, 64), ("shared", 1, 16)), ((18, MANY_WAVES), ("shared", 4, 16)),
+    ((150, MANY_WAVES), ("shared", 4, 16)), ((192, MANY_WAVES), ("shared", 2, 16)),
+    ((193, MANY_WAVES), ("shared", 1, 16)), ((300, MANY_WAVES), ("shared", 1, 16)),
+    ((450, MANY_WAVES), ("shared", 1, 16)), ((750, MANY_WAVES), ("shared", 1, 16)),
+    ((2000, MANY_WAVES), ("shared", 1, 8)), ((5000, MANY_WAVES), ("global", 1, 4)),
+    ((9674, 64), ("global", 1, 1)), ((16564, MANY_WAVES), ("global", 1, 1)),
+]
+
+
+@pytest.mark.parametrize("case", VITERBI_GEOMETRIES, ids=lambda c: "S%d_B%d" % c[0])
+def test_viterbi_banded_geometry(case):
+    """K3's geometry is chosen by fit and the batch size in one place, by
+    K1's rule (:func:`_check_chunked_geometry`); every choice fits, and
+    above the warp chain's S one utterance a block takes the whole block."""
+    (s, b), want = case
+    geometry = cuda_scan.viterbi_banded_geometry(s, b, N_SM)
+    assert geometry == want
+    assert s <= cuda_scan.VIT_WARP_STATES or geometry[1] == 1
+    _check_chunked_geometry(lambda pl, n, c: cuda_scan.viterbi_launch_bytes(s, pl, n, c), b, geometry)
+    assert cuda_scan.banded_placement("viterbi_fwd_banded", s, 0, 0, b, N_SM) == geometry[0]
+
+
+def test_viterbi_banded_geometry_has_a_limit():
+    """Every S the per-frame K3 took (6·S + 64 floats, to S = 9,674) runs;
+    above S = 16,564 no block fits, and the geometry names the smallest
+    one, which the launch refuses."""
+    largest = max(s for s in range(1, 20000) if 4 * (6 * s + 64) <= cuda_scan.SMEM_LIMIT)
+    assert largest == 9674
+    placement, n_utt, chunk = cuda_scan.viterbi_banded_geometry(largest, 64, N_SM)
+    assert cuda_scan.viterbi_banded_smem_bytes(largest, placement, n_utt, chunk) <= cuda_scan.SMEM_LIMIT
+    assert cuda_scan.viterbi_banded_smem_bytes(16564, "global", 1, 1) <= cuda_scan.SMEM_LIMIT
+    assert cuda_scan.viterbi_banded_geometry(16565, 64, N_SM) == ("global", 1, 1)
+    assert cuda_scan.viterbi_banded_smem_bytes(16565, "global", 1, 1) > cuda_scan.SMEM_LIMIT
