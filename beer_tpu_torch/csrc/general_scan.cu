@@ -17,14 +17,16 @@
 //                       dense and banded.
 //
 // Each replaces Pallas TPU kernels of beer_tpu/ops/pallas_scan.py; the note
-// above each kernel names them.  The design is that of the other scan
-// kernels: one thread block per utterance, threads over states in strided
-// loops, the time loop inside the block, the transition operand (a dense
-// (S, S) matrix with an odd row stride, or the four band vectors) in shared
-// memory for the whole recursion, every reduction in a fixed order.  What
-// bounds them is the serial chain (two or three block reductions a step)
-// and, for the dense instances, S shared-memory FMAs per state and step;
-// the (B, T, S) streams are read and written once, coalesced.
+// above each kernel names them.  K12 and K13's dense instance: one thread
+// block per utterance, threads over states in strided loops, the time loop
+// inside the block, the transition operand (a dense (S, S) matrix with an
+// odd row stride, or the four band vectors) in shared memory for the whole
+// recursion, every reduction in a fixed order.  What bounds them is the
+// serial chain (two or three block reductions a step) and, for the dense
+// instances, S shared-memory FMAs per state and step; the (B, T, S) streams
+// are read and written once, coalesced.  K13's banded instance runs frames
+// in chunks on the chain design of K3 and K11 (its note below): the chain
+// keeps only what depends on the carry.
 //
 // The dense instances have a second placement (template flag kGlobal), as
 // K5–K7 have (hmm_scan.cu): above S = 239 (K12) or 237 (K13) the (S, S)
@@ -37,6 +39,8 @@
 // frames t >= len into the outputs (callers read the last stored frame as
 // the last valid one), and frame 0 always fires, so a row of length 0
 // carries normalise(init).  The caller feeds e_llh = 1 on frames t >= len.
+
+#include <type_traits>
 
 #include "scan_common.cuh"
 
@@ -55,8 +59,8 @@ size_t scaled_pass_smem_floats(int mode, bool global, int s) {
   return operand_smem_floats(mode == kBandedForward, global, s) + 2 * static_cast<size_t>(s) + 2 * kMaxWarps;
 }
 
-size_t smoothing_smem_floats(bool banded, bool global, int s) {
-  return operand_smem_floats(banded, global, s) + 5 * static_cast<size_t>(s) + 2 * kMaxWarps;
+size_t smoothing_smem_floats(bool global, int s) {  // the dense instance
+  return operand_smem_floats(false, global, s) + 5 * static_cast<size_t>(s) + 2 * kMaxWarps;
 }
 
 // Copies the transition operand into shared memory: the four band vectors
@@ -234,26 +238,25 @@ __global__ void scaled_pass_kernel(
 }
 
 // ---------------------------------------------------------------------
-// K13 — v-space backward with the smoothing outputs in-step.
+// K13 — v-space backward with the smoothing outputs in-step, dense.
 // Replaces beer_tpu/ops/pallas_scan.py _make_smoothing_kernel (wrapper
-// backward_smoothing_pass; dense) and _make_smoothing_banded_kernel
-// (wrapper backward_smoothing_banded; kBanded).
+// backward_smoothing_pass); the banded instance is the chunked kernel
+// below.
 //
 // Walking t from len − 1 down to 0 with the carry v̂_{t+1}: u1 = final at
-// the last frame, else A v̂_{t+1} (banded: v̂_i·a_self_i + v̂_{i+1}·a_adv_i +
-// exit_i·Σ_j w_j v̂_j, the last lane takes no advance); ν = max(Σu1, FLT_MIN);
-// ab = α̂_t ⊙ (u1/ν); post_norm = Σab; γ = ab / max(post_norm, FLT_MIN);
-// v = e_t ⊙ u1; sv = max(Σv, FLT_MIN); ŵ = v / sv (the next carry);
-// w_sums = sv / ν.  No transcendental.  On frames t >= len the kernel
-// writes γ = 0, ŵ = 0 and w_sums = post_norm = 1: no consumer reads them
-// (their ξ weight is 0), the TPU kernel writes the drifting recursion there.
+// the last frame, else A v̂_{t+1}; ν = max(Σu1, FLT_MIN); ab = α̂_t ⊙ (u1/ν);
+// post_norm = Σab; γ = ab / max(post_norm, FLT_MIN); v = e_t ⊙ u1; sv =
+// max(Σv, FLT_MIN); ŵ = v / sv (the next carry); w_sums = sv / ν.  No
+// transcendental.  On frames t >= len the kernel writes γ = 0, ŵ = 0 and
+// w_sums = post_norm = 1: no consumer reads them (their ξ weight is 0), the
+// TPU kernel writes the drifting recursion there.
 // ---------------------------------------------------------------------
-template <bool kBanded, bool kGlobal>
+template <bool kGlobal>
 __global__ void smoothing_pass_kernel(
     const float* __restrict__ e,       // (B, T, S)
     const float* __restrict__ alpha,   // (B, T, S), K12's forward α̂
     const int* __restrict__ lens,      // (B,)
-    const float* __restrict__ mat,     // (S, S) (kGlobal: Aᵀ) or (4, S)
+    const float* __restrict__ mat,     // (S, S) (kGlobal: Aᵀ)
     const float* __restrict__ final_,  // (B, S)
     float* __restrict__ gamma,         // (B, T, S)
     float* __restrict__ w_out,         // (B, T, S)
@@ -263,7 +266,7 @@ __global__ void smoothing_pass_kernel(
   extern __shared__ float smem[];
   const int ldt = odd_stride(S);
   float* mat_sh = smem;
-  float* fin_sh = mat_sh + operand_smem_floats(kBanded, kGlobal, S);
+  float* fin_sh = mat_sh + operand_smem_floats(false, kGlobal, S);
   // A(i, j) = a_m[i·a_rs + j·a_cs]: shared (ldt, 1), global Aᵀ (1, S)
   const float* a_m = kGlobal ? mat : mat_sh;
   const int a_rs = kGlobal ? 1 : ldt, a_cs = kGlobal ? S : 1;
@@ -275,7 +278,7 @@ __global__ void smoothing_pass_kernel(
 
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int len = min(lens[b], T);
-  if (!kGlobal) load_transitions<kBanded>(mat_sh, mat, S, ldt);
+  if (!kGlobal) load_transitions<false>(mat_sh, mat, S, ldt);
   for (int s = tid; s < S; s += nt) {
     fin_sh[s] = final_[static_cast<size_t>(b) * S + s];
     vh_sh[s] = 0.f;
@@ -300,19 +303,12 @@ __global__ void smoothing_pass_kernel(
     const float* e_t = e_b + static_cast<size_t>(t) * S;
     const float* al_t = al_b + static_cast<size_t>(t) * S;
     __syncthreads();  // the carry v̂_{t+1} (or the loads above) is complete
-    float r = 0.f, unused = 0.f;
-    if (kBanded && !is_last) {
-      for (int s = tid; s < S; s += nt) r += mat_sh[3 * S + s] * vh_sh[s];
-      block_sum_sum(r, unused, red);
-    }
+    float unused = 0.f;
     float su = 0.f, sv = 0.f;
     for (int i = tid; i < S; i += nt) {
       float u1;
       if (is_last) {
         u1 = fin_sh[i];
-      } else if (kBanded) {
-        const float next = i + 1 < S ? vh_sh[i + 1] : 0.f;
-        u1 = vh_sh[i] * mat_sh[i] + next * mat_sh[S + i] + r * mat_sh[2 * S + i];
       } else {
         const float* ar = a_m + i * a_rs;
         u1 = 0.f;
@@ -349,6 +345,313 @@ __global__ void smoothing_pass_kernel(
   }
 }
 
+// ---------------------------------------------------------------------
+// K13 — the banded instance, in chunks.
+// Replaces beer_tpu/ops/pallas_scan.py _make_smoothing_banded_kernel
+// (wrapper backward_smoothing_banded).  The recursion and the outputs are
+// the dense instance's with A v̂ = v̂ ⊙ a_self + shift_up(v̂) ⊙ a_adv +
+// (Σ w·v̂)·exit (the last state takes no advance), in the plain version's
+// per-element order: ab = α̂·(u1/ν) with ν floored, then its sum (dividing
+// Σα̂u1 by ν once would change which frames underflow to γ = 0).
+//
+// What bounds it on the H100 is the serial chain: a step is a few FMAs a
+// state and three sums, so the chain keeps only what depends on the carry,
+// as K3 and K11 do.  Frames go in chunks of C from each utterance's end;
+// one barrier a chunk, and in between:
+//   * the chain walks chunk c.  Up to S = 32·kSmoRegs, one warp an
+//     utterance, a lane holding kSmoRegs consecutive states' v̂ in
+//     registers (state i + 1 of its last one by one shuffle): per step u1,
+//     v = e·u1 (e from the chunk's ring stage), then one shuffle tree of
+//     Σu1, Σv and Σw·v, and the carry v̂ = v·(1/Σv), r = Σw·v / Σv — no
+//     barrier.  Above, a block walks one utterance: its chain threads (two
+//     states a thread, up to kSmoChainWarps warps) strided over the states
+//     read v_{t+1} from shared memory and scale it by 1/Σv_{t+1} as they
+//     read it (K11's normalised carry), and a named barrier a step joins
+//     the warps' three partial sums.  The chain writes
+//     u1 and v (over e) and per frame Σu1 and Σv to shared memory; the
+//     utterance's last frame (u1 = final) is a step of its own, so that no
+//     step waits on a load from device memory;
+//   * the other warps ("side") fetch chunk c + 1's e and α̂ (each C·S
+//     contiguous floats) by 16-byte cp.async into rings of three stages
+//     and finish chunk c − 1 from what its chain left, a warp a frame: ab =
+//     α̂·(u1/ν), post_norm = Σab, γ = ab·(1 / max(post_norm, FLT_MIN)), ŵ =
+//     v·(1/sv), w_sums = sv/ν, written coalesced.
+// Frames t >= len get γ = 0, ŵ = 0, w_sums = post_norm = 1, as the dense
+// instance writes them (the whole block, after its chains).  A block runs
+// n_utt utterances on the warp chain; two placements (kGlobal): the bands
+// in shared memory or read from device memory.  The wrapper picks the
+// placement, n_utt and C (cuda_scan.smoothing_banded_geometry).
+// ---------------------------------------------------------------------
+constexpr int kSmoThreads = 512;      // a block: the chain's warps and the side warps
+constexpr int kSmoRegs = 6;           // the warp chain keeps v̂ in registers up to S = 32·kSmoRegs
+constexpr int kSmoChainWarps = 8;     // the block chain: warps on the chain at most
+constexpr int kSmoChunk = 16;         // frames a chunk, at most (cuda_scan.ACC_CHUNKS)
+
+struct SmoLayout {  // float offsets into one K13 banded block's shared memory
+  size_t bands, red, utt, stage, per_utt, total;
+  int ldg;
+};
+
+__host__ __device__ inline SmoLayout smo_layout(int S, int n_utt, int C, bool global) {
+  SmoLayout l;
+  l.ldg = static_cast<int>(round4(S));
+  l.stage = round4(static_cast<size_t>(C) * S + 6);  // a chunk's C·S floats in whole 16-byte segments
+  size_t o = 0;
+  l.bands = o;  // (a_self, a_adv, exit, w) a float4 a state
+  if (!global) o += 4 * static_cast<size_t>(l.ldg);
+  l.red = o;  // the block chain: 2 stages × (Σu1, Σv, Σw·v) a warp
+  o += 6 * kMaxWarps;
+  l.utt = o;
+  l.per_utt = 6 * l.stage                            // rings: 3 × e (then v), 3 × α̂
+              + 2 * static_cast<size_t>(C) * l.ldg   // 2 × u1 (then ab) (C, ldg)
+              + 2 * round4(2 * static_cast<size_t>(C));  // 2 × per frame Σu1, Σv
+  o += static_cast<size_t>(n_utt) * l.per_utt;
+  l.total = o;
+  return l;
+}
+
+// The chain's threads of a block-chain block at S states: two states a
+// thread, at most kSmoChainWarps warps; the block's other warps are side
+// warps.
+__host__ __device__ inline int smo_block_chain(int S) {
+  const int warps = (S + 63) / 64;
+  return 32 * (warps < kSmoChainWarps ? warps : kSmoChainWarps);
+}
+
+// The offset of g's float in a stage that cp_async_run filled from g.
+__device__ __forceinline__ int smo_head(const float* g) { return run_head(g) >> 2; }
+
+template <bool kGlobal, int kRegs>
+__global__ void __launch_bounds__(kSmoThreads, 2) smoothing_banded_chunked_kernel(
+    const float* __restrict__ e,       // (B, T, S)
+    const float* __restrict__ alpha,   // (B, T, S), K12's forward α̂
+    const int* __restrict__ lens,      // (B,)
+    const float* __restrict__ bands,   // (4, S): a_self, a_adv, exit, w
+    const float* __restrict__ final_,  // (B, S)
+    float* __restrict__ gamma,         // (B, T, S)
+    float* __restrict__ w_out,         // (B, T, S)
+    float* __restrict__ wsum,          // (B, T)
+    float* __restrict__ pnorm,         // (B, T)
+    int B, int T, int S, int n_utt, int chunk) {
+  constexpr bool kBlock = kRegs == 0;  // the block chain, one utterance a block
+  const int C = chunk;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const SmoLayout L = smo_layout(S, n_utt, C, kGlobal);
+  const int ldg = L.ldg;
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int b0 = blockIdx.x * n_utt;
+  // the chain's threads: warp u for utterance u, or smo_block_chain(S) threads; the rest are side threads
+  const int n_chain = kBlock ? smo_block_chain(S) : 32 * n_utt;
+  const int sid = tid - n_chain, n_side = nt - n_chain;
+  float4* band_sh = reinterpret_cast<float4*>(smem + L.bands);
+  float* red = smem + L.red;
+  // utterance u's pieces: ring stage st of e (then v) and of α̂, stage st of u1 (then ab) and of the frame sums
+  auto ering = [&](int u, int st) { return smem + L.utt + u * L.per_utt + st * L.stage; };
+  auto aring = [&](int u, int st) { return ering(u, 3 + st); };
+  auto ubuf = [&](int u, int st) { return ering(u, 6) + static_cast<size_t>(st) * C * ldg; };
+  auto sbuf = [&](int u, int st) { return ubuf(u, 2) + st * round4(2 * static_cast<size_t>(C)); };
+  auto len_of = [&](int u) { return b0 + u < B ? min(lens[b0 + u], T) : 0; };
+  // frame lo's row of utterance u in device memory (e or α̂), whose chunk starts there
+  auto grow = [&](const float* x, int u, int lo) { return x + (static_cast<size_t>(b0 + u) * T + lo) * S; };
+  // chunk c of utterance u: frames lo .. lo + nf − 1, counted from its end
+  auto span = [&](int u, int c, int& lo) {
+    const int hi = len_of(u) - 1 - c * C;
+    lo = max(hi - C + 1, 0);
+    return hi >= 0 ? hi - lo + 1 : 0;
+  };
+  auto band = [&](int s) {
+    return kGlobal ? make_float4(bands[s], bands[S + s], bands[2 * S + s], bands[3 * S + s]) : band_sh[s];
+  };
+
+  int n_chunks = 0;
+  for (int u = 0; u < n_utt; ++u) n_chunks = max(n_chunks, (len_of(u) + C - 1) / C);
+  const float* e_end = e + static_cast<size_t>(B) * T * S;
+  const float* a_end = alpha + static_cast<size_t>(B) * T * S;
+  auto fetch = [&](int c) {  // chunk c's e and α̂ (its nf·S contiguous floats each) into ring stage c % 3
+    for (int u = 0; u < n_utt; ++u) {
+      int lo;
+      const int nf = span(u, c, lo);
+      if (nf == 0) continue;
+      const size_t n = sizeof(float) * nf * S;
+      cp_async_run(ering(u, c % 3), grow(e, u, lo), n, e, e_end, sid, n_side);
+      cp_async_run(aring(u, c % 3), grow(alpha, u, lo), n, alpha, a_end, sid, n_side);
+    }
+    cp_async_commit();
+  };
+  if (sid >= 0 && n_chunks > 0) fetch(0);
+  for (int s = tid; s < (kGlobal ? 0 : ldg); s += nt)
+    band_sh[s] = s < S ? make_float4(bands[s], bands[S + s], bands[2 * S + s], bands[3 * S + s])
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the chain's carry: the warp chain's v̂ of the lane's states lane·kRegs + k at the frame after the
+  // current one; the block chain reads v of that frame from shared memory and scales it by ip = 1/Σv
+  float vh[kRegs > 0 ? kRegs : 1];
+#pragma unroll
+  for (int k = 0; k < (kRegs > 0 ? kRegs : 1); ++k) vh[k] = 0.f;
+  float r = 0.f, ip = 0.f;  // Σw·v̂ of the frame after the current one; the block chain's 1/Σv there
+
+  // one step of utterance u's chain at frame f of chunk c, nf frames, e0 its first row of e (then v), v1
+  // the first row of chunk c − 1 (kLast: the utterance's last frame, u1 = final)
+  auto chain_step = [&](int u, int c, int f, int nf, float* e0, const float* v1, auto last) {
+    constexpr bool kLast = decltype(last)::value;
+    float* er = e0 + static_cast<size_t>(f) * S;
+    float* ur = ubuf(u, c & 1) + static_cast<size_t>(f) * ldg;
+    float* sc = sbuf(u, c & 1);
+    const float* fin = final_ + static_cast<size_t>(b0 + u) * S;
+    float su = 0.f, sv = 0.f, sw = 0.f;
+    if constexpr (kRegs > 0) {
+      float ev[kRegs];
+      float4 bd[kRegs];
+#pragma unroll
+      for (int k = 0; k < kRegs; ++k) {  // what does not wait for the carry first
+        const int s = lane * kRegs + k;
+        ev[k] = s < S ? er[s] : 0.f;
+        bd[k] = s < S ? band(s) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      const float vn = __shfl_down_sync(0xffffffffu, vh[0], 1);  // v̂ of the next lane's first state
+#pragma unroll
+      for (int k = 0; k < kRegs; ++k) {
+        const int s = lane * kRegs + k;
+        const float up = k + 1 < kRegs ? vh[k + 1] : (lane < 31 ? vn : 0.f);  // 0 past S
+        float u1 = 0.f;
+        if (s < S) u1 = kLast ? fin[s] : fmaf(r, bd[k].z, fmaf(vh[k], bd[k].x, up * bd[k].y));
+        const float v = ev[k] * u1;
+        if (s < S) {
+          ur[s] = u1;
+          er[s] = v;
+        }
+        vh[k] = v;  // scaled below
+        su += u1;
+        sv += v;
+        sw = fmaf(v, bd[k].w, sw);
+      }
+      for (int o = 16; o > 0; o >>= 1) {  // one tree for the three sums; every lane gets them
+        su += __shfl_xor_sync(0xffffffffu, su, o);
+        sv += __shfl_xor_sync(0xffffffffu, sv, o);
+        sw += __shfl_xor_sync(0xffffffffu, sw, o);
+      }
+      const float ipv = 1.f / fmaxf(sv, FLT_MIN);
+#pragma unroll
+      for (int k = 0; k < kRegs; ++k) vh[k] *= ipv;
+      r = sw * ipv;
+      if (lane == 0) {
+        sc[f] = su;
+        sc[C + f] = sv;
+      }
+    } else {
+      // v of the frame after: the row above, or chunk c − 1's first row (its stage is intact until c + 1)
+      const float* vn = f == nf - 1 ? v1 : er + S;
+      for (int s = tid; s < S; s += n_chain) {
+        const float4 bd = band(s);
+        float u1;
+        if constexpr (kLast) {
+          u1 = fin[s];
+        } else {
+          const float up = s + 1 < S ? vn[s + 1] * ip : 0.f;
+          u1 = fmaf(r, bd.z, fmaf(vn[s] * ip, bd.x, up * bd.y));
+        }
+        const float v = er[s] * u1;
+        ur[s] = u1;
+        er[s] = v;
+        su += u1;
+        sv += v;
+        sw = fmaf(v, bd.w, sw);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        su += __shfl_xor_sync(0xffffffffu, su, o);
+        sv += __shfl_xor_sync(0xffffffffu, sv, o);
+        sw += __shfl_xor_sync(0xffffffffu, sw, o);
+      }
+      float* part = red + (f & 1) * 3 * kMaxWarps;  // a chunk's steps alternate; chunks are apart by a barrier
+      if (lane == 0) {
+        part[warp] = su;
+        part[kMaxWarps + warp] = sv;
+        part[2 * kMaxWarps + warp] = sw;
+      }
+      asm volatile("bar.sync 1, %0;" ::"r"(n_chain) : "memory");  // also: row f (v) is complete
+      su = sv = sw = 0.f;
+      for (int i = 0; i < (n_chain >> 5); ++i) {  // every thread, in one order
+        su += part[i];
+        sv += part[kMaxWarps + i];
+        sw += part[2 * kMaxWarps + i];
+      }
+      ip = 1.f / fmaxf(sv, FLT_MIN);
+      r = sw * ip;
+      if (tid == 0) {
+        sc[f] = su;
+        sc[C + f] = sv;
+      }
+    }
+  };
+  auto walk = [&](int u, int c) {  // utterance u's frames of chunk c, last first
+    int lo;
+    const int nf = span(u, c, lo);
+    float* e0 = ering(u, c % 3) + smo_head(grow(e, u, lo));
+    const float* v1 = ering(u, (c + 2) % 3) + smo_head(grow(e, u, lo + nf));  // read from c = 1 on
+    int f = nf - 1;
+    if (c == 0 && nf > 0) chain_step(u, c, f--, nf, e0, v1, std::true_type{});
+    for (; f >= 0; --f) chain_step(u, c, f, nf, e0, v1, std::false_type{});
+  };
+
+  // frame lo + f of utterance u's chunk c, by one warp: its outputs from what the chain left
+  auto finish = [&](int u, int c, int f, int lo) {
+    const float* sc = sbuf(u, c & 1);
+    const float nu = fmaxf(sc[f], FLT_MIN), isv = 1.f / fmaxf(sc[C + f], FLT_MIN);
+    float* ur = ubuf(u, c & 1) + static_cast<size_t>(f) * ldg;
+    const float* vr = ering(u, c % 3) + smo_head(grow(e, u, lo)) + static_cast<size_t>(f) * S;
+    const float* ar = aring(u, c % 3) + smo_head(grow(alpha, u, lo)) + static_cast<size_t>(f) * S;
+    const size_t t_row = static_cast<size_t>(b0 + u) * T + lo + f;
+    float pn = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float ab = ar[s] * (ur[s] / nu);
+      ur[s] = ab;  // read back below by this lane alone
+      pn += ab;
+    }
+    pn = warp_sum(pn);
+    const float ig = 1.f / fmaxf(pn, FLT_MIN);
+    for (int s = lane; s < S; s += 32) {
+      gamma[t_row * S + s] = ur[s] * ig;
+      w_out[t_row * S + s] = vr[s] * isv;
+    }
+    if (lane == 0) {
+      wsum[t_row] = fmaxf(sc[C + f], FLT_MIN) / nu;
+      pnorm[t_row] = pn;
+    }
+  };
+
+  for (int c = 0; c <= n_chunks; ++c) {
+    if (sid >= 0) cp_async_wait(false);
+    // chunk c has landed; chain c − 1 is done (u1, v and its sums written) and so is the output of c − 2
+    __syncthreads();
+    if (sid >= 0) {
+      if (c + 1 < n_chunks) fetch(c + 1);  // into the stages of chunk c − 2
+      for (int i = sid >> 5; c > 0 && i < n_utt * C; i += n_side >> 5) {  // chunk c − 1's frames, a warp each
+        const int u = i / C, f = i - u * C;
+        int lo;
+        if (f < span(u, c - 1, lo)) finish(u, c - 1, f, lo);
+      }
+      continue;
+    }
+    if (c < n_chunks) walk(kBlock ? 0 : warp, c);
+  }
+  // frames t >= len, by the whole block: the longest utterances, which set the kernel's time, have the
+  // shortest tails
+  for (int u = 0; u < n_utt; ++u) {
+    if (b0 + u >= B) continue;
+    const size_t row = static_cast<size_t>(b0 + u) * T;
+    const int len = len_of(u);
+    for (size_t i = static_cast<size_t>(len) * S + tid; i < static_cast<size_t>(T) * S; i += nt) {
+      gamma[row * S + i] = 0.f;
+      w_out[row * S + i] = 0.f;
+    }
+    for (int t = len + tid; t < T; t += nt) {
+      wsum[row + t] = 1.f;
+      pnorm[row + t] = 1.f;
+    }
+  }
+}
+
 template <int kMode, bool kGlobal>
 cudaError_t launch_scaled_pass(const float* e, const int* lens, const float* mat, const float* vec, float* probs,
                                float* logcs, int B, int T, int S, cudaStream_t st) {
@@ -360,16 +663,15 @@ cudaError_t launch_scaled_pass(const float* e, const int* lens, const float* mat
   return cudaGetLastError();
 }
 
-template <bool kBanded, bool kGlobal>
+template <bool kGlobal>
 cudaError_t launch_smoothing(const float* e, const float* alpha, const int* lens, const float* mat,
                              const float* final_, float* gamma, float* w_out, float* wsum, float* pnorm, int B, int T,
                              int S, cudaStream_t st) {
-  const size_t smem = smoothing_smem_floats(kBanded, kGlobal, S) * sizeof(float);
-  cudaError_t err = set_smem(smoothing_pass_kernel<kBanded, kGlobal>, smem);
+  const size_t smem = smoothing_smem_floats(kGlobal, S) * sizeof(float);
+  cudaError_t err = set_smem(smoothing_pass_kernel<kGlobal>, smem);
   if (err != cudaSuccess) return err;
-  const int nt = block_threads(smoothing_pass_kernel<kBanded, kGlobal>, S);
-  smoothing_pass_kernel<kBanded, kGlobal><<<B, nt, smem, st>>>(e, alpha, lens, mat, final_, gamma, w_out, wsum,
-                                                                pnorm, T, S);
+  const int nt = block_threads(smoothing_pass_kernel<kGlobal>, S);
+  smoothing_pass_kernel<kGlobal><<<B, nt, smem, st>>>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, T, S);
   return cudaGetLastError();
 }
 
@@ -384,8 +686,15 @@ size_t beer_scaled_pass_smem_bytes(int mode, int s, int global) {
   return scaled_pass_smem_floats(mode, global != 0, s) * sizeof(float);
 }
 
-size_t beer_smoothing_smem_bytes(int banded, int s, int global) {
-  return smoothing_smem_floats(banded != 0, global != 0, s) * sizeof(float);
+size_t beer_smoothing_smem_bytes(int s, int global) {  // the dense instance
+  return smoothing_smem_floats(global != 0, s) * sizeof(float);
+}
+
+// K13's banded instance at n_utt utterances a block (above S = 32·kSmoRegs
+// one) and `chunk` frames a chunk; global != 0: the bands read from device
+// memory.
+size_t beer_smoothing_banded_smem_bytes(int s, int global, int n_utt, int chunk) {
+  return smo_layout(s, n_utt, chunk, global != 0).total * sizeof(float);
 }
 
 // With global, mat is A for the forward and Aᵀ for the reverse.
@@ -412,17 +721,41 @@ int beer_scaled_pass(int device, int mode, int global, const float* e, const int
   }
 }
 
-// With global (dense only), mat is Aᵀ.
-int beer_smoothing_pass(int device, int banded, int global, const float* e, const float* alpha, const int* lens,
-                        const float* mat, const float* final_, float* gamma, float* w_out, float* wsum, float* pnorm,
-                        int B, int T, int S, void* stream) {
+// K13's dense instance; with global, mat is Aᵀ.
+int beer_smoothing_pass(int device, int global, const float* e, const float* alpha, const int* lens, const float* mat,
+                        const float* final_, float* gamma, float* w_out, float* wsum, float* pnorm, int B, int T,
+                        int S, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || T == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (banded) return launch_smoothing<true, false>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, B, T, S, st);
-  return global ? launch_smoothing<false, true>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, B, T, S, st)
-                : launch_smoothing<false, false>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, B, T, S, st);
+  return global ? launch_smoothing<true>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, B, T, S, st)
+                : launch_smoothing<false>(e, alpha, lens, mat, final_, gamma, w_out, wsum, pnorm, B, T, S, st);
+}
+
+int beer_smoothing_banded(int device, int global, int n_utt, int chunk, const float* e, const float* alpha,
+                          const int* lens, const float* bands, const float* final_, float* gamma, float* w_out,
+                          float* wsum, float* pnorm, int B, int T, int S, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int regs = (S + 31) / 32 <= kSmoRegs ? (S + 31) / 32 : 0;
+  if (chunk < 1 || chunk > kSmoChunk || n_utt < 1 || (regs == 0 ? n_utt != 1 : n_utt > kSmoThreads / 64))
+    return cudaErrorInvalidValue;
+  const size_t smem = beer_smoothing_banded_smem_bytes(S, global, n_utt, chunk);
+  // the warp chain up to S = 32·kSmoRegs, an instance a register count; the block chain above
+  using Kernel = decltype(&smoothing_banded_chunked_kernel<false, 0>);
+#define BEER_SMO(R) {smoothing_banded_chunked_kernel<false, R>, smoothing_banded_chunked_kernel<true, R>}
+  static_assert(kSmoRegs == 6, "one instance a register count");
+  const Kernel kernels[kSmoRegs + 1][2] = {BEER_SMO(0), BEER_SMO(1), BEER_SMO(2), BEER_SMO(3),
+                                           BEER_SMO(4), BEER_SMO(5), BEER_SMO(6)};
+#undef BEER_SMO
+  const Kernel kernel = kernels[regs][global != 0];
+  err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (B == 0 || T == 0) return cudaSuccess;
+  kernel<<<(B + n_utt - 1) / n_utt, kSmoThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      e, alpha, lens, bands, final_, gamma, w_out, wsum, pnorm, B, T, S, n_utt, chunk);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -18,7 +18,9 @@
 // one warp an utterance with no barrier, and everything that does not
 // depend on the carry out of the chain (their notes below; K2 and K11 are
 // the banded mode of acc_chunks.cuh, K1 and K3 its forward twins on that
-// file's helpers).  K4, a pointer chase, takes one thread an utterance.
+// file's helpers).  K4, a pointer chase, takes one warp an utterance over
+// its choices staged in shared memory (up to S = 1,024; in device memory
+// above).
 // Loop-invariant operands (the ELLH matrix W, bias, bands) live in shared
 // memory while they fit a block; above that K1, K2 and K11 read Wᵀ from
 // device memory (it stays in L2) and keep their accumulators in device
@@ -29,6 +31,8 @@
 //
 // Masks are prefix masks rebuilt from per-utterance lengths; an
 // utterance of length 0 contributes nothing to any sum.
+
+#include <climits>
 
 #include "acc_chunks.cuh"
 #include "scan_common.cuh"
@@ -585,47 +589,129 @@ __global__ void __launch_bounds__(kRegs > 0 ? kAccThreads : kVitBlockThreads, kR
 // K4 — Viterbi backtrace.
 // Replaces beer_tpu/ops/pallas_scan.py _make_viterbi_backtrace_kernel
 // (wrapper viterbi_backtrace_banded); the final arg-max that the JAX
-// package computes beside the kernel is folded in.  One thread per
-// utterance: paths[T−1] = argmax(α_last + log_final) (first max), then
-// stay / state − 1 / exit index by the stored choice (clamped at state
-// 0).  ``log_final`` is one (S,) vector (final_stride 0) or one row per
-// utterance (final_stride S: the shared transcription graphs of the
-// recognizer end each utterance in its own state).  Bound: the
-// latency of T dependent loads per thread (a pointer chase); B threads
-// run in parallel.
+// package computes beside the kernel is folded in.  paths[T−1] =
+// argmax(α_last + log_final) (first max), then stay / state − 1 / exit
+// index by the stored choice (clamped at state 0).  ``log_final`` is one
+// (S,) vector (final_stride 0) or one row per utterance (final_stride S:
+// the shared transcription graphs of the recognizer end each utterance in
+// its own state).
+//
+// A pointer chase: a frame's state picks the byte of the frame before, so
+// what bounds it is the latency of one dependent load a frame, not bytes.
+// One warp walks one utterance (n_utt warps a block, spread over the SMs):
+//   1. the final arg-max by the warp: each lane's first max over its
+//      strided states, one redux.sync for the largest order-preserving key
+//      (vkey, K3's; −0 counted as +0) and a second for the smallest state
+//      that holds it, the first max as a serial scan finds it; the score is
+//      that state's α_last + log_final, the serial scan's own sum;
+//   2. the frames in chunks of C from the end.  kStaged: chunk k's choices,
+//      C·S contiguous bytes, arrive in shared memory by 16-byte cp.async in
+//      a ring of kBtStages, kBtStages − 1 chunks ahead of the chase, so the
+//      chase reads one shared byte a frame (every lane the same address);
+//      !kStaged (S too large for a staged chunk) reads device memory, C =
+//      kBtDirectChunk.  A chunk's exit indices come by one coalesced load a
+//      chunk ahead and a shuffle a frame, off the chain;
+//   3. lane f keeps frame lo + f's state, and the warp writes the chunk's
+//      path in one coalesced store.
+// The wrapper picks the instance, n_utt and C by fit and the batch size
+// (cuda_scan.backtrace_banded_geometry).
 // ---------------------------------------------------------------------
-__global__ void viterbi_backtrace_kernel(
+constexpr int kBtStages = 4;        // kStaged: chunks in flight a warp, the chased one included
+constexpr int kBtMaxUtt = 4;        // warps (utterances) a block
+constexpr int kBtDirectChunk = 32;  // !kStaged: frames a chunk (a lane a frame of the path)
+
+// Bytes of one staged chunk: C·S bytes from any address, in whole 16-byte
+// segments (up to 15 bytes before and after).
+__host__ __device__ inline size_t bt_stage_bytes(int S, int C) { return (static_cast<size_t>(C) * S + 30) / 16 * 16; }
+
+template <bool kStaged>
+__global__ void __launch_bounds__(32 * kBtMaxUtt) viterbi_backtrace_chunked_kernel(
     const int8_t* __restrict__ choices,     // (B, T, S)
     const int* __restrict__ exarg,          // (B, T)
     const float* __restrict__ alpha_last,   // (B, S)
     const float* __restrict__ log_final,    // (S,) or (B, S)
     int* __restrict__ paths,                // (B, T)
     float* __restrict__ scores,             // (B,)
-    int B, int T, int S, int final_stride) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+    int B, int T, int S, int final_stride, int chunk) {
+  extern __shared__ int4 smem_bt[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // a whole warp; no block barrier below
+  const int C = kStaged ? chunk : kBtDirectChunk;
+
+  // 1. the final arg-max
   const float* a = alpha_last + static_cast<size_t>(b) * S;
   const float* lf = log_final + static_cast<size_t>(b) * final_stride;
-  float best = a[0] + lf[0];
-  int st = 0;
-  for (int s = 1; s < S; ++s) {
+  float mb = lane < S ? a[lane] + lf[lane] : 0.f;
+  int mi = lane;
+  for (int s = lane + 32; s < S; s += 32) {
     const float v = a[s] + lf[s];
-    if (v > best) {
-      best = v;
-      st = s;
+    if (v > mb) {  // strided in increasing s: the lane's first max
+      mb = v;
+      mi = s;
     }
   }
-  scores[b] = best;
+  const int key = lane < S ? vkey(mb == 0.f ? 0.f : mb) : INT_MIN;
+  const int top = __reduce_max_sync(0xffffffffu, key);
+  int st = __reduce_min_sync(0xffffffffu, key == top ? mi : INT_MAX);
+  if (lane == 0) scores[b] = a[st] + lf[st];
   if (T == 0) return;
-  int* p_b = paths + static_cast<size_t>(b) * T;
-  const int8_t* c_b = choices + static_cast<size_t>(b) * T * S;
-  const int* e_b = exarg + static_cast<size_t>(b) * T;
-  p_b[T - 1] = st;
-  for (int t = T - 1; t >= 1; --t) {
-    const int c = c_b[static_cast<size_t>(t) * S + st];
-    st = c == 0 ? st : (c == 1 ? st - 1 : e_b[t]);
-    st = st < 0 ? 0 : st;  // an advance into state 0 needs an all-unreachable row
-    p_b[t - 1] = st;
+
+  // 2. the chase, chunk k holding frames lo .. lo + nf − 1 counted from the end
+  const size_t row = static_cast<size_t>(b) * T;
+  const int n_k = (T + C - 1) / C;
+  auto span = [&](int k, int& lo) {
+    const int hi = T - 1 - k * C;
+    lo = max(hi - C + 1, 0);
+    return hi - lo + 1;
+  };
+  const size_t stage = bt_stage_bytes(S, C);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem_bt) + static_cast<size_t>(warp) * kBtStages * stage;
+  const int8_t* c_end = choices + static_cast<size_t>(B) * T * S;
+  auto fetch = [&](int k) {  // chunk k's nf·S bytes
+    if (kStaged && k < n_k) {
+      int lo;
+      const int nf = span(k, lo);
+      cp_async_run(ring + static_cast<size_t>(k % kBtStages) * stage, choices + (row + lo) * S,
+                   static_cast<size_t>(nf) * S, choices, c_end, lane, 32);
+    }
+    if (kStaged) cp_async_commit();
+  };
+  auto exits = [&](int k) {  // lane f: the exit index of chunk k's frame lo + f
+    int lo;
+    const int nf = k < n_k ? span(k, lo) : 0;
+    return lane < nf ? exarg[row + lo + lane] : 0;
+  };
+  for (int k = 0; k < kBtStages - 1; ++k) fetch(k);
+  int ex_next = exits(0);
+  for (int k = 0; k < n_k; ++k) {
+    int lo;
+    const int nf = span(k, lo);
+    const int ex = ex_next;
+    ex_next = exits(k + 1);
+    const int8_t* ch;
+    if constexpr (kStaged) {
+      fetch(k + kBtStages - 1);  // into the stage chunk k − 1 left
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kBtStages - 1) : "memory");
+      __syncwarp();
+      ch = reinterpret_cast<const int8_t*>(ring + static_cast<size_t>(k % kBtStages) * stage +
+                                           run_head(choices + (row + lo) * S));
+    } else {
+      ch = choices + (row + lo) * S;
+    }
+    int pv = 0;  // lane f: the state of frame lo + f
+    ch += static_cast<size_t>(nf - 1) * S;  // frame lo + f's row, f from nf − 1 down
+    for (int f = nf - 1; f >= 0; --f, ch -= S) {
+      if (lane == f) pv = st;
+      if (lo + f > 0) {
+        const int e = __shfl_sync(0xffffffffu, ex, f);
+        const int c = ch[st];
+        st = c == 0 ? st : (c == 1 ? st - 1 : e);
+        st = max(st, 0);  // an advance into state 0 needs an all-unreachable row
+      }
+    }
+    if (lane < nf) paths[row + lo + lane] = pv;
+    __syncwarp();  // every lane has read the stage the next fetch writes
   }
 }
 
@@ -731,14 +817,25 @@ int beer_viterbi_fwd_banded(int device, int global, int n_utt, int chunk, const 
   return cudaGetLastError();
 }
 
-int beer_viterbi_backtrace_banded(int device, const int8_t* choices, const int* exarg, const float* alpha_last,
-                                  const float* log_final, int* paths, float* scores, int B, int T, int S,
-                                  int final_stride, void* stream) {
+// K4: staged != 0, chunks of `chunk` frames staged in shared memory; n_utt
+// utterances (warps) a block.
+size_t beer_backtrace_smem_bytes(int s, int n_utt, int chunk) {
+  return static_cast<size_t>(n_utt) * kBtStages * bt_stage_bytes(s, chunk);
+}
+
+int beer_viterbi_backtrace_banded(int device, int staged, int n_utt, int chunk, const int8_t* choices,
+                                  const int* exarg, const float* alpha_last, const float* log_final, int* paths,
+                                  float* scores, int B, int T, int S, int final_stride, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (n_utt < 1 || n_utt > kBtMaxUtt || (staged && (chunk < 1 || chunk > kAccChunk))) return cudaErrorInvalidValue;
+  const size_t smem = staged ? beer_backtrace_smem_bytes(S, n_utt, chunk) : 0;
+  auto kernel = staged ? viterbi_backtrace_chunked_kernel<true> : viterbi_backtrace_chunked_kernel<false>;
+  err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   if (B == 0) return cudaSuccess;
-  viterbi_backtrace_kernel<<<(B + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      choices, exarg, alpha_last, log_final, paths, scores, B, T, S, final_stride);
+  kernel<<<(B + n_utt - 1) / n_utt, 32 * n_utt, smem, static_cast<cudaStream_t>(stream)>>>(
+      choices, exarg, alpha_last, log_final, paths, scores, B, T, S, final_stride, chunk);
   return cudaGetLastError();
 }
 

@@ -58,6 +58,35 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// The offset of g's byte in its 16-byte segment, and so in a buffer that
+// cp_async_run filled from g.
+__device__ __forceinline__ int run_head(const void* g) { return static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15); }
+
+// cp.async of the n bytes at g, one contiguous run, into dst (16-byte
+// aligned) in whole 16-byte segments from the one that holds g, the
+// threads tid of nt each taking segments; a segment across the first or
+// last byte of the tensor [lo, hi) is copied byte by byte (visible after the
+// caller's barrier).  Returns run_head(g); the caller commits.
+__device__ __forceinline__ int cp_async_run(void* dst, const void* g, size_t n, const void* lo, const void* hi,
+                                            int tid, int nt) {
+  const uintptr_t ga = reinterpret_cast<uintptr_t>(g) & ~static_cast<uintptr_t>(15);
+  const uintptr_t ulo = reinterpret_cast<uintptr_t>(lo), uhi = reinterpret_cast<uintptr_t>(hi);
+  const int head = run_head(g);
+  uint8_t* d = static_cast<uint8_t*>(dst);
+  const size_t n_seg = (head + n + 15) >> 4;
+  for (size_t j = tid; j < n_seg; j += nt) {
+    const uintptr_t src = ga + 16 * j;
+    if (src >= ulo && src + 16 <= uhi) {
+      const unsigned sd = static_cast<unsigned>(__cvta_generic_to_shared(d + 16 * j));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sd), "l"(src));
+    } else {
+      for (int q = 0; q < 16; ++q)
+        if (src + q >= ulo && src + q < uhi) d[16 * j + q] = *reinterpret_cast<const uint8_t*>(src + q);
+    }
+  }
+  return head;
+}
 // all but the newest group (more) or every group (!more) have landed
 __device__ __forceinline__ void cp_async_wait(bool more) {
   if (more)

@@ -165,13 +165,14 @@ def _library() -> ctypes.CDLL:
         "beer_estep_acc_banded": [i, i, i, i] + [p] * 13 + [i] * 5 + [p],
         "beer_estep_gamma_banded": [i, i, i, i] + [p] * 14 + [i] * 5 + [p],
         "beer_viterbi_fwd_banded": [i, i, i, i] + [p] * 7 + [i] * 3 + [p],
-        "beer_viterbi_backtrace_banded": [i] + [p] * 6 + [i] * 4 + [p],
+        "beer_viterbi_backtrace_banded": [i, i, i, i] + [p] * 6 + [i] * 4 + [p],
         "beer_forward_llh_dense": [i, i, i] + [p] * 10 + [i] * 4 + [p],
         "beer_estep_acc_dense": [i, i, i, i] + [p] * 11 + [i] * 4 + [p],
         "beer_estep_gamma_dense": [i, i, i, i] + [p] * 11 + [i] * 5 + [p],
         "beer_forward_llh_shifts_dense": [i, i, i] + [p] * 9 + [i] * 3 + [p],
         "beer_scaled_pass": [i, i, i] + [p] * 6 + [i] * 3 + [p],
-        "beer_smoothing_pass": [i, i, i] + [p] * 9 + [i] * 3 + [p],
+        "beer_smoothing_pass": [i, i] + [p] * 9 + [i] * 3 + [p],
+        "beer_smoothing_banded": [i, i, i, i] + [p] * 9 + [i] * 3 + [p],
         "beer_gmm_estep_full": [i] + [p] * 6 + [i] * 6 + [p],
         "beer_ellh_full": [i] + [p] * 3 + [i] * 6 + [p],
         "beer_accumulate_full": [i] + [p] * 4 + [i] * 6 + [p],
@@ -182,8 +183,9 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = args
         fn.restype = ctypes.c_int
     smem = {"beer_forward_smem_bytes": 5, "beer_estep_smem_bytes": 6, "beer_estep_gamma_smem_bytes": 6,
-            "beer_viterbi_smem_bytes": 4,
-            "beer_scaled_pass_smem_bytes": 3, "beer_smoothing_smem_bytes": 3,
+            "beer_viterbi_smem_bytes": 4, "beer_backtrace_smem_bytes": 3,
+            "beer_scaled_pass_smem_bytes": 3, "beer_smoothing_smem_bytes": 2,
+            "beer_smoothing_banded_smem_bytes": 4,
             "beer_dense_forward_smem_bytes": 4, "beer_gamma_dense_smem_bytes": 7,
             "beer_acc_dense_smem_bytes": 5}
     for name, n_args in smem.items():
@@ -539,7 +541,8 @@ ACC_CHUNKS = (16, 8, 4, 2, 1)   # K2's chunk lengths, the most first (phone_loop
 ACC_UTTERANCES = (4, 2, 1)      # K2's utterances a block, the most first
 # A block that leaves an SM's shared memory (228 KB, 1 KB reserved a block)
 # room for a second one: K2 is launched two blocks an SM where it fits so.
-SMEM_HALF_SM = 233472 // 2 - 1024
+SMEM_SM = 233472            # bytes of shared memory an SM has for its blocks (1 KB of it reserved a block)
+SMEM_HALF_SM = SMEM_SM // 2 - 1024
 
 
 def acc_banded_smem_bytes(s: int, p: int, u: int, placement: str, n_utt: int = 1,
@@ -658,6 +661,85 @@ def viterbi_launch_bytes(s: int, placement: str, n_utt: int, chunk: int) -> int:
     if n_utt > 1 and s > VIT_WARP_STATES:
         return SMEM_LIMIT + 1
     return viterbi_banded_smem_bytes(s, placement, n_utt, chunk)
+
+
+SMO_WARP_STATES = 192    # K13 banded: one warp an utterance's chain up to this S (32·kSmoRegs), a block's above
+
+
+def smoothing_banded_smem_bytes(s: int, placement: str, n_utt: int = 1, chunk: int = ACC_CHUNKS[0]) -> int:
+    """Shared memory of one K13 banded block (``general_scan.cu``
+    ``smo_layout``): the bands in the shared placement, the block chain's
+    partial sums; and per utterance three-stage rings of a chunk's e (v
+    written over it) and α̂, C·S contiguous floats each in whole 16-byte
+    segments, two stages of its u1 (C, round4(S)) and two of its per-frame
+    sums."""
+    ldg = _r4(s)
+    floats = (4 * ldg if placement == "shared" else 0) + 6 * _MAX_WARPS
+    per = 6 * _r4(chunk * s + 6) + 2 * chunk * ldg + 2 * _r4(2 * chunk)
+    return 4 * (floats + n_utt * per)
+
+
+def smoothing_banded_geometry(s: int, b: int, n_sm: int) -> tuple[str, int, int]:
+    """K13 banded's launch at batch size ``b`` on ``n_sm`` SMs, (placement,
+    utterances a block, frames a chunk), decided by fit here and nowhere
+    else.  Its chains are latency-bound, so one wave first: the most
+    utterances a block up to :func:`_utterance_cap` at two blocks an SM (one
+    above :data:`SMO_WARP_STATES`, where a block walks one utterance); then
+    a block that leaves its SM room for a second one (:data:`SMEM_HALF_SM`)
+    — a block whose blocks are no more than the SMs needs no such room —,
+    the longest chunk of :data:`ACC_CHUNKS`, the bands in shared memory
+    ("shared") if they fit there, else read from device memory ("global").
+    Every S to 7,234 runs (("global", 1, 1) above, which the launch
+    refuses)."""
+    cap = _utterance_cap(b, 2, n_sm) if s <= SMO_WARP_STATES else 1
+    for n_utt in (n for n in ACC_UTTERANCES if n <= cap):
+        for limit in (SMEM_HALF_SM, SMEM_LIMIT):
+            room = SMEM_LIMIT if -(-b // n_utt) <= n_sm else limit
+            for chunk in ACC_CHUNKS:
+                for placement in ("shared", "global"):
+                    if smoothing_banded_smem_bytes(s, placement, n_utt, chunk) <= room:
+                        return placement, n_utt, chunk
+    return "global", 1, 1
+
+
+BT_CHUNKS = ACC_CHUNKS      # K4's staged chunk lengths, the most first (at most kAccChunk)
+BT_STAGED_STATES = 1024     # K4 stages its choices up to this S and chases them in device memory above
+BT_STAGES = 4               # K4: staged chunks in flight a warp (phone_loop_scan.cu kBtStages)
+BT_DIRECT_CHUNK = 32        # K4's direct instance: frames a chunk (kBtDirectChunk)
+BT_BLOCKS_PER_SM = 8        # K4: blocks of at most four warps an SM holds at once, as the rule counts them
+
+
+def backtrace_smem_bytes(s: int, n_utt: int = 1, chunk: int = BT_CHUNKS[0]) -> int:
+    """Shared memory of one staged K4 block (``phone_loop_scan.cu``
+    ``bt_stage_bytes``): per utterance a ring of :data:`BT_STAGES` chunks of
+    choices, ``chunk``·S bytes each in whole 16-byte segments."""
+    return n_utt * BT_STAGES * ((chunk * s + 30) // 16 * 16)
+
+
+def backtrace_banded_geometry(s: int, b: int, n_sm: int) -> tuple[str, int, int]:
+    """K4's launch at batch size ``b`` on ``n_sm`` SMs, (instance,
+    utterances a block, frames a chunk), decided here and nowhere else.
+    One warp walks an utterance; a block takes the fewest utterances whose
+    blocks run in one wave at :data:`BT_BLOCKS_PER_SM` an SM
+    (:func:`_utterance_cap`), so that the chases spread over the SMs.  Up
+    to :data:`BT_STAGED_STATES` states "staged" (the choices in shared
+    memory) with the longest chunk of :data:`BT_CHUNKS` whose block leaves
+    room for the wave's other blocks on an SM, else the longest that fits a
+    block (more waves; one frame of four utterances always fits); above,
+    "direct" (the chase on device memory, :data:`BT_DIRECT_CHUNK` frames a
+    chunk, no shared memory), which takes every S.  A staged chunk moves S
+    bytes a frame through one warp, the direct chase one dependent load a
+    frame (kernel alone, ``stats_variants.py b13_geometry``, T = 200:
+    staged / direct 0.024 / 0.045 ms at S = 300, 0.037 / 0.046 at 750,
+    0.065 / 0.047 at 2,100, 0.229 / 0.055 at 9,600)."""
+    n_utt = _utterance_cap(b, BT_BLOCKS_PER_SM, n_sm)
+    if s > BT_STAGED_STATES:
+        return "direct", n_utt, BT_DIRECT_CHUNK
+    per_sm = max(-(-(-(-b // n_utt)) // n_sm), 1)
+    room = min(SMEM_SM // per_sm - 1024, SMEM_LIMIT)
+    fits = ([c for c in BT_CHUNKS if backtrace_smem_bytes(s, n_utt, c) <= room]
+            or [c for c in BT_CHUNKS if backtrace_smem_bytes(s, n_utt, c) <= SMEM_LIMIT])  # one frame always fits
+    return "staged", n_utt, fits[0]
 
 
 def banded_placement(kernel: str, s: int, p: int, u: int, b: int, n_sm: int) -> str:
@@ -1064,9 +1146,14 @@ def viterbi_backtrace_banded(choices, exarg, alpha_last, log_final):
     for name, x, shape in (("exarg", exarg, (b, t_len)), ("alpha_last", alpha_last, (b, s)),
                            ("log_final", log_final, (b, s) if per_row else (s,))):
         _shape(name, x, shape)
+    lib = _library()
+    instance, n_utt, chunk = backtrace_banded_geometry(s, b, sm_count(dev.index))
+    staged = instance == "staged"
+    if staged:
+        _fits(f"S={s}", lib.beer_backtrace_smem_bytes(s, n_utt, chunk))
     paths = torch.empty(b, t_len, dtype=torch.int32, device=dev)
     scores = torch.empty(b, device=dev)
-    _launch(_library().beer_viterbi_backtrace_banded, dev.index, *map(_ptr, (
+    _launch(lib.beer_viterbi_backtrace_banded, dev.index, int(staged), n_utt, chunk, *map(_ptr, (
         choices, exarg, alpha_last, log_final, paths, scores)),
         b, t_len, s, s if per_row else 0, _stream(dev))
     KERNELS["viterbi_backtrace_banded"].launches += 1
@@ -1417,8 +1504,9 @@ def smoothing_pass(e_llh, a_probs, lens, trans, final, banded=False):
     dev = e_llh.device
     lib = _library()
     if banded:
-        glob = False
-        _fits(f"S={s}", lib.beer_smoothing_smem_bytes(1, s, 0))
+        placement, n_utt, chunk = smoothing_banded_geometry(s, b, sm_count(dev.index))
+        glob = placement == "global"
+        _fits(f"S={s}", lib.beer_smoothing_banded_smem_bytes(s, int(glob), n_utt, chunk))
     else:
         glob = _placed("smoothing_pass", f"S={s}", s)
         if glob:
@@ -1427,8 +1515,10 @@ def smoothing_pass(e_llh, a_probs, lens, trans, final, banded=False):
     w_probs = torch.empty(b, t_len, s, device=dev)
     w_sums = torch.empty(b, t_len, device=dev)
     post_norm = torch.empty(b, t_len, device=dev)
-    _launch(lib.beer_smoothing_pass, dev.index, int(banded), int(glob), *map(_ptr, (
-        e_llh, a_probs, lens, trans, final, gamma, w_probs, w_sums, post_norm)),
-        b, t_len, s, _stream(dev))
+    args = *map(_ptr, (e_llh, a_probs, lens, trans, final, gamma, w_probs, w_sums, post_norm)), b, t_len, s, _stream(dev)
+    if banded:
+        _launch(lib.beer_smoothing_banded, dev.index, int(glob), n_utt, chunk, *args)
+    else:
+        _launch(lib.beer_smoothing_pass, dev.index, int(glob), *args)
     KERNELS["smoothing_pass"].launches += 1
     return gamma, w_probs, w_sums, post_norm

@@ -365,8 +365,9 @@ def phase_build():
 
 def launch_geometry(kernel, dev, s, p, b, u=0, rc=()):
     """The launch the wrapper of a chunked kernel takes on ``dev`` at these
-    sizes, as it picks it, with the card's own SM count: K1, K2, K3 and K11
-    (placement, utterances a block, frames a chunk), K6, K7 and K15
+    sizes, as it picks it, with the card's own SM count: K1, K2, K3, K11 and
+    K13 banded (placement, utterances a block, frames a chunk), K4
+    (instance, utterances a block, frames a chunk), K6, K7 and K15
     (instance, frames a chunk, utterances a block)."""
     n_sm = cuda_scan.sm_count(dev.index)
     if kernel == "forward_llh_banded":
@@ -377,6 +378,10 @@ def launch_geometry(kernel, dev, s, p, b, u=0, rc=()):
         return list(cuda_scan.gamma_banded_geometry(s, p, u, b, n_sm))
     if kernel == "viterbi_fwd_banded":
         return list(cuda_scan.viterbi_banded_geometry(s, b, n_sm))
+    if kernel == "viterbi_backtrace_banded":
+        return list(cuda_scan.backtrace_banded_geometry(s, b, n_sm))
+    if kernel == "smoothing_pass":
+        return list(cuda_scan.smoothing_banded_geometry(s, b, n_sm))
     if kernel == "estep_acc_dense":
         instance, chunk = cuda_scan.backward_instance(s, p)
         return [instance, chunk, cuda_scan.backward_utterances(s, p, b, n_sm) if instance == "warp" else 1]
@@ -439,22 +444,31 @@ def k11_row(est, reps=REPS):
     return row, errs
 
 
-def viterbi_args(decode):
+def decode_args(decode):
     """The arguments that ``decode()`` (a model's decode on the card) gives
-    K3's wrapper: the main path's own operands."""
-    seen, wrapper = [], cuda_scan.viterbi_fwd_banded
+    K3's and K4's wrappers, (K3's, K4's): the main path's own operands."""
+    seen, wrappers = {}, (cuda_scan.viterbi_fwd_banded, cuda_scan.viterbi_backtrace_banded)
 
-    def spy(*args):
-        seen.append(args)
-        return wrapper(*args)
+    def spy(name, wrapper):
+        def call(*args):
+            seen.setdefault(name, []).append(args)
+            return wrapper(*args)
+        return call
 
-    cuda_scan.viterbi_fwd_banded = spy
+    cuda_scan.viterbi_fwd_banded = spy("k3", wrappers[0])
+    cuda_scan.viterbi_backtrace_banded = spy("k4", wrappers[1])
     try:
         decode()
     finally:
-        cuda_scan.viterbi_fwd_banded = wrapper
-    check(len(seen) == 1, f"the decode called viterbi_fwd_banded {len(seen)} times")
-    return seen[0]
+        cuda_scan.viterbi_fwd_banded, cuda_scan.viterbi_backtrace_banded = wrappers
+    counts = {k: len(v) for k, v in seen.items()}
+    check(counts == {"k3": 1, "k4": 1}, f"the decode called K3 / K4 {counts} times")
+    return seen["k3"][0], seen["k4"][0]
+
+
+def viterbi_args(decode):
+    """The arguments that ``decode()`` gives K3's wrapper."""
+    return decode_args(decode)[0]
 
 
 def k3_row(vit, log_final, reps=REPS):
@@ -491,9 +505,34 @@ def k3_row(vit, log_final, reps=REPS):
     return row, mismatch
 
 
+def k4_row(back, lens, reps=REPS):
+    """K4 against its plain version on ``back`` (K3's outputs and
+    log_final, ``lens`` the decode's lengths): the mismatches of its paths
+    and scores (0 expected: the backtrace does the plain version's float
+    adds and integer steps), two calls bitwise; alone (profiler device time)
+    and wrapped, with its launch geometry and bound; returns (row,
+    mismatches)."""
+    choices = back[0]
+    b, t_len, s = choices.shape
+    got, want = cuda_scan.viterbi_backtrace_banded(*back), cuda_scan.viterbi_backtrace_banded_plain(*back)
+    mismatch = dict(paths=int((got[0] != want[0]).sum()), scores=int((got[1] != want[1]).sum()))
+    check(mismatch == {"paths": 0, "scores": 0}, f"viterbi_backtrace_banded at S={s}: mismatches {mismatch}")
+    check(all(torch.equal(x, y) for x, y in zip(got, cuda_scan.viterbi_backtrace_banded(*back))),
+          "viterbi_backtrace_banded: two calls must agree bitwise")
+    del got, want
+    nv = float(lens.sum())
+    row = dict(max_abs_err=0.0, mismatches=mismatch, states=s,
+               geometry=launch_geometry("viterbi_backtrace_banded", choices.device, s, 0, b),
+               ms=entry_ms(lambda: cuda_scan.viterbi_backtrace_banded(*back), ("viterbi_backtrace",)),
+               wrapper_ms=cuda_ms(lambda: cuda_scan.viterbi_backtrace_banded(*back)),
+               plain_ms=cuda_ms(lambda: cuda_scan.viterbi_backtrace_banded_plain(*back), reps=reps),
+               **bound(5 * nv + 4 * b * t_len + 4 * b * s, 2 * nv))
+    return row, mismatch
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the main path's shapes."""
-    loop, stats, ops, fwd, m = banded_operands(dev)
+    loop, stats, ops, fwd, _ = banded_operands(dev)
     full = ops["lens"] > 0
     tiny = torch.finfo(torch.float32).tiny
     out = {}
@@ -552,19 +591,10 @@ def phase_kernels(dev):
     k3 = cuda_scan.viterbi_fwd_banded(*vit)
 
     back = (k3[0], k3[1], k3[2], graph.log_final.contiguous())
-    k4 = cuda_scan.viterbi_backtrace_banded(*back)
-    p4 = cuda_scan.viterbi_backtrace_banded_plain(*back)
-    valid = m > 0
-    agree = float((k4[0] == p4[0])[valid].float().mean())
-    check(agree >= 0.999, f"backtrace paths agree on {agree} of valid frames")
-    check(rel(k4[1][full], p4[1][full]) <= 1e-6, "backtrace scores")
-    out["viterbi_backtrace_banded"] = dict(
-        max_abs_err=float((k4[0] - p4[0])[valid].abs().max()),
-        ms=cuda_ms(lambda: cuda_scan.viterbi_backtrace_banded(*back)),
-        plain_ms=cuda_ms(lambda: cuda_scan.viterbi_backtrace_banded_plain(*back)),
-        **bound(5 * nv + 4 * b * t_len + 4 * b * s, 2 * nv))
+    out["viterbi_backtrace_banded"], m4 = k4_row(back, ops["lens"])
     torch.cuda.synchronize()
     k1r, k2r, k3r = out["forward_llh_banded"], out["estep_acc_banded"], out["viterbi_fwd_banded"]
+    k4r = out["viterbi_backtrace_banded"]
     print("phase 3 kernels: " + "; ".join(
         f"{k} ok (max_abs_err {v['max_abs_err']:.3g})" for k, v in out.items())
         + f" | forward_llh_banded {tuple(k1r['geometry'])} alone {k1r['ms']:.3f} ms, wrapped "
@@ -577,8 +607,11 @@ def phase_kernels(dev):
           + json.dumps({k: float(f"{e:.3g}") for k, e in e11.items()})
         + f" | viterbi_fwd_banded {tuple(k3r['geometry'])} alone {k3r['ms']:.3f} ms, wrapped "
           f"{k3r['wrapper_ms']:.3f} ms (bound {k3r['bound_ms']:.4f}); mismatches {json.dumps(m3)}"
+        + f" | viterbi_backtrace_banded {tuple(k4r['geometry'])} alone {k4r['ms']:.4f} ms, wrapped "
+          f"{k4r['wrapper_ms']:.4f} ms (bound {k4r['bound_ms']:.4f}); mismatches {json.dumps(m4)}"
         + " | tol: log Z, norms rel 1e-5; alpha, last abs 1e-5; acc2/counts/xi rel 1e-4; gamma, gamma0 abs "
-          "1e-5; paths >= 99.9% of valid frames; scores rel 1e-6; K1, K3, K11 bitwise")
+          "1e-5; K3's paths >= 99.9% of valid frames, scores rel 1e-6; K4's paths and scores equal; K1, K3, "
+          "K4, K11 bitwise")
     return out, k11_config4
 
 
@@ -1518,7 +1551,9 @@ def valid_err(got, want, mask, relative=False):
 
 def general_instance(o, banded):
     """K12 forward + K13 of one instance against the plain versions;
-    returns the kernel outputs, the errors and the two timing rows."""
+    returns the kernel outputs, the errors and the two timing rows (K13
+    alone, by profiler device time, and wrapped; the banded one with its
+    launch geometry)."""
     mat = o["bands"] if banded else o["trans"]
     fwd = (o["e_llh"], o["lens"], mat, o["init"])
     probs, logcs = cuda_scan.scaled_pass(*fwd, banded=banded)
@@ -1549,7 +1584,9 @@ def general_instance(o, banded):
                     nv * (10 * s if banded else 2 * s * s + 4 * s))),
         "smoothing_pass": dict(
             max_abs_err=errs["gamma"],
-            ms=cuda_ms(lambda: cuda_scan.smoothing_pass(*smo, banded=banded)),
+            **({"geometry": launch_geometry("smoothing_pass", o["e_llh"].device, s, 0, b)} if banded else {}),
+            ms=entry_ms(lambda: cuda_scan.smoothing_pass(*smo, banded=banded), ("smoothing",)),
+            wrapper_ms=cuda_ms(lambda: cuda_scan.smoothing_pass(*smo, banded=banded)),
             plain_ms=cuda_ms(lambda: cuda_scan.smoothing_pass_plain(*smo, banded=banded)),
             **bound(4 * (2 * nv * s + 2 * b * t_len * (s + 1) + n_mat + b * s),
                     nv * (16 * s if banded else 2 * s * s + 10 * s))),
@@ -1673,7 +1710,8 @@ def phase_general_kernels(dev):
 
     def fmt(v):
         wrapped = f", wrapped {v['wrapper_ms']:.3f}" if "wrapper_ms" in v else ""
-        return (f"{v['ms']:.3f} ms{wrapped} (plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.3f} by "
+        geometry = f" {tuple(v['geometry'])}" if "geometry" in v else ""
+        return (f"{v['ms']:.3f} ms{wrapped}{geometry} (plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.3f} by "
                 f"{v['bound_by']})")
 
     print(f"phase 15 general kernels: B={B}+2 empty T<={T}: "
@@ -2077,23 +2115,29 @@ def banded_rows(loop, x, m):
 
 
 def viterbi_rows(dev, x, m):
-    """K3 at config 3 (the recognizer's decode, S = 18, B = 128) and on a
-    phone loop of VIT_UNITS units (S = 9,600, near the largest S the
-    per-frame kernel took) over VIT_B rows of ``x``, each on the operands
-    its model's decode gives the kernel; returns the rows and the
-    mismatches."""
+    """K3 and K4 on the operands each model's decode gives them: config 3
+    (the recognizer's decode, S = 18, B = 128, per-row log_final), the
+    unit decodes of the phone loops of LOOP_UNITS and BIG_LOOP_UNITS units
+    over ``x`` (S = 300 and 750) and of VIT_UNITS units (S = 9,600, near
+    the largest S the per-frame K3 took) over VIT_B of its rows; returns
+    the K3 rows, the K4 rows and the mismatches of both."""
     data, mask, seqs = config3_data()
     x3, m3 = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
     rec = config3(dev, seqs)
-    rows, mismatches = {}, {}
-    rows["config3"], mismatches["config3"] = k3_row(viterbi_args(lambda: rec.decode(x3, m3)), rec.graph_log_final)
-    big = config4(dev, n_units=VIT_UNITS)
-    xb, mb = x[:VIT_B], m[:VIT_B]
-    rows[f"u{VIT_UNITS}"], mismatches[f"u{VIT_UNITS}"] = k3_row(
-        viterbi_args(lambda: big.decode_units(xb, mb)), big._effective_graph().log_final, reps=3)
-    for row in rows.values():
-        row["placement"] = "_".join(map(str, row["geometry"]))
-    return rows, mismatches
+    decodes = {"config3": lambda: rec.decode(x3, m3)}
+    for units, rows in ((LOOP_UNITS, None), (BIG_LOOP_UNITS, None), (VIT_UNITS, VIT_B)):
+        loop = config4(dev, n_units=units)
+        decodes[f"u{units}"] = lambda loop=loop, rows=rows: loop.decode_units(x[:rows], m[:rows])
+    k3_rows, k4_rows, mismatches = {}, {}, {}
+    for tag, decode in decodes.items():
+        vit, back = decode_args(decode)
+        if tag == "config3" or tag == f"u{VIT_UNITS}":
+            k3_rows[tag], mismatches[f"k3_{tag}"] = k3_row(vit, back[3], reps=3)
+            k3_rows[tag]["placement"] = "_".join(map(str, k3_rows[tag]["geometry"]))
+        k4_rows[tag], mismatches[f"k4_{tag}"] = k4_row(back, vit[1], reps=3)
+        k4_rows[tag]["placement"] = "_".join(map(str, k4_rows[tag]["geometry"]))
+        del vit, back
+    return k3_rows, k4_rows, mismatches
 
 
 def large_estep(model, x, m):
@@ -2180,7 +2224,7 @@ def phase_large_dense(dev):
         want.append(float(elbo))
     gaps["loop100"] = dict(elbo_per_frame=max(abs(a - b) for a, b in zip(elbos, want)) / frames)
     check(gaps["loop100"]["elbo_per_frame"] <= 1e-4, f"the 100-unit loop: kernel vs plain route {gaps['loop100']}")
-    vit_rows, vit_mismatches = viterbi_rows(dev, x, m)
+    vit_rows, back_rows, vit_mismatches = viterbi_rows(dev, x, m)
     torch.cuda.synchronize()
 
     def fmt(v):
@@ -2203,10 +2247,15 @@ def phase_large_dense(dev):
           + " vs plain route " + json.dumps({k: {n: float(f"{e:.3g}") for n, e in v.items()}
                                              for k, v in gaps.items()})
           + " || viterbi_fwd_banded: " + "; ".join(
-              f"{k} (S={v['states']}) {fmt(v)} mismatches {json.dumps(vit_mismatches[k])}" for k, v in vit_rows.items())
+              f"{k} (S={v['states']}) {fmt(v)} mismatches {json.dumps(vit_mismatches[f'k3_{k}'])}"
+              for k, v in vit_rows.items())
+          + " || viterbi_backtrace_banded: " + "; ".join(
+              f"{k} (S={v['states']}) {fmt(v)} mismatches {json.dumps(vit_mismatches[f'k4_{k}'])}"
+              for k, v in back_rows.items())
           + " | tol: log Z, ELBO rel 1e-5; alpha, gamma, gamma0 abs 1e-5; statistics, xi rel 1e-4; "
-            "the loop's ELBOs 1e-4/frame; decode scores rel 1e-6, paths >= 99.9% of valid frames")
-    return rows, launches, loop_rows, vit_rows
+            "the loop's ELBOs 1e-4/frame; K3's decode scores rel 1e-6, paths >= 99.9% of valid frames; K4's "
+            "paths and scores equal")
+    return rows, launches, loop_rows, vit_rows, back_rows
 
 
 def main() -> int:
@@ -2241,7 +2290,7 @@ def main() -> int:
     gsm_launches, gsm_runs = phase_gsm_slice(dev)
     launches = {k: launches.get(k, 0) + n for k, n in gsm_launches.items()}
     phase_gsm_times(dev, gsm_runs, instances)
-    large, large_launches, loop_rows, vit_rows = phase_large_dense(dev)
+    large, large_launches, loop_rows, vit_rows, back_rows = phase_large_dense(dev)
     launches = {k: launches.get(k, 0) + n for k, n in large_launches.items()}
     # K12/K13's rows: the banded instance, which PhoneLoop.smooth takes, with
     # every instance's numbers beside it; K14/K15's: config 4's shape
@@ -2265,6 +2314,8 @@ def main() -> int:
             kernels[name].setdefault("instances", {})[f"{row['placement']}_u{units}"] = row
     for tag, row in vit_rows.items():
         kernels["viterbi_fwd_banded"].setdefault("instances", {})[f"{row['placement']}_{tag}"] = row
+    for tag, row in back_rows.items():
+        kernels["viterbi_backtrace_banded"].setdefault("instances", {})[f"{row['placement']}_{tag}"] = row
     rows = [dict(name=k, route="cuda", source=cuda_scan.KERNELS[k].source,
                  replaces=REPLACES[k], launches=launches[k], **{"library_ms": None, **v})
             for k, v in kernels.items()]

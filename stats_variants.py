@@ -2,8 +2,8 @@
 """Time variants of the full-covariance kernels K9 and K10 alone on one GPU.
 
     python3 stats_variants.py [variant ...]
-    python3 stats_variants.py probe | times | b2 | b7 | b11 | geometry | b11_geometry | vb
-    python3 stats_variants.py --sources DIR k2_* | k6_* | k1_* | k7_* | k11_* | k3_*
+    python3 stats_variants.py probe | times | b2 | b7 | b11 | b13 | geometry | b11_geometry | b13_geometry | vb
+    python3 stats_variants.py --sources DIR k2_* | k6_* | k1_* | k7_* | k11_* | k3_* | k4_* | k13_*
 
 ``probe`` is the 3×TF32 probe that decided K8's arithmetic (see
 :func:`probe`); it builds no variant.  ``times`` times K8 alone at config
@@ -50,6 +50,19 @@ them, split by kernel, through this checkout's wrappers (any revision, as
 geometry.  The ``k11n_*`` / ``k3n_*`` variants take stages out of the
 chunked K11 and K3; the ``k11_*`` / ``k3_*`` variants out of the
 per-frame ones as they stood before (0849d1a; ``--sources DIR``).
+
+B4 and B9e, the backtrace and the banded smoothing: ``b13`` times K4 (the
+decodes of configs 3, 4 and 5 and of phone loops of 100, 250, 700 and
+3,200 units, S = 300 to 9,600, on the operands each decode gives it) and
+K13's banded instance (config 4, S = 150, and S = 450), with K12 banded,
+K13 dense, K3 and K11 beside them, split by kernel, through this
+checkout's wrappers (any revision, as ``b11``).  The ``k4_*`` /
+``k13_*`` variants take stages out of K4 and K13 as they stood before
+their redesign (3d14238; ``--sources DIR``): K4's final arg-max, its exit
+load and its path write; K13's in-chain loads of e and α̂, its post-norm
+reduction and its γ / ŵ writes.  ``b13_geometry`` times the redesigned
+K13 banded and K4 in several launch geometries; the ``k4n_*`` /
+``k13n_*`` variants take stages out of the redesigned kernels.
 
 Each variant is ``beer_tpu_torch/csrc/stats_full.cu`` with a few text
 substitutions (a design knob changed or one stage removed), built with
@@ -405,18 +418,79 @@ K3N_VARIANTS = {
     "k3n_copy4": ([("constexpr int kVitCopyWarps = 8;", "constexpr int kVitCopyWarps = 4;")], True),
     "k3n_copy16": ([("constexpr int kVitCopyWarps = 8;", "constexpr int kVitCopyWarps = 16;")], True),
 }
+# K4 and K13 (B4, B9e) as they stood before their redesign (3d14238):
+# one thread an utterance; one block an utterance with three block
+# reductions a step; substitutions in that revision's sources (--sources
+# DIR); name -> (substitutions, computes the same function)
+K4_NO_ARGMAX = [("  for (int s = 1; s < S; ++s) {", "  for (int s = 1; s < 0; ++s) {")]
+K4_NO_EXARG = [("    st = c == 0 ? st : (c == 1 ? st - 1 : e_b[t]);", "    st = c == 0 ? st : (c == 1 ? st - 1 : st);")]
+# the path written once, at the end, so that the chase stays live
+K4_NO_PATH = [("    p_b[t - 1] = st;\n  }\n}", "  }\n  p_b[0] = st;\n}")]
+K13_NO_LOADS = [("      const float v = e_t[i] * u1;", "      const float v = u1;"),
+                ("      const float ab = al_t[i] * (u_sh[i] / nu);", "      const float ab = u_sh[i] / nu;")]
+K13_NO_POSTNORM = [("    block_sum_sum(pn, unused, red);\n", "")]
+K13_NO_WRITES = [("      g_b[static_cast<size_t>(t) * S + i] = ab_sh[i] / gnorm;\n", ""),
+                 ("      w_b[static_cast<size_t>(t) * S + i] = w;\n", "")]
+K4_VARIANTS = {
+    "k4_base": ([], True),
+    "k4_no_argmax": (K4_NO_ARGMAX, False),
+    "k4_no_exarg": (K4_NO_EXARG, False),
+    "k4_no_path": (K4_NO_PATH, False),
+    # the chase alone: no arg-max, no exit load, one path write
+    "k4_chase_floor": (K4_NO_ARGMAX + K4_NO_EXARG + K4_NO_PATH, False),
+}
+K13_VARIANTS = {
+    "k13_base": ([], True),
+    "k13_no_loads": (K13_NO_LOADS, False),
+    "k13_no_postnorm": (K13_NO_POSTNORM, False),
+    "k13_no_writes": (K13_NO_WRITES, False),
+    # the chain floor: two block reductions a step, no stream
+    "k13_chain_floor": (K13_NO_LOADS + K13_NO_POSTNORM + K13_NO_WRITES, False),
+}
+# the redesigned K4 (a warp an utterance over staged choices) and K13 banded
+# (chunks, the chain on a warp or a block, the side warps finishing frames)
+K4N_NO_ARGMAX = [("  for (int s = lane + 32; s < S; s += 32) {\n    const float v = a[s] + lf[s];",
+                  "  for (int s = lane + 32; s < 0; s += 32) {\n    const float v = a[s] + lf[s];")]
+K4N_NO_FETCH = [("      fetch(k + kBtStages - 1);  // into the stage chunk k − 1 left\n", ""),
+                ("  for (int k = 0; k < kBtStages - 1; ++k) fetch(k);\n", "")]
+K4N_NO_CHASE = [("    for (int f = nf - 1; f >= 0; --f, ch -= S) {", "    for (int f = nf - 1; f >= 0 && S < 0; --f, ch -= S) {")]
+K13N_NO_CHAIN = [("    if (c < n_chunks) walk(kBlock ? 0 : warp, c);\n", "")]
+K13N_NO_OUTPUT = [("        if (f < span(u, c - 1, lo)) finish(u, c - 1, f, lo);", "        if (f < 0) finish(u, c - 1, f, lo);")]
+K13N_NO_FETCH = [("      if (c + 1 < n_chunks) fetch(c + 1);  // into the stages of chunk c − 2\n", ""),
+                 ("  if (sid >= 0 && n_chunks > 0) fetch(0);\n", "")]
+K13N_NO_TAIL = [("  for (int u = 0; u < n_utt; ++u) {\n    if (b0 + u >= B) continue;\n    const size_t row",
+                  "  for (int u = 0; u < 0; ++u) {\n    if (b0 + u >= B) continue;\n    const size_t row")]
+K4N_VARIANTS = {
+    "k4n_base": ([], True),
+    "k4n_no_argmax": (K4N_NO_ARGMAX, False),
+    "k4n_no_fetch": (K4N_NO_FETCH, False),
+    "k4n_no_chase": (K4N_NO_CHASE, False),
+}
+K13N_VARIANTS = {
+    "k13n_base": ([], True),
+    "k13n_no_chain": (K13N_NO_CHAIN, False),
+    "k13n_no_output": (K13N_NO_OUTPUT, False),
+    "k13n_no_fetch": (K13N_NO_FETCH, False),
+    "k13n_no_tail": (K13N_NO_TAIL, False),
+    # the chain alone: no fetch, no output, no tail
+    "k13n_chain_only": (K13N_NO_OUTPUT + K13N_NO_FETCH + K13N_NO_TAIL, False),
+}
 # the source each variant compiles (its substitutions may fall in a header)
 SOURCES = {**{n: "stats_full.cu" for n in (*VARIANTS, *K8_VARIANTS)},
            **{n: "hmm_scan.cu" for n in (*K6N_VARIANTS, *K7N_VARIANTS)},
            **{n: "phone_loop_scan.cu" for n in (*K2N_VARIANTS, *K1N_VARIANTS)},
            **{n: "hmm_scan.cu" for n in (*K5_VARIANTS, *K6_VARIANTS, *K7_VARIANTS)},
            **{n: "phone_loop_scan.cu" for n in (*K2_VARIANTS, *K1_VARIANTS)},
-           **{n: "phone_loop_scan.cu" for n in (*K11_VARIANTS, *K3_VARIANTS, *K11N_VARIANTS, *K3N_VARIANTS)}}
+           **{n: "phone_loop_scan.cu" for n in (*K11_VARIANTS, *K3_VARIANTS, *K11N_VARIANTS, *K3N_VARIANTS)},
+           **{n: "phone_loop_scan.cu" for n in (*K4_VARIANTS, *K4N_VARIANTS)},
+           **{n: "general_scan.cu" for n in (*K13_VARIANTS, *K13N_VARIANTS)}}
 PARENT_VARIANTS = {**K2_VARIANTS, **K6_VARIANTS}
 PARENT_B7_VARIANTS = {**K1_VARIANTS, **K7_VARIANTS}   # of 6a3a03f's sources
 NEW_B7_VARIANTS = {**K1N_VARIANTS, **K7N_VARIANTS}
 PARENT_B11_VARIANTS = {**K11_VARIANTS, **K3_VARIANTS}   # of 0849d1a's sources
 NEW_B11_VARIANTS = {**K11N_VARIANTS, **K3N_VARIANTS}
+PARENT_B13_VARIANTS = {**K4_VARIANTS, **K13_VARIANTS}   # of 3d14238's sources
+NEW_B13_VARIANTS = {**K4N_VARIANTS, **K13N_VARIANTS}
 REPS = 20
 CARD = ""   # the card's name and power limit (nvidia-smi), printed beside every number
 SOURCES_DIR = cuda_scan.CSRC   # the sources the variants edit (--sources DIR)
@@ -441,7 +515,11 @@ REPORTED = {"ellh_full_kernelILi128ELi64": "k9_128x64", "ellh_full_kernelILi64EL
             "estep_acc_dense_block_kernelILb0ELb1ELb1": "k7_block_shared",
             "forward_llh_chunked_kernelILb0ELb1": "k1_shared", "forward_llh_chunked_kernelILb1ELb1": "k1_global",
             "forward_llh_banded_kernelILb0": "k1_parent_shared", "forward_llh_banded_kernelILb1": "k1_parent_global",
-            "estep_gamma_dense_kernelILb0ELb0": "k7_parent_shared", "estep_gamma_dense_kernelILb0ELb1": "k7_parent_global"}
+            "estep_gamma_dense_kernelILb0ELb0": "k7_parent_shared", "estep_gamma_dense_kernelILb0ELb1": "k7_parent_global",
+            "viterbi_backtrace_kernel": "k4_parent", "smoothing_pass_kernelILb1ELb0": "k13_parent_banded",
+            "viterbi_backtrace_chunked_kernelILb1": "k4_staged", "viterbi_backtrace_chunked_kernelILb0": "k4_direct",
+            **{f"smoothing_banded_chunked_kernelILb0ELi{k}": f"k13_regs{k}" for k in range(1, 7)},
+            "smoothing_banded_chunked_kernelILb0ELi0": "k13_block", "smoothing_banded_chunked_kernelILb1ELi0": "k13_block_global"}
 
 
 def build(names):
@@ -453,13 +531,15 @@ def build(names):
         # the compiled source if it holds the text, else in the one header that does
         texts = {f.name: f.read_text() for f in [SOURCES_DIR / SOURCES[name], *SOURCES_DIR.glob("*.cuh")]}
         subs = {**VARIANTS, **K8_VARIANTS, **K5_VARIANTS, **PARENT_VARIANTS, **K2N_VARIANTS, **K6N_VARIANTS,
-                **PARENT_B7_VARIANTS, **NEW_B7_VARIANTS, **PARENT_B11_VARIANTS, **NEW_B11_VARIANTS}[name][0]
+                **PARENT_B7_VARIANTS, **NEW_B7_VARIANTS, **PARENT_B11_VARIANTS, **NEW_B11_VARIANTS,
+                **PARENT_B13_VARIANTS, **NEW_B13_VARIANTS}[name][0]
         for old, new in subs:
             holders = [f for f, text in texts.items() if old in text]
             holders = [SOURCES[name]] if SOURCES[name] in holders else holders
             if len(holders) != 1:
                 rev = ("53a1783" if name in PARENT_VARIANTS else "6a3a03f" if name in PARENT_B7_VARIANTS
-                       else "0849d1a" if name in PARENT_B11_VARIANTS else "")
+                       else "0849d1a" if name in PARENT_B11_VARIANTS
+                       else "3d14238" if name in PARENT_B13_VARIANTS else "")
                 hint = (f" (it edits the sources of {rev}: pass that revision's beer_tpu_torch/csrc as --sources DIR)"
                         if rev else "")
                 raise RuntimeError(f"variant {name}: {old!r} is in {holders or 'no file'} of {SOURCES[name]}{hint}")
@@ -1659,6 +1739,251 @@ def run_b11_new(dev, built, names):
               f"| {'same function' if same else 'not the same function'}", flush=True)
 
 
+K4_TAGS = ("config3", "config4", "config5", f"u{c.LOOP_UNITS}", f"u{c.BIG_LOOP_UNITS}", "u700", "u3200")
+
+
+def b13_cases(dev):
+    """The operands of K3 and K4 (the decodes of config 3's recognizer,
+    config 4's loop with two zero-length rows, config 5's latent decode,
+    and the unit decodes of loops of 100, 250 and 700 units on phase 18's
+    data and of 3,200 units on 8 of its rows: S = 300, 750, 2,100 and
+    9,600), of K13 banded (config 4 with two zero-length rows, S = 150,
+    and S = 450, on K12's banded forward), K13 dense and K12 (banded, dense,
+    reverse) at config 4, and K1 and K11 at configs 4 and 5, as
+    ``chip_smoke.py`` builds them: ``{"k3": {tag: args}, "k4": {tag:
+    args}, tag: args}``."""
+    cases = {"k3": {}, "k4": {}}
+
+    def put(tag, decode):
+        cases["k3"][tag], cases["k4"][tag] = c.decode_args(decode)
+
+    data3, mask3, seqs = c.config3_data()
+    rec = c.config3(dev, seqs)
+    x3, m3 = torch.from_numpy(data3).to(dev), torch.from_numpy(mask3).to(dev)
+    put("config3", lambda: rec.decode(x3, m3))
+    data, mask = c.with_empty_rows(*c.make_data(c.B, c.T, c.D))
+    x4, m4 = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    put("config4", lambda: c.config4(dev).decode_units(x4, m4))
+    x5, m5 = c.config5_data(dev)
+    x5 = torch.cat([x5, torch.zeros(2, *x5.shape[1:], device=dev)])
+    m5 = torch.cat([m5, torch.zeros(2, m5.shape[1], device=dev)])
+    vae = c.config5(dev)
+    put("config5", lambda: vae.latent_decode(x5, m5))
+    data, mask = c.make_data(c.LARGE_B, c.LARGE_T, c.D, seed=8)
+    xb, mb = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    for units, rows in ((c.LOOP_UNITS, None), (c.BIG_LOOP_UNITS, None), (700, None), (3200, 8)):
+        loop = c.config4(dev, n_units=units)
+        put(f"u{units}", lambda: loop.decode_units(xb[:rows], mb[:rows]))
+    for tag, units in (("config4", c.N_UNITS), ("s450", c.BIG_UNITS)):
+        o = c.general_operands(c.config4(dev, n_units=units), x4, m4)
+        for banded in (True, False) if tag == "config4" else (True,):
+            mat = o["bands"] if banded else o["trans"]
+            probs, _ = cuda_scan.scaled_pass_plain(o["e_llh"], o["lens"], mat, o["init"], banded=banded)
+            key = "k13" if banded else "k13d"
+            cases[f"{key}_{tag}"] = (o["e_llh"], probs, o["lens"], mat, o["final"])
+            if tag == "config4":
+                cases[f"k12{'' if banded else 'd'}_config4"] = (o["e_llh"], o["lens"], mat, o["init"])
+                if not banded:
+                    cases["k12r_config4"] = (o["e_llh"], o["lens"], mat, o["final"])
+    _, stats, ops, fwd, _ = c.banded_operands(dev)
+    cases["k1_config4"] = fwd
+    cases["k11_config4"] = c.banded_estep_args(stats, ops, *cuda_scan.forward_llh_banded_plain(*fwd)[:2])
+    stats5, ops5 = c.svae_operands(vae, x5, m5)
+    fwd5 = (stats5, ops5["lens"], ops5["w"], ops5["bias"], ops5["bands"], ops5["init"])
+    cases["k1_config5"] = fwd5
+    cases["k11_config5"] = c.banded_estep_args(stats5, ops5, *cuda_scan.forward_llh_banded_plain(*fwd5)[:2])
+    return cases
+
+
+def b13_times(dev):
+    """K4 (every decode of :func:`b13_cases`) and K13 banded (config 4 and
+    S = 450), and beside them K12 (banded, dense and reverse) and K13 dense
+    at config 4, K3 (configs 3, 4 and 5), K11 and K1 (configs 4 and 5) and
+    K2 (config 4), through this checkout's wrappers: each call's device ms
+    split by kernel (``kernel_split``)."""
+    row = {}
+
+    def put(tag, fn):
+        split = kernel_split(fn)
+        row[f"{tag}_ms"] = round(ours(split), 4)
+        row[f"{tag}_split"] = {k: round(v, 4) for k, v in split.items()}
+
+    cases = b13_cases(dev)
+    for tag in K4_TAGS:
+        put(f"k4_{tag}", lambda: cuda_scan.viterbi_backtrace_banded(*cases["k4"][tag]))
+    for tag in ("config4", "s450"):
+        put(f"k13_{tag}", lambda: cuda_scan.smoothing_pass(*cases[f"k13_{tag}"], banded=True))
+    put("k13_dense_config4", lambda: cuda_scan.smoothing_pass(*cases["k13d_config4"]))
+    put("k12_banded_config4", lambda: cuda_scan.scaled_pass(*cases["k12_config4"], banded=True))
+    put("k12_dense_config4", lambda: cuda_scan.scaled_pass(*cases["k12d_config4"]))
+    put("k12_reverse_config4", lambda: cuda_scan.scaled_pass(*cases["k12r_config4"], reverse=True))
+    for tag in ("config3", "config4", "config5"):
+        put(f"k3_{tag}", lambda: cuda_scan.viterbi_fwd_banded(*cases["k3"][tag]))
+    for tag in ("config4", "config5"):
+        put(f"k11_{tag}", lambda: cuda_scan.estep_gamma_banded(*cases[f"k11_{tag}"]))
+        put(f"k1_{tag}", lambda: cuda_scan.forward_llh_banded(*cases[f"k1_{tag}"]))
+    put("k2_config4", lambda: cuda_scan.estep_acc_banded(*cases["k11_config4"]))  # K11's operands are K2's
+    print(f"b13 times: {CARD} | " + json.dumps(row), flush=True)
+
+
+def run_b13_parent(dev, built, names):
+    """The ``k4_*`` / ``k13_*`` variants of K4 and K13 as they stood before
+    their redesign (3d14238's entry points, ten bare foreign calls between
+    two events, median of 20, divided by ten): K4 on every decode of
+    :func:`b13_cases`, K13 banded at config 4 and S = 450, one line a
+    variant."""
+    cases = b13_cases(dev)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name in names:
+        path, regs = built[name]
+        lib = ctypes.CDLL(str(path))
+        same = PARENT_B13_VARIANTS[name][1]
+        row = {}
+        if name in K4_VARIANTS:
+            lib.beer_viterbi_backtrace_banded.argtypes = [i] + [p] * 6 + [i] * 4 + [p]
+            for tag in K4_TAGS:
+                back = cases["k4"][tag]
+                b, t_len, s = back[0].shape
+                paths, scores = torch.empty(b, t_len, dtype=torch.int32, device=dev), torch.empty(b, device=dev)
+                stride = s if back[3].ndim == 2 else 0
+                call = lambda: lib.beer_viterbi_backtrace_banded(  # noqa: E731
+                    0, *map(ptr, (*back, paths, scores)), b, t_len, s, stride, stream)
+                c.check(call() == 0, f"{name}: launch ({tag})")
+                if same:
+                    want = cuda_scan.viterbi_backtrace_banded_plain(*back)
+                    c.check(torch.equal(paths, want[0]) and torch.equal(scores, want[1]),
+                            f"{name}: differs from plain ({tag})")
+                row[f"k4_{tag}_ms"] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+        else:
+            lib.beer_smoothing_pass.argtypes = [i, i, i] + [p] * 9 + [i] * 3 + [p]
+            for tag in ("config4", "s450"):
+                smo = cases[f"k13_{tag}"]
+                b, t_len, s = smo[0].shape
+                outs = (torch.empty(b, t_len, s, device=dev), torch.empty(b, t_len, s, device=dev),
+                        torch.empty(b, t_len, device=dev), torch.empty(b, t_len, device=dev))
+                e_llh, probs, lens, bands, final = smo
+                call = lambda: lib.beer_smoothing_pass(  # noqa: E731
+                    0, 1, 0, *map(ptr, (e_llh, probs, lens, bands, final, *outs)), b, t_len, s, stream)
+                c.check(call() == 0, f"{name}: launch ({tag})")
+                if same:
+                    want = cuda_scan.smoothing_pass_plain(*smo, banded=True)
+                    mask = (torch.arange(t_len, device=dev)[None] < lens[:, None]).float()
+                    errs = [c.valid_err(x, y, mask) for x, y in zip(outs[:2], want[:2])]
+                    c.check(max(errs) <= 1e-5, f"{name}: differs from plain ({tag}) {errs}")
+                row[f"k13_{tag}_ms"] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+        print(f"variant {name}: {CARD} | " + json.dumps(row) + f" | registers {regs} "
+              f"| {'same function' if same else 'not the same function'}", flush=True)
+
+
+def time_k4(lib, dev, tag, back, geometries, check=True):
+    """The redesigned K4 (bare foreign call, ten between two events, median
+    of 20, divided by ten) in each launch geometry that fits; equal to the
+    plain version when ``check``."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.beer_viterbi_backtrace_banded.argtypes = [i, i, i, i] + [p] * 6 + [i] * 4 + [p]
+    b, t_len, s = back[0].shape
+    stride = s if back[3].ndim == 2 else 0
+    want = cuda_scan.viterbi_backtrace_banded_plain(*back) if check else None
+    row = {}
+    for instance, n_utt, chunk in geometries:
+        staged = instance == "staged"
+        if staged and cuda_scan.backtrace_smem_bytes(s, n_utt, chunk) > cuda_scan.SMEM_LIMIT:
+            continue
+        paths, scores = torch.empty(b, t_len, dtype=torch.int32, device=dev), torch.empty(b, device=dev)
+        call = lambda: lib.beer_viterbi_backtrace_banded(  # noqa: E731
+            0, int(staged), n_utt, chunk, *map(ptr, (*back, paths, scores)), b, t_len, s, stride, stream)
+        key = f"{tag}_{instance}_u{n_utt}_c{chunk}"
+        c.check(call() == 0, f"{key}: launch")
+        if want is not None:
+            c.check(torch.equal(paths, want[0]) and torch.equal(scores, want[1]), f"{key}: differs from plain")
+        row[key] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+    return row
+
+
+def time_k13(lib, dev, tag, smo, geometries, check=True):
+    """The chunked K13 banded in each launch geometry that fits, as
+    :func:`time_k4`; held against the plain version (γ and ŵ abs 1e-5 on
+    the valid frames) when ``check``."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.beer_smoothing_banded.argtypes = [i, i, i, i] + [p] * 9 + [i] * 3 + [p]
+    e_llh, probs, lens, bands, final = smo
+    b, t_len, s = e_llh.shape
+    want = cuda_scan.smoothing_pass_plain(*smo, banded=True) if check else None
+    mask = (torch.arange(t_len, device=dev)[None] < lens[:, None]).float()
+    row = {}
+    for placement, n_utt, chunk in geometries:
+        glob = placement == "global"
+        if cuda_scan.smoothing_banded_smem_bytes(s, placement, n_utt, chunk) > cuda_scan.SMEM_LIMIT:
+            continue
+        outs = (torch.empty(b, t_len, s, device=dev), torch.empty(b, t_len, s, device=dev),
+                torch.empty(b, t_len, device=dev), torch.empty(b, t_len, device=dev))
+        call = lambda: lib.beer_smoothing_banded(  # noqa: E731
+            0, int(glob), n_utt, chunk, *map(ptr, (*smo, *outs)), b, t_len, s, stream)
+        key = f"{tag}_{placement}_u{n_utt}_c{chunk}"
+        c.check(call() == 0, f"{key}: launch")
+        if want is not None:
+            errs = [c.valid_err(x, y, mask) for x, y in zip(outs[:2], want[:2])]
+            c.check(max(errs) <= 1e-5, f"{key}: differs from plain {errs}")
+        row[key] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+    return row
+
+
+# K13 banded: case -> launch geometries (placement, utterances a block, frames a chunk)
+K13_GEOMETRIES = {
+    "config4": [("shared", 2, 8), ("shared", 2, 16), ("shared", 1, 16), ("shared", 2, 4), ("shared", 4, 4)],
+    "s450": [("shared", 1, 4), ("shared", 1, 8), ("shared", 1, 16), ("shared", 1, 2)],
+}
+
+
+def b13_geometry(dev):
+    """The chunked K13 banded in each launch geometry of
+    :data:`K13_GEOMETRIES`, each held against its plain version, and K4 at
+    config 4 and on the 3,200-unit loop in several."""
+    lib = cuda_scan._library()
+    cases = b13_cases(dev)
+    for tag, geometries in K13_GEOMETRIES.items():
+        row = time_k13(lib, dev, f"k13_{tag}", cases[f"k13_{tag}"], geometries)
+        print(f"b13 geometry: {CARD} | " + json.dumps(row), flush=True)
+    n_sm = cuda_scan.sm_count(dev.index)
+    for tag in K4_TAGS:  # the staged instance in the wrapper's geometry, and the direct one
+        back = cases["k4"][tag]
+        staged = ("staged", *cuda_scan.backtrace_banded_geometry(back[0].shape[2], back[0].shape[0], n_sm)[1:])
+        extra = [("staged", 2, 16), ("staged", 1, 8)] if tag == "config4" else []
+        row = time_k4(lib, dev, f"k4_{tag}", back, [staged, *extra, ("direct", 1, 32)])
+        print(f"b13 geometry: {CARD} | " + json.dumps(row), flush=True)
+
+
+def run_b13_new(dev, built, names):
+    """The ``k4n_*`` / ``k13n_*`` variants of the redesigned K4 and K13
+    banded in the geometry each shape takes: K4 on every decode of
+    :func:`b13_cases`, K13 at config 4 and S = 450, one line a variant."""
+    cases = b13_cases(dev)
+    n_sm = cuda_scan.sm_count(dev.index)
+    for name in names:
+        path, regs = built[name]
+        lib = ctypes.CDLL(str(path))
+        same = NEW_B13_VARIANTS[name][1]
+        row = {}
+        if name in K4N_VARIANTS:
+            for tag in K4_TAGS:
+                back = cases["k4"][tag]
+                geom = cuda_scan.backtrace_banded_geometry(back[0].shape[2], back[0].shape[0], n_sm)
+                row.update(time_k4(lib, dev, f"k4_{tag}", back, [geom], check=same))
+        else:
+            for tag in ("config4", "s450"):
+                smo = cases[f"k13_{tag}"]
+                geom = cuda_scan.smoothing_banded_geometry(smo[0].shape[2], smo[0].shape[0], n_sm)
+                row.update(time_k13(lib, dev, f"k13_{tag}", smo, [geom], check=same))
+        print(f"variant {name}: {CARD} | " + json.dumps(row) + f" | registers {regs} "
+              f"| {'same function' if same else 'not the same function'}", flush=True)
+
+
 def vb_times(dev):
     """One ``vb_step`` of config 4 (K1 + K2) and of config 2 (K5 + K6) on
     the bench's data through this checkout's package, as ``chip_smoke.py``
@@ -1729,14 +2054,20 @@ def main(names) -> int:
         b11_times(dev)
     if "b11_geometry" in names:
         b11_geometry(dev)
-    names = [n for n in names if n not in ("probe", "times", "b2", "b7", "b11", "b11_geometry", "geometry", "vb")]
+    if "b13" in names:
+        b13_times(dev)
+    if "b13_geometry" in names:
+        b13_geometry(dev)
+    names = [n for n in names if n not in ("probe", "times", "b2", "b7", "b11", "b11_geometry", "geometry", "vb",
+                                           "b13", "b13_geometry")]
     if not names:
         return 0
     built = build(names)
     for group, run in ((VARIANTS, run_stats), (K8_VARIANTS, run_k8), (K5_VARIANTS, run_k5),
                        (PARENT_VARIANTS, run_k2k6), ({**K2N_VARIANTS, **K6N_VARIANTS}, run_new),
                        (PARENT_B7_VARIANTS, run_b7_parent), (NEW_B7_VARIANTS, run_b7_new),
-                       (PARENT_B11_VARIANTS, run_b11_parent), (NEW_B11_VARIANTS, run_b11_new)):
+                       (PARENT_B11_VARIANTS, run_b11_parent), (NEW_B11_VARIANTS, run_b11_new),
+                       (PARENT_B13_VARIANTS, run_b13_parent), (NEW_B13_VARIANTS, run_b13_new)):
         mine = [n for n in names if n in group]
         if mine:
             run(dev, built, mine)
@@ -1750,4 +2081,4 @@ if __name__ == "__main__":
         SOURCES_DIR = Path(args[i + 1]).resolve()
         del args[i:i + 2]
     sys.exit(main(args or [*VARIANTS, *K8_VARIANTS, *K5_VARIANTS, *K2N_VARIANTS, *K6N_VARIANTS, *NEW_B7_VARIANTS,
-                           *NEW_B11_VARIANTS]))
+                           *NEW_B11_VARIANTS, *NEW_B13_VARIANTS]))

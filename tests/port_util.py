@@ -50,6 +50,24 @@ def scan_problem(seed: int, n_units: int, spu: int, p_dim: int, b: int, t_len: i
                 ends=ends, starts=starts)
 
 
+def underflow_problem() -> dict:
+    """The general path's banded operands of an untrained phone loop over
+    long utterances (ROADMAP §C.1): :func:`scan_problem` with emissions 18
+    times as peaked (W scaled), T = 200, lengths 200, 150, 0, 90.  The
+    scaled forward's α̂ and the backward's u1 then put their mass on
+    different states, and α̂·u1 underflows on some frames in float32, where
+    γ sums to 0.  Returns the numpy problem with ``e_llh`` = exp(llh −
+    rowmax) (1 on frames t >= len) and per-row ``init`` / ``final``."""
+    pb = scan_problem(1, U, SPU, 6, 4, 200, lengths=[200, 150, 0, 90])
+    s = U * SPU
+    llh = pb["stats"] @ (18.0 * pb["w"]).T + pb["bias"]
+    m = pb["mask"][..., None]
+    pb["e_llh"] = np.exp(llh - llh.max(-1, keepdims=True)) * m + (1 - m)
+    pb["init"] = np.broadcast_to(pb["init"], (4, s)).copy()
+    pb["final"] = np.broadcast_to(pb["final"], (4, s)).copy()
+    return pb
+
+
 def dense_problem(seed: int, s: int, p_dim: int, b: int, t_len: int, lengths=None) -> dict:
     """Seeded numpy inputs of one dense-transition HMM E-step: reduced
     stats, ELLH matrix and bias, a sub-stochastic (S, S) matrix with

@@ -31,7 +31,7 @@ import beer_tpu_torch as bt
 from beer_tpu_torch.ops import cuda_scan
 from beer_tpu_torch.ops import semiring_scan as tss
 from beer_tpu_torch.ops import stats_kernels as sk
-from port_util import dense_args, dense_problem, full_problem, port_args, scan_problem, t
+from port_util import dense_args, dense_problem, full_problem, port_args, scan_problem, t, underflow_problem
 
 pytestmark = pytest.mark.cuda
 
@@ -834,7 +834,7 @@ def test_dense_smem_formulas_match_the_library(device, placement):
             assert cuda_scan.dense_smem_bytes("scaled_pass", s, placement=placement) == \
                 lib.beer_scaled_pass_smem_bytes(mode, s, glob)
         assert cuda_scan.dense_smem_bytes("smoothing_pass", s, placement=placement) == \
-            lib.beer_smoothing_smem_bytes(0, s, glob)
+            lib.beer_smoothing_smem_bytes(s, glob)
 
 
 def test_accumulate_full_takes_an_unaligned_view(device):
@@ -986,8 +986,8 @@ def test_hundred_unit_vb_step_runs_through_the_kernels(device):
 
 
 def test_redesigned_kernels_are_deterministic(device):
-    """Two calls of K1, K2, K3, K6, K7, K11 and K15 agree bitwise: every sum
-    runs in a fixed order."""
+    """Two calls of K1, K2, K3, K4, K6, K7, K11, K13 banded and K15 agree
+    bitwise: every sum runs in a fixed order."""
     a = port_args(scan_problem(5, 50, 3, 78, 9, 70), torch.float32, device)
     fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
     for x, y in zip(cuda_scan.forward_llh_banded(*fwd), cuda_scan.forward_llh_banded(*fwd)):
@@ -1001,6 +1001,14 @@ def test_redesigned_kernels_are_deterministic(device):
     vit = ((a["stats"] @ a["w"].T + a["bias"]).contiguous(), a["lens"], tss.log_bands(a["bands"]).contiguous(),
            tss.log_bands(a["init"]).contiguous())
     for x, y in zip(cuda_scan.viterbi_fwd_banded(*vit), cuda_scan.viterbi_fwd_banded(*vit)):
+        assert torch.equal(x, y)
+    back = (*cuda_scan.viterbi_fwd_banded(*vit), tss.log_bands(a["final"]).contiguous())
+    for x, y in zip(cuda_scan.viterbi_backtrace_banded(*back), cuda_scan.viterbi_backtrace_banded(*back)):
+        assert torch.equal(x, y)
+    e, _ = _e_llh(vit[0], a["lens"])
+    init, final = (a[k].expand(9, -1).contiguous() for k in ("init", "final"))
+    smo = (e, cuda_scan.scaled_pass(e, a["lens"], a["bands"], init, banded=True)[0], a["lens"], a["bands"], final)
+    for x, y in zip(cuda_scan.smoothing_pass(*smo, banded=True), cuda_scan.smoothing_pass(*smo, banded=True)):
         assert torch.equal(x, y)
     for s in (30, 150):
         d = dense_args(dense_problem(s, s, 78, 9, 70), torch.float32, device)
@@ -1017,7 +1025,8 @@ def test_redesigned_kernels_are_deterministic(device):
 
 def test_banded_smem_formulas_match_the_library(device):
     """``cuda_scan.forward_banded_smem_bytes``, ``acc_banded_smem_bytes``,
-    ``gamma_banded_smem_bytes`` and ``viterbi_banded_smem_bytes`` count what
+    ``gamma_banded_smem_bytes``, ``viterbi_banded_smem_bytes``,
+    ``smoothing_banded_smem_bytes`` and ``backtrace_smem_bytes`` count what
     the banded launchers reserve."""
     lib = cuda_scan._library()
     for s, p, u in ((30, 32, 10), (150, 78, 50), (300, 78, 100), (675, 78, 225), (30, 2000, 10), (4, 5, 1)):
@@ -1035,6 +1044,10 @@ def test_banded_smem_formulas_match_the_library(device):
                         lib.beer_estep_gamma_smem_bytes(s, p, u, glob, n_utt, chunk)
                     assert cuda_scan.viterbi_banded_smem_bytes(s, placement, n_utt, chunk) == \
                         lib.beer_viterbi_smem_bytes(s, glob, n_utt, chunk)
+                    assert cuda_scan.smoothing_banded_smem_bytes(s, placement, n_utt, chunk) == \
+                        lib.beer_smoothing_banded_smem_bytes(s, glob, n_utt, chunk)
+                    assert cuda_scan.backtrace_smem_bytes(s, n_utt, chunk) == \
+                        lib.beer_backtrace_smem_bytes(s, n_utt, chunk)
 
 
 def test_large_p_runs_through_the_backward_kernels(device):
@@ -1321,3 +1334,199 @@ def test_gamma_dense_at_the_parents_global_limit(device):
     torch.cuda.synchronize()
     assert float((got[0] - want[0]).abs().max()) <= 1e-5 and _rel(got[1], want[1]) <= 1e-4
     assert _launched() == {"estep_gamma_dense": 1}
+
+
+# ----------------------------------------------------------------------
+# K4: one warp an utterance over staged choices; K13 banded in chunks
+# ----------------------------------------------------------------------
+def _backtrace_operands(device, s, lengths, seed, per_row=False, t_len=None):
+    """K4's operands at S states: random choices with many exits (choice 2
+    on 30 % of the valid frames, 0 past each end as K3 writes them), random
+    exit indices, α_last and log_final rounded to halves so that the final
+    arg-max meets ties, log_final (S,) or per row (B, S)."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    t_len = max(lengths) if t_len is None else t_len
+    choices = rng.choice(3, size=(b, t_len, s), p=[0.4, 0.3, 0.3]).astype(np.int8)
+    exarg = rng.integers(0, s, size=(b, t_len)).astype(np.int32)
+    for i, ln in enumerate(lengths):
+        choices[i, max(ln, 1):] = 0
+        exarg[i, max(ln, 1):] = 0
+    choices[:, :1] = 0
+    exarg[:, :1] = 0
+    alpha = np.round(rng.normal(size=(b, s)) * 2) / 2
+    lf = np.round(rng.normal(size=(b, s) if per_row else (s,)) * 2) / 2
+    f = lambda x, dt: torch.from_numpy(x).to(device=device, dtype=dt).contiguous()  # noqa: E731
+    return f(choices, torch.int8), f(exarg, torch.int32), f(alpha, torch.float32), f(lf, torch.float32)
+
+
+def _backtrace_equal(back):
+    got = cuda_scan.viterbi_backtrace_banded(*back)
+    want = cuda_scan.viterbi_backtrace_banded_plain(*back)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]), "paths"
+    assert torch.equal(got[1], want[1]), "scores"
+    return got
+
+
+# (S, forced (instance, utterances a block, frames a chunk), log_final per row):
+# the geometries backtrace_banded_geometry picks (staged, one utterance,
+# 16 frames; direct above S = 1,024), several utterances a block and a block
+# the batch does not fill, chunks of 8, 4, 2 and 1 frames (staged to S =
+# 16,564), and the direct chase at small S; S = 1, below, at and above a
+# warp's 32 lanes and K3's warp chain (192), and large
+BACKTRACE_CASES = [(150, ("staged", 1, 16), False), (18, ("staged", 1, 16), True), (30, ("staged", 4, 16), False),
+                   (33, ("staged", 3, 8), True), (32, ("staged", 2, 2), False), (1, ("staged", 4, 1), False),
+                   (192, ("staged", 1, 4), True), (193, ("staged", 4, 16), False), (1000, ("staged", 2, 1), False),
+                   (9600, ("staged", 1, 4), False), (16564, ("staged", 1, 2), True), (150, ("direct", 1, 32), True),
+                   (31, ("direct", 4, 32), False), (300, ("direct", 3, 32), True), (2100, ("direct", 1, 32), False)]
+
+
+@pytest.mark.parametrize("case", BACKTRACE_CASES, ids=lambda c: "S%d_%s_u%d_c%d_%s" % (c[0], *c[1], "rows" if c[2] else "one"))
+def test_backtrace_banded_geometries_match_plain_version(device, monkeypatch, case):
+    """K4 in each launch geometry (forced), equal to its plain version
+    (paths and scores): lengths 0, 1, C − 1, C, C + 1, several chunks and a
+    ragged end, many exits, ties in the final arg-max, per-row log_final."""
+    s, geometry, per_row = case
+    chunk = geometry[2]
+    lengths = _chunk_lengths(chunk, 3 * chunk + 5)[: 7 if geometry[1] == 4 else 8]
+    back = _backtrace_operands(device, s, lengths, s + chunk, per_row)
+    monkeypatch.setattr(cuda_scan, "backtrace_banded_geometry", lambda *args: geometry)
+    cuda_scan.reset_launch_counts()
+    _backtrace_equal(back)
+    assert _launched() == {"viterbi_backtrace_banded": 1}
+
+
+def test_backtrace_banded_edges(device):
+    """K4 at T = 0 (the scores alone), on a batch of zero-length rows, on
+    choices that start at an address that is not 16-byte aligned (a view
+    past the first utterance), at K3's largest S (16,564) and at S = 60,000
+    (the direct chase), each in the geometry its wrapper picks; and on K3's
+    outputs for a phone loop of config 4's size, per-row log_final
+    included."""
+    for lengths, t_len in (([0, 0, 0], 0), ([0, 0, 0], 5), ([3, 1, 0, 9], 9)):
+        _backtrace_equal(_backtrace_operands(device, 37, lengths, 1, t_len=t_len))
+    ch, ex, al, lf = _backtrace_operands(device, 37, [9, 9, 5, 1, 0], 2)
+    assert ch[1:].data_ptr() % 16 != 0
+    _backtrace_equal((ch[1:], ex[1:], al[1:].contiguous(), lf))
+    for s, want in ((16564, ("direct", 1, cuda_scan.BT_DIRECT_CHUNK)), (60000, ("direct", 1, cuda_scan.BT_DIRECT_CHUNK))):
+        assert cuda_scan.backtrace_banded_geometry(s, 3, cuda_scan.sm_count(device.index)) == want
+        _backtrace_equal(_backtrace_operands(device, s, [9, 4, 0], s))
+    a = port_args(scan_problem(11, 50, 3, 78, 9, 70), torch.float32, device)
+    llh = (a["stats"] @ a["w"].T + a["bias"]).contiguous()
+    vit = cuda_scan.viterbi_fwd_banded(llh, a["lens"], tss.log_bands(a["bands"]).contiguous(),
+                                       tss.log_bands(a["init"]).contiguous())
+    lf = tss.log_bands(a["final"]).contiguous()
+    _backtrace_equal((*vit, lf))
+    _backtrace_equal((*vit, lf.expand(9, -1).contiguous()))
+
+
+def _smoothing_contract(got, mask):
+    """K13's frames t >= len: γ = 0, ŵ = 0, w_sums = post_norm = 1."""
+    off = mask == 0
+    assert not got[0][off].any() and not got[1][off].any()
+    assert bool((got[2][off] == 1).all() and (got[3][off] == 1).all())
+
+
+# (units, states per unit, forced (placement, utterances a block, frames a
+# chunk)): the geometries smoothing_banded_geometry picks at config 4 (50 ×
+# 3, B = 514: shared, 2, 8), config 5 (shared, 1, 16) and S = 450 (the
+# block chain: shared, 1, 4), and others: the warp chain at S = 192 (its
+# last register) and with the bands in device memory, a block the batch
+# does not fill, one-frame chunks; the block chain at S = 195, 450 with the
+# bands in device memory, and 1,100 (its 24 chain warps)
+SMOOTHING_CASES = [(50, 3, ("shared", 2, 8)), (10, 3, ("shared", 1, 16)), (150, 3, ("shared", 1, 4)),
+                   (64, 3, ("shared", 2, 8)), (50, 3, ("global", 4, 4)), (10, 3, ("shared", 3, 1)),
+                   (1, 1, ("shared", 4, 2)), (11, 3, ("global", 2, 8)), (65, 3, ("shared", 1, 16)),
+                   (150, 3, ("global", 1, 8)), (100, 11, ("shared", 1, 2)), (100, 11, ("global", 1, 1)),
+                   (50, 3, ("shared", 2, 16))]
+
+
+@pytest.mark.parametrize("case", SMOOTHING_CASES, ids=lambda c: "U%d_S%d_%s_u%d_c%d" % (c[0], c[0] * c[1], *c[2]))
+def test_smoothing_banded_geometries_match_plain_version(device, monkeypatch, case):
+    """K13 banded in each launch geometry (forced), against its plain
+    version (γ and ŵ abs 1e-5, w_sums and post_norm rel 1e-5 on the valid
+    frames; lengths 0, 1, C − 1, C, C + 1, across chunks and ragged) and its
+    contract on the frames t >= len; two calls agree bitwise."""
+    units, spu, geometry = case
+    chunk = geometry[2]
+    lengths = _chunk_lengths(chunk, 3 * chunk + 5)[: 7 if geometry[1] == 4 else 8]
+    a = port_args(scan_problem(units + chunk, units, spu, 6, len(lengths), max(lengths), lengths=lengths),
+                  torch.float32, device)
+    llh = (a["stats"] @ a["w"].T + a["bias"]).contiguous()
+    e, mask = _e_llh(llh, a["lens"])
+    init, final = (a[k].expand(len(lengths), -1).contiguous() for k in ("init", "final"))
+    monkeypatch.setattr(cuda_scan, "smoothing_banded_geometry", lambda *args: geometry)
+    cuda_scan.reset_launch_counts()
+    probs, _, got = _general_compare(e, a["lens"], mask, a["bands"], init, final, banded=True)
+    _smoothing_contract(got, mask)
+    smo = (e, probs, a["lens"], a["bands"], final)
+    for x, y in zip(got, cuda_scan.smoothing_pass(*smo, banded=True)):
+        assert torch.equal(x, y)
+    assert _launched() == {"scaled_pass": 1, "smoothing_pass": 2}
+
+
+def test_smoothing_banded_underflow_matches_plain_version(device, monkeypatch):
+    """On the untrained loop whose α̂·u1 underflows (``port_util.
+    underflow_problem``, ROADMAP §C.1), K13 banded gives γ = 0 on the frames
+    where its plain version does and agrees elsewhere, in its own geometry
+    and in the block chain's.  Neither flushes subnormals on the card, so
+    fewer frames reach 0 than on a CPU that flushes (3 of 440 here, 86
+    there); several more keep post_norm below FLT_MIN, where γ = ab /
+    FLT_MIN."""
+    pb = underflow_problem()
+    f = lambda k: torch.from_numpy(np.asarray(pb[k])).to(device=device, dtype=torch.float32).contiguous()  # noqa: E731
+    e, bands, init, final, mask = f("e_llh"), f("bands"), f("init"), f("final"), f("mask")
+    lens = torch.from_numpy(pb["lengths"]).to(device=device, dtype=torch.int32)
+    probs, _ = cuda_scan.scaled_pass_plain(e, lens, bands, init, banded=True)
+    want = cuda_scan.smoothing_pass_plain(e, probs, lens, bands, final, banded=True)
+    zero = (want[0].sum(-1) == 0) & (mask > 0)
+    assert int(zero.sum()) > 0 and int(((want[3] < 1.1754944e-38) & (mask > 0)).sum()) > int(zero.sum()), \
+        "the case must underflow"
+    for geometry in (None, ("shared", 1, 16), ("global", 1, 1)):
+        if geometry is not None:
+            monkeypatch.setattr(cuda_scan, "smoothing_banded_geometry", lambda *args: geometry)
+        got = cuda_scan.smoothing_pass(e, probs, lens, bands, final, banded=True)
+        torch.cuda.synchronize()
+        assert torch.equal((got[0].sum(-1) == 0) & (mask > 0), zero)
+        _valid_close(got[0], want[0], mask, 1e-5, "gamma")
+        _valid_close(got[1], want[1], mask, 1e-5, "w_probs")
+        for name, x, y in (("w_sums", got[2], want[2]), ("post_norm", got[3], want[3])):
+            _valid_close(x, y, mask, 1e-5 * float((y * mask).max().clamp_min(1.0)), name)
+        _smoothing_contract(got, mask)
+
+
+@pytest.mark.parametrize("units, spu", [(6449, 1), (2411, 3)], ids=["S6449", "S7233"])
+def test_smoothing_banded_at_its_limits(device, units, spu):
+    """K13 banded at S = 6,449, the largest S its per-frame kernel took, and
+    at 7,233, near the chunked kernel's own limit (7,234) (the bands in device memory,
+    one-frame chunks), on a short batch against its plain version."""
+    s = units * spu
+    assert cuda_scan.smoothing_banded_geometry(s, 3, cuda_scan.sm_count(device.index)) == ("global", 1, 1)
+    a = port_args(scan_problem(s, units, spu, 4, 3, 5, lengths=[5, 1, 0]), torch.float32, device)
+    llh = (a["stats"] @ a["w"].T + a["bias"]).contiguous()
+    e, mask = _e_llh(llh, a["lens"])
+    init, final = (a[k].expand(3, -1).contiguous() for k in ("init", "final"))
+    probs, _ = cuda_scan.scaled_pass_plain(e, a["lens"], a["bands"], init, banded=True)
+    got = cuda_scan.smoothing_pass(e, probs, a["lens"], a["bands"], final, banded=True)
+    want = cuda_scan.smoothing_pass_plain(e, probs, a["lens"], a["bands"], final, banded=True)
+    torch.cuda.synchronize()
+    _valid_close(got[0], want[0], mask, 1e-5, "gamma")
+    _valid_close(got[1], want[1], mask, 1e-5, "w_probs")
+    for name, x, y in (("w_sums", got[2], want[2]), ("post_norm", got[3], want[3])):
+        _valid_close(x, y, mask, 1e-5 * float((y * mask).max().clamp_min(1.0)), name)
+    _smoothing_contract(got, mask)
+
+
+def test_backtrace_and_banded_smoothing_refuse_grad(device):
+    """Neither K4 nor K13 banded runs on inputs that require grad."""
+    ch, ex, al, lf = _backtrace_operands(device, 30, [9, 4], 3)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        cuda_scan.viterbi_backtrace_banded(ch, ex, al.requires_grad_(), lf)
+    a = port_args(scan_problem(3, 10, 3, 6, 2, 9), torch.float32, device)
+    llh = (a["stats"] @ a["w"].T + a["bias"]).contiguous()
+    e, _ = _e_llh(llh, a["lens"])
+    init, final = (a[k].expand(2, -1).contiguous() for k in ("init", "final"))
+    probs, _ = cuda_scan.scaled_pass(e, a["lens"], a["bands"], init, banded=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        cuda_scan.smoothing_pass(e.requires_grad_(), probs, a["lens"], a["bands"], final, banded=True)

@@ -41,7 +41,7 @@ from beer_tpu.ops import semiring_scan as jss
 from beer_tpu_torch.ops import cuda_scan
 from beer_tpu_torch.ops import semiring_scan as tss
 from port_util import (B, SPU, T, U, close, dense_problem, jax_phone_loop, lengths_and_mask,
-                       scan_problem, t, to_port)
+                       scan_problem, t, to_port, underflow_problem)
 
 S_DENSE = 7
 RTOL_F32, ATOL_F32, RTOL_F64 = 1e-5, 5e-6, 1e-9
@@ -142,6 +142,39 @@ def test_smoothing_pass_plain_vs_pallas_interpret(banded):
         np.testing.assert_allclose(_valid(x, pb["mask"]), _valid(y, pb["mask"]), rtol=RTOL_F32,
                                    atol=ATOL_F32, err_msg=name)
     assert not got[0][t(pb["mask"]) == 0].any()
+
+
+def test_smoothing_banded_underflow_vs_pallas_interpret():
+    """Where α̂·u1 underflows (an untrained loop over long utterances,
+    ``port_util.underflow_problem``; ROADMAP §C.1) γ sums to 0, and the
+    plain version's per-element order (ab = α̂·(u1/ν) with ν floored, then
+    Σab) gives 0 on the frames where the Pallas kernel does; elsewhere they
+    agree at this file's float32 tolerances.  JAX's CPU backend flushes
+    subnormals to zero and torch's does not, so the plain version runs here
+    with ``torch.set_flush_denormal(True)``, the same arithmetic; on the card
+    neither the kernel nor the plain version flushes, and
+    ``test_torch_cuda.py`` holds them to each other on this case."""
+    pb = underflow_problem()
+    mask = pb["mask"]
+    bands = tuple(jnp.asarray(v, jnp.float32) for v in pb["bands"])
+    j = {k: jnp.asarray(pb[k], jnp.float32) for k in ("e_llh", "init", "final", "mask")}
+    a = {k: t(pb[k], torch.float32) for k in ("e_llh", "init", "final", "bands")}
+    lens = t(pb["lengths"], torch.int32)
+    flushed = torch.set_flush_denormal(True)
+    assert flushed, "this CPU cannot flush subnormals"
+    try:
+        a_probs, _ = cuda_scan.scaled_pass_plain(a["e_llh"], lens, a["bands"], a["init"], banded=True)
+        got = cuda_scan.smoothing_pass_plain(a["e_llh"], a_probs, lens, a["bands"], a["final"], banded=True)
+    finally:
+        torch.set_flush_denormal(False)
+    want = pallas_scan.backward_smoothing_banded(j["e_llh"], bands, j["final"], j["mask"],
+                                                 jnp.asarray(a_probs.numpy()), interpret=True)
+    zero_got = (got[0].numpy().sum(-1) == 0) & (mask > 0)
+    zero_want = (np.asarray(want[0]).sum(-1) == 0) & (mask > 0)
+    assert zero_got.sum() >= 20, "the case must underflow"
+    np.testing.assert_array_equal(zero_got, zero_want)
+    for name, x, y in zip(("gamma", "w_probs", "w_sums", "post_norm"), got, want):
+        np.testing.assert_allclose(_valid(x, mask), _valid(y, mask), rtol=RTOL_F32, atol=ATOL_F32, err_msg=name)
 
 
 def test_forward_llh_shifts_plain_vs_pallas_interpret():

@@ -1034,3 +1034,137 @@ def test_viterbi_banded_geometry_has_a_limit():
     assert cuda_scan.viterbi_banded_smem_bytes(16564, "global", 1, 1) <= cuda_scan.SMEM_LIMIT
     assert cuda_scan.viterbi_banded_geometry(16565, 64, N_SM) == ("global", 1, 1)
     assert cuda_scan.viterbi_banded_smem_bytes(16565, "global", 1, 1) > cuda_scan.SMEM_LIMIT
+
+
+# (S, B) -> K4's (instance, utterances a block, frames a chunk): the
+# decodes of config 3 (S = 18), config 5's loop (S = 30) and config 4's
+# (S = 150) at B = 8 and 514 and at their own batches (128, 258), phase
+# 18's loops (S = 300 and 750 staged; 2,100 and, on 8 rows, 9,600 direct),
+# both sides of the staged instance's last S (1,024), K3's limit (16,564),
+# and at a batch of many waves: four utterances a block, the chunk
+# shortened so that a wave's blocks share an SM
+BACKTRACE_GEOMETRIES = [
+    ((18, 8), ("staged", 1, 16)), ((30, 8), ("staged", 1, 16)), ((150, 8), ("staged", 1, 16)),
+    ((18, 514), ("staged", 1, 16)), ((30, 514), ("staged", 1, 16)), ((150, 514), ("staged", 1, 16)),
+    ((18, 128), ("staged", 1, 16)), ((30, 258), ("staged", 1, 16)), ((300, 64), ("staged", 1, 16)),
+    ((750, 64), ("staged", 1, 16)), ((1024, 64), ("staged", 1, 16)), ((1025, 64), ("direct", 1, 32)),
+    ((2100, 64), ("direct", 1, 32)), ((9600, 8), ("direct", 1, 32)), ((16564, 64), ("direct", 1, 32)),
+    ((18, MANY_WAVES), ("staged", 4, 16)), ((150, MANY_WAVES), ("staged", 4, 4)),
+    ((1024, MANY_WAVES), ("staged", 4, 8)), ((2100, MANY_WAVES), ("direct", 4, 32)),
+]
+
+
+def _check_backtrace_geometry(s, b, geometry):
+    """What K4's launch rule promises, checked on its answer: a block takes
+    the fewest utterances whose blocks run in one wave at eight an SM;
+    "direct" exactly above the staged instance's last S; a staged block
+    fits, with the longest chunk whose block leaves room for the wave's
+    other blocks on an SM, else (no chunk does) the longest that fits a
+    block."""
+    instance, n_utt, chunk = geometry
+    limit = cuda_scan.SMEM_LIMIT
+    size = cuda_scan.backtrace_smem_bytes
+    cap = next((n for n in sorted(cuda_scan.ACC_UTTERANCES) if -(-b // n) <= 8 * N_SM), 4)
+    assert n_utt == cap
+    if instance == "direct":
+        assert s > cuda_scan.BT_STAGED_STATES and chunk == cuda_scan.BT_DIRECT_CHUNK
+        return
+    assert instance == "staged" and s <= cuda_scan.BT_STAGED_STATES and chunk in cuda_scan.BT_CHUNKS
+    assert size(s, n_utt, chunk) <= limit
+    per_sm = -(-(-(-b // cap)) // N_SM)
+    room = min(233472 // per_sm - 1024, limit)
+    if size(s, n_utt, chunk) > room:
+        assert all(size(s, n_utt, c) > room for c in cuda_scan.BT_CHUNKS)
+        room = limit
+    assert all(size(s, n_utt, c) > room for c in cuda_scan.BT_CHUNKS if c > chunk)
+
+
+@pytest.mark.parametrize("case", BACKTRACE_GEOMETRIES, ids=lambda c: "S%d_B%d" % c[0])
+def test_backtrace_banded_geometry(case):
+    """K4's geometry is chosen by S and the batch size in one place: one
+    warp an utterance, spread over the SMs (config 4's 514 utterances on
+    514 blocks, where the per-thread kernel took 5 SMs), its choices staged
+    in shared memory up to S = 1,024 (:func:`_check_backtrace_geometry`)."""
+    (s, b), want = case
+    geometry = cuda_scan.backtrace_banded_geometry(s, b, N_SM)
+    assert geometry == want
+    _check_backtrace_geometry(s, b, geometry)
+
+
+def test_backtrace_banded_geometry_takes_every_s():
+    """The per-thread K4 used no shared memory and refused no S: every S
+    to K3's limit (16,564) and far above runs, the staged instance's
+    blocks fit (at S = 1,024 one frame of four utterances takes 16,640
+    bytes), and the direct chase uses no shared memory."""
+    assert cuda_scan.backtrace_smem_bytes(cuda_scan.BT_STAGED_STATES, 4, 1) == 16640
+    for s in [*range(1, 2000, 37), *range(2000, 70_000, 997), 16564, 200_000]:
+        for b in (1, 8, 514, MANY_WAVES):
+            geometry = cuda_scan.backtrace_banded_geometry(s, b, N_SM)
+            assert geometry[0] == ("staged" if s <= cuda_scan.BT_STAGED_STATES else "direct")
+            _check_backtrace_geometry(s, b, geometry)
+
+
+# (S, B) -> K13 banded's (placement, utterances a block, frames a chunk):
+# config 4's loop with phase 15's two empty rows (B = 514) and config 5's
+# (B = 258) and at config 4's batch (S = 30), the recognizer's S = 18, both
+# sides of the warp chain's last register (192, 193), phase 15's S = 450
+# (the block chain), phase 18's loops at B = 64 (a block an SM: the longest
+# chunk), many waves, the bands' last S in shared memory (4,822) and the
+# largest S that runs (7,234)
+SMOOTHING_GEOMETRIES = [
+    ((150, 514), ("shared", 2, 8)), ((30, 258), ("shared", 1, 16)), ((30, 514), ("shared", 2, 16)),
+    ((18, 128), ("shared", 1, 16)), ((150, 8), ("shared", 1, 16)), ((192, 514), ("shared", 2, 8)),
+    ((193, 514), ("shared", 1, 16)), ((450, 514), ("shared", 1, 4)), ((300, 64), ("shared", 1, 16)),
+    ((750, 64), ("shared", 1, 8)), ((30, MANY_WAVES), ("shared", 4, 16)), ((150, MANY_WAVES), ("shared", 4, 4)),
+    ((450, MANY_WAVES), ("shared", 1, 4)), ((2000, MANY_WAVES), ("shared", 1, 1)), ((4822, 64), ("shared", 1, 1)),
+    ((6449, 64), ("global", 1, 1)), ((7234, 8), ("global", 1, 1)),
+]
+
+
+def _check_smoothing_geometry(s, b, geometry):
+    """What K13 banded's launch rule promises: the block fits; the most
+    utterances a block that fit up to the fewest whose blocks run in one
+    wave at two an SM (one above the warp chain's S); at those, a block
+    that leaves its SM room for a second one where one such fits (its blocks
+    outnumbering the SMs), then the longest chunk, the bands in shared
+    memory when they fit there."""
+    placement, n_utt, chunk = geometry
+    limit, half = cuda_scan.SMEM_LIMIT, cuda_scan.SMEM_HALF_SM
+    size = lambda pl, n, c: cuda_scan.smoothing_banded_smem_bytes(s, pl, n, c)  # noqa: E731
+    assert size(placement, n_utt, chunk) <= limit
+    cap = next((n for n in sorted(cuda_scan.ACC_UTTERANCES) if -(-b // n) <= 2 * N_SM), 4)
+    cap = cap if s <= cuda_scan.SMO_WARP_STATES else 1
+    assert n_utt <= cap
+    assert all(size("global", n, 1) > limit for n in cuda_scan.ACC_UTTERANCES if n_utt < n <= cap)
+    room = limit if -(-b // n_utt) <= N_SM else half
+    room = room if size("global", n_utt, 1) <= room else limit
+    assert size(placement, n_utt, chunk) <= room
+    assert all(size("global", n_utt, c) > room for c in cuda_scan.ACC_CHUNKS if c > chunk)
+    assert placement == "shared" or size("shared", n_utt, chunk) > room
+
+
+@pytest.mark.parametrize("case", SMOOTHING_GEOMETRIES, ids=lambda c: "S%d_B%d" % c[0])
+def test_smoothing_banded_geometry(case):
+    """K13 banded's geometry is chosen by fit and the batch size in one
+    place (:func:`_check_smoothing_geometry`); every choice fits."""
+    (s, b), want = case
+    geometry = cuda_scan.smoothing_banded_geometry(s, b, N_SM)
+    assert geometry == want
+    _check_smoothing_geometry(s, b, geometry)
+
+
+def test_smoothing_banded_geometry_has_a_limit():
+    """Every S the per-frame K13 banded took (9·S + 64 floats, to S =
+    6,449) runs; the bands leave shared memory above S = 4,822 and above S
+    = 7,234 no block fits, and the geometry names the smallest one, which
+    the launch refuses."""
+    largest = max(s for s in range(1, 20000) if 4 * (9 * s + 64) <= cuda_scan.SMEM_LIMIT)
+    assert largest == 6449
+    for s in (*range(1, 7235, 53), largest, 7234):
+        for b in (8, 514, MANY_WAVES):
+            _check_smoothing_geometry(s, b, cuda_scan.smoothing_banded_geometry(s, b, N_SM))
+    assert cuda_scan.smoothing_banded_geometry(4822, 64, N_SM)[0] == "shared"
+    assert cuda_scan.smoothing_banded_geometry(4823, 64, N_SM)[0] == "global"
+    assert cuda_scan.smoothing_banded_smem_bytes(7234, "global", 1, 1) <= cuda_scan.SMEM_LIMIT
+    assert cuda_scan.smoothing_banded_geometry(7235, 64, N_SM) == ("global", 1, 1)
+    assert cuda_scan.smoothing_banded_smem_bytes(7235, "global", 1, 1) > cuda_scan.SMEM_LIMIT
