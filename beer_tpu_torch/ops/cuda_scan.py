@@ -170,8 +170,8 @@ def _library() -> ctypes.CDLL:
         "beer_estep_acc_dense": [i, i, i, i] + [p] * 11 + [i] * 4 + [p],
         "beer_estep_gamma_dense": [i, i, i, i] + [p] * 11 + [i] * 5 + [p],
         "beer_forward_llh_shifts_dense": [i, i, i] + [p] * 9 + [i] * 3 + [p],
-        "beer_scaled_pass": [i, i, i] + [p] * 6 + [i] * 3 + [p],
-        "beer_smoothing_pass": [i, i] + [p] * 9 + [i] * 3 + [p],
+        "beer_scaled_pass": [i] * 5 + [p] * 7 + [i] * 3 + [p],
+        "beer_smoothing_pass": [i] * 4 + [p] * 10 + [i] * 3 + [p],
         "beer_smoothing_banded": [i, i, i, i] + [p] * 9 + [i] * 3 + [p],
         "beer_gmm_estep_full": [i] + [p] * 6 + [i] * 6 + [p],
         "beer_ellh_full": [i] + [p] * 3 + [i] * 6 + [p],
@@ -184,7 +184,7 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     smem = {"beer_forward_smem_bytes": 5, "beer_estep_smem_bytes": 6, "beer_estep_gamma_smem_bytes": 6,
             "beer_viterbi_smem_bytes": 4, "beer_backtrace_smem_bytes": 3,
-            "beer_scaled_pass_smem_bytes": 3, "beer_smoothing_smem_bytes": 2,
+            "beer_scaled_pass_smem_bytes": 5, "beer_smoothing_smem_bytes": 4,
             "beer_smoothing_banded_smem_bytes": 4,
             "beer_dense_forward_smem_bytes": 4, "beer_gamma_dense_smem_bytes": 7,
             "beer_acc_dense_smem_bytes": 5}
@@ -306,7 +306,8 @@ def dense_smem_bytes(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0
     instance at :func:`backward_chunk`'s chunk), K7 ``estep_gamma_dense``
     and K15 ``estep_gamma_dense_restricted`` (``n_r`` × ``n_c``; their
     block instance at :func:`gamma_chunk`'s chunk), K12 ``scaled_pass``
-    (the dense forward and reverse) and K13 ``smoothing_pass`` (dense);
+    (the dense forward and reverse) and K13 ``smoothing_pass`` (dense) at
+    one utterance a block (:func:`grouped_smem_bytes`);
     ``placement`` "shared" keeps A (and W, K6's moments, the ξ
     accumulator) in shared memory, "global" reads them from device memory.
     K5/K14: their block instance in ``placement`` at
@@ -314,8 +315,6 @@ def dense_smem_bytes(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0
     :func:`forward_smem_bytes`)."""
     if kernel not in _DENSE:
         raise ValueError(f"{kernel} is not a dense kernel")
-    shared = placement == "shared"
-    mat = s * _odd(s) if shared else 0
     if kernel in _FORWARD:
         return forward_smem_bytes(s, p, placement, forward_chunk(s, p, placement))
     elif kernel == "estep_acc_dense":
@@ -323,11 +322,7 @@ def dense_smem_bytes(kernel: str, s: int, p: int = 0, n_r: int = 0, n_c: int = 0
     elif kernel in _GAMMA:
         rc = () if kernel == "estep_gamma_dense" else (n_r, n_c)
         return gamma_smem_bytes(s, placement, gamma_chunk(s, placement, *rc), 1, *rc)
-    elif kernel == "scaled_pass":
-        floats = 2 * s + 2 * _MAX_WARPS + mat
-    else:
-        floats = 5 * s + 2 * _MAX_WARPS + mat
-    return 4 * floats
+    return grouped_smem_bytes(kernel, s, placement)
 
 
 FORWARD_CHUNK = 32         # K5/K14's warp instance: frames a chunk (hmm_scan.cu kChunk)
@@ -663,7 +658,7 @@ def viterbi_launch_bytes(s: int, placement: str, n_utt: int, chunk: int) -> int:
     return viterbi_banded_smem_bytes(s, placement, n_utt, chunk)
 
 
-SMO_WARP_STATES = 192    # K13 banded: one warp an utterance's chain up to this S (32·kSmoRegs), a block's above
+SMO_WARP_STATES = 192    # K12 / K13 banded: one warp an utterance's chain up to this S (32·kSmoRegs), a block's above
 
 
 def smoothing_banded_smem_bytes(s: int, placement: str, n_utt: int = 1, chunk: int = ACC_CHUNKS[0]) -> int:
@@ -679,27 +674,137 @@ def smoothing_banded_smem_bytes(s: int, placement: str, n_utt: int = 1, chunk: i
     return 4 * (floats + n_utt * per)
 
 
-def smoothing_banded_geometry(s: int, b: int, n_sm: int) -> tuple[str, int, int]:
-    """K13 banded's launch at batch size ``b`` on ``n_sm`` SMs, (placement,
-    utterances a block, frames a chunk), decided by fit here and nowhere
-    else.  Its chains are latency-bound, so one wave first: the most
-    utterances a block up to :func:`_utterance_cap` at two blocks an SM (one
-    above :data:`SMO_WARP_STATES`, where a block walks one utterance); then
-    a block that leaves its SM room for a second one (:data:`SMEM_HALF_SM`)
-    — a block whose blocks are no more than the SMs needs no such room —,
-    the longest chunk of :data:`ACC_CHUNKS`, the bands in shared memory
-    ("shared") if they fit there, else read from device memory ("global").
-    Every S to 7,234 runs (("global", 1, 1) above, which the launch
-    refuses)."""
+def scaled_banded_smem_bytes(s: int, placement: str, n_utt: int = 1, chunk: int = ACC_CHUNKS[0]) -> int:
+    """Shared memory of one K12 banded block (``general_scan.cu``
+    ``fwd_layout``): the bands in the shared placement, the block chain's
+    partial sums; and per utterance a three-stage ring of a chunk's e (raw
+    written over it), C·S contiguous floats a stage in whole 16-byte
+    segments, and two stages of its per-frame norms."""
+    floats = (4 * _r4(s) if placement == "shared" else 0) + 4 * _MAX_WARPS
+    return 4 * (floats + n_utt * (3 * _r4(chunk * s + 6) + 2 * _r4(chunk)))
+
+
+def _chain_geometry(size, s: int, b: int, n_sm: int) -> tuple[str, int, int]:
+    """The launch of a chunked chain kernel (K12 and K13 banded) at batch
+    size ``b`` on ``n_sm`` SMs, (placement, utterances a block, frames a
+    chunk), by fit.  Its chains are latency-bound, so one wave first: the
+    most utterances a block up to :func:`_utterance_cap` at two blocks an SM
+    (one above :data:`SMO_WARP_STATES`, where a block walks one utterance);
+    then a block that leaves its SM room for a second one
+    (:data:`SMEM_HALF_SM`) — a block whose blocks are no more than the SMs
+    needs no such room —, the longest chunk of :data:`ACC_CHUNKS`, the bands
+    in shared memory ("shared") if they fit there, else read from device
+    memory ("global"); ("global", 1, 1) when nothing fits, which the launch
+    refuses.  ``size(placement, n_utt, chunk)``: the block's shared
+    memory."""
     cap = _utterance_cap(b, 2, n_sm) if s <= SMO_WARP_STATES else 1
     for n_utt in (n for n in ACC_UTTERANCES if n <= cap):
         for limit in (SMEM_HALF_SM, SMEM_LIMIT):
             room = SMEM_LIMIT if -(-b // n_utt) <= n_sm else limit
             for chunk in ACC_CHUNKS:
                 for placement in ("shared", "global"):
-                    if smoothing_banded_smem_bytes(s, placement, n_utt, chunk) <= room:
+                    if size(placement, n_utt, chunk) <= room:
                         return placement, n_utt, chunk
     return "global", 1, 1
+
+
+def smoothing_banded_geometry(s: int, b: int, n_sm: int) -> tuple[str, int, int]:
+    """K13 banded's launch at batch size ``b`` on ``n_sm`` SMs, (placement,
+    utterances a block, frames a chunk), decided by fit here and nowhere
+    else (:func:`_chain_geometry`).  Every S to 7,234 runs."""
+    return _chain_geometry(lambda pl, n, c: smoothing_banded_smem_bytes(s, pl, n, c), s, b, n_sm)
+
+
+def scaled_banded_geometry(s: int, b: int, n_sm: int) -> tuple[str, int, int]:
+    """K12 banded's launch at batch size ``b`` on ``n_sm`` SMs, (placement,
+    utterances a block, frames a chunk), decided by fit here and nowhere
+    else, by K13 banded's rule (:func:`_chain_geometry`).  Every S to
+    19,318 runs (the parent's per-frame kernel took S <= 9,674)."""
+    return _chain_geometry(lambda pl, n, c: scaled_banded_smem_bytes(s, pl, n, c), s, b, n_sm)
+
+
+# ----------------------------------------------------------------------
+# The dense instances of K12 and K13: a group of utterances a block
+# ----------------------------------------------------------------------
+GRP_THREADS = 256             # a grouped block's threads (general_scan.cu kGrpThreads)
+GRP_UTTERANCES = (8, 4, 2, 1)   # utterances a grouped block, the most first
+GRP_MAX_SLICES = 8            # slices of the product's rows at most (kGrpMaxSlices)
+GRP_BLOCKS_PER_SM = 2         # grouped blocks an SM holds at most, by registers (__launch_bounds__)
+
+
+def grouped_slices(s: int) -> int:
+    """The slices of M's rows a grouped step splits its product into: the
+    most up to :data:`GRP_MAX_SLICES` (and S) whose (column group of four,
+    slice) pairs the block's threads hold, so that few threads idle at
+    small S; one from S = 513 on, where the column groups fill the block."""
+    return max(1, min(GRP_THREADS // -(-s // 4), GRP_MAX_SLICES, s))
+
+
+def _part_stride(ld: int, n_utt: int) -> int:
+    """The stride of a grouped block's partial-sum rows (``general_scan.cu``
+    ``grp_part_stride``): at least ``ld``, the ``n_utt`` rows a warp reads at
+    once in distinct banks."""
+    if n_utt == 1:
+        return ld
+    m, r = 64 // n_utt, 32 // n_utt
+    return ld + ((r - ld % m) % m + m) % m
+
+
+def grouped_smem_bytes(kernel: str, s: int, placement: str = "shared", n_utt: int = 1) -> int:
+    """Shared memory of one grouped block of K12's dense instances
+    (``scaled_pass``) or K13's (``smoothing_pass``) (``general_scan.cu``
+    ``grp_layout``): M (S, round4(S)) whole in the shared placement, its
+    first rows that fit beside the rest in the global one (the others read
+    from device memory); the carries (round4(S), n_utt); the
+    :func:`grouped_slices` slices of partial sums (n_utt rows each); K13 a
+    third array (α̂·u1/ν); a sum a warp, utterance and reduction."""
+    ld, ks = _r4(s), grouped_slices(s)
+    smo = kernel == "smoothing_pass"
+    rest = ld * n_utt * (1 + smo) + ks * n_utt * _part_stride(ld, n_utt) + (3 if smo else 1) * n_utt * _MAX_WARPS
+    rows = s if placement == "shared" else min(s, max(SMEM_LIMIT // 4 - rest, 0) // ld)
+    return 4 * (rows * ld + rest)
+
+
+def dense_grouped_geometry(kernel: str, s: int, b: int, n_sm: int) -> tuple[str, int, int]:
+    """The launch of a dense instance of K12 (``scaled_pass``, forward and
+    reverse) or K13 (``smoothing_pass``) at batch size ``b`` on ``n_sm``
+    SMs, (placement, utterances a block, slices), decided by fit here and
+    nowhere else: M in shared memory ("shared") while one utterance's block
+    holds it, else its first rows there and the others read from device
+    memory ("global"); then the fewest utterances of :data:`GRP_UTTERANCES`
+    that fit and whose blocks run in one wave at :data:`GRP_BLOCKS_PER_SM`
+    blocks an SM where two fit its shared memory, one where one does (the
+    global placement's blocks fill it), the most that fit when none does.
+    A step's time is mostly latency, so fewer utterances a block cost less
+    as long as one wave holds the batch (``stats_variants.py b12_geometry``,
+    ``PERF.md`` §6).  Every S to 29,040 (K12) and 19,336 (K13) runs at one
+    utterance a block."""
+    placement = "shared" if grouped_smem_bytes(kernel, s, "shared") <= SMEM_LIMIT else "global"
+    fits = [n for n in GRP_UTTERANCES if grouped_smem_bytes(kernel, s, placement, n) <= SMEM_LIMIT] or [1]
+
+    def per_sm(n):
+        return max(1, min(GRP_BLOCKS_PER_SM, SMEM_SM // (grouped_smem_bytes(kernel, s, placement, n) + 1024)))
+
+    n_utt = next((n for n in sorted(fits) if -(-b // n) <= per_sm(n) * n_sm), max(fits))
+    return placement, n_utt, grouped_slices(s)
+
+
+def group_order(lens: torch.Tensor) -> torch.Tensor:
+    """The rows in the order the grouped kernels take them, n_utt
+    consecutive ones a block: by length, longest first, ties in row order
+    (a stable sort), so that a group's steps end near its members' lengths.
+    int32, on ``lens``' device; the kernels read and write each row in place
+    through it."""
+    return torch.argsort(lens, descending=True, stable=True).to(torch.int32)
+
+
+def _grouped_matrix(m: torch.Tensor) -> torch.Tensor:
+    """M (S, S) as the grouped kernels take it: (S, round4(S)), zero
+    columns past S, in a fresh (16-byte aligned) allocation."""
+    s = m.shape[0]
+    out = m.new_zeros(s, _r4(s))
+    out[:, :s] = m
+    return out
 
 
 BT_CHUNKS = ACC_CHUNKS      # K4's staged chunk lengths, the most first (at most kAccChunk)
@@ -1451,8 +1556,10 @@ def scaled_pass(e_llh, lens, trans, vec, banded=False, reverse=False):
     normalise(vec)) and frames t >= max(len, 1) repeat the last valid
     (probs, logcs).  Reverse: β̂, whose carry starts at vec / Σvec with
     log-scale log Σvec and is stored on frames t >= len − 1.  The three
-    instances of K12 are dense forward, banded forward and dense reverse;
-    a banded reverse raises.
+    instances of K12 are dense forward, banded forward (in chunks,
+    :func:`scaled_banded_geometry`) and dense reverse (a group of
+    utterances a block, :func:`dense_grouped_geometry`, rows taken in
+    :func:`group_order`); a banded reverse raises.
     """
     refuse_grad("scaled_pass", e_llh, trans, vec)
     if banded and reverse:
@@ -1464,16 +1571,19 @@ def scaled_pass(e_llh, lens, trans, vec, banded=False, reverse=False):
     mode = 2 if reverse else int(banded)
     lib = _library()
     if banded:
-        glob = False
-        _fits(f"S={s}", lib.beer_scaled_pass_smem_bytes(mode, s, 0))
+        placement, n_utt, param = scaled_banded_geometry(s, b, sm_count(dev.index))
+        order = None
     else:
-        glob = _placed("scaled_pass", f"S={s}", s)
-        if glob and reverse:
-            trans = trans.T.contiguous()
+        placement, n_utt, param = dense_grouped_geometry("scaled_pass", s, b, sm_count(dev.index))
+        trans = _grouped_matrix(trans.T if reverse else trans)
+        order = group_order(lens)
+    glob = int(placement == "global")
+    _fits(f"S={s}", lib.beer_scaled_pass_smem_bytes(mode, s, glob, n_utt, param))
     probs = torch.empty(b, t_len, s, device=dev)
     logcs = torch.empty(b, t_len, device=dev)
-    _launch(lib.beer_scaled_pass, dev.index, mode, int(glob), *map(_ptr, (
-        e_llh, lens, trans, vec, probs, logcs)), b, t_len, s, _stream(dev))
+    _launch(lib.beer_scaled_pass, dev.index, mode, glob, n_utt, param, _ptr(e_llh), _ptr(lens),
+            None if order is None else _ptr(order), *map(_ptr, (trans, vec, probs, logcs)), b, t_len, s,
+            _stream(dev))
     KERNELS["scaled_pass"].launches += 1
     return probs, logcs
 
@@ -1505,20 +1615,24 @@ def smoothing_pass(e_llh, a_probs, lens, trans, final, banded=False):
     lib = _library()
     if banded:
         placement, n_utt, chunk = smoothing_banded_geometry(s, b, sm_count(dev.index))
-        glob = placement == "global"
-        _fits(f"S={s}", lib.beer_smoothing_banded_smem_bytes(s, int(glob), n_utt, chunk))
+        glob = int(placement == "global")
+        _fits(f"S={s}", lib.beer_smoothing_banded_smem_bytes(s, glob, n_utt, chunk))
     else:
-        glob = _placed("smoothing_pass", f"S={s}", s)
-        if glob:
-            trans = trans.T.contiguous()
+        placement, n_utt, ks = dense_grouped_geometry("smoothing_pass", s, b, sm_count(dev.index))
+        glob = int(placement == "global")
+        _fits(f"S={s}", lib.beer_smoothing_smem_bytes(s, glob, n_utt, ks))
+        trans = _grouped_matrix(trans.T)
+        order = group_order(lens)
     gamma = torch.empty(b, t_len, s, device=dev)
     w_probs = torch.empty(b, t_len, s, device=dev)
     w_sums = torch.empty(b, t_len, device=dev)
     post_norm = torch.empty(b, t_len, device=dev)
-    args = *map(_ptr, (e_llh, a_probs, lens, trans, final, gamma, w_probs, w_sums, post_norm)), b, t_len, s, _stream(dev)
+    outs = *map(_ptr, (trans, final, gamma, w_probs, w_sums, post_norm)), b, t_len, s, _stream(dev)
     if banded:
-        _launch(lib.beer_smoothing_banded, dev.index, int(glob), n_utt, chunk, *args)
+        _launch(lib.beer_smoothing_banded, dev.index, glob, n_utt, chunk, _ptr(e_llh), _ptr(a_probs), _ptr(lens),
+                *outs)
     else:
-        _launch(lib.beer_smoothing_pass, dev.index, int(glob), *args)
+        _launch(lib.beer_smoothing_pass, dev.index, glob, n_utt, ks, _ptr(e_llh), _ptr(a_probs), _ptr(lens),
+                _ptr(order), *outs)
     KERNELS["smoothing_pass"].launches += 1
     return gamma, w_probs, w_sums, post_norm

@@ -92,11 +92,14 @@ from fixed seeds, in eighteen phases, each printing one line:
 15. general kernels: K12 ``scaled_pass`` (dense forward, banded
    forward, dense reverse) and K13 ``smoothing_pass`` (dense, banded)
    against their plain versions at config 4's shape plus two zero-length
-   rows, both also at S = 450 (150 units × 3; the dense ones there read
-   their matrix from device memory) and against each other, and at S =
-   30 (why ``PhoneLoop.smooth`` always takes the banded pair); K14 (K5 writing the row-max shifts) and K15 (K7 with ξ
-   restricted to a block) at config 2's and config 4's shapes; CUDA-event
-   medians of every instance and its plain version, K15 also alone;
+   rows, all also at S = 450 (150 units × 3; the dense ones there read
+   their matrix from device memory) and against each other, at S = 300
+   (100 units: dense global, banded on the block chain) and at S = 30
+   (why ``PhoneLoop.smooth`` always takes the banded pair), each with the
+   launch geometry its wrapper took; K14 (K5 writing the row-max shifts)
+   and K15 (K7 with ξ restricted to a block) at config 2's and config 4's
+   shapes; CUDA-event medians of every instance and its plain version,
+   K12, K13 and K15 also alone (profiler device time);
 16. gsm slice: one subspace-HMM outer iteration at config 4's full shape:
    2 VB steps, ``accumulate_unit_stats`` with transitions through K12 +
    K13 (launch counters read around it: K12 1, K13 1, K1 and K2 0)
@@ -196,8 +199,8 @@ REPLACES = {
     "ellh_full": "beer_tpu/ops/stats_kernels.py:62",
     "accumulate_full": "beer_tpu/ops/stats_kernels.py:119",
     "estep_gamma_banded": "beer_tpu/ops/pallas_scan.py:1844",
-    "scaled_pass": "beer_tpu/ops/pallas_scan.py:195",
-    "smoothing_pass": "beer_tpu/ops/pallas_scan.py:523",
+    "scaled_pass": "beer_tpu/ops/pallas_scan.py:329",    # the rows' instance: banded, PhoneLoop.smooth's
+    "smoothing_pass": "beer_tpu/ops/pallas_scan.py:384",
     "forward_llh_shifts_dense": "beer_tpu/ops/pallas_scan.py:845",
     "estep_gamma_dense_restricted": "beer_tpu/ops/pallas_scan.py:2407",
 }
@@ -365,10 +368,12 @@ def phase_build():
 
 def launch_geometry(kernel, dev, s, p, b, u=0, rc=()):
     """The launch the wrapper of a chunked kernel takes on ``dev`` at these
-    sizes, as it picks it, with the card's own SM count: K1, K2, K3, K11 and
-    K13 banded (placement, utterances a block, frames a chunk), K4
-    (instance, utterances a block, frames a chunk), K6, K7 and K15
-    (instance, frames a chunk, utterances a block)."""
+    sizes, as it picks it, with the card's own SM count: K1, K2, K3, K11,
+    K12 banded (``scaled_pass``) and K13 banded (placement, utterances a
+    block, frames a chunk), K4 (instance, utterances a block, frames a
+    chunk), the dense instances of K12 and K13 (``scaled_pass_dense``,
+    ``smoothing_pass_dense``: placement, utterances a block, slices), K6, K7
+    and K15 (instance, frames a chunk, utterances a block)."""
     n_sm = cuda_scan.sm_count(dev.index)
     if kernel == "forward_llh_banded":
         return list(cuda_scan.forward_banded_geometry(s, p, b, n_sm))
@@ -382,6 +387,10 @@ def launch_geometry(kernel, dev, s, p, b, u=0, rc=()):
         return list(cuda_scan.backtrace_banded_geometry(s, b, n_sm))
     if kernel == "smoothing_pass":
         return list(cuda_scan.smoothing_banded_geometry(s, b, n_sm))
+    if kernel == "scaled_pass":
+        return list(cuda_scan.scaled_banded_geometry(s, b, n_sm))
+    if kernel in ("scaled_pass_dense", "smoothing_pass_dense"):
+        return list(cuda_scan.dense_grouped_geometry(kernel.removesuffix("_dense"), s, b, n_sm))
     if kernel == "estep_acc_dense":
         instance, chunk = cuda_scan.backward_instance(s, p)
         return [instance, chunk, cuda_scan.backward_utterances(s, p, b, n_sm) if instance == "warp" else 1]
@@ -1551,9 +1560,9 @@ def valid_err(got, want, mask, relative=False):
 
 def general_instance(o, banded):
     """K12 forward + K13 of one instance against the plain versions;
-    returns the kernel outputs, the errors and the two timing rows (K13
-    alone, by profiler device time, and wrapped; the banded one with its
-    launch geometry)."""
+    returns the kernel outputs, the errors and the two timing rows (each
+    kernel alone, by profiler device time, and wrapped, with its launch
+    geometry)."""
     mat = o["bands"] if banded else o["trans"]
     fwd = (o["e_llh"], o["lens"], mat, o["init"])
     probs, logcs = cuda_scan.scaled_pass(*fwd, banded=banded)
@@ -1575,17 +1584,23 @@ def general_instance(o, banded):
     b, t_len, s = o["e_llh"].shape
     nv = float(o["lens"].sum())
     n_mat = 4 * s if banded else s * s
+    dev = o["e_llh"].device
+    suffix = "" if banded else "_dense"
     rows = {
         "scaled_pass": dict(
             max_abs_err=errs["alpha"],
-            ms=cuda_ms(lambda: cuda_scan.scaled_pass(*fwd, banded=banded)),
+            geometry=launch_geometry("scaled_pass" + suffix, dev, s, 0, b),
+            ms=entry_ms(lambda: cuda_scan.scaled_pass(*fwd, banded=banded),
+                        ("scaled_banded",) if banded else ("dense_grouped",)),
+            wrapper_ms=cuda_ms(lambda: cuda_scan.scaled_pass(*fwd, banded=banded)),
             plain_ms=cuda_ms(lambda: cuda_scan.scaled_pass_plain(*fwd, banded=banded)),
             **bound(4 * (nv * s + b * t_len * (s + 1) + n_mat + b * s),
                     nv * (10 * s if banded else 2 * s * s + 4 * s))),
         "smoothing_pass": dict(
             max_abs_err=errs["gamma"],
-            **({"geometry": launch_geometry("smoothing_pass", o["e_llh"].device, s, 0, b)} if banded else {}),
-            ms=entry_ms(lambda: cuda_scan.smoothing_pass(*smo, banded=banded), ("smoothing",)),
+            geometry=launch_geometry("smoothing_pass" + suffix, dev, s, 0, b),
+            ms=entry_ms(lambda: cuda_scan.smoothing_pass(*smo, banded=banded),
+                        ("smoothing_banded",) if banded else ("dense_grouped",)),
             wrapper_ms=cuda_ms(lambda: cuda_scan.smoothing_pass(*smo, banded=banded)),
             plain_ms=cuda_ms(lambda: cuda_scan.smoothing_pass_plain(*smo, banded=banded)),
             **bound(4 * (2 * nv * s + 2 * b * t_len * (s + 1) + n_mat + b * s),
@@ -1600,6 +1615,27 @@ def check_general(errs, label):
     for key in ("logcs", "w_sums", "post_norm"):
         check(errs[key] <= 1e-5, f"{label}: {key} rel {errs[key]}")
     check(errs["xi"] <= 1e-4, f"{label}: xi rel {errs['xi']}")
+
+
+def reverse_instance(o, plain_reps=REPS):
+    """K12's dense reverse (the β̂ pass) against its plain version (β̂ abs
+    1e-5, logcs rel 1e-5); returns the errors and its timing row (alone, by
+    profiler device time, and wrapped, with its launch geometry)."""
+    rev = (o["e_llh"], o["lens"], o["trans"], o["final"])
+    beta, blog = cuda_scan.scaled_pass(*rev, reverse=True)
+    beta_p, blog_p = cuda_scan.scaled_pass_plain(*rev, reverse=True)
+    errs = dict(beta=float((beta - beta_p).abs().max()), logcs=rel(blog, blog_p))
+    del beta, blog, beta_p, blog_p
+    b, t_len, s = o["e_llh"].shape
+    check(errs["beta"] <= 1e-5 and errs["logcs"] <= 1e-5, f"scaled_pass reverse at S={s}: {errs}")
+    nv = float(o["lens"].sum())
+    return errs, dict(
+        max_abs_err=errs["beta"],
+        geometry=launch_geometry("scaled_pass_dense", o["e_llh"].device, s, 0, b),
+        ms=entry_ms(lambda: cuda_scan.scaled_pass(*rev, reverse=True), ("dense_grouped",)),
+        wrapper_ms=cuda_ms(lambda: cuda_scan.scaled_pass(*rev, reverse=True)),
+        plain_ms=cuda_ms(lambda: cuda_scan.scaled_pass_plain(*rev, reverse=True), reps=plain_reps),
+        **bound(4 * (nv * s + b * t_len * (s + 1) + s * s + b * s), nv * (2 * s * s + 5 * s)))
 
 
 def llh_pair(llh, lens, trans, init, final, rows, cols):
@@ -1661,24 +1697,12 @@ def phase_general_kernels(dev):
           "bands_to_dense != exp(log_trans)")
     del dense_out, band_out
     # the β̂ pass
-    rev = (o["e_llh"], o["lens"], o["trans"], o["final"])
-    beta, blog = cuda_scan.scaled_pass(*rev, reverse=True)
-    beta_p, blog_p = cuda_scan.scaled_pass_plain(*rev, reverse=True)
-    errors["reverse"] = dict(beta=float((beta - beta_p).abs().max()), logcs=rel(blog, blog_p))
-    check(errors["reverse"]["beta"] <= 1e-5 and errors["reverse"]["logcs"] <= 1e-5,
-          f"scaled_pass reverse: {errors['reverse']}")
-    del beta_p
-    b, t_len, s = o["e_llh"].shape
-    nv = float(o["lens"].sum())
-    instances["reverse"] = {"scaled_pass": dict(
-        max_abs_err=errors["reverse"]["beta"],
-        ms=cuda_ms(lambda: cuda_scan.scaled_pass(*rev, reverse=True)),
-        plain_ms=cuda_ms(lambda: cuda_scan.scaled_pass_plain(*rev, reverse=True)),
-        **bound(4 * (nv * s + b * t_len * (s + 1) + s * s + b * s), nv * (2 * s * s + 5 * s)))}
+    errors["reverse"], row = reverse_instance(o)
+    instances["reverse"] = {"scaled_pass": row}
     # K14 / K15 at config 4's shape (the dense matrix, ξ on unit ends × starts)
     errors["llh_pair_config4"], pair4 = llh_pair(o["llh"], o["lens"], o["trans"], o["init"],
                                                  o["final"], o["ends"], o["starts"])
-    del o, beta, blog
+    del o
     # ... and at config 2's (ergodic, S = 30; ξ on every third row, every second column)
     hmm = config2(dev)
     _, c = hmm_operands(hmm, x, m)
@@ -1699,13 +1723,20 @@ def phase_general_kernels(dev):
     check_general(errors["dense_450"], f"dense (global) S={BIG_UNITS * STATES_PER_UNIT}")
     e_bd["gamma_450"] = valid_err(band_out[2][0], dense_out[2][0], big["mask"])
     check(e_bd["gamma_450"] <= 1e-5, f"banded vs dense instances at S=450: {e_bd}")
+    errors["reverse_450"], row = reverse_instance(big)
+    instances["reverse_450"] = {"scaled_pass": row}
     del big, band_out, dense_out
-    # both instances at config 5's loop (10 units, S = 30), banded against dense
-    small = general_operands(config4(dev, n_units=SVAE_UNITS), x, m)
-    for name, banded in (("dense_30", False), ("banded_30", True)):
-        _, errors[name], instances[name] = general_instance(small, banded=banded)
-        check_general(errors[name], f"{name} S={SVAE_UNITS * STATES_PER_UNIT}")
-    del small
+    # every instance at phase 18's 100-unit loop (S = 300: the dense ones global, K12 and K13 banded on the
+    # block chain) and at config 5's (10 units, S = 30)
+    for units in (LOOP_UNITS, SVAE_UNITS):
+        ops = general_operands(config4(dev, n_units=units), x, m)
+        s_u = units * STATES_PER_UNIT
+        for name, banded in ((f"dense_{s_u}", False), (f"banded_{s_u}", True)):
+            _, errors[name], instances[name] = general_instance(ops, banded=banded)
+            check_general(errors[name], f"{name} S={s_u}")
+        errors[f"reverse_{s_u}"], row = reverse_instance(ops)
+        instances[f"reverse_{s_u}"] = {"scaled_pass": row}
+        del ops
     torch.cuda.synchronize()
 
     def fmt(v):
@@ -2051,17 +2082,7 @@ def dense_rows(hmm, x, m):
     _, errs["general"], general = general_instance(o, banded=False)
     check_general(errs["general"], f"dense general path S={s}")
     rows.update(general)
-    rev = (o["e_llh"], lens, trans, final)
-    beta, blog = cuda_scan.scaled_pass(*rev, reverse=True)
-    beta_p, blog_p = cuda_scan.scaled_pass_plain(*rev, reverse=True)
-    errs["reverse"] = dict(beta=float((beta - beta_p).abs().max()), logcs=rel(blog, blog_p))
-    check(errs["reverse"]["beta"] <= 1e-5 and errs["reverse"]["logcs"] <= 1e-5,
-          f"scaled_pass reverse at S={s}: {errs['reverse']}")
-    rows["scaled_pass_reverse"] = dict(
-        max_abs_err=errs["reverse"]["beta"],
-        ms=cuda_ms(lambda: cuda_scan.scaled_pass(*rev, reverse=True)),
-        plain_ms=cuda_ms(lambda: cuda_scan.scaled_pass_plain(*rev, reverse=True), reps=3),
-        **bound(4 * (nv * s + b * t_len * (s + 1) + s * s + b * s), nv * (2 * s * s + 5 * s)))
+    errs["reverse"], rows["scaled_pass_reverse"] = reverse_instance(o, plain_reps=3)
     for name, row in rows.items():
         p = p_dim if name in ("forward_llh_dense", "estep_acc_dense") else 0
         n_rc = (ids[::3].numel(), ids[::2].numel()) if name == "estep_gamma_dense_restricted" else (0, 0)

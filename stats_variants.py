@@ -2,8 +2,9 @@
 """Time variants of the full-covariance kernels K9 and K10 alone on one GPU.
 
     python3 stats_variants.py [variant ...]
-    python3 stats_variants.py probe | times | b2 | b7 | b11 | b13 | geometry | b11_geometry | b13_geometry | vb
-    python3 stats_variants.py --sources DIR k2_* | k6_* | k1_* | k7_* | k11_* | k3_* | k4_* | k13_*
+    python3 stats_variants.py probe | times | b2 | b7 | b11 | b13 | b12 | geometry | b11_geometry | b13_geometry
+                              | b12_geometry | vb
+    python3 stats_variants.py --sources DIR k2_* | k6_* | k1_* | k7_* | k11_* | k3_* | k4_* | k13_* | k12_*
 
 ``probe`` is the 3×TF32 probe that decided K8's arithmetic (see
 :func:`probe`); it builds no variant.  ``times`` times K8 alone at config
@@ -63,6 +64,19 @@ load and its path write; K13's in-chain loads of e and α̂, its post-norm
 reduction and its γ / ŵ writes.  ``b13_geometry`` times the redesigned
 K13 banded and K4 in several launch geometries; the ``k4n_*`` /
 ``k13n_*`` variants take stages out of the redesigned kernels.
+
+B9a–d, K12 and K13's dense instance: ``b12`` times K12 (banded forward,
+dense forward, dense reverse) and K13 (banded, dense) on phone loops of
+50, 10, 100 and 150 units over config 4's data (S = 150, 30, 300, 450),
+with K1, K2, K3, K4 and K11 beside them, split by kernel, through this
+checkout's wrappers (any revision, as ``b13``); ``b12_geometry`` times the
+grouped dense instances in several launch geometries, their rows grouped
+by length and as they come, and K12 banded in several.  The ``k12_*``
+variants take stages out of K12 and K13 dense as they stood before their
+redesign (13e9c4a; ``--sources DIR``): the banded forward's q reduction,
+its e loads, its probs writes, and the dense products cut to a quarter (A
+read once for 4 utterances) or removed; the ``k12n_*`` / ``grpn_*``
+variants take stages out of the redesigned ones.
 
 Each variant is ``beer_tpu_torch/csrc/stats_full.cu`` with a few text
 substitutions (a design knob changed or one stage removed), built with
@@ -475,6 +489,77 @@ K13N_VARIANTS = {
     # the chain alone: no fetch, no output, no tail
     "k13n_chain_only": (K13N_NO_OUTPUT + K13N_NO_FETCH + K13N_NO_TAIL, False),
 }
+# K12 and K13's dense instance (B9a–d) as they stood before their redesign
+# (13e9c4a): a block an utterance, two block reductions a frame (the
+# banded forward's q, then Σraw), the dense product S FMAs a state from
+# shared memory or L2; substitutions in that revision's sources (--sources
+# DIR); name -> (substitutions, computes the same function)
+K12_NO_Q = [("      block_sum_sum(q, unused, st.red);\n", "")]
+K12_NO_LOADS = [("      const float raw = base * e_t[j];", "      const float raw = base;")]
+K12_NO_WRITES = [("      st.p_b[static_cast<size_t>(t) * S + s] = a;\n", ""),
+                 ("      st.p_b[static_cast<size_t>(t) * S + i] = a;\n", "")]
+# the dense products at a quarter of their rows: A read once for 4 utterances
+K12_QUARTER = [("        for (int i = 0; i < S; ++i) base = fmaf(p_sh[i], mat_sh[i * a_rs + j], base);",
+                "        for (int i = 0; i < S; i += 4) base = fmaf(p_sh[i], mat_sh[i * a_rs + j], base);"),
+               ("      for (int j = 0; j < S; ++j) raw = fmaf(ar[j * a_cs], v_sh[j], raw);",
+                "      for (int j = 0; j < S; j += 4) raw = fmaf(ar[j * a_cs], v_sh[j], raw);"),
+               ("        for (int j = 0; j < S; ++j) u1 = fmaf(ar[j * a_cs], vh_sh[j], u1);",
+                "        for (int j = 0; j < S; j += 4) u1 = fmaf(ar[j * a_cs], vh_sh[j], u1);")]
+K12_NO_PRODUCT = [(old, new.replace("i += 4", "i < 0").replace("j += 4", "j < 0")
+                   .replace("i < S; i < 0", "i < 0; ++i").replace("j < S; j < 0", "j < 0; ++j"))
+                  for old, new in K12_QUARTER]
+K12_VARIANTS = {
+    "k12_base": ([], True),
+    "k12_no_q": (K12_NO_Q, False),
+    "k12_no_loads": (K12_NO_LOADS, False),
+    "k12_no_writes": (K12_NO_WRITES, False),
+    # the banded forward's chain floor: one block reduction a step, no stream
+    "k12_chain_floor": (K12_NO_Q + K12_NO_LOADS + K12_NO_WRITES, False),
+    "k12_quarter_product": (K12_QUARTER, False),
+    "k12_no_product": (K12_NO_PRODUCT, False),
+}
+# the redesigned K12 banded (chunks, the chain on a warp or a block) and the
+# grouped dense step (K12's dense forward and reverse, K13's dense instance)
+K12N_NO_OUTPUT = [("        if (f >= span(u, c - 1, lo)) continue;\n        const float ipn",
+                   "        if (f >= 0) continue;\n        const float ipn")]
+K12N_NO_FETCH = [("      if (c + 1 < n_chunks) fetch(c + 1);  // into the stage of chunk c − 2\n", ""),
+                 ("  if (sid >= 0 && n_chunks > 0) fetch(0);\n  for (int s = tid; s < (kGlobal ? 0 : L.ldg); s += nt)",
+                  "  for (int s = tid; s < (kGlobal ? 0 : L.ldg); s += nt)")]
+K12N_NO_TAIL = [("  for (int u = 0; u < n_utt; ++u) {\n    if (b0 + u >= B) continue;\n    const size_t row = static_cast<size_t>(b0 + u) * T;\n    const int nf",
+                 "  for (int u = 0; u < 0; ++u) {\n    if (b0 + u >= B) continue;\n    const size_t row = static_cast<size_t>(b0 + u) * T;\n    const int nf")]
+K12N_NO_LOGCS = [("      if (sid < n_utt) {  // the log-scales of chunk c − 1, frame by frame",
+                  "      if (sid < 0) {  // the log-scales of chunk c − 1, frame by frame")]
+# the product on one step only (the forward's and the smoothing's second, the reverse's first): every
+# other step reuses its partial sums, so the step's other work runs on finite values
+GRPN_NO_PRODUCT = [("    if (kRev || k > 0) grp_product<kU>(smem + L.mat, mat, x, part, L, S, ks);",
+                    "    if (k == (kRev ? 0 : 1)) grp_product<kU>(smem + L.mat, mat, x, part, L, S, ks);")]
+GRPN_NO_LOADS = [("        pe[i] = __ldg(e + off + j);", "        pe[i] = 1.f;"),
+                 ("        if (kSmo) pa[i] = __ldg(alpha + off + j);", "        pa[i] = 1.f;"),
+                 ("f(j, e[off + j], kSmo ? alpha[off + j] : 0.f);", "f(j, 1.f, 1.f);")]
+GRPN_NO_OUTPUTS = [("        out[off + j] = p;\n", ""), ("        w_out[off + j] = w;\n", ""),
+                   ("      items([&](int j, float, float) { out[off + j] = abv[j * kU + my] * ig; });\n", "")]
+GRPN_THREADS512 = [("constexpr int kGrpThreads = 256;", "constexpr int kGrpThreads = 512;"),
+                   ("__launch_bounds__(kGrpThreads, 2) dense_grouped_kernel(", "__launch_bounds__(kGrpThreads, 1) dense_grouped_kernel(")]
+GRPN_UNROLL16 = [("#pragma unroll 8\n    for (int i = max(r0, L.rows); i < r1; ++i)",
+                  "#pragma unroll 16\n    for (int i = max(r0, L.rows); i < r1; ++i)")]
+K12N_VARIANTS = {
+    "k12n_base": ([], True),
+    "k12n_no_output": (K12N_NO_OUTPUT, False),
+    "k12n_no_fetch": (K12N_NO_FETCH, False),
+    # the chain alone: no fetch, no output, no log-scales, no tail
+    "k12n_chain_only": (K12N_NO_OUTPUT + K12N_NO_FETCH + K12N_NO_TAIL + K12N_NO_LOGCS, False),
+    # the grouped dense step without its product (one step's reused): barriers, reductions and streams
+    "grpn_no_product": (GRPN_NO_PRODUCT, False),
+    # the e and α̂ streams not loaded
+    "grpn_no_loads": (GRPN_NO_LOADS, False),
+    "grpn_no_outputs": (GRPN_NO_OUTPUTS, False),
+    # no product and no output: the step's barriers, reductions and stream loads
+    "grpn_floor": (GRPN_NO_PRODUCT + GRPN_NO_OUTPUTS, False),
+    # twice the loads of M in flight from device memory
+    "grpn_unroll16": (GRPN_UNROLL16, True),
+    # blocks of 512 threads, one an SM, at the same geometry
+    "grpn_threads512": (GRPN_THREADS512, True),
+}
 # the source each variant compiles (its substitutions may fall in a header)
 SOURCES = {**{n: "stats_full.cu" for n in (*VARIANTS, *K8_VARIANTS)},
            **{n: "hmm_scan.cu" for n in (*K6N_VARIANTS, *K7N_VARIANTS)},
@@ -483,7 +568,7 @@ SOURCES = {**{n: "stats_full.cu" for n in (*VARIANTS, *K8_VARIANTS)},
            **{n: "phone_loop_scan.cu" for n in (*K2_VARIANTS, *K1_VARIANTS)},
            **{n: "phone_loop_scan.cu" for n in (*K11_VARIANTS, *K3_VARIANTS, *K11N_VARIANTS, *K3N_VARIANTS)},
            **{n: "phone_loop_scan.cu" for n in (*K4_VARIANTS, *K4N_VARIANTS)},
-           **{n: "general_scan.cu" for n in (*K13_VARIANTS, *K13N_VARIANTS)}}
+           **{n: "general_scan.cu" for n in (*K13_VARIANTS, *K13N_VARIANTS, *K12_VARIANTS, *K12N_VARIANTS)}}
 PARENT_VARIANTS = {**K2_VARIANTS, **K6_VARIANTS}
 PARENT_B7_VARIANTS = {**K1_VARIANTS, **K7_VARIANTS}   # of 6a3a03f's sources
 NEW_B7_VARIANTS = {**K1N_VARIANTS, **K7N_VARIANTS}
@@ -491,6 +576,8 @@ PARENT_B11_VARIANTS = {**K11_VARIANTS, **K3_VARIANTS}   # of 0849d1a's sources
 NEW_B11_VARIANTS = {**K11N_VARIANTS, **K3N_VARIANTS}
 PARENT_B13_VARIANTS = {**K4_VARIANTS, **K13_VARIANTS}   # of 3d14238's sources
 NEW_B13_VARIANTS = {**K4N_VARIANTS, **K13N_VARIANTS}
+PARENT_B12_VARIANTS = K12_VARIANTS   # of 13e9c4a's sources
+NEW_B12_VARIANTS = K12N_VARIANTS
 REPS = 20
 CARD = ""   # the card's name and power limit (nvidia-smi), printed beside every number
 SOURCES_DIR = cuda_scan.CSRC   # the sources the variants edit (--sources DIR)
@@ -519,7 +606,12 @@ REPORTED = {"ellh_full_kernelILi128ELi64": "k9_128x64", "ellh_full_kernelILi64EL
             "viterbi_backtrace_kernel": "k4_parent", "smoothing_pass_kernelILb1ELb0": "k13_parent_banded",
             "viterbi_backtrace_chunked_kernelILb1": "k4_staged", "viterbi_backtrace_chunked_kernelILb0": "k4_direct",
             **{f"smoothing_banded_chunked_kernelILb0ELi{k}": f"k13_regs{k}" for k in range(1, 7)},
-            "smoothing_banded_chunked_kernelILb0ELi0": "k13_block", "smoothing_banded_chunked_kernelILb1ELi0": "k13_block_global"}
+            "smoothing_banded_chunked_kernelILb0ELi0": "k13_block", "smoothing_banded_chunked_kernelILb1ELi0": "k13_block_global",
+            "scaled_pass_kernelILi0ELb0": "k12_parent_dense", "scaled_pass_kernelILi1ELb0": "k12_parent_banded",
+            "scaled_pass_kernelILi2ELb0": "k12_parent_reverse", "smoothing_pass_kernelILb0": "k13_parent_dense",
+            **{f"scaled_banded_chunked_kernelILb0ELi{k}": f"k12_regs{k}" for k in range(0, 7)},
+            **{f"dense_grouped_kernelILi{m}ELb{g}ELi{u}": f"grp_{m}_{'global' if g else 'shared'}_u{u}"
+               for m in (0, 2, 3) for g in (0, 1) for u in (1, 2, 4, 8)}}
 
 
 def build(names):
@@ -532,14 +624,15 @@ def build(names):
         texts = {f.name: f.read_text() for f in [SOURCES_DIR / SOURCES[name], *SOURCES_DIR.glob("*.cuh")]}
         subs = {**VARIANTS, **K8_VARIANTS, **K5_VARIANTS, **PARENT_VARIANTS, **K2N_VARIANTS, **K6N_VARIANTS,
                 **PARENT_B7_VARIANTS, **NEW_B7_VARIANTS, **PARENT_B11_VARIANTS, **NEW_B11_VARIANTS,
-                **PARENT_B13_VARIANTS, **NEW_B13_VARIANTS}[name][0]
+                **PARENT_B13_VARIANTS, **NEW_B13_VARIANTS, **PARENT_B12_VARIANTS, **NEW_B12_VARIANTS}[name][0]
         for old, new in subs:
             holders = [f for f, text in texts.items() if old in text]
             holders = [SOURCES[name]] if SOURCES[name] in holders else holders
             if len(holders) != 1:
                 rev = ("53a1783" if name in PARENT_VARIANTS else "6a3a03f" if name in PARENT_B7_VARIANTS
                        else "0849d1a" if name in PARENT_B11_VARIANTS
-                       else "3d14238" if name in PARENT_B13_VARIANTS else "")
+                       else "3d14238" if name in PARENT_B13_VARIANTS
+                       else "13e9c4a" if name in PARENT_B12_VARIANTS else "")
                 hint = (f" (it edits the sources of {rev}: pass that revision's beer_tpu_torch/csrc as --sources DIR)"
                         if rev else "")
                 raise RuntimeError(f"variant {name}: {old!r} is in {holders or 'no file'} of {SOURCES[name]}{hint}")
@@ -1984,6 +2077,224 @@ def run_b13_new(dev, built, names):
               f"| {'same function' if same else 'not the same function'}", flush=True)
 
 
+B12_TAGS = {"config4": c.N_UNITS, "config5": c.SVAE_UNITS, "s300": c.LOOP_UNITS, "s450": c.BIG_UNITS}
+
+
+def b12_cases(dev):
+    """The operands of K12 (banded forward, dense forward, dense reverse)
+    and K13 (banded, dense) on phone loops of 50, 10, 100 and 150 units (S
+    = 150, 30, 300, 450) over config 4's data with two zero-length rows (B
+    = 514, T = 500), as ``chip_smoke.py`` phase 15 builds them: ``{tag:
+    {"k12b" | "k12d" | "k12r" | "k13b" | "k13d": args}}``, K13's α̂ from
+    the plain forward."""
+    data, mask = c.with_empty_rows(*c.make_data(c.B, c.T, c.D))
+    x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    cases = {}
+    for tag, units in B12_TAGS.items():
+        o = c.general_operands(c.config4(dev, n_units=units), x, m)
+        e, lens = o["e_llh"], o["lens"]
+        probs_b, _ = cuda_scan.scaled_pass_plain(e, lens, o["bands"], o["init"], banded=True)
+        probs_d, _ = cuda_scan.scaled_pass_plain(e, lens, o["trans"], o["init"])
+        cases[tag] = dict(k12b=(e, lens, o["bands"], o["init"]), k12d=(e, lens, o["trans"], o["init"]),
+                          k12r=(e, lens, o["trans"], o["final"]), k13b=(e, probs_b, lens, o["bands"], o["final"]),
+                          k13d=(e, probs_d, lens, o["trans"], o["final"]))
+    return cases
+
+
+def b12_times(dev):
+    """K12 (banded forward, dense forward, dense reverse) and K13 (banded,
+    dense) at every shape of :func:`b12_cases`, and beside them K1 and K11
+    (configs 4 and 5), K2 (config 4), K3 (configs 3, 4 and 5) and K4 (every
+    decode of :func:`b13_cases`), through this checkout's wrappers: each
+    call's device ms split by kernel (``kernel_split``)."""
+    row = {}
+
+    def put(tag, fn):
+        split = kernel_split(fn)
+        row[f"{tag}_ms"] = round(ours(split), 4)
+        row[f"{tag}_split"] = {k: round(v, 4) for k, v in split.items()}
+
+    for tag, case in b12_cases(dev).items():
+        put(f"k12_banded_{tag}", lambda: cuda_scan.scaled_pass(*case["k12b"], banded=True))
+        put(f"k12_dense_{tag}", lambda: cuda_scan.scaled_pass(*case["k12d"]))
+        put(f"k12_reverse_{tag}", lambda: cuda_scan.scaled_pass(*case["k12r"], reverse=True))
+        put(f"k13_banded_{tag}", lambda: cuda_scan.smoothing_pass(*case["k13b"], banded=True))
+        put(f"k13_dense_{tag}", lambda: cuda_scan.smoothing_pass(*case["k13d"]))
+        del case
+    cases = b13_cases(dev)
+    for tag in K4_TAGS:
+        put(f"k4_{tag}", lambda: cuda_scan.viterbi_backtrace_banded(*cases["k4"][tag]))
+    for tag in ("config3", "config4", "config5"):
+        put(f"k3_{tag}", lambda: cuda_scan.viterbi_fwd_banded(*cases["k3"][tag]))
+    for tag in ("config4", "config5"):
+        put(f"k11_{tag}", lambda: cuda_scan.estep_gamma_banded(*cases[f"k11_{tag}"]))
+        put(f"k1_{tag}", lambda: cuda_scan.forward_llh_banded(*cases[f"k1_{tag}"]))
+    put("k2_config4", lambda: cuda_scan.estep_acc_banded(*cases["k11_config4"]))  # K11's operands are K2's
+    print(f"b12 times: {CARD} | " + json.dumps(row), flush=True)
+
+
+# the shapes the anatomy times a variant at: (tag, instance)
+B12_ANATOMY = [("config4", "k12b"), ("s450", "k12b"), ("config4", "k12d"), ("config4", "k12r"), ("config4", "k13d"),
+               ("s450", "k12d"), ("s450", "k13d")]
+
+
+def run_b12_parent(dev, built, names):
+    """The ``k12_*`` variants of K12 and K13's dense instance as they stood
+    before their redesign (13e9c4a's entry points, ten bare foreign calls
+    between two events, median of 20, divided by ten) at the shapes of
+    :data:`B12_ANATOMY`, one line a variant."""
+    cases = b12_cases(dev)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name in names:
+        path, regs = built[name]
+        lib = ctypes.CDLL(str(path))
+        lib.beer_scaled_pass.argtypes = [i, i, i] + [p] * 6 + [i] * 3 + [p]
+        lib.beer_smoothing_pass.argtypes = [i, i] + [p] * 9 + [i] * 3 + [p]
+        same = K12_VARIANTS[name][1]
+        row = {}
+        for tag, inst in B12_ANATOMY:
+            args = cases[tag][inst]
+            b, t_len, s = args[0].shape
+            glob = int(inst != "k12b" and s > (237 if inst == "k13d" else 239))  # the parent's placements
+            if inst == "k13d":
+                e_llh, probs, lens, mat, final = args
+                mat = mat.T.contiguous() if glob else mat
+                outs = (torch.empty(b, t_len, s, device=dev), torch.empty(b, t_len, s, device=dev),
+                        torch.empty(b, t_len, device=dev), torch.empty(b, t_len, device=dev))
+                call = lambda: lib.beer_smoothing_pass(  # noqa: E731
+                    0, glob, *map(ptr, (e_llh, probs, lens, mat, final, *outs)), b, t_len, s, stream)
+                want = (lambda: cuda_scan.smoothing_pass_plain(*args)[:2]) if same else None
+                mask = (torch.arange(t_len, device=dev)[None] < lens[:, None]).float()[..., None]
+            else:
+                mode = {"k12d": 0, "k12b": 1, "k12r": 2}[inst]
+                e_llh, lens, mat, vec = args
+                mat = mat.T.contiguous() if glob and mode == 2 else mat
+                outs = (torch.empty(b, t_len, s, device=dev), torch.empty(b, t_len, device=dev))
+                call = lambda: lib.beer_scaled_pass(  # noqa: E731
+                    0, mode, glob, *map(ptr, (e_llh, lens, mat, vec, *outs)), b, t_len, s, stream)
+                want = ((lambda: cuda_scan.scaled_pass_plain(*args, banded=mode == 1, reverse=mode == 2)[:1])
+                        if same else None)
+                mask = 1.0
+            key = f"{inst}_{tag}"
+            c.check(call() == 0, f"{name}: launch ({key})")
+            if want is not None:
+                errs = [float(((x - y) * mask).abs().max()) for x, y in zip(outs, want())]
+                c.check(max(errs) <= 1e-5, f"{name}: differs from plain ({key}) {errs}")
+            row[f"{key}_ms"] = round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+        print(f"variant {name}: {CARD} | " + json.dumps(row) + f" | registers {regs} "
+              f"| {'same function' if same else 'not the same function'}", flush=True)
+
+
+def time_general(lib, dev, key, inst, args, geometry, grouped=True, check=True):
+    """The redesigned K12 / K13 dense through ``lib``'s entry points (ten bare
+    foreign calls between two events, median of 20, divided by ten) in one
+    launch geometry, the dense instances' rows grouped by length or as they
+    come (``grouped``); held against the plain version (α̂ / β̂ / γ, ŵ abs
+    1e-5) when ``check``."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.beer_scaled_pass.argtypes = [i] * 5 + [p] * 7 + [i] * 3 + [p]
+    lib.beer_smoothing_pass.argtypes = [i] * 4 + [p] * 10 + [i] * 3 + [p]
+    lib.beer_smoothing_banded.argtypes = [i, i, i, i] + [p] * 9 + [i] * 3 + [p]
+    placement, n_utt, param = geometry
+    glob = int(placement == "global")
+    b, t_len, s = args[0].shape
+    lens = args[2] if inst.startswith("k13") else args[1]
+    order = (cuda_scan.group_order(lens) if grouped
+             else torch.arange(b, dtype=torch.int32, device=dev))
+    if inst.startswith("k13"):
+        e_llh, probs, lens, mat, final = args
+        if inst == "k13d":
+            mat = cuda_scan._grouped_matrix(mat.T)
+        outs = (torch.empty(b, t_len, s, device=dev), torch.empty(b, t_len, s, device=dev),
+                torch.empty(b, t_len, device=dev), torch.empty(b, t_len, device=dev))
+        if inst == "k13d":
+            call = lambda: lib.beer_smoothing_pass(  # noqa: E731
+                0, glob, n_utt, param, ptr(e_llh), ptr(probs), ptr(lens), ptr(order),
+                *map(ptr, (mat, final, *outs)), b, t_len, s, stream)
+        else:
+            call = lambda: lib.beer_smoothing_banded(  # noqa: E731
+                0, glob, n_utt, param, *map(ptr, (e_llh, probs, lens, mat, final, *outs)), b, t_len, s, stream)
+        want = lambda: cuda_scan.smoothing_pass_plain(*args, banded=inst == "k13b")[:2]  # noqa: E731
+        mask = (torch.arange(t_len, device=dev)[None] < lens[:, None]).float()[..., None]
+    else:
+        mode = {"k12d": 0, "k12b": 1, "k12r": 2}[inst]
+        e_llh, lens, mat, vec = args
+        if mode != 1:
+            mat = cuda_scan._grouped_matrix(mat.T if mode == 2 else mat)
+        outs = (torch.empty(b, t_len, s, device=dev), torch.empty(b, t_len, device=dev))
+        call = lambda: lib.beer_scaled_pass(  # noqa: E731
+            0, mode, glob, n_utt, param, ptr(e_llh), ptr(lens), None if mode == 1 else ptr(order),
+            *map(ptr, (mat, vec, *outs)), b, t_len, s, stream)
+        want = lambda: cuda_scan.scaled_pass_plain(*args, banded=mode == 1, reverse=mode == 2)[:1]  # noqa: E731
+        mask = 1.0
+    c.check(call() == 0, f"{key}: launch")
+    if check:
+        errs = [float(((x - y) * mask).abs().max()) for x, y in zip(outs, want())]
+        c.check(max(errs) <= 1e-5, f"{key}: differs from plain {errs}")
+    return round(median_ms(lambda: [call() for _ in range(10)]) / 10, 4)
+
+
+# the dense instances' geometries b12_geometry times: (placement, utterances a block, slices) at
+# config 4 (S = 150) and S = 450, beside the wrapper's own
+B12_GROUPED = {"config4": [("shared", 2, 6), ("shared", 2, 3), ("shared", 4, 4), ("shared", 4, 8), ("shared", 8, 8),
+                           ("shared", 1, 8)],
+               "s450": [("global", 4, 2), ("global", 4, 3), ("global", 4, 4), ("global", 8, 2), ("global", 2, 2)]}
+
+
+def b12_geometry(dev):
+    """The redesigned dense instances in each geometry of
+    :data:`B12_GROUPED`, their rows grouped by length and as they come, and
+    K12 banded in the wrapper's geometry and a few others (config 4, S =
+    450), each held against its plain version."""
+    lib = cuda_scan._library()
+    cases = b12_cases(dev)
+    for tag, geometries in B12_GROUPED.items():
+        for inst in ("k12d", "k12r", "k13d"):
+            row = {}
+            for geometry in geometries:
+                for grouped in (True, False):
+                    key = f"{inst}_{tag}_{'_'.join(map(str, geometry))}_{'sorted' if grouped else 'consecutive'}"
+                    row[key] = time_general(lib, dev, key, inst, cases[tag][inst], geometry, grouped)
+            print(f"b12 geometry: {CARD} | " + json.dumps(row), flush=True)
+    n_sm = cuda_scan.sm_count(dev.index)
+    row = {}
+    for tag, extra in (("config4", [("shared", 4, 16), ("shared", 2, 8), ("shared", 1, 16)]),
+                       ("s450", [("shared", 1, 8), ("shared", 1, 4)])):
+        args = cases[tag]["k12b"]
+        for geometry in [cuda_scan.scaled_banded_geometry(args[0].shape[2], args[0].shape[0], n_sm), *extra]:
+            key = f"k12b_{tag}_{'_'.join(map(str, geometry))}"
+            row[key] = time_general(lib, dev, key, "k12b", args, geometry)
+    print(f"b12 geometry: {CARD} | " + json.dumps(row), flush=True)
+
+
+def run_b12_new(dev, built, names):
+    """The ``k12n_*`` / ``grpn_*`` variants of the redesigned K12 banded and
+    the grouped dense step in the geometry each shape takes, at the shapes
+    of :data:`B12_ANATOMY`, one line a variant."""
+    cases = b12_cases(dev)
+    n_sm = cuda_scan.sm_count(dev.index)
+    for name in names:
+        path, regs = built[name]
+        lib = ctypes.CDLL(str(path))
+        same = K12N_VARIANTS[name][1]
+        row = {}
+        for tag, inst in B12_ANATOMY:
+            if (inst == "k12b") == name.startswith("grpn"):
+                continue
+            args = cases[tag][inst]
+            b, _, s = args[0].shape
+            geometry = (cuda_scan.scaled_banded_geometry(s, b, n_sm) if inst == "k12b" else
+                        cuda_scan.dense_grouped_geometry("smoothing_pass" if inst == "k13d" else "scaled_pass",
+                                                         s, b, n_sm))
+            row[f"{inst}_{tag}_ms"] = time_general(lib, dev, f"{name} {inst}_{tag}", inst, args, geometry, check=same)
+        print(f"variant {name}: {CARD} | " + json.dumps(row) + f" | registers {regs} "
+              f"| {'same function' if same else 'not the same function'}", flush=True)
+
+
 def vb_times(dev):
     """One ``vb_step`` of config 4 (K1 + K2) and of config 2 (K5 + K6) on
     the bench's data through this checkout's package, as ``chip_smoke.py``
@@ -2058,8 +2369,12 @@ def main(names) -> int:
         b13_times(dev)
     if "b13_geometry" in names:
         b13_geometry(dev)
+    if "b12" in names:
+        b12_times(dev)
+    if "b12_geometry" in names:
+        b12_geometry(dev)
     names = [n for n in names if n not in ("probe", "times", "b2", "b7", "b11", "b11_geometry", "geometry", "vb",
-                                           "b13", "b13_geometry")]
+                                           "b13", "b13_geometry", "b12", "b12_geometry")]
     if not names:
         return 0
     built = build(names)
@@ -2067,7 +2382,8 @@ def main(names) -> int:
                        (PARENT_VARIANTS, run_k2k6), ({**K2N_VARIANTS, **K6N_VARIANTS}, run_new),
                        (PARENT_B7_VARIANTS, run_b7_parent), (NEW_B7_VARIANTS, run_b7_new),
                        (PARENT_B11_VARIANTS, run_b11_parent), (NEW_B11_VARIANTS, run_b11_new),
-                       (PARENT_B13_VARIANTS, run_b13_parent), (NEW_B13_VARIANTS, run_b13_new)):
+                       (PARENT_B13_VARIANTS, run_b13_parent), (NEW_B13_VARIANTS, run_b13_new),
+                       (PARENT_B12_VARIANTS, run_b12_parent), (NEW_B12_VARIANTS, run_b12_new)):
         mine = [n for n in names if n in group]
         if mine:
             run(dev, built, mine)
@@ -2081,4 +2397,4 @@ if __name__ == "__main__":
         SOURCES_DIR = Path(args[i + 1]).resolve()
         del args[i:i + 2]
     sys.exit(main(args or [*VARIANTS, *K8_VARIANTS, *K5_VARIANTS, *K2N_VARIANTS, *K6N_VARIANTS, *NEW_B7_VARIANTS,
-                           *NEW_B11_VARIANTS, *NEW_B13_VARIANTS]))
+                           *NEW_B11_VARIANTS, *NEW_B13_VARIANTS, *NEW_B12_VARIANTS]))

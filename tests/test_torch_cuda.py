@@ -518,7 +518,9 @@ def test_general_dense_kernels_shared_memory_limit(device):
     the largest S that fits and read it from device memory above: both
     sides of the limit match the plain versions (the reverse too)."""
     s_max = max(s for s in range(200, 260) if cuda_scan.dense_placement("smoothing_pass", s) == "shared")
-    assert s_max == 237
+    assert s_max == 236
+    assert cuda_scan.dense_placement("scaled_pass", 237) == "shared"
+    assert cuda_scan.dense_placement("scaled_pass", 238) == "global"
     for s in (s_max, s_max + 1, 260):
         a = dense_args(dense_problem(5, s, 2, 2, 6, np.array([6, 3])), torch.float32, device)
         e, mask = _e_llh(a["llh"], a["lens"])
@@ -830,11 +832,18 @@ def test_dense_smem_formulas_match_the_library(device, placement):
         assert cuda_scan.dense_smem_bytes("estep_gamma_dense_restricted", s, n_r=n_r, n_c=n_c,
                                           placement=placement) == \
             lib.beer_gamma_dense_smem_bytes(s, n_r, n_c, 1, glob, cuda_scan.gamma_chunk(s, placement, n_r, n_c), 1)
+        ks = cuda_scan.grouped_slices(s)
         for mode in (0, 2):
             assert cuda_scan.dense_smem_bytes("scaled_pass", s, placement=placement) == \
-                lib.beer_scaled_pass_smem_bytes(mode, s, glob)
+                lib.beer_scaled_pass_smem_bytes(mode, s, glob, 1, ks)
+            for n_utt in cuda_scan.GRP_UTTERANCES:
+                assert cuda_scan.grouped_smem_bytes("scaled_pass", s, placement, n_utt) == \
+                    lib.beer_scaled_pass_smem_bytes(mode, s, glob, n_utt, ks)
         assert cuda_scan.dense_smem_bytes("smoothing_pass", s, placement=placement) == \
-            lib.beer_smoothing_smem_bytes(s, glob)
+            lib.beer_smoothing_smem_bytes(s, glob, 1, ks)
+        for n_utt in cuda_scan.GRP_UTTERANCES:
+            assert cuda_scan.grouped_smem_bytes("smoothing_pass", s, placement, n_utt) == \
+                lib.beer_smoothing_smem_bytes(s, glob, n_utt, ks)
 
 
 def test_accumulate_full_takes_an_unaligned_view(device):
@@ -986,8 +995,8 @@ def test_hundred_unit_vb_step_runs_through_the_kernels(device):
 
 
 def test_redesigned_kernels_are_deterministic(device):
-    """Two calls of K1, K2, K3, K4, K6, K7, K11, K13 banded and K15 agree
-    bitwise: every sum runs in a fixed order."""
+    """Two calls of K1, K2, K3, K4, K6, K7, K11, K12 (every instance), K13
+    (both) and K15 agree bitwise: every sum runs in a fixed order."""
     a = port_args(scan_problem(5, 50, 3, 78, 9, 70), torch.float32, device)
     fwd = (a["stats"], a["lens"], a["w"], a["bias"], a["bands"], a["init"])
     for x, y in zip(cuda_scan.forward_llh_banded(*fwd), cuda_scan.forward_llh_banded(*fwd)):
@@ -1007,8 +1016,19 @@ def test_redesigned_kernels_are_deterministic(device):
         assert torch.equal(x, y)
     e, _ = _e_llh(vit[0], a["lens"])
     init, final = (a[k].expand(9, -1).contiguous() for k in ("init", "final"))
-    smo = (e, cuda_scan.scaled_pass(e, a["lens"], a["bands"], init, banded=True)[0], a["lens"], a["bands"], final)
+    fwd = (e, a["lens"], a["bands"], init)
+    for x, y in zip(cuda_scan.scaled_pass(*fwd, banded=True), cuda_scan.scaled_pass(*fwd, banded=True)):
+        assert torch.equal(x, y)
+    smo = (e, cuda_scan.scaled_pass(*fwd, banded=True)[0], a["lens"], a["bands"], final)
     for x, y in zip(cuda_scan.smoothing_pass(*smo, banded=True), cuda_scan.smoothing_pass(*smo, banded=True)):
+        assert torch.equal(x, y)
+    dense = tss.bands_to_dense(a["bands"]).contiguous()
+    for vec, reverse in ((init, False), (final, True)):
+        got = [cuda_scan.scaled_pass(e, a["lens"], dense, vec, reverse=reverse) for _ in range(2)]
+        for x, y in zip(*got):
+            assert torch.equal(x, y)
+    smo = (e, smo[1], a["lens"], dense, final)
+    for x, y in zip(cuda_scan.smoothing_pass(*smo), cuda_scan.smoothing_pass(*smo)):
         assert torch.equal(x, y)
     for s in (30, 150):
         d = dense_args(dense_problem(s, s, 78, 9, 70), torch.float32, device)
@@ -1026,8 +1046,8 @@ def test_redesigned_kernels_are_deterministic(device):
 def test_banded_smem_formulas_match_the_library(device):
     """``cuda_scan.forward_banded_smem_bytes``, ``acc_banded_smem_bytes``,
     ``gamma_banded_smem_bytes``, ``viterbi_banded_smem_bytes``,
-    ``smoothing_banded_smem_bytes`` and ``backtrace_smem_bytes`` count what
-    the banded launchers reserve."""
+    ``smoothing_banded_smem_bytes``, ``scaled_banded_smem_bytes`` and
+    ``backtrace_smem_bytes`` count what the banded launchers reserve."""
     lib = cuda_scan._library()
     for s, p, u in ((30, 32, 10), (150, 78, 50), (300, 78, 100), (675, 78, 225), (30, 2000, 10), (4, 5, 1)):
         for placement in ("shared", "global"):
@@ -1046,6 +1066,8 @@ def test_banded_smem_formulas_match_the_library(device):
                         lib.beer_viterbi_smem_bytes(s, glob, n_utt, chunk)
                     assert cuda_scan.smoothing_banded_smem_bytes(s, placement, n_utt, chunk) == \
                         lib.beer_smoothing_banded_smem_bytes(s, glob, n_utt, chunk)
+                    assert cuda_scan.scaled_banded_smem_bytes(s, placement, n_utt, chunk) == \
+                        lib.beer_scaled_pass_smem_bytes(1, s, glob, n_utt, chunk)
                     assert cuda_scan.backtrace_smem_bytes(s, n_utt, chunk) == \
                         lib.beer_backtrace_smem_bytes(s, n_utt, chunk)
 
@@ -1530,3 +1552,171 @@ def test_backtrace_and_banded_smoothing_refuse_grad(device):
     probs, _ = cuda_scan.scaled_pass(e, a["lens"], a["bands"], init, banded=True)
     with pytest.raises(RuntimeError, match="requires grad"):
         cuda_scan.smoothing_pass(e.requires_grad_(), probs, a["lens"], a["bands"], final, banded=True)
+
+
+# K12's banded forward in forced geometries (units, states per unit,
+# (placement, utterances a block, frames a chunk)): what
+# scaled_banded_geometry picks at config 4 (50 × 3, B = 514: shared, 2, 16),
+# config 5 (shared, 1, 16) and S = 450 (the block chain: shared, 1, 16), and
+# others: the warp chain at S = 192 (its last register), with the bands in
+# device memory, four utterances a block, one-frame chunks; the block chain
+# with the bands in device memory, at S = 195 and 1,100 (its 8 chain warps
+# of 64 states)
+SCALED_BANDED_CASES = [(50, 3, ("shared", 2, 16)), (10, 3, ("shared", 1, 16)), (150, 3, ("shared", 1, 16)),
+                       (64, 3, ("shared", 2, 8)), (50, 3, ("global", 4, 4)), (10, 3, ("shared", 3, 1)),
+                       (1, 1, ("shared", 4, 2)), (11, 3, ("global", 2, 8)), (65, 3, ("shared", 1, 16)),
+                       (150, 3, ("global", 1, 8)), (100, 11, ("shared", 1, 2)), (100, 11, ("global", 1, 1))]
+
+
+@pytest.mark.parametrize("case", SCALED_BANDED_CASES, ids=lambda c: "U%d_S%d_%s_u%d_c%d" % (c[0], c[0] * c[1], *c[2]))
+def test_scaled_banded_geometries_match_plain_version(device, monkeypatch, case):
+    """K12 banded in each launch geometry (forced), against its plain
+    version (α̂ abs 1e-5, logcs rel 1e-5 over every frame, the copied ones
+    included; lengths 0, 1, C − 1, C, C + 1, across chunks and ragged); two
+    calls agree bitwise."""
+    units, spu, geometry = case
+    chunk = geometry[2]
+    lengths = _chunk_lengths(chunk, 3 * chunk + 5)[: 7 if geometry[1] == 4 else 8]
+    a = port_args(scan_problem(units + chunk, units, spu, 6, len(lengths), max(lengths), lengths=lengths),
+                  torch.float32, device)
+    llh = (a["stats"] @ a["w"].T + a["bias"]).contiguous()
+    e, mask = _e_llh(llh, a["lens"])
+    init = a["init"].expand(len(lengths), -1).contiguous()
+    monkeypatch.setattr(cuda_scan, "scaled_banded_geometry", lambda *args: geometry)
+    cuda_scan.reset_launch_counts()
+    fwd = (e, a["lens"], a["bands"], init)
+    got = cuda_scan.scaled_pass(*fwd, banded=True)
+    want = cuda_scan.scaled_pass_plain(*fwd, banded=True)
+    torch.cuda.synchronize()
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5
+    assert float((got[1] - want[1]).abs().max() / want[1].abs().max().clamp_min(1.0)) <= 1e-5
+    for x, y in zip(got, cuda_scan.scaled_pass(*fwd, banded=True)):
+        assert torch.equal(x, y)
+    assert _launched() == {"scaled_pass": 2}
+
+
+# The dense instances of K12 and K13 in forced geometries (S, (placement,
+# utterances a block, slices)): what dense_grouped_geometry picks at config
+# 4's matrix (shared, 2, 6), config 5's loop (shared, 1, 8) and S = 300 / 450
+# (global, 1, 3 / 4, 2), and others: every utterance count in both
+# placements (the global one with some of M's rows from device memory at S
+# = 300, 450), one slice at small S, the most slices, S = 1
+GROUPED_CASES = [(150, ("shared", 2, 6)), (30, ("shared", 1, 8)), (300, ("global", 1, 3)), (450, ("global", 4, 2)),
+                 (150, ("shared", 4, 6)), (30, ("shared", 2, 8)),
+                 (150, ("shared", 8, 6)), (150, ("global", 2, 6)), (45, ("shared", 1, 1)), (45, ("global", 8, 8)),
+                 (450, ("global", 8, 2)),
+                 (7, ("shared", 4, 7)), (1, ("global", 2, 1)), (236, ("shared", 1, 4)), (238, ("global", 4, 4))]
+
+
+@pytest.mark.parametrize("case", GROUPED_CASES, ids=lambda c: "S%d_%s_u%d_k%d" % (c[0], *c[1]))
+@pytest.mark.parametrize("grouping", ["sorted", "consecutive"])
+def test_dense_grouped_geometries_match_plain_version(device, monkeypatch, case, grouping):
+    """K12's dense forward and reverse and K13's dense instance in each
+    launch geometry (forced) and with the rows grouped by length or as they
+    come, against their plain versions (α̂, β̂, γ, ŵ abs 1e-5; logcs, w_sums,
+    post_norm rel 1e-5; lengths 0, 1, C − 1, C, C + 1 and ragged, B not a
+    multiple of the group), K13's contract on frames t >= len; two calls
+    agree bitwise."""
+    s, geometry = case
+    lengths = _chunk_lengths(4, 21)[:7] + [9, 21]
+    a = dense_args(dense_problem(s + 1, s, 4, len(lengths), 21, np.array(lengths)), torch.float32, device)
+    e, mask = _e_llh(a["llh"], a["lens"])
+    monkeypatch.setattr(cuda_scan, "dense_grouped_geometry", lambda *args: geometry)
+    if grouping == "consecutive":
+        monkeypatch.setattr(cuda_scan, "group_order",
+                            lambda lens: torch.arange(lens.shape[0], dtype=torch.int32, device=lens.device))
+    cuda_scan.reset_launch_counts()
+    probs, _, got = _general_compare(e, a["lens"], mask, a["trans"], a["init"], a["final"], banded=False)
+    _smoothing_contract(got, mask)
+    rev = (e, a["lens"], a["trans"], a["final"])
+    beta, blog = cuda_scan.scaled_pass(*rev, reverse=True)
+    beta_r, blog_r = cuda_scan.scaled_pass_plain(*rev, reverse=True)
+    torch.cuda.synchronize()
+    assert float((beta - beta_r).abs().max()) <= 1e-5
+    assert float((blog - blog_r).abs().max() / blog_r.abs().max().clamp_min(1.0)) <= 1e-5
+    smo = (e, probs, a["lens"], a["trans"], a["final"])
+    for x, y in zip(got, cuda_scan.smoothing_pass(*smo)):
+        assert torch.equal(x, y)
+    for x, y in zip((beta, blog), cuda_scan.scaled_pass(*rev, reverse=True)):
+        assert torch.equal(x, y)
+    assert _launched() == {"scaled_pass": 3, "smoothing_pass": 2}
+
+
+def test_general_kernels_underflow_as_their_plain_versions(device):
+    """On the untrained loop whose α̂·u1 underflows (``port_util.
+    underflow_problem``), K12's banded and dense forward keep the plain
+    version's subnormal entries, and K13's dense instance gives γ = 0 on the
+    frames where its plain version does and agrees elsewhere."""
+    pb = underflow_problem()
+    f = lambda k: torch.from_numpy(np.asarray(pb[k])).to(device=device, dtype=torch.float32).contiguous()  # noqa: E731
+    e, bands, init, final, mask = f("e_llh"), f("bands"), f("init"), f("final"), f("mask")
+    lens = torch.from_numpy(pb["lengths"]).to(device=device, dtype=torch.int32)
+    dense = tss.bands_to_dense(bands).contiguous()
+    tiny = 1.1754944e-38
+    for mat, banded in ((bands, True), (dense, False)):
+        got = cuda_scan.scaled_pass(e, lens, mat, init, banded=banded)
+        want = cuda_scan.scaled_pass_plain(e, lens, mat, init, banded=banded)
+        torch.cuda.synchronize()
+        assert float((got[0] - want[0]).abs().max()) <= 1e-5
+        assert float((got[1] - want[1]).abs().max() / want[1].abs().max().clamp_min(1.0)) <= 1e-5
+        sub = lambda p: (p > 0) & (p < tiny)  # noqa: E731
+        assert int(sub(want[0]).sum()) > 0 and torch.equal(sub(got[0]) | (got[0] == 0), sub(want[0]) | (want[0] == 0))
+    probs, _ = cuda_scan.scaled_pass_plain(e, lens, dense, init)
+    want = cuda_scan.smoothing_pass_plain(e, probs, lens, dense, final)
+    zero = (want[0].sum(-1) == 0) & (mask > 0)
+    assert int(zero.sum()) > 0, "the case must underflow"
+    got = cuda_scan.smoothing_pass(e, probs, lens, dense, final)
+    torch.cuda.synchronize()
+    assert torch.equal((got[0].sum(-1) == 0) & (mask > 0), zero)
+    _valid_close(got[0], want[0], mask, 1e-5, "gamma")
+    _valid_close(got[1], want[1], mask, 1e-5, "w_probs")
+    for name, x, y in (("w_sums", got[2], want[2]), ("post_norm", got[3], want[3])):
+        _valid_close(x, y, mask, 1e-5 * float((y * mask).max().clamp_min(1.0)), name)
+    _smoothing_contract(got, mask)
+
+
+@pytest.mark.parametrize("kernel, s", [("scaled_pass", 29024), ("smoothing_pass", 11609), ("banded", 9674)])
+def test_general_kernels_at_the_parents_limits(device, kernel, s):
+    """The largest S each parent took: K12's dense forward and reverse at
+    29,024 (global, (2S + 64) floats), K13's dense instance at 11,609
+    (global, (5S + 64)) and K12's banded forward at 9,674 ((6S + 64); the
+    bands now in device memory), on a short batch against the plain
+    versions."""
+    n_sm = cuda_scan.sm_count(device.index)
+    rng = np.random.default_rng(s)
+    lengths = np.array([3, 1, 0])
+    lens = torch.from_numpy(lengths).to(device=device, dtype=torch.int32)
+    mask = (torch.arange(3, device=device)[None] < lens[:, None]).float()
+    e = torch.from_numpy(rng.uniform(0.01, 1.0, size=(3, 3, s)).astype(np.float32)).to(device)
+    e = (e * mask[..., None] + (1 - mask[..., None])).contiguous()
+    init = torch.from_numpy(rng.dirichlet(np.ones(s), size=3).astype(np.float32)).to(device)
+    final = torch.from_numpy(rng.uniform(0.05, 0.5, size=(3, s)).astype(np.float32)).to(device)
+    if kernel == "banded":
+        assert cuda_scan.scaled_banded_geometry(s, 3, n_sm)[0] == "global"
+        bands = port_args(scan_problem(s, s // 2, 2, 4, 3, 3), torch.float32, device)["bands"]
+        got = cuda_scan.scaled_pass(e, lens, bands, init, banded=True)
+        want = cuda_scan.scaled_pass_plain(e, lens, bands, init, banded=True)
+        torch.cuda.synchronize()
+        assert float((got[0] - want[0]).abs().max()) <= 1e-5
+        assert float((got[1] - want[1]).abs().max() / want[1].abs().max().clamp_min(1.0)) <= 1e-5
+        return
+    assert cuda_scan.dense_grouped_geometry(kernel, s, 3, n_sm)[0] == "global"
+    trans = torch.rand(s, s, device=device, generator=torch.Generator(device).manual_seed(s))
+    trans = 0.9 * trans / trans.sum(-1, keepdim=True)
+    if kernel == "scaled_pass":
+        for vec, reverse in ((init, False), (final, True)):
+            got = cuda_scan.scaled_pass(e, lens, trans, vec, reverse=reverse)
+            want = cuda_scan.scaled_pass_plain(e, lens, trans, vec, reverse=reverse)
+            torch.cuda.synchronize()
+            assert float((got[0] - want[0]).abs().max()) <= 1e-5
+            assert float((got[1] - want[1]).abs().max() / want[1].abs().max().clamp_min(1.0)) <= 1e-5
+        return
+    probs, _ = cuda_scan.scaled_pass_plain(e, lens, trans, init)
+    got = cuda_scan.smoothing_pass(e, probs, lens, trans, final)
+    want = cuda_scan.smoothing_pass_plain(e, probs, lens, trans, final)
+    torch.cuda.synchronize()
+    _valid_close(got[0], want[0], mask, 1e-5, "gamma")
+    _valid_close(got[1], want[1], mask, 1e-5, "w_probs")
+    for name, x, y in (("w_sums", got[2], want[2]), ("post_norm", got[3], want[3])):
+        _valid_close(x, y, mask, 1e-5 * float((y * mask).max().clamp_min(1.0)), name)
+    _smoothing_contract(got, mask)

@@ -48,18 +48,19 @@ RTOL_F32, ATOL_F32, RTOL_F64 = 1e-5, 5e-6, 1e-9
 INSTANCES = ["dense_forward", "banded_forward", "dense_reverse"]
 
 
-def _problem(kind: str, seed: int = 11) -> dict:
+def _problem(kind: str, seed: int = 11, lengths=None) -> dict:
     """numpy operands of the general path: llh, e_llh, mask, lengths, the
     dense matrix (and the bands for ``kind`` "banded"), per-row init and
-    final vectors."""
+    final vectors; B rows of T frames, or a row a length of ``lengths``."""
+    b, t_len = (B, T) if lengths is None else (len(lengths), max(max(lengths), 1))
     if kind == "banded":
-        pb = scan_problem(seed, U, SPU, 6, B, T)
+        pb = scan_problem(seed, U, SPU, 6, b, t_len, lengths=lengths)
         s = U * SPU
         pb["trans"] = np.asarray(tss.bands_to_dense(t(pb["bands"])))
-        pb["init"] = np.broadcast_to(pb["init"], (B, s)).copy()
-        pb["final"] = np.broadcast_to(pb["final"], (B, s)).copy()
+        pb["init"] = np.broadcast_to(pb["init"], (b, s)).copy()
+        pb["final"] = np.broadcast_to(pb["final"], (b, s)).copy()
     else:
-        pb = dense_problem(seed, S_DENSE, 6, B, T)
+        pb = dense_problem(seed, S_DENSE, 6, b, t_len, lengths)
     llh = pb["stats"] @ pb["w"].T + pb["bias"]
     m = pb["mask"][..., None]
     pb["llh"] = llh
@@ -105,9 +106,7 @@ def _valid(x, mask):
 # ----------------------------------------------------------------------
 # float32: against the Pallas kernels in interpret mode
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("instance", INSTANCES)
-def test_scaled_pass_plain_vs_pallas_interpret(instance):
-    pb = _problem("banded" if instance == "banded_forward" else "dense")
+def _scaled_vs_pallas(pb, instance):
     j, a = _jax_ops(pb, jnp.float32), _torch_ops(pb, torch.float32)
     if instance == "dense_forward":
         probs, logcs, _ = pallas_scan.forward_pass(j["e_llh"], j["trans"], j["init"], j["mask"],
@@ -125,9 +124,12 @@ def test_scaled_pass_plain_vs_pallas_interpret(instance):
     close(got[1], logcs, RTOL_F32, ATOL_F32)
 
 
-@pytest.mark.parametrize("banded", [False, True], ids=["dense", "banded"])
-def test_smoothing_pass_plain_vs_pallas_interpret(banded):
-    pb = _problem("banded" if banded else "dense")
+@pytest.mark.parametrize("instance", INSTANCES)
+def test_scaled_pass_plain_vs_pallas_interpret(instance):
+    _scaled_vs_pallas(_problem("banded" if instance == "banded_forward" else "dense"), instance)
+
+
+def _smoothing_vs_pallas(pb, banded):
     j, a = _jax_ops(pb, jnp.float32), _torch_ops(pb, torch.float32)
     a_probs, _ = _port_scaled(a, "banded_forward" if banded else "dense_forward")
     ja = jnp.asarray(a_probs.numpy())
@@ -142,6 +144,30 @@ def test_smoothing_pass_plain_vs_pallas_interpret(banded):
         np.testing.assert_allclose(_valid(x, pb["mask"]), _valid(y, pb["mask"]), rtol=RTOL_F32,
                                    atol=ATOL_F32, err_msg=name)
     assert not got[0][t(pb["mask"]) == 0].any()
+
+
+@pytest.mark.parametrize("banded", [False, True], ids=["dense", "banded"])
+def test_smoothing_pass_plain_vs_pallas_interpret(banded):
+    _smoothing_vs_pallas(_problem("banded" if banded else "dense"), banded)
+
+
+# lengths 0 to 17: every residue modulo the frames a chunk the banded kernels
+# take (16, 8, 4, 2, 1) with C − 1, C and C + 1 among them, and a group of
+# the dense kernels' sorted rows ending at each length
+RESIDUE_LENGTHS = list(range(18))
+
+
+@pytest.mark.parametrize("instance", INSTANCES + ["dense_smoothing", "banded_smoothing"])
+def test_general_plain_versions_vs_pallas_interpret_at_every_residue(instance):
+    """The plain versions of K12's three instances and K13's two against the
+    Pallas kernels (interpret mode, this file's float32 tolerances) on rows
+    of every length 0 to 17."""
+    banded = instance.startswith("banded")
+    pb = _problem("banded" if banded else "dense", seed=12, lengths=RESIDUE_LENGTHS)
+    if instance.endswith("smoothing"):
+        _smoothing_vs_pallas(pb, banded)
+    else:
+        _scaled_vs_pallas(pb, instance)
 
 
 def test_smoothing_banded_underflow_vs_pallas_interpret():

@@ -546,10 +546,13 @@ PLACEMENTS = [
     ("estep_gamma_dense_restricted", 150, 0, 50, 50, "shared"),
     ("estep_gamma_dense_restricted", 232, 0, 50, 50, "global"),
     ("estep_gamma_dense_restricted", 233, 0, 50, 50, "global"),
-    ("scaled_pass", 239, 0, 0, 0, "shared"), ("scaled_pass", 240, 0, 0, 0, "global"),
+    ("scaled_pass", 239, 0, 0, 0, "global"), ("scaled_pass", 240, 0, 0, 0, "global"),
     ("scaled_pass", 300, 0, 0, 0, "global"),
-    ("smoothing_pass", 237, 0, 0, 0, "shared"), ("smoothing_pass", 238, 0, 0, 0, "global"),
+    ("smoothing_pass", 237, 0, 0, 0, "global"), ("smoothing_pass", 238, 0, 0, 0, "global"),
     ("smoothing_pass", 300, 0, 0, 0, "global"),
+    # the grouped instances' limits: one utterance's M and carries fit a block to S = 237 (K12), 236 (K13)
+    ("scaled_pass", 237, 0, 0, 0, "shared"), ("scaled_pass", 238, 0, 0, 0, "global"),
+    ("smoothing_pass", 236, 0, 0, 0, "shared"),
 ]
 
 
@@ -576,6 +579,10 @@ def test_dense_placement(case):
         rc = (n_r, n_c) if kernel.endswith("restricted") else ()
         chunk = cuda_scan.gamma_chunk(s, "global", *rc)
         ring = 4 * (chunk * (5 * s + n_r + n_c + 30) + 3 * s + 20)
+    if kernel in ("scaled_pass", "smoothing_pass"):
+        # the grouped instances keep as many of M's rows in shared memory as fit beside the rest
+        assert glob <= min(shared, cuda_scan.SMEM_LIMIT)
+        return
     assert glob < shared and glob <= 4 * (7 * s + 64 + p_dim + n_r + n_c) + ring
 
 
@@ -1121,8 +1128,9 @@ SMOOTHING_GEOMETRIES = [
 ]
 
 
-def _check_smoothing_geometry(s, b, geometry):
-    """What K13 banded's launch rule promises: the block fits; the most
+def _check_smoothing_geometry(s, b, geometry, smem_bytes=cuda_scan.smoothing_banded_smem_bytes):
+    """What K13 banded's launch rule (and K12 banded's, with its
+    ``smem_bytes``) promises: the block fits; the most
     utterances a block that fit up to the fewest whose blocks run in one
     wave at two an SM (one above the warp chain's S); at those, a block
     that leaves its SM room for a second one where one such fits (its blocks
@@ -1130,7 +1138,7 @@ def _check_smoothing_geometry(s, b, geometry):
     memory when they fit there."""
     placement, n_utt, chunk = geometry
     limit, half = cuda_scan.SMEM_LIMIT, cuda_scan.SMEM_HALF_SM
-    size = lambda pl, n, c: cuda_scan.smoothing_banded_smem_bytes(s, pl, n, c)  # noqa: E731
+    size = lambda pl, n, c: smem_bytes(s, pl, n, c)  # noqa: E731
     assert size(placement, n_utt, chunk) <= limit
     cap = next((n for n in sorted(cuda_scan.ACC_UTTERANCES) if -(-b // n) <= 2 * N_SM), 4)
     cap = cap if s <= cuda_scan.SMO_WARP_STATES else 1
@@ -1168,3 +1176,135 @@ def test_smoothing_banded_geometry_has_a_limit():
     assert cuda_scan.smoothing_banded_smem_bytes(7234, "global", 1, 1) <= cuda_scan.SMEM_LIMIT
     assert cuda_scan.smoothing_banded_geometry(7235, 64, N_SM) == ("global", 1, 1)
     assert cuda_scan.smoothing_banded_smem_bytes(7235, "global", 1, 1) > cuda_scan.SMEM_LIMIT
+
+
+# (S, B) -> K12 banded's (placement, utterances a block, frames a chunk),
+# at the shapes of SMOOTHING_GEOMETRIES: its blocks hold one ring (e) where
+# K13's hold two (e and α̂) and u1, so its chunks are longer; above S =
+# 5,795 a longer chunk with the bands in device memory beats a shorter one
+# with them in shared memory, and the parent's largest S (9,674) and the
+# largest that runs (19,318) fit
+SCALED_BANDED_GEOMETRIES = [
+    ((150, 514), ("shared", 2, 16)), ((30, 258), ("shared", 1, 16)), ((30, 514), ("shared", 2, 16)),
+    ((18, 128), ("shared", 1, 16)), ((150, 8), ("shared", 1, 16)), ((192, 514), ("shared", 2, 16)),
+    ((193, 514), ("shared", 1, 16)), ((450, 514), ("shared", 1, 16)), ((300, 64), ("shared", 1, 16)),
+    ((750, 64), ("shared", 1, 16)), ((30, MANY_WAVES), ("shared", 4, 16)), ((150, MANY_WAVES), ("shared", 4, 8)),
+    ((2000, MANY_WAVES), ("global", 1, 4)), ((5795, 8), ("shared", 1, 2)), ((5796, 8), ("global", 1, 2)),
+    ((9674, 8), ("global", 1, 1)), ((19318, 8), ("global", 1, 1)),
+]
+
+
+@pytest.mark.parametrize("case", SCALED_BANDED_GEOMETRIES, ids=lambda c: "S%d_B%d" % c[0])
+def test_scaled_banded_geometry(case):
+    """K12 banded's geometry is chosen by fit and the batch size in one
+    place, by K13 banded's rule (:func:`_check_smoothing_geometry`)."""
+    (s, b), want = case
+    geometry = cuda_scan.scaled_banded_geometry(s, b, N_SM)
+    assert geometry == want
+    _check_smoothing_geometry(s, b, geometry, cuda_scan.scaled_banded_smem_bytes)
+
+
+def test_scaled_banded_geometry_takes_every_s_the_parent_took():
+    """Every S the per-frame K12 banded took ((6S + 64) floats, to S =
+    9,674) runs in chunks, and so does every S to 19,318; above, no block
+    fits and the geometry names the smallest one, which the launch
+    refuses."""
+    parent = max(s for s in range(1, 20000) if 4 * (6 * s + 64) <= cuda_scan.SMEM_LIMIT)
+    assert parent == 9674
+    for s in (*range(1, 19319, 61), parent, 19318):
+        for b in (8, 514, MANY_WAVES):
+            geometry = cuda_scan.scaled_banded_geometry(s, b, N_SM)
+            assert cuda_scan.scaled_banded_smem_bytes(s, *geometry) <= cuda_scan.SMEM_LIMIT
+            _check_smoothing_geometry(s, b, geometry, cuda_scan.scaled_banded_smem_bytes)
+    assert cuda_scan.scaled_banded_geometry(19319, 8, N_SM) == ("global", 1, 1)
+    assert cuda_scan.scaled_banded_smem_bytes(19319, "global", 1, 1) > cuda_scan.SMEM_LIMIT
+
+
+# (kernel, S, B) -> the dense instances' (placement, utterances a block,
+# slices): config 4's matrix (S = 150) at phase 15's B = 514, config 5's
+# loop (S = 30) at its B = 258, phase 18's B = 64 at S = 150 (shared) and
+# 300 (global), phase 15's S = 450, both sides of the shared limit (K12 237,
+# K13 236), S = 1, one slice from S = 513 on, many waves, and the parents'
+# global limits (K12 29,024; K13 11,609)
+GROUPED_GEOMETRIES = [
+    (("scaled_pass", 150, 514), ("shared", 2, 6)), (("smoothing_pass", 150, 514), ("shared", 2, 6)),
+    (("scaled_pass", 30, 258), ("shared", 1, 8)), (("smoothing_pass", 30, 514), ("shared", 2, 8)),
+    (("scaled_pass", 150, 64), ("shared", 1, 6)), (("smoothing_pass", 300, 64), ("global", 1, 3)),
+    (("scaled_pass", 450, 514), ("global", 4, 2)), (("smoothing_pass", 450, 514), ("global", 4, 2)),
+    (("scaled_pass", 237, 8), ("shared", 1, 4)), (("scaled_pass", 238, 8), ("global", 1, 4)),
+    (("smoothing_pass", 236, 8), ("shared", 1, 4)), (("smoothing_pass", 237, 8), ("global", 1, 4)),
+    (("scaled_pass", 1, 3), ("shared", 1, 1)), (("smoothing_pass", 513, 8), ("global", 1, 1)),
+    (("scaled_pass", 150, MANY_WAVES), ("shared", 8, 6)), (("smoothing_pass", 30, MANY_WAVES), ("shared", 8, 8)),
+    (("scaled_pass", 29024, 8), ("global", 1, 1)), (("smoothing_pass", 11609, 514), ("global", 1, 1)),
+]
+
+
+def _check_grouped_geometry(kernel, s, b, geometry):
+    """What the dense instances' launch rule promises: the block fits; M in
+    shared memory exactly when one utterance's block fits there; the fewest
+    utterances a block that fit and whose blocks run in one wave at two an
+    SM where two fit its shared memory (one where one does), else the most
+    that fit;
+    :func:`cuda_scan.grouped_slices` slices, whose (column group, slice)
+    pairs the block's threads hold."""
+    placement, n_utt, ks = geometry
+    size = lambda pl, n: cuda_scan.grouped_smem_bytes(kernel, s, pl, n)  # noqa: E731
+    assert size(placement, n_utt) <= cuda_scan.SMEM_LIMIT
+    assert (placement == "shared") == (size("shared", 1) <= cuda_scan.SMEM_LIMIT)
+    fits = [n for n in cuda_scan.GRP_UTTERANCES if size(placement, n) <= cuda_scan.SMEM_LIMIT] or [1]
+    per_sm = lambda n: 2 if 2 * (size(placement, n) + 1024) <= cuda_scan.SMEM_SM else 1  # noqa: E731
+    one_wave = [n for n in fits if -(-b // n) <= per_sm(n) * N_SM]
+    assert n_utt == (min(one_wave) if one_wave else max(fits))
+    assert ks == cuda_scan.grouped_slices(s) and 1 <= ks <= min(cuda_scan.GRP_MAX_SLICES, s)
+    assert ks == 1 or -(-s // 4) * ks <= cuda_scan.GRP_THREADS
+
+
+@pytest.mark.parametrize("case", GROUPED_GEOMETRIES, ids=lambda c: "%s_S%d_B%d" % c[0])
+def test_dense_grouped_geometry(case):
+    """The dense instances of K12 and K13 launch by fit and the batch size,
+    in one place."""
+    (kernel, s, b), want = case
+    geometry = cuda_scan.dense_grouped_geometry(kernel, s, b, N_SM)
+    assert geometry == want
+    _check_grouped_geometry(kernel, s, b, geometry)
+    assert cuda_scan.dense_placement(kernel, s) == geometry[0]
+
+
+@pytest.mark.parametrize("kernel, parent", [("scaled_pass", 29024), ("smoothing_pass", 11609)])
+def test_dense_grouped_geometry_takes_every_s_the_parent_took(kernel, parent):
+    """Every S the per-utterance dense K12 ((2S + 64) floats in the global
+    placement, to 29,024) and K13 ((5S + 64), to 11,609) took runs in the
+    grouped design: each S gets a block that fits, in shared memory to its
+    limit and in device memory above."""
+    floats = 2 if kernel == "scaled_pass" else 5
+    assert parent == max(s for s in range(1, 40000) if 4 * (floats * s + 64) <= cuda_scan.SMEM_LIMIT)
+    for s in (*range(1, 600), *range(600, parent + 1, 97), parent):
+        for b in (3, 514, MANY_WAVES):
+            _check_grouped_geometry(kernel, s, b, cuda_scan.dense_grouped_geometry(kernel, s, b, N_SM))
+
+
+@pytest.mark.parametrize("lens", [[5, 3, 5, 0, 7, 3, 3], [0, 0, 0, 0, 0], [9], list(range(13)), [4] * 6],
+                         ids=["ragged", "all_zero", "one", "distinct", "equal"])
+def test_group_order(lens):
+    """The grouped kernels' row order: a permutation of the rows, longest
+    first, equal lengths in row order (stable), its inverse exact; groups of
+    n_utt consecutive rows, the last one short when B is not a multiple of
+    n_utt, and all-zero-length rows grouped together at the end."""
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    order = cuda_scan.group_order(lens_t)
+    assert order.dtype == torch.int32 and order.shape == (len(lens),)
+    assert sorted(order.tolist()) == list(range(len(lens)))
+    inverse = torch.empty_like(order)
+    inverse[order.long()] = torch.arange(len(lens), dtype=torch.int32)
+    assert torch.equal(order[inverse.long()], torch.arange(len(lens), dtype=torch.int32))
+    assert torch.equal(lens_t[order.long()][inverse.long()], lens_t)
+    sorted_lens = lens_t[order.long()].tolist()
+    assert sorted_lens == sorted(lens, reverse=True)
+    for i in range(len(lens) - 1):  # stable: ties keep their row order
+        if sorted_lens[i] == sorted_lens[i + 1]:
+            assert order[i] < order[i + 1]
+    for n_utt in cuda_scan.GRP_UTTERANCES:
+        groups = [order[i:i + n_utt].tolist() for i in range(0, len(lens), n_utt)]
+        assert sum(map(len, groups)) == len(lens) and all(len(g) == n_utt for g in groups[:-1])
+        zero = [g for g in groups if all(lens[r] == 0 for r in g)]
+        assert groups[len(groups) - len(zero):] == zero
