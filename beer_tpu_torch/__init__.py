@@ -23,12 +23,22 @@ subspace-HMM (:class:`GSM`, :class:`HierarchicalGSM`): the phone-loop
 E-step with materialised posteriors through the general-path kernels
 (``PhoneLoop.smooth``), :func:`accumulate_unit_stats`, the ELBO gradient
 step (:func:`make_gsm_train_step`) and the moment-matched write-back
-(:func:`apply_to_phoneloop`).
+(:func:`apply_to_phoneloop`); and the acoustic-unit-discovery recipe's
+command line (``python -m beer_tpu_torch.cli`` or ``beer-torch``:
+``dataset create``, ``features extract``, ``hmm mkphoneloop``, ``hmm
+train``, ``hmm decode``) with what it stands on: the feature frontend
+(:mod:`beer_tpu_torch.features`), feature archives and batch loading
+(:mod:`beer_tpu_torch.io`), checkpoints, configs, guards, metrics and
+profiling hooks (:mod:`beer_tpu_torch.utils`), and the Gamma
+hyper-prior on the unit prior's concentration
+(:class:`SBCategoricalHyperPrior`).
 
 Entry points that build a model or a graph (the ``*_from_numpy``
 converters, ``Graph.compile``, ``transcription_graphs``,
-``Categorical.create``, ``SBCategorical.create``, ``GSM.create``,
-``HierarchicalGSM.create``) build on the CUDA card
+``Categorical.create``, ``SBCategorical.create``,
+``SBCategoricalHyperPrior.create``, ``GSM.create``,
+``HierarchicalGSM.create``, ``utils.load_model`` and the CLI's verbs
+without ``--device``) build on the CUDA card
 unless they are given ``device="cpu"``; with no card and no device they
 raise.  Models made from a NormalSet follow its device.
 
@@ -83,6 +93,7 @@ __all__ = [
     "NormalSet",
     "Categorical",
     "SBCategorical",
+    "SBCategoricalHyperPrior",
     "CompiledGraph",
     "Graph",
     "LOG_ZERO",

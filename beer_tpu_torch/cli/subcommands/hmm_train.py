@@ -1,0 +1,247 @@
+"""Train a model with VB-EM (reference: ``beer hmm train``).
+
+Stage-gated like the reference recipes: checkpoints ``epochN.mdl`` per
+epoch in the output directory; rerunning resumes from the latest.
+Utterances are padded into one batch and each epoch is one VB step on
+the card, or — with ``--batch-size``, or automatically when the padded
+corpus would exceed ``--max-padded-gb`` — minibatches read from a
+``.bar`` archive by :class:`beer_tpu_torch.io.BatchLoader`.
+"""
+
+from __future__ import annotations
+
+import re
+import time
+from pathlib import Path
+
+import numpy as np
+
+
+def setup(parser):
+    parser.add_argument("model", help="input model (.mdl)")
+    parser.add_argument("feats", help="feature archive (.npz or .bar)")
+    parser.add_argument("outdir", help="output/checkpoint directory")
+    parser.add_argument("--epochs", type=int, default=30)
+    parser.add_argument("--lrate", type=float, default=1.0)
+    parser.add_argument(
+        "--single-device", action="store_true",
+        help="train on the current card when more than one is visible "
+        "(data-parallel training is not ported yet)",
+    )
+    parser.add_argument(
+        "--batch-size", type=int, default=0,
+        help="stochastic VB: train on shuffled minibatches of this many "
+        "utterances (0 = full batch). Statistics are scaled by "
+        "datasize/batch (the reference's datasize convention); use "
+        "--lrate < 1 for stable stochastic updates.",
+    )
+    parser.add_argument(
+        "--buckets", type=int, default=1,
+        help="length buckets for minibatch padding (each bucket pads to "
+        "its own rounded maximum instead of the corpus maximum)",
+    )
+    parser.add_argument(
+        "--accumulate-batches", action="store_true",
+        help="exact full-batch VB streamed through minibatches: "
+        "accumulate statistics over the whole epoch, then one conjugate "
+        "update — identical math to full batch, but the corpus never "
+        "has to fit in one padded array (requires --batch-size)",
+    )
+    parser.add_argument(
+        "--nan-guard", action="store_true",
+        help="guard the training step: any non-finite value in the "
+        "updated parameters or ELBO raises with its location instead of "
+        "silently corrupting the run",
+    )
+    parser.add_argument(
+        "--transcriptions", default=None,
+        help="(not ported yet) supervised training on mkphones emissions",
+    )
+    parser.add_argument(
+        "--max-padded-gb", type=float, default=4.0,
+        help="if padding the whole corpus into one (B, T_max, D) array "
+        "would exceed this many GB, automatically switch to exact "
+        "streamed full-batch VB (bucketed minibatches + statistics "
+        "accumulation, one conjugate update per epoch)",
+    )
+
+
+def _sync(device) -> None:
+    """Wait for the card, so a host-clock time holds its work."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _upload(array: np.ndarray, device):
+    """A host batch on ``device``; to the card through pinned memory,
+    asynchronously (each batch is a fresh array, never refilled)."""
+    import torch
+
+    t = torch.from_numpy(array)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _tree_add(a, b):
+    if isinstance(a, dict):
+        return {k: _tree_add(a[k], b[k]) for k in a}
+    return a + b
+
+
+def _train_minibatch(args, model, outdir, device, start_epoch=0):
+    """Minibatches from a ``.bar`` archive through ``io.BatchLoader``.
+
+    Stochastic VB scales the statistics by ``n_utts / n_valid`` (the
+    tail batch is padded with zero-mask utterances to the batch size);
+    ``--accumulate-batches`` sums the unscaled statistics over the epoch
+    and makes one conjugate update, full-batch VB exactly.
+    """
+    from beer_tpu_torch import io as bio
+    from beer_tpu_torch.utils import MetricsLogger, save_model
+    from beer_tpu_torch.utils.debug import nan_guard
+    from beer_tpu_torch.vbi import elbo_and_stats, vb_step
+
+    if args.feats.endswith(".bar"):
+        archive = bio.Archive(args.feats)
+    else:  # convert once next to the npz for mmap'd minibatch reads
+        bar_path = args.feats + ".bar"
+        if not Path(bar_path).exists():
+            bio.convert_npz(args.feats, bar_path)
+        archive = bio.Archive(bar_path)
+    n_utts = len(archive)
+
+    def step(m, x, msk, ds):
+        return vb_step(m, x, datasize=ds, lrate=args.lrate, mask=msk)
+
+    def estep(m, x, msk):
+        return elbo_and_stats(m, x, mask=msk)
+
+    if args.nan_guard:
+        step, estep = nan_guard(step, "vb_step"), nan_guard(estep, "elbo_and_stats")
+    loader = bio.BatchLoader(archive, args.batch_size, seed=0,
+                             buckets=args.buckets)
+    logger = MetricsLogger(outdir / "log", stdout=False)
+    for epoch in range(start_epoch + 1, args.epochs + 1):
+        t0 = time.time()
+        total_frames, n_batches = 0.0, 0
+        batch_elbos = []  # device scalars, read once after the epoch
+        epoch_acc = None
+        for data, mask in loader:
+            n_valid = data.shape[0]
+            if n_valid < args.batch_size:  # pad the tail batch to the batch size
+                pad = args.batch_size - n_valid
+                data = np.concatenate([data, np.zeros((pad,) + data.shape[1:],
+                                                      data.dtype)])
+                mask = np.concatenate([mask, np.zeros((pad,) + mask.shape[1:],
+                                                      mask.dtype)])
+            x, msk = _upload(data, device), _upload(mask, device)
+            if args.accumulate_batches:
+                elbo, acc = estep(model, x, msk)
+                epoch_acc = acc if epoch_acc is None else _tree_add(epoch_acc, acc)
+            else:
+                # scale = datasize/B inside vb_step: datasize n_utts·B/n_valid
+                # makes it n_utts/n_valid (padded rows carry no statistics)
+                elbo, model = step(model, x, msk, n_utts * args.batch_size / n_valid)
+            batch_elbos.append(elbo)
+            total_frames += float(mask.sum())
+            n_batches += 1
+        total_elbo = sum(e.item() for e in batch_elbos)
+        if args.accumulate_batches:
+            kl = model.kl_div_posterior_prior().item()
+            model = model.vb_update(epoch_acc, args.lrate)
+            # each batch ELBO subtracts the KL once; keep it once
+            total_elbo += kl * (n_batches - 1)
+            per_frame = total_elbo / max(total_frames, 1)
+        else:
+            # each batch ELBO estimates the full-corpus ELBO; report the
+            # mean estimate normalized by the corpus frame count
+            per_frame = total_elbo / max(n_batches, 1) / max(total_frames, 1)
+        _sync(device)
+        dt = time.time() - t0
+        print(f"epoch {epoch}: elbo/frame = {per_frame:.6f}")
+        logger.log(epoch, elbo_per_frame=per_frame,
+                   frames_per_sec=total_frames / dt)
+        save_model(model, outdir / f"epoch{epoch:04d}.mdl")
+    logger.close()
+    save_model(model, outdir / "final.mdl")
+    print(f"wrote {outdir / 'final.mdl'}")
+
+
+def main(args):
+    if args.transcriptions:
+        raise SystemExit("beer-torch: `hmm train --transcriptions` is not ported yet")
+    import torch
+
+    from beer_tpu_torch import io as bio
+    from beer_tpu_torch.device import resolve_device
+    from beer_tpu_torch.utils import MetricsLogger, latest_checkpoint, load_model, save_model
+    from beer_tpu_torch.utils.debug import nan_guard
+    from beer_tpu_torch.vbi import vb_step
+
+    device = resolve_device(args.device)
+    if device.type == "cuda" and torch.cuda.device_count() > 1 and not args.single_device:
+        raise SystemExit(
+            f"beer-torch: {torch.cuda.device_count()} CUDA devices are visible and "
+            "data-parallel training (the port's `parallel` module) is not ported yet: "
+            "pass --single-device to train on one card")
+
+    outdir = Path(args.outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    ckpt = latest_checkpoint(outdir)
+    start_epoch = 0
+    if ckpt is not None:
+        model = load_model(ckpt, device)
+        start_epoch = int(re.search(r"epoch(\d+)", ckpt.name).group(1))
+        print(f"resuming from {ckpt} (epoch {start_epoch})")
+    else:
+        model = load_model(args.model, device)
+
+    if args.batch_size:
+        _train_minibatch(args, model, outdir, device, start_epoch=start_epoch)
+        return
+    # Scalable by default: if the padded corpus would blow past
+    # --max-padded-gb, stream it instead — bucketed minibatches with
+    # statistics accumulated over the epoch and one conjugate update.
+    n, t_max, d, _ = bio.archive_geometry(args.feats)
+    padded_gb = n * t_max * d * 4 / 2**30
+    if padded_gb > args.max_padded_gb:
+        bytes_per_utt = max(t_max * d * 4, 1)
+        budget = args.max_padded_gb * 2**30 / 4
+        args.batch_size = int(min(max(budget / bytes_per_utt, 1), 1024))
+        args.accumulate_batches = True
+        args.buckets = max(args.buckets, 8)
+        print(
+            f"corpus pads to {padded_gb:.1f} GB > "
+            f"--max-padded-gb {args.max_padded_gb:g}; streaming exact "
+            f"full-batch VB (batch-size {args.batch_size}, "
+            f"{args.buckets} buckets, accumulate-batches)"
+        )
+        _train_minibatch(args, model, outdir, device, start_epoch=start_epoch)
+        return
+
+    _, data, mask = bio.load_padded(args.feats)
+
+    def step(m, x, msk):
+        return vb_step(m, x, lrate=args.lrate, mask=msk)
+
+    if args.nan_guard:
+        step = nan_guard(step, "vb_step")
+    x, m = torch.from_numpy(data).to(device), torch.from_numpy(mask).to(device)
+    n_frames = float(mask.sum())
+    logger = MetricsLogger(outdir / "log", stdout=False)
+    for epoch in range(start_epoch + 1, args.epochs + 1):
+        t0 = time.time()
+        elbo, model = step(model, x, m)
+        elbo_val = elbo.item()
+        _sync(device)  # the update after the ELBO too, before the clock
+        dt = time.time() - t0
+        print(f"epoch {epoch}: elbo/frame = {elbo_val / n_frames:.6f}")
+        logger.log(epoch, elbo_per_frame=elbo_val / n_frames,
+                   frames_per_sec=n_frames / dt)
+        save_model(model, outdir / f"epoch{epoch:04d}.mdl")
+    logger.close()
+    save_model(model, outdir / "final.mdl")
+    print(f"wrote {outdir / 'final.mdl'}")

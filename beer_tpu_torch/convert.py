@@ -7,7 +7,9 @@ inverse of the model's ``to_numpy()``.
 * PhoneLoop (:func:`phone_loop_from_numpy`): ``modelset_prior`` /
   ``modelset_posterior`` (S, 4D) NormalGamma natural parameters of the
   diagonal NormalSet, ``sticks_prior`` / ``sticks_posterior`` (U−1, 2)
-  Beta natural parameters of the SBCategorical unit prior,
+  Beta natural parameters of the SBCategorical unit prior (with
+  ``concentration_prior`` / ``concentration_posterior`` (2,), the Gamma
+  natural parameters of γ, for an SBCategoricalHyperPrior),
   ``base_log_trans`` (S, S), ``log_exit`` (U,) or None, ``n_units``,
   ``states_per_unit``, ``self_loop``, ``dim``, ``cov_type``.
 * NormalSet (:func:`normal_set_from_numpy`): ``type`` "NormalSet",
@@ -60,7 +62,7 @@ import torch
 
 from beer_tpu_torch import dists
 from beer_tpu_torch.device import resolve_device
-from beer_tpu_torch.models.categorical import Categorical, SBCategorical
+from beer_tpu_torch.models.categorical import Categorical, SBCategorical, SBCategoricalHyperPrior
 from beer_tpu_torch.models.graph import CompiledGraph
 from beer_tpu_torch.models.gsm import GSM, HierarchicalGSM
 from beer_tpu_torch.models.hmm import HMM
@@ -80,7 +82,9 @@ def _tensor(x, dtype=None, device=None) -> torch.Tensor:
 
 def _normal_set(prior, posterior, dim, cov_type, dtype, device, cls=NormalSet) -> NormalSet:
     if cov_type not in FAMILIES:
-        raise NotImplementedError(f"cov_type={cov_type!r} is not ported (ROADMAP A.4)")
+        raise NotImplementedError(
+            f"cov_type={cov_type!r} is not ported: the isotropic and shared covariance "
+            "types are still to come")
     fam = FAMILIES[cov_type](dim=dim)
     prior = _tensor(prior, dtype, device)
     k, p = prior.shape
@@ -107,10 +111,13 @@ def phone_loop_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> PhoneLo
         nset = _normal_set(d["modelset_prior"], d["modelset_posterior"], int(d["dim"]),
                            d["cov_type"], dtype, device)
     n_units = int(d["n_units"])
-    unit_prior = SBCategorical(
-        BayesianParameter(t(d["sticks_prior"]), t(d["sticks_posterior"]), dists.Beta()),
-        truncation=n_units,
-    )
+    sticks = BayesianParameter(t(d["sticks_prior"]), t(d["sticks_posterior"]), dists.Beta())
+    if d.get("concentration_prior") is not None:
+        conc = BayesianParameter(t(d["concentration_prior"]), t(d["concentration_posterior"]),
+                                 dists.Gamma())
+        unit_prior = SBCategoricalHyperPrior(sticks, conc, truncation=n_units)
+    else:
+        unit_prior = SBCategorical(sticks, truncation=n_units)
     log_exit = None if d.get("log_exit") is None else t(d["log_exit"])
     return PhoneLoop(nset, unit_prior, t(d["base_log_trans"]), log_exit, n_units,
                      int(d["states_per_unit"]), float(d["self_loop"]))

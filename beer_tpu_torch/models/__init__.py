@@ -1,7 +1,7 @@
 """Models (PyTorch port of ``beer_tpu.models``)."""
 
 from beer_tpu_torch.models.basemodel import DiscreteLatentModel, Model
-from beer_tpu_torch.models.categorical import Categorical, SBCategorical
+from beer_tpu_torch.models.categorical import Categorical, SBCategorical, SBCategoricalHyperPrior
 from beer_tpu_torch.models.graph import (
     LOG_ZERO,
     CompiledGraph,
@@ -39,6 +39,7 @@ __all__ = [
     "NormalSet",
     "Categorical",
     "SBCategorical",
+    "SBCategoricalHyperPrior",
     "CompiledGraph",
     "Graph",
     "LOG_ZERO",

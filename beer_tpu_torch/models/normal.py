@@ -47,7 +47,7 @@ def _check_cov_type(cov_type: str) -> None:
     if cov_type not in FAMILIES:
         raise NotImplementedError(
             f"cov_type={cov_type!r}: only the diagonal and full NormalSets are ported "
-            "so far; the other covariance types are ROADMAP A.4"
+            "so far; the isotropic and shared covariance types are still to come"
         )
 
 

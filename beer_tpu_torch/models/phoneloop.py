@@ -286,10 +286,13 @@ class PhoneLoop(DiscreteLatentModel):
             nset = self.modelset
             mp = nset.means_precisions
             emissions = {"modelset_prior": np_(mp.prior), "modelset_posterior": np_(mp.posterior)}
+        conc = getattr(self.unit_prior, "concentration", None)
         return {
             **emissions,
             "sticks_prior": np_(sticks.prior),
             "sticks_posterior": np_(sticks.posterior),
+            "concentration_prior": None if conc is None else np_(conc.prior),
+            "concentration_posterior": None if conc is None else np_(conc.posterior),
             "base_log_trans": np_(self.base_log_trans),
             "log_exit": None if self.log_exit is None else np_(self.log_exit),
             "n_units": self.n_units,

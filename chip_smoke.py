@@ -21,7 +21,9 @@ GSM with an 8-dim embedding and learned transitions, moment-matched
 write-back; and the H-SHMM gradient step at bench config 6's shape, 3
 languages × 50 units), then (phase 18) the dense kernels at sizes whose
 operands no block's shared memory holds, with random data and weights
-from fixed seeds, in eighteen phases, each printing one line:
+from fixed seeds, then (phase 19) the AUD recipe through the port's CLI
+on the recipe's own synthetic data and configurations, in nineteen
+phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the hand-written CUDA kernels from the sources in
@@ -135,7 +137,26 @@ from fixed seeds, in eighteen phases, each printing one line:
    made), their launches read around them; last, K3 on config 3's
    recognizer decode (S = 18) and on a 3,200-unit loop's decode (S =
    9,600, near the largest S its per-frame kernel took), alone and
-   wrapped, its mismatches counted.
+   wrapped, its mismatches counted;
+19. cli: ``recipes/aud/run.sh``'s five verbs through
+   ``beer_tpu_torch.cli.main.main`` in this process, with no
+   ``--device`` flag: ``recipes/aud/local/make_synthetic_data.py`` (512
+   training and 64 held-out utterances) into a temporary directory,
+   ``dataset create`` and ``features extract`` (``conf/features.yml``:
+   fbank, 26 filters and deltas, D = 78) for both splits, ``hmm
+   mkphoneloop`` (``conf/hmm.yml``: 40 units × 3 states, S = 120),
+   ``hmm train --epochs 3`` then ``--epochs 5`` (resumed), the same
+   training streamed (``--batch-size 128 --buckets 4
+   --accumulate-batches``, 2 epochs, through ``.bar`` and
+   ``BatchLoader``), ``hmm decode --per-frame`` on the held-out split;
+   the launch counters read around the trainings (K1, K2) and the decode
+   (K3, K4) must be above 0; the ELBO per frame of ``train/log`` must be
+   finite, non-decreasing and within 1e-4 of 5 steps of the plain twin
+   of ``init.mdl`` on the same padded data; the streamed model within
+   2e-4 of each array's largest entry of the full-batch one at epoch 2;
+   the decoded labels equal to the plain route's on every frame; the
+   card's features within 1e-3 of the CPU's; the native archive reader;
+   one line of each verb's host-clock seconds and train frames/s.
 
 K8–K10 are timed twice in phase 9: ``ms`` is the kernel alone (the bare
 foreign call on operands packed and a launch geometry computed in
@@ -152,12 +173,17 @@ printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -351,6 +377,7 @@ def phase_device():
     print(card)
     print(f"phase 1 device: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    return card
 
 
 def phase_build():
@@ -2279,13 +2306,195 @@ def phase_large_dense(dev):
     return rows, launches, loop_rows, vit_rows, back_rows
 
 
+# ----------------------------------------------------------------------
+# Phase 19: the AUD recipe through the port's CLI
+# ----------------------------------------------------------------------
+RECIPE = Path(__file__).resolve().parent / "recipes" / "aud"
+CLI_UTTS, CLI_UTTS_EVAL = 512, 64           # config 4's B; a held-out split
+CLI_EPOCHS, CLI_RESUME_AT, CLI_STREAM_EPOCHS = 5, 3, 2
+PATH_KERNELS = ("forward_llh_banded", "estep_acc_banded", "viterbi_fwd_banded",
+                "viterbi_backtrace_banded")
+
+
+def run_verb(argv):
+    """One verb through ``beer_tpu_torch.cli.main.main`` in this process:
+    host-clock seconds, the card synchronised at both ends.  The verb's
+    printed lines go to standard error if it fails."""
+    from beer_tpu_torch.cli.main import main as cli
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli(argv)
+    except BaseException:
+        print(f"$ beer-torch {' '.join(argv)}\n{out.getvalue()}", file=sys.stderr)
+        raise
+    torch.cuda.synchronize()
+    check(rc == 0, f"beer-torch {' '.join(argv[:2])} returned {rc}")
+    return time.time() - t0
+
+
+def path_launches():
+    return {k: cuda_scan.KERNELS[k].launches for k in PATH_KERNELS}
+
+
+def train_log(run_dir):
+    lines = (run_dir / "log" / "metrics.jsonl").read_text().splitlines()
+    return [json.loads(line) for line in lines]
+
+
+def padded(bio, feats, dev):
+    _, data, mask = bio.load_padded(feats)
+    return torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+
+
+def phase_cli(dev, card):
+    """``recipes/aud/run.sh``'s five verbs through the port's CLI on the
+    card, with no ``--device`` flag: the recipe's synthetic data (512
+    training utterances, 64 held out), its feature and model
+    configurations (fbank, 26 filters with deltas: D = 78; 40 units × 3
+    states: S = 120), 3 epochs then 5 (resumed), the same training
+    streamed through ``.bar`` minibatches, and a per-frame decode of the
+    held-out split.  Launch counters are read around the training and
+    the decode."""
+    from beer_tpu_torch import io as bio
+    from beer_tpu_torch.utils import load_model
+
+    secs, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="beer_cli_") as tmp:
+        w = Path(tmp)
+        t0 = time.time()
+        subprocess.run([sys.executable, str(RECIPE / "local" / "make_synthetic_data.py"), tmp,
+                        "--n-utts", str(CLI_UTTS), "--n-utts-eval", str(CLI_UTTS_EVAL)],
+                       check=True, capture_output=True, timeout=600)
+        secs["data"] = time.time() - t0
+        for split in ("aud", "aud_eval"):
+            secs[f"dataset_create_{split}"] = run_verb(
+                ["dataset", "create", f"{tmp}/wav_{split}.scp", f"{tmp}/manifest_{split}.json"])
+            secs[f"features_extract_{split}"] = run_verb(
+                ["features", "extract", str(RECIPE / "conf" / "features.yml"),
+                 f"{tmp}/manifest_{split}.json", f"{tmp}/feats_{split}.npz"])
+        feats, feats_eval, init = f"{tmp}/feats_aud.npz", f"{tmp}/feats_aud_eval.npz", f"{tmp}/init.mdl"
+        secs["mkphoneloop"] = run_verb(
+            ["hmm", "mkphoneloop", str(RECIPE / "conf" / "hmm.yml"), feats, init])
+
+        cuda_scan.reset_launch_counts()
+        secs[f"train_{CLI_RESUME_AT}"] = run_verb(
+            ["hmm", "train", init, feats, f"{tmp}/train", "--epochs", str(CLI_RESUME_AT)])
+        secs[f"train_resume_{CLI_EPOCHS}"] = run_verb(
+            ["hmm", "train", init, feats, f"{tmp}/train", "--epochs", str(CLI_EPOCHS)])
+        launches["train"] = path_launches()
+        cuda_scan.reset_launch_counts()
+        secs[f"train_streamed_{CLI_STREAM_EPOCHS}"] = run_verb(
+            ["hmm", "train", init, feats, f"{tmp}/streamed", "--epochs", str(CLI_STREAM_EPOCHS),
+             "--batch-size", "128", "--buckets", "4", "--accumulate-batches"])
+        launches["streamed"] = path_launches()
+        cuda_scan.reset_launch_counts()
+        secs["decode_eval"] = run_verb(
+            ["hmm", "decode", f"{tmp}/train/final.mdl", feats_eval, f"{tmp}/trans.txt",
+             "--per-frame"])
+        launches["decode"] = path_launches()
+
+        # the launches: K1, K2 in both trainings; K3, K4 in the decode
+        for k in PATH_KERNELS[:2]:
+            check(launches["train"][k] > 0 and launches["streamed"][k] > 0,
+                  f"{k} not launched by hmm train: {launches}")
+        for k in PATH_KERNELS[2:]:
+            check(launches["decode"][k] > 0, f"{k} not launched by hmm decode: {launches}")
+
+        # the features: D = 78, finite; the card's spectra against the CPU's
+        from beer_tpu_torch import features
+        from beer_tpu_torch.utils import load_yaml
+
+        conf = features.FeatureConfig.from_dict(load_yaml(RECIPE / "conf" / "features.yml"))
+        archive = np.load(feats_eval)
+        manifest = json.loads((w / "manifest_aud_eval.json").read_text())["utterances"]
+        feat_err = 0.0
+        for key in archive.files[:8]:
+            got = archive[key]
+            check(got.shape[1] == 78 and bool(np.isfinite(got).all()), f"features of {key}")
+            sig = torch.from_numpy(np.load(manifest[key]))
+            raw = features.extract(sig, dataclasses.replace(conf, deltas=False,
+                                                            mean_norm=False)).numpy()
+            ref = features.add_deltas_np(raw)
+            ref = ref - ref.mean(0, keepdims=True)
+            feat_err = max(feat_err, float(np.abs(got - ref).max()))
+        check(feat_err <= 1e-3, f"features on the card vs the CPU: {feat_err}")
+
+        # the ELBO: finite, non-decreasing, within 1e-4/frame of the plain route
+        x, m = padded(bio, feats, dev)
+        frames = float(m.sum())
+        records = train_log(w / "train")
+        elbos = np.array([r["elbo_per_frame"] for r in records])
+        check([r["step"] for r in records] == list(range(1, CLI_EPOCHS + 1)),
+              f"train log epochs {[r['step'] for r in records]}")
+        check(bool(np.isfinite(elbos).all()), f"ELBO not finite: {elbos}")
+        check(bool((np.diff(elbos) >= -1e-6).all()), f"ELBO decreased: {elbos}")
+        twin = plain_twin(load_model(init))
+        plain = []
+        for _ in range(CLI_EPOCHS):
+            elbo, twin = bt.vb_step(twin, x, mask=m)
+            plain.append(float(elbo) / frames)
+        gap = float(np.abs(elbos - np.array(plain)).max())
+        check(gap <= 1e-4, f"CLI vs plain route ELBO gap {gap} per frame")
+
+        # streamed full-batch VB = full batch at epoch 2, to 2e-4 of each
+        # array's largest entry (the two sum ~10^4 frames' float32
+        # statistics in different orders, which entries near 0 show)
+        full = load_model(w / "train" / f"epoch{CLI_STREAM_EPOCHS:04d}.mdl")
+        streamed = load_model(w / "streamed" / "final.mdl")
+        stream_rel = 0.0
+        for (name, a), (_, b) in zip(full.state_dict().items(), streamed.state_dict().items()):
+            err = rel(b, a)
+            check(err <= 2e-4, f"streamed vs full batch: {name} rel {err}")
+            stream_rel = max(stream_rel, err)
+        s_elbos = [r["elbo_per_frame"] for r in train_log(w / "streamed")]
+        stream_gap = float(np.abs(np.array(s_elbos) - elbos[:CLI_STREAM_EPOCHS]).max())
+        check(stream_gap <= 1e-4, f"streamed vs full batch ELBO gap {stream_gap} per frame")
+        bar = bio.Archive(feats + ".bar")
+        check(bar.native, "the native archive reader did not run")
+
+        # the decode: the plain route's labels, frame for frame
+        xe, me = padded(bio, feats_eval, dev)
+        with torch.no_grad():
+            units, _ = plain_twin(load_model(w / "train" / "final.mdl")).decode_units(xe, me)
+        units = units.cpu().numpy()
+        lens = me.sum(-1).long().cpu().numpy()
+        keys = list(np.load(feats_eval).files)
+        lines = (w / "trans.txt").read_text().splitlines()
+        check(len(lines) == len(keys), "one transcription a held-out utterance")
+        mismatch = 0
+        for i, line in enumerate(lines):
+            key, *labels = line.split()
+            check(key == keys[i] and len(labels) == lens[i], f"transcription of {keys[i]}")
+            mismatch += int((np.array([int(u[2:]) for u in labels]) != units[i, :lens[i]]).sum())
+        check(mismatch == 0, f"decode differs from the plain route on {mismatch} frames")
+        used = len(np.unique(np.concatenate([units[i, :n] for i, n in enumerate(lens)])))
+        t_max, dim, n_states = x.shape[1], x.shape[2], twin.n_states
+
+    fps = {r["step"]: round(r["frames_per_sec"]) for r in records}
+    print(f"phase 19 cli: {card} | utts {CLI_UTTS} + {CLI_UTTS_EVAL} held out, frames {frames:.0f}, "
+          f"T_max {t_max}, D {dim}, S {n_states} | seconds "
+          + json.dumps({k: round(v, 3) for k, v in secs.items()})
+          + f" | train frames/s by epoch {json.dumps(fps)} | ELBO/frame "
+          + ", ".join(f"{e:.6f}" for e in elbos)
+          + f" | plain-route gap {gap:.3g}/frame | streamed vs full batch rel {stream_rel:.3g}, "
+          f"ELBO gap {stream_gap:.3g} | features vs CPU {feat_err:.3g} | decode mismatches "
+          f"{mismatch} (units used {used}) | native reader {bar.native} | launches "
+          + json.dumps(launches)
+          + " | tol: ELBO 1e-4/frame; streamed 2e-4 of each array's max; features 1e-3; decode equal")
+    return {k: sum(v[k] for v in launches.values()) for k in PATH_KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.manual_seed(SEED)
     dev = torch.device("cuda", 0)
-    phase_device()
+    card = phase_device()
     phase_build()
     kernels, k11_config4 = phase_kernels(dev)
     launches, loop, x, m = phase_slice(dev)
@@ -2337,6 +2546,8 @@ def main() -> int:
         kernels["viterbi_fwd_banded"].setdefault("instances", {})[f"{row['placement']}_{tag}"] = row
     for tag, row in back_rows.items():
         kernels["viterbi_backtrace_banded"].setdefault("instances", {})[f"{row['placement']}_{tag}"] = row
+    for k, n in phase_cli(dev, card).items():
+        launches[k] = launches.get(k, 0) + n
     rows = [dict(name=k, route="cuda", source=cuda_scan.KERNELS[k].source,
                  replaces=REPLACES[k], launches=launches[k], **{"library_ms": None, **v})
             for k, v in kernels.items()]

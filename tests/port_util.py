@@ -140,10 +140,13 @@ def phone_loop_to_numpy(loop) -> dict:
     else:
         emissions = {"modelset_prior": np.asarray(ms.means_precisions.prior),
                      "modelset_posterior": np.asarray(ms.means_precisions.posterior)}
+    conc = getattr(loop.unit_prior, "concentration", None)   # SBCategoricalHyperPrior
     return {
         **emissions,
         "sticks_prior": np.asarray(loop.unit_prior.sticks.prior),
         "sticks_posterior": np.asarray(loop.unit_prior.sticks.posterior),
+        "concentration_prior": None if conc is None else np.asarray(conc.prior),
+        "concentration_posterior": None if conc is None else np.asarray(conc.posterior),
         "base_log_trans": np.asarray(loop.base_log_trans),
         "log_exit": None if loop.log_exit is None else np.asarray(loop.log_exit),
         "n_units": loop.n_units,

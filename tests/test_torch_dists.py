@@ -55,7 +55,13 @@ def _normalwishart_nat(rng, fam, n, dim):
     return np.asarray(fam.to_nat(*(jnp.asarray(v) for v in _normalwishart_std(rng, n, dim))))
 
 
+def _gamma_nat(rng, fam, n, dim):
+    a, b = rng.uniform(0.5, 5.0, size=n), rng.uniform(0.5, 5.0, size=n)
+    return np.asarray(fam.to_nat(jnp.asarray(a), jnp.asarray(b)))
+
+
 FAMILIES = {
+    "gamma": (lambda d: jd.Gamma(), lambda d: td.Gamma(), _gamma_nat),
     "normalgamma": (lambda d: jd.NormalGamma(dim=d), lambda d: td.NormalGamma(dim=d),
                     _normalgamma_nat),
     "isotropic_normalgamma": (lambda d: jd.IsotropicNormalGamma(dim=d),
@@ -152,7 +158,7 @@ def test_normalset_ellh_and_accumulate_match_jax(rng):
 
 @pytest.mark.parametrize("cov_type", ["isotropic", "shared_diagonal", "shared_full"])
 def test_normalset_other_cov_types_not_ported(cov_type):
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(NotImplementedError, match="still to come"):
         NormalSet.create(torch.zeros(2), torch.ones(2), size=3, cov_type=cov_type)
 
 
@@ -175,6 +181,61 @@ def test_sb_categorical_matches_jax(rng):
     new_j = jsb.vb_update(acc_j)
     tsb.vb_update(acc_t)
     close(tsb.sticks.posterior, new_j.sticks.posterior, RTOL)
+
+
+def test_gamma_moments_and_round_trip(rng):
+    """E[T] = [a/b, ψ(a) − log b] (scipy), and to_std inverts to_nat."""
+    from scipy import special
+
+    a, b = rng.uniform(0.5, 5.0, size=4), rng.uniform(0.5, 5.0, size=4)
+    fam = td.Gamma()
+    assert fam.nat_dim == 2
+    nat = fam.to_nat(t(a), t(b))
+    est = fam.expected_sufficient_statistics(nat)
+    close(est[..., 0], a / b, 1e-12)
+    close(est[..., 1], special.digamma(a) - np.log(b), 1e-12)
+    a2, b2 = fam.to_std(nat)
+    close(a2, a, 1e-15)
+    close(b2, b, 1e-15)
+
+
+def test_sb_categorical_hyperprior_matches_jax(rng):
+    """Every method of the weight-model protocol and the mean-field
+    update (sticks against the expected prior, then γ), at lrate 0.7."""
+    from beer_tpu.models.categorical import SBCategoricalHyperPrior as JHP
+    from beer_tpu_torch.models.categorical import SBCategoricalHyperPrior
+
+    jhp = JHP.create(5, prior_shape=2.0, prior_rate=0.5, dtype=jnp.float64)
+    thp = SBCategoricalHyperPrior.create(5, prior_shape=2.0, prior_rate=0.5,
+                                         dtype=torch.float64, device="cpu")
+    for name in ("sticks", "concentration"):
+        close(getattr(thp, name).prior, getattr(jhp, name).prior, RTOL)
+        close(getattr(thp, name).posterior, getattr(jhp, name).posterior, RTOL)
+    post = np.asarray(jhp.sticks.posterior) + rng.uniform(0.0, 4.0, size=(4, 2))
+    g_post = np.asarray(jhp.concentration.posterior) + np.array([-0.3, 1.5])
+    jhp = jhp.replace(sticks=jhp.sticks.replace(posterior=jnp.asarray(post)),
+                      concentration=jhp.concentration.replace(posterior=jnp.asarray(g_post)))
+    thp.sticks.posterior.copy_(t(post))
+    thp.concentration.posterior.copy_(t(g_post))
+    close(thp.expected_log_weights(), jhp.expected_log_weights(), RTOL)
+    close(thp.kl_div_posterior_prior(), jhp.kl_div_posterior_prior(), RTOL)
+    close(thp.mean(), jhp.mean(), RTOL)
+    labels = rng.integers(0, 5, size=11)
+    stats_t = thp.sufficient_statistics(t(labels))
+    llh_t, cache_t = thp.infer(stats_t)
+    llh_j, cache_j = jhp.infer(jhp.sufficient_statistics(jnp.asarray(labels)))
+    close(llh_t, llh_j, RTOL)
+    close(thp.accumulate(stats_t, cache_t)["sticks"],
+          jhp.accumulate(None, cache_j)["sticks"], RTOL)
+    counts = rng.uniform(0.0, 10.0, size=5)
+    acc_j = jhp.accumulate_counts(jnp.asarray(counts))
+    acc_t = thp.accumulate_counts(t(counts))
+    close(acc_t["sticks"], acc_j["sticks"], RTOL)
+    new_j = jhp.vb_update(acc_j, lrate=0.7)
+    assert thp.vb_update(acc_t, lrate=0.7) is thp
+    close(thp.sticks.posterior, new_j.sticks.posterior, RTOL)
+    close(thp.concentration.posterior, new_j.concentration.posterior, RTOL)
+    close(thp.kl_div_posterior_prior(), new_j.kl_div_posterior_prior(), RTOL)
 
 
 def test_categorical_matches_jax(rng):

@@ -125,6 +125,34 @@ def test_estep_matches_jax_general_path_f64(route):
     close(acc["unit_prior"]["sticks"], jacc["unit_prior"]["sticks"], RTOL_F64, atol=1e-12)
 
 
+def test_hyperprior_vb_steps_match_jax_f64():
+    """A loop whose unit prior is an SBCategoricalHyperPrior (Gamma on the
+    concentration), carried across by ``convert``: the fused route reads
+    it through ``expected_log_weights`` and ``accumulate_counts`` alone;
+    3 VB steps give the JAX ELBOs, sticks and γ posterior at rtol 1e-9,
+    and ``to_numpy`` carries the hyper-prior back."""
+    from beer_tpu.models.categorical import SBCategoricalHyperPrior as JHP
+    from beer_tpu.models.phoneloop import PhoneLoop as JPhoneLoop
+
+    base = jax_phone_loop(jnp.float64)
+    jloop = JPhoneLoop.create(base.n_units, base.states_per_unit, base.modelset,
+                              unit_prior=JHP.create(base.n_units, 2.0, 1.5, dtype=jnp.float64),
+                              dtype=jnp.float64)
+    loop = to_port(jloop, torch.float64)
+    assert isinstance(loop.unit_prior, bt.SBCategoricalHyperPrior)
+    x, mask = _data(np.float64)
+    jelbos, jloop = _jax_steps(jloop, x, mask)
+    elbos, loop = _port_steps(loop, x, mask)
+    close(elbos, jelbos, RTOL_F64)
+    assert np.all(np.diff(elbos) > 0)
+    got, want = loop.to_numpy(), phone_loop_to_numpy(jloop)
+    for k in ("modelset_posterior", "sticks_posterior", "concentration_posterior"):
+        close(got[k], want[k], RTOL_F64, atol=1e-12)
+    again = bt.phone_loop_from_numpy(got, device="cpu")
+    assert isinstance(again.unit_prior, bt.SBCategoricalHyperPrior)
+    close(again.unit_prior.concentration.prior, want["concentration_prior"], 0.0)
+
+
 def test_vb_steps_match_jax_general_path_f64():
     jloop = jax_phone_loop(jnp.float64)
     loop = to_port(jloop, torch.float64)
