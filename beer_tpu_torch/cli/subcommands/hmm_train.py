@@ -5,7 +5,11 @@ epoch in the output directory; rerunning resumes from the latest.
 Utterances are padded into one batch and each epoch is one VB step on
 the card, or — with ``--batch-size``, or automatically when the padded
 corpus would exceed ``--max-padded-gb`` — minibatches read from a
-``.bar`` archive by :class:`beer_tpu_torch.io.BatchLoader`.
+``.bar`` archive by :class:`beer_tpu_torch.io.BatchLoader`.  With
+``--transcriptions`` the model is ``hmm mkphones`` emissions and each
+epoch is one full-batch VB step of an HMM on the utterances' shared
+transcription graphs (the supervised recognizer); its checkpoints hold
+the emissions, and the graphs are rebuilt on resume.
 """
 
 from __future__ import annotations
@@ -55,7 +59,8 @@ def setup(parser):
     )
     parser.add_argument(
         "--transcriptions", default=None,
-        help="(not ported yet) supervised training on mkphones emissions",
+        help="supervised training: 'uttid ph1 ph2 ...' per line; the input "
+        "model must be mkphones emissions (BASELINE config 3)",
     )
     parser.add_argument(
         "--max-padded-gb", type=float, default=4.0,
@@ -85,12 +90,6 @@ def _upload(array: np.ndarray, device):
     return t.to(device)
 
 
-def _tree_add(a, b):
-    if isinstance(a, dict):
-        return {k: _tree_add(a[k], b[k]) for k in a}
-    return a + b
-
-
 def _train_minibatch(args, model, outdir, device, start_epoch=0):
     """Minibatches from a ``.bar`` archive through ``io.BatchLoader``.
 
@@ -102,7 +101,7 @@ def _train_minibatch(args, model, outdir, device, start_epoch=0):
     from beer_tpu_torch import io as bio
     from beer_tpu_torch.utils import MetricsLogger, save_model
     from beer_tpu_torch.utils.debug import nan_guard
-    from beer_tpu_torch.vbi import elbo_and_stats, vb_step
+    from beer_tpu_torch.vbi import elbo_and_stats, tree_add, vb_step
 
     if args.feats.endswith(".bar"):
         archive = bio.Archive(args.feats)
@@ -140,7 +139,7 @@ def _train_minibatch(args, model, outdir, device, start_epoch=0):
             x, msk = _upload(data, device), _upload(mask, device)
             if args.accumulate_batches:
                 elbo, acc = estep(model, x, msk)
-                epoch_acc = acc if epoch_acc is None else _tree_add(epoch_acc, acc)
+                epoch_acc = acc if epoch_acc is None else tree_add(epoch_acc, acc)
             else:
                 # scale = datasize/B inside vb_step: datasize n_utts·B/n_valid
                 # makes it n_utts/n_valid (padded rows carry no statistics)
@@ -170,9 +169,40 @@ def _train_minibatch(args, model, outdir, device, start_epoch=0):
     print(f"wrote {outdir / 'final.mdl'}")
 
 
+def _train_supervised(args, model, outdir, keys, x, m, start_epoch=0):
+    """Full-batch VB of an HMM on shared transcription graphs (K5 + K7,
+    the llh route); ``model`` is the emissions MixtureSet, which each
+    checkpoint holds."""
+    import json
+    import shutil
+
+    from beer_tpu_torch.cli.subcommands.hmm_mkphones import read_transcriptions
+    from beer_tpu_torch.models.graph import transcription_graphs
+    from beer_tpu_torch.models.hmm import HMM
+    from beer_tpu_torch.utils import save_model
+    from beer_tpu_torch.vbi import vb_step
+
+    meta = json.loads(Path(args.model + ".phones.json").read_text())
+    phone_idx = {p: i for i, p in enumerate(meta["phones"])}
+    trans = read_transcriptions(args.transcriptions)
+    seqs = [[phone_idx[p] for p in trans[k]] for k in keys]
+    dtype = next(model.buffers()).dtype     # the features follow the emissions' dtype
+    graphs = transcription_graphs(seqs, len(meta["phones"]), meta["states_per_phone"],
+                                  dtype=dtype, device=x.device)
+    hmm = HMM.create(graphs, model)
+    x = x.to(dtype)
+    n_frames = float(m.sum())
+    for epoch in range(start_epoch + 1, args.epochs + 1):
+        elbo, hmm = vb_step(hmm, x, lrate=args.lrate, mask=m)
+        print(f"epoch {epoch}: elbo/frame = {elbo.item() / n_frames:.6f}")
+        save_model(hmm.modelset, outdir / f"epoch{epoch:04d}.mdl")
+    # the final artifact is the trained emissions (the graph is per corpus)
+    save_model(hmm.modelset, outdir / "final.mdl")
+    shutil.copy(args.model + ".phones.json", outdir / "final.mdl.phones.json")
+    print(f"wrote {outdir / 'final.mdl'}")
+
+
 def main(args):
-    if args.transcriptions:
-        raise SystemExit("beer-torch: `hmm train --transcriptions` is not ported yet")
     import torch
 
     from beer_tpu_torch import io as bio
@@ -199,30 +229,37 @@ def main(args):
     else:
         model = load_model(args.model, device)
 
-    if args.batch_size:
-        _train_minibatch(args, model, outdir, device, start_epoch=start_epoch)
-        return
-    # Scalable by default: if the padded corpus would blow past
-    # --max-padded-gb, stream it instead — bucketed minibatches with
-    # statistics accumulated over the epoch and one conjugate update.
-    n, t_max, d, _ = bio.archive_geometry(args.feats)
-    padded_gb = n * t_max * d * 4 / 2**30
-    if padded_gb > args.max_padded_gb:
-        bytes_per_utt = max(t_max * d * 4, 1)
-        budget = args.max_padded_gb * 2**30 / 4
-        args.batch_size = int(min(max(budget / bytes_per_utt, 1), 1024))
-        args.accumulate_batches = True
-        args.buckets = max(args.buckets, 8)
-        print(
-            f"corpus pads to {padded_gb:.1f} GB > "
-            f"--max-padded-gb {args.max_padded_gb:g}; streaming exact "
-            f"full-batch VB (batch-size {args.batch_size}, "
-            f"{args.buckets} buckets, accumulate-batches)"
-        )
-        _train_minibatch(args, model, outdir, device, start_epoch=start_epoch)
-        return
+    # supervised training is always full batch: --transcriptions comes
+    # before the minibatch and streaming branches
+    if not args.transcriptions:
+        if args.batch_size:
+            _train_minibatch(args, model, outdir, device, start_epoch=start_epoch)
+            return
+        # Scalable by default: if the padded corpus would blow past
+        # --max-padded-gb, stream it instead — bucketed minibatches with
+        # statistics accumulated over the epoch and one conjugate update.
+        n, t_max, d, _ = bio.archive_geometry(args.feats)
+        padded_gb = n * t_max * d * 4 / 2**30
+        if padded_gb > args.max_padded_gb:
+            bytes_per_utt = max(t_max * d * 4, 1)
+            budget = args.max_padded_gb * 2**30 / 4
+            args.batch_size = int(min(max(budget / bytes_per_utt, 1), 1024))
+            args.accumulate_batches = True
+            args.buckets = max(args.buckets, 8)
+            print(
+                f"corpus pads to {padded_gb:.1f} GB > "
+                f"--max-padded-gb {args.max_padded_gb:g}; streaming exact "
+                f"full-batch VB (batch-size {args.batch_size}, "
+                f"{args.buckets} buckets, accumulate-batches)"
+            )
+            _train_minibatch(args, model, outdir, device, start_epoch=start_epoch)
+            return
 
-    _, data, mask = bio.load_padded(args.feats)
+    keys, data, mask = bio.load_padded(args.feats)
+    if args.transcriptions:
+        _train_supervised(args, model, outdir, keys, torch.from_numpy(data).to(device),
+                          torch.from_numpy(mask).to(device), start_epoch=start_epoch)
+        return
 
     def step(m, x, msk):
         return vb_step(m, x, lrate=args.lrate, mask=msk)

@@ -6,7 +6,9 @@ Counterpart of ``beer_tpu/vbi.py``:
   statistics dict,
 * :func:`vb_step` — E-step + conjugate M-step, returns ``(elbo, model)``.
   The model's buffers are updated IN PLACE and the same model object is
-  returned (the JAX package returns a new pytree).
+  returned (the JAX package returns a new pytree),
+* :func:`tree_add` — the sum of two statistics dicts (minibatches,
+  map-reduce shards),
 
 and the reference-API veneer: :func:`evidence_lower_bound` returns an
 :class:`ELBO` whose ``.backward()`` is a no-op (statistics are already
@@ -30,6 +32,15 @@ def _scale(acc: Any, scale: float) -> Any:
     if isinstance(acc, dict):
         return {k: _scale(v, scale) for k, v in acc.items()}
     return scale * acc
+
+
+def tree_add(a: Any, b: Any) -> Any:
+    """The sum of two statistics dicts of the same layout (as
+    :func:`elbo_and_stats` returns them), leaf by leaf: how minibatch
+    and shard statistics are reduced before one conjugate update."""
+    if isinstance(a, dict):
+        return {k: tree_add(a[k], b[k]) for k in a}
+    return a + b
 
 
 def elbo_and_stats(

@@ -22,8 +22,9 @@ write-back; and the H-SHMM gradient step at bench config 6's shape, 3
 languages × 50 units), then (phase 18) the dense kernels at sizes whose
 operands no block's shared memory holds, with random data and weights
 from fixed seeds, then (phase 19) the AUD recipe through the port's CLI
-on the recipe's own synthetic data and configurations, in nineteen
-phases, each printing one line:
+on the recipe's own synthetic data and configurations, then (phases 20
+and 21) the supervised recipe, map-reduce VB and the subspace-HMM recipe
+through the same CLI, in twenty-one phases, each printing one line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the hand-written CUDA kernels from the sources in
@@ -156,7 +157,50 @@ phases, each printing one line:
    2e-4 of each array's largest entry of the full-batch one at epoch 2;
    the decoded labels equal to the plain route's on every frame; the
    card's features within 1e-3 of the CPU's; the native archive reader;
-   one line of each verb's host-clock seconds and train frames/s.
+   one line of each verb's host-clock seconds and train frames/s;
+20. supervised: ``recipes/supervised/run.sh``'s verbs in this process
+   with no ``--device``: ``recipes/aud/local/make_synthetic_data.py
+   --name sup --write-trans`` (512 training and 64 held-out utterances;
+   the recipe's default is 40), ``dataset create`` and ``features
+   extract`` (``recipes/aud/conf/features.yml``: D = 78) for both splits
+   into ``.bar`` archives, as the recipe writes them,
+   ``hmm mkphones`` (``conf/phones.yml``: 8 phones × 3 states × 2
+   diagonal components), ``hmm train --transcriptions --epochs 3`` then
+   ``--epochs 5`` resumed (the recipe trains 20), ``hmm decode
+   --phone-lm --lm-transcriptions`` of both splits (collapsed, as the
+   recipe, and per frame on the card and with ``--device cpu``), ``hmm
+   align`` of the training split, ``local/score_per.py``'s PER (printed,
+   not gated); the launch counters read around the training (K5, K7)
+   and the alignment (K3, K4) must be above 0; the ELBO per frame finite,
+   non-decreasing and within 1e-4 of 5 plain-route steps of
+   ``emissions.mdl`` on the same padded data; the alignment equal to the
+   plain route's and the card's per-frame decode equal to the CPU's on
+   every frame (mismatches counted and printed); ROADMAP §C.1's share of
+   frames whose γ sums below 0.5, under ``emissions.mdl`` and after
+   epoch 5, on both routes; one line of each verb's seconds, train
+   frames/s and the dense (max, +) Viterbi's share of the phone-LM
+   decode (plain torch, timed around ``semiring_scan.viterbi``);
+21. map-reduce and subspace-HMM: ``hmm accumulate --shard i/4`` (i = 1–4)
+   in this process and then two concurrent ``python -m
+   beer_tpu_torch.cli hmm accumulate --shard i/2`` processes on the
+   card, each set reduced by ``hmm update``, on phase 19's ``init.mdl``
+   and features: every array within 2e-4 of its largest entry of one
+   full-batch ``vb_step`` and the reduced ELBO within 1e-5 a frame, K1
+   and K2 read around the in-process shards; then
+   ``recipes/shmm/run.sh``'s verbs: ``local/make_multilingual_data.py``
+   at its defaults, ``dataset create`` and ``features extract``
+   (``conf/features.yml``) for A, B, C and C_eval, ``hmm mkphoneloop``
+   (``conf/hmm.yml``: 20 units × 3 states) and ``hmm train --epochs 5``
+   per language (the recipe trains 20 and 30), ``shmm train`` on C with
+   ``--extra-lang`` A and B, ``--embed-dim 8 --lang-dim 2
+   --learn-transitions --loop-epochs 3 --outer-iters 2 --inner-iters
+   200`` (the recipe runs 6 × 600), ``hmm decode --per-frame`` of C's
+   held-out split and ``local/score.py``'s NMI (printed, not gated); K1,
+   K2, K12 and K13 read around ``shmm train`` must be above 0; every GSM
+   ELBO finite, the last above the first, ``final_A.mdl``,
+   ``final_B.mdl`` and ``gsm.mdl`` written, the GSM an H-SHMM of 60 units
+   and 3 languages, the transitions written back; one line of each
+   verb's seconds, the outer iteration's seconds and GSM steps/s.
 
 K8–K10 are timed twice in phase 9: ``ms`` is the kernel alone (the bare
 foreign call on operands packed and a launch geometry computed in
@@ -2316,12 +2360,13 @@ PATH_KERNELS = ("forward_llh_banded", "estep_acc_banded", "viterbi_fwd_banded",
                 "viterbi_backtrace_banded")
 
 
-def run_verb(argv):
+def verb(argv):
     """One verb through ``beer_tpu_torch.cli.main.main`` in this process:
-    host-clock seconds, the card synchronised at both ends.  The verb's
-    printed lines go to standard error if it fails."""
+    (host-clock seconds, the card synchronised at both ends; its printed
+    lines).  The printed lines go to standard error if it fails."""
     from beer_tpu_torch.cli.main import main as cli
 
+    argv = [str(a) for a in argv]
     out = io.StringIO()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -2333,11 +2378,16 @@ def run_verb(argv):
         raise
     torch.cuda.synchronize()
     check(rc == 0, f"beer-torch {' '.join(argv[:2])} returned {rc}")
-    return time.time() - t0
+    return time.time() - t0, out.getvalue()
 
 
-def path_launches():
-    return {k: cuda_scan.KERNELS[k].launches for k in PATH_KERNELS}
+def run_verb(argv):
+    """:func:`verb`'s seconds."""
+    return verb(argv)[0]
+
+
+def path_launches(names=PATH_KERNELS):
+    return {k: cuda_scan.KERNELS[k].launches for k in names}
 
 
 def train_log(run_dir):
@@ -2350,9 +2400,9 @@ def padded(bio, feats, dev):
     return torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
 
 
-def phase_cli(dev, card):
+def phase_cli(dev, card, tmp):
     """``recipes/aud/run.sh``'s five verbs through the port's CLI on the
-    card, with no ``--device`` flag: the recipe's synthetic data (512
+    card in the directory ``tmp``, with no ``--device`` flag: the recipe's synthetic data (512
     training utterances, 64 held out), its feature and model
     configurations (fbank, 26 filters with deltas: D = 78; 40 units × 3
     states: S = 120), 3 epochs then 5 (resumed), the same training
@@ -2363,116 +2413,115 @@ def phase_cli(dev, card):
     from beer_tpu_torch.utils import load_model
 
     secs, launches = {}, {}
-    with tempfile.TemporaryDirectory(prefix="beer_cli_") as tmp:
-        w = Path(tmp)
-        t0 = time.time()
-        subprocess.run([sys.executable, str(RECIPE / "local" / "make_synthetic_data.py"), tmp,
-                        "--n-utts", str(CLI_UTTS), "--n-utts-eval", str(CLI_UTTS_EVAL)],
-                       check=True, capture_output=True, timeout=600)
-        secs["data"] = time.time() - t0
-        for split in ("aud", "aud_eval"):
-            secs[f"dataset_create_{split}"] = run_verb(
-                ["dataset", "create", f"{tmp}/wav_{split}.scp", f"{tmp}/manifest_{split}.json"])
-            secs[f"features_extract_{split}"] = run_verb(
-                ["features", "extract", str(RECIPE / "conf" / "features.yml"),
-                 f"{tmp}/manifest_{split}.json", f"{tmp}/feats_{split}.npz"])
-        feats, feats_eval, init = f"{tmp}/feats_aud.npz", f"{tmp}/feats_aud_eval.npz", f"{tmp}/init.mdl"
-        secs["mkphoneloop"] = run_verb(
-            ["hmm", "mkphoneloop", str(RECIPE / "conf" / "hmm.yml"), feats, init])
+    w = Path(tmp)
+    t0 = time.time()
+    subprocess.run([sys.executable, str(RECIPE / "local" / "make_synthetic_data.py"), tmp,
+                    "--n-utts", str(CLI_UTTS), "--n-utts-eval", str(CLI_UTTS_EVAL)],
+                   check=True, capture_output=True, timeout=600)
+    secs["data"] = time.time() - t0
+    for split in ("aud", "aud_eval"):
+        secs[f"dataset_create_{split}"] = run_verb(
+            ["dataset", "create", f"{tmp}/wav_{split}.scp", f"{tmp}/manifest_{split}.json"])
+        secs[f"features_extract_{split}"] = run_verb(
+            ["features", "extract", str(RECIPE / "conf" / "features.yml"),
+             f"{tmp}/manifest_{split}.json", f"{tmp}/feats_{split}.npz"])
+    feats, feats_eval, init = f"{tmp}/feats_aud.npz", f"{tmp}/feats_aud_eval.npz", f"{tmp}/init.mdl"
+    secs["mkphoneloop"] = run_verb(
+        ["hmm", "mkphoneloop", str(RECIPE / "conf" / "hmm.yml"), feats, init])
 
-        cuda_scan.reset_launch_counts()
-        secs[f"train_{CLI_RESUME_AT}"] = run_verb(
-            ["hmm", "train", init, feats, f"{tmp}/train", "--epochs", str(CLI_RESUME_AT)])
-        secs[f"train_resume_{CLI_EPOCHS}"] = run_verb(
-            ["hmm", "train", init, feats, f"{tmp}/train", "--epochs", str(CLI_EPOCHS)])
-        launches["train"] = path_launches()
-        cuda_scan.reset_launch_counts()
-        secs[f"train_streamed_{CLI_STREAM_EPOCHS}"] = run_verb(
-            ["hmm", "train", init, feats, f"{tmp}/streamed", "--epochs", str(CLI_STREAM_EPOCHS),
-             "--batch-size", "128", "--buckets", "4", "--accumulate-batches"])
-        launches["streamed"] = path_launches()
-        cuda_scan.reset_launch_counts()
-        secs["decode_eval"] = run_verb(
-            ["hmm", "decode", f"{tmp}/train/final.mdl", feats_eval, f"{tmp}/trans.txt",
-             "--per-frame"])
-        launches["decode"] = path_launches()
+    cuda_scan.reset_launch_counts()
+    secs[f"train_{CLI_RESUME_AT}"] = run_verb(
+        ["hmm", "train", init, feats, f"{tmp}/train", "--epochs", str(CLI_RESUME_AT)])
+    secs[f"train_resume_{CLI_EPOCHS}"] = run_verb(
+        ["hmm", "train", init, feats, f"{tmp}/train", "--epochs", str(CLI_EPOCHS)])
+    launches["train"] = path_launches()
+    cuda_scan.reset_launch_counts()
+    secs[f"train_streamed_{CLI_STREAM_EPOCHS}"] = run_verb(
+        ["hmm", "train", init, feats, f"{tmp}/streamed", "--epochs", str(CLI_STREAM_EPOCHS),
+         "--batch-size", "128", "--buckets", "4", "--accumulate-batches"])
+    launches["streamed"] = path_launches()
+    cuda_scan.reset_launch_counts()
+    secs["decode_eval"] = run_verb(
+        ["hmm", "decode", f"{tmp}/train/final.mdl", feats_eval, f"{tmp}/trans.txt",
+         "--per-frame"])
+    launches["decode"] = path_launches()
 
-        # the launches: K1, K2 in both trainings; K3, K4 in the decode
-        for k in PATH_KERNELS[:2]:
-            check(launches["train"][k] > 0 and launches["streamed"][k] > 0,
-                  f"{k} not launched by hmm train: {launches}")
-        for k in PATH_KERNELS[2:]:
-            check(launches["decode"][k] > 0, f"{k} not launched by hmm decode: {launches}")
+    # the launches: K1, K2 in both trainings; K3, K4 in the decode
+    for k in PATH_KERNELS[:2]:
+        check(launches["train"][k] > 0 and launches["streamed"][k] > 0,
+              f"{k} not launched by hmm train: {launches}")
+    for k in PATH_KERNELS[2:]:
+        check(launches["decode"][k] > 0, f"{k} not launched by hmm decode: {launches}")
 
-        # the features: D = 78, finite; the card's spectra against the CPU's
-        from beer_tpu_torch import features
-        from beer_tpu_torch.utils import load_yaml
+    # the features: D = 78, finite; the card's spectra against the CPU's
+    from beer_tpu_torch import features
+    from beer_tpu_torch.utils import load_yaml
 
-        conf = features.FeatureConfig.from_dict(load_yaml(RECIPE / "conf" / "features.yml"))
-        archive = np.load(feats_eval)
-        manifest = json.loads((w / "manifest_aud_eval.json").read_text())["utterances"]
-        feat_err = 0.0
-        for key in archive.files[:8]:
-            got = archive[key]
-            check(got.shape[1] == 78 and bool(np.isfinite(got).all()), f"features of {key}")
-            sig = torch.from_numpy(np.load(manifest[key]))
-            raw = features.extract(sig, dataclasses.replace(conf, deltas=False,
-                                                            mean_norm=False)).numpy()
-            ref = features.add_deltas_np(raw)
-            ref = ref - ref.mean(0, keepdims=True)
-            feat_err = max(feat_err, float(np.abs(got - ref).max()))
-        check(feat_err <= 1e-3, f"features on the card vs the CPU: {feat_err}")
+    conf = features.FeatureConfig.from_dict(load_yaml(RECIPE / "conf" / "features.yml"))
+    archive = np.load(feats_eval)
+    manifest = json.loads((w / "manifest_aud_eval.json").read_text())["utterances"]
+    feat_err = 0.0
+    for key in archive.files[:8]:
+        got = archive[key]
+        check(got.shape[1] == 78 and bool(np.isfinite(got).all()), f"features of {key}")
+        sig = torch.from_numpy(np.load(manifest[key]))
+        raw = features.extract(sig, dataclasses.replace(conf, deltas=False,
+                                                        mean_norm=False)).numpy()
+        ref = features.add_deltas_np(raw)
+        ref = ref - ref.mean(0, keepdims=True)
+        feat_err = max(feat_err, float(np.abs(got - ref).max()))
+    check(feat_err <= 1e-3, f"features on the card vs the CPU: {feat_err}")
 
-        # the ELBO: finite, non-decreasing, within 1e-4/frame of the plain route
-        x, m = padded(bio, feats, dev)
-        frames = float(m.sum())
-        records = train_log(w / "train")
-        elbos = np.array([r["elbo_per_frame"] for r in records])
-        check([r["step"] for r in records] == list(range(1, CLI_EPOCHS + 1)),
-              f"train log epochs {[r['step'] for r in records]}")
-        check(bool(np.isfinite(elbos).all()), f"ELBO not finite: {elbos}")
-        check(bool((np.diff(elbos) >= -1e-6).all()), f"ELBO decreased: {elbos}")
-        twin = plain_twin(load_model(init))
-        plain = []
-        for _ in range(CLI_EPOCHS):
-            elbo, twin = bt.vb_step(twin, x, mask=m)
-            plain.append(float(elbo) / frames)
-        gap = float(np.abs(elbos - np.array(plain)).max())
-        check(gap <= 1e-4, f"CLI vs plain route ELBO gap {gap} per frame")
+    # the ELBO: finite, non-decreasing, within 1e-4/frame of the plain route
+    x, m = padded(bio, feats, dev)
+    frames = float(m.sum())
+    records = train_log(w / "train")
+    elbos = np.array([r["elbo_per_frame"] for r in records])
+    check([r["step"] for r in records] == list(range(1, CLI_EPOCHS + 1)),
+          f"train log epochs {[r['step'] for r in records]}")
+    check(bool(np.isfinite(elbos).all()), f"ELBO not finite: {elbos}")
+    check(bool((np.diff(elbos) >= -1e-6).all()), f"ELBO decreased: {elbos}")
+    twin = plain_twin(load_model(init))
+    plain = []
+    for _ in range(CLI_EPOCHS):
+        elbo, twin = bt.vb_step(twin, x, mask=m)
+        plain.append(float(elbo) / frames)
+    gap = float(np.abs(elbos - np.array(plain)).max())
+    check(gap <= 1e-4, f"CLI vs plain route ELBO gap {gap} per frame")
 
-        # streamed full-batch VB = full batch at epoch 2, to 2e-4 of each
-        # array's largest entry (the two sum ~10^4 frames' float32
-        # statistics in different orders, which entries near 0 show)
-        full = load_model(w / "train" / f"epoch{CLI_STREAM_EPOCHS:04d}.mdl")
-        streamed = load_model(w / "streamed" / "final.mdl")
-        stream_rel = 0.0
-        for (name, a), (_, b) in zip(full.state_dict().items(), streamed.state_dict().items()):
-            err = rel(b, a)
-            check(err <= 2e-4, f"streamed vs full batch: {name} rel {err}")
-            stream_rel = max(stream_rel, err)
-        s_elbos = [r["elbo_per_frame"] for r in train_log(w / "streamed")]
-        stream_gap = float(np.abs(np.array(s_elbos) - elbos[:CLI_STREAM_EPOCHS]).max())
-        check(stream_gap <= 1e-4, f"streamed vs full batch ELBO gap {stream_gap} per frame")
-        bar = bio.Archive(feats + ".bar")
-        check(bar.native, "the native archive reader did not run")
+    # streamed full-batch VB = full batch at epoch 2, to 2e-4 of each
+    # array's largest entry (the two sum ~10^4 frames' float32
+    # statistics in different orders, which entries near 0 show)
+    full = load_model(w / "train" / f"epoch{CLI_STREAM_EPOCHS:04d}.mdl")
+    streamed = load_model(w / "streamed" / "final.mdl")
+    stream_rel = 0.0
+    for (name, a), (_, b) in zip(full.state_dict().items(), streamed.state_dict().items()):
+        err = rel(b, a)
+        check(err <= 2e-4, f"streamed vs full batch: {name} rel {err}")
+        stream_rel = max(stream_rel, err)
+    s_elbos = [r["elbo_per_frame"] for r in train_log(w / "streamed")]
+    stream_gap = float(np.abs(np.array(s_elbos) - elbos[:CLI_STREAM_EPOCHS]).max())
+    check(stream_gap <= 1e-4, f"streamed vs full batch ELBO gap {stream_gap} per frame")
+    bar = bio.Archive(feats + ".bar")
+    check(bar.native, "the native archive reader did not run")
 
-        # the decode: the plain route's labels, frame for frame
-        xe, me = padded(bio, feats_eval, dev)
-        with torch.no_grad():
-            units, _ = plain_twin(load_model(w / "train" / "final.mdl")).decode_units(xe, me)
-        units = units.cpu().numpy()
-        lens = me.sum(-1).long().cpu().numpy()
-        keys = list(np.load(feats_eval).files)
-        lines = (w / "trans.txt").read_text().splitlines()
-        check(len(lines) == len(keys), "one transcription a held-out utterance")
-        mismatch = 0
-        for i, line in enumerate(lines):
-            key, *labels = line.split()
-            check(key == keys[i] and len(labels) == lens[i], f"transcription of {keys[i]}")
-            mismatch += int((np.array([int(u[2:]) for u in labels]) != units[i, :lens[i]]).sum())
-        check(mismatch == 0, f"decode differs from the plain route on {mismatch} frames")
-        used = len(np.unique(np.concatenate([units[i, :n] for i, n in enumerate(lens)])))
-        t_max, dim, n_states = x.shape[1], x.shape[2], twin.n_states
+    # the decode: the plain route's labels, frame for frame
+    xe, me = padded(bio, feats_eval, dev)
+    with torch.no_grad():
+        units, _ = plain_twin(load_model(w / "train" / "final.mdl")).decode_units(xe, me)
+    units = units.cpu().numpy()
+    lens = me.sum(-1).long().cpu().numpy()
+    keys = list(np.load(feats_eval).files)
+    lines = (w / "trans.txt").read_text().splitlines()
+    check(len(lines) == len(keys), "one transcription a held-out utterance")
+    mismatch = 0
+    for i, line in enumerate(lines):
+        key, *labels = line.split()
+        check(key == keys[i] and len(labels) == lens[i], f"transcription of {keys[i]}")
+        mismatch += int((np.array([int(u[2:]) for u in labels]) != units[i, :lens[i]]).sum())
+    check(mismatch == 0, f"decode differs from the plain route on {mismatch} frames")
+    used = len(np.unique(np.concatenate([units[i, :n] for i, n in enumerate(lens)])))
+    t_max, dim, n_states = x.shape[1], x.shape[2], twin.n_states
 
     fps = {r["step"]: round(r["frames_per_sec"]) for r in records}
     print(f"phase 19 cli: {card} | utts {CLI_UTTS} + {CLI_UTTS_EVAL} held out, frames {frames:.0f}, "
@@ -2486,6 +2535,403 @@ def phase_cli(dev, card):
           + json.dumps(launches)
           + " | tol: ELBO 1e-4/frame; streamed 2e-4 of each array's max; features 1e-3; decode equal")
     return {k: sum(v[k] for v in launches.values()) for k in PATH_KERNELS}
+
+
+# ----------------------------------------------------------------------
+# Phase 20: the supervised recipe through the port's CLI
+# ----------------------------------------------------------------------
+ROOT = Path(__file__).resolve().parent
+SUPERVISED = ROOT / "recipes" / "supervised"
+SUP_UTTS, SUP_UTTS_EVAL = 512, 64           # config 4's B, as phase 19; a held-out split
+SUP_EPOCHS, SUP_RESUME_AT = 5, 3            # the recipe trains 20 epochs
+SUP_KERNELS = ("forward_llh_dense", "estep_gamma_dense", "viterbi_fwd_banded",
+               "viterbi_backtrace_banded")
+
+
+@contextlib.contextmanager
+def timed_calls(module, name):
+    """Replace ``module.name`` by a wrapper that records each call's
+    (start, end) on the host clock, the card synchronised at both ends."""
+    fn = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((t0, time.time()))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def printed_elbos(printed, pattern=r"epoch (\d+): elbo/frame = (\S+)"):
+    import re
+
+    return {int(k): float(v) for k, v in re.findall(pattern, printed)}
+
+
+def read_trans(path):
+    return {line.split()[0]: line.split()[1:] for line in Path(path).read_text().splitlines()
+            if line.split()}
+
+
+def hmm_underflow_share(hmm, x, m):
+    """ROADMAP §C.1: the share of valid frames whose γ sums below 0.5,
+    through ``HMM.posteriors``."""
+    with torch.no_grad():
+        gamma = hmm.posteriors(x, m)
+    valid = m > 0
+    return float(((gamma.sum(-1) < 0.5) & valid).sum() / valid.sum())
+
+
+def run_script(*argv):
+    """A recipe's helper script: its standard output."""
+    return subprocess.run([sys.executable, *map(str, argv)], check=True, capture_output=True,
+                          text=True, timeout=600).stdout
+
+
+def host_profile(argv, top=6):
+    """``verb(argv)`` under ``cProfile``: its seconds and the functions
+    with the most host time of their own (seconds)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    secs, _ = verb(argv)
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return round(secs, 3), {f"{Path(f).name}:{line}({fn})": round(st[2], 3)
+                            for (f, line, fn), st in rows}
+
+
+def phase_supervised(dev, card, tmp):
+    """``recipes/supervised/run.sh``'s verbs through the port's CLI on
+    the card, with no ``--device`` flag, in the directory ``tmp``: the
+    recipe's labelled synthetic data (512 training utterances, 64 held
+    out), ``conf/features.yml`` (D = 78) and ``conf/phones.yml`` (8 phones
+    × 3 states × 2 diagonal components), 3 epochs then 5 (resumed) of
+    supervised training on shared transcription graphs, the bigram
+    phone-LM decode of both splits, the forced alignment of the training
+    split.  Launch counters are read around the training and the
+    alignment."""
+    from beer_tpu_torch import io as bio
+    from beer_tpu_torch.utils import load_model
+
+    w = Path(tmp) / "supervised"
+    w.mkdir()
+    secs, launches = {}, {}
+    t0 = time.time()
+    run_script(RECIPE / "local" / "make_synthetic_data.py", w, "--name", "sup", "--n-utts",
+               SUP_UTTS, "--n-utts-eval", SUP_UTTS_EVAL, "--write-trans")
+    secs["data"] = time.time() - t0
+    for split in ("sup", "sup_eval"):
+        secs[f"dataset_create_{split}"] = run_verb(
+            ["dataset", "create", w / f"wav_{split}.scp", w / f"manifest_{split}.json"])
+        secs[f"features_extract_{split}"] = run_verb(
+            ["features", "extract", RECIPE / "conf" / "features.yml",
+             w / f"manifest_{split}.json", w / f"feats_{split}.bar"])
+    feats, feats_eval = w / "feats_sup.bar", w / "feats_sup_eval.bar"   # run.sh's native archives
+    trans, em = w / "sup.trans", w / "emissions.mdl"
+    secs["mkphones"] = run_verb(["hmm", "mkphones", SUPERVISED / "conf" / "phones.yml", feats,
+                                 trans, em])
+
+    cuda_scan.reset_launch_counts()
+    printed = ""
+    for epochs in (SUP_RESUME_AT, SUP_EPOCHS):
+        secs[f"train_{epochs}"], out = verb(["hmm", "train", em, feats, w / "train", "--epochs",
+                                             epochs, "--transcriptions", trans])
+        printed += out
+    launches["train"] = path_launches(SUP_KERNELS)
+
+    # the recipe's decode (collapsed) of both splits; per frame on the card
+    # and with --device cpu for the comparison; the dense Viterbi timed
+    final = w / "train" / "final.mdl"
+    lm = ["--phone-lm", "--lm-transcriptions", trans]
+    cuda_scan.reset_launch_counts()
+    with timed_calls(tss, "viterbi") as vit:
+        for split, f in (("train", feats), ("eval", feats_eval)):
+            secs[f"decode_{split}"] = run_verb(["hmm", "decode", final, f, w / f"hyp_{split}.trans"]
+                                               + lm)
+    launches["decode"] = path_launches(SUP_KERNELS)
+    vit_secs = sum(b - a for a, b in vit)
+    vit_share = vit_secs / (secs["decode_train"] + secs["decode_eval"])
+    frame_labels = {}
+    for split, f in (("train", feats), ("eval", feats_eval)):
+        for device in ("cuda", "cpu"):
+            out = w / f"hyp_{split}_frames_{device}.trans"
+            secs[f"decode_{split}_per_frame_{device}"] = run_verb(
+                ["hmm", "decode", final, f, out, "--per-frame", "--device", device] + lm)
+            frame_labels[split, device] = read_trans(out)
+    cuda_scan.reset_launch_counts()
+    secs["align"] = run_verb(["hmm", "align", final, feats, trans, w / "ali.txt"])
+    launches["align"] = path_launches(SUP_KERNELS)
+    per = {split: run_script(SUPERVISED / "local" / "score_per.py", ref,
+                             w / f"hyp_{split}.trans").strip()
+           for split, ref in (("train", trans), ("eval", w / "sup_eval.trans"))}
+
+    # the launches: K5, K7 in the training; K3, K4 in the alignment
+    for k in SUP_KERNELS[:2]:
+        check(launches["train"][k] > 0, f"{k} not launched by hmm train --transcriptions: {launches}")
+    for k in SUP_KERNELS[2:]:
+        check(launches["align"][k] > 0, f"{k} not launched by hmm align: {launches}")
+
+    # the ELBO: finite, non-decreasing, within 1e-4/frame of the plain route
+    keys, data, mask = bio.load_padded(feats)
+    x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    frames = float(mask.sum())
+    meta = json.loads((w / "emissions.mdl.phones.json").read_text())
+    phones, spp = meta["phones"], meta["states_per_phone"]
+    labels = read_trans(trans)
+    graphs = bt.transcription_graphs([[phones.index(p) for p in labels[k]] for k in keys],
+                                     len(phones), spp)
+    elbos = printed_elbos(printed)
+    check(sorted(elbos) == list(range(1, SUP_EPOCHS + 1)), f"train epochs {sorted(elbos)}")
+    elbos = np.array([elbos[e] for e in range(1, SUP_EPOCHS + 1)])
+    check(bool(np.isfinite(elbos).all()), f"ELBO not finite: {elbos}")
+    check(bool((np.diff(elbos) >= -1e-6).all()), f"ELBO decreased: {elbos}")
+    twin = plain_twin(bt.HMM.create(graphs, load_model(em)))
+    plain = []
+    for _ in range(SUP_EPOCHS):
+        elbo, twin = bt.vb_step(twin, x, mask=m)
+        plain.append(elbo.item() / frames)
+    gap = float(np.abs(elbos - np.array(plain)).max())
+    check(gap <= 1e-4, f"CLI vs plain route ELBO gap {gap} per frame")
+
+    # where a training epoch's and a decode's time goes: one VB step on
+    # each route (CUDA events), the step under torch.profiler, reading the
+    # archive, and the two verbs under cProfile
+    hmm = bt.HMM.create(graphs, load_model(final))
+    twin = plain_twin(hmm)
+    step = {"kernels_ms": cuda_ms(lambda: bt.vb_step(hmm, x, mask=m)),
+            "plain_ms": cuda_ms(lambda: bt.vb_step(twin, x, mask=m)),
+            "profile": profile_step(lambda: bt.vb_step(hmm, x, mask=m))}
+    t0 = time.time()
+    bio.load_padded(feats)
+    step["load_padded_s"] = round(time.time() - t0, 3)
+    profiles = {
+        "train_1_epoch": host_profile(["hmm", "train", em, feats, w / "train_profiled", "--epochs",
+                                       1, "--transcriptions", trans]),
+        "decode_train": host_profile(["hmm", "decode", final, feats, w / "hyp_profiled.trans"]
+                                     + lm),
+    }
+
+    # ROADMAP §C.1: γ that sums below 0.5, under the initial emissions and
+    # after the last epoch, on the kernel route (K5 + K7) and the plain one
+    underflow = {}
+    for tag, path in (("emissions", em), (f"epoch{SUP_EPOCHS}", final)):
+        hmm = bt.HMM.create(graphs, load_model(path))
+        underflow[tag] = {"kernels": hmm_underflow_share(hmm, x, m),
+                          "plain": hmm_underflow_share(plain_twin(hmm), x, m)}
+
+    # the alignment: the plain route's, frame for frame
+    with torch.no_grad():
+        paths, _ = plain_twin(bt.HMM.create(graphs, load_model(final))).decode(x, m)
+    want = (torch.gather(graphs.pdf_ids, 1, paths.long()) // spp).cpu().numpy()
+    lens = mask.sum(-1).astype(int)
+    got = read_trans(w / "ali.txt")
+    check(list(got) == list(keys), "one alignment a training utterance")
+    ali_mismatch = sum(int((np.array([phones.index(p) for p in got[k]]) != want[i, :lens[i]]).sum())
+                       for i, k in enumerate(keys))
+    check(all(len(got[k]) == lens[i] for i, k in enumerate(keys)), "alignment lengths")
+    check(ali_mismatch == 0, f"alignment differs from the plain route on {ali_mismatch} frames")
+
+    # the phone-LM decode: the card's per-frame labels are the CPU's
+    decode_frames, ties = 0, {}
+    for split in ("train", "eval"):
+        card_labels, cpu_labels = frame_labels[split, "cuda"], frame_labels[split, "cpu"]
+        check(list(card_labels) == list(cpu_labels), f"decode keys ({split})")
+        ties[split] = sum(int(np.sum(np.array(card_labels[k]) != np.array(cpu_labels[k])))
+                          for k in card_labels)
+        decode_frames += sum(len(v) for v in card_labels.values())
+    check(sum(ties.values()) == 0, f"the card's phone-LM decode differs from the CPU's: {ties}")
+
+    train_secs = secs[f"train_{SUP_RESUME_AT}"] + secs[f"train_{SUP_EPOCHS}"]
+    epochs_run = {SUP_RESUME_AT: SUP_RESUME_AT, SUP_EPOCHS: SUP_EPOCHS - SUP_RESUME_AT}
+    fps = {f"train_{e}": round(frames * n / secs[f"train_{e}"]) for e, n in epochs_run.items()}
+    print(f"phase 20 supervised: {card} | utts {SUP_UTTS} + {SUP_UTTS_EVAL} held out, frames "
+          f"{frames:.0f}, T_max {x.shape[1]}, D {x.shape[2]}, {len(phones)} phones x {spp} states "
+          f"x {meta['ncomp_per_state']} components (S_max {graphs.n_states}) | seconds "
+          + json.dumps({k: round(v, 3) for k, v in secs.items()})
+          + f" | train frames/s, the verb's wall clock {json.dumps(fps)} (all {SUP_EPOCHS} epochs "
+          f"{frames * SUP_EPOCHS / train_secs:.0f}) | ELBO/frame "
+          + ", ".join(f"{e:.6f}" for e in elbos)
+          + f" | plain-route gap {gap:.3g}/frame | dense viterbi {vit_secs:.3f} s of the two "
+          f"phone-LM decodes' {secs['decode_train'] + secs['decode_eval']:.3f} s "
+          f"({100 * vit_share:.1f} %, {len(vit)} calls) | card vs CPU decode: {decode_frames} "
+          f"frames, mismatches {json.dumps(ties)} | alignment mismatches {ali_mismatch} | "
+          f"underflow (share of frames with sum gamma < 0.5) {json.dumps(underflow)} | "
+          f"PER train {per['train']} eval {per['eval']} | one vb_step {json.dumps(step)} | "
+          f"host profiles (s, own seconds) {json.dumps(profiles)} | launches "
+          + json.dumps(launches) + " | tol: ELBO 1e-4/frame; alignment and decode equal")
+    return {k: sum(v[k] for v in launches.values()) for k in SUP_KERNELS}
+
+
+# ----------------------------------------------------------------------
+# Phase 21: map-reduce and the subspace-HMM through the port's CLI
+# ----------------------------------------------------------------------
+SHMM = ROOT / "recipes" / "shmm"
+SHMM_LOOP_EPOCHS = 5                        # the recipe trains 20 (A, B) and 30 (C) epochs
+SHMM_OUTER, SHMM_INNER = 2, 200             # the recipe runs 6 x 600
+MR_KERNELS = ("forward_llh_banded", "estep_acc_banded")
+SHMM_KERNELS = MR_KERNELS + ("scaled_pass", "smoothing_pass")
+
+
+def mapreduce_check(reduced_model, printed, full, full_per_frame, label):
+    """The reduced model against the full-batch step: every array within
+    2e-4 of its largest entry, the reduced ELBO within 1e-5 a frame."""
+    from beer_tpu_torch.utils import load_model
+
+    worst = 0.0
+    for (name, a), (_, b) in zip(load_model(reduced_model).state_dict().items(),
+                                 full.state_dict().items()):
+        err = rel(a, b)
+        check(err <= 2e-4, f"{label} vs vb_step: {name} rel {err}")
+        worst = max(worst, err)
+    gap = abs(float(printed.rsplit("elbo/frame = ", 1)[1].split()[0]) - full_per_frame)
+    check(gap <= 1e-5, f"{label} reduced ELBO gap {gap} per frame")
+    return worst, gap
+
+
+def phase_mapreduce_shmm(dev, card, tmp):
+    """Map-reduce VB on phase 19's AUD ``init.mdl`` and features (4
+    shards in this process, then 2 concurrent ``python -m
+    beer_tpu_torch.cli hmm accumulate`` processes sharing the card, each
+    reduced by ``hmm update`` and held against one full-batch
+    ``vb_step``); then ``recipes/shmm/run.sh``'s verbs: the multilingual
+    synthetic data (A, B: 60 utterances, C: 4, C's held-out 40),
+    features, a phone loop per language (20 units × 3 states) trained
+    5 epochs, ``shmm train`` on C with A and B (H-SHMM, learned
+    transitions), a per-frame decode of C's held-out split and its NMI."""
+    import os
+
+    from beer_tpu_torch import io as bio
+    from beer_tpu_torch.models import gsm as tgsm
+    from beer_tpu_torch.utils import load_model
+
+    aud = Path(tmp)
+    w = aud / "mapreduce"
+    w.mkdir()
+    init, feats = aud / "init.mdl", aud / "feats_aud.npz"
+    secs, launches = {}, {}
+
+    cuda_scan.reset_launch_counts()
+    accs = [w / f"s{i}of4.acc" for i in range(1, 5)]
+    for i, acc in enumerate(accs, 1):
+        secs[f"accumulate_{i}of4"] = run_verb(["hmm", "accumulate", init, feats, acc,
+                                               "--shard", f"{i}/4"])
+    launches["accumulate"] = path_launches(MR_KERNELS)
+    for k in MR_KERNELS:
+        check(launches["accumulate"][k] > 0, f"{k} not launched by hmm accumulate: {launches}")
+    secs["update_4"], printed4 = verb(["hmm", "update", init, w / "mr4.mdl", *accs])
+
+    # the fan-out of recipes/lib/parallel_vbem.sh: processes sharing the
+    # card (one alone first, for its start-up time)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    for tag, shards in (("accumulate_1_process", ["1/1"]),
+                        ("accumulate_2_concurrent", ["1/2", "2/2"])):
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, "-m", "beer_tpu_torch.cli", "hmm", "accumulate",
+                                   str(init), str(feats),
+                                   str(w / f"s{shard.replace('/', 'of')}.acc"), "--shard", shard],
+                                  cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for shard in shards]
+        try:
+            outs = [proc.communicate(timeout=600) for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        secs[tag] = time.time() - t0
+        for proc, (out, err) in zip(procs, outs):
+            check(proc.returncode == 0, f"hmm accumulate in a process failed:\n{out}\n{err}")
+    secs["update_2"], printed2 = verb(["hmm", "update", init, w / "mr2.mdl",
+                                       w / "s1of2.acc", w / "s2of2.acc"])
+
+    x, m = padded(bio, feats, dev)
+    frames = float(m.sum())
+    elbo, full = bt.vb_step(load_model(init), x, mask=m)
+    full_per_frame = elbo.item() / frames
+    mr = {"4 shards": mapreduce_check(w / "mr4.mdl", printed4, full, full_per_frame, "4 shards"),
+          "2 concurrent": mapreduce_check(w / "mr2.mdl", printed2, full, full_per_frame,
+                                          "2 concurrent processes")}
+
+    # the subspace-HMM recipe
+    sh = aud / "shmm"
+    t0 = time.time()
+    run_script(SHMM / "local" / "make_multilingual_data.py", sh)
+    secs["shmm_data"] = time.time() - t0
+    for name in ("A", "B", "C", "C_eval"):
+        secs[f"dataset_create_{name}"] = run_verb(
+            ["dataset", "create", sh / f"wav_{name}.scp", sh / f"manifest_{name}.json"])
+        secs[f"features_extract_{name}"] = run_verb(
+            ["features", "extract", SHMM / "conf" / "features.yml", sh / f"manifest_{name}.json",
+             sh / f"feats_{name}.npz"])
+    for lang in ("A", "B", "C"):
+        secs[f"mkphoneloop_{lang}"] = run_verb(
+            ["hmm", "mkphoneloop", SHMM / "conf" / "hmm.yml", sh / f"feats_{lang}.npz",
+             sh / f"init_{lang}.mdl"])
+        secs[f"train_{lang}"] = run_verb(
+            ["hmm", "train", sh / f"init_{lang}.mdl", sh / f"feats_{lang}.npz",
+             sh / f"train_{lang}", "--epochs", SHMM_LOOP_EPOCHS])
+    cuda_scan.reset_launch_counts()
+    with timed_calls(tgsm, "train_gsm") as gsm_calls:
+        secs["shmm_train"], printed = verb(
+            ["shmm", "train", sh / "train_C" / "final.mdl", sh / "feats_C.npz", sh / "shmm",
+             "--extra-lang", f"A:{sh / 'train_A' / 'final.mdl'}:{sh / 'feats_A.npz'}",
+             "--extra-lang", f"B:{sh / 'train_B' / 'final.mdl'}:{sh / 'feats_B.npz'}",
+             "--embed-dim", "8", "--lang-dim", "2", "--learn-transitions",
+             "--outer-iters", SHMM_OUTER, "--inner-iters", SHMM_INNER, "--loop-epochs", "3"])
+    launches["shmm_train"] = path_launches(SHMM_KERNELS)
+    for k in SHMM_KERNELS:
+        check(launches["shmm_train"][k] > 0, f"{k} not launched by shmm train: {launches}")
+    secs["decode_C_eval"] = run_verb(["hmm", "decode", sh / "shmm" / "final.mdl",
+                                      sh / "feats_C_eval.npz", sh / "trans_shmm_C.txt",
+                                      "--per-frame"])
+    score = run_script(SHMM / "local" / "score.py", sh / "ref_C_eval.ali",
+                       sh / "trans_shmm_C.txt").strip().replace("\n", "; ")
+
+    gsm_elbos = printed_elbos(printed, r"outer (\d+): gsm elbo = (\S+)")
+    check(sorted(gsm_elbos) == list(range(SHMM_OUTER)), f"outer iterations {sorted(gsm_elbos)}")
+    values = [gsm_elbos[k] for k in range(SHMM_OUTER)]
+    check(bool(np.isfinite(values).all()), f"GSM ELBO not finite: {values}")
+    check(values[-1] > values[0], f"GSM ELBO did not rise: {values}")
+    out = sh / "shmm"
+    check(all((out / n).exists() for n in ("final_A.mdl", "final_B.mdl", "gsm.mdl")),
+          "shmm train's outputs")
+    gsm = load_model(out / "gsm.mdl")
+    check(type(gsm).__name__ == "HierarchicalGSM" and gsm.n_units == 60 and gsm.n_langs == 3,
+          f"gsm.mdl: {type(gsm).__name__}, {gsm.n_units} units, {gsm.n_langs} languages")
+    check(load_model(out / "final.mdl").log_exit is not None, "no transition write-back")
+
+    gsm_secs = [b - a for a, b in gsm_calls]
+    ends = [b for _, b in gsm_calls]
+    outer_secs = [b - a for a, b in zip(ends, ends[1:])]
+    print(f"phase 21 map-reduce and shmm: {card} | map-reduce on phase 19's init.mdl, frames "
+          f"{frames:.0f}: 4 shards in this process and 2 concurrent processes vs one vb_step: "
+          + json.dumps({k: {"rel": float(f"{v[0]:.3g}"), "elbo_gap": float(f"{v[1]:.3g}")}
+                       for k, v in mr.items()})
+          + f" | gsm elbo by outer iteration {values} | gsm steps {SHMM_INNER} an outer iteration, "
+          f"{', '.join(f'{s:.3f}' for s in gsm_secs)} s ({SHMM_INNER / np.mean(gsm_secs):.0f} "
+          f"steps/s) | outer iteration (write-back, 3 x 3 loop VB steps, statistics, GSM steps) "
+          f"{', '.join(f'{s:.3f}' for s in outer_secs)} s | C eval: {score} | seconds "
+          + json.dumps({k: round(v, 3) for k, v in secs.items()})
+          + " | launches " + json.dumps(launches)
+          + " | tol: map-reduce 2e-4 of each array's max, ELBO 1e-5/frame; GSM ELBO finite, rising")
+    total = {k: 0 for k in SHMM_KERNELS}
+    for v in launches.values():
+        for k, n in v.items():
+            total[k] += n
+    return total
 
 
 def main() -> int:
@@ -2546,8 +2992,10 @@ def main() -> int:
         kernels["viterbi_fwd_banded"].setdefault("instances", {})[f"{row['placement']}_{tag}"] = row
     for tag, row in back_rows.items():
         kernels["viterbi_backtrace_banded"].setdefault("instances", {})[f"{row['placement']}_{tag}"] = row
-    for k, n in phase_cli(dev, card).items():
-        launches[k] = launches.get(k, 0) + n
+    with tempfile.TemporaryDirectory(prefix="beer_cli_") as tmp:
+        for phase in (phase_cli, phase_supervised, phase_mapreduce_shmm):
+            for k, n in phase(dev, card, tmp).items():
+                launches[k] = launches.get(k, 0) + n
     rows = [dict(name=k, route="cuda", source=cuda_scan.KERNELS[k].source,
                  replaces=REPLACES[k], launches=launches[k], **{"library_ms": None, **v})
             for k, v in kernels.items()]

@@ -7,7 +7,9 @@ decode``, driven through ``beer_tpu_torch.cli.main.main`` with
 The JAX pipeline runs once per module on ``tests/test_cli.py``'s
 miniature data (4 tone utterances of 0.75 s, fbank with 10 filters, 4
 units × 2 states), with the JAX package's CPU settings of
-``tests/conftest.py``.
+``tests/conftest.py``.  For every verb of the CLI (the supervised, map-reduce
+and ``shmm`` verbs have their own files) this file also holds the device
+rule, the imports and the verbs' arguments against ``beer_tpu.cli``.
 
 Tolerances (float32 on both sides):
 * features: log-mel within 1e-3 absolute wherever the mel energy is
@@ -260,19 +262,31 @@ def test_nan_guard_names_the_step(jax_run, tmp_path, extra):
     assert not (tmp_path / "guard" / "epoch0001.mdl").exists()
 
 
-@pytest.mark.parametrize("verb", ["features", "mkphoneloop", "train", "decode"])
+VERBS = {
+    "features": ["features", "extract", "{r}/features.yml", "{r}/manifest.json", "{out}.npz"],
+    "mkphoneloop": ["hmm", "mkphoneloop", "{r}/hmm.yml", "{r}/feats.npz", "{out}.mdl"],
+    "train": ["hmm", "train", "{r}/init.mdl", "{r}/feats.npz", "{out}"],
+    "decode": ["hmm", "decode", "{r}/exp/final.mdl", "{r}/feats.npz", "{out}.txt"],
+    "mkphones": ["hmm", "mkphones", "{r}/phones.yml", "{r}/feats.npz", "{r}/train.trans",
+                 "{out}.mdl"],
+    "train_transcriptions": ["hmm", "train", "{r}/em.mdl", "{r}/feats.npz", "{out}",
+                             "--transcriptions", "{r}/train.trans"],
+    "decode_phone_lm": ["hmm", "decode", "{r}/em.mdl", "{r}/feats.npz", "{out}.txt",
+                        "--phone-lm", "--lm-transcriptions", "{r}/train.trans"],
+    "align": ["hmm", "align", "{r}/em.mdl", "{r}/feats.npz", "{r}/train.trans", "{out}.txt"],
+    "accumulate": ["hmm", "accumulate", "{r}/init.mdl", "{r}/feats.npz", "{out}.acc"],
+    "update": ["hmm", "update", "{r}/init.mdl", "{out}.mdl", "{r}/shard1.acc"],
+    "shmm": ["shmm", "train", "{r}/exp/final.mdl", "{r}/feats.npz", "{out}"],
+}
+
+
+@pytest.mark.parametrize("verb", list(VERBS))
 def test_computing_verbs_need_a_card_or_cpu(jax_run, tmp_path, monkeypatch, verb):
     """No ``--device``: each verb that computes builds on the CUDA card,
-    and raises where there is none (no fallback to the CPU)."""
+    and raises where there is none (no fallback to the CPU), before it
+    writes anything."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    r, out = str(jax_run), str(tmp_path / "out")
-    argv = {
-        "features": ["features", "extract", r + "/features.yml", r + "/manifest.json",
-                     out + ".npz"],
-        "mkphoneloop": ["hmm", "mkphoneloop", r + "/hmm.yml", r + "/feats.npz", out + ".mdl"],
-        "train": ["hmm", "train", r + "/init.mdl", r + "/feats.npz", out],
-        "decode": ["hmm", "decode", r + "/exp/final.mdl", r + "/feats.npz", out + ".txt"],
-    }[verb]
+    argv = [a.format(r=jax_run, out=tmp_path / "out") for a in VERBS[verb]]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli(argv)
     assert not list(tmp_path.iterdir())
@@ -286,27 +300,35 @@ def test_train_refuses_several_cards_without_single_device(jax_run, tmp_path, mo
         cli(argv)
 
 
-@pytest.mark.parametrize("argv", [
-    ["hmm", "mkphones", "conf.yml", "feats.npz", "trans", "out.mdl"],
-    ["hmm", "align", "m.mdl", "feats.npz", "trans", "ali.txt"],
-    ["hmm", "accumulate", "m.mdl", "feats.npz", "acc.pt"],
-    ["hmm", "update", "m.mdl", "acc.pt", "out.mdl"],
-    ["shmm", "train", "m.mdl", "feats.npz", "exp"],
-    ["hmm", "train", "m.mdl", "feats.npz", "exp", "--transcriptions", "t.txt"],
-    ["hmm", "decode", "m.mdl", "feats.npz", "out.txt", "--phone-lm"],
-])
-def test_verbs_not_ported_say_so(argv):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli(argv)
+def test_groups_are_the_jax_packages():
+    """The port's CLI has every group and verb of ``beer_tpu.cli``, in its
+    order, and each verb takes the JAX verb's arguments."""
+    import argparse
+    import importlib
+
+    jax_main = importlib.import_module("beer_tpu.cli.main")
+    port_main = importlib.import_module("beer_tpu_torch.cli.main")
+    assert port_main.GROUPS == jax_main.GROUPS
+    assert list(port_main.GROUPS) == list(jax_main.GROUPS)
+    for group, cmds in jax_main.GROUPS.items():
+        for cmd in cmds:
+            parsers = []
+            for package in ("beer_tpu", "beer_tpu_torch"):
+                parser = argparse.ArgumentParser()
+                importlib.import_module(f"{package}.cli.subcommands.{group}_{cmd}").setup(parser)
+                parsers.append({(a.dest, tuple(a.option_strings), a.nargs, repr(a.default))
+                                for a in parser._actions})
+            assert parsers[1] == parsers[0], (group, cmd)
 
 
 def test_cli_module_loads_no_jax():
-    """``python -m beer_tpu_torch.cli`` runs; the CLI, io, features and
-    utils import neither JAX nor beer_tpu."""
+    """``python -m beer_tpu_torch.cli`` runs; the CLI with every verb, io,
+    features and utils import neither JAX nor beer_tpu."""
     help_out = subprocess.run([sys.executable, "-m", "beer_tpu_torch.cli", "hmm", "--help"],
                               capture_output=True, text=True, timeout=120)
     assert help_out.returncode == 0, help_out.stderr
-    assert re.search(r"mkphoneloop.*train.*decode", help_out.stdout.replace("\n", " "))
+    assert re.search(r"mkphones.*mkphoneloop.*align.*train.*decode.*accumulate.*update",
+                     help_out.stdout.replace("\n", " "))
     code = ("import sys, importlib, beer_tpu_torch.io, beer_tpu_torch.features, "
             "beer_tpu_torch.utils; m = importlib.import_module('beer_tpu_torch.cli.main'); "
             "[importlib.import_module(f'beer_tpu_torch.cli.subcommands.{g}_{c}') "

@@ -1720,3 +1720,127 @@ def test_general_kernels_at_the_parents_limits(device, kernel, s):
     for name, x, y in (("w_sums", got[2], want[2]), ("post_norm", got[3], want[3])):
         _valid_close(x, y, mask, 1e-5 * float((y * mask).max().clamp_min(1.0)), name)
     _smoothing_contract(got, mask)
+
+
+# ----------------------------------------------------------------------
+# The CLI's verbs on the card (the supervised recipe, map-reduce)
+# ----------------------------------------------------------------------
+def _cli_corpus(root, n_utts=12, dim=13, seed=0):
+    """A labelled corpus of 3 phones (a Gaussian cluster each, 8–20
+    frames a phone) as ``feats.npz``, ``train.trans`` and a mkphones
+    config of 3 states × 2 components a phone."""
+    rng = np.random.default_rng(seed)
+    centres = {p: rng.normal(scale=3.0, size=dim) for p in "abc"}
+    feats, lines = {}, []
+    for i in range(n_utts):
+        seq = list(rng.choice(list("abc"), size=int(rng.integers(2, 6))))
+        feats[f"utt{i:02d}"] = np.concatenate([
+            centres[p] + rng.normal(size=(int(rng.integers(8, 21)), dim)) for p in seq
+        ]).astype(np.float32)
+        lines.append(f"utt{i:02d} {' '.join(seq)}")
+    np.savez(root / "feats.npz", **feats)
+    (root / "train.trans").write_text("\n".join(lines) + "\n")
+    (root / "phones.yml").write_text("states_per_phone: 3\nncomp_per_state: 2\n")
+    (root / "hmm.yml").write_text("n_units: 4\nstates_per_unit: 3\n")
+    return root
+
+
+def _verb(argv):
+    from beer_tpu_torch.cli.main import main as cli
+
+    assert cli([str(a) for a in argv]) == 0, argv
+
+
+def test_cli_supervised_verbs_on_the_card(device, tmp_path):
+    """mkphones → train --transcriptions (K5 + K7) → align (K3 + K4) →
+    decode --phone-lm on the card: the ELBO per frame within 1e-4 of the
+    plain route's, the alignment equal to the plain route's, the phone-LM
+    decode (the dense Viterbi in plain torch) equal to the same verb with
+    ``--device cpu`` on every frame."""
+    import contextlib
+    import io
+    import re
+
+    from beer_tpu_torch import io as bio
+    from beer_tpu_torch.utils import load_model
+
+    r = _cli_corpus(tmp_path)
+    _verb(["hmm", "mkphones", r / "phones.yml", r / "feats.npz", r / "train.trans", r / "em.mdl"])
+    cuda_scan.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _verb(["hmm", "train", r / "em.mdl", r / "feats.npz", r / "exp", "--epochs", "3",
+               "--transcriptions", r / "train.trans"])
+    assert cuda_scan.KERNELS["forward_llh_dense"].launches == 3
+    assert cuda_scan.KERNELS["estep_gamma_dense"].launches == 3
+    got = [float(v) for v in re.findall(r"elbo/frame = (\S+)", out.getvalue())]
+
+    keys, data, mask = bio.load_padded(r / "feats.npz")
+    x, m = torch.from_numpy(data).to(device), torch.from_numpy(mask).to(device)
+    phones = ["a", "b", "c"]
+    trans = {line.split()[0]: line.split()[1:] for line in (r / "train.trans").read_text().splitlines()}
+    graphs = bt.transcription_graphs([[phones.index(p) for p in trans[k]] for k in keys], 3, 3)
+    twin = bt.HMM.create(graphs, load_model(r / "em.mdl"))
+    twin.plain_scan = True
+    plain = []
+    for _ in range(3):
+        elbo, twin = bt.vb_step(twin, x, mask=m)
+        plain.append(elbo.item() / float(mask.sum()))
+    assert max(abs(a - b) for a, b in zip(got, plain)) <= 1e-4, (got, plain)
+    assert all(np.diff(got) >= -1e-6)
+
+    cuda_scan.reset_launch_counts()
+    _verb(["hmm", "align", r / "exp" / "final.mdl", r / "feats.npz", r / "train.trans", r / "ali.txt"])
+    assert cuda_scan.KERNELS["viterbi_fwd_banded"].launches == 1
+    assert cuda_scan.KERNELS["viterbi_backtrace_banded"].launches == 1
+    hmm = bt.HMM.create(graphs, load_model(r / "exp" / "final.mdl"))
+    hmm.plain_scan = True
+    with torch.no_grad():
+        paths, _ = hmm.decode(x, m)
+    want = (torch.gather(graphs.pdf_ids, 1, paths.long()) // 3).cpu().numpy()
+    for i, line in enumerate((r / "ali.txt").read_text().splitlines()):
+        labels = [phones.index(p) for p in line.split()[1:]]
+        assert labels == list(want[i, :int(mask[i].sum())]), keys[i]
+
+    for dev in ("cuda", "cpu"):
+        _verb(["hmm", "decode", r / "exp" / "final.mdl", r / "feats.npz", r / f"hyp_{dev}.txt",
+               "--phone-lm", "--per-frame", "--lm-transcriptions", r / "train.trans",
+               "--device", dev])
+    card, cpu = ((r / f"hyp_{d}.txt").read_text().splitlines() for d in ("cuda", "cpu"))
+    ties = sum(a != b for line_a, line_b in zip(card, cpu)
+               for a, b in zip(line_a.split(), line_b.split()))
+    assert ties == 0 and card == cpu
+
+
+def test_cli_map_reduce_on_the_card_is_vb_step(device, tmp_path):
+    """``hmm accumulate`` over 3 shards and ``hmm update`` on the card
+    (K1 + K2) equal one full-batch ``vb_step`` on the card: every array
+    within 2e-4 of its largest entry, the reduced ELBO within 1e-5 a
+    frame."""
+    import contextlib
+    import io
+    import re
+
+    from beer_tpu_torch import io as bio
+    from beer_tpu_torch.utils import load_model
+
+    r = _cli_corpus(tmp_path)
+    _verb(["hmm", "mkphoneloop", r / "hmm.yml", r / "feats.npz", r / "init.mdl"])
+    cuda_scan.reset_launch_counts()
+    for i in (1, 2, 3):
+        _verb(["hmm", "accumulate", r / "init.mdl", r / "feats.npz", r / f"s{i}.acc",
+               "--shard", f"{i}/3", "--batch-size", "2"])
+    assert cuda_scan.KERNELS["forward_llh_banded"].launches == 6
+    assert cuda_scan.KERNELS["estep_acc_banded"].launches == 6
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _verb(["hmm", "update", r / "init.mdl", r / "mr.mdl", r / "s1.acc", r / "s2.acc",
+               r / "s3.acc"])
+    reduced = float(re.search(r"elbo/frame = (\S+)", out.getvalue()).group(1))
+    _, data, mask = bio.load_padded(r / "feats.npz")
+    x, m = torch.from_numpy(data).to(device), torch.from_numpy(mask).to(device)
+    elbo, full = bt.vb_step(load_model(r / "init.mdl"), x, mask=m)
+    assert abs(reduced - elbo.item() / float(mask.sum())) <= 1e-5
+    for (name, a), (_, b) in zip(load_model(r / "mr.mdl").state_dict().items(),
+                                 full.state_dict().items()):
+        assert _rel(a, b) <= 2e-4, name
