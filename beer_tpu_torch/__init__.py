@@ -31,13 +31,21 @@ train``, ``hmm decode``) with what it stands on: the feature frontend
 (:mod:`beer_tpu_torch.io`), checkpoints, configs, guards, metrics and
 profiling hooks (:mod:`beer_tpu_torch.utils`), and the Gamma
 hyper-prior on the unit prior's concentration
-(:class:`SBCategoricalHyperPrior`).
+(:class:`SBCategoricalHyperPrior`); and since then the rest of the
+model zoo in plain torch: PPCA and PLDA (bench configs 7 and 8), the
+isotropic and tied ("shared_*") covariance types of :class:`NormalSet`
+with the Wishart and joint priors behind them, :class:`JointModelSet`
+and :class:`RepeatedModelSet`, mean-field coordinate VB
+(:func:`vb_step_coordinate`, :func:`vb_update_partial`), and the
+log-domain and associative-scan forward recursions of
+:mod:`beer_tpu_torch.ops.semiring_scan`.
 
 Entry points that build a model or a graph (the ``*_from_numpy``
 converters, ``Graph.compile``, ``transcription_graphs``,
 ``Categorical.create``, ``SBCategorical.create``,
 ``SBCategoricalHyperPrior.create``, ``GSM.create``,
-``HierarchicalGSM.create``, ``utils.load_model`` and the CLI's verbs
+``HierarchicalGSM.create``, ``PPCA.create``, ``PLDA.create``,
+``utils.load_model`` and the CLI's verbs
 without ``--device``) build on the CUDA card
 unless they are given ``device="cpu"``; with no card and no device they
 raise.  Models made from a NormalSet follow its device.
@@ -61,6 +69,8 @@ from beer_tpu_torch.convert import (  # noqa: E402
     normal_from_numpy,
     normal_set_from_numpy,
     phone_loop_from_numpy,
+    plda_from_numpy,
+    ppca_from_numpy,
     vae_from_numpy,
 )
 from beer_tpu_torch.models import *  # noqa: E402,F401,F403
@@ -71,6 +81,8 @@ from beer_tpu_torch.vbi import (  # noqa: E402
     elbo_and_stats,
     evidence_lower_bound,
     vb_step,
+    vb_step_coordinate,
+    vb_update_partial,
 )
 
 __version__ = "0.1.0"
@@ -85,9 +97,13 @@ __all__ = [
     "normal_set_from_numpy",
     "normal_from_numpy",
     "vae_from_numpy",
+    "ppca_from_numpy",
+    "plda_from_numpy",
     "Model",
     "DiscreteLatentModel",
     "ModelSet",
+    "JointModelSet",
+    "RepeatedModelSet",
     "BayesianParameter",
     "Normal",
     "NormalSet",
@@ -106,6 +122,8 @@ __all__ = [
     "Mixture",
     "MixtureSet",
     "PhoneLoop",
+    "PPCA",
+    "PLDA",
     "VAE",
     "SequenceVAE",
     "make_vae_train_step",
@@ -124,4 +142,6 @@ __all__ = [
     "elbo_and_stats",
     "evidence_lower_bound",
     "vb_step",
+    "vb_step_coordinate",
+    "vb_update_partial",
 ]

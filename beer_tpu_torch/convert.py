@@ -15,6 +15,10 @@ inverse of the model's ``to_numpy()``.
 * NormalSet (:func:`normal_set_from_numpy`): ``type`` "NormalSet",
   ``prior`` / ``posterior`` (K, 4D) NormalGamma natural parameters for
   ``cov_type`` "diagonal", (K, D²+D+2) NormalWishart ones for "full",
+  (K, D+3) IsotropicNormalGamma ones for "isotropic", and for the tied
+  types one joint prior (P,): JointNormalWishart for "shared_full" (or
+  "shared"), JointNormalGamma for "shared_diagonal",
+  JointIsotropicNormalGamma for "shared_isotropic" (K is read off P);
   ``dim``, ``cov_type``.
 * MixtureSet (:func:`mixture_set_from_numpy`): ``type`` "MixtureSet",
   ``weights_prior`` / ``weights_posterior`` (S, K) Dirichlet natural
@@ -30,6 +34,15 @@ inverse of the model's ``to_numpy()``.
   (S, S), or None for fixed transitions.
 * Normal (:func:`normal_from_numpy`): a NormalSet dict of one component
   with ``type`` "Normal".
+* JointModelSet / RepeatedModelSet (:func:`modelset_from_numpy`):
+  ``type``, and ``modelsets`` (a list of modelset dicts) or ``modelset``
+  (one) with ``repeats``.
+* PPCA (:func:`ppca_from_numpy`): ``w_mean`` (D, Q), ``w_cov`` (Q, Q),
+  ``mean`` (D,), ``prec_prior`` / ``prec_posterior`` (2,) Gamma natural
+  parameters of the noise precision.
+* PLDA (:func:`plda_from_numpy`): ``f_mean`` (D, Q), ``f_cov`` (D, Q, Q),
+  ``mean`` (D,), ``prec_prior`` / ``prec_posterior`` (D, 2) Gamma natural
+  parameters of the per-dimension noise precisions.
 * VAE / SequenceVAE (:func:`vae_from_numpy`): ``type`` ("VAE" or
   "SequenceVAE"), ``encoder`` / ``decoder`` / optional ``flow``, each the
   JAX package's flax parameter tree ``{"params": {"MLP_0" or "ResMLP_0":
@@ -68,9 +81,12 @@ from beer_tpu_torch.models.gsm import GSM, HierarchicalGSM
 from beer_tpu_torch.models.hmm import HMM
 from beer_tpu_torch import nnet
 from beer_tpu_torch.models.mixture import Mixture, MixtureSet
-from beer_tpu_torch.models.normal import FAMILIES, Normal, NormalSet
+from beer_tpu_torch.models.modelset import JointModelSet, RepeatedModelSet
+from beer_tpu_torch.models.normal import SHARED, Normal, NormalSet, canonical_cov_type, family
 from beer_tpu_torch.models.parameters import BayesianParameter
 from beer_tpu_torch.models.phoneloop import PhoneLoop
+from beer_tpu_torch.models.plda import PLDA
+from beer_tpu_torch.models.ppca import PPCA
 from beer_tpu_torch.models.vae import Encoder, SequenceVAE, VAE
 from beer_tpu_torch.nnet import flows as nnet_flows
 
@@ -80,17 +96,29 @@ def _tensor(x, dtype=None, device=None) -> torch.Tensor:
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+def _shared_ncomp(cov_type: str, p: int, dim: int) -> int:
+    """K of a "shared_*" set from its joint prior's width P."""
+    if cov_type == "shared_full":
+        k, rest = divmod(p - dim * dim - 1, dim + 1)
+    elif cov_type == "shared_diagonal":
+        k, rest = divmod(p - 2 * dim, 2 * dim)
+    else:
+        k, rest = divmod(p - 2, dim + 1)
+    if rest or k < 1:
+        raise ValueError(f"modelset parameters have width {p}, which no {cov_type!r} set "
+                         f"at dim={dim} has")
+    return k
+
+
 def _normal_set(prior, posterior, dim, cov_type, dtype, device, cls=NormalSet) -> NormalSet:
-    if cov_type not in FAMILIES:
-        raise NotImplementedError(
-            f"cov_type={cov_type!r} is not ported: the isotropic and shared covariance "
-            "types are still to come")
-    fam = FAMILIES[cov_type](dim=dim)
+    cov_type = canonical_cov_type(cov_type)
     prior = _tensor(prior, dtype, device)
-    k, p = prior.shape
-    if p != fam.nat_dim:
-        raise ValueError(f"modelset parameters have width {p}, expected {fam.nat_dim} for "
-                         f"cov_type={cov_type!r} at dim={dim}")
+    p = prior.shape[-1]
+    k = _shared_ncomp(cov_type, p, dim) if cov_type in SHARED else prior.shape[0]
+    fam = family(cov_type, dim, k)
+    if p != fam.nat_dim or prior.ndim != (1 if cov_type in SHARED else 2):
+        raise ValueError(f"modelset parameters have shape {tuple(prior.shape)}, expected "
+                         f"width {fam.nat_dim} for cov_type={cov_type!r} at dim={dim}")
     return cls(BayesianParameter(prior, _tensor(posterior, dtype, device), fam),
                cov_type=cov_type, ncomp=k, dim=dim)
 
@@ -124,8 +152,8 @@ def phone_loop_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> PhoneLo
 
 
 def normal_set_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> NormalSet:
-    """A diagonal or full-covariance NormalSet on ``device`` (default: the
-    CUDA card)."""
+    """A NormalSet of any covariance type on ``device`` (default: the CUDA
+    card)."""
     device = resolve_device(device)
     return _normal_set(d["prior"], d["posterior"], int(d["dim"]), d["cov_type"], dtype, device)
 
@@ -163,9 +191,14 @@ def mixture_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> Mixture:
 
 
 def modelset_from_numpy(d: Dict[str, Any], device=None, dtype=None):
-    """A NormalSet, MixtureSet or Mixture, by the dict's ``type``."""
+    """A NormalSet, MixtureSet, Mixture, JointModelSet or RepeatedModelSet,
+    by the dict's ``type``."""
     builders = {"NormalSet": normal_set_from_numpy, "MixtureSet": mixture_set_from_numpy,
-                "Mixture": mixture_from_numpy}
+                "Mixture": mixture_from_numpy,
+                "JointModelSet": lambda d, device, dtype: JointModelSet.create(
+                    [modelset_from_numpy(m, device, dtype) for m in d["modelsets"]]),
+                "RepeatedModelSet": lambda d, device, dtype: RepeatedModelSet.create(
+                    modelset_from_numpy(d["modelset"], device, dtype), int(d["repeats"]))}
     if d["type"] not in builders:
         raise ValueError(f"unknown modelset type {d['type']!r}")
     return builders[d["type"]](d, device, dtype)
@@ -184,6 +217,25 @@ def hmm_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> HMM:
                           int(d["n_pdfs"]), bool(d.get("l2r_banded", False)))
     return HMM(graph, modelset_from_numpy(d["modelset"], device, dtype),
                t(d.get("trans_alpha_prior")), t(d.get("trans_alpha_post")))
+
+
+def _subspace_model(cls, d: Dict[str, Any], keys, device, dtype):
+    device = resolve_device(device)
+    t = lambda k: _tensor(d[k], dtype, device)  # noqa: E731
+    prec = BayesianParameter(t("prec_prior"), t("prec_posterior"), dists.Gamma())
+    return cls(*(t(k) for k in keys), prec)
+
+
+def ppca_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> PPCA:
+    """A PPCA on ``device`` (default: the CUDA card) in ``dtype`` (default:
+    the arrays' own floating type)."""
+    return _subspace_model(PPCA, d, ("w_mean", "w_cov", "mean"), device, dtype)
+
+
+def plda_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> PLDA:
+    """A PLDA on ``device`` (default: the CUDA card) in ``dtype`` (default:
+    the arrays' own floating type)."""
+    return _subspace_model(PLDA, d, ("f_mean", "f_cov", "mean"), device, dtype)
 
 
 def gsm_from_numpy(d: Dict[str, Any], device=None, dtype=None) -> GSM:

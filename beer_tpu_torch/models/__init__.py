@@ -24,16 +24,20 @@ from beer_tpu_torch.models.gsm import (
 )
 from beer_tpu_torch.models.hmm import HMM
 from beer_tpu_torch.models.mixture import Mixture, MixtureSet
-from beer_tpu_torch.models.modelset import ModelSet
+from beer_tpu_torch.models.modelset import JointModelSet, ModelSet, RepeatedModelSet
 from beer_tpu_torch.models.normal import Normal, NormalSet
 from beer_tpu_torch.models.parameters import BayesianParameter
 from beer_tpu_torch.models.phoneloop import PhoneLoop
+from beer_tpu_torch.models.plda import PLDA
+from beer_tpu_torch.models.ppca import PPCA
 from beer_tpu_torch.models.vae import VAE, SequenceVAE, make_vae_train_step
 
 __all__ = [
     "Model",
     "DiscreteLatentModel",
     "ModelSet",
+    "JointModelSet",
+    "RepeatedModelSet",
     "BayesianParameter",
     "Normal",
     "NormalSet",
@@ -52,6 +56,8 @@ __all__ = [
     "Mixture",
     "MixtureSet",
     "PhoneLoop",
+    "PPCA",
+    "PLDA",
     "VAE",
     "SequenceVAE",
     "make_vae_train_step",

@@ -48,6 +48,13 @@ class Model(nn.Module):
         """Apply the conjugate natural-parameter step in place; returns ``self``."""
         raise NotImplementedError
 
+    def mean_field_factorization(self):
+        """Groups of field names updated jointly (reference API): by
+        default one group of every child module and buffer, which is what
+        ``vb_update`` updates at once."""
+        return [[name for name, _ in self.named_children()]
+                + [name for name, _ in self.named_buffers(recurse=False)]]
+
 
 class DiscreteLatentModel(Model):
     """Models with a discrete latent (mixtures, HMMs): adds ``posteriors``."""

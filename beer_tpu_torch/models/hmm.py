@@ -265,6 +265,13 @@ class HMM(DiscreteLatentModel):
             post.copy_(post + lrate * (self.trans_alpha_prior + counts - post))
         return self
 
+    def mean_field_factorization(self):
+        """Coordinate-ascent groups: emissions, then the transitions when
+        they are learned — the reference's q(θ_emis)·q(A) factorization."""
+        if self.trans_alpha_post is None:
+            return [["modelset"]]
+        return [["modelset"], ["trans_alpha_post"]]
+
     # ------------------------------------------------------------------
     def posteriors(self, data: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Per-frame state occupancies γ (B, T, S), 0 on padded frames:

@@ -13,13 +13,17 @@ the transitions each E-step as exp(E[log π]):
 
 Unit u owns states and pdfs [u·P, (u+1)·P).
 
-Routes.  :meth:`PhoneLoop.infer` / :meth:`PhoneLoop.accumulate` always
-take the fused E-step (diagonal emissions, any state count, any device):
+Routes.  :meth:`PhoneLoop.infer` / :meth:`PhoneLoop.accumulate` take
+the fused E-step for a diagonal :class:`NormalSet` (any state count, any
+device):
 a scaled banded forward with the ELLH computed from the reduced stats,
 then an accumulating backward pass that reduces γ to the emission
 moments, the first-frame posteriors and the loop-back ξ — through the
 CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor, or
-the plain versions on any device when ``plain_scan`` is set.
+the plain versions on any device when ``plain_scan`` is set.  Any other
+emissions (per-state GMMs, the other covariance types) have no affine
+ELLH for the fused kernels and take :meth:`PhoneLoop.smooth`, as the JAX
+package routes them.
 :meth:`PhoneLoop.smooth` is the general path with materialized
 posteriors (the subspace-HMM statistics bridge
 :func:`beer_tpu_torch.models.gsm.accumulate_unit_stats`, tests): the
@@ -46,6 +50,7 @@ from beer_tpu_torch.models.basemodel import DiscreteLatentModel
 from beer_tpu_torch.models.categorical import SBCategorical
 from beer_tpu_torch.models.graph import LOG_ZERO, CompiledGraph
 from beer_tpu_torch.models.mixture import MixtureSet
+from beer_tpu_torch.models.normal import NormalSet
 from beer_tpu_torch.ops import semiring_scan
 
 
@@ -181,9 +186,10 @@ class PhoneLoop(DiscreteLatentModel):
 
         Differentiable with respect to ``stats`` when they require grad
         (the cache then holds the detached γ, γ0 and ``xi_raw``).
-        Emissions other than a diagonal NormalSet (per-state GMMs) have no
-        ELLH matrix for the fused kernels and take :meth:`smooth`."""
-        if isinstance(self.modelset, MixtureSet):
+        Emissions other than a diagonal NormalSet (per-state GMMs, the
+        other covariance types) have no ELLH matrix for the fused kernels
+        and take :meth:`smooth`."""
+        if not (type(self.modelset) is NormalSet and self.modelset.cov_type == "diagonal"):
             return self.smooth(stats, mask)
         stats = stats.contiguous()
         ops = self.scan_operands(stats, mask)
@@ -253,6 +259,11 @@ class PhoneLoop(DiscreteLatentModel):
         self.modelset.vb_update(acc["modelset"], lrate)
         self.unit_prior.vb_update(acc["unit_prior"], lrate)
         return self
+
+    def mean_field_factorization(self):
+        """Coordinate-ascent groups: emissions, then the unit prior — the
+        q(θ_emis)·q(π) mean-field split of the AUD papers."""
+        return [["modelset"], ["unit_prior"]]
 
     # ------------------------------------------------------------------
     def decode(self, data: torch.Tensor, mask: Optional[torch.Tensor] = None):

@@ -27,6 +27,11 @@ phone-loop and HMM slices need:
   (:mod:`beer_tpu_torch.ops.cuda_scan`) on CUDA tensors and its plain
   PyTorch version on CPU tensors; ``plain=True`` asks for the plain
   version on any device (the on-card reference route);
+* the log-carry recursions :func:`forward` and :func:`backward` (the
+  readable reference of the scaled passes) and :func:`forward_assoc`,
+  log α as a scan of (S, S) log-semiring operators: sequential over
+  blocks of ``chunk`` frames, a log-depth tree of products within each
+  block.  Plain torch on every device; no ported path calls them;
 * the differentiable log Z of both fused routes, :class:`PhoneLoopLogZ`
   (K1 + K11) and :class:`HMMLogZ` (K5 + K7): ``torch.autograd.Function`` classes
   whose backward is the Fisher identity ∂log Z/∂llh = γ, the
@@ -40,6 +45,7 @@ frames.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -345,6 +351,114 @@ def expected_transition_counts(
     denom = torch.einsum(spec, u, trans_prob, w)
     weight = torch.where(denom > 1e-30, mask[:, 1:] / denom.clamp_min(1e-30), 0.0)
     return _xi_outer(u, w, weight, trans_prob, rows, cols)
+
+
+def _log_matvec(carry: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """log(exp(carry) @ trans) per row, shifted by the row maximum, for
+    (S, S) or per-utterance (B, S, S) probabilities ``trans``."""
+    shift = carry.max(-1, keepdim=True).values
+    scaled = torch.exp(carry - shift)
+    prod = (torch.einsum("bs,bst->bt", scaled, trans) if trans.ndim == 3
+            else scaled @ trans)
+    return shift + torch.log(prod.clamp_min(torch.finfo(carry.dtype).tiny))
+
+
+def forward(llh, log_trans, log_init, mask=None):
+    """Batched forward recursion with a log-domain carry: (log α (B, T, S),
+    the final carry (B, S)).  Padded steps pass the carry through, so the
+    final carry is each sequence's log α at its last frame."""
+    b, t_len, s = llh.shape
+    if mask is None:
+        mask = llh.new_ones(b, t_len)
+    trans = torch.exp(log_trans)
+    carry = _clamp(log_init + llh[:, 0]) * mask[:, :1]
+    alphas = [carry]
+    for t in range(1, t_len):
+        m_t = mask[:, t, None]
+        new = _clamp(llh[:, t] + _log_matvec(carry, trans))
+        carry = m_t * new + (1 - m_t) * carry
+        alphas.append(carry)
+    return torch.stack(alphas, dim=1), carry
+
+
+def backward(llh, log_trans, log_final, mask=None):
+    """Batched backward recursion with a log-domain carry; log β (B, T, S).
+    Padded frames carry the final vector back unchanged, so β at each
+    sequence's last frame is ``log_final``."""
+    b, t_len, s = llh.shape
+    if mask is None:
+        mask = llh.new_ones(b, t_len)
+    trans_t = torch.exp(log_trans).transpose(-1, -2)
+    carry = _clamp(log_final).expand(b, s).to(llh.dtype)
+    betas = [carry]
+    for t in range(t_len - 1, 0, -1):
+        m_t = mask[:, t, None]
+        new = _clamp(_log_matvec(_clamp(llh[:, t] + carry), trans_t))
+        carry = m_t * new + (1 - m_t) * carry
+        betas.append(carry)
+    return torch.stack(betas[::-1], dim=1)
+
+
+def _semiring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(logsumexp, +) product of batched (..., S, S) log-matrices."""
+    a_shift = a.max(-1, keepdim=True).values     # rows of a
+    b_shift = b.max(-2, keepdim=True).values     # columns of b
+    prod = torch.exp(a - a_shift) @ torch.exp(b - b_shift)
+    return _clamp(a_shift + b_shift + torch.log(prod.clamp_min(1e-37)))
+
+
+def _prefix_products(ops: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products along axis 1 of (B, C, S, S) operators,
+    ops_0 ⊗ … ⊗ ops_t, in ⌈log2 C⌉ rounds of products (recursive
+    doubling)."""
+    off = 1
+    while off < ops.shape[1]:
+        ops = torch.cat([ops[:, :off], _semiring_matmul(ops[:, :-off], ops[:, off:])], dim=1)
+        off *= 2
+    return ops
+
+
+def forward_assoc(llh, log_trans, log_init, mask=None, chunk: Optional[int] = None):
+    """log α via prefix products of transition operators (log depth in T).
+
+    The operator of step t > 0 is M_t[i, j] = log A[i, j] + llh[t, j]
+    (the identity on padded steps); the t = 0 operator holds α_0 in every
+    row, so row 0 of the prefix product ending at t is α_t.  ``chunk=None``
+    holds (B, T, S, S) operators at once; ``chunk=C`` bounds them at (B,
+    C, S, S): blocks of C frames run one after the other, each a
+    log-depth product tree applied to the carry of the block before.
+    Returns (log α (B, T, S), log α at each sequence's last frame (B, S))."""
+    b, t_len, s = llh.shape
+    if mask is None:
+        mask = llh.new_ones(b, t_len)
+    eye = torch.full((s, s), _NEG_INF, dtype=llh.dtype, device=llh.device)
+    eye.fill_diagonal_(0.0)
+    alpha0 = _clamp(log_init + llh[:, 0])
+
+    def operators(llh_b, m_b):
+        ops = log_trans + llh_b[:, :, None, :]
+        return torch.where(m_b[:, :, None, None] > 0, ops, eye)
+
+    if chunk is None or chunk >= t_len:
+        ops = operators(llh, mask)
+        ops[:, 0] = alpha0[:, None, :].expand(b, s, s)
+        log_alpha = _prefix_products(ops)[:, :, 0, :]
+    else:
+        # the first block's t = 0 operator holds α_0 in every row and the
+        # carry into it is −log S per state (logsumexp 0), so α_0 is exact
+        carry = llh.new_full((b, s), -math.log(s))
+        blocks = []
+        for start in range(0, t_len, chunk):
+            ops = operators(llh[:, start:start + chunk], mask[:, start:start + chunk])
+            if start == 0:
+                ops[:, 0] = alpha0[:, None, :].expand(b, s, s)
+            prefix = _prefix_products(ops)
+            alpha_b = torch.logsumexp(carry[:, None, :, None] + prefix, dim=2)
+            carry = alpha_b[:, -1]
+            blocks.append(alpha_b)
+        log_alpha = torch.cat(blocks, dim=1)
+    last = (mask.sum(1) - 1).long().clamp_min(0)
+    return log_alpha, log_alpha[torch.arange(b, device=llh.device), last]
 
 
 def viterbi(llh, log_trans, log_init, log_final, mask=None):

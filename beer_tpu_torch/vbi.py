@@ -7,6 +7,10 @@ Counterpart of ``beer_tpu/vbi.py``:
 * :func:`vb_step` — E-step + conjugate M-step, returns ``(elbo, model)``.
   The model's buffers are updated IN PLACE and the same model object is
   returned (the JAX package returns a new pytree),
+* :func:`vb_update_partial` / :func:`vb_step_coordinate` — mean-field
+  coordinate ascent over ``model.mean_field_factorization()``'s groups:
+  one E-step and one update per group, each update confined to its
+  group,
 * :func:`tree_add` — the sum of two statistics dicts (minibatches,
   map-reduce shards),
 
@@ -23,7 +27,8 @@ per-frame tolerances used to check VB-EM monotonicity.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import inspect
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,6 +36,8 @@ import torch
 def _scale(acc: Any, scale: float) -> Any:
     if isinstance(acc, dict):
         return {k: _scale(v, scale) for k, v in acc.items()}
+    if isinstance(acc, (tuple, list)):
+        return type(acc)(_scale(v, scale) for v in acc)
     return scale * acc
 
 
@@ -40,6 +47,8 @@ def tree_add(a: Any, b: Any) -> Any:
     and shard statistics are reduced before one conjugate update."""
     if isinstance(a, dict):
         return {k: tree_add(a[k], b[k]) for k in a}
+    if isinstance(a, (tuple, list)):
+        return type(a)(tree_add(x, y) for x, y in zip(a, b))
     return a + b
 
 
@@ -48,14 +57,16 @@ def elbo_and_stats(
     data: torch.Tensor,
     datasize: Optional[int] = None,
     mask: Optional[torch.Tensor] = None,
+    **infer_kw,
 ) -> Tuple[torch.Tensor, Any]:
     """One VB E-step: ``(elbo, acc)``, with ``acc`` scaled by ``datasize /
-    batch_size`` for minibatch training (the reference convention)."""
+    batch_size`` for minibatch training (the reference convention).
+    ``infer_kw`` go to ``model.infer`` (PLDA's ``labels`` and
+    ``n_classes``)."""
     stats = model.sufficient_statistics(data)
-    if mask is None:
-        llh, cache = model.infer(stats)
-    else:
-        llh, cache = model.infer(stats, mask=mask)
+    if mask is not None:
+        infer_kw["mask"] = mask
+    llh, cache = model.infer(stats, **infer_kw)
     scale = 1.0 if datasize is None else datasize / llh.numel()
     elbo = scale * llh.sum(dtype=torch.float64) - model.kl_div_posterior_prior().double()
     acc = model.accumulate(stats, cache)
@@ -71,10 +82,90 @@ def vb_step(
     datasize: Optional[int] = None,
     lrate: float = 1.0,
     mask: Optional[torch.Tensor] = None,
+    **infer_kw,
 ):
     """E-step + conjugate M-step (in place); returns ``(elbo, model)``."""
-    elbo, acc = elbo_and_stats(model, data, datasize, mask)
+    elbo, acc = elbo_and_stats(model, data, datasize, mask, **infer_kw)
     return elbo, model.vb_update(acc, lrate)
+
+
+def _field_tensors(module: torch.nn.Module, name: str):
+    """(owner, key) of every buffer and parameter that field ``name``
+    of ``module`` holds: the field itself when it is a buffer or a
+    parameter, every one under it when it is a sub-module."""
+    if name in module._buffers or name in module._parameters:
+        return [(module, name)]
+    return [(owner, key) for owner in getattr(module, name).modules()
+            for key in (*owner._buffers, *owner._parameters)]
+
+
+def _snapshot(module: torch.nn.Module, paths: Sequence[str]):
+    """Copies of the state of every field of ``module`` outside ``paths``
+    (dotted paths address fields of sub-modules)."""
+    take, nested = set(), {}
+    for p in paths:
+        head, _, rest = p.partition(".")
+        if rest:
+            nested.setdefault(head, []).append(rest)
+        else:
+            take.add(p)
+    fields = [n for n, _ in module.named_children()] + [
+        n for n in (*module._buffers, *module._parameters)]
+    saved = []
+    for name in fields:
+        if name in take:
+            continue
+        if name in nested:
+            saved += _snapshot(getattr(module, name), nested[name])
+            continue
+        for owner, key in _field_tensors(module, name):
+            value = getattr(owner, key)
+            if value is not None:
+                saved.append((owner, key, value.detach().clone()))
+    return saved
+
+
+def vb_update_partial(model, acc, group: Sequence[str], lrate: float = 1.0):
+    """The conjugate update of the fields in ``group`` only, in place;
+    returns the model.
+
+    The building block of mean-field coordinate ascent over
+    ``model.mean_field_factorization()``'s groups.  A model whose
+    ``vb_update`` takes ``group=`` (PPCA, PLDA: sequential coordinate
+    updates) gets it and updates those fields only, holding the others
+    at their values inside the update.  For every other model the state
+    of each field outside the group is copied, the whole update runs, and
+    the copies are written back; that is exact, since each parameter's
+    conjugate update depends on the statistics only."""
+    if "group" in inspect.signature(model.vb_update).parameters:
+        return model.vb_update(acc, lrate, group=group)
+    saved = _snapshot(model, group)
+    model.vb_update(acc, lrate)
+    with torch.no_grad():
+        for owner, key, value in saved:
+            getattr(owner, key).copy_(value)
+    return model
+
+
+@torch.no_grad()
+def vb_step_coordinate(
+    model,
+    data: torch.Tensor,
+    datasize: Optional[int] = None,
+    lrate: float = 1.0,
+    mask: Optional[torch.Tensor] = None,
+    **infer_kw,
+):
+    """Mean-field coordinate ascent: one E-step and one update per group of
+    ``model.mean_field_factorization()``, in place.  Returns ``(elbo,
+    model)`` with the ELBO of the last group's E-step.  It can climb
+    further than :func:`vb_step` a data pass, at the cost of one E-step a
+    group."""
+    elbo = None
+    for group in model.mean_field_factorization():
+        elbo, acc = elbo_and_stats(model, data, datasize, mask, **infer_kw)
+        vb_update_partial(model, acc, group, lrate)
+    return elbo, model
 
 
 class ELBO:
@@ -97,10 +188,10 @@ class ELBO:
 
 
 def evidence_lower_bound(model, data, datasize: Optional[int] = None,
-                         mask: Optional[torch.Tensor] = None) -> ELBO:
+                         mask: Optional[torch.Tensor] = None, **infer_kw) -> ELBO:
     """Reference-compatible entry point (``beer.evidence_lower_bound``)."""
     with torch.no_grad():
-        value, acc = elbo_and_stats(model, data, datasize, mask)
+        value, acc = elbo_and_stats(model, data, datasize, mask, **infer_kw)
     return ELBO(value, acc)
 
 

@@ -24,7 +24,10 @@ operands no block's shared memory holds, with random data and weights
 from fixed seeds, then (phase 19) the AUD recipe through the port's CLI
 on the recipe's own synthetic data and configurations, then (phases 20
 and 21) the supervised recipe, map-reduce VB and the subspace-HMM recipe
-through the same CLI, in twenty-one phases, each printing one line:
+through the same CLI, then (phase 22) PPCA and PLDA at bench configs 7
+and 8, mean-field coordinate VB through the kernels and a GMM over each
+further covariance type, in twenty-two phases, each printing one line
+(phase 22 two):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the hand-written CUDA kernels from the sources in
@@ -200,7 +203,26 @@ through the same CLI, in twenty-one phases, each printing one line:
    ELBO finite, the last above the first, ``final_A.mdl``,
    ``final_B.mdl`` and ``gsm.mdl`` written, the GSM an H-SHMM of 60 units
    and 3 languages, the transitions written back; one line of each
-   verb's seconds, the outer iteration's seconds and GSM steps/s.
+   verb's seconds, the outer iteration's seconds and GSM steps/s;
+22. subspace: config 7 (PPCA, N = 262,144, D = 256, Q = 64, bench.py's
+   data recipe) and config 8 (PLDA, 512 classes × 64 embeddings, D = 256,
+   Q = 64, its labels): 10 ``vb_step``s then 10 ``vb_step_coordinate``
+   steps in float32 and one E-step after them, beside a float64 model
+   run on its own from the same start and beside the same step of a
+   float64 copy of the model as it stood (every ELBO within 1e-4 a frame
+   of both), every ELBO finite and non-decreasing to 1e-5 a frame; PLDA's ``infer``
+   twice, bitwise equal, and ``llr_score`` on 1,000 same-class and 1,000
+   different-class trials (same-class scores higher on average, over 90 %
+   of trials on the right side of the median); CUDA-event medians of one
+   joint and one coordinate step, frames/s, a ``torch.profiler`` trace of
+   one joint step (device ms, launches, busy share) and its least time;
+   then 3 ``vb_step_coordinate`` steps on config 4's loop (K1 + K2) and
+   config 2's HMM (K5 + K6) with the launch counters read around them (2
+   E-steps a step, each kernel once an E-step), ELBOs within 1e-4 a
+   frame of the plain route's; and 5 ``vb_step``s of a 64-component GMM
+   over config 1's 256,000 frames for each of the isotropic and tied
+   ("shared_*") covariance types, non-decreasing; the card's name and
+   power limit on each line.
 
 K8–K10 are timed twice in phase 9: ``ms`` is the kernel alone (the bare
 foreign call on operands packed and a launch geometry computed in
@@ -2934,6 +2956,213 @@ def phase_mapreduce_shmm(dev, card, tmp):
     return total
 
 
+# ----------------------------------------------------------------------
+# Phase 22: PPCA and PLDA (configs 7 and 8), coordinate VB, the other
+# covariance types
+# ----------------------------------------------------------------------
+PPCA_N, PPCA_D, PPCA_Q = 262144, 256, 64            # config 7 (bench.py:833)
+PLDA_C, PLDA_PER, PLDA_D, PLDA_Q = 512, 64, 256, 64  # config 8 (bench.py:834)
+SUBSPACE_STEPS = 10                                 # joint steps, then as many coordinate steps
+N_TRIALS = 1000
+COORD_STEPS = 3
+NEW_COV_TYPES = ("isotropic", "shared_diagonal", "shared_full", "shared_isotropic")
+
+
+def ppca_data():
+    """Config 7's data, bench.py's ``_ppca_data`` (seed 11): x = z Wᵀ + 0.1 ε
+    with W ~ N(0, 1/Q), z, ε ~ N(0, 1)."""
+    rng = np.random.default_rng(11)
+    w = rng.normal(size=(PPCA_D, PPCA_Q)) / np.sqrt(PPCA_Q)
+    z = rng.normal(size=(PPCA_N, PPCA_Q))
+    return (z @ w.T + 0.1 * rng.normal(size=(PPCA_N, PPCA_D))).astype(np.float32)
+
+
+def plda_data():
+    """Config 8's data and labels, bench.py's ``_plda_data`` (seed 12): 512
+    classes of 64 embeddings, x = F h_class + 0.3 ε."""
+    rng = np.random.default_rng(12)
+    f = rng.normal(size=(PLDA_D, PLDA_Q)) / np.sqrt(PLDA_Q)
+    h = rng.normal(size=(PLDA_C, PLDA_Q))
+    x = np.repeat(h, PLDA_PER, 0) @ f.T + 0.3 * rng.normal(size=(PLDA_C * PLDA_PER, PLDA_D))
+    return x.astype(np.float32), np.repeat(np.arange(PLDA_C), PLDA_PER).astype(np.int32)
+
+
+def subspace_run(model, convert, x, kw, label):
+    """``SUBSPACE_STEPS`` joint ``vb_step``s then as many
+    ``vb_step_coordinate`` steps of the float32 ``model``, beside a
+    float64 copy carried across at the start and run on its own (the free
+    twin), and each beside the same step of a float64 copy of the model
+    as it stands before the step (the synced twin: what one E-step's
+    float32 arithmetic costs).  A last E-step after the last update is
+    compared too, so every update shows in a gated ELBO.  Every ELBO
+    finite, non-decreasing to 1e-5 a frame, within 1e-4 a frame of the
+    free twin's and of the synced twin's.  Returns the per-frame ELBOs and
+    both gaps."""
+    frames = float(x.shape[0])
+    x64 = x.double()
+    free = convert(model.to_numpy(), device=x.device, dtype=torch.float64)
+    rows = []
+    for step in ([bt.vb_step] * SUBSPACE_STEPS + [bt.vb_step_coordinate] * SUBSPACE_STEPS
+                 + [bt.elbo_and_stats]):
+        synced = convert(model.to_numpy(), device=x.device, dtype=torch.float64)
+        e32 = float(step(model, x, **kw)[0])
+        e_sync = float(step(synced, x64, **kw)[0])
+        e_free = float(step(free, x64, **kw)[0])
+        rows.append((e32 / frames, (e32 - e_sync) / frames, (e32 - e_free) / frames))
+    elbos, sync, free_gap = (np.array(c) for c in zip(*rows))
+    check(bool(np.isfinite(elbos).all()), f"{label}: ELBO not finite: {elbos}")
+    check(float(np.diff(elbos).min()) >= -1e-5, f"{label}: ELBO fell: per-frame {elbos}")
+    check(float(np.abs(free_gap).max()) <= 1e-4,
+          f"{label}: float32 trajectory vs float64 twin from the same start {free_gap} per frame")
+    check(float(np.abs(sync).max()) <= 1e-4,
+          f"{label}: float32 step vs float64 copy of the model as it stood {sync} per frame")
+    return elbos, sync, free_gap
+
+
+def subspace_times(model, x, kw, card):
+    """CUDA-event medians of one joint and one coordinate step (on copies),
+    frames/s, and a ``torch.profiler`` trace of one joint step."""
+    frames = x.shape[0]
+    out = {}
+    for name, step in (("joint", bt.vb_step), ("coordinate", bt.vb_step_coordinate)):
+        mdl = copy.deepcopy(model)
+        out[f"{name}_step_ms"] = round(cuda_ms(lambda: step(mdl, x, **kw)), 3)
+        out[f"{name}_step_frames_per_s"] = round(frames / out[f"{name}_step_ms"] * 1e3)
+    mdl = copy.deepcopy(model)
+    out["joint_step_profile"] = profile_step(lambda: bt.vb_step(mdl, x, **kw))
+    out["card"] = card
+    return out
+
+
+def subspace_bound(n, d, q, c=0):
+    """The least time of one joint step (:func:`bound`): x read once; the
+    float32 products 2·N·D·Q each — PPCA's x·W̄, m·W̄ᵀ and xcᵀ·m, PLDA's
+    the same three — plus PPCA's three (N, Q)·(Q, Q) and PLDA's one-hot
+    (C, N)·(N, Q)."""
+    flops = 6.0 * n * d * q + (2.0 * c * n * q if c else 6.0 * n * q * q)
+    return bound(4.0 * n * d, flops)
+
+
+def trials(labels, rng):
+    """``N_TRIALS`` same-class and as many different-class index pairs."""
+    n_cls = int(labels.max()) + 1
+    same, diff = [], []
+    for _ in range(N_TRIALS):
+        c = rng.integers(n_cls)
+        idx = np.flatnonzero(labels == c)
+        i, j = rng.choice(idx, 2, replace=False)
+        same.append((i, j))
+        c2 = (c + 1 + rng.integers(n_cls - 1)) % n_cls
+        diff.append((i, rng.choice(np.flatnonzero(labels == c2))))
+    return np.array(same), np.array(diff)
+
+
+def coordinate_run(model, x, m, label, need):
+    """``COORD_STEPS`` ``vb_step_coordinate`` steps through the kernels
+    (launch counters read around them: each kernel of ``need`` launched
+    once an E-step, two E-steps a step) beside the plain route's: ELBOs
+    finite, non-decreasing and within 1e-4 a frame of the plain route."""
+    frames = float(m.sum())
+    plain = plain_twin(model)
+    cuda_scan.reset_launch_counts()
+    elbos = np.array([float(bt.vb_step_coordinate(model, x, mask=m)[0])
+                      for _ in range(COORD_STEPS)])
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if v.launches}
+    groups = len(model.mean_field_factorization())
+    check(all(launches.get(k, 0) == groups * COORD_STEPS for k in need),
+          f"{label}: launches {launches}, want {groups * COORD_STEPS} of each of {need}")
+    check(bool(np.isfinite(elbos).all()), f"{label}: ELBO not finite: {elbos}")
+    check(bool((np.diff(elbos) / frames >= -1e-6).all()), f"{label}: ELBO fell: {elbos}")
+    plain_elbos = np.array([float(bt.vb_step_coordinate(plain, x, mask=m)[0])
+                            for _ in range(COORD_STEPS)])
+    gap = float(np.abs(elbos - plain_elbos).max() / frames)
+    check(gap <= 1e-4, f"{label}: kernel vs plain route ELBO gap {gap} per frame")
+    timed = copy.deepcopy(model)
+    step_ms = cuda_ms(lambda: bt.vb_step_coordinate(timed, x, mask=m))
+    return dict(elbo_per_frame=[round(e / frames, 6) for e in elbos], plain_gap=gap,
+                launches=launches, coordinate_step_ms=round(step_ms, 3),
+                frames_per_s=round(frames / step_ms * 1e3))
+
+
+def phase_subspace(dev, card):
+    """Configs 7 and 8 at bench.py's shapes (float32 runs beside float64
+    twins, PLDA's trials and repeatability), the coordinate step through
+    the kernels on configs 4 and 2, and a Mixture over each covariance
+    type the port gained with them."""
+    out = {}
+    # config 7: PPCA
+    x = torch.from_numpy(ppca_data()).to(dev)
+    ppca = bt.PPCA.create(PPCA_D, PPCA_Q, device=dev, generator=torch.Generator().manual_seed(5))
+    elbos, sync, free = subspace_run(ppca, bt.ppca_from_numpy, x, {}, "config 7")
+    out["config7"] = dict(elbo_per_frame=[round(float(e), 6) for e in elbos],
+                          f32_vs_f64_synced_per_frame=[float(f"{g:.3g}") for g in sync],
+                          f32_vs_f64_free_per_frame=[float(f"{g:.3g}") for g in free],
+                          **subspace_times(ppca, x, {}, card),
+                          **subspace_bound(PPCA_N, PPCA_D, PPCA_Q))
+    del x
+    # config 8: PLDA
+    data, labels = plda_data()
+    x, y = torch.from_numpy(data).to(dev), torch.from_numpy(labels).to(dev)
+    kw = dict(labels=y, n_classes=PLDA_C)
+    plda = bt.PLDA.create(PLDA_D, PLDA_Q, device=dev, generator=torch.Generator().manual_seed(6))
+    elbos, sync, free = subspace_run(plda, bt.plda_from_numpy, x, kw, "config 8")
+    llh_a, cache_a = plda.infer(x, **kw)
+    llh_b, cache_b = plda.infer(x, **kw)
+    check(torch.equal(llh_a, llh_b) and torch.equal(cache_a["m_h"], cache_b["m_h"]),
+          "config 8: two calls of infer differ")
+    same, diff = trials(labels, np.random.default_rng(1))
+    s_same = plda.llr_score(x[same[:, 0]], x[same[:, 1]]).cpu().numpy()
+    s_diff = plda.llr_score(x[diff[:, 0]], x[diff[:, 1]]).cpu().numpy()
+    thresh = np.median(np.concatenate([s_same, s_diff]))
+    acc = 0.5 * ((s_same > thresh).mean() + (s_diff <= thresh).mean())
+    check(bool(np.isfinite(s_same).all() and np.isfinite(s_diff).all()), "config 8: scores")
+    check(float(s_same.mean()) > float(s_diff.mean()) and acc > 0.9,
+          f"config 8: same-class trials {s_same.mean()} vs different {s_diff.mean()}, "
+          f"accuracy {acc}")
+    out["config8"] = dict(elbo_per_frame=[round(float(e), 6) for e in elbos],
+                          f32_vs_f64_synced_per_frame=[float(f"{g:.3g}") for g in sync],
+                          f32_vs_f64_free_per_frame=[float(f"{g:.3g}") for g in free],
+                          llr_same_mean=round(float(s_same.mean()), 3),
+                          llr_diff_mean=round(float(s_diff.mean()), 3),
+                          trial_accuracy=float(acc), infer_bitwise_repeatable=True,
+                          **subspace_times(plda, x, kw, card),
+                          **subspace_bound(PLDA_C * PLDA_PER, PLDA_D, PLDA_Q, PLDA_C))
+    del x
+    print(f"phase 22 subspace: {card} | " + json.dumps(out))
+
+    # coordinate VB through the kernels: config 4's loop, config 2's HMM
+    data, mask = make_data(B, T, D)
+    x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    coord = {"config4": coordinate_run(config4(dev), x, m, "config 4 coordinate",
+                                       ("forward_llh_banded", "estep_acc_banded")),
+             "config2": coordinate_run(config2(dev), x, m, "config 2 coordinate",
+                                       ("forward_llh_dense", "estep_acc_dense"))}
+    launches = {}
+    for row in coord.values():
+        for k, n in row["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+
+    # a Mixture over each new covariance type at config 1's size
+    x = config1_frames(dev)
+    frames = float(x.shape[0])
+    for cov_type in NEW_COV_TYPES:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        nset = bt.NormalSet.create(torch.zeros(D, device=dev), torch.eye(D, device=dev),
+                                   size=GMM_K, cov_type=cov_type, noise_std=0.5, generator=gen)
+        gmm = bt.Mixture.create(nset)
+        elbos = np.array([float(bt.vb_step(gmm, x)[0]) for _ in range(N_STEPS)]) / frames
+        check(bool(np.isfinite(elbos).all()) and float(np.diff(elbos).min()) >= -1e-6,
+              f"{cov_type} mixture: ELBO/frame {elbos}")
+        timed = copy.deepcopy(gmm)
+        step_ms = cuda_ms(lambda: bt.vb_step(timed, x))
+        coord[cov_type] = dict(elbo_per_frame=[round(float(e), 6) for e in elbos],
+                               vb_step_ms=round(step_ms, 3),
+                               frames_per_s=round(frames / step_ms * 1e3))
+    print(f"phase 22 coordinate and covariance types: {card} | " + json.dumps(coord))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2996,6 +3225,8 @@ def main() -> int:
         for phase in (phase_cli, phase_supervised, phase_mapreduce_shmm):
             for k, n in phase(dev, card, tmp).items():
                 launches[k] = launches.get(k, 0) + n
+    for k, n in phase_subspace(dev, card).items():
+        launches[k] = launches.get(k, 0) + n
     rows = [dict(name=k, route="cuda", source=cuda_scan.KERNELS[k].source,
                  replaces=REPLACES[k], launches=launches[k], **{"library_ms": None, **v})
             for k, v in kernels.items()]

@@ -264,3 +264,28 @@ def t(x, dtype=None) -> torch.Tensor:
 def close(actual, expected, rtol, atol=0.0):
     np.testing.assert_allclose(np.asarray(actual, np.float64),
                                np.asarray(expected, np.float64), rtol=rtol, atol=atol)
+
+
+def ppca_to_numpy(model) -> dict:
+    """A ``beer_tpu`` PPCA in the dict layout of
+    :func:`beer_tpu_torch.convert.ppca_from_numpy`."""
+    return {"type": "PPCA", "w_mean": np.asarray(model.w_mean), "w_cov": np.asarray(model.w_cov),
+            "mean": np.asarray(model.mean), "prec_prior": np.asarray(model.prec.prior),
+            "prec_posterior": np.asarray(model.prec.posterior)}
+
+
+def plda_to_numpy(model) -> dict:
+    """A ``beer_tpu`` PLDA in the dict layout of
+    :func:`beer_tpu_torch.convert.plda_from_numpy`."""
+    return {"type": "PLDA", "f_mean": np.asarray(model.f_mean), "f_cov": np.asarray(model.f_cov),
+            "mean": np.asarray(model.mean), "prec_prior": np.asarray(model.prec.prior),
+            "prec_posterior": np.asarray(model.prec.posterior)}
+
+
+def subspace_to_port(jax_model, dtype=None):
+    """A ``beer_tpu`` PPCA or PLDA carried across to the port, on the CPU."""
+    from beer_tpu_torch.convert import plda_from_numpy, ppca_from_numpy
+
+    if hasattr(jax_model, "w_mean"):
+        return ppca_from_numpy(ppca_to_numpy(jax_model), device="cpu", dtype=dtype)
+    return plda_from_numpy(plda_to_numpy(jax_model), device="cpu", dtype=dtype)

@@ -72,7 +72,7 @@ def _carry(jax_mdl, out, dtype=torch.float64):
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
     """The supervised pipeline through the JAX CLI: features, mkphones
-    (diagonal and full covariance), 3 then 5 epochs of supervised
+    (diagonal, full and isotropic covariance), 3 then 5 epochs of supervised
     training (resumed), the phone-loop decodes (uniform and bigram LM,
     per frame and collapsed) and the alignments of the trained and of
     the initial emissions."""
@@ -99,6 +99,8 @@ def jax_run(tmp_path_factory):
         "states_per_phone: 2\nncomp_per_state: 1\ncov_type: diagonal\n")
     (root / "phones_full.yml").write_text(
         "states_per_phone: 2\nncomp_per_state: 2\ncov_type: full\n")
+    (root / "phones_iso.yml").write_text(
+        "states_per_phone: 2\nncomp_per_state: 1\ncov_type: isotropic\n")
     r = str(root)
     feats, trans = r + "/feats.npz", r + "/train.trans"
     printed = {}
@@ -108,6 +110,8 @@ def jax_run(tmp_path_factory):
         ("mkphones", ["hmm", "mkphones", r + "/phones.yml", feats, trans, r + "/em.mdl"]),
         ("mkphones_full", ["hmm", "mkphones", r + "/phones_full.yml", feats, trans,
                            r + "/em_full.mdl"]),
+        ("mkphones_iso", ["hmm", "mkphones", r + "/phones_iso.yml", feats, trans,
+                          r + "/em_iso.mdl"]),
         ("train_3", ["hmm", "train", r + "/em.mdl", feats, r + "/exp", "--epochs", "3",
                      "--transcriptions", trans, "--single-device"]),
         ("train_5", ["hmm", "train", r + "/em.mdl", feats, r + "/exp", "--epochs", "5",
@@ -130,15 +134,12 @@ def jax_run(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("conf,jax_mdl", [("phones.yml", "em.mdl"),
-                                          ("phones_full.yml", "em_full.mdl")])
-def test_mkphones_matches_jax(jax_run, tmp_path, conf, jax_mdl):
+def _mkphones_matches_jax(jax_run, tmp_path, conf, jax_mdl, printed_key):
     out = tmp_path / "em.mdl"
     printed = _run(cli, ["hmm", "mkphones", str(jax_run / conf), str(jax_run / "feats.npz"),
                          str(jax_run / "train.trans"), str(out)] + CPU)
-    assert printed == json.loads((jax_run / "printed.json").read_text())[
-        "mkphones" if conf == "phones.yml" else "mkphones_full"].replace(
-            str(jax_run / jax_mdl), str(out))
+    assert printed == json.loads((jax_run / "printed.json").read_text())[printed_key].replace(
+        str(jax_run / jax_mdl), str(out))
     assert (tmp_path / "em.mdl.phones.json").read_bytes() == \
         (jax_run / (jax_mdl + ".phones.json")).read_bytes()
     got = load_model(out, device="cpu").to_numpy()
@@ -155,13 +156,18 @@ def test_mkphones_matches_jax(jax_run, tmp_path, conf, jax_mdl):
                                    atol=1e-6, err_msg=key)
 
 
+@pytest.mark.parametrize("conf,jax_mdl", [("phones.yml", "em.mdl"),
+                                          ("phones_full.yml", "em_full.mdl")])
+def test_mkphones_matches_jax(jax_run, tmp_path, conf, jax_mdl):
+    _mkphones_matches_jax(jax_run, tmp_path, conf, jax_mdl,
+                          "mkphones" if conf == "phones.yml" else "mkphones_full")
+
+
 def test_mkphones_refuses_covariance_types_not_ported(jax_run, tmp_path):
-    conf = tmp_path / "iso.yml"
-    conf.write_text("states_per_phone: 2\nncomp_per_state: 1\ncov_type: isotropic\n")
-    with pytest.raises(NotImplementedError, match="only the diagonal and full NormalSets"):
-        cli(["hmm", "mkphones", str(conf), str(jax_run / "feats.npz"),
-             str(jax_run / "train.trans"), str(tmp_path / "em.mdl")] + CPU)
-    assert not (tmp_path / "em.mdl").exists()
+    """The isotropic type, once refused, is ported: ``hmm mkphones`` with
+    ``cov_type: isotropic`` makes the JAX verb's model (the same test as
+    the diagonal and full ones above)."""
+    _mkphones_matches_jax(jax_run, tmp_path, "phones_iso.yml", "em_iso.mdl", "mkphones_iso")
 
 
 def test_train_transcriptions_matches_jax(jax_run, tmp_path):

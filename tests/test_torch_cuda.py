@@ -1844,3 +1844,45 @@ def test_cli_map_reduce_on_the_card_is_vb_step(device, tmp_path):
     for (name, a), (_, b) in zip(load_model(r / "mr.mdl").state_dict().items(),
                                  full.state_dict().items()):
         assert _rel(a, b) <= 2e-4, name
+
+
+# ----------------------------------------------------------------------
+# PPCA and PLDA (configs 7 and 8 at a mid size): plain torch on the card
+# ----------------------------------------------------------------------
+def _subspace_data(kind):
+    """PPCA: 20,000 frames of a 16-dim subspace in 128 dims (noise 0.1);
+    PLDA: 256 classes × 32 embeddings, D = 128, Q = 16 (noise 0.3)."""
+    rng = np.random.default_rng(11)
+    d, q = 128, 16
+    w = rng.normal(size=(d, q)) / np.sqrt(q)
+    if kind == "ppca":
+        x = rng.normal(size=(20_000, q)) @ w.T + 0.1 * rng.normal(size=(20_000, d))
+        return x.astype(np.float32), None
+    h = np.repeat(rng.normal(size=(256, q)), 32, 0)
+    x = h @ w.T + 0.3 * rng.normal(size=h.shape[:1] + (d,))
+    return x.astype(np.float32), np.repeat(np.arange(256), 32)
+
+
+@pytest.mark.parametrize("kind", ["ppca", "plda"])
+def test_subspace_models_on_the_card_match_float64_on_the_cpu(device, kind):
+    """Three joint and three coordinate steps in float32 on the card beside
+    a float64 copy on the CPU carried across at the start and run on its
+    own, then one more E-step of each (so the last update shows): ELBOs
+    within 1e-4 a frame; PLDA's per-class sums (one-hot products) and its
+    ``infer`` are bitwise repeatable."""
+    x, y = _subspace_data(kind)
+    cls, conv = (bt.PPCA, bt.ppca_from_numpy) if kind == "ppca" else (bt.PLDA, bt.plda_from_numpy)
+    model = cls.create(x.shape[1], 16, device=device, generator=torch.Generator().manual_seed(3))
+    xc, x64 = torch.from_numpy(x).to(device), torch.from_numpy(x).double()
+    kw_card = {} if y is None else {"labels": torch.from_numpy(y).to(device), "n_classes": 256}
+    kw_cpu = {} if y is None else {"labels": torch.from_numpy(y), "n_classes": 256}
+    ref = conv(model.to_numpy(), device="cpu", dtype=torch.float64)
+    for i, step in enumerate([bt.vb_step] * 3 + [bt.vb_step_coordinate] * 3 + [bt.elbo_and_stats]):
+        e_card = float(step(model, xc, **kw_card)[0])
+        e_ref = float(step(ref, x64, **kw_cpu)[0])
+        assert abs(e_card - e_ref) / len(x) <= 1e-4, (i, e_card, e_ref)
+    if kind == "plda":
+        a, cache_a = model.infer(xc, **kw_card)
+        b, cache_b = model.infer(xc, **kw_card)
+        assert torch.equal(a, b) and torch.equal(cache_a["m_h"], cache_b["m_h"])
+        assert torch.equal(cache_a["counts"], torch.full_like(cache_a["counts"], 32.0))

@@ -508,3 +508,61 @@ def test_phone_loop_smooth_and_accumulate_vs_jax(banded):
     lz_plain, cache_plain = loop.smooth(stats, t(mask))
     close(lz_plain, lz, 1e-12)
     close(cache_plain["posteriors"], cache["posteriors"], 1e-12, 1e-300)
+
+
+# ----------------------------------------------------------------------
+# the log-carry recursions and the associative scan
+# ----------------------------------------------------------------------
+def _hmm_params(rng, s):
+    """``tests/test_hmm.py::random_hmm_params``: a full stochastic matrix,
+    init and final vectors, in the log domain."""
+    trans = rng.uniform(0.1, 1.0, size=(s, s))
+    trans /= trans.sum(1, keepdims=True)
+    init = rng.uniform(0.1, 1.0, size=s)
+    return np.log(trans), np.log(init / init.sum()), np.log(rng.uniform(0.1, 1.0, size=s))
+
+
+def _scan_case(per_utterance=False):
+    """``tests/test_hmm.py``'s associative-scan case: T = 33, S = 5, lengths
+    33, 20, 7 (with ``per_utterance``, one matrix per sequence)."""
+    rng = np.random.default_rng(42)
+    lt, li, lf = _hmm_params(rng, 5)
+    if per_utterance:
+        lt = np.stack([lt, _hmm_params(rng, 5)[0], _hmm_params(rng, 5)[0]])
+    llh = rng.normal(size=(3, 33, 5))
+    lengths = np.array([33, 20, 7])
+    mask = (np.arange(33)[None] < lengths[:, None]).astype(np.float64)
+    return llh, lt, li, lf, mask, lengths
+
+
+@pytest.mark.parametrize("per_utterance", [False, True], ids=["shared", "per_utterance"])
+def test_log_carry_forward_backward_vs_jax_f64(per_utterance):
+    """``forward`` (log α and the final carry) and ``backward`` (log β) on a
+    ragged batch, as the JAX package's ``lax.scan`` versions."""
+    llh, lt, li, lf, mask, _ = _scan_case(per_utterance)
+    a_j, last_j = jss.forward(*map(jnp.asarray, (llh, lt, li, mask)))
+    a_t, last_t = tss.forward(*map(t, (llh, lt, li, mask)))
+    close(a_t, a_j, 1e-10)
+    close(last_t, last_j, 1e-10)
+    close(tss.backward(*map(t, (llh, lt, lf, mask))),
+          jss.backward(*map(jnp.asarray, (llh, lt, lf, mask))), 1e-10, atol=1e-12)
+    # without a mask the final carry is log α at the last frame
+    a_t, last_t = tss.forward(t(llh), t(lt), t(li))
+    close(last_t, a_t[:, -1], 0)
+
+
+@pytest.mark.parametrize("chunk", [None, 4, 8, 16, 33, 64])
+def test_forward_assoc_vs_jax_f64(chunk):
+    """The associative scan, whole or in blocks of ``chunk`` frames (ragged
+    tails, chunks that do not divide T), against the JAX package's and the
+    sequential ``forward``, on each sequence's valid frames."""
+    llh, lt, li, _, mask, lengths = _scan_case()
+    args_t, args_j = map(t, (llh, lt, li, mask)), map(jnp.asarray, (llh, lt, li, mask))
+    a_t, last_t = tss.forward_assoc(*args_t, chunk=chunk)
+    a_j, last_j = jss.forward_assoc(*args_j, chunk=chunk)
+    seq, last_seq = tss.forward(*map(t, (llh, lt, li, mask)))
+    close(last_t, last_j, 1e-9)
+    close(last_t, last_seq, 1e-9)
+    for i, n in enumerate(lengths):
+        close(a_t[i, :n], a_j[i, :n], 1e-9)
+        close(a_t[i, :n], seq[i, :n], 1e-9)

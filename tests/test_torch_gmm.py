@@ -385,8 +385,10 @@ def test_convert_rejects_a_width_that_does_not_match_the_cov_type():
     d = normal_set_to_numpy(_jax_nset(jnp.float64, 4, 1))
     with pytest.raises(ValueError, match="width"):
         bt.normal_set_from_numpy(dict(d, cov_type="diagonal"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        bt.normal_set_from_numpy(dict(d, cov_type="isotropic"), device="cpu")
+    # the isotropic and tied types are ported: their widths are checked too
+    for cov_type in ("isotropic", "shared_full", "shared_diagonal", "shared_isotropic"):
+        with pytest.raises(ValueError, match="width"):
+            bt.normal_set_from_numpy(dict(d, cov_type=cov_type), device="cpu")
 
 
 ENTRY_POINTS = {
@@ -399,6 +401,10 @@ ENTRY_POINTS = {
     "transcription_graphs": lambda: bt.transcription_graphs(TRANSCRIPTIONS, N_PHONES, SPP),
     "Categorical.create": lambda: bt.Categorical.create(3),
     "SBCategorical.create": lambda: bt.SBCategorical.create(3),
+    "PPCA.create": lambda: bt.PPCA.create(3, 2),
+    "PLDA.create": lambda: bt.PLDA.create(3, 2),
+    "ppca_from_numpy": lambda: bt.ppca_from_numpy({}),
+    "plda_from_numpy": lambda: bt.plda_from_numpy({}),
 }
 
 
