@@ -38,7 +38,11 @@ with the Wishart and joint priors behind them, :class:`JointModelSet`
 and :class:`RepeatedModelSet`, mean-field coordinate VB
 (:func:`vb_step_coordinate`, :func:`vb_update_partial`), and the
 log-domain and associative-scan forward recursions of
-:mod:`beer_tpu_torch.ops.semiring_scan`.
+:mod:`beer_tpu_torch.ops.semiring_scan`; and last data-parallel VB-EM
+over a ``torch.distributed`` mesh (:mod:`beer_tpu_torch.parallel`, with
+``hmm train`` across ranks), sequence-parallel inference
+(:mod:`beer_tpu_torch.ops.seq_parallel`) and learned transitions on
+per-utterance graphs.
 
 Entry points that build a model or a graph (the ``*_from_numpy``
 converters, ``Graph.compile``, ``transcription_graphs``,

@@ -23,6 +23,11 @@ package chooses them (``hmm.py:135-154``):
   stream and the backward emits γ and the full ξ (K5 + K7);
 * **general** — per-utterance (B, S, S) matrices: the plain-torch
   probability-space smoothing of :mod:`beer_tpu_torch.ops.semiring_scan`.
+  Learned transitions there have a (B, S, S) Dirichlet, one per
+  utterance's graph, whose statistics are the JAX package's: the batch's
+  summed ξ outer products times each utterance's own matrix, and whose KL
+  is the JAX package's expression (both faults of the reference, kept so
+  the port equals it: ROADMAP §C).
 
 The fused routes run the CUDA kernels on CUDA tensors and their plain
 versions on CPU tensors, or with ``plain_scan`` set.  ``infer`` returns
@@ -69,8 +74,9 @@ class HMM(DiscreteLatentModel):
     The compiled graph's tensors are buffers (``graph_*``), so ``.to()``
     moves them with the emissions; :attr:`graph` rebuilds the
     :class:`CompiledGraph` view.  ``trans_alpha_prior``/``trans_alpha_post``
-    (S, S) are the transition Dirichlet's concentrations (0 on forbidden
-    arcs), or None for fixed transitions.
+    (S, S), or (B, S, S) on per-utterance graphs, are the transition
+    Dirichlet's concentrations (0 on forbidden arcs), or None for fixed
+    transitions.
     """
 
     def __init__(self, graph: CompiledGraph, modelset,
@@ -95,14 +101,13 @@ class HMM(DiscreteLatentModel):
         """A :class:`Graph` is compiled in the emissions' dtype, on their
         device.  With ``learn_transitions`` the prior concentration is
         ``trans_prior_strength`` × the graph's arc probabilities, 0 on
-        forbidden arcs (a shared (S, S) graph only)."""
+        forbidden arcs, of the graph's shape: (S, S) or per-utterance
+        (B, S, S)."""
         like = next(modelset.buffers())
         if isinstance(graph, Graph):
             graph = graph.compile(like.dtype, like.device)
         prior = None
         if learn_transitions:
-            if graph.log_trans.ndim != 2:
-                raise ValueError("learned transitions need one shared (S, S) graph")
             prior = torch.where(graph.log_trans > LOG_ZERO / 2,
                                 trans_prior_strength * torch.exp(graph.log_trans), 0.0)
         return cls(graph, modelset, prior, None if prior is None else prior.clone())
@@ -135,6 +140,10 @@ class HMM(DiscreteLatentModel):
         ap = torch.where(allowed, a_p, 1.0)
         q_sum = torch.where(allowed, a_q, 0.0).sum(-1)
         p_sum = torch.where(allowed, a_p, 0.0).sum(-1)
+        # [:, None] is the JAX package's expression (beer_tpu/models/hmm.py:102):
+        # right for (S, S), but for per-utterance (B, S, S) rows it takes entry
+        # (b, i, j) against row j's sum, not row i's (ROADMAP §C, in both
+        # packages); kept so the port's ELBO equals the reference's
         dig = torch.digamma(aq) - torch.digamma(q_sum.clamp_min(1e-30))[:, None]
         per_row = (
             torch.lgamma(q_sum.clamp_min(1e-30))
@@ -216,25 +225,29 @@ class HMM(DiscreteLatentModel):
             cache["llh"], cache["lens"], cache["trans"], cache["final"], cache["alpha"],
             cache["norms"], plain=self.plain_scan)
 
+    def _pdf_map(self, dtype: torch.dtype) -> torch.Tensor:
+        """The pdf map as one-hot (S, n_pdfs) or (B, S, n_pdfs) rows.  A
+        product with it sums the states sharing a pdf: each term is exact
+        (TF32 is off) and, unlike ``index_add_`` / ``scatter_add_``, whose
+        CUDA atomics add in no fixed order, two runs on the same inputs give
+        the same bits."""
+        return torch.nn.functional.one_hot(self.graph_pdf_ids, self.n_pdfs).to(dtype)
+
     def _pdf_posteriors(self, post: torch.Tensor) -> torch.Tensor:
         """(B, T, S) state posteriors → (B, T, n_pdfs): states sharing a
-        pdf sum together (an exact scatter-add, no selection product)."""
+        pdf sum together."""
         ids = self.graph_pdf_ids
         if ids.ndim == 1 and self.n_pdfs == self.n_states and torch.equal(
                 ids, torch.arange(self.n_states, device=ids.device)):
             return post
-        out = post.new_zeros(*post.shape[:-1], self.n_pdfs)
-        if ids.ndim == 2:
-            return out.scatter_add_(-1, ids[:, None, :].expand_as(post), post)
-        return out.index_add_(-1, ids, post)
+        return post @ self._pdf_map(post.dtype)
 
     def accumulate(self, stats: torch.Tensor, cache: Dict[str, Any]) -> Dict[str, Any]:
         route = cache["route"]
         if route == "stats":
             acc2, counts, xi_raw = self._backward(cache)
-            ids = self.graph_pdf_ids
-            acc_pdf = acc2.new_zeros(self.n_pdfs, acc2.shape[-1]).index_add_(0, ids, acc2)
-            counts_pdf = counts.new_zeros(self.n_pdfs).index_add_(0, ids, counts)
+            acc_pdf = self._pdf_map(acc2.dtype).T @ acc2
+            counts_pdf = counts @ self._pdf_map(counts.dtype)
             acc = {"modelset": self.modelset.accumulate_from_moments(acc_pdf, counts_pdf)}
         else:
             if route == "llh":
@@ -246,8 +259,9 @@ class HMM(DiscreteLatentModel):
                                                         pdf_post.reshape(-1, self.n_pdfs))}
         if self.trans_alpha_post is not None:
             if route == "general":
+                # on (B, S, S) matrices the JAX package's pooled counts (ROADMAP §C)
                 acc["trans"] = semiring_scan.expected_transition_counts_probs(
-                    cache["fb"], cache["log_trans"], cache["mask"])
+                    cache["fb"], cache["log_trans"], cache["mask"], pooled=True)
             else:
                 acc["trans"] = xi_raw * cache["trans"]
         return acc

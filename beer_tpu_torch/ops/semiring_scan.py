@@ -287,12 +287,15 @@ def forward_backward(
     return FBResult(log_alpha, log_beta, log_z, posteriors)
 
 
-def _xi_outer(u, w, weight, trans_prob, rows, cols):
+def _xi_outer(u, w, weight, trans_prob, rows, cols, pooled=False):
     """Σ_t weight_t · outer(u_t, w_t) ⊙ A over the batch, optionally
     restricted to ``[rows][:, cols]`` (shared (S, S) matrix only; a
     per-utterance (B, S, S) one weighs each utterance's outer products by
-    its own matrix)."""
+    its own matrix, or with ``pooled`` multiplies the batch's summed outer
+    products by each utterance's matrix, (B, S, S))."""
     if trans_prob.ndim == 3:
+        if pooled:
+            return torch.einsum("bti,btj,bt->ij", u, w, weight) * trans_prob
         return torch.einsum("bti,btj,bt,bij->ij", u, w, weight, trans_prob)
     if rows is not None:
         # an exact gather: no selection product, so no rounding of ξ
@@ -307,9 +310,15 @@ def expected_transition_counts_probs(
     mask: Optional[torch.Tensor] = None,
     rows: Optional[torch.Tensor] = None,
     cols: Optional[torch.Tensor] = None,
+    pooled: bool = False,
 ) -> torch.Tensor:
     """Σ_t ξ_t over the batch from :func:`forward_backward_probs`'s carries,
     optionally restricted to the block ``[rows][:, cols]``.
+
+    ``pooled`` (per-utterance (B, S, S) matrices only) returns the JAX
+    package's quantity instead: the batch's summed outer products times
+    each utterance's own matrix, (B, S, S) — not each utterance's ξ
+    (ROADMAP §C, in both packages).
 
     The per-frame normalizer uᵀAw_{t+1} is recovered exactly from pass
     by-products: c_{t+1} · Σ α̂_{t+1}β̂_{t+1} / Σ e_{t+1}β̂_{t+1}, with the
@@ -325,7 +334,7 @@ def expected_transition_counts_probs(
     denom = step_norm * fbp.post_norm[:, 1:] / fbp.w_sums[:, 1:].clamp_min(tiny)
     m_tail = u.new_ones(b, t_len - 1) if mask is None else mask[:, 1:]
     weight = torch.where(denom > 1e-30, m_tail / denom.clamp_min(1e-30), 0.0)
-    return _xi_outer(u, w, weight, torch.exp(log_trans), rows, cols)
+    return _xi_outer(u, w, weight, torch.exp(log_trans), rows, cols, pooled)
 
 
 def expected_transition_counts(

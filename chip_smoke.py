@@ -26,7 +26,10 @@ on the recipe's own synthetic data and configurations, then (phases 20
 and 21) the supervised recipe, map-reduce VB and the subspace-HMM recipe
 through the same CLI, then (phase 22) PPCA and PLDA at bench configs 7
 and 8, mean-field coordinate VB through the kernels and a GMM over each
-further covariance type, in twenty-two phases, each printing one line
+further covariance type, then (phase 23) data-parallel VB-EM, ``hmm
+train`` across ranks and sequence-parallel inference over a
+world-size-1 NCCL process group and learned transitions on
+per-utterance graphs, in twenty-three phases, each printing one line
 (phase 22 two):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -222,7 +225,31 @@ further covariance type, in twenty-two phases, each printing one line
    frame of the plain route's; and 5 ``vb_step``s of a 64-component GMM
    over config 1's 256,000 frames for each of the isotropic and tied
    ("shared_*") covariance types, non-decreasing; the card's name and
-   power limit on each line.
+   power limit on each line;
+23. parallel: over a world-size-1 NCCL process group (a ``FileStore`` in
+   the temporary directory; a failed set-up fails the phase, there is no
+   gloo fallback): ``parallel.make_vb_train_step`` on config 4 at full
+   width, 5 steps, every ELBO within 1e-6 a frame of ``vb_step`` from
+   the same start and the model within 2e-4 of each array's largest
+   entry, K1 and K2 read once a step around them;
+   ``make_vb_minibatch_step`` and ``make_vb_estep`` (one update) over 4
+   minibatches of config 4 against their single-device twins (and the
+   streamed ELBO against the full batch's); ``make_vb_estep`` on config
+   2 (K5 + K6 once); ``make_supervised_vb_train_step`` on config 3, 3
+   steps on the shared graphs (K5 + K7) and on ``shared=False``;
+   ``hmm train`` through its data-parallel branch on phase 19's data
+   against ``--single-device`` (ELBO 1e-5 a frame, arrays 2e-4);
+   ``seq_parallel.make_sharded_forward_backward`` in float64 at the
+   bench shape of ``tests/test_seq_parallel.py`` (a 50 × 3 phone loop,
+   B = 8, T = 200, its lengths) against the unsharded general path (log
+   Z rtol 1e-8, posteriors rtol 1e-6 / atol 1e-9); then 3 ``vb_step``s
+   of config 3's recognizer on per-utterance graphs with learned
+   transitions in float32 beside a float64 twin from the
+   same start (printed; ROADMAP §C.1 moves it) and beside the same runs
+   on the CPU (float32 within 1e-4 a frame, float64 rtol 1e-9); one line
+   with the CUDA-event medians of the data-parallel
+   and the single-device config-4 step and the card's name and power
+   limit.
 
 K8–K10 are timed twice in phase 9: ``ms`` is the kernel alone (the bare
 foreign call on operands packed and a launch geometry computed in
@@ -3163,6 +3190,278 @@ def phase_subspace(dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase 23: data-parallel VB-EM, hmm train across ranks, sequence-parallel
+# inference and learned transitions on per-utterance graphs
+# ----------------------------------------------------------------------
+DP_KERNELS = ("forward_llh_banded", "estep_acc_banded", "forward_llh_dense", "estep_acc_dense",
+              "estep_gamma_dense")
+DP_MINIBATCHES, DP_LRATE, SUP_STEPS = 4, 0.5, 3
+SEQ_UNITS, SEQ_B, SEQ_T = 50, 8, 200                    # tests/test_seq_parallel.py:110
+SEQ_LENGTHS = (200, 151, 150, 149, 101, 100, 51, 26)
+
+
+def counted(fn):
+    """``fn()`` and the launches of ``DP_KERNELS`` it made."""
+    cuda_scan.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: cuda_scan.KERNELS[k].launches for k in DP_KERNELS}
+
+
+def model_rel(a, b):
+    """The largest of each state entry's |a − b| over b's largest entry."""
+    return max(rel(x, y) for (_, x), (_, y) in zip(a.state_dict().items(), b.state_dict().items()))
+
+
+def stats_rel(a, b):
+    if isinstance(a, dict):
+        return max(stats_rel(a[k], b[k]) for k in a)
+    return rel(a, b)
+
+
+def elbo_gap(got, want, frames):
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max() / frames)
+
+
+def dp_config4(dev, mesh, x, m, frames):
+    """(i) 5 data-parallel steps of config 4 against ``vb_step`` from the
+    same start, and both steps' times; (ii) the stochastic minibatch step
+    and the streamed E-step (one update) over 4 minibatches against their
+    single-device twins."""
+    from beer_tpu_torch import parallel
+    from beer_tpu_torch.vbi import tree_add
+
+    out = {}
+    loop, single = config4(dev), config4(dev)
+    step = parallel.make_vb_train_step(mesh)
+    dp, launches = counted(lambda: [float(step(loop, x, m)[0]) for _ in range(N_STEPS)])
+    ref = [float(bt.vb_step(single, x, mask=m)[0]) for _ in range(N_STEPS)]
+    check(all(launches[k] == N_STEPS for k in DP_KERNELS[:2]),
+          f"data-parallel config 4: launches {launches}, want {N_STEPS} of K1 and K2")
+    check(bool(np.isfinite(dp).all()) and bool((np.diff(dp) / frames >= -1e-6).all()),
+          f"data-parallel config 4: ELBO {dp}")
+    out["full_batch"] = dict(elbo_per_frame=[round(e / frames, 6) for e in dp],
+                             elbo_gap_per_frame=elbo_gap(dp, ref, frames),
+                             model_rel=model_rel(loop, single), launches=launches)
+    check(out["full_batch"]["elbo_gap_per_frame"] <= 1e-6,
+          f"data-parallel vs vb_step: {out['full_batch']}")
+    check(out["full_batch"]["model_rel"] <= 2e-4, f"data-parallel vs vb_step: {out['full_batch']}")
+    out["dp_step_ms"] = round(cuda_ms(lambda: step(loop, x, m)), 3)
+    out["single_step_ms"] = round(cuda_ms(lambda: bt.vb_step(single, x, mask=m)), 3)
+
+    nb = x.shape[0] // DP_MINIBATCHES
+    batches = [(x[i * nb:(i + 1) * nb], m[i * nb:(i + 1) * nb]) for i in range(DP_MINIBATCHES)]
+    loop, single = config4(dev), config4(dev)
+    mb_step = parallel.make_vb_minibatch_step(mesh, lrate=DP_LRATE)
+    dp, launches = counted(lambda: [float(mb_step(loop, xb, mb, DP_MINIBATCHES)[0])
+                                    for xb, mb in batches])
+    ref = [float(bt.vb_step(single, xb, datasize=x.shape[0], lrate=DP_LRATE, mask=mb)[0])
+           for xb, mb in batches]
+    out["minibatch"] = dict(elbo_gap_per_frame=elbo_gap(dp, ref, frames),
+                            model_rel=model_rel(loop, single), launches=launches)
+    check(out["minibatch"]["elbo_gap_per_frame"] <= 1e-6 and out["minibatch"]["model_rel"] <= 2e-4
+          and launches["estep_acc_banded"] == DP_MINIBATCHES,
+          f"data-parallel minibatch step vs vb_step: {out['minibatch']}")
+
+    loop, single = config4(dev), config4(dev)
+    estep = parallel.make_vb_estep(mesh)
+    sums = {}
+    for name, model, fn in (("dp", loop, lambda mo, xb, mb: estep(mo, xb, mb)),
+                            ("single", single, lambda mo, xb, mb: bt.elbo_and_stats(mo, xb,
+                                                                                    mask=mb))):
+        elbo, acc = 0.0, None
+        for xb, mb in batches:
+            e, a = fn(model, xb, mb)
+            elbo, acc = elbo + float(e), a if acc is None else tree_add(acc, a)
+        kl = float(model.kl_div_posterior_prior())
+        model.vb_update(acc)
+        sums[name] = (elbo + kl * (DP_MINIBATCHES - 1), acc)
+    out["streamed"] = dict(elbo_gap_per_frame=abs(sums["dp"][0] - sums["single"][0]) / frames,
+                           vs_full_batch_per_frame=abs(sums["dp"][0] - out["full_batch"][
+                               "elbo_per_frame"][0] * frames) / frames,
+                           stats_rel=stats_rel(sums["dp"][1], sums["single"][1]),
+                           model_rel=model_rel(loop, single))
+    check(out["streamed"]["elbo_gap_per_frame"] <= 1e-6 and out["streamed"]["stats_rel"] <= 2e-4
+          and out["streamed"]["model_rel"] <= 2e-4 and out["streamed"]["vs_full_batch_per_frame"]
+          <= 1e-5, f"data-parallel streamed E-step vs elbo_and_stats: {out['streamed']}")
+    return out
+
+
+def dp_hmms(dev, mesh, x, m, frames):
+    """The E-step of config 2 (K5 + K6) and 3 supervised steps of config 3
+    on both graph forms (shared: K5 + K7), data-parallel against
+    single-device."""
+    from beer_tpu_torch import parallel
+
+    out = {}
+    hmm = config2(dev)
+    (elbo, acc), launches = counted(lambda: parallel.make_vb_estep(mesh)(hmm, x, m))
+    ref, ref_acc = bt.elbo_and_stats(hmm, x, mask=m)
+    out["config2_estep"] = dict(elbo_gap_per_frame=abs(float(elbo) - float(ref)) / frames,
+                                stats_rel=stats_rel(acc, ref_acc), launches=launches)
+    check(out["config2_estep"]["elbo_gap_per_frame"] <= 1e-6
+          and out["config2_estep"]["stats_rel"] <= 2e-4
+          and launches["forward_llh_dense"] == 1 and launches["estep_acc_dense"] == 1,
+          f"data-parallel E-step of config 2: {out['config2_estep']}")
+    data, mask, seqs = config3_data()
+    x3, m3 = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+    frames3 = float(m3.sum())
+    sup = parallel.make_supervised_vb_train_step(mesh)
+    for shared in (True, False):
+        dp_model, single = config3(dev, seqs, shared=shared), config3(dev, seqs, shared=shared)
+        graphs = dp_model.graph
+        emissions = dp_model.modelset
+        dp, launches = counted(lambda: [float(sup(emissions, graphs, x3, m3)[0])
+                                        for _ in range(SUP_STEPS)])
+        ref = [float(bt.vb_step(single, x3, mask=m3)[0]) for _ in range(SUP_STEPS)]
+        row = dict(elbo_gap_per_frame=elbo_gap(dp, ref, frames3),
+                   model_rel=model_rel(emissions, single.modelset), launches=launches)
+        out["config3_" + ("shared" if shared else "per_utterance")] = row
+        need = ("forward_llh_dense", "estep_gamma_dense") if shared else ()
+        check(row["elbo_gap_per_frame"] <= 1e-6 and row["model_rel"] <= 2e-4
+              and all(launches[k] == SUP_STEPS for k in need)
+              and bool((np.diff(dp) / frames3 >= -1e-6).all()),
+              f"data-parallel supervised steps (shared={shared}): {row}, ELBO {dp}")
+    return out
+
+
+def dp_cli(tmp):
+    """(iv) ``hmm train`` through its data-parallel branch on phase 19's
+    data, against ``--single-device``."""
+    from beer_tpu_torch.utils import load_model
+
+    feats, init = f"{tmp}/feats_aud.npz", f"{tmp}/init.mdl"
+    cuda_scan.reset_launch_counts()
+    secs, printed = verb(["hmm", "train", init, feats, f"{tmp}/dp_train", "--epochs", "3"])
+    launches = path_launches(DP_KERNELS[:2])
+    single_secs, _ = verb(["hmm", "train", init, feats, f"{tmp}/single_train", "--epochs", "3",
+                           "--single-device"])
+    check(printed.startswith("data-parallel over 1 devices"), f"hmm train printed {printed!r}")
+    check(all(n > 0 for n in launches.values()), f"hmm train data-parallel: launches {launches}")
+    dp_log = [r["elbo_per_frame"] for r in train_log(Path(tmp) / "dp_train")]
+    single_log = [r["elbo_per_frame"] for r in train_log(Path(tmp) / "single_train")]
+    row = dict(elbo_gap_per_frame=float(np.abs(np.array(dp_log) - np.array(single_log)).max()),
+               model_rel=model_rel(load_model(f"{tmp}/dp_train/final.mdl"),
+                                   load_model(f"{tmp}/single_train/final.mdl")),
+               seconds=round(secs, 3), single_device_seconds=round(single_secs, 3),
+               launches=launches)
+    check(len(dp_log) == 3 and row["elbo_gap_per_frame"] <= 1e-5 and row["model_rel"] <= 2e-4,
+          f"hmm train data-parallel vs --single-device: {row}")
+    return row
+
+
+def dp_seq_parallel(dev):
+    """(v) ``make_sharded_forward_backward`` in float64 at the bench shape
+    of ``tests/test_seq_parallel.py`` against the unsharded general path."""
+    from beer_tpu_torch import parallel
+    from beer_tpu_torch.ops import seq_parallel
+
+    graph = bt.phone_loop_graph(SEQ_UNITS, STATES_PER_UNIT).compile(torch.float64, dev)
+    rng = np.random.default_rng(SEED)
+    llh = torch.from_numpy(rng.normal(size=(SEQ_B, SEQ_T, graph.n_states))).to(dev)
+    lengths = np.array(SEQ_LENGTHS)
+    mask = torch.from_numpy((np.arange(SEQ_T)[None] < lengths[:, None]).astype(np.float64)).to(dev)
+    args = (llh, graph.log_trans, graph.log_init, graph.log_final, mask)
+    fn = seq_parallel.make_sharded_forward_backward(parallel.make_mesh(axis_name="seq"))
+    _, _, log_z, post = fn(*args)
+    fb = tss.forward_backward(*args, plain=True)
+    z_rel = float(((log_z - fb.log_z).abs() / fb.log_z.abs()).max())
+    post_excess = max(float(((post[i, :n] - fb.posteriors[i, :n]).abs()
+                             - 1e-9 - 1e-6 * fb.posteriors[i, :n].abs()).max())
+                      for i, n in enumerate(lengths))
+    row = dict(shape=[SEQ_B, SEQ_T, graph.n_states], log_z_rel=z_rel,
+               posteriors_over_tolerance=post_excess, ms=round(cuda_ms(lambda: fn(*args)), 3))
+    check(z_rel <= 1e-8 and post_excess <= 0.0,
+          f"sequence-parallel forward-backward vs the unsharded path: {row}")
+    return row
+
+
+def per_utterance_learned(dev):
+    """3 VB steps of config 3's recognizer on per-utterance graphs with
+    learned transitions (the general path) in float32 and float64, on the
+    card and on the CPU from the same start: the card's float64 ELBOs and
+    (B, S, S) Dirichlet within rtol 1e-9 of the CPU's, its float32 ELBOs
+    within 1e-4 a frame of the CPU's, rising.  The float32 run against its
+    float64 twin is printed beside ROADMAP §C.1's share of frames whose γ
+    underflows: that float32 fault of the scaled recursions under an
+    untrained model, in both packages, moves it by more than 1e-4 a frame
+    at this shape."""
+    data, mask, seqs = config3_data()
+    frames = float(mask.sum())
+    base = config3(dev, seqs, shared=False)
+    start = bt.HMM.create(base.graph, base.modelset, learn_transitions=True).to_numpy()
+    runs, share = {}, None
+    for where in (dev, torch.device("cpu")):
+        for dtype in (torch.float32, torch.float64):
+            hmm = bt.hmm_from_numpy(start, device=where, dtype=dtype)
+            x = torch.from_numpy(data).to(where, dtype)
+            m = torch.from_numpy(mask).to(where, dtype)
+            if where == dev and dtype == torch.float32:
+                check(hmm.route() == "general" and hmm.trans_alpha_post.ndim == 3,
+                      f"per-utterance learned transitions: route {hmm.route()}")
+                share = hmm_underflow_share(hmm, x, m)
+            elbos = np.array([float(bt.vb_step(hmm, x, mask=m)[0]) for _ in range(SUP_STEPS)])
+            runs[where.type, dtype] = (elbos, hmm.trans_alpha_post.cpu())
+    (e32, _), (e64, a64) = runs[dev.type, torch.float32], runs[dev.type, torch.float64]
+    (c32, _), (c64, ca64) = runs["cpu", torch.float32], runs["cpu", torch.float64]
+    row = dict(trans_shape=list(a64.shape), elbo_per_frame=[round(e / frames, 6) for e in e32],
+               f32_card_vs_cpu_per_frame=elbo_gap(e32, c32, frames),
+               f64_card_vs_cpu_rel=float(np.abs(e64 - c64).max() / np.abs(c64).max()),
+               f64_dirichlet_card_vs_cpu_rel=rel(a64, ca64),
+               f32_vs_f64_per_frame_not_gated=elbo_gap(e32, e64, frames),
+               gamma_underflow_share=share)
+    check(bool(np.isfinite(e32).all()) and bool((np.diff(e32) / frames >= -1e-6).all())
+          and row["f32_card_vs_cpu_per_frame"] <= 1e-4 and row["f64_card_vs_cpu_rel"] <= 1e-9
+          and row["f64_dirichlet_card_vs_cpu_rel"] <= 1e-9,
+          f"learned transitions on per-utterance graphs: {row}")
+    return row
+
+
+def phase_parallel(dev, card, tmp):
+    """The data-parallel steps, ``hmm train``'s data-parallel branch and
+    sequence-parallel inference over a world-size-1 NCCL process group
+    (every reduction still goes through ``all_reduce``), each against its
+    single-device run, and learned transitions on per-utterance graphs.
+    A failed NCCL set-up fails the phase: there is no fallback."""
+    import torch.distributed as dist
+
+    from beer_tpu_torch import parallel
+
+    t0 = time.time()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/nccl_store", 1), rank=0,
+                            world_size=1)
+    try:
+        group = f"world size {dist.get_world_size()}, {dist.get_backend()}"
+        check(dist.get_backend() == "nccl", f"process group backend {group}")
+        mesh = parallel.make_mesh()
+        data, mask = make_data(B, T, D)
+        x, m = torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
+        frames = float(m.sum())
+        out = {"config4": dp_config4(dev, mesh, x, m, frames)}
+        out.update(dp_hmms(dev, mesh, x, m, frames))
+        out["cli"] = dp_cli(tmp)
+        out["seq_parallel"] = dp_seq_parallel(dev)
+    finally:
+        dist.destroy_process_group()
+    out["per_utterance_learned"] = per_utterance_learned(dev)
+    times = out["config4"]
+    print(f"phase 23 parallel: {card} | data-parallel step {times.pop('dp_step_ms')} ms, "
+          f"single-device step {times.pop('single_step_ms')} ms (config 4, B={B}, CUDA-event "
+          f"medians of {REPS}) | {group} | {time.time() - t0:.1f} s | "
+          + json.dumps(out)
+          + " | tol: data-parallel vs single-device ELBO 1e-6/frame and 2e-4 of each array's max "
+          "(hmm train: ELBO 1e-5/frame); sequence-parallel log Z rtol 1e-8, posteriors rtol 1e-6 "
+          "atol 1e-9; per-utterance learned transitions card vs CPU: f32 1e-4/frame, f64 rtol 1e-9")
+    launches = {}
+    for row in (out["config4"]["full_batch"], out["config4"]["minibatch"], out["config2_estep"],
+                out["config3_shared"], out["config3_per_utterance"], out["cli"]):
+        for k, n in row["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3225,8 +3524,10 @@ def main() -> int:
         for phase in (phase_cli, phase_supervised, phase_mapreduce_shmm):
             for k, n in phase(dev, card, tmp).items():
                 launches[k] = launches.get(k, 0) + n
-    for k, n in phase_subspace(dev, card).items():
-        launches[k] = launches.get(k, 0) + n
+        for k, n in phase_subspace(dev, card).items():
+            launches[k] = launches.get(k, 0) + n
+        for k, n in phase_parallel(dev, card, tmp).items():   # phase 19's data
+            launches[k] = launches.get(k, 0) + n
     rows = [dict(name=k, route="cuda", source=cuda_scan.KERNELS[k].source,
                  replaces=REPLACES[k], launches=launches[k], **{"library_ms": None, **v})
             for k, v in kernels.items()]

@@ -292,12 +292,20 @@ def test_computing_verbs_need_a_card_or_cpu(jax_run, tmp_path, monkeypatch, verb
     assert not list(tmp_path.iterdir())
 
 
-def test_train_refuses_several_cards_without_single_device(jax_run, tmp_path, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+def test_train_starts_one_rank_per_card(jax_run, tmp_path, monkeypatch):
+    """Several visible cards, no process group and no ``--single-device``:
+    ``hmm train`` starts one data-parallel rank per card (the ranks
+    themselves run in ``tests/test_torch_parallel.py`` on gloo)."""
+    from beer_tpu_torch.cli.subcommands import hmm_train
+
+    started = []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    monkeypatch.setattr(hmm_train, "_spawn", lambda args, n: started.append((args.epochs, n)))
     argv = ["hmm", "train", str(jax_run / "init.mdl"), str(jax_run / "feats.npz"),
-            str(tmp_path / "exp"), "--device", "cuda"]
-    with pytest.raises(SystemExit, match="data-parallel"):
-        cli(argv)
+            str(tmp_path / "exp"), "--device", "cuda", "--epochs", "2"]
+    assert cli(argv) == 0
+    assert started == [(2, 3)]
+    assert not (tmp_path / "exp").exists()
 
 
 def test_groups_are_the_jax_packages():

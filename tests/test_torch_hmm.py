@@ -70,15 +70,16 @@ def jax_hmm(kind, dtype):
     if kind == "mixture":           # MixtureSet emissions: llh route
         ms = JaxMixtureSet.create(_nset(dtype, 2 * S_ERGODIC, 2), nmix=S_ERGODIC)
         return JaxHMM.create(jgraph.ergodic(S_ERGODIC).compile(dtype), ms, learn_transitions=True)
-    shared = kind != "recognizer_per_utt"
+    shared = not kind.startswith("recognizer_per_utt")
     graphs = jgraph.transcription_graphs(TRANSCRIPTIONS, N_PHONES, SPP, dtype=dtype,
                                          shared=shared)
     return JaxHMM.create(graphs, _nset(dtype, N_PHONES * SPP, 3),
-                         learn_transitions=kind == "recognizer_learned")
+                         learn_transitions=kind.endswith("_learned"))
 
 
 ROUTES = {"ergodic": "stats", "mixture": "llh", "recognizer": "llh",
-          "recognizer_learned": "llh", "recognizer_per_utt": "general"}
+          "recognizer_learned": "llh", "recognizer_per_utt": "general",
+          "recognizer_per_utt_learned": "general"}
 
 
 def _jax_steps(model, x, mask, n=N_STEPS):
@@ -181,7 +182,7 @@ def test_estep_matches_jax_general_path_f64(kind):
     assert ("trans" in acc) == ("trans" in jacc)
     if "trans" in acc:
         close(acc["trans"], jacc["trans"], RTOL_F64, atol=1e-12)
-    if kind != "recognizer_per_utt":
+    if not kind.startswith("recognizer_per_utt"):
         # for (B, S, S) matrices the JAX package returns the batch-summed
         # outer products times each utterance's own matrix, (B, S, S); the
         # port sums each utterance's own ξ (held against the shared graph
@@ -345,7 +346,8 @@ def test_mixture_set_matches_jax():
           RTOL_F64, atol=1e-12)
 
 
-@pytest.mark.parametrize("kind", ["ergodic", "mixture", "recognizer"])
+@pytest.mark.parametrize("kind", ["ergodic", "mixture", "recognizer",
+                                  "recognizer_per_utt_learned"])
 def test_convert_round_trip(kind):
     want = hmm_to_numpy(jax_hmm(kind, jnp.float64))
     got = hmm_to_port(jax_hmm(kind, jnp.float64), torch.float64).to_numpy()
@@ -389,12 +391,137 @@ def test_zero_length_row_contributes_nothing(kind):
           atol=1e-12)
 
 
+@pytest.mark.parametrize("shared", [True, False])
+def test_tied_states_sum_into_their_pdf(shared):
+    """The one-hot product that sums the states sharing a pdf equals a
+    scatter-add, on shared and per-utterance pdf maps (phones repeat, so
+    states tie)."""
+    repeats = [[0, 1, 0], [2, 2], [1], [0, 2, 0]]
+    graphs = bt.transcription_graphs(repeats, N_PHONES, SPP, shared=shared, device="cpu")
+    nset = bt.NormalSet.create(torch.zeros(D), torch.ones(D), size=N_PHONES * SPP)
+    hmm = bt.HMM.create(graphs, nset)
+    post = np.random.default_rng(7).random((B, 5, hmm.n_states))
+    ids = np.broadcast_to(hmm.graph_pdf_ids.numpy(), (B, hmm.n_states))
+    assert max(np.bincount(row).max() for row in ids) > 1
+    want = np.zeros((B, 5, hmm.n_pdfs))
+    for b in range(B):
+        for s in range(hmm.n_states):
+            want[b, :, ids[b, s]] += post[b, :, s]
+    close(hmm._pdf_posteriors(t(post)), want, RTOL_F64)
+
+
 def test_learned_transitions_need_a_shared_graph():
+    """Learned transitions take a shared (S, S) graph or per-utterance
+    (B, S, S) graphs, with a prior of the graph's shape."""
     graphs = bt.transcription_graphs(TRANSCRIPTIONS, N_PHONES, SPP, shared=False, device="cpu")
     nset = bt.NormalSet.create(torch.zeros(D), torch.ones(D), size=N_PHONES * SPP)
-    with pytest.raises(ValueError):
-        bt.HMM.create(graphs, nset, learn_transitions=True)
+    per_utt = bt.HMM.create(graphs, nset, learn_transitions=True, trans_prior_strength=3.0)
+    assert per_utt.trans_alpha_prior.shape == graphs.log_trans.shape == (B, 6, 6)
+    close(per_utt.trans_alpha_prior, 3.0 * torch.exp(graphs.log_trans) * (graphs.log_trans > -1e9),
+          0.0)
+    assert per_utt.route() == "general"
     hmm = bt.HMM.create(bt.ergodic(3), bt.NormalSet.create(torch.zeros(D), torch.ones(D), size=3),
                         learn_transitions=True, trans_prior_strength=2.0)
     close(hmm.trans_alpha_prior, 2.0 * torch.exp(hmm.graph_log_trans), 0.0)
     assert hmm.graph_log_trans.dtype == torch.float32
+
+
+# ----------------------------------------------------------------------
+# learned transitions on per-utterance (B, S, S) graphs
+# ----------------------------------------------------------------------
+def test_per_utterance_learned_transitions_match_jax():
+    """3 VB steps of the recognizer on per-utterance graphs with learned
+    transitions (general path): ELBO (KL included), the (B, S, S)
+    Dirichlet, posteriors and decode against the JAX package in float64,
+    then one coordinate step and the conversion round trip."""
+    from beer_tpu.vbi import vb_step_coordinate as jax_vb_step_coordinate
+
+    jh = jax_hmm("recognizer_per_utt_learned", jnp.float64)
+    hmm = hmm_to_port(jh, torch.float64)
+    assert hmm.trans_alpha_post.shape == (B, 6, 6) and hmm.route() == "general"
+    x, mask = _data(np.float64, seed=11)
+    jelbos, jh = _jax_steps(jh, x, mask)
+    elbos, hmm = _port_steps(hmm, x, mask)
+    close(elbos, jelbos, RTOL_F64)
+    close(hmm.trans_alpha_post, jh.trans_alpha_post, RTOL_F64, atol=1e-12)
+    close(hmm.kl_div_posterior_prior(), jh.kl_div_posterior_prior(), RTOL_F64)
+    close(hmm.posteriors(t(x), t(mask)), jh.posteriors(jnp.asarray(x), jnp.asarray(mask)),
+          RTOL_F64, atol=1e-12)
+    jpaths, jscores = jh.decode(jnp.asarray(x), jnp.asarray(mask))
+    paths, scores = hmm.decode(t(x), t(mask))
+    lengths = mask.sum(1).astype(int)
+    for b in np.flatnonzero(lengths):
+        np.testing.assert_array_equal(paths[b, :lengths[b]].numpy(),
+                                      np.asarray(jpaths)[b, :lengths[b]])
+        close(scores[b], jscores[b], RTOL_F64)
+    jelbo, jh = jax_vb_step_coordinate(jh, jnp.asarray(x), mask=jnp.asarray(mask))
+    elbo, hmm = bt.vb_step_coordinate(hmm, t(x), mask=t(mask))
+    close(elbo, jelbo, RTOL_F64)
+    close(hmm.trans_alpha_post, jh.trans_alpha_post, RTOL_F64, atol=1e-12)
+    got, want = hmm.to_numpy(), hmm_to_numpy(jh)
+    close(got["trans_alpha_post"], want["trans_alpha_post"], RTOL_F64, atol=1e-12)
+    back = bt.hmm_from_numpy(got, device="cpu")
+    for a, b in zip(jax.tree.leaves(back.to_numpy()), jax.tree.leaves(got)):
+        if isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_reference_fault_pooled_transition_counts():
+    """ROADMAP §C, fault (a), in both packages: on per-utterance graphs
+    each utterance's Dirichlet gains the batch's summed ξ outer products
+    times its own matrix, not its own ξ, whose sum is its number of
+    transitions."""
+    jh = jax_hmm("recognizer_per_utt_learned", jnp.float64)
+    hmm = hmm_to_port(jh, torch.float64)
+    x, mask = _data(np.float64, seed=12)
+    jstats = jh.sufficient_statistics(jnp.asarray(x))
+    jacc = jh.accumulate(jstats, jh.infer(jstats, jnp.asarray(mask))[1])
+    stats = hmm.sufficient_statistics(t(x))
+    lz, cache = hmm.infer(stats, t(mask))
+    acc = hmm.accumulate(stats, cache)
+    close(acc["trans"], jacc["trans"], RTOL_F64, atol=1e-12)
+    lengths = mask.sum(1).astype(int)
+    for b in np.flatnonzero(lengths):
+        one = hmm_to_port(jh, torch.float64)
+        for name in ("graph_log_init", "graph_log_final", "graph_log_trans", "graph_pdf_ids",
+                     "trans_alpha_prior", "trans_alpha_post"):
+            setattr(one, name, getattr(one, name)[b:b + 1])
+        _, c1 = one.infer(one.sufficient_statistics(t(x[b:b + 1])), t(mask[b:b + 1]))
+        own = one.expected_transition_counts(c1)
+        close(own.sum(), lengths[b] - 1, 1e-10)
+        assert abs(float(acc["trans"][b].sum()) - (lengths[b] - 1)) > 0.1
+        assert float((acc["trans"][b] - own).abs().max()) > 0.1
+
+
+def _dirichlet_kl_rows(a_q, a_p):
+    """Σ over rows of KL(Dir(a_q[row]) ‖ Dir(a_p[row])) over each row's
+    allowed arcs (a_p > 0), each row against its own sum."""
+    total = 0.0
+    for q, p in zip(a_q.reshape(-1, a_q.shape[-1]), a_p.reshape(-1, a_p.shape[-1])):
+        on = p > 0
+        if not bool(on.any()):
+            continue
+        q, p = q[on], p[on]
+        total += float(torch.lgamma(q.sum()) - torch.lgamma(q).sum() - torch.lgamma(p.sum())
+                       + torch.lgamma(p).sum()
+                       + ((q - p) * (torch.digamma(q) - torch.digamma(q.sum()))).sum())
+    return total
+
+
+def test_reference_fault_transition_kl_axis():
+    """ROADMAP §C, fault (b), in both packages: on (B, S, S) concentrations
+    the transition KL subtracts the digamma of column j's row sum from
+    entry (b, i, j), so it differs from the KL taken row by row; on a
+    shared (S, S) matrix the two agree."""
+    x, mask = _data(np.float64, seed=13)
+    for kind, faulty in (("recognizer_per_utt_learned", True), ("recognizer_learned", False)):
+        jh = jax_hmm(kind, jnp.float64)
+        jh = _jax_steps(jh, x, mask, n=1)[1]
+        hmm = hmm_to_port(jh, torch.float64)
+        kl = float(hmm._trans_kl())
+        close(kl, float(jh._trans_kl()), RTOL_F64)
+        per_row = _dirichlet_kl_rows(hmm.trans_alpha_post, hmm.trans_alpha_prior)
+        if faulty:
+            assert abs(kl - per_row) > 0.1 * abs(per_row)
+        else:
+            close(kl, per_row, 1e-10)
