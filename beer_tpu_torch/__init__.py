@@ -22,7 +22,8 @@ the hybrid step (:func:`make_vae_train_step`, :class:`VBOptimizer`); the
 subspace-HMM (:class:`GSM`, :class:`HierarchicalGSM`): the phone-loop
 E-step with materialised posteriors through the general-path kernels
 (``PhoneLoop.smooth``), :func:`accumulate_unit_stats`, the ELBO gradient
-step (:func:`make_gsm_train_step`) and the moment-matched write-back
+step (:func:`make_gsm_train_step`; :func:`make_gsm_train_scan` runs the
+inner loop as one CUDA graph) and the moment-matched write-back
 (:func:`apply_to_phoneloop`); and the acoustic-unit-discovery recipe's
 command line (``python -m beer_tpu_torch.cli`` or ``beer-torch``:
 ``dataset create``, ``features extract``, ``hmm mkphoneloop``, ``hmm
@@ -136,9 +137,11 @@ __all__ = [
     "accumulate_unit_stats",
     "apply_to_phoneloop",
     "induced_posterior_moments",
+    "make_gsm_train_scan",
     "make_gsm_train_step",
     "slice_gsm",
     "train_gsm",
+    "train_key",
     "gsm_from_numpy",
     "ELBO",
     "VBConjugateOptimizer",

@@ -86,6 +86,15 @@ def setup(parser):
     )
 
 
+def pad_archive(path_or_npz):
+    """(keys, data (B, T, D), mask (B, T)) of a path (``.bar`` or
+    ``.npz``) or of an opened ``.npz``, each utterance zero-padded to the
+    longest."""
+    from beer_tpu_torch import io as bio
+
+    return bio.load_padded(path_or_npz)
+
+
 def _sync(device) -> None:
     """Wait for the card, so a host-clock time holds its work."""
     import torch
@@ -136,6 +145,14 @@ class _Ranks:
         return MetricsLogger(outdir / "log" if self.rank == 0 else None, stdout=False)
 
 
+def _convert_once(npz_path, bar_path) -> None:
+    """``io.convert_npz`` unless the archive is already there."""
+    from beer_tpu_torch import io as bio
+
+    if not Path(bar_path).exists():
+        bio.convert_npz(npz_path, bar_path)
+
+
 def _train_minibatch(args, model, outdir, device, ranks, start_epoch=0):
     """Minibatches from a ``.bar`` archive through ``io.BatchLoader``.
 
@@ -154,8 +171,9 @@ def _train_minibatch(args, model, outdir, device, ranks, start_epoch=0):
         bar_path = args.feats
     else:  # convert once next to the npz for mmap'd minibatch reads
         bar_path = args.feats + ".bar"
-        if not Path(bar_path).exists():
-            ranks.write(bio.convert_npz, args.feats, bar_path)
+        # rank 0 alone looks for the archive: a rank that looked after it
+        # was written would skip the barrier that the others wait in
+        ranks.write(_convert_once, args.feats, bar_path)
     archive = bio.Archive(bar_path)
     n_utts = len(archive)
 

@@ -8,6 +8,9 @@ Alternates, per outer iteration (SURVEY.md §3.5):
    counts),
 3. reparameterization-trick gradient steps on the GSM ELBO (one
    ``torch.optim.Adam`` whose state lives across outer iterations),
+   through ``make_gsm_train_scan``: on the card the whole inner loop is
+   one captured CUDA graph replayed ``--inner-iters`` times; with
+   ``--device cpu`` the same steps run eagerly,
 4. moment-matched write-back of the subspace posterior into the loop(s).
 
 Single language trains a :class:`beer_tpu_torch.models.gsm.GSM`; adding
@@ -16,8 +19,9 @@ Single language trains a :class:`beer_tpu_torch.models.gsm.GSM`; adding
 embedding per language, units concatenated across languages.
 
 The models are drawn from a CPU ``torch.Generator`` seeded 0, the
-gradient steps' and write-backs' noise from a generator seeded 1 on the
-compute device, so two runs on one device are identical.
+gradient steps' and write-backs' noise from ``train_key(1)``, a
+generator seeded 1 on the compute device, so two runs on one device are
+identical.
 
 Input: trained phone-loop ``.mdl`` (diagonal covariance) + features;
 output: subspace-constrained loops (``final.mdl`` / ``final_NAME.mdl``)
@@ -72,8 +76,9 @@ def main(args):
         HierarchicalGSM,
         accumulate_unit_stats,
         apply_to_phoneloop,
+        make_gsm_train_scan,
         slice_gsm,
-        train_gsm,
+        train_key,
     )
     from beer_tpu_torch.utils import load_model, save_model
     from beer_tpu_torch.vbi import vb_step
@@ -116,8 +121,11 @@ def main(args):
             learn_transitions=args.learn_transitions, trunk=args.trunk,
             generator=init, device=device,
         )
-    optimizer = torch.optim.Adam(gsm.parameters(), lr=args.lrate)
-    noise = torch.Generator(device=device).manual_seed(1)
+    # capturable: Adam's step count stays on the card, as a captured step needs
+    optimizer = torch.optim.Adam(gsm.parameters(), lr=args.lrate,
+                                 capturable=device.type == "cuda")
+    grun = make_gsm_train_scan(optimizer)
+    noise = train_key(1, device)
 
     for outer in range(args.outer_iters):
         # 1. VB re-estimation of each loop under the current constraint
@@ -132,9 +140,9 @@ def main(args):
         stats = cat_stats([st for st, _ in per_lang])
         counts = torch.cat([ct for _, ct in per_lang])
 
-        # 3. subspace training
-        elbo = train_gsm(gsm, optimizer, stats, counts, generator=noise,
-                         nsteps=args.inner_iters)[-1]
+        # 3. subspace training: on the card the whole inner loop is one
+        # captured graph, replayed
+        elbo = grun(gsm, stats, counts, generator=noise, nsteps=args.inner_iters)
 
         # 4. moment-matched write-back per language
         if multilingual:

@@ -272,13 +272,16 @@ class Archive:
 
 
 def load_padded(path):
-    """(keys, data (B, T, D), mask (B, T)) from a .bar or .npz archive."""
-    path = str(path)
-    if path.endswith(".bar"):
-        archive = Archive(path)
+    """(keys, data (B, T, D), mask (B, T)) from a .bar or .npz archive, or
+    from an opened .npz."""
+    if hasattr(path, "files"):
+        archive = path
+    elif str(path).endswith(".bar"):
+        archive = Archive(str(path))
         data, mask = archive.padded_batch(np.arange(len(archive)))
         return archive.keys, data, mask
-    archive = np.load(path)
+    else:
+        archive = np.load(str(path))
     keys = list(archive.files)
     lengths = [archive[k].shape[0] for k in keys]
     t_max = max(lengths)

@@ -18,9 +18,11 @@ from beer_tpu_torch.models.gsm import (
     accumulate_unit_stats,
     apply_to_phoneloop,
     induced_posterior_moments,
+    make_gsm_train_scan,
     make_gsm_train_step,
     slice_gsm,
     train_gsm,
+    train_key,
 )
 from beer_tpu_torch.models.hmm import HMM
 from beer_tpu_torch.models.mixture import Mixture, MixtureSet
@@ -66,7 +68,9 @@ __all__ = [
     "accumulate_unit_stats",
     "apply_to_phoneloop",
     "induced_posterior_moments",
+    "make_gsm_train_scan",
     "make_gsm_train_step",
     "slice_gsm",
     "train_gsm",
+    "train_key",
 ]

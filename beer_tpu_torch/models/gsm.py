@@ -22,7 +22,8 @@ One outer iteration of subspace-HMM training is
    posteriors (``PhoneLoop.smooth``: the general-path kernels K12 + K13
    on the card) reduced to per-unit statistics,
 3. gradient steps on :meth:`GSM.elbo` (:func:`make_gsm_train_step`;
-   :func:`train_gsm` loops over them),
+   :func:`train_gsm` loops over them, :func:`make_gsm_train_scan` runs
+   them as one CUDA graph on the card),
 4. :func:`apply_to_phoneloop`: the Monte-Carlo moments of q(η(e_u)) are
    moment-matched to NormalGamma / Dirichlet posteriors and written back.
 
@@ -371,6 +372,192 @@ def train_gsm(gsm: GSM, optimizer: torch.optim.Optimizer, unit_stats, unit_count
     synchronisation in between."""
     step = make_gsm_train_step(optimizer, nsamples)
     return torch.stack([step(gsm, unit_stats, unit_counts, generator) for _ in range(nsteps)])
+
+
+def train_key(seed: int, device=None) -> torch.Generator:
+    """The generator of the subspace training loop's noise, seeded
+    ``seed`` on ``device`` (default: the CUDA card).  The JAX package's
+    choice among PRNG implementations has no counterpart here."""
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+
+
+def require_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Raise ``ValueError`` unless every parameter group of ``optimizer``
+    was built with ``capturable=True``.  Without it Adam keeps its step
+    count on the host, so a captured step would synchronise (and replay
+    the bias correction of the step it was captured at)."""
+    if not all(group.get("capturable", False) for group in optimizer.param_groups):
+        raise ValueError(
+            f"make_gsm_train_scan on a CUDA device needs an optimizer built with "
+            f"capturable=True, got {type(optimizer).__name__} without it")
+
+
+def _stats_tensors(unit_stats, unit_counts):
+    """The tensors of a ``run`` call's statistics, in a fixed order, and
+    the signature (structure, shapes, dtypes) that a captured graph keys on."""
+    if isinstance(unit_stats, dict):
+        names = sorted(unit_stats)
+        tensors = [unit_stats[k] for k in names]
+    else:
+        names, tensors = None, [unit_stats]
+    tensors.append(unit_counts)
+    sig = (names, tuple(None if v is None else (tuple(v.shape), v.dtype) for v in tensors))
+    return tensors, sig
+
+
+def _default_generator(device: torch.device) -> torch.Generator:
+    return torch.cuda.default_generators[
+        device.index if device.index is not None else torch.cuda.current_device()]
+
+
+class _CapturedStep:
+    """One Adam step on the GSM ELBO captured as a CUDA graph.
+
+    The statistics, the step's noise (when the caller passes ``eps``) and
+    the step's ELBO live in static buffers that a replay reads and
+    writes.  With a ``generator`` the noise is drawn inside the graph from
+    it (registered with the graph, so every replay draws new numbers and
+    advances it as an eager step would)."""
+
+    WARMUP_STEPS = 2
+
+    def __init__(self, gsm: GSM, optimizer, nsamples: int, unit_stats, unit_counts, generator,
+                 with_eps: bool):
+        tensors, _ = _stats_tensors(unit_stats, unit_counts)
+        self.statics = [None if v is None else v.detach().clone() for v in tensors]
+        stats = (dict(zip(sorted(unit_stats), self.statics[:-1]))
+                 if isinstance(unit_stats, dict) else self.statics[0])
+        counts = self.statics[-1]
+        ref = gsm.e_mean
+        device = ref.device
+        self.eps = ({name: torch.zeros(shape, dtype=ref.dtype, device=device)
+                     for name, shape in gsm._eps_spec(nsamples).items()} if with_eps else None)
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+
+        # Nothing in the step synchronises or copies from the host: the
+        # ELBO, the links, the trunk's layers and the H-SHMM's language
+        # gather are device ops on device tensors (the array form without
+        # counts raises its ValueError in the warm-up, before the capture),
+        # and the matmuls are captured with TF32 off, as the package sets it.
+        def step():
+            # the gradients are left to the graph's pool: with set_to_none,
+            # backward assigns them afresh (no accumulation across replays)
+            optimizer.zero_grad(set_to_none=True)
+            elbo = gsm.elbo(stats, counts, generator, nsamples, self.eps)
+            (-elbo).backward()
+            optimizer.step()
+            return elbo.detach()
+
+        # The optimizer's state must exist before the capture: Adam makes
+        # exp_avg / exp_avg_sq / step at its first step(), and a first step
+        # inside the capture would zero them again on every replay.  The
+        # warm-up (which also makes cuBLAS's and autograd's lazy state)
+        # takes real steps, so the parameters, the optimizer state and the
+        # generator are put back as they were before the capture.
+        saved_params = [p.detach().clone() for p in params]
+        saved_state = {p: {n: v.clone() if torch.is_tensor(v) else v
+                           for n, v in optimizer.state[p].items()}
+                       for p in params if optimizer.state.get(p)}
+        rng = generator if generator is not None else _default_generator(device)
+        saved_rng = rng.get_state()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP_STEPS):
+                step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        with torch.no_grad():
+            for p, v in zip(params, saved_params):
+                p.copy_(v)
+            for p in params:
+                state, before = optimizer.state[p], saved_state.get(p)
+                for n, v in state.items():
+                    if before is not None:
+                        if torch.is_tensor(v):
+                            v.copy_(before[n])
+                        else:
+                            state[n] = before[n]
+                    elif torch.is_tensor(v):
+                        # a state the warm-up created: the Adam family's
+                        # lazy initial value is zeros and step 0
+                        v.zero_()
+        rng.set_state(saved_rng)
+        optimizer.zero_grad(set_to_none=True)
+
+        self.graph = torch.cuda.CUDAGraph()
+        # the default generator registers itself at the capture; another
+        # must be registered, or every replay would draw the same numbers
+        if generator is not None and generator is not _default_generator(device):
+            self.graph.register_generator_state(generator)
+        with torch.cuda.graph(self.graph):
+            self.elbo = step()
+
+    def load(self, unit_stats, unit_counts) -> None:
+        """Copy a call's statistics into the static buffers."""
+        tensors, _ = _stats_tensors(unit_stats, unit_counts)
+        for static, v in zip(self.statics, tensors):
+            if static is not None:
+                static.copy_(v)
+
+    def replay(self, eps: Optional[Dict[str, torch.Tensor]]) -> None:
+        """One step; with ``eps``, on that step's noise."""
+        if eps is not None:
+            for name, buf in self.eps.items():
+                buf.copy_(eps[name])
+        self.graph.replay()
+
+
+def make_gsm_train_scan(optimizer: torch.optim.Optimizer, nsamples: int = 4):
+    """``nsteps`` Adam steps on the GSM ELBO as one device program (the
+    counterpart of the JAX package's ``lax.scan`` over the steps).
+
+    Returns ``run(gsm, unit_stats, unit_counts=None, generator=None,
+    nsteps=1, eps=None) -> last_elbo``, a detached 0-dim tensor, read
+    without a host synchronisation.  ``gsm`` and ``optimizer`` are updated
+    in place, as :func:`train_gsm` updates them.  ``eps`` is optional
+    per-step noise, a dict of ``(nsteps, *shape)`` tensors, one for each
+    block of ``gsm._eps_spec(nsamples)``; without it each step draws its
+    noise from ``generator``.
+
+    On a CUDA device one step is captured as a CUDA graph and replayed
+    ``nsteps`` times (a captured block of 10 steps ran no faster on an
+    H100).  The graph is kept for the next call with the same model,
+    parameters, statistics' shapes, generator and noise mode; a new outer
+    iteration's statistics are copied into it.  The optimizer must be
+    built with ``capturable=True`` there (:func:`require_capturable`).
+    A capture that fails raises; nothing falls back to the eager loop on
+    the card.  On the CPU the same steps run eagerly
+    (:func:`make_gsm_train_step`), the plain version."""
+    step = make_gsm_train_step(optimizer, nsamples)
+    captured: Dict[str, Any] = {}       # "sig", "generator", "step" of the last capture
+
+    def run(gsm: GSM, unit_stats, unit_counts=None, generator=None, nsteps: int = 1, eps=None):
+        if nsteps < 1:
+            raise ValueError(f"nsteps must be >= 1, got {nsteps}")
+        if eps is not None:
+            want = {name: (nsteps, *shape) for name, shape in gsm._eps_spec(nsamples).items()}
+            got = {name: tuple(v.shape) for name, v in eps.items()}
+            if got != want:
+                raise ValueError(f"eps: expected blocks {want}, got {got}")
+        if gsm.e_mean.device.type != "cuda":
+            for i in range(nsteps):
+                elbo = step(gsm, unit_stats, unit_counts, generator,
+                            None if eps is None else {k: v[i] for k, v in eps.items()})
+            return elbo
+        require_capturable(optimizer)
+        sig = (id(gsm), tuple(p.data_ptr() for p in gsm.parameters()),
+               _stats_tensors(unit_stats, unit_counts)[1], eps is not None)
+        if captured.get("sig") != sig or captured.get("generator") is not generator:
+            captured.clear()
+            captured.update(sig=sig, generator=generator, step=_CapturedStep(
+                gsm, optimizer, nsamples, unit_stats, unit_counts, generator, eps is not None))
+        graph = captured["step"]
+        graph.load(unit_stats, unit_counts)
+        for i in range(nsteps):
+            graph.replay(None if eps is None else {k: v[i] for k, v in eps.items()})
+        return graph.elbo.clone()
+
+    return run
 
 
 # ----------------------------------------------------------------------

@@ -32,6 +32,10 @@ class BayesianParameter(nn.Module):
         """E_q[T(θ)] = ∇A(η_post), shape (..., P)."""
         return self.family.expected_sufficient_statistics(self.posterior)
 
+    def expected_natural_parameters(self) -> torch.Tensor:
+        """Reference-API alias for :meth:`expected_sufficient_statistics`."""
+        return self.expected_sufficient_statistics()
+
     def kl_div_posterior_prior(self) -> torch.Tensor:
         """Σ KL(q(θ)‖p(θ)) over the whole parameter set (scalar)."""
         return self.family.kl_div(self.posterior, self.prior).sum()
@@ -43,3 +47,7 @@ class BayesianParameter(nn.Module):
         """
         self.posterior.copy_(self.posterior + lrate * (self.prior + stats - self.posterior))
         return self
+
+    def zero_stats(self) -> torch.Tensor:
+        """A zero statistics tensor matching this parameter."""
+        return torch.zeros_like(self.posterior)

@@ -112,20 +112,29 @@ per-utterance graphs, in twenty-three phases, each printing one line
 16. gsm slice: one subspace-HMM outer iteration at config 4's full shape:
    2 VB steps, ``accumulate_unit_stats`` with transitions through K12 +
    K13 (launch counters read around it: K12 1, K13 1, K1 and K2 0)
-   against the plain route, 200 Adam steps of the GSM ELBO (it must
-   rise), the moment-matched write-back (the loop's E[T] must equal the
+   against the plain route, 200 Adam steps of the GSM ELBO through
+   ``make_gsm_train_scan``'s CUDA graph (it must rise), held against the
+   eager loop on the same noise (bitwise where two eager runs are, else
+   every step's ELBO within 1e-5 and the parameters within 1e-4
+   relative; the graph drawing its own noise from a registered generator
+   is compared with the eager loop, printed), the moment-matched
+   write-back (the loop's E[T] must equal the
    Monte-Carlo moments), one more VB step and a decode, and the launch
    counts are read there; after that, off the path, the log-domain
    ``forward_backward`` (K12 forward + reverse) against
    ``forward_backward_probs``; K14 + K15 through ``forward_llh`` /
    ``phone_loop_estep`` against the general path; small problems against
-   the float64 general path on the CPU; a few H-SHMM gradient steps at
-   bench config 6's shape (finite and rising);
+   the float64 general path on the CPU; 50 H-SHMM gradient steps at
+   bench config 6's shape through the graph (finite and rising), held
+   against the eager loop as the GSM's;
 17. gsm times: ``PhoneLoop.smooth`` (banded instances), the same work
    through the dense ones and on the plain route, ``accumulate_unit_stats``, the GSM
-   and the H-SHMM gradient step (ms/step, steps/s), the write-back, the
-   whole outer iteration, and ``torch.profiler`` traces of the statistics
-   bridge and of one GSM step (device time, launches, busy share);
+   and the H-SHMM gradient step eager and through the CUDA graph
+   (ms/step, steps/s, in turns: eager, graph, graph, eager), the
+   write-back, two outer iterations through
+   the scan (the first captures the graph), and ``torch.profiler`` traces
+   of the statistics bridge, of one eager step and of 50 graph steps
+   (device time, launches, busy share);
 18. large dense: every dense kernel (K5 on statistics and on llh, K6,
    K7, K14, K15, K12 dense forward and reverse, K13 dense) against its
    plain version on an ergodic HMM at S = 150 and S = 300 (B = 64, T =
@@ -202,7 +211,9 @@ per-utterance graphs, in twenty-three phases, each printing one line
    --learn-transitions --loop-epochs 3 --outer-iters 2 --inner-iters
    200`` (the recipe runs 6 × 600), ``hmm decode --per-frame`` of C's
    held-out split and ``local/score.py``'s NMI (printed, not gated); K1,
-   K2, K12 and K13 read around ``shmm train`` must be above 0; every GSM
+   K2, K12 and K13 read around ``shmm train`` must be above 0, its inner
+   loops must run through ``make_gsm_train_scan`` (one run an outer
+   iteration, no eager loop); every GSM
    ELBO finite, the last above the first, ``final_A.mdl``,
    ``final_B.mdl`` and ``gsm.mdl`` written, the GSM an H-SHMM of 60 units
    and 3 languages, the transitions written back; one line of each
@@ -366,17 +377,11 @@ def device_ms(fn, name, reps=REPS):
     """Mean device time of one launch of the kernel whose name contains
     ``name``, which ``fn`` launches once (``torch.profiler`` over ``reps``
     calls after one warm-up, divided by the launches it recorded): a
-    kernel's time without its wrapper's host work."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages() if name in e.key]
-    count = sum(e.count for e in seen)
-    check(count > 0, f"the profiler saw no kernel named {name}")
-    return sum(e.self_device_time_total for e in seen) / count / 1e3
+    kernel's time without its wrapper's host work.  A trace can miss a
+    kernel (one run's phase 6 recorded no launch of K5), so a trace
+    without it is taken again, up to three times, and then the call is
+    timed by CUDA events instead, wrapper included (said on stderr)."""
+    return _traced_ms(fn, (name,), reps)
 
 
 def entry_ms(fn, names, reps=KERNEL_REPS):
@@ -386,9 +391,16 @@ def entry_ms(fn, names, reps=KERNEL_REPS):
     the trace recorded): a C entry point's kernels (a scan kernel and its
     batch sum) without the wrapper's host work and tensor preparation.
     A trace can miss launches (one run's phase 12 recorded only K11's
-    batch sum), so the mean is taken over the recorded ones, and a trace
+    batch sum), so the mean is taken over the recorded ones, a trace
     without the first of ``names`` (the scan kernel) is taken again, up
-    to three times."""
+    to three times, and then the call is timed by CUDA events."""
+    return _traced_ms(fn, names, reps)
+
+
+def _traced_ms(fn, names, reps):
+    """The sum over ``names`` of each kernel's mean device ms a launch, from
+    the first of three traces that holds device time of ``names[0]``; the
+    CUDA-event time of a call where none does."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -399,7 +411,9 @@ def entry_ms(fn, names, reps=KERNEL_REPS):
         seen = [e for e in prof.key_averages() if any(n in e.key for n in names) and e.count > 0]
         if any(names[0] in e.key and e.self_device_time_total > 0 for e in seen):
             return sum(e.self_device_time_total / e.count for e in seen) / 1e3
-    raise AssertionError(f"the profiler saw no device time of {names[0]} in three traces")
+    print(f"chip_smoke: no device time of {names[0]} in three traces; timed by CUDA events, "
+          "wrapper included", file=sys.stderr)
+    return cuda_ms(fn, reps)
 
 
 def unfused_estep(est):
@@ -1939,6 +1953,90 @@ def gsm_reference_check(dev):
         check(rel(p.grad.double().cpu(), q.grad) <= 1e-4, "small problem: GSM gradient vs float64")
 
 
+def capturable_adam(model):
+    """The optimizer of a captured GSM step: Adam with its step count on the card."""
+    return torch.optim.Adam(model.parameters(), lr=GSM_LR, capturable=True)
+
+
+def eager_gsm(model, stats, eps, n):
+    """``n`` eager steps (``make_gsm_train_step``, capturable Adam) from a
+    copy of ``model`` on the noise stack: every step's ELBO and the model."""
+    m = copy.deepcopy(model)
+    step = bt.make_gsm_train_step(capturable_adam(m), GSM_NSAMPLES)
+    return torch.stack([step(m, stats, eps={k: v[i] for k, v in eps.items()})
+                        for i in range(n)]), m
+
+
+def graph_gsm(model, stats, eps, n):
+    """The same steps through ``make_gsm_train_scan`` from copies of
+    ``model``: one call of ``n`` steps (its last ELBO and model), and ``n``
+    one-step calls that replay one captured graph (every step's ELBO, the
+    model)."""
+    whole = copy.deepcopy(model)
+    last = bt.make_gsm_train_scan(capturable_adam(whole), GSM_NSAMPLES)(whole, stats, nsteps=n,
+                                                                          eps=eps)
+    single = copy.deepcopy(model)
+    run = bt.make_gsm_train_scan(capturable_adam(single), GSM_NSAMPLES)
+    elbos = torch.stack([run(single, stats, nsteps=1, eps={k: v[i:i + 1] for k, v in eps.items()})
+                         for i in range(n)])
+    return last, whole, elbos, single
+
+
+def model_gap(a, b):
+    """The largest parameter difference, relative to each parameter's largest entry."""
+    return max(rel(p.detach(), q.detach()) for p, q in zip(a.parameters(), b.parameters()))
+
+
+def steps_rel(got, want):
+    """The largest relative difference of two runs' ELBOs, step by step."""
+    return float(((got - want).abs() / want.abs()).max())
+
+
+def graph_vs_eager(model, stats, n, gen, label):
+    """The CUDA graph against the eager loop on the same noise from the
+    same start, and a second eager run against the first: bitwise where
+    the eager runs are (no atomic adds in the step), otherwise every
+    step's ELBO within 1e-5 and the parameters within 1e-4 relative, no
+    farther from the eager run than the second eager run is, within ten
+    times its gap (the graph is one more run of the same arithmetic)."""
+    eps = {k: torch.randn((n, *shape), generator=gen, device=model.e_mean.device)
+           for k, shape in model._eps_spec(GSM_NSAMPLES).items()}
+    e1, m1 = eager_gsm(model, stats, eps, n)
+    e2, m2 = eager_gsm(model, stats, eps, n)
+    last, whole, eg, single = graph_gsm(model, stats, eps, n)
+    torch.cuda.synchronize()
+    gaps = dict(eager_elbo=steps_rel(e2, e1), eager_params=model_gap(m2, m1),
+                graph_elbo=max(steps_rel(eg, e1), steps_rel(last, e1[-1])),
+                graph_params=max(model_gap(whole, m1), model_gap(single, m1)))
+    bitwise = dict(eager=gaps["eager_elbo"] == 0 and gaps["eager_params"] == 0,
+                   graph=gaps["graph_elbo"] == 0 and gaps["graph_params"] == 0)
+    if bitwise["eager"]:
+        check(bitwise["graph"], f"{label}: the graph is not the eager loop to the bit: {gaps}")
+    else:
+        check(gaps["graph_elbo"] <= 1e-5 and gaps["graph_params"] <= 1e-4,
+              f"{label}: the graph against the eager loop: {gaps}")
+        check(gaps["graph_elbo"] <= 10 * gaps["eager_elbo"]
+              and gaps["graph_params"] <= 10 * gaps["eager_params"],
+              f"{label}: the graph is farther from the eager loop than a second eager run: {gaps}")
+    check(bool(torch.isfinite(eg).all()), f"{label}: graph ELBO not finite")
+    return eg, single, dict(bitwise=bitwise, **{k: float(f"{v:.3g}") for k, v in gaps.items()})
+
+
+def generator_draws(model, stats, n, seed):
+    """The scan drawing its noise from a registered generator against the
+    eager loop from the same generator state (capturable Adam on both):
+    whether the parameters agree, and whether both generators stand at
+    the same state afterwards."""
+    dev = model.e_mean.device
+    a, b = copy.deepcopy(model), copy.deepcopy(model)
+    ga, gb = bt.train_key(seed, dev), bt.train_key(seed, dev)
+    bt.make_gsm_train_scan(capturable_adam(a), GSM_NSAMPLES)(a, stats, generator=ga, nsteps=n)
+    bt.train_gsm(b, capturable_adam(b), stats, generator=gb, nsteps=n, nsamples=GSM_NSAMPLES)
+    return dict(same_parameters=model_gap(a, b) == 0, params_rel=float(f"{model_gap(a, b):.3g}"),
+                same_next_draw=bool(torch.equal(torch.randn(8, generator=ga, device=dev),
+                                                torch.randn(8, generator=gb, device=dev))))
+
+
 def rising(elbos, n):
     """Means of the first and the last ``n`` values; the latter must be larger."""
     first, last = float(elbos[:n].mean()), float(elbos[-n:].mean())
@@ -1970,12 +2068,11 @@ def phase_gsm_slice(dev):
     e_trans = abs(float((stats["self"] + stats["adv"]).sum(dtype=torch.float64)) - n_trans) / n_trans
     check(e_trans <= 1e-4, f"self + adv counts sum to a share {1 + e_trans} of the transitions")
 
-    # the subspace: 200 Adam steps on the GSM ELBO
-    gsm = gsm_config(dev)
+    # the subspace: 200 Adam steps on the GSM ELBO through the CUDA graph
+    # of make_gsm_train_scan, against the eager loop on the same noise
+    start = gsm_config(dev)
     gen = torch.Generator(device=dev).manual_seed(11)
-    gsm_elbos = bt.train_gsm(gsm, torch.optim.Adam(gsm.parameters(), lr=GSM_LR), stats,
-                             generator=gen, nsteps=GSM_STEPS, nsamples=GSM_NSAMPLES)
-    check(bool(torch.isfinite(gsm_elbos).all()), "GSM ELBO not finite")
+    gsm_elbos, gsm, gsm_graph = graph_vs_eager(start, stats, GSM_STEPS, gen, "GSM")
     first, last = rising(gsm_elbos, 20)
     check(last > first, f"GSM ELBO did not rise: first 20 {first}, last 20 {last}")
 
@@ -2033,11 +2130,13 @@ def phase_gsm_slice(dev):
     del alpha, gamma, fbp, o
     gsm_reference_check(dev)
 
-    # the H-SHMM gradient step at bench config 6's shape
-    hgsm = gsm_config(dev, hierarchical=True)
+    # the noise drawn inside the graph from a registered generator
+    draws = generator_draws(start, stats, 20, 13)
+
+    # the H-SHMM gradient step at bench config 6's shape, graph against eager
     hstats = synthetic_unit_stats(N_UNITS * GSM_LANGS, STATES_PER_UNIT, D, dev)
-    h_elbos = bt.train_gsm(hgsm, torch.optim.Adam(hgsm.parameters(), lr=GSM_LR), hstats,
-                           generator=gen, nsteps=50, nsamples=GSM_NSAMPLES)
+    h_elbos, hgsm, hshmm_graph = graph_vs_eager(gsm_config(dev, hierarchical=True), hstats, 50,
+                                                gen, "H-SHMM")
     h_first, h_last = rising(h_elbos, 10)
     check(bool(torch.isfinite(h_elbos).all()) and h_last > h_first,
           f"H-SHMM ELBO: first 10 {h_first}, last 10 {h_last}")
@@ -2050,23 +2149,28 @@ def phase_gsm_slice(dev):
           f"{', '.join(f'{e / frames:.6f}' for e in elbos)} | accumulate_unit_stats launches "
           f"{bridge}, vs plain route rel {fmt(e_stats)}, counts-sum rel error {e_counts:.3g}, "
           f"self+adv rel error {e_trans:.3g} | GSM U={N_UNITS} E={GSM_EMBED} {GSM_STEPS} Adam steps "
-          f"lr {GSM_LR} x{GSM_NSAMPLES} samples: ELBO first 20 {first:.6g} -> last 20 {last:.6g} "
+          f"lr {GSM_LR} x{GSM_NSAMPLES} samples through the CUDA graph: ELBO first 20 {first:.6g} "
+          f"-> last 20 {last:.6g}; graph vs eager on the same noise {json.dumps(gsm_graph)}; "
+          f"noise from a registered generator vs the eager loop {json.dumps(draws)} "
           f"| write-back ({GSM_WRITEBACK_SAMPLES} samples) E[T] vs moments rel {fmt(e_mom)} "
           f"| forward_backward vs probs: log Z rel {e_logz:.3g}, gamma abs {e_gamma:.3g}, rel "
           f"{e_gamma_rel:.3g} where gamma > 1e-3 "
           f"| forward_llh + phone_loop_estep vs general path {fmt(e_pair)} "
-          f"| H-SHMM {GSM_LANGS}x{N_UNITS} units, 50 steps: ELBO first 10 {h_first:.6g} -> last 10 "
-          f"{h_last:.6g} | launches of the outer iteration {({k: v for k, v in launches.items() if v})} "
+          f"| H-SHMM {GSM_LANGS}x{N_UNITS} units, 50 steps through the graph: ELBO first 10 "
+          f"{h_first:.6g} -> last 10 {h_last:.6g}; graph vs eager {json.dumps(hshmm_graph)} "
+          f"| tol: graph vs eager bitwise where two eager runs are, else ELBO 1e-5 and parameters "
+          f"1e-4 relative | launches of the outer iteration {({k: v for k, v in launches.items() if v})} "
           f"| small problems agree with float64")
     return launches, (x, m, stats, hstats)
 
 
-def outer_iteration(loop, gsm, optimizer, gen, x, m):
-    """One subspace-HMM outer iteration; returns the loop's last ELBO."""
+def outer_iteration(loop, gsm, run, gen, x, m):
+    """One subspace-HMM outer iteration, its gradient steps through the
+    scan ``run`` (as ``shmm train`` runs them); returns the loop's last ELBO."""
     for _ in range(2):
         bt.vb_step(loop, x, mask=m)
     stats, _ = bt.accumulate_unit_stats(loop, x, m, transitions=True)
-    bt.train_gsm(gsm, optimizer, stats, generator=gen, nsteps=GSM_STEPS, nsamples=GSM_NSAMPLES)
+    run(gsm, stats, generator=gen, nsteps=GSM_STEPS)
     bt.apply_to_phoneloop(gsm, loop, generator=gen, nsamples=GSM_WRITEBACK_SAMPLES)
     return bt.vb_step(loop, x, mask=m)[0]
 
@@ -2100,28 +2204,45 @@ def phase_gsm_times(dev, runs, kernel_rows):
         lambda: bt.accumulate_unit_stats(loop, x, m, transitions=True))}
     gen = torch.Generator(device=dev).manual_seed(12)
     n = 50
+    # eager (train_gsm, the default Adam) and the CUDA graph of
+    # make_gsm_train_scan (capturable Adam) in turns, each its median over
+    # REPS runs of n steps
     for name, model, st in (("gsm", gsm_config(dev), stats),
                             ("hshmm", gsm_config(dev, hierarchical=True), hstats)):
         opt = torch.optim.Adam(model.parameters(), lr=GSM_LR)
-        ms = cuda_ms(lambda: bt.train_gsm(model, opt, st, generator=gen, nsteps=n,
-                                          nsamples=GSM_NSAMPLES)) / n
-        times[f"{name}_step_ms"] = ms
-        times[f"{name}_steps_per_s"] = round(1e3 / ms)
+        twin = copy.deepcopy(model)
+        scan = bt.make_gsm_train_scan(capturable_adam(twin), GSM_NSAMPLES)
+        eager = lambda: bt.train_gsm(model, opt, st, generator=gen, nsteps=n,  # noqa: E731
+                                     nsamples=GSM_NSAMPLES)
+        graph = lambda: scan(twin, st, generator=gen, nsteps=n)  # noqa: E731
+        for tag in ("eager", "graph", "graph", "eager"):
+            times.setdefault(f"{name}_{tag}_step_ms", []).append(
+                cuda_ms(eager if tag == "eager" else graph) / n)
+        for tag in ("eager", "graph"):
+            ms = float(np.min(times[f"{name}_{tag}_step_ms"]))
+            times[f"{name}_{tag}_steps_per_s"] = round(1e3 / ms)
+        times[f"{name}_graph_speedup"] = round(
+            min(times[f"{name}_eager_step_ms"]) / min(times[f"{name}_graph_step_ms"]), 2)
+        profiles[f"{name}_step"] = profile_step(lambda: bt.train_gsm(
+            model, opt, st, generator=gen, nsteps=1, nsamples=GSM_NSAMPLES))
+        profiles[f"{name}_graph_{n}_steps"] = profile_step(graph)
         if name == "gsm":
-            profiles["gsm_step"] = profile_step(lambda: bt.train_gsm(
-                model, opt, st, generator=gen, nsteps=1, nsamples=GSM_NSAMPLES))
             times["writeback_ms"] = cuda_ms(lambda: bt.apply_to_phoneloop(
                 model, loop, generator=gen, nsamples=GSM_WRITEBACK_SAMPLES))
-    gsm = gsm_config(dev)
-    opt = torch.optim.Adam(gsm.parameters(), lr=GSM_LR)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    elbo = float(outer_iteration(config4(dev), gsm, opt, gen, x, m))
-    torch.cuda.synchronize()
-    times["outer_iteration_s"] = time.perf_counter() - t0
-    check(np.isfinite(elbo), "outer iteration: ELBO not finite")
+    # two outer iterations of one model: the first captures the graph
+    gsm, outer_loop = gsm_config(dev), config4(dev)
+    run = bt.make_gsm_train_scan(capturable_adam(gsm), GSM_NSAMPLES)
+    times["outer_iteration_s"] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        elbo = float(outer_iteration(outer_loop, gsm, run, gen, x, m))
+        torch.cuda.synchronize()
+        times["outer_iteration_s"].append(round(time.perf_counter() - t0, 4))
+        check(np.isfinite(elbo), "outer iteration: ELBO not finite")
     print("phase 17 gsm times: " + json.dumps(
-        {**{k: round(v, 3) if isinstance(v, float) else v for k, v in times.items()},
+        {**{k: round(v, 4) if isinstance(v, float) else [round(u, 4) for u in v]
+            if isinstance(v, list) else v for k, v in times.items()},
          "kernels_ms": {f"{name}_{inst}": round(v["ms"], 3) for inst, rows in kernel_rows.items()
                         for name, v in rows.items()},
          "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
@@ -2619,6 +2740,33 @@ def timed_calls(module, name):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def timed_scan_runs(module):
+    """Make ``module.make_gsm_train_scan`` return runs that record each
+    call's (start, end) on the host clock, the card synchronised at both ends."""
+    make = module.make_gsm_train_scan
+    calls = []
+
+    def timed_make(*args, **kwargs):
+        run = make(*args, **kwargs)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = run(*a, **kw)
+            torch.cuda.synchronize()
+            calls.append((t0, time.time()))
+            return out
+
+        return timed
+
+    module.make_gsm_train_scan = timed_make
+    try:
+        yield calls
+    finally:
+        module.make_gsm_train_scan = make
+
+
 def printed_elbos(printed, pattern=r"epoch (\d+): elbo/frame = (\S+)"):
     import re
 
@@ -2933,7 +3081,7 @@ def phase_mapreduce_shmm(dev, card, tmp):
             ["hmm", "train", sh / f"init_{lang}.mdl", sh / f"feats_{lang}.npz",
              sh / f"train_{lang}", "--epochs", SHMM_LOOP_EPOCHS])
     cuda_scan.reset_launch_counts()
-    with timed_calls(tgsm, "train_gsm") as gsm_calls:
+    with timed_scan_runs(tgsm) as gsm_calls, timed_calls(tgsm, "train_gsm") as eager_calls:
         secs["shmm_train"], printed = verb(
             ["shmm", "train", sh / "train_C" / "final.mdl", sh / "feats_C.npz", sh / "shmm",
              "--extra-lang", f"A:{sh / 'train_A' / 'final.mdl'}:{sh / 'feats_A.npz'}",
@@ -2941,6 +3089,8 @@ def phase_mapreduce_shmm(dev, card, tmp):
              "--embed-dim", "8", "--lang-dim", "2", "--learn-transitions",
              "--outer-iters", SHMM_OUTER, "--inner-iters", SHMM_INNER, "--loop-epochs", "3"])
     launches["shmm_train"] = path_launches(SHMM_KERNELS)
+    check(len(gsm_calls) == SHMM_OUTER and not eager_calls,
+          f"shmm train's inner loops: {len(gsm_calls)} scan runs, {len(eager_calls)} eager loops")
     for k in SHMM_KERNELS:
         check(launches["shmm_train"][k] > 0, f"{k} not launched by shmm train: {launches}")
     secs["decode_C_eval"] = run_verb(["hmm", "decode", sh / "shmm" / "final.mdl",
@@ -2969,7 +3119,8 @@ def phase_mapreduce_shmm(dev, card, tmp):
           f"{frames:.0f}: 4 shards in this process and 2 concurrent processes vs one vb_step: "
           + json.dumps({k: {"rel": float(f"{v[0]:.3g}"), "elbo_gap": float(f"{v[1]:.3g}")}
                        for k, v in mr.items()})
-          + f" | gsm elbo by outer iteration {values} | gsm steps {SHMM_INNER} an outer iteration, "
+          + f" | gsm elbo by outer iteration {values} | gsm steps {SHMM_INNER} an outer iteration "
+          f"through the scan's CUDA graph (the first call captures it), "
           f"{', '.join(f'{s:.3f}' for s in gsm_secs)} s ({SHMM_INNER / np.mean(gsm_secs):.0f} "
           f"steps/s) | outer iteration (write-back, 3 x 3 loop VB steps, statistics, GSM steps) "
           f"{', '.join(f'{s:.3f}' for s in outer_secs)} s | C eval: {score} | seconds "

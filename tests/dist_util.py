@@ -6,6 +6,12 @@ the caller's (no TCP port, so concurrent test workers cannot collide)
 and runs one of the worker bodies below in each.  A worker writes its
 results to ``out/rank<r>.pkl``; :func:`results` reads them back.
 
+Every rank is bounded twice, so a stuck rank fails its fixture with a
+cause instead of holding the suite past its time limit: its process
+group (the ``FileStore`` rendezvous and every collective) times out after
+:data:`GROUP_TIMEOUT`, and :func:`spawn` terminates the ranks still alive
+after :data:`JOIN_SECONDS` and raises a ``TimeoutError`` naming them.
+
 This module imports no JAX and nothing of ``beer_tpu``, so the spawned
 processes import torch and the port only; the tests hold what the
 workers wrote against the JAX package in their own process.
@@ -14,8 +20,11 @@ workers wrote against the JAX package in their own process.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
+import os
 import pickle
+import time
 from pathlib import Path
 
 import numpy as np
@@ -23,10 +32,16 @@ import torch
 import torch.distributed as dist
 
 
+GROUP_TIMEOUT = datetime.timedelta(seconds=90)   # rendezvous and each collective
+JOIN_SECONDS = 240.0                             # every rank of one spawn, start-up included
+
+
 def _entry(rank, world, store, fn, args):
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
-                            world_size=world)
+    file_store = dist.FileStore(store, world)
+    file_store.set_timeout(GROUP_TIMEOUT)
+    dist.init_process_group("gloo", store=file_store, rank=rank, world_size=world,
+                            timeout=GROUP_TIMEOUT)
     try:
         fn(rank, *args)
     finally:
@@ -34,12 +49,47 @@ def _entry(rank, world, store, fn, args):
 
 
 def spawn(fn, world: int, tmp, *args) -> None:
-    """``fn(rank, *args)`` on ``world`` gloo ranks; raises if one fails."""
+    """``fn(rank, *args)`` on ``world`` gloo ranks; raises if one fails,
+    or a ``TimeoutError`` if some are still running after
+    :data:`JOIN_SECONDS` (those are terminated first)."""
     import torch.multiprocessing as mp
 
     store = Path(tmp) / "store"
-    mp.start_processes(_entry, args=(world, str(store), fn, args), nprocs=world,
-                       start_method="spawn")
+    context = mp.start_processes(_entry, args=(world, str(store), fn, args), nprocs=world,
+                                 start_method="spawn", join=False)
+    deadline = time.monotonic() + JOIN_SECONDS
+    try:
+        while not context.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                alive = [r for r, p in enumerate(context.processes) if p.is_alive()]
+                raise TimeoutError(
+                    f"{fn.__name__} on {world} gloo ranks ({os.environ.get('PYTEST_CURRENT_TEST')}"
+                    f"): ranks {alive} still running after {JOIN_SECONDS:.0f} s; terminated")
+    finally:
+        _stop(context.processes)
+
+
+def _stop(processes) -> None:
+    """Terminate the ranks still alive, then kill those that ignore it."""
+    for p in processes:
+        if p.is_alive():
+            p.terminate()
+    for p in processes:
+        p.join(10)
+        if p.is_alive():
+            p.kill()
+            p.join()
+
+
+def stuck_rank(rank, stuck: int) -> None:
+    """A worker whose rank ``stuck`` never returns while the others wait
+    for it in a collective.  Every rank first meets a barrier, so none
+    leaves while another is still connecting to it (gloo then fails the
+    connect, and the spawn would raise that instead of timing out)."""
+    dist.barrier()
+    if rank == stuck:
+        time.sleep(3600)
+    dist.barrier()
 
 
 def _dump(out, rank, value) -> None:

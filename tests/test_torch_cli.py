@@ -308,6 +308,22 @@ def test_train_starts_one_rank_per_card(jax_run, tmp_path, monkeypatch):
     assert not (tmp_path / "exp").exists()
 
 
+@pytest.mark.parametrize("form", ["path", "opened"])
+def test_pad_archive_matches_jax(jax_run, form):
+    """``hmm_train.pad_archive`` of a path or of an opened ``.npz`` equals
+    the JAX verb's."""
+    from beer_tpu.cli.subcommands.hmm_train import pad_archive as jax_pad_archive
+    from beer_tpu_torch.cli.subcommands.hmm_train import pad_archive
+
+    path = jax_run / "feats.npz"
+    arg = path if form == "path" else np.load(path)
+    want = jax_pad_archive(arg)
+    got = pad_archive(arg if form == "path" else np.load(path))
+    assert got[0] == want[0]
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 def test_groups_are_the_jax_packages():
     """The port's CLI has every group and verb of ``beer_tpu.cli``, in its
     order, and each verb takes the JAX verb's arguments."""

@@ -5,10 +5,13 @@ miniature data (4 tone utterances, fbank with 10 filters, 4 units × 2
 states, 5 epochs) and carried across: the assertions of
 ``tests/test_cli.py``'s single-language and H-SHMM cases, two runs equal
 bit for bit, and one outer iteration equal bit for bit to the same
-composition of ``vb_step``, ``accumulate_unit_stats``, ``train_gsm``
-and ``apply_to_phoneloop`` with the verb's generators (CPU, seeded 0 for
-the models, 1 for the steps' noise), so the verb adds no arithmetic of
-its own.  Random streams cannot match the JAX verb's (ROADMAP §C.2).
+composition of ``vb_step``, ``accumulate_unit_stats``,
+``make_gsm_train_scan`` and ``apply_to_phoneloop`` with the verb's
+generators (CPU, seeded 0 for the models, ``train_key(1)`` for the
+steps' noise), so the verb adds no arithmetic of its own.  Random
+streams cannot match the JAX verb's (ROADMAP §C.2), so the port's verb
+is held to the JAX verb's run on the same loop by its outputs' form and
+by bands on the GSM and loop ELBOs.
 """
 
 import contextlib
@@ -100,6 +103,46 @@ def test_shmm_single_language(workdir, tmp_path):
     assert printed.splitlines()[-1].startswith("wrote ")
 
 
+def test_shmm_matches_the_jax_verb(workdir, tmp_path):
+    """``shmm train --device cpu`` (its inner loop through
+    ``make_gsm_train_scan``) against the JAX verb on the loop both start
+    from: the same lines and files, a GSM of the same type and shapes,
+    each outer iteration's GSM ELBO within 10 % of the JAX verb's (their
+    initial draws and noise differ), and the written-back loops' ELBO per
+    frame within 2 % of each other."""
+    import beer_tpu_torch as bt
+    from beer_tpu_torch import io as bio
+    from port_util import gsm_to_port
+
+    args = ["--embed-dim", "2", "--outer-iters", "2", "--inner-iters", "100"]
+    printed = _shmm(workdir, tmp_path / "port", args)
+    jax_printed = io.StringIO()
+    with contextlib.redirect_stdout(jax_printed):
+        assert jax_cli(["shmm", "train", str(workdir / "exp" / "final.mdl"),
+                        str(workdir / "feats.npz"), str(tmp_path / "jax")] + args) == 0
+    jax_printed = jax_printed.getvalue()
+    form = lambda text: re.sub(r"-?\d+\.\d+", "#", text.replace("port", "jax"))  # noqa: E731
+    assert form(printed) == form(jax_printed)
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "jax").iterdir())
+    gsm = load_model(tmp_path / "port" / "gsm.mdl", device="cpu")
+    want = gsm_to_port(jax_load_model(tmp_path / "jax" / "gsm.mdl"))
+    assert type(gsm) is type(want)
+    assert [(n, p.shape) for n, p in gsm.named_parameters()] == \
+        [(n, p.shape) for n, p in want.named_parameters()]
+    elbos, jax_elbos = _gsm_elbos(printed), _gsm_elbos(jax_printed)
+    assert len(elbos) == len(jax_elbos) == 2
+    assert np.allclose(elbos, jax_elbos, rtol=0.1)
+    _, data, mask = bio.load_padded(workdir / "feats.npz")
+    x, m = torch.from_numpy(data), torch.from_numpy(mask)
+    per_frame = [float(bt.elbo_and_stats(loop, x, mask=m)[0]) / float(mask.sum())
+                 for loop in (load_model(tmp_path / "port" / "final.mdl", device="cpu"),
+                              phone_loop_from_numpy(phone_loop_to_numpy(
+                                  jax_load_model(tmp_path / "jax" / "final.mdl")), device="cpu"))]
+    assert np.isfinite(per_frame).all()
+    assert abs(per_frame[0] - per_frame[1]) <= 0.02 * abs(per_frame[1])
+
+
 def test_shmm_runs_are_bitwise_equal(workdir, tmp_path):
     printed = [_shmm(workdir, tmp_path / f"run{i}", SINGLE) for i in (0, 1)]
     assert printed[0].replace("run0", "run1") == printed[1]
@@ -146,6 +189,7 @@ def test_shmm_outer_iteration_is_the_composition(workdir, tmp_path, variant):
     import beer_tpu_torch as bt
     from beer_tpu_torch import io as bio
     from beer_tpu_torch.cli.subcommands.shmm_train import cat_stats
+    from beer_tpu_torch.models.gsm import make_gsm_train_scan, train_key
 
     root = workdir
     extra = ["--embed-dim", "3", "--outer-iters", "1", "--inner-iters", "7", "--loop-epochs", "2",
@@ -173,14 +217,14 @@ def test_shmm_outer_iteration_is_the_composition(workdir, tmp_path, variant):
                             trunk="mlp:5:tanh" if variant == "trunk" else None,
                             generator=init, device="cpu")
     optimizer = torch.optim.Adam(gsm.parameters(), lr=0.05)
-    noise = torch.Generator().manual_seed(1)
+    noise = train_key(1, "cpu")
     for loop in loops:
         for _ in range(2):
             bt.vb_step(loop, x, mask=m)
     per_lang = [bt.accumulate_unit_stats(loop, x, m, transitions=transitions) for loop in loops]
     stats = cat_stats([st for st, _ in per_lang])
     counts = torch.cat([ct for _, ct in per_lang])
-    elbo = bt.train_gsm(gsm, optimizer, stats, counts, generator=noise, nsteps=7)[-1]
+    elbo = make_gsm_train_scan(optimizer)(gsm, stats, counts, generator=noise, nsteps=7)
     for i, loop in enumerate(loops):
         sub = bt.slice_gsm(gsm, i, 4) if n_langs > 1 else gsm
         bt.apply_to_phoneloop(sub, loop, generator=noise, nsamples=16)

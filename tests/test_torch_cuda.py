@@ -1886,3 +1886,103 @@ def test_subspace_models_on_the_card_match_float64_on_the_cpu(device, kind):
         b, cache_b = model.infer(xc, **kw_card)
         assert torch.equal(a, b) and torch.equal(cache_a["m_h"], cache_b["m_h"])
         assert torch.equal(cache_a["counts"], torch.full_like(cache_a["counts"], 32.0))
+
+
+def _gsm_problem(device, variant):
+    """A small GSM (6 units × 3 states, D = 5, learned transitions; with
+    ``trunk`` an MLP of 5 and 6) or HierarchicalGSM (3 languages × 4
+    units) on the card, and unit
+    statistics in ``accumulate_unit_stats``' dict layout (or, for
+    ``array``, its emission array and counts)."""
+    gen = torch.Generator().manual_seed(3)
+    if variant == "hierarchical":
+        gsm = bt.HierarchicalGSM.create(12, 3, 5, lang_dim=2, n_langs=3,
+                                        unit_lang=[u // 4 for u in range(12)], states_per_unit=3,
+                                        learn_transitions=True, generator=gen, device=device)
+    else:
+        gsm = bt.GSM.create(6, 3, 5, states_per_unit=3, learn_transitions=variant != "array",
+                            trunk="mlp:5,6:tanh" if variant == "trunk" else None, generator=gen,
+                            device=device)
+    rng = np.random.default_rng(5)
+    u = gsm.n_units
+    c = rng.uniform(20.0, 80.0, size=(u, 3, 1))
+    mu, var = rng.normal(size=(u, 3, 1, 5)), rng.uniform(0.5, 2.0, size=(u, 3, 1, 5))
+    cc = c[..., None]
+    emission = np.concatenate([-0.5 * cc * (var + mu**2), cc * mu,
+                               np.broadcast_to(-0.5 * cc, mu.shape),
+                               np.broadcast_to(0.5 * cc, mu.shape)], axis=-1)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).float().to(device)  # noqa: E731
+    if variant == "array":
+        return gsm, (to(emission[..., 0, :]), to(c[..., 0]))
+    return gsm, ({"emission": to(emission), "comp_counts": to(c), "self": to(0.8 * c[..., 0]),
+                  "adv": to(0.2 * c[..., 0])}, None)
+
+
+def _gsm_eager(gsm, stats, counts, eps, n):
+    g = copy.deepcopy(gsm)
+    step = bt.make_gsm_train_step(torch.optim.Adam(g.parameters(), lr=5e-2, capturable=True))
+    return torch.stack([step(g, stats, counts, eps={k: v[i] for k, v in eps.items()})
+                        for i in range(n)]), g
+
+
+@pytest.mark.parametrize("variant", ["plain", "array", "trunk", "hierarchical"])
+def test_gsm_train_scan_graph_equals_the_eager_loop(device, variant):
+    """``make_gsm_train_scan`` on the card (a CUDA graph) against the eager
+    loop on the same noise from the same start: one call of 30 steps and 30
+    one-step calls replaying one graph.  Bitwise where two eager runs are
+    (the GSM), otherwise every step's ELBO within 1e-5 and the parameters
+    within 1e-4 relative."""
+    gsm, (stats, counts) = _gsm_problem(device, variant)
+    n = 30
+    gen = torch.Generator(device=device).manual_seed(7)
+    eps = {k: torch.randn((n, *s), generator=gen, device=device)
+           for k, s in gsm._eps_spec(4).items()}
+    e1, m1 = _gsm_eager(gsm, stats, counts, eps, n)
+    e2, m2 = _gsm_eager(gsm, stats, counts, eps, n)
+    whole = copy.deepcopy(gsm)
+    run = bt.make_gsm_train_scan(torch.optim.Adam(whole.parameters(), lr=5e-2, capturable=True))
+    last = run(whole, stats, counts, nsteps=n, eps=eps)
+    assert last.shape == () and last.device == device and not last.requires_grad
+    found = [(last[None], whole)]
+    single = copy.deepcopy(gsm)
+    run = bt.make_gsm_train_scan(torch.optim.Adam(single.parameters(), lr=5e-2, capturable=True))
+    elbos = torch.stack([run(single, stats, counts, nsteps=1,
+                             eps={k: v[i:i + 1] for k, v in eps.items()}) for i in range(n)])
+    found.append((elbos, single))
+    eager_bitwise = torch.equal(e1, e2) and all(torch.equal(p, q) for p, q in
+                                                zip(m1.parameters(), m2.parameters()))
+    if variant != "hierarchical":
+        assert eager_bitwise
+    for got, model in found:
+        want = e1[-len(got):]
+        if eager_bitwise:
+            assert torch.equal(got, want)
+            assert all(torch.equal(p, q) for p, q in zip(model.parameters(), m1.parameters()))
+        else:
+            assert float(((got - want).abs() / want.abs()).max()) <= 1e-5
+            for p, q in zip(model.parameters(), m1.parameters()):
+                assert _rel(p.detach(), q.detach()) <= 1e-4
+    assert float(elbos[-5:].mean()) > float(elbos[:5].mean())
+
+
+def test_gsm_train_scan_on_the_card_draws_from_its_generator(device):
+    """Without ``eps`` the graph draws from the registered generator: two
+    runs from one seed agree, consecutive runs draw new noise (the
+    generator advances), and an optimizer without ``capturable=True`` is
+    refused before any capture."""
+    gsm, (stats, _) = _gsm_problem(device, "plain")
+    a, b = copy.deepcopy(gsm), copy.deepcopy(gsm)
+    runs = [bt.make_gsm_train_scan(torch.optim.Adam(m.parameters(), lr=5e-2, capturable=True))
+            for m in (a, b)]
+    ga, gb = bt.train_key(1, device), bt.train_key(1, device)
+    first = [run(m, stats, generator=g, nsteps=10)
+             for run, m, g in ((runs[0], a, ga), (runs[1], b, gb))]
+    assert torch.equal(first[0], first[1])
+    assert all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
+    before = [p.detach().clone() for p in a.parameters()]
+    runs[0](a, stats, generator=ga, nsteps=10)
+    assert not all(torch.equal(p, q) for p, q in zip(a.parameters(), before))
+    fresh = torch.randn(4, generator=bt.train_key(1, device), device=device)
+    assert not torch.equal(torch.randn(4, generator=ga, device=device), fresh)
+    with pytest.raises(ValueError, match="capturable=True"):
+        bt.make_gsm_train_scan(torch.optim.Adam(gsm.parameters(), lr=5e-2))(gsm, stats, nsteps=2)

@@ -372,6 +372,22 @@ def test_categorical_matches_jax(rng):
     close(tcat.kl_div_posterior_prior(), new_j.kl_div_posterior_prior(), RTOL)
 
 
+def test_expected_natural_parameters_and_zero_stats_match_jax(rng):
+    """The reference-API alias and the zero statistics of a parameter set,
+    against the JAX package's on the same natural parameters."""
+    jset, tset = _normal_sets(rng)
+    jp, tp = jset.means_precisions, tset.means_precisions
+    close(tp.expected_natural_parameters(), jp.expected_natural_parameters(), RTOL)
+    assert torch.equal(tp.expected_natural_parameters(), tp.expected_sufficient_statistics())
+    zeros = tp.zero_stats()
+    assert zeros.shape == tuple(jp.zero_stats().shape) and zeros.dtype == tp.posterior.dtype
+    assert not zeros.any() and zeros.data_ptr() != tp.posterior.data_ptr()
+    buf = tp.posterior.clone()
+    tp.natural_update(zeros, lrate=1.0)          # a zero-statistics update lands on the prior
+    close(tp.posterior, jp.natural_update(jp.zero_stats(), 1.0).posterior, RTOL)
+    assert not torch.equal(buf, tp.posterior)
+
+
 def test_natural_update_is_in_place():
     fam = td.Dirichlet(dim=3)
     prior = torch.zeros(3, dtype=torch.float64)

@@ -176,6 +176,119 @@ def test_train_gsm_raises_the_elbo_and_samples_from_a_generator():
     assert {k: tuple(v.shape) for k, v in eps.items()} == pg._eps_spec(3)
 
 
+def _eps_stack(jg, key, nsteps):
+    """The noise of each step of the JAX scan (``jax.random.split(key,
+    nsteps)``, one ``_sample_eps`` a step), stacked for the port's ``eps``."""
+    per_step = [jg._sample_eps(k, NS) for k in jax.random.split(key, nsteps)]
+    return {name: t(np.stack([np.asarray(e[name]) for e in per_step])) for name in per_step[0]}
+
+
+@pytest.mark.parametrize("variant", ["plain", "trunk", "hierarchical"])
+def test_train_scan_vs_jax_scan(variant):
+    """``make_gsm_train_scan``'s run on the noise the JAX scan draws equals
+    the JAX package's scan: the last ELBO and every parameter."""
+    jg = _jax_gsm(variant)
+    pg = gsm_to_port(jg)
+    sj, sp = _both(_stats_for(variant))
+    nsteps, key = 6, jax.random.PRNGKey(12)
+    eps = _eps_stack(jg, key, nsteps)
+    tx = optax.adam(5e-2)
+    want, jg, _ = jgsm.make_gsm_train_scan(tx, nsamples=NS)(jg, tx.init(jg), sj, None, key,
+                                                           nsteps)
+    run = tgsm.make_gsm_train_scan(torch.optim.Adam(pg.parameters(), lr=5e-2), nsamples=NS)
+    got = run(pg, sp, nsteps=nsteps, eps=eps)
+    assert got.shape == () and not got.requires_grad
+    close(got, want, 1e-8)
+    names = ["e_mean", "e_logvar", "w_mean", "w_logvar"]
+    if variant == "hierarchical":
+        names += ["lang_mean", "lang_logvar"]
+    for name in names:
+        close(getattr(pg, name).detach(), getattr(jg, name), 1e-7, 1e-10)
+    if variant == "trunk":
+        tree = bt.nnet.flax_tree(pg.trunk)
+        for layer, leaves in jg.trunk_params["params"].items():
+            for leaf, value in leaves.items():
+                close(tree[layer][leaf], value, 1e-7, 1e-10)
+
+
+@pytest.mark.parametrize("nsteps", [1, 5])
+def test_train_scan_equals_train_steps(nsteps):
+    """On the CPU the scan is the eager loop: ``nsteps`` calls of
+    ``make_gsm_train_step`` on the same noise give the same numbers."""
+    jg = _jax_gsm("k2_transitions")
+    a, b = gsm_to_port(jg), gsm_to_port(jg)
+    _, sp = _both(_stats_for("k2_transitions"))
+    eps = _eps_stack(jg, jax.random.PRNGKey(13), nsteps)
+    opt_a, opt_b = (torch.optim.Adam(m.parameters(), lr=5e-2) for m in (a, b))
+    got = tgsm.make_gsm_train_scan(opt_a, nsamples=NS)(a, sp, nsteps=nsteps, eps=eps)
+    step = tgsm.make_gsm_train_step(opt_b, nsamples=NS)
+    for i in range(nsteps):
+        want = step(b, sp, eps={k: v[i] for k, v in eps.items()})
+    assert torch.equal(got, want)
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), name
+    for p, q in zip(a.parameters(), b.parameters()):
+        assert torch.equal(opt_a.state[p]["exp_avg_sq"], opt_b.state[q]["exp_avg_sq"])
+
+
+def test_train_scan_raises_the_elbo_and_samples_from_a_generator():
+    """Without ``eps`` each step draws its noise from the generator, as
+    ``train_gsm`` does: the same generator state gives the same run, and
+    the ELBO rises."""
+    def fresh():
+        g = tgsm.GSM.create(U, E, D, states_per_unit=P, learn_transitions=True,
+                            generator=torch.Generator().manual_seed(0), dtype=torch.float64,
+                            device="cpu")
+        return g, torch.optim.Adam(g.parameters(), lr=5e-2)
+
+    _, sp = _both(_unit_stats(1, True))
+    pg, opt = fresh()
+    run = tgsm.make_gsm_train_scan(opt, nsamples=NS)
+    gen = tgsm.train_key(1, "cpu")
+    elbos = [run(pg, sp, generator=gen, nsteps=10) for _ in range(6)]
+    twin, twin_opt = fresh()
+    want = tgsm.train_gsm(twin, twin_opt, sp, generator=torch.Generator().manual_seed(1),
+                          nsteps=60, nsamples=NS)
+    assert torch.equal(torch.stack(elbos), want[9::10])
+    assert all(torch.equal(p, q) for p, q in zip(pg.parameters(), twin.parameters()))
+    assert bool(torch.isfinite(want).all()) and float(elbos[-1]) > float(elbos[0])
+
+
+def test_train_scan_on_a_card_refuses_an_optimizer_that_cannot_be_captured():
+    """``require_capturable``, which the card path runs before a capture:
+    an Adam without ``capturable=True`` keeps its step count on the host."""
+    g = tgsm.GSM.create(U, E, D, dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="capturable=True"):
+        tgsm.require_capturable(torch.optim.Adam(g.parameters(), lr=5e-2))
+    tgsm.require_capturable(torch.optim.Adam(g.parameters(), lr=5e-2, capturable=True))
+    mixed = torch.optim.Adam([{"params": [g.e_mean], "capturable": True},
+                              {"params": [g.w_mean]}], lr=5e-2)
+    with pytest.raises(ValueError, match="capturable=True"):
+        tgsm.require_capturable(mixed)
+    run = tgsm.make_gsm_train_scan(torch.optim.Adam(g.parameters(), lr=5e-2), nsamples=NS)
+    _, sp = _both(_unit_stats(1, False))
+    with pytest.raises(ValueError, match="eps"):     # one step of noise for two steps
+        run(g, sp, nsteps=2, eps={k: v[None] for k, v in g.sample_eps(None, NS).items()})
+    with pytest.raises(ValueError, match="nsteps"):
+        run(g, sp, nsteps=0)
+
+
+def test_train_key_is_a_seeded_generator_on_the_device():
+    """The JAX package's ``train_key(seed)`` makes the scan's PRNG key; the
+    port's makes a seeded ``torch.Generator`` on the compute device (the
+    two packages' streams cannot match)."""
+    assert jgsm.train_key(1).shape == ()
+    gen = tgsm.train_key(1, "cpu")
+    assert isinstance(gen, torch.Generator) and gen.device.type == "cpu"
+    assert torch.equal(torch.randn(5, generator=gen),
+                       torch.randn(5, generator=torch.Generator().manual_seed(1)))
+    assert not torch.equal(torch.randn(5, generator=tgsm.train_key(2, "cpu")),
+                           torch.randn(5, generator=tgsm.train_key(1, "cpu")))
+    if not torch.cuda.is_available():   # an entry point never builds on the CPU unasked
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tgsm.train_key(1)
+
+
 def test_slice_gsm_vs_jax_slice():
     jg = _jax_gsm("hierarchical_transitions")
     pg = gsm_to_port(jg)

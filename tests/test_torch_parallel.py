@@ -30,6 +30,7 @@ import io
 import json
 import re
 import shutil
+import time
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +49,8 @@ from beer_tpu_torch import parallel
 from beer_tpu_torch.cli.main import main as cli
 from beer_tpu_torch.convert import modelset_from_numpy
 from beer_tpu_torch.utils import load_model, save_model
+
+import dist_util
 from dist_util import build_graphs, build_model, cli_runs, parallel_cases, results, spawn
 from port_util import (close, hmm_to_numpy, mixture_to_numpy, modelset_to_numpy,
                        phone_loop_to_numpy)
@@ -324,6 +327,16 @@ def test_steps_refuse_a_batch_that_does_not_split_and_need_a_group():
         parallel.make_vb_estep(Mesh())(model, torch.zeros(6, 3, 2), torch.ones(6, 3))
     with pytest.raises(RuntimeError, match="process group"):
         parallel.make_mesh(device="cpu")
+
+
+def test_spawn_stops_a_stuck_rank_at_its_deadline(tmp_path, monkeypatch):
+    """A rank that never returns costs its spawn ``JOIN_SECONDS``: it is
+    terminated and the spawn raises a ``TimeoutError`` that names it."""
+    monkeypatch.setattr(dist_util, "JOIN_SECONDS", 15.0)
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match=r"stuck_rank on 2 gloo ranks .*ranks \[(0, )?1\] still"):
+        spawn(dist_util.stuck_rank, 2, tmp_path, 1)
+    assert time.monotonic() - t0 < 15.0 + 30.0
 
 
 # ----------------------------------------------------------------------
