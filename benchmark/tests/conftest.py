@@ -1,0 +1,9 @@
+"""Puts the checkout's root on the import path, so ``benchmark`` imports
+as a package whatever directory pytest starts from."""
+
+import sys
+from pathlib import Path
+
+ROOT = str(Path(__file__).resolve().parents[2])
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
