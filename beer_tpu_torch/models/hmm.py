@@ -51,6 +51,7 @@ from beer_tpu_torch.models.basemodel import DiscreteLatentModel
 from beer_tpu_torch.models.graph import LOG_ZERO, CompiledGraph, Graph
 from beer_tpu_torch.models.normal import NormalSet
 from beer_tpu_torch.ops import semiring_scan
+from beer_tpu_torch.utils.profiling import named_scope
 
 
 def _promote(x: torch.Tensor) -> torch.Tensor:
@@ -176,8 +177,9 @@ class HMM(DiscreteLatentModel):
         return self._infer(stats, mask, self.route())
 
     def _infer(self, stats: torch.Tensor, mask: Optional[torch.Tensor], route: str):
-        log_trans = self._effective_log_trans()
         if route == "general":
+            with named_scope("beer.operands"):
+                log_trans = self._effective_log_trans()
             fb = semiring_scan.forward_backward_probs(
                 self._state_llh(stats), log_trans, self.graph_log_init, self.graph_log_final, mask)
             log_z = fb.log_z if mask is None else fb.log_z * (mask.sum(-1) > 0)
@@ -185,22 +187,27 @@ class HMM(DiscreteLatentModel):
                            "log_trans": log_trans}
         b, _, _ = stats.shape
         s, dt = self.n_states, stats.dtype
-        lens = _lengths(stats, mask)
-        trans = torch.exp(log_trans).to(dt).contiguous()
-        init = _probs(self.graph_log_init, b, s, dt)
-        final = _probs(self.graph_log_final, b, s, dt)
-        cache = {"route": route, "lens": lens, "trans": trans, "final": final,
-                 "log_trans": log_trans}
-        if torch.is_grad_enabled() and stats.requires_grad:
+        grad = torch.is_grad_enabled() and stats.requires_grad
+        with named_scope("beer.operands"):
+            log_trans = self._effective_log_trans()
+            lens = _lengths(stats, mask)
+            trans = torch.exp(log_trans).to(dt).contiguous()
+            init = _probs(self.graph_log_init, b, s, dt)
+            final = _probs(self.graph_log_final, b, s, dt)
+            cache = {"route": route, "lens": lens, "trans": trans, "final": final,
+                     "log_trans": log_trans}
+            if route == "stats" and not grad:
+                cache["stats"] = stats.contiguous()
+                w_mat, bias = self.modelset.ellh_matrix()      # (P, n_pdfs), (n_pdfs,)
+                cache["w"] = w_mat.T[self.graph_pdf_ids].to(dt).contiguous()
+                cache["bias"] = bias[self.graph_pdf_ids].to(dt).contiguous()
+        if grad:
             llh = self._state_llh(stats).to(dt).contiguous()
             log_z, gamma, xi_raw = semiring_scan.HMMLogZ.apply(llh, lens, trans, init, final,
                                                                self.plain_scan)
             return log_z, dict(cache, route="llh", gamma=gamma, xi_raw=xi_raw)
         if route == "stats":
-            x = cache["stats"] = stats.contiguous()
-            w_mat, bias = self.modelset.ellh_matrix()      # (P, n_pdfs), (n_pdfs,)
-            cache["w"] = w_mat.T[self.graph_pdf_ids].to(dt).contiguous()
-            cache["bias"] = bias[self.graph_pdf_ids].to(dt).contiguous()
+            x = cache["stats"]
             alpha, norms, last, logz_base = semiring_scan.hmm_forward(
                 x, lens, trans, init, cache["w"], cache["bias"], plain=self.plain_scan)
         else:
@@ -272,11 +279,12 @@ class HMM(DiscreteLatentModel):
     def vb_update(self, acc: Dict[str, Any], lrate: float = 1.0) -> "HMM":
         """Conjugate step on the emissions and the transition Dirichlet,
         in place."""
-        self.modelset.vb_update(acc["modelset"], lrate)
-        if self.trans_alpha_post is not None and "trans" in acc:
-            counts = torch.where(self.trans_alpha_prior > 0, acc["trans"], 0.0)
-            post = self.trans_alpha_post
-            post.copy_(post + lrate * (self.trans_alpha_prior + counts - post))
+        with named_scope("beer.vb_update"):
+            self.modelset.vb_update(acc["modelset"], lrate)
+            if self.trans_alpha_post is not None and "trans" in acc:
+                counts = torch.where(self.trans_alpha_prior > 0, acc["trans"], 0.0)
+                post = self.trans_alpha_post
+                post.copy_(post + lrate * (self.trans_alpha_prior + counts - post))
         return self
 
     def mean_field_factorization(self):

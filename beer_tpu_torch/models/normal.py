@@ -52,6 +52,7 @@ from beer_tpu_torch.dists import normallik
 from beer_tpu_torch.models.modelset import ModelSet
 from beer_tpu_torch.models.parameters import BayesianParameter
 from beer_tpu_torch.ops import stats_kernels
+from beer_tpu_torch.utils.profiling import named_scope, scoped
 
 LOG_2PI = math.log(2.0 * math.pi)
 # cov_type → the prior family of its components (the "shared_*" ones
@@ -217,10 +218,12 @@ class NormalSet(ModelSet):
             const = -0.5 * e_stats[1 + k * d:1 + k * d + k] + 0.5 * d * e_stats[-1]
         return quad, lam_mu, const
 
+    @scoped("beer.ellh")
     def expected_log_likelihood(self, stats: torch.Tensor) -> torch.Tensor:
         """(..., K) expected log-likelihood of every component."""
         if self.cov_type == "diagonal":
-            w_mat, bias = self.ellh_matrix()
+            with named_scope("beer.operands"):
+                w_mat, bias = self.ellh_matrix()
             return torch.matmul(stats, w_mat) + bias
         e_stats = self.means_precisions.expected_sufficient_statistics()
         if self.cov_type == "full":

@@ -52,6 +52,7 @@ from beer_tpu_torch.models.graph import LOG_ZERO, CompiledGraph
 from beer_tpu_torch.models.mixture import MixtureSet
 from beer_tpu_torch.models.normal import NormalSet
 from beer_tpu_torch.ops import semiring_scan
+from beer_tpu_torch.utils.profiling import named_scope
 
 
 def _promote(x: torch.Tensor) -> torch.Tensor:
@@ -145,7 +146,12 @@ class PhoneLoop(DiscreteLatentModel):
         else:
             a_self = torch.exp(torch.diagonal(base))
             a_adv = torch.cat([torch.exp(torch.diagonal(base, 1)), base.new_zeros(1)])
-            a_adv[ends] = 0.0  # (end, start) entries belong to the loop block
+            # (end, start) entries belong to the loop block.  The Python
+            # scalar written through an index tensor is first copied to the
+            # card from pageable host memory: there the host waits for all
+            # the work queued before it
+            with named_scope("beer.sync.structured_trans"):
+                a_adv[ends] = 0.0
         exit_v = base.new_zeros(s)
         exit_v[ends] = torch.exp(self._exit_log_probs(base.dtype))
         w_v = base.new_zeros(s)
@@ -163,23 +169,24 @@ class PhoneLoop(DiscreteLatentModel):
         ``init``/``final`` (S,) probabilities, and the effective ``graph``."""
         b, t_len, _ = stats.shape
         dt = stats.dtype
-        if mask is None:
-            lens = torch.full((b,), t_len, dtype=torch.int32, device=stats.device)
-        else:
-            lens = mask.sum(-1).to(torch.int32)
-        graph = self._effective_graph()
-        w_mat, bias = self.modelset.ellh_matrix()
-        return {
-            "lens": lens,
-            "w": w_mat.T.to(dt).contiguous(),
-            "bias": bias.to(dt).contiguous(),
-            "bands": self._structured_trans(dt).contiguous(),
-            "init": torch.exp(torch.clamp(graph.log_init, min=LOG_ZERO)).to(dt),
-            "final": torch.exp(torch.clamp(graph.log_final, min=LOG_ZERO)).to(dt),
-            "ends": self._ends().to(torch.int32),
-            "starts": self._starts().to(torch.int32),
-            "graph": graph,
-        }
+        with named_scope("beer.operands"):
+            if mask is None:
+                lens = torch.full((b,), t_len, dtype=torch.int32, device=stats.device)
+            else:
+                lens = mask.sum(-1).to(torch.int32)
+            graph = self._effective_graph()
+            w_mat, bias = self.modelset.ellh_matrix()
+            return {
+                "lens": lens,
+                "w": w_mat.T.to(dt).contiguous(),
+                "bias": bias.to(dt).contiguous(),
+                "bands": self._structured_trans(dt).contiguous(),
+                "init": torch.exp(torch.clamp(graph.log_init, min=LOG_ZERO)).to(dt),
+                "final": torch.exp(torch.clamp(graph.log_final, min=LOG_ZERO)).to(dt),
+                "ends": self._ends().to(torch.int32),
+                "starts": self._starts().to(torch.int32),
+                "graph": graph,
+            }
 
     def infer(self, stats: torch.Tensor, mask: Optional[torch.Tensor] = None):
         """Fused E-step forward: log Z (B,) and the cache ``accumulate`` needs.
@@ -256,8 +263,9 @@ class PhoneLoop(DiscreteLatentModel):
 
     def vb_update(self, acc: Dict[str, Any], lrate: float = 1.0) -> "PhoneLoop":
         """Conjugate step on the emissions and the unit prior, in place."""
-        self.modelset.vb_update(acc["modelset"], lrate)
-        self.unit_prior.vb_update(acc["unit_prior"], lrate)
+        with named_scope("beer.vb_update"):
+            self.modelset.vb_update(acc["modelset"], lrate)
+            self.unit_prior.vb_update(acc["unit_prior"], lrate)
         return self
 
     def mean_field_factorization(self):
@@ -269,12 +277,16 @@ class PhoneLoop(DiscreteLatentModel):
     def decode(self, data: torch.Tensor, mask: Optional[torch.Tensor] = None):
         """Viterbi: (state paths (B, T) int32, scores (B,)), through the
         band + rank-1 factorization (O(B·S) per step)."""
-        graph = self._effective_graph()
-        stats = self.sufficient_statistics(data)
-        llh = self.modelset.expected_log_likelihood(stats)
-        bands = self._structured_trans(llh.dtype)
-        return semiring_scan.viterbi_banded(
-            llh, bands, graph.log_init, graph.log_final, mask, plain=self.plain_scan)
+        with named_scope("beer.decode"):
+            with named_scope("beer.operands"):
+                graph = self._effective_graph()
+            with named_scope("beer.stats"):
+                stats = self.sufficient_statistics(data)
+            llh = self.modelset.expected_log_likelihood(stats)
+            with named_scope("beer.operands"):
+                bands = self._structured_trans(llh.dtype)
+            return semiring_scan.viterbi_banded(
+                llh, bands, graph.log_init, graph.log_final, mask, plain=self.plain_scan)
 
     def decode_units(self, data: torch.Tensor, mask: Optional[torch.Tensor] = None):
         """Per-frame unit labels (B, T) = state path // states_per_unit."""

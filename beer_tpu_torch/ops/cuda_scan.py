@@ -30,7 +30,11 @@ Each wrapper below takes batch-major tensors and
   hand-written CUDA kernel on the current stream, raises if the launch
   was refused (or the operands do not fit in shared memory), and counts
   the launch in :data:`KERNELS`.  It never falls back to the plain
-  version.
+  version;
+* runs, on every device, inside the span ``beer.kernel.<key>``
+  (:mod:`beer_tpu_torch.utils.profiling`), ``<key>`` the kernel's name
+  in :data:`KERNELS`: from the operand checks to the launch on a CUDA
+  tensor, the plain version on a CPU tensor.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` (one process per
 source file, all started together, then one link) into a shared library
@@ -63,6 +67,8 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+from beer_tpu_torch.utils.profiling import scoped
 
 NEG = -1e30
 XI_FLOOR = 1e-30
@@ -998,6 +1004,7 @@ def forward_llh_banded_plain(stats, lens, w, bias, bands, init):
                           _band_propagators(bands)[0])
 
 
+@scoped("beer.kernel.forward_llh_banded")
 def forward_llh_banded(stats, lens, w, bias, bands, init):
     """Scaled forward through band + rank-1 phone-loop transitions, with
     llh = W·stats + bias computed in the kernel (llh never stored).
@@ -1073,6 +1080,7 @@ def estep_acc_banded_plain(stats, lens, w, bias, bands, final, alpha, norms, end
     return acc[:, :p_dim], acc[:, p_dim], gamma0, xi
 
 
+@scoped("beer.kernel.estep_acc_banded")
 def estep_acc_banded(stats, lens, w, bias, bands, final, alpha, norms, ends, starts):
     """Backward smoothing pass that reduces γ in the kernel.
 
@@ -1118,6 +1126,7 @@ def estep_gamma_banded_plain(stats, lens, w, bias, bands, final, alpha, norms, e
                                   accumulate=False)
 
 
+@scoped("beer.kernel.estep_gamma_banded")
 def estep_gamma_banded(stats, lens, w, bias, bands, final, alpha, norms, ends, starts):
     """Backward smoothing pass through band + rank-1 transitions that emits
     the state posteriors, with llh = stats @ wᵀ + bias computed in the
@@ -1180,6 +1189,7 @@ def viterbi_fwd_banded_plain(llh, lens, log_bands, log_init):
     return choices, exarg, a
 
 
+@scoped("beer.kernel.viterbi_fwd_banded")
 def viterbi_fwd_banded(llh, lens, log_bands, log_init):
     """(max,+) forward through the band + rank-1 factorisation.
 
@@ -1232,6 +1242,7 @@ def viterbi_backtrace_banded_plain(choices, exarg, alpha_last, log_final):
     return paths, scores
 
 
+@scoped("beer.kernel.viterbi_backtrace_banded")
 def viterbi_backtrace_banded(choices, exarg, alpha_last, log_final):
     """Best paths from :func:`viterbi_fwd_banded`'s outputs.
 
@@ -1274,6 +1285,8 @@ def forward_llh_dense_plain(x, lens, trans, init, w=None, bias=None, return_shif
     return _forward_plain(llh, lens, init, lambda p: p @ trans, shifts=return_shifts)
 
 
+@scoped(lambda return_shifts, **_: "beer.kernel.forward_llh_shifts_dense" if return_shifts
+        else "beer.kernel.forward_llh_dense")
 def forward_llh_dense(x, lens, trans, init, w=None, bias=None, return_shifts=False):
     """Scaled forward through a dense (S, S) transition matrix:
     α̂_t = normalise(Aᵀ α̂_{t−1} ⊙ exp(llh_t − max)), α̂_0 from ``init``.
@@ -1348,6 +1361,7 @@ def estep_acc_dense_plain(stats, lens, w, bias, trans, final, alpha, norms):
     return acc[:, :p_dim], acc[:, p_dim], gamma0, xi
 
 
+@scoped("beer.kernel.estep_acc_dense")
 def estep_acc_dense(stats, lens, w, bias, trans, final, alpha, norms):
     """Backward smoothing pass over a dense (S, S) matrix that reduces γ
     in the kernel, with llh = stats @ wᵀ + bias computed there.
@@ -1397,6 +1411,8 @@ def estep_gamma_dense_plain(llh, lens, trans, final, alpha, norms, rows=None, co
     return gamma, xi
 
 
+@scoped(lambda rows, **_: "beer.kernel.estep_gamma_dense" if rows is None
+        else "beer.kernel.estep_gamma_dense_restricted")
 def estep_gamma_dense(llh, lens, trans, final, alpha, norms, rows=None, cols=None):
     """Backward smoothing pass over a dense (S, S) matrix that emits the
     state posteriors.
@@ -1542,6 +1558,7 @@ def scaled_pass_plain(e_llh, lens, trans, vec, banded=False, reverse=False):
                        backward if reverse else forward, reverse)
 
 
+@scoped("beer.kernel.scaled_pass")
 def scaled_pass(e_llh, lens, trans, vec, banded=False, reverse=False):
     """Scaled recursion of the general path over precomputed likelihoods.
 
@@ -1594,6 +1611,7 @@ def smoothing_pass_plain(e_llh, a_probs, lens, trans, final, banded=False):
                           _general_steps(trans, banded)[1])
 
 
+@scoped("beer.kernel.smoothing_pass")
 def smoothing_pass(e_llh, a_probs, lens, trans, final, banded=False):
     """v-space backward of the general path with the smoothing outputs
     in-step, over ``e_llh`` and the forward's ``a_probs`` (both (B, T, S)).

@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from beer_tpu_torch.ops import cuda_scan
+from beer_tpu_torch.utils.profiling import named_scope
 
 _NEG_INF = -1e30  # avoids (-inf) - (-inf) = nan in masked/unreachable states
 
@@ -599,16 +600,18 @@ def viterbi_banded(llh, bands, log_init, log_final, mask=None, plain: bool = Fal
     phone-loop guarantee).  Returns ``(paths (B, T) int32, best
     log-prob (B,))``."""
     b, t_len, _ = llh.shape
-    if mask is None:
-        lens = torch.full((b,), t_len, dtype=torch.int32, device=llh.device)
-    else:
-        lens = mask.sum(-1).to(torch.int32)
+    with named_scope("beer.operands"):
+        if mask is None:
+            lens = torch.full((b,), t_len, dtype=torch.int32, device=llh.device)
+        else:
+            lens = mask.sum(-1).to(torch.int32)
+        operands = (llh.contiguous(), lens, log_bands(bands).contiguous(),
+                    _clamp(log_init).contiguous())
     if plain:
         fwd, back = cuda_scan.viterbi_fwd_banded_plain, cuda_scan.viterbi_backtrace_banded_plain
     else:
         fwd, back = cuda_scan.viterbi_fwd_banded, cuda_scan.viterbi_backtrace_banded
-    choices, exarg, alpha_last = fwd(llh.contiguous(), lens, log_bands(bands).contiguous(),
-                                     _clamp(log_init).contiguous())
+    choices, exarg, alpha_last = fwd(*operands)
     return back(choices, exarg, alpha_last, log_final.contiguous())
 
 

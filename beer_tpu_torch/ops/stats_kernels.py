@@ -28,9 +28,10 @@ its plain PyTorch version (written like the JAX package's ``*_xla``
 functions) on a CPU tensor, and on a CUDA tensor checks its operands,
 launches the kernel on the current stream, counts the launch in
 :data:`beer_tpu_torch.ops.cuda_scan.KERNELS`, or raises; it never falls
-back to the plain version.  :class:`EllhFull` is K9 with a gradient with
-respect to the frames: the route the structured VAE's full-covariance
-priors take.  The kernels take D <=
+back to the plain version.  Each call runs inside the span
+``beer.kernel.<name>``, as the scan kernels' do.  :class:`EllhFull` is
+K9 with a gradient with respect to the frames: the route the structured
+VAE's full-covariance priors take.  The kernels take D <=
 :data:`MAX_DIM`; K8 and K10 hold a tile's K responsibilities in shared
 memory and take K <= :data:`MAX_COMP`.
 """
@@ -45,6 +46,7 @@ import torch
 
 from beer_tpu_torch.dists.normallik import suff_stats_full
 from beer_tpu_torch.ops import cuda_scan
+from beer_tpu_torch.utils.profiling import scoped
 
 LOG_2PI = math.log(2.0 * math.pi)
 MAX_DIM = 128
@@ -319,6 +321,7 @@ def prepare_gmm_estep_full(x, e_stats, log_w, mask=None):
     return llh, out.view(k, lanes)[:, :width], launch
 
 
+@scoped("beer.kernel.gmm_estep_full")
 def gmm_estep_full(x, e_stats, log_w, mask=None):
     """One-kernel GMM E-step (K8): (T, D) frames → per-frame log-marginal
     ``llh`` (T,), ``acc`` (K, D²+D+2) = Σ_t r_t ⊗ s(x_t) in the
@@ -356,6 +359,7 @@ def prepare_ellh_full(x, e_stats):
     return out, launch
 
 
+@scoped("beer.kernel.ellh_full")
 def ellh_full(x, e_stats):
     """Expected log-likelihood of K full-covariance components (K9): (T,
     D) frames × (K, D²+D+2) E[T] → (T, K)."""
@@ -391,6 +395,7 @@ def prepare_accumulate_full(x, resps):
     return out.view(k, lanes)[:, :width], launch
 
 
+@scoped("beer.kernel.accumulate_full")
 def accumulate_full(x, resps):
     """Responsibility-weighted full-covariance statistics (K10): (T, D)
     frames × (T, K) responsibilities → (K, D²+D+2) = Σ_t r_t ⊗ s(x_t)."""

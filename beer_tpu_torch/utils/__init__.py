@@ -1,13 +1,15 @@
 """Utilities: checkpointing, config, profiling, debugging, metrics (PyTorch).
 
-Counterpart of ``beer_tpu/utils`` with the same exports.
+Counterpart of ``beer_tpu/utils``.  Of its profiling hooks the port keeps
+:func:`named_scope`, the span of :mod:`beer_tpu_torch.utils.profiling`;
+a trace is any ``torch.profiler.profile`` around the program.
 """
 
 from beer_tpu_torch.utils.checkpoint import latest_checkpoint, load_model, save_model
 from beer_tpu_torch.utils.config import load_yaml
 from beer_tpu_torch.utils.debug import assert_finite, guard_finite_outputs, nan_guard
 from beer_tpu_torch.utils.metrics import MetricsLogger
-from beer_tpu_torch.utils.profiling import SpanTimer, named_scope, trace
+from beer_tpu_torch.utils.profiling import named_scope
 
 __all__ = [
     "save_model",
@@ -19,6 +21,4 @@ __all__ = [
     "assert_finite",
     "MetricsLogger",
     "named_scope",
-    "trace",
-    "SpanTimer",
 ]

@@ -1,66 +1,62 @@
-"""Tracing and profiling hooks.
+"""The port's spans: named regions on the profiler's own clock.
 
-Counterpart of ``beer_tpu/utils/profiling.py``: named regions for the
-profiler (:func:`named_scope`, ``torch.profiler.record_function``), a
-trace context (:func:`trace`, ``torch.profiler.profile`` written as a
-Chrome trace) and host-clock spans as JSONL (:class:`SpanTimer`), which
-synchronise the CUDA card at both ends of a span so it bounds the
-device's work too.
+Counterpart of ``beer_tpu/utils/profiling.py``'s :func:`named_scope`.
+While a ``torch.profiler`` records, a span is a
+``torch.profiler.record_function`` event, in the same trace and on the
+same clock as the device operations; while none records, it reads one
+flag and does nothing else.  A span never synchronises the card and
+reads no clock of its own.
+
+Every span of the program is named ``beer.<layer>`` (``beer.vb_step``,
+``beer.estep``, ``beer.kernel.<KERNELS key>``, ...), so that the program's
+names never equal a caller's.  To see them, run the program inside
+``torch.profiler.profile(activities=[CPU, CUDA])`` and read its
+``key_averages()`` or its Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
-import time
-from pathlib import Path
+import functools
+import inspect
 
 import torch
 
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
 
 def named_scope(name: str):
-    """Annotate a region for ``torch.profiler`` (usable as a context)."""
+    """A span named ``name`` (a context manager): a
+    ``torch.profiler.record_function`` while a profiler records on this
+    thread, a shared no-op context otherwise."""
+    if not _recording():
+        return _OFF
     return torch.profiler.record_function(name)
 
 
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Capture a ``torch.profiler`` trace of the CPU and, when a card is
-    in use, CUDA activity into ``logdir/trace.json`` (Chrome trace)."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    logdir = Path(logdir)
-    logdir.mkdir(parents=True, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(str(logdir / "trace.json"))
+def scoped(name):
+    """Decorator: every call of the function inside :func:`named_scope`.
 
+    ``name`` is the span's name, or a function of the call's arguments
+    (by parameter name, defaults applied) that returns it; it is called
+    only while a profiler records."""
 
-def _sync() -> None:
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+    def wrap(fn):
+        sig = inspect.signature(fn) if callable(name) else None
 
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _recording():
+                return fn(*args, **kwargs)
+            label = name
+            if sig is not None:
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                label = name(**bound.arguments)
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
 
-class SpanTimer:
-    """Host-clock spans written as JSONL.  Each span starts and ends with
-    ``torch.cuda.synchronize()`` when the card is in use, so a span holds
-    the device time of its work."""
+        return call
 
-    def __init__(self, path=None):
-        self.path = Path(path) if path else None
-        self.spans = []
-
-    @contextlib.contextmanager
-    def span(self, name: str, **meta):
-        _sync()
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            _sync()
-            rec = {"name": name, "start": t0, "dur_s": time.time() - t0, **meta}
-            self.spans.append(rec)
-            if self.path:
-                with open(self.path, "a") as fh:
-                    fh.write(json.dumps(rec) + "\n")
+    return wrap

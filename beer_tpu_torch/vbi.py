@@ -23,6 +23,11 @@ optimizer for the nnet parameters plus the conjugate step.
 The ELBO is summed in float64 whatever the model's dtype: it is a
 scalar over ~10⁵ frames, where float32 rounding alone would exceed the
 per-frame tolerances used to check VB-EM monotonicity.
+
+Spans (:mod:`beer_tpu_torch.utils.profiling`): ``beer.vb_step`` around
+:func:`vb_step`, ``beer.estep`` around :func:`elbo_and_stats` and,
+inside it, ``beer.stats``, ``beer.infer``, ``beer.kl`` and
+``beer.accumulate`` around the model's four calls.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import inspect
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
+
+from beer_tpu_torch.utils.profiling import named_scope
 
 
 def _scale(acc: Any, scale: float) -> Any:
@@ -63,16 +70,22 @@ def elbo_and_stats(
     batch_size`` for minibatch training (the reference convention).
     ``infer_kw`` go to ``model.infer`` (PLDA's ``labels`` and
     ``n_classes``)."""
-    stats = model.sufficient_statistics(data)
-    if mask is not None:
-        infer_kw["mask"] = mask
-    llh, cache = model.infer(stats, **infer_kw)
-    scale = 1.0 if datasize is None else datasize / llh.numel()
-    elbo = scale * llh.sum(dtype=torch.float64) - model.kl_div_posterior_prior().double()
-    acc = model.accumulate(stats, cache)
-    if datasize is not None:
-        acc = _scale(acc, scale)
-    return elbo, acc
+    with named_scope("beer.estep"):
+        with named_scope("beer.stats"):
+            stats = model.sufficient_statistics(data)
+        if mask is not None:
+            infer_kw["mask"] = mask
+        with named_scope("beer.infer"):
+            llh, cache = model.infer(stats, **infer_kw)
+        scale = 1.0 if datasize is None else datasize / llh.numel()
+        with named_scope("beer.kl"):
+            kl = model.kl_div_posterior_prior()
+        elbo = scale * llh.sum(dtype=torch.float64) - kl.double()
+        with named_scope("beer.accumulate"):
+            acc = model.accumulate(stats, cache)
+        if datasize is not None:
+            acc = _scale(acc, scale)
+        return elbo, acc
 
 
 @torch.no_grad()
@@ -85,8 +98,9 @@ def vb_step(
     **infer_kw,
 ):
     """E-step + conjugate M-step (in place); returns ``(elbo, model)``."""
-    elbo, acc = elbo_and_stats(model, data, datasize, mask, **infer_kw)
-    return elbo, model.vb_update(acc, lrate)
+    with named_scope("beer.vb_step"):
+        elbo, acc = elbo_and_stats(model, data, datasize, mask, **infer_kw)
+        return elbo, model.vb_update(acc, lrate)
 
 
 def _field_tensors(module: torch.nn.Module, name: str):

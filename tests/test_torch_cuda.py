@@ -22,6 +22,9 @@ global placement above it), at the same gates.
 """
 
 import copy
+import inspect
+import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1986,3 +1989,45 @@ def test_gsm_train_scan_on_the_card_draws_from_its_generator(device):
     assert not torch.equal(torch.randn(4, generator=ga, device=device), fresh)
     with pytest.raises(ValueError, match="capturable=True"):
         bt.make_gsm_train_scan(torch.optim.Adam(gsm.parameters(), lr=5e-2))(gsm, stats, nsteps=2)
+
+
+def test_the_one_host_sync_on_the_main_paths_is_named(device):
+    """A VB step of a phone loop (50 × 3 states) and of an ergodic HMM of 30
+    states with learned transitions, the benchmark's two training models,
+    and a phone-loop decode, under ``torch.cuda.set_sync_debug_mode("warn")``:
+    the host waits for the card once in the phone loop's step and once in
+    its decode, at the band write of ``PhoneLoop._structured_trans`` (the
+    span ``beer.sync.structured_trans``), and nowhere in the HMM's step."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn(16, 80, 39, device=device, generator=gen)
+    lens = torch.randint(1, 81, (16, 1), device=device, generator=gen)
+    m = (torch.arange(80, device=device)[None] < lens).float()
+
+    def nset(size):
+        return bt.NormalSet.create(torch.zeros(39, device=device), torch.ones(39, device=device),
+                                   size=size, noise_std=0.5, generator=gen)
+
+    loop = bt.PhoneLoop.create(50, 3, nset(150))
+    hmm = bt.HMM.create(bt.ergodic(30), nset(30), learn_transitions=True)
+    paths = {"loop": lambda: bt.vb_step(loop, x, mask=m)[0],
+             "hmm": lambda: bt.vb_step(hmm, x, mask=m)[0],
+             "decode": lambda: loop.decode_units(x, m)[1]}
+    lines, first = inspect.getsourcelines(bt.PhoneLoop._structured_trans)
+    site = ("phoneloop.py", first + next(i for i, line in enumerate(lines)
+                                         if "a_adv[ends] = 0.0" in line))
+    syncs = {}
+    with torch.no_grad():
+        for name, run in paths.items():
+            run()          # builds the library and warms every shape
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = run()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            assert bool(torch.isfinite(out).all()), name
+            syncs[name] = [(Path(w.filename).name, w.lineno) for w in got
+                           if "synchronizing CUDA operation" in str(w.message)]
+    assert syncs == {"loop": [site], "hmm": [], "decode": [site]}

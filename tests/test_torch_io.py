@@ -10,8 +10,8 @@ and the two ``BatchLoader``s serve the same batches.
 checkpoint format (tensors as a state dict read with ``weights_only``,
 beside a pickled skeleton; a ``None`` field stays ``None``), the YAML
 loader (against the JAX package's, with and without PyYAML), the finite
-guards, the metrics logger and the profiling hooks.  All exact: no
-arithmetic is compared here.
+guards and the metrics logger (the spans: ``test_torch_tracing.py``).
+All exact: no arithmetic is compared here.
 """
 
 import io as pyio
@@ -335,18 +335,3 @@ def test_guard_finite_outputs():
         check((torch.tensor(0.0), nset))
     with pytest.raises(FloatingPointError, match=r"non-finite values at model\.means_prec"):
         utils.assert_finite(nset, "model")
-
-
-def test_profiling_hooks(tmp_path):
-    timer = utils.SpanTimer(tmp_path / "spans.jsonl")
-    with timer.span("step", epoch=1):
-        with utils.named_scope("estep"):
-            torch.ones(4).sum()
-    with utils.trace(tmp_path / "trace") as prof:
-        with utils.named_scope("region"):
-            torch.ones(8).cumsum(0)
-    assert any(e.key == "region" for e in prof.key_averages())
-    assert (tmp_path / "trace" / "trace.json").exists()
-    rec = json.loads((tmp_path / "spans.jsonl").read_text())
-    assert rec["name"] == "step" and rec["epoch"] == 1 and rec["dur_s"] >= 0
-    assert timer.spans == [rec]
