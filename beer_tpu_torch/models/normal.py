@@ -6,9 +6,12 @@ shape (K, P); for the tied ("shared_*") types all K components live in
 one Joint* prior of shape (P,).
 
 * diagonal — NormalGamma basis, P = 4D.  Frames use the reduced
-  statistics layout [−½x², x] (2D); the constant blocks of the canonical
-  4D layout are recovered in closed form (a per-component bias in the
-  ELLH, a pure-count term in the accumulation).  The expected
+  statistics layout [−½x², x] (2D), written in one pass by
+  :func:`~beer_tpu_torch.ops.stats_kernels.diag_stats` (its plain version
+  with ``plain_scan``, or for frames that need a gradient); the constant
+  blocks of the canonical 4D layout are recovered in closed form (a
+  per-component bias in the ELLH, a pure-count term in the
+  accumulation).  The expected
   log-likelihood of all K components is one ``stats @ E[T]ᵀ`` product
   and accumulation is ``respsᵀ @ stats``; both run in full f32 (the
   package turns TF32 off on import).
@@ -169,7 +172,11 @@ class NormalSet(ModelSet):
         [−½‖x‖², x, −½, D/2] (..., D+3) for isotropic, the raw frames
         (..., D) for full covariance and the shared types."""
         if self.cov_type == "diagonal":
-            return torch.cat([-0.5 * data**2, data], dim=-1)
+            # frames that need a gradient (the structured VAE's latent
+            # frames) keep the plain expression: the kernel has no backward
+            if self.plain_scan or (torch.is_grad_enabled() and data.requires_grad):
+                return stats_kernels.diag_stats_plain(data)
+            return stats_kernels.diag_stats(data.contiguous())
         if self.cov_type == "isotropic":
             return normallik.suff_stats_isotropic(data)
         return data

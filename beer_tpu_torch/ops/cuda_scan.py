@@ -13,7 +13,8 @@ row-max shifts; K15: K7 with ξ restricted to a block), and the two of
 the general probability-space path behind ``PhoneLoop.smooth`` (K12
 ``scaled_pass``, K13 ``smoothing_pass``, ``csrc/general_scan.cu``).  The build, the library and the launch counts in
 :data:`KERNELS` also serve the full-covariance statistics kernels K8–K10
-(``csrc/stats_full.cu``), wrapped in :mod:`beer_tpu_torch.ops.stats_kernels`.
+(``csrc/stats_full.cu``) and the diagonal statistics kernel ``diag_stats``
+(``csrc/stats_diag.cu``), wrapped in :mod:`beer_tpu_torch.ops.stats_kernels`.
 Each wrapper below takes batch-major tensors and
 
 * refuses (``RuntimeError``) an input that requires grad while grad
@@ -102,6 +103,7 @@ KERNELS = {
     # wrapped in ops/stats_kernels.py
     **{name: Kernel(name, "beer_tpu_torch/csrc/stats_full.cu")
        for name in ("gmm_estep_full", "ellh_full", "accumulate_full")},
+    "diag_stats": Kernel("diag_stats", "beer_tpu_torch/csrc/stats_diag.cu"),
 }
 
 
@@ -183,6 +185,7 @@ def _library() -> ctypes.CDLL:
         "beer_ellh_full": [i] + [p] * 3 + [i] * 6 + [p],
         "beer_accumulate_full": [i] + [p] * 4 + [i] * 6 + [p],
         "beer_stats_prepare": [i],
+        "beer_diag_stats": [i, p, p, z, i, i, i, p],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

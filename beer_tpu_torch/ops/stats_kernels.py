@@ -1,4 +1,4 @@
-"""Full-covariance statistics kernels: wrappers, plain versions, packing.
+"""Statistics kernels: wrappers, plain versions, packing.
 
 Counterpart of ``beer_tpu/ops/stats_kernels.py`` (B5, B6).  Three
 hand-written CUDA kernels (``csrc/stats_full.cu``) keep the per-frame
@@ -22,6 +22,11 @@ E[log w] for K8); the kernels' (K, L) sums are gathered back to the
 its 0/1 selector matmuls are a workaround for the TPU's lane broadcast
 and have no counterpart here.
 
+A fourth, :func:`diag_stats` (``csrc/stats_diag.cu``), writes the
+diagonal ``NormalSet``'s frame statistics [−½x², x] in one pass, in place
+of a square, a scale and a ``torch.cat``; it replaces no Pallas kernel
+(the JAX package leaves them to XLA).
+
 Each wrapper refuses an input that requires grad while grad mode is on
 (its outputs carry no gradient; see :func:`cuda_scan.refuse_grad`), runs
 its plain PyTorch version (written like the JAX package's ``*_xla``
@@ -33,7 +38,8 @@ back to the plain version.  Each call runs inside the span
 K9 with a gradient with respect to the frames: the route the structured
 VAE's full-covariance priors take.  The kernels take D <=
 :data:`MAX_DIM`; K8 and K10 hold a tile's K responsibilities in shared
-memory and take K <= :data:`MAX_COMP`.
+memory and take K <= :data:`MAX_COMP`; :func:`diag_stats` takes float32
+and float64 frames of D <= :data:`MAX_DIAG_DIM`.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from beer_tpu_torch.utils.profiling import scoped
 LOG_2PI = math.log(2.0 * math.pi)
 MAX_DIM = 128
 MAX_COMP = 256
+MAX_DIAG_DIM = 4096         # stats_diag.cu kDiagMaxDim: a tile of one row in shared memory
 # the kernel selector of beer_stats_smem_bytes / beer_stats_blocks
 _KIND = {"gmm_estep_full": 0, "ellh_full": 1, "accumulate_full": 2}
 
@@ -405,6 +412,41 @@ def accumulate_full(x, resps):
     out, launch = prepare_accumulate_full(x, resps)
     _run("accumulate_full", launch)
     return unpack_acc(out, x.shape[1])[0]
+
+
+# ----------------------------------------------------------------------
+# The diagonal statistics
+# ----------------------------------------------------------------------
+def diag_stats_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`diag_stats` (any dtype and device, and
+    differentiable)."""
+    return torch.cat([-0.5 * x**2, x], dim=-1)
+
+
+@scoped("beer.kernel.diag_stats")
+def diag_stats(x):
+    """The diagonal ``NormalSet``'s frame statistics [−½x², x] (..., 2D) of
+    float32 or float64 frames ``x`` (..., D) in one pass, bit for bit
+    :func:`diag_stats_plain`: −½x² is the rounded product of −0.5 and the
+    rounded square."""
+    cuda_scan.refuse_grad("diag_stats", x)
+    if x.device.type == "cpu":
+        return diag_stats_plain(x)
+    f64 = x.dtype == torch.float64
+    cuda_scan._check(dict(x=x), x.device, {"x": torch.float64} if f64 else {})
+    d = x.shape[-1]
+    if not 1 <= d <= MAX_DIAG_DIM:
+        raise ValueError(f"diag_stats: D={d}; the kernel takes 1 <= D <= {MAX_DIAG_DIM}")
+    out = x.new_empty((*x.shape[:-1], 2 * d))
+    if not x.numel():
+        return out                     # no frames: nothing to launch
+    if x.data_ptr() % 16:
+        x = x.clone()                  # the kernel reads the frames 16 bytes at a time
+    dev, ptr = x.device, cuda_scan._ptr
+    _run("diag_stats", functools.partial(cuda_scan._library().beer_diag_stats, dev.index, ptr(x), ptr(out),
+                                         x.numel() // d, d, int(f64), cuda_scan.sm_count(dev.index),
+                                         cuda_scan._stream(dev)))
+    return out
 
 
 # ----------------------------------------------------------------------

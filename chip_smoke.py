@@ -30,7 +30,7 @@ further covariance type, then (phase 23) data-parallel VB-EM, ``hmm
 train`` across ranks and sequence-parallel inference over a
 world-size-1 NCCL process group and learned transitions on
 per-utterance graphs, in twenty-three phases, each printing one line
-(phase 22 two):
+(phases 3 and 22 two):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the hand-written CUDA kernels from the sources in
@@ -42,7 +42,11 @@ per-utterance graphs, in twenty-three phases, each printing one line
    K2 beside the unfused route (K11 + γᵀ·stats, TF32 off), held to the
    same tolerances; K3's mismatches against its plain version (choices,
    exit indices, α_last) are counted; K1, K3 and K11 called twice must
-   agree bitwise;
+   agree bitwise; then, on a line of its own, ``diag_stats`` at the
+   benchmark's batch (16,384 × 500 frames of D = 39): equal to the bit to
+   its plain version (``torch.equal``), one launch, alone (profiler device
+   time) and wrapped beside the plain expression (square, scale and
+   ``torch.cat``) by CUDA events and in device time;
 4. slice: 5 VB-EM steps and a unit decode through the kernels, with the
    launch counters read around that run; the ELBO must be finite and
    non-decreasing and match the plain route's; a small problem is held
@@ -309,6 +313,7 @@ GVAE_N, GVAE_D, GVAE_DZ, GVAE_K, GVAE_H = 512, 16, 2, 4, 64   # examples/svae_de
 GSM_EMBED, GSM_LANG_DIM, GSM_LANGS, GSM_NSAMPLES = 8, 2, 3, 4   # config 6 (bench.py:679-680)
 GSM_STEPS, GSM_LR, GSM_WRITEBACK_SAMPLES = 200, 5e-2, 64      # bench.py:724
 BIG_UNITS = 150                             # a large phone loop: S = 450, banded instances only
+BENCH_B = 16_384                            # the benchmark's corpus: 16,384 utterances of T frames
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM (NVIDIA data sheet)
 F32_FLOPS = 67e12                           # float32 outside the tensor cores
@@ -333,6 +338,7 @@ REPLACES = {
     "smoothing_pass": "beer_tpu/ops/pallas_scan.py:384",
     "forward_llh_shifts_dense": "beer_tpu/ops/pallas_scan.py:845",
     "estep_gamma_dense_restricted": "beer_tpu/ops/pallas_scan.py:2407",
+    "diag_stats": None,      # none: the JAX package leaves the statistics to XLA
 }
 
 
@@ -758,6 +764,58 @@ def phase_kernels(dev):
     return out, k11_config4
 
 
+def phase_diag_stats(dev):
+    """``diag_stats`` at the shape the main path gives it in the benchmark
+    (16,384 × 500 frames of D = 39, N = 8,192,000; frames with exact and
+    signed zeros, values whose squares are subnormal or flush to zero and
+    values whose squares overflow): equal to the bit to its plain version,
+    one launch; ``ms`` the kernel alone (profiler device time),
+    ``wrapper_ms`` the wrapper call and ``plain_ms`` the plain version by
+    CUDA events, ``library_ms`` the plain expression's three kernels (the
+    square, the scale and ``torch.cat``) in device time.  Bound: N·D floats
+    read and 2·N·D written, two products a float.  Then float64 frames of
+    config 4's batch (the general route's float64 models on the card):
+    equal to the bit, one launch."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(BENCH_B, T, D, generator=gen, device=dev)
+    flat = x.view(-1)
+    flat[::11] *= 1e-21
+    flat[3::13] = 1e20
+    flat[5::17] = 0.0
+    flat[7::19] = -0.0
+    cuda_scan.reset_launch_counts()
+    got = sk.diag_stats(x)
+    torch.cuda.synchronize()
+    launched = {k: v.launches for k, v in cuda_scan.KERNELS.items() if v.launches}
+    check(launched == {"diag_stats": 1}, f"diag_stats: launches {launched}")
+    want = sk.diag_stats_plain(x)
+    check(got.shape == want.shape and got.is_contiguous(), f"diag_stats: shape {tuple(got.shape)}")
+    check(torch.equal(got, want), "diag_stats: the statistics differ from the plain version's bits")
+    del got, want
+    n = x.numel()
+    row = dict(max_abs_err=0.0, n_frames=n // D, dim=D,
+               ms=device_ms(lambda: sk.diag_stats(x), "diag_stats_kernel", reps=KERNEL_REPS),
+               wrapper_ms=cuda_ms(lambda: sk.diag_stats(x), reps=KERNEL_REPS),
+               plain_ms=cuda_ms(lambda: sk.diag_stats_plain(x), reps=KERNEL_REPS),
+               library_ms=_traced_ms(lambda: sk.diag_stats_plain(x),
+                                     ("CatArrayBatchedCopy", "elementwise_kernel"), KERNEL_REPS),
+               **bound(12 * n, 2 * n))
+    del x, flat
+    torch.cuda.empty_cache()
+    x64 = torch.randn(B, T, D, generator=gen, device=dev, dtype=torch.float64)
+    x64.view(-1)[::11] *= 1e-170
+    cuda_scan.reset_launch_counts()
+    got = sk.diag_stats(x64)
+    torch.cuda.synchronize()
+    check(cuda_scan.KERNELS["diag_stats"].launches == 1 and got.dtype == torch.float64
+          and torch.equal(got, sk.diag_stats_plain(x64)), "diag_stats: float64 frames")
+    print(f"phase 3 diag_stats: N={n // D} D={D} bit-equal, 1 launch; float64 B={B} bit-equal | alone {row['ms']:.4f} ms, wrapped "
+          f"{row['wrapper_ms']:.4f} ms (bound {row['bound_ms']:.4f} by {row['bound_by']}, "
+          f"{row['bound_ms'] / row['ms']:.1%} of it) | plain version {row['plain_ms']:.4f} ms, its kernels "
+          f"{row['library_ms']:.4f} ms device time")
+    return row
+
+
 def run_steps(loop, x, m):
     elbos = []
     for _ in range(N_STEPS):
@@ -798,7 +856,7 @@ def phase_slice(dev):
     units, scores = loop.decode_units(x, m)
     torch.cuda.synchronize()
     launches = {k: cuda_scan.KERNELS[k].launches for k in (
-        "forward_llh_banded", "estep_acc_banded", "viterbi_fwd_banded", "viterbi_backtrace_banded")}
+        "diag_stats", "forward_llh_banded", "estep_acc_banded", "viterbi_fwd_banded", "viterbi_backtrace_banded")}
     check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
 
     check(bool(np.isfinite(elbos).all()), f"ELBO not finite: {elbos}")
@@ -1578,7 +1636,7 @@ def phase_svae_slice(dev):
     units, scores = vae.latent_decode(x, m)
     torch.cuda.synchronize()
     decode_launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if v.launches}
-    check(decode_launches == {"viterbi_fwd_banded": 1, "viterbi_backtrace_banded": 1},
+    check(decode_launches == {"diag_stats": 1, "viterbi_fwd_banded": 1, "viterbi_backtrace_banded": 1},
           f"config 5 decode: launches {decode_launches}")
     check(units.shape == (SVAE_B, SVAE_T) and bool(((units >= 0) & (units < SVAE_UNITS)).all())
           and bool(torch.isfinite(scores).all()), "config 5: latent decode")
@@ -2057,8 +2115,8 @@ def phase_gsm_slice(dev):
     torch.cuda.synchronize()
     bridge = {k: v.launches - before[k] for k, v in cuda_scan.KERNELS.items()
               if v.launches != before[k]}
-    check(bridge == {"scaled_pass": 1, "smoothing_pass": 1},
-          f"accumulate_unit_stats: launches {bridge}, expected K12 1, K13 1 and no other")
+    check(bridge == {"diag_stats": 1, "scaled_pass": 1, "smoothing_pass": 1},
+          f"accumulate_unit_stats: launches {bridge}, expected diag_stats 1, K12 1, K13 1 and no other")
     stats_plain, counts_plain = bt.accumulate_unit_stats(plain_twin(loop), x, m, transitions=True)
     e_stats = {k: rel(stats[k], stats_plain[k]) for k in stats}
     check(max(e_stats.values()) <= 1e-4, f"unit statistics vs the plain route: {e_stats}")
@@ -2475,7 +2533,7 @@ def phase_large_dense(dev):
         elbos.append(float(elbo))
     torch.cuda.synchronize()
     loop_launches = {k: v.launches for k, v in cuda_scan.KERNELS.items() if v.launches}
-    check(loop_launches == {"forward_llh_banded": 2, "estep_acc_banded": 2},
+    check(loop_launches == {"diag_stats": 2, "forward_llh_banded": 2, "estep_acc_banded": 2},
           f"the 100-unit loop's VB steps: launches {loop_launches}")
     for k, n in loop_launches.items():
         launches[k] += n
@@ -3622,6 +3680,7 @@ def main() -> int:
     card = phase_device()
     phase_build()
     kernels, k11_config4 = phase_kernels(dev)
+    kernels["diag_stats"] = phase_diag_stats(dev)
     launches, loop, x, m = phase_slice(dev)
     phase_times(loop, x, m)
     kernels.update(phase_hmm_kernels(dev))

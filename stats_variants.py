@@ -3,7 +3,7 @@
 
     python3 stats_variants.py [variant ...]
     python3 stats_variants.py probe | times | b2 | b7 | b11 | b13 | b12 | geometry | b11_geometry | b13_geometry
-                              | b12_geometry | vb
+                              | b12_geometry | vb | diag
     python3 stats_variants.py --sources DIR k2_* | k6_* | k1_* | k7_* | k11_* | k3_* | k4_* | k13_* | k12_*
 
 ``probe`` is the 3×TF32 probe that decided K8's arithmetic (see
@@ -89,6 +89,12 @@ phase 9 times, config 1 (T = 256,000, D = 39, K = 64) and the recognizer
 versions where the variant computes the same function.  One line per
 variant, beside the card's name and power limit.  The variants answer
 where the kernels' time goes; the shipped kernels are the "base" variant.
+
+``diag`` times ``diag_stats``, the diagonal statistics [−½x², x] in one
+pass, alone at the benchmark's batch beside the plain expression it
+replaced (square, scale, ``torch.cat``), a device-to-device copy of as
+many bytes and its bound (any revision: without the kernel it times the
+rest).
 """
 
 from __future__ import annotations
@@ -2340,6 +2346,34 @@ def times(dev):
                                   **{f"k5_{tag}_ms": round(v, 4) for tag, v in k5.items()}, **bounds}), flush=True)
 
 
+def diag_times(dev):
+    """``diag_stats`` alone at the benchmark's batch (16,384 × 500 frames of
+    D = 39, N = 8,192,000) and at N = 512,000: the kernel in profiler device
+    time, the wrapper by CUDA events; beside it the plain expression (the
+    square, the scale and ``torch.cat``, by CUDA events and split by kernel
+    in profiler device time), a device-to-device copy of as many bytes as
+    the kernel moves, and the bound, 12·N·D bytes at 3.35 TB/s.  Through
+    this checkout's package: a checkout without the kernel times the rest."""
+    row = {}
+    for tag, n in (("bench", 16_384 * 500), ("n512k", 512_000)):
+        x = torch.randn(n, c.D, device=dev)
+        plain = lambda: torch.cat([-0.5 * x**2, x], -1)  # noqa: E731
+        moved = 12 * x.numel()
+        row[f"{tag}_bound_ms"] = round(moved / 3.35e9, 4)
+        if hasattr(sk, "diag_stats"):
+            row[f"{tag}_kernel_ms"] = round(c.device_ms(lambda: sk.diag_stats(x), "diag_stats_kernel", reps=20), 4)
+            row[f"{tag}_wrapper_ms"] = round(c.cuda_ms(lambda: sk.diag_stats(x), reps=20), 4)
+            c.check(torch.equal(sk.diag_stats(x), plain()), "diag_stats bits")
+        row[f"{tag}_plain_ms"] = round(c.cuda_ms(plain, reps=20), 4)
+        row[f"{tag}_plain_split_ms"] = {k: round(v, 4) for k, v in kernel_split(plain, reps=5).items()}
+        src = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        row[f"{tag}_copy_ms"] = round(c.cuda_ms(lambda: dst.copy_(src), reps=20), 4)
+        del x, src, dst
+        torch.cuda.empty_cache()
+    print(f"diag times: {CARD} | " + json.dumps(row), flush=True)
+
+
 def main(names) -> int:
     if not torch.cuda.is_available():
         print("stats_variants: no CUDA device", file=sys.stderr)
@@ -2373,8 +2407,10 @@ def main(names) -> int:
         b12_times(dev)
     if "b12_geometry" in names:
         b12_geometry(dev)
+    if "diag" in names:
+        diag_times(dev)
     names = [n for n in names if n not in ("probe", "times", "b2", "b7", "b11", "b11_geometry", "geometry", "vb",
-                                           "b13", "b13_geometry", "b12", "b12_geometry")]
+                                           "b13", "b13_geometry", "b12", "b12_geometry", "diag")]
     if not names:
         return 0
     built = build(names)

@@ -360,6 +360,137 @@ def test_full_cov_kernels_empty_input(device):
     assert not sk.accumulate_full(x0, r0).any()
 
 
+# ----------------------------------------------------------------------
+# The diagonal statistics [−½x², x]: diag_stats
+# ----------------------------------------------------------------------
+def _frames(shape, device, seed=0, dtype=torch.float32):
+    """N(0, 9) frames with exact zeros, −0, tiny values whose squares are
+    subnormal or flush to zero and large ones whose squares overflow."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = 3.0 * torch.randn(shape, generator=gen, device=device, dtype=dtype)
+    flat = x.view(-1)
+    flat[::11] *= 1e-21 if dtype == torch.float32 else 1e-170
+    flat[3::13] = 1e20 if dtype == torch.float32 else 1e160
+    flat[5::17] = 0.0
+    flat[7::19] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 1024 * 500])
+@pytest.mark.parametrize("d", [1, 3, 39, 40, 64])
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_diag_stats_equals_plain_version(device, n, d, ndim, dtype):
+    """The kernel's statistics equal ``torch.cat([−½x², x], −1)`` to the bit
+    (torch.equal), in a fresh contiguous (..., 2D) tensor of the frames'
+    dtype, from (N, D) frames and from the same frames as (B, T, D)
+    (N = 1,024 × 500); one launch, none for no frames."""
+    shape = (n, d) if ndim == 2 else ((1024, 500, d) if n == 1024 * 500 else (1, n, d))
+    x = _frames(shape, device, seed=n + d, dtype=dtype)
+    cuda_scan.reset_launch_counts()
+    got = sk.diag_stats(x)
+    torch.cuda.synchronize()
+    assert _launched() == ({"diag_stats": 1} if n else {})
+    assert got.shape == (*shape[:-1], 2 * d) and got.is_contiguous() and got.dtype == dtype
+    assert torch.equal(got, sk.diag_stats_plain(x))
+
+
+def test_diag_stats_through_normal_set_takes_any_layout(device):
+    """``NormalSet.sufficient_statistics`` on frames that are not contiguous
+    (a transpose) or whose start is not 16-byte aligned, and float64 frames
+    of a float64 set: one launch each, the plain expression's bits; with
+    ``plain_scan`` the plain expression itself, and no launch."""
+    nset = bt.NormalSet.create(torch.zeros(39, device=device), torch.ones(39, device=device), size=4)
+    base = _frames((500, 8, 39), device)
+    for x in (base.transpose(0, 1), base.reshape(-1, 39)[1:]):
+        assert not x.is_contiguous() or x.data_ptr() % 16
+        cuda_scan.reset_launch_counts()
+        got = nset.sufficient_statistics(x)
+        assert _launched() == {"diag_stats": 1}
+        assert torch.equal(got, sk.diag_stats_plain(x))
+    nset64 = bt.NormalSet.create(torch.zeros(39, device=device, dtype=torch.float64),
+                                 torch.ones(39, device=device, dtype=torch.float64), size=4)
+    x = _frames((500, 8, 39), device, dtype=torch.float64).transpose(0, 1)
+    cuda_scan.reset_launch_counts()
+    assert torch.equal(nset64.sufficient_statistics(x), sk.diag_stats_plain(x))
+    assert _launched() == {"diag_stats": 1}
+    nset.plain_scan = True
+    cuda_scan.reset_launch_counts()
+    assert torch.equal(nset.sufficient_statistics(base), sk.diag_stats_plain(base))
+    assert _launched() == {}
+
+
+def test_diag_stats_rejects_what_the_kernel_does_not_take(device):
+    x = _frames((5, 39), device)
+    with pytest.raises(TypeError):
+        sk.diag_stats(x.half())
+    with pytest.raises(RuntimeError, match="requires grad"):
+        sk.diag_stats(x.clone().requires_grad_())
+    with pytest.raises(ValueError):
+        sk.diag_stats(x.T)
+    with pytest.raises(ValueError):
+        sk.diag_stats(_frames((2, sk.MAX_DIAG_DIM + 1), device))
+    with pytest.raises(ValueError):
+        sk.diag_stats(x.expand(2, 5, 39))
+
+
+@pytest.mark.parametrize("model", ["phone_loop", "hmm"])
+def test_diag_stats_launch_once_a_step_and_a_decode(device, model):
+    """The benchmark's two training models at their widths (a 50 × 3 phone
+    loop and a 30-state ergodic HMM with learned transitions, D = 39):
+    one ``diag_stats`` launch a ``vb_step`` beside the E-step's two
+    kernels, and one a phone-loop ``decode_units`` beside K3 and K4."""
+    gen = torch.Generator(device=device).manual_seed(21)
+    s = 150 if model == "phone_loop" else 30
+    nset = bt.NormalSet.create(torch.zeros(39, device=device), torch.ones(39, device=device),
+                               size=s, noise_std=0.5, generator=gen)
+    if model == "phone_loop":
+        m = bt.PhoneLoop.create(50, 3, nset)
+        kernels = ("forward_llh_banded", "estep_acc_banded")
+    else:
+        m = bt.HMM.create(bt.ergodic(30).compile(device=device), nset, learn_transitions=True)
+        kernels = ("forward_llh_dense", "estep_acc_dense")
+    x = torch.randn(8, 120, 39, generator=gen, device=device)
+    mask = (torch.arange(120, device=device)[None]
+            < torch.tensor([[120], [97], [0], [64], [120], [1], [17], [16]], device=device)).float()
+    cuda_scan.reset_launch_counts()
+    for _ in range(2):
+        _, m = bt.vb_step(m, x, mask=mask)
+    torch.cuda.synchronize()
+    assert _launched() == {"diag_stats": 2, **{k: 2 for k in kernels}}
+    if model == "phone_loop":
+        cuda_scan.reset_launch_counts()
+        with torch.no_grad():
+            m.decode_units(x, mask)
+        torch.cuda.synchronize()
+        assert _launched() == {"diag_stats": 1, "viterbi_fwd_banded": 1, "viterbi_backtrace_banded": 1}
+
+
+def test_diag_stats_not_on_the_vae_gradient_route(device):
+    """A hybrid step of a phone-loop SequenceVAE: its latent frames need a
+    gradient, so the statistics keep the plain expression under autograd
+    (no ``diag_stats`` launch) while K1 and K11 run; its latent decode,
+    under ``no_grad``, launches ``diag_stats`` once."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    nset = bt.NormalSet.create(torch.zeros(8, device=device), torch.ones(8, device=device),
+                               size=12, noise_std=0.5, generator=gen)
+    vae = bt.SequenceVAE.create(6, 8, bt.PhoneLoop.create(4, 3, nset), hidden=(16, 16), nsamples=1,
+                                generator=torch.Generator().manual_seed(6))
+    x = torch.randn(4, 30, 6, generator=gen, device=device)
+    mask = (torch.arange(30, device=device)[None]
+            < torch.tensor([[30], [17], [1], [30]], device=device)).float()
+    step = bt.make_vae_train_step(torch.optim.Adam(vae.parameters(), lr=1e-3))
+    cuda_scan.reset_launch_counts()
+    elbo = step(vae, x, gen, mask)
+    torch.cuda.synchronize()
+    launched = _launched()
+    assert torch.isfinite(elbo) and "diag_stats" not in launched
+    assert launched.get("forward_llh_banded") == 1 and launched.get("estep_gamma_banded") == 1
+    cuda_scan.reset_launch_counts()
+    vae.latent_decode(x, mask)
+    assert _launched() == {"diag_stats": 1, "viterbi_fwd_banded": 1, "viterbi_backtrace_banded": 1}
+
+
 # (units, states per unit, P, B, T) of K11: config 5 (S=30, P=2·16) and the
 # phone loop of config 4 (S=150, P=78); rows 2 and 4 are empty
 GAMMA_SHAPES = [(10, 3, 32, 6, 40), (50, 3, 78, 5, 30)]
@@ -719,7 +850,9 @@ def _routes_agree(model, x, m, need):
     log Z and ELBO rel 1e-5, γ abs 1e-5, statistics and ξ rel 1e-4, and
     every kernel of ``need`` launched."""
     plain = copy.deepcopy(model)
-    plain.plain_scan = True
+    for module in plain.modules():            # the HMM's scans and its NormalSet's statistics
+        if hasattr(module, "plain_scan"):
+            module.plain_scan = True
     cuda_scan.reset_launch_counts()
     got = _hmm_estep(model, x, m)
     torch.cuda.synchronize()
@@ -991,7 +1124,7 @@ def test_hundred_unit_vb_step_runs_through_the_kernels(device):
         elbo, loop = bt.vb_step(loop, x, mask=m)
         elbos.append(float(elbo))
     torch.cuda.synchronize()
-    assert _launched() == {"forward_llh_banded": 2, "estep_acc_banded": 2}
+    assert _launched() == {"diag_stats": 2, "forward_llh_banded": 2, "estep_acc_banded": 2}
     for got in elbos:
         elbo, plain = bt.vb_step(plain, x, mask=m)
         assert abs(got - float(elbo)) / float(m.sum()) <= 1e-4

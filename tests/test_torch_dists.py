@@ -19,6 +19,7 @@ from beer_tpu_torch import dists as td
 from beer_tpu_torch.models.categorical import Categorical, SBCategorical
 from beer_tpu_torch.models.normal import NormalSet
 from beer_tpu_torch.models.parameters import BayesianParameter
+from beer_tpu_torch.ops import stats_kernels
 from port_util import close, t
 
 RTOL = 1e-10
@@ -191,6 +192,52 @@ def test_normalset_ellh_and_accumulate_match_jax(rng):
     new_j = jset.vb_update({"means_precisions": acc_j}, lrate=0.7)
     tset.vb_update({"means_precisions": acc_t}, lrate=0.7)
     close(tset.means_precisions.posterior, new_j.means_precisions.posterior, RTOL)
+
+
+@pytest.mark.parametrize("shape", [(7, 3), (2, 9, 39)], ids=["2d", "3d"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_diag_stats_match_jax_bit_for_bit(shape, dtype, rng):
+    """The diagonal statistics [−½x², x]: the plain version of the
+    ``diag_stats`` kernel and ``NormalSet.sufficient_statistics`` (which
+    runs it on a CPU tensor) equal the JAX package's ``NormalSet`` to the
+    bit, in float32 and float64."""
+    x = (3.0 * rng.normal(size=shape)).astype(dtype)
+    jset = beer_tpu.NormalSet.create(jnp.zeros(shape[-1], dtype), jnp.ones(shape[-1], dtype),
+                                     size=2, cov_type="diagonal")
+    want = torch.from_numpy(np.array(jset.sufficient_statistics(jnp.asarray(x))))
+    frames = torch.from_numpy(x)
+    tset = NormalSet.create(torch.zeros(shape[-1], dtype=frames.dtype),
+                            torch.ones(shape[-1], dtype=frames.dtype), size=2)
+    assert want.dtype == frames.dtype
+    assert torch.equal(stats_kernels.diag_stats_plain(frames), want)
+    assert torch.equal(tset.sufficient_statistics(frames), want)
+
+
+def _refuse_diag_stats(*_):
+    raise AssertionError("the statistics must not reach the kernel's wrapper")
+
+
+def test_diag_stats_gradient_route_is_autograd(monkeypatch, rng):
+    """Frames that need a gradient (the structured VAE's latent frames)
+    keep the plain expression under autograd, never the kernel's wrapper:
+    d/dx Σ [−½x², x] = 1 − x."""
+    monkeypatch.setattr(stats_kernels, "diag_stats", _refuse_diag_stats)
+    tset = NormalSet.create(torch.zeros(4, dtype=torch.float64), torch.ones(4, dtype=torch.float64),
+                            size=3)
+    x = t(rng.normal(size=(2, 5, 4))).requires_grad_()
+    tset.sufficient_statistics(x).sum().backward()
+    assert torch.equal(x.grad, 1 - x.detach())
+
+
+def test_diag_stats_plain_scan_takes_the_plain_expression(monkeypatch, rng):
+    """A ``NormalSet`` with ``plain_scan`` (the reference route on the card)
+    computes its statistics by the plain expression, never the kernel's
+    wrapper."""
+    monkeypatch.setattr(stats_kernels, "diag_stats", _refuse_diag_stats)
+    tset = NormalSet.create(torch.zeros(4), torch.ones(4), size=3)
+    tset.plain_scan = True
+    x = torch.from_numpy(rng.normal(size=(2, 5, 4)).astype(np.float32))
+    assert torch.equal(tset.sufficient_statistics(x), torch.cat([-0.5 * x**2, x], dim=-1))
 
 
 def test_joint_families_to_std_match_jax(rng):

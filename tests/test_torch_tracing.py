@@ -103,8 +103,9 @@ def test_no_record_function_sync_or_clock_without_a_profiler(monkeypatch):
 def test_vb_step_spans(name):
     """One ``vb_step``: beer.vb_step ⊃ beer.estep ⊃ {beer.stats, beer.infer
     ⊃ beer.operands, beer.kl, beer.accumulate}, then beer.vb_update, and
-    the two E-step kernels, each once; the phone loop's operands hold its
-    wait on the card, beer.sync.structured_trans."""
+    the statistics kernel (in beer.stats) and the two E-step kernels, each
+    once; the phone loop's operands hold its wait on the card,
+    beer.sync.structured_trans."""
     model = MODELS[name]()
     x, mask = _data()
     spans, _ = _spans(lambda: bt.vb_step(model, x, mask=mask))
@@ -113,7 +114,7 @@ def test_vb_step_spans(name):
                "hmm": ("forward_llh_dense", "estep_acc_dense")}[name]
     want = Counter({"beer.vb_step": 1, "beer.estep": 1, "beer.stats": 1, "beer.infer": 1,
                     "beer.operands": 1, "beer.kl": 1, "beer.accumulate": 1, "beer.vb_update": 1,
-                    **{f"beer.kernel.{k}": 1 for k in kernels}})
+                    "beer.kernel.diag_stats": 1, **{f"beer.kernel.{k}": 1 for k in kernels}})
     if name == "phone_loop":
         want["beer.sync.structured_trans"] = 1
         assert _inside(spans, "beer.sync.structured_trans", "beer.operands")
@@ -123,6 +124,7 @@ def test_vb_step_spans(name):
     for inner in ("beer.stats", "beer.infer", "beer.kl", "beer.accumulate"):
         assert _inside(spans, inner, "beer.estep"), inner
     assert _inside(spans, "beer.operands", "beer.infer")
+    assert _inside(spans, "beer.kernel.diag_stats", "beer.stats")
     assert _inside(spans, f"beer.kernel.{kernels[0]}", "beer.infer")
     assert _inside(spans, f"beer.kernel.{kernels[1]}", "beer.accumulate")
     estep = next((s, e) for n, s, e in spans if n == "beer.estep")
@@ -133,7 +135,8 @@ def test_vb_step_spans(name):
 def test_decode_spans():
     """One ``PhoneLoop.decode``: beer.decode ⊃ {beer.operands (the graph,
     the bands with their wait on the card, E[T] and the Viterbi's
-    operands), beer.stats, beer.ellh, the two Viterbi kernels}."""
+    operands), beer.stats ⊃ the statistics kernel, beer.ellh, the two
+    Viterbi kernels}."""
     model = _phone_loop()
     x, mask = _data()
     with torch.no_grad():
@@ -141,11 +144,12 @@ def test_decode_spans():
     _well_named(spans)
     assert Counter(n for n, _, _ in spans) == Counter({
         "beer.decode": 1, "beer.operands": 4, "beer.sync.structured_trans": 1, "beer.stats": 1,
-        "beer.ellh": 1,
+        "beer.ellh": 1, "beer.kernel.diag_stats": 1,
         "beer.kernel.viterbi_fwd_banded": 1, "beer.kernel.viterbi_backtrace_banded": 1})
     for inner in {n for n, _, _ in spans} - {"beer.decode"}:
         assert _inside(spans, inner, "beer.decode"), inner
     assert _inside(spans, "beer.sync.structured_trans", "beer.operands")
+    assert _inside(spans, "beer.kernel.diag_stats", "beer.stats")
 
 
 def _full_set_step():
@@ -207,14 +211,15 @@ def _decode():
 
 # code path → the kernel wrappers it calls (their KERNELS keys)
 KERNEL_CASES = {
-    "phone_loop_vb_step": (lambda: _vb_step(_phone_loop), {"forward_llh_banded", "estep_acc_banded"}),
-    "phone_loop_grad": (_phone_loop_grad, {"forward_llh_banded", "estep_gamma_banded"}),
-    "phone_loop_decode": (_decode, {"viterbi_fwd_banded", "viterbi_backtrace_banded"}),
-    "phone_loop_smooth": (_smooth, {"scaled_pass", "smoothing_pass"}),
-    "hmm_vb_step": (lambda: _vb_step(_hmm), {"forward_llh_dense", "estep_acc_dense"}),
-    "hmm_posteriors": (_hmm_posteriors, {"forward_llh_dense", "estep_gamma_dense"}),
+    "phone_loop_vb_step": (lambda: _vb_step(_phone_loop),
+                           {"diag_stats", "forward_llh_banded", "estep_acc_banded"}),
+    "phone_loop_grad": (_phone_loop_grad, {"diag_stats", "forward_llh_banded", "estep_gamma_banded"}),
+    "phone_loop_decode": (_decode, {"diag_stats", "viterbi_fwd_banded", "viterbi_backtrace_banded"}),
+    "phone_loop_smooth": (_smooth, {"diag_stats", "scaled_pass", "smoothing_pass"}),
+    "hmm_vb_step": (lambda: _vb_step(_hmm), {"diag_stats", "forward_llh_dense", "estep_acc_dense"}),
+    "hmm_posteriors": (_hmm_posteriors, {"diag_stats", "forward_llh_dense", "estep_gamma_dense"}),
     "restricted_estep": (_restricted_estep,
-                         {"forward_llh_shifts_dense", "estep_gamma_dense_restricted"}),
+                         {"diag_stats", "forward_llh_shifts_dense", "estep_gamma_dense_restricted"}),
     "gmm_full_vb_step": (_gmm_step, {"gmm_estep_full"}),
     "full_set_ellh_and_accumulate": (_full_set_step, {"ellh_full", "accumulate_full"}),
 }

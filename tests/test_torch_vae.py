@@ -384,6 +384,7 @@ def _wrapper_calls():
         "gmm_estep_full": (sk.gmm_estep_full, f["x"], (f["e"], f["log_w"])),
         "ellh_full": (sk.ellh_full, f["x"], (f["e"],)),
         "accumulate_full": (sk.accumulate_full, f["x"], (f["r"],)),
+        "diag_stats": (sk.diag_stats, f["x"], ()),
     }
 
 
