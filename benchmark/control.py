@@ -16,7 +16,7 @@ decoding; training readings also give each leaf's gap):
 * ``half`` (training) — the reference in the program's place with half
   of the batch left out and the other half's data terms doubled;
 * ``altered`` (decoding) — the program's labels with the first frame of
-  every row moved to the next unit.
+  every row moved to a neighbouring label (its lowest bit flipped).
 
 A state left unchanged reads 1 by ``change_gap`` and needs no run.  The
 benchmark's own runs run none of this.
@@ -76,7 +76,7 @@ def decode_readings(cell, kind: str) -> dict:
         labels, scores = labels.cpu(), scores.cpu()
         del model
         if kind == "altered":
-            labels[:, 0] = (labels[:, 0] + 1) % cell.cfg["units"]
+            labels[:, 0] = labels[:, 0] ^ 1
     elif kind == "control":
         sel = rows.to(cor.x.device)
         params = cell.reference.initial(cell.cfg, cor.init_means, torch.float32)

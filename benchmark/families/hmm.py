@@ -1,7 +1,8 @@
 """The Bayesian ergodic HMM through the program: ``beer_tpu_torch.HMM``
 over ``ergodic(S)`` with learned transitions and a diagonal
 ``NormalSet``, built from the configuration and the seed-made initial
-means; and the work one E-step needs, counted from the shapes.
+means; and the work one E-step and one decode need, counted from the
+shapes.
 """
 
 from __future__ import annotations
@@ -34,14 +35,26 @@ def priors(model) -> dict:
             "transitions": model.trans_alpha_prior}
 
 
+def decode(model, x, mask):
+    """The timed decode, ``HMM.decode`` (the dense (max, +) Viterbi of
+    ``hmm decode`` on an ergodic graph): state labels (B, T) int32 and
+    best-path scores (B,)."""
+    return model.decode(x, mask)
+
+
 def work(cfg: dict, lens: torch.Tensor, t_len: int) -> dict:
-    """Float32 operations and bytes over the valid frames N, each input
-    byte read once and each output byte written once.  E-step a frame: the
-    ELLH 2·S·P and the moment accumulation 2·S·P (P = 2D), the dense
-    scaled forward 2·S² + 4·S, the backward 2·S² + 10·S and ξ 2·S²; it
-    reads the frames and writes the statistics."""
+    """Float32 operations and bytes over the valid frames N (B rows padded
+    to ``t_len``), each input byte read once and each output byte written
+    once.  E-step a frame: the ELLH 2·S·P and the moment accumulation
+    2·S·P (P = 2D), the dense scaled forward 2·S² + 4·S, the backward
+    2·S² + 10·S and ξ 2·S²; it reads the frames and writes the statistics.
+    Decode a frame: the ELLH 2·S·P, the dense (max, +) step 2·S² and the
+    backtrace 2; it reads the frames and writes a label a padded frame and
+    a score a row."""
     n, b = float(lens.sum()), lens.shape[0]
     d, s, p = cfg["dim"], cfg["components"], 2 * cfg["dim"]
     params = 4 * (s * 4 * d + s * s)
     return {"estep_flops": n * (4 * s * p + 6 * s * s + 14 * s),
-            "estep_bytes": 4 * (n * d + b) + 2 * params}
+            "estep_bytes": 4 * (n * d + b) + 2 * params,
+            "decode_flops": n * (2 * s * p + 2 * s * s + 2),
+            "decode_bytes": 4 * (n * d + b) + params + 4 * (b * t_len + b)}

@@ -6,7 +6,8 @@ S states, every state reaching every state: a self-loop ``self_loop``,
 states.  Diagonal Normal-Gamma emissions, one per state, and a Dirichlet
 over each state's outgoing arcs (prior ``trans_prior_strength`` × the
 normalised arc weights; the end weight stays fixed), trained by
-full-batch VB-EM: the E-step runs under exp E[log A].
+full-batch VB-EM: the E-step runs under exp E[log A].  Decoding is the
+dense (max, +) Viterbi under E[log A], log init and log final.
 
 Nothing of the program is imported.  The leaves are the emissions'
 natural parameters ("modelset", (S, 4D)) and the transition
@@ -14,6 +15,8 @@ concentrations ("transitions", (S, S)).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -68,3 +71,22 @@ def update(params: dict, stats: dict) -> dict:
     return {"prior": params["prior"],
             "post": {k: (params["prior"][k].double() + stats[k]).to(params["post"][k].dtype)
                      for k in LEAVES}}
+
+
+def decode(cfg: dict, params: dict, x, lens, prec: common.Precision, labels=None):
+    """Viterbi over ``x`` / ``lens`` under the posterior: (state labels
+    (B, T), scores (B,)).  With ``labels`` (B, T) the scores are those of
+    the best path whose frames lie in those states (−inf where none does),
+    and no labels are returned."""
+    common.tf32_off()
+    post = {k: v.to(prec.dtype) for k, v in params["post"].items()}
+    w, bias = common.ellh_affine(post["modelset"])
+    _, init, final = arcs(cfg, prec.dtype, x.device)
+    log_trans = common.dirichlet_expected_log(post["transitions"])
+    stats = common.reduced_stats(x, prec.dtype)
+    llh = prec.mm(stats.reshape(-1, stats.shape[-1]), w).reshape(*x.shape[:2], -1) + bias
+    if labels is not None:
+        states = torch.arange(llh.shape[-1], device=x.device)
+        llh = torch.where(states == labels[..., None].to(x.device).long(), llh, -math.inf)
+    return common.viterbi(llh, lens, log_trans, torch.log(init), torch.log(final),
+                          backtrace=labels is None)

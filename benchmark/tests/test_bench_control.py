@@ -15,6 +15,7 @@ kernels' plain versions; on the card ``benchmark/control.py`` reads the
 same at the cells' own size.
 """
 
+import importlib
 import time
 
 import pytest
@@ -36,13 +37,13 @@ def _failed(readings, cell):
     return [k for k in limits if not readings[k] <= limits[k]]
 
 
-@pytest.mark.parametrize("cell", ["aud-train", "hmm-train", "aud-decode"])
+@pytest.mark.parametrize("cell", ["aud-train", "hmm-train", "aud-decode", "hmm-decode"])
 def test_sound_run_is_correct(cell):
     assert _run(cell)["correct"]
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("cell", ["aud-train", "hmm-train", "aud-decode"])
+@pytest.mark.parametrize("cell", ["aud-train", "hmm-train", "aud-decode", "hmm-decode"])
 def test_control_fails(cell, seed):
     assert _failed(control.readings(cell, seed, "control", "cpu", SIZE), cell)
 
@@ -75,30 +76,33 @@ def test_half_batch_fails(cell, vbi, monkeypatch):
     assert not _run(cell)["correct"]
 
 
-def test_altered_answer_fails(monkeypatch):
-    from benchmark.families import phone_loop
+DECODES = {"aud-decode": "phone_loop", "hmm-decode": "hmm"}
 
-    real = phone_loop.decode
+
+@pytest.mark.parametrize("cell", sorted(DECODES))
+def test_altered_answer_fails(cell, monkeypatch):
+    family = importlib.import_module(f"benchmark.families.{DECODES[cell]}")
+    real = family.decode
 
     def decode(model, x, mask):
         labels, scores = real(model, x, mask)
         labels = labels.clone()
-        labels[:, 0] = (labels[:, 0] + 1) % model.n_units
+        labels[:, 0] = labels[:, 0] ^ 1
         return labels, scores
 
-    monkeypatch.setattr(phone_loop, "decode", decode)
-    assert not _run("aud-decode")["correct"]
+    monkeypatch.setattr(family, "decode", decode)
+    assert not _run(cell)["correct"]
 
 
-def test_half_batch_decode_fails(monkeypatch):
-    from benchmark.families import phone_loop
-
-    real = phone_loop.decode
+@pytest.mark.parametrize("cell", sorted(DECODES))
+def test_half_batch_decode_fails(cell, monkeypatch):
+    family = importlib.import_module(f"benchmark.families.{DECODES[cell]}")
+    real = family.decode
 
     def decode(model, x, mask):
         half = x.shape[0] // 2
         labels, scores = real(model, x[:half], mask[:half])
         return (torch.cat([labels, torch.zeros_like(labels)]), torch.cat([scores, scores]))
 
-    monkeypatch.setattr(phone_loop, "decode", decode)
-    assert not _run("aud-decode")["correct"]
+    monkeypatch.setattr(family, "decode", decode)
+    assert not _run(cell)["correct"]

@@ -29,7 +29,7 @@ def test_a_run_loads_no_jax():
         "for m in pkgutil.walk_packages(benchmark.__path__, 'benchmark.'):\n"
         "    if '.tests' not in m.name: importlib.import_module(m.name)\n"
         "for p in (harness.HERE / 'metrics').glob('*.py'): harness.reader(p.stem)\n"
-        "for w in ('aud-train', 'aud-decode'):\n"
+        "for w in ('aud-train', 'aud-decode', 'hmm-decode'):\n"
         "    harness.run(w, 5, 0.2, False, 'cpu', time.perf_counter(),\n"
         "                {'utterances': 2, 'min_frames': 8, 'max_frames': 10})")
     assert "beer_tpu_torch" in modules and "torch" in modules

@@ -59,39 +59,45 @@ def _brute(x, lens, w, bias, trans, init, final):
             torch.tensor(best, dtype=torch.float64), paths)
 
 
+def _family(family, seed):
+    """(configuration, reference module, params, frames, lengths, (trans,
+    init, final) probabilities, the label of each state) of ``family``."""
+    if family == "phone_loop":
+        means, x, lens = _data(4, seed)
+        params = ref_loop.initial(LOOP, means)
+        arcs = ref_loop.graph(LOOP, params["post"])
+        return LOOP, ref_loop, params, x, lens, arcs, lambda q: q // LOOP["states_per_unit"]
+    means, x, lens = _data(3, seed)
+    params = ref_hmm.initial(ERGODIC, means)
+    _, init, final = ref_hmm.arcs(ERGODIC, torch.float64, "cpu")
+    trans = torch.exp(common.dirichlet_expected_log(params["post"]["transitions"]))
+    return ERGODIC, ref_hmm, params, x, lens, (trans, init, final), lambda q: q
+
+
 @pytest.mark.parametrize("family", ["phone_loop", "hmm"])
 def test_forward_backward(family):
-    if family == "phone_loop":
-        means, x, lens = _data(4)
-        params = ref_loop.initial(LOOP, means)
-        trans, init, final = ref_loop.graph(LOOP, params["post"])
-    else:
-        means, x, lens = _data(3, seed=1)
-        params = ref_hmm.initial(ERGODIC, means)
-        _, init, final = ref_hmm.arcs(ERGODIC, torch.float64, "cpu")
-        trans = torch.exp(common.dirichlet_expected_log(params["post"]["transitions"]))
+    _, _, params, x, lens, arcs, _ = _family(family, seed=0 if family == "phone_loop" else 1)
     w, bias = common.ellh_affine(params["post"]["modelset"])
-    got = common.forward_backward(x, lens, w, bias, trans, init, final, F64, block=2)
-    want, _, _ = _brute(x, lens, w, bias, trans, init, final)
+    got = common.forward_backward(x, lens, w, bias, *arcs, F64, block=2)
+    want, _, _ = _brute(x, lens, w, bias, *arcs)
     for g, e in zip((got.log_z, got.acc2, got.counts, got.gamma0, got.xi), want):
         torch.testing.assert_close(g, e, rtol=1e-10, atol=1e-12)
 
 
-def test_viterbi():
-    means, x, lens = _data(4, seed=2)
-    params = ref_loop.initial(LOOP, means)
-    trans, init, final = ref_loop.graph(LOOP, params["post"])
+@pytest.mark.parametrize("family", ["phone_loop", "hmm"])
+def test_viterbi(family):
+    cfg, ref, params, x, lens, arcs, label = _family(family, seed=2)
     w, bias = common.ellh_affine(params["post"]["modelset"])
-    _, best, paths = _brute(x, lens, w, bias, trans, init, final)
-    labels, scores = ref_loop.decode(LOOP, params, x, lens, F64)
+    _, best, paths = _brute(x, lens, w, bias, *arcs)
+    labels, scores = ref.decode(cfg, params, x, lens, F64)
     torch.testing.assert_close(scores, best, rtol=1e-12, atol=1e-12)
     for b, n in enumerate(lens.tolist()):
-        assert labels[b, :n].tolist() == [q // 2 for q in paths[b]]
-    _, through = ref_loop.decode(LOOP, params, x, lens, F64, labels=labels)
+        assert labels[b, :n].tolist() == [label(q) for q in paths[b]]
+    _, through = ref.decode(cfg, params, x, lens, F64, labels=labels)
     torch.testing.assert_close(through, best, rtol=1e-12, atol=1e-12)
     moved = labels.clone()
-    moved[:, 0] = 1 - moved[:, 0]
-    _, off = ref_loop.decode(LOOP, params, x, lens, F64, labels=moved)
+    moved[:, 0] = moved[:, 0] ^ 1
+    _, off = ref.decode(cfg, params, x, lens, F64, labels=moved)
     assert bool((off < best - 1e-9).all())
 
 

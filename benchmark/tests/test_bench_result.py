@@ -17,7 +17,7 @@ ROOT = Path(__file__).resolve().parents[2]
 SMALL = {"utterances": 4, "min_frames": 10, "max_frames": 16}
 
 
-@pytest.mark.parametrize("cell", ["aud-train", "hmm-train", "aud-decode"])
+@pytest.mark.parametrize("cell", ["aud-train", "hmm-train", "aud-decode", "hmm-decode"])
 def test_result_line(cell):
     result, lines = harness.run(cell, 2**31 + 11, 0.2, False, "cpu", time.perf_counter(), SMALL)
     assert list(result) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
@@ -35,9 +35,11 @@ def test_result_line(cell):
 def test_per_layer_metrics_by_cell():
     names = lambda cell: {m["name"] for m in harness.cell_metrics("per_layer", cell)}  # noqa: E731
     assert names("aud-train") == names("hmm-train") == {
-        "mfu_pct.train", "estep_roofline", "mstep_ms", "launches.train", "idle_pct.train"}
-    assert names("aud-decode") == {"mfu_pct.decode", "decode_roofline", "launches.decode",
-                                   "idle_pct.decode"}
+        "mfu_pct.train", "estep_roofline", "mstep_ms", "launches.train", "idle_pct.train",
+        "program_idle_pct.train", "prep_ms.train", "update_host_ms"}
+    assert names("aud-decode") == names("hmm-decode") == {
+        "mfu_pct.decode", "decode_roofline", "launches.decode", "idle_pct.decode",
+        "program_idle_pct.decode", "prep_ms.decode"}
 
 
 def test_same_seed_same_inputs():
@@ -67,7 +69,7 @@ def test_no_result_without_a_card(capsys):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["aud-train", "aud-decode"])
+@pytest.mark.parametrize("cell", ["aud-train", "aud-decode", "hmm-decode"])
 def test_traced_result_line_on_the_card(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

@@ -30,8 +30,11 @@ def test_hmm_counts():
     # a frame: ELLH 2·3·4 = 24, accumulation 24, forward 2·9 + 12,
     # backward 2·9 + 30, ξ 2·9
     assert w["estep_flops"] == 8 * (24 + 24 + 30 + 48 + 18)
-    params = 4 * (3 * 8 + 9)
+    # decode a frame: ELLH 24, (max, +) 2·9, backtrace 2
+    assert w["decode_flops"] == 8 * (24 + 18 + 2)
+    params = 4 * (3 * 8 + 9)           # emissions 3 × 4D, the 3 × 3 Dirichlet
     assert w["estep_bytes"] == 4 * (8 * 2 + 2) + 2 * params
+    assert w["decode_bytes"] == 4 * (8 * 2 + 2) + params + 4 * (2 * 5 + 2)
 
 
 def _trace_file(tmp_path, events):
