@@ -23,10 +23,19 @@ under ``torch.no_grad()``: they feed the conjugate update, not autograd.
 The nnet parameters are ``vae.parameters()`` (the latent model holds
 buffers only); the noise ε is drawn from a ``torch.Generator`` or
 injected (``eps``).  The ELBO is summed in float64.
+
+Spans (:mod:`beer_tpu_torch.utils.profiling`): ``beer.svae.encode`` (the
+encoder, the sample and the entropy), ``beer.svae.prior`` (the latent
+statistics and the latent model's ``infer``), ``beer.svae.decode`` (the
+decoder and the reconstruction), ``beer.kl`` and ``beer.accumulate``
+around the ELBO's terms; ``beer.svae.backward`` around the hybrid step's
+``backward()``.  :data:`NNET_FRAMES` counts, on the host, the frames the
+nnets ran over.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -34,7 +43,20 @@ from torch import nn
 
 from beer_tpu_torch import nnet
 from beer_tpu_torch.nnet import flows as nnet_flows
+from beer_tpu_torch.utils.profiling import named_scope
 from beer_tpu_torch.vbi import VBOptimizer
+
+
+@dataclasses.dataclass
+class FrameCount:
+    """Frames the nnets ran over, padding included: the encoder's N (B·T
+    for sequences) and the decoder's nsamples·N at each evaluation of the
+    ELBO's terms, counted from the shapes on the host."""
+
+    frames: int = 0
+
+
+NNET_FRAMES = FrameCount()
 
 
 def _scale(acc: Any, scale: float) -> Any:
@@ -120,11 +142,12 @@ class VAE(nn.Module):
         return nnet.normal_log_likelihood(out, x_rep)
 
     def _elbo(self, terms: torch.Tensor, scale: float) -> torch.Tensor:
-        return scale * terms.sum(dtype=torch.float64) - \
-            self.latent_model.kl_div_posterior_prior().double()
+        with named_scope("beer.kl"):
+            kl = self.latent_model.kl_div_posterior_prior()
+        return scale * terms.sum(dtype=torch.float64) - kl.double()
 
     def _accumulate(self, stats, cache, scale: float):
-        with torch.no_grad():
+        with torch.no_grad(), named_scope("beer.accumulate"):
             return _scale(self.latent_model.accumulate(stats, cache), scale / self.nsamples)
 
     def _terms(self, x, mask, generator, eps):
@@ -132,14 +155,19 @@ class VAE(nn.Module):
         the latent model's cache and q (``mask`` is unused: frames are
         i.i.d.)."""
         n = x.shape[0]
-        q = self.encoder(x)
-        z, entropy = self._sample_posterior(q, generator, eps)      # (S, N, dz)
-        flat_z = z.reshape(-1, self.latent_dim)
-        stats = self.latent_model.sufficient_statistics(flat_z)
-        prior_llh, cache = self.latent_model.infer(stats)
-        prior_llh = prior_llh.reshape(self.nsamples, n).mean(0)
-        x_rep = x[None].expand(self.nsamples, *x.shape).reshape(-1, x.shape[-1])
-        rec = self._reconstruction(flat_z, x_rep).reshape(self.nsamples, n).mean(0)
+        with named_scope("beer.svae.encode"):
+            q = self.encoder(x)
+            z, entropy = self._sample_posterior(q, generator, eps)  # (S, N, dz)
+            NNET_FRAMES.frames += n
+        with named_scope("beer.svae.prior"):
+            flat_z = z.reshape(-1, self.latent_dim)
+            stats = self.latent_model.sufficient_statistics(flat_z)
+            prior_llh, cache = self.latent_model.infer(stats)
+            prior_llh = prior_llh.reshape(self.nsamples, n).mean(0)
+        with named_scope("beer.svae.decode"):
+            x_rep = x[None].expand(self.nsamples, *x.shape).reshape(-1, x.shape[-1])
+            rec = self._reconstruction(flat_z, x_rep).reshape(self.nsamples, n).mean(0)
+            NNET_FRAMES.frames += flat_z.shape[0]
         return rec + prior_llh + entropy, stats, cache, q
 
     def elbo_and_stats(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -216,16 +244,21 @@ class SequenceVAE(VAE):
         if mask is None:
             mask = x.new_ones(b, t)
         s = self.nsamples
-        q = self.encoder(x)
-        z, entropy = self._sample_posterior(q, generator, eps)        # (S, B, T, dz)
-        entropy = (entropy * mask).sum(-1)                            # (B,)
-        flat_z = z.reshape(s * b, t, self.latent_dim)
-        mask_rep = mask.repeat(s, 1)
-        stats = self.latent_model.sufficient_statistics(flat_z)
-        log_z, cache = self.latent_model.infer(stats, mask=mask_rep)
-        prior_llh = log_z.reshape(s, b).mean(0)                       # (B,)
-        x_rep = x[None].expand(s, *x.shape).reshape(s * b, t, x.shape[-1])
-        rec = (self._reconstruction(flat_z, x_rep) * mask_rep).sum(-1).reshape(s, b).mean(0)
+        with named_scope("beer.svae.encode"):
+            q = self.encoder(x)
+            z, entropy = self._sample_posterior(q, generator, eps)    # (S, B, T, dz)
+            entropy = (entropy * mask).sum(-1)                        # (B,)
+            NNET_FRAMES.frames += b * t
+        with named_scope("beer.svae.prior"):
+            flat_z = z.reshape(s * b, t, self.latent_dim)
+            mask_rep = mask.repeat(s, 1)
+            stats = self.latent_model.sufficient_statistics(flat_z)
+            log_z, cache = self.latent_model.infer(stats, mask=mask_rep)
+            prior_llh = log_z.reshape(s, b).mean(0)                   # (B,)
+        with named_scope("beer.svae.decode"):
+            x_rep = x[None].expand(s, *x.shape).reshape(s * b, t, x.shape[-1])
+            rec = (self._reconstruction(flat_z, x_rep) * mask_rep).sum(-1).reshape(s, b).mean(0)
+            NNET_FRAMES.frames += s * b * t
         return rec + prior_llh + entropy, stats, cache, q
 
     @torch.no_grad()
@@ -252,7 +285,8 @@ def make_vae_train_step(optimizer: torch.optim.Optimizer, datasize=None, lrate: 
         hybrid = VBOptimizer(vae, optimizer, lrate)
         hybrid.zero_grad()
         elbo, acc = vae.elbo_and_stats(x, generator, datasize, mask, eps)
-        (-elbo).backward()
+        with named_scope("beer.svae.backward"):
+            (-elbo).backward()
         hybrid.step(acc)
         return elbo.detach()
 

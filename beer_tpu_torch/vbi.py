@@ -27,7 +27,8 @@ per-frame tolerances used to check VB-EM monotonicity.
 Spans (:mod:`beer_tpu_torch.utils.profiling`): ``beer.vb_step`` around
 :func:`vb_step`, ``beer.estep`` around :func:`elbo_and_stats` and,
 inside it, ``beer.stats``, ``beer.infer``, ``beer.kl`` and
-``beer.accumulate`` around the model's four calls.
+``beer.accumulate`` around the model's four calls; ``beer.svae.optim``
+around :class:`VBOptimizer`'s ``torch.optim`` step.
 """
 
 from __future__ import annotations
@@ -257,7 +258,8 @@ class VBOptimizer:
         self.optimizer.zero_grad(set_to_none=True)
 
     def step(self, acc):
-        self.optimizer.step()
+        with named_scope("beer.svae.optim"):
+            self.optimizer.step()
         with torch.no_grad():
             self.model = self.model.vb_update(acc, self.lrate)
         return self.model

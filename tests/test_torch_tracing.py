@@ -50,6 +50,15 @@ def _hmm():
 MODELS = {"phone_loop": _phone_loop, "hmm": _hmm}
 
 
+def _svae_step(nsamples=2):
+    """A structured VAE over the phone loop (latent dim D, one tanh layer
+    of 8) and its hybrid step (Adam, conjugate learning rate 0.1)."""
+    vae = bt.SequenceVAE.create(D, D, _phone_loop(), hidden=(8,), nsamples=nsamples)
+    step = bt.make_vae_train_step(torch.optim.Adam(vae.parameters(), lr=1e-3), datasize=2 * B,
+                                  lrate=0.1)
+    return vae, step
+
+
 def _spans(fn):
     """The user spans that ``fn()`` emits under a CPU profiler, as (name,
     start, end) by start, and ``fn``'s result."""
@@ -130,6 +139,55 @@ def test_vb_step_spans(name):
     estep = next((s, e) for n, s, e in spans if n == "beer.estep")
     update = next((s, e) for n, s, e in spans if n == "beer.vb_update")
     assert estep[1] <= update[0]
+
+
+def test_svae_hybrid_step_spans():
+    """One hybrid step: beer.svae.encode, beer.svae.prior ⊃ beer.operands (⊃
+    the band write's wait) and the K1 and K11 wrappers, beer.svae.decode,
+    beer.kl, beer.accumulate, beer.svae.backward, beer.svae.optim (⊃
+    torch's own span of the Adam step), beer.vb_update, each once and in
+    that order; the nnets' frame counter advances by B·T·(1 + nsamples)."""
+    from beer_tpu_torch.models import vae as vae_mod
+
+    vae, step = _svae_step()
+    x, mask = _data()
+    before = vae_mod.NNET_FRAMES.frames
+    spans, _ = _spans(lambda: step(vae, x, torch.Generator().manual_seed(0), mask=mask))
+    assert vae_mod.NNET_FRAMES.frames - before == B * T * (1 + 2)
+    ours = [s for s in spans if s[0].startswith("beer.")]
+    _well_named(ours)
+    order = ["beer.svae.encode", "beer.svae.prior", "beer.operands", "beer.sync.structured_trans",
+             "beer.kernel.forward_llh_banded", "beer.kernel.estep_gamma_banded",
+             "beer.svae.decode", "beer.kl", "beer.accumulate", "beer.svae.backward",
+             "beer.svae.optim", "beer.vb_update"]
+    assert [n for n, _, _ in ours] == order
+    for inner in ("beer.operands", "beer.sync.structured_trans", "beer.kernel.forward_llh_banded",
+                  "beer.kernel.estep_gamma_banded"):
+        assert _inside(spans, inner, "beer.svae.prior"), inner
+    assert _inside(spans, "beer.sync.structured_trans", "beer.operands")
+    assert _inside(spans, "Optimizer.step#Adam.step", "beer.svae.optim")
+    top = [s for s in ours if s[0] in ("beer.svae.encode", "beer.svae.prior", "beer.svae.decode",
+                                       "beer.svae.backward", "beer.svae.optim", "beer.vb_update")]
+    assert all(a[2] <= b[1] for a, b in zip(top, top[1:]))
+
+
+def test_svae_spans_closed_without_a_profiler(monkeypatch):
+    """With no profiler recording, a hybrid step opens none of the
+    program's spans (torch's own optimizer span aside), synchronises
+    nothing, and its counter still counts."""
+    from beer_tpu_torch.models import vae as vae_mod
+
+    def refuse(*_, **__):
+        raise AssertionError("called with no profiler recording")
+
+    vae, step = _svae_step(nsamples=1)
+    x, mask = _data()
+    before = vae_mod.NNET_FRAMES.frames
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", refuse)
+        m.setattr(torch.cuda, "synchronize", refuse)
+        step(vae, x, torch.Generator().manual_seed(0), mask=mask)
+    assert vae_mod.NNET_FRAMES.frames - before == 2 * B * T
 
 
 def test_decode_spans():
